@@ -1,0 +1,1 @@
+"""Developer tools for the port (run on the card)."""
