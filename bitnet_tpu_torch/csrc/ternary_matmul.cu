@@ -22,11 +22,13 @@
 //    int8 activations broadcast from shared memory.  The preamble (SwiGLU,
 //    RMSNorm, absmax int8 quantization, row sums) needs the whole row before
 //    the dot, and Hopper blocks cannot carry scratch across the grid as the
-//    TPU grid did.  For M <= 4 (decode at B <= 2 is the main path) every
+//    TPU grid did.  For M <= 2 (decode at B <= 2, the main path) every
 //    block recomputes it from the x row in L2 while its first weight words
 //    are in flight: one launch, and a call at M=1 is bound by launch latency
 //    rather than by two dependent kernels.  Larger M runs a per-row quantize
-//    kernel first and the GEMV reads its int8 rows (M*Kp bytes) from L2.
+//    kernel first and the GEMV reads its int8 rows (M*Kp bytes) from L2;
+//    nothing in the engine sends M > 2 until decode pools of B > 2 are
+//    ported (ROADMAP queue 1 #9), which will choose between the two designs.
 //  - K4 (M = B*T >= 128) is bound by int8 operations: a 64x64 block tile of
 //    mma.sync.m16n8k32 s8*s8->s32 (tensor cores), the 2-bit planes expanded
 //    to B fragments in registers straight from shared-memory words, the
@@ -196,7 +198,7 @@ w2a8_gemv(const int8_t* __restrict__ xq, int M, int Kp,
 }
 
 // ---------------------------------------------------------------------------
-// K1 for M <= FUSED_MAX_M (decode pools of B <= 4): ONE launch.  Every block
+// K1 for M <= FUSED_MAX_M (decode at B <= 2): ONE launch.  Every block
 // recomputes the row preamble (the x row comes from L2: 5-27 KB) while its
 // first 16 weight words per thread are already in flight, keeps the int8 rows
 // in shared memory for all of K, and streams the words with the next
@@ -204,7 +206,7 @@ w2a8_gemv(const int8_t* __restrict__ xq, int M, int Kp,
 // writes xq / sx / sumq out, so a test can hold them against the plain
 // version.
 // ---------------------------------------------------------------------------
-constexpr int FUSED_MAX_M = 4;
+constexpr int FUSED_MAX_M = 2;
 constexpr int FUSED_MAX_K = 8192;
 constexpr int FUSED_THREADS = 512;                   // 16 warps
 constexpr int FUSED_WARPS = FUSED_THREADS / 32;
@@ -461,8 +463,7 @@ cudaError_t launch_normed(const void* x, int x_stride, int M, int K, int glu,
       xt, x_stride, M, K, glu, gamma, eps, words, Np, scale, r, o, N, xq, sx,  \
       sumq)
     if (M == 1) BN_FUSED(1);
-    else if (M == 2) BN_FUSED(2);
-    else BN_FUSED(4);
+    else BN_FUSED(2);
 #undef BN_FUSED
     return cudaGetLastError();
   }

@@ -37,8 +37,8 @@ from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope
 from ..ops.ternary_matmul import (
     int8_matmul,
+    STACKED_DECODE_MAX_M,
     quantize_rows,
-    stacked_decode_max_m,
     ternary_matmul_w2a8,
     ternary_matmul_w2a8_normed,
 )
@@ -145,7 +145,7 @@ def decode_attn_plan(B: int, kv_dtype: str = "bf16") -> str:
     quantized = kv_dtype in ("int8", "fp8")
     if B <= 2:
         return "qkv_quant_v2s" if quantized else "qkv_v2s"
-    v2_ok_b = B <= 16 or (B % 2 == 0 and B <= min(64, stacked_decode_max_m()))
+    v2_ok_b = B <= 16 or (B % 2 == 0 and B <= STACKED_DECODE_MAX_M)
     if v2_ok_b:
         return "quant_batched_v2" if quantized else "batched_v2"
     return "einsum"
@@ -171,7 +171,7 @@ def stacked_weights_ok(cfg: ModelConfig, b: BlockParams) -> bool:
 def stacked_decode_ok(cfg: ModelConfig, params: BitNetParams, T: int, B: int,
                       cache_dtype: torch.dtype) -> bool:
     kv = "bf16" if cache_dtype == torch.bfloat16 else str(cache_dtype)
-    return (T == 1 and B <= stacked_decode_max_m()
+    return (T == 1 and B <= STACKED_DECODE_MAX_M
             and decode_attn_plan(B, kv) in PORTED_PLANS
             and cache_dtype == torch.bfloat16
             and stacked_weights_ok(cfg, params.blocks))

@@ -19,20 +19,17 @@ for CPU tensors — never the plain version on a CUDA tensor.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from . import _cuda
 from .linear import unpack_packed
 
-
-
-def stacked_decode_max_m() -> int:
-    """The one M cap of the decode-shaped W2A8 kernel (the JAX package's
-    ``stacked_decode_max_m``, ``ops/ternary_matmul.py:52``): the model's
-    stacked-decode gate and the kernel wrapper both read it."""
-    return int(os.environ.get("BITNET_STACKED_DECODE_MAX_M", "64"))
+# The one M cap of the decode-shaped W2A8 kernel, the default of the JAX
+# package's ``stacked_decode_max_m()`` (``ops/ternary_matmul.py:52``; there
+# an environment override trades it against the TPU's VMEM, a limit the
+# CUDA kernel does not have).  The model's stacked-decode gate and K1's
+# wrapper both read it.
+STACKED_DECODE_MAX_M = 64
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +123,8 @@ def _check_stack(packed, scale_vec, l, k_dim):
         raise ValueError(f"scale_vec must be f32 [{L}, {Np}]")
     if not (packed.is_contiguous() and scale_vec.is_contiguous()):
         raise ValueError("packed and scale_vec must be contiguous")
+    if Np % 64:                 # the kernels' column blocks are 32 (K1), 64 (K4)
+        raise ValueError(f"W2A8 kernels need Np % 64 == 0, got Np={Np}")
     return L, Np
 
 
@@ -135,8 +134,8 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                n_dim: int, eps: float = 1e-5,
                                glu: bool = False,
                                resid: torch.Tensor | None = None) -> torch.Tensor:
-    """K1: ``[resid +] quantize(norm(glu(x))) @ W[l]`` for decode rows (the
-    stacked decode path sends M = B ≤ ``stacked_decode_max_m()``).
+    """K1: ``[resid +] quantize(norm(glu(x))) @ W[l]`` for decode rows,
+    M = B ≤ ``STACKED_DECODE_MAX_M``.
 
     x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed [L, Kp/16, Np];
     scale_vec [L, Np] f32; gamma [L, Kp] f32 or None; resid [M, n_dim] in
@@ -146,8 +145,8 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
     if x.ndim != 2 or x.shape[1] != (2 * k_dim if glu else k_dim):
         raise ValueError(f"x must be [M, {2 * k_dim if glu else k_dim}], got "
                          f"{tuple(x.shape)}")
-    if M < 1:
-        raise ValueError("decode W2A8 needs at least one row")
+    if not 1 <= M <= STACKED_DECODE_MAX_M:
+        raise ValueError(f"decode W2A8 takes 1..{STACKED_DECODE_MAX_M} rows, got {M}")
     if n_dim > Np:
         raise ValueError(f"n_dim {n_dim} > Np {Np}")
     if gamma is not None and tuple(gamma.shape) != (L, k_dim):

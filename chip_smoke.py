@@ -134,8 +134,11 @@ def phase_kernels(torch, dev):
             resid = (torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
                      if has_r else None)
             l = 1
-            out, xq, sx, sumq = tm._w2a8_normed_cuda(l, x, words, sv, gamma, K,
-                                                    N, eps, glu, resid)
+            out = tm.ternary_matmul_w2a8_normed(l, x, words, sv, gamma, K, N,
+                                                eps, glu, resid)
+            # the same launch with its int8 rows, scales and row sums kept
+            out2, xq, sx, sumq = tm._w2a8_normed_cuda(l, x, words, sv, gamma, K,
+                                                     N, eps, glu, resid)
             g_l = None if gamma is None else gamma[l]
             pre = tm.w2a8_preamble_plain(x, g_l, eps, glu)
             xq_p, sx_p, sumq_p = tm.quantize_rows(pre)
@@ -157,8 +160,10 @@ def phase_kernels(torch, dev):
                    "xq_mismatch": int((qdiff > 0).sum().item()),
                    "xq_max_diff": int(qdiff.max().item()),
                    "sumq_exact": bool(torch.equal(sumq, xq.int().sum(1, dtype=torch.int32))),
-                   "dot_epilogue_exact": bool(torch.equal(exact, out))}
+                   "dot_epilogue_exact": bool(torch.equal(exact, out)),
+                   "wrapper_equals_launch": bool(torch.equal(out, out2))}
             ok = (row["sumq_exact"] and row["dot_epilogue_exact"]
+                  and row["wrapper_equals_launch"]
                   and row["xq_max_diff"] <= 1
                   and row["xq_mismatch"] <= max(2, xq.numel() // 1000)
                   and err <= tol)
@@ -323,10 +328,13 @@ def summarize(res, launches):
 def phase_parity(torch, dev):
     """The same 2-layer full-width model through the CUDA kernels and
     through the plain versions on the CPU, teacher-forced with the CUDA
-    run's greedy tokens.  At f32 activations the two must pick the same
-    tokens; at bf16 a rounding difference can move an int8 activation
-    across a boundary (requantization amplifies it), so bf16 is held to
-    the logits cosine only and its token agreement is reported."""
+    run's greedy tokens.  Every step's logits keep cosine >= 0.99.  At f32
+    activations the two must pick the same tokens.  At bf16 they must pick
+    the same token wherever the CPU's top-2 logit margin exceeds the
+    largest logit difference: K2 rounds its softmax weights to bf16
+    against other maxima than the plain version, and int8 requantization
+    amplifies that (``python -m bitnet_tpu_torch.tools.parity_probe``), so
+    a near-tie may go either way."""
     from bitnet_tpu_torch.config import EngineConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.engine.sampling import argmax
@@ -343,19 +351,23 @@ def phase_parity(torch, dev):
         eg = InferenceEngine(cfg, params, ec, device=dev)
         ecpu = InferenceEngine(cfg, params, ec, device="cpu")
         lg_g, lg_c = eg.prefill(prompt), ecpu.prefill(prompt)
-        toks_g, toks_c, cos = [], [], []
+        toks_g, toks_c, cos, tie_ok = [], [], [], []
         pos = len(prompt)
         for _ in range(8):
             a, b = lg_g[0].float().cpu(), lg_c[0].float()
             cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
             tg, tc = int(argmax(lg_g)[0]), int(argmax(lg_c)[0])
+            top2 = torch.topk(b, 2).values
+            tie_ok.append(tg == tc or float(top2[0] - top2[1])
+                          <= float((a - b).abs().max()))
             toks_g.append(tg)
             toks_c.append(tc)
             lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
             pos += 1
         r = {"tokens_cuda": toks_g, "tokens_cpu": toks_c, "min_cosine": min(cos),
              "cosines": cos, "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
-        r["ok"] = min(cos) >= 0.99 and (dtype == "bf16" or toks_g == toks_c)
+        r["ok"] = (min(cos) >= 0.99 and all(tie_ok)
+                   and (dtype == "bf16" or toks_g == toks_c))
         out[dtype] = r
         del eg, ecpu, params
         if not r["ok"]:

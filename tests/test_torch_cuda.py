@@ -42,10 +42,12 @@ def test_k1_matches_plain(dev, M, glu, resid):
     gamma = torch.rand((2, K), generator=g, device=dev) + 0.5
     x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
     r = torch.randn((M, N), generator=g, device=dev).bfloat16() if resid else None
-    out, xq, sx, sumq = tm._w2a8_normed_cuda(1, x, w, sv, gamma, K, N, 1e-5, glu, r)
+    out = tm.ternary_matmul_w2a8_normed(1, x, w, sv, gamma, K, N, 1e-5, glu, r)
+    out2, xq, sx, sumq = tm._w2a8_normed_cuda(1, x, w, sv, gamma, K, N, 1e-5, glu, r)
+    assert torch.equal(out, out2)
     # rows are independent: row 0 of the batch equals the batch of row 0
-    one = tm._w2a8_normed_cuda(1, x[:1], w, sv, gamma, K, N, 1e-5, glu,
-                               None if r is None else r[:1])[0]
+    one = tm.ternary_matmul_w2a8_normed(1, x[:1], w, sv, gamma, K, N, 1e-5, glu,
+                                        None if r is None else r[:1])
     assert torch.equal(one[0], out[0])
     acc = tm.int8_matmul(xq, tm.biased_codes(w[1]))
     assert torch.equal(tm.w2a8_epilogue(acc, sumq, sx, sv[1], r, x.dtype), out)
@@ -101,9 +103,13 @@ def test_k3_matches_plain(dev):
 def test_engine_two_slots_cuda_matches_cpu(dev):
     """The whole decode path on the card with B=2 (slot 1 idles at position
     S, writing row S-1) against the plain versions on the CPU, teacher-forced
-    with the card's tokens: the first token agrees and every step's logits
-    keep cosine >= 0.99 (W2A8 requantization spreads rounding differences,
-    so later greedy tokens of a random model may part)."""
+    with the card's tokens: every step's logits keep cosine >= 0.99, and
+    the greedy tokens agree wherever the CPU's top-2 margin exceeds the
+    largest logit difference.  K2 rounds its softmax weights to bf16
+    against other maxima than the plain version, and W2A8 requantization
+    amplifies that, so a near-tie may go either way (at step 3 of this
+    seed the CPU's margin is 0.005 against a difference of 0.038:
+    ``python -m bitnet_tpu_torch.tools.parity_probe``)."""
     from bitnet_tpu_torch.config import EngineConfig, ModelConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import build_synthetic
@@ -118,9 +124,10 @@ def test_engine_two_slots_cuda_matches_cpu(dev):
     ecpu = InferenceEngine(cfg, params, ec, device="cpu")
     prompt = list(range(7, 47))
     lg, lc = eg.prefill(prompt), ecpu.prefill(prompt)
-    assert int(lg[0].argmax()) == int(lc[0].argmax())
     for pos in range(len(prompt), len(prompt) + 6):
         a, b = lg[0].float().cpu(), lc[0].float()
         assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.99
         tok = int(lg[0].argmax())
+        top2 = torch.topk(b, 2).values
+        assert tok == int(b.argmax()) or top2[0] - top2[1] <= (a - b).abs().max()
         lg, lc = eg.decode_step(tok, pos), ecpu.decode_step(tok, pos)

@@ -110,9 +110,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     w, s = torch.from_numpy(words), torch.from_numpy(sv)
     with pytest.raises(ValueError):       # no rows
         tm.ternary_matmul_w2a8_normed(0, torch.zeros(0, K), w, s, None, K, N)
+    with pytest.raises(ValueError):       # more rows than the decode cap
+        tm.ternary_matmul_w2a8_normed(0, torch.zeros(tm.STACKED_DECODE_MAX_M + 1, K),
+                                      w, s, None, K, N)
+    with pytest.raises(ValueError):       # Np not a whole number of column blocks
+        tm.ternary_matmul_w2a8(0, torch.zeros(4, K), w[..., :N - 32].contiguous(),
+                               s[:, :N - 32].contiguous(), K, N - 32)
     with pytest.raises(ValueError):       # K != Kp
         tm.ternary_matmul_w2a8(0, torch.zeros(4, K - 16), w, s, K - 16, N)
     with pytest.raises(ValueError):       # neither a CPU nor a CUDA tensor
         tm.ternary_matmul_w2a8_normed(0, torch.zeros(1, K, device="meta"),
                                       w, s, None, K, N)
-    assert tm.stacked_decode_max_m() == 64
+    assert tm.STACKED_DECODE_MAX_M == 64
