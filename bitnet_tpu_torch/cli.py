@@ -1,0 +1,242 @@
+"""bitnet_tpu_torch command-line interface: ``run``.
+
+Counterpart of ``bitnet_tpu/cli.py``'s ``run`` (``:20-118``,
+``:155-269``): the same generation and engine flags, prompt templates,
+streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
+(default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
+Flags whose paths are not ported raise ``NotImplementedError`` naming
+their ROADMAP item; none is silently ignored.  ``serve`` and the other
+subcommands are ROADMAP queue 1 #12 and #17.
+
+    python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import not_ported
+
+
+def _add_gen_flags(p: argparse.ArgumentParser) -> None:
+    """Generation and engine flags (bitnet_tpu/cli.py:20-88)."""
+    p.add_argument("--model", "-m", required=True, help="GGUF model path")
+    p.add_argument("--tokenizer", help="tokenizer.json path (optional)")
+    p.add_argument("--prompt", "-p", default="Hello")
+    p.add_argument("--max-new-tokens", "-n", type=int, default=128)
+    p.add_argument("--min-new-tokens", type=int, default=0,
+                   help="suppress EOS/stop triggers until this many "
+                        "tokens are emitted (vLLM min_tokens)")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--min-p", type=float, default=0.0)
+    p.add_argument("--repetition-penalty", type=float, default=1.0)
+    p.add_argument("--frequency-penalty", type=float, default=0.0)
+    p.add_argument("--presence-penalty", type=float, default=0.0)
+    p.add_argument("--logit-bias", default=None,
+                   help="comma-separated token_id:bias pairs, e.g. "
+                        "'128001:-100,42:5' (<= -100 bans the token)")
+    p.add_argument("--stop", "--stop-sequence", action="append",
+                   default=[], metavar="SEQ",
+                   help="stop sequence (repeatable; adds to the "
+                        "template's own stops)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--deterministic", action="store_true")
+    p.add_argument("--logprobs", type=int, default=None, metavar="N",
+                   help="report per-token log-probabilities plus the "
+                        "top-N alternatives (stderr table)")
+    p.add_argument("--grammar-file", default=None, metavar="GBNF",
+                   help="not ported (ROADMAP.md queue 1 #15)")
+    p.add_argument("--json-schema", default=None, metavar="SCHEMA",
+                   help="not ported (ROADMAP.md queue 1 #15)")
+    p.add_argument("--prompt-template", default=None,
+                   help="template type, or 'embedded' to execute the "
+                        "GGUF's own jinja chat template (sandboxed)")
+    p.add_argument("--system-prompt", default=None)
+    p.add_argument("--max-seq-len", type=int, default=2048)
+    p.add_argument("--kv-cache-dtype", default="bf16",
+                   choices=["bf16", "f32", "int8", "fp8"])
+    p.add_argument("--kernel-path", default="auto",
+                   choices=["auto", "w2a8", "pallas", "xla"],
+                   help="auto = w2a8 on the card, xla on the CPU")
+    p.add_argument("--compute-dtype", default="bf16", choices=["bf16", "f32"])
+    p.add_argument("--weight-quant", default="none",
+                   choices=["none", "tl1", "tl2"],
+                   help="TL1/TL2 re-quantization: not ported (ROADMAP.md "
+                        "queue 1 #10)")
+    p.add_argument("--decode-steps", type=int, default=0,
+                   help="decode tokens per host round-trip: 0 or 1 (K > 1 "
+                        "needs a CUDA graph, ROADMAP.md queue 1 #5)")
+    p.add_argument("--sliding-window", type=int, default=0, metavar="W",
+                   help="windowed ring cache: not ported (ROADMAP.md queue 1 #7)")
+    p.add_argument("--strict", action="store_true",
+                   help="strict mode: no mock tokenizer")
+    p.add_argument("--no-stream", action="store_true")
+    p.add_argument("--receipt", default=None,
+                   help="honest-compute receipts: not ported (ROADMAP.md "
+                        "queue 1 #11)")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="speculative decoding: not ported (ROADMAP.md "
+                        "queue 1 #12)")
+    p.add_argument("--draft-model", default=None,
+                   help="draft model for --speculative: not ported "
+                        "(ROADMAP.md queue 1 #12)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain PyTorch versions)")
+
+
+def _refuse_unported(args) -> None:
+    """Flags of paths the port does not run yet raise, never pass."""
+    if args.speculative or args.draft_model:
+        raise not_ported("speculative decoding (--speculative/--draft-model)",
+                         "#12")
+    if args.grammar_file or args.json_schema:
+        raise not_ported("grammar-constrained decoding "
+                         "(--grammar-file/--json-schema)", "#15")
+    if args.receipt:
+        raise not_ported("honest-compute receipts (--receipt)", "#11")
+    if args.weight_quant != "none":
+        raise not_ported(f"--weight-quant {args.weight_quant}", "#10")
+    if args.sliding_window:
+        raise not_ported("--sliding-window (the windowed ring cache)", "#7")
+    if args.kv_cache_dtype != "bf16":
+        raise not_ported(f"--kv-cache-dtype {args.kv_cache_dtype}", "#8")
+
+
+def _build_engine(args):
+    """bitnet_tpu/cli.py:91-118, on ``args.device``."""
+    from .config import EngineConfig, StrictMode
+    from .device_probe import resolve_device
+    from .engine.engine import InferenceEngine
+    from .tokenizer import HFTokenizer, load_tokenizer
+
+    device = resolve_device(args.device)
+    strict = StrictMode(enabled=args.strict, allow_mock=not args.strict,
+                        deterministic=args.deterministic)
+    ecfg = EngineConfig(
+        max_seq_len=args.max_seq_len,
+        kv_cache_dtype=args.kv_cache_dtype,
+        kernel_path=args.kernel_path,
+        compute_dtype=args.compute_dtype,
+        weight_quant=args.weight_quant,
+        decode_steps_per_dispatch=args.decode_steps,
+        sliding_window=args.sliding_window,
+        strict=strict,
+    )
+    if args.tokenizer:
+        tokenizer = HFTokenizer(args.tokenizer)
+    else:
+        tokenizer = load_tokenizer(args.model, allow_mock=strict.allow_mock)
+    if strict.enabled and tokenizer.is_mock:
+        from .errors import StrictModeViolation
+
+        raise StrictModeViolation("strict mode: mock tokenizer banned")
+    return InferenceEngine.from_gguf(args.model, ecfg, tokenizer=tokenizer,
+                                     device=device)
+
+
+def _parse_logit_bias(spec: str | None) -> tuple:
+    """'128001:-100,42:5' → ((42, 5.0), (128001, -100.0))."""
+    if not spec:
+        return ()
+    pairs = {}
+    for part in spec.split(","):
+        tok, _, val = part.partition(":")
+        pairs[int(tok.strip())] = float(val.strip())
+    return tuple(sorted(pairs.items()))
+
+
+def _gen_config(args, extra_stops=()):
+    """bitnet_tpu/cli.py:155-175."""
+    from .config import GenerationConfig
+
+    return GenerationConfig(
+        max_new_tokens=args.max_new_tokens,
+        min_new_tokens=args.min_new_tokens,
+        temperature=args.temperature,
+        top_k=args.top_k,
+        top_p=args.top_p,
+        min_p=args.min_p,
+        repetition_penalty=args.repetition_penalty,
+        frequency_penalty=args.frequency_penalty,
+        presence_penalty=args.presence_penalty,
+        logit_bias=_parse_logit_bias(args.logit_bias),
+        seed=args.seed if not args.deterministic else (args.seed or 42),
+        greedy=args.greedy or args.deterministic,
+        stop_sequences=tuple(extra_stops) + tuple(args.stop or ()),
+        logprobs=args.logprobs,
+    )
+
+
+def _prepare_prompt(args):
+    """Template detect / apply (bitnet_tpu/cli.py:178-207)."""
+    from . import templates
+    from .gguf.reader import GGUFReader
+
+    if args.prompt_template == "embedded":
+        with GGUFReader(args.model) as r:
+            md = dict(r.metadata)
+        msgs = []
+        if args.system_prompt:
+            msgs.append(templates.Message("system", args.system_prompt))
+        msgs.append(templates.Message("user", args.prompt))
+        text = templates.render_chat_embedded(md, msgs)
+        return text, templates.spec_for(templates.detect(md))
+    if args.prompt_template:
+        t = templates.TemplateType.parse(args.prompt_template)
+    else:
+        try:
+            with GGUFReader(args.model) as r:
+                t = templates.detect(r.metadata)
+        except Exception:
+            t = templates.TemplateType.RAW
+    spec = templates.spec_for(t)
+    return templates.apply(t, args.prompt, args.system_prompt), spec
+
+
+def cmd_run(args) -> int:
+    """bitnet_tpu/cli.py:213-269: stream the text to stdout, the metrics
+    line (and logprobs, when asked) to stderr."""
+    _refuse_unported(args)
+    engine = _build_engine(args)
+    text, spec = _prepare_prompt(args)
+    gcfg = _gen_config(args, extra_stops=spec.stop_sequences)
+    gcfg = gcfg.replace(add_bos=spec.add_bos)
+    if args.no_stream:
+        print(engine.generate(text, gcfg).text)
+    else:
+        ids = engine.tokenizer.encode(text, add_bos=gcfg.add_bos)
+        for ev in engine.generate_stream(ids, gcfg):
+            sys.stdout.write(ev.text)
+            sys.stdout.flush()
+            if gcfg.logprobs is not None and ev.logprob is not None:
+                alts = " ".join(
+                    f"{engine.tokenizer.token_to_piece(i)!r}:{lp:.3f}"
+                    for i, lp in (ev.top_logprobs or []))
+                print(f"[lp {ev.text!r}:{ev.logprob:.3f}"
+                      + (f" | {alts}" if alts else "") + "]", file=sys.stderr)
+        print()
+    m = engine.last_metrics.as_dict()
+    print(f"[{m['generated_tokens']} tokens, "
+          f"ttft {m['ttft_s']*1000:.0f} ms, "
+          f"{m['decode_tok_s']:.2f} tok/s decode]", file=sys.stderr)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="bitnet-tpu-torch",
+                                 description="BitNet inference on an H100")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("run", help="single-shot generation")
+    _add_gen_flags(p)
+    p.set_defaults(fn=cmd_run)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,25 +1,36 @@
 """Typed configuration for bitnet_tpu_torch.
 
-The counterpart of ``bitnet_tpu/config.py``, holding only the fields the
-ported slice reads.  Values the JAX package accepts but the port does
-not run yet raise ``NotImplementedError`` naming the ROADMAP queue item
-that ports them, so no configuration silently lands on a path that does
-not exist here.
+The counterpart of ``bitnet_tpu/config.py``, holding the fields the
+ported slices read, with the JAX package's defaults.  Values the JAX
+package accepts but the port does not run yet raise
+``NotImplementedError`` naming the ROADMAP queue item that ports them,
+so no configuration silently lands on a path that does not exist here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import operator
+from dataclasses import dataclass, field
 from typing import Any
 
 from .errors import ConfigError
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to bitnet_tpu_torch yet "
         f"(ROADMAP.md queue 1 {item})")
+
+
+@dataclass(frozen=True)
+class StrictMode:
+    """Honest-compute guard flags (mirror of bitnet_tpu.config.StrictMode,
+    without its environment overrides)."""
+
+    enabled: bool = False
+    allow_mock: bool = True       # mock tokenizer allowed?
+    deterministic: bool = False   # seed 0 when the request names none
 
 
 @dataclass(frozen=True)
@@ -67,52 +78,132 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Decoding parameters.  The slice decodes greedily only (the full
-    SamplerChain is ROADMAP queue 1 #5), so greedy is the default and the
-    only accepted value."""
+    """Sampling / decoding parameters (mirror of
+    bitnet_tpu.config.GenerationConfig, same defaults and checks)."""
 
     max_new_tokens: int = 128
-    greedy: bool = True
+    # suppress EOS / stop triggers (and ban the EOS logit) until this
+    # many tokens are emitted (vLLM min_tokens)
+    min_new_tokens: int = 0
+    temperature: float = 1.0
+    top_k: int = 0                 # 0 = disabled
+    top_p: float = 1.0             # 1.0 = disabled
+    min_p: float = 0.0             # 0.0 = disabled
+    typical_p: float = 1.0         # 1.0 = disabled
+    repetition_penalty: float = 1.0
+    repetition_window: int = 64
+    frequency_penalty: float = 0.0  # OpenAI-style: -= count * penalty
+    presence_penalty: float = 0.0   # OpenAI-style: -= (count > 0) * penalty
+    logit_bias: tuple[tuple[int, float], ...] = ()  # (token_id, bias) pairs
+    mirostat: int = 0              # 0 = off (v1/v2: queue 1 #16)
+    seed: int | None = None
+    greedy: bool = False
+    stop_sequences: tuple[str, ...] = ()
     stop_token_ids: tuple[int, ...] = ()
+    add_bos: bool = True
+    grammar: str | None = None     # GBNF source (queue 1 #15)
+    # None = off; N >= 0 = the sampled token's log-probability plus the
+    # top-N alternatives per step, from the raw model distribution
+    logprobs: int | None = None
 
     def __post_init__(self) -> None:
         if self.max_new_tokens <= 0:
             raise ConfigError("max_new_tokens must be positive")
-        if not self.greedy:
-            raise _not_ported("sampling other than greedy", "#5")
+        if not isinstance(self.min_new_tokens, int) \
+                or isinstance(self.min_new_tokens, bool) \
+                or not (0 <= self.min_new_tokens <= self.max_new_tokens):
+            raise ConfigError(
+                "min_new_tokens must be an int in [0, max_new_tokens]")
+        if self.temperature < 0.0:
+            raise ConfigError("temperature must be >= 0")
+        if not (0.0 <= self.top_p <= 1.0):
+            raise ConfigError("top_p must be in [0, 1]")
+        if self.top_k < 0:
+            raise ConfigError("top_k must be >= 0")
+        if self.repetition_penalty <= 0.0:
+            raise ConfigError("repetition_penalty must be > 0")
+        if self.mirostat not in (0, 1, 2):
+            raise ConfigError("mirostat must be 0, 1 or 2")
+        for p, name in ((self.frequency_penalty, "frequency_penalty"),
+                        (self.presence_penalty, "presence_penalty")):
+            if not (-2.0 <= p <= 2.0):
+                raise ConfigError(f"{name} must be in [-2, 2]")
+        if not isinstance(self.logit_bias, tuple):
+            # accept dict / list at the call site, store hashably
+            object.__setattr__(
+                self, "logit_bias",
+                tuple(sorted(dict(self.logit_bias).items())))
+        for tok, _b in self.logit_bias:
+            if not isinstance(tok, int) or tok < 0:
+                raise ConfigError("logit_bias keys must be token ids >= 0")
+        if self.grammar is not None and not isinstance(self.grammar, str):
+            raise ConfigError("grammar must be GBNF source text")
+        if self.grammar == "":
+            object.__setattr__(self, "grammar", None)
+        if self.logprobs is not None and not (
+                isinstance(self.logprobs, int) and 0 <= self.logprobs <= 32):
+            raise ConfigError("logprobs must be None or an int in [0, 32]")
+        if self.seed is not None:
+            try:
+                object.__setattr__(self, "seed", operator.index(self.seed))
+            except TypeError:
+                raise ConfigError("seed must be an integer") from None
+        for s in self.stop_sequences:
+            if not isinstance(s, str):
+                raise ConfigError("stop_sequences must be strings")
+        # valid in the JAX package, not ported yet
+        if self.mirostat:
+            raise not_ported(f"mirostat v{self.mirostat} sampling", "#16")
+        if self.grammar is not None:
+            raise not_ported("grammar-constrained decoding", "#15")
+
+    @property
+    def is_greedy(self) -> bool:
+        return self.greedy or self.temperature == 0.0
+
+    def replace(self, **kw: Any) -> "GenerationConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def resolve_kernel_path(kernel_path: str, device) -> str:
+    """``'auto'`` → ``w2a8`` on the card and ``xla`` (dequantize, then a
+    plain matmul) elsewhere: the JAX package's ``_resolve_kernel_path``
+    (``engine/engine.py:197-205``) with the card in the TPU's place."""
+    if kernel_path != "auto":
+        return kernel_path
+    return "w2a8" if getattr(device, "type", device) == "cuda" else "xla"
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Runtime engine knobs (mirror of bitnet_tpu.config.EngineConfig).
-
-    ``kernel_path='auto'`` means ``w2a8`` here on every device: the W2A8
-    kernels are the only matmul route the port has (their plain PyTorch
-    versions run for CPU tensors).  ``fuse_projections`` defaults to True
-    because only the fused stacked path is ported."""
+    """Runtime engine knobs (mirror of bitnet_tpu.config.EngineConfig,
+    same defaults).  The engine resolves ``kernel_path='auto'`` against
+    its device (:func:`resolve_kernel_path`)."""
 
     max_seq_len: int = 2048
     max_batch_size: int = 1
     kv_cache_dtype: str = "bf16"     # 'auto' | 'bf16' (int8/fp8/f32: #8)
-    kernel_path: str = "auto"        # 'auto' | 'w2a8' (pallas/xla: #7)
+    kernel_path: str = "auto"        # 'auto' | 'w2a8' | 'pallas' | 'xla'
     compute_dtype: str = "bf16"      # 'bf16' | 'f32'
     logits_dtype: str = "auto"       # 'auto' | 'bf16' | 'int8' tied head
-    fuse_projections: bool = True    # False = unfused generic path (#7)
+    fuse_projections: bool = False   # True = the fused stacked path
     weight_quant: str = "none"       # 'tl1' / 'tl2' (#10)
+    # decode tokens per host round-trip: 0 (auto) and 1 both mean one
+    # step a dispatch on the card; K > 1 needs a CUDA graph (#5)
+    decode_steps_per_dispatch: int = 0
     sliding_window: int = 0          # windowed ring cache (#7)
+    strict: StrictMode = field(default_factory=StrictMode)
 
     def resolve_kv_cache_dtype(self) -> str:
         """'auto' follows the JAX package's rule (int8 for pools or long
         contexts, bf16 otherwise)."""
         if self.kv_cache_dtype != "auto":
             return self.kv_cache_dtype
+        if self.sliding_window > 0:
+            return "bf16"
         if self.max_batch_size > 2:
             return "int8"
         return "int8" if self.max_seq_len >= 4096 else "bf16"
-
-    @property
-    def resolved_kernel_path(self) -> str:
-        return "w2a8" if self.kernel_path == "auto" else self.kernel_path
 
     def __post_init__(self) -> None:
         if self.kv_cache_dtype not in ("auto", "bf16", "f32", "int8", "fp8"):
@@ -125,31 +216,26 @@ class EngineConfig:
             raise ConfigError(f"bad logits_dtype {self.logits_dtype!r}")
         if self.weight_quant not in ("none", "tl1", "tl2"):
             raise ConfigError(f"bad weight_quant {self.weight_quant!r}")
+        if self.decode_steps_per_dispatch < 0:
+            raise ConfigError("decode_steps_per_dispatch must be >= 0")
         if self.sliding_window < 0:
             raise ConfigError("sliding_window must be >= 0")
         if self.max_batch_size < 1 or self.max_seq_len < 1:
             raise ConfigError("max_batch_size and max_seq_len must be >= 1")
         # valid in the JAX package, not ported yet
-        if self.resolved_kernel_path != "w2a8":
-            raise _not_ported(f"kernel_path={self.kernel_path!r}", "#7")
-        if not self.fuse_projections:
-            raise _not_ported("the unfused per-layer path", "#7")
+        if self.decode_steps_per_dispatch > 1:
+            raise not_ported(
+                f"{self.decode_steps_per_dispatch}-step decode dispatches "
+                "(a CUDA graph of the step)", "#5")
         if self.sliding_window > 0:
-            raise _not_ported("the windowed ring cache", "#7")
+            raise not_ported("the windowed ring cache", "#7")
         if self.weight_quant != "none":
-            raise _not_ported(f"weight_quant={self.weight_quant!r}", "#10")
+            raise not_ported(f"weight_quant={self.weight_quant!r}", "#10")
         kv = self.resolve_kv_cache_dtype()
         if kv != "bf16":
-            raise _not_ported(f"a {kv} KV cache", "#8")
-        # the decode-attention plan is the one shared predicate the model
-        # dispatches on too (models/bitnet.decode_attn_plan)
-        from .models.bitnet import PORTED_PLANS, decode_attn_plan
-
-        plan = decode_attn_plan(self.max_batch_size, kv)
-        if plan not in PORTED_PLANS:
-            raise _not_ported(
-                f"decode pools of B={self.max_batch_size} (plan {plan})",
-                "#9")
+            raise not_ported(f"a {kv} KV cache", "#8")
+        if self.max_batch_size > 2:
+            raise not_ported(f"decode pools of B={self.max_batch_size}", "#9")
 
     def replace(self, **kw: Any) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

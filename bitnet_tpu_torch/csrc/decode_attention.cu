@@ -1,10 +1,14 @@
-// Rope-fused decode attention and the KV row scatter for Hopper (sm_90a).
+// Decode attention and the KV row scatter for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of bitnet_tpu/ops/decode_attention_v2.py:
-//   K2 bn_decode_attention_qkv <- decode_attention_qkv_v2_stacked (:859,
-//      pallas_call :922), body _v2_qkv_kernel (:318) with quant=False
-//   K3 bn_scatter_kv_rows      <- scatter_kv_rows (:1068, pallas_call :1113),
-//      body _scatter_rows_kernel (:1048)
+// Replaces three Pallas kernels:
+//   K2 bn_decode_attention_qkv <- decode_attention_qkv_v2_stacked
+//      (bitnet_tpu/ops/decode_attention_v2.py:859, pallas_call :922), body
+//      _v2_qkv_kernel (:318) with quant=False
+//   K3 bn_scatter_kv_rows      <- scatter_kv_rows (decode_attention_v2.py:1068,
+//      pallas_call :1113), body _scatter_rows_kernel (:1048)
+//   K5 bn_decode_attention     <- decode_attention (bitnet_tpu/ops/
+//      decode_attention.py:922, pallas_call :960), body _decode_attn_kernel
+//      (:75-145): the v1 flash decode of the generic block_forward
 //
 // K2 takes the raw fused projection row qkv [B, H+2KV, D], applies split-
 // layout RoPE to q and k, and runs flash-decode over the PRE-write flat
@@ -26,6 +30,15 @@
 // pass a split-S design needs; one block per query head, its 8 warps
 // taking the splits in turn, so no thread waits on a chain of loads.  Splits at or past pos exit at once; the
 // grid is sized by S so no host sync reads pos.
+//
+// K5 is the same two passes without RoPE (template flag ROPE = false): q
+// [B, H, D] arrives roped, and q, k_new and v_new are rounded to the cache
+// dtype first, so the softmax starts from m = (q_bf16 . k_bf16)/sqrt(D),
+// d = 1, ctx = v_bf16 (decode_attention.py:941-943, :96-119); it writes
+// nothing (the generic path writes the cache rows itself).  Bound: the same
+// cache bytes as K2.  The TPU kernel rounds e to bf16 against the running
+// max over chunks of min(1024, S) rows, this one against its warps' 4-row
+// groups and 64-row splits: a bf16-level difference, as for K2.
 //
 // K3 writes the L new rows per batch slot in place at min(pos[b], S-1): a
 // pos >= S overwrites row S-1 of that slot (the JAX package's clamped
@@ -76,9 +89,10 @@ __device__ __forceinline__ float rope_at(const T* row, int d, int half,
 // UNROLL rows (the JAX kernel rescales once per chunk of S the same way).
 // partial m/d: [B, KV, NS, G, 2]; partial ctx: [B, KV, NS, G, D]
 // ---------------------------------------------------------------------------
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 __global__ void __launch_bounds__(WARPS * 32)
-attn_split(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
+attn_split(const T* __restrict__ q_rows, int q_bs,
+           const float* __restrict__ sin_rows,
            const float* __restrict__ cos_rows,
            const __nv_bfloat16* __restrict__ kc,
            const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
@@ -95,13 +109,15 @@ attn_split(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
   const int w1 = min(w0 + ROWS_PER_WARP, p);
   const float* sn = sin_rows + (size_t)b * half;
   const float* cs = cos_rows + (size_t)b * half;
-  const T* row_b = qkv + (size_t)b * (H + 2 * KV) * D;
+  const T* row_b = q_rows + (size_t)b * q_bs;
 
-  // roped q of the G heads, rounded to the cache dtype: once per block
+  // (roped) q of the G heads, rounded to the cache dtype: once per block
   __shared__ float q_s[MAXG][D];
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    q_s[i / D][i % D] = bf16_round(rope_at(row_b + (size_t)(h * G + i / D) * D,
-                                           i % D, half, sn, cs));
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const T* qr = row_b + (size_t)(h * G + i / D) * D;
+    q_s[i / D][i % D] = bf16_round(ROPE ? rope_at(qr, i % D, half, sn, cs)
+                                        : load_f32(qr, i % D));
+  }
   __syncthreads();
   float q[MAXG][EPL];
 #pragma unroll
@@ -211,11 +227,14 @@ attn_split(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
 // the live splits of query head (kv head h/G, g = h%G) against their common
 // max: warp w takes splits w, w+8, ..., lane owns EPL elements of D, so a
 // thread issues live/8 independent loads; the warps' sums meet in shared
-// memory.  The block of g == 0 also writes the roped k row and the v row.
+// memory.  With ROPE the new k row is roped in f32 and the block of g == 0
+// writes it and the v row out; without, the new rows are rounded to bf16.
 // ---------------------------------------------------------------------------
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
-attn_combine(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
+attn_combine(const T* __restrict__ q_rows, int q_bs,
+             const T* __restrict__ k_new, const T* __restrict__ v_new,
+             int kv_bs, const float* __restrict__ sin_rows,
              const float* __restrict__ cos_rows, const int* __restrict__ pos,
              int H, int KV, int S, int NS, float scale,
              const float* __restrict__ part_md,
@@ -228,7 +247,7 @@ attn_combine(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* sn = sin_rows + (size_t)b * half;
   const float* cs = cos_rows + (size_t)b * half;
-  const T* row_b = qkv + (size_t)b * (H + 2 * KV) * D;
+  const T* row_b = q_rows + (size_t)b * q_bs;
   __shared__ float kr_s[D], vr_s[D], m0_s;
   __shared__ float c_s[COMBINE_WARPS][D], d_s[COMBINE_WARPS];
   const int live = (min(pos[b], S) + SPLIT - 1) / SPLIT;
@@ -238,24 +257,27 @@ attn_combine(const T* __restrict__ qkv, const float* __restrict__ sin_rows,
     smd[2 * sp] = md[(sp * G + g) * 2];
     smd[2 * sp + 1] = md[(sp * G + g) * 2 + 1];
   }
-  if (threadIdx.x < D) {                         // new token: roped k, raw v
+  if (threadIdx.x < D) {                         // the new token's rows
     const int d = threadIdx.x;
-    const float kr = rope_at(row_b + (size_t)(H + h) * D, d, half, sn, cs);
-    const float vr = load_f32(row_b + (size_t)(H + KV + h) * D, d);
+    const T* kn = k_new + (size_t)b * kv_bs + (size_t)h * D;
+    const T* vn = v_new + (size_t)b * kv_bs + (size_t)h * D;
+    const float kr = ROPE ? rope_at(kn, d, half, sn, cs) : bf16_round(load_f32(kn, d));
+    const float vr = ROPE ? load_f32(vn, d) : bf16_round(load_f32(vn, d));
     kr_s[d] = kr;
     vr_s[d] = vr;
-    if (g == 0) {
+    if (ROPE && g == 0) {
       k_out[((size_t)b * KV + h) * D + d] = __float2bfloat16_rn(kr);
       v_out[((size_t)b * KV + h) * D + d] = __float2bfloat16_rn(vr);
     }
   }
   __syncthreads();
-  if (warp == 0) {                               // m0 = (q_f32 . k_f32) * scale
+  if (warp == 0) {                               // m0 = (q . k_new) * scale
     float s = 0.f;
+    const T* qr = row_b + (size_t)hq * D;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = lane * EPL + e;
-      s += rope_at(row_b + (size_t)hq * D, d, half, sn, cs) * kr_s[d];
+      s += (ROPE ? rope_at(qr, d, half, sn, cs) : bf16_round(load_f32(qr, d))) * kr_s[d];
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -310,29 +332,33 @@ __global__ void scatter_rows(__nv_bfloat16* __restrict__ kc,
   }
 }
 
-template <int D, typename T>
-cudaError_t launch_attn(const void* qkv, const float* sin_rows,
+// q_rows: head hq of batch b at q_rows + b*q_bs + hq*D; k_new / v_new: kv
+// head h at k_new + b*kv_bs + h*D.  K2 points all three into the qkv rows.
+template <int D, typename T, bool ROPE>
+cudaError_t launch_attn(const void* q_rows, int q_bs, const void* k_new,
+                        const void* v_new, int kv_bs, const float* sin_rows,
                         const float* cos_rows, const void* kc, const void* vc,
                         const int* pos, int B, int H, int KV, int S,
                         float scale, void* out,
                         void* k_out, void* v_out, float* part_md,
                         float* part_ctx, cudaStream_t stream) {
   const int NS = (S + SPLIT - 1) / SPLIT;
-  attn_split<D, T><<<dim3(NS, KV, B), WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(qkv), sin_rows, cos_rows,
+  const T* q = static_cast<const T*>(q_rows);
+  attn_split<D, T, ROPE><<<dim3(NS, KV, B), WARPS * 32, 0, stream>>>(
+      q, q_bs, sin_rows, cos_rows,
       static_cast<const __nv_bfloat16*>(kc), static_cast<const __nv_bfloat16*>(vc),
       pos, H, KV, S, scale, part_md, part_ctx);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t smem = (size_t)NS * 2 * sizeof(float);
   if (smem > 40 * 1024) {
-    e = cudaFuncSetAttribute(attn_combine<D, T>,
+    e = cudaFuncSetAttribute(attn_combine<D, T, ROPE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attn_combine<D, T><<<dim3(H, B), COMBINE_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), sin_rows, cos_rows, pos, H, KV, S, NS, scale,
-      part_md,
+  attn_combine<D, T, ROPE><<<dim3(H, B), COMBINE_WARPS * 32, smem, stream>>>(
+      q, q_bs, static_cast<const T*>(k_new), static_cast<const T*>(v_new), kv_bs,
+      sin_rows, cos_rows, pos, H, KV, S, NS, scale, part_md,
       part_ctx, static_cast<T*>(out), static_cast<__nv_bfloat16*>(k_out),
       static_cast<__nv_bfloat16*>(v_out));
   return cudaGetLastError();
@@ -354,11 +380,37 @@ int bn_decode_attention_qkv(const void* qkv, const float* sin_rows,
                             void* v_out, float* part_md, float* part_ctx,
                             int dtype, cudaStream_t stream) {
   if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
+  const int bs = (H + 2 * KV) * D, esz = dtype == 1 ? 2 : 4;
+  const char* base = static_cast<const char*>(qkv);
+  const void* kn = base + (size_t)H * D * esz;
+  const void* vn = base + (size_t)(H + KV) * D * esz;
 #define BN_ATTN(DD, TT)                                                        \
-  return (int)launch_attn<DD, TT>(qkv, sin_rows, cos_rows, kc, vc, pos, B, H, \
-                                  KV, S, scale, out, k_out, v_out, part_md,    \
-                                  part_ctx,                                    \
-                                  stream)
+  return (int)launch_attn<DD, TT, true>(qkv, bs, kn, vn, bs, sin_rows,        \
+                                        cos_rows, kc, vc, pos, B, H, KV, S,    \
+                                        scale, out, k_out, v_out, part_md,     \
+                                        part_ctx, stream)
+  if (D == 128 && dtype == 1) BN_ATTN(128, __nv_bfloat16);
+  if (D == 128 && dtype == 0) BN_ATTN(128, float);
+  if (D == 64 && dtype == 1) BN_ATTN(64, __nv_bfloat16);
+  if (D == 64 && dtype == 0) BN_ATTN(64, float);
+#undef BN_ATTN
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: q [B, H, D] (roped), k_new / v_new [B, KV, D], all of one dtype
+// (0 = float32, 1 = bfloat16; out has it too); kc / vc the bf16 layer
+// [B, S, KV*D], read only.  Partials as for bn_decode_attention_qkv.
+int bn_decode_attention(const void* q, const void* k_new, const void* v_new,
+                        const void* kc, const void* vc, const int* pos, int B,
+                        int H, int KV, int D, int S, float scale, void* out,
+                        float* part_md, float* part_ctx, int dtype,
+                        cudaStream_t stream) {
+  if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
+#define BN_ATTN(DD, TT)                                                        \
+  return (int)launch_attn<DD, TT, false>(q, H * DD, k_new, v_new, KV * DD,    \
+                                         nullptr, nullptr, kc, vc, pos, B, H,  \
+                                         KV, S, scale, out, nullptr, nullptr,  \
+                                         part_md, part_ctx, stream)
   if (D == 128 && dtype == 1) BN_ATTN(128, __nv_bfloat16);
   if (D == 128 && dtype == 0) BN_ATTN(128, float);
   if (D == 64 && dtype == 1) BN_ATTN(64, __nv_bfloat16);

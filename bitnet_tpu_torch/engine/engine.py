@@ -1,24 +1,28 @@
-"""InferenceEngine: bucketed prefill, then greedy decode, on one device.
+"""InferenceEngine: bucketed prefill, then streamed decode, on one device.
 
-Counterpart of ``bitnet_tpu/engine/engine.py`` for slice 1: token-id
-prompts, ``prefill_buckets`` padding (padded positions carry S, so their
-cache writes drop), single-step greedy decode, stop ids / EOS / max
-tokens, and a ``kernel_recorder`` naming the path and the kernels that
-ran.  PyTorch runs eagerly, so there is no compiled program per bucket;
-the decode step is one Python call of the model per token (a CUDA graph
-around it is later work).
+Counterpart of ``bitnet_tpu/engine/engine.py``: token-id or text prompts
+(through the engine's tokenizer), ``prefill_buckets`` padding (padded
+positions carry S, so their cache writes drop), the full ``SamplerChain``
+with a seeded ``torch.Generator``, stop ids / EOS / stop sequences /
+max tokens, the ``min_new_tokens`` EOS ban, keep-half context shift,
+logprobs, and a ``kernel_recorder`` naming the path and the kernels that
+ran.  ``kernel_path='auto'`` resolves against the device: ``w2a8`` on
+the card, ``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
+one Python call of the model per token (a CUDA graph around it, and with
+it K-step dispatches, is ROADMAP queue 1 #5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import enum
 import time
+from typing import Iterator
 
 import numpy as np
 import torch
 
-from ..config import EngineConfig, GenerationConfig, ModelConfig
+from ..config import (EngineConfig, GenerationConfig, ModelConfig, not_ported,
+                      resolve_kernel_path)
 from ..device_probe import resolve_device
 from ..errors import ConfigError, InferenceError
 from ..models.bitnet import (
@@ -28,25 +32,71 @@ from ..models.bitnet import (
     fuse_block_params,
     logits as model_logits,
     quantize_head,
+    stacked_decode_ok,
+    with_col_scales_params,
 )
 from ..ops import registry
 from .cache import allocate_cache, reset_cache
-from .sampling import argmax
+from .sampling import SamplerChain, logprob_entry
+from .stop import StopCriteria, StopReason
 
 
-class StopReason(enum.Enum):
-    MAX_TOKENS = "max_tokens"
-    STOP_TOKEN = "stop_token"
-    EOS = "eos"
-    CONTEXT_FULL = "context_full"
+@dataclasses.dataclass
+class TokenEvent:
+    """One streamed token."""
+
+    token_id: int
+    text: str
+    index: int
+    logprob: float | None = None
+    top_logprobs: list[tuple[int, float]] | None = None
 
 
 @dataclasses.dataclass
 class GenerationResult:
+    text: str
     token_ids: list[int]
     stop_reason: StopReason
     prompt_tokens: int
     metrics: dict
+    # per emitted token: {"token_id", "text", "logprob", "top"} when
+    # GenerationConfig.logprobs is set
+    logprobs: list[dict] | None = None
+
+
+@dataclasses.dataclass
+class PerformanceMetrics:
+    """tok/s, TTFT and the timing breakdown (host clock around work that
+    ends in a device synchronize)."""
+
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    ttft_s: float = 0.0
+    decode_steps: int = 0
+    device: str = ""
+
+    @property
+    def decode_tok_s(self) -> float:
+        return self.generated_tokens / self.decode_s if self.decode_s > 0 else 0.0
+
+    @property
+    def prefill_tok_s(self) -> float:
+        return self.prompt_tokens / self.prefill_s if self.prefill_s > 0 else 0.0
+
+    def as_dict(self) -> dict:
+        return {
+            "prompt_tokens": self.prompt_tokens,
+            "generated_tokens": self.generated_tokens,
+            "prefill_s": round(self.prefill_s, 4),
+            "decode_s": round(self.decode_s, 4),
+            "ttft_s": round(self.ttft_s, 4),
+            "decode_tok_s": round(self.decode_tok_s, 2),
+            "prefill_tok_s": round(self.prefill_tok_s, 2),
+            "decode_steps": self.decode_steps,
+            "device": self.device,
+        }
 
 
 def prefill_buckets(max_seq_len: int, smallest: int = 8) -> list[int]:
@@ -62,42 +112,49 @@ class InferenceEngine:
     """Single-sequence engine over a [B ≤ 2] flat bf16 cache."""
 
     def __init__(self, cfg: ModelConfig, params: BitNetParams,
-                 engine_cfg: EngineConfig | None = None,
-                 device: str | torch.device = "cuda",
-                 eos_token_id: int | None = None):
+                 engine_cfg: EngineConfig | None = None, tokenizer=None,
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = ec = engine_cfg or EngineConfig()
-        self.eos_token_id = eos_token_id
+        self.tokenizer = tokenizer
         cfg.validate()
         if ec.max_seq_len > cfg.max_seq_len:
             raise ConfigError(
                 f"engine max_seq_len {ec.max_seq_len} exceeds model context "
                 f"{cfg.max_seq_len}")
+        self.kernel_path = resolve_kernel_path(ec.kernel_path, self.device)
         params = params.to(self.device)
         # compute_dtype is the activations' dtype: the embedding rows feed
         # the residual stream in it
         act = torch.float32 if ec.compute_dtype == "f32" else torch.bfloat16
         if params.embed.dtype != act:
             params = dataclasses.replace(params, embed=params.embed.to(act))
-        if params.blocks.wqkv is None:
-            params = dataclasses.replace(
-                params, blocks=fuse_block_params(params.blocks))
-        if ec.logits_dtype == "int8":
+        fuse_fell_back = False
+        blocks = params.blocks
+        if ec.fuse_projections and blocks.wqkv is None:
+            blocks = fuse_block_params(blocks)
+            fuse_fell_back = blocks.wqkv is None
+        params = with_col_scales_params(dataclasses.replace(params, blocks=blocks))
+        if ec.logits_dtype == "int8" and self.kernel_path == "w2a8":
             params = quantize_head(params)
         self.params = params
         self.kv_dtype = ec.resolve_kv_cache_dtype()
-        self.plan = decode_attn_plan(ec.max_batch_size, self.kv_dtype)
         self.cache = allocate_cache(cfg, ec.max_batch_size, ec.max_seq_len,
                                     self.kv_dtype, device=self.device)
         self._buckets = prefill_buckets(ec.max_seq_len)
         self.kernel_recorder: list[str] = []
-        self.last_metrics: dict = {}
+        if fuse_fell_back:
+            self.kernel_recorder.append("fuse_projections_fallback")
+        self.last_metrics = PerformanceMetrics()
+        self._last_stop_reason = StopReason.MAX_TOKENS
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
-                  device: str | torch.device = "cuda") -> "InferenceEngine":
+                  tokenizer=None, device: str | torch.device = "cuda"
+                  ) -> "InferenceEngine":
         from ..models.loader import load_model
+        from ..tokenizer import load_tokenizer
 
         engine_cfg = engine_cfg or EngineConfig()
         dev = resolve_device(device)
@@ -105,8 +162,9 @@ class InferenceEngine:
             torch.float32 if engine_cfg.compute_dtype == "f32" else torch.bfloat16))
         if engine_cfg.max_seq_len > cfg.max_seq_len:
             engine_cfg = engine_cfg.replace(max_seq_len=cfg.max_seq_len)
-        return cls(cfg, params, engine_cfg, device=dev,
-                   eos_token_id=meta.get("eos_token_id"))
+        if tokenizer is None:
+            tokenizer = load_tokenizer(path)
+        return cls(cfg, params, engine_cfg, tokenizer, device=dev)
 
     # -- helpers -------------------------------------------------------------
     def _bucket(self, T: int) -> int:
@@ -125,10 +183,16 @@ class InferenceEngine:
             if n > before.get(kid, 0):
                 self.kernel_recorder.append(f"kernel_{kid}_x{n - before[kid]}")
 
+    def stacked_decode(self) -> bool:
+        """Whether decode steps take the fused stacked loop (slice 1)."""
+        return stacked_decode_ok(self.cfg, self.params, 1,
+                                 self.engine_cfg.max_batch_size,
+                                 self.cache.k.dtype, self.kernel_path)
+
     # -- steps ---------------------------------------------------------------
     def prefill(self, token_ids: list[int]) -> torch.Tensor:
         """Reset the cache and run the prompt; returns last-token logits
-        [B, V] (f32)."""
+        [B, V]."""
         T = len(token_ids)
         if T == 0:
             raise InferenceError("empty prompt")
@@ -149,9 +213,10 @@ class InferenceEngine:
             h, self.cache = forward_cache(
                 self.cfg, self.params, torch.from_numpy(toks).to(dev),
                 torch.from_numpy(pos).to(dev), self.cache,
-                torch.from_numpy(n_real).to(dev))
-            lg = model_logits(self.cfg, self.params, h[:, T - 1:T])[:, 0]
-        self.kernel_recorder.append(f"prefill_w2a8_T{Tp}")
+                torch.from_numpy(n_real).to(dev), self.kernel_path)
+            lg = model_logits(self.cfg, self.params, h[:, T - 1:T],
+                              self.kernel_path)[:, 0]
+        self.kernel_recorder.append(f"prefill_{self.kernel_path}_T{Tp}")
         return lg
 
     def decode_step(self, token_id: int, position: int) -> torch.Tensor:
@@ -160,57 +225,142 @@ class InferenceEngine:
         S = self.engine_cfg.max_seq_len
         host = np.zeros((2, B, 1), np.int32)     # token | position, one copy
         host[0, 0, 0] = token_id
-        host[1] = S                              # idle slots write row S-1
+        host[1] = S                              # idle slots: writes dropped
         host[1, 0, 0] = position
         with torch.inference_mode():
             tok, pos = torch.from_numpy(host).to(self.device)
             h, self.cache = forward_cache(self.cfg, self.params, tok, pos,
-                                          self.cache, 1)
-            return model_logits(self.cfg, self.params, h)[:, -1]
+                                          self.cache, 1, self.kernel_path)
+            return model_logits(self.cfg, self.params, h,
+                                self.kernel_path)[:, -1]
 
     # -- generation ----------------------------------------------------------
-    def generate(self, prompt_ids: list[int],
-                 gen_cfg: GenerationConfig | None = None) -> GenerationResult:
-        """Greedy generation from a token-id prompt."""
+    def generate_stream(self, token_ids: list[int],
+                        gen_cfg: GenerationConfig | None = None,
+                        resume: bool = False) -> Iterator[TokenEvent]:
+        """Stream tokens, in the JAX engine's loop order: context check
+        (keep-half shift) → sample → stop id / EOS (not emitted) → emit →
+        max tokens / stop sequence → decode the emitted token."""
+        if resume:
+            raise not_ported("checkpoint resume (resume=True)", "#12")
         gen_cfg = gen_cfg or GenerationConfig()
-        S = self.engine_cfg.max_seq_len
+        metrics = PerformanceMetrics(prompt_tokens=len(token_ids),
+                                     device=str(self.device))
+        self.last_metrics = metrics
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        stop = StopCriteria(
+            max_new_tokens=gen_cfg.max_new_tokens, eos_token_id=eos_id,
+            stop_token_ids=frozenset(gen_cfg.stop_token_ids),
+            stop_sequences=tuple(gen_cfg.stop_sequences),
+            min_new_tokens=gen_cfg.min_new_tokens)
+        sampler = SamplerChain(gen_cfg)
+        # min_new_tokens: EOS (and the stop ids) banned through the logit
+        # bias while fewer tokens than the minimum are out
+        sampler_ban = None
+        if gen_cfg.min_new_tokens > 0:
+            d = dict(gen_cfg.logit_bias)
+            if eos_id is not None:
+                d[int(eos_id)] = -1e30
+            for t in gen_cfg.stop_token_ids:
+                d[int(t)] = -1e30
+            if d != dict(gen_cfg.logit_bias):
+                sampler_ban = SamplerChain(gen_cfg.replace(
+                    logit_bias=tuple(sorted(d.items())), min_new_tokens=0))
+        self._last_stop_reason = StopReason.MAX_TOKENS
+        seed = gen_cfg.seed if gen_cfg.seed is not None else (
+            0 if self.engine_cfg.strict.deterministic
+            else time.time_ns() % (2**31))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         before = registry.launch_counts()
+
         t0 = time.perf_counter()
-        logits = self.prefill(prompt_ids)
+        logits = self.prefill(token_ids)
         self._sync()
-        prefill_s = time.perf_counter() - t0
+        metrics.prefill_s = metrics.ttft_s = time.perf_counter() - t0
         self._record_kernels(before)
 
-        # the JAX engine's loop order: context check → sample → stop ids /
-        # EOS (not emitted) → emit → max tokens → decode the emitted token
+        B = self.engine_cfg.max_batch_size
+        S = self.engine_cfg.max_seq_len
+        W = gen_cfg.repetition_window
+        penalized = (gen_cfg.repetition_penalty != 1.0
+                     or gen_cfg.frequency_penalty != 0.0
+                     or gen_cfg.presence_penalty != 0.0)
+        history = np.full((B, W), -1, np.int64)
+        hist_ids = list(token_ids)[-W:] if W > 0 else []
+        history[0, : len(hist_ids)] = hist_ids
+        history_dev = torch.from_numpy(history).to(self.device)
+        lp_n = gen_cfg.logprobs
         before = registry.launch_counts()
-        t1 = time.perf_counter()
-        out: list[int] = []
-        pos, steps = len(prompt_ids), 0
+        t_dec = time.perf_counter()
+        pos = len(token_ids)
+        generated = 0
+        emitted: list[int] = []
         while True:
-            if pos >= S:
-                reason = StopReason.CONTEXT_FULL
+            if pos >= S:                  # keep-half shift, then re-prefill
+                keep = max(1, S // 2)
+                kept = (list(token_ids) + emitted)[-keep:]
+                logits = self.prefill(kept)
+                pos = keep
+                self.kernel_recorder.append(f"context_shift_keep{keep}")
+                continue
+            in_min = generated < gen_cfg.min_new_tokens
+            chain = sampler_ban if in_min and sampler_ban is not None else sampler
+            sampled = chain.sample(logits, history_dev, gen)       # [B]
+            tok_id = int(sampled[0])                  # waits for the device
+            generated += 1
+            metrics.generated_tokens = generated
+            text = (self.tokenizer.token_to_piece(tok_id)
+                    if self.tokenizer is not None else "")
+            ev = TokenEvent(token_id=tok_id, text=text, index=generated - 1)
+            if lp_n is not None:
+                ev.logprob, ev.top_logprobs = logprob_entry(
+                    logits[0].to(torch.float32).cpu().numpy(), tok_id, lp_n)
+            reason = stop.check(tok_id, text)
+            if reason in (StopReason.STOP_TOKEN, StopReason.EOS):
+                self._last_stop_reason = reason     # stop tokens not emitted
                 break
-            tok = int(argmax(logits)[0])        # waits for the device
-            if tok in gen_cfg.stop_token_ids:
-                reason = StopReason.STOP_TOKEN
+            emitted.append(tok_id)
+            yield ev
+            if reason is not None:
+                self._last_stop_reason = reason
                 break
-            if self.eos_token_id is not None and tok == self.eos_token_id:
-                reason = StopReason.EOS
-                break
-            out.append(tok)
-            if len(out) >= gen_cfg.max_new_tokens:
-                reason = StopReason.MAX_TOKENS
-                break
-            logits = self.decode_step(tok, pos)
+            logits = self.decode_step(tok_id, pos)
+            if penalized:
+                history_dev = torch.roll(history_dev, -1, dims=1)
+                history_dev[:, -1] = sampled
             pos += 1
-            steps += 1
-        decode_s = time.perf_counter() - t1
-        self.kernel_recorder.append(
-            f"decode_w2a8_attn_{self.plan}_x{len(out)}")
+            metrics.decode_steps += 1
+        self._sync()
+        metrics.decode_s = time.perf_counter() - t_dec
+        n = generated
+        if self.stacked_decode():
+            plan = decode_attn_plan(B, self.kv_dtype)
+            self.kernel_recorder.append(
+                f"decode_{self.kernel_path}_attn_{plan}_x{n}")
+        else:
+            self.kernel_recorder.append(f"decode_{self.kernel_path}_x{n}")
         self._record_kernels(before)
-        self.last_metrics = {
-            "prompt_tokens": len(prompt_ids), "generated_tokens": len(out),
-            "decode_steps": steps, "prefill_s": prefill_s,
-            "decode_s": decode_s, "device": str(self.device)}
-        return GenerationResult(out, reason, len(prompt_ids), self.last_metrics)
+
+    def generate(self, prompt: str | list[int],
+                 gen_cfg: GenerationConfig | None = None) -> GenerationResult:
+        """Tokenize (for a text prompt) → generate → decode."""
+        gen_cfg = gen_cfg or GenerationConfig()
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise InferenceError("string prompt requires a tokenizer")
+            token_ids = self.tokenizer.encode(prompt, add_bos=gen_cfg.add_bos)
+        else:
+            token_ids = list(prompt)
+        out_ids: list[int] = []
+        lps: list[dict] | None = [] if gen_cfg.logprobs is not None else None
+        for ev in self.generate_stream(token_ids, gen_cfg):
+            out_ids.append(ev.token_id)
+            if lps is not None:
+                lps.append({"token_id": ev.token_id, "text": ev.text,
+                            "logprob": ev.logprob, "top": ev.top_logprobs or []})
+        text = self.tokenizer.decode(out_ids) if self.tokenizer is not None else ""
+        return GenerationResult(text=text, token_ids=out_ids,
+                                stop_reason=self._last_stop_reason,
+                                prompt_tokens=len(token_ids),
+                                metrics=self.last_metrics.as_dict(),
+                                logprobs=lps)

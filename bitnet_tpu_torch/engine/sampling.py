@@ -1,12 +1,209 @@
-"""Greedy sampling (the slice's only sampler; the SamplerChain is ROADMAP
-queue 1 #5).  ``torch.argmax`` returns the first maximal index, as
-``jnp.argmax`` does, so ties break the same way in both packages."""
+"""Logit transforms and sampling (plain PyTorch on the logits' device).
+
+Counterpart of ``bitnet_tpu/engine/sampling.py:32-234``: every transform
+is a ``[B, V] -> [B, V]`` function with the JAX package's semantics, and
+:class:`SamplerChain` composes them in its order.  The categorical draw is
+gumbel-max over uniforms the caller supplies (:func:`categorical`), as
+``jax.random.categorical`` computes it (``argmax(logits − log(−log u))``
+with ``u`` in ``[tiny, 1)``), so a test can feed both packages the same
+uniforms; the engine draws them from a ``torch.Generator`` seeded by
+``GenerationConfig.seed``.  Mirostat (``MirostatState``) is not ported
+(ROADMAP.md queue 1 #16).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+from ..config import GenerationConfig
+
+NEG_INF = -1e30
+TINY = float(torch.finfo(torch.float32).tiny)
+
+
+# --------------------------------------------------------------------------
+# Pure transforms ([B, V] logits -> [B, V] logits)
+# --------------------------------------------------------------------------
+def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    return logits / max(float(temperature), 1e-6)
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k highest logits; ``k <= 0`` disables."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus mask: the smallest set whose cumulative probability ≥ p
+    (always at least the argmax token)."""
+    if p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < p
+    thresh = torch.where(keep_sorted, sorted_logits, torch.inf).amin(
+        dim=-1, keepdim=True)
+    return torch.where(logits < thresh, NEG_INF, logits)
+
+
+def apply_min_p(logits: torch.Tensor, min_p: float) -> torch.Tensor:
+    """Drop tokens with prob < min_p * max_prob."""
+    if min_p <= 0.0:
+        return logits
+    probs = torch.softmax(logits, dim=-1)
+    pmax = probs.amax(dim=-1, keepdim=True)
+    return torch.where(probs < min_p * pmax, NEG_INF, logits)
+
+
+def apply_typical_p(logits: torch.Tensor, typical_p: float) -> torch.Tensor:
+    """Keep the tokens whose surprisal is closest to the entropy, up to
+    cumulative mass ``typical_p``."""
+    if typical_p >= 1.0:
+        return logits
+    log_probs = torch.log_softmax(logits, dim=-1)
+    probs = torch.exp(log_probs)
+    entropy = -(probs * log_probs).sum(dim=-1, keepdim=True)
+    dev = torch.abs(-log_probs - entropy)
+    order = torch.argsort(dev, dim=-1, stable=True)    # most typical first
+    probs_sorted = torch.gather(probs, -1, order)
+    cum = torch.cumsum(probs_sorted, dim=-1)
+    keep_sorted = (cum - probs_sorted) < typical_p
+    keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+    return torch.where(keep, logits, NEG_INF)
+
+
+def _history_counts(logits: torch.Tensor, history: torch.Tensor) -> torch.Tensor:
+    """[B, V] counts of each token in the [B, W] history (-1 = padding)."""
+    B, V = logits.shape
+    hist = torch.where(history < 0, V, history).to(torch.int64)
+    counts = torch.zeros((B, V + 1), dtype=logits.dtype, device=logits.device)
+    counts.scatter_add_(1, hist, torch.ones_like(hist, dtype=logits.dtype))
+    return counts[:, :V]
+
+
+def apply_repetition_penalty(logits: torch.Tensor, history: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """Divide positive / multiply negative logits of recent tokens."""
+    if penalty == 1.0:
+        return logits
+    seen = _history_counts(logits, history) > 0
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def apply_presence_frequency(logits: torch.Tensor, history: torch.Tensor,
+                             frequency_penalty: float,
+                             presence_penalty: float) -> torch.Tensor:
+    """``logits -= frequency_penalty * count + presence_penalty * (count > 0)``
+    over the recent-history window."""
+    if frequency_penalty == 0.0 and presence_penalty == 0.0:
+        return logits
+    counts = _history_counts(logits, history)
+    return (logits - frequency_penalty * counts
+            - presence_penalty * (counts > 0).to(logits.dtype))
+
+
+def apply_logit_bias(logits: torch.Tensor,
+                     bias: tuple[tuple[int, float], ...]) -> torch.Tensor:
+    """Add per-token biases; a value <= -100 bans the token (OpenAI
+    ``logit_bias``)."""
+    V = logits.shape[-1]
+    pairs = [(t, v) for t, v in bias if t < V]
+    if not pairs:
+        return logits
+    ids = torch.tensor([t for t, _ in pairs], dtype=torch.int64,
+                       device=logits.device)
+    vals = torch.tensor([v for _, v in pairs], dtype=torch.float32,
+                        device=logits.device)
+    vec = torch.zeros((V,), dtype=torch.float32, device=logits.device)
+    vec.index_add_(0, ids, vals)
+    ban = torch.zeros((V,), dtype=torch.bool, device=logits.device)
+    ban[ids] = vals <= -100.0
+    return torch.where(ban, NEG_INF, logits + vec)
 
 
 def argmax(logits: torch.Tensor) -> torch.Tensor:
-    """[B, V] logits → [B] int32 token ids."""
+    """[B, V] → [B] int32; the first maximal index, as ``jnp.argmax``."""
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+
+
+def categorical(logits: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max draw from ``logits`` [B, V] given uniforms [B, V] in
+    ``[tiny, 1)``: ``argmax(logits − log(−log u))``, the computation of
+    ``jax.random.categorical``."""
+    return argmax(logits - torch.log(-torch.log(uniforms)))
+
+
+def draw_uniforms(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Uniforms in ``[tiny, 1)`` from ``generator`` (on ``device``)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return u.clamp_(min=TINY)
+
+
+def logprob_entry(row, tok_id: int, n: int) -> tuple[float, list]:
+    """Log-softmax logprob of ``tok_id`` plus the top-``n`` alternatives
+    ``[(token_id, logprob)]`` (highest first) from a raw logits row, on the
+    host (the model's distribution, before penalties and masks)."""
+    row = np.asarray(row, np.float32).reshape(-1)
+    m = float(row.max())
+    lp = row - (m + np.log(np.exp(row - m).sum()))
+    top = []
+    if n > 0:
+        k = min(n, lp.size)
+        idx = np.argpartition(-lp, k - 1)[:k]
+        idx = idx[np.argsort(-lp[idx])]
+        top = [(int(i), float(lp[i])) for i in idx]
+    return float(lp[tok_id]), top
+
+
+# --------------------------------------------------------------------------
+# Sampler chain
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SamplerChain:
+    """The JAX package's chain order: logit bias → repetition penalty →
+    presence/frequency → (unless greedy) temperature → top-k → top-p →
+    min-p → typical-p → categorical, or argmax when greedy."""
+
+    config: GenerationConfig
+
+    def transform(self, logits: torch.Tensor, history: torch.Tensor
+                  ) -> torch.Tensor:
+        c = self.config
+        logits = logits.to(torch.float32)
+        logits = apply_logit_bias(logits, c.logit_bias)
+        logits = apply_repetition_penalty(logits, history, c.repetition_penalty)
+        logits = apply_presence_frequency(
+            logits, history, c.frequency_penalty, c.presence_penalty)
+        if c.is_greedy:
+            return logits
+        logits = apply_temperature(logits, c.temperature)
+        logits = apply_top_k(logits, c.top_k)
+        logits = apply_top_p(logits, c.top_p)
+        logits = apply_min_p(logits, c.min_p)
+        logits = apply_typical_p(logits, c.typical_p)
+        return logits
+
+    def sample_with_uniforms(self, logits: torch.Tensor, history: torch.Tensor,
+                             uniforms: torch.Tensor | None) -> torch.Tensor:
+        """Token ids [B]; ``uniforms`` [B, V] feed the categorical draw
+        (unused, and may be None, when greedy)."""
+        t = self.transform(logits, history)
+        if self.config.is_greedy:
+            return argmax(t)
+        return categorical(t, uniforms)
+
+    def sample(self, logits: torch.Tensor, history: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+        """Token ids [B], the uniforms drawn from ``generator``."""
+        u = (None if self.config.is_greedy
+             else draw_uniforms(logits.shape, generator, logits.device))
+        return self.sample_with_uniforms(logits, history, u)

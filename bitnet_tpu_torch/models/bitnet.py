@@ -1,28 +1,37 @@
-"""BitNet forward pass in PyTorch: the fused stacked prefill and decode.
+"""BitNet forward pass in PyTorch: the fused stacked prefill and decode,
+and the generic per-layer path.
 
-Counterpart of ``bitnet_tpu/models/bitnet.py``, slice 1: the paths
-``forward`` → ``_prefill_stacked`` (``:1440`` → ``:1059``) and ``forward``
-→ ``_decode_stacked`` with plan ``qkv_v2s`` (``:1414`` → ``:401``, the
-stacked-attention branch ``:839-966``).  The JAX package walks the layers
-with ``lax.scan`` and reaches the stacked weights through scalar-prefetch
-kernels so XLA does not copy per-layer slices; here a Python loop over the
-layers does the same work and ``packed[l]`` is a view.
+Counterpart of ``bitnet_tpu/models/bitnet.py``:
+- slice 1: ``forward`` → ``_prefill_stacked`` (``:1440`` → ``:1059``) and
+  ``forward`` → ``_decode_stacked`` with plan ``qkv_v2s`` (``:1414`` →
+  ``:401``, the stacked-attention branch ``:839-966``);
+- slice 2: the generic layer loop ``forward`` → ``block_forward``
+  (``:1449-1461`` → ``:1241-1367``), which the CLI runs (unfused
+  projections; ``kernel_path`` ``w2a8``, ``pallas`` or ``xla``), with its
+  ``fast_decode`` branch on the v1 decode attention (K5).
+
+The JAX package walks the layers with ``lax.scan`` and reaches the stacked
+weights through scalar-prefetch kernels so XLA does not copy per-layer
+slices; here a Python loop over the layers does the same work, the
+kernels take the stack and a layer index, and ``packed[l]`` is a view.
 
 Semantics kept exactly:
 - ``_pre_len = kv_valid_len + num_real_tokens - T`` (``:1402``);
 - the rope rows are gathered once per call at positions clamped to the
   table (``:1408``);
-- prefill cache writes DROP positions >= S (``.at[].set(mode="drop")``);
-- the decode row write CLAMPS to S-1 (``:978-991``, kernel K3).
+- prefill cache writes, and every write of the generic path, DROP
+  positions >= S (``.at[].set(mode="drop")``, ``:1331-1334``,
+  ``:1347-1350``);
+- the stacked decode row write CLAMPS to S-1 (``:978-991``, kernel K3).
 
-Other paths (unfused projections, batched pools, quantized caches, the
-generic per-layer loop) are not ported yet and raise NotImplementedError
-naming their ROADMAP item.
+Batched pools and quantized caches are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
@@ -30,14 +39,16 @@ import torch
 from ..config import ModelConfig
 from ..errors import QuantizationError
 from ..ops.attention import attention
+from ..ops.decode_attention import decode_attention
 from ..ops.decode_attention_v2 import decode_attention_qkv, scatter_kv_rows
 from ..ops.flash import flash_attention
-from ..ops.linear import TernaryLinear, concat_linears
+from ..ops.linear import (TernaryLinear, concat_linears, linear_apply,
+                          linear_apply_normed, with_col_scales)
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope
 from ..ops.ternary_matmul import (
-    int8_matmul,
     STACKED_DECODE_MAX_M,
+    int8_matmul,
     quantize_rows,
     ternary_matmul_w2a8,
     ternary_matmul_w2a8_normed,
@@ -83,6 +94,7 @@ class BitNetParams:
     rope_cos: torch.Tensor
     embed_q: Optional[torch.Tensor] = None         # [V, H] int8 head
     embed_q_scale: Optional[torch.Tensor] = None   # [V] f32
+    lm_head: Optional[TernaryLinear] = None        # untied output [H, V]
 
     def to(self, device) -> "BitNetParams":
         return BitNetParams(**{f.name: _to(getattr(self, f.name), device)
@@ -91,48 +103,41 @@ class BitNetParams:
 
 def quantize_head(params: BitNetParams) -> BitNetParams:
     """Attach an int8 per-row copy of the tied embedding for the logits
-    (``logits_dtype='int8'``); the float table stays for lookups."""
+    (``logits_dtype='int8'``); the float table stays for lookups.  An
+    untied head is a ternary linear already and stays as it is."""
+    if params.lm_head is not None:
+        return params
     emb = params.embed.to(torch.float32)
     scale = torch.clamp(emb.abs().amax(dim=1), min=1e-8) / 127.0
     q = torch.clamp(torch.round(emb / scale[:, None]), -127, 127).to(torch.int8)
     return dataclasses.replace(params, embed_q=q, embed_q_scale=scale)
 
 
-def _colvec_scales(lin: TernaryLinear) -> TernaryLinear:
-    """Stacked per-layer scalar scales [L] → per-column vectors [L, 1, Np]."""
-    s = lin.scales
-    if lin.kind != "qk256" or lin.packed.ndim != 3 or s.ndim != 1:
-        return lin
-    L, Np = lin.packed.shape[0], lin.packed.shape[2]
-    vec = s.to(torch.float32).reshape(L, 1, 1).expand(L, 1, Np).contiguous()
-    return dataclasses.replace(lin, scales=vec)
-
-
 def fuse_block_params(blocks: BlockParams) -> BlockParams:
     """Fuse q|k|v and gate|up (4 matmuls a layer instead of 7).  Widths
-    that cannot fuse raise: the unfused path is not ported (#7)."""
+    that cannot fuse leave the blocks unfused, as the JAX package does
+    (the engine records ``fuse_projections_fallback``)."""
     try:
         wqkv = concat_linears([blocks.wq, blocks.wk, blocks.wv])
         w_gateup = concat_linears([blocks.w_gate, blocks.w_up])
-    except QuantizationError as e:
-        raise NotImplementedError(
-            f"projection fusion impossible ({e}); the unfused path is not "
-            "ported yet (ROADMAP.md queue 1 #7)") from e
+    except QuantizationError:
+        return blocks
     return dataclasses.replace(blocks, wqkv=wqkv, w_gateup=w_gateup,
                                wq=None, wk=None, wv=None, w_gate=None,
-                               w_up=None, wo=_colvec_scales(blocks.wo),
-                               w_down=_colvec_scales(blocks.w_down))
+                               w_up=None)
 
 
-def _scale_vec(lin: TernaryLinear) -> torch.Tensor:
-    """[L, Np] f32 per-column scales (a view for fused params)."""
-    L, Np = lin.packed.shape[0], lin.packed.shape[2]
-    s = lin.scales.to(torch.float32).reshape(L, -1)
-    if s.shape[1] == 1:
-        return s.expand(L, Np).contiguous()
-    if s.shape[1] != Np:
-        s = torch.nn.functional.pad(s, (0, Np - s.shape[1]), value=1.0)
-    return s.contiguous()
+def with_col_scales_params(params: BitNetParams) -> BitNetParams:
+    """Every linear's ``[L, Np]`` kernel scales (:func:`with_col_scales`),
+    once at engine init rather than once per kernel call."""
+    b = params.blocks
+    blocks = dataclasses.replace(b, **{
+        n: with_col_scales(getattr(b, n))
+        for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "wqkv", "w_gateup") if getattr(b, n) is not None})
+    return dataclasses.replace(
+        params, blocks=blocks,
+        lm_head=None if params.lm_head is None else with_col_scales(params.lm_head))
 
 
 # --------------------------------------------------------------------------
@@ -169,16 +174,43 @@ def stacked_weights_ok(cfg: ModelConfig, b: BlockParams) -> bool:
 
 
 def stacked_decode_ok(cfg: ModelConfig, params: BitNetParams, T: int, B: int,
-                      cache_dtype: torch.dtype) -> bool:
+                      cache_dtype: torch.dtype, kernel_path: str) -> bool:
     kv = "bf16" if cache_dtype == torch.bfloat16 else str(cache_dtype)
-    return (T == 1 and B <= STACKED_DECODE_MAX_M
+    return (T == 1 and B <= STACKED_DECODE_MAX_M and kernel_path == "w2a8"
             and decode_attn_plan(B, kv) in PORTED_PLANS
             and cache_dtype == torch.bfloat16
             and stacked_weights_ok(cfg, params.blocks))
 
 
-def stacked_prefill_ok(cfg: ModelConfig, params: BitNetParams, T: int) -> bool:
-    return T > 1 and stacked_weights_ok(cfg, params.blocks)
+def stacked_prefill_ok(cfg: ModelConfig, params: BitNetParams, T: int,
+                       kernel_path: str) -> bool:
+    return (T > 1 and kernel_path == "w2a8"
+            and stacked_weights_ok(cfg, params.blocks))
+
+
+# --------------------------------------------------------------------------
+# cache writes that drop positions >= S
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class CacheWrites:
+    """Where this call's new rows go, found once per forward call: batch
+    ``b`` and token ``t`` of every position < S, at row ``pos`` (positions
+    >= S are dropped, never clamped).  The prefill of the stacked path and
+    every write of the generic path go through it."""
+
+    b: torch.Tensor
+    t: torch.Tensor
+    pos: torch.Tensor
+
+    @classmethod
+    def of(cls, q_positions: torch.Tensor, S: int) -> "CacheWrites":
+        b, t = torch.nonzero(q_positions < S, as_tuple=True)
+        return cls(b, t, q_positions[b, t])
+
+    def put(self, cache: torch.Tensor, l: int, rows: torch.Tensor) -> None:
+        """rows [B, T, KV, D] → cache[l] [B, S, KV*D], in place."""
+        cache[l, self.b, self.pos] = rows[self.b, self.t].reshape(
+            self.b.shape[0], cache.shape[-1]).to(cache.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -197,11 +229,10 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L = k_cache.shape[0]
     eps = cfg.rms_norm_eps
-    sv = {n: _scale_vec(getattr(b, n)) for n in ("wqkv", "wo", "w_gateup", "w_down")}
 
     def mm(l, h, name, gamma, **kw):
         lin = getattr(b, name)
-        return ternary_matmul_w2a8_normed(l, h, lin.packed, sv[name], gamma,
+        return ternary_matmul_w2a8_normed(l, h, lin.packed, lin.col_scales, gamma,
                                           k_dim=lin.k, n_dim=lin.n, eps=eps, **kw)
 
     sin_r = sin_rows[:, 0].contiguous()
@@ -242,16 +273,13 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L, S = k_cache.shape[0], k_cache.shape[2]
     eps = cfg.rms_norm_eps
-    sv = {n: _scale_vec(getattr(b, n)) for n in ("wqkv", "wo", "w_gateup", "w_down")}
     use_flash = T * S >= (1 << 19)
     new_len = pre_len + T
-    # cache writes drop positions >= S (padding carries position S)
-    wb, wt = torch.nonzero(q_positions < S, as_tuple=True)
-    wp = q_positions[wb, wt]
+    writes = CacheWrites.of(q_positions, S)   # padding carries position S
 
     def mm(l, h2, name):
         lin = getattr(b, name)
-        return ternary_matmul_w2a8(l, h2, lin.packed, sv[name], k_dim=lin.k,
+        return ternary_matmul_w2a8(l, h2, lin.packed, lin.col_scales, k_dim=lin.k,
                                    n_dim=lin.n)
 
     h2 = x.reshape(M, H)
@@ -262,8 +290,8 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
         vn = qkv[..., (nh + nkv) * D:].reshape(B, T, nkv, D)
         q = apply_rope(q, sin_rows, cos_rows)
         kn = apply_rope(kn, sin_rows, cos_rows)
-        k_cache[l, wb, wp] = kn[wb, wt].reshape(-1, nkv * D).to(k_cache.dtype)
-        v_cache[l, wb, wp] = vn[wb, wt].reshape(-1, nkv * D).to(v_cache.dtype)
+        writes.put(k_cache, l, kn)
+        writes.put(v_cache, l, vn)
         k_read = k_cache[l].view(B, S, nkv, D)
         v_read = v_cache[l].view(B, S, nkv, D)
         attend = flash_attention if use_flash else attention
@@ -283,6 +311,112 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
 
 
 # --------------------------------------------------------------------------
+# the generic per-layer path (JAX: block_forward under lax.scan)
+# --------------------------------------------------------------------------
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "relu2":
+        r = torch.relu(x)
+        return r * r
+    if name == "gelu":                      # jax.nn.gelu: tanh approximation
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown hidden_act {name!r}")
+
+
+def _ffn(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, kernel_path: str,
+         l: int) -> torch.Tensor:
+    """SwiGLU FFN of layer ``l`` (``:162-215``): ``x`` is the PRE-norm
+    residual and the result includes it.  ffn_norm, the 2B-4T
+    ffn_sub_norm, the SwiGLU and the residual ride the projections
+    (fused into K1 at decode rows).  The opt-in ``BITNET_FUSED_FFN`` kernel
+    is not ported (ROADMAP.md queue 2 #14)."""
+    lapn = partial(linear_apply_normed, eps=cfg.rms_norm_eps, path=kernel_path,
+                   layer=l)
+    if bp.w_gateup is not None:
+        gu = lapn(bp.w_gateup, x, bp.ffn_norm)
+        if cfg.hidden_act == "silu":
+            return lapn(bp.w_down, gu, bp.ffn_sub_norm, glu=True, resid=x)
+        F = bp.w_gateup.n // 2
+        gate = _act(cfg.hidden_act, gu[..., :F])
+        up = gu[..., F:]
+    else:
+        h = rms_norm(x, bp.ffn_norm[l], cfg.rms_norm_eps)
+        gate = _act(cfg.hidden_act, lapn(bp.w_gate, h, None))
+        up = lapn(bp.w_up, h, None)
+    return lapn(bp.w_down, gate * up, bp.ffn_sub_norm, resid=x)
+
+
+def block_qkv(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
+              sin_rows: torch.Tensor, cos_rows: torch.Tensor,
+              kernel_path: str, l: int):
+    """Projections + RoPE of layer ``l`` (``:1185-1222``): fused wqkv with
+    attn_norm in the kernel preamble, or q, k, v from an ``rms_norm`` that
+    rounds to the activation dtype (``:1212``) and then ``gamma=None``.
+    Returns q [B,T,nh,D], k, v [B,T,nkv,D], q and k roped."""
+    B, T, _ = x.shape
+    nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lapn = partial(linear_apply_normed, eps=cfg.rms_norm_eps, path=kernel_path,
+                   layer=l)
+    if bp.wqkv is not None:
+        qkv = lapn(bp.wqkv, x, bp.attn_norm)
+        q = qkv[..., : nh * D].reshape(B, T, nh, D)
+        k = qkv[..., nh * D: (nh + nkv) * D].reshape(B, T, nkv, D)
+        v = qkv[..., (nh + nkv) * D:].reshape(B, T, nkv, D)
+    else:
+        h = rms_norm(x, bp.attn_norm[l], cfg.rms_norm_eps)
+        q = lapn(bp.wq, h, None).reshape(B, T, nh, D)
+        k = lapn(bp.wk, h, None).reshape(B, T, nkv, D)
+        v = lapn(bp.wv, h, None).reshape(B, T, nkv, D)
+    return (apply_rope(q, sin_rows, cos_rows), apply_rope(k, sin_rows, cos_rows),
+            v)
+
+
+def block_finish(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
+                 attn: torch.Tensor, kernel_path: str, l: int) -> torch.Tensor:
+    """o-projection (+ attn_sub_norm, kept inside K1) + residual + FFN
+    (``:1225-1238``)."""
+    B, T, _ = x.shape
+    x = linear_apply_normed(bp.wo, attn.reshape(B, T, -1), bp.attn_sub_norm,
+                            eps=cfg.rms_norm_eps, path=kernel_path,
+                            resid=x, layer=l)
+    return _ffn(cfg, bp, x, kernel_path, l)
+
+
+def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
+                  sin_rows: torch.Tensor, cos_rows: torch.Tensor,
+                  q_positions: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pre_len: torch.Tensor,
+                  kernel_path: str, writes: CacheWrites) -> torch.Tensor:
+    """Layer ``l`` of the generic path (``:1241-1367``) over the flat bf16
+    cache stack [L, B, S, KV*D], written in place.
+
+    ``fast_decode`` (T=1, B≤2, path ``pallas``/``w2a8``): K5 attends over
+    the PRE-write cache with the new token folded in, then the rows are
+    written.  Otherwise the rows are written first and plain ``attention``
+    (or ``flash_attention`` once T·S ≥ 2^19) reads the cache.  The
+    ``BITNET_ROPE_FUSED`` branch (ROADMAP.md queue 2 #6) and the quantized
+    cache (queue 1 #8) are not ported."""
+    B, T, _ = x.shape
+    nkv, D = cfg.num_kv_heads, cfg.head_dim
+    S = k_cache.shape[2]
+    q, k, v = block_qkv(cfg, bp, x, sin_rows, cos_rows, kernel_path, l)
+    if T == 1 and B <= 2 and kernel_path in ("pallas", "w2a8"):
+        attn1 = decode_attention(l, q[:, 0].contiguous(), k[:, 0].contiguous(),
+                                 v[:, 0].contiguous(), k_cache, v_cache, pre_len)
+        writes.put(k_cache, l, k)
+        writes.put(v_cache, l, v)
+        return block_finish(cfg, bp, x, attn1[:, None], kernel_path, l)
+    writes.put(k_cache, l, k)
+    writes.put(v_cache, l, v)
+    k_read = k_cache[l].view(B, S, nkv, D)
+    v_read = v_cache[l].view(B, S, nkv, D)
+    attend = flash_attention if T > 1 and T * S >= (1 << 19) else attention
+    attn = attend(q, k_read, v_read, q_positions, pre_len + T)
+    return block_finish(cfg, bp, x, attn, kernel_path, l)
+
+
+# --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
 def embed_tokens(params: BitNetParams, tokens: torch.Tensor) -> torch.Tensor:
@@ -296,7 +430,8 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             k_cache: torch.Tensor,         # [L, B, S, KV*D], updated in place
             v_cache: torch.Tensor,
             kv_valid_len: torch.Tensor,    # [B] valid length BEFORE this call
-            num_real_tokens: torch.Tensor | int | None = None):  # [B] int32
+            num_real_tokens: torch.Tensor | int | None = None,  # [B] int32
+            kernel_path: str = "xla"):
     """Returns (final-normed hidden [B, T, H], k_cache, v_cache)."""
     x = embed_tokens(params, tokens)
     B, T, _ = x.shape
@@ -307,42 +442,78 @@ def forward(cfg: ModelConfig, params: BitNetParams,
     # rope rows gathered once for all layers, positions clamped to the table
     rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
     sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
-    if stacked_decode_ok(cfg, params, T, B, k_cache.dtype):
+    if stacked_decode_ok(cfg, params, T, B, k_cache.dtype, kernel_path):
         h = _decode_stacked(cfg, params, x, q_positions, k_cache, v_cache,
                             pre_len, sin_rows, cos_rows)
-    elif stacked_prefill_ok(cfg, params, T):
+    elif stacked_prefill_ok(cfg, params, T, kernel_path):
         h = _prefill_stacked(cfg, params, x, q_positions, k_cache, v_cache,
                              pre_len, sin_rows, cos_rows)
+    elif k_cache.dtype == torch.bfloat16:
+        writes = CacheWrites.of(q_positions, k_cache.shape[2])
+        pos = pre_len.to(torch.int32).contiguous()
+        h = x
+        for l in range(k_cache.shape[0]):
+            h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows,
+                              q_positions, k_cache, v_cache, pos, kernel_path,
+                              writes)
     else:
         raise NotImplementedError(
-            f"no ported path for T={T}, B={B}, cache {k_cache.dtype}: the "
-            "generic per-layer path is ROADMAP.md queue 1 #7 (pools with "
-            "B > 2: #9, quantized caches: #8)")
+            f"no ported path for a {k_cache.dtype} cache (ROADMAP.md queue 1 #8)")
     return rms_norm(h, params.final_norm, cfg.rms_norm_eps), k_cache, v_cache
 
 
 def forward_cache(cfg: ModelConfig, params: BitNetParams,
                   tokens: torch.Tensor, q_positions: torch.Tensor, cache,
-                  num_real_tokens: torch.Tensor | int | None = None):
+                  num_real_tokens: torch.Tensor | int | None = None,
+                  kernel_path: str = "xla"):
     """:func:`forward` on an ``engine.cache.KVCache``; advances its lengths
     in place and returns (hidden, cache)."""
     if num_real_tokens is None:
         num_real_tokens = tokens.shape[1]
     h, _, _ = forward(cfg, params, tokens, q_positions, cache.k, cache.v,
-                      cache.lengths, num_real_tokens)
+                      cache.lengths, num_real_tokens, kernel_path)
     cache.lengths += num_real_tokens
     return h, cache
 
 
-def logits(cfg: ModelConfig, params: BitNetParams,
-           hidden: torch.Tensor) -> torch.Tensor:
-    """Final-normed hidden [B, T, H] → f32 logits [B, T, V] (tied head)."""
+# the tied bf16 head's CPU route: f32 copies of this many table rows at a
+# time, never of the whole [V, H] table
+HEAD_CHUNK_ROWS = 1024
+
+
+def tied_head(hidden: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[M, H] × [V, H]ᵀ in the table's dtype with f32 accumulation and f32
+    logits (JAX: ``dot_general(..., preferred_element_type=f32)``,
+    ``:1519-1526``).  A bf16 table is never copied to f32 whole: on the
+    card one cuBLAS bf16 GEMM writes f32 (``torch.mm(out_dtype=)``); on the
+    CPU, which has no such call, row chunks of the table are widened to
+    f32 one at a time (exact bf16 products, f32 sums)."""
+    h = hidden.to(table.dtype)
+    if table.dtype == torch.float32:
+        return torch.matmul(h, table.t())
+    if h.is_cuda:
+        return torch.mm(h, table.t(), out_dtype=torch.float32)
+    hf = h.to(torch.float32)
+    out = torch.empty((h.shape[0], table.shape[0]), dtype=torch.float32)
+    for v0 in range(0, table.shape[0], HEAD_CHUNK_ROWS):
+        rows = table[v0:v0 + HEAD_CHUNK_ROWS].to(torch.float32)
+        out[:, v0:v0 + rows.shape[0]] = hf @ rows.t()
+    return out
+
+
+def logits(cfg: ModelConfig, params: BitNetParams, hidden: torch.Tensor,
+           kernel_path: str = "xla") -> torch.Tensor:
+    """Final-normed hidden [B, T, H] → logits [B, T, V] (``:1495-1526``):
+    the untied ``lm_head`` through ``linear_apply`` (hidden's dtype), else
+    the int8 tied head on path ``w2a8`` (f32), else the tied head in the
+    table's dtype with f32 accumulation (f32)."""
     B, T, H = hidden.shape
-    if params.embed_q is not None:
+    if params.lm_head is not None:
+        return linear_apply(params.lm_head, hidden, path=kernel_path)
+    if params.embed_q is not None and kernel_path == "w2a8":
         # int8 head: per-token activation scale x per-row table scale
         xq, sx, _ = quantize_rows(hidden.reshape(B * T, H).to(torch.float32))
         acc = int8_matmul(xq, params.embed_q.t())
         out = acc.to(torch.float32) * sx[:, None] * params.embed_q_scale[None, :]
         return out.reshape(B, T, -1)
-    h = hidden.to(params.embed.dtype).to(torch.float32)
-    return torch.matmul(h, params.embed.to(torch.float32).t())
+    return tied_head(hidden.reshape(B * T, H), params.embed).reshape(B, T, -1)

@@ -40,9 +40,6 @@ def _linear(d, device) -> TernaryLinear | None:
 
 
 def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:
-    if tree.get("lm_head") is not None:
-        raise NotImplementedError("an untied output head is not ported yet "
-                                  "(ROADMAP.md queue 1 #7)")
     b = tree["blocks"]
     lin_names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                  "wqkv", "w_gateup")
@@ -56,4 +53,5 @@ def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:
         rope_sin=_tensor(tree["rope_sin"], device),
         rope_cos=_tensor(tree["rope_cos"], device),
         embed_q=_tensor(tree.get("embed_q"), device),
-        embed_q_scale=_tensor(tree.get("embed_q_scale"), device))
+        embed_q_scale=_tensor(tree.get("embed_q_scale"), device),
+        lm_head=_linear(tree.get("lm_head"), device))

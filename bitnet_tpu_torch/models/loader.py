@@ -77,9 +77,6 @@ def load_model(path: str, max_seq_len: int | None = None,
     ``eos_token_id``)."""
     with GGUFReader(path) as r:
         cfg = config_from_gguf(r)
-        if not cfg.tie_word_embeddings:
-            raise ModelError("an untied output head is not ported yet "
-                             "(ROADMAP.md queue 1 #7)")
         names = set(r.tensors)
         emb_name = find_global(names, "token_embd")
         if emb_name is None:
@@ -135,10 +132,14 @@ def load_model(path: str, max_seq_len: int | None = None,
             raise ModelError("no output_norm tensor found")
         sin, cos = build_rope_tables(D, max_seq_len or cfg.max_seq_len,
                                      cfg.rope_base)
+        lm_head = None
+        if not cfg.tie_word_embeddings:       # untied output.weight [V, H]
+            lm_head = _load_linear(r, find_global(names, "output"),
+                                   cfg.vocab_size, H)
         params = BitNetParams(
             embed=torch.from_numpy(np.array(embed)).to(param_dtype),
             blocks=blocks, final_norm=_vec(r, fn_name, H),
-            rope_sin=sin, rope_cos=cos)
+            rope_sin=sin, rope_cos=cos, lm_head=lm_head)
         eos = r.metadata.get("tokenizer.ggml.eos_token_id")
         meta = {"eos_token_id": None if eos is None else int(eos)}
     return cfg, params, meta

@@ -37,11 +37,14 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
         "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, P),
         "bn_w2a8_gemm": (P, I, I, P, I, P, P, P, P, I, I, P),
+        "bn_bf16_gemm": (P, I, I, P, I, P, P, P, I, I, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,
                                     P, P, P, I, P),
         "bn_scatter_kv_rows": (P, P, P, P, P, I, I, I, I, P),
+        "bn_decode_attention": (P, P, P, P, P, P, I, I, I, I, I, F, P, P, P,
+                                I, P),
     },
 }
 

@@ -1,6 +1,10 @@
 """Ternary linear layers on torch tensors, in the JAX package's word layout.
 
-Counterpart of ``bitnet_tpu/ops/linear.py:43-121``.  Device storage is
+Counterpart of ``bitnet_tpu/ops/linear.py:43-260``: the layout, the
+parameters, and ``linear_apply`` / ``linear_apply_normed``, which send the
+``pallas`` and ``w2a8`` paths to the kernels' dispatcher
+(``ops/ternary_matmul.ternary_matmul_pallas``) and run the ``xla`` path as
+a dequantized weight and a plain matmul.  Device storage is
 int32 words ``[Kp/16, Np]`` (``[L, Kp/16, Np]`` when stacked): within each
 KT=256 K-tile, word ``s`` (0..15), byte ``j`` and 2-bit plane ``p`` hold
 the code of logical K row ``p*64 + 4s + j``.  So ``(w >> 2p) & 0x03030303``
@@ -15,12 +19,15 @@ qk256 weights of the main path (K == Kp there).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..config import not_ported
 from ..errors import QuantizationError
 from ..quant.qk256 import extract_codes
+from .rmsnorm import rms_norm
 
 KT_PACK = 256
 LANE = 128
@@ -84,17 +91,37 @@ def _pad_cols(a: np.ndarray, mult: int = LANE) -> np.ndarray:
 class TernaryLinear:
     """One qk256 linear (or an [L]-stacked set): ``packed`` int32 words
     ``[(L,) Kp/16, Np]``; ``scales`` a per-tensor scalar (``[]`` / ``[L]``)
-    or, after fusion, a per-column vector ``[(L,) 1, Np]`` (f32)."""
+    or, after fusion, a per-column vector ``[(L,) 1, Np]`` (f32).
+    ``col_scales`` is the form the kernels read, ``[L, Np]`` f32 (L = 1
+    unstacked), attached once by :func:`with_col_scales`."""
 
     kind: str
     k: int
     n: int
     packed: torch.Tensor
     scales: torch.Tensor
+    col_scales: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TernaryLinear":
-        return dataclasses.replace(self, packed=self.packed.to(device),
-                                   scales=self.scales.to(device))
+        return dataclasses.replace(
+            self, packed=self.packed.to(device), scales=self.scales.to(device),
+            col_scales=None if self.col_scales is None else self.col_scales.to(device))
+
+
+def with_col_scales(lin: TernaryLinear) -> TernaryLinear:
+    """Attach the kernels' ``[L, Np]`` f32 per-column scales: a scalar per
+    tensor (or per layer) broadcast over the columns, a fused per-column
+    vector padded to Np.  Run once at engine init, never per call."""
+    if lin.kind != "qk256":
+        return lin
+    L = lin.packed.shape[0] if lin.packed.ndim == 3 else 1
+    Np = lin.packed.shape[-1]
+    s = lin.scales.to(torch.float32).reshape(L, -1)
+    if s.shape[1] == 1:
+        s = s.expand(L, Np)
+    elif s.shape[1] != Np:
+        s = torch.nn.functional.pad(s, (0, Np - s.shape[1]), value=1.0)
+    return dataclasses.replace(lin, col_scales=s.contiguous())
 
 
 def qk256_linear_from_codes(codes_kn: np.ndarray,
@@ -175,3 +202,77 @@ def concat_linears(lins: list[TernaryLinear]) -> TernaryLinear:
     return TernaryLinear(kind="qk256", k=lins[0].k,
                          n=sum(l.n for l in lins), packed=packed,
                          scales=torch.cat(cols, dim=-1).contiguous())
+
+
+def linear_apply(lin: TernaryLinear, x: torch.Tensor, path: str = "xla",
+                 layer: int = 0) -> torch.Tensor:
+    """``y = x @ W`` for [..., K] activations (``bitnet_tpu/ops/linear.py:199``).
+
+    ``lin`` may be [L]-stacked, then ``layer`` picks its row.  ``path``:
+    ``'xla'`` dequantizes the weight and runs one plain matmul (f32
+    accumulation, result in x's dtype); ``'pallas'`` / ``'w2a8'`` go to the
+    kernels (K6 / K4, or K1 at decode rows)."""
+    return linear_apply_normed(lin, x, None, path=path, layer=layer)
+
+
+def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
+                        gamma: torch.Tensor | None = None, eps: float = 1e-5,
+                        path: str = "xla", glu: bool = False,
+                        resid: torch.Tensor | None = None,
+                        layer: int = 0) -> torch.Tensor:
+    """``[resid +] rms_norm(glu(x), gamma) @ W`` (``bitnet_tpu/ops/linear.py:227``),
+    with the branch rule of the JAX kernels' dispatcher
+    (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
+
+    ``lin``: a qk256 linear, stacked ``[L, Kp/16, Np]`` (row ``layer``) or
+    unstacked; ``x`` [..., K] (``[..., 2K]`` with ``glu``); ``gamma`` the
+    RMSNorm weight (``[L, K]`` for a stack, ``[K]`` unstacked) or None;
+    ``resid`` [..., N].  Returns [..., N] in x's dtype.
+
+    - ``w2a8`` with M ≤ 64 rows and K == Kp: K1, with the norm, SwiGLU and
+      residual fused (the ``w2a8_normed`` site ``:1073``);
+    - otherwise SwiGLU and the norm run in plain torch, then the path picks
+      the matmul: ``xla`` a dequantized weight and a plain matmul, ``w2a8``
+      per-row int8 quantization in torch (``:1098-1110``) and K4,
+      ``pallas`` K6 (both on x zero-padded to Kp); the residual is added
+      in torch (``:1324-1325``)."""
+    from . import ternary_matmul as tm
+
+    if path not in ("xla", "w2a8", "pallas"):
+        raise ValueError(f"bad kernel path {path!r}")
+    if lin.kind != "qk256":
+        raise not_ported(f"{lin.kind} weights on the generic path", "#10")
+    if path != "xla" and lin.col_scales is None:
+        raise ValueError("the kernels read col_scales: with_col_scales(lin) first")
+    stacked = lin.packed.ndim == 3
+    packed = lin.packed if stacked else lin.packed[None]
+    l = layer if stacked else 0
+    lead = x.shape[:-1]
+    K = x.shape[-1] // 2 if glu else x.shape[-1]
+    Kp = packed.shape[1] * 16
+    x2 = x.reshape(-1, x.shape[-1])
+    r2 = None if resid is None else resid.reshape(-1, lin.n)
+    if path == "w2a8" and x2.shape[0] <= tm.STACKED_DECODE_MAX_M and K == Kp:
+        g = gamma if gamma is None or stacked else gamma[None]
+        y = tm.ternary_matmul_w2a8_normed(
+            l, x2, packed, lin.col_scales, g, k_dim=lin.k, n_dim=lin.n,
+            eps=eps, glu=glu, resid=r2)
+        return y.reshape(*lead, lin.n)
+    if glu:
+        gate = x2[:, :K]
+        x2 = gate * torch.sigmoid(gate) * x2[:, K:]
+    if gamma is not None:
+        x2 = rms_norm(x2, gamma[l] if stacked else gamma, eps)
+    if path == "xla":
+        w = dequantize_weight(dataclasses.replace(
+            lin, packed=packed[l], scales=lin.scales[l] if stacked else lin.scales),
+            x2.dtype)
+        y = torch.matmul(x2.to(torch.float32), w.to(torch.float32)).to(x2.dtype)
+    else:
+        if K != Kp:               # padded K rows hold code 0
+            x2 = torch.nn.functional.pad(x2, (0, Kp - K))
+        mm = tm.ternary_matmul_w2a8 if path == "w2a8" else tm.ternary_matmul_bf16
+        y = mm(l, x2.contiguous(), packed, lin.col_scales, k_dim=Kp, n_dim=lin.n)
+    if r2 is not None:
+        y = y + r2
+    return y.reshape(*lead, lin.n)

@@ -14,8 +14,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from .decode_attention import decode_attention
 from .decode_attention_v2 import decode_attention_qkv, scatter_kv_rows
-from .ternary_matmul import ternary_matmul_w2a8, ternary_matmul_w2a8_normed
+from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_w2a8,
+                             ternary_matmul_w2a8_normed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,14 +25,14 @@ class KernelSpec:
     kernel_id: str
     route: str                 # 'cuda' | 'triton'
     source: str                # path in the repo
-    replaces: str              # file:line of the Pallas kernel's pallas_call
+    replaces: str              # file:line of each pallas_call it replaces
     wrapper: Callable
 
 
 REGISTRY: tuple[KernelSpec, ...] = (
     KernelSpec("ternary_matmul_w2a8_normed", "cuda",
                "bitnet_tpu_torch/csrc/ternary_matmul.cu",
-               "bitnet_tpu/ops/ternary_matmul.py:375",
+               "bitnet_tpu/ops/ternary_matmul.py:375 and :1073",
                ternary_matmul_w2a8_normed),
     KernelSpec("decode_attention_qkv", "cuda",
                "bitnet_tpu_torch/csrc/decode_attention.cu",
@@ -42,8 +44,16 @@ REGISTRY: tuple[KernelSpec, ...] = (
                scatter_kv_rows),
     KernelSpec("ternary_matmul_w2a8", "cuda",
                "bitnet_tpu_torch/csrc/ternary_matmul.cu",
-               "bitnet_tpu/ops/ternary_matmul.py:464",
+               "bitnet_tpu/ops/ternary_matmul.py:464 and :1177 (w2a8 body)",
                ternary_matmul_w2a8),
+    KernelSpec("decode_attention", "cuda",
+               "bitnet_tpu_torch/csrc/decode_attention.cu",
+               "bitnet_tpu/ops/decode_attention.py:960",
+               decode_attention),
+    KernelSpec("ternary_matmul_bf16", "cuda",
+               "bitnet_tpu_torch/csrc/ternary_matmul.cu",
+               "bitnet_tpu/ops/ternary_matmul.py:1177 (bf16 qk256 body)",
+               ternary_matmul_bf16),
 )
 
 

@@ -1,4 +1,5 @@
-"""W2A8 ternary matmuls: the CUDA kernels K1/K4 and their plain versions.
+"""Ternary matmuls: the CUDA kernels K1, K4 and K6, their plain versions,
+and the dispatcher of the generic path.
 
 K1 :func:`ternary_matmul_w2a8_normed` replaces ``ternary_matmul_stacked``
 (``bitnet_tpu/ops/ternary_matmul.py:316``): decode shapes, M = B ≤ 64, with
@@ -10,11 +11,23 @@ K4 :func:`ternary_matmul_w2a8` replaces ``ternary_matmul_stacked_prefill``
 the kernel in plain PyTorch with the same math, as the JAX package does
 in XLA (``:441-445``).
 
-Both take the whole ``[L, Kp/16, Np]`` stack and a Python layer index, as
-the JAX wrappers do; on a GPU ``packed[l]`` is a view, so the layer slice
-costs nothing.  Each wrapper launches its CUDA kernel for CUDA tensors
-(counting the launch in ``<wrapper>.launches``) and runs the plain version
-for CPU tensors — never the plain version on a CUDA tensor.
+K6 :func:`ternary_matmul_bf16` replaces the ``_qk256_kernel`` body of
+``_ternary_matmul_2d`` (``:112-135``, launched at ``:1177``): bf16
+activations times the biased codes with f32 accumulation, the
+``--kernel-path pallas`` route.
+
+All three take the whole ``[L, Kp/16, Np]`` stack and a Python layer
+index, as the JAX stacked wrappers do; on a GPU ``packed[l]`` is a view,
+so the layer slice costs nothing.  An unstacked ``[Kp/16, Np]`` weight is
+the stack of one layer.  Each wrapper launches its CUDA kernel for CUDA
+tensors (counting the launch in ``<wrapper>.launches``) and runs the plain
+version for CPU tensors — never the plain version on a CUDA tensor.
+
+:func:`ternary_matmul_pallas` is the counterpart of the JAX dispatcher
+(``:1266-1326``) with its branch rule: K1 for normed decode rows, else
+the SwiGLU / RMSNorm in plain torch, then K4 (W2A8) or K6 (bf16).  The
+wrappers read the ``[L, Np]`` column scales that
+:func:`~.linear.with_col_scales` attaches at engine init.
 """
 
 from __future__ import annotations
@@ -22,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .linear import unpack_packed
+from .linear import TernaryLinear, linear_apply_normed, unpack_packed
 
 # The one M cap of the decode-shaped W2A8 kernel, the default of the JAX
 # package's ``stacked_decode_max_m()`` (``ops/ternary_matmul.py:52``; there
@@ -245,3 +258,73 @@ def ternary_matmul_w2a8(l: int, x: torch.Tensor, packed: torch.Tensor,
 
 
 ternary_matmul_w2a8.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: bf16 activations x biased codes, f32 accumulation
+# --------------------------------------------------------------------------
+def ternary_matmul_bf16_plain(xb, sumx, words, scale, n_dim, dtype):
+    """K6 on one layer: bf16 rows [M, Kp] (their f32 row sums ``sumx``)
+    × words [Kp/16, Np]: ``(Σ x·(c+(c>>1)) − 2·sumx)·scale`` in f32, cast
+    to ``dtype``."""
+    acc = torch.matmul(xb.to(torch.float32),
+                       biased_codes(words)[:, :n_dim].to(torch.float32))
+    y = (acc - 2.0 * sumx[:, None]) * scale[None, :n_dim]
+    return y.to(dtype)
+
+
+def ternary_matmul_bf16(l: int, x: torch.Tensor, packed: torch.Tensor,
+                        scale_vec: torch.Tensor, k_dim: int,
+                        n_dim: int) -> torch.Tensor:
+    """K6: ``x @ W[l]`` with x rounded to bf16 (even when x is f32, as the
+    JAX ``pallas`` variant does, ``:1115-1118``); returns [M, n_dim] in
+    x's dtype.  The bias correction sums the same bf16-rounded values the
+    kernel multiplies, in f32, here in plain PyTorch (XLA in the JAX
+    package)."""
+    _check_stack(packed, scale_vec, l, k_dim)
+    if x.ndim != 2 or x.shape[1] != k_dim:
+        raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
+    if n_dim > packed.shape[2]:
+        raise ValueError(f"n_dim {n_dim} > Np {packed.shape[2]}")
+    xb = x.to(torch.bfloat16).contiguous()
+    sumx = xb.to(torch.float32).sum(dim=1)
+    if x.device.type == "cpu":
+        return ternary_matmul_bf16_plain(xb, sumx, packed[l], scale_vec[l],
+                                         n_dim, x.dtype)
+    if not x.is_cuda or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K6 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
+    if packed.get_device() != x.get_device() or scale_vec.get_device() != x.get_device():
+        raise ValueError("K6 operands must be on x's device")
+    M, Np = x.shape[0], packed.shape[2]
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("ternary_matmul")
+    rc = lib.bn_bf16_gemm(
+        xb.data_ptr(), M, k_dim, packed.data_ptr() + 4 * l * packed.stride(0),
+        Np, sumx.data_ptr(), scale_vec.data_ptr() + 4 * l * Np,
+        out.data_ptr(), n_dim, _DTYPE_CODE[x.dtype], _cuda.stream_ptr(x.device))
+    _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_bf16")
+    ternary_matmul_bf16.launches += 1
+    return out
+
+
+ternary_matmul_bf16.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the generic path's dispatcher (JAX: ternary_matmul_pallas)
+# --------------------------------------------------------------------------
+def ternary_matmul_pallas(lin: TernaryLinear, x: torch.Tensor,
+                          variant: str = "pallas",
+                          gamma: torch.Tensor | None = None,
+                          eps: float = 1e-5, glu: bool = False,
+                          resid: torch.Tensor | None = None,
+                          layer: int = 0) -> torch.Tensor:
+    """``[resid +] rms_norm(glu(x), gamma) @ W`` through the port's kernels,
+    ``variant`` ``'w2a8'`` (K1, or K4) or ``'pallas'`` (K6): the JAX
+    dispatcher of this name (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
+    Its branch rule lives in :func:`~.linear.linear_apply_normed`, which
+    shares the SwiGLU / norm / residual steps with the ``xla`` path."""
+    if variant not in ("w2a8", "pallas"):
+        raise ValueError(f"bad variant {variant!r}")
+    return linear_apply_normed(lin, x, gamma, eps=eps, path=variant, glu=glu,
+                               resid=resid, layer=layer)

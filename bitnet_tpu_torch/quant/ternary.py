@@ -10,6 +10,28 @@ from __future__ import annotations
 
 import numpy as np
 
+# Symmetric 4-level LUT (no representable zero) — GGML IQ2_S qmap.
+LUT_SYM = np.array([-2.0, -1.0, 1.0, 2.0], dtype=np.float32)
+
+
+def ternary_quantize_codes(x: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """Quantize floats to 2-bit codes given per-block scale ``d``.
+    Thresholds match GGML: v<-1.5 → 0, v<0 → 1, v<1.5 → 2, else 3."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        v = np.where(d > 0, x / d, 0.0)
+    codes = np.full(v.shape, 3, dtype=np.uint8)
+    codes[v < 1.5] = 2
+    codes[v < 0.0] = 1
+    codes[v < -1.5] = 0
+    return codes
+
+
+def pack_codes_lsb_first(codes: np.ndarray) -> np.ndarray:
+    """Pack uint2 codes (flat, len % 4 == 0) into bytes, LSB-first."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8).reshape(-1, 4)
+    return (codes[:, 0] | (codes[:, 1] << 2) | (codes[:, 2] << 4)
+            | (codes[:, 3] << 6)).astype(np.uint8)
+
 
 def unpack_codes_lsb_first(packed: np.ndarray, n: int | None = None) -> np.ndarray:
     """Unpack bytes into uint2 codes, LSB-first; flat result (first ``n``)."""

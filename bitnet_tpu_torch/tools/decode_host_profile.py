@@ -1,18 +1,24 @@
 """Where the host time of an eager decode step goes, at the full
-bitnet-b1.58-2B-4T shapes (random weights from seed 0, B=1, S=4096).
+bitnet-b1.58-2B-4T shapes (random weights from seed 0, B=1).
 
 Run on the card from the repository root:
 
-    python -m bitnet_tpu_torch.tools.decode_host_profile
+    python -m bitnet_tpu_torch.tools.decode_host_profile [--path generic]
 
-Prints one JSON line: the host enqueue time of a decode step (no sync
-inside the timed loop), the step time with the sync, and the functions
-with the most own time per step under cProfile (µs per step and calls per
-step), beside the card's name and power limit.
+``--path fused`` (the default) is slice 1's stacked path (S=4096, int8
+head); ``--path generic`` the unfused path as the CLI builds its engine
+(S=2048, auto → w2a8, bf16 tied head).  Prints one JSON line: the host
+enqueue time of a decode step (no sync inside the timed loop), the step
+time with the sync, the device time of the step's kernels from
+``torch.profiler`` (in all, so the share of the step the card idles, and
+by kernel), and the functions with the most own time per step under
+cProfile (µs per step and calls per step), beside the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import cProfile
 import json
 import pstats
@@ -20,6 +26,7 @@ import subprocess
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ..config import EngineConfig, GenerationConfig
 from ..device_probe import require_sm90
@@ -30,16 +37,21 @@ from ..ops import _cuda
 STEPS, TOP = 30, 12
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("fused", "generic"), default="fused")
+    args = ap.parse_args(argv)
     require_sm90(0)
     _cuda.build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    eng = InferenceEngine(BITNET_2B4T, build_synthetic(BITNET_2B4T, 0, "cuda"),
-                          EngineConfig(max_seq_len=4096, logits_dtype="int8"))
+    ec = (EngineConfig(max_seq_len=4096, logits_dtype="int8",
+                       kernel_path="w2a8", fuse_projections=True)
+          if args.path == "fused" else EngineConfig(max_seq_len=2048))
+    eng = InferenceEngine(BITNET_2B4T, build_synthetic(BITNET_2B4T, 0, "cuda"), ec)
     prompt = list(range(1, 33))
-    eng.generate(prompt, GenerationConfig(max_new_tokens=8))        # warm-up
+    eng.generate(prompt, GenerationConfig(max_new_tokens=8, greedy=True))        # warm-up
     eng.prefill(prompt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -58,9 +70,26 @@ def main() -> None:
     prof.disable()
     stats = pstats.Stats(prof).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:TOP]
+    eng.prefill(prompt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        for i in range(STEPS):
+            eng.decode_step(5, len(prompt) + i)
+        torch.cuda.synchronize()
+    kernels = {}                                  # device kernels, not aten ops
+    for e in tp.key_averages():
+        if e.device_time_total > 0 and not e.key.startswith("aten::"):
+            key = e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:]
+            kernels[key] = kernels.get(key, 0.0) + e.device_time_total / STEPS
+    device_us = sum(kernels.values())
     print(json.dumps({
-        "card": smi, "enqueue_ms_per_step": enqueue * 1e3,
-        "step_ms": step * 1e3,
+        "card": smi, "path": args.path, "kernel_path": eng.kernel_path,
+        "enqueue_ms_per_step": enqueue * 1e3, "step_ms": step * 1e3,
+        "device_ms_per_step": device_us / 1e3,
+        "device_idle_share": 1.0 - device_us / 1e3 / (step * 1e3),
+        "device_us_per_step_by_kernel": {
+            k: round(v, 1) for k, v in sorted(kernels.items(),
+                                              key=lambda kv: -kv[1])[:TOP]},
         "own_us_per_step": {f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})":
                             round(v[2] / STEPS * 1e6, 1) for k, v in top},
         "calls_per_step": {f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})":

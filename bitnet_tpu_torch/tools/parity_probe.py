@@ -38,7 +38,6 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..device_probe import require_sm90
 from ..engine.engine import InferenceEngine
-from ..models.bitnet import _scale_vec
 from ..models.synthetic import BITNET_2B4T, build_synthetic
 from ..ops import _cuda
 from ..ops import decode_attention_v2 as da
@@ -62,7 +61,7 @@ class _Side:
 
     def __init__(self, eng: InferenceEngine):
         self.cfg, self.p, self.dev = eng.cfg, eng.params, eng.device
-        self.sv = {n: _scale_vec(getattr(self.p.blocks, n))
+        self.sv = {n: getattr(self.p.blocks, n).col_scales
                    for n in ("wqkv", "wo", "w_gateup", "w_down")}
 
     def k1(self, l, name, x, gamma_name, plain, glu=False, resid=None):
@@ -148,7 +147,8 @@ def run_case(name: str, dtype: str, steps: int, dev) -> dict:
     cfg, B, seed, prompt = CASES[name]
     params = build_synthetic(cfg, seed=seed, device="cpu")
     ec = EngineConfig(max_seq_len=256, max_batch_size=B, compute_dtype=dtype,
-                      logits_dtype="int8", kv_cache_dtype="bf16")
+                      logits_dtype="int8", kv_cache_dtype="bf16",
+                      kernel_path="w2a8", fuse_projections=True)
     eg = InferenceEngine(cfg, params, ec, device=dev)
     ecpu = InferenceEngine(cfg, params, ec, device="cpu")
     g, c = _Side(eg), _Side(ecpu)

@@ -10,12 +10,20 @@ Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
   probe    nvidia-smi name / power limit and the sm version
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
-  kernels  each kernel against its plain PyTorch version at main-path
-           shapes: error, median ms (CUDA events), bound, plain and library ms
+  kernels  each kernel against its plain PyTorch version at the shapes of
+           the fused and the generic path: error, median ms (CUDA events),
+           bound, plain and library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
-           versions): identical greedy tokens, per-step logits cosine
+           versions), fused (slice 1) and unfused on paths w2a8 and pallas:
+           greedy tokens and per-step logits cosine
   serving  the full bitnet-b1.58-2B-4T shapes (random weights from a seed)
-           serve 3 requests; launch counts per step, determinism, timings
+           serve 3 requests on the fused stacked path; launch counts per
+           step, determinism, timings
+  generic  the same shapes unfused, as the CLI builds the engine (auto →
+           w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
+           sampling twice, then one greedy request on kernel_path="pallas"
+  cli      `python -m bitnet_tpu_torch.cli run` on a mini QK256 GGUF
+           written by the port's own fixtures, on the card
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -37,7 +45,7 @@ REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
-PHASES = ("probe", "build", "kernels", "parity", "serving")
+PHASES = ("probe", "build", "kernels", "parity", "serving", "generic", "cli")
 
 
 def emit(obj) -> None:
@@ -92,6 +100,16 @@ K1_SHAPES = (("qkv", 2560, 3840, True, False, False),
              ("o", 2560, 2560, True, False, True),
              ("gate_up", 2560, 13824, True, False, False),
              ("down", 6912, 2560, True, True, True))
+# the generic path's seven unfused projections: q, k, v and gate, up take
+# already-normed rows (gamma None); o and down keep their sub-norm and the
+# residual inside K1; SwiGLU runs in torch before down
+UNFUSED_SHAPES = (("q", 2560, 2560, False, False, False),
+                  ("k", 2560, 640, False, False, False),
+                  ("v", 2560, 640, False, False, False),
+                  ("o", 2560, 2560, True, False, True),
+                  ("gate", 2560, 6912, False, False, False),
+                  ("up", 2560, 6912, False, False, False),
+                  ("down", 6912, 2560, True, False, True))
 
 
 def _stack(torch, g, K, N, dev, min_bytes=120 << 20):
@@ -120,102 +138,13 @@ def phase_kernels(torch, dev):
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    res = {"k1": [], "k4": [], "k2": [], "k3": []}
-    eps = 1e-5
-
-    # K1: decode W2A8 at the four shapes, M in {1, 8, 64}
-    for name, K, N, has_g, glu, has_r in K1_SHAPES:
-        words, sv = _stack(torch, g, K, N, dev)
-        L = words.shape[0]
-        gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
-        for M in (1, 8, 64):
-            x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
-                            ).to(torch.bfloat16)
-            resid = (torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
-                     if has_r else None)
-            l = 1
-            out = tm.ternary_matmul_w2a8_normed(l, x, words, sv, gamma, K, N,
-                                                eps, glu, resid)
-            # the same launch with its int8 rows, scales and row sums kept
-            out2, xq, sx, sumq = tm._w2a8_normed_cuda(l, x, words, sv, gamma, K,
-                                                     N, eps, glu, resid)
-            g_l = None if gamma is None else gamma[l]
-            pre = tm.w2a8_preamble_plain(x, g_l, eps, glu)
-            xq_p, sx_p, sumq_p = tm.quantize_rows(pre)
-            plain = tm.ternary_matmul_w2a8_normed_plain(
-                x, words[l], sv[l], g_l, eps, glu, resid, N)
-            # the integer dot + epilogue from the kernel's own int8 rows
-            # must reproduce its output bit for bit
-            acc = tm.int8_matmul(xq, tm.biased_codes(words[l]))
-            exact = tm.w2a8_epilogue(acc, sumq, sx, sv[l], resid, x.dtype)
-            qdiff = (xq.int() - xq_p.int()).abs()
-            err = (out.float() - plain.float()).abs().max().item()
-            ref = plain.float().abs().max().item()
-            # float tolerance: an int8 activation one step off at a rounding
-            # boundary (the norm's f32 sums run in another order) moves an
-            # output by sx*scale*4 at most
-            tol = 2e-2 * ref + 1e-3
-            row = {"shape": name, "M": M, "K": K, "N": N,
-                   "max_abs_err": err, "ref_max": ref, "tol": tol,
-                   "xq_mismatch": int((qdiff > 0).sum().item()),
-                   "xq_max_diff": int(qdiff.max().item()),
-                   "sumq_exact": bool(torch.equal(sumq, xq.int().sum(1, dtype=torch.int32))),
-                   "dot_epilogue_exact": bool(torch.equal(exact, out)),
-                   "wrapper_equals_launch": bool(torch.equal(out, out2))}
-            ok = (row["sumq_exact"] and row["dot_epilogue_exact"]
-                  and row["wrapper_equals_launch"]
-                  and row["xq_max_diff"] <= 1
-                  and row["xq_mismatch"] <= max(2, xq.numel() // 1000)
-                  and err <= tol)
-            if M == 1:
-                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
-                    i % L, x, words, sv, gamma, K, N, eps, glu, resid), L)
-                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed_plain(
-                    x, words[i % L], sv[i % L], g_l, eps, glu, resid, N), 4)
-                dense = _dense_stack(torch, words, sv)
-                xin = pre.to(torch.bfloat16)
-                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
-                    xin, dense[i % len(dense)]), 2 * len(dense))
-                del dense
-                nbytes = (K * N // 4 + x.numel() * 2 + M * N * 2 * (2 if has_r else 1)
-                          + (K * 4 if has_g else 0) + N * 4)
-                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
-            row["ok"] = ok
-            res["k1"].append(row)
-            if not ok:
-                raise AssertionError(f"K1 mismatch: {row}")
-        del words, sv
-
-    # K4: prefill GEMM at M in {512, 2048}, same four shapes
-    for name, K, N, _g, _glu, _r in K1_SHAPES:
-        words, sv = _stack(torch, g, K, N, dev)
-        L = words.shape[0]
-        for M in (512, 2048):
-            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            l = 1
-            out = tm.ternary_matmul_w2a8(l, x, words, sv, K, N)
-            xq, sx, sumq = tm.quantize_rows(x.float())
-            plain = tm.ternary_matmul_w2a8_plain(xq, sumq, sx, words[l], sv[l], N,
-                                                 x.dtype)
-            err = (out.float() - plain.float()).abs().max().item()
-            row = {"shape": name, "M": M, "K": K, "N": N, "max_abs_err": err,
-                   "tol": 0.0, "exact": bool(torch.equal(out, plain))}
-            if M == 512:
-                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8(
-                    i % L, x, words, sv, K, N), L)
-                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_plain(
-                    xq, sumq, sx, words[i % L], sv[i % L], N, x.dtype), 4)
-                dense = _dense_stack(torch, words, sv)
-                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
-                    x, dense[i % len(dense)]), 2 * len(dense))
-                del dense
-                nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4
-                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
-            row["ok"] = row["exact"]
-            res["k4"].append(row)
-            if not row["ok"]:
-                raise AssertionError(f"K4 mismatch: {row}")
-        del words, sv
+    res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": []}
+    check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
+    check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
+    check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
+    check_k4(torch, dev, g, UNFUSED_SHAPES, (512,), "unfused", res)
+    check_k6(torch, dev, g, res)
+    check_k5(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -291,137 +220,397 @@ def phase_kernels(torch, dev):
     return res
 
 
+def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5):
+    """K1 against its plain version at ``shapes`` and row counts ``Ms``;
+    timed at M=1."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for name, K, N, has_g, glu, has_r in shapes:
+        words, sv = _stack(torch, g, K, N, dev)
+        L = words.shape[0]
+        gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
+        for M in Ms:
+            x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
+                            ).to(torch.bfloat16)
+            resid = (torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+                     if has_r else None)
+            l = 1
+            out = tm.ternary_matmul_w2a8_normed(l, x, words, sv, gamma, K, N,
+                                                eps, glu, resid)
+            # the same launch with its int8 rows, scales and row sums kept
+            out2, xq, sx, sumq = tm._w2a8_normed_cuda(l, x, words, sv, gamma, K,
+                                                     N, eps, glu, resid)
+            g_l = None if gamma is None else gamma[l]
+            pre = tm.w2a8_preamble_plain(x, g_l, eps, glu)
+            xq_p, sx_p, sumq_p = tm.quantize_rows(pre)
+            plain = tm.ternary_matmul_w2a8_normed_plain(
+                x, words[l], sv[l], g_l, eps, glu, resid, N)
+            # the integer dot + epilogue from the kernel's own int8 rows
+            # must reproduce its output bit for bit
+            acc = tm.int8_matmul(xq, tm.biased_codes(words[l]))
+            exact = tm.w2a8_epilogue(acc, sumq, sx, sv[l], resid, x.dtype)
+            qdiff = (xq.int() - xq_p.int()).abs()
+            err = (out.float() - plain.float()).abs().max().item()
+            ref = plain.float().abs().max().item()
+            # float tolerance: an int8 activation one step off at a rounding
+            # boundary (the norm's f32 sums run in another order) moves an
+            # output by sx*scale*4 at most
+            tol = 2e-2 * ref + 1e-3
+            row = {"path": path, "shape": name, "M": M, "K": K, "N": N,
+                   "max_abs_err": err, "ref_max": ref, "tol": tol,
+                   "xq_mismatch": int((qdiff > 0).sum().item()),
+                   "xq_max_diff": int(qdiff.max().item()),
+                   "sumq_exact": bool(torch.equal(sumq, xq.int().sum(1, dtype=torch.int32))),
+                   "dot_epilogue_exact": bool(torch.equal(exact, out)),
+                   "wrapper_equals_launch": bool(torch.equal(out, out2))}
+            ok = (row["sumq_exact"] and row["dot_epilogue_exact"]
+                  and row["wrapper_equals_launch"]
+                  and row["xq_max_diff"] <= 1
+                  and row["xq_mismatch"] <= max(2, xq.numel() // 1000)
+                  and err <= tol)
+            if M == 1:
+                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
+                    i % L, x, words, sv, gamma, K, N, eps, glu, resid), L)
+                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed_plain(
+                    x, words[i % L], sv[i % L], g_l, eps, glu, resid, N), 4)
+                dense = _dense_stack(torch, words, sv)
+                xin = pre.to(torch.bfloat16)
+                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                    xin, dense[i % len(dense)]), 2 * len(dense))
+                del dense
+                nbytes = (K * N // 4 + x.numel() * 2 + M * N * 2 * (2 if has_r else 1)
+                          + (K * 4 if has_g else 0) + N * 4)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
+            row["ok"] = ok
+            res["k1"].append(row)
+            if not ok:
+                raise AssertionError(f"K1 mismatch: {row}")
+        del words, sv
+
+
+def check_k4(torch, dev, g, shapes, Ms, path, res):
+    """K4 against its plain version (bit for bit); timed at M=512."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for name, K, N, _g, _glu, _r in shapes:
+        words, sv = _stack(torch, g, K, N, dev)
+        L = words.shape[0]
+        for M in Ms:
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            l = 1
+            out = tm.ternary_matmul_w2a8(l, x, words, sv, K, N)
+            xq, sx, sumq = tm.quantize_rows(x.float())
+            plain = tm.ternary_matmul_w2a8_plain(xq, sumq, sx, words[l], sv[l], N,
+                                                 x.dtype)
+            err = (out.float() - plain.float()).abs().max().item()
+            row = {"path": path, "shape": name, "M": M, "K": K, "N": N,
+                   "max_abs_err": err,
+                   "tol": 0.0, "exact": bool(torch.equal(out, plain))}
+            if M == 512:
+                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8(
+                    i % L, x, words, sv, K, N), L)
+                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_plain(
+                    xq, sumq, sx, words[i % L], sv[i % L], N, x.dtype), 4)
+                dense = _dense_stack(torch, words, sv)
+                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                    x, dense[i % len(dense)]), 2 * len(dense))
+                del dense
+                nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
+            row["ok"] = row["exact"]
+            res["k4"].append(row)
+            if not row["ok"]:
+                raise AssertionError(f"K4 mismatch: {row}")
+        del words, sv
+
+
+
+def check_k6(torch, dev, g, res):
+    """K6 (bf16 x biased codes, f32 accumulation) against its plain version
+    at the seven unfused shapes, M in {1, 2, 512}; timed at M=1 and 512."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for name, K, N, _g, _glu, _r in UNFUSED_SHAPES:
+        words, sv = _stack(torch, g, K, N, dev)
+        L = words.shape[0]
+        for M in (1, 2, 512):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            l = 1
+            out = tm.ternary_matmul_bf16(l, x, words, sv, K, N)
+            xb = x.to(torch.bfloat16)
+            sumx = xb.float().sum(1)
+            plain = tm.ternary_matmul_bf16_plain(xb, sumx, words[l], sv[l], N,
+                                                 x.dtype)
+            err = (out.float() - plain.float()).abs().max().item()
+            ref = plain.float().abs().max().item()
+            # float tolerance: the f32 sums run in another order (tensor-core
+            # tiles vs one matmul), which can move a bf16 output by one ulp
+            # (2^-8 relative); two ulps of the largest output
+            tol = 8e-3 * ref
+            row = {"shape": name, "M": M, "K": K, "N": N, "max_abs_err": err,
+                   "ref_max": ref, "tol": tol, "ok": err <= tol}
+            if M in (1, 512):
+                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16(
+                    i % L, x, words, sv, K, N), L)
+                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16_plain(
+                    xb, sumx, words[i % L], sv[i % L], N, x.dtype), 4)
+                dense = _dense_stack(torch, words, sv)
+                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                    x, dense[i % len(dense)]), 2 * len(dense))
+                del dense
+                nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4 + M * 4
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "bf16")
+            res["k6"].append(row)
+            if not row["ok"]:
+                raise AssertionError(f"K6 mismatch: {row}")
+        del words, sv
+
+
+def check_k5(torch, dev, g, res):
+    """K5 (v1 decode attention) against its plain version at S in {1024,
+    4096}, pos in {0, 1, 777, S-1}, B in {1, 2}; timed at B=1, pos=S-1."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+
+    H, KV, D = 20, 5, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for S in (1024, 4096):
+        for B in (1, 2):
+            L = max(2, math.ceil((120 << 20) / (2 * B * S * KV * D * 2)))
+            kc = torch.randn((L, B, S, KV * D), generator=g, device=dev).to(torch.bfloat16)
+            vc = torch.randn((L, B, S, KV * D), generator=g, device=dev).to(torch.bfloat16)
+            q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+            kn = torch.randn((B, KV, D), generator=g, device=dev).to(torch.bfloat16)
+            vn = torch.randn((B, KV, D), generator=g, device=dev).to(torch.bfloat16)
+            for p in (0, 1, 777, S - 1):
+                ps = [p] if B == 1 else [p, (p + 300) % S]
+                pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+                l = 1
+                out = dk.decode_attention(l, q, kn, vn, kc, vc, pos)
+                plain = dk.decode_attention_plain(q, kn, vn, kc[l], vc[l], pos)
+                err = (out.float() - plain.float()).abs().max().item()
+                ref = plain.float().abs().max().item()
+                # float tolerance: the kernel rounds its bf16 softmax weights
+                # against the maxima of 4-row groups and 64-row splits, the
+                # plain version (as the TPU kernel) against running maxima
+                # over chunks of min(1024, S) rows
+                tol = 1e-2 * ref + 2e-3
+                row = {"S": S, "B": B, "pos": ps, "max_abs_err": err,
+                       "ref_max": ref, "tol": tol, "ok": err <= tol}
+                if B == 1 and p == S - 1:
+                    row["ms"] = time_ms(torch, lambda i: dk.decode_attention(
+                        i % L, q, kn, vn, kc, vc, pos), L)
+                    row["plain_ms"] = time_ms(torch, lambda i: dk.decode_attention_plain(
+                        q, kn, vn, kc[i % L], vc[i % L], pos), 4)
+                    mask = (torch.arange(S, device=dev) < p).view(1, 1, 1, S)
+                    q4 = q.view(1, H, 1, D)
+                    row["library_ms"] = time_ms(torch, lambda i: sdpa(
+                        q4, kc[i % L].view(1, S, KV, D).transpose(1, 2),
+                        vc[i % L].view(1, S, KV, D).transpose(1, 2),
+                        attn_mask=mask, enable_gqa=True), L)
+                    nbytes = (2 * p * KV * D * 2 + q.numel() * 2 + 2 * kn.numel() * 2
+                              + H * D * 2 + 4)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * H * (p + 1) * D,
+                                                             "bf16")
+                res["k5"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K5 mismatch: {row}")
+            del kc, vc
+
+
+# One summary entry per TPU kernel site: (entry name, kernel id, the site
+# it replaces, the serving phase whose launches it reports, the kernels-phase
+# rows it sums).  A kernel that serves two sites has an entry for each, timed
+# at its own path's shapes and counted on its own path's run.
+TM, DA = "bitnet_tpu/ops/ternary_matmul.py", "bitnet_tpu/ops/decode_attention"
+SITES = (
+    ("ternary_matmul_w2a8_normed", "ternary_matmul_w2a8_normed", f"{TM}:375",
+     "serving", "k1", lambda r: r["path"] == "fused" and r["M"] == 1),
+    ("ternary_matmul_w2a8", "ternary_matmul_w2a8", f"{TM}:464",
+     "serving", "k4", lambda r: r["path"] == "fused" and r["M"] == 512),
+    ("decode_attention_qkv", "decode_attention_qkv", f"{DA}_v2.py:922",
+     "serving", "k2", lambda r: "ms" in r and r["S"] == 4096),
+    ("scatter_kv_rows", "scatter_kv_rows", f"{DA}_v2.py:1113",
+     "serving", "k3", lambda r: "ms" in r),
+    ("ternary_matmul_w2a8_normed (unstacked)", "ternary_matmul_w2a8_normed",
+     f"{TM}:1073", "generic", "k1",
+     lambda r: r["path"] == "unfused" and r["M"] == 1),
+    ("ternary_matmul_w2a8 (unstacked)", "ternary_matmul_w2a8",
+     f"{TM}:1177 (w2a8 body)", "generic", "k4",
+     lambda r: r["path"] == "unfused" and r["M"] == 512),
+    ("decode_attention", "decode_attention", f"{DA}.py:960",
+     "generic", "k5", lambda r: "ms" in r and r["S"] == 4096),
+    ("ternary_matmul_bf16", "ternary_matmul_bf16", f"{TM}:1177 (bf16 qk256 body)",
+     "generic", "k6", lambda r: "ms" in r and r["M"] == 1),
+)
+
+
 def summarize(res, launches):
-    """One entry per kernel at its main-path shapes: K1 = one layer's four
-    calls at M=1, K4 = one layer's four calls at M=512 (T=512 prefill),
-    K2 = S=4096 with a full cache, K3 = all 30 rows of a B=1 step."""
+    """The ``kernels`` line, one entry per site (``SITES``): ms, plain,
+    bound and library ms summed over the rows of that site's path (the
+    fused path's four shapes or the generic path's seven at M=1, or at
+    M=512 for the prefill GEMM; K2 and K5 at S=4096 with a full cache; K3
+    all 30 rows of a B=1 step); ``launches[phase]`` holds each serving
+    phase's counts, zeroed before its path and read after."""
     from bitnet_tpu_torch.ops.registry import REGISTRY
 
-    def total(rows, key):
-        return sum(r[key] for r in rows)
-
-    k1 = [r for r in res["k1"] if r["M"] == 1]
-    k4 = [r for r in res["k4"] if r["M"] == 512]
-    k2 = [r for r in res["k2"] if "ms" in r and r["S"] == 4096]
-    k3 = [r for r in res["k3"] if "ms" in r]
-    picks = {"ternary_matmul_w2a8_normed": (k1, res["k1"]),
-             "ternary_matmul_w2a8": (k4, res["k4"]),
-             "decode_attention_qkv": (k2, res["k2"]),
-             "scatter_kv_rows": (k3, res["k3"])}
+    specs = {spec.kernel_id: spec for spec in REGISTRY}
     out = []
-    for spec in REGISTRY:
-        timed, every = picks[spec.kernel_id]
-        bby = max(timed, key=lambda r: r["bound_ms"])["bound_by"]
+    for name, kid, replaces, phase, key, pick in SITES:
+        timed = [r for r in res[key] if pick(r)]
+        every = [r for r in res[key]
+                 if "path" not in r or r["path"] == timed[0].get("path")]
+
+        def total(field):
+            return sum(r[field] for r in timed)
+
         out.append({
-            "name": spec.kernel_id, "route": spec.route, "source": spec.source,
-            "replaces": spec.replaces, "launches": launches.get(spec.kernel_id, 0),
+            "name": name, "route": specs[kid].route, "source": specs[kid].source,
+            "replaces": replaces, "launches": launches.get(phase, {}).get(kid, 0),
             "max_abs_err": max(r["max_abs_err"] for r in every),
-            "ms": total(timed, "ms"), "plain_ms": total(timed, "plain_ms"),
-            "bound_ms": total(timed, "bound_ms"), "bound_by": bby,
-            "library_ms": total(timed, "library_ms")})
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(timed, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": total("library_ms")})
     return out
 
 
 # ---------------------------------------------------------------------------
 # phase: parity (cuda kernels vs cpu plain versions, full width, 2 layers)
 # ---------------------------------------------------------------------------
+def _teacher_forced(torch, eg, ecpu, prompt, steps=8):
+    """Prefill both engines, then feed both the card's greedy tokens.
+    Returns per-step cosines, both argmaxes, and whether every step that
+    parted was a near-tie (CPU top-2 margin <= largest logit difference)."""
+    from bitnet_tpu_torch.engine.sampling import argmax
+
+    lg_g, lg_c = eg.prefill(prompt), ecpu.prefill(prompt)
+    toks_g, toks_c, cos, tie_ok = [], [], [], []
+    pos = len(prompt)
+    for _ in range(steps):
+        a, b = lg_g[0].float().cpu(), lg_c[0].float()
+        cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
+        tg, tc = int(argmax(lg_g)[0]), int(argmax(lg_c)[0])
+        top2 = torch.topk(b, 2).values
+        tie_ok.append(tg == tc or float(top2[0] - top2[1])
+                      <= float((a - b).abs().max()))
+        toks_g.append(tg)
+        toks_c.append(tc)
+        lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
+        pos += 1
+    return {"tokens_cuda": toks_g, "tokens_cpu": toks_c, "min_cosine": min(cos),
+            "cosines": cos, "ties_only": all(tie_ok),
+            "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
+
+
 def phase_parity(torch, dev):
     """The same 2-layer full-width model through the CUDA kernels and
     through the plain versions on the CPU, teacher-forced with the CUDA
-    run's greedy tokens.  Every step's logits keep cosine >= 0.99.  At f32
-    activations the two must pick the same tokens.  At bf16 they must pick
-    the same token wherever the CPU's top-2 logit margin exceeds the
-    largest logit difference: K2 rounds its softmax weights to bf16
-    against other maxima than the plain version, and int8 requantization
-    amplifies that (``python -m bitnet_tpu_torch.tools.parity_probe``), so
-    a near-tie may go either way."""
+    run's greedy tokens.  Every step's logits keep cosine >= 0.99, and the
+    two pick the same token wherever the CPU's top-2 logit margin exceeds
+    the largest logit difference: the decode attention kernels round their
+    softmax weights to bf16 against other maxima than the plain versions,
+    and int8 requantization amplifies that (``python -m
+    bitnet_tpu_torch.tools.parity_probe``), so a near-tie may go either
+    way.  The fused stacked path (slice 1) also requires equal tokens at
+    f32.  The unfused generic path runs as the CLI builds it (bf16
+    activations and tied head) on kernel paths w2a8 and pallas."""
     from bitnet_tpu_torch.config import EngineConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
-    from bitnet_tpu_torch.engine.sampling import argmax
     from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
 
     cfg = BITNET_2B4T.replace(num_layers=2)
     prompt = [int(t) for t in torch.randint(
         0, cfg.vocab_size, (24,), generator=torch.Generator().manual_seed(3))]
+    params = build_synthetic(cfg, seed=7, device="cpu")
+    cases = [(f"fused_{dt}", EngineConfig(
+                 max_seq_len=256, logits_dtype="int8", kv_cache_dtype="bf16",
+                 compute_dtype=dt, kernel_path="w2a8", fuse_projections=True))
+             for dt in ("f32", "bf16")]
+    cases += [(f"unfused_{kp}", EngineConfig(max_seq_len=256, kernel_path=kp))
+              for kp in ("w2a8", "pallas")]
     out = {}
-    for dtype in ("f32", "bf16"):
-        params = build_synthetic(cfg, seed=7, device="cpu")
-        ec = EngineConfig(max_seq_len=256, logits_dtype="int8",
-                          kv_cache_dtype="bf16", compute_dtype=dtype)
+    for name, ec in cases:
         eg = InferenceEngine(cfg, params, ec, device=dev)
         ecpu = InferenceEngine(cfg, params, ec, device="cpu")
-        lg_g, lg_c = eg.prefill(prompt), ecpu.prefill(prompt)
-        toks_g, toks_c, cos, tie_ok = [], [], [], []
-        pos = len(prompt)
-        for _ in range(8):
-            a, b = lg_g[0].float().cpu(), lg_c[0].float()
-            cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
-            tg, tc = int(argmax(lg_g)[0]), int(argmax(lg_c)[0])
-            top2 = torch.topk(b, 2).values
-            tie_ok.append(tg == tc or float(top2[0] - top2[1])
-                          <= float((a - b).abs().max()))
-            toks_g.append(tg)
-            toks_c.append(tc)
-            lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
-            pos += 1
-        r = {"tokens_cuda": toks_g, "tokens_cpu": toks_c, "min_cosine": min(cos),
-             "cosines": cos, "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
-        r["ok"] = (min(cos) >= 0.99 and all(tie_ok)
-                   and (dtype == "bf16" or toks_g == toks_c))
-        out[dtype] = r
-        del eg, ecpu, params
+        r = _teacher_forced(torch, eg, ecpu, prompt)
+        r["ok"] = (r["min_cosine"] >= 0.99 and r["ties_only"]
+                   and (name != "fused_f32" or r["tokens_cuda"] == r["tokens_cpu"]))
+        out[name] = r
+        del eg, ecpu
         if not r["ok"]:
-            raise AssertionError(f"parity failed at {dtype}: {r}")
+            raise AssertionError(f"parity failed for {name}: {r}")
     out["ok"] = True
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase: serving at the full 2B-4T shapes
+# phases: serving at the full 2B-4T shapes (fused stacked, then generic)
 # ---------------------------------------------------------------------------
+def _request(eng, prompt, gc, want):
+    """One request with the launch counters zeroed before it and read
+    after; ``want(prefill_bucket, decode_steps)`` gives the expected counts
+    of every kernel (the others must stay 0)."""
+    from bitnet_tpu_torch.ops import registry
+
+    registry.reset_launch_counts()
+    r = eng.generate(prompt, gc)
+    n = registry.launch_counts()
+    m = eng.last_metrics
+    steps = m.decode_steps
+    expect = {k.kernel_id: 0 for k in registry.REGISTRY}
+    expect.update(want(eng._bucket(len(prompt)), steps))
+    if n != expect:
+        raise AssertionError(f"launch counts {n} != {expect}")
+    return r, {"prompt": len(prompt), "generated": len(r.token_ids),
+               "decode_steps": steps, "prefill_ms": m.prefill_s * 1e3,
+               "decode_ms_per_token": m.decode_s * 1e3 / max(steps, 1),
+               "decode_tok_s": steps / m.decode_s if m.decode_s else 0.0,
+               "launches": n}
+
+
+def _prompts(torch, cfg):
+    gen = torch.Generator().manual_seed(11)
+    return [[int(t) for t in torch.randint(0, cfg.vocab_size, (n,), generator=gen)]
+            for n in (32, 128, 500)]
+
+
+def _add(totals, launches):
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
 def phase_serving(torch, dev):
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
-    from bitnet_tpu_torch.ops import registry
 
     cfg = BITNET_2B4T
     L = cfg.num_layers
     t0 = time.perf_counter()
     params = build_synthetic(cfg, seed=0, device=dev)
     eng = InferenceEngine(cfg, params, EngineConfig(
-        max_seq_len=4096, kv_cache_dtype="bf16", logits_dtype="int8"), device=dev)
+        max_seq_len=4096, kv_cache_dtype="bf16", logits_dtype="int8",
+        kernel_path="w2a8", fuse_projections=True), device=dev)
     del params
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(11)
-    prompts = [[int(t) for t in torch.randint(0, cfg.vocab_size, (n,), generator=gen)]
-               for n in (32, 128, 500)]
-    gc = GenerationConfig(max_new_tokens=32)
-    for p in prompts[:1]:                                 # warm-up (allocator)
-        eng.generate(p, gc)
-    runs, totals = [], {k.kernel_id: 0 for k in registry.REGISTRY}
+    prompts = _prompts(torch, cfg)
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    eng.generate(prompts[0], gc)                          # warm-up (allocator)
+
+    def want(bucket, steps):
+        return {"ternary_matmul_w2a8_normed": 4 * L * steps,
+                "decode_attention_qkv": L * steps,
+                "scatter_kv_rows": steps, "ternary_matmul_w2a8": 4 * L}
+
+    runs, totals = [], {}
     for rep in range(2):
         toks = []
         for p in prompts:
-            registry.reset_launch_counts()
-            r = eng.generate(p, gc)
-            n = registry.launch_counts()
-            steps = r.metrics["decode_steps"]
-            want = {"ternary_matmul_w2a8_normed": 4 * L * steps,
-                    "decode_attention_qkv": L * steps,
-                    "scatter_kv_rows": steps, "ternary_matmul_w2a8": 4 * L}
-            if n != want:
-                raise AssertionError(f"launch counts {n} != {want}")
-            for k, v in n.items():
-                totals[k] += v
-            m = r.metrics
+            r, run = _request(eng, p, gc, want)
+            _add(totals, run["launches"])
             toks.append(r.token_ids)
-            runs.append({"rep": rep, "prompt": len(p), "generated": len(r.token_ids),
-                         "decode_steps": steps, "prefill_ms": m["prefill_s"] * 1e3,
-                         "decode_ms_per_token": m["decode_s"] * 1e3 / max(steps, 1),
-                         "decode_tok_s": steps / m["decode_s"] if m["decode_s"] else 0.0,
-                         "launches": n})
+            runs.append({"rep": rep, **run})
         if rep == 0:
             first = toks
         elif toks != first:
@@ -438,6 +627,120 @@ def phase_serving(torch, dev):
             "tokens": first, "decode_bytes_S1024": step_bytes(1024),
             "decode_bound_ms_S1024": step_bytes(1024) / HBM_BPS * 1e3,
             "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
+
+
+def phase_generic(torch, dev):
+    """The unfused generic path at the full 2B-4T shapes, engine built as
+    the CLI builds it (EngineConfig(max_seq_len=2048): auto → w2a8 on the
+    card, bf16 KV, bf16 tied head).  Per decode step 7L K1 + L K5 (no K2,
+    no K3); a prefill bucket of <= 64 rows runs K1's two-kernel path, a
+    larger one 7L K4.  On kernel_path="pallas" every projection is K6."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+
+    cfg = BITNET_2B4T
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=2048), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if eng.kernel_path != "w2a8" or eng.params.blocks.wqkv is not None:
+        raise AssertionError("the CLI's engine must run unfused on w2a8")
+    prompts = _prompts(torch, cfg)
+    greedy = GenerationConfig(max_new_tokens=32, greedy=True)
+    eng.generate(prompts[0], greedy)                      # warm-up (allocator)
+
+    def want_w2a8(bucket, steps):
+        pre = ({"ternary_matmul_w2a8_normed": 7 * L} if bucket <= 64
+               else {"ternary_matmul_w2a8": 7 * L})
+        pre["ternary_matmul_w2a8_normed"] = (pre.get("ternary_matmul_w2a8_normed", 0)
+                                             + 7 * L * steps)
+        pre["decode_attention"] = L * steps
+        return pre
+
+    def want_pallas(bucket, steps):
+        return {"ternary_matmul_bf16": 7 * L * (1 + steps),
+                "decode_attention": L * steps}
+
+    runs, totals = [], {}
+    for p in prompts:
+        _r, run = _request(eng, p, greedy, want_w2a8)
+        _add(totals, run["launches"])
+        runs.append({"mode": "greedy", **run})
+    sampled = []
+    for rep in range(2):
+        gc = GenerationConfig(max_new_tokens=32, temperature=1.0, seed=1234)
+        toks = []
+        for p in prompts:
+            r, run = _request(eng, p, gc, want_w2a8)
+            _add(totals, run["launches"])
+            toks.append(r.token_ids)
+            runs.append({"mode": f"seed1234_t1.0_rep{rep}", **run})
+        sampled.append(toks)
+    if sampled[0] != sampled[1]:
+        raise AssertionError("the same seed gave different tokens")
+    del eng
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=2048,
+                                                    kernel_path="pallas"),
+                          device=dev)
+    del params
+    eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+    _r, run = _request(eng, prompts[1], greedy, want_pallas)
+    _add(totals, run["launches"])
+    runs.append({"mode": "greedy_pallas", **run})
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    KVD = cfg.num_kv_heads * cfg.head_dim
+    weights = L * (H * (H + 2 * KVD) + H * H + 3 * H * F) / 4
+    head = V * H * 2                                  # the bf16 tied table
+
+    def step_bytes(S):
+        return weights + head + 2 * L * S * KVD * 2
+
+    return {"build_s": build_s, "runs": runs, "launch_totals": totals,
+            "decode_bytes_S1024": step_bytes(1024),
+            "decode_bound_ms_S1024": step_bytes(1024) / HBM_BPS * 1e3,
+            "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
+
+
+def phase_cli(torch, dev):
+    """``bitnet_tpu_torch.cli run`` on the card, on a mini QK256 GGUF that
+    the port's own fixtures write (hidden 256, F 512, 4/2 heads, embedded
+    vocab): greedy, then seeded sampling; 16 tokens each (EOS banned until
+    16 by --min-new-tokens), through K1 and K5."""
+    import contextlib
+    import io
+    import re
+
+    from bitnet_tpu_torch import cli
+    from bitnet_tpu_torch.gguf.fixtures import MiniModelSpec, generate_mini_gguf
+    from bitnet_tpu_torch.ops import registry
+
+    path = str(OUT_DIR / "mini_qk256.gguf")
+    generate_mini_gguf(path, MiniModelSpec(hidden_size=256, intermediate_size=512,
+                                           num_heads=4, num_kv_heads=2,
+                                           quant="qk256"))
+    out = {}
+    for mode, extra in (("greedy", ["--greedy"]), ("seed0", ["--seed", "0"])):
+        registry.reset_launch_counts()
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli.main(["run", "--model", path, "--prompt", "Hello world",
+                           "--prompt-template", "raw", "-n", "16",
+                           "--min-new-tokens", "16", *extra])
+        n = registry.launch_counts()
+        m = re.search(r"\[(\d+) tokens", se.getvalue())
+        r = {"rc": rc, "text": so.getvalue(), "stderr": se.getvalue(),
+             "tokens": int(m.group(1)) if m else None, "launches": n}
+        r["ok"] = (rc == 0 and r["tokens"] == 16
+                   and n["ternary_matmul_w2a8_normed"] > 0
+                   and n["decode_attention"] > 0)
+        out[mode] = r
+        if not r["ok"]:
+            raise AssertionError(f"cli run failed ({mode}): {r}")
+    out["ok"] = True
+    return out
 
 
 def main(argv=None) -> int:
@@ -489,9 +792,19 @@ def main(argv=None) -> int:
         if "serving" in phases:
             report["serving"] = phase_serving(torch, dev)
             s = report["serving"]
-            launches = s["launch_totals"]
+            launches["serving"] = s["launch_totals"]
             emit({"phase": "serving", "nvidia_smi": smi,
                   **{k: v for k, v in s.items() if k != "tokens"}})
+        if "generic" in phases:
+            report["generic"] = phase_generic(torch, dev)
+            s = report["generic"]
+            launches["generic"] = s["launch_totals"]
+            emit({"phase": "generic", "nvidia_smi": smi, **s})
+        if "cli" in phases:
+            report["cli"] = phase_cli(torch, dev)
+            emit({"phase": "cli", **{k: v if not isinstance(v, dict) else
+                                     {kk: vv for kk, vv in v.items() if kk != "stderr"}
+                                     for k, v in report["cli"].items()}})
     except Exception as e:  # any failed phase fails the run
         import traceback
 

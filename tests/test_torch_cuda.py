@@ -10,6 +10,7 @@ main path's full shapes.
 import pytest
 import torch
 
+from bitnet_tpu_torch.ops import decode_attention as dk
 from bitnet_tpu_torch.ops import decode_attention_v2 as da
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 
@@ -119,11 +120,77 @@ def test_engine_two_slots_cuda_matches_cpu(dev):
                       max_seq_len=256)
     params = build_synthetic(cfg, seed=3, device="cpu")
     ec = EngineConfig(max_seq_len=256, max_batch_size=2, compute_dtype="f32",
-                      logits_dtype="int8")
+                      logits_dtype="int8", kernel_path="w2a8",
+                      fuse_projections=True)
     eg = InferenceEngine(cfg, params, ec, device=dev)
     ecpu = InferenceEngine(cfg, params, ec, device="cpu")
     prompt = list(range(7, 47))
     lg, lc = eg.prefill(prompt), ecpu.prefill(prompt)
+    for pos in range(len(prompt), len(prompt) + 6):
+        a, b = lg[0].float().cpu(), lc[0].float()
+        assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.99
+        tok = int(lg[0].argmax())
+        top2 = torch.topk(b, 2).values
+        assert tok == int(b.argmax()) or top2[0] - top2[1] <= (a - b).abs().max()
+        lg, lc = eg.decode_step(tok, pos), ecpu.decode_step(tok, pos)
+
+
+@pytest.mark.parametrize("pos", [[0], [1], [200], [255, 17]])
+def test_k5_matches_plain(dev, pos):
+    """K5 rounds its bf16 softmax weights against 4-row-group and split
+    maxima, the plain version (as the TPU kernel) against chunk maxima."""
+    g = torch.Generator(device=dev).manual_seed(7 + sum(pos))
+    B, H, KV, D, S = len(pos), 20, 5, 128, 256
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    kn = torch.randn((B, KV, D), generator=g, device=dev).bfloat16()
+    vn = torch.randn((B, KV, D), generator=g, device=dev).bfloat16()
+    kc = torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16()
+    vc = torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16()
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = dk.decode_attention.launches
+    a = dk.decode_attention(1, q, kn, vn, kc, vc, p)
+    assert dk.decode_attention.launches == before + 1
+    pa = dk.decode_attention_plain(q, kn, vn, kc[1], vc[1], p)
+    ref = pa.float().abs().max()
+    assert (a.float() - pa.float()).abs().max() <= 1e-2 * ref + 2e-3
+
+
+@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (2, torch.float32),
+                                     (100, torch.bfloat16)])
+def test_k6_matches_plain(dev, M, dtype):
+    """K6's f32 sums run in another order than the plain matmul's: one
+    bf16 ulp (2^-8 relative) of the largest output, twice."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    K, N = 768, 640
+    w, sv = _words(g, 2, K, N, dev)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    out = tm.ternary_matmul_bf16(1, x, w, sv, K, N)
+    xb = x.bfloat16()
+    plain = tm.ternary_matmul_bf16_plain(xb, xb.float().sum(1), w[1], sv[1], N, dtype)
+    assert out.dtype == dtype
+    assert (out.float() - plain.float()).abs().max() <= 8e-3 * plain.float().abs().max()
+
+
+@pytest.mark.parametrize("kp", ["w2a8", "pallas"])
+def test_generic_engine_cuda_matches_cpu(dev, kp):
+    """The unfused generic path (K1/K4 or K6, K5) on the card against the
+    plain versions on the CPU, teacher-forced with the card's tokens; the
+    bf16 tied head on the card is one bf16 GEMM with f32 output."""
+    from bitnet_tpu_torch.config import EngineConfig, ModelConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import build_synthetic
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=768,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                      max_seq_len=256)
+    params = build_synthetic(cfg, seed=3, device="cpu")
+    ec = EngineConfig(max_seq_len=256, kernel_path=kp)
+    eg = InferenceEngine(cfg, params, ec, device=dev)
+    ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    assert eg.params.blocks.wqkv is None
+    prompt = list(range(7, 90))
+    lg, lc = eg.prefill(prompt), ecpu.prefill(prompt)
+    assert lg.dtype == torch.float32
     for pos in range(len(prompt), len(prompt) + 6):
         a, b = lg[0].float().cpu(), lc[0].float()
         assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.99

@@ -13,6 +13,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# the suite runs one worker process per core: one torch thread each
+# keeps the small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "bitnet_tpu"}
 SOURCES = sorted((REPO / "bitnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -54,8 +58,8 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"kernel_path": "xla"}, "#7"), ({"kernel_path": "pallas"}, "#7"),
-    ({"fuse_projections": False}, "#7"), ({"sliding_window": 64}, "#7"),
+    ({"decode_steps_per_dispatch": 8}, "#5"), ({"kv_cache_dtype": "f32"}, "#8"),
+    ({"max_batch_size": 3}, "#9"), ({"sliding_window": 64}, "#7"),
     ({"weight_quant": "tl2"}, "#10"), ({"kv_cache_dtype": "int8"}, "#8"),
     ({"kv_cache_dtype": "fp8"}, "#8"), ({"max_batch_size": 8}, "#9"),
     ({"kv_cache_dtype": "auto", "max_seq_len": 4096}, "#8")])
@@ -67,10 +71,15 @@ def test_unported_engine_configs_name_their_roadmap_item(kw, item):
 
 
 def test_non_greedy_sampling_is_not_ported():
+    """Sampling is ported; mirostat and grammar-constrained decoding are
+    not, and say which ROADMAP item ports them."""
     from bitnet_tpu_torch.config import GenerationConfig
 
-    with pytest.raises(NotImplementedError, match="#5"):
-        GenerationConfig(greedy=False)
+    assert not GenerationConfig(greedy=False, temperature=0.8).is_greedy
+    with pytest.raises(NotImplementedError, match="#16"):
+        GenerationConfig(mirostat=2)
+    with pytest.raises(NotImplementedError, match="#15"):
+        GenerationConfig(grammar='root ::= "a"')
 
 
 def test_chip_smoke_fails_without_the_port_and_without_a_card(tmp_path):

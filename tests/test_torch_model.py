@@ -32,6 +32,10 @@ from bitnet_tpu_torch.ops.flash import flash_attention
 from bitnet_tpu_torch.ops.rmsnorm import rms_norm
 from bitnet_tpu_torch.ops.rope import apply_rope, build_rope_tables
 
+# the suite runs one worker process per core: one torch thread each
+# keeps the small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _np_tree(obj):
     """A JAX params pytree as the nested dict of numpy arrays convert.py reads."""
@@ -70,9 +74,11 @@ def test_greedy_tokens_match_jax_f32(mini_gguf_qk256, prompt):
         fuse_projections=True))
     want = je.generate(prompt, JGenerationConfig(max_new_tokens=8, greedy=True))
     pe = InferenceEngine.from_gguf(
-        mini_gguf_qk256.path, EngineConfig(max_seq_len=64, compute_dtype="f32"),
+        mini_gguf_qk256.path, EngineConfig(max_seq_len=64, compute_dtype="f32",
+                                           kernel_path="w2a8",
+                                           fuse_projections=True),
         device="cpu")
-    got = pe.generate(prompt, GenerationConfig(max_new_tokens=8))
+    got = pe.generate(prompt, GenerationConfig(max_new_tokens=8, greedy=True))
     assert got.token_ids == want.token_ids
     assert got.stop_reason.value == want.stop_reason.value
     assert any(k.startswith("decode_w2a8_attn_qkv_v2s") for k in pe.kernel_recorder)
@@ -85,7 +91,8 @@ def test_converted_params_bf16_logits_cosine(mini_gguf_qk256):
     params = params_from_arrays(_np_tree(je.params))
     assert params.blocks.wqkv is not None and params.embed_q is not None
     pe = InferenceEngine(_port_cfg(je.cfg), params,
-                         EngineConfig(max_seq_len=64, logits_dtype="int8"),
+                         EngineConfig(max_seq_len=64, logits_dtype="int8",
+                                      kernel_path="w2a8", fuse_projections=True),
                          device="cpu")
     prompt = [1, 7, 3, 250, 9, 44, 12]
     jl, tl = je.prefill(prompt), pe.prefill(prompt)

@@ -14,6 +14,8 @@ an output by at most sx·scale·4, so K1 is held to 1e-2 of the output's
 max magnitude (bf16 K4 too).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +124,147 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tm.ternary_matmul_w2a8_normed(0, torch.zeros(1, K, device="meta"),
                                       w, s, None, K, N)
     assert tm.STACKED_DECODE_MAX_M == 64
+
+
+# --------------------------------------------------------------------------
+# K6 (bf16 activations) and the generic path's dispatcher
+# --------------------------------------------------------------------------
+def _jax_lin(words, scale, k, n):
+    from bitnet_tpu.ops.linear import TernaryLinear as JLin
+
+    return JLin(kind="qk256", k=k, n=n, packed=jnp.asarray(words),
+                scales=jnp.float32(scale))
+
+
+def _port_lin(words, scale, k, n):
+    from bitnet_tpu_torch.ops.linear import TernaryLinear, with_col_scales
+
+    return with_col_scales(TernaryLinear(
+        kind="qk256", k=k, n=n, packed=torch.from_numpy(words),
+        scales=torch.tensor(scale, dtype=torch.float32)))
+
+
+@pytest.mark.parametrize("M,dtype", [(1, "f32"), (2, "bf16"), (40, "f32"),
+                                     (130, "bf16")])
+def test_k6_plain_matches_pallas(M, dtype):
+    """K6's plain version against the ``_qk256_kernel`` body of
+    ``_ternary_matmul_2d(variant='pallas')``: both round x to bf16 and sum
+    the exact products in f32 (in another order), so f32 outputs agree to
+    2e-6 of their max magnitude; a bf16 output can round to the
+    neighbouring bf16 (2^-8 relative)."""
+    from bitnet_tpu.ops.ternary_matmul import _pick_blocks, _ternary_matmul_2d
+
+    rng, words, _sv, _g = _stack(300 + M)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    scale = 0.03
+    bm, bn, bkt = _pick_blocks(M, K, N, "pallas")
+    want = _ternary_matmul_2d(
+        jnp.asarray(x, jdt), jnp.asarray(words[1]), jnp.float32(scale),
+        kind="qk256", variant="pallas", k_dim=K, n_dim=N, bm=bm, bn=bn,
+        bkt=bkt, interpret=True, out_dtype=jdt)
+    sv = torch.full((L, N), scale, dtype=torch.float32)
+    got = tm.ternary_matmul_bf16(1, torch.from_numpy(x).to(tdt),
+                                 torch.from_numpy(words), sv, K, N)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == tdt and got.shape == (M, N)
+    tol = 2e-6 if dtype == "f32" else 8e-3
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+def test_k6_integer_parts_exact():
+    """The bf16 rows K6 multiplies and the biased codes {0,1,3,4} it
+    expands are the JAX kernel's exactly."""
+    rng, words, _sv, _g = _stack(400)
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(
+        xb.float().numpy(), np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                                       .astype(jnp.float32)))
+    codes = unpack_words_host(words[0], K).astype(np.int8)
+    np.testing.assert_array_equal(tm.biased_codes(torch.from_numpy(words[0])).numpy(),
+                                  codes + (codes >> 1))
+
+
+@pytest.mark.parametrize("variant,M,k,glu,norm,resid,dtype", [
+    ("w2a8", 2, K, True, True, True, "f32"),       # normed: K1
+    ("w2a8", 3, K, False, False, False, "bf16"),   # normed, no norm: K1
+    ("w2a8", 80, K, False, True, True, "f32"),     # quantize in torch, then K4
+    ("w2a8", 2, 200, False, True, False, "f32"),   # K != Kp: pad, then K4
+    ("pallas", 1, K, True, True, True, "f32"),     # bf16 body: K6
+    ("pallas", 80, K, False, False, True, "bf16"),
+    ("pallas", 2, 200, False, False, False, "f32"),
+])
+def test_dispatcher_matches_ternary_matmul_pallas(variant, M, k, glu, norm,
+                                                  resid, dtype):
+    """``ternary_matmul_pallas`` of the port against the JAX dispatcher of
+    the same name, branch by branch.  The K1 and K4 branches requantize to
+    int8 (an f32 ulp in the norm can flip one int8 activation), the K6
+    branch rounds to bf16 after the norm: held to 1e-2 of the output's max
+    magnitude, as K1 is above."""
+    from bitnet_tpu.ops.ternary_matmul import ternary_matmul_pallas as jtmp
+
+    rng, words, _sv, gamma = _stack(500 + M + k + glu + 2 * norm)
+    x = rng.standard_normal((M, 2 * k if glu else k)).astype(np.float32)
+    r = rng.standard_normal((M, N)).astype(np.float32)
+    g = gamma[0, :k]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    scale = 0.02
+    want = jtmp(_jax_lin(words[0], scale, k, N), jnp.asarray(x, jdt),
+                interpret=True, variant=variant,
+                gamma=jnp.asarray(g) if norm else None, eps=1e-5, glu=glu,
+                resid=jnp.asarray(r, jdt) if resid else None)
+    got = tm.ternary_matmul_pallas(
+        _port_lin(words[0], scale, k, N), torch.from_numpy(x).to(tdt),
+        variant=variant, gamma=torch.from_numpy(g) if norm else None, eps=1e-5,
+        glu=glu, resid=torch.from_numpy(r).to(tdt) if resid else None)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == tdt and got.shape == (M, N)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
+
+
+def test_dispatcher_refuses_unported_kinds():
+    from bitnet_tpu_torch.ops.linear import TernaryLinear
+
+    lin = TernaryLinear(kind="bitnet32", k=K, n=N,
+                        packed=torch.zeros((K // 16, N), dtype=torch.int32),
+                        scales=torch.ones((K // 32, N)))
+    with pytest.raises(NotImplementedError, match="#10"):
+        tm.ternary_matmul_pallas(lin, torch.zeros(1, K), variant="w2a8")
+
+
+@pytest.mark.parametrize("form", ["scalar", "per_layer", "fused"])
+def test_col_scales_once_at_init(form):
+    """``with_col_scales`` gives every qk256 linear the ``[L, Np]`` f32 rows
+    the kernels read: a scalar (or per-layer scalar) broadcast over the
+    columns, a fused per-column vector as it is, padded to Np with 1.0.
+    The kernel paths refuse a linear that has none."""
+    from bitnet_tpu_torch.ops.linear import (TernaryLinear, concat_linears,
+                                             with_col_scales)
+
+    rng, words, _sv, _g = _stack(600)
+    if form == "scalar":
+        lin = _port_lin(words[0], 0.25, K, N)
+        want = np.full((1, N), 0.25, np.float32)
+    elif form == "per_layer":
+        s = rng.uniform(0.5, 1.5, L).astype(np.float32)
+        lin = with_col_scales(TernaryLinear(kind="qk256", k=K, n=N,
+                                            packed=torch.from_numpy(words),
+                                            scales=torch.from_numpy(s)))
+        want = np.repeat(s[:, None], N, axis=1)
+    else:
+        parts = [TernaryLinear(kind="qk256", k=K, n=N // 2,
+                               packed=torch.from_numpy(words[:, :, :N // 2]),
+                               scales=torch.full((L,), v)) for v in (0.5, 2.0)]
+        lin = with_col_scales(concat_linears(parts))
+        want = np.repeat(np.array([[0.5] * (N // 2) + [2.0] * (N // 2)],
+                                  np.float32), L, axis=0)
+    assert lin.col_scales.dtype == torch.float32 and lin.col_scales.is_contiguous()
+    np.testing.assert_array_equal(lin.col_scales.numpy(), want)
+    bare = dataclasses.replace(lin, col_scales=None)
+    with pytest.raises(ValueError, match="col_scales"):
+        tm.ternary_matmul_pallas(bare, torch.zeros(1, K), variant="pallas")
