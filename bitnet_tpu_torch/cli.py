@@ -58,7 +58,9 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--system-prompt", default=None)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--kv-cache-dtype", default="bf16",
-                   choices=["bf16", "f32", "int8", "fp8"])
+                   choices=["bf16", "f32", "int8", "fp8", "auto"],
+                   help="f32: not ported (ROADMAP.md queue 1 #18); auto = "
+                        "int8 once max-seq-len >= 4096, else bf16")
     p.add_argument("--kernel-path", default="auto",
                    choices=["auto", "w2a8", "pallas", "xla"],
                    help="auto = w2a8 on the card, xla on the CPU")
@@ -103,8 +105,8 @@ def _refuse_unported(args) -> None:
         raise not_ported(f"--weight-quant {args.weight_quant}", "#10")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
-    if args.kv_cache_dtype != "bf16":
-        raise not_ported(f"--kv-cache-dtype {args.kv_cache_dtype}", "#8")
+    if args.kv_cache_dtype == "f32":
+        raise not_ported("--kv-cache-dtype f32", "#18")
 
 
 def _build_engine(args):

@@ -182,7 +182,7 @@ class EngineConfig:
 
     max_seq_len: int = 2048
     max_batch_size: int = 1
-    kv_cache_dtype: str = "bf16"     # 'auto' | 'bf16' (int8/fp8/f32: #8)
+    kv_cache_dtype: str = "bf16"     # 'auto' | 'bf16' | 'int8' | 'fp8' (f32: #18)
     kernel_path: str = "auto"        # 'auto' | 'w2a8' | 'pallas' | 'xla'
     compute_dtype: str = "bf16"      # 'bf16' | 'f32'
     logits_dtype: str = "auto"       # 'auto' | 'bf16' | 'int8' tied head
@@ -231,11 +231,8 @@ class EngineConfig:
             raise not_ported("the windowed ring cache", "#7")
         if self.weight_quant != "none":
             raise not_ported(f"weight_quant={self.weight_quant!r}", "#10")
-        kv = self.resolve_kv_cache_dtype()
-        if kv != "bf16":
-            raise not_ported(f"a {kv} KV cache", "#8")
-        if self.max_batch_size > 2:
-            raise not_ported(f"decode pools of B={self.max_batch_size}", "#9")
+        if self.resolve_kv_cache_dtype() == "f32":
+            raise not_ported("an f32 KV cache", "#18")
 
     def replace(self, **kw: Any) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

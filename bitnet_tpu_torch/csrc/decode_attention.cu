@@ -1,6 +1,6 @@
 // Decode attention and the KV row scatter for Hopper (sm_90a).
 //
-// Replaces three Pallas kernels:
+// Replaces six Pallas kernels:
 //   K2 bn_decode_attention_qkv <- decode_attention_qkv_v2_stacked
 //      (bitnet_tpu/ops/decode_attention_v2.py:859, pallas_call :922), body
 //      _v2_qkv_kernel (:318) with quant=False
@@ -8,7 +8,16 @@
 //      pallas_call :1113), body _scatter_rows_kernel (:1048)
 //   K5 bn_decode_attention     <- decode_attention (bitnet_tpu/ops/
 //      decode_attention.py:922, pallas_call :960), body _decode_attn_kernel
-//      (:75-145): the v1 flash decode of the generic block_forward
+//      (:75-145): the v1 flash decode of the generic block_forward; the same
+//      entry point is K8 <- decode_attention_batched_v2_stacked
+//      (decode_attention_v2.py:675, pallas_call :735, body _v2_kernel :87),
+//      the whole-batch decode of pools B = 3..64, whose function is K5's
+//   K7 bn_decode_attention_qkv_quant <- decode_attention_qkv_quant_v2_stacked
+//      (decode_attention_v2.py:949, pallas_call :1021): K2 over an int8 or
+//      fp8-e4m3 cache, _v2_qkv_kernel with quant=True
+//   K9 bn_decode_attention_quant <- decode_attention_quant_batched_v2_stacked
+//      (decode_attention_v2.py:754, pallas_call :820): K8 over an int8 or
+//      fp8-e4m3 cache, _v2_kernel with quant=True
 //
 // K2 takes the raw fused projection row qkv [B, H+2KV, D], applies split-
 // layout RoPE to q and k, and runs flash-decode over the PRE-write flat
@@ -38,15 +47,36 @@
 // nothing (the generic path writes the cache rows itself).  Bound: the same
 // cache bytes as K2.  The TPU kernel rounds e to bf16 against the running
 // max over chunks of min(1024, S) rows, this one against its warps' 4-row
-// groups and 64-row splits: a bf16-level difference, as for K2.
+// groups and 64-row splits: a bf16-level difference, as for K2.  K8 is K5
+// launched over a pool: the grid's z axis is the batch, so B = 3..64 (and
+// the TPU's batch groups above 16, a VMEM limit the card does not have)
+// need nothing new; an idle slot (pos = 0) skips every split and its
+// output is the new token's v.
+//
+// K7 and K9 are K2 and K5 over a quantized cache: the cache element type C
+// (int8 or __nv_fp8_e4m3; QUANT = C is not bf16) streams at one byte an
+// element, converted exactly to f32, and the per-(row, kv head) f32 scales
+// [B, S, KV] scale the scores after the dot (s = (q.k) * scale * k_scale)
+// and the softmax weights before their bf16 rounding (e * v_scale), while d
+// sums the unscaled e (decode_attention_v2.py:425-440).  K7's combine pass
+// also quantizes the roped k row and the v row per kv head exactly as
+// _quantize_kv does (absmax over D; s = max(absmax, 1e-8) / qmax with IEEE
+// division; codes x / s rounded half to even and clipped to +-127 for int8,
+// or converted to e4m3 with round-to-nearest and saturation), and starts the
+// softmax from the round-tripped rows (code * s, :392-393).  Bound: half the
+// bf16 cache bytes, plus 8 bytes of scales a cache row.
 //
 // K3 writes the L new rows per batch slot in place at min(pos[b], S-1): a
 // pos >= S overwrites row S-1 of that slot (the JAX package's clamped
-// write).  It moves 2*L*B rows; it is bound by launch latency.
+// write), and for a quantized cache the rows' KV scales beside them.  It
+// moves 2*L*B rows; it is bound by launch latency.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -70,6 +100,58 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The quantized cache types: codes, their f32 values, and qmax.
+template <typename C>
+struct Quant;
+template <>
+struct Quant<int8_t> {
+  static constexpr float qmax = 127.f;
+  static __device__ __forceinline__ int8_t encode(float q) {  // round, clip
+    return static_cast<int8_t>(max(-127, min(127, __float2int_rn(q))));
+  }
+  static __device__ __forceinline__ float value(int8_t c) { return static_cast<float>(c); }
+  static __device__ __forceinline__ float byte_value(uint32_t b) {
+    return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(b)));
+  }
+};
+template <>
+struct Quant<__nv_fp8_e4m3> {
+  static constexpr float qmax = 448.f;
+  static __device__ __forceinline__ __nv_fp8_e4m3 encode(float q) {
+    __nv_fp8_e4m3 r;
+    r.__x = __nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3);
+    return r;
+  }
+  static __device__ __forceinline__ float value(__nv_fp8_e4m3 c) {
+    return static_cast<float>(c);
+  }
+  static __device__ __forceinline__ float byte_value(uint32_t b) {
+    __nv_fp8_e4m3 r;
+    r.__x = static_cast<__nv_fp8_storage_t>(b);
+    return static_cast<float>(r);
+  }
+};
+
+// EPL consecutive cache elements of one lane as f32: bf16 pairs, or one
+// 4- (2-) byte load of 1-byte codes
+template <int EPL, typename C>
+__device__ __forceinline__ void load_row(const C* p, float* out) {
+  if constexpr (std::is_same<C, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int e = 0; e < EPL; e += 2) {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + e);
+      out[e] = __low2float(v);
+      out[e + 1] = __high2float(v);
+    }
+  } else {
+    static_assert(EPL == 2 || EPL == 4, "1-byte rows: D in (64, 128)");
+    using W = typename std::conditional<EPL == 4, uint32_t, uint16_t>::type;
+    const uint32_t w = *reinterpret_cast<const W*>(p);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) out[e] = Quant<C>::byte_value((w >> (8 * e)) & 0xffu);
+  }
+}
+
 // split-layout RoPE of element d of a head row (f32 math, as the JAX kernel:
 // x*cos + rot*sin with rot = [-x[half:], x[:half]])
 template <typename T>
@@ -87,17 +169,20 @@ __device__ __forceinline__ float rope_at(const T* row, int d, int half,
 // Each warp walks ROWS_PER_WARP consecutive cache rows, UNROLL at a time
 // with all their loads issued first; the softmax state is rescaled once per
 // UNROLL rows (the JAX kernel rescales once per chunk of S the same way).
+// ksc / vsc: the layer's scales [B, S, KV] (QUANT only).
 // partial m/d: [B, KV, NS, G, 2]; partial ctx: [B, KV, NS, G, D]
 // ---------------------------------------------------------------------------
-template <int D, typename T, bool ROPE>
+template <int D, typename T, typename C, bool ROPE>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_split(const T* __restrict__ q_rows, int q_bs,
            const float* __restrict__ sin_rows,
            const float* __restrict__ cos_rows,
-           const __nv_bfloat16* __restrict__ kc,
-           const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
+           const C* __restrict__ kc, const C* __restrict__ vc,
+           const float* __restrict__ ksc, const float* __restrict__ vsc,
+           const int* __restrict__ pos,
            int H, int KV, int S, float scale, float* __restrict__ part_md,
            float* __restrict__ part_ctx) {
+  constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
   constexpr int EPL = D / 32;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int NS = gridDim.x, G = H / KV, KVD = KV * D, half = D / 2;
@@ -111,7 +196,7 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
   const float* cs = cos_rows + (size_t)b * half;
   const T* row_b = q_rows + (size_t)b * q_bs;
 
-  // (roped) q of the G heads, rounded to the cache dtype: once per block
+  // (roped) q of the G heads, rounded to bf16: once per block
   __shared__ float q_s[MAXG][D];
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const T* qr = row_b + (size_t)(h * G + i / D) * D;
@@ -134,20 +219,16 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
   }
   const size_t base = (size_t)b * S * KVD + (size_t)h * D + lane * EPL;
   for (int j0 = w0; j0 < w1; j0 += UNROLL) {
-    float kf[UNROLL][EPL], vf[UNROLL][EPL];
+    float kf[UNROLL][EPL], vf[UNROLL][EPL], ks[UNROLL], vs[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {     // all the group's loads first
       const int j = min(j0 + u, w1 - 1);
-      const __nv_bfloat16* kr = kc + base + (size_t)j * KVD;
-      const __nv_bfloat16* vr = vc + base + (size_t)j * KVD;
-#pragma unroll
-      for (int e = 0; e < EPL; e += 2) {
-        const __nv_bfloat162 k2 = *reinterpret_cast<const __nv_bfloat162*>(kr + e);
-        const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(vr + e);
-        kf[u][e] = __low2float(k2);
-        kf[u][e + 1] = __high2float(k2);
-        vf[u][e] = __low2float(v2);
-        vf[u][e + 1] = __high2float(v2);
+      load_row<EPL>(kc + base + (size_t)j * KVD, kf[u]);
+      load_row<EPL>(vc + base + (size_t)j * KVD, vf[u]);
+      if constexpr (QUANT) {
+        const size_t si = ((size_t)b * S + j) * KV + h;
+        ks[u] = ksc[si];
+        vs[u] = vsc[si];
       }
     }
 #pragma unroll
@@ -169,7 +250,9 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
         float mx = m[g];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          s[u] = j0 + u < w1 ? s[u] * scale : NEG_INF;
+          float su = __fmul_rn(s[u], scale);
+          if constexpr (QUANT) su = __fmul_rn(su, ks[u]);   // after the dot
+          s[u] = j0 + u < w1 ? su : NEG_INF;
           mx = fmaxf(mx, s[u]);
         }
         const float alpha = expf(m[g] - mx);
@@ -179,8 +262,8 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           const float ev = expf(s[u] - mx);
-          dd += ev;
-          const float eb = bf16_round(ev);
+          dd += ev;                                        // unscaled e
+          const float eb = bf16_round(QUANT ? __fmul_rn(ev, vs[u]) : ev);
 #pragma unroll
           for (int e = 0; e < EPL; ++e) ctx[g][e] += eb * vf[u][e];
         }
@@ -228,9 +311,11 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
 // max: warp w takes splits w, w+8, ..., lane owns EPL elements of D, so a
 // thread issues live/8 independent loads; the warps' sums meet in shared
 // memory.  With ROPE the new k row is roped in f32 and the block of g == 0
-// writes it and the v row out; without, the new rows are rounded to bf16.
+// writes it and the v row out (K2: in bf16; K7: quantized, with their
+// scales, and the softmax starts from the round-tripped rows); without, the
+// new rows are rounded to bf16.
 // ---------------------------------------------------------------------------
-template <int D, typename T, bool ROPE>
+template <int D, typename T, typename C, bool ROPE>
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 attn_combine(const T* __restrict__ q_rows, int q_bs,
              const T* __restrict__ k_new, const T* __restrict__ v_new,
@@ -239,8 +324,9 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
              int H, int KV, int S, int NS, float scale,
              const float* __restrict__ part_md,
              const float* __restrict__ part_ctx, T* __restrict__ out,
-             __nv_bfloat16* __restrict__ k_out,
-             __nv_bfloat16* __restrict__ v_out) {
+             C* __restrict__ k_out, C* __restrict__ v_out,
+             float* __restrict__ ks_out, float* __restrict__ vs_out) {
+  constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
   constexpr int EPL = D / 32;
   const int G = H / KV, half = D / 2;
   const int hq = blockIdx.x, b = blockIdx.y, h = hq / G, g = hq % G;
@@ -249,6 +335,7 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
   const float* cs = cos_rows + (size_t)b * half;
   const T* row_b = q_rows + (size_t)b * q_bs;
   __shared__ float kr_s[D], vr_s[D], m0_s;
+  __shared__ float am_s[2][D / 32];
   __shared__ float c_s[COMBINE_WARPS][D], d_s[COMBINE_WARPS];
   const int live = (min(pos[b], S) + SPLIT - 1) / SPLIT;
   extern __shared__ float smd[];                 // this head's [live] (m, d)
@@ -257,18 +344,59 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
     smd[2 * sp] = md[(sp * G + g) * 2];
     smd[2 * sp + 1] = md[(sp * G + g) * 2 + 1];
   }
-  if (threadIdx.x < D) {                         // the new token's rows
+  float kr = 0.f, vr = 0.f;                      // the new token's rows
+  const size_t row_o = ((size_t)b * KV + h) * D;
+  if (threadIdx.x < D) {
     const int d = threadIdx.x;
     const T* kn = k_new + (size_t)b * kv_bs + (size_t)h * D;
     const T* vn = v_new + (size_t)b * kv_bs + (size_t)h * D;
-    const float kr = ROPE ? rope_at(kn, d, half, sn, cs) : bf16_round(load_f32(kn, d));
-    const float vr = ROPE ? load_f32(vn, d) : bf16_round(load_f32(vn, d));
+    kr = ROPE ? rope_at(kn, d, half, sn, cs) : bf16_round(load_f32(kn, d));
+    vr = ROPE ? load_f32(vn, d) : bf16_round(load_f32(vn, d));
+    if constexpr (ROPE && QUANT) {               // each row's absmax over D
+      float ak = fabsf(kr), av = fabsf(vr);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        ak = fmaxf(ak, __shfl_xor_sync(0xffffffffu, ak, o));
+        av = fmaxf(av, __shfl_xor_sync(0xffffffffu, av, o));
+      }
+      if (lane == 0) {
+        am_s[0][warp] = ak;
+        am_s[1][warp] = av;
+      }
+    }
+  }
+  if constexpr (ROPE && QUANT) __syncthreads();
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    if constexpr (ROPE && QUANT) {
+      float ak = 0.f, av = 0.f;
+#pragma unroll
+      for (int w = 0; w < D / 32; ++w) {
+        ak = fmaxf(ak, am_s[0][w]);
+        av = fmaxf(av, am_s[1][w]);
+      }
+      const float sk = __fdiv_rn(fmaxf(ak, 1e-8f), Quant<C>::qmax);
+      const float sv = __fdiv_rn(fmaxf(av, 1e-8f), Quant<C>::qmax);
+      const C ck = Quant<C>::encode(__fdiv_rn(kr, sk));
+      const C cv = Quant<C>::encode(__fdiv_rn(vr, sv));
+      kr = __fmul_rn(Quant<C>::value(ck), sk);   // the round-tripped rows
+      vr = __fmul_rn(Quant<C>::value(cv), sv);
+      if (g == 0) {
+        k_out[row_o + d] = ck;
+        v_out[row_o + d] = cv;
+        if (d == 0) {
+          ks_out[(size_t)b * KV + h] = sk;
+          vs_out[(size_t)b * KV + h] = sv;
+        }
+      }
+    } else if constexpr (ROPE) {
+      if (g == 0) {
+        k_out[row_o + d] = __float2bfloat16_rn(kr);
+        v_out[row_o + d] = __float2bfloat16_rn(vr);
+      }
+    }
     kr_s[d] = kr;
     vr_s[d] = vr;
-    if (ROPE && g == 0) {
-      k_out[((size_t)b * KV + h) * D + d] = __float2bfloat16_rn(kr);
-      v_out[((size_t)b * KV + h) * D + d] = __float2bfloat16_rn(vr);
-    }
   }
   __syncthreads();
   if (warp == 0) {                               // m0 = (q . k_new) * scale
@@ -314,54 +442,93 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
 }
 
 // ---------------------------------------------------------------------------
-// K3: grid (L, B); copies one row of KVD bf16 per cache, 16 bytes a thread.
+// K3: grid (L, B); copies one row of row_bytes per cache, 16 bytes a thread,
+// and for a quantized cache the row's KV scales (ksc != nullptr).
 // ---------------------------------------------------------------------------
-__global__ void scatter_rows(__nv_bfloat16* __restrict__ kc,
-                             __nv_bfloat16* __restrict__ vc,
-                             const __nv_bfloat16* __restrict__ kr,
-                             const __nv_bfloat16* __restrict__ vr,
-                             const int* __restrict__ pos, int B, int S, int KVD) {
+__global__ void scatter_rows(char* __restrict__ kc, char* __restrict__ vc,
+                             const char* __restrict__ kr,
+                             const char* __restrict__ vr,
+                             float* __restrict__ ksc, float* __restrict__ vsc,
+                             const float* __restrict__ ksr,
+                             const float* __restrict__ vsr,
+                             const int* __restrict__ pos, int B, int S,
+                             int row_bytes, int KV) {
   const int l = blockIdx.x, b = blockIdx.y;
   const int p = min(pos[b], S - 1);
-  const size_t dst = (((size_t)l * B + b) * S + p) * KVD;
-  const size_t src = ((size_t)l * B + b) * KVD;
-  const int n16 = KVD / 8;
+  const size_t dst = ((size_t)l * B + b) * S + p;   // destination row
+  const size_t src = (size_t)l * B + b;
+  const int n16 = row_bytes / 16;
+  int4* kd = reinterpret_cast<int4*>(kc + dst * row_bytes);
+  int4* vd = reinterpret_cast<int4*>(vc + dst * row_bytes);
+  const int4* ks = reinterpret_cast<const int4*>(kr + src * row_bytes);
+  const int4* vs = reinterpret_cast<const int4*>(vr + src * row_bytes);
   for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    reinterpret_cast<int4*>(kc + dst)[i] = reinterpret_cast<const int4*>(kr + src)[i];
-    reinterpret_cast<int4*>(vc + dst)[i] = reinterpret_cast<const int4*>(vr + src)[i];
+    kd[i] = ks[i];
+    vd[i] = vs[i];
   }
+  if (ksc != nullptr)
+    for (int i = threadIdx.x; i < KV; i += blockDim.x) {
+      ksc[dst * KV + i] = ksr[src * KV + i];
+      vsc[dst * KV + i] = vsr[src * KV + i];
+    }
 }
 
 // q_rows: head hq of batch b at q_rows + b*q_bs + hq*D; k_new / v_new: kv
-// head h at k_new + b*kv_bs + h*D.  K2 points all three into the qkv rows.
-template <int D, typename T, bool ROPE>
+// head h at k_new + b*kv_bs + h*D.  K2 and K7 point all three into the qkv
+// rows.  ksc / vsc: the layer's cache scales (quantized caches); k_out ..
+// vs_out: the new rows (ROPE only) and their scales (ROPE and quantized).
+template <int D, typename T, typename C, bool ROPE>
 cudaError_t launch_attn(const void* q_rows, int q_bs, const void* k_new,
                         const void* v_new, int kv_bs, const float* sin_rows,
                         const float* cos_rows, const void* kc, const void* vc,
+                        const float* ksc, const float* vsc,
                         const int* pos, int B, int H, int KV, int S,
-                        float scale, void* out,
-                        void* k_out, void* v_out, float* part_md,
+                        float scale, void* out, void* k_out, void* v_out,
+                        float* ks_out, float* vs_out, float* part_md,
                         float* part_ctx, cudaStream_t stream) {
   const int NS = (S + SPLIT - 1) / SPLIT;
   const T* q = static_cast<const T*>(q_rows);
-  attn_split<D, T, ROPE><<<dim3(NS, KV, B), WARPS * 32, 0, stream>>>(
-      q, q_bs, sin_rows, cos_rows,
-      static_cast<const __nv_bfloat16*>(kc), static_cast<const __nv_bfloat16*>(vc),
-      pos, H, KV, S, scale, part_md, part_ctx);
+  attn_split<D, T, C, ROPE><<<dim3(NS, KV, B), WARPS * 32, 0, stream>>>(
+      q, q_bs, sin_rows, cos_rows, static_cast<const C*>(kc),
+      static_cast<const C*>(vc), ksc, vsc, pos, H, KV, S, scale, part_md,
+      part_ctx);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t smem = (size_t)NS * 2 * sizeof(float);
   if (smem > 40 * 1024) {
-    e = cudaFuncSetAttribute(attn_combine<D, T, ROPE>,
+    e = cudaFuncSetAttribute(attn_combine<D, T, C, ROPE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attn_combine<D, T, ROPE><<<dim3(H, B), COMBINE_WARPS * 32, smem, stream>>>(
+  attn_combine<D, T, C, ROPE><<<dim3(H, B), COMBINE_WARPS * 32, smem, stream>>>(
       q, q_bs, static_cast<const T*>(k_new), static_cast<const T*>(v_new), kv_bs,
-      sin_rows, cos_rows, pos, H, KV, S, NS, scale, part_md,
-      part_ctx, static_cast<T*>(out), static_cast<__nv_bfloat16*>(k_out),
-      static_cast<__nv_bfloat16*>(v_out));
+      sin_rows, cos_rows, pos, H, KV, S, NS, scale, part_md, part_ctx,
+      static_cast<T*>(out), static_cast<C*>(k_out), static_cast<C*>(v_out),
+      ks_out, vs_out);
   return cudaGetLastError();
+}
+
+// the instance for (D, activation dtype: 0 = f32, 1 = bf16, cache: 0 =
+// int8, 1 = fp8 e4m3, 2 = bf16)
+template <bool ROPE, typename... A>
+int dispatch(int D, int dtype, int cache, A... a) {
+#define BN_CASE(DD, TT, CC)                                                    \
+  if (D == DD && dtype == (std::is_same<TT, float>::value ? 0 : 1) &&          \
+      cache == (std::is_same<CC, int8_t>::value                                \
+                    ? 0                                                        \
+                    : (std::is_same<CC, __nv_fp8_e4m3>::value ? 1 : 2)))       \
+    return (int)launch_attn<DD, TT, CC, ROPE>(a...);
+#define BN_CASES(CC)                       \
+  BN_CASE(128, __nv_bfloat16, CC)          \
+  BN_CASE(128, float, CC)                  \
+  BN_CASE(64, __nv_bfloat16, CC)           \
+  BN_CASE(64, float, CC)
+  BN_CASES(__nv_bfloat16)
+  BN_CASES(int8_t)
+  BN_CASES(__nv_fp8_e4m3)
+#undef BN_CASES
+#undef BN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -382,23 +549,38 @@ int bn_decode_attention_qkv(const void* qkv, const float* sin_rows,
   if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
   const int bs = (H + 2 * KV) * D, esz = dtype == 1 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
-  const void* kn = base + (size_t)H * D * esz;
-  const void* vn = base + (size_t)(H + KV) * D * esz;
-#define BN_ATTN(DD, TT)                                                        \
-  return (int)launch_attn<DD, TT, true>(qkv, bs, kn, vn, bs, sin_rows,        \
-                                        cos_rows, kc, vc, pos, B, H, KV, S,    \
-                                        scale, out, k_out, v_out, part_md,     \
-                                        part_ctx, stream)
-  if (D == 128 && dtype == 1) BN_ATTN(128, __nv_bfloat16);
-  if (D == 128 && dtype == 0) BN_ATTN(128, float);
-  if (D == 64 && dtype == 1) BN_ATTN(64, __nv_bfloat16);
-  if (D == 64 && dtype == 0) BN_ATTN(64, float);
-#undef BN_ATTN
-  return (int)cudaErrorInvalidValue;
+  return dispatch<true>(D, dtype, 2, qkv, bs, base + (size_t)H * D * esz,
+                        base + (size_t)(H + KV) * D * esz, bs, sin_rows,
+                        cos_rows, kc, vc, (const float*)nullptr,
+                        (const float*)nullptr, pos, B, H, KV, S, scale, out,
+                        k_out, v_out, (float*)nullptr, (float*)nullptr,
+                        part_md, part_ctx, stream);
 }
 
-// K5: q [B, H, D] (roped), k_new / v_new [B, KV, D], all of one dtype
-// (0 = float32, 1 = bfloat16; out has it too); kc / vc the bf16 layer
+// K7: K2 over a quantized cache (cache: 0 = int8, 1 = fp8 e4m3) with its
+// f32 scales ks / vs, the layer's [B, S, KV].  k_out / v_out [B, KV, D]
+// receive the new rows' codes, ks_out / vs_out [B, KV] their scales.
+int bn_decode_attention_qkv_quant(const void* qkv, const float* sin_rows,
+                                  const float* cos_rows, const void* kc,
+                                  const void* vc, const float* ks,
+                                  const float* vs, const int* pos, int B,
+                                  int H, int KV, int D, int S, float scale,
+                                  void* out, void* k_out, void* v_out,
+                                  float* ks_out, float* vs_out, float* part_md,
+                                  float* part_ctx, int dtype, int cache,
+                                  cudaStream_t stream) {
+  if (H % KV != 0 || H / KV > MAXG || cache < 0 || cache > 1)
+    return (int)cudaErrorInvalidValue;
+  const int bs = (H + 2 * KV) * D, esz = dtype == 1 ? 2 : 4;
+  const char* base = static_cast<const char*>(qkv);
+  return dispatch<true>(D, dtype, cache, qkv, bs, base + (size_t)H * D * esz,
+                        base + (size_t)(H + KV) * D * esz, bs, sin_rows,
+                        cos_rows, kc, vc, ks, vs, pos, B, H, KV, S, scale, out,
+                        k_out, v_out, ks_out, vs_out, part_md, part_ctx, stream);
+}
+
+// K5 and K8: q [B, H, D] (roped), k_new / v_new [B, KV, D], all of one
+// dtype (0 = float32, 1 = bfloat16; out has it too); kc / vc the bf16 layer
 // [B, S, KV*D], read only.  Partials as for bn_decode_attention_qkv.
 int bn_decode_attention(const void* q, const void* k_new, const void* v_new,
                         const void* kc, const void* vc, const int* pos, int B,
@@ -406,27 +588,46 @@ int bn_decode_attention(const void* q, const void* k_new, const void* v_new,
                         float* part_md, float* part_ctx, int dtype,
                         cudaStream_t stream) {
   if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
-#define BN_ATTN(DD, TT)                                                        \
-  return (int)launch_attn<DD, TT, false>(q, H * DD, k_new, v_new, KV * DD,    \
-                                         nullptr, nullptr, kc, vc, pos, B, H,  \
-                                         KV, S, scale, out, nullptr, nullptr,  \
-                                         part_md, part_ctx, stream)
-  if (D == 128 && dtype == 1) BN_ATTN(128, __nv_bfloat16);
-  if (D == 128 && dtype == 0) BN_ATTN(128, float);
-  if (D == 64 && dtype == 1) BN_ATTN(64, __nv_bfloat16);
-  if (D == 64 && dtype == 0) BN_ATTN(64, float);
-#undef BN_ATTN
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(D, dtype, 2, q, H * D, k_new, v_new, KV * D,
+                         (const float*)nullptr, (const float*)nullptr, kc, vc,
+                         (const float*)nullptr, (const float*)nullptr, pos, B,
+                         H, KV, S, scale, out, (void*)nullptr, (void*)nullptr,
+                         (float*)nullptr, (float*)nullptr, part_md, part_ctx,
+                         stream);
 }
 
+// K9: K8 over a quantized cache (cache: 0 = int8, 1 = fp8 e4m3) with the
+// layer's f32 scales ks / vs [B, S, KV]; k_new / v_new are the new rows
+// after the quantization round trip.
+int bn_decode_attention_quant(const void* q, const void* k_new,
+                              const void* v_new, const void* kc,
+                              const void* vc, const float* ks, const float* vs,
+                              const int* pos, int B, int H, int KV, int D,
+                              int S, float scale, void* out, float* part_md,
+                              float* part_ctx, int dtype, int cache,
+                              cudaStream_t stream) {
+  if (H % KV != 0 || H / KV > MAXG || cache < 0 || cache > 1)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<false>(D, dtype, cache, q, H * D, k_new, v_new, KV * D,
+                         (const float*)nullptr, (const float*)nullptr, kc, vc,
+                         ks, vs, pos, B, H, KV, S, scale, out, (void*)nullptr,
+                         (void*)nullptr, (float*)nullptr, (float*)nullptr,
+                         part_md, part_ctx, stream);
+}
+
+// K3: rows [L, B, 1, row_bytes] into caches [L, B, S, row_bytes]; ks .. vsr
+// null for a bf16 cache, else the scale stacks [L, B, S, KV] and the rows'
+// scales [L, B, 1, KV].
 int bn_scatter_kv_rows(void* kc, void* vc, const void* k_rows,
-                       const void* v_rows, const int* pos, int L, int B, int S,
-                       int KVD, cudaStream_t stream) {
-  if (KVD % 8 != 0) return (int)cudaErrorInvalidValue;
+                       const void* v_rows, float* ks, float* vs,
+                       const float* ks_rows, const float* vs_rows,
+                       const int* pos, int L, int B, int S, int row_bytes,
+                       int KV, cudaStream_t stream) {
+  if (row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   scatter_rows<<<dim3(L, B), 128, 0, stream>>>(
-      static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc),
-      static_cast<const __nv_bfloat16*>(k_rows),
-      static_cast<const __nv_bfloat16*>(v_rows), pos, B, S, KVD);
+      static_cast<char*>(kc), static_cast<char*>(vc),
+      static_cast<const char*>(k_rows), static_cast<const char*>(v_rows), ks,
+      vs, ks_rows, vs_rows, pos, B, S, row_bytes, KV);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,12 @@
-"""KV cache: preallocated flat ``[L, B, S, KV*D]`` bf16 buffers.
+"""KV cache: preallocated flat ``[L, B, S, KV*D]`` buffers, bf16 or
+quantized (int8 / fp8-e4m3 with f32 per-row, per-head scales).
 
 Counterpart of ``bitnet_tpu/engine/cache.py:74-117`` in the flat layout
-that the ``qkv_v2s`` decode plan reads natively.  JAX donates the buffers
-through jit so XLA updates them in place; here the forward pass writes
-them in place (prefill index writes, the K3 row scatter at decode).
+that every stacked decode plan of the port reads natively.  The scales
+keep the canonical ``[L, B, S, KV]`` layout, initialised to ones as
+``allocate_cache`` does.  JAX donates the buffers through jit so XLA
+updates them in place; here the forward pass writes them in place
+(prefill and generic index writes, the K3 row scatter at decode).
 """
 
 from __future__ import annotations
@@ -12,9 +15,10 @@ import dataclasses
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, not_ported
 
-_DTYPES = {"bf16": torch.bfloat16}
+_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8,
+           "fp8": torch.float8_e4m3fn}
 
 
 @dataclasses.dataclass
@@ -22,19 +26,25 @@ class KVCache:
     k: torch.Tensor          # [L, B, S, KV*D]
     v: torch.Tensor
     lengths: torch.Tensor    # [B] int32 valid rows per slot
+    k_scale: torch.Tensor | None = None   # [L, B, S, KV] f32 (int8 / fp8)
+    v_scale: torch.Tensor | None = None
 
 
 def allocate_cache(cfg: ModelConfig, batch_size: int, max_seq_len: int,
                    dtype: str = "bf16", device="cpu") -> KVCache:
     if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"a {dtype} KV cache is not ported yet (ROADMAP.md queue 1 #8)")
-    shape = (cfg.num_layers, batch_size, max_seq_len,
-             cfg.num_kv_heads * cfg.head_dim)
+        raise not_ported(f"a {dtype} KV cache", "#18")
+    L, KV = cfg.num_layers, cfg.num_kv_heads
+    shape = (L, batch_size, max_seq_len, KV * cfg.head_dim)
+    quantized = dtype != "bf16"
+    scales = (lambda: torch.ones((L, batch_size, max_seq_len, KV),
+                                 dtype=torch.float32, device=device))
     return KVCache(
         k=torch.zeros(shape, dtype=_DTYPES[dtype], device=device),
         v=torch.zeros(shape, dtype=_DTYPES[dtype], device=device),
-        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device))
+        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        k_scale=scales() if quantized else None,
+        v_scale=scales() if quantized else None)
 
 
 def reset_cache(cache: KVCache) -> KVCache:

@@ -1,13 +1,15 @@
-"""InferenceEngine: bucketed prefill, then streamed decode, on one device.
+"""InferenceEngine: bucketed prefill, then streamed decode, on one device;
+or one prefill over a pool of prompts, then lockstep decode.
 
 Counterpart of ``bitnet_tpu/engine/engine.py``: token-id or text prompts
 (through the engine's tokenizer), ``prefill_buckets`` padding (padded
 positions carry S, so their cache writes drop), the full ``SamplerChain``
 with a seeded ``torch.Generator``, stop ids / EOS / stop sequences /
 max tokens, the ``min_new_tokens`` EOS ban, keep-half context shift,
-logprobs, and a ``kernel_recorder`` naming the path and the kernels that
-ran.  ``kernel_path='auto'`` resolves against the device: ``w2a8`` on
-the card, ``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
+logprobs, ``generate_batch`` over up to ``max_batch_size`` prompts, and a
+``kernel_recorder`` naming the path and the kernels that ran.
+``kernel_path='auto'`` resolves against the device: ``w2a8`` on the card,
+``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
 one Python call of the model per token (a CUDA graph around it, and with
 it K-step dispatches, is ROADMAP queue 1 #5).
 """
@@ -30,6 +32,7 @@ from ..models.bitnet import (
     decode_attn_plan,
     forward_cache,
     fuse_block_params,
+    kv_dtype_name,
     logits as model_logits,
     quantize_head,
     stacked_decode_ok,
@@ -109,7 +112,10 @@ def prefill_buckets(max_seq_len: int, smallest: int = 8) -> list[int]:
 
 
 class InferenceEngine:
-    """Single-sequence engine over a [B ≤ 2] flat bf16 cache."""
+    """Engine over a flat ``[L, B, S, KV*D]`` cache of ``max_batch_size``
+    slots (bf16, int8 or fp8-e4m3): one sequence in slot 0
+    (``generate``), or a pool of up to B prompts in lockstep
+    (``generate_batch``)."""
 
     def __init__(self, cfg: ModelConfig, params: BitNetParams,
                  engine_cfg: EngineConfig | None = None, tokenizer=None,
@@ -187,7 +193,12 @@ class InferenceEngine:
         """Whether decode steps take the fused stacked loop (slice 1)."""
         return stacked_decode_ok(self.cfg, self.params, 1,
                                  self.engine_cfg.max_batch_size,
-                                 self.cache.k.dtype, self.kernel_path)
+                                 self.kernel_path)
+
+    def decode_plan(self) -> str:
+        """The decode-attention plan of this engine's pool and cache."""
+        return decode_attn_plan(self.engine_cfg.max_batch_size,
+                                kv_dtype_name(self.cache.k.dtype))
 
     # -- steps ---------------------------------------------------------------
     def prefill(self, token_ids: list[int]) -> torch.Tensor:
@@ -334,9 +345,8 @@ class InferenceEngine:
         metrics.decode_s = time.perf_counter() - t_dec
         n = generated
         if self.stacked_decode():
-            plan = decode_attn_plan(B, self.kv_dtype)
             self.kernel_recorder.append(
-                f"decode_{self.kernel_path}_attn_{plan}_x{n}")
+                f"decode_{self.kernel_path}_attn_{self.decode_plan()}_x{n}")
         else:
             self.kernel_recorder.append(f"decode_{self.kernel_path}_x{n}")
         self._record_kernels(before)
@@ -364,3 +374,158 @@ class InferenceEngine:
                                 prompt_tokens=len(token_ids),
                                 metrics=self.last_metrics.as_dict(),
                                 logprobs=lps)
+
+    def prefill_batch(self, prompts: list[list[int]]) -> torch.Tensor:
+        """Reset the cache and run ONE bucketed prefill over the pool: slot
+        i holds prompt i, idle slots and padding carry position S (their
+        writes drop).  Returns each slot's last-token logits [B, V]."""
+        B = self.engine_cfg.max_batch_size
+        S = self.engine_cfg.max_seq_len
+        nb = len(prompts)
+        if nb > B:
+            raise InferenceError(f"{nb} prompts > max_batch_size {B}; raise "
+                                 "EngineConfig.max_batch_size")
+        lens = [len(p) for p in prompts]
+        if not lens or min(lens) == 0:
+            raise InferenceError("empty prompt in batch")
+        if max(lens) >= S:
+            raise InferenceError(f"prompt of {max(lens)} tokens >= "
+                                 f"max_seq_len {S}")
+        reset_cache(self.cache)
+        Tp = self._bucket(max(lens))
+        toks = np.zeros((B, Tp), np.int32)
+        pos = np.full((B, Tp), S, np.int32)
+        n_real = np.zeros((B,), np.int32)
+        last_idx = np.zeros((B,), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, : lens[i]] = p
+            pos[i, : lens[i]] = np.arange(lens[i])
+            n_real[i] = lens[i]
+            last_idx[i] = lens[i] - 1
+        dev = self.device
+        with torch.inference_mode():
+            h, self.cache = forward_cache(
+                self.cfg, self.params, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(pos).to(dev), self.cache,
+                torch.from_numpy(n_real).to(dev), self.kernel_path)
+            h_last = h[torch.arange(B, device=dev),
+                       torch.from_numpy(last_idx).to(dev)][:, None]
+            lg = model_logits(self.cfg, self.params, h_last,
+                              self.kernel_path)[:, 0]
+        self.kernel_recorder.append(f"prefill_batch{nb}_T{Tp}")
+        return lg
+
+    def decode_batch_step(self, tokens: torch.Tensor,
+                          positions: np.ndarray) -> torch.Tensor:
+        """One lockstep decode step of the pool: ``tokens`` [B] on the
+        device, ``positions`` [B] on the host (S for idle slots).  Returns
+        logits [B, V]."""
+        dev = self.device
+        with torch.inference_mode():
+            h, self.cache = forward_cache(
+                self.cfg, self.params, tokens.to(dev, torch.int32)[:, None],
+                torch.from_numpy(np.asarray(positions, np.int32)[:, None]).to(dev),
+                self.cache, 1, self.kernel_path)
+            return model_logits(self.cfg, self.params, h, self.kernel_path)[:, -1]
+
+    def generate_batch(self, prompts: list[list[int]],
+                       gen_cfg: GenerationConfig | None = None
+                       ) -> list[GenerationResult]:
+        """Batched generation (``bitnet_tpu/engine/engine.py:825-950``): ONE
+        bucketed prefill over all slots, then lockstep decode with per-slot
+        stop criteria.  Idle slots and padding carry position S; a finished
+        slot keeps riding the step at position S (the stacked decode loop
+        clamps its write to row S-1 of its own slot, the generic path drops
+        it) and its output is ignored.  ``last_metrics`` holds the pool's
+        totals."""
+        gen_cfg = gen_cfg or GenerationConfig()
+        if gen_cfg.grammar:
+            raise InferenceError(
+                "grammar decoding is per-sequence host-side state; use "
+                "generate/generate_stream, not the lockstep batch API")
+        if gen_cfg.logprobs is not None:
+            raise InferenceError(
+                "logprobs need per-step host logits reads; use "
+                "generate/generate_stream, not the lockstep batch API")
+        B = self.engine_cfg.max_batch_size
+        S = self.engine_cfg.max_seq_len
+        nb = len(prompts)
+        if nb == 0:
+            return []
+        lens = [len(p) for p in prompts]
+        metrics = PerformanceMetrics(prompt_tokens=sum(lens),
+                                     device=str(self.device))
+        self.last_metrics = metrics
+        dev = self.device
+        before = registry.launch_counts()
+
+        t0 = time.perf_counter()
+        logits = self.prefill_batch(prompts)
+        self._sync()
+        metrics.prefill_s = metrics.ttft_s = time.perf_counter() - t0
+
+        # --- lockstep decode ---
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        stops = [StopCriteria(
+            max_new_tokens=gen_cfg.max_new_tokens, eos_token_id=eos_id,
+            stop_token_ids=frozenset(gen_cfg.stop_token_ids),
+            stop_sequences=tuple(gen_cfg.stop_sequences)) for _ in range(nb)]
+        done = [False] * nb
+        reasons = [StopReason.MAX_TOKENS] * nb
+        outs: list[list[int]] = [[] for _ in range(nb)]
+        seed = gen_cfg.seed if gen_cfg.seed is not None else (
+            0 if self.engine_cfg.strict.deterministic
+            else time.time_ns() % (2**31))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sampler = SamplerChain(gen_cfg)
+        W = gen_cfg.repetition_window
+        penalized = (gen_cfg.repetition_penalty != 1.0
+                     or gen_cfg.frequency_penalty != 0.0
+                     or gen_cfg.presence_penalty != 0.0)
+        history = np.full((B, W), -1, np.int64)
+        for i, p in enumerate(prompts):
+            tail = p[-W:] if W > 0 else []
+            history[i, : len(tail)] = tail
+        history_dev = torch.from_numpy(history).to(dev)
+        positions_host = np.array(lens + [0] * (B - nb), np.int32)
+        t_dec = time.perf_counter()
+        while not all(done):
+            if positions_host[:nb].max() >= S:
+                break
+            sampled = sampler.sample(logits, history_dev, gen)      # [B]
+            samp_host = sampled.cpu().numpy()
+            for i in range(nb):
+                if done[i]:
+                    continue
+                t = int(samp_host[i])
+                piece = (self.tokenizer.token_to_piece(t)
+                         if self.tokenizer is not None else "")
+                r = stops[i].check(t, piece)
+                if r in (StopReason.STOP_TOKEN, StopReason.EOS):
+                    done[i], reasons[i] = True, r
+                    continue
+                outs[i].append(t)
+                if r is not None:
+                    done[i], reasons[i] = True, r
+            if all(done):
+                break
+            positions = np.full((B,), S, np.int32)
+            for i in range(nb):
+                if not done[i] and positions_host[i] < S:
+                    positions[i] = positions_host[i]
+                    positions_host[i] += 1
+            logits = self.decode_batch_step(sampled, positions)
+            if penalized:
+                history_dev = torch.roll(history_dev, -1, dims=1)
+                history_dev[:, -1] = sampled
+            metrics.decode_steps += 1
+        self._sync()
+        metrics.decode_s = time.perf_counter() - t_dec
+        metrics.generated_tokens = sum(len(o) for o in outs)
+        self.kernel_recorder.append(f"decode_batch{nb}")
+        self._record_kernels(before)
+        return [GenerationResult(
+            text=(self.tokenizer.decode(outs[i])
+                  if self.tokenizer is not None else ""),
+            token_ids=outs[i], stop_reason=reasons[i], prompt_tokens=lens[i],
+            metrics={}) for i in range(nb)]

@@ -8,7 +8,12 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
 - slice 2: the generic layer loop ``forward`` → ``block_forward``
   (``:1449-1461`` → ``:1241-1367``), which the CLI runs (unfused
   projections; ``kernel_path`` ``w2a8``, ``pallas`` or ``xla``), with its
-  ``fast_decode`` branch on the v1 decode attention (K5).
+  ``fast_decode`` branch on the v1 decode attention (K5);
+- slice 3: pools of B = 1…64 and int8 / fp8-e4m3 caches: every plan of
+  ``decode_attn_plan`` in the stacked decode loop (``qkv_quant_v2s`` on K7,
+  ``batched_v2`` on K8, ``quant_batched_v2`` on K9, ``einsum`` in plain
+  torch), and the quantized branches of the stacked prefill and of
+  ``block_forward`` (``:1118-1130``, ``:1337-1345``).
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -22,10 +27,13 @@ Semantics kept exactly:
 - prefill cache writes, and every write of the generic path, DROP
   positions >= S (``.at[].set(mode="drop")``, ``:1331-1334``,
   ``:1347-1350``);
-- the stacked decode row write CLAMPS to S-1 (``:978-991``, kernel K3).
+- the stacked decode row write CLAMPS to S-1 (``:978-991``, kernel K3);
+- a quantized cache holds codes and f32 scales ``[L, B, S, KV]``; the
+  stacked prefill and the generic path attend over the f32 dequantized
+  cache, the stacked decode over the codes (K7, K9) or, on the ``einsum``
+  plan, over the cache dequantized to the activation dtype.
 
-Batched pools and quantized caches are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+An f32 cache raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,11 +44,19 @@ from typing import Optional
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, not_ported
 from ..errors import QuantizationError
 from ..ops.attention import attention
 from ..ops.decode_attention import decode_attention
-from ..ops.decode_attention_v2 import decode_attention_qkv, scatter_kv_rows
+from ..ops.decode_attention_v2 import (
+    decode_attention_batched,
+    decode_attention_qkv,
+    decode_attention_qkv_quant,
+    decode_attention_quant_batched,
+    dequantize_kv,
+    quantize_kv,
+    scatter_kv_rows,
+)
 from ..ops.flash import flash_attention
 from ..ops.linear import (TernaryLinear, concat_linears, linear_apply,
                           linear_apply_normed, with_col_scales)
@@ -54,8 +70,16 @@ from ..ops.ternary_matmul import (
     ternary_matmul_w2a8_normed,
 )
 
-# decode-attention plans the port has kernels for (see decode_attn_plan)
-PORTED_PLANS = frozenset({"qkv_v2s"})
+# the cache dtypes the port runs, by the names decode_attn_plan reads
+KV_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8",
+                  torch.float8_e4m3fn: "fp8"}
+
+
+def kv_dtype_name(dtype: torch.dtype) -> str:
+    """'bf16', 'int8' or 'fp8' for a cache of ``dtype``."""
+    if dtype not in KV_DTYPE_NAMES:
+        raise not_ported(f"a {dtype} KV cache", "#18")
+    return KV_DTYPE_NAMES[dtype]
 
 
 def _to(x, device):
@@ -146,7 +170,9 @@ def with_col_scales_params(params: BitNetParams) -> BitNetParams:
 def decode_attn_plan(B: int, kv_dtype: str = "bf16") -> str:
     """The decode-attention plan the JAX package's default selection picks
     (``bitnet_tpu/models/bitnet.py:305-398``, flat cache, no env
-    overrides).  The port has kernels for the plans in PORTED_PLANS."""
+    overrides), for a cache named by :func:`kv_dtype_name`: B ≤ 2 the
+    rope-fused kernels (K2, K7), pools of B ≤ 16 or even B ≤ 64 the
+    whole-batch ones (K8, K9), odd B > 16 plain torch."""
     quantized = kv_dtype in ("int8", "fp8")
     if B <= 2:
         return "qkv_quant_v2s" if quantized else "qkv_v2s"
@@ -174,11 +200,11 @@ def stacked_weights_ok(cfg: ModelConfig, b: BlockParams) -> bool:
 
 
 def stacked_decode_ok(cfg: ModelConfig, params: BitNetParams, T: int, B: int,
-                      cache_dtype: torch.dtype, kernel_path: str) -> bool:
-    kv = "bf16" if cache_dtype == torch.bfloat16 else str(cache_dtype)
+                      kernel_path: str) -> bool:
+    """The reference's gate (``_stacked_decode_ok``, ``:260-280``): one
+    token a slot, B within K1's rows, path ``w2a8``, stacked weights.  Every
+    plan runs inside the loop, which reads it from the cache's dtype."""
     return (T == 1 and B <= STACKED_DECODE_MAX_M and kernel_path == "w2a8"
-            and decode_attn_plan(B, kv) in PORTED_PLANS
-            and cache_dtype == torch.bfloat16
             and stacked_weights_ok(cfg, params.blocks))
 
 
@@ -193,29 +219,74 @@ def stacked_prefill_ok(cfg: ModelConfig, params: BitNetParams, T: int,
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class CacheWrites:
-    """Where this call's new rows go, found once per forward call: batch
-    ``b`` and token ``t`` of every position < S, at row ``pos`` (positions
-    >= S are dropped, never clamped).  The prefill of the stacked path and
-    every write of the generic path go through it."""
+    """Where this call's new rows go, found once per forward call with
+    fixed shapes (no host sync, no shape that depends on the data).  Every
+    token (b, t) writes row min(pos, S-1) of slot b; a position >= S is
+    DROPPED, not clamped (``mode="drop"``): it writes the row that this
+    call leaves at S-1 anyway (the row of the slot's token at S-1 if it
+    has one, else the row already there), so the write changes nothing.
+    The prefill of the stacked path, every write of the generic path and
+    the ``einsum`` plan's post-write view go through it."""
 
-    b: torch.Tensor
-    t: torch.Tensor
-    pos: torch.Tensor
+    b: torch.Tensor          # [B, T] slot of each token
+    row: torch.Tensor        # [B, T] min(pos, S-1)
+    valid: torch.Tensor      # [B, T] pos < S
+    last: torch.Tensor       # [B] the token at S-1, if any (else 0)
+    has_last: torch.Tensor   # [B]
 
     @classmethod
     def of(cls, q_positions: torch.Tensor, S: int) -> "CacheWrites":
-        b, t = torch.nonzero(q_positions < S, as_tuple=True)
-        return cls(b, t, q_positions[b, t])
+        B, T = q_positions.shape
+        at_last = q_positions == S - 1
+        return cls(
+            b=torch.arange(B, device=q_positions.device)[:, None].expand(B, T),
+            row=torch.clamp(q_positions, max=S - 1).to(torch.int64),
+            valid=q_positions < S, last=at_last.to(torch.int32).argmax(1),
+            has_last=at_last.any(1))
 
-    def put(self, cache: torch.Tensor, l: int, rows: torch.Tensor) -> None:
-        """rows [B, T, KV, D] → cache[l] [B, S, KV*D], in place."""
-        cache[l, self.b, self.pos] = rows[self.b, self.t].reshape(
-            self.b.shape[0], cache.shape[-1]).to(cache.dtype)
+    def put(self, layer: torch.Tensor, rows: torch.Tensor) -> None:
+        """rows [B, T, ...] → one layer [B, S, W] of a cache (or scale)
+        stack, in place."""
+        B, T = self.row.shape
+        new = rows.reshape(B, T, layer.shape[-1]).to(layer.dtype)
+        keep = torch.where(self.has_last[:, None], new[self.b[:, 0], self.last],
+                           layer[:, -1])
+        layer.index_put_((self.b, self.row),
+                         torch.where(self.valid[..., None], new, keep[:, None]))
 
 
 # --------------------------------------------------------------------------
-# decode (T == 1): K1 x4, K2 x1 per layer, K3 once per step
+# decode (T == 1): K1 x4 and one attention kernel per layer, K3 once a step
 # --------------------------------------------------------------------------
+def _split_qkv(qkv: torch.Tensor, nh: int, nkv: int, D: int):
+    """[B, T, (nh+2nkv)*D] → q [B, T, nh, D], k, v [B, T, nkv, D] (views)."""
+    B, T = qkv.shape[:2]
+    return (qkv[..., : nh * D].reshape(B, T, nh, D),
+            qkv[..., nh * D: (nh + nkv) * D].reshape(B, T, nkv, D),
+            qkv[..., (nh + nkv) * D:].reshape(B, T, nkv, D))
+
+
+def _einsum_decode_attention(q, k_rows, v_rows, ks_rows, vs_rows, k_cache_l,
+                             v_cache_l, k_scale_l, v_scale_l, writes,
+                             q_positions, pre_len, act_dtype):
+    """The ``einsum`` plan (odd B > 16, ``:698-717``): plain attention over
+    a copy of the layer with this step's rows written (drop at S); a
+    quantized copy is dequantized to the activation dtype."""
+    B, S = k_cache_l.shape[:2]
+    nkv, D = k_rows.shape[-2:]
+    kc, vc = k_cache_l.clone(), v_cache_l.clone()
+    writes.put(kc, k_rows)
+    writes.put(vc, v_rows)
+    k_read, v_read = kc.view(B, S, nkv, D), vc.view(B, S, nkv, D)
+    if k_scale_l is not None:
+        ks, vs = k_scale_l.clone(), v_scale_l.clone()
+        writes.put(ks, ks_rows)
+        writes.put(vs, vs_rows)
+        k_read = dequantize_kv(k_read, ks).to(act_dtype)
+        v_read = dequantize_kv(v_read, vs).to(act_dtype)
+    return attention(q, k_read, v_read, q_positions, pre_len + 1)[:, 0]
+
+
 def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     x: torch.Tensor,             # [B, 1, H]
                     q_positions: torch.Tensor,   # [B, 1]
@@ -223,12 +294,20 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     v_cache: torch.Tensor,
                     pre_len: torch.Tensor,       # [B] valid cache rows
                     sin_rows: torch.Tensor,      # [B, 1, D/2]
-                    cos_rows: torch.Tensor) -> torch.Tensor:
+                    cos_rows: torch.Tensor,
+                    k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The stacked decode loop (``:401``, rows mode with the stacked
+    attention of ``body_rows_sa`` ``:856-910``): per layer four K1 calls
+    and the plan's attention over the PRE-write cache, then ONE K3 write of
+    all L new rows (and scales) at min(pos, S-1)."""
     b = params.blocks
     B = x.shape[0]
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L = k_cache.shape[0]
+    L, S = k_cache.shape[0], k_cache.shape[2]
     eps = cfg.rms_norm_eps
+    quantized = k_scale is not None
+    plan = decode_attn_plan(B, kv_dtype_name(k_cache.dtype))
 
     def mm(l, h, name, gamma, **kw):
         lin = getattr(b, name)
@@ -238,21 +317,59 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
     sin_r = sin_rows[:, 0].contiguous()
     cos_r = cos_rows[:, 0].contiguous()
     pos = pre_len.to(torch.int32).contiguous()
+    writes = CacheWrites.of(q_positions, S) if plan == "einsum" else None
     h = x[:, 0, :]
-    k_rows, v_rows = [], []
+    rows = []                                    # per layer (k, v, k_s, v_s)
     for l in range(L):
         qkv = mm(l, h, "wqkv", b.attn_norm)
-        attn, kr, vr = decode_attention_qkv(
-            l, qkv.view(B, nh + 2 * nkv, D), sin_r, cos_r, k_cache, v_cache,
-            pos, n_heads=nh, n_kv=nkv)
-        h = mm(l, attn.view(B, nh * D), "wo", b.attn_sub_norm, resid=h)
+        ksr = vsr = None
+        if plan == "qkv_v2s":
+            attn, kr, vr = decode_attention_qkv(
+                l, qkv.view(B, nh + 2 * nkv, D), sin_r, cos_r, k_cache, v_cache,
+                pos, n_heads=nh, n_kv=nkv)
+        elif plan == "qkv_quant_v2s":
+            attn, kr, vr, ksr, vsr = decode_attention_qkv_quant(
+                l, qkv.view(B, nh + 2 * nkv, D), sin_r, cos_r, k_cache, v_cache,
+                k_scale, v_scale, pos, n_heads=nh, n_kv=nkv)
+        else:                    # RoPE in torch, one call for the q|k heads
+            qk = apply_rope(qkv[:, None, : (nh + nkv) * D].view(B, 1, nh + nkv, D),
+                            sin_rows, cos_rows)
+            q, kn = qk[:, :, :nh], qk[:, :, nh:]
+            vn = qkv[:, None, (nh + nkv) * D:].view(B, 1, nkv, D)
+            if quantized:
+                kr, ksr = quantize_kv(kn[:, 0], k_cache.dtype)
+                vr, vsr = quantize_kv(vn[:, 0], v_cache.dtype)
+                # the ROUND-TRIPPED rows feed attention (``:885-891``)
+                kn = dequantize_kv(kr, ksr).to(x.dtype)[:, None]
+                vn = dequantize_kv(vr, vsr).to(x.dtype)[:, None]
+            else:
+                kr, vr = kn[:, 0].to(k_cache.dtype), vn[:, 0].to(v_cache.dtype)
+            q1, k1, v1 = q[:, 0].contiguous(), kn[:, 0].contiguous(), vn[:, 0].contiguous()
+            if plan == "batched_v2":
+                attn = decode_attention_batched(l, q1, k1, v1, k_cache, v_cache,
+                                                pos)
+            elif plan == "quant_batched_v2":
+                attn = decode_attention_quant_batched(
+                    l, q1, k1, v1, k_cache, v_cache, k_scale, v_scale, pos)
+            else:
+                attn = _einsum_decode_attention(
+                    q, kr, vr, ksr, vsr, k_cache[l], v_cache[l],
+                    None if k_scale is None else k_scale[l],
+                    None if v_scale is None else v_scale[l], writes,
+                    q_positions, pre_len, x.dtype)
+        h = mm(l, attn.reshape(B, nh * D), "wo", b.attn_sub_norm, resid=h)
         gu = mm(l, h, "w_gateup", b.ffn_norm)
         h = mm(l, gu, "w_down", b.ffn_sub_norm, glu=True, resid=h)
-        k_rows.append(kr.view(B, 1, nkv * D))
-        v_rows.append(vr.view(B, 1, nkv * D))
+        rows.append((kr, vr, ksr, vsr))
+
+    def stack(i, width):
+        return torch.stack([r[i] for r in rows]).view(L, B, 1, width)
+
     # ONE write of all L new rows, after every layer read its PRE-write cache
-    scatter_kv_rows(k_cache, v_cache, torch.stack(k_rows), torch.stack(v_rows),
-                    q_positions[:, 0].to(torch.int32).contiguous())
+    scales = ((k_scale, v_scale, stack(2, nkv), stack(3, nkv)) if quantized
+              else ())
+    scatter_kv_rows(k_cache, v_cache, stack(0, nkv * D), stack(1, nkv * D),
+                    q_positions[:, 0].to(torch.int32).contiguous(), *scales)
     return h[:, None, :]
 
 
@@ -266,7 +383,9 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
                      v_cache: torch.Tensor,
                      pre_len: torch.Tensor,       # [B]
                      sin_rows: torch.Tensor,      # [B, T, D/2]
-                     cos_rows: torch.Tensor) -> torch.Tensor:
+                     cos_rows: torch.Tensor,
+                     k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     b = params.blocks
     B, T, H = x.shape
     M = B * T
@@ -285,15 +404,11 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
     h2 = x.reshape(M, H)
     for l in range(L):
         qkv = mm(l, rms_norm(h2, b.attn_norm[l], eps), "wqkv").reshape(B, T, -1)
-        q = qkv[..., : nh * D].reshape(B, T, nh, D)
-        kn = qkv[..., nh * D: (nh + nkv) * D].reshape(B, T, nkv, D)
-        vn = qkv[..., (nh + nkv) * D:].reshape(B, T, nkv, D)
+        q, kn, vn = _split_qkv(qkv, nh, nkv, D)
         q = apply_rope(q, sin_rows, cos_rows)
         kn = apply_rope(kn, sin_rows, cos_rows)
-        writes.put(k_cache, l, kn)
-        writes.put(v_cache, l, vn)
-        k_read = k_cache[l].view(B, S, nkv, D)
-        v_read = v_cache[l].view(B, S, nkv, D)
+        k_read, v_read = _write_and_read(l, kn, vn, k_cache, v_cache, k_scale,
+                                         v_scale, writes)
         attend = flash_attention if use_flash else attention
         attn = attend(q, k_read, v_read, q_positions, new_len)
         a2 = attn.reshape(M, nh * D)
@@ -308,6 +423,29 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
             act = rms_norm(act, b.ffn_sub_norm[l], eps)
         h2 = mm(l, act, "w_down") + h2
     return h2.reshape(B, T, H)
+
+
+def _write_and_read(l: int, k: torch.Tensor, v: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
+                    writes: CacheWrites):
+    """Write layer ``l``'s new rows k, v [B, T, KV, D] (drop at S) and
+    return the cache to attend over, [B, S, KV, D]: the cache itself, or
+    for a quantized cache the rows' codes and scales written and the whole
+    layer dequantized to f32 (``:1118-1130``, ``:1337-1345``)."""
+    B, S = k_cache.shape[1], k_cache.shape[2]
+    nkv, D = k.shape[-2:]
+    if k_scale is not None:
+        kq, ks = quantize_kv(k, k_cache.dtype)
+        vq, vs = quantize_kv(v, v_cache.dtype)
+        for layer, rows in ((k_cache[l], kq), (v_cache[l], vq),
+                            (k_scale[l], ks), (v_scale[l], vs)):
+            writes.put(layer, rows)
+        return (dequantize_kv(k_cache[l].view(B, S, nkv, D), k_scale[l]),
+                dequantize_kv(v_cache[l].view(B, S, nkv, D), v_scale[l]))
+    writes.put(k_cache[l], k)
+    writes.put(v_cache[l], v)
+    return k_cache[l].view(B, S, nkv, D), v_cache[l].view(B, S, nkv, D)
 
 
 # --------------------------------------------------------------------------
@@ -359,10 +497,7 @@ def block_qkv(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
     lapn = partial(linear_apply_normed, eps=cfg.rms_norm_eps, path=kernel_path,
                    layer=l)
     if bp.wqkv is not None:
-        qkv = lapn(bp.wqkv, x, bp.attn_norm)
-        q = qkv[..., : nh * D].reshape(B, T, nh, D)
-        k = qkv[..., nh * D: (nh + nkv) * D].reshape(B, T, nkv, D)
-        v = qkv[..., (nh + nkv) * D:].reshape(B, T, nkv, D)
+        q, k, v = _split_qkv(lapn(bp.wqkv, x, bp.attn_norm), nh, nkv, D)
     else:
         h = rms_norm(x, bp.attn_norm[l], cfg.rms_norm_eps)
         q = lapn(bp.wq, h, None).reshape(B, T, nh, D)
@@ -387,30 +522,32 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
                   sin_rows: torch.Tensor, cos_rows: torch.Tensor,
                   q_positions: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pre_len: torch.Tensor,
-                  kernel_path: str, writes: CacheWrites) -> torch.Tensor:
-    """Layer ``l`` of the generic path (``:1241-1367``) over the flat bf16
-    cache stack [L, B, S, KV*D], written in place.
+                  kernel_path: str, writes: CacheWrites,
+                  k_scale: torch.Tensor | None = None,
+                  v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Layer ``l`` of the generic path (``:1241-1367``) over the flat cache
+    stack [L, B, S, KV*D] (bf16, or int8 / fp8 with its scale stacks),
+    written in place.
 
-    ``fast_decode`` (T=1, B≤2, path ``pallas``/``w2a8``): K5 attends over
-    the PRE-write cache with the new token folded in, then the rows are
-    written.  Otherwise the rows are written first and plain ``attention``
-    (or ``flash_attention`` once T·S ≥ 2^19) reads the cache.  The
-    ``BITNET_ROPE_FUSED`` branch (ROADMAP.md queue 2 #6) and the quantized
-    cache (queue 1 #8) are not ported."""
+    ``fast_decode`` (T=1, B≤2, a bf16 cache, path ``pallas``/``w2a8``): K5
+    attends over the PRE-write cache with the new token folded in, then the
+    rows are written.  Otherwise the rows are written first (quantized for
+    an int8 / fp8 cache) and plain ``attention`` (or ``flash_attention``
+    once T·S ≥ 2^19) reads the cache, dequantized to f32 if it is
+    quantized.  The ``BITNET_ROPE_FUSED`` branch (ROADMAP.md queue 2 #6) is
+    not ported."""
     B, T, _ = x.shape
-    nkv, D = cfg.num_kv_heads, cfg.head_dim
     S = k_cache.shape[2]
     q, k, v = block_qkv(cfg, bp, x, sin_rows, cos_rows, kernel_path, l)
-    if T == 1 and B <= 2 and kernel_path in ("pallas", "w2a8"):
+    if (T == 1 and B <= 2 and k_scale is None
+            and kernel_path in ("pallas", "w2a8")):
         attn1 = decode_attention(l, q[:, 0].contiguous(), k[:, 0].contiguous(),
                                  v[:, 0].contiguous(), k_cache, v_cache, pre_len)
-        writes.put(k_cache, l, k)
-        writes.put(v_cache, l, v)
+        writes.put(k_cache[l], k)
+        writes.put(v_cache[l], v)
         return block_finish(cfg, bp, x, attn1[:, None], kernel_path, l)
-    writes.put(k_cache, l, k)
-    writes.put(v_cache, l, v)
-    k_read = k_cache[l].view(B, S, nkv, D)
-    v_read = v_cache[l].view(B, S, nkv, D)
+    k_read, v_read = _write_and_read(l, k, v, k_cache, v_cache, k_scale, v_scale,
+                                     writes)
     attend = flash_attention if T > 1 and T * S >= (1 << 19) else attention
     attn = attend(q, k_read, v_read, q_positions, pre_len + T)
     return block_finish(cfg, bp, x, attn, kernel_path, l)
@@ -431,8 +568,14 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             v_cache: torch.Tensor,
             kv_valid_len: torch.Tensor,    # [B] valid length BEFORE this call
             num_real_tokens: torch.Tensor | int | None = None,  # [B] int32
-            kernel_path: str = "xla"):
-    """Returns (final-normed hidden [B, T, H], k_cache, v_cache)."""
+            kernel_path: str = "xla",
+            k_scale: torch.Tensor | None = None,   # [L, B, S, KV] (int8/fp8)
+            v_scale: torch.Tensor | None = None):
+    """Returns (final-normed hidden [B, T, H], k_cache, v_cache); the
+    caches (and a quantized cache's scale stacks) are written in place."""
+    if (kv_dtype_name(k_cache.dtype) != "bf16") != (k_scale is not None):
+        raise ValueError("an int8 / fp8 cache needs its scale stacks, a bf16 "
+                         "cache none")
     x = embed_tokens(params, tokens)
     B, T, _ = x.shape
     if num_real_tokens is None:
@@ -442,23 +585,21 @@ def forward(cfg: ModelConfig, params: BitNetParams,
     # rope rows gathered once for all layers, positions clamped to the table
     rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
     sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
-    if stacked_decode_ok(cfg, params, T, B, k_cache.dtype, kernel_path):
+    scales = (k_scale, v_scale)
+    if stacked_decode_ok(cfg, params, T, B, kernel_path):
         h = _decode_stacked(cfg, params, x, q_positions, k_cache, v_cache,
-                            pre_len, sin_rows, cos_rows)
+                            pre_len, sin_rows, cos_rows, *scales)
     elif stacked_prefill_ok(cfg, params, T, kernel_path):
         h = _prefill_stacked(cfg, params, x, q_positions, k_cache, v_cache,
-                             pre_len, sin_rows, cos_rows)
-    elif k_cache.dtype == torch.bfloat16:
+                             pre_len, sin_rows, cos_rows, *scales)
+    else:
         writes = CacheWrites.of(q_positions, k_cache.shape[2])
         pos = pre_len.to(torch.int32).contiguous()
         h = x
         for l in range(k_cache.shape[0]):
             h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows,
                               q_positions, k_cache, v_cache, pos, kernel_path,
-                              writes)
-    else:
-        raise NotImplementedError(
-            f"no ported path for a {k_cache.dtype} cache (ROADMAP.md queue 1 #8)")
+                              writes, *scales)
     return rms_norm(h, params.final_norm, cfg.rms_norm_eps), k_cache, v_cache
 
 
@@ -471,7 +612,8 @@ def forward_cache(cfg: ModelConfig, params: BitNetParams,
     if num_real_tokens is None:
         num_real_tokens = tokens.shape[1]
     h, _, _ = forward(cfg, params, tokens, q_positions, cache.k, cache.v,
-                      cache.lengths, num_real_tokens, kernel_path)
+                      cache.lengths, num_real_tokens, kernel_path,
+                      cache.k_scale, cache.v_scale)
     cache.lengths += num_real_tokens
     return h, cache
 

@@ -1,10 +1,11 @@
-"""Carry weights across from the JAX package's parameters.
+"""Carry weights and KV caches across from the JAX package.
 
 ``params_from_arrays`` takes ``bitnet_tpu``'s ``BitNetParams`` as a
 nested dict of numpy arrays (dataclass fields → dict keys; a
 ``TernaryLinear`` → ``{"kind", "k", "n", "weight", "packed", "scales"}``;
 absent fields → None) and returns the port's params, so both packages
-compute the same function from the same numbers.  It reads only numpy:
+compute the same function from the same numbers; ``cache_from_arrays``
+does the same for a ``KVCache``.  It reads only numpy:
 the caller turns the JAX arrays into numpy (``np.asarray``), so this
 module imports nothing of JAX.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..engine.cache import KVCache
 from ..ops.linear import TernaryLinear
 from .bitnet import BitNetParams, BlockParams
 
@@ -24,6 +26,9 @@ def _tensor(a, device) -> torch.Tensor | None:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":     # ml_dtypes float8_e4m3fn
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
@@ -55,3 +60,19 @@ def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:
         embed_q=_tensor(tree.get("embed_q"), device),
         embed_q_scale=_tensor(tree.get("embed_q_scale"), device),
         lm_head=_linear(tree.get("lm_head"), device))
+
+
+def cache_from_arrays(k, v, lengths, k_scale=None, v_scale=None,
+                      device="cpu") -> KVCache:
+    """A JAX ``KVCache``'s arrays (as numpy) → the port's flat cache: k / v
+    [L, B, S, KV, D] or flat [L, B, S, KV*D] (bf16, int8 or fp8), lengths
+    [B], and for a quantized cache the f32 scales [L, B, S, KV], which the
+    port keeps in the same layout."""
+    def flat(a):
+        a = np.asarray(a)
+        return a.reshape(*a.shape[:3], -1)
+
+    return KVCache(k=_tensor(flat(k), device), v=_tensor(flat(v), device),
+                   lengths=_tensor(lengths, device).to(torch.int32),
+                   k_scale=_tensor(k_scale, device),
+                   v_scale=_tensor(v_scale, device))

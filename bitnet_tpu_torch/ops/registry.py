@@ -15,7 +15,10 @@ import dataclasses
 from typing import Callable
 
 from .decode_attention import decode_attention
-from .decode_attention_v2 import decode_attention_qkv, scatter_kv_rows
+from .decode_attention_v2 import (decode_attention_batched, decode_attention_qkv,
+                                  decode_attention_qkv_quant,
+                                  decode_attention_quant_batched,
+                                  scatter_kv_rows)
 from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_w2a8,
                              ternary_matmul_w2a8_normed)
 
@@ -40,7 +43,8 @@ REGISTRY: tuple[KernelSpec, ...] = (
                decode_attention_qkv),
     KernelSpec("scatter_kv_rows", "cuda",
                "bitnet_tpu_torch/csrc/decode_attention.cu",
-               "bitnet_tpu/ops/decode_attention_v2.py:1113",
+               "bitnet_tpu/ops/decode_attention_v2.py:1113 (bf16, int8 and "
+               "fp8 rows)",
                scatter_kv_rows),
     KernelSpec("ternary_matmul_w2a8", "cuda",
                "bitnet_tpu_torch/csrc/ternary_matmul.cu",
@@ -54,6 +58,18 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu_torch/csrc/ternary_matmul.cu",
                "bitnet_tpu/ops/ternary_matmul.py:1177 (bf16 qk256 body)",
                ternary_matmul_bf16),
+    KernelSpec("decode_attention_qkv_quant", "cuda",
+               "bitnet_tpu_torch/csrc/decode_attention.cu",
+               "bitnet_tpu/ops/decode_attention_v2.py:1021",
+               decode_attention_qkv_quant),
+    KernelSpec("decode_attention_batched", "cuda",
+               "bitnet_tpu_torch/csrc/decode_attention.cu",
+               "bitnet_tpu/ops/decode_attention_v2.py:735",
+               decode_attention_batched),
+    KernelSpec("decode_attention_quant_batched", "cuda",
+               "bitnet_tpu_torch/csrc/decode_attention.cu",
+               "bitnet_tpu/ops/decode_attention_v2.py:820",
+               decode_attention_quant_batched),
 )
 
 

@@ -1,13 +1,17 @@
 """Where the host time of an eager decode step goes, at the full
-bitnet-b1.58-2B-4T shapes (random weights from seed 0, B=1).
+bitnet-b1.58-2B-4T shapes (random weights from seed 0).
 
 Run on the card from the repository root:
 
     python -m bitnet_tpu_torch.tools.decode_host_profile [--path generic]
+    python -m bitnet_tpu_torch.tools.decode_host_profile --path pool --batch 8 --kv auto
 
 ``--path fused`` (the default) is slice 1's stacked path (S=4096, int8
-head); ``--path generic`` the unfused path as the CLI builds its engine
-(S=2048, auto → w2a8, bf16 tied head).  Prints one JSON line: the host
+head, B=1); ``--path generic`` the unfused path as the CLI builds its
+engine (S=2048, auto → w2a8, bf16 tied head, B=1); ``--path pool`` the
+fused path over a pool of ``--batch`` slots, each holding a 32-token
+prompt, with a ``--kv`` cache (S=1024, one ``decode_batch_step`` a step).
+Prints one JSON line: the host
 enqueue time of a decode step (no sync inside the timed loop), the step
 time with the sync, the device time of the step's kernels from
 ``torch.profiler`` (in all, so the share of the step the card idles, and
@@ -25,6 +29,7 @@ import pstats
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -39,42 +44,62 @@ STEPS, TOP = 30, 12
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("fused", "generic"), default="fused")
+    ap.add_argument("--path", choices=("fused", "generic", "pool"), default="fused")
+    ap.add_argument("--batch", type=int, default=8, help="pool slots (--path pool)")
+    ap.add_argument("--kv", default="bf16", choices=("bf16", "int8", "fp8", "auto"),
+                    help="KV cache dtype (--path pool)")
     args = ap.parse_args(argv)
     require_sm90(0)
     _cuda.build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    ec = (EngineConfig(max_seq_len=4096, logits_dtype="int8",
-                       kernel_path="w2a8", fuse_projections=True)
-          if args.path == "fused" else EngineConfig(max_seq_len=2048))
+    fused = dict(logits_dtype="int8", kernel_path="w2a8", fuse_projections=True)
+    ec = {"fused": EngineConfig(max_seq_len=4096, **fused),
+          "generic": EngineConfig(max_seq_len=2048),
+          "pool": EngineConfig(max_seq_len=1024, max_batch_size=args.batch,
+                               kv_cache_dtype=args.kv, **fused)}[args.path]
     eng = InferenceEngine(BITNET_2B4T, build_synthetic(BITNET_2B4T, 0, "cuda"), ec)
     prompt = list(range(1, 33))
+    B = ec.max_batch_size
+    if args.path == "pool":
+        tokens = torch.full((B,), 5, dtype=torch.int32, device="cuda")
+
+        def reset():
+            eng.prefill_batch([prompt] * B)
+
+        def step(i):
+            eng.decode_batch_step(tokens, np.full((B,), len(prompt) + i, np.int32))
+    else:
+        def reset():
+            eng.prefill(prompt)
+
+        def step(i):
+            eng.decode_step(5, len(prompt) + i)
     eng.generate(prompt, GenerationConfig(max_new_tokens=8, greedy=True))        # warm-up
-    eng.prefill(prompt)
+    reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(STEPS):
-        eng.decode_step(5, len(prompt) + i)
+        step(i)
     enqueue = (time.perf_counter() - t0) / STEPS
     torch.cuda.synchronize()
-    step = (time.perf_counter() - t0) / STEPS
-    eng.prefill(prompt)
+    step_s = (time.perf_counter() - t0) / STEPS
+    reset()
     torch.cuda.synchronize()
     prof = cProfile.Profile()
     prof.enable()
     for i in range(STEPS):
-        eng.decode_step(5, len(prompt) + i)
+        step(i)
     torch.cuda.synchronize()
     prof.disable()
     stats = pstats.Stats(prof).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:TOP]
-    eng.prefill(prompt)
+    reset()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
         for i in range(STEPS):
-            eng.decode_step(5, len(prompt) + i)
+            step(i)
         torch.cuda.synchronize()
     kernels = {}                                  # device kernels, not aten ops
     for e in tp.key_averages():
@@ -84,9 +109,10 @@ def main(argv=None) -> None:
     device_us = sum(kernels.values())
     print(json.dumps({
         "card": smi, "path": args.path, "kernel_path": eng.kernel_path,
-        "enqueue_ms_per_step": enqueue * 1e3, "step_ms": step * 1e3,
+        "batch": B, "kv": eng.kv_dtype,
+        "enqueue_ms_per_step": enqueue * 1e3, "step_ms": step_s * 1e3,
         "device_ms_per_step": device_us / 1e3,
-        "device_idle_share": 1.0 - device_us / 1e3 / (step * 1e3),
+        "device_idle_share": 1.0 - device_us / 1e3 / (step_s * 1e3),
         "device_us_per_step_by_kernel": {
             k: round(v, 1) for k, v in sorted(kernels.items(),
                                               key=lambda kv: -kv[1])[:TOP]},

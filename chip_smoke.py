@@ -5,20 +5,27 @@ Run from the repository root on a machine with one H100:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases probe,build,kernels
+    python3 chip_smoke.py --phases probe,build,kernels,batched
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
   probe    nvidia-smi name / power limit and the sm version
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
   kernels  each kernel against its plain PyTorch version at the shapes of
-           the fused and the generic path: error, median ms (CUDA events),
-           bound, plain and library ms
+           the fused and the generic path, and of pools and int8 / fp8
+           caches: error, median ms (CUDA events), bound, plain and
+           library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
-           versions), fused (slice 1) and unfused on paths w2a8 and pallas:
-           greedy tokens and per-step logits cosine
+           versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
+           pools of 8) and unfused on paths w2a8 and pallas, and with an
+           int8 cache: greedy tokens and per-step logits cosine
   serving  the full bitnet-b1.58-2B-4T shapes (random weights from a seed)
            serve 3 requests on the fused stacked path; launch counts per
            step, determinism, timings
+  batched  the same shapes, fused: generate_batch pools of 8 (bf16, auto →
+           int8, fp8) and 64 (int8) with prompts of 32-500 tokens, and
+           generate at B=1 with a 4096-token auto (int8) cache; launch
+           counts per step, determinism, prefill / decode timings
   generic  the same shapes unfused, as the CLI builds the engine (auto →
            w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
            sampling twice, then one greedy request on kernel_path="pallas"
@@ -45,7 +52,8 @@ REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
-PHASES = ("probe", "build", "kernels", "parity", "serving", "generic", "cli")
+PHASES = ("probe", "build", "kernels", "parity", "serving", "batched",
+          "generic", "cli")
 
 
 def emit(obj) -> None:
@@ -138,13 +146,17 @@ def phase_kernels(torch, dev):
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": []}
+    res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
+           "k8": [], "k9": [], "k3q": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
     check_k4(torch, dev, g, UNFUSED_SHAPES, (512,), "unfused", res)
     check_k6(torch, dev, g, res)
     check_k5(torch, dev, g, res)
+    check_k7(torch, dev, g, res)
+    check_k8_k9(torch, dev, g, res)
+    check_k3_quant(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -417,6 +429,234 @@ def check_k5(torch, dev, g, res):
             del kc, vc
 
 
+H20, KV5, D128 = 20, 5, 128           # 2B-4T attention: 20 / 5 heads of 128
+ATTN_S = (1024, 4096)                 # cache rows of the K7 / K8 / K9 checks
+POOL_B = (3, 8, 18, 64)               # pools of the K8 / K9 checks
+QUANT = (("int8", "int8"), ("fp8", "float8_e4m3fn"))
+
+
+def _codes(torch, g, shape, dtype, dev):
+    """Random cache codes: int8 in [-127, 127], or fp8-e4m3 values of
+    random magnitude (never NaN)."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    return (torch.randn(shape, generator=g, device=dev) * 64).to(dtype)
+
+
+def _quant_stack(torch, g, L, B, S, dtype, dev):
+    """Cache codes [L, B, S, KV*D] for k and v and their f32 scales
+    [L, B, S, KV]."""
+    kc, vc = (_codes(torch, g, (L, B, S, KV5 * D128), dtype, dev) for _ in range(2))
+    ks, vs = ((torch.rand((L, B, S, KV5), generator=g, device=dev) + 0.5) * 0.01
+              for _ in range(2))
+    return kc, vc, ks, vs
+
+
+def _dequant(torch, kc, ks):
+    """[L, B, S, KV*D] codes × [L, B, S, KV] scales → bf16 (the library
+    yardstick's cache)."""
+    L, B, S, _ = kc.shape
+    return (kc.view(L, B, S, KV5, D128).float() * ks[..., None]).to(
+        torch.bfloat16).view(L, B, S, KV5 * D128)
+
+
+def _sdpa(torch, q, kc, vc, pos):
+    """One PyTorch call with the same function: GQA attention of q [B, H, D]
+    over bf16 caches [B, S, KV*D] with rows < pos valid (the port never
+    calls it)."""
+    B, S = kc.shape[:2]
+    mask = (torch.arange(S, device=q.device)[None, :] < pos[:, None].long()
+            ).view(B, 1, 1, S)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.view(B, H20, 1, D128), kc.view(B, S, KV5, D128).transpose(1, 2),
+        vc.view(B, S, KV5, D128).transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+
+def _same(torch, a, b) -> bool:
+    """Bit equality (fp8 compared as bytes)."""
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return bool(torch.equal(a, b))
+
+
+def _attn_bound(pos, B_rows, esz, quant):
+    """Bytes and operations of one decode-attention call over ``pos`` (the
+    valid rows of each slot, summed) — codes (or bf16) of k and v, their
+    scales, q, the new rows and the output; 4·H·D operations a row."""
+    rows = int(sum(pos)) + B_rows
+    nbytes = (2 * rows * KV5 * D128 * esz + (2 * rows * KV5 * 4 if quant else 0)
+              + B_rows * (H20 + 2 * KV5) * D128 * 2 + B_rows * H20 * D128 * 2)
+    return bound(nbytes, 4.0 * H20 * D128 * rows, "bf16")
+
+
+def check_k7(torch, dev, g, res):
+    """K7 (rope-fused decode attention over an int8 / fp8 cache) against
+    its plain version at B in {1, 2}, S in {1024, 4096}, a full cache; the
+    new rows' codes and scales must be equal; timed at B=1."""
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    H, KV, D = H20, KV5, D128
+    for kv, tname in QUANT:
+        dt = getattr(torch, tname)
+        for S in ATTN_S:
+            for B in (1, 2):
+                L = max(2, math.ceil((120 << 20) / (2 * B * S * KV * D)))
+                kc, vc, ks, vs = _quant_stack(torch, g, L, B, S, dt, dev)
+                qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev
+                                  ).to(torch.bfloat16)
+                ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+                sin, cos = torch.sin(ang), torch.cos(ang)
+                ps = [S - 1] if B == 1 else [S - 1, S // 2]
+                pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+                l = 1
+                out = da.decode_attention_qkv_quant(l, qkv, sin, cos, kc, vc, ks,
+                                                    vs, pos, H, KV)
+                pl = da.decode_attention_qkv_quant_plain(
+                    qkv, sin, cos, kc[l], vc[l], ks[l], vs[l], pos, H, KV)
+                err = (out[0].float() - pl[0].float()).abs().max().item()
+                ref = pl[0].float().abs().max().item()
+                # float tolerance: K2's (the split softmax rounds its bf16
+                # weights against other maxima than the chunked plain version)
+                tol = 1e-2 * ref + 2e-3
+                row = {"kv": kv, "S": S, "B": B, "pos": ps, "max_abs_err": err,
+                       "ref_max": ref, "tol": tol,
+                       "rows_exact": all(_same(torch, a, b)
+                                         for a, b in zip(out[1:], pl[1:]))}
+                row["ok"] = row["rows_exact"] and err <= tol
+                if B == 1:
+                    row["ms"] = time_ms(torch, lambda i: da.decode_attention_qkv_quant(
+                        i % L, qkv, sin, cos, kc, vc, ks, vs, pos, H, KV), L)
+                    row["plain_ms"] = time_ms(torch, lambda i: da.decode_attention_qkv_quant_plain(
+                        qkv, sin, cos, kc[i % L], vc[i % L], ks[i % L], vs[i % L], pos,
+                        H, KV), 4)
+                    kb, vb = _dequant(torch, kc, ks), _dequant(torch, vc, vs)
+                    q = pl[0]
+                    row["library_ms"] = time_ms(torch, lambda i: _sdpa(
+                        torch, q, kb[i % L], vb[i % L], pos), L)
+                    del kb, vb
+                    row["bound_ms"], row["bound_by"] = _attn_bound(ps, B, 1, True)
+                res["k7"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K7 mismatch: {row}")
+                del kc, vc, ks, vs
+
+
+def check_k8_k9(torch, dev, g, res):
+    """K8 (bf16) and K9 (int8, fp8) pool decode attention against their
+    plain versions at B in {3, 8, 18, 64}, S in {1024, 4096}: once with
+    mixed lengths and an idle slot (pos 0), once with a full cache (timed)."""
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    H, KV, D = H20, KV5, D128
+    for kv in ("bf16", "int8", "fp8"):
+        quant = kv != "bf16"
+        dt = getattr(torch, dict(QUANT).get(kv, "bfloat16"))
+        key = "k9" if quant else "k8"
+        for S in ATTN_S:
+            for B in POOL_B:
+                esz = 1 if quant else 2
+                L = max(2, math.ceil((120 << 20) / (2 * B * S * KV * D * esz)))
+                if quant:
+                    kc, vc, ks, vs = _quant_stack(torch, g, L, B, S, dt, dev)
+                else:
+                    kc, vc = (torch.randn((L, B, S, KV * D), generator=g, device=dev
+                                          ).to(torch.bfloat16) for _ in range(2))
+                q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+                kn, vn = (torch.randn((B, KV, D), generator=g, device=dev)
+                          for _ in range(2))
+                if quant:       # the new rows arrive round-tripped, in bf16
+                    kn, vn = (da.dequantize_kv(*da.quantize_kv(x, dt)) for x in (kn, vn))
+                kn, vn = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+                mixed = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                                      dtype=torch.int32)
+                mixed[B // 2] = 0
+                full = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+                l = 1
+                if quant:
+                    def run(i, pos):
+                        return da.decode_attention_quant_batched(
+                            i, q, kn, vn, kc, vc, ks, vs, pos)
+
+                    def plain(i, pos):
+                        return da.decode_attention_quant_batched_plain(
+                            q, kn, vn, kc[i], vc[i], ks[i], vs[i], pos)
+                else:
+                    def run(i, pos):
+                        return da.decode_attention_batched(i, q, kn, vn, kc, vc, pos)
+
+                    def plain(i, pos):
+                        return da.decode_attention_batched_plain(
+                            q, kn, vn, kc[i], vc[i], pos)
+                for name, pos in (("mixed", mixed), ("full", full)):
+                    out, pl = run(l, pos), plain(l, pos)
+                    err = (out.float() - pl.float()).abs().max().item()
+                    ref = pl.float().abs().max().item()
+                    # float tolerance: as K5's (bf16 softmax weights rounded
+                    # against split maxima, the plain version against the TPU
+                    # kernel's chunk maxima)
+                    tol = 1e-2 * ref + 2e-3
+                    row = {"kv": kv, "S": S, "B": B, "pos": name,
+                           "max_abs_err": err, "ref_max": ref, "tol": tol,
+                           "ok": err <= tol}
+                    # an idle slot's output is the new token's v
+                    if name == "mixed":
+                        idle = out[B // 2].float().view(KV, H // KV, D)
+                        row["idle_is_v"] = bool(torch.equal(
+                            idle, vn[B // 2].float()[:, None, :].expand_as(idle)))
+                        row["ok"] = row["ok"] and row["idle_is_v"]
+                    if name == "full":
+                        row["ms"] = time_ms(torch, lambda i: run(i % L, pos), L)
+                        row["plain_ms"] = time_ms(torch, lambda i: plain(i % L, pos), 2)
+                        if quant:
+                            kb, vb = _dequant(torch, kc[:2], ks[:2]), _dequant(torch, vc[:2], vs[:2])
+                        else:
+                            kb, vb = kc, vc
+                        nl = kb.shape[0]
+                        row["library_ms"] = time_ms(torch, lambda i: _sdpa(
+                            torch, q, kb[i % nl], vb[i % nl], pos), nl)
+                        del kb, vb
+                        row["bound_ms"], row["bound_by"] = _attn_bound(
+                            pos.tolist(), B, esz, quant)
+                    res[key].append(row)
+                    if not row["ok"]:
+                        raise AssertionError(f"{key.upper()} mismatch: {row}")
+                del kc, vc
+                if quant:
+                    del ks, vs
+
+
+def check_k3_quant(torch, dev, g, res):
+    """K3 on int8 / fp8 rows with their scales, at a B=8 pool of the 2B-4T
+    shapes (L=30, S=1024), pos >= S included: bit for bit."""
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    L, B, S = 30, 8, 1024
+    for kv, tname in QUANT:
+        dt = getattr(torch, tname)
+        kc, vc, ks, vs = _quant_stack(torch, g, L, B, S, dt, dev)
+        kr, vr, ksr, vsr = _quant_stack(torch, g, L, B, 1, dt, dev)
+        pos = torch.tensor([5, S - 1, S, S + 7, 0, 100, 200, 1000],
+                           dtype=torch.int32, device=dev)
+        ref = [t.clone() for t in (kc, vc, ks, vs)]
+        da.scatter_kv_rows(kc, vc, kr, vr, pos, ks, vs, ksr, vsr)
+        da.scatter_kv_rows_plain(*ref[:2], kr, vr, pos, *ref[2:], ksr, vsr)
+        exact = all(_same(torch, a, b) for a, b in zip((kc, vc, ks, vs), ref))
+        row = {"kv": kv, "B": B, "tol": 0.0, "exact": exact, "max_abs_err": 0.0 if exact
+               else float("inf")}
+        row["ms"] = time_ms(torch, lambda i: da.scatter_kv_rows(
+            kc, vc, kr, vr, pos, ks, vs, ksr, vsr))
+        row["plain_ms"] = time_ms(torch, lambda i: da.scatter_kv_rows_plain(
+            kc, vc, kr, vr, pos, ks, vs, ksr, vsr))
+        row["bound_ms"], row["bound_by"] = bound(2 * L * B * (KV5 * D128 + KV5 * 4) * 2,
+                                                 0, "bf16")
+        row["ok"] = exact
+        res["k3q"].append(row)
+        if not row["ok"]:
+            raise AssertionError(f"K3 (quantized) mismatch: {row}")
+        del kc, vc, ks, vs, ref
+
+
 # One summary entry per TPU kernel site: (entry name, kernel id, the site
 # it replaces, the serving phase whose launches it reports, the kernels-phase
 # rows it sums).  A kernel that serves two sites has an entry for each, timed
@@ -441,6 +681,13 @@ SITES = (
      "generic", "k5", lambda r: "ms" in r and r["S"] == 4096),
     ("ternary_matmul_bf16", "ternary_matmul_bf16", f"{TM}:1177 (bf16 qk256 body)",
      "generic", "k6", lambda r: "ms" in r and r["M"] == 1),
+    ("decode_attention_qkv_quant", "decode_attention_qkv_quant", f"{DA}_v2.py:1021",
+     "batched", "k7", lambda r: "ms" in r and r["S"] == 4096 and r["kv"] == "int8"),
+    ("decode_attention_batched", "decode_attention_batched", f"{DA}_v2.py:735",
+     "batched", "k8", lambda r: "ms" in r and r["S"] == 1024 and r["B"] == 8),
+    ("decode_attention_quant_batched", "decode_attention_quant_batched",
+     f"{DA}_v2.py:820", "batched", "k9",
+     lambda r: "ms" in r and r["S"] == 1024 and r["B"] == 8 and r["kv"] == "int8"),
 )
 
 
@@ -502,6 +749,33 @@ def _teacher_forced(torch, eg, ecpu, prompt, steps=8):
             "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
 
 
+def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=6):
+    """``_teacher_forced`` for a pool, through ``prefill_batch`` and
+    ``decode_batch_step``: every slot holds a prompt and is fed the card's
+    greedy token; cosines and ties over all slots and steps."""
+    import numpy as np
+
+    from bitnet_tpu_torch.engine.sampling import argmax
+
+    lg_g, lg_c = eg.prefill_batch(prompts), ecpu.prefill_batch(prompts)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    cos, tie_ok, agree, n = [], [], 0, 0
+    for _ in range(steps):
+        a, b = lg_g.float().cpu(), lg_c.float()
+        cos += torch.nn.functional.cosine_similarity(a, b, dim=1).tolist()
+        tg, tc = argmax(lg_g).cpu(), argmax(lg_c)
+        top2 = torch.topk(b, 2, dim=1).values
+        diff = (a - b).abs().amax(1)
+        tie_ok += ((tg == tc) | (top2[:, 0] - top2[:, 1] <= diff)).tolist()
+        agree += int((tg == tc).sum())
+        n += len(prompts)
+        lg_g = eg.decode_batch_step(tg.to(eg.device), pos)
+        lg_c = ecpu.decode_batch_step(tg, pos)
+        pos = pos + 1
+    return {"slots": len(prompts), "min_cosine": min(cos), "ties_only": all(tie_ok),
+            "tokens_agree": agree, "tokens": n}
+
+
 def phase_parity(torch, dev):
     """The same 2-layer full-width model through the CUDA kernels and
     through the plain versions on the CPU, teacher-forced with the CUDA
@@ -528,11 +802,32 @@ def phase_parity(torch, dev):
              for dt in ("f32", "bf16")]
     cases += [(f"unfused_{kp}", EngineConfig(max_seq_len=256, kernel_path=kp))
               for kp in ("w2a8", "pallas")]
+    # slice 3: quantized caches and pools (fused, bf16 activations, int8
+    # head), and the CLI's engine with an int8 cache
+    fused = dict(max_seq_len=256, logits_dtype="int8", kernel_path="w2a8",
+                 fuse_projections=True)
+    cases += [("fused_int8_B1", EngineConfig(kv_cache_dtype="int8", **fused)),
+              ("fused_fp8_B2", EngineConfig(kv_cache_dtype="fp8", max_batch_size=2,
+                                            **fused)),
+              ("fused_bf16_B8", EngineConfig(kv_cache_dtype="bf16", max_batch_size=8,
+                                             **fused)),
+              ("fused_auto_B8", EngineConfig(kv_cache_dtype="auto", max_batch_size=8,
+                                             **fused)),
+              ("unfused_int8", EngineConfig(max_seq_len=256, kv_cache_dtype="int8"))]
+    gen = torch.Generator().manual_seed(5)
     out = {}
     for name, ec in cases:
         eg = InferenceEngine(cfg, params, ec, device=dev)
         ecpu = InferenceEngine(cfg, params, ec, device="cpu")
-        r = _teacher_forced(torch, eg, ecpu, prompt)
+        B = ec.max_batch_size
+        if B > 1:
+            pool = [[int(t) for t in torch.randint(0, cfg.vocab_size,
+                                                   (int(n),), generator=gen)]
+                    for n in torch.randint(8, 41, (B,), generator=gen)]
+            r = _teacher_forced_batch(torch, eg, ecpu, pool)
+            r["plan"] = eg.decode_plan()
+        else:
+            r = _teacher_forced(torch, eg, ecpu, prompt)
         r["ok"] = (r["min_cosine"] >= 0.99 and r["ties_only"]
                    and (name != "fused_f32" or r["tokens_cuda"] == r["tokens_cpu"]))
         out[name] = r
@@ -627,6 +922,96 @@ def phase_serving(torch, dev):
             "tokens": first, "decode_bytes_S1024": step_bytes(1024),
             "decode_bound_ms_S1024": step_bytes(1024) / HBM_BPS * 1e3,
             "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
+
+
+def phase_batched(torch, dev):
+    """Slice 3 at the full 2B-4T shapes (seed 0), fused, int8 head, w2a8:
+    ``generate_batch`` pools of 8 prompts of 32-500 random tokens at
+    max_seq_len 1024 — bf16 KV (``bench.py``'s B=8 row; twice, same tokens
+    required), ``auto`` (→ int8) and fp8 — and of 64 prompts with int8 KV;
+    then ``generate`` at B=1 with a 4096-row ``auto`` (→ int8) cache.  32 new
+    tokens a request.  Launch counts per run: K1 4L, the plan's attention
+    kernel L (K7 at B <= 2, K8 / K9 on pools) and K3 once a decode step, K4
+    4L a prefill, every other kernel 0."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+    from bitnet_tpu_torch.ops import registry
+
+    cfg = BITNET_2B4T
+    L, V = cfg.num_layers, cfg.vocab_size
+    params = build_synthetic(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(21)
+
+    def pool(n):
+        return [[int(t) for t in torch.randint(0, V, (int(k),), generator=gen)]
+                for k in torch.randint(32, 501, (n,), generator=gen)]
+
+    attn_kernel = {"qkv_v2s": "decode_attention_qkv",
+                   "qkv_quant_v2s": "decode_attention_qkv_quant",
+                   "batched_v2": "decode_attention_batched",
+                   "quant_batched_v2": "decode_attention_quant_batched"}
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    pool8, pool64 = pool(8), pool(64)
+    cases = (("a_B8_bf16", 8, 1024, "bf16", pool8, 2),
+             ("b_B8_auto", 8, 1024, "auto", pool8, 1),
+             ("c_B64_int8", 64, 1024, "int8", pool64, 1),
+             ("d_B1_S4096_auto", 1, 4096, "auto", _prompts(torch, cfg), 1),
+             ("e_B8_fp8", 8, 1024, "fp8", pool8, 1))
+    runs, totals = [], {}
+    for name, B, S, kv, prompts, reps in cases:
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            max_seq_len=S, max_batch_size=B, kv_cache_dtype=kv, logits_dtype="int8",
+            kernel_path="w2a8", fuse_projections=True), device=dev)
+        plan = eng.decode_plan()
+        if not eng.stacked_decode():
+            raise AssertionError(f"{name}: not on the stacked decode loop")
+        if B == 1:
+            eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+        else:
+            eng.generate_batch([p[:8] for p in prompts[:2]],
+                               GenerationConfig(max_new_tokens=2, greedy=True))
+        first = None
+        for rep in range(reps):
+            # one pool request, or (B=1) one request a prompt
+            for req in ([prompts] if B > 1 else [[p] for p in prompts]):
+                registry.reset_launch_counts()
+                if B > 1:
+                    outs = [r.token_ids for r in eng.generate_batch(req, gc)]
+                else:
+                    outs = [eng.generate(req[0], gc).token_ids]
+                n = registry.launch_counts()
+                m = eng.last_metrics
+                steps = m.decode_steps
+                expect = {k.kernel_id: 0 for k in registry.REGISTRY}
+                expect.update({"ternary_matmul_w2a8_normed": 4 * L * steps,
+                               attn_kernel[plan]: L * steps,
+                               "scatter_kv_rows": steps,
+                               "ternary_matmul_w2a8": 4 * L})
+                if n != expect:
+                    raise AssertionError(f"{name}: launch counts {n} != {expect}")
+                if any(len(t) != 32 or not all(0 <= x < V for x in t) for t in outs):
+                    raise AssertionError(f"{name}: a slot did not give 32 tokens")
+                generated = sum(len(t) for t in outs)
+                runs.append({
+                    "case": name, "rep": rep, "B": B, "S": S,
+                    "kv": eng.kv_dtype, "plan": plan, "prompts": len(req),
+                    "prompt_tokens": sum(len(p) for p in req),
+                    "generated": generated, "decode_steps": steps,
+                    "prefill_ms": m.prefill_s * 1e3,
+                    "decode_ms_per_step": m.decode_s * 1e3 / max(steps, 1),
+                    "decode_tok_s": generated / m.decode_s if m.decode_s else 0.0,
+                    "aggregate_tok_s": generated / (m.prefill_s + m.decode_s),
+                    "launches": n})
+                _add(totals, n)
+                if B > 1:
+                    if first is None:
+                        first = outs
+                    elif outs != first:
+                        raise AssertionError(f"{name}: two runs gave different tokens")
+        del eng
+        torch.cuda.empty_cache()
+    return {"runs": runs, "launch_totals": totals, "ok": True}
 
 
 def phase_generic(torch, dev):
@@ -795,6 +1180,11 @@ def main(argv=None) -> int:
             launches["serving"] = s["launch_totals"]
             emit({"phase": "serving", "nvidia_smi": smi,
                   **{k: v for k, v in s.items() if k != "tokens"}})
+        if "batched" in phases:
+            report["batched"] = phase_batched(torch, dev)
+            s = report["batched"]
+            launches["batched"] = s["launch_totals"]
+            emit({"phase": "batched", "nvidia_smi": smi, **s})
         if "generic" in phases:
             report["generic"] = phase_generic(torch, dev)
             s = report["generic"]

@@ -198,3 +198,122 @@ def test_generic_engine_cuda_matches_cpu(dev, kp):
         top2 = torch.topk(b, 2).values
         assert tok == int(b.argmax()) or top2[0] - top2[1] <= (a - b).abs().max()
         lg, lc = eg.decode_step(tok, pos), ecpu.decode_step(tok, pos)
+
+
+def _codes(g, shape, dtype, dev):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    return (torch.randn(shape, generator=g, device=dev) * 64).to(dtype)
+
+
+def _same(a, b):
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+QDT = [torch.int8, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("dtype", QDT)
+@pytest.mark.parametrize("pos", [[0], [200], [255, 17]])
+def test_k7_matches_plain(dev, dtype, pos):
+    """K7's new rows (codes and scales) are bit-exact; its output is held
+    as K2's."""
+    g = torch.Generator(device=dev).manual_seed(11 + sum(pos))
+    B, H, KV, D, S = len(pos), 20, 5, 128, 256
+    qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev).bfloat16()
+    ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+    kc, vc = (_codes(g, (2, B, S, KV * D), dtype, dev) for _ in range(2))
+    ks, vs = (torch.rand((2, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+              for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = da.decode_attention_qkv_quant(1, qkv, ang.sin(), ang.cos(), kc, vc, ks, vs,
+                                        p, H, KV)
+    pl = da.decode_attention_qkv_quant_plain(qkv, ang.sin(), ang.cos(), kc[1], vc[1],
+                                             ks[1], vs[1], p, H, KV)
+    assert all(_same(a, b) for a, b in zip(out[1:], pl[1:]))
+    ref = pl[0].float().abs().max()
+    assert (out[0].float() - pl[0].float()).abs().max() <= 1e-2 * ref + 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16] + QDT)
+@pytest.mark.parametrize("B", [3, 18])
+def test_k8_k9_match_plain(dev, dtype, B):
+    """K8 (bf16) / K9 (int8, fp8) over a pool with mixed lengths and an
+    idle slot, held as K5; the idle slot's output is the new token's v."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    H, KV, D, S = 20, 5, 128, 256
+    quant = dtype != torch.bfloat16
+    kc, vc = ((_codes(g, (2, B, S, KV * D), dtype, dev) if quant else
+               torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16())
+              for _ in range(2))
+    ks, vs = (torch.rand((2, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+              for _ in range(2))
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    kn, vn = (torch.randn((B, KV, D), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    p = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    p[1] = 0
+    if quant:
+        before = da.decode_attention_quant_batched.launches
+        a = da.decode_attention_quant_batched(1, q, kn, vn, kc, vc, ks, vs, p)
+        pa = da.decode_attention_quant_batched_plain(q, kn, vn, kc[1], vc[1], ks[1],
+                                                     vs[1], p)
+        assert da.decode_attention_quant_batched.launches == before + 1
+    else:
+        a = da.decode_attention_batched(1, q, kn, vn, kc, vc, p)
+        pa = da.decode_attention_batched_plain(q, kn, vn, kc[1], vc[1], p)
+    ref = pa.float().abs().max()
+    assert (a.float() - pa.float()).abs().max() <= 1e-2 * ref + 2e-3
+    assert torch.equal(a[1].view(KV, H // KV, D), vn[1][:, None].expand(KV, H // KV, D))
+
+
+@pytest.mark.parametrize("dtype", QDT)
+def test_k3_quantized_rows_match_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, B, S, KV, D = 3, 4, 64, 5, 128
+    kc, vc, kr, vr = (_codes(g, (L, B, n, KV * D), dtype, dev)
+                      for n in (S, S, 1, 1))
+    ks, vs, ksr, vsr = (torch.rand((L, B, n, KV), generator=g, device=dev)
+                        for n in (S, S, 1, 1))
+    pos = torch.tensor([5, S - 1, S + 3, 0], dtype=torch.int32, device=dev)
+    ref = [t.clone() for t in (kc, vc, ks, vs)]
+    da.scatter_kv_rows(kc, vc, kr, vr, pos, ks, vs, ksr, vsr)
+    da.scatter_kv_rows_plain(*ref[:2], kr, vr, pos, *ref[2:], ksr, vsr)
+    assert all(_same(a, b) for a, b in zip((kc, vc, ks, vs), ref))
+
+
+@pytest.mark.parametrize("B,kv", [(1, "int8"), (2, "fp8"), (8, "bf16"), (8, "auto"),
+                                  (17, "int8")])
+def test_pool_engine_cuda_matches_cpu(dev, B, kv):
+    """The fused path over pools and quantized caches on the card against
+    the plain versions on the CPU, teacher-forced with the card's tokens;
+    gates as in test_engine_two_slots_cuda_matches_cpu."""
+    import numpy as np
+
+    from bitnet_tpu_torch.config import EngineConfig, ModelConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import build_synthetic
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=768,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                      max_seq_len=256)
+    params = build_synthetic(cfg, seed=3, device="cpu")
+    ec = EngineConfig(max_seq_len=256, max_batch_size=B, kv_cache_dtype=kv,
+                      compute_dtype="f32", logits_dtype="int8", kernel_path="w2a8",
+                      fuse_projections=True)
+    eg = InferenceEngine(cfg, params, ec, device=dev)
+    ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    prompts = [list(range(7 + i, 30 + 3 * i)) for i in range(B)]
+    lg, lc = eg.prefill_batch(prompts), ecpu.prefill_batch(prompts)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    for _ in range(5):
+        a, b = lg.float().cpu(), lc.float()
+        assert (torch.nn.functional.cosine_similarity(a, b, dim=1) >= 0.99).all()
+        tok = a.argmax(1)
+        top2 = torch.topk(b, 2, dim=1).values
+        assert ((tok == b.argmax(1))
+                | (top2[:, 0] - top2[:, 1] <= (a - b).abs().amax(1))).all()
+        lg, lc = eg.decode_batch_step(tok.to(dev), pos), ecpu.decode_batch_step(tok, pos)
+        pos = pos + 1

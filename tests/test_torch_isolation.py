@@ -58,16 +58,31 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"decode_steps_per_dispatch": 8}, "#5"), ({"kv_cache_dtype": "f32"}, "#8"),
-    ({"max_batch_size": 3}, "#9"), ({"sliding_window": 64}, "#7"),
-    ({"weight_quant": "tl2"}, "#10"), ({"kv_cache_dtype": "int8"}, "#8"),
-    ({"kv_cache_dtype": "fp8"}, "#8"), ({"max_batch_size": 8}, "#9"),
-    ({"kv_cache_dtype": "auto", "max_seq_len": 4096}, "#8")])
+    ({"decode_steps_per_dispatch": 8}, "#5"), ({"kv_cache_dtype": "f32"}, "#18"),
+    ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),
+    ({"weight_quant": "tl2"}, "#10"), ({"weight_quant": "tl1"}, "#10"),
+    ({"kv_cache_dtype": "f32", "max_batch_size": 8}, "#18"),
+    ({"sliding_window": 16, "max_batch_size": 8}, "#7"),
+    ({"kv_cache_dtype": "f32", "max_seq_len": 4096}, "#18")])
 def test_unported_engine_configs_name_their_roadmap_item(kw, item):
     from bitnet_tpu_torch.config import EngineConfig
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         EngineConfig(**kw)
+
+
+@pytest.mark.parametrize("kw,kv", [
+    ({"kv_cache_dtype": "int8"}, "int8"), ({"kv_cache_dtype": "fp8"}, "fp8"),
+    ({"max_batch_size": 3}, "bf16"), ({"max_batch_size": 64}, "bf16"),
+    ({"kv_cache_dtype": "auto", "max_seq_len": 4096}, "int8"),
+    ({"kv_cache_dtype": "auto", "max_batch_size": 8}, "int8"),
+    ({"kv_cache_dtype": "auto", "max_batch_size": 2}, "bf16")])
+def test_pools_and_quantized_caches_are_ported(kw, kv):
+    """Slice 3 runs pools of B > 2 and int8 / fp8 caches; ``auto`` keeps
+    the reference's rule (int8 for pools or contexts of 4096)."""
+    from bitnet_tpu_torch.config import EngineConfig
+
+    assert EngineConfig(**kw).resolve_kv_cache_dtype() == kv
 
 
 def test_non_greedy_sampling_is_not_ported():
