@@ -67,8 +67,8 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compute-dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--weight-quant", default="none",
                    choices=["none", "tl1", "tl2"],
-                   help="TL1/TL2 re-quantization: not ported (ROADMAP.md "
-                        "queue 1 #10)")
+                   help="re-quantize every linear to TL1 (64-row blocks) or "
+                        "TL2 (128-row blocks) at load")
     p.add_argument("--decode-steps", type=int, default=0,
                    help="decode tokens per host round-trip: 0 or 1 (K > 1 "
                         "needs a CUDA graph, ROADMAP.md queue 1 #5)")
@@ -101,8 +101,6 @@ def _refuse_unported(args) -> None:
                          "(--grammar-file/--json-schema)", "#15")
     if args.receipt:
         raise not_ported("honest-compute receipts (--receipt)", "#11")
-    if args.weight_quant != "none":
-        raise not_ported(f"--weight-quant {args.weight_quant}", "#10")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
     if args.kv_cache_dtype == "f32":

@@ -187,7 +187,7 @@ class EngineConfig:
     compute_dtype: str = "bf16"      # 'bf16' | 'f32'
     logits_dtype: str = "auto"       # 'auto' | 'bf16' | 'int8' tied head
     fuse_projections: bool = False   # True = the fused stacked path
-    weight_quant: str = "none"       # 'tl1' / 'tl2' (#10)
+    weight_quant: str = "none"       # 'tl1' / 'tl2': re-quantize to TL at init
     # decode tokens per host round-trip: 0 (auto) and 1 both mean one
     # step a dispatch on the card; K > 1 needs a CUDA graph (#5)
     decode_steps_per_dispatch: int = 0
@@ -229,8 +229,6 @@ class EngineConfig:
                 "(a CUDA graph of the step)", "#5")
         if self.sliding_window > 0:
             raise not_ported("the windowed ring cache", "#7")
-        if self.weight_quant != "none":
-            raise not_ported(f"weight_quant={self.weight_quant!r}", "#10")
         if self.resolve_kv_cache_dtype() == "f32":
             raise not_ported("an f32 KV cache", "#18")
 

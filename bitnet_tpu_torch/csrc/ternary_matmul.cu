@@ -53,46 +53,11 @@
 // intrinsics so it is never contracted into an FMA and rounds exactly as
 // the plain PyTorch version does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ternary_common.cuh"
 
 namespace {
 
-constexpr int KT = 256;
-
-__device__ __forceinline__ float load_f32(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f32(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ int biased_plane(int w, int p) {
-  int t = (w >> (2 * p)) & 0x03030303;
-  return t + ((t >> 1) & 0x01010101);
-}
-
-template <typename V>
-__device__ __forceinline__ V block_reduce(V v, V* red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    V u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? (u > v ? u : v) : v + u;
-  }
-  __syncthreads();                       // red may still be read by a prior call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  v = lane < nw ? red[lane] : (is_max ? red[0] : V(0));
-  for (int o = 16; o > 0; o >>= 1) {
-    V u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? (u > v ? u : v) : v + u;
-  }
-  return v;
-}
+using namespace bn;
 
 // ---------------------------------------------------------------------------
 // K1 preamble: one block per row m.  x is [M, K] (or [M, 2K] when glu).
@@ -220,13 +185,8 @@ w2a8_gemv(const int8_t* __restrict__ xq, int M, int Kp,
 // writes xq / sx / sumq out, so a test can hold them against the plain
 // version.
 // ---------------------------------------------------------------------------
-constexpr int FUSED_MAX_M = 2;
-constexpr int FUSED_MAX_K = 8192;
-constexpr int FUSED_THREADS = 512;                   // 16 warps
-constexpr int FUSED_WARPS = FUSED_THREADS / 32;
 constexpr int FUSED_PF = 16;                         // word rows in flight a thread
 constexpr int FUSED_STAGE = FUSED_WARPS * FUSED_PF;  // word rows a stage
-constexpr int FUSED_EPT = FUSED_MAX_K / FUSED_THREADS;
 
 template <int MB, typename T>
 __global__ void __launch_bounds__(FUSED_THREADS)
@@ -253,61 +213,8 @@ w2a8_gemv_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
   }
   for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) red[i / 32][i % 32] = 0;
 
-  for (int mm = 0; mm < M; ++mm) {                  // the preamble, per row
-    const T* xr = x + (size_t)mm * x_stride;
-    float v[FUSED_EPT];
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) {
-      const int k = threadIdx.x + FUSED_THREADS * i;
-      float t = 0.f;
-      if (k < Kp) {
-        t = load_f32(xr, k);
-        if (glu) {
-          const float sig = 1.f / (1.f + expf(-t));
-          t = __fmul_rn(__fmul_rn(t, sig), load_f32(xr, (size_t)Kp + k));
-        }
-      }
-      v[i] = t;
-      ss += t * t;
-    }
-    if (gamma != nullptr) {
-      const float var = block_reduce(ss, redf, false) / (float)Kp;
-      const float r = 1.f / sqrtf(var + eps);
-#pragma unroll
-      for (int i = 0; i < FUSED_EPT; ++i) {
-        const int k = threadIdx.x + FUSED_THREADS * i;
-        if (k < Kp) v[i] = __fmul_rn(__fmul_rn(v[i], r), gamma[k]);
-      }
-    }
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) amax = fmaxf(amax, fabsf(v[i]));
-    amax = block_reduce(amax, redf, true);
-    const float sx = fmaxf(amax, 1e-8f) / 127.f;
-    int8_t* xrow = reinterpret_cast<int8_t*>(&xs[mm][0]);
-    int sq = 0;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) {
-      const int k = threadIdx.x + FUSED_THREADS * i;
-      if (k < Kp) {
-        const float q = fminf(fmaxf(rintf(v[i] / sx), -127.f), 127.f);
-        xrow[k] = (int8_t)q;
-        sq += (int)q;
-        if (blockIdx.x == 0) xq_out[(size_t)mm * Kp + k] = (int8_t)q;
-      }
-    }
-    sq = block_reduce(sq, redi, false);
-    if (threadIdx.x == 0) {
-      sx_s[mm] = sx;
-      sumq_s[mm] = sq;
-      if (blockIdx.x == 0) {
-        sx_out[mm] = sx;
-        sumq_out[mm] = sq;
-      }
-    }
-  }
-  __syncthreads();
+  fused_quantize_rows(x, x_stride, M, Kp, glu, gamma, eps, xs, sx_s, sumq_s,
+                      nullptr, redf, redi, xq_out, sx_out, sumq_out);
 
   int acc[MB];
 #pragma unroll
@@ -364,12 +271,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, i
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
 }
 
 template <typename T>
@@ -470,15 +371,6 @@ w2a8_gemm(const int8_t* __restrict__ xq, int M, int Kp,
 constexpr int XB_LD = KT + 8;         // bf16; conflict-free A fragment reads
 constexpr size_t BF16_SMEM =
     2 * (GB_M * XB_LD * sizeof(__nv_bfloat16) + (KT / 16) * WS_LD * sizeof(int));
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // bf16 bits of the biased value of code c: 0 -> 0.0, 1 -> 1.0, 2 -> 3.0, 3 -> 4.0
 __device__ __forceinline__ unsigned biased_bf16(int c) {

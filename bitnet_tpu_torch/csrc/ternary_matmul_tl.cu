@@ -1,0 +1,438 @@
+// Ternary matmuls with per-32-row block scales (bitnet32 and TL1/TL2 weights)
+// for Hopper (sm_90a).
+//
+// Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
+//   K10 bn_blockscale_bf16  <- the _bitnet32_kernel body (:138) of
+//                              _ternary_matmul_2d (pallas_call :1177) and of
+//                              ternary_matmul_stacked_tl (:502, pallas_call :555)
+//   K11 bn_tl_w2a8_normed   <- ternary_matmul_stacked_tl_w2a8 (:890,
+//                              pallas_call :960), body _tl_w2a8_fused_kernel (:753)
+//   K12 bn_tl_bf16_normed   <- ternary_matmul_stacked_tl_fused (:669,
+//                              pallas_call :733), body _bitnet32_fused_kernel (:573)
+//
+// Weights: K1's int32 words [Kp/16, Np] (ternary_common.cuh) plus f32 block
+// scales s [Kp/32, Np] of the same layer, zero-padded.  LUT_BIAS picks the
+// biased value of a code c: c + (c >> 1) in {0,1,3,4} (bitnet32, the LUT
+// {-2,-1,1,2} plus 2) or c in {0..3} (TL levels {-2,-1,0,1} plus 2).
+//
+// What bounds them on the card, and what the design does about it:
+//  - K10 (any M: generic decode M = 1 ... prefill M = 512) and K12 (pools,
+//    M = 3..64) share one GEMM: K6's 64x64 block tile of bf16
+//    mma.sync.m16n8k16 with a two-stage cp.async pipeline, the block scales
+//    of the K tile (8 rows x 64 columns) streamed beside the words.  Each
+//    B fragment register holds two K values of one 32-row block, so a
+//    thread builds, per (column, block), a 4-entry table of the bf16 weight
+//    of each code, bf16(v(c) * s) (K10: biased v, as :156) or
+//    bf16((v(c) - 2) * s) (K12: unbiased, as :633), and expands the 2-bit
+//    planes through it.  Decode is bound by the bytes of words and scales
+//    (the scales are half the words' bytes), prefill by bf16 operations.
+//    K10's bias correction 2 * (sum32 @ s) is an f32 matmul outside, as it
+//    is in XLA; padded K rows hold code 0, whose biased value is 0, so a
+//    zero-padded scale never meets a nonzero weight.  K12 runs its row
+//    preamble (SwiGLU, RMSNorm, bf16 rows) as a first launch.
+//  - K11 (decode, M <= 2) is bound by the bytes of words and scales: K1's
+//    one-launch design (every block recomputes the int8 row preamble, the
+//    same code as K1's, so the rows are K1's bit for bit) with the K
+//    reduction factored over the scale blocks.  In the KT=256 word layout,
+//    scale block b of a tile is plane p = b/2, words 8(b%2) .. 8(b%2)+7, so
+//    a thread owns a half tile (8 word rows) of one column: per plane, 8
+//    dp4a give the block's exact int32 partial, minus twice the block's
+//    activation sum (from the preamble), then one f32 fma with s[b, n].
+//    The Pallas kernel's [32, Kp] block-masked activation matrix (a Mosaic
+//    lane-slicing workaround, :766-776) has no counterpart.  Per-warp f32
+//    sums are added in a fixed order (no float atomics: runs repeat).
+
+#include "ternary_common.cuh"
+
+namespace {
+
+using namespace bn;
+
+// ---------------------------------------------------------------------------
+// K10 / K12 GEMM
+// ---------------------------------------------------------------------------
+constexpr int GB_M = 64, GB_N = 64;
+constexpr int XB_LD = KT + 8;         // bf16; conflict-free A fragment reads
+constexpr int WS_LD = GB_N + 8;       // ints;  conflict-free B fragment reads
+constexpr int SB = KT / 32;           // scale rows a K tile
+constexpr size_t GEMM_SMEM =
+    2 * (GB_M * XB_LD * sizeof(__nv_bfloat16) + (KT / 16) * WS_LD * sizeof(int) +
+         SB * GB_N * sizeof(float));
+
+// the bf16 bits of each code's weight under scale s, code c in bits 16c..16c+15
+template <bool LUT_BIAS, bool UNBIASED>
+__device__ __forceinline__ unsigned long long scaled_table(float s) {
+  unsigned long long t = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int v = (LUT_BIAS ? c + (c >> 1) : c) - (UNBIASED ? 2 : 0);
+    const __nv_bfloat16 b = __float2bfloat16_rn(__fmul_rn((float)v, s));
+    t |= (unsigned long long)__bfloat16_as_ushort(b) << (16 * c);
+  }
+  return t;
+}
+
+// two consecutive K values (bytes j, j+1 of plane p of word w) through the
+// table, as a bf16x2 fragment register, the lower K index in the low half
+__device__ __forceinline__ unsigned table_pair(int w, int p, int j,
+                                               unsigned long long tbl) {
+  const int c0 = (w >> (8 * j + 2 * p)) & 3;
+  const int c1 = (w >> (8 * (j + 1) + 2 * p)) & 3;
+  return (unsigned)((tbl >> (16 * c0)) & 0xFFFFu) |
+         ((unsigned)((tbl >> (16 * c1)) & 0xFFFFu) << 16);
+}
+
+// out[m, n] = sum_k x[m, k] * w[k, n] (- corr[m, n]) (+ resid[m, n]) for
+// n < N; x bf16 [M, Kp]; corr f32 [M, Np] or null; resid [M, N] or null.
+template <bool LUT_BIAS, bool UNBIASED, typename T>
+__global__ void __launch_bounds__(128)
+blockscale_gemm(const __nv_bfloat16* __restrict__ x, int M, int Kp,
+                const int* __restrict__ words, int Np,
+                const float* __restrict__ scales, const float* __restrict__ corr,
+                const T* __restrict__ resid, T* __restrict__ out, int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typedef __nv_bfloat16 XTile[GB_M][XB_LD];
+  typedef int WTile[KT / 16][WS_LD];
+  typedef float STile[SB][GB_N];
+  XTile* xs = reinterpret_cast<XTile*>(smem_raw);
+  WTile* ws = reinterpret_cast<WTile*>(smem_raw + 2 * sizeof(XTile));
+  STile* ss = reinterpret_cast<STile*>(smem_raw + 2 * sizeof(XTile) + 2 * sizeof(WTile));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+  const int nk = Kp / KT;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  auto load_tile = [&](int st, int kt) {
+    const int k0 = kt * KT;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {            // 64 rows x 512 B of activations
+      const int idx = tid + 128 * i, r = idx >> 5, c8 = (idx & 31) * 8;
+      const bool ok = m0 + r < M;             // rows past M are zero-filled
+      cp_async16(&xs[st][r][c8], x + (size_t)(ok ? m0 + r : 0) * Kp + k0 + c8, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {             // 16 word rows x 64 columns
+      const int idx = tid + 128 * i, r = idx >> 4, c4 = (idx & 15) * 4;
+      cp_async16(&ws[st][r][c4], words + (size_t)(k0 / 16 + r) * Np + n0 + c4, true);
+    }
+    {                                         // 8 scale rows x 64 columns
+      const int r = tid >> 4, c4 = (tid & 15) * 4;
+      cp_async16(&ss[st][r][c4], scales + (size_t)(kt * SB + r) * Np + n0 + c4, true);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  load_tile(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      load_tile(st ^ 1, kt + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb) {         // scale block 2p + hb: K rows p*64 + 32hb ..
+        unsigned long long tbl[4];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          tbl[ni] = scaled_table<LUT_BIAS, UNBIASED>(
+              ss[st][2 * p + hb][wn * 32 + ni * 8 + g]);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {       // K rows p*64 + 16h .. +15
+          const int h = 2 * hb + h2;
+          const int kb = p * 64 + 16 * h;
+          unsigned a[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const int r = wm * 32 + mi * 16 + g;
+            a[mi][0] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + t4 * 2]);
+            a[mi][1] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + t4 * 2]);
+            a[mi][2] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + 8 + t4 * 2]);
+            a[mi][3] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + 8 + t4 * 2]);
+          }
+          // K row kb + 2*t4 (+1) is byte 2*(t4&1) (+1) of word row 4h + t4/2;
+          // kb + 8 + 2*t4 (+1) the same bytes of word row 4h + 2 + t4/2
+          const int j = (t4 & 1) * 2;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int col = wn * 32 + ni * 8 + g;
+            const unsigned b0 = table_pair(ws[st][4 * h + (t4 >> 1)][col], p, j, tbl[ni]);
+            const unsigned b1 = table_pair(ws[st][4 * h + 2 + (t4 >> 1)][col], p, j, tbl[ni]);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+          }
+        }
+      }
+    }
+    __syncthreads();                           // stage st is refilled next
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
+        const int n = n0 + wn * 32 + ni * 8 + t4 * 2 + (e & 1);
+        if (m < M && n < N) {
+          float y = acc[mi][ni][e];
+          if (corr != nullptr) y = __fsub_rn(y, corr[(size_t)m * Np + n]);
+          if (resid != nullptr) y = __fadd_rn(y, load_f32(resid, (size_t)m * N + n));
+          store_f32(out, (size_t)m * N + n, y);
+        }
+      }
+}
+
+template <bool LUT_BIAS, bool UNBIASED, typename T>
+cudaError_t launch_gemm(const __nv_bfloat16* x, int M, int Kp, const int* words,
+                        int Np, const float* scales, const float* corr,
+                        const void* resid, void* out, int N, cudaStream_t stream) {
+  static bool smem_set = false;           // once, before any graph capture
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(blockscale_gemm<LUT_BIAS, UNBIASED, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)GEMM_SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  dim3 grid(Np / GB_N, (M + GB_M - 1) / GB_M);
+  blockscale_gemm<LUT_BIAS, UNBIASED, T><<<grid, 128, GEMM_SMEM, stream>>>(
+      x, M, Kp, words, Np, scales, corr, static_cast<const T*>(resid),
+      static_cast<T*>(out), N);
+  return cudaGetLastError();
+}
+
+template <bool UNBIASED, typename T>
+cudaError_t launch_gemm_lut(int lut_bias, const __nv_bfloat16* x, int M, int Kp,
+                            const int* words, int Np, const float* scales,
+                            const float* corr, const void* resid, void* out,
+                            int N, cudaStream_t stream) {
+  return lut_bias
+      ? launch_gemm<true, UNBIASED, T>(x, M, Kp, words, Np, scales, corr, resid, out, N, stream)
+      : launch_gemm<false, UNBIASED, T>(x, M, Kp, words, Np, scales, corr, resid, out, N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K12 preamble: one block per row m, 512 threads: silu(gate) * up, RMSNorm,
+// bf16 rows [M, K].  x is [M, K] (or [M, 2K] when glu).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(512)
+bf16_rows(const T* __restrict__ x, int x_stride, int K, int glu,
+          const float* __restrict__ gamma, float eps,
+          __nv_bfloat16* __restrict__ xb) {
+  extern __shared__ float row[];         // K floats
+  __shared__ float redf[32];
+  const int m = blockIdx.x;
+  const T* xr = x + (size_t)m * x_stride;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    float v = load_f32(xr, k);
+    if (glu) {                           // silu(gate) * up
+      const float sig = 1.f / (1.f + expf(-v));
+      v = __fmul_rn(__fmul_rn(v, sig), load_f32(xr, (size_t)K + k));
+    }
+    row[k] = v;
+    ss += v * v;
+  }
+  float r = 1.f;
+  if (gamma != nullptr) {                // RMSNorm: (x * rsqrt(mean + eps)) * g
+    const float var = block_reduce(ss, redf, false) / (float)K;
+    r = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float v = gamma != nullptr ? __fmul_rn(__fmul_rn(row[k], r), gamma[k]) : row[k];
+    xb[(size_t)m * K + k] = __float2bfloat16_rn(v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11: one launch, 512 threads = 16 warps; block = 32 columns (a lane each).
+// Warp w takes half tiles w, w + 16, ... (8 word rows each); the next half
+// tile's words and scales are in flight while this one computes.
+// ---------------------------------------------------------------------------
+template <int MB, bool LUT_BIAS, typename T>
+__global__ void __launch_bounds__(FUSED_THREADS)
+tl_w2a8_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
+              const float* __restrict__ gamma, float eps,
+              const int* __restrict__ words, int Np,
+              const float* __restrict__ scales, const T* __restrict__ resid,
+              T* __restrict__ out, int N, int8_t* __restrict__ xq_out,
+              float* __restrict__ sx_out, int* __restrict__ sumq_out) {
+  __shared__ int xs[MB][FUSED_MAX_K / 4];
+  __shared__ int sumqb[MB][FUSED_MAX_K / 32];
+  __shared__ float red[FUSED_WARPS][MB][32];
+  __shared__ float sx_s[MB];
+  __shared__ int sumq_s[MB];
+  __shared__ float redf[32];
+  __shared__ int redi[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * 32 + lane;
+  const int halves = Kp / 128;                      // 8 word rows each
+  int wv[8];
+  float sv[4];
+  auto load = [&](int ht, int (&w)[8], float (&s)[4]) {
+    const int t = ht >> 1, h = ht & 1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      w[i] = ht < halves ? __ldg(words + (size_t)(t * 16 + 8 * h + i) * Np + n) : 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      s[p] = ht < halves ? __ldg(scales + (size_t)(t * 8 + 2 * p + h) * Np + n) : 0.f;
+  };
+  load(warp, wv, sv);                               // first half tile in flight
+
+  fused_quantize_rows(x, x_stride, M, Kp, glu, gamma, eps, xs, sx_s, sumq_s,
+                      sumqb, redf, redi, xq_out, sx_out, sumq_out);
+
+  float y[MB];
+#pragma unroll
+  for (int mm = 0; mm < MB; ++mm) y[mm] = 0.f;
+  for (int ht = warp; ht < halves; ht += FUSED_WARPS) {
+    int wn[8];
+    float sn[4];
+    load(ht + FUSED_WARPS, wn, sn);                 // next half tile in flight
+    const int t = ht >> 1, h = ht & 1;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int xi = t * 64 + p * 16 + 8 * h;       // int index of K row t*256 + p*64 + 32h
+      const int b = t * 8 + 2 * p + h;              // the 32-row scale block
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm) {
+        int acc = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc = __dp4a(biased_plane<LUT_BIAS>(wv[i], p), xs[mm][xi + i], acc);
+        y[mm] = fmaf((float)(acc - 2 * sumqb[mm][b]), sv[p], y[mm]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wv[i] = wn[i];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) sv[p] = sn[p];
+  }
+#pragma unroll
+  for (int mm = 0; mm < MB; ++mm) red[warp][mm][lane] = y[mm];
+  __syncthreads();
+  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) {
+    const int mm = i / 32, nc = blockIdx.x * 32 + (i % 32);
+    if (mm < M && nc < N) {
+      float acc = 0.f;
+      for (int w = 0; w < FUSED_WARPS; ++w) acc = __fadd_rn(acc, red[w][mm][i % 32]);
+      float v = __fmul_rn(acc, sx_s[mm]);
+      if (resid != nullptr) v = __fadd_rn(v, load_f32(resid, (size_t)mm * N + nc));
+      store_f32(out, (size_t)mm * N + nc, v);
+    }
+  }
+}
+
+template <bool LUT_BIAS, typename T>
+cudaError_t launch_tl_w2a8(const void* x, int x_stride, int M, int K, int glu,
+                           const float* gamma, float eps, const int* words, int Np,
+                           const float* scales, const void* resid, void* out,
+                           int N, int8_t* xq, float* sx, int* sumq,
+                           cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* r = static_cast<const T*>(resid);
+  T* o = static_cast<T*>(out);
+  if (M == 1)
+    tl_w2a8_fused<1, LUT_BIAS, T><<<Np / 32, FUSED_THREADS, 0, stream>>>(
+        xt, x_stride, M, K, glu, gamma, eps, words, Np, scales, r, o, N, xq, sx, sumq);
+  else
+    tl_w2a8_fused<2, LUT_BIAS, T><<<Np / 32, FUSED_THREADS, 0, stream>>>(
+        xt, x_stride, M, K, glu, gamma, eps, words, Np, scales, r, o, N, xq, sx, sumq);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tl_bf16(const void* x, int x_stride, int M, int K, int glu,
+                           const float* gamma, float eps, const int* words, int Np,
+                           const float* scales, const void* resid, void* out,
+                           int N, __nv_bfloat16* xb, int lut_bias,
+                           cudaStream_t stream) {
+  const size_t smem = (size_t)K * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bf16_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  bf16_rows<T><<<M, 512, smem, stream>>>(static_cast<const T*>(x), x_stride, K,
+                                         glu, gamma, eps, xb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_gemm_lut<true, T>(lut_bias, xb, M, K, words, Np, scales, nullptr,
+                                  resid, out, N, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (x, resid and out share it).  Each entry
+// returns cudaGetLastError() after its launches.
+
+// K10: xb bf16 [M, Kp] (rounded, zero-padded); scales f32 [Kp/32, Np] of
+// the layer; corr f32 [M, Np] = 2 * (sum32 @ scales); out [M, N].
+int bn_blockscale_bf16(const __nv_bfloat16* xb, int M, int Kp, const int* words,
+                       int Np, const float* scales, const float* corr, void* out,
+                       int N, int lut_bias, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return (int)launch_gemm_lut<false, __nv_bfloat16>(
+        lut_bias, xb, M, Kp, words, Np, scales, corr, nullptr, out, N, stream);
+  return (int)launch_gemm_lut<false, float>(lut_bias, xb, M, Kp, words, Np, scales,
+                                            corr, nullptr, out, N, stream);
+}
+
+// K11: M <= 2, K == Kp <= 8192; xq / sx / sumq receive the int8 rows, their
+// scales and sums (as K1's).
+int bn_tl_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
+                      const float* gamma, float eps, const int* words, int Np,
+                      const float* scales, const void* resid, void* out, int N,
+                      int8_t* xq, float* sx, int* sumq, int lut_bias, int dtype,
+                      cudaStream_t stream) {
+  if (M < 1 || M > FUSED_MAX_M || K > FUSED_MAX_K) return (int)cudaErrorInvalidValue;
+#define BN_TL(LB, TT)                                                            \
+  return (int)launch_tl_w2a8<LB, TT>(x, x_stride, M, K, glu, gamma, eps, words,  \
+                                     Np, scales, resid, out, N, xq, sx, sumq,    \
+                                     stream)
+  if (dtype == 1) {
+    if (lut_bias) BN_TL(true, __nv_bfloat16);
+    BN_TL(false, __nv_bfloat16);
+  }
+  if (lut_bias) BN_TL(true, float);
+  BN_TL(false, float);
+#undef BN_TL
+}
+
+// K12: M <= 64, K == Kp; xb bf16 [M, K] scratch for the preamble's rows.
+int bn_tl_bf16_normed(const void* x, int x_stride, int M, int K, int glu,
+                      const float* gamma, float eps, const int* words, int Np,
+                      const float* scales, const void* resid, void* out, int N,
+                      __nv_bfloat16* xb, int lut_bias, int dtype,
+                      cudaStream_t stream) {
+  if (dtype == 1)
+    return (int)launch_tl_bf16<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
+                                              words, Np, scales, resid, out, N,
+                                              xb, lut_bias, stream);
+  return (int)launch_tl_bf16<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
+                                    scales, resid, out, N, xb, lut_bias, stream);
+}
+
+const char* bn_ternary_matmul_tl_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -39,6 +39,7 @@ from ..models.bitnet import (
     with_col_scales_params,
 )
 from ..ops import registry
+from ..quant.tl import quantize_params_tl
 from .cache import allocate_cache, reset_cache
 from .sampling import SamplerChain, logprob_entry
 from .stop import StopCriteria, StopReason
@@ -136,6 +137,10 @@ class InferenceEngine:
         act = torch.float32 if ec.compute_dtype == "f32" else torch.bfloat16
         if params.embed.dtype != act:
             params = dataclasses.replace(params, embed=params.embed.to(act))
+        if ec.weight_quant in ("tl1", "tl2"):
+            # runtime TL re-quantization on the device, before fusion
+            # (``bitnet_tpu/engine/engine.py:119-128``)
+            params = quantize_params_tl(params, ec.weight_quant)
         fuse_fell_back = False
         blocks = params.blocks
         if ec.fuse_projections and blocks.wqkv is None:
@@ -150,6 +155,12 @@ class InferenceEngine:
                                     self.kv_dtype, device=self.device)
         self._buckets = prefill_buckets(ec.max_seq_len)
         self.kernel_recorder: list[str] = []
+        if ec.weight_quant in ("tl1", "tl2"):
+            self.kernel_recorder.append(f"weight_quant_{ec.weight_quant}")
+        blk = params.blocks.wqkv
+        if (blk is not None and blk.kind in ("tl", "bitnet32")
+                and self.kernel_path == "w2a8" and blk.k % 256 == 0):
+            self.kernel_recorder.append("ternary_matmul_tl_w2a8_stacked")
         if fuse_fell_back:
             self.kernel_recorder.append("fuse_projections_fallback")
         self.last_metrics = PerformanceMetrics()

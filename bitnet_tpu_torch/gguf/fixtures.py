@@ -6,8 +6,8 @@ loader/engine tests run without a real 2B checkpoint.  Also returns the
 float reference weights so tests can check dequantization parity.
 
 Own copy of ``bitnet_tpu/gguf/fixtures.py`` for the flavors the port
-loads (``f32`` and ``qk256``; ``bitnet32`` and ``q8_0`` raise, naming
-their ROADMAP item), so ``chip_smoke.py`` can write a GGUF without the
+loads (``f32``, ``qk256`` and ``bitnet32``; ``q8_0`` raises, naming its
+ROADMAP item), so ``chip_smoke.py`` can write a GGUF without the
 JAX package.
 """
 
@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config import ModelConfig
+from ..quant.i2s import dequantize_bitnet32, quantize_bitnet32
 from ..quant.qk256 import dequantize_qk256, quantize_qk256
 from .constants import GGMLType
 from .writer import GGUFWriter
@@ -151,10 +152,15 @@ def generate_mini_gguf(path: str, spec: MiniModelSpec | None = None) -> MiniMode
         flip = spec.transposed and out_dim != in_dim
         stored = raw.T.copy() if flip else raw
         shape = (in_dim, out_dim) if flip else (out_dim, in_dim)
-        if spec.quant in ("bitnet32", "q8_0"):
+        if spec.quant == "q8_0":
             raise NotImplementedError(
-                f"{spec.quant} fixtures are not ported yet (ROADMAP.md queue 1 "
-                f"{'#10' if spec.quant == 'bitnet32' else '#7'})")
+                "q8_0 fixtures are not ported yet (ROADMAP.md queue 1 #7)")
+        if spec.quant == "bitnet32":
+            payload = quantize_bitnet32(stored)
+            deq = dequantize_bitnet32(payload, raw.size).reshape(shape)
+            weights[name] = deq.T if flip else deq
+            w.add_quantized_tensor(name, shape, GGMLType.I2_S, payload)
+            return
         if spec.quant == "qk256":
             payload = quantize_qk256(stored)
             deq = dequantize_qk256(payload, shape[0], shape[1])

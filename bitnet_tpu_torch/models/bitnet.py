@@ -13,7 +13,11 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
   ``decode_attn_plan`` in the stacked decode loop (``qkv_quant_v2s`` on K7,
   ``batched_v2`` on K8, ``quant_batched_v2`` on K9, ``einsum`` in plain
   torch), and the quantized branches of the stacked prefill and of
-  ``block_forward`` (``:1118-1130``, ``:1337-1345``).
+  ``block_forward`` (``:1118-1130``, ``:1337-1345``);
+- slice 4: bitnet32 and TL weights (per-32-row block scales): the stacked
+  decode loop's three-way matmul choice (``:457-499``, K11 / K12 / K10),
+  and the layer loop (K10 on ``w2a8`` and ``pallas``) for their prefill
+  and for the generic path.
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -64,11 +68,18 @@ from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope
 from ..ops.ternary_matmul import (
     STACKED_DECODE_MAX_M,
+    TL_W2A8_MAX_M,
     int8_matmul,
     quantize_rows,
+    ternary_matmul_blockscale_bf16,
+    ternary_matmul_tl_bf16_normed,
+    ternary_matmul_tl_w2a8_normed,
     ternary_matmul_w2a8,
     ternary_matmul_w2a8_normed,
 )
+
+# the kinds the stacked decode loop takes (``:279-280``)
+STACKED_DECODE_KINDS = ("qk256", "tl", "bitnet32")
 
 # the cache dtypes the port runs, by the names decode_attn_plan reads
 KV_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8",
@@ -182,14 +193,21 @@ def decode_attn_plan(B: int, kv_dtype: str = "bf16") -> str:
     return "einsum"
 
 
-def stacked_weights_ok(cfg: ModelConfig, b: BlockParams) -> bool:
-    """Weight-side eligibility of the stacked prefill and decode: fused
-    qk256 stacks with K == Kp, silu, and norm widths that match."""
+def stacked_weights_ok(cfg: ModelConfig, b: BlockParams,
+                       kinds: tuple[str, ...] = ("qk256",)) -> bool:
+    """Weight-side eligibility of the stacked prefill and decode
+    (``_stacked_weights_ok``, ``:230-257``): fused stacks of one kind in
+    ``kinds``, K == Kp for qk256 (the TL kinds take a padded K), silu, and
+    norm widths that match."""
     if b.wqkv is None or b.w_gateup is None or cfg.hidden_act != "silu":
         return False
-    for lin in (b.wqkv, b.wo, b.w_gateup, b.w_down):
-        if (lin.kind != "qk256" or lin.packed.ndim != 3
-                or lin.packed.shape[1] * 16 != lin.k):
+    lins = (b.wqkv, b.wo, b.w_gateup, b.w_down)
+    if len({lin.kind for lin in lins}) != 1:
+        return False
+    for lin in lins:
+        if lin.kind not in kinds or lin.packed.ndim != 3:
+            return False
+        if lin.kind == "qk256" and lin.packed.shape[1] * 16 != lin.k:
             return False
     if b.attn_sub_norm is not None and b.attn_sub_norm.shape[-1] != b.wo.k:
         return False
@@ -202,14 +220,17 @@ def stacked_weights_ok(cfg: ModelConfig, b: BlockParams) -> bool:
 def stacked_decode_ok(cfg: ModelConfig, params: BitNetParams, T: int, B: int,
                       kernel_path: str) -> bool:
     """The reference's gate (``_stacked_decode_ok``, ``:260-280``): one
-    token a slot, B within K1's rows, path ``w2a8``, stacked weights.  Every
-    plan runs inside the loop, which reads it from the cache's dtype."""
+    token a slot, B within K1's rows, path ``w2a8``, stacked weights of
+    kind qk256, tl or bitnet32.  Every plan runs inside the loop, which
+    reads it from the cache's dtype."""
     return (T == 1 and B <= STACKED_DECODE_MAX_M and kernel_path == "w2a8"
-            and stacked_weights_ok(cfg, params.blocks))
+            and stacked_weights_ok(cfg, params.blocks, STACKED_DECODE_KINDS))
 
 
 def stacked_prefill_ok(cfg: ModelConfig, params: BitNetParams, T: int,
                        kernel_path: str) -> bool:
+    """``_stacked_prefill_ok`` (``:283-302``): qk256 only, so a TL prefill
+    runs the layer loop."""
     return (T > 1 and kernel_path == "w2a8"
             and stacked_weights_ok(cfg, params.blocks))
 
@@ -287,6 +308,46 @@ def _einsum_decode_attention(q, k_rows, v_rows, ks_rows, vs_rows, k_cache_l,
     return attention(q, k_read, v_read, q_positions, pre_len + 1)[:, 0]
 
 
+def _stacked_mm(b: BlockParams, B: int, eps: float):
+    """The four matmuls of a stacked decode layer, ``mm(l, h, name, gamma,
+    glu=, resid=)``, by the weights' kind (``:439-499``): qk256 on K1; the
+    TL kinds on K11 when B <= 2 and every K is a multiple of 256, else K12
+    when aligned, else K10 on the stacked weights with SwiGLU, the norm and
+    the residual in torch."""
+    kind = b.wqkv.kind
+    if kind == "qk256":
+        def mm(l, h, name, gamma, **kw):
+            lin = getattr(b, name)
+            return ternary_matmul_w2a8_normed(l, h, lin.packed, lin.col_scales,
+                                              gamma, k_dim=lin.k, n_dim=lin.n,
+                                              eps=eps, **kw)
+        return mm
+    lut_bias = kind == "bitnet32"
+    aligned = all(getattr(b, n).k % 256 == 0
+                  for n in ("wqkv", "wo", "w_gateup", "w_down"))
+    fused = (None if not aligned else ternary_matmul_tl_w2a8_normed
+             if B <= TL_W2A8_MAX_M else ternary_matmul_tl_bf16_normed)
+
+    def mm_tl(l, h, name, gamma, glu=False, resid=None):
+        lin = getattr(b, name)
+        if fused is not None:
+            return fused(l, h, lin.packed, lin.scales, gamma, k_dim=lin.k,
+                         n_dim=lin.n, eps=eps, glu=glu, resid=resid,
+                         lut_bias=lut_bias)
+        x2 = h
+        if glu:
+            K2 = x2.shape[1] // 2
+            gate = x2[:, :K2]
+            x2 = gate * torch.sigmoid(gate) * x2[:, K2:]
+        if gamma is not None:
+            x2 = rms_norm(x2, gamma[l], eps)
+        y = ternary_matmul_blockscale_bf16(l, x2.contiguous(), lin.packed,
+                                           lin.scales, k_dim=lin.k, n_dim=lin.n,
+                                           lut_bias=lut_bias)
+        return y if resid is None else y + resid
+    return mm_tl
+
+
 def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     x: torch.Tensor,             # [B, 1, H]
                     q_positions: torch.Tensor,   # [B, 1]
@@ -298,9 +359,10 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The stacked decode loop (``:401``, rows mode with the stacked
-    attention of ``body_rows_sa`` ``:856-910``): per layer four K1 calls
-    and the plan's attention over the PRE-write cache, then ONE K3 write of
-    all L new rows (and scales) at min(pos, S-1)."""
+    attention of ``body_rows_sa`` ``:856-910``): per layer four matmuls
+    (:func:`_stacked_mm`) and the plan's attention over the PRE-write
+    cache, then ONE K3 write of all L new rows (and scales) at
+    min(pos, S-1)."""
     b = params.blocks
     B = x.shape[0]
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -309,10 +371,7 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
     quantized = k_scale is not None
     plan = decode_attn_plan(B, kv_dtype_name(k_cache.dtype))
 
-    def mm(l, h, name, gamma, **kw):
-        lin = getattr(b, name)
-        return ternary_matmul_w2a8_normed(l, h, lin.packed, lin.col_scales, gamma,
-                                          k_dim=lin.k, n_dim=lin.n, eps=eps, **kw)
+    mm = _stacked_mm(b, B, eps)
 
     sin_r = sin_rows[:, 0].contiguous()
     cos_r = cos_rows[:, 0].contiguous()

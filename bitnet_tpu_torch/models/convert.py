@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..engine.cache import KVCache
-from ..ops.linear import TernaryLinear
+from ..ops.linear import BLOCK_KINDS, TernaryLinear
 from .bitnet import BitNetParams, BlockParams
 
 
@@ -33,15 +33,20 @@ def _tensor(a, device) -> torch.Tensor | None:
 
 
 def _linear(d, device) -> TernaryLinear | None:
+    """A qk256, bitnet32 or tl linear.  The JAX package keeps block scales
+    ``[(L,) K/32, Np]``; the port's are zero-padded to ``Kp/32`` rows."""
     if d is None:
         return None
-    if d["kind"] != "qk256":
+    if d["kind"] not in ("qk256", *BLOCK_KINDS):
         raise NotImplementedError(
-            f"{d['kind']} linears are not ported yet (ROADMAP.md queue 1 "
-            f"{'#10' if d['kind'] in ('tl', 'bitnet32') else '#7'})")
-    return TernaryLinear(kind="qk256", k=int(d["k"]), n=int(d["n"]),
-                         packed=_tensor(d["packed"], device),
-                         scales=_tensor(d["scales"], device).to(torch.float32))
+            f"{d['kind']} linears are not ported yet (ROADMAP.md queue 1 #7)")
+    packed = _tensor(d["packed"], device)
+    scales = _tensor(d["scales"], device).to(torch.float32)
+    if d["kind"] in BLOCK_KINDS:
+        pad = packed.shape[-2] // 2 - scales.shape[-2]
+        scales = torch.nn.functional.pad(scales, (0, 0, 0, pad))
+    return TernaryLinear(kind=d["kind"], k=int(d["k"]), n=int(d["n"]),
+                         packed=packed, scales=scales)
 
 
 def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:

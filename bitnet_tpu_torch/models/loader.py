@@ -1,11 +1,12 @@
 """GGUF → BitNetParams loader (numpy route, tensors on the CPU).
 
 Counterpart of ``bitnet_tpu/models/loader.py`` (``load_model`` ``:334``)
-for the flavors slice 1 runs: ternary linears in I2_S QK256 (either
-orientation), everything else (embedding, norms) in F32 or F16.  Other
-I2_S flavors and other tensor types raise a ModelError naming the ROADMAP
-item that ports them.  The QK256 repack is the numpy route; the JAX
-package's native codec (``loader.py:228-234``) is not ported, and on a
+for the flavors the port runs: ternary linears in I2_S QK256 (either
+orientation) and in the per-32-element-block flavors BitNet32-F16 (inline
+f16 scales) and Split32 (sibling scales), everything else (embedding,
+norms) in F32 or F16.  Other tensor types raise a ModelError naming the
+ROADMAP item that ports them.  The QK256 repack is the numpy route; the
+JAX package's native codec (``loader.py:228-234``) is not ported, and on a
 real 2B checkpoint this route takes minutes (``loader.py:229-230``).
 """
 
@@ -18,12 +19,14 @@ from ..config import ModelConfig
 from ..errors import ModelError
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader, TensorInfo
-from ..ops.linear import TernaryLinear, qk256_linear_from_payload
+from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes,
+                          qk256_linear_from_payload)
 from ..ops.rope import build_rope_tables
+from ..quant import i2s
 from ..quant.flavor import I2SFlavor, detect_i2s_flavor
 from .bitnet import BitNetParams, BlockParams
 from .config import config_from_gguf
-from .weight_map import find_global, find_layer, require_layer
+from .weight_map import find_global, find_layer, require_layer, scale_sibling_name
 
 
 def _to_float(reader: GGUFReader, info: TensorInfo) -> np.ndarray:
@@ -31,12 +34,45 @@ def _to_float(reader: GGUFReader, info: TensorInfo) -> np.ndarray:
         return np.asarray(reader.tensor_data(info.name), dtype=np.float32)
     raise ModelError(
         f"{info.name}: tensor type {info.ggml_type.name} is not ported yet "
-        "(the port loads F32/F16 and I2_S QK256; ROADMAP.md queue 1 #7)")
+        "(the port loads F32/F16 and I2_S; ROADMAP.md queue 1 #7)")
+
+
+def _i2s_codes_and_scales(reader: GGUFReader, info: TensorInfo,
+                          flavor: I2SFlavor) -> tuple[np.ndarray, np.ndarray | None]:
+    """A BitNet32-F16 or Split32 tensor → codes [rows, cols] and per-block
+    scales [rows, cols/32] along the stored rows, or None when the blocks
+    straddle rows (``bitnet_tpu/models/loader.py:143-192``).  Split32
+    scales come from a sibling tensor (``scale_sibling_name``), one value
+    broadcast, or 1.0 without one."""
+    shape = info.logical_shape
+    rows, cols = (1, shape[0]) if len(shape) == 1 else (
+        int(np.prod(shape[:-1])), shape[-1])
+    raw = reader.tensor_bytes(info.name)
+    nblocks = -(-info.nelems // 32)
+    if flavor == I2SFlavor.BITNET32_F16:
+        codes, scales = i2s.bitnet32_codes_and_scales(raw, info.nelems)
+    else:
+        codes = i2s.split32_codes(raw, info.nelems)
+        scales = np.ones(nblocks, np.float32)
+        for cand in scale_sibling_name(info.name):
+            if cand in reader.tensors:
+                sib = _to_float(reader, reader.tensors[cand]).reshape(-1)
+                scales = (np.full(nblocks, sib[0], np.float32) if sib.size == 1
+                          else sib)
+                break
+    codes = codes.reshape(rows, cols)
+    if cols % 32:
+        return codes, None
+    return codes, scales[: rows * (cols // 32)].reshape(rows, cols // 32)
 
 
 def _load_linear(reader: GGUFReader, name: str, out_dim: int,
                  in_dim: int) -> TernaryLinear:
-    """One [out, in] QK256 weight → TernaryLinear ([K=in, N=out])."""
+    """One [out, in] I2_S weight → TernaryLinear ([K=in, N=out]): QK256 →
+    ``qk256``; BitNet32-F16 / Split32 → ``bitnet32`` (``:195-261``).  A
+    per-block tensor whose blocks do not run along K (stored transposed
+    with scales that differ, or blocks that straddle rows) is densified by
+    the JAX package; the port has no dense linear and raises."""
     info = reader.tensors[name]
     if info.ggml_type != GGMLType.I2_S:
         raise ModelError(
@@ -44,10 +80,6 @@ def _load_linear(reader: GGUFReader, name: str, out_dim: int,
             "not ported yet (ROADMAP.md queue 1 #7)")
     flavor = detect_i2s_flavor(info.nelems, info.nbytes, name=name,
                                cols=int(info.shape[0]) if info.shape else None)
-    if flavor != I2SFlavor.GGML_QK256_NO_SCALE:
-        raise ModelError(
-            f"{name}: I2_S flavor {flavor.value} is not ported yet "
-            "(ROADMAP.md queue 1 #10)")
     shape = info.logical_shape
     if shape == (out_dim, in_dim):
         transposed = False
@@ -56,12 +88,30 @@ def _load_linear(reader: GGUFReader, name: str, out_dim: int,
     else:
         raise ModelError(f"{name}: shape {shape} incompatible with expected "
                          f"({out_dim}, {in_dim})")
-    return qk256_linear_from_payload(reader.tensor_bytes(name), out_dim,
-                                     in_dim, transposed=transposed)
+    if flavor == I2SFlavor.GGML_QK256_NO_SCALE:
+        return qk256_linear_from_payload(reader.tensor_bytes(name), out_dim,
+                                         in_dim, transposed=transposed)
+    codes, scales = _i2s_codes_and_scales(reader, info, flavor)
+    if scales is not None and not transposed:
+        return bitnet32_linear_from_codes(codes.T, scales.T.copy())
+    if scales is not None:
+        # the blocks run along the stored rows, i.e. along N: only a
+        # uniform scale carries over to the K-block layout
+        uniq = np.unique(scales)
+        if uniq.size == 1 and in_dim % 32 == 0:
+            return bitnet32_linear_from_codes(
+                np.ascontiguousarray(codes),
+                np.full((in_dim // 32, out_dim), uniq[0], np.float32))
+    raise ModelError(
+        f"{name}: {flavor.value} tensor whose scale blocks do not run along K "
+        "needs a dense linear, not ported yet (ROADMAP.md queue 1 #7)")
 
 
 def _stack_linears(lins: list[TernaryLinear]) -> TernaryLinear:
-    return TernaryLinear(kind="qk256", k=lins[0].k, n=lins[0].n,
+    kinds = {l.kind for l in lins}
+    if len(kinds) != 1:
+        raise ModelError(f"cannot stack heterogeneous linear kinds {kinds}")
+    return TernaryLinear(kind=kinds.pop(), k=lins[0].k, n=lins[0].n,
                          packed=torch.stack([l.packed for l in lins]),
                          scales=torch.stack([l.scales for l in lins]))
 

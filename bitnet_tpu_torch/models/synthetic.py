@@ -5,6 +5,12 @@ words ARE random ternary codes in the kernels' word layout, so a full
 2B-shaped model needs no checkpoint and no repack, and its bytes and
 operations are exactly the real model's.  Weights are drawn on the target
 device from a seeded ``torch.Generator``.
+
+``kind="qk256"`` gives the QK256 model (one scale 0.02 a layer);
+``kind="bitnet32"`` the BitNet32-F16 model: the same random words plus
+per-32-row block scales, f16 values drawn around 0.02 and clipped to the
+loader's [1e-3, 1e3] (``quant/i2s.py``), zero in the padded rows and
+columns as the loader leaves them.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.linear import TernaryLinear
 from ..ops.rope import build_rope_tables
+from ..quant.i2s import SCALE_MAX as I2S_SCALE_MAX, SCALE_MIN as I2S_SCALE_MIN
 from .bitnet import BitNetParams, BlockParams
 
 # bitnet-b1.58-2B-4T's published shapes (ROADMAP.md:29, README.md:133-134)
@@ -25,11 +32,13 @@ BITNET_2B4T = ModelConfig(
 
 
 def build_synthetic(cfg: ModelConfig = BITNET_2B4T, seed: int = 0,
-                    device="cuda") -> BitNetParams:
+                    device="cuda", kind: str = "qk256") -> BitNetParams:
     """Unfused params (the engine fuses them) for ``cfg``; norms are ones,
     with 2B-4T's attn/ffn sub-layernorms when ``cfg.use_sub_norm``.  The
     per-layer weight scale 0.02 keeps activations sane through 30 layers
     (the JAX package's bench uses the same)."""
+    if kind not in ("qk256", "bitnet32"):
+        raise ValueError(f"synthetic kinds are qk256 and bitnet32, got {kind!r}")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     L, H, F, V = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
@@ -41,8 +50,16 @@ def build_synthetic(cfg: ModelConfig = BITNET_2B4T, seed: int = 0,
         kp, npad = -(-k // 256) * 256, -(-n // 128) * 128
         words = torch.randint(-2**31, 2**31, (L, kp // 16, npad),
                               dtype=torch.int32, generator=g, device=dev)
-        return TernaryLinear(kind="qk256", k=k, n=n, packed=words,
-                             scales=torch.full((L,), 0.02, device=dev))
+        if kind == "qk256":
+            return TernaryLinear(kind="qk256", k=k, n=n, packed=words,
+                                 scales=torch.full((L,), 0.02, device=dev))
+        s = torch.rand((L, k // 32, n), generator=g, device=dev) * 0.02 + 0.01
+        s = torch.clamp(s.to(torch.float16).to(torch.float32), I2S_SCALE_MIN,
+                        I2S_SCALE_MAX)
+        scales = torch.zeros((L, kp // 32, npad), device=dev)
+        scales[:, : k // 32, :n] = s
+        return TernaryLinear(kind="bitnet32", k=k, n=n, packed=words,
+                             scales=scales)
 
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)  # noqa: E731
     blocks = BlockParams(

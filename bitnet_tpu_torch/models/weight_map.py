@@ -69,3 +69,8 @@ def require_layer(names: set[str], role: str, i: int) -> str:
         )
     return got
 
+
+def scale_sibling_name(weight_name: str) -> list[str]:
+    """Candidate sibling-scale tensor names for a Split32 weight."""
+    return [weight_name + "_scale", weight_name + ".scales",
+            weight_name.replace(".weight", ".weight_scale")]

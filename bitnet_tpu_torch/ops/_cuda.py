@@ -3,8 +3,8 @@ ctypes).
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process for ``sm_90a`` into ``csrc/build/<name>-<hash>.so`` (the
-hash of the source and the flags, so an edited source never loads a stale
-library).  Nothing is built or imported when this module is imported: a
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source never loads a stale library).  Nothing is built or imported when this module is imported: a
 library is built at its first use, or up front by :func:`build` (which
 starts one ``nvcc`` per source, all at once).  Pointers and the stream
 are passed as ``c_void_p`` so ctypes never narrows them to 32 bits.
@@ -27,7 +27,7 @@ from ..errors import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("ternary_matmul", "decode_attention")
+SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,12 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, P),
         "bn_w2a8_gemm": (P, I, I, P, I, P, P, P, P, I, I, P),
         "bn_bf16_gemm": (P, I, I, P, I, P, P, P, I, I, P),
+    },
+    "ternary_matmul_tl": {
+        "bn_blockscale_bf16": (P, I, I, P, I, P, P, P, I, I, I, P),
+        "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I,
+                              I, P),
+        "bn_tl_bf16_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, I, I, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,
@@ -71,6 +77,7 @@ def nvcc_path() -> str:
 
 def _so_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

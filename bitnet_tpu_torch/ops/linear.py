@@ -14,6 +14,13 @@ or one 4-byte slice of an int8 MMA fragment, in the CUDA kernels.
 Columns are padded to a multiple of 128 (``LANE``) and K to a multiple of
 256 with code 0; the kernels never read padded K rows past ``k`` for
 qk256 weights of the main path (K == Kp there).
+
+Kinds (``bitnet_tpu/ops/linear.py:123-140``): ``qk256`` (value = LUT[code]
+{-2,-1,1,2} times a per-tensor or fused per-column scale), ``bitnet32``
+(LUT[code] times a per-32-row block scale) and ``tl`` (TL1/TL2 levels
+``code - 2`` times a per-block scale, the blocks of 64 / 128 rows arriving
+expanded to 32 rows).  The block kinds keep their scales ``[(L,) Kp/32,
+Np]`` f32, zero-padded along K and N.
 """
 
 from __future__ import annotations
@@ -75,6 +82,22 @@ def unpack_words_host(words: np.ndarray, k: int, kt: int = KT_PACK) -> np.ndarra
     return parts.reshape(ntiles * kt, N)[:k]
 
 
+def repack_codes_torch(codes_kn: torch.Tensor) -> torch.Tensor:
+    """Logical codes [K, N] (uint8 in 0..3, any device) → int32 words
+    [Kp/16, Np] with K padded to 256 and N to 128 by code 0: the numpy
+    :func:`repack_codes` + :func:`fold_packed_words` + column padding, in
+    torch on the codes' device."""
+    K, N = codes_kn.shape
+    Kp, Np = pad_k(K), -(-N // LANE) * LANE
+    c = torch.zeros((Kp, Np), dtype=torch.uint8, device=codes_kn.device)
+    c[:K, :N] = codes_kn
+    t = c.view(Kp // KT_PACK, 4, KT_PACK // 4, Np)     # [tile, plane, byte row, N]
+    by = t[:, 0] | (t[:, 1] << 2) | (t[:, 2] << 4) | (t[:, 3] << 6)
+    # word s = byte rows 4s..4s+3, little-endian
+    w = by.view(Kp // KT_PACK, KT_PACK // 16, 4, Np).permute(0, 1, 3, 2)
+    return w.contiguous().view(torch.int32).reshape(Kp // 16, Np)
+
+
 def _pad_cols(a: np.ndarray, mult: int = LANE) -> np.ndarray:
     n = a.shape[1]
     target = -(-n // mult) * mult
@@ -89,10 +112,11 @@ def _pad_cols(a: np.ndarray, mult: int = LANE) -> np.ndarray:
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class TernaryLinear:
-    """One qk256 linear (or an [L]-stacked set): ``packed`` int32 words
-    ``[(L,) Kp/16, Np]``; ``scales`` a per-tensor scalar (``[]`` / ``[L]``)
-    or, after fusion, a per-column vector ``[(L,) 1, Np]`` (f32).
-    ``col_scales`` is the form the kernels read, ``[L, Np]`` f32 (L = 1
+    """One linear (or an [L]-stacked set): ``packed`` int32 words
+    ``[(L,) Kp/16, Np]``.  ``scales``: for qk256 a per-tensor scalar
+    (``[]`` / ``[L]``) or, after fusion, a per-column vector ``[(L,) 1,
+    Np]``; for bitnet32 / tl the block scales ``[(L,) Kp/32, Np]`` (f32).
+    ``col_scales`` is the form the qk256 kernels read, ``[L, Np]`` f32 (L = 1
     unstacked), attached once by :func:`with_col_scales`."""
 
     kind: str
@@ -111,7 +135,9 @@ class TernaryLinear:
 def with_col_scales(lin: TernaryLinear) -> TernaryLinear:
     """Attach the kernels' ``[L, Np]`` f32 per-column scales: a scalar per
     tensor (or per layer) broadcast over the columns, a fused per-column
-    vector padded to Np.  Run once at engine init, never per call."""
+    vector padded to Np.  Run once at engine init, never per call.  The
+    block kinds (bitnet32, tl) keep their ``[(L,) Kp/32, Np]`` scales and
+    get none."""
     if lin.kind != "qk256":
         return lin
     L = lin.packed.shape[0] if lin.packed.ndim == 3 else 1
@@ -134,6 +160,42 @@ def qk256_linear_from_codes(codes_kn: np.ndarray,
         kind="qk256", k=k, n=n,
         packed=torch.from_numpy(np.ascontiguousarray(words)),
         scales=torch.tensor(scale, dtype=torch.float32))
+
+
+def _block_linear(kind: str, codes_kn: torch.Tensor,
+                  s32: torch.Tensor) -> TernaryLinear:
+    """codes [K, N] uint8 + scales [K/32, N] f32 (one device) → a bitnet32 /
+    tl linear, scales zero-padded to [Kp/32, Np]."""
+    k, n = codes_kn.shape
+    packed = repack_codes_torch(codes_kn)
+    Kp, Np = packed.shape[0] * 16, packed.shape[1]
+    scales = torch.zeros((Kp // 32, Np), dtype=torch.float32, device=s32.device)
+    scales[: k // 32, :n] = s32
+    return TernaryLinear(kind=kind, k=k, n=n, packed=packed, scales=scales)
+
+
+def bitnet32_linear_from_codes(codes_kn, scales_blocks_kn) -> TernaryLinear:
+    """``codes_kn`` [K, N] (LUT indices); ``scales_blocks_kn`` [K/32, N] f32
+    (``bitnet_tpu/ops/linear.py:371-383``).  numpy or torch inputs."""
+    codes = torch.as_tensor(np.ascontiguousarray(codes_kn) if isinstance(
+        codes_kn, np.ndarray) else codes_kn).to(torch.uint8)
+    s = torch.as_tensor(scales_blocks_kn, dtype=torch.float32, device=codes.device)
+    if codes.shape[0] % 32 != 0:
+        raise QuantizationError(f"bitnet32 needs K % 32 == 0, got {codes.shape[0]}")
+    return _block_linear("bitnet32", codes, s)
+
+
+def tl_linear_from_codes(codes_kn, scales_blocks_kn, block: int) -> TernaryLinear:
+    """TL1/TL2 linear (``bitnet_tpu/ops/linear.py:386-404``): ``codes_kn``
+    [K, N] unsigned LUT indices (value = code - 2), ``scales_blocks_kn``
+    [K/block, N] f32 with ``block`` a multiple of 32, expanded here to the
+    kernels' 32-row granularity (exact: a TL block is whole 32-row blocks)."""
+    codes = torch.as_tensor(np.ascontiguousarray(codes_kn) if isinstance(
+        codes_kn, np.ndarray) else codes_kn).to(torch.uint8)
+    s = torch.as_tensor(scales_blocks_kn, dtype=torch.float32, device=codes.device)
+    if codes.shape[0] % block != 0:
+        raise QuantizationError(f"TL needs K % {block} == 0, got {codes.shape[0]}")
+    return _block_linear("tl", codes, torch.repeat_interleave(s, block // 32, dim=0))
 
 
 def qk256_linear_from_payload(payload: np.ndarray, out_dim: int, in_dim: int,
@@ -172,11 +234,22 @@ def codes_to_values(codes: torch.Tensor) -> torch.Tensor:
     return (c + (c >= 2).to(torch.int32) - 2).to(torch.float32)
 
 
+BLOCK_KINDS = ("bitnet32", "tl")
+
+
 def dequantize_weight(lin: TernaryLinear, dtype=torch.bfloat16) -> torch.Tensor:
-    """Dense [K, N] weight of an unstacked linear."""
+    """Dense [K, N] weight of an unstacked linear
+    (``bitnet_tpu/ops/linear.py:173-196``), computed in f32 and cast."""
+    codes = unpack_packed(lin.packed)[: lin.k, : lin.n]
+    if lin.kind in BLOCK_KINDS:
+        # tl: value = code - 2 (tl1.rs:49-82); bitnet32: the LUT
+        vals = ((codes.to(torch.int32) - 2).to(torch.float32) if lin.kind == "tl"
+                else codes_to_values(codes))
+        s = torch.repeat_interleave(lin.scales.to(torch.float32), 32, dim=0)
+        return (vals * s[: lin.k, : lin.n]).to(dtype)
     if lin.kind != "qk256":
         raise QuantizationError(f"unknown TernaryLinear kind {lin.kind!r}")
-    vals = codes_to_values(unpack_packed(lin.packed)[: lin.k, : lin.n])
+    vals = codes_to_values(codes)
     s = lin.scales.to(torch.float32)
     if s.ndim >= 2:                     # fused per-column vector [1, Np]
         s = s[..., :, : lin.n]
@@ -184,10 +257,11 @@ def dequantize_weight(lin: TernaryLinear, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def concat_linears(lins: list[TernaryLinear]) -> TernaryLinear:
-    """Concatenate linears along N (q|k|v, gate|up).  Scalar per-tensor
-    scales become a per-column vector ``[..., 1, Ntot]``."""
+    """Concatenate linears along N (q|k|v, gate|up).  qk256 scalar
+    per-tensor scales become a per-column vector ``[..., 1, Ntot]``; block
+    scales concatenate along N."""
     kinds = {l.kind for l in lins}
-    if kinds != {"qk256"}:
+    if len(kinds) != 1 or not kinds <= {"qk256", *BLOCK_KINDS}:
         raise QuantizationError(f"cannot fuse kinds {kinds}")
     if any(l.n % LANE != 0 for l in lins):
         raise QuantizationError(
@@ -195,6 +269,11 @@ def concat_linears(lins: list[TernaryLinear]) -> TernaryLinear:
     if len({l.k for l in lins}) != 1:
         raise QuantizationError("fusion needs equal K")
     packed = torch.cat([l.packed for l in lins], dim=-1)
+    kind = lins[0].kind
+    if kind in BLOCK_KINDS:          # per-K-block scales concat along N
+        return TernaryLinear(kind=kind, k=lins[0].k, n=sum(l.n for l in lins),
+                             packed=packed,
+                             scales=torch.cat([l.scales for l in lins], dim=-1))
     cols = []
     for l in lins:
         s = l.scales.to(torch.float32)
@@ -224,25 +303,28 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
     with the branch rule of the JAX kernels' dispatcher
     (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
 
-    ``lin``: a qk256 linear, stacked ``[L, Kp/16, Np]`` (row ``layer``) or
-    unstacked; ``x`` [..., K] (``[..., 2K]`` with ``glu``); ``gamma`` the
-    RMSNorm weight (``[L, K]`` for a stack, ``[K]`` unstacked) or None;
-    ``resid`` [..., N].  Returns [..., N] in x's dtype.
+    ``lin``: a qk256, bitnet32 or tl linear, stacked ``[L, Kp/16, Np]``
+    (row ``layer``) or unstacked; ``x`` [..., K] (``[..., 2K]`` with
+    ``glu``); ``gamma`` the RMSNorm weight (``[L, K]`` for a stack, ``[K]``
+    unstacked) or None; ``resid`` [..., N].  Returns [..., N] in x's dtype.
 
-    - ``w2a8`` with M ≤ 64 rows and K == Kp: K1, with the norm, SwiGLU and
-      residual fused (the ``w2a8_normed`` site ``:1073``);
+    - qk256 on ``w2a8`` with M ≤ 64 rows and K == Kp: K1, with the norm,
+      SwiGLU and residual fused (the ``w2a8_normed`` site ``:1073``);
     - otherwise SwiGLU and the norm run in plain torch, then the path picks
-      the matmul: ``xla`` a dequantized weight and a plain matmul, ``w2a8``
-      per-row int8 quantization in torch (``:1098-1110``) and K4,
-      ``pallas`` K6 (both on x zero-padded to Kp); the residual is added
-      in torch (``:1324-1325``)."""
+      the matmul: ``xla`` a dequantized weight and a plain matmul; for
+      qk256 ``w2a8`` per-row int8 quantization in torch (``:1098-1110``)
+      and K4, ``pallas`` K6 (both on x zero-padded to Kp); for bitnet32 /
+      tl K10 on ``w2a8`` and ``pallas`` alike (the block-scale bf16 body,
+      ``:1098``, ``:1152-1173``); the residual is added in torch
+      (``:1324-1325``)."""
     from . import ternary_matmul as tm
 
     if path not in ("xla", "w2a8", "pallas"):
         raise ValueError(f"bad kernel path {path!r}")
-    if lin.kind != "qk256":
-        raise not_ported(f"{lin.kind} weights on the generic path", "#10")
-    if path != "xla" and lin.col_scales is None:
+    block = lin.kind in BLOCK_KINDS
+    if lin.kind != "qk256" and not block:
+        raise not_ported(f"{lin.kind} linears", "#7")
+    if path != "xla" and not block and lin.col_scales is None:
         raise ValueError("the kernels read col_scales: with_col_scales(lin) first")
     stacked = lin.packed.ndim == 3
     packed = lin.packed if stacked else lin.packed[None]
@@ -252,7 +334,8 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
     Kp = packed.shape[1] * 16
     x2 = x.reshape(-1, x.shape[-1])
     r2 = None if resid is None else resid.reshape(-1, lin.n)
-    if path == "w2a8" and x2.shape[0] <= tm.STACKED_DECODE_MAX_M and K == Kp:
+    if (path == "w2a8" and not block and x2.shape[0] <= tm.STACKED_DECODE_MAX_M
+            and K == Kp):
         g = gamma if gamma is None or stacked else gamma[None]
         y = tm.ternary_matmul_w2a8_normed(
             l, x2, packed, lin.col_scales, g, k_dim=lin.k, n_dim=lin.n,
@@ -268,6 +351,10 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
             lin, packed=packed[l], scales=lin.scales[l] if stacked else lin.scales),
             x2.dtype)
         y = torch.matmul(x2.to(torch.float32), w.to(torch.float32)).to(x2.dtype)
+    elif block:
+        y = tm.ternary_matmul_blockscale_bf16(
+            l, x2.contiguous(), packed, lin.scales if stacked else lin.scales[None],
+            k_dim=lin.k, n_dim=lin.n, lut_bias=lin.kind == "bitnet32")
     else:
         if K != Kp:               # padded K rows hold code 0
             x2 = torch.nn.functional.pad(x2, (0, Kp - K))

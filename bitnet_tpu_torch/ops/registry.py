@@ -19,7 +19,9 @@ from .decode_attention_v2 import (decode_attention_batched, decode_attention_qkv
                                   decode_attention_qkv_quant,
                                   decode_attention_quant_batched,
                                   scatter_kv_rows)
-from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_w2a8,
+from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_blockscale_bf16,
+                             ternary_matmul_tl_bf16_normed,
+                             ternary_matmul_tl_w2a8_normed, ternary_matmul_w2a8,
                              ternary_matmul_w2a8_normed)
 
 
@@ -70,6 +72,19 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu_torch/csrc/decode_attention.cu",
                "bitnet_tpu/ops/decode_attention_v2.py:820",
                decode_attention_quant_batched),
+    KernelSpec("ternary_matmul_blockscale_bf16", "cuda",
+               "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
+               "bitnet_tpu/ops/ternary_matmul.py:1177 (bitnet32/TL body) "
+               "and :555",
+               ternary_matmul_blockscale_bf16),
+    KernelSpec("ternary_matmul_tl_w2a8_normed", "cuda",
+               "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
+               "bitnet_tpu/ops/ternary_matmul.py:960",
+               ternary_matmul_tl_w2a8_normed),
+    KernelSpec("ternary_matmul_tl_bf16_normed", "cuda",
+               "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
+               "bitnet_tpu/ops/ternary_matmul.py:733",
+               ternary_matmul_tl_bf16_normed),
 )
 
 

@@ -16,7 +16,28 @@ K6 :func:`ternary_matmul_bf16` replaces the ``_qk256_kernel`` body of
 activations times the biased codes with f32 accumulation, the
 ``--kernel-path pallas`` route.
 
-All three take the whole ``[L, Kp/16, Np]`` stack and a Python layer
+The per-32-row block-scale kernels of the bitnet32 / TL weights
+(``lut_bias`` picks the bitnet32 LUT {-2,-1,1,2} or the TL levels
+{-2,-1,0,1}; both have zero point 2):
+
+K10 :func:`ternary_matmul_blockscale_bf16` replaces the ``_bitnet32_kernel``
+body of ``_ternary_matmul_2d`` (``:1152-1177``) and its stacked twin
+``ternary_matmul_stacked_tl`` (``:555``): bf16 activations times the
+*biased* scaled weights ``bf16(v·s)``, f32 accumulation, minus the
+correction ``2·(sum32 @ s)``, an f32 matmul that runs outside the kernel
+in plain PyTorch as it runs in XLA (``:1163-1166``, ``:535-539``).
+
+K11 :func:`ternary_matmul_tl_w2a8_normed` replaces
+``ternary_matmul_stacked_tl_w2a8`` (``:960``): K1's preamble and int8 rows,
+then ``y = sx·Σ_b s[b,n]·(Σ_{k∈b} q·v − 2·Σ_{k∈b} q)`` with exact int32
+block partials, plus the residual; decode rows M ≤ 2.
+
+K12 :func:`ternary_matmul_tl_bf16_normed` replaces
+``ternary_matmul_stacked_tl_fused`` (``:733``): the same preamble ending in
+bf16 rows, times the *unbiased* weights ``bf16((v−2)·s)``, f32
+accumulation, plus the residual; pools of M = 3…64.
+
+All take the whole ``[L, Kp/16, Np]`` stack and a Python layer
 index, as the JAX stacked wrappers do; on a GPU ``packed[l]`` is a view,
 so the layer slice costs nothing.  An unstacked ``[Kp/16, Np]`` weight is
 the stack of one layer.  Each wrapper launches its CUDA kernel for CUDA
@@ -34,6 +55,7 @@ from __future__ import annotations
 
 import torch
 
+from ..errors import KernelError
 from . import _cuda
 from .linear import TernaryLinear, linear_apply_normed, unpack_packed
 
@@ -311,6 +333,265 @@ ternary_matmul_bf16.launches = 0
 
 
 # --------------------------------------------------------------------------
+# K10-K12: per-32-row block scales (bitnet32 / TL weights)
+# --------------------------------------------------------------------------
+def block_values(words: torch.Tensor, lut_bias: bool) -> torch.Tensor:
+    """[Kp/16, Np] words → [Kp, Np] int32 biased values: c + (c>>1) ∈
+    {0,1,3,4} for bitnet32 (``lut_bias``), c ∈ {0..3} for TL."""
+    c = unpack_packed(words).to(torch.int32)
+    return c + (c >> 1) if lut_bias else c
+
+
+def block_weights(words: torch.Tensor, scales: torch.Tensor, lut_bias: bool,
+                  unbiased: bool) -> torch.Tensor:
+    """bf16 [Kp, Np] weights ``bf16(v·s32)`` (biased, as ``:156``) or
+    ``bf16((v−2)·s32)`` (``unbiased``, as ``:633``); scales [Kp/32, Np]."""
+    v = block_values(words, lut_bias) - (2 if unbiased else 0)
+    s32 = torch.repeat_interleave(scales.to(torch.float32), 32, dim=0)
+    return (v.to(torch.float32) * s32).to(torch.bfloat16)
+
+
+def ternary_matmul_blockscale_bf16_plain(xb, corr, words, scales, n_dim,
+                                         lut_bias, dtype):
+    """K10 on one layer: bf16 rows [M, Kp] × the biased scaled weights,
+    f32 sums, minus ``corr`` [M, Np] (``2·(sum32 @ s)``), cast to ``dtype``."""
+    acc = torch.matmul(xb.to(torch.float32),
+                       block_weights(words, scales, lut_bias, False).to(torch.float32))
+    return (acc - corr)[:, :n_dim].to(dtype)
+
+
+def _check_block_stack(packed, scales, l, k_dim):
+    if packed.dtype != torch.int32 or packed.ndim != 3:
+        raise ValueError(f"packed must be int32 [L, Kp/16, Np], got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    L, R, Np = packed.shape
+    if not 0 <= l < L:
+        raise IndexError(f"layer {l} out of range [0, {L})")
+    if tuple(scales.shape) != (L, R // 2, Np) or scales.dtype != torch.float32:
+        raise ValueError(f"scales must be f32 [{L}, {R // 2}, {Np}], got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if not (packed.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("packed and scales must be contiguous")
+    if Np % 64 or not 0 < k_dim <= R * 16:
+        raise ValueError(f"block-scale kernels need Np % 64 == 0 and K <= Kp, "
+                         f"got Np={Np} K={k_dim} Kp={R * 16}")
+    return L, R * 16, Np
+
+
+def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor,
+                                   scales: torch.Tensor, k_dim: int, n_dim: int,
+                                   lut_bias: bool) -> torch.Tensor:
+    """K10: ``x @ W[l]`` for bitnet32 / TL weights, any M; x [M, K] (already
+    normed / activated), zero-padded to Kp and rounded to bf16 (the JAX
+    wrappers pad in f32, then round: the same values).  Returns [M, n_dim]
+    in x's dtype.  The correction ``2·(sum32 @ scales[l])`` sums the same
+    bf16-rounded values in f32 and is an f32 matmul here, as in XLA
+    (``Precision.HIGHEST``; the matmul is never TF32, PyTorch's default)."""
+    L, Kp, Np = _check_block_stack(packed, scales, l, k_dim)
+    if x.ndim != 2 or x.shape[1] != k_dim:
+        raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
+    if n_dim > Np:
+        raise ValueError(f"n_dim {n_dim} > Np {Np}")
+    M = x.shape[0]
+    xb = torch.nn.functional.pad(x.to(torch.bfloat16), (0, Kp - k_dim)).contiguous()
+    sum32 = xb.to(torch.float32).view(M, Kp // 32, 32).sum(dim=-1)
+    corr = 2.0 * torch.matmul(sum32, scales[l])
+    if x.device.type == "cpu":
+        return ternary_matmul_blockscale_bf16_plain(xb, corr, packed[l], scales[l],
+                                                    n_dim, lut_bias, x.dtype)
+    if not x.is_cuda or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K10 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
+    if packed.get_device() != x.get_device() or scales.get_device() != x.get_device():
+        raise ValueError("K10 operands must be on x's device")
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_blockscale_bf16(
+        xb.data_ptr(), M, Kp, packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scales.data_ptr() + 4 * l * scales.stride(0), corr.data_ptr(),
+        out.data_ptr(), n_dim, int(lut_bias), _DTYPE_CODE[x.dtype],
+        _cuda.stream_ptr(x.device))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_blockscale_bf16")
+    ternary_matmul_blockscale_bf16.launches += 1
+    return out
+
+
+ternary_matmul_blockscale_bf16.launches = 0
+
+
+def tl_block_partials(xq: torch.Tensor, words: torch.Tensor,
+                      lut_bias: bool) -> torch.Tensor:
+    """K11's exact integer parts: int8 rows [M, Kp] × the biased values of
+    words [Kp/16, Np] → int32 [Kp/32, M, Np], ``Σ_{k∈b} q·v − 2·Σ_{k∈b} q``
+    per 32-row block b.  The float products are exact (|partial| ≤
+    127·4·32 < 2^24), on the CPU and on the card."""
+    M, Kp = xq.shape
+    nb = Kp // 32
+    q = xq.to(torch.float32).view(M, nb, 32).transpose(0, 1)         # [nb, M, 32]
+    v = block_values(words, lut_bias).to(torch.float32).view(nb, 32, -1)
+    sq = xq.to(torch.int32).view(M, nb, 32).sum(dim=-1, dtype=torch.int32).t()
+    return torch.bmm(q, v).to(torch.int32) - 2 * sq[..., None]
+
+
+def ternary_matmul_tl_w2a8_normed_plain(x, words, scales, gamma, eps, glu,
+                                        resid, n_dim, lut_bias):
+    """K11 on one layer: scales [Kp/32, Np], gamma [Kp] or None."""
+    xq, sx, _ = quantize_rows(w2a8_preamble_plain(x, gamma, eps, glu))
+    part = tl_block_partials(xq, words, lut_bias).to(torch.float32)
+    y = (part * scales.to(torch.float32)[:, None, :]).sum(dim=0)[:, :n_dim]
+    y = y * sx[:, None]
+    if resid is not None:
+        y = y + resid.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def ternary_matmul_tl_bf16_normed_plain(x, words, scales, gamma, eps, glu,
+                                        resid, n_dim, lut_bias):
+    """K12 on one layer: the preamble rounded to bf16 × the unbiased scaled
+    weights, f32 sums, plus the residual."""
+    xb = w2a8_preamble_plain(x, gamma, eps, glu).to(torch.bfloat16)
+    y = torch.matmul(xb.to(torch.float32),
+                     block_weights(words, scales, lut_bias, True).to(torch.float32))
+    y = y[:, :n_dim]
+    if resid is not None:
+        y = y + resid.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _check_normed_block(what, l, x, packed, scales, gamma, k_dim, n_dim, glu,
+                        resid, max_m, max_k=None):
+    """The shared checks of K11 and K12 (the fused TL sites need K == Kp:
+    the in-kernel norm cannot see column padding, ``:690-693``).  ``max_k``:
+    the widest row the CUDA kernel holds on chip."""
+    L, Kp, Np = _check_block_stack(packed, scales, l, k_dim)
+    if k_dim != Kp:
+        raise KernelError(f"{what} needs k_dim == Kp ({k_dim} != {Kp}); use "
+                          "ternary_matmul_blockscale_bf16")
+    M = x.shape[0]
+    if x.ndim != 2 or x.shape[1] != (2 * k_dim if glu else k_dim):
+        raise ValueError(f"x must be [M, {2 * k_dim if glu else k_dim}], got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= M <= max_m:
+        raise KernelError(f"{what} takes 1..{max_m} rows, got {M}")
+    if n_dim > Np:
+        raise ValueError(f"n_dim {n_dim} > Np {Np}")
+    if gamma is not None and tuple(gamma.shape) != (L, k_dim):
+        raise ValueError(f"gamma must be [{L}, {k_dim}]")
+    if resid is not None and (tuple(resid.shape) != (M, n_dim)
+                              or resid.dtype != x.dtype):
+        raise ValueError(f"resid must be [{M}, {n_dim}] {x.dtype}")
+    if x.device.type == "cpu":
+        return False
+    if not x.is_cuda or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what} takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
+    if max_k is not None and k_dim > max_k:
+        raise KernelError(f"{what} holds rows of up to {max_k} values, got K={k_dim}")
+    dev_i = x.get_device()
+    tensors = [x, packed, scales] + [t for t in (gamma, resid) if t is not None]
+    if any(t.get_device() != dev_i or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} operands must be contiguous on x's device")
+    if gamma is not None and gamma.dtype != torch.float32:
+        raise ValueError("gamma must be f32")
+    return True
+
+
+# the Pallas kernel's M cap (``:916-919``): the selection rule (B <= 2 → K11,
+# else K12) keeps it, because the two compute different functions
+TL_W2A8_MAX_M = 2
+# K11 keeps a row's int8 values in shared memory, as K1's one-launch path
+TL_W2A8_MAX_K = 8192
+
+
+def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
+                                  scales: torch.Tensor, gamma: torch.Tensor | None,
+                                  k_dim: int, n_dim: int, eps: float = 1e-5,
+                                  glu: bool = False,
+                                  resid: torch.Tensor | None = None,
+                                  lut_bias: bool = False) -> torch.Tensor:
+    """K11: ``[resid +] W2A8(norm(glu(x))) @ W[l]`` with per-32-row block
+    scales, M ≤ 2.  x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed
+    [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None."""
+    if not _check_normed_block("K11", l, x, packed, scales, gamma, k_dim, n_dim,
+                               glu, resid, TL_W2A8_MAX_M, TL_W2A8_MAX_K):
+        return ternary_matmul_tl_w2a8_normed_plain(
+            x, packed[l], scales[l], None if gamma is None else gamma[l], eps,
+            glu, resid, n_dim, lut_bias)
+    out = _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu,
+                          resid, lut_bias)[0]
+    ternary_matmul_tl_w2a8_normed.launches += 1
+    return out
+
+
+def _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
+                    lut_bias):
+    """Launch K11 on checked operands.  Returns (out, scratch): the int8
+    rows, their scales and their sums (``xq | sx | sumq``), as K1's."""
+    M, Np = x.shape[0], packed.shape[2]
+    dev = x.device
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
+    scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
+    p = scratch.data_ptr()
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_tl_w2a8_normed(
+        x.data_ptr(), x.shape[1], M, k_dim, int(glu),
+        None if gamma is None else gamma.data_ptr() + 4 * l * k_dim, eps,
+        packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scales.data_ptr() + 4 * l * scales.stride(0),
+        None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
+        p, p + M * k_dim, p + M * k_dim + 4 * M, int(lut_bias),
+        _DTYPE_CODE[x.dtype], _cuda.stream_ptr(dev))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_tl_w2a8_normed")
+    return out, scratch
+
+
+def _tl_w2a8_cuda(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
+                  lut_bias):
+    """K11 with its int8 rows, scales and row sums, so a check can hold them
+    against K1's.  Counts no launch."""
+    out, scratch = _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps,
+                                   glu, resid, lut_bias)
+    M, MK = x.shape[0], x.shape[0] * k_dim
+    return (out, scratch[:MK].view(M, k_dim),
+            scratch[MK:MK + 4 * M].view(torch.float32),
+            scratch[MK + 4 * M:].view(torch.int32))
+
+
+ternary_matmul_tl_w2a8_normed.launches = 0
+
+
+def ternary_matmul_tl_bf16_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
+                                  scales: torch.Tensor, gamma: torch.Tensor | None,
+                                  k_dim: int, n_dim: int, eps: float = 1e-5,
+                                  glu: bool = False,
+                                  resid: torch.Tensor | None = None,
+                                  lut_bias: bool = False) -> torch.Tensor:
+    """K12: ``[resid +] bf16(norm(glu(x))) @ W[l]`` with the unbiased
+    block-scaled weights, M ≤ 64 (one M block).  Operands as K11's."""
+    if not _check_normed_block("K12", l, x, packed, scales, gamma, k_dim, n_dim,
+                               glu, resid, STACKED_DECODE_MAX_M):
+        return ternary_matmul_tl_bf16_normed_plain(
+            x, packed[l], scales[l], None if gamma is None else gamma[l], eps,
+            glu, resid, n_dim, lut_bias)
+    M, Np = x.shape[0], packed.shape[2]
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    xb = torch.empty((M, k_dim), dtype=torch.bfloat16, device=x.device)
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_tl_bf16_normed(
+        x.data_ptr(), x.shape[1], M, k_dim, int(glu),
+        None if gamma is None else gamma.data_ptr() + 4 * l * k_dim, eps,
+        packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scales.data_ptr() + 4 * l * scales.stride(0),
+        None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
+        xb.data_ptr(), int(lut_bias), _DTYPE_CODE[x.dtype],
+        _cuda.stream_ptr(x.device))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_tl_bf16_normed")
+    ternary_matmul_tl_bf16_normed.launches += 1
+    return out
+
+
+ternary_matmul_tl_bf16_normed.launches = 0
+
+
+# --------------------------------------------------------------------------
 # the generic path's dispatcher (JAX: ternary_matmul_pallas)
 # --------------------------------------------------------------------------
 def ternary_matmul_pallas(lin: TernaryLinear, x: torch.Tensor,
@@ -320,7 +601,8 @@ def ternary_matmul_pallas(lin: TernaryLinear, x: torch.Tensor,
                           resid: torch.Tensor | None = None,
                           layer: int = 0) -> torch.Tensor:
     """``[resid +] rms_norm(glu(x), gamma) @ W`` through the port's kernels,
-    ``variant`` ``'w2a8'`` (K1, or K4) or ``'pallas'`` (K6): the JAX
+    ``variant`` ``'w2a8'`` (K1, or K4) or ``'pallas'`` (K6), K10 for
+    bitnet32 / TL weights on either: the JAX
     dispatcher of this name (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
     Its branch rule lives in :func:`~.linear.linear_apply_normed`, which
     shares the SwiGLU / norm / residual steps with the ``xla`` path."""

@@ -47,3 +47,17 @@ def unpack_codes_lsb_first(packed: np.ndarray, n: int | None = None) -> np.ndarr
     if n is not None:
         out = out[:n]
     return out
+
+
+def block_absmax_scale(x: np.ndarray, block: int) -> tuple[np.ndarray, np.ndarray]:
+    """Split flat ``x`` into blocks and compute GGML ``d = absmax/2`` scales.
+    Returns (blocked_x [nblocks, block] zero-padded, d [nblocks])."""
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    nblocks = -(-x.size // block)
+    padded = np.zeros(nblocks * block, dtype=np.float32)
+    padded[: x.size] = x
+    blocked = padded.reshape(nblocks, block)
+    absmax = np.abs(blocked).max(axis=1)
+    absmax = np.where(absmax == 0.0, 1e-8, absmax)
+    d = absmax / 2.0
+    return blocked, d.astype(np.float32)

@@ -6,19 +6,21 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases probe,build,kernels
     python3 chip_smoke.py --phases probe,build,kernels,batched
+    python3 chip_smoke.py --phases probe,build,kernels,tl
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
   probe    nvidia-smi name / power limit and the sm version
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
   kernels  each kernel against its plain PyTorch version at the shapes of
-           the fused and the generic path, and of pools and int8 / fp8
-           caches: error, median ms (CUDA events), bound, plain and
-           library ms
+           the fused and the generic path, of pools and int8 / fp8 caches,
+           and of bitnet32 / TL weights: error, median ms (CUDA events),
+           bound, plain and library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
-           int8 cache: greedy tokens and per-step logits cosine
+           int8 cache; re-quantized to TL2 and as bitnet32, fused (B=1, 3)
+           and unfused: greedy tokens and per-step logits cosine
   serving  the full bitnet-b1.58-2B-4T shapes (random weights from a seed)
            serve 3 requests on the fused stacked path; launch counts per
            step, determinism, timings
@@ -26,11 +28,16 @@ no result line):
            int8, fp8) and 64 (int8) with prompts of 32-500 tokens, and
            generate at B=1 with a 4096-token auto (int8) cache; launch
            counts per step, determinism, prefill / decode timings
+  tl       the same shapes with TL1-re-quantized weights (fused B=1, a
+           pool of 8) and a bitnet32 model (the CLI's unfused engine), and
+           a 2-layer bitnet32 model whose FFN width is not a multiple of
+           256; launch counts per request
   generic  the same shapes unfused, as the CLI builds the engine (auto →
            w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
            sampling twice, then one greedy request on kernel_path="pallas"
-  cli      `python -m bitnet_tpu_torch.cli run` on a mini QK256 GGUF
-           written by the port's own fixtures, on the card
+  cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
+           --weight-quant tl2) and BitNet32 GGUFs written by the port's own
+           fixtures, on the card
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -52,7 +59,7 @@ REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
-PHASES = ("probe", "build", "kernels", "parity", "serving", "batched",
+PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "generic", "cli")
 
 
@@ -147,7 +154,7 @@ def phase_kernels(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(1234)
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
-           "k8": [], "k9": [], "k3q": []}
+           "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
@@ -157,6 +164,8 @@ def phase_kernels(torch, dev):
     check_k7(torch, dev, g, res)
     check_k8_k9(torch, dev, g, res)
     check_k3_quant(torch, dev, g, res)
+    check_k10(torch, dev, g, res)
+    check_k11_k12(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -657,6 +666,157 @@ def check_k3_quant(torch, dev, g, res):
         del kc, vc, ks, vs, ref
 
 
+def _block_stack(torch, g, K, N, dev, min_bytes=120 << 20):
+    """Words and f32 block scales [L, K/32, N] (f16 values in the loader's
+    range), enough layers that cycling through them exceeds the L2."""
+    L = max(2, math.ceil(min_bytes / (K * N // 4 + K * N // 8)))
+    words = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+    s = (torch.rand((L, K // 32, N), generator=g, device=dev) * 0.02 + 0.01).half().float()
+    return words, s
+
+
+def _dense_block_stack(torch, words, s, lut_bias, min_bytes=120 << 20):
+    """bf16 dense copies (the dequantized weights, value times scale) of the
+    first layers of a block-scale stack: the library yardstick's weights."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    K, N = words.shape[1] * 16, words.shape[2]
+    n = min(words.shape[0], max(2, math.ceil(min_bytes / (K * N * 2))))
+    return [tm.block_weights(words[l], s[l], lut_bias, True) for l in range(n)]
+
+
+def _block_bytes(M, K, N, x_bytes, out_bytes, extra=0):
+    """Words, f32 block scales, activations and outputs of one call."""
+    return K * N // 4 + K * N // 8 + M * K * x_bytes + M * N * out_bytes + extra
+
+
+def check_k10(torch, dev, g, res):
+    """K10 (bf16 rows x the biased block-scaled weights, f32 sums, minus the
+    f32 correction) against its plain version: the generic path's seven
+    unfused shapes at M in {1, 2} (timed at M=1, the ``:1177`` site's
+    decode), the fused four at M in {1, 512} (M=1: the stacked ``:555``
+    site's decode; M=512: a prefill bucket), lut_bias both ways."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for path, shapes, Ms in (("unfused", UNFUSED_SHAPES, (1, 2)),
+                             ("fused", K1_SHAPES, (1, 512))):
+        for name, K, N, _g, _glu, _r in shapes:
+            words, s = _block_stack(torch, g, K, N, dev)
+            L = words.shape[0]
+            for M in Ms:
+                for lut_bias in (False, True):
+                    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+                    l = 1
+                    out = tm.ternary_matmul_blockscale_bf16(l, x, words, s, K, N, lut_bias)
+                    corr = 2.0 * torch.matmul(x.float().view(M, K // 32, 32).sum(-1), s[l])
+                    plain = tm.ternary_matmul_blockscale_bf16_plain(
+                        x, corr, words[l], s[l], N, lut_bias, x.dtype)
+                    err = (out.float() - plain.float()).abs().max().item()
+                    ref = plain.float().abs().max().item()
+                    # float tolerance: the f32 sums run in another order
+                    # (tensor-core tiles vs one matmul), which can move a
+                    # bf16 output by one ulp; two ulps of the largest output
+                    tol = 8e-3 * ref
+                    row = {"path": path, "shape": name, "M": M, "K": K, "N": N,
+                           "lut_bias": lut_bias, "max_abs_err": err, "ref_max": ref,
+                           "tol": tol, "ok": err <= tol}
+                    if not lut_bias:          # timed on TL weights
+                        row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_blockscale_bf16(
+                            i % L, x, words, s, K, N, False), L)
+                        row["plain_ms"] = time_ms(torch, lambda i: (
+                            tm.ternary_matmul_blockscale_bf16_plain(
+                                x, corr, words[i % L], s[i % L], N, False, x.dtype)), 4)
+                        dense = _dense_block_stack(torch, words, s, False)
+                        row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                            x, dense[i % len(dense)]), 2 * len(dense))
+                        del dense
+                        row["bound_ms"], row["bound_by"] = bound(
+                            _block_bytes(M, K, N, 2, 2, M * N * 4), 2.0 * M * K * N, "bf16")
+                    res["k10"].append(row)
+                    if not row["ok"]:
+                        raise AssertionError(f"K10 mismatch: {row}")
+            del words, s
+
+
+def check_k11_k12(torch, dev, g, res, eps=1e-5):
+    """K11 (W2A8 with block scales, M in {1, 2}) and K12 (bf16 rows x the
+    unbiased block-scaled weights, M in {8, 64}) at the fused path's four
+    shapes, against their plain versions, lut_bias both ways.  K11's int8
+    rows are K1's on the same input bit for bit, and its output equals the
+    exact block partials of its own rows to f32 rounding."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for name, K, N, has_g, glu, has_r in K1_SHAPES:
+        words, s = _block_stack(torch, g, K, N, dev)
+        L = words.shape[0]
+        gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
+        ones = torch.ones((L, N), device=dev)
+        for key, Ms in (("k11", (1, 2)), ("k12", (8, 64))):
+            fn = (tm.ternary_matmul_tl_w2a8_normed if key == "k11"
+                  else tm.ternary_matmul_tl_bf16_normed)
+            pfn = (tm.ternary_matmul_tl_w2a8_normed_plain if key == "k11"
+                   else tm.ternary_matmul_tl_bf16_normed_plain)
+            for M in Ms:
+                for lut_bias in (False, True):
+                    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
+                                    ).to(torch.bfloat16)
+                    resid = (torch.randn((M, N), generator=g, device=dev)
+                             .to(torch.bfloat16) if has_r else None)
+                    l = 1
+                    g_l = None if gamma is None else gamma[l]
+                    out = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
+                    plain = pfn(x, words[l], s[l], g_l, eps, glu, resid, N, lut_bias)
+                    err = (out.float() - plain.float()).abs().max().item()
+                    ref = plain.float().abs().max().item()
+                    # float tolerance: K1's for K11 (an int8 activation one
+                    # step off at a rounding boundary); for K12 a bf16 row
+                    # value one ulp off plus two ulps of output rounding
+                    tol = 2e-2 * ref + 1e-3 if key == "k11" else 1e-2 * ref + 1e-3
+                    row = {"shape": name, "M": M, "K": K, "N": N, "lut_bias": lut_bias,
+                           "max_abs_err": err, "ref_max": ref, "tol": tol}
+                    ok = err <= tol
+                    if key == "k11":
+                        out2, xq, sx, sumq = tm._tl_w2a8_cuda(l, x, words, s, gamma, K, N,
+                                                              eps, glu, resid, lut_bias)
+                        _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(l, x, words, ones,
+                                                                   gamma, K, N, eps, glu,
+                                                                   None)
+                        part = tm.tl_block_partials(xq, words[l], lut_bias).float()
+                        y = (part * s[l][:, None, :]).sum(0) * sx[:, None]
+                        if resid is not None:
+                            y = y + resid.float()
+                        row["rows_equal_k1"] = bool(torch.equal(xq, xq1) and torch.equal(
+                            sx, sx1) and torch.equal(sumq, sumq1))
+                        row["wrapper_equals_launch"] = bool(torch.equal(out, out2))
+                        # the bf16 output is y rounded once (f32 order aside)
+                        row["partials_epilogue_ok"] = bool(
+                            ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-6).all())
+                        ok = ok and row["rows_equal_k1"] and row["wrapper_equals_launch"] \
+                            and row["partials_epilogue_ok"]
+                    row["ok"] = ok
+                    timed = not lut_bias and M in (1, 8)
+                    if timed:
+                        row["ms"] = time_ms(torch, lambda i: fn(
+                            i % L, x, words, s, gamma, K, N, eps, glu, resid, False), L)
+                        row["plain_ms"] = time_ms(torch, lambda i: pfn(
+                            x, words[i % L], s[i % L], g_l, eps, glu, resid, N, False), 4)
+                        dense = _dense_block_stack(torch, words, s, False)
+                        xin = tm.w2a8_preamble_plain(x, g_l, eps, glu).to(torch.bfloat16)
+                        row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                            xin, dense[i % len(dense)]), 2 * len(dense))
+                        del dense
+                        nbytes = _block_bytes(M, K, N, 0, 2, x.numel() * 2
+                                              + (M * N * 2 if has_r else 0)
+                                              + (K * 4 if has_g else 0))
+                        row["bound_ms"], row["bound_by"] = bound(
+                            nbytes, 2.0 * M * K * N, "int8" if key == "k11" else "bf16")
+                    res[key].append(row)
+                    if not ok:
+                        raise AssertionError(f"{key.upper()} mismatch: {row}")
+        del words, s
+
+
 # One summary entry per TPU kernel site: (entry name, kernel id, the site
 # it replaces, the serving phase whose launches it reports, the kernels-phase
 # rows it sums).  A kernel that serves two sites has an entry for each, timed
@@ -688,6 +848,15 @@ SITES = (
     ("decode_attention_quant_batched", "decode_attention_quant_batched",
      f"{DA}_v2.py:820", "batched", "k9",
      lambda r: "ms" in r and r["S"] == 1024 and r["B"] == 8 and r["kv"] == "int8"),
+    ("ternary_matmul_tl_w2a8_normed", "ternary_matmul_tl_w2a8_normed", f"{TM}:960",
+     "tl_b1", "k11", lambda r: "ms" in r and r["M"] == 1),
+    ("ternary_matmul_tl_bf16_normed", "ternary_matmul_tl_bf16_normed", f"{TM}:733",
+     "tl_pool", "k12", lambda r: "ms" in r and r["M"] == 8),
+    ("ternary_matmul_blockscale_bf16", "ternary_matmul_blockscale_bf16", f"{TM}:555",
+     "tl_unaligned", "k10", lambda r: "ms" in r and r["path"] == "fused" and r["M"] == 1),
+    ("ternary_matmul_blockscale_bf16 (unstacked)", "ternary_matmul_blockscale_bf16",
+     f"{TM}:1177 (bitnet32/TL body)", "tl_generic", "k10",
+     lambda r: "ms" in r and r["path"] == "unfused" and r["M"] == 1),
 )
 
 
@@ -787,7 +956,9 @@ def phase_parity(torch, dev):
     bitnet_tpu_torch.tools.parity_probe``), so a near-tie may go either
     way.  The fused stacked path (slice 1) also requires equal tokens at
     f32.  The unfused generic path runs as the CLI builds it (bf16
-    activations and tied head) on kernel paths w2a8 and pallas."""
+    activations and tied head) on kernel paths w2a8 and pallas.  Slice 4
+    adds the model re-quantized to TL2 and a bitnet32 model, each fused at
+    B = 1 and in a pool of 3, and generic."""
     from bitnet_tpu_torch.config import EngineConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
@@ -814,11 +985,22 @@ def phase_parity(torch, dev):
               ("fused_auto_B8", EngineConfig(kv_cache_dtype="auto", max_batch_size=8,
                                              **fused)),
               ("unfused_int8", EngineConfig(max_seq_len=256, kv_cache_dtype="int8"))]
+    # slice 4: TL2 re-quantization of the same model and a bitnet32 model,
+    # fused at B = 1 (K11) and in a pool of 3 (K12), and generic (K10)
+    b32 = build_synthetic(cfg, seed=7, device="cpu", kind="bitnet32")
+    tl_fused = dict(fused, kv_cache_dtype="bf16")
+    for kind, wq, p in (("tl2", "tl2", params), ("bitnet32", "none", b32)):
+        cases += [(f"{kind}_fused_B1", EngineConfig(weight_quant=wq, **tl_fused), p),
+                  (f"{kind}_fused_B3", EngineConfig(weight_quant=wq, max_batch_size=3,
+                                                    **tl_fused), p),
+                  (f"{kind}_generic", EngineConfig(max_seq_len=256, weight_quant=wq), p)]
     gen = torch.Generator().manual_seed(5)
     out = {}
-    for name, ec in cases:
-        eg = InferenceEngine(cfg, params, ec, device=dev)
-        ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    for case in cases:
+        name, ec = case[:2]
+        p = case[2] if len(case) > 2 else params
+        eg = InferenceEngine(cfg, p, ec, device=dev)
+        ecpu = InferenceEngine(cfg, p, ec, device="cpu")
         B = ec.max_batch_size
         if B > 1:
             pool = [[int(t) for t in torch.randint(0, cfg.vocab_size,
@@ -1014,6 +1196,154 @@ def phase_batched(torch, dev):
     return {"runs": runs, "launch_totals": totals, "ok": True}
 
 
+def phase_tl(torch, dev):
+    """Slice 4 at the full 2B-4T shapes: bitnet32 and TL weights.
+    (a) the synthetic QK256 model (seed 0) re-quantized with
+    ``weight_quant="tl1"``, fused, B = 1, bf16 KV, int8 head, prompts of
+    32 / 128 / 500 tokens, greedy, twice (equal tokens): per step K11 4L,
+    K2 L, K3 1; per prefill K10 4L (the layer loop: the stacked prefill
+    takes qk256 only).  (b) the same weights as a pool of 8 over bf16 KV:
+    per step K12 4L, K8 L, K3 1.  (c) a synthetic bitnet32 model on the
+    CLI's unfused engine (auto → w2a8, bf16 KV and tied head): per step
+    K10 7L and K5 L, per prefill K10 7L.  (d) one request on a 2-layer
+    bitnet32 model whose FFN width (6784) is a multiple of 128 but not of
+    256: the stacked loop runs K10 on the stacked weights (``:555``), 4L a
+    step and a prefill.  32 new tokens a request; launch counts checked
+    per request, zeroed before it and read after."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+    from bitnet_tpu_torch.ops import registry
+
+    cfg = BITNET_2B4T
+    L, V = cfg.num_layers, cfg.vocab_size
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    prompts = _prompts(torch, cfg)
+    gen = torch.Generator().manual_seed(31)
+    pool8 = [[int(t) for t in torch.randint(0, V, (int(k),), generator=gen)]
+             for k in torch.randint(32, 501, (8,), generator=gen)]
+    fused = dict(kv_cache_dtype="bf16", logits_dtype="int8", kernel_path="w2a8",
+                 fuse_projections=True)
+
+    def run(name, eng, reqs, want, Lm=L):
+        """Each request with the counts zeroed before it; ``want(steps, Lm)``
+        the expected counts (every other kernel 0)."""
+        out, rows, totals = [], [], {}
+        for req in reqs:
+            registry.reset_launch_counts()
+            if len(req) > 1 or eng.engine_cfg.max_batch_size > 1:
+                toks = [r.token_ids for r in eng.generate_batch(req, gc)]
+            else:
+                toks = [eng.generate(req[0], gc).token_ids]
+            n = registry.launch_counts()
+            m = eng.last_metrics
+            steps = m.decode_steps
+            expect = {k.kernel_id: 0 for k in registry.REGISTRY}
+            expect.update(want(steps, Lm))
+            if n != expect:
+                raise AssertionError(f"{name}: launch counts {n} != {expect}")
+            if any(len(t) != 32 or not all(0 <= x < V for x in t) for t in toks):
+                raise AssertionError(f"{name}: a request did not give 32 tokens")
+            generated = sum(len(t) for t in toks)
+            rows.append({"case": name, "prompts": len(req),
+                         "prompt_tokens": sum(len(p) for p in req),
+                         "generated": generated, "decode_steps": steps,
+                         "prefill_ms": m.prefill_s * 1e3,
+                         "decode_ms_per_step": m.decode_s * 1e3 / max(steps, 1),
+                         "decode_tok_s": generated / m.decode_s if m.decode_s else 0.0,
+                         "launches": n})
+            _add(totals, n)
+            out.append(toks)
+        return out, rows, totals
+
+    runs, launches = [], {}
+    t0 = time.perf_counter()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=1024, weight_quant="tl1",
+                                                    **fused), device=dev)
+    torch.cuda.synchronize()
+    requant_s = time.perf_counter() - t0
+    if not (eng.stacked_decode() and eng.params.blocks.wqkv.kind == "tl"
+            and "ternary_matmul_tl_w2a8_stacked" in eng.kernel_recorder):
+        raise AssertionError("(a) is not on the stacked TL W2A8 loop")
+    eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+
+    def want_a(steps, Lm):
+        return {"ternary_matmul_tl_w2a8_normed": 4 * Lm * steps,
+                "decode_attention_qkv": Lm * steps, "scatter_kv_rows": steps,
+                "ternary_matmul_blockscale_bf16": 4 * Lm}
+    first = None
+    launches["tl_b1"] = {}
+    for rep in range(2):
+        toks, rows, tot = run("a_tl1_B1", eng, [[p] for p in prompts], want_a)
+        runs += [dict(r, rep=rep) for r in rows]
+        _add(launches["tl_b1"], tot)
+        if first is None:
+            first = toks
+        elif toks != first:
+            raise AssertionError("(a): two runs gave different tokens")
+    del eng
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=1024, weight_quant="tl1",
+                                                    max_batch_size=8, **fused), device=dev)
+    del params
+    if eng.decode_plan() != "batched_v2" or not eng.stacked_decode():
+        raise AssertionError("(b) is not on the stacked batched_v2 loop")
+    eng.generate_batch([p[:8] for p in pool8[:2]],
+                       GenerationConfig(max_new_tokens=2, greedy=True))
+
+    def want_b(steps, Lm):
+        return {"ternary_matmul_tl_bf16_normed": 4 * Lm * steps,
+                "decode_attention_batched": Lm * steps, "scatter_kv_rows": steps,
+                "ternary_matmul_blockscale_bf16": 4 * Lm}
+    _t, rows, launches["tl_pool"] = run("b_tl1_B8", eng, [pool8], want_b)
+    runs += rows
+    del eng
+    torch.cuda.empty_cache()
+
+    b32 = build_synthetic(cfg, seed=0, device=dev, kind="bitnet32")
+    eng = InferenceEngine(cfg, b32, EngineConfig(max_seq_len=2048), device=dev)
+    del b32
+    if eng.kernel_path != "w2a8" or eng.params.blocks.wqkv is not None:
+        raise AssertionError("(c) must run unfused on w2a8")
+    eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+
+    def want_c(steps, Lm):
+        return {"ternary_matmul_blockscale_bf16": 7 * Lm * (steps + 1),
+                "decode_attention": Lm * steps}
+    _t, rows, launches["tl_generic"] = run("c_bitnet32_generic", eng,
+                                           [[p] for p in prompts], want_c)
+    runs += rows
+    del eng
+    torch.cuda.empty_cache()
+
+    ucfg = cfg.replace(num_layers=2, intermediate_size=6784)
+    ub = build_synthetic(ucfg, seed=0, device=dev, kind="bitnet32")
+    eng = InferenceEngine(ucfg, ub, EngineConfig(max_seq_len=1024, **fused), device=dev)
+    if not eng.stacked_decode():
+        raise AssertionError("(d) must take the stacked loop")
+
+    def want_d(steps, Lm):
+        return {"ternary_matmul_blockscale_bf16": 4 * Lm * (steps + 1),
+                "decode_attention_qkv": Lm * steps, "scatter_kv_rows": steps}
+    _t, rows, launches["tl_unaligned"] = run("d_unaligned_bitnet32", eng,
+                                             [[prompts[0]]], want_d, Lm=2)
+    runs += rows
+    del eng, ub
+    torch.cuda.empty_cache()
+    H, F, KVD = cfg.hidden_size, cfg.intermediate_size, cfg.num_kv_heads * cfg.head_dim
+    n_w = L * (H * (H + 2 * KVD) + H * H + 3 * H * F)
+    words_scales = n_w / 4 + n_w / 8
+
+    def step_bytes(S, head):
+        return words_scales + head + 2 * L * S * KVD * 2
+    return {"requant_build_s": requant_s, "runs": runs, "launch_totals": launches,
+            "decode_bytes_S1024_fused": step_bytes(1024, V * H),
+            "decode_bound_ms_S1024_fused": step_bytes(1024, V * H) / HBM_BPS * 1e3,
+            "decode_bytes_S1024_generic": step_bytes(1024, 2 * V * H),
+            "decode_bound_ms_S1024_generic": step_bytes(1024, 2 * V * H) / HBM_BPS * 1e3,
+            "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
+
+
 def phase_generic(torch, dev):
     """The unfused generic path at the full 2B-4T shapes, engine built as
     the CLI builds it (EngineConfig(max_seq_len=2048): auto → w2a8 on the
@@ -1090,10 +1420,12 @@ def phase_generic(torch, dev):
 
 
 def phase_cli(torch, dev):
-    """``bitnet_tpu_torch.cli run`` on the card, on a mini QK256 GGUF that
-    the port's own fixtures write (hidden 256, F 512, 4/2 heads, embedded
-    vocab): greedy, then seeded sampling; 16 tokens each (EOS banned until
-    16 by --min-new-tokens), through K1 and K5."""
+    """``bitnet_tpu_torch.cli run`` on the card, on mini QK256 and BitNet32
+    GGUFs that the port's own fixtures write (hidden 256, F 512, 4/2 heads,
+    embedded vocab): greedy, then seeded sampling, on the QK256 one (K1 and
+    K5), greedy with ``--weight-quant tl2`` on it and greedy on the
+    BitNet32 one (K10 and K5); 16 tokens each (EOS banned until 16 by
+    --min-new-tokens)."""
     import contextlib
     import io
     import re
@@ -1102,24 +1434,30 @@ def phase_cli(torch, dev):
     from bitnet_tpu_torch.gguf.fixtures import MiniModelSpec, generate_mini_gguf
     from bitnet_tpu_torch.ops import registry
 
-    path = str(OUT_DIR / "mini_qk256.gguf")
-    generate_mini_gguf(path, MiniModelSpec(hidden_size=256, intermediate_size=512,
-                                           num_heads=4, num_kv_heads=2,
-                                           quant="qk256"))
+    paths = {}
+    for quant in ("qk256", "bitnet32"):
+        paths[quant] = str(OUT_DIR / f"mini_{quant}.gguf")
+        generate_mini_gguf(paths[quant], MiniModelSpec(
+            hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
+            quant=quant))
     out = {}
-    for mode, extra in (("greedy", ["--greedy"]), ("seed0", ["--seed", "0"])):
+    mm_b = "ternary_matmul_blockscale_bf16"
+    for mode, quant, extra, mm in (
+            ("greedy", "qk256", ["--greedy"], "ternary_matmul_w2a8_normed"),
+            ("seed0", "qk256", ["--seed", "0"], "ternary_matmul_w2a8_normed"),
+            ("tl2_greedy", "qk256", ["--greedy", "--weight-quant", "tl2"], mm_b),
+            ("bitnet32_greedy", "bitnet32", ["--greedy"], mm_b)):
         registry.reset_launch_counts()
         so, se = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
-            rc = cli.main(["run", "--model", path, "--prompt", "Hello world",
+            rc = cli.main(["run", "--model", paths[quant], "--prompt", "Hello world",
                            "--prompt-template", "raw", "-n", "16",
                            "--min-new-tokens", "16", *extra])
         n = registry.launch_counts()
         m = re.search(r"\[(\d+) tokens", se.getvalue())
         r = {"rc": rc, "text": so.getvalue(), "stderr": se.getvalue(),
              "tokens": int(m.group(1)) if m else None, "launches": n}
-        r["ok"] = (rc == 0 and r["tokens"] == 16
-                   and n["ternary_matmul_w2a8_normed"] > 0
+        r["ok"] = (rc == 0 and r["tokens"] == 16 and n[mm] > 0
                    and n["decode_attention"] > 0)
         out[mode] = r
         if not r["ok"]:
@@ -1185,6 +1523,10 @@ def main(argv=None) -> int:
             s = report["batched"]
             launches["batched"] = s["launch_totals"]
             emit({"phase": "batched", "nvidia_smi": smi, **s})
+        if "tl" in phases:
+            report["tl"] = phase_tl(torch, dev)
+            launches.update(report["tl"]["launch_totals"])
+            emit({"phase": "tl", "nvidia_smi": smi, **report["tl"]})
         if "generic" in phases:
             report["generic"] = phase_generic(torch, dev)
             s = report["generic"]

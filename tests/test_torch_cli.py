@@ -55,9 +55,9 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
 @pytest.mark.parametrize("flags,item", [
     (["--speculative", "4"], "#12"), (["--draft-model", "d.gguf"], "#12"),
     (["--grammar-file", "g.gbnf"], "#15"), (["--json-schema", "any"], "#15"),
-    (["--receipt", "r.json"], "#11"), (["--weight-quant", "tl2"], "#10"),
+    (["--receipt", "r.json"], "#11"),
     (["--sliding-window", "64"], "#7"), (["--kv-cache-dtype", "f32"], "#18"),
-    (["--weight-quant", "tl1"], "#10"), (["--decode-steps", "8"], "#5")])
+    (["--decode-steps", "8"], "#5")])
 def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         cli.main(["run", "--model", mini_gguf_qk256.path, *ARGS,

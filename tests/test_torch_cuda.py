@@ -317,3 +317,150 @@ def test_pool_engine_cuda_matches_cpu(dev, B, kv):
                 | (top2[:, 0] - top2[:, 1] <= (a - b).abs().amax(1))).all()
         lg, lc = eg.decode_batch_step(tok.to(dev), pos), ecpu.decode_batch_step(tok, pos)
         pos = pos + 1
+
+
+# --------------------------------------------------------------------------
+# K10-K12: per-32-row block scales (bitnet32 / TL weights)
+# --------------------------------------------------------------------------
+def _block_words(g, L, K, N, dev, k_live=None):
+    """Words [L, K/16, N] and f32 block scales [L, K/32, N] (rows past
+    ``k_live`` zero, as the loader pads them)."""
+    w = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32,
+                      generator=g, device=dev)
+    s = ((torch.rand((L, K // 32, N), generator=g, device=dev) * 0.02 + 0.01)
+         .half().float())
+    if k_live is not None:
+        s[:, k_live // 32:] = 0
+    return w, s
+
+
+@pytest.mark.parametrize("M,k,lut_bias,dtype", [
+    (1, 512, True, torch.bfloat16), (2, 512, False, torch.float32),
+    (37, 512, True, torch.float32), (200, 768, False, torch.bfloat16),
+    (3, 224, True, torch.bfloat16)])
+def test_k10_matches_plain(dev, M, k, lut_bias, dtype):
+    """bf16 rows × biased scaled weights, f32 sums (another order), minus
+    the same correction: two bf16 ulps of the largest output."""
+    g = torch.Generator(device=dev).manual_seed(M + k)
+    Kp, N = -(-k // 256) * 256, 384
+    w, s = _block_words(g, 2, Kp, N, dev, k_live=k)
+    x = torch.randn((M, k), generator=g, device=dev).to(dtype)
+    out = tm.ternary_matmul_blockscale_bf16(1, x, w, s, k, N, lut_bias)
+    xb = torch.nn.functional.pad(x.bfloat16(), (0, Kp - k))
+    corr = 2.0 * torch.matmul(xb.float().view(M, Kp // 32, 32).sum(-1), s[1])
+    plain = tm.ternary_matmul_blockscale_bf16_plain(xb, corr, w[1], s[1], N,
+                                                    lut_bias, dtype)
+    assert out.dtype == dtype and out.shape == (M, N)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 8e-3 * ref + 1e-6
+
+
+@pytest.mark.parametrize("M,glu,resid,lut_bias", [(1, False, False, False),
+                                                  (2, True, True, True),
+                                                  (1, True, False, True)])
+def test_k11_matches_plain(dev, M, glu, resid, lut_bias):
+    """K11's int8 rows are K1's bit for bit on the same input; its output
+    equals the exact block partials of its own rows to f32 rounding, and
+    the plain version as K1's gate does."""
+    g = torch.Generator(device=dev).manual_seed(10 + M)
+    K, N = 512, 384
+    w, s = _block_words(g, 2, K, N, dev)
+    gamma = torch.rand((2, K), generator=g, device=dev) + 0.5
+    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+    r = torch.randn((M, N), generator=g, device=dev).bfloat16() if resid else None
+    out = tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, K, N, 1e-5, glu, r,
+                                           lut_bias)
+    out2, xq, sx, sumq = tm._tl_w2a8_cuda(1, x, w, s, gamma, K, N, 1e-5, glu, r,
+                                          lut_bias)
+    assert torch.equal(out, out2)
+    sv = torch.ones((2, N), device=dev)
+    _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(1, x, w, sv, gamma, K, N, 1e-5, glu,
+                                               None)
+    assert torch.equal(xq, xq1) and torch.equal(sx, sx1) and torch.equal(sumq, sumq1)
+    part = tm.tl_block_partials(xq, w[1], lut_bias).float()
+    y = (part * s[1][:, None, :]).sum(0) * sx[:, None]
+    if r is not None:
+        y = y + r.float()
+    # the bf16 output is y rounded once: within half an ulp, plus f32 order
+    assert ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-6).all()
+    plain = tm.ternary_matmul_tl_w2a8_normed_plain(x, w[1], s[1], gamma[1], 1e-5,
+                                                   glu, r, N, lut_bias)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * ref + 1e-3
+
+
+@pytest.mark.parametrize("M,glu,resid,lut_bias", [(3, False, False, False),
+                                                  (8, True, True, True),
+                                                  (64, False, True, False)])
+def test_k12_matches_plain(dev, M, glu, resid, lut_bias):
+    g = torch.Generator(device=dev).manual_seed(20 + M)
+    K, N = 512, 384
+    w, s = _block_words(g, 2, K, N, dev)
+    gamma = torch.rand((2, K), generator=g, device=dev) + 0.5
+    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+    r = torch.randn((M, N), generator=g, device=dev).bfloat16() if resid else None
+    out = tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gamma, K, N, 1e-5, glu, r,
+                                           lut_bias)
+    plain = tm.ternary_matmul_tl_bf16_normed_plain(x, w[1], s[1], gamma[1], 1e-5,
+                                                   glu, r, N, lut_bias)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
+
+
+def test_block_wrappers_never_fall_back(dev, monkeypatch):
+    """On a CUDA tensor the K10-K12 wrappers launch their kernels (counted)
+    and never call their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    K, N = 256, 128
+    w, s = _block_words(g, 1, K, N, dev)
+    for name in ("ternary_matmul_blockscale_bf16_plain",
+                 "ternary_matmul_tl_w2a8_normed_plain",
+                 "ternary_matmul_tl_bf16_normed_plain"):
+        monkeypatch.setattr(tm, name, None)
+    before = [tm.ternary_matmul_blockscale_bf16.launches,
+              tm.ternary_matmul_tl_w2a8_normed.launches,
+              tm.ternary_matmul_tl_bf16_normed.launches]
+    x = torch.randn((2, K), generator=g, device=dev).bfloat16()
+    tm.ternary_matmul_blockscale_bf16(0, x, w, s, K, N, False)
+    tm.ternary_matmul_tl_w2a8_normed(0, x, w, s, None, K, N)
+    tm.ternary_matmul_tl_bf16_normed(0, x, w, s, None, K, N)
+    after = [tm.ternary_matmul_blockscale_bf16.launches,
+             tm.ternary_matmul_tl_w2a8_normed.launches,
+             tm.ternary_matmul_tl_bf16_normed.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("wq,B", [("tl2", 1), ("tl1", 3), ("bitnet32", 1)])
+def test_tl_engine_cuda_matches_cpu(dev, wq, B):
+    """A TL re-quantized (or bitnet32) model, fused, on the card against the
+    plain versions on the CPU: the re-quantized codes and scales are equal
+    bit for bit, and the teacher-forced logits keep cosine >= 0.99."""
+    import numpy as np
+
+    from bitnet_tpu_torch.config import EngineConfig, ModelConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import build_synthetic
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=768,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                      max_seq_len=256)
+    kind = "bitnet32" if wq == "bitnet32" else "qk256"
+    params = build_synthetic(cfg, seed=5, device="cpu", kind=kind)
+    ec = EngineConfig(max_seq_len=256, max_batch_size=B, kernel_path="w2a8",
+                      fuse_projections=True,
+                      weight_quant="none" if wq == "bitnet32" else wq)
+    eg = InferenceEngine(cfg, params, ec, device=dev)
+    ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    for n in ("wqkv", "wo", "w_gateup", "w_down"):
+        a, b = getattr(eg.params.blocks, n), getattr(ecpu.params.blocks, n)
+        assert torch.equal(a.packed.cpu(), b.packed) and torch.equal(a.scales.cpu(),
+                                                                      b.scales)
+    prompts = [list(range(7 + i, 30 + 3 * i)) for i in range(B)]
+    lg, lc = eg.prefill_batch(prompts), ecpu.prefill_batch(prompts)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    for _ in range(5):
+        a, b = lg.float().cpu(), lc.float()
+        assert (torch.nn.functional.cosine_similarity(a, b, dim=1) >= 0.99).all()
+        tok = a.argmax(1)
+        lg, lc = eg.decode_batch_step(tok.to(dev), pos), ecpu.decode_batch_step(tok, pos)
+        pos = pos + 1

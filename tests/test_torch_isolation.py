@@ -60,7 +60,6 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
 @pytest.mark.parametrize("kw,item", [
     ({"decode_steps_per_dispatch": 8}, "#5"), ({"kv_cache_dtype": "f32"}, "#18"),
     ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),
-    ({"weight_quant": "tl2"}, "#10"), ({"weight_quant": "tl1"}, "#10"),
     ({"kv_cache_dtype": "f32", "max_batch_size": 8}, "#18"),
     ({"sliding_window": 16, "max_batch_size": 8}, "#7"),
     ({"kv_cache_dtype": "f32", "max_seq_len": 4096}, "#18")])

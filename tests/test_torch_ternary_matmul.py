@@ -228,12 +228,15 @@ def test_dispatcher_matches_ternary_matmul_pallas(variant, M, k, glu, norm,
 
 
 def test_dispatcher_refuses_unported_kinds():
+    """bitnet32 and tl run (K10, ``tests/test_torch_tl.py``); a dense
+    linear, the kind of the JAX package's F32 / densified weights, is not
+    ported and names its ROADMAP item."""
     from bitnet_tpu_torch.ops.linear import TernaryLinear
 
-    lin = TernaryLinear(kind="bitnet32", k=K, n=N,
+    lin = TernaryLinear(kind="dense", k=K, n=N,
                         packed=torch.zeros((K // 16, N), dtype=torch.int32),
                         scales=torch.ones((K // 32, N)))
-    with pytest.raises(NotImplementedError, match="#10"):
+    with pytest.raises(NotImplementedError, match="#7"):
         tm.ternary_matmul_pallas(lin, torch.zeros(1, K), variant="w2a8")
 
 
