@@ -1,19 +1,25 @@
-"""bitnet_tpu_torch command-line interface: ``run``.
+"""bitnet_tpu_torch command-line interface: ``run`` and
+``benchmark-kernels``.
 
 Counterpart of ``bitnet_tpu/cli.py``'s ``run`` (``:20-118``,
 ``:155-269``): the same generation and engine flags, prompt templates,
 streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
 Flags whose paths are not ported raise ``NotImplementedError`` naming
-their ROADMAP item; none is silently ignored.  ``serve`` and the other
-subcommands are ROADMAP queue 1 #12 and #17.
+their ROADMAP item; none is silently ignored.  ``benchmark-kernels``
+(``:477-497``, ``:999-1010``) prints the JSON of
+``tools/kernel_bench.py``: device time per kernel call on the card, the
+plain versions' host time with ``--device cpu`` (for tests only).
+``serve`` and the other subcommands are ROADMAP queue 1 #12 and #17.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
+    python -m bitnet_tpu_torch.cli benchmark-kernels --attention all --m 8
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from .config import not_ported
@@ -227,6 +233,33 @@ def cmd_run(args) -> int:
     return 0
 
 
+# chain lengths of the plain versions' host timing (--device cpu, tests)
+CPU_CHAINS = {"n_hi": 4, "n_lo": 2, "pairs": 1}
+
+
+def cmd_benchmark_kernels(args) -> int:
+    """Per-kernel micro-benchmarks (bitnet_tpu/cli.py:477-497): the 2B
+    decode shapes, one ``--shape``, or ``--attention`` variants."""
+    from .device_probe import resolve_device
+    from .tools.kernel_bench import (ATTN_VARIANTS, bench_decode_attention,
+                                     bench_decode_shapes, bench_ternary_kernel)
+
+    dev = resolve_device(args.device)
+    kw = {"device": dev, **(CPU_CHAINS if dev.type == "cpu" else {})}
+    if args.attention:
+        variants = (ATTN_VARIANTS if args.attention == "all"
+                    else args.attention.split(","))
+        results = [bench_decode_attention(v, B=args.m, S=args.seq_len, **kw)
+                   for v in variants]
+    elif args.shape:
+        k, n = (int(x) for x in args.shape.split("x"))
+        results = [bench_ternary_kernel(k, n, m=args.m, **kw)]
+    else:
+        results = bench_decode_shapes(m=args.m, **kw)
+    print(json.dumps([r.as_dict() for r in results], indent=2))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="bitnet-tpu-torch",
                                  description="BitNet inference on an H100")
@@ -234,6 +267,21 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("run", help="single-shot generation")
     _add_gen_flags(p)
     p.set_defaults(fn=cmd_run)
+    p = sub.add_parser("benchmark-kernels",
+                       help="per-kernel ternary matmul / decode-attention "
+                            "microbenchmarks")
+    p.add_argument("--shape", default=None, metavar="KxN",
+                   help="one shape, e.g. 2560x6912 (default: 2B decode set)")
+    p.add_argument("--m", type=int, default=1, help="batch rows")
+    p.add_argument("--attention", default=None, metavar="V1,V2|all",
+                   help="bench decode-attention kernels instead "
+                        "(decode_attn_plan variant names, or 'all')")
+    p.add_argument("--seq-len", type=int, default=1024,
+                   help="cache length for --attention")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu times the plain "
+                        "PyTorch versions on the host, for tests only)")
+    p.set_defaults(fn=cmd_benchmark_kernels)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -19,6 +19,31 @@
 //      (decode_attention_v2.py:754, pallas_call :820): K8 over an int8 or
 //      fp8-e4m3 cache, _v2_kernel with quant=True
 //
+// and the eleven other decode-attention sites, each under its own wrapper
+// and launch counter (ops/decode_attention.py, ops/decode_attention_v2.py),
+// since every one computes K2's function or K5's and the TPU kernels differ
+// only in their grids (per b or whole batch, a layer slice or the stack),
+// their bodies (v1 or v2) and the chunks of cache rows against whose running
+// maxima they round the softmax weights (which this pair replaces with its
+// own 4-row groups and 64-row splits, as for K2 and K5):
+//   bn_decode_attention_qkv (K2's entry point) <- decode_attention_qkv
+//      (decode_attention.py:488) K13, decode_attention_qkv_batched (:1421)
+//      K18, decode_attention_qkv_batched_v2 (decode_attention_v2.py:487) K20
+//   bn_decode_attention_qkv_quant <- decode_attention_qkv_quant
+//      (decode_attention.py:859) K14, decode_attention_qkv_quant_batched
+//      (:1609) K19, decode_attention_qkv_quant_batched_v2
+//      (decode_attention_v2.py:582) K21
+//   bn_decode_attention <- decode_attention_batched (decode_attention.py:1114)
+//      K16, decode_attention_batched_v2 (decode_attention_v2.py:1193) K22
+//   bn_decode_attention_quant <- decode_attention_quant
+//      (decode_attention.py:655) K15, decode_attention_quant_batched (:1262)
+//      K17, decode_attention_quant_batched_v2 (decode_attention_v2.py:1291)
+//      K23
+// The v1 kernels keep the roped k row and the v row in f32 for the new
+// token's init, apply the k scales after the dot and the v scales before the
+// weights' bf16 rounding, and return the rows in the cache dtype: as K2, K7
+// and K9 do, so no template flag tells them apart.
+//
 // K2 takes the raw fused projection row qkv [B, H+2KV, D], applies split-
 // layout RoPE to q and k, and runs flash-decode over the PRE-write flat
 // cache layer [B, S, KV*D] (bf16) for rows < pos[b], with the new token

@@ -17,6 +17,7 @@ it K-step dispatches, is ROADMAP queue 1 #5).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Iterator
 
@@ -159,7 +160,9 @@ class InferenceEngine:
             self.kernel_recorder.append(f"weight_quant_{ec.weight_quant}")
         blk = params.blocks.wqkv
         if (blk is not None and blk.kind in ("tl", "bitnet32")
-                and self.kernel_path == "w2a8" and blk.k % 256 == 0):
+                and self.kernel_path == "w2a8" and blk.k % 256 == 0
+                and os.environ.get("BITNET_TL_W2A8", "1") == "1"):
+            # the JAX engine's receipt (``engine.py:174-183``)
             self.kernel_recorder.append("ternary_matmul_tl_w2a8_stacked")
         if fuse_fell_back:
             self.kernel_recorder.append("fuse_projections_fallback")
@@ -207,7 +210,9 @@ class InferenceEngine:
                                  self.kernel_path)
 
     def decode_plan(self) -> str:
-        """The decode-attention plan of this engine's pool and cache."""
+        """The decode-attention plan of this engine's pool and cache, under
+        the environment's kernel-selection knobs: the name the JAX engine
+        records (``bitnet_tpu/engine/engine.py:746-774``)."""
         return decode_attn_plan(self.engine_cfg.max_batch_size,
                                 kv_dtype_name(self.cache.k.dtype))
 

@@ -17,7 +17,15 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
 - slice 4: bitnet32 and TL weights (per-32-row block scales): the stacked
   decode loop's three-way matmul choice (``:457-499``, K11 / K12 / K10),
   and the layer loop (K10 on ``w2a8`` and ``pallas``) for their prefill
-  and for the generic path.
+  and for the generic path;
+- slice 5: every decode-attention plan of ``decode_attn_plan`` under the
+  JAX package's kernel-selection knobs (``BITNET_B1_ATTN``,
+  ``BITNET_BATCHED_ATTN``, ``BITNET_ROPE_FUSED``,
+  ``BITNET_DECODE_ATTN_MAX_B``, ``BITNET_V2_WHOLEBATCH_MAX_B``,
+  ``BITNET_FP8_KERNEL``, ``BITNET_ATTN_STACKED``; K13–K23), the generic
+  path's ``BITNET_ROPE_FUSED=1`` branch, and ``BITNET_TL_W2A8``,
+  ``BITNET_TL_FUSED``, ``BITNET_STACKED_PREFILL``.  ``BITNET_FUSED_FFN=1``
+  raises where the JAX package would take its fused FFN kernel.
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -43,6 +51,7 @@ An f32 cache raises NotImplementedError naming its ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import partial
 from typing import Optional
 
@@ -51,14 +60,27 @@ import torch
 from ..config import ModelConfig, not_ported
 from ..errors import QuantizationError
 from ..ops.attention import attention
-from ..ops.decode_attention import decode_attention
-from ..ops.decode_attention_v2 import (
-    decode_attention_batched,
-    decode_attention_qkv,
-    decode_attention_qkv_quant,
-    decode_attention_quant_batched,
+from ..ops.decode_attention import (
+    decode_attention,
+    decode_attention_batched_v1,
+    decode_attention_qkv_batched,
+    decode_attention_qkv_quant_batched,
+    decode_attention_qkv_quant_v1,
+    decode_attention_qkv_v1,
+    decode_attention_quant,
+    decode_attention_quant_batched_v1,
     dequantize_kv,
     quantize_kv,
+)
+from ..ops.decode_attention_v2 import (
+    decode_attention_batched,
+    decode_attention_batched_v2,
+    decode_attention_qkv,
+    decode_attention_qkv_batched_v2,
+    decode_attention_qkv_quant,
+    decode_attention_qkv_quant_batched_v2,
+    decode_attention_quant_batched,
+    decode_attention_quant_batched_v2,
     scatter_kv_rows,
 )
 from ..ops.flash import flash_attention
@@ -178,18 +200,73 @@ def with_col_scales_params(params: BitNetParams) -> BitNetParams:
 # --------------------------------------------------------------------------
 # the shared eligibility predicate
 # --------------------------------------------------------------------------
+def refuse_layout_knobs() -> None:
+    """The JAX package's cache-layout knobs whose settings change what the
+    stacked decode computes raise here (ROADMAP.md queue 1 #21): the port
+    keeps one flat ``[L, B, S, KV*D]`` cache and writes every step's rows
+    with K3.  ``BITNET_CACHE_YS=1`` runs the ys-threaded loop, whose
+    quantized B ≤ 2 step attends over a dequantized cache
+    (``bitnet_tpu/models/bitnet.py:729-790``); ``BITNET_CACHE_LAYOUT=5d``
+    takes pools off ``batched_v2`` to ``einsum`` (``engine/cache.py:75-89``).
+    ``BITNET_CACHE_FLAT`` and ``BITNET_ROWS_WRITE`` only move the cache
+    between layouts or write its rows another way (the same rows at every
+    valid position), and are ignored."""
+    if os.environ.get("BITNET_CACHE_YS", "0") == "1":
+        raise not_ported("BITNET_CACHE_YS=1 (the ys-threaded decode loop)", "#21")
+    if os.environ.get("BITNET_CACHE_LAYOUT", "auto") == "5d":
+        raise not_ported("BITNET_CACHE_LAYOUT=5d (a 5-D cache)", "#21")
+
+
 def decode_attn_plan(B: int, kv_dtype: str = "bf16") -> str:
-    """The decode-attention plan the JAX package's default selection picks
-    (``bitnet_tpu/models/bitnet.py:305-398``, flat cache, no env
-    overrides), for a cache named by :func:`kv_dtype_name`: B ≤ 2 the
-    rope-fused kernels (K2, K7), pools of B ≤ 16 or even B ≤ 64 the
-    whole-batch ones (K8, K9), odd B > 16 plain torch."""
+    """The decode-attention plan of the stacked loop, the JAX package's
+    rule (``bitnet_tpu/models/bitnet.py:305-398``) for a cache named by
+    :func:`kv_dtype_name`, with the environment knobs it reads and their
+    defaults, evaluated with ``flat=True``: the port keeps the flat cache
+    that the JAX engine allocates for every plan in ``_FLAT_PLANS``
+    (``engine/cache.py:67-89``), and a plan outside that set reads the
+    same from either layout.  Plans and their kernels (``_decode_stacked``):
+
+    - ``qkv_v2s`` / ``qkv_quant_v2s`` (B ≤ 2, default): K2 / K7;
+    - ``qkv`` / ``qkv_quant`` (``BITNET_B1_ATTN=v1``): K13 / K14;
+    - ``qkv_batched_v2`` / ``qkv_quant_batched_v2``
+      (``BITNET_BATCHED_ATTN=v2qkv``, 2 < B ≤ ``BITNET_V2_WHOLEBATCH_MAX_B``):
+      K20 / K21;
+    - ``qkv_batched`` / ``qkv_quant_batched`` (``BITNET_BATCHED_ATTN=1``,
+      B > 2): K18 / K19;
+    - ``flash`` / ``flash_quant`` (``BITNET_ROPE_FUSED=0``, B ≤
+      ``BITNET_DECODE_ATTN_MAX_B``): K5 / K15;
+    - ``batched_v2`` / ``quant_batched_v2`` (pools, default): K8 / K9, or
+      K22 / K23 under ``BITNET_ATTN_STACKED=0``;
+    - ``batched`` / ``quant_batched`` (``BITNET_BATCHED_ATTN`` set to
+      anything else but 0 when no plan above applies): K16 / K17;
+    - ``einsum``: plain torch (odd B > 16, or an fp8 cache under
+      ``BITNET_FP8_KERNEL=0``).
+
+    ``BITNET_CACHE_YS=1`` and ``BITNET_CACHE_LAYOUT=5d`` raise
+    (:func:`refuse_layout_knobs`)."""
+    refuse_layout_knobs()
     quantized = kv_dtype in ("int8", "fp8")
-    if B <= 2:
-        return "qkv_quant_v2s" if quantized else "qkv_v2s"
-    v2_ok_b = B <= 16 or (B % 2 == 0 and B <= STACKED_DECODE_MAX_M)
-    if v2_ok_b:
-        return "quant_batched_v2" if quantized else "batched_v2"
+    rope_fused = os.environ.get("BITNET_ROPE_FUSED", "1") == "1"
+    batched_env = os.environ.get("BITNET_BATCHED_ATTN", "v2")
+    attn_max_b = int(os.environ.get("BITNET_DECODE_ATTN_MAX_B", "2"))
+    v2_max_b = int(os.environ.get("BITNET_V2_WHOLEBATCH_MAX_B", "16"))
+    v2_ok_b = B <= v2_max_b or (B % 2 == 0 and B <= STACKED_DECODE_MAX_M)
+    dt_ok = kv_dtype != "fp8" or os.environ.get("BITNET_FP8_KERNEL", "1") == "1"
+    q = "quant_" if quantized else ""
+    if rope_fused and batched_env == "v2qkv" and 2 < B <= v2_max_b and dt_ok:
+        return f"qkv_{q}batched_v2"
+    if rope_fused and batched_env == "1" and B > 2 and dt_ok:
+        return f"qkv_{q}batched"
+    if rope_fused and B <= 2 and dt_ok:
+        if os.environ.get("BITNET_B1_ATTN", "v2s") == "v2s":
+            return f"qkv_{q}v2s"
+        return "qkv_quant" if quantized else "qkv"
+    if B <= attn_max_b and dt_ok:
+        return "flash_quant" if quantized else "flash"
+    if batched_env == "v2" and dt_ok and v2_ok_b:
+        return f"{q}batched_v2"
+    if batched_env not in ("0", "", "v2") and dt_ok:
+        return f"{q}batched"
     return "einsum"
 
 
@@ -230,9 +307,10 @@ def stacked_decode_ok(cfg: ModelConfig, params: BitNetParams, T: int, B: int,
 def stacked_prefill_ok(cfg: ModelConfig, params: BitNetParams, T: int,
                        kernel_path: str) -> bool:
     """``_stacked_prefill_ok`` (``:283-302``): qk256 only, so a TL prefill
-    runs the layer loop."""
-    return (T > 1 and kernel_path == "w2a8"
-            and stacked_weights_ok(cfg, params.blocks))
+    runs the layer loop; ``BITNET_STACKED_PREFILL`` other than 1 sends
+    every prefill there too."""
+    return (os.environ.get("BITNET_STACKED_PREFILL", "1") == "1" and T > 1
+            and kernel_path == "w2a8" and stacked_weights_ok(cfg, params.blocks))
 
 
 # --------------------------------------------------------------------------
@@ -313,7 +391,8 @@ def _stacked_mm(b: BlockParams, B: int, eps: float):
     glu=, resid=)``, by the weights' kind (``:439-499``): qk256 on K1; the
     TL kinds on K11 when B <= 2 and every K is a multiple of 256, else K12
     when aligned, else K10 on the stacked weights with SwiGLU, the norm and
-    the residual in torch."""
+    the residual in torch (``BITNET_TL_W2A8`` / ``BITNET_TL_FUSED`` set to
+    anything but 1 skip K11 / K12, as in the JAX package)."""
     kind = b.wqkv.kind
     if kind == "qk256":
         def mm(l, h, name, gamma, **kw):
@@ -325,8 +404,14 @@ def _stacked_mm(b: BlockParams, B: int, eps: float):
     lut_bias = kind == "bitnet32"
     aligned = all(getattr(b, n).k % 256 == 0
                   for n in ("wqkv", "wo", "w_gateup", "w_down"))
-    fused = (None if not aligned else ternary_matmul_tl_w2a8_normed
-             if B <= TL_W2A8_MAX_M else ternary_matmul_tl_bf16_normed)
+    # ``:473-476``: BITNET_TL_W2A8=0 keeps B <= 2 off K11, BITNET_TL_FUSED=0
+    # keeps every B off K12 (K10 then, with the norm etc. in torch)
+    if os.environ.get("BITNET_TL_W2A8", "1") == "1" and aligned and B <= TL_W2A8_MAX_M:
+        fused = ternary_matmul_tl_w2a8_normed
+    elif os.environ.get("BITNET_TL_FUSED", "1") == "1" and aligned:
+        fused = ternary_matmul_tl_bf16_normed
+    else:
+        fused = None
 
     def mm_tl(l, h, name, gamma, glu=False, resid=None):
         lin = getattr(b, name)
@@ -348,6 +433,43 @@ def _stacked_mm(b: BlockParams, B: int, eps: float):
     return mm_tl
 
 
+# each plan's attention wrapper: the rope-fused ones take the raw q|k|v
+# row (``:528-624``, ``:856-876``), the others q and the new rows apart with
+# RoPE in torch (``:625-697``, ``:878-901``)
+ROPE_FUSED_ATTN = {
+    "qkv_v2s": decode_attention_qkv, "qkv_quant_v2s": decode_attention_qkv_quant,
+    "qkv": decode_attention_qkv_v1, "qkv_quant": decode_attention_qkv_quant_v1,
+    "qkv_batched": decode_attention_qkv_batched,
+    "qkv_quant_batched": decode_attention_qkv_quant_batched,
+    "qkv_batched_v2": decode_attention_qkv_batched_v2,
+    "qkv_quant_batched_v2": decode_attention_qkv_quant_batched_v2}
+SPLIT_ATTN = {
+    "flash": decode_attention, "flash_quant": decode_attention_quant,
+    "batched": decode_attention_batched_v1,
+    "quant_batched": decode_attention_quant_batched_v1,
+    "batched_v2": decode_attention_batched,
+    "quant_batched_v2": decode_attention_quant_batched}
+# the per-layer-slice v2 kernels that BITNET_ATTN_STACKED=0 selects
+UNSTACKED_V2_ATTN = {"batched_v2": decode_attention_batched_v2,
+                     "quant_batched_v2": decode_attention_quant_batched_v2}
+
+
+def plan_attention(plan: str):
+    """(rope-fused wrapper, split wrapper) of a plan, one of them None, or
+    both None for the ``einsum`` tail.  The v2 plans read the whole cache
+    stack (``:839-842``) unless ``BITNET_ATTN_STACKED=0``, which sends
+    ``batched_v2`` / ``quant_batched_v2`` to the per-layer-slice kernels
+    K22 / K23 and ``qkv_v2s`` / ``qkv_quant_v2s`` to the ``einsum`` tail
+    (``:698-717``; the JAX package's flat-cache loop fails there on its 5-D
+    rows, and runs that tail under ``BITNET_CACHE_FLAT=0``)."""
+    stacked = os.environ.get("BITNET_ATTN_STACKED", "1") == "1"
+    if plan.endswith("v2s") and not stacked:
+        return None, None
+    if plan in UNSTACKED_V2_ATTN and not stacked:
+        return None, UNSTACKED_V2_ATTN[plan]
+    return ROPE_FUSED_ATTN.get(plan), SPLIT_ATTN.get(plan)
+
+
 def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     x: torch.Tensor,             # [B, 1, H]
                     q_positions: torch.Tensor,   # [B, 1]
@@ -358,11 +480,11 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     cos_rows: torch.Tensor,
                     k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """The stacked decode loop (``:401``, rows mode with the stacked
-    attention of ``body_rows_sa`` ``:856-910``): per layer four matmuls
-    (:func:`_stacked_mm`) and the plan's attention over the PRE-write
-    cache, then ONE K3 write of all L new rows (and scales) at
-    min(pos, S-1)."""
+    """The stacked decode loop (``:401``, rows mode): per layer four
+    matmuls (:func:`_stacked_mm`) and the plan's attention over the
+    PRE-write cache (:func:`plan_attention`), then ONE K3 write of all L
+    new rows (and scales) at min(pos, S-1) — the clamped write of every
+    rows-mode plan (``:932-1038``)."""
     b = params.blocks
     B = x.shape[0]
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -370,26 +492,27 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
     eps = cfg.rms_norm_eps
     quantized = k_scale is not None
     plan = decode_attn_plan(B, kv_dtype_name(k_cache.dtype))
+    rope_attn, split_attn = plan_attention(plan)
 
     mm = _stacked_mm(b, B, eps)
 
     sin_r = sin_rows[:, 0].contiguous()
     cos_r = cos_rows[:, 0].contiguous()
     pos = pre_len.to(torch.int32).contiguous()
-    writes = CacheWrites.of(q_positions, S) if plan == "einsum" else None
+    scales = (k_scale, v_scale) if quantized else ()
+    einsum = rope_attn is None and split_attn is None
+    writes = CacheWrites.of(q_positions, S) if einsum else None
     h = x[:, 0, :]
     rows = []                                    # per layer (k, v, k_s, v_s)
     for l in range(L):
         qkv = mm(l, h, "wqkv", b.attn_norm)
         ksr = vsr = None
-        if plan == "qkv_v2s":
-            attn, kr, vr = decode_attention_qkv(
+        if rope_attn is not None:
+            attn, kr, vr, *rs = rope_attn(
                 l, qkv.view(B, nh + 2 * nkv, D), sin_r, cos_r, k_cache, v_cache,
-                pos, n_heads=nh, n_kv=nkv)
-        elif plan == "qkv_quant_v2s":
-            attn, kr, vr, ksr, vsr = decode_attention_qkv_quant(
-                l, qkv.view(B, nh + 2 * nkv, D), sin_r, cos_r, k_cache, v_cache,
-                k_scale, v_scale, pos, n_heads=nh, n_kv=nkv)
+                *scales, pos, n_heads=nh, n_kv=nkv)
+            if quantized:
+                ksr, vsr = rs
         else:                    # RoPE in torch, one call for the q|k heads
             qk = apply_rope(qkv[:, None, : (nh + nkv) * D].view(B, 1, nh + nkv, D),
                             sin_rows, cos_rows)
@@ -398,18 +521,15 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
             if quantized:
                 kr, ksr = quantize_kv(kn[:, 0], k_cache.dtype)
                 vr, vsr = quantize_kv(vn[:, 0], v_cache.dtype)
-                # the ROUND-TRIPPED rows feed attention (``:885-891``)
+                # the ROUND-TRIPPED rows feed attention (``:632-639``)
                 kn = dequantize_kv(kr, ksr).to(x.dtype)[:, None]
                 vn = dequantize_kv(vr, vsr).to(x.dtype)[:, None]
             else:
                 kr, vr = kn[:, 0].to(k_cache.dtype), vn[:, 0].to(v_cache.dtype)
-            q1, k1, v1 = q[:, 0].contiguous(), kn[:, 0].contiguous(), vn[:, 0].contiguous()
-            if plan == "batched_v2":
-                attn = decode_attention_batched(l, q1, k1, v1, k_cache, v_cache,
-                                                pos)
-            elif plan == "quant_batched_v2":
-                attn = decode_attention_quant_batched(
-                    l, q1, k1, v1, k_cache, v_cache, k_scale, v_scale, pos)
+            if split_attn is not None:
+                attn = split_attn(l, q[:, 0].contiguous(), kn[:, 0].contiguous(),
+                                  vn[:, 0].contiguous(), k_cache, v_cache, *scales,
+                                  pos)
             else:
                 attn = _einsum_decode_attention(
                     q, kr, vr, ksr, vsr, k_cache[l], v_cache[l],
@@ -425,10 +545,10 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
         return torch.stack([r[i] for r in rows]).view(L, B, 1, width)
 
     # ONE write of all L new rows, after every layer read its PRE-write cache
-    scales = ((k_scale, v_scale, stack(2, nkv), stack(3, nkv)) if quantized
-              else ())
+    row_scales = ((k_scale, v_scale, stack(2, nkv), stack(3, nkv)) if quantized
+                  else ())
     scatter_kv_rows(k_cache, v_cache, stack(0, nkv * D), stack(1, nkv * D),
-                    q_positions[:, 0].to(torch.int32).contiguous(), *scales)
+                    q_positions[:, 0].to(torch.int32).contiguous(), *row_scales)
     return h[:, None, :]
 
 
@@ -526,8 +646,16 @@ def _ffn(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, kernel_path: str,
     """SwiGLU FFN of layer ``l`` (``:162-215``): ``x`` is the PRE-norm
     residual and the result includes it.  ffn_norm, the 2B-4T
     ffn_sub_norm, the SwiGLU and the residual ride the projections
-    (fused into K1 at decode rows).  The opt-in ``BITNET_FUSED_FFN`` kernel
-    is not ported (ROADMAP.md queue 2 #14)."""
+    (fused into K1 at decode rows).  Where ``BITNET_FUSED_FFN=1`` would
+    take the JAX package's fused FFN kernel (``:184-192``, per-F-tile
+    int8 requantization, another function), this raises naming ROADMAP.md
+    queue 1 #20."""
+    if (os.environ.get("BITNET_FUSED_FFN", "0") == "1" and kernel_path == "w2a8"
+            and cfg.hidden_act == "silu" and bp.ffn_sub_norm is None
+            and bp.w_gateup is not None
+            and fused_ffn_supported(bp, x.shape[0] * x.shape[1])):
+        raise not_ported("the fused W2A8 FFN kernel (BITNET_FUSED_FFN=1, "
+                         "bitnet_tpu/ops/ffn_fused.py:148)", "#20")
     lapn = partial(linear_apply_normed, eps=cfg.rms_norm_eps, path=kernel_path,
                    layer=l)
     if bp.w_gateup is not None:
@@ -542,6 +670,18 @@ def _ffn(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, kernel_path: str,
         gate = _act(cfg.hidden_act, lapn(bp.w_gate, h, None))
         up = lapn(bp.w_up, h, None)
     return lapn(bp.w_down, gate * up, bp.ffn_sub_norm, resid=x)
+
+
+def fused_ffn_supported(bp: BlockParams, M: int) -> bool:
+    """Where the JAX ``_ffn`` takes ``ffn_w2a8_fused`` (``:190-192`` and
+    ``ffn_fused_supported``, ``bitnet_tpu/ops/ffn_fused.py:97-101``): qk256
+    gate|up and down, F a multiple of 256 (the down projection's K unpadded),
+    at most 32 rows, and the fused gate|up exactly 2F wide."""
+    gu, down = bp.w_gateup, bp.w_down
+    F = gu.n // 2
+    return (gu.kind == "qk256" and down.kind == "qk256" and F % 256 == 0
+            and down.packed.shape[-2] * 16 == F and M <= 32
+            and gu.packed.shape[-1] == 2 * F)
 
 
 def block_qkv(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
@@ -590,16 +730,30 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
 
     ``fast_decode`` (T=1, B≤2, a bf16 cache, path ``pallas``/``w2a8``): K5
     attends over the PRE-write cache with the new token folded in, then the
-    rows are written.  Otherwise the rows are written first (quantized for
-    an int8 / fp8 cache) and plain ``attention`` (or ``flash_attention``
-    once T·S ≥ 2^19) reads the cache, dequantized to f32 if it is
-    quantized.  The ``BITNET_ROPE_FUSED`` branch (ROADMAP.md queue 2 #6) is
-    not ported."""
+    rows are written; with fused projections and ``BITNET_ROPE_FUSED=1``
+    (``:1286-1307``) K13 takes the raw q|k|v row instead, applies RoPE and
+    hands back the rows to write.  Otherwise the rows are written first
+    (quantized for an int8 / fp8 cache) and plain ``attention`` (or
+    ``flash_attention`` once T·S ≥ 2^19) reads the cache, dequantized to
+    f32 if it is quantized."""
     B, T, _ = x.shape
     S = k_cache.shape[2]
+    fast_decode = (T == 1 and B <= 2 and k_scale is None
+                   and kernel_path in ("pallas", "w2a8"))
+    if (fast_decode and bp.wqkv is not None
+            and os.environ.get("BITNET_ROPE_FUSED", "0") == "1"):
+        qkv = linear_apply_normed(bp.wqkv, x, bp.attn_norm, eps=cfg.rms_norm_eps,
+                                  path=kernel_path, layer=l)
+        nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        attn1, k_row, v_row = decode_attention_qkv_v1(
+            l, qkv[:, 0].reshape(B, nh + 2 * nkv, D).contiguous(),
+            sin_rows[:, 0].contiguous(), cos_rows[:, 0].contiguous(), k_cache,
+            v_cache, pre_len, n_heads=nh, n_kv=nkv)
+        writes.put(k_cache[l], k_row[:, None])
+        writes.put(v_cache[l], v_row[:, None])
+        return block_finish(cfg, bp, x, attn1[:, None], kernel_path, l)
     q, k, v = block_qkv(cfg, bp, x, sin_rows, cos_rows, kernel_path, l)
-    if (T == 1 and B <= 2 and k_scale is None
-            and kernel_path in ("pallas", "w2a8")):
+    if fast_decode:
         attn1 = decode_attention(l, q[:, 0].contiguous(), k[:, 0].contiguous(),
                                  v[:, 0].contiguous(), k_cache, v_cache, pre_len)
         writes.put(k_cache[l], k)

@@ -16,8 +16,20 @@ scatter: the CUDA kernels and their plain versions.
   ``:820``): K8 over an int8 / fp8-e4m3 cache.
 - K3 :func:`scatter_kv_rows` replaces ``scatter_kv_rows`` (``:1068``,
   pallas_call ``:1113``), for bf16 and 1-byte caches.
+- K20 / K21 :func:`decode_attention_qkv_batched_v2` /
+  :func:`decode_attention_qkv_quant_batched_v2` replace the unstacked
+  rope-fused v2 wrappers (``:453`` / ``:542``, pallas_call ``:487`` /
+  ``:582``; plans ``qkv_batched_v2`` / ``qkv_quant_batched_v2``): K2's and
+  K7's functions for pools.
+- K22 / K23 :func:`decode_attention_batched_v2` /
+  :func:`decode_attention_quant_batched_v2` replace the unstacked v2
+  wrappers (``:1159`` / ``:1239``, pallas_call ``:1193`` / ``:1291``; plans
+  ``batched_v2`` / ``quant_batched_v2`` under ``BITNET_ATTN_STACKED=0``):
+  K8's and K9's functions.
 
-All take the full flat cache stack ``[L, B, S, KV*D]`` and a layer index,
+Every one launches the split-S pair of ``csrc/decode_attention.cu``
+(``ops/decode_attention.py`` says why one pair computes them all) under
+its own counter.  All take the full flat cache stack ``[L, B, S, KV*D]`` and a layer index,
 as the JAX wrappers do.  A quantized cache keeps its f32 scales in the
 canonical ``[L, B, S, KV]`` layout of ``bitnet_tpu/engine/cache.py``; the
 kernels read them with strides, so nothing transposes them per step (the
@@ -30,173 +42,23 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_attention import (QUANT_CODE, SPLIT, _DTYPE_CODE, NEG_INF,
-                               check_layer_args, launch_split_attention,
-                               new_token_init, online_softmax_plain)
-
-DEFAULT_CHUNK = 1024
-
-
-def quantize_kv(x: torch.Tensor, dtype: torch.dtype):
-    """Per-vector absmax quantization of KV rows (``_quantize_kv``,
-    ``bitnet_tpu/models/bitnet.py:1171-1182``): x [..., D] → (codes in
-    ``dtype``, scale [...] f32) with scale = max(absmax, 1e-8) / qmax
-    (127 for int8, 448 for fp8-e4m3) and codes x / scale, rounded half to
-    even and clipped to ±127 for int8."""
-    xf = x.to(torch.float32)
-    absmax = xf.abs().amax(-1)
-    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
-    # by its reciprocal, an f32 ulp away from the quotient the kernels and
-    # the reference compute
-    qmax = absmax.new_full((), 127.0 if dtype == torch.int8 else 448.0)
-    scale = torch.clamp(absmax, min=1e-8) / qmax
-    q = xf / scale[..., None]
-    if dtype == torch.int8:
-        q = torch.clamp(torch.round(q), -127, 127)
-    return q.to(dtype), scale
-
-
-def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """codes [..., D] × scale [...] → f32 rows (the round trip)."""
-    return codes.to(torch.float32) * scale[..., None]
-
-
-def pick_group(B: int) -> tuple[int, int]:
-    """The JAX wrappers' batch groups (``_pick_group``, ``:1130``): the
-    TPU's VMEM scope holds at most 16 slots' scratch.  The CUDA kernels
-    need no groups; the plain versions use the group size only to choose
-    the TPU kernels' chunk."""
-    if B <= 16:
-        return B, 1
-    for bg in (8, 4, 2, 1):
-        if B % bg == 0:
-            return bg, B // bg
-    return 1, B
-
-
-def pick_chunk(S: int, B: int, itemsize: int) -> int:
-    """The cache rows a TPU grid step reads (``_pick_chunk``, ``:1145``):
-    the chunk the JAX kernels round their softmax weights against."""
-    rows = 2048 if itemsize >= 2 else 4096
-    chunk = min(max(128, 1 << ((rows // B).bit_length() - 1)), S, DEFAULT_CHUNK)
-    while S % chunk:
-        chunk //= 2
-    return chunk
-
-
-def _rope_rows(rows: torch.Tensor, sin_row: torch.Tensor,
-               cos_row: torch.Tensor) -> torch.Tensor:
-    """Split-layout RoPE of [B, n, D] f32 rows by [B, D/2] tables, written
-    as the JAX kernel does: x·[cos,cos] + [-x_hi, x_lo]·[sin,sin]."""
-    half = rows.shape[-1] // 2
-    cs = torch.cat([cos_row, cos_row], dim=-1)[:, None, :]
-    sn = torch.cat([sin_row, sin_row], dim=-1)[:, None, :]
-    rot = torch.cat([-rows[..., half:], rows[..., :half]], dim=-1)
-    return rows * cs + rot * sn
+from .decode_attention import (QUANT_CODE, pick_chunk, pick_group,
+                               qkv_attention_plain, qkv_call,
+                               split_attention_plain, split_call)
+# the KV quantization round trip, where slice 3's callers import it from
+from .decode_attention import dequantize_kv, quantize_kv  # noqa: F401
 
 
 def decode_attention_qkv_plain(qkv, sin_row, cos_row, k_cache_l, v_cache_l,
                                pos, n_heads, n_kv):
     """K2 on one layer: qkv [B, H+2KV, D]; caches [B, S, KV*D] (PRE-write);
-    pos [B] valid rows.  Returns (attn [B, H, D] in qkv's dtype, k_row,
-    v_row [B, KV, D] in the cache dtype)."""
-    B, _, D = qkv.shape
-    H, KV = n_heads, n_kv
-    G = H // KV
-    S = k_cache_l.shape[1]
-    cdt = k_cache_l.dtype
-    scale = float(D) ** -0.5
-    rows = qkv.to(torch.float32)
-    qk = _rope_rows(rows[:, : H + KV], sin_row, cos_row)
-    q = qk[:, :H].reshape(B, KV, G, D)                      # f32 roped
-    k_new = qk[:, H:]                                       # [B, KV, D] f32
-    v_new = rows[:, H + KV:]
-    # the new token initializes the online softmax (f32 rows)
-    m0 = (q * k_new[:, :, None, :]).sum(-1) * scale          # [B, KV, G]
-    kc = k_cache_l.reshape(B, S, KV, D)
-    vc = v_cache_l.reshape(B, S, KV, D)
-    s = torch.einsum("bkgd,bskd->bkgs", q.to(cdt).float(), kc.float()) * scale
-    valid = torch.arange(S, device=qkv.device)[None, :] < pos[:, None]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    m = torch.maximum(m0, s.amax(-1))
-    alpha = torch.exp(m0 - m)
-    e = torch.exp(s - m[..., None])
-    d = alpha + e.sum(-1)
-    ctx = (v_new[:, :, None, :] * alpha[..., None]
-           + torch.einsum("bkgs,bskd->bkgd", e.to(cdt).float(), vc.float()))
-    attn = (ctx / d[..., None]).reshape(B, H, D).to(qkv.dtype)
-    return attn, k_new.to(cdt), v_new.to(cdt)
-
-
-def _check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv):
-    B, R, D = qkv.shape
-    L, Bc, S, KVD = k_cache.shape
-    if R != n_heads + 2 * n_kv or KVD != n_kv * D or Bc != B:
-        raise ValueError(f"shape mismatch: qkv {tuple(qkv.shape)}, cache "
-                         f"{tuple(k_cache.shape)}, H={n_heads} KV={n_kv}")
-    if tuple(v_cache.shape) != tuple(k_cache.shape) or not 0 <= l < L:
-        raise ValueError("v_cache must match k_cache; l in range")
-    if tuple(sin_row.shape) != (B, D // 2) or tuple(cos_row.shape) != (B, D // 2):
-        raise ValueError(f"sin/cos rows must be [{B}, {D // 2}]")
-
-
-def _launch_qkv(what, l, qkv, sin_row, cos_row, k_cache, v_cache, pos,
-                n_heads, n_kv, k_scale=None, v_scale=None):
-    """K2 (bf16 cache) or K7 (int8/fp8 cache with its scale stacks)."""
-    B, _, D = qkv.shape
-    L, _, S, _ = k_cache.shape
-    quant = k_scale is not None
-    G = n_heads // n_kv
-    cache_ok = (k_cache.dtype in QUANT_CODE if quant
-                else k_cache.dtype == torch.bfloat16)
-    if (not qkv.is_cuda or qkv.dtype not in _DTYPE_CODE or not cache_ok
-            or v_cache.dtype != k_cache.dtype or D not in (64, 128)
-            or n_heads % n_kv or G > 8):
-        raise ValueError(
-            f"{what} takes CUDA bf16/f32 qkv, a "
-            f"{'int8/fp8' if quant else 'bf16'} cache, D in (64, 128) and "
-            f"H/KV <= 8; got {qkv.device} {qkv.dtype}, {k_cache.dtype}, "
-            f"D={D}, H={n_heads}, KV={n_kv}")
-    dev_i = qkv.get_device()
-    tensors = (qkv, sin_row, cos_row, k_cache, v_cache, pos) + (
-        (k_scale, v_scale) if quant else ())
-    if any(t.get_device() != dev_i or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what} operands must be contiguous on qkv's device")
-    if sin_row.dtype != torch.float32 or pos.dtype != torch.int32:
-        raise ValueError("sin/cos rows must be f32 and pos int32")
-    if quant and (k_scale.dtype != torch.float32
-                  or tuple(k_scale.shape) != (L, B, S, n_kv)
-                  or tuple(v_scale.shape) != (L, B, S, n_kv)):
-        raise ValueError(f"{what}: scales must be f32 [{L}, {B}, {S}, {n_kv}]")
-    dev = qkv.device
-    NS = -(-S // SPLIT)
-    out = torch.empty((B, n_heads, D), dtype=qkv.dtype, device=dev)
-    rows = torch.empty((2, B, n_kv, D), dtype=k_cache.dtype, device=dev)
-    # per-split partials: m/d [B, KV, NS, G, 2] then ctx [B, KV, NS, G, D]
-    n_md = B * n_kv * NS * G * 2
-    part = torch.empty(n_md + B * n_kv * NS * G * D, dtype=torch.float32,
-                       device=dev)
-    layer = l * k_cache.stride(0) * k_cache.element_size()   # bytes to layer l
-    head = (qkv.data_ptr(), sin_row.data_ptr(), cos_row.data_ptr(),
-            k_cache.data_ptr() + layer, v_cache.data_ptr() + layer)
-    dims = (pos.data_ptr(), B, n_heads, n_kv, D, S, float(D) ** -0.5,
-            out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr())
-    parts = (part.data_ptr(), part.data_ptr() + 4 * n_md, _DTYPE_CODE[qkv.dtype])
-    lib = _cuda.library("decode_attention")
-    if quant:
-        sl = 4 * l * k_scale.stride(0)
-        scales = torch.empty((2, B, n_kv), dtype=torch.float32, device=dev)
-        rc = lib.bn_decode_attention_qkv_quant(
-            *head, k_scale.data_ptr() + sl, v_scale.data_ptr() + sl, *dims,
-            scales[0].data_ptr(), scales[1].data_ptr(), *parts,
-            QUANT_CODE[k_cache.dtype], _cuda.stream_ptr(dev))
-    else:
-        rc = lib.bn_decode_attention_qkv(*head, *dims, *parts,
-                                         _cuda.stream_ptr(dev))
-    _cuda.check(lib, "decode_attention", rc, what)
-    if quant:
-        return out, rows[0], rows[1], scales[0], scales[1]
-    return out, rows[0], rows[1]
+    pos [B] valid rows; the TPU kernel's chunks (``_pick_chunk``).  Returns
+    (attn [B, H, D] in qkv's dtype, k_row, v_row [B, KV, D] in the cache
+    dtype)."""
+    B, S = qkv.shape[0], k_cache_l.shape[1]
+    return qkv_attention_plain(qkv, sin_row, cos_row, k_cache_l, v_cache_l,
+                               pos, n_heads, n_kv,
+                               pick_chunk(S, B, k_cache_l.element_size()))
 
 
 def decode_attention_qkv(l: int, qkv: torch.Tensor, sin_row: torch.Tensor,
@@ -208,14 +70,8 @@ def decode_attention_qkv(l: int, qkv: torch.Tensor, sin_row: torch.Tensor,
     qkv [B, H+2KV, D] (raw projection, bf16/f32); sin/cos rows [B, D/2]
     f32; pos [B] int32 = rows already in the cache (read before this
     step's write).  Returns (attn [B, H, D], k_row, v_row [B, KV, D])."""
-    _check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv)
-    if qkv.device.type == "cpu":
-        return decode_attention_qkv_plain(qkv, sin_row, cos_row, k_cache[l],
-                                          v_cache[l], pos, n_heads, n_kv)
-    out = _launch_qkv("K2", l, qkv, sin_row, cos_row, k_cache, v_cache, pos,
-                      n_heads, n_kv)
-    decode_attention_qkv.launches += 1
-    return out
+    return qkv_call(decode_attention_qkv, "K2", decode_attention_qkv_plain, l,
+                    qkv, sin_row, cos_row, k_cache, v_cache, pos, n_heads, n_kv)
 
 
 decode_attention_qkv.launches = 0
@@ -231,22 +87,10 @@ def decode_attention_qkv_quant_plain(qkv, sin_row, cos_row, k_cache_l,
     the cache in the TPU kernel's chunks.  caches [B, S, KV*D] int8/fp8,
     scales [B, S, KV] f32.  Returns (attn [B, H, D] in qkv's dtype, k_q,
     v_q [B, KV, D] in the cache dtype, k_s, v_s [B, KV] f32)."""
-    B, _, D = qkv.shape
-    H, KV = n_heads, n_kv
-    cdt = k_cache_l.dtype
-    rows = qkv.to(torch.float32)
-    qk = _rope_rows(rows[:, : H + KV], sin_row, cos_row)
-    q = qk[:, :H].reshape(B, KV, H // KV, D)
-    kq, ks = quantize_kv(qk[:, H:], cdt)
-    vq, vs = quantize_kv(rows[:, H + KV:], cdt)
-    k_rt, v_rt = dequantize_kv(kq, ks), dequantize_kv(vq, vs)
-    m = (q * k_rt[:, :, None, :]).sum(-1) * float(D) ** -0.5
-    ctx = v_rt[:, :, None, :].expand(q.shape).clone()
-    chunk = pick_chunk(k_cache_l.shape[1], B, 1)
-    out = online_softmax_plain(q.to(torch.bfloat16).to(torch.float32), m, ctx,
-                               k_cache_l, v_cache_l, pos, chunk, k_scale_l,
-                               v_scale_l)
-    return out.reshape(B, H, D).to(qkv.dtype), kq, vq, ks, vs
+    B, S = qkv.shape[0], k_cache_l.shape[1]
+    return qkv_attention_plain(qkv, sin_row, cos_row, k_cache_l, v_cache_l,
+                               pos, n_heads, n_kv, pick_chunk(S, B, 1),
+                               k_scale_l, v_scale_l)
 
 
 def decode_attention_qkv_quant(l: int, qkv: torch.Tensor, sin_row: torch.Tensor,
@@ -257,15 +101,9 @@ def decode_attention_qkv_quant(l: int, qkv: torch.Tensor, sin_row: torch.Tensor,
     """K7 over layer ``l`` of the flat int8/fp8 stacks [L, B, S, KV*D] and
     their f32 scale stacks [L, B, S, KV]; the rest as K2.  Returns (attn
     [B, H, D], k_q, v_q [B, KV, D] codes, k_s, v_s [B, KV] f32)."""
-    _check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv)
-    if qkv.device.type == "cpu":
-        return decode_attention_qkv_quant_plain(
-            qkv, sin_row, cos_row, k_cache[l], v_cache[l], k_scale[l],
-            v_scale[l], pos, n_heads, n_kv)
-    out = _launch_qkv("K7", l, qkv, sin_row, cos_row, k_cache, v_cache, pos,
-                      n_heads, n_kv, k_scale, v_scale)
-    decode_attention_qkv_quant.launches += 1
-    return out
+    return qkv_call(decode_attention_qkv_quant, "K7",
+                    decode_attention_qkv_quant_plain, l, qkv, sin_row, cos_row,
+                    k_cache, v_cache, pos, n_heads, n_kv, k_scale, v_scale)
 
 
 decode_attention_qkv_quant.launches = 0
@@ -277,10 +115,9 @@ def decode_attention_batched_plain(q, k_new, v_new, k_cache_l, v_cache_l, pos):
     bf16 softmax weights) with the v2 chunking of ``_pick_chunk`` for the
     wrapper's batch group.  Returns [B, H, D] in q's dtype."""
     B, S = q.shape[0], k_cache_l.shape[1]
-    qf, m, ctx = new_token_init(q, k_new, v_new, k_cache_l.dtype)
-    chunk = pick_chunk(S, pick_group(B)[0], k_cache_l.element_size())
-    out = online_softmax_plain(qf, m, ctx, k_cache_l, v_cache_l, pos, chunk)
-    return out.reshape(q.shape).to(q.dtype)
+    return split_attention_plain(
+        q, k_new, v_new, k_cache_l, v_cache_l, pos,
+        pick_chunk(S, pick_group(B)[0], k_cache_l.element_size()))
 
 
 def decode_attention_batched(l: int, q: torch.Tensor, k_new: torch.Tensor,
@@ -291,14 +128,9 @@ def decode_attention_batched(l: int, q: torch.Tensor, k_new: torch.Tensor,
     pool of B slots: q [B, H, D] roped, k_new / v_new [B, KV, D] (k
     roped), one dtype (bf16/f32); pos [B] int32 rows already cached.
     Returns attn [B, H, D] in q's dtype."""
-    check_layer_args(l, q, k_new, v_new, k_cache, v_cache)
-    if q.device.type == "cpu":
-        return decode_attention_batched_plain(q, k_new, v_new, k_cache[l],
-                                              v_cache[l], pos)
-    out = launch_split_attention("K8", l, q, k_new, v_new, k_cache, v_cache,
-                                 pos)
-    decode_attention_batched.launches += 1
-    return out
+    return split_call(decode_attention_batched, "K8",
+                      decode_attention_batched_plain, l, q, k_new, v_new,
+                      k_cache, v_cache, pos)
 
 
 decode_attention_batched.launches = 0
@@ -312,11 +144,9 @@ def decode_attention_quant_batched_plain(q, k_new, v_new, k_cache_l, v_cache_l,
     weights by the v scales before their bf16 rounding; the TPU kernel's
     chunks.  Returns [B, H, D] in q's dtype."""
     B, S = q.shape[0], k_cache_l.shape[1]
-    qf, m, ctx = new_token_init(q, k_new, v_new, torch.bfloat16)
-    chunk = pick_chunk(S, pick_group(B)[0], 1)
-    out = online_softmax_plain(qf, m, ctx, k_cache_l, v_cache_l, pos, chunk,
-                               k_scale_l, v_scale_l)
-    return out.reshape(q.shape).to(q.dtype)
+    return split_attention_plain(q, k_new, v_new, k_cache_l, v_cache_l, pos,
+                                 pick_chunk(S, pick_group(B)[0], 1), k_scale_l,
+                                 v_scale_l)
 
 
 def decode_attention_quant_batched(l: int, q: torch.Tensor, k_new: torch.Tensor,
@@ -326,17 +156,92 @@ def decode_attention_quant_batched(l: int, q: torch.Tensor, k_new: torch.Tensor,
                                    pos: torch.Tensor) -> torch.Tensor:
     """K9 over layer ``l`` of the flat int8/fp8 stacks [L, B, S, KV*D] and
     their f32 scale stacks [L, B, S, KV]; the rest as K8."""
-    check_layer_args(l, q, k_new, v_new, k_cache, v_cache)
-    if q.device.type == "cpu":
-        return decode_attention_quant_batched_plain(
-            q, k_new, v_new, k_cache[l], v_cache[l], k_scale[l], v_scale[l], pos)
-    out = launch_split_attention("K9", l, q, k_new, v_new, k_cache, v_cache,
-                                 pos, k_scale, v_scale)
-    decode_attention_quant_batched.launches += 1
-    return out
+    return split_call(decode_attention_quant_batched, "K9",
+                      decode_attention_quant_batched_plain, l, q, k_new, v_new,
+                      k_cache, v_cache, pos, k_scale, v_scale)
 
 
 decode_attention_quant_batched.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the per-layer-slice v2 kernels: K20, K21 (BITNET_BATCHED_ATTN=v2qkv),
+# K22, K23 (BITNET_ATTN_STACKED=0)
+# --------------------------------------------------------------------------
+# K20–K23's plain versions are K2's, K7's, K8's and K9's: the unstacked v2
+# wrappers pick their chunks (and K22 / K23 their batch groups) by the same
+# rules as the stacked ones
+decode_attention_qkv_batched_v2_plain = decode_attention_qkv_plain
+decode_attention_qkv_quant_batched_v2_plain = decode_attention_qkv_quant_plain
+decode_attention_batched_v2_plain = decode_attention_batched_plain
+decode_attention_quant_batched_v2_plain = decode_attention_quant_batched_plain
+
+
+def decode_attention_qkv_batched_v2(l: int, qkv: torch.Tensor,
+                                    sin_row: torch.Tensor, cos_row: torch.Tensor,
+                                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                    pos: torch.Tensor, n_heads: int, n_kv: int):
+    """K20 ← ``decode_attention_qkv_batched_v2``
+    (``bitnet_tpu/ops/decode_attention_v2.py:453``, pallas_call ``:487``):
+    the arguments and results of K2, for pools (2 < B ≤ 16 by the plan)."""
+    return qkv_call(decode_attention_qkv_batched_v2, "K20",
+                    decode_attention_qkv_batched_v2_plain, l, qkv, sin_row,
+                    cos_row, k_cache, v_cache, pos, n_heads, n_kv)
+
+
+decode_attention_qkv_batched_v2.launches = 0
+
+
+def decode_attention_qkv_quant_batched_v2(l: int, qkv: torch.Tensor,
+                                          sin_row: torch.Tensor,
+                                          cos_row: torch.Tensor,
+                                          k_cache: torch.Tensor,
+                                          v_cache: torch.Tensor,
+                                          k_scale: torch.Tensor,
+                                          v_scale: torch.Tensor,
+                                          pos: torch.Tensor, n_heads: int,
+                                          n_kv: int):
+    """K21 ← ``decode_attention_qkv_quant_batched_v2`` (``:542``,
+    pallas_call ``:582``): the arguments and results of K7, for pools."""
+    return qkv_call(decode_attention_qkv_quant_batched_v2, "K21",
+                    decode_attention_qkv_quant_batched_v2_plain, l, qkv,
+                    sin_row, cos_row, k_cache, v_cache, pos, n_heads, n_kv,
+                    k_scale, v_scale)
+
+
+decode_attention_qkv_quant_batched_v2.launches = 0
+
+
+def decode_attention_batched_v2(l: int, q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor,
+                                pos: torch.Tensor) -> torch.Tensor:
+    """K22 ← ``decode_attention_batched_v2`` (``:1159``, pallas_call
+    ``:1193``): K8 on one layer slice (the JAX loop under
+    ``BITNET_ATTN_STACKED=0``); the arguments of K8."""
+    return split_call(decode_attention_batched_v2, "K22",
+                      decode_attention_batched_v2_plain, l, q, k_new, v_new,
+                      k_cache, v_cache, pos)
+
+
+decode_attention_batched_v2.launches = 0
+
+
+def decode_attention_quant_batched_v2(l: int, q: torch.Tensor,
+                                      k_new: torch.Tensor, v_new: torch.Tensor,
+                                      k_cache: torch.Tensor,
+                                      v_cache: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      pos: torch.Tensor) -> torch.Tensor:
+    """K23 ← ``decode_attention_quant_batched_v2`` (``:1239``, pallas_call
+    ``:1291``): K9 on one layer slice; the arguments of K9."""
+    return split_call(decode_attention_quant_batched_v2, "K23",
+                      decode_attention_quant_batched_v2_plain, l, q, k_new,
+                      v_new, k_cache, v_cache, pos, k_scale, v_scale)
+
+
+decode_attention_quant_batched_v2.launches = 0
 
 
 def scatter_kv_rows_plain(k_cache, v_cache, k_rows, v_rows, pos,

@@ -14,10 +14,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from .decode_attention import decode_attention
-from .decode_attention_v2 import (decode_attention_batched, decode_attention_qkv,
+from .decode_attention import (decode_attention, decode_attention_batched_v1,
+                               decode_attention_qkv_batched,
+                               decode_attention_qkv_quant_batched,
+                               decode_attention_qkv_quant_v1,
+                               decode_attention_qkv_v1, decode_attention_quant,
+                               decode_attention_quant_batched_v1)
+from .decode_attention_v2 import (decode_attention_batched,
+                                  decode_attention_batched_v2,
+                                  decode_attention_qkv,
+                                  decode_attention_qkv_batched_v2,
                                   decode_attention_qkv_quant,
+                                  decode_attention_qkv_quant_batched_v2,
                                   decode_attention_quant_batched,
+                                  decode_attention_quant_batched_v2,
                                   scatter_kv_rows)
 from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_blockscale_bf16,
                              ternary_matmul_tl_bf16_normed,
@@ -85,6 +95,22 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
                "bitnet_tpu/ops/ternary_matmul.py:733",
                ternary_matmul_tl_bf16_normed),
+    # slice 5: every other decode-attention site, on the split-S pair
+    *(KernelSpec(wrapper.__name__, "cuda",
+                 "bitnet_tpu_torch/csrc/decode_attention.cu",
+                 f"bitnet_tpu/ops/{site}", wrapper)
+      for wrapper, site in (
+          (decode_attention_qkv_v1, "decode_attention.py:488"),
+          (decode_attention_qkv_quant_v1, "decode_attention.py:859"),
+          (decode_attention_quant, "decode_attention.py:655"),
+          (decode_attention_batched_v1, "decode_attention.py:1114"),
+          (decode_attention_quant_batched_v1, "decode_attention.py:1262"),
+          (decode_attention_qkv_batched, "decode_attention.py:1421"),
+          (decode_attention_qkv_quant_batched, "decode_attention.py:1609"),
+          (decode_attention_qkv_batched_v2, "decode_attention_v2.py:487"),
+          (decode_attention_qkv_quant_batched_v2, "decode_attention_v2.py:582"),
+          (decode_attention_batched_v2, "decode_attention_v2.py:1193"),
+          (decode_attention_quant_batched_v2, "decode_attention_v2.py:1291"))),
 )
 
 

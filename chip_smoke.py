@@ -14,8 +14,9 @@ no result line):
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
   kernels  each kernel against its plain PyTorch version at the shapes of
            the fused and the generic path, of pools and int8 / fp8 caches,
-           and of bitnet32 / TL weights: error, median ms (CUDA events),
-           bound, plain and library ms
+           of bitnet32 / TL weights, and of every other decode-attention
+           plan (K13-K23): error, median ms (CUDA events), bound, plain and
+           library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
@@ -32,6 +33,13 @@ no result line):
            pool of 8) and a bitnet32 model (the CLI's unfused engine), and
            a 2-layer bitnet32 model whose FFN width is not a multiple of
            256; launch counts per request
+  plans    the same shapes under each knob setting of the JAX package's
+           decode-attention selection (B=1 and a pool of 8, bf16 and int8
+           caches, and the generic path's BITNET_ROPE_FUSED=1): plan names,
+           launch counts, step times beside the default plan's, logits
+           against it; then each knob plan on a 2-layer model, card vs CPU
+  kernel_bench  `python -m bitnet_tpu_torch.cli benchmark-kernels` three
+           times (the 2B shapes; --attention all at B=1 and at B=8, S=4096)
   generic  the same shapes unfused, as the CLI builds the engine (auto →
            w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
            sampling twice, then one greedy request on kernel_path="pallas"
@@ -50,17 +58,19 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
-          "generic", "cli")
+          "generic", "plans", "kernel_bench", "cli")
 
 
 def emit(obj) -> None:
@@ -154,7 +164,8 @@ def phase_kernels(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(1234)
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
-           "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": []}
+           "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
+           **{key: [] for key, *_ in PLAN_KERNELS}}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
@@ -166,6 +177,7 @@ def phase_kernels(torch, dev):
     check_k3_quant(torch, dev, g, res)
     check_k10(torch, dev, g, res)
     check_k11_k12(torch, dev, g, res)
+    check_plan_kernels(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -817,6 +829,131 @@ def check_k11_k12(torch, dev, g, res, eps=1e-5):
         del words, s
 
 
+# Slice 5: the wrappers of every other decode-attention plan, all on the
+# split-S pair: (key, kernel id, rope-fused?, cache dtypes, batch sizes).
+# The per-b kernels run at B in {1, 2}, the pool kernels at B in {3, 8}.
+PLAN_KERNELS = (
+    ("k13", "decode_attention_qkv_v1", True, ("bf16",), (1, 2)),
+    ("k14", "decode_attention_qkv_quant_v1", True, ("int8", "fp8"), (1, 2)),
+    ("k15", "decode_attention_quant", False, ("int8", "fp8"), (1, 2)),
+    ("k16", "decode_attention_batched_v1", False, ("bf16",), (3, 8)),
+    ("k17", "decode_attention_quant_batched_v1", False, ("int8", "fp8"), (3, 8)),
+    ("k18", "decode_attention_qkv_batched", True, ("bf16",), (3, 8)),
+    ("k19", "decode_attention_qkv_quant_batched", True, ("int8", "fp8"), (3, 8)),
+    ("k20", "decode_attention_qkv_batched_v2", True, ("bf16",), (3, 8)),
+    ("k21", "decode_attention_qkv_quant_batched_v2", True, ("int8", "fp8"), (3, 8)),
+    ("k22", "decode_attention_batched_v2", False, ("bf16",), (3, 8)),
+    ("k23", "decode_attention_quant_batched_v2", False, ("int8", "fp8"), (3, 8)),
+)
+
+
+def check_plan_kernels(torch, dev, g, res):
+    """K13–K23 against their plain versions at S in {1024, 4096} over their
+    cache dtypes and batch sizes; a per-b kernel with every slot's cache
+    nearly full, a pool with mixed lengths and an idle slot (pos 0).  The
+    rope-fused kernels' new rows (codes and scales) must be equal.  Timed
+    where the plans phase runs them hardest: the per-b kernels at B=1,
+    S=4096, the pool kernels at B=8, S=1024, a full cache, int8 for the
+    quantized ones."""
+    import importlib
+
+    from bitnet_tpu_torch.ops.registry import REGISTRY
+
+    specs = {spec.kernel_id: spec for spec in REGISTRY}
+    H, KV, D = H20, KV5, D128
+    for key, kid, rope, kvs, Bs in PLAN_KERNELS:
+        fn = specs[kid].wrapper
+        plain = getattr(importlib.import_module(fn.__module__), kid + "_plain")
+        for kv in kvs:
+            quant = kv != "bf16"
+            dt = getattr(torch, dict(QUANT).get(kv, "bfloat16"))
+            esz = 1 if quant else 2
+            for S in ATTN_S:
+                for B in Bs:
+                    timed = kv == kvs[0] and (B, S) == ((1, 4096) if Bs[0] == 1
+                                                        else (8, 1024))
+                    L = (max(2, math.ceil((120 << 20) / (2 * B * S * KV * D * esz)))
+                         if timed else 2)
+                    if quant:
+                        kc, vc, ks, vs = _quant_stack(torch, g, L, B, S, dt, dev)
+                        scales = (ks, vs)
+                    else:
+                        kc, vc = (torch.randn((L, B, S, KV * D), generator=g, device=dev
+                                              ).to(torch.bfloat16) for _ in range(2))
+                        scales = ()
+                    if B <= 2:
+                        ps = [S - 1, S // 2][:B]
+                    elif timed:
+                        ps = [S - 1] * B
+                    else:
+                        ps = torch.randint(1, S + 1, (B,), generator=g, device=dev).tolist()
+                        ps[0], ps[1] = S - 1, 0
+                    pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+                    if rope:
+                        qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev
+                                          ).to(torch.bfloat16)
+                        ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+                        sin, cos = torch.sin(ang), torch.cos(ang)
+                        args = (qkv, sin, cos)
+                        kw = {"n_heads": H, "n_kv": KV}
+                    else:
+                        q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+                        kn, vn = (torch.randn((B, KV, D), generator=g, device=dev)
+                                  for _ in range(2))
+                        if quant:   # the new rows arrive round-tripped, in bf16
+                            kn, vn = (_round_trip(torch, x, dt) for x in (kn, vn))
+                        args = (q, kn.to(torch.bfloat16), vn.to(torch.bfloat16))
+                        kw = {}
+
+                    def run(i):
+                        return fn(i, *args, kc, vc, *scales, pos, **kw)
+
+                    def ref(i):
+                        return plain(*args, kc[i], vc[i], *(s[i] for s in scales), pos,
+                                     *kw.values())
+
+                    l = 1
+                    out, pl = run(l), ref(l)
+                    attn, pattn = (out[0], pl[0]) if rope else (out, pl)
+                    err = (attn.float() - pattn.float()).abs().max().item()
+                    ref_max = pattn.float().abs().max().item()
+                    # float tolerance: K5's (bf16 softmax weights rounded
+                    # against split maxima, the plain version against the TPU
+                    # kernel's chunk maxima)
+                    tol = 1e-2 * ref_max + 2e-3
+                    row = {"kv": kv, "S": S, "B": B, "pos": ps, "max_abs_err": err,
+                           "ref_max": ref_max, "tol": tol, "ok": err <= tol}
+                    if rope:
+                        row["rows_exact"] = all(_same(torch, a, b)
+                                                for a, b in zip(out[1:], pl[1:]))
+                        row["ok"] = row["ok"] and row["rows_exact"]
+                    if timed:
+                        row["ms"] = time_ms(torch, lambda i: run(i % L), L)
+                        row["plain_ms"] = time_ms(torch, lambda i: ref(i % L), 2)
+                        nl = min(L, 2)
+                        if quant:
+                            kb, vb = _dequant(torch, kc[:nl], ks[:nl]), _dequant(torch, vc[:nl], vs[:nl])
+                        else:
+                            kb, vb = kc, vc
+                        nl = kb.shape[0]
+                        row["library_ms"] = time_ms(torch, lambda i: _sdpa(
+                            torch, pattn, kb[i % nl], vb[i % nl], pos), nl)
+                        del kb, vb
+                        row["bound_ms"], row["bound_by"] = _attn_bound(ps, B, esz, quant)
+                    res[key].append(row)
+                    if not row["ok"]:
+                        raise AssertionError(f"{key.upper()} ({kid}) mismatch: {row}")
+                    del kc, vc, scales
+
+
+def _round_trip(torch, x, dt):
+    """Rows after the KV quantization round trip (the model's k_new, v_new
+    for a quantized cache)."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+
+    return dk.dequantize_kv(*dk.quantize_kv(x, dt))
+
+
 # One summary entry per TPU kernel site: (entry name, kernel id, the site
 # it replaces, the serving phase whose launches it reports, the kernels-phase
 # rows it sums).  A kernel that serves two sites has an entry for each, timed
@@ -857,6 +994,11 @@ SITES = (
     ("ternary_matmul_blockscale_bf16 (unstacked)", "ternary_matmul_blockscale_bf16",
      f"{TM}:1177 (bitnet32/TL body)", "tl_generic", "k10",
      lambda r: "ms" in r and r["path"] == "unfused" and r["M"] == 1),
+    # slice 5: counted over the plans phase's requests
+    *((kid, kid, f"{DA}{site}", "plans", key, lambda r: "ms" in r)
+      for (key, kid, *_), site in zip(PLAN_KERNELS, (
+          ".py:488", ".py:859", ".py:655", ".py:1114", ".py:1262", ".py:1421",
+          ".py:1609", "_v2.py:487", "_v2.py:582", "_v2.py:1193", "_v2.py:1291"))),
 )
 
 
@@ -865,8 +1007,9 @@ def summarize(res, launches):
     bound and library ms summed over the rows of that site's path (the
     fused path's four shapes or the generic path's seven at M=1, or at
     M=512 for the prefill GEMM; K2 and K5 at S=4096 with a full cache; K3
-    all 30 rows of a B=1 step); ``launches[phase]`` holds each serving
-    phase's counts, zeroed before its path and read after."""
+    all 30 rows of a B=1 step; K13–K15 at B=1, S=4096, K16–K23 at B=8,
+    S=1024); ``launches[phase]`` holds each serving phase's counts, zeroed
+    before its path and read after."""
     from bitnet_tpu_torch.ops.registry import REGISTRY
 
     specs = {spec.kernel_id: spec for spec in REGISTRY}
@@ -1419,6 +1562,272 @@ def phase_generic(torch, dev):
             "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
 
 
+# the plans phase: each knob setting of the JAX package's decode-attention
+# selection, applied to the same engines as the default plans
+PLAN_SETTINGS = (
+    ("b1_attn_v1", {"BITNET_B1_ATTN": "v1"}),
+    ("rope_fused_0", {"BITNET_ROPE_FUSED": "0"}),
+    ("batched_attn_1", {"BITNET_BATCHED_ATTN": "1"}),
+    ("batched_attn_v2qkv", {"BITNET_BATCHED_ATTN": "v2qkv"}),
+    ("rope_fused_0_batched_attn_1", {"BITNET_ROPE_FUSED": "0",
+                                     "BITNET_BATCHED_ATTN": "1"}),
+    ("attn_stacked_0", {"BITNET_ATTN_STACKED": "0"}),
+)
+
+
+def _forced_logits(torch, eng, prompts, tokens, steps):
+    """Logits [steps, B, V] (f32, host) of the prefill and of ``steps - 1``
+    decode steps fed ``tokens`` (per slot) — teacher forcing."""
+    import numpy as np
+
+    B = eng.engine_cfg.max_batch_size
+    if B == 1:
+        lg = eng.prefill(prompts[0])
+    else:
+        lg = eng.prefill_batch(prompts)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    out = [lg.float().cpu()]
+    for t in range(steps - 1):
+        tok = torch.tensor([toks[t] for toks in tokens], dtype=torch.int32)
+        if B == 1:
+            lg = eng.decode_step(int(tok[0]), int(pos[0]))
+        else:
+            lg = eng.decode_batch_step(tok.to(eng.device), pos)
+        out.append(lg.float().cpu())
+        pos = pos + 1
+    return torch.stack(out)
+
+
+def _against_default(torch, lg, ref):
+    """Cosine of every slot's logits at every step against the default
+    plan's, and whether every differing argmax is a near-tie (the default's
+    top-2 margin no larger than the largest logit difference)."""
+    cos = torch.nn.functional.cosine_similarity(lg, ref, dim=-1)
+    top2 = torch.topk(ref, 2, dim=-1).values
+    diff = (lg - ref).abs().amax(-1)
+    same = lg.argmax(-1) == ref.argmax(-1)
+    return {"min_cosine": float(cos.min()),
+            "tokens_agree": int(same.sum()), "tokens": same.numel(),
+            "ties_only": bool((same | (top2[..., 0] - top2[..., 1] <= diff)).all())}
+
+
+def _plan_request(torch, eng, env, prompts, gc, L, ref=None, steps=8):
+    """One request under ``env``: ``generate`` (B = 1) or ``generate_batch``
+    with the counts zeroed before it and read after, then the same prompts
+    teacher-forced with the default plan's tokens (``ref``)."""
+    from bitnet_tpu_torch.models.bitnet import plan_attention
+    from bitnet_tpu_torch.ops import registry
+
+    B = eng.engine_cfg.max_batch_size
+    with mock.patch.dict(os.environ, env):
+        stacked = eng.stacked_decode()
+        if stacked:
+            plan = eng.decode_plan()
+            rope_attn, split_attn = plan_attention(plan)
+            attn = rope_attn or split_attn
+            attn_name = None if attn is None else attn.__name__   # None: einsum
+            family = ("einsum" if attn is None
+                      else "rope_fused" if rope_attn is not None else "split")
+        else:   # the generic path: K5, or K13 under BITNET_ROPE_FUSED=1
+            plan = "generic"
+            rope = env.get("BITNET_ROPE_FUSED") == "1"
+            attn_name = "decode_attention_qkv_v1" if rope else "decode_attention"
+            family = "rope_fused" if rope else "split"
+        registry.reset_launch_counts()
+        if B == 1:
+            toks = [eng.generate(prompts[0], gc).token_ids]
+        else:
+            toks = [r.token_ids for r in eng.generate_batch(prompts, gc)]
+        n = registry.launch_counts()
+        m = eng.last_metrics
+        lg = _forced_logits(torch, eng, prompts, ref["tokens"] if ref else toks, steps)
+    n_steps = m.decode_steps
+    if stacked:
+        expect = {"ternary_matmul_w2a8_normed": 4 * L * n_steps,
+                  "scatter_kv_rows": n_steps, "ternary_matmul_w2a8": 4 * L}
+    else:       # fused projections on kernel_path="pallas": K6 for all four
+        expect = {"ternary_matmul_bf16": 4 * L * (n_steps + 1)}
+    if attn_name is not None:
+        expect[attn_name] = L * n_steps
+    want = {k.kernel_id: 0 for k in registry.REGISTRY}
+    want.update(expect)
+    if n != want:
+        raise AssertionError(f"{env} B={B}: launch counts {n} != {want}")
+    if any(len(t) != gc.max_new_tokens for t in toks):
+        raise AssertionError(f"{env} B={B}: a slot did not give its tokens")
+    rec = [r for r in eng.kernel_recorder if r.startswith("decode_")][-1]
+    row = {"env": env, "B": B, "kv": eng.kv_dtype, "plan": plan,
+           "recorder": rec, "attention_kernel": attn_name, "family": family,
+           "prompt_tokens": sum(len(p) for p in prompts), "decode_steps": n_steps,
+           "prefill_ms": m.prefill_s * 1e3,
+           "decode_ms_per_step": m.decode_s * 1e3 / max(n_steps, 1),
+           "launches": n, "tokens": toks, "logits": lg}
+    if B == 1 and stacked and rec != f"decode_w2a8_attn_{plan}_x{gc.max_new_tokens}":
+        raise AssertionError(f"{env}: the recorder says {rec}, the plan is {plan}")
+    if ref is not None:
+        row.update(_against_default(torch, lg, ref["logits"]))
+        row["default_plan"] = ref["plan"]
+        row["default_decode_ms_per_step"] = ref["decode_ms_per_step"]
+        row["default_kernel_launches"] = (
+            0 if ref["attention_kernel"] in (None, attn_name)
+            else n[ref["attention_kernel"]])
+        # the same function as the default plan (its v1 or v2 body, stacked
+        # or per layer: only the softmax chunks differ) holds 0.99; another
+        # function (RoPE and the rows' quantization in torch at the
+        # activation dtype, or in f32 inside the kernel; the einsum tail's
+        # plain attention) differs by a bf16 ulp a layer, which 30 layers of
+        # W2A8 requantization amplify (0.965-0.983 on an H100, PERF.md §6)
+        row["min_cosine_gate"] = 0.99 if family == ref["family"] else 0.95
+        row["ok"] = (row["ties_only"] and row["default_kernel_launches"] == 0
+                     and row["min_cosine"] >= row["min_cosine_gate"])
+        del row["logits"]
+        if not row["ok"]:
+            raise AssertionError(f"{env} B={B}: against the default plan: "
+                                 f"{ {k: v for k, v in row.items() if k != 'logits'} }")
+    return row
+
+
+def phase_plans(torch, dev):
+    """Every other decode-attention plan at the full 2B-4T shapes (the
+    serving phase's model, seed 0, 30 layers), fused, int8 head, w2a8: for
+    B = 1 (``generate``, the 500-token prompt) and a pool of 8
+    (``generate_batch``, prompts of 32–500 tokens), bf16 and int8 caches,
+    one request under the default plans and one under each knob setting of
+    ``PLAN_SETTINGS``, 32 new tokens each, then one generic-path request
+    (fused projections on ``pallas``, bf16 cache, B = 1) with and without
+    ``BITNET_ROPE_FUSED=1``.  Each request: the plan and the recorder's
+    name; launch counts (K1 4L, the plan's attention wrapper L and K3 once
+    a step, K4 4L a prefill, every other kernel 0; the default plan's
+    wrapper 0 where the knob selects another); decode ms a step beside the
+    default plan's of the same engine; the first 8 steps teacher-forced
+    with the default plan's tokens: the same greedy token wherever the
+    default's top-2 margin exceeds the largest logit difference, and logits
+    cosine >= 0.99 where the plan computes the default's function (>= 0.95
+    where the JAX package's plans themselves differ, see the gate).  Then
+    each knob plan on a 2-layer model, card against CPU
+    (:func:`_knob_parity`)."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+
+    cfg = BITNET_2B4T
+    L, V = cfg.num_layers, cfg.vocab_size
+    params = build_synthetic(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(21)
+    pool8 = [[int(t) for t in torch.randint(0, V, (int(k),), generator=gen)]
+             for k in torch.randint(32, 501, (8,), generator=gen)]
+    one = [_prompts(torch, cfg)[2]]
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    runs, totals = [], {}
+    engines = [(B, kv, EngineConfig(max_seq_len=1024, max_batch_size=B, kv_cache_dtype=kv,
+                                    logits_dtype="int8", kernel_path="w2a8",
+                                    fuse_projections=True), PLAN_SETTINGS)
+               for B in (1, 8) for kv in ("bf16", "int8")]
+    engines.append((1, "bf16", EngineConfig(max_seq_len=1024, kernel_path="pallas",
+                                            fuse_projections=True),
+                    (("generic_rope_fused_1", {"BITNET_ROPE_FUSED": "1"}),)))
+    for B, kv, ec, settings in engines:
+        eng = InferenceEngine(cfg, params, ec, device=dev)
+        prompts = one if B == 1 else pool8
+        if B == 1:
+            eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+        else:
+            eng.generate_batch([p[:8] for p in prompts[:2]],
+                               GenerationConfig(max_new_tokens=2, greedy=True))
+        base = _plan_request(torch, eng, {}, prompts, gc, L)
+        for name, env in settings:
+            r = _plan_request(torch, eng, env, prompts, gc, L, ref=base)
+            r["setting"] = name
+            runs.append(r)
+            _add(totals, r["launches"])
+        base["setting"] = "default"
+        runs.append(base)
+        _add(totals, base["launches"])
+        del eng
+        torch.cuda.empty_cache()
+    for r in runs:
+        r.pop("logits", None)
+    del params
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launch_totals": totals,
+            "parity": _knob_parity(torch, dev), "ok": True}
+
+
+# (setting, B, cache dtype) of the 2-layer card-vs-CPU check: each knob
+# plan that the 30-layer runs reach once
+KNOB_PARITY = tuple(
+    (name, B, kv) for name, Bs in (
+        ("b1_attn_v1", (1,)), ("rope_fused_0", (1,)), ("attn_stacked_0", (1, 3)),
+        ("batched_attn_1", (3,)), ("batched_attn_v2qkv", (3,)),
+        ("rope_fused_0_batched_attn_1", (3,)), ("generic_rope_fused_1", (1,)))
+    for B in Bs for kv in (("bf16",) if name.startswith("generic") else ("bf16", "int8")))
+
+
+def _knob_parity(torch, dev):
+    """Each knob plan on a 2-layer full-width model (seed 7), the card's
+    kernels against the same engine's plain versions on the CPU, teacher
+    forced as in the parity phase: logits cosine >= 0.99 and equal tokens
+    wherever the CPU's top-2 margin exceeds the logit difference — the
+    kernels compute the port's plain functions, which the CPU tests hold
+    to the JAX package's under the same knobs."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+
+    cfg = BITNET_2B4T.replace(num_layers=2)
+    params = build_synthetic(cfg, seed=7, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    prompt = [int(t) for t in torch.randint(0, cfg.vocab_size, (24,), generator=gen)]
+    pool = [[int(t) for t in torch.randint(0, cfg.vocab_size, (int(n),), generator=gen)]
+            for n in torch.randint(8, 41, (3,), generator=gen)]
+    settings = dict(PLAN_SETTINGS, generic_rope_fused_1={"BITNET_ROPE_FUSED": "1"})
+    out = []
+    for name, B, kv in KNOB_PARITY:
+        generic = name.startswith("generic")
+        ec = (EngineConfig(max_seq_len=256, kernel_path="pallas", fuse_projections=True)
+              if generic else
+              EngineConfig(max_seq_len=256, max_batch_size=B, kv_cache_dtype=kv,
+                           logits_dtype="int8", kernel_path="w2a8", fuse_projections=True))
+        with mock.patch.dict(os.environ, settings[name]):
+            eg = InferenceEngine(cfg, params, ec, device=dev)
+            ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+            plan = "generic" if generic else eg.decode_plan()
+            r = (_teacher_forced(torch, eg, ecpu, prompt) if B == 1
+                 else _teacher_forced_batch(torch, eg, ecpu, pool))
+        r.update(setting=name, B=B, kv=kv, plan=plan,
+                 ok=r["min_cosine"] >= 0.99 and r["ties_only"])
+        out.append(r)
+        del eg, ecpu
+        if not r["ok"]:
+            raise AssertionError(f"2-layer parity failed under {name} B={B} {kv}: {r}")
+    return out
+
+
+def phase_kernel_bench(torch, dev):
+    """``python -m bitnet_tpu_torch.cli benchmark-kernels`` three times, as
+    a user runs it: the 2B decode shapes (K6), ``--attention all --m 1``,
+    and ``--attention all --m 8 --seq-len 4096``.  Every result must carry
+    the JAX tool's keys and a positive ``us_per_call``."""
+    keys = ["name", "k", "n", "m", "us_per_call", "packed_mb", "gbps"]
+    out = {}
+    for name, argv in (("shapes_2b", []), ("attention_m1", ["--attention", "all", "--m", "1"]),
+                       ("attention_m8_s4096", ["--attention", "all", "--m", "8",
+                                               "--seq-len", "4096"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bitnet_tpu_torch.cli",
+                            "benchmark-kernels", *argv], cwd=REPO, capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"benchmark-kernels {argv} failed: {r.stderr[-2000:]}")
+        rows = json.loads(r.stdout)
+        if not rows or any(list(row) != keys or not row["us_per_call"] > 0
+                           for row in rows):
+            raise AssertionError(f"benchmark-kernels {argv}: {rows}")
+        out[name] = {"argv": argv, "seconds": time.perf_counter() - t0, "results": rows}
+    out["ok"] = True
+    return out
+
+
 def phase_cli(torch, dev):
     """``bitnet_tpu_torch.cli run`` on the card, on mini QK256 and BitNet32
     GGUFs that the port's own fixtures write (hidden 256, F 512, 4/2 heads,
@@ -1490,6 +1899,13 @@ def main(argv=None) -> int:
     OUT_DIR.mkdir(exist_ok=True)
     dev = torch.device("cuda", 0)
     report, smi = {}, None
+    seconds = report["seconds"] = {}          # wall time of each phase
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
     try:
         smi = nvidia_smi_line()
         probe = require_sm90(0)
@@ -1504,36 +1920,47 @@ def main(argv=None) -> int:
                 "\n".join(f"== {k}\n{v}" for k, v in _cuda.BUILD_LOG.items()))
             emit(report["build"])
         if "kernels" in phases:
-            res = phase_kernels(torch, dev)
+            res = timed("kernels", phase_kernels, torch, dev)
             report["kernels"] = res
             for k, rows in res.items():
                 emit({"phase": f"kernels.{k}", "rows": rows})
         if "parity" in phases:
-            report["parity"] = phase_parity(torch, dev)
+            report["parity"] = timed("parity", phase_parity, torch, dev)
             emit({"phase": "parity", **report["parity"]})
         launches = {}
         if "serving" in phases:
-            report["serving"] = phase_serving(torch, dev)
+            report["serving"] = timed("serving", phase_serving, torch, dev)
             s = report["serving"]
             launches["serving"] = s["launch_totals"]
             emit({"phase": "serving", "nvidia_smi": smi,
                   **{k: v for k, v in s.items() if k != "tokens"}})
         if "batched" in phases:
-            report["batched"] = phase_batched(torch, dev)
+            report["batched"] = timed("batched", phase_batched, torch, dev)
             s = report["batched"]
             launches["batched"] = s["launch_totals"]
             emit({"phase": "batched", "nvidia_smi": smi, **s})
         if "tl" in phases:
-            report["tl"] = phase_tl(torch, dev)
+            report["tl"] = timed("tl", phase_tl, torch, dev)
             launches.update(report["tl"]["launch_totals"])
             emit({"phase": "tl", "nvidia_smi": smi, **report["tl"]})
         if "generic" in phases:
-            report["generic"] = phase_generic(torch, dev)
+            report["generic"] = timed("generic", phase_generic, torch, dev)
             s = report["generic"]
             launches["generic"] = s["launch_totals"]
             emit({"phase": "generic", "nvidia_smi": smi, **s})
+        if "plans" in phases:
+            report["plans"] = timed("plans", phase_plans, torch, dev)
+            launches["plans"] = report["plans"]["launch_totals"]
+            emit({"phase": "plans", "nvidia_smi": smi, "runs": [
+                {k: v for k, v in r.items() if k not in ("tokens", "launches")}
+                for r in report["plans"]["runs"]], "parity": [
+                {k: v for k, v in r.items() if k not in ("cosines",)}
+                for r in report["plans"]["parity"]]})
+        if "kernel_bench" in phases:
+            report["kernel_bench"] = timed("kernel_bench", phase_kernel_bench, torch, dev)
+            emit({"phase": "kernel_bench", "nvidia_smi": smi, **report["kernel_bench"]})
         if "cli" in phases:
-            report["cli"] = phase_cli(torch, dev)
+            report["cli"] = timed("cli", phase_cli, torch, dev)
             emit({"phase": "cli", **{k: v if not isinstance(v, dict) else
                                      {kk: vv for kk, vv in v.items() if kk != "stderr"}
                                      for k, v in report["cli"].items()}})
@@ -1546,6 +1973,7 @@ def main(argv=None) -> int:
                                                             default=str))
         print(f"chip_smoke: FAILED: {e!r}", file=sys.stderr)
         return 1
+    emit({"phase": "seconds", **seconds})
     summary = summarize(report["kernels"], launches) if "kernels" in report else []
     report["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,

@@ -464,3 +464,104 @@ def test_tl_engine_cuda_matches_cpu(dev, wq, B):
         tok = a.argmax(1)
         lg, lc = eg.decode_batch_step(tok.to(dev), pos), ecpu.decode_batch_step(tok, pos)
         pos = pos + 1
+
+
+# slice 5: the wrappers of every other plan (name, rope-fused?, quantized?)
+PLAN_WRAPPERS = [
+    (dk.decode_attention_qkv_v1, True, False),
+    (dk.decode_attention_qkv_quant_v1, True, True),
+    (dk.decode_attention_quant, False, True),
+    (dk.decode_attention_batched_v1, False, False),
+    (dk.decode_attention_quant_batched_v1, False, True),
+    (dk.decode_attention_qkv_batched, True, False),
+    (dk.decode_attention_qkv_quant_batched, True, True),
+    (da.decode_attention_qkv_batched_v2, True, False),
+    (da.decode_attention_qkv_quant_batched_v2, True, True),
+    (da.decode_attention_batched_v2, False, False),
+    (da.decode_attention_quant_batched_v2, False, True)]
+
+
+@pytest.mark.parametrize("fn,rope,quant", PLAN_WRAPPERS,
+                         ids=[w[0].__name__ for w in PLAN_WRAPPERS])
+@pytest.mark.parametrize("B", [2, 3])
+def test_k13_to_k23_match_plain(dev, fn, rope, quant, B):
+    """Each wrapper counts one launch and matches its plain version as K2
+    / K5 do (the rope-fused ones' new rows bit for bit)."""
+    import importlib
+
+    g = torch.Generator(device=dev).manual_seed(B + len(fn.__name__))
+    H, KV, D, S = 20, 5, 128, 256
+    dtype = torch.int8 if quant else torch.bfloat16
+    kc, vc = ((_codes(g, (2, B, S, KV * D), dtype, dev) if quant else
+               torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16())
+              for _ in range(2))
+    scales = tuple(torch.rand((2, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+                   for _ in range(2)) if quant else ()
+    p = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    if rope:
+        ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+        args = (torch.randn((B, H + 2 * KV, D), generator=g, device=dev).bfloat16(),
+                ang.sin(), ang.cos())
+        kw = (H, KV)
+    else:
+        args = (torch.randn((B, H, D), generator=g, device=dev).bfloat16(),
+                *(torch.randn((B, KV, D), generator=g, device=dev).bfloat16()
+                  for _ in range(2)))
+        kw = ()
+    plain = getattr(importlib.import_module(fn.__module__), fn.__name__ + "_plain")
+    before = fn.launches
+    out = fn(1, *args, kc, vc, *scales, p, *kw)
+    assert fn.launches == before + 1
+    pl = plain(*args, kc[1], vc[1], *(s[1] for s in scales), p, *kw)
+    a, pa = (out[0], pl[0]) if rope else (out, pl)
+    assert (a.float() - pa.float()).abs().max() <= 1e-2 * pa.float().abs().max() + 2e-3
+    if rope:
+        assert all(_same(x, y) for x, y in zip(out[1:], pl[1:]))
+
+
+@pytest.mark.parametrize("env,B,kv", [
+    ({"BITNET_B1_ATTN": "v1"}, 1, "int8"), ({"BITNET_ROPE_FUSED": "0"}, 2, "bf16"),
+    ({"BITNET_BATCHED_ATTN": "1"}, 3, "fp8"), ({"BITNET_BATCHED_ATTN": "v2qkv"}, 3, "bf16"),
+    ({"BITNET_ROPE_FUSED": "0", "BITNET_BATCHED_ATTN": "1"}, 3, "int8"),
+    ({"BITNET_ATTN_STACKED": "0"}, 3, "bf16")])
+def test_plan_engine_cuda_matches_cpu(dev, monkeypatch, env, B, kv):
+    """A 2-layer full-width pool under each knob on the card against the
+    same engine's plain versions on the CPU, teacher-forced; the gates of
+    test_engine_two_slots_cuda_matches_cpu, per slot."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = BITNET_2B4T.replace(num_layers=2)
+    params = build_synthetic(cfg, seed=3, device="cpu")
+    ec = EngineConfig(max_seq_len=128, max_batch_size=B, kv_cache_dtype=kv,
+                      logits_dtype="int8", kernel_path="w2a8", fuse_projections=True)
+    eg = InferenceEngine(cfg, params, ec, device=dev)
+    ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    prompts = [[int(t) for t in torch.randint(0, cfg.vocab_size, (9 + 5 * i,),
+                                              generator=torch.Generator().manual_seed(i))]
+               for i in range(B)]
+    lg, lc = eg.prefill_batch(prompts), ecpu.prefill_batch(prompts)
+    pos = torch.tensor([len(x) for x in prompts], dtype=torch.int32).numpy()
+    for _ in range(4):
+        a, b = lg.float().cpu(), lc.float()
+        assert (torch.nn.functional.cosine_similarity(a, b, dim=1) >= 0.99).all()
+        tok = a.argmax(1)
+        top2 = torch.topk(b, 2, dim=1).values
+        assert ((tok == b.argmax(1)) | (top2[:, 0] - top2[:, 1] <= (a - b).abs().amax(1))).all()
+        lg, lc = eg.decode_batch_step(tok.to(dev), pos), ecpu.decode_batch_step(tok, pos)
+        pos = pos + 1
+
+
+def test_chain_timer_on_the_card(dev):
+    """CUDA-graph replays of two chain lengths: a positive device time a
+    step, well under a millisecond for one small kernel."""
+    from bitnet_tpu_torch.obs.timing import chain_timer
+
+    def step(x, i):
+        return x * 1.0001
+
+    t = chain_timer(step, lambda salt: torch.ones(1 << 20, device=dev), 64, 16)
+    assert 0 < t < 1e-3
