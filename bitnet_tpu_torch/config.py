@@ -30,6 +30,9 @@ class StrictMode:
 
     enabled: bool = False
     allow_mock: bool = True       # mock tokenizer allowed?
+    # the XLA dequant fallback allowed? (the port's engine reads no flag
+    # of strict mode but ``deterministic``)
+    allow_fallback: bool = True
     deterministic: bool = False   # seed 0 when the request names none
 
 
@@ -96,6 +99,8 @@ class GenerationConfig:
     presence_penalty: float = 0.0   # OpenAI-style: -= (count > 0) * penalty
     logit_bias: tuple[tuple[int, float], ...] = ()  # (token_id, bias) pairs
     mirostat: int = 0              # 0 = off (v1/v2: queue 1 #16)
+    mirostat_tau: float = 5.0
+    mirostat_eta: float = 0.1
     seed: int | None = None
     greedy: bool = False
     stop_sequences: tuple[str, ...] = ()
@@ -186,11 +191,20 @@ class EngineConfig:
     kernel_path: str = "auto"        # 'auto' | 'w2a8' | 'pallas' | 'xla'
     compute_dtype: str = "bf16"      # 'bf16' | 'f32'
     logits_dtype: str = "auto"       # 'auto' | 'bf16' | 'int8' tied head
+    # the JAX package's prefill bucketing granularity and XLA buffer
+    # donation: the port buckets by powers of two and updates the cache in
+    # place, so neither changes what runs on the card
+    prefill_chunk: int = 512
+    donate_cache: bool = True
+    prefix_cache_tokens: int = 0     # prompt-prefix KV cache (> 0: #12)
     fuse_projections: bool = False   # True = the fused stacked path
     weight_quant: str = "none"       # 'tl1' / 'tl2': re-quantize to TL at init
     # decode tokens per host round-trip: 0 (auto) and 1 both mean one
     # step a dispatch on the card; K > 1 needs a CUDA graph (#5)
     decode_steps_per_dispatch: int = 0
+    # at pos >= max_seq_len: 'shift' keeps the last half of the context and
+    # re-prefills, 'stop' ends generation with StopReason.CONTEXT_FULL
+    context_overflow: str = "shift"
     sliding_window: int = 0          # windowed ring cache (#7)
     strict: StrictMode = field(default_factory=StrictMode)
 
@@ -208,6 +222,8 @@ class EngineConfig:
     def __post_init__(self) -> None:
         if self.kv_cache_dtype not in ("auto", "bf16", "f32", "int8", "fp8"):
             raise ConfigError(f"bad kv_cache_dtype {self.kv_cache_dtype!r}")
+        if self.context_overflow not in ("shift", "stop"):
+            raise ConfigError(f"bad context_overflow {self.context_overflow!r}")
         if self.kernel_path not in ("auto", "w2a8", "pallas", "xla"):
             raise ConfigError(f"bad kernel_path {self.kernel_path!r}")
         if self.compute_dtype not in ("bf16", "f32"):
@@ -229,6 +245,9 @@ class EngineConfig:
                 "(a CUDA graph of the step)", "#5")
         if self.sliding_window > 0:
             raise not_ported("the windowed ring cache", "#7")
+        if self.prefix_cache_tokens > 0:
+            raise not_ported("the prompt-prefix KV cache (prefix_cache_tokens)",
+                             "#12")
         if self.resolve_kv_cache_dtype() == "f32":
             raise not_ported("an f32 KV cache", "#18")
 

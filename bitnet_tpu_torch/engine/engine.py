@@ -5,8 +5,9 @@ Counterpart of ``bitnet_tpu/engine/engine.py``: token-id or text prompts
 (through the engine's tokenizer), ``prefill_buckets`` padding (padded
 positions carry S, so their cache writes drop), the full ``SamplerChain``
 with a seeded ``torch.Generator``, stop ids / EOS / stop sequences /
-max tokens, the ``min_new_tokens`` EOS ban, keep-half context shift,
-logprobs, ``generate_batch`` over up to ``max_batch_size`` prompts, and a
+max tokens, the ``min_new_tokens`` EOS ban, keep-half context shift (or,
+under ``context_overflow='stop'``, a stop with ``CONTEXT_FULL``), logprobs,
+``generate_batch`` over up to ``max_batch_size`` prompts, and a
 ``kernel_recorder`` naming the path and the kernels that ran.
 ``kernel_path='auto'`` resolves against the device: ``w2a8`` on the card,
 ``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
@@ -179,7 +180,8 @@ class InferenceEngine:
         engine_cfg = engine_cfg or EngineConfig()
         dev = resolve_device(device)
         cfg, params, meta = load_model(path, param_dtype=(
-            torch.float32 if engine_cfg.compute_dtype == "f32" else torch.bfloat16))
+            torch.float32 if engine_cfg.compute_dtype == "f32" else torch.bfloat16),
+            device=dev)
         if engine_cfg.max_seq_len > cfg.max_seq_len:
             engine_cfg = engine_cfg.replace(max_seq_len=cfg.max_seq_len)
         if tokenizer is None:
@@ -266,8 +268,9 @@ class InferenceEngine:
                         gen_cfg: GenerationConfig | None = None,
                         resume: bool = False) -> Iterator[TokenEvent]:
         """Stream tokens, in the JAX engine's loop order: context check
-        (keep-half shift) → sample → stop id / EOS (not emitted) → emit →
-        max tokens / stop sequence → decode the emitted token."""
+        (keep-half shift, or stop with ``CONTEXT_FULL``) → sample → stop
+        id / EOS (not emitted) → emit → max tokens / stop sequence → decode
+        the emitted token."""
         if resume:
             raise not_ported("checkpoint resume (resume=True)", "#12")
         gen_cfg = gen_cfg or GenerationConfig()
@@ -323,7 +326,11 @@ class InferenceEngine:
         generated = 0
         emitted: list[int] = []
         while True:
-            if pos >= S:                  # keep-half shift, then re-prefill
+            if pos >= S:
+                if self.engine_cfg.context_overflow == "stop":
+                    self._last_stop_reason = StopReason.CONTEXT_FULL
+                    break
+                # keep-half shift, then re-prefill
                 keep = max(1, S // 2)
                 kept = (list(token_ids) + emitted)[-keep:]
                 logits = self.prefill(kept)

@@ -24,8 +24,10 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
   ``BITNET_DECODE_ATTN_MAX_B``, ``BITNET_V2_WHOLEBATCH_MAX_B``,
   ``BITNET_FP8_KERNEL``, ``BITNET_ATTN_STACKED``; K13–K23), the generic
   path's ``BITNET_ROPE_FUSED=1`` branch, and ``BITNET_TL_W2A8``,
-  ``BITNET_TL_FUSED``, ``BITNET_STACKED_PREFILL``.  ``BITNET_FUSED_FFN=1``
-  raises where the JAX package would take its fused FFN kernel.
+  ``BITNET_TL_FUSED``, ``BITNET_STACKED_PREFILL``;
+- slice 6: the fused W2A8 FFN (``BITNET_FUSED_FFN=1``, ``:184-200``, K24)
+  in the generic layer loop of a model without ``ffn_sub_norm`` (the
+  Llama-3-8B-1.58 shapes).
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -83,6 +85,7 @@ from ..ops.decode_attention_v2 import (
     decode_attention_quant_batched_v2,
     scatter_kv_rows,
 )
+from ..ops.ffn_fused import ffn_fused_supported, ffn_w2a8_fused
 from ..ops.flash import flash_attention
 from ..ops.linear import (TernaryLinear, concat_linears, linear_apply,
                           linear_apply_normed, with_col_scales)
@@ -646,16 +649,22 @@ def _ffn(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, kernel_path: str,
     """SwiGLU FFN of layer ``l`` (``:162-215``): ``x`` is the PRE-norm
     residual and the result includes it.  ffn_norm, the 2B-4T
     ffn_sub_norm, the SwiGLU and the residual ride the projections
-    (fused into K1 at decode rows).  Where ``BITNET_FUSED_FFN=1`` would
-    take the JAX package's fused FFN kernel (``:184-192``, per-F-tile
-    int8 requantization, another function), this raises naming ROADMAP.md
-    queue 1 #20."""
+    (fused into K1 at decode rows).  Under ``BITNET_FUSED_FFN=1``, on path
+    ``w2a8`` with fused gate|up, SiLU and no ffn_sub_norm, where
+    :func:`fused_ffn_supported` holds (at most 32 rows), the whole FFN is
+    one K24 call on ``rms_norm(x)`` (rounded to x's dtype, as the JAX
+    package rounds it) plus the residual (``:184-200``): per-F-tile int8
+    requantization, another function than the two projections'."""
+    B, T, H = x.shape
     if (os.environ.get("BITNET_FUSED_FFN", "0") == "1" and kernel_path == "w2a8"
             and cfg.hidden_act == "silu" and bp.ffn_sub_norm is None
-            and bp.w_gateup is not None
-            and fused_ffn_supported(bp, x.shape[0] * x.shape[1])):
-        raise not_ported("the fused W2A8 FFN kernel (BITNET_FUSED_FFN=1, "
-                         "bitnet_tpu/ops/ffn_fused.py:148)", "#20")
+            and bp.w_gateup is not None and fused_ffn_supported(bp, B * T)):
+        gu, down = bp.w_gateup, bp.w_down
+        h = rms_norm(x, bp.ffn_norm[l], cfg.rms_norm_eps)
+        y = ffn_w2a8_fused(l, h.reshape(B * T, H), gu.packed, gu.col_scales,
+                           down.packed, down.col_scales, f_dim=gu.n // 2,
+                           n_dim=down.n)
+        return x + y.reshape(B, T, down.n)
     lapn = partial(linear_apply_normed, eps=cfg.rms_norm_eps, path=kernel_path,
                    layer=l)
     if bp.w_gateup is not None:
@@ -673,14 +682,13 @@ def _ffn(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, kernel_path: str,
 
 
 def fused_ffn_supported(bp: BlockParams, M: int) -> bool:
-    """Where the JAX ``_ffn`` takes ``ffn_w2a8_fused`` (``:190-192`` and
-    ``ffn_fused_supported``, ``bitnet_tpu/ops/ffn_fused.py:97-101``): qk256
-    gate|up and down, F a multiple of 256 (the down projection's K unpadded),
-    at most 32 rows, and the fused gate|up exactly 2F wide."""
-    gu, down = bp.w_gateup, bp.w_down
+    """Where the JAX ``_ffn`` takes ``ffn_w2a8_fused`` (``:190-192``):
+    ``ffn_fused_supported`` (qk256 gate|up and down, F a multiple of 256
+    that the down projection's K fills, at most 32 rows) and the fused
+    gate|up exactly 2F wide."""
+    gu = bp.w_gateup
     F = gu.n // 2
-    return (gu.kind == "qk256" and down.kind == "qk256" and F % 256 == 0
-            and down.packed.shape[-2] * 16 == F and M <= 32
+    return (ffn_fused_supported(gu, bp.w_down, F, M)
             and gu.packed.shape[-1] == 2 * F)
 
 

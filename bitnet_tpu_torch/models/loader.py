@@ -24,8 +24,10 @@ from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes,
 from ..ops.rope import build_rope_tables
 from ..quant import i2s
 from ..quant.flavor import I2SFlavor, detect_i2s_flavor
+from .arch_registry import resolve_arch, validate_config_for_arch
 from .bitnet import BitNetParams, BlockParams
 from .config import config_from_gguf
+from .memory import validate_memory
 from .weight_map import find_global, find_layer, require_layer, scale_sibling_name
 
 
@@ -121,12 +123,17 @@ def _vec(reader: GGUFReader, name: str, n: int) -> torch.Tensor:
 
 
 def load_model(path: str, max_seq_len: int | None = None,
-               param_dtype: torch.dtype = torch.bfloat16
+               param_dtype: torch.dtype = torch.bfloat16, device="cpu"
                ) -> tuple[ModelConfig, BitNetParams, dict]:
     """Load a BitNet GGUF.  Returns (cfg, params on the CPU, metadata with
-    ``eos_token_id``)."""
+    ``eos_token_id``).  Before any tensor is read, the architecture's
+    envelope is checked (a ModelError outside it) and the memory estimate
+    against ``device``'s (a warning past it; none on the CPU), as the JAX
+    ``load_model`` does (``:352-359``)."""
     with GGUFReader(path) as r:
         cfg = config_from_gguf(r)
+        validate_config_for_arch(cfg, resolve_arch(cfg.architecture))
+        validate_memory(cfg, strict=False, device=device)
         names = set(r.tensors)
         emb_name = find_global(names, "token_embd")
         if emb_name is None:

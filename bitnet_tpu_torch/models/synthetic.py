@@ -1,4 +1,6 @@
-"""BitNet-shaped models with random ternary weights, made from a seed.
+"""BitNet-shaped models with random ternary weights, made from a seed:
+bitnet-b1.58-2B-4T's shapes (``BITNET_2B4T``) and the 8B-class
+Llama-3-8B-1.58 shapes (``LLAMA3_8B_158``).
 
 The counterpart of ``bench.py:101-180`` of the JAX package: random int32
 words ARE random ternary codes in the kernels' word layout, so a full
@@ -29,6 +31,15 @@ BITNET_2B4T = ModelConfig(
     num_layers=30, num_heads=20, num_kv_heads=5, head_dim=128,
     max_seq_len=4096, rope_base=500000.0, rms_norm_eps=1e-5,
     use_sub_norm=True)
+
+# the 8B-class model: Llama-3-8B-1.58's shapes (``bench.py:57-58``,
+# BASELINE.json config #5), 32/8 heads of 128, tied head, no sub-norms, so
+# its generic path can take the fused W2A8 FFN (K24)
+LLAMA3_8B_158 = ModelConfig(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+    max_seq_len=4096, rope_base=500000.0, rms_norm_eps=1e-5,
+    use_sub_norm=False)
 
 
 def build_synthetic(cfg: ModelConfig = BITNET_2B4T, seed: int = 0,

@@ -27,7 +27,7 @@ from ..errors import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention")
+SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention", "ffn_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,9 +41,13 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     },
     "ternary_matmul_tl": {
         "bn_blockscale_bf16": (P, I, I, P, I, P, P, P, I, I, I, P),
-        "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I,
-                              I, P),
+        "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, P,
+                              I, I, P),
         "bn_tl_bf16_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, I, I, P),
+    },
+    "ffn_fused": {
+        "bn_ffn_w2a8": (P, I, I, P, I, P, P, I, P, P, I, I, P, P, P, P, P, P, P,
+                        I, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,

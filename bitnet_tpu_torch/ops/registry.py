@@ -29,6 +29,7 @@ from .decode_attention_v2 import (decode_attention_batched,
                                   decode_attention_quant_batched,
                                   decode_attention_quant_batched_v2,
                                   scatter_kv_rows)
+from .ffn_fused import ffn_w2a8_fused
 from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_blockscale_bf16,
                              ternary_matmul_tl_bf16_normed,
                              ternary_matmul_tl_w2a8_normed, ternary_matmul_w2a8,
@@ -111,6 +112,10 @@ REGISTRY: tuple[KernelSpec, ...] = (
           (decode_attention_qkv_quant_batched_v2, "decode_attention_v2.py:582"),
           (decode_attention_batched_v2, "decode_attention_v2.py:1193"),
           (decode_attention_quant_batched_v2, "decode_attention_v2.py:1291"))),
+    # slice 6: the fused W2A8 FFN (the JAX KernelSpec ffn_w2a8_fused_pallas,
+    # bitnet_tpu/ops/registry.py:46)
+    KernelSpec("ffn_w2a8_fused", "cuda", "bitnet_tpu_torch/csrc/ffn_fused.cu",
+               "bitnet_tpu/ops/ffn_fused.py:148", ffn_w2a8_fused),
 )
 
 

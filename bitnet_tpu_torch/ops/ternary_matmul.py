@@ -91,7 +91,9 @@ def quantize_rows(xf: torch.Tensor):
     ``q = clip(round(x/sx), ±127)``; returns (q int8, sx f32 [M], sumq
     int32 [M])."""
     absmax = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-8)
-    sx = absmax / 127.0
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, an f32 ulp away from the kernels' quotient
+    sx = absmax / absmax.new_full((), 127.0)
     q = torch.clamp(torch.round(xf / sx), -127, 127)
     return (q.to(torch.int8), sx[:, 0],
             q.to(torch.int32).sum(dim=1, dtype=torch.int32))
@@ -458,10 +460,9 @@ def ternary_matmul_tl_bf16_normed_plain(x, words, scales, gamma, eps, glu,
 
 
 def _check_normed_block(what, l, x, packed, scales, gamma, k_dim, n_dim, glu,
-                        resid, max_m, max_k=None):
+                        resid, max_m):
     """The shared checks of K11 and K12 (the fused TL sites need K == Kp:
-    the in-kernel norm cannot see column padding, ``:690-693``).  ``max_k``:
-    the widest row the CUDA kernel holds on chip."""
+    the in-kernel norm cannot see column padding, ``:690-693``)."""
     L, Kp, Np = _check_block_stack(packed, scales, l, k_dim)
     if k_dim != Kp:
         raise KernelError(f"{what} needs k_dim == Kp ({k_dim} != {Kp}); use "
@@ -483,8 +484,6 @@ def _check_normed_block(what, l, x, packed, scales, gamma, k_dim, n_dim, glu,
         return False
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{what} takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
-    if max_k is not None and k_dim > max_k:
-        raise KernelError(f"{what} holds rows of up to {max_k} values, got K={k_dim}")
     dev_i = x.get_device()
     tensors = [x, packed, scales] + [t for t in (gamma, resid) if t is not None]
     if any(t.get_device() != dev_i or not t.is_contiguous() for t in tensors):
@@ -497,8 +496,6 @@ def _check_normed_block(what, l, x, packed, scales, gamma, k_dim, n_dim, glu,
 # the Pallas kernel's M cap (``:916-919``): the selection rule (B <= 2 → K11,
 # else K12) keeps it, because the two compute different functions
 TL_W2A8_MAX_M = 2
-# K11 keeps a row's int8 values in shared memory, as K1's one-launch path
-TL_W2A8_MAX_K = 8192
 
 
 def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
@@ -509,9 +506,11 @@ def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                   lut_bias: bool = False) -> torch.Tensor:
     """K11: ``[resid +] W2A8(norm(glu(x))) @ W[l]`` with per-32-row block
     scales, M ≤ 2.  x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed
-    [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None."""
+    [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None.  Rows
+    of up to 8192 values take one launch, longer ones (the 8B down
+    projection, K = 14336) two: the row preamble, then the GEMV."""
     if not _check_normed_block("K11", l, x, packed, scales, gamma, k_dim, n_dim,
-                               glu, resid, TL_W2A8_MAX_M, TL_W2A8_MAX_K):
+                               glu, resid, TL_W2A8_MAX_M):
         return ternary_matmul_tl_w2a8_normed_plain(
             x, packed[l], scales[l], None if gamma is None else gamma[l], eps,
             glu, resid, n_dim, lut_bias)
@@ -524,11 +523,13 @@ def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
 def _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
                     lut_bias):
     """Launch K11 on checked operands.  Returns (out, scratch): the int8
-    rows, their scales and their sums (``xq | sx | sumq``), as K1's."""
+    rows, their scales and their sums (``xq | sx | sumq``), as K1's, then
+    the two-kernel path's 32-row block sums."""
     M, Np = x.shape[0], packed.shape[2]
     dev = x.device
     out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
-    scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
+    scratch = torch.empty(M * (k_dim + 8) + 4 * M * (k_dim // 32), dtype=torch.int8,
+                          device=dev)
     p = scratch.data_ptr()
     lib = _cuda.library("ternary_matmul_tl")
     rc = lib.bn_tl_w2a8_normed(
@@ -537,8 +538,8 @@ def _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
         packed.data_ptr() + 4 * l * packed.stride(0), Np,
         scales.data_ptr() + 4 * l * scales.stride(0),
         None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
-        p, p + M * k_dim, p + M * k_dim + 4 * M, int(lut_bias),
-        _DTYPE_CODE[x.dtype], _cuda.stream_ptr(dev))
+        p, p + M * k_dim, p + M * k_dim + 4 * M, p + M * k_dim + 8 * M,
+        int(lut_bias), _DTYPE_CODE[x.dtype], _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_tl_w2a8_normed")
     return out, scratch
 
@@ -552,7 +553,7 @@ def _tl_w2a8_cuda(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
     M, MK = x.shape[0], x.shape[0] * k_dim
     return (out, scratch[:MK].view(M, k_dim),
             scratch[MK:MK + 4 * M].view(torch.float32),
-            scratch[MK + 4 * M:].view(torch.int32))
+            scratch[MK + 4 * M:MK + 8 * M].view(torch.int32))
 
 
 ternary_matmul_tl_w2a8_normed.launches = 0

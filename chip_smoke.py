@@ -7,6 +7,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,kernels
     python3 chip_smoke.py --phases probe,build,kernels,batched
     python3 chip_smoke.py --phases probe,build,kernels,tl
+    python3 chip_smoke.py --phases probe,build,kernels,llama8b
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -14,14 +15,17 @@ no result line):
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
   kernels  each kernel against its plain PyTorch version at the shapes of
            the fused and the generic path, of pools and int8 / fp8 caches,
-           of bitnet32 / TL weights, and of every other decode-attention
-           plan (K13-K23): error, median ms (CUDA events), bound, plain and
-           library ms
+           of bitnet32 / TL weights, of every other decode-attention plan
+           (K13-K23), and of the 8B-class model (K24, the fused FFN; K1 and
+           K11 at K = 14336): error, median ms (CUDA events), bound, plain
+           and library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
            int8 cache; re-quantized to TL2 and as bitnet32, fused (B=1, 3)
-           and unfused: greedy tokens and per-step logits cosine
+           and unfused; a 2-layer model at the 8B widths fused, with K24 in
+           its prefill, and re-quantized to TL1: greedy tokens and per-step
+           logits cosine
   serving  the full bitnet-b1.58-2B-4T shapes (random weights from a seed)
            serve 3 requests on the fused stacked path; launch counts per
            step, determinism, timings
@@ -33,7 +37,11 @@ no result line):
            pool of 8) and a bitnet32 model (the CLI's unfused engine), and
            a 2-layer bitnet32 model whose FFN width is not a multiple of
            256; launch counts per request
-  plans    the same shapes under each knob setting of the JAX package's
+  llama8b  the 8B-class model (Llama-3-8B-1.58 shapes, no sub-norms,
+           random weights from a seed): fused B=1, a pool of 8, prefills
+           through K24 (BITNET_FUSED_FFN=1, BITNET_STACKED_PREFILL=0), TL1,
+           and the CLI's unfused engine; launch counts per request
+  plans    the 2B shapes under each knob setting of the JAX package's
            decode-attention selection (B=1 and a pool of 8, bf16 and int8
            caches, and the generic path's BITNET_ROPE_FUSED=1): plan names,
            launch counts, step times beside the default plan's, logits
@@ -70,7 +78,7 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
-          "generic", "plans", "kernel_bench", "cli")
+          "llama8b", "generic", "plans", "kernel_bench", "cli")
 
 
 def emit(obj) -> None:
@@ -165,7 +173,7 @@ def phase_kernels(torch, dev):
     g = torch.Generator(device=dev).manual_seed(1234)
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
            "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
-           **{key: [] for key, *_ in PLAN_KERNELS}}
+           **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
@@ -178,6 +186,11 @@ def phase_kernels(torch, dev):
     check_k10(torch, dev, g, res)
     check_k11_k12(torch, dev, g, res)
     check_plan_kernels(torch, dev, g, res)
+    # slice 6: the 8B down projection (K = 14336) on K1's and K11's two-kernel
+    # paths, and K24 at the 8B FFN shapes
+    check_k1(torch, dev, g, K1_8B_DOWN, (1, 2), "8b", res)
+    check_k11_wide(torch, dev, g, res)
+    check_k24(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -829,6 +842,183 @@ def check_k11_k12(torch, dev, g, res, eps=1e-5):
         del words, s
 
 
+# Slice 6: the 8B-class model (Llama-3-8B-1.58 shapes: H=4096, F=14336)
+H8B, F8B = 4096, 14336
+# its down projection on K1 (fused path: SwiGLU in the preamble, no
+# sub-norm, the residual): K = 14336 > 8192 takes K1's two-kernel path
+K1_8B_DOWN = (("down_8b", F8B, H8B, False, True, True),)
+
+
+def check_k11_wide(torch, dev, g, res, eps=1e-5):
+    """K11 at the 8B down projection (K = 14336: the row preamble launch,
+    then the GEMV), M in {1, 2}, lut_bias both ways, with SwiGLU and the
+    residual, no gamma: against its plain version (K1's gate), its int8
+    rows against K1's (also two kernels at this K) bit for bit, its output
+    against the exact block partials of its own rows.  Timed at M=1."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    K, N = F8B, H8B
+    words, s = _block_stack(torch, g, K, N, dev)
+    L = words.shape[0]
+    ones = torch.ones((L, N), device=dev)
+    for M in (1, 2):
+        for lut_bias in (False, True):
+            x = torch.randn((M, 2 * K), generator=g, device=dev).to(torch.bfloat16)
+            resid = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+            l = 1
+            out = tm.ternary_matmul_tl_w2a8_normed(l, x, words, s, None, K, N, eps, True,
+                                                   resid, lut_bias)
+            out2, xq, sx, sumq = tm._tl_w2a8_cuda(l, x, words, s, None, K, N, eps, True,
+                                                  resid, lut_bias)
+            _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(l, x, words, ones, None, K, N, eps,
+                                                       True, None)
+            plain = tm.ternary_matmul_tl_w2a8_normed_plain(x, words[l], s[l], None, eps,
+                                                           True, resid, N, lut_bias)
+            part = tm.tl_block_partials(xq, words[l], lut_bias).float()
+            y = (part * s[l][:, None, :]).sum(0) * sx[:, None] + resid.float()
+            err = (out.float() - plain.float()).abs().max().item()
+            ref = plain.float().abs().max().item()
+            tol = 2e-2 * ref + 1e-3           # K1's: an int8 activation one step off
+            row = {"shape": "down_8b", "M": M, "K": K, "N": N, "lut_bias": lut_bias,
+                   "max_abs_err": err, "ref_max": ref, "tol": tol,
+                   "rows_equal_k1": bool(torch.equal(xq, xq1) and torch.equal(sx, sx1)
+                                         and torch.equal(sumq, sumq1)),
+                   "wrapper_equals_launch": bool(torch.equal(out, out2)),
+                   "partials_epilogue_ok": bool(
+                       ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-5).all())}
+            row["ok"] = (err <= tol and row["rows_equal_k1"]
+                         and row["wrapper_equals_launch"] and row["partials_epilogue_ok"])
+            if M == 1 and not lut_bias:
+                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed(
+                    i % L, x, words, s, None, K, N, eps, True, resid, False), L)
+                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed_plain(
+                    x, words[i % L], s[i % L], None, eps, True, resid, N, False), 4)
+                dense = _dense_block_stack(torch, words, s, False)
+                xin = tm.w2a8_preamble_plain(x, None, eps, True).to(torch.bfloat16)
+                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                    xin, dense[i % len(dense)]), 2 * len(dense))
+                del dense
+                row["bound_ms"], row["bound_by"] = bound(
+                    _block_bytes(M, K, N, 0, 2, x.numel() * 2 + M * N * 2),
+                    2.0 * M * K * N, "int8")
+            res["k11_8b"].append(row)
+            if not row["ok"]:
+                raise AssertionError(f"K11 (K = 14336) mismatch: {row}")
+    del words, s
+
+
+def _k24_stacks(torch, g, K, F, H, dev, min_bytes=120 << 20):
+    """gate|up words [L, K/16, 2F] and column scales [L, 2F], down words
+    [L, F/16, H] and scales [L, H], enough layers to exceed the L2."""
+    L = max(2, math.ceil(min_bytes / (K * 2 * F // 4 + F * H // 4)))
+    gu = torch.randint(-2**31, 2**31, (L, K // 16, 2 * F), dtype=torch.int32,
+                       generator=g, device=dev)
+    sg = (torch.rand((L, 2 * F), generator=g, device=dev) + 0.5) * 0.02
+    dw = torch.randint(-2**31, 2**31, (L, F // 16, H), dtype=torch.int32,
+                       generator=g, device=dev)
+    sd = torch.full((L, H), 0.02, device=dev)
+    return gu, sg, dw, sd
+
+
+def check_k24(torch, dev, g, res):
+    """K24 (the fused W2A8 FFN) against its plain version at the 8B FFN
+    shapes (K = H = 4096, F = 14336: bf = 3584, four requantization tiles),
+    M in {1, 8, 32}, bf16 and f32 x, and at F = 512 (``_pick_bf``'s
+    fallback: bf = 256, two tiles).  The int8 rows of x equal the plain
+    version's bit for bit; the activation is the plain SiLU·up of the
+    kernel's own rows to f32 rounding; the requantized tiles are the plain
+    requantization of the kernel's own activation and the output the plain
+    down projection of the kernel's own tiles, both bit for bit; the output
+    within 1e-2 of the plain version's largest (an activation on a
+    requantization boundary may take the neighbouring code, which moves a
+    row by 2·sa·sd).  Timed at M = 1 and 32 (bf16) beside its bound, the
+    plain version, the library chain (no single PyTorch call computes this
+    function: ``torch.matmul`` on the dequantized bf16 gate|up, SiLU·up,
+    ``torch.matmul`` on the dequantized down) and the unfused pair it
+    replaces, K1(gate|up) + K1(down, glu)."""
+    from bitnet_tpu_torch.ops import ffn_fused as ff
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for K, F, H, Ms, dtypes in ((H8B, F8B, H8B, (1, 8, 32), (torch.bfloat16, torch.float32)),
+                                (512, 512, 512, (1, 32), (torch.bfloat16,))):
+        gu, sg, dw, sd = _k24_stacks(torch, g, K, F, H, dev)
+        L = gu.shape[0]
+        bf = ff._pick_bf(F)
+        for M in Ms:
+            for dtype in dtypes:
+                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                l = 1
+                out = ff.ffn_w2a8_fused(l, x, gu, sg, dw, sd, F, H)
+                out2, (xq, sx, sumq, act, aq, sa, sq2) = ff._ffn_cuda(l, x, gu, sg, dw,
+                                                                      sd, F, H)
+                plain, xq_p, sx_p, sumq_p, *_ = ff.ffn_w2a8_fused_plain(
+                    x, gu[l], sg[l], dw[l], sd[l], F, H, parts=True)
+                act_p = ff.gateup_act(xq, sx, sumq, gu[l], sg[l], F)
+                aq_p, sa_p, sq2_p = ff.requant_tiles(act, bf)
+                down = ff.down_from_tiles(aq, sa, sq2, dw[l], sd[l], bf)[:, :H].to(dtype)
+                err = (out.float() - plain.float()).abs().max().item()
+                ref = plain.float().abs().max().item()
+                tol = 1e-2 * ref
+                row = {"K": K, "F": F, "H": H, "bf": bf, "n_f": F // bf, "M": M,
+                       "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                       "ref_max": ref, "tol": tol,
+                       "xq_exact": bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)
+                                        and torch.equal(sumq, sumq_p)),
+                       "act_max_rel_err": ((act - act_p).abs()
+                                           / act_p.abs().clamp_min(1e-30)).max().item(),
+                       "tiles_exact": bool(torch.equal(aq, aq_p) and torch.equal(sa, sa_p)
+                                           and torch.equal(sq2, sq2_p)),
+                       "down_exact": bool(torch.equal(down, out)),
+                       "wrapper_equals_launch": bool(torch.equal(out, out2)),
+                       "aq_codes_off": int((aq != ff.requant_tiles(
+                           ff.gateup_act(xq_p, sx_p, sumq_p, gu[l], sg[l], F), bf)[0]
+                       ).sum().item())}
+                row["ok"] = (err <= tol and row["xq_exact"] and row["tiles_exact"]
+                             and row["down_exact"] and row["wrapper_equals_launch"]
+                             and row["act_max_rel_err"] <= 1e-5)
+                if K == H8B and M in (1, 32) and dtype == torch.bfloat16:
+                    _time_k24(torch, ff, tm, row, x, gu, sg, dw, sd, K, F, H, L)
+                res["k24"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K24 mismatch: {row}")
+        del gu, sg, dw, sd
+
+
+def _time_k24(torch, ff, tm, row, x, gu, sg, dw, sd, K, F, H, L):
+    """K24's ms, plain ms, bound, library chain and unfused K1 pair at one
+    shape (layers cycled past the L2)."""
+    from bitnet_tpu_torch.ops.linear import codes_to_values, unpack_packed
+
+    M = x.shape[0]
+    row["ms"] = time_ms(torch, lambda i: ff.ffn_w2a8_fused(
+        i % L, x, gu, sg, dw, sd, F, H), L)
+    row["plain_ms"] = time_ms(torch, lambda i: ff.ffn_w2a8_fused_plain(
+        x, gu[i % L], sg[i % L], dw[i % L], sd[i % L], F, H), 2)
+    # the unfused pair: K1 on gate|up (rows already normed), K1 on down with
+    # SwiGLU in its preamble
+    row["unfused_k1_pair_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
+        i % L, tm.ternary_matmul_w2a8_normed(i % L, x, gu, sg, None, K, 2 * F),
+        dw, sd, None, F, H, glu=True), L)
+    nd = 2                                   # > 50 MB of dense weights at 8B
+    dense_gu = [(codes_to_values(unpack_packed(gu[l])) * sg[l][None, :]).to(torch.bfloat16)
+                for l in range(nd)]
+    dense_d = [(codes_to_values(unpack_packed(dw[l])) * sd[l][None, :]).to(torch.bfloat16)
+               for l in range(nd)]
+    xb = x.to(torch.bfloat16)
+
+    def chain(i):
+        y = torch.matmul(xb, dense_gu[i % nd])
+        act = torch.nn.functional.silu(y[:, :F]) * y[:, F:]
+        return torch.matmul(act, dense_d[i % nd])
+    row["library_ms"] = time_ms(torch, chain, 2 * nd)
+    row["library_call"] = "matmul(gate|up) -> silu*up -> matmul(down), bf16 dense"
+    del dense_gu, dense_d
+    nbytes = (K * 2 * F // 4 + F * H // 4 + 2 * F * 4 + H * 4
+              + M * K * x.element_size() + M * H * x.element_size())
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, 2.0 * M * K * 2 * F + 2.0 * M * F * H, "int8")
+
+
 # Slice 5: the wrappers of every other decode-attention plan, all on the
 # split-S pair: (key, kernel id, rope-fused?, cache dtypes, batch sizes).
 # The per-b kernels run at B in {1, 2}, the pool kernels at B in {3, 8}.
@@ -999,6 +1189,10 @@ SITES = (
       for (key, kid, *_), site in zip(PLAN_KERNELS, (
           ".py:488", ".py:859", ".py:655", ".py:1114", ".py:1262", ".py:1421",
           ".py:1609", "_v2.py:487", "_v2.py:582", "_v2.py:1193", "_v2.py:1291"))),
+    # slice 6: one layer's FFN of a 32-token prefill at the 8B shapes,
+    # counted over the llama8b phase's requests
+    ("ffn_w2a8_fused", "ffn_w2a8_fused", "bitnet_tpu/ops/ffn_fused.py:148",
+     "llama8b", "k24", lambda r: "ms" in r and r["M"] == 32),
 )
 
 
@@ -1155,6 +1349,43 @@ def phase_parity(torch, dev):
             r = _teacher_forced(torch, eg, ecpu, prompt)
         r["ok"] = (r["min_cosine"] >= 0.99 and r["ties_only"]
                    and (name != "fused_f32" or r["tokens_cuda"] == r["tokens_cpu"]))
+        out[name] = r
+        del eg, ecpu
+        if not r["ok"]:
+            raise AssertionError(f"parity failed for {name}: {r}")
+    # slice 6: a 2-layer model at the 8B widths (no sub-norms), fused B=1;
+    # its prefill through K24 (BITNET_FUSED_FFN=1, BITNET_STACKED_PREFILL=0,
+    # a 24-token prompt: 32 rows); re-quantized to TL1 (K11, two kernels on
+    # the K = 14336 down projection).  Each case must launch its kernel.
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.ops import registry
+
+    cfg8 = LLAMA3_8B_158.replace(num_layers=2)
+    p8 = build_synthetic(cfg8, seed=7, device="cpu")
+    knobs = {"BITNET_FUSED_FFN": "1", "BITNET_STACKED_PREFILL": "0"}
+    for name, ec, env, kid in (
+            ("llama8b_fused_B1", EngineConfig(**tl_fused), {}, "ternary_matmul_w2a8_normed"),
+            ("llama8b_ffn_fused_prefill", EngineConfig(**tl_fused), knobs, "ffn_w2a8_fused"),
+            ("llama8b_tl1_fused_B1", EngineConfig(weight_quant="tl1", **tl_fused), {},
+             "ternary_matmul_tl_w2a8_normed")):
+        with mock.patch.dict(os.environ, env):
+            eg = InferenceEngine(cfg8, p8, ec, device=dev)
+            ecpu = InferenceEngine(cfg8, p8, ec, device="cpu")
+            registry.reset_launch_counts()
+            r = _teacher_forced(torch, eg, ecpu, prompt, steps=4)
+            r["launches"] = {kid: registry.launch_counts()[kid]}
+            if env:         # the size of the other functions at 2 layers
+                lg = eg.prefill(prompt).float().cpu()
+                with mock.patch.dict(os.environ, {"BITNET_FUSED_FFN": "0"}):
+                    lg0 = eg.prefill(prompt).float().cpu()
+                with mock.patch.dict(os.environ, {"BITNET_FUSED_FFN": "0",
+                                                  "BITNET_STACKED_PREFILL": "1"}):
+                    ref = eg.prefill(prompt).float().cpu()
+                for key, a, b in (("k24_vs_layer_loop", lg, lg0),
+                                  ("layer_loop_vs_stacked", lg0, ref)):
+                    r[f"cosine_{key}"] = float(
+                        torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+        r["ok"] = r["min_cosine"] >= 0.99 and r["ties_only"] and r["launches"][kid] > 0
         out[name] = r
         del eg, ecpu
         if not r["ok"]:
@@ -1339,6 +1570,44 @@ def phase_batched(torch, dev):
     return {"runs": runs, "launch_totals": totals, "ok": True}
 
 
+def _run_requests(name, eng, reqs, gc, want, V):
+    """Each request (one prompt → ``generate``; a pool, or any request of a
+    pooled engine → ``generate_batch``) with the launch counters zeroed
+    before it and read after; ``want(prefill_bucket, decode_steps)`` gives
+    the expected counts (every other kernel 0).  Returns (tokens per
+    request, one row per request, launch totals)."""
+    from bitnet_tpu_torch.ops import registry
+
+    out, rows, totals = [], [], {}
+    for req in reqs:
+        registry.reset_launch_counts()
+        if len(req) > 1 or eng.engine_cfg.max_batch_size > 1:
+            toks = [r.token_ids for r in eng.generate_batch(req, gc)]
+        else:
+            toks = [eng.generate(req[0], gc).token_ids]
+        n = registry.launch_counts()
+        m = eng.last_metrics
+        steps = m.decode_steps
+        expect = {k.kernel_id: 0 for k in registry.REGISTRY}
+        expect.update(want(eng._bucket(max(len(p) for p in req)), steps))
+        if n != expect:
+            raise AssertionError(f"{name}: launch counts {n} != {expect}")
+        if any(len(t) != gc.max_new_tokens or not all(0 <= x < V for x in t)
+               for t in toks):
+            raise AssertionError(f"{name}: a request did not give its tokens")
+        generated = sum(len(t) for t in toks)
+        rows.append({"case": name, "prompts": len(req),
+                     "prompt_tokens": sum(len(p) for p in req),
+                     "generated": generated, "decode_steps": steps,
+                     "prefill_ms": m.prefill_s * 1e3,
+                     "decode_ms_per_step": m.decode_s * 1e3 / max(steps, 1),
+                     "decode_tok_s": generated / m.decode_s if m.decode_s else 0.0,
+                     "launches": n})
+        _add(totals, n)
+        out.append(toks)
+    return out, rows, totals
+
+
 def phase_tl(torch, dev):
     """Slice 4 at the full 2B-4T shapes: bitnet32 and TL weights.
     (a) the synthetic QK256 model (seed 0) re-quantized with
@@ -1356,7 +1625,6 @@ def phase_tl(torch, dev):
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
-    from bitnet_tpu_torch.ops import registry
 
     cfg = BITNET_2B4T
     L, V = cfg.num_layers, cfg.vocab_size
@@ -1369,35 +1637,7 @@ def phase_tl(torch, dev):
                  fuse_projections=True)
 
     def run(name, eng, reqs, want, Lm=L):
-        """Each request with the counts zeroed before it; ``want(steps, Lm)``
-        the expected counts (every other kernel 0)."""
-        out, rows, totals = [], [], {}
-        for req in reqs:
-            registry.reset_launch_counts()
-            if len(req) > 1 or eng.engine_cfg.max_batch_size > 1:
-                toks = [r.token_ids for r in eng.generate_batch(req, gc)]
-            else:
-                toks = [eng.generate(req[0], gc).token_ids]
-            n = registry.launch_counts()
-            m = eng.last_metrics
-            steps = m.decode_steps
-            expect = {k.kernel_id: 0 for k in registry.REGISTRY}
-            expect.update(want(steps, Lm))
-            if n != expect:
-                raise AssertionError(f"{name}: launch counts {n} != {expect}")
-            if any(len(t) != 32 or not all(0 <= x < V for x in t) for t in toks):
-                raise AssertionError(f"{name}: a request did not give 32 tokens")
-            generated = sum(len(t) for t in toks)
-            rows.append({"case": name, "prompts": len(req),
-                         "prompt_tokens": sum(len(p) for p in req),
-                         "generated": generated, "decode_steps": steps,
-                         "prefill_ms": m.prefill_s * 1e3,
-                         "decode_ms_per_step": m.decode_s * 1e3 / max(steps, 1),
-                         "decode_tok_s": generated / m.decode_s if m.decode_s else 0.0,
-                         "launches": n})
-            _add(totals, n)
-            out.append(toks)
-        return out, rows, totals
+        return _run_requests(name, eng, reqs, gc, lambda _b, steps: want(steps, Lm), V)
 
     runs, launches = [], {}
     t0 = time.perf_counter()
@@ -1485,6 +1725,179 @@ def phase_tl(torch, dev):
             "decode_bytes_S1024_generic": step_bytes(1024, 2 * V * H),
             "decode_bound_ms_S1024_generic": step_bytes(1024, 2 * V * H) / HBM_BPS * 1e3,
             "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
+
+
+def phase_llama8b(torch, dev):
+    """Slice 6: the 8B-class model (Llama-3-8B-1.58 shapes: H=4096, F=14336,
+    L=32, 32/8 heads of 128, vocab 128256, tied head, no sub-norms; random
+    words from seed 0), 32 new tokens a request, launch counts checked per
+    request (zeroed before it, read after; every other kernel 0):
+    (a) fused B=1, bf16 KV, int8 head, w2a8, prompts of 32 / 128 / 500
+        tokens, greedy, twice (equal tokens): a step K1 4L, K2 L, K3 1; a
+        prefill K4 4L;
+    (b) a fused pool of 8 (prompts of 32-500 tokens), bf16 KV: a step K1
+        4L, K8 L, K3 1;
+    (c) (a)'s engine under BITNET_FUSED_FFN=1 and BITNET_STACKED_PREFILL=0:
+        prompts of 8 and 32 tokens prefill on the layer loop with K1 2L and
+        K24 L (one fused FFN a layer), a 128-token prompt (M > 32) with K4
+        4L and no K24; decode as (a).  The 32-token prefill's logits against
+        (a)'s and against a control, the layer loop without K24: per-tile
+        requantization, and the layer loop's norms in f32 inside K1 where
+        the stacked prefill rounds them to bf16, are other functions, and
+        32 layers of random weights amplify them (measured and reported;
+        a floor of 0.8 catches a broken path);
+    (d) re-quantized to TL1, fused B=1: a step K11 4L (the K = 14336 down
+        projection on its two-kernel path), K2 L, K3 1; a prefill K10 4L;
+    (e) the CLI's engine (EngineConfig(max_seq_len=2048): unfused, auto ->
+        w2a8, bf16 KV and tied head): a step K1 7L and K5 L; a prefill of
+        <= 64 rows K1 7L, else K4 7L."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158, build_synthetic
+
+    cfg = LLAMA3_8B_158
+    L, V, H, F = cfg.num_layers, cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_kv_heads * cfg.head_dim
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    warm = GenerationConfig(max_new_tokens=2, greedy=True)
+    prompts = _prompts(torch, cfg)
+    gen = torch.Generator().manual_seed(21)
+    pool8 = [[int(t) for t in torch.randint(0, V, (int(k),), generator=gen)]
+             for k in torch.randint(32, 501, (8,), generator=gen)]
+    fused = dict(kv_cache_dtype="bf16", logits_dtype="int8", kernel_path="w2a8",
+                 fuse_projections=True)
+    runs, totals, out = [], {}, {}
+
+    def record(rows, tot, **extra):
+        runs.extend(dict(r, **extra) for r in rows)
+        _add(totals, tot)
+
+    t0 = time.perf_counter()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=1024, **fused), device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    if not eng.stacked_decode() or eng.decode_plan() != "qkv_v2s":
+        raise AssertionError("(a) is not on the stacked qkv_v2s loop")
+    eng.generate(prompts[0][:8], warm)
+
+    def want_a(bucket, steps):
+        return {"ternary_matmul_w2a8_normed": 4 * L * steps,
+                "decode_attention_qkv": L * steps, "scatter_kv_rows": steps,
+                "ternary_matmul_w2a8": 4 * L}
+    first = None
+    for rep in range(2):
+        toks, rows, tot = _run_requests("a_fused_B1", eng, [[p] for p in prompts], gc,
+                                        want_a, V)
+        record(rows, tot, rep=rep)
+        if first is None:
+            first = toks
+        elif toks != first:
+            raise AssertionError("(a): two runs gave different tokens")
+
+    knobs = {"BITNET_FUSED_FFN": "1", "BITNET_STACKED_PREFILL": "0"}
+
+    def want_c(bucket, steps):
+        w = want_a(bucket, steps)
+        if bucket <= 32:                     # the layer loop: K1 qkv and o, K24
+            del w["ternary_matmul_w2a8"]
+            w["ternary_matmul_w2a8_normed"] += 2 * L
+            w["ffn_w2a8_fused"] = L
+        return w
+    ref = eng.prefill(prompts[0]).float().cpu()
+    with mock.patch.dict(os.environ, knobs):
+        eng.generate(prompts[0][:8], warm)
+        _t, rows, tot = _run_requests("c_fused_ffn", eng, [[prompts[0][:8]], [prompts[0]],
+                                                           [prompts[1]]], gc, want_c, V)
+        lg = eng.prefill(prompts[0]).float().cpu()
+    record(rows, tot)
+    # the control: the same layer loop without K24 (K1 on all four
+    # projections; its norms inside K1 in f32 where the stacked prefill
+    # rounds them to bf16 first)
+    with mock.patch.dict(os.environ, {"BITNET_STACKED_PREFILL": "0"}):
+        lg0 = eng.prefill(prompts[0]).float().cpu()
+
+    def cosine(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    cos = {"c_vs_a": cosine(lg, ref), "c0_vs_a": cosine(lg0, ref),
+           "c_vs_c0": cosine(lg, lg0)}
+    out["prefill_logits_cosine"] = cos
+    # Measurements of two functions that differ, not tolerances: over 32
+    # layers of random weights the layer loop reads 0.913 against the
+    # stacked prefill with or without K24 (PERF.md §6).  The floor catches
+    # a broken path (a wrong kernel gives cosines near 0); the 2-layer
+    # card-vs-CPU parity holds the kernels to >= 0.99.
+    if min(cos.values()) < 0.8:
+        raise AssertionError(f"(c): prefill logits cosines {cos}")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=1024, max_batch_size=8,
+                                                    **fused), device=dev)
+    if not eng.stacked_decode() or eng.decode_plan() != "batched_v2":
+        raise AssertionError("(b) is not on the stacked batched_v2 loop")
+    eng.generate_batch([p[:8] for p in pool8[:2]], warm)
+
+    def want_b(bucket, steps):
+        return {"ternary_matmul_w2a8_normed": 4 * L * steps,
+                "decode_attention_batched": L * steps, "scatter_kv_rows": steps,
+                "ternary_matmul_w2a8": 4 * L}
+    _t, rows, tot = _run_requests("b_fused_B8", eng, [pool8], gc, want_b, V)
+    record(rows, tot)
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=1024, weight_quant="tl1",
+                                                    **fused), device=dev)
+    torch.cuda.synchronize()
+    out["tl1_requant_build_s"] = time.perf_counter() - t0
+    if not (eng.stacked_decode() and eng.params.blocks.w_down.kind == "tl"
+            and eng.params.blocks.w_down.k == F):
+        raise AssertionError("(d) is not on the stacked TL loop")
+    eng.generate(prompts[0][:8], warm)
+
+    def want_d(bucket, steps):
+        return {"ternary_matmul_tl_w2a8_normed": 4 * L * steps,
+                "decode_attention_qkv": L * steps, "scatter_kv_rows": steps,
+                "ternary_matmul_blockscale_bf16": 4 * L}
+    _t, rows, tot = _run_requests("d_tl1_B1", eng, [[p] for p in prompts], gc, want_d, V)
+    record(rows, tot)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=2048), device=dev)
+    del params
+    if eng.kernel_path != "w2a8" or eng.params.blocks.wqkv is not None:
+        raise AssertionError("(e) the CLI's engine must run unfused on w2a8")
+    eng.generate(prompts[0][:8], warm)
+
+    def want_e(bucket, steps):
+        w = {"ternary_matmul_w2a8_normed": 7 * L * steps, "decode_attention": L * steps}
+        if bucket <= 64:
+            w["ternary_matmul_w2a8_normed"] += 7 * L
+        else:
+            w["ternary_matmul_w2a8"] = 7 * L
+        return w
+    _t, rows, tot = _run_requests("e_cli_generic", eng, [[p] for p in prompts], gc,
+                                  want_e, V)
+    record(rows, tot)
+    del eng
+    torch.cuda.empty_cache()
+
+    weights = L * (H * (H + 2 * KVD) + H * H + 3 * H * F) / 4
+
+    def step_bytes(S, B, head):
+        return weights + head + 2 * L * B * S * KVD * 2
+    out.update({
+        "runs": runs, "launch_totals": totals,
+        "decode_bytes_S1024_B1": step_bytes(1024, 1, V * H),
+        "decode_bound_ms_S1024_B1": step_bytes(1024, 1, V * H) / HBM_BPS * 1e3,
+        "decode_bytes_S1024_B8": step_bytes(1024, 8, V * H),
+        "decode_bound_ms_S1024_B8": step_bytes(1024, 8, V * H) / HBM_BPS * 1e3,
+        "decode_bound_ms_S1024_generic": step_bytes(1024, 1, 2 * V * H) / HBM_BPS * 1e3,
+        "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True})
+    return out
 
 
 def phase_generic(torch, dev):
@@ -1943,6 +2356,10 @@ def main(argv=None) -> int:
             report["tl"] = timed("tl", phase_tl, torch, dev)
             launches.update(report["tl"]["launch_totals"])
             emit({"phase": "tl", "nvidia_smi": smi, **report["tl"]})
+        if "llama8b" in phases:
+            report["llama8b"] = timed("llama8b", phase_llama8b, torch, dev)
+            launches["llama8b"] = report["llama8b"]["launch_totals"]
+            emit({"phase": "llama8b", "nvidia_smi": smi, **report["llama8b"]})
         if "generic" in phases:
             report["generic"] = timed("generic", phase_generic, torch, dev)
             s = report["generic"]

@@ -12,6 +12,7 @@ import torch
 
 from bitnet_tpu_torch.ops import decode_attention as dk
 from bitnet_tpu_torch.ops import decode_attention_v2 as da
+from bitnet_tpu_torch.ops import ffn_fused as ff
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 
 pytestmark = pytest.mark.cuda
@@ -565,3 +566,75 @@ def test_chain_timer_on_the_card(dev):
 
     t = chain_timer(step, lambda salt: torch.ones(1 << 20, device=dev), 64, 16)
     assert 0 < t < 1e-3
+
+
+# --------------------------------------------------------------------------
+# slice 6: K11 past K = 8192 (two kernels) and the fused W2A8 FFN (K24)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("M,glu,has_gamma", [(1, True, False), (2, True, False),
+                                             (2, False, True)])
+def test_k11_two_kernel_path_matches_plain(dev, M, glu, has_gamma):
+    """K = 14336 (the 8B down projection): the row preamble launch, then the
+    GEMV.  Its rows are K1's (whose K = 14336 also takes two kernels) bit
+    for bit, its output the exact block partials of those rows to f32
+    rounding, and within K1's gate of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(30 + M)
+    K, N = 14336, 256
+    w, s = _block_words(g, 2, K, N, dev)
+    gamma = (torch.rand((2, K), generator=g, device=dev) + 0.5) if has_gamma else None
+    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+    r = torch.randn((M, N), generator=g, device=dev).bfloat16()
+    before = tm.ternary_matmul_tl_w2a8_normed.launches
+    out = tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, K, N, 1e-5, glu, r)
+    assert tm.ternary_matmul_tl_w2a8_normed.launches == before + 1
+    out2, xq, sx, sumq = tm._tl_w2a8_cuda(1, x, w, s, gamma, K, N, 1e-5, glu, r, False)
+    assert torch.equal(out, out2)
+    sv = torch.ones((2, N), device=dev)
+    _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(1, x, w, sv, gamma, K, N, 1e-5, glu,
+                                               None)
+    assert torch.equal(xq, xq1) and torch.equal(sx, sx1) and torch.equal(sumq, sumq1)
+    part = tm.tl_block_partials(xq, w[1], False).float()
+    y = (part * s[1][:, None, :]).sum(0) * sx[:, None] + r.float()
+    assert ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-5).all()
+    plain = tm.ternary_matmul_tl_w2a8_normed_plain(
+        x, w[1], s[1], None if gamma is None else gamma[1], 1e-5, glu, r, N, False)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * ref + 1e-3
+
+
+@pytest.mark.parametrize("M,dtype,col,F", [(1, torch.bfloat16, False, 1024),
+                                           (3, torch.float32, True, 1024),
+                                           (8, torch.bfloat16, True, 512),
+                                           (32, torch.float32, False, 1024)])
+def test_k24_matches_plain(dev, M, dtype, col, F):
+    """K24's int8 rows of x are the plain version's bit for bit; its f32
+    activation is the plain SiLU·up of its own rows to f32 rounding; its
+    requantized tiles are the plain requantization of its own activation
+    bit for bit, and its output the plain down projection of its own tiles
+    bit for bit; the whole within 1e-2 of the plain version (an activation
+    on a requantization boundary may take the neighbouring code)."""
+    g = torch.Generator(device=dev).manual_seed(40 + M)
+    K, H, L = 512, 384, 2
+    gu, _ = _words(g, L, K, 2 * F, dev)
+    sg = (torch.rand((L, 2 * F), generator=g, device=dev) + 0.5) * 0.02
+    dw, sd = _words(g, L, F, H, dev)
+    if not col:
+        sd = torch.full((L, H), 0.02, device=dev)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    before = ff.ffn_w2a8_fused.launches
+    out = ff.ffn_w2a8_fused(1, x, gu, sg, dw, sd, F, H)
+    assert ff.ffn_w2a8_fused.launches == before + 1
+    out2, (xq, sx, sumq, act, aq, sa, sq2) = ff._ffn_cuda(1, x, gu, sg, dw, sd, F, H)
+    assert torch.equal(out, out2) and out.dtype == dtype
+    y, xq_p, sx_p, sumq_p, *_ = ff.ffn_w2a8_fused_plain(x, gu[1], sg[1], dw[1], sd[1],
+                                                        F, H, parts=True)
+    assert torch.equal(xq, xq_p) and torch.equal(sx, sx_p) and torch.equal(sumq, sumq_p)
+    act_p = ff.gateup_act(xq, sx, sumq, gu[1], sg[1], F)
+    assert ((act - act_p).abs() <= 1e-5 * act_p.abs() + 1e-30).all()
+    bf = ff._pick_bf(F)
+    aq_p, sa_p, sq2_p = ff.requant_tiles(act, bf)
+    assert torch.equal(aq, aq_p) and torch.equal(sa, sa_p) and torch.equal(sq2, sq2_p)
+    down = ff.down_from_tiles(aq, sa, sq2, dw[1], sd[1], bf)[:, :H].to(dtype)
+    assert torch.equal(down, out)
+    ref = y.float().abs().max()
+    assert (out.float() - y.float()).abs().max() <= 1e-2 * ref
