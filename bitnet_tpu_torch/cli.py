@@ -65,8 +65,7 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--kv-cache-dtype", default="bf16",
                    choices=["bf16", "f32", "int8", "fp8", "auto"],
-                   help="f32: not ported (ROADMAP.md queue 1 #18); auto = "
-                        "int8 once max-seq-len >= 4096, else bf16")
+                   help="auto = int8 once max-seq-len >= 4096, else bf16")
     p.add_argument("--kernel-path", default="auto",
                    choices=["auto", "w2a8", "pallas", "xla"],
                    help="auto = w2a8 on the card, xla on the CPU")
@@ -109,8 +108,6 @@ def _refuse_unported(args) -> None:
         raise not_ported("honest-compute receipts (--receipt)", "#11")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
-    if args.kv_cache_dtype == "f32":
-        raise not_ported("--kv-cache-dtype f32", "#18")
 
 
 def _build_engine(args):

@@ -187,7 +187,7 @@ class EngineConfig:
 
     max_seq_len: int = 2048
     max_batch_size: int = 1
-    kv_cache_dtype: str = "bf16"     # 'auto' | 'bf16' | 'int8' | 'fp8' (f32: #18)
+    kv_cache_dtype: str = "bf16"     # 'auto' | 'bf16' | 'f32' | 'int8' | 'fp8'
     kernel_path: str = "auto"        # 'auto' | 'w2a8' | 'pallas' | 'xla'
     compute_dtype: str = "bf16"      # 'bf16' | 'f32'
     logits_dtype: str = "auto"       # 'auto' | 'bf16' | 'int8' tied head
@@ -248,8 +248,6 @@ class EngineConfig:
         if self.prefix_cache_tokens > 0:
             raise not_ported("the prompt-prefix KV cache (prefix_cache_tokens)",
                              "#12")
-        if self.resolve_kv_cache_dtype() == "f32":
-            raise not_ported("an f32 KV cache", "#18")
 
     def replace(self, **kw: Any) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

@@ -34,7 +34,11 @@
 //      (:1609) K19, decode_attention_qkv_quant_batched_v2
 //      (decode_attention_v2.py:582) K21
 //   bn_decode_attention <- decode_attention_batched (decode_attention.py:1114)
-//      K16, decode_attention_batched_v2 (decode_attention_v2.py:1193) K22
+//      K16, decode_attention_batched_v2 (decode_attention_v2.py:1193) K22,
+//      decode_attention_stacked (decode_attention.py:149, pallas_call :204)
+//      K25, decode_attention_stacked_inplace (:271, pallas_call :334) K26,
+//      decode_attention_perb_v2 (decode_attention_v2.py:249, pallas_call
+//      :278) K27
 //   bn_decode_attention_quant <- decode_attention_quant
 //      (decode_attention.py:655) K15, decode_attention_quant_batched (:1262)
 //      K17, decode_attention_quant_batched_v2 (decode_attention_v2.py:1291)
@@ -46,7 +50,7 @@
 //
 // K2 takes the raw fused projection row qkv [B, H+2KV, D], applies split-
 // layout RoPE to q and k, and runs flash-decode over the PRE-write flat
-// cache layer [B, S, KV*D] (bf16) for rows < pos[b], with the new token
+// cache layer [B, S, KV*D] (bf16, or f32 below) for rows < pos[b], with the new token
 // folded into the softmax as the JAX kernel does: m = (q_f32 . k_f32)/sqrt(D),
 // d = 1, ctx = v_f32 (f32 roped rows, not the bf16 rows written to the
 // cache); q is rounded to bf16 before the cache dot and the softmax weights
@@ -78,8 +82,23 @@
 // need nothing new; an idle slot (pos = 0) skips every split and its
 // output is the new token's v.
 //
+// Over an f32 cache (C = float, cache code 3; the JAX kernels take any float
+// dtype and cast q and the new rows to it) nothing rounds to bf16: q, the new
+// rows and the softmax weights stay f32 (CacheKind::ROUND), lanes load 16 (8)
+// bytes a row, and the bound is twice the bf16 cache bytes.  K2, K5, K8,
+// K13, K16, K18, K20, K22, K25–K27 take it; K3 copies its 4-byte rows.
+//
+// K25 is K5 on layer l of the 5-D stack [L, B, S, KV, D], whose memory is the
+// flat stack's; K27 is K5 over a 4-D cache [B, S, KV, D] (a one-layer stack).
+// K26 is K25 that also writes the new rows: the split pass reads the
+// PRE-write cache (no split block may write, since every one reads the whole
+// layer), then the combine pass casts k_new / v_new to the cache dtype and
+// its g == 0 blocks store them at row wpos[b] of layer l, dropped outside
+// [0, S) as the JAX mask drops them.  Two launches, as K5; bound: K5's bytes
+// plus the 2*B rows written.
+//
 // K7 and K9 are K2 and K5 over a quantized cache: the cache element type C
-// (int8 or __nv_fp8_e4m3; QUANT = C is not bf16) streams at one byte an
+// (int8 or __nv_fp8_e4m3; QUANT = a 1-byte C) streams at one byte an
 // element, converted exactly to f32, and the per-(row, kv head) f32 scales
 // [B, S, KV] scale the scores after the dot (s = (q.k) * scale * k_scale)
 // and the softmax weights before their bf16 rounding (e * v_scale), while d
@@ -125,6 +144,18 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The cache element type C decides two things.  QUANT: a 1-byte cache
+// (int8 or fp8-e4m3 codes with f32 scales).  ROUND: q, the new rows without
+// RoPE and the softmax weights round to bf16 before their dots, as the JAX
+// kernels cast them to the cache dtype (to bf16 over a quantized cache, whose
+// codes they read as bf16); over an f32 cache nothing rounds.
+template <typename C>
+struct CacheKind {
+  static constexpr bool QUANT = sizeof(C) == 1;
+  static constexpr bool ROUND = !std::is_same<C, float>::value;
+  static __device__ __forceinline__ float cast(float v) { return ROUND ? bf16_round(v) : v; }
+};
+
 // The quantized cache types: codes, their f32 values, and qmax.
 template <typename C>
 struct Quant;
@@ -157,11 +188,20 @@ struct Quant<__nv_fp8_e4m3> {
   }
 };
 
-// EPL consecutive cache elements of one lane as f32: bf16 pairs, or one
-// 4- (2-) byte load of 1-byte codes
+// EPL consecutive cache elements of one lane as f32: one 16- (8-) byte load
+// of f32, bf16 pairs, or one 4- (2-) byte load of 1-byte codes
 template <int EPL, typename C>
 __device__ __forceinline__ void load_row(const C* p, float* out) {
-  if constexpr (std::is_same<C, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<C, float>::value) {
+    static_assert(EPL == 2 || EPL == 4, "f32 rows: D in (64, 128)");
+    if constexpr (EPL == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      out[0] = v.x; out[1] = v.y;
+    }
+  } else if constexpr (std::is_same<C, __nv_bfloat16>::value) {
 #pragma unroll
     for (int e = 0; e < EPL; e += 2) {
       const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + e);
@@ -207,7 +247,8 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
            const int* __restrict__ pos,
            int H, int KV, int S, float scale, float* __restrict__ part_md,
            float* __restrict__ part_ctx) {
-  constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
+  using CK = CacheKind<C>;
+  constexpr bool QUANT = CK::QUANT;
   constexpr int EPL = D / 32;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int NS = gridDim.x, G = H / KV, KVD = KV * D, half = D / 2;
@@ -221,12 +262,12 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
   const float* cs = cos_rows + (size_t)b * half;
   const T* row_b = q_rows + (size_t)b * q_bs;
 
-  // (roped) q of the G heads, rounded to bf16: once per block
+  // (roped) q of the G heads, cast to the cache dtype: once per block
   __shared__ float q_s[MAXG][D];
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const T* qr = row_b + (size_t)(h * G + i / D) * D;
-    q_s[i / D][i % D] = bf16_round(ROPE ? rope_at(qr, i % D, half, sn, cs)
-                                        : load_f32(qr, i % D));
+    q_s[i / D][i % D] = CK::cast(ROPE ? rope_at(qr, i % D, half, sn, cs)
+                                      : load_f32(qr, i % D));
   }
   __syncthreads();
   float q[MAXG][EPL];
@@ -288,7 +329,7 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
         for (int u = 0; u < UNROLL; ++u) {
           const float ev = expf(s[u] - mx);
           dd += ev;                                        // unscaled e
-          const float eb = bf16_round(QUANT ? __fmul_rn(ev, vs[u]) : ev);
+          const float eb = CK::cast(QUANT ? __fmul_rn(ev, vs[u]) : ev);
 #pragma unroll
           for (int e = 0; e < EPL; ++e) ctx[g][e] += eb * vf[u][e];
         }
@@ -336,9 +377,12 @@ attn_split(const T* __restrict__ q_rows, int q_bs,
 // max: warp w takes splits w, w+8, ..., lane owns EPL elements of D, so a
 // thread issues live/8 independent loads; the warps' sums meet in shared
 // memory.  With ROPE the new k row is roped in f32 and the block of g == 0
-// writes it and the v row out (K2: in bf16; K7: quantized, with their
-// scales, and the softmax starts from the round-tripped rows); without, the
-// new rows are rounded to bf16.
+// writes it and the v row out (K2: in the cache dtype; K7: quantized, with
+// their scales, and the softmax starts from the round-tripped rows); without,
+// the new rows are cast to the cache dtype, and where wpos is given (K26) the
+// block of g == 0 writes them into the layer's caches k_out / v_out [B, S,
+// KV*D] at row wpos[b], dropped outside [0, S): every split block of pass 1
+// has read the pre-write cache by then.
 // ---------------------------------------------------------------------------
 template <int D, typename T, typename C, bool ROPE>
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
@@ -350,8 +394,10 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
              const float* __restrict__ part_md,
              const float* __restrict__ part_ctx, T* __restrict__ out,
              C* __restrict__ k_out, C* __restrict__ v_out,
-             float* __restrict__ ks_out, float* __restrict__ vs_out) {
-  constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
+             float* __restrict__ ks_out, float* __restrict__ vs_out,
+             const int* __restrict__ wpos) {
+  using CK = CacheKind<C>;
+  constexpr bool QUANT = CK::QUANT;
   constexpr int EPL = D / 32;
   const int G = H / KV, half = D / 2;
   const int hq = blockIdx.x, b = blockIdx.y, h = hq / G, g = hq % G;
@@ -375,8 +421,8 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
     const int d = threadIdx.x;
     const T* kn = k_new + (size_t)b * kv_bs + (size_t)h * D;
     const T* vn = v_new + (size_t)b * kv_bs + (size_t)h * D;
-    kr = ROPE ? rope_at(kn, d, half, sn, cs) : bf16_round(load_f32(kn, d));
-    vr = ROPE ? load_f32(vn, d) : bf16_round(load_f32(vn, d));
+    kr = ROPE ? rope_at(kn, d, half, sn, cs) : CK::cast(load_f32(kn, d));
+    vr = ROPE ? load_f32(vn, d) : CK::cast(load_f32(vn, d));
     if constexpr (ROPE && QUANT) {               // each row's absmax over D
       float ak = fabsf(kr), av = fabsf(vr);
 #pragma unroll
@@ -416,8 +462,15 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
       }
     } else if constexpr (ROPE) {
       if (g == 0) {
-        k_out[row_o + d] = __float2bfloat16_rn(kr);
-        v_out[row_o + d] = __float2bfloat16_rn(vr);
+        store_f32(k_out, row_o + d, kr);
+        store_f32(v_out, row_o + d, vr);
+      }
+    } else if constexpr (!QUANT) {                // K26: kr, vr are cast already
+      const int wp = wpos != nullptr && g == 0 ? wpos[b] : -1;
+      if (wp >= 0 && wp < S) {
+        const size_t o = ((size_t)b * S + wp) * KV * D + (size_t)h * D + d;
+        store_f32(k_out, o, kr);
+        store_f32(v_out, o, vr);
       }
     }
     kr_s[d] = kr;
@@ -430,7 +483,7 @@ attn_combine(const T* __restrict__ q_rows, int q_bs,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = lane * EPL + e;
-      s += (ROPE ? rope_at(qr, d, half, sn, cs) : bf16_round(load_f32(qr, d))) * kr_s[d];
+      s += (ROPE ? rope_at(qr, d, half, sn, cs) : CK::cast(load_f32(qr, d))) * kr_s[d];
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -510,7 +563,7 @@ cudaError_t launch_attn(const void* q_rows, int q_bs, const void* k_new,
                         const int* pos, int B, int H, int KV, int S,
                         float scale, void* out, void* k_out, void* v_out,
                         float* ks_out, float* vs_out, float* part_md,
-                        float* part_ctx, cudaStream_t stream) {
+                        float* part_ctx, const int* wpos, cudaStream_t stream) {
   const int NS = (S + SPLIT - 1) / SPLIT;
   const T* q = static_cast<const T*>(q_rows);
   attn_split<D, T, C, ROPE><<<dim3(NS, KV, B), WARPS * 32, 0, stream>>>(
@@ -529,19 +582,26 @@ cudaError_t launch_attn(const void* q_rows, int q_bs, const void* k_new,
       q, q_bs, static_cast<const T*>(k_new), static_cast<const T*>(v_new), kv_bs,
       sin_rows, cos_rows, pos, H, KV, S, NS, scale, part_md, part_ctx,
       static_cast<T*>(out), static_cast<C*>(k_out), static_cast<C*>(v_out),
-      ks_out, vs_out);
+      ks_out, vs_out, wpos);
   return cudaGetLastError();
 }
 
-// the instance for (D, activation dtype: 0 = f32, 1 = bf16, cache: 0 =
-// int8, 1 = fp8 e4m3, 2 = bf16)
+// the cache codes of the entry points: 0 = int8, 1 = fp8 e4m3, 2 = bf16,
+// 3 = f32
+template <typename C>
+constexpr int cache_code() {
+  return std::is_same<C, int8_t>::value           ? 0
+         : std::is_same<C, __nv_fp8_e4m3>::value  ? 1
+         : std::is_same<C, __nv_bfloat16>::value  ? 2
+                                                  : 3;
+}
+
+// the instance for (D, activation dtype: 0 = f32, 1 = bf16, cache code)
 template <bool ROPE, typename... A>
 int dispatch(int D, int dtype, int cache, A... a) {
 #define BN_CASE(DD, TT, CC)                                                    \
   if (D == DD && dtype == (std::is_same<TT, float>::value ? 0 : 1) &&          \
-      cache == (std::is_same<CC, int8_t>::value                                \
-                    ? 0                                                        \
-                    : (std::is_same<CC, __nv_fp8_e4m3>::value ? 1 : 2)))       \
+      cache == cache_code<CC>())                                               \
     return (int)launch_attn<DD, TT, CC, ROPE>(a...);
 #define BN_CASES(CC)                       \
   BN_CASE(128, __nv_bfloat16, CC)          \
@@ -549,6 +609,7 @@ int dispatch(int D, int dtype, int cache, A... a) {
   BN_CASE(64, __nv_bfloat16, CC)           \
   BN_CASE(64, float, CC)
   BN_CASES(__nv_bfloat16)
+  BN_CASES(float)
   BN_CASES(int8_t)
   BN_CASES(__nv_fp8_e4m3)
 #undef BN_CASES
@@ -560,7 +621,7 @@ int dispatch(int D, int dtype, int cache, A... a) {
 
 extern "C" {
 
-// dtype (qkv and out): 0 = float32, 1 = bfloat16.  The caches are bf16.
+// dtype (qkv and out): 0 = float32, 1 = bfloat16; cache: 2 = bf16, 3 = f32.
 // scale = D**-0.5 rounded to f32 by the caller (as the JAX kernel takes it).
 // D must be 64 or 128 and H / KV <= 8.  part_md: B*KV*NS*G*2 floats,
 // part_ctx: B*KV*NS*G*D floats, NS = ceil(S / 64).
@@ -570,16 +631,17 @@ int bn_decode_attention_qkv(const void* qkv, const float* sin_rows,
                             int KV, int D, int S, float scale, void* out,
                             void* k_out,
                             void* v_out, float* part_md, float* part_ctx,
-                            int dtype, cudaStream_t stream) {
-  if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
+                            int dtype, int cache, cudaStream_t stream) {
+  if (H % KV != 0 || H / KV > MAXG || cache < 2 || cache > 3)
+    return (int)cudaErrorInvalidValue;
   const int bs = (H + 2 * KV) * D, esz = dtype == 1 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
-  return dispatch<true>(D, dtype, 2, qkv, bs, base + (size_t)H * D * esz,
+  return dispatch<true>(D, dtype, cache, qkv, bs, base + (size_t)H * D * esz,
                         base + (size_t)(H + KV) * D * esz, bs, sin_rows,
                         cos_rows, kc, vc, (const float*)nullptr,
                         (const float*)nullptr, pos, B, H, KV, S, scale, out,
                         k_out, v_out, (float*)nullptr, (float*)nullptr,
-                        part_md, part_ctx, stream);
+                        part_md, part_ctx, (const int*)nullptr, stream);
 }
 
 // K7: K2 over a quantized cache (cache: 0 = int8, 1 = fp8 e4m3) with its
@@ -601,24 +663,31 @@ int bn_decode_attention_qkv_quant(const void* qkv, const float* sin_rows,
   return dispatch<true>(D, dtype, cache, qkv, bs, base + (size_t)H * D * esz,
                         base + (size_t)(H + KV) * D * esz, bs, sin_rows,
                         cos_rows, kc, vc, ks, vs, pos, B, H, KV, S, scale, out,
-                        k_out, v_out, ks_out, vs_out, part_md, part_ctx, stream);
+                        k_out, v_out, ks_out, vs_out, part_md, part_ctx,
+                        (const int*)nullptr, stream);
 }
 
-// K5 and K8: q [B, H, D] (roped), k_new / v_new [B, KV, D], all of one
-// dtype (0 = float32, 1 = bfloat16; out has it too); kc / vc the bf16 layer
-// [B, S, KV*D], read only.  Partials as for bn_decode_attention_qkv.
+// K5 and K8 (and K25, K27): q [B, H, D] (roped), k_new / v_new [B, KV, D],
+// all of one dtype (0 = float32, 1 = bfloat16; out has it too); kc / vc the
+// layer [B, S, KV*D], bf16 (cache 2) or f32 (cache 3).  wpos null: the caches
+// are read only.  wpos [B] (K26): the combine pass then writes the new rows,
+// cast to the cache dtype, at row wpos[b] of kc / vc, dropping a row outside
+// [0, S).  Partials as for bn_decode_attention_qkv.
 int bn_decode_attention(const void* q, const void* k_new, const void* v_new,
-                        const void* kc, const void* vc, const int* pos, int B,
-                        int H, int KV, int D, int S, float scale, void* out,
-                        float* part_md, float* part_ctx, int dtype,
-                        cudaStream_t stream) {
-  if (H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(D, dtype, 2, q, H * D, k_new, v_new, KV * D,
-                         (const float*)nullptr, (const float*)nullptr, kc, vc,
+                        void* kc, void* vc, const int* pos, const int* wpos,
+                        int B, int H, int KV, int D, int S, float scale,
+                        void* out, float* part_md, float* part_ctx, int dtype,
+                        int cache, cudaStream_t stream) {
+  if (H % KV != 0 || H / KV > MAXG || cache < 2 || cache > 3)
+    return (int)cudaErrorInvalidValue;
+  void* k_w = wpos != nullptr ? kc : nullptr;
+  void* v_w = wpos != nullptr ? vc : nullptr;
+  return dispatch<false>(D, dtype, cache, q, H * D, k_new, v_new, KV * D,
+                         (const float*)nullptr, (const float*)nullptr,
+                         (const void*)kc, (const void*)vc,
                          (const float*)nullptr, (const float*)nullptr, pos, B,
-                         H, KV, S, scale, out, (void*)nullptr, (void*)nullptr,
-                         (float*)nullptr, (float*)nullptr, part_md, part_ctx,
-                         stream);
+                         H, KV, S, scale, out, k_w, v_w, (float*)nullptr,
+                         (float*)nullptr, part_md, part_ctx, wpos, stream);
 }
 
 // K9: K8 over a quantized cache (cache: 0 = int8, 1 = fp8 e4m3) with the
@@ -637,7 +706,7 @@ int bn_decode_attention_quant(const void* q, const void* k_new,
                          (const float*)nullptr, (const float*)nullptr, kc, vc,
                          ks, vs, pos, B, H, KV, S, scale, out, (void*)nullptr,
                          (void*)nullptr, (float*)nullptr, (float*)nullptr,
-                         part_md, part_ctx, stream);
+                         part_md, part_ctx, (const int*)nullptr, stream);
 }
 
 // K3: rows [L, B, 1, row_bytes] into caches [L, B, S, row_bytes]; ks .. vsr

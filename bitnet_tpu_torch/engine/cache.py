@@ -1,4 +1,4 @@
-"""KV cache: preallocated flat ``[L, B, S, KV*D]`` buffers, bf16 or
+"""KV cache: preallocated flat ``[L, B, S, KV*D]`` buffers, bf16, f32 or
 quantized (int8 / fp8-e4m3 with f32 per-row, per-head scales).
 
 Counterpart of ``bitnet_tpu/engine/cache.py:74-117`` in the flat layout
@@ -15,9 +15,9 @@ import dataclasses
 
 import torch
 
-from ..config import ModelConfig, not_ported
+from ..config import ModelConfig
 
-_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8,
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
            "fp8": torch.float8_e4m3fn}
 
 
@@ -33,10 +33,10 @@ class KVCache:
 def allocate_cache(cfg: ModelConfig, batch_size: int, max_seq_len: int,
                    dtype: str = "bf16", device="cpu") -> KVCache:
     if dtype not in _DTYPES:
-        raise not_ported(f"a {dtype} KV cache", "#18")
+        raise ValueError(f"bad KV cache dtype {dtype!r}")
     L, KV = cfg.num_layers, cfg.num_kv_heads
     shape = (L, batch_size, max_seq_len, KV * cfg.head_dim)
-    quantized = dtype != "bf16"
+    quantized = dtype in ("int8", "fp8")
     scales = (lambda: torch.ones((L, batch_size, max_seq_len, KV),
                                  dtype=torch.float32, device=device))
     return KVCache(

@@ -47,7 +47,9 @@ Semantics kept exactly:
   cache, the stacked decode over the codes (K7, K9) or, on the ``einsum``
   plan, over the cache dequantized to the activation dtype.
 
-An f32 cache raises NotImplementedError naming its ROADMAP item.
+An f32 cache takes the unquantized plans and kernels (the JAX
+``decode_attn_plan`` counts only int8 and fp8 as quantized); over it the
+kernels round nothing to bf16.
 """
 
 from __future__ import annotations
@@ -107,14 +109,14 @@ from ..ops.ternary_matmul import (
 STACKED_DECODE_KINDS = ("qk256", "tl", "bitnet32")
 
 # the cache dtypes the port runs, by the names decode_attn_plan reads
-KV_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8",
-                  torch.float8_e4m3fn: "fp8"}
+KV_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32",
+                  torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
 def kv_dtype_name(dtype: torch.dtype) -> str:
-    """'bf16', 'int8' or 'fp8' for a cache of ``dtype``."""
+    """'bf16', 'f32', 'int8' or 'fp8' for a cache of ``dtype``."""
     if dtype not in KV_DTYPE_NAMES:
-        raise not_ported(f"a {dtype} KV cache", "#18")
+        raise ValueError(f"no KV cache of dtype {dtype}")
     return KV_DTYPE_NAMES[dtype]
 
 
@@ -794,9 +796,9 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             v_scale: torch.Tensor | None = None):
     """Returns (final-normed hidden [B, T, H], k_cache, v_cache); the
     caches (and a quantized cache's scale stacks) are written in place."""
-    if (kv_dtype_name(k_cache.dtype) != "bf16") != (k_scale is not None):
-        raise ValueError("an int8 / fp8 cache needs its scale stacks, a bf16 "
-                         "cache none")
+    if (kv_dtype_name(k_cache.dtype) in ("int8", "fp8")) != (k_scale is not None):
+        raise ValueError("an int8 / fp8 cache needs its scale stacks, a bf16 / "
+                         "f32 cache none")
     x = embed_tokens(params, tokens)
     B, T, _ = x.shape
     if num_real_tokens is None:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..device_probe import resolve_device
 from ..errors import ModelError
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader, TensorInfo
@@ -123,17 +124,20 @@ def _vec(reader: GGUFReader, name: str, n: int) -> torch.Tensor:
 
 
 def load_model(path: str, max_seq_len: int | None = None,
-               param_dtype: torch.dtype = torch.bfloat16, device="cpu"
+               param_dtype: torch.dtype = torch.bfloat16, device="cuda"
                ) -> tuple[ModelConfig, BitNetParams, dict]:
-    """Load a BitNet GGUF.  Returns (cfg, params on the CPU, metadata with
+    """Load a BitNet GGUF onto ``device`` (the card unless the caller asks
+    for ``"cpu"``; without CUDA the default raises, as every entry point
+    does).  Returns (cfg, params on that device, metadata with
     ``eos_token_id``).  Before any tensor is read, the architecture's
     envelope is checked (a ModelError outside it) and the memory estimate
-    against ``device``'s (a warning past it; none on the CPU), as the JAX
-    ``load_model`` does (``:352-359``)."""
+    against the device's memory (a warning past it; none on the CPU), as
+    the JAX ``load_model`` checks against the accelerator (``:352-359``)."""
+    dev = resolve_device(device)
     with GGUFReader(path) as r:
         cfg = config_from_gguf(r)
         validate_config_for_arch(cfg, resolve_arch(cfg.architecture))
-        validate_memory(cfg, strict=False, device=device)
+        validate_memory(cfg, strict=False, device=dev)
         names = set(r.tensors)
         emb_name = find_global(names, "token_embd")
         if emb_name is None:
@@ -199,4 +203,4 @@ def load_model(path: str, max_seq_len: int | None = None,
             rope_sin=sin, rope_cos=cos, lm_head=lm_head)
         eos = r.metadata.get("tokenizer.ggml.eos_token_id")
         meta = {"eos_token_id": None if eos is None else int(eos)}
-    return cfg, params, meta
+    return cfg, params.to(dev), meta

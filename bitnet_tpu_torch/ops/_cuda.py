@@ -27,7 +27,8 @@ from ..errors import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention", "ffn_fused")
+SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention", "ffn_fused",
+           "exp_w2a8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,14 +50,22 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_ffn_w2a8": (P, I, I, P, I, P, P, I, P, P, I, I, P, P, P, P, P, P, P,
                         I, P),
     },
+    "exp_w2a8": {
+        "bn_probe_bytes": (P, P, I, I, P),
+        "bn_probe_bf16": (P, P, I, I, P),
+        "bn_probe_unpack": (P, P, I, I, P),
+        "bn_probe_dot": (P, P, P, I, I, I, I, P),
+        "bn_w2a8_quantize": (P, I, I, I, I, P, P, P, P),
+        "bn_w2a8_mma": (P, P, P, P, F, I, I, I, I, P, P),
+    },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,
-                                    P, P, P, I, P),
+                                    P, P, P, I, I, P),
         "bn_decode_attention_qkv_quant": (P, P, P, P, P, P, P, P, I, I, I, I,
                                           I, F, P, P, P, P, P, P, P, I, I, P),
         "bn_scatter_kv_rows": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-        "bn_decode_attention": (P, P, P, P, P, P, I, I, I, I, I, F, P, P, P,
-                                I, P),
+        "bn_decode_attention": (P, P, P, P, P, P, P, I, I, I, I, I, F, P, P,
+                                P, I, I, P),
         "bn_decode_attention_quant": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
                                       P, P, P, I, I, P),
     },

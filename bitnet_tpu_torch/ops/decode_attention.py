@@ -36,10 +36,16 @@ Wrappers here, each over layer ``l`` of the flat stacks [L, B, S, KV*D]:
   (``:1389``, ``:1421``), plan ``qkv_batched``;
 - K19 :func:`decode_attention_qkv_quant_batched` ←
   ``decode_attention_qkv_quant_batched`` (``:1572``, ``:1609``), plan
-  ``qkv_quant_batched``.
+  ``qkv_quant_batched``;
+- K25 :func:`decode_attention_stacked` ← ``decode_attention_stacked``
+  (``:149``, ``:204``) and K26 :func:`decode_attention_stacked_inplace` ←
+  ``decode_attention_stacked_inplace`` (``:271``, ``:334``): K5 over layer
+  ``l`` of a 5-D stack [L, B, S, KV, D], K26 also writing the new rows in
+  place.  No model path calls them, in either package.
 
-A quantized cache keeps its f32 scales in the canonical ``[L, B, S, KV]``
-layout; the kernels read them with strides.
+The unquantized kernels take a bf16 or an f32 cache (an f32 cache rounds
+nothing to bf16); a quantized cache keeps its f32 scales in the canonical
+``[L, B, S, KV]`` layout; the kernels read them with strides.
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ NEG_INF = -1e30
 DEFAULT_CHUNK = 1024  # the JAX kernels' largest sequence chunk (one grid step)
 SPLIT = 64            # cache rows per block of the CUDA kernel (csrc)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the quantized caches the kernels stream (csrc `cache` argument)
+# the quantized caches the kernels stream (csrc `cache` argument), and the
+# unquantized ones
 QUANT_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+FLOAT_CODE = {torch.bfloat16: 2, torch.float32: 3}
 
 
 # --------------------------------------------------------------------------
@@ -83,9 +91,10 @@ def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return codes.to(torch.float32) * scale[..., None]
 
 
-def v1_chunk(S: int) -> int:
-    """The per-b v1 kernels' chunk: min(1024, S), halved until it divides S."""
-    chunk = min(DEFAULT_CHUNK, S)
+def v1_chunk(S: int, top: int = DEFAULT_CHUNK) -> int:
+    """The per-b kernels' chunk: min(top, S), halved until it divides S
+    (1024 for the v1 kernels, 512 for the per-b v2 kernel)."""
+    chunk = min(top, S)
     while S % chunk:
         chunk //= 2
     return chunk
@@ -252,33 +261,40 @@ def check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv):
 
 
 def launch_split_attention(what: str, l: int, q, k_new, v_new, k_cache,
-                           v_cache, pos, k_scale=None, v_scale=None):
+                           v_cache, pos, k_scale=None, v_scale=None,
+                           write_pos=None):
     """The split-S pair without RoPE over layer ``l`` of the flat stacks
-    [L, B, S, KV*D]: a bf16 cache, or an int8 / fp8 cache with its f32
-    scale stacks [L, B, S, KV].  Checks what the CUDA kernel takes and
-    launches it; counts nothing (each wrapper counts its own launches)."""
+    [L, B, S, KV*D]: a bf16 or f32 cache, or an int8 / fp8 cache with its
+    f32 scale stacks [L, B, S, KV].  With ``write_pos`` [B] int32 (K26, an
+    unquantized cache) the combine pass also writes the new rows, cast to
+    the cache dtype, at those rows of layer ``l`` in place.  Checks what the
+    CUDA kernel takes and launches it; counts nothing (each wrapper counts
+    its own launches)."""
     B, H, D = q.shape
     L, _, S, _ = k_cache.shape
     KV = k_new.shape[1]
     quant = k_scale is not None
     cache_ok = (k_cache.dtype in QUANT_CODE if quant
-                else k_cache.dtype == torch.bfloat16)
+                else k_cache.dtype in FLOAT_CODE)
     if (not q.is_cuda or q.dtype not in _DTYPE_CODE or k_new.dtype != q.dtype
             or v_new.dtype != q.dtype or not cache_ok
             or v_cache.dtype != k_cache.dtype or D not in (64, 128)
-            or H // KV > 8):
+            or H // KV > 8 or (quant and write_pos is not None)):
         raise ValueError(
             f"{what} takes CUDA bf16/f32 q, k_new, v_new of one dtype, a "
-            f"{'int8/fp8' if quant else 'bf16'} cache, D in (64, 128) and "
+            f"{'int8/fp8' if quant else 'bf16/f32'} cache, D in (64, 128) and "
             f"H/KV <= 8; got {q.device} {q.dtype}, {k_new.dtype}, "
             f"{k_cache.dtype}, D={D}, H={H}, KV={KV}")
     tensors = (q, k_new, v_new, k_cache, v_cache, pos) + (
-        (k_scale, v_scale) if quant else ())
+        (k_scale, v_scale) if quant else ()) + (
+        (write_pos,) if write_pos is not None else ())
     dev_i = q.get_device()
     if any(t.get_device() != dev_i or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} operands must be contiguous on q's device")
-    if pos.dtype != torch.int32 or pos.shape != (B,):
-        raise ValueError("pos must be int32 [B]")
+    if pos.dtype != torch.int32 or pos.shape != (B,) or (
+            write_pos is not None and (write_pos.dtype != torch.int32
+                                       or write_pos.shape != (B,))):
+        raise ValueError("pos (and write_pos) must be int32 [B]")
     if quant and (k_scale.dtype != torch.float32
                   or tuple(k_scale.shape) != (L, B, S, KV)
                   or tuple(v_scale.shape) != (L, B, S, KV)):
@@ -303,28 +319,31 @@ def launch_split_attention(what: str, l: int, q, k_new, v_new, k_cache,
             *args, k_scale.data_ptr() + sl, v_scale.data_ptr() + sl, *tail,
             QUANT_CODE[k_cache.dtype], _cuda.stream_ptr(dev))
     else:
-        rc = lib.bn_decode_attention(*args, *tail, _cuda.stream_ptr(dev))
+        wp = None if write_pos is None else write_pos.data_ptr()
+        rc = lib.bn_decode_attention(*args, pos.data_ptr(), wp, *tail[1:],
+                                     FLOAT_CODE[k_cache.dtype],
+                                     _cuda.stream_ptr(dev))
     _cuda.check(lib, "decode_attention", rc, what)
     return out
 
 
 def launch_qkv_attention(what, l, qkv, sin_row, cos_row, k_cache, v_cache,
                          pos, n_heads, n_kv, k_scale=None, v_scale=None):
-    """The split-S pair with RoPE (a bf16 cache, or an int8 / fp8 cache
-    with its scale stacks, quantizing the new rows) over layer ``l``;
+    """The split-S pair with RoPE (a bf16 or f32 cache, or an int8 / fp8
+    cache with its scale stacks, quantizing the new rows) over layer ``l``;
     counts nothing.  Returns what :func:`qkv_attention_plain` returns."""
     B, _, D = qkv.shape
     L, _, S, _ = k_cache.shape
     quant = k_scale is not None
     G = n_heads // n_kv
     cache_ok = (k_cache.dtype in QUANT_CODE if quant
-                else k_cache.dtype == torch.bfloat16)
+                else k_cache.dtype in FLOAT_CODE)
     if (not qkv.is_cuda or qkv.dtype not in _DTYPE_CODE or not cache_ok
             or v_cache.dtype != k_cache.dtype or D not in (64, 128)
             or n_heads % n_kv or G > 8):
         raise ValueError(
             f"{what} takes CUDA bf16/f32 qkv, a "
-            f"{'int8/fp8' if quant else 'bf16'} cache, D in (64, 128) and "
+            f"{'int8/fp8' if quant else 'bf16/f32'} cache, D in (64, 128) and "
             f"H/KV <= 8; got {qkv.device} {qkv.dtype}, {k_cache.dtype}, "
             f"D={D}, H={n_heads}, KV={n_kv}")
     dev_i = qkv.get_device()
@@ -362,6 +381,7 @@ def launch_qkv_attention(what, l, qkv, sin_row, cos_row, k_cache, v_cache,
             QUANT_CODE[k_cache.dtype], _cuda.stream_ptr(dev))
     else:
         rc = lib.bn_decode_attention_qkv(*head, *dims, *parts,
+                                         FLOAT_CODE[k_cache.dtype],
                                          _cuda.stream_ptr(dev))
     _cuda.check(lib, "decode_attention", rc, what)
     if quant:
@@ -402,7 +422,7 @@ def qkv_call(wrapper, what, plain, l, qkv, sin_row, cos_row, k_cache, v_cache,
 
 
 # --------------------------------------------------------------------------
-# K5: q and the new rows apart, a bf16 cache, per-b v1 chunks
+# K5: q and the new rows apart, a bf16 or f32 cache, per-b v1 chunks
 # --------------------------------------------------------------------------
 def decode_attention_plain(q, k_new, v_new, k_cache_l, v_cache_l, pos):
     """K5 on one layer, as the JAX kernel computes it: q [B, H, D] (roped),
@@ -445,7 +465,7 @@ def decode_attention_qkv_v1(l: int, qkv: torch.Tensor, sin_row: torch.Tensor,
                             cos_row: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, pos: torch.Tensor,
                             n_heads: int, n_kv: int):
-    """K13 over layer ``l`` of the flat bf16 stacks: qkv [B, H+2KV, D] raw
+    """K13 over layer ``l`` of the flat bf16 / f32 stacks: qkv [B, H+2KV, D] raw
     (bf16/f32), sin/cos rows [B, D/2] f32, pos [B] int32 rows already
     cached.  Returns (attn [B, H, D], the roped k row and the v row
     [B, KV, D] in the cache dtype) — the JAX kernel keeps both rows in f32
@@ -529,7 +549,7 @@ def decode_attention_batched_v1(l: int, q: torch.Tensor, k_new: torch.Tensor,
                                 v_new: torch.Tensor, k_cache: torch.Tensor,
                                 v_cache: torch.Tensor,
                                 pos: torch.Tensor) -> torch.Tensor:
-    """K16 over layer ``l`` of the flat bf16 stacks for a pool: the
+    """K16 over layer ``l`` of the flat bf16 / f32 stacks for a pool: the
     arguments of K5."""
     return split_call(decode_attention_batched_v1, "K16",
                       decode_attention_batched_v1_plain, l, q, k_new, v_new,
@@ -581,7 +601,7 @@ def decode_attention_qkv_batched(l: int, qkv: torch.Tensor,
                                  sin_row: torch.Tensor, cos_row: torch.Tensor,
                                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                                  pos: torch.Tensor, n_heads: int, n_kv: int):
-    """K18 over layer ``l`` of the flat bf16 stacks for a pool: the
+    """K18 over layer ``l`` of the flat bf16 / f32 stacks for a pool: the
     arguments and results of K13."""
     return qkv_call(decode_attention_qkv_batched, "K18",
                     decode_attention_qkv_batched_plain, l, qkv, sin_row,
@@ -620,3 +640,85 @@ def decode_attention_qkv_quant_batched(l: int, qkv: torch.Tensor,
 
 
 decode_attention_qkv_quant_batched.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K25, K26: the 5-D stacked-cache kernels (no model caller in either package)
+# --------------------------------------------------------------------------
+def _flat_stack(k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """[L, B, S, KV, D] stacks → the flat [L, B, S, KV*D] views (the same
+    memory, as the JAX wrapper's free reshape)."""
+    if k_cache.dim() != 5 or tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(f"caches must be one [L, B, S, KV, D] shape; got "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    L, B, S, KV, D = k_cache.shape
+    return (k_cache.view(L, B, S, KV * D), v_cache.view(L, B, S, KV * D))
+
+
+# K25's plain version is K5's: the stacked Pallas kernel runs K5's body over
+# the same chunks of min(1024, S) rows
+decode_attention_stacked_plain = decode_attention_plain
+
+
+def decode_attention_stacked(l: int, q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor,
+                             pos: torch.Tensor) -> torch.Tensor:
+    """K25 ← ``decode_attention_stacked``
+    (``bitnet_tpu/ops/decode_attention.py:149``, pallas_call ``:204``): K5
+    on layer ``l`` of the 5-D stacks [L, B, S, KV, D] (bf16 or f32, PRE-
+    write); q [B, H, D] roped, k_new / v_new [B, KV, D], cast to the cache
+    dtype; pos [B] int32 rows already cached.  Returns [B, H, D] in q's
+    dtype."""
+    kf, vf = _flat_stack(k_cache, v_cache)
+    return split_call(decode_attention_stacked, "K25",
+                      decode_attention_stacked_plain, l, q, k_new, v_new, kf,
+                      vf, pos)
+
+
+decode_attention_stacked.launches = 0
+
+
+def decode_attention_stacked_inplace_plain(q, k_new, v_new, k_cache_l,
+                                           v_cache_l, pos, write_pos):
+    """K26 on one layer view [B, S, KV*D]: K25's attention over the
+    PRE-write rows, then the new rows cast to the cache dtype written in
+    place at ``write_pos[b]``, dropped outside [0, S) (the JAX kernel's
+    row mask).  Returns attn [B, H, D] in q's dtype."""
+    attn = decode_attention_stacked_plain(q, k_new, v_new, k_cache_l,
+                                          v_cache_l, pos)
+    B, S, KVD = k_cache_l.shape
+    wp = write_pos.to(torch.int64)
+    keep = (wp >= 0) & (wp < S)
+    b = torch.arange(B, device=q.device)[keep]
+    k_cache_l[b, wp[keep]] = k_new[keep].reshape(-1, KVD).to(k_cache_l.dtype)
+    v_cache_l[b, wp[keep]] = v_new[keep].reshape(-1, KVD).to(v_cache_l.dtype)
+    return attn
+
+
+def decode_attention_stacked_inplace(l: int, q: torch.Tensor,
+                                     k_new: torch.Tensor, v_new: torch.Tensor,
+                                     k_cache: torch.Tensor,
+                                     v_cache: torch.Tensor, pos: torch.Tensor,
+                                     write_pos: torch.Tensor | None = None):
+    """K26 ← ``decode_attention_stacked_inplace`` (``:271``, pallas_call
+    ``:334``): K25, and the new k / v rows (cast to the cache dtype)
+    written into layer ``l`` of the caller's stacks at ``write_pos`` [B]
+    int32 (default ``pos``), dropped outside [0, S).  Attention reads the
+    PRE-write cache, so a ``write_pos < pos`` attends over the old row and
+    the new token.  Returns (attn [B, H, D], k_cache, v_cache): the
+    caller's own tensors, written in place (JAX donates and aliases them)."""
+    kf, vf = _flat_stack(k_cache, v_cache)
+    wp = pos if write_pos is None else write_pos
+    check_layer_args(l, q, k_new, v_new, kf, vf)
+    if q.device.type == "cpu":
+        attn = decode_attention_stacked_inplace_plain(q, k_new, v_new, kf[l],
+                                                      vf[l], pos, wp)
+    else:
+        attn = launch_split_attention("K26", l, q, k_new, v_new, kf, vf, pos,
+                                      write_pos=wp)
+        decode_attention_stacked_inplace.launches += 1
+    return attn, k_cache, v_cache
+
+
+decode_attention_stacked_inplace.launches = 0

@@ -3,19 +3,19 @@ scatter: the CUDA kernels and their plain versions.
 
 - K2 :func:`decode_attention_qkv` replaces ``decode_attention_qkv_v2_stacked``
   (``bitnet_tpu/ops/decode_attention_v2.py:859``, body ``_v2_qkv_kernel``
-  ``:318`` with ``quant=False``): B ≤ 2, bf16 cache.
+  ``:318`` with ``quant=False``): B ≤ 2, bf16 or f32 cache.
 - K7 :func:`decode_attention_qkv_quant` replaces
   ``decode_attention_qkv_quant_v2_stacked`` (``:949``, pallas_call
   ``:1021``): K2 over an int8 / fp8-e4m3 cache, quantizing the new rows.
 - K8 :func:`decode_attention_batched` replaces
   ``decode_attention_batched_v2_stacked`` (``:675``, pallas_call ``:735``):
-  pools B = 3…64, RoPE outside, bf16 cache.  Its function is K5's, so it
+  pools B = 3…64, RoPE outside, bf16 or f32 cache.  Its function is K5's, so it
   launches K5's CUDA kernel under its own wrapper and counter.
 - K9 :func:`decode_attention_quant_batched` replaces
   ``decode_attention_quant_batched_v2_stacked`` (``:754``, pallas_call
   ``:820``): K8 over an int8 / fp8-e4m3 cache.
 - K3 :func:`scatter_kv_rows` replaces ``scatter_kv_rows`` (``:1068``,
-  pallas_call ``:1113``), for bf16 and 1-byte caches.
+  pallas_call ``:1113``), for bf16, f32 and 1-byte caches.
 - K20 / K21 :func:`decode_attention_qkv_batched_v2` /
   :func:`decode_attention_qkv_quant_batched_v2` replace the unstacked
   rope-fused v2 wrappers (``:453`` / ``:542``, pallas_call ``:487`` /
@@ -26,6 +26,10 @@ scatter: the CUDA kernels and their plain versions.
   wrappers (``:1159`` / ``:1239``, pallas_call ``:1193`` / ``:1291``; plans
   ``batched_v2`` / ``quant_batched_v2`` under ``BITNET_ATTN_STACKED=0``):
   K8's and K9's functions.
+- K27 :func:`decode_attention_perb_v2` replaces ``decode_attention_perb_v2``
+  (``:249``, pallas_call ``:278``; ``experiments/exp_r4_attn.py`` variant
+  ``v2p``): K8's function on a per-b grid over a 4-D cache with no layer
+  axis.
 
 Every one launches the split-S pair of ``csrc/decode_attention.cu``
 (``ops/decode_attention.py`` says why one pair computes them all) under
@@ -42,9 +46,9 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_attention import (QUANT_CODE, pick_chunk, pick_group,
-                               qkv_attention_plain, qkv_call,
-                               split_attention_plain, split_call)
+from .decode_attention import (FLOAT_CODE, QUANT_CODE, pick_chunk,
+                               pick_group, qkv_attention_plain, qkv_call,
+                               split_attention_plain, split_call, v1_chunk)
 # the KV quantization round trip, where slice 3's callers import it from
 from .decode_attention import dequantize_kv, quantize_kv  # noqa: F401
 
@@ -124,7 +128,7 @@ def decode_attention_batched(l: int, q: torch.Tensor, k_new: torch.Tensor,
                              v_new: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor,
                              pos: torch.Tensor) -> torch.Tensor:
-    """K8 over layer ``l`` of the flat bf16 stacks [L, B, S, KV*D] for a
+    """K8 over layer ``l`` of the flat bf16 / f32 stacks [L, B, S, KV*D] for a
     pool of B slots: q [B, H, D] roped, k_new / v_new [B, KV, D] (k
     roped), one dtype (bf16/f32); pos [B] int32 rows already cached.
     Returns attn [B, H, D] in q's dtype."""
@@ -270,7 +274,7 @@ def scatter_kv_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
     [L, B, S, KVD], in place, at ``min(pos[b], S-1)`` — a pos ≥ S
     overwrites row S-1 of that slot (``models/bitnet.py:978-991`` of the
     JAX package).  k_rows/v_rows [L, B, 1, KVD] in the cache dtype (bf16,
-    int8 or fp8); for a quantized cache the scale rows ks_rows/vs_rows
+    f32, int8 or fp8); for a quantized cache the scale rows ks_rows/vs_rows
     [L, B, 1, KV] go into the scale stacks [L, B, S, KV] beside them, with
     the same clamp (``:954-963``)."""
     L, B, S, KVD = k_cache.shape
@@ -292,7 +296,7 @@ def scatter_kv_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
         (k_scale, v_scale, ks_rows, vs_rows) if quant else ())
     dt = k_cache.dtype
     row_bytes = KVD * k_cache.element_size()
-    if (not k_cache.is_cuda or dt not in (torch.bfloat16, *QUANT_CODE)
+    if (not k_cache.is_cuda or dt not in (*FLOAT_CODE, *QUANT_CODE)
             or quant != (dt in QUANT_CODE) or v_cache.dtype != dt
             or k_rows.dtype != dt or v_rows.dtype != dt
             or pos.dtype != torch.int32 or row_bytes % 16
@@ -300,9 +304,9 @@ def scatter_kv_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
                               for t in (k_scale, v_scale, ks_rows, vs_rows)))
             or any(t.get_device() != k_cache.get_device()
                    or not t.is_contiguous() for t in tensors)):
-        raise ValueError("K3 takes contiguous CUDA bf16 (or int8/fp8 with f32 "
-                         "scales) caches and rows of one dtype, int32 pos and "
-                         "rows of a multiple of 16 bytes")
+        raise ValueError("K3 takes contiguous CUDA bf16 / f32 (or int8/fp8 "
+                         "with f32 scales) caches and rows of one dtype, int32 "
+                         "pos and rows of a multiple of 16 bytes")
     ptr = (lambda t: t.data_ptr()) if quant else (lambda t: None)
     lib = _cuda.library("decode_attention")
     rc = lib.bn_scatter_kv_rows(
@@ -316,3 +320,40 @@ def scatter_kv_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 scatter_kv_rows.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K27: the per-b v2 kernel (experiments/exp_r4_attn.py variant v2p)
+# --------------------------------------------------------------------------
+PERB_V2_CHUNK = 512   # the per-b v2 kernel's largest chunk (``:270``)
+
+
+def decode_attention_perb_v2_plain(q, k_new, v_new, k_cache_l, v_cache_l, pos):
+    """K27 on one layer [B, S, KV*D]: K5's function (``_v2p_kernel``: q and
+    the new rows cast to the cache dtype, the new token folded in first)
+    over chunks of min(512, S) rows; the chunks at or past pos that the TPU
+    kernel skips add exactly nothing here."""
+    return split_attention_plain(q, k_new, v_new, k_cache_l, v_cache_l, pos,
+                                 v1_chunk(k_cache_l.shape[1], PERB_V2_CHUNK))
+
+
+def decode_attention_perb_v2(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor,
+                             pos: torch.Tensor) -> torch.Tensor:
+    """K27 ← ``decode_attention_perb_v2``
+    (``bitnet_tpu/ops/decode_attention_v2.py:249``, pallas_call ``:278``):
+    the v2 body on a per-b grid over one layer's cache [B, S, KV, D] (bf16
+    or f32, PRE-write, no layer axis); q [B, H, D] roped, k_new / v_new
+    [B, KV, D]; pos [B] int32.  Returns [B, H, D] in q's dtype."""
+    if k_cache.dim() != 4 or tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(f"caches must be one [B, S, KV, D] shape; got "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, S, KV, D = k_cache.shape
+    return split_call(decode_attention_perb_v2, "K27",
+                      decode_attention_perb_v2_plain, 0, q, k_new, v_new,
+                      k_cache.view(1, B, S, KV * D),
+                      v_cache.view(1, B, S, KV * D), pos)
+
+
+decode_attention_perb_v2.launches = 0

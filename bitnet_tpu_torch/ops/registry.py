@@ -19,9 +19,12 @@ from .decode_attention import (decode_attention, decode_attention_batched_v1,
                                decode_attention_qkv_quant_batched,
                                decode_attention_qkv_quant_v1,
                                decode_attention_qkv_v1, decode_attention_quant,
-                               decode_attention_quant_batched_v1)
+                               decode_attention_quant_batched_v1,
+                               decode_attention_stacked,
+                               decode_attention_stacked_inplace)
 from .decode_attention_v2 import (decode_attention_batched,
                                   decode_attention_batched_v2,
+                                  decode_attention_perb_v2,
                                   decode_attention_qkv,
                                   decode_attention_qkv_batched_v2,
                                   decode_attention_qkv_quant,
@@ -34,6 +37,8 @@ from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_blockscale_bf16
                              ternary_matmul_tl_bf16_normed,
                              ternary_matmul_tl_w2a8_normed, ternary_matmul_w2a8,
                              ternary_matmul_w2a8_normed)
+from .w2a8_probes import (bitcast_i32_to_i8, bytes_to_bf16, int8_dot,
+                          unpack_words, w2a8_matmul)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +121,21 @@ REGISTRY: tuple[KernelSpec, ...] = (
     # bitnet_tpu/ops/registry.py:46)
     KernelSpec("ffn_w2a8_fused", "cuda", "bitnet_tpu_torch/csrc/ffn_fused.cu",
                "bitnet_tpu/ops/ffn_fused.py:148", ffn_w2a8_fused),
+    # slice 7: the two stacked-cache kernels and the per-b v2 kernel (K25-K27)
+    # on the split-S pair, and the W2A8 experiment's probes and prototype
+    # (K28-K32), reached through the port's two experiment entry points
+    *(KernelSpec(wrapper.__name__, "cuda",
+                 "bitnet_tpu_torch/csrc/decode_attention.cu",
+                 f"bitnet_tpu/ops/{site}", wrapper)
+      for wrapper, site in (
+          (decode_attention_stacked, "decode_attention.py:204"),
+          (decode_attention_stacked_inplace, "decode_attention.py:334"),
+          (decode_attention_perb_v2, "decode_attention_v2.py:278"))),
+    *(KernelSpec(wrapper.__name__, "cuda", "bitnet_tpu_torch/csrc/exp_w2a8.cu",
+                 f"experiments/exp_w2a8.py:{site}", wrapper)
+      for wrapper, site in ((bitcast_i32_to_i8, "55"), (int8_dot, "75 and :84"),
+                            (bytes_to_bf16, "99"), (unpack_words, "146"),
+                            (w2a8_matmul, "201"))),
 )
 
 

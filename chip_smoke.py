@@ -8,6 +8,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,kernels,batched
     python3 chip_smoke.py --phases probe,build,kernels,tl
     python3 chip_smoke.py --phases probe,build,kernels,llama8b
+    python3 chip_smoke.py --phases probe,build,kernels,experiments,parity
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -17,18 +18,20 @@ no result line):
            the fused and the generic path, of pools and int8 / fp8 caches,
            of bitnet32 / TL weights, of every other decode-attention plan
            (K13-K23), and of the 8B-class model (K24, the fused FFN; K1 and
-           K11 at K = 14336): error, median ms (CUDA events), bound, plain
+           K11 at K = 14336), the stacked-cache and per-b kernels (K25-K27),
+           the f32-cache instances (K2, K3, K5, K8) and the W2A8 probes and
+           prototype (K28-K32): error, median ms (CUDA events), bound, plain
            and library ms
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
            int8 cache; re-quantized to TL2 and as bitnet32, fused (B=1, 3)
            and unfused; a 2-layer model at the 8B widths fused, with K24 in
-           its prefill, and re-quantized to TL1: greedy tokens and per-step
-           logits cosine
+           its prefill, and re-quantized to TL1; an f32 cache fused (B=1, a
+           pool of 8) and unfused: greedy tokens and per-step logits cosine
   serving  the full bitnet-b1.58-2B-4T shapes (random weights from a seed)
-           serve 3 requests on the fused stacked path; launch counts per
-           step, determinism, timings
+           serve 3 requests on the fused stacked path, twice, and one over
+           an f32 cache; launch counts per step, determinism, timings
   batched  the same shapes, fused: generate_batch pools of 8 (bf16, auto →
            int8, fp8) and 64 (int8) with prompts of 32-500 tokens, and
            generate at B=1 with a 4096-token auto (int8) cache; launch
@@ -48,9 +51,14 @@ no result line):
            against it; then each knob plan on a 2-layer model, card vs CPU
   kernel_bench  `python -m bitnet_tpu_torch.cli benchmark-kernels` three
            times (the 2B shapes; --attention all at B=1 and at B=8, S=4096)
+  experiments  the port's two experiment entry points: `exp_w2a8` (P1-P4 on
+           K28-K31, P5 on K32 timed beside K6 and K1) and `exp_r4_attn`
+           (every variant but paged at L=30, B=8, S=1024: µs a layer beside
+           the stream floor; one untimed loop of each kernel variant counted)
   generic  the same shapes unfused, as the CLI builds the engine (auto →
            w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
-           sampling twice, then one greedy request on kernel_path="pallas"
+           sampling twice, one greedy request over an f32 cache, then one
+           greedy request on kernel_path="pallas"
   cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
            --weight-quant tl2) and BitNet32 GGUFs written by the port's own
            fixtures, on the card
@@ -64,6 +72,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -78,7 +87,7 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
-          "llama8b", "generic", "plans", "kernel_bench", "cli")
+          "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli")
 
 
 def emit(obj) -> None:
@@ -173,7 +182,8 @@ def phase_kernels(torch, dev):
     g = torch.Generator(device=dev).manual_seed(1234)
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
            "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
-           **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": []}
+           **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
+           **{f"k{n}": [] for n in range(25, 33)}, "f32": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
@@ -191,6 +201,11 @@ def phase_kernels(torch, dev):
     check_k1(torch, dev, g, K1_8B_DOWN, (1, 2), "8b", res)
     check_k11_wide(torch, dev, g, res)
     check_k24(torch, dev, g, res)
+    # slice 7: the stacked-cache and per-b kernels, the f32 cache instances,
+    # the W2A8 probes and prototype
+    check_k25_k27(torch, dev, g, res)
+    check_f32_instances(torch, dev, g, res)
+    check_exp_w2a8(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
     H, KV, D = 20, 5, 128
@@ -414,21 +429,26 @@ def check_k6(torch, dev, g, res):
 
 def check_k5(torch, dev, g, res):
     """K5 (v1 decode attention) against its plain version at S in {1024,
-    4096}, pos in {0, 1, 777, S-1}, B in {1, 2}; timed at B=1, pos=S-1."""
+    4096}, pos in {0, 1, 777, S-1}, B in {1, 2}, and at B=8, S=1024
+    (``exp_r4_attn``'s ``perb``) also with every slot full; timed at B=1,
+    pos=S-1."""
     from bitnet_tpu_torch.ops import decode_attention as dk
 
     H, KV, D = 20, 5, 128
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for S in (1024, 4096):
-        for B in (1, 2):
+        for B in (1, 2, 8) if S == 1024 else (1, 2):
             L = max(2, math.ceil((120 << 20) / (2 * B * S * KV * D * 2)))
             kc = torch.randn((L, B, S, KV * D), generator=g, device=dev).to(torch.bfloat16)
             vc = torch.randn((L, B, S, KV * D), generator=g, device=dev).to(torch.bfloat16)
             q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
             kn = torch.randn((B, KV, D), generator=g, device=dev).to(torch.bfloat16)
             vn = torch.randn((B, KV, D), generator=g, device=dev).to(torch.bfloat16)
-            for p in (0, 1, 777, S - 1):
-                ps = [p] if B == 1 else [p, (p + 300) % S]
+            cases = [[(p + 300 * b) % S for b in range(B)] for p in (0, 1, 777, S - 1)]
+            if B == 8:      # every slot full, as exp_r4_attn's perb runs it
+                cases.append([S - 1] * B)
+            for ps in cases:
+                p = ps[0]
                 pos = torch.tensor(ps, dtype=torch.int32, device=dev)
                 l = 1
                 out = dk.decode_attention(l, q, kn, vn, kc, vc, pos)
@@ -1019,6 +1039,317 @@ def _time_k24(torch, ff, tm, row, x, gu, sg, dw, sd, K, F, H, L):
         nbytes, 2.0 * M * K * 2 * F + 2.0 * M * F * H, "int8")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: K25-K27, the f32 instance of the split-S pair and K3, K28-K32
+# ---------------------------------------------------------------------------
+def _layers(S, B, esz, per_row=2 * KV5 * D128):
+    """Layers of a cache stack whose cycling exceeds the 50 MB L2."""
+    return max(2, math.ceil((120 << 20) / (B * S * per_row * esz)))
+
+
+def _attn_row(torch, out, plain, tol_rel, tol_abs, **extra):
+    err = (out.float() - plain.float()).abs().max().item()
+    ref = plain.float().abs().max().item()
+    tol = tol_rel * ref + tol_abs
+    return {**extra, "max_abs_err": err, "ref_max": ref, "tol": tol, "ok": err <= tol}
+
+
+# float tolerances of the decode-attention checks: over a bf16 cache K5's
+# (the kernel rounds its bf16 softmax weights against other maxima than the
+# chunked plain version); over an f32 cache with f32 activations nothing
+# rounds to bf16, so only the order of f32 sums differs
+ATTN_TOL = {"bf16": (1e-2, 2e-3), "f32": (1e-5, 0.0)}
+
+
+def check_k25_k27(torch, dev, g, res):
+    """K25 (the 5-D stacked K5) and K26 (K25 that writes the new rows in
+    place) at B=1, S=4096 (4095 rows cached), B=2, S=1024 and B=8, S=1024
+    (``exp_r4_attn``'s shape: every slot full, then mixed lengths with an
+    empty slot), on bf16 and f32 caches (f32 activations over f32), at l = 0
+    and L-1; K26 with write_pos = pos, < pos (attention must read the
+    pre-write row) and = S (dropped): its stacks must equal the plain
+    version's bit for bit (the rows cast, every other byte unchanged).  K27 (the per-b v2 kernel over
+    one layer's 4-D cache) at B=8, S in {1024, 4096}, mixed lengths with an
+    empty slot, then full.  Timed: K25 / K26 at B=1, S=4096, K27 at B=8,
+    S=1024, full, both dtypes."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    H, KV, D = H20, KV5, D128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kv in ("bf16", "f32"):
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        esz = 2 if kv == "bf16" else 4
+        for B, S in ((1, 4096), (2, 1024), (8, 1024)):
+            timed = B == 1
+            L = _layers(S, B, esz) if timed else 3
+            kc, vc = (torch.randn((L, B, S, KV, D), generator=g, device=dev).to(dt)
+                      for _ in range(2))
+            q, kn, vn = (torch.randn(s, generator=g, device=dev).to(dt)
+                         for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+            flat_k, flat_v = kc.view(L, B, S, KV * D), vc.view(L, B, S, KV * D)
+            # B=8: every slot full, as exp_r4_attn's stacked variants run
+            # them, and mixed lengths with an empty slot
+            cases = ([[S - 1, S // 2][:B]] if B <= 2 else
+                     [[S - 1] * B, [S - 1, 0, 1, 63, 64, 511, 700, S // 2]])
+            for ps, l in itertools.product(cases, (0, L - 1)):
+                pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+                out = dk.decode_attention_stacked(l, q, kn, vn, kc, vc, pos)
+                pl = dk.decode_attention_stacked_plain(q, kn, vn, flat_k[l], flat_v[l], pos)
+                row = _attn_row(torch, out, pl, *ATTN_TOL[kv], kv=kv, B=B, S=S, l=l,
+                                pos=ps)
+                res["k25"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K25 mismatch: {row}")
+                for where, wp in (("pos", pos), ("before", (pos - 7).clamp_min(0)),
+                                  ("past", torch.full_like(pos, S))):
+                    k2, v2, k3, v3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                    out2, kr, vr = dk.decode_attention_stacked_inplace(
+                        l, q, kn, vn, k2, v2, pos, wp)
+                    pl2 = dk.decode_attention_stacked_inplace_plain(
+                        q, kn, vn, k3.view(L, B, S, -1)[l], v3.view(L, B, S, -1)[l], pos,
+                        wp)
+                    row = _attn_row(torch, out2, pl2, *ATTN_TOL[kv], kv=kv, B=B, S=S,
+                                    l=l, pos=ps, write=where)
+                    wl = wp.tolist()
+                    row["rows_written"] = all(
+                        torch.equal(k2[l, b, w], kn[b].to(dt)) for b, w in enumerate(wl)
+                        if w < S)
+                    row["stacks_exact"] = bool(torch.equal(k2, k3) and torch.equal(v2, v3)
+                                               and kr is k2 and vr is v2)
+                    row["ok"] = row["ok"] and row["rows_written"] and row["stacks_exact"]
+                    res["k26"].append(row)
+                    if not row["ok"]:
+                        raise AssertionError(f"K26 mismatch: {row}")
+                    del k2, v2, k3, v3
+            if timed:
+                rows = (res["k25"][-2], res["k26"][-6])        # l = 0 rows
+                fns = (lambda i: dk.decode_attention_stacked(i % L, q, kn, vn, kc, vc, pos),
+                       lambda i: dk.decode_attention_stacked_inplace(
+                           i % L, q, kn, vn, kc, vc, pos))
+                for row, fn in zip(rows, fns):
+                    row["ms"] = time_ms(torch, fn, L)
+                    row["plain_ms"] = time_ms(torch, lambda i: dk.decode_attention_stacked_plain(
+                        q, kn, vn, flat_k[i % L], flat_v[i % L], pos), 2)
+                    mask = (torch.arange(S, device=dev) < ps[0]).view(1, 1, 1, S)
+                    row["library_ms"] = time_ms(torch, lambda i: sdpa(
+                        q.view(1, H, 1, D), kc[i % L].transpose(1, 2),
+                        vc[i % L].transpose(1, 2), attn_mask=mask, enable_gqa=True), L)
+                    writes = 2 * KV * D * esz if row is rows[1] else 0
+                    nbytes = (2 * ps[0] * KV * D * esz + (q.numel() + 2 * kn.numel()
+                                                          + H * D) * esz + writes)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        nbytes, 4.0 * H * (ps[0] + 1) * D, "bf16")
+            del kc, vc, flat_k, flat_v
+        for S in (1024, 4096):
+            B = 8
+            L = _layers(S, B, esz)
+            kc, vc = (torch.randn((L, B, S, KV, D), generator=g, device=dev).to(dt)
+                      for _ in range(2))
+            q, kn, vn = (torch.randn(s, generator=g, device=dev).to(dt)
+                         for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+            mixed = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                                  dtype=torch.int32)
+            mixed[B // 2] = 0
+            full = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+            for name, pos in (("mixed", mixed), ("full", full)):
+                l = 1
+                out = da.decode_attention_perb_v2(q, kn, vn, kc[l], vc[l], pos)
+                pl = da.decode_attention_perb_v2_plain(
+                    q, kn, vn, kc[l].view(B, S, -1), vc[l].view(B, S, -1), pos)
+                row = _attn_row(torch, out, pl, *ATTN_TOL[kv], kv=kv, B=B, S=S, pos=name)
+                if name == "full" and S == 1024:
+                    row["ms"] = time_ms(torch, lambda i: da.decode_attention_perb_v2(
+                        q, kn, vn, kc[i % L], vc[i % L], pos), L)
+                    row["plain_ms"] = time_ms(torch, lambda i: da.decode_attention_perb_v2_plain(
+                        q, kn, vn, kc[i % L].view(B, S, -1), vc[i % L].view(B, S, -1),
+                        pos), 2)
+                    row["library_ms"] = time_ms(torch, lambda i: _sdpa(
+                        torch, q, kc[i % L].view(B, S, -1), vc[i % L].view(B, S, -1),
+                        pos), L)
+                    rows_read = B * (S - 1)
+                    nbytes = (2 * rows_read * KV * D * esz
+                              + (q.numel() + 2 * kn.numel() + B * H * D) * esz)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        nbytes, 4.0 * H * D * (rows_read + B), "bf16")
+                res["k27"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K27 mismatch: {row}")
+            del kc, vc
+
+
+def check_f32_instances(torch, dev, g, res):
+    """The split-S pair's f32-cache instance under K2 (B=1, S=4096, 4095
+    rows), K5 (B=1 and 2, S=4096) and K8 (B=8, S=1024, full and mixed), with
+    f32 activations: within 1e-5 of the plain versions' max (nothing rounds
+    to bf16; only the order of f32 sums differs), K2's rows exact; K3 on
+    f32 rows at the 2B-4T stack (L=30, B=1, S=4096) bit for bit.  Timed
+    with bounds: K2 and K5 at B=1, S=4096 (beside the bf16 K5 of the same
+    shape in res["k5"]) and K8 at B=8, S=1024."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    H, KV, D = H20, KV5, D128
+    tol_rel = ATTN_TOL["f32"][0]
+    # K2
+    S = 4096
+    L = _layers(S, 1, 4)
+    kc, vc = (torch.randn((L, 1, S, KV * D), generator=g, device=dev) for _ in range(2))
+    qkv = torch.randn((1, H + 2 * KV, D), generator=g, device=dev)
+    ang = torch.rand((1, D // 2), generator=g, device=dev) * 6.283
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    pos = torch.tensor([S - 1], dtype=torch.int32, device=dev)
+    out = da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, H, KV)
+    pl = da.decode_attention_qkv_plain(qkv, sin, cos, kc[1], vc[1], pos, H, KV)
+    row = _attn_row(torch, out[0], pl[0], tol_rel, 0.0, kernel="K2", B=1, S=S)
+    row["rows_exact"] = bool(torch.equal(out[1], pl[1]) and torch.equal(out[2], pl[2]))
+    row["ok"] = row["ok"] and row["rows_exact"]
+    row["ms"] = time_ms(torch, lambda i: da.decode_attention_qkv(
+        i % L, qkv, sin, cos, kc, vc, pos, H, KV), L)
+    row["plain_ms"] = time_ms(torch, lambda i: da.decode_attention_qkv_plain(
+        qkv, sin, cos, kc[i % L], vc[i % L], pos, H, KV), 2)
+    row["bound_ms"], row["bound_by"] = _attn_bound([S - 1], 1, 4, False)
+    res["f32"].append(row)
+    # K5 at B = 1 and 2, then K8
+    del kc, vc
+    for kernel, fn, plain, B, S in (
+            ("K5", dk.decode_attention, dk.decode_attention_plain, 1, 4096),
+            ("K5", dk.decode_attention, dk.decode_attention_plain, 2, 4096),
+            ("K8", da.decode_attention_batched, da.decode_attention_batched_plain, 8, 1024)):
+        L = _layers(S, B, 4)
+        kc, vc = (torch.randn((L, B, S, KV * D), generator=g, device=dev)
+                  for _ in range(2))
+        qb, knb, vnb = (torch.randn(s, generator=g, device=dev)
+                        for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+        full = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        mixed = torch.randint(0, S, (B,), generator=g, device=dev, dtype=torch.int32)
+        for name, pos in (("full", full), ("mixed", mixed)):
+            out = fn(1, qb, knb, vnb, kc, vc, pos)
+            pl = plain(qb, knb, vnb, kc[1], vc[1], pos)
+            row = _attn_row(torch, out, pl, tol_rel, 0.0, kernel=kernel, B=B, S=S,
+                            pos=name)
+            if name == "full" and B != 2:
+                row["ms"] = time_ms(torch, lambda i: fn(i % L, qb, knb, vnb, kc, vc, pos), L)
+                row["plain_ms"] = time_ms(torch, lambda i: plain(
+                    qb, knb, vnb, kc[i % L], vc[i % L], pos), 2)
+                row["bound_ms"], row["bound_by"] = _attn_bound(pos.tolist(), B, 4, False)
+            res["f32"].append(row)
+        del kc, vc
+    # K3 on f32 rows, pos >= S included
+    L, B, S, KVD = 30, 1, 4096, KV * D
+    kc, vc = (torch.randn((L, B, S, KVD), generator=g, device=dev) for _ in range(2))
+    for p in (5, S - 1, S + 7):
+        rows = torch.randn((2, L, B, 1, KVD), generator=g, device=dev)
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        k2, v2 = kc.clone(), vc.clone()
+        da.scatter_kv_rows(kc, vc, rows[0], rows[1], pos)
+        da.scatter_kv_rows_plain(k2, v2, rows[0], rows[1], pos)
+        exact = bool(torch.equal(kc, k2) and torch.equal(vc, v2))
+        res["f32"].append({"kernel": "K3", "pos": p, "tol": 0.0, "exact": exact,
+                           "max_abs_err": 0.0 if exact else float("inf"), "ok": exact})
+        del k2, v2
+    del kc, vc
+    for row in res["f32"]:
+        if not row["ok"]:
+            raise AssertionError(f"f32 instance mismatch: {row}")
+
+
+def check_exp_w2a8(torch, dev, g, res):
+    """K28-K31 (the probes) bit for bit against their expected results on
+    the script's inputs; K29 exact through dp4a and the int8 MMA; K32 at the
+    script's shape (K=2560, N=13824) with M in {1, 16, 17}: its int8 codes,
+    row scales and sums bit for bit, its output within one bf16 ulp of the
+    plain version.  Timed: each probe at its shape (launch-bound), K29 at
+    (128x256)·(256x256) beside ``torch._int_mm``, K32 at M=1 and 16 beside
+    K1 on the same words and ``torch.matmul`` on the dequantized bf16
+    weights."""
+    import numpy as np
+
+    from bitnet_tpu_torch.experiments import exp_w2a8 as ew
+    from bitnet_tpu_torch.ops import w2a8_probes as wp
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+    from bitnet_tpu_torch.ops.linear import codes_to_values, unpack_packed
+
+    words_in = {"k28": ew.p1_inputs(), "k30": ew.p3_inputs(), "k31": ew.p4_inputs()[1]}
+    for key, fn, plain in (("k28", wp.bitcast_i32_to_i8, wp.bitcast_i32_to_i8_plain),
+                           ("k30", wp.bytes_to_bf16, wp.bytes_to_bf16_plain),
+                           ("k31", wp.unpack_words, wp.unpack_words_plain)):
+        w = torch.from_numpy(words_in[key])
+        wd = w.to(dev)
+        out = fn(wd)
+        exact = bool(torch.equal(out.cpu(), plain(w)))
+        row = {"shape": list(w.shape), "tol": 0.0, "exact": exact,
+               "max_abs_err": 0.0 if exact else float("inf"), "ok": exact,
+               "ms": time_ms(torch, lambda i: fn(wd)),
+               "plain_ms": time_ms(torch, lambda i: plain(wd)), "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound(
+            w.numel() * 4 + out.numel() * out.element_size(), 0, "int8")
+        res[key].append(row)
+        if not exact:
+            raise AssertionError(f"{key.upper()} mismatch: {row}")
+    codes4 = ew.p4_inputs()[0]
+    if not np.array_equal(wp.unpack_words(torch.from_numpy(words_in["k31"]).to(dev))
+                          .cpu().numpy(), codes4 + (codes4 >> 1)):
+        raise AssertionError("K31 does not invert pack_w2a8_host")
+    a, b, a2 = (torch.from_numpy(t).to(dev) for t in ew.p2_inputs())
+    for lhs in (a, a2):
+        ref = wp.int8_dot_plain(lhs.cpu(), b.cpu())
+        for unit in ("dp4a", "mma"):
+            out = wp.int8_dot(lhs, b, unit)
+            exact = bool(torch.equal(out.cpu(), ref))
+            row = {"unit": unit, "M": lhs.shape[0], "tol": 0.0, "exact": exact,
+                   "max_abs_err": 0.0 if exact else float("inf"), "ok": exact}
+            if lhs is a:
+                M, K = lhs.shape
+                N = b.shape[1]
+                row["ms"] = time_ms(torch, lambda i: wp.int8_dot(lhs, b, unit))
+                row["plain_ms"] = time_ms(torch, lambda i: wp.int8_dot_plain(lhs, b))
+                bt = b.t().contiguous().t()
+                row["library_ms"] = time_ms(torch, lambda i: torch._int_mm(lhs, bt))
+                row["bound_ms"], row["bound_by"] = bound(M * K + K * N + 4 * M * N,
+                                                         2.0 * M * K * N, "int8")
+            res["k29"].append(row)
+            if not exact:
+                raise AssertionError(f"K29 mismatch: {row}")
+    # K32 at the script's shape
+    K, N, scale = 2560, 13824, 0.02
+    codes = np.random.default_rng(2).integers(0, 4, size=(K, N)).astype(np.uint8)
+    words = torch.from_numpy(wp.pack_w2a8_host(codes)).to(dev)
+    L = max(2, math.ceil((120 << 20) / (K * N // 4)))
+    wstack = torch.stack([words] * L)
+    sv = torch.full((L, N), scale, device=dev)
+    nd = 2                                         # 2 x 70.8 MB of bf16 weights
+    dense = [(codes_to_values(unpack_packed(words)) * scale).to(torch.bfloat16)
+             for _ in range(nd)]
+    for M in (1, 16, 17):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        out, xq, sx, sumq = wp._w2a8_matmul_cuda(x, words, scale)
+        pq, psx, psum = wp.w2a8_quantize_plain(x, xq.shape[0])
+        pl = wp.w2a8_matmul_plain(pq, psx, psum, words, scale, M)
+        ulp = (pl.float().abs() * 2.0 ** -7).clamp_min(2.0 ** -133)   # one bf16 ulp
+        err = (out.float() - pl.float()).abs()
+        row = {"M": M, "K": K, "N": N, "codes_exact": bool(
+                   torch.equal(xq, pq) and torch.equal(sumq, psum) and torch.equal(sx, psx)),
+               "bit_exact": bool(torch.equal(out, pl)), "max_abs_err": err.max().item(),
+               "tol": "one bf16 ulp", "within_ulp": bool((err <= ulp).all())}
+        row["ok"] = row["codes_exact"] and row["within_ulp"]
+        if M in (1, 16):
+            row["ms"] = time_ms(torch, lambda i: wp.w2a8_matmul(
+                x, wstack[i % L], scale, bn=2304, bkt=2), L)
+            row["plain_ms"] = time_ms(torch, lambda i: wp.w2a8_matmul_plain(
+                *wp.w2a8_quantize_plain(x, xq.shape[0]), wstack[i % L], scale, M), 2)
+            row["k1_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
+                i % L, x, wstack, sv, None, K, N), L)
+            row["library_ms"] = time_ms(torch, lambda i: torch.matmul(x, dense[i % nd]), nd)
+            row["library_call"] = "torch.matmul on the dequantized bf16 weights"
+            row["bound_ms"], row["bound_by"] = bound(K * N // 4 + M * K * 2 + M * N * 2,
+                                                     2.0 * M * K * N, "int8")
+        res["k32"].append(row)
+        if not row["ok"]:
+            raise AssertionError(f"K32 mismatch: {row}")
+    del wstack, dense
+
+
 # Slice 5: the wrappers of every other decode-attention plan, all on the
 # split-S pair: (key, kernel id, rope-fused?, cache dtypes, batch sizes).
 # The per-b kernels run at B in {1, 2}, the pool kernels at B in {3, 8}.
@@ -1193,6 +1524,24 @@ SITES = (
     # counted over the llama8b phase's requests
     ("ffn_w2a8_fused", "ffn_w2a8_fused", "bitnet_tpu/ops/ffn_fused.py:148",
      "llama8b", "k24", lambda r: "ms" in r and r["M"] == 32),
+    # slice 7: counted over the experiments phase's entry points; K25 / K26
+    # at B=1, S=4096 and K27 at B=8, S=1024, bf16 caches
+    ("decode_attention_stacked", "decode_attention_stacked", f"{DA}.py:204",
+     "experiments", "k25", lambda r: "ms" in r and r["kv"] == "bf16"),
+    ("decode_attention_stacked_inplace", "decode_attention_stacked_inplace",
+     f"{DA}.py:334", "experiments", "k26", lambda r: "ms" in r and r["kv"] == "bf16"),
+    ("decode_attention_perb_v2", "decode_attention_perb_v2", f"{DA}_v2.py:278",
+     "experiments", "k27", lambda r: "ms" in r and r["kv"] == "bf16"),
+    ("bitcast_i32_to_i8", "bitcast_i32_to_i8", "experiments/exp_w2a8.py:55",
+     "experiments", "k28", lambda r: "ms" in r),
+    ("int8_dot", "int8_dot", "experiments/exp_w2a8.py:75 and :84", "experiments",
+     "k29", lambda r: "ms" in r and r["unit"] == "mma"),
+    ("bytes_to_bf16", "bytes_to_bf16", "experiments/exp_w2a8.py:99", "experiments",
+     "k30", lambda r: "ms" in r),
+    ("unpack_words", "unpack_words", "experiments/exp_w2a8.py:146", "experiments",
+     "k31", lambda r: "ms" in r),
+    ("w2a8_matmul", "w2a8_matmul", "experiments/exp_w2a8.py:201", "experiments",
+     "k32", lambda r: "ms" in r and r["M"] == 1),
 )
 
 
@@ -1202,8 +1551,11 @@ def summarize(res, launches):
     fused path's four shapes or the generic path's seven at M=1, or at
     M=512 for the prefill GEMM; K2 and K5 at S=4096 with a full cache; K3
     all 30 rows of a B=1 step; K13–K15 at B=1, S=4096, K16–K23 at B=8,
-    S=1024); ``launches[phase]`` holds each serving phase's counts, zeroed
-    before its path and read after."""
+    S=1024; K25 / K26 at B=1, S=4096 and K27 at B=8, S=1024, bf16 caches;
+    K28–K31 at the probes' shapes, K29 through the MMA; K32 at M=1, K=2560,
+    N=13824); ``launches[phase]`` holds each serving phase's counts, zeroed
+    before its path and read after.  A library ms is null where no single
+    PyTorch call computes the function (the byte probes)."""
     from bitnet_tpu_torch.ops.registry import REGISTRY
 
     specs = {spec.kernel_id: spec for spec in REGISTRY}
@@ -1214,7 +1566,8 @@ def summarize(res, launches):
                  if "path" not in r or r["path"] == timed[0].get("path")]
 
         def total(field):
-            return sum(r[field] for r in timed)
+            vals = [r[field] for r in timed]
+            return None if None in vals else sum(vals)
 
         out.append({
             "name": name, "route": specs[kid].route, "source": specs[kid].source,
@@ -1322,6 +1675,12 @@ def phase_parity(torch, dev):
               ("fused_auto_B8", EngineConfig(kv_cache_dtype="auto", max_batch_size=8,
                                              **fused)),
               ("unfused_int8", EngineConfig(max_seq_len=256, kv_cache_dtype="int8"))]
+    # slice 7: an f32 cache on the fused path at B=1 (K2) and in a pool of 8
+    # (K8), and on the generic path (K5)
+    cases += [("fused_f32kv_B1", EngineConfig(kv_cache_dtype="f32", **fused)),
+              ("fused_f32kv_B8", EngineConfig(kv_cache_dtype="f32", max_batch_size=8,
+                                              **fused)),
+              ("unfused_f32kv", EngineConfig(max_seq_len=256, kv_cache_dtype="f32"))]
     # slice 4: TL2 re-quantization of the same model and a bitnet32 model,
     # fused at B = 1 (K11) and in a pool of 3 (K12), and generic (K10)
     b32 = build_synthetic(cfg, seed=7, device="cpu", kind="bitnet32")
@@ -1439,9 +1798,11 @@ def phase_serving(torch, dev):
     L = cfg.num_layers
     t0 = time.perf_counter()
     params = build_synthetic(cfg, seed=0, device=dev)
-    eng = InferenceEngine(cfg, params, EngineConfig(
-        max_seq_len=4096, kv_cache_dtype="bf16", logits_dtype="int8",
-        kernel_path="w2a8", fuse_projections=True), device=dev)
+    ec = EngineConfig(max_seq_len=4096, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True)
+    eng = InferenceEngine(cfg, params, ec, device=dev)
+    # slice 7: the same engine over an f32 cache (K2's and K3's f32 instances)
+    eng32 = InferenceEngine(cfg, params, ec.replace(kv_cache_dtype="f32"), device=dev)
     del params
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1466,17 +1827,23 @@ def phase_serving(torch, dev):
             first = toks
         elif toks != first:
             raise AssertionError("two runs gave different tokens")
+    eng32.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+    _r, run = _request(eng32, prompts[1], gc, want)
+    _add(totals, run["launches"])
+    runs.append({"rep": "f32_kv", **run})
     H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     KVD = cfg.num_kv_heads * cfg.head_dim
     weights = L * (H * (H + 2 * KVD) + H * H + H * 2 * F + F * H) / 4
     head = V * H
 
-    def step_bytes(S):
-        return weights + head + 2 * L * S * KVD * 2
+    def step_bytes(S, esz=2):
+        return weights + head + 2 * L * S * KVD * esz
 
     return {"build_s": build_s, "runs": runs, "launch_totals": totals,
             "tokens": first, "decode_bytes_S1024": step_bytes(1024),
             "decode_bound_ms_S1024": step_bytes(1024) / HBM_BPS * 1e3,
+            "decode_bytes_S1024_f32kv": step_bytes(1024, 4),
+            "decode_bound_ms_S1024_f32kv": step_bytes(1024, 4) / HBM_BPS * 1e3,
             "bandwidth": "data sheet 3.35 TB/s (H100 SXM)", "ok": True}
 
 
@@ -1905,7 +2272,9 @@ def phase_generic(torch, dev):
     the CLI builds it (EngineConfig(max_seq_len=2048): auto → w2a8 on the
     card, bf16 KV, bf16 tied head).  Per decode step 7L K1 + L K5 (no K2,
     no K3); a prefill bucket of <= 64 rows runs K1's two-kernel path, a
-    larger one 7L K4.  On kernel_path="pallas" every projection is K6."""
+    larger one 7L K4.  On kernel_path="pallas" every projection is K6.  One
+    greedy request over an f32 cache (kv_cache_dtype="f32") counts the same
+    launches, K5 on its f32 instance."""
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
@@ -1952,6 +2321,14 @@ def phase_generic(torch, dev):
         sampled.append(toks)
     if sampled[0] != sampled[1]:
         raise AssertionError("the same seed gave different tokens")
+    del eng
+    # slice 7: the CLI's engine over an f32 cache (K5's f32 instance)
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=2048,
+                                                    kv_cache_dtype="f32"), device=dev)
+    eng.generate(prompts[0][:8], GenerationConfig(max_new_tokens=2, greedy=True))
+    _r, run = _request(eng, prompts[1], greedy, want_w2a8)
+    _add(totals, run["launches"])
+    runs.append({"mode": "greedy_f32_kv", **run})
     del eng
     eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=2048,
                                                     kernel_path="pallas"),
@@ -2241,6 +2618,83 @@ def phase_kernel_bench(torch, dev):
     return out
 
 
+def phase_experiments(torch, dev):
+    """The port's two experiment entry points as a user runs them.
+    ``exp_w2a8``'s ``main`` (P1–P4 on K28–K31, P5 on K32 at K=2560,
+    N=13824, timed beside K6 and K1): P1 must read ``ROW-MAJOR-LE``, P2 and
+    P4 ``EXACT``, P5's cosine against K6 >= 0.99.  Then ``exp_r4_attn``'s
+    bench of every variant but ``paged`` (which raises naming #12) at
+    L=30, B=8, S=1024: µs a layer beside the stream floor.  Launch counts:
+    the counters are zeroed before ``exp_w2a8``'s run and read after; for
+    ``exp_r4_attn`` one untimed loop of each kernel variant, outside any
+    CUDA graph (graph replays count nothing), must launch its kernel 30
+    times and nothing else (K27 ×30 for ``v2p``)."""
+    import contextlib
+    import io
+    import re
+
+    from bitnet_tpu_torch.experiments import exp_r4_attn as ex
+    from bitnet_tpu_torch.experiments import exp_w2a8 as ew
+    from bitnet_tpu_torch.ops import registry
+
+    out, totals = {}, {}
+    registry.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ew.main([])
+    text = buf.getvalue()
+    counts = registry.launch_counts()
+    _add(totals, counts)
+    cos = re.search(r"cosine = ([0-9.]+)", text)
+    w = {"rc": rc, "seconds": time.perf_counter() - t0, "stdout": text.splitlines(),
+         "p1_row_major_le": "P1 ordering ROW-MAJOR-LE" in text,
+         "p2_exact": text.count("P2 int8 dot") == 4 and "WRONG" not in text,
+         "p4_exact": "P4 full unpack chain vs host: EXACT" in text,
+         "p5_cosine": float(cos.group(1)) if cos else None,
+         "launches": {k: v for k, v in counts.items() if v}}
+    w["ok"] = (rc == 0 and w["p1_row_major_le"] and w["p2_exact"] and w["p4_exact"]
+               and w["p5_cosine"] is not None and w["p5_cosine"] >= 0.99
+               and all(counts[k] > 0 for k in ("bitcast_i32_to_i8", "int8_dot",
+                                               "bytes_to_bf16", "unpack_words",
+                                               "w2a8_matmul")))
+    out["exp_w2a8"] = w
+    if not w["ok"]:
+        raise AssertionError(f"exp_w2a8 failed: {w}")
+    L, B, S = 30, 8, 1024
+    rows = []
+    for variant in (v for v in ex.ALL if v != "paged"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = ex.bench_variant(variant, L=L, B=B, S=S, device=dev)
+        r["line"] = buf.getvalue().strip()
+        if r["kernel"] is not None:         # one untimed loop, counted
+            step, make_carry, fn, _ = ex.make_variant(variant, L, B, S, dev)
+            registry.reset_launch_counts()
+            y = step(make_carry(1), 0)
+            torch.cuda.synchronize()
+            counts = registry.launch_counts()
+            r["untimed_launches"] = {k: v for k, v in counts.items() if v}
+            r["finite"] = bool(torch.isfinite(y.float()).all())
+            if r["untimed_launches"] != {fn.__name__: L} or not r["finite"]:
+                raise AssertionError(f"exp_r4_attn {variant}: {r}")
+            _add(totals, counts)
+            del step, make_carry
+        if not r["us_per_layer"] > 0:
+            raise AssertionError(f"exp_r4_attn {variant}: {r}")
+        rows.append(r)
+    try:
+        ex.make_variant("paged", device=dev)
+        raise AssertionError("the paged variant ran")
+    except NotImplementedError as e:
+        if "#12" not in str(e):
+            raise
+    out["exp_r4_attn"] = rows
+    out["launch_totals"] = totals
+    out["ok"] = True
+    return out
+
+
 def phase_cli(torch, dev):
     """``bitnet_tpu_torch.cli run`` on the card, on mini QK256 and BitNet32
     GGUFs that the port's own fixtures write (hidden 256, F 512, 4/2 heads,
@@ -2376,6 +2830,13 @@ def main(argv=None) -> int:
         if "kernel_bench" in phases:
             report["kernel_bench"] = timed("kernel_bench", phase_kernel_bench, torch, dev)
             emit({"phase": "kernel_bench", "nvidia_smi": smi, **report["kernel_bench"]})
+        if "experiments" in phases:
+            report["experiments"] = timed("experiments", phase_experiments, torch, dev)
+            launches["experiments"] = report["experiments"]["launch_totals"]
+            emit({"phase": "experiments", "nvidia_smi": smi,
+                  "exp_w2a8": {k: v for k, v in report["experiments"]["exp_w2a8"].items()
+                               if k != "stdout"},
+                  "exp_r4_attn": [r["line"] for r in report["experiments"]["exp_r4_attn"]]})
         if "cli" in phases:
             report["cli"] = timed("cli", phase_cli, torch, dev)
             emit({"phase": "cli", **{k: v if not isinstance(v, dict) else

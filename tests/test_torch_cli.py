@@ -56,18 +56,18 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
     (["--speculative", "4"], "#12"), (["--draft-model", "d.gguf"], "#12"),
     (["--grammar-file", "g.gbnf"], "#15"), (["--json-schema", "any"], "#15"),
     (["--receipt", "r.json"], "#11"),
-    (["--sliding-window", "64"], "#7"), (["--kv-cache-dtype", "f32"], "#18"),
-    (["--decode-steps", "8"], "#5")])
+    (["--sliding-window", "64"], "#7"), (["--decode-steps", "8"], "#5")])
 def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         cli.main(["run", "--model", mini_gguf_qk256.path, *ARGS,
                   "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("kv", ["int8", "fp8", "f32"])
 def test_cli_quantized_cache_prints_the_reference_text(mini_gguf_qk256, capsys, kv):
     """The generic path with an int8 / fp8 cache (quantized rows written,
-    the cache dequantized to f32 for attention), as the JAX CLI runs it."""
+    the cache dequantized to f32 for attention), or an f32 cache (which
+    raised naming #18 until slice 7), as the JAX CLI runs it."""
     m = ["--model", mini_gguf_qk256.path, "--kv-cache-dtype", kv]
     want, _ = _run(jcli.main, m + ARGS + ["--greedy", "--kernel-path", "xla"],
                    capsys)

@@ -144,7 +144,7 @@ def test_fault2_gguf_outside_the_envelope_is_refused(tmp_path, key, value):
     with pytest.raises(JModelError, match="exceeds envelope"):
         jload_model(path)
     with pytest.raises(ModelError, match="exceeds envelope"):
-        load_model(path)
+        load_model(path, device="cpu")
 
 
 def test_fault2_config_type_is_the_ports():

@@ -638,3 +638,129 @@ def test_k24_matches_plain(dev, M, dtype, col, F):
     assert torch.equal(down, out)
     ref = y.float().abs().max()
     assert (out.float() - y.float()).abs().max() <= 1e-2 * ref
+
+
+# (relative, absolute) tolerance of the decode-attention checks: over a
+# bf16 cache the kernel rounds its bf16 softmax weights against other maxima
+# than the chunked plain version; over an f32 cache with f32 activations
+# nothing rounds to bf16, so only the order of f32 sums differs
+ATTN_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (1e-5, 0.0)}
+
+
+# --------------------------------------------------------------------------
+# slice 7: K25-K27, the f32 instance of the split-S pair and K3, K28-K32
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", ["pos", "before", "past"])
+def test_k25_k26_match_plain(dev, dtype, where):
+    """K25 and K26 on a 5-D stack; K26's rows written bit for bit at
+    write_pos (= pos, < pos, = S dropped), every other byte unchanged."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    L, B, S, H, KV, D = 3, 2, 256, 20, 5, 128
+    kc, vc = (torch.randn((L, B, S, KV, D), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+    pos = torch.tensor([S - 1, 100], dtype=torch.int32, device=dev)
+    wpos = {"pos": pos, "before": pos - 9, "past": torch.full_like(pos, S)}[where]
+    rel, eps = ATTN_TOL[dtype]
+    for l in (0, L - 1):
+        a = dk.decode_attention_stacked(l, q, kn, vn, kc, vc, pos)
+        pa = dk.decode_attention_stacked_plain(q, kn, vn, kc.view(L, B, S, -1)[l],
+                                               vc.view(L, B, S, -1)[l], pos)
+        ref = pa.float().abs().max()
+        assert (a.float() - pa.float()).abs().max() <= rel * ref + eps
+        k2, v2, k3, v3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        b, kr, vr = dk.decode_attention_stacked_inplace(l, q, kn, vn, k2, v2, pos, wpos)
+        pb = dk.decode_attention_stacked_inplace_plain(
+            q, kn, vn, k3.view(L, B, S, -1)[l], v3.view(L, B, S, -1)[l], pos, wpos)
+        assert kr is k2 and vr is v2
+        assert torch.equal(k2, k3) and torch.equal(v2, v3)
+        assert (b.float() - pb.float()).abs().max() <= rel * ref + eps
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k27_matches_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(27)
+    B, S, H, KV, D = 8, 1024, 20, 5, 128
+    kc, vc = (torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+    pos = torch.randint(0, S, (B,), generator=g, device=dev, dtype=torch.int32)
+    before = da.decode_attention_perb_v2.launches
+    a = da.decode_attention_perb_v2(q, kn, vn, kc, vc, pos)
+    assert da.decode_attention_perb_v2.launches == before + 1
+    pa = da.decode_attention_perb_v2_plain(q, kn, vn, kc.view(B, S, -1),
+                                           vc.view(B, S, -1), pos)
+    rel, eps = ATTN_TOL[dtype]
+    ref = pa.float().abs().max()
+    assert (a.float() - pa.float()).abs().max() <= rel * ref + eps
+
+
+def test_f32_cache_instances_match_plain(dev):
+    """Over an f32 cache with f32 activations nothing rounds to bf16: K2,
+    K5 and K8 within 1e-5 of the plain versions' max, the rows exact; K3
+    copies 4-byte rows bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    L, B, S, H, KV, D = 2, 2, 1024, 20, 5, 128
+    kc, vc = (torch.randn((L, B, S, KV * D), generator=g, device=dev) for _ in range(2))
+    pos = torch.tensor([S - 1, 300], dtype=torch.int32, device=dev)
+    qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev)
+    ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+    a, kr, vr = da.decode_attention_qkv(1, qkv, ang.sin(), ang.cos(), kc, vc, pos, H, KV)
+    pa, pk, pv = da.decode_attention_qkv_plain(qkv, ang.sin(), ang.cos(), kc[1], vc[1],
+                                               pos, H, KV)
+    assert torch.equal(kr, pk) and torch.equal(vr, pv)
+    assert (a - pa).abs().max() <= 1e-5 * pa.abs().max()
+    q, kn, vn = (torch.randn(s, generator=g, device=dev)
+                 for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+    for fn, plain in ((dk.decode_attention, dk.decode_attention_plain),
+                      (da.decode_attention_batched, da.decode_attention_batched_plain)):
+        a = fn(1, q, kn, vn, kc, vc, pos)
+        pa = plain(q, kn, vn, kc[1], vc[1], pos)
+        assert (a - pa).abs().max() <= 1e-5 * pa.abs().max()
+    rows = torch.randn((2, L, B, 1, KV * D), generator=g, device=dev)
+    k2, v2 = kc.clone(), vc.clone()
+    da.scatter_kv_rows(kc, vc, rows[0], rows[1], pos)
+    da.scatter_kv_rows_plain(k2, v2, rows[0], rows[1], pos)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+def test_w2a8_probes_match_plain(dev):
+    """K28-K31 bit for bit on the probes' inputs; K29 exact on both units."""
+    from bitnet_tpu_torch.experiments import exp_w2a8 as ew
+    from bitnet_tpu_torch.ops import w2a8_probes as wp
+
+    for fn, plain, words in ((wp.bitcast_i32_to_i8, wp.bitcast_i32_to_i8_plain,
+                              ew.p1_inputs()),
+                             (wp.bytes_to_bf16, wp.bytes_to_bf16_plain, ew.p3_inputs()),
+                             (wp.unpack_words, wp.unpack_words_plain, ew.p4_inputs()[1])):
+        w = torch.from_numpy(words)
+        assert torch.equal(fn(w.to(dev)).cpu(), plain(w))
+    a, b, a2 = (torch.from_numpy(t) for t in ew.p2_inputs())
+    for lhs in (a, a2):
+        for unit in ("dp4a", "mma"):
+            assert torch.equal(wp.int8_dot(lhs.to(dev), b.to(dev), unit).cpu(),
+                               wp.int8_dot_plain(lhs, b))
+
+
+@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (16, torch.float32),
+                                     (17, torch.bfloat16)])
+def test_k32_matches_plain(dev, M, dtype):
+    """K32's int8 codes, row scales and sums bit for bit; its output the
+    plain arithmetic on them bit for bit (exact int32 sums, the same two
+    f32 products, one bf16 rounding)."""
+    import numpy as np
+
+    from bitnet_tpu_torch.ops import w2a8_probes as wp
+
+    g = torch.Generator(device=dev).manual_seed(M)
+    K, N = 512, 384
+    codes = np.random.default_rng(M).integers(0, 4, (K, N)).astype(np.uint8)
+    words = torch.from_numpy(wp.pack_w2a8_host(codes)).to(dev)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    out, xq, sx, sumq = wp._w2a8_matmul_cuda(x, words, 0.02)
+    pq, psx, psum = wp.w2a8_quantize_plain(x, xq.shape[0])
+    assert torch.equal(xq, pq) and torch.equal(sx, psx) and torch.equal(sumq, psum)
+    assert torch.equal(out, wp.w2a8_matmul_plain(pq, psx, psum, words, 0.02, M))

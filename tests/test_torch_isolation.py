@@ -57,12 +57,30 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
     assert not any(k.startswith("kernel_") for k in eng.kernel_recorder)
 
 
+def test_load_model_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """``load_model`` defaults to the card, so its memory check runs
+    against the card's memory as the JAX loader's runs against the
+    accelerator's; without CUDA it raises unless the caller asks for the
+    CPU (it used to default to the CPU and skip the check)."""
+    from bitnet_tpu_torch.errors import ConfigError
+    from bitnet_tpu_torch.gguf.fixtures import MiniModelSpec, generate_mini_gguf
+    from bitnet_tpu_torch.models.loader import load_model
+
+    path = str(tmp_path / "mini.gguf")
+    generate_mini_gguf(path, MiniModelSpec(hidden_size=256, intermediate_size=512,
+                                           quant="qk256"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        load_model(path)
+    _cfg, params, _meta = load_model(path, device="cpu")
+    assert params.embed.device.type == "cpu"
+    assert params.blocks.wq.packed.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"decode_steps_per_dispatch": 8}, "#5"), ({"kv_cache_dtype": "f32"}, "#18"),
+    ({"decode_steps_per_dispatch": 8}, "#5"),
     ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),
-    ({"kv_cache_dtype": "f32", "max_batch_size": 8}, "#18"),
-    ({"sliding_window": 16, "max_batch_size": 8}, "#7"),
-    ({"kv_cache_dtype": "f32", "max_seq_len": 4096}, "#18")])
+    ({"sliding_window": 16, "max_batch_size": 8}, "#7")])
 def test_unported_engine_configs_name_their_roadmap_item(kw, item):
     from bitnet_tpu_torch.config import EngineConfig
 
@@ -75,10 +93,15 @@ def test_unported_engine_configs_name_their_roadmap_item(kw, item):
     ({"max_batch_size": 3}, "bf16"), ({"max_batch_size": 64}, "bf16"),
     ({"kv_cache_dtype": "auto", "max_seq_len": 4096}, "int8"),
     ({"kv_cache_dtype": "auto", "max_batch_size": 8}, "int8"),
-    ({"kv_cache_dtype": "auto", "max_batch_size": 2}, "bf16")])
+    ({"kv_cache_dtype": "auto", "max_batch_size": 2}, "bf16"),
+    ({"kv_cache_dtype": "f32"}, "f32"),
+    ({"kv_cache_dtype": "f32", "max_batch_size": 8}, "f32"),
+    ({"kv_cache_dtype": "f32", "max_seq_len": 4096}, "f32")])
 def test_pools_and_quantized_caches_are_ported(kw, kv):
     """Slice 3 runs pools of B > 2 and int8 / fp8 caches; ``auto`` keeps
-    the reference's rule (int8 for pools or contexts of 4096)."""
+    the reference's rule (int8 for pools or contexts of 4096).  Slice 7
+    runs an f32 cache, at B = 1, in pools and at long contexts (it used to
+    raise naming #18)."""
     from bitnet_tpu_torch.config import EngineConfig
 
     assert EngineConfig(**kw).resolve_kv_cache_dtype() == kv

@@ -48,7 +48,8 @@ def _np_tree(obj):
 
 def test_loader_matches_jax_loader(mini_gguf_qk256):
     jcfg, jp, _ = jload_model(mini_gguf_qk256.path, param_dtype=jnp.float32)
-    cfg, p, meta = load_model(mini_gguf_qk256.path, param_dtype=torch.float32)
+    cfg, p, meta = load_model(mini_gguf_qk256.path, param_dtype=torch.float32,
+                              device="cpu")
     for f in ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
               "num_heads", "num_kv_heads", "head_dim", "max_seq_len",
               "rope_base", "rms_norm_eps", "hidden_act"):

@@ -145,8 +145,12 @@ def test_cache_allocates_codes_and_unit_scales():
         assert tuple(c.k_scale.shape) == (2, 3, 16, 2)
         assert bool((c.v_scale == 1).all()) and c.v_scale.dtype == torch.float32
     assert allocate_cache(cfg, 1, 16, "bf16").k_scale is None
-    with pytest.raises(NotImplementedError, match="#18"):
-        allocate_cache(cfg, 1, 16, "f32")
+    # an f32 cache (it raised naming #18 until slice 7): f32 rows, no scales
+    c = allocate_cache(cfg, 2, 16, "f32")
+    assert c.k.dtype == torch.float32 and c.k_scale is None
+    assert tuple(c.v.shape) == (2, 2, 16, 128)
+    with pytest.raises(ValueError, match="bad KV cache dtype"):
+        allocate_cache(cfg, 1, 16, "f16")
 
 
 def _engines(mini, B, kv, fuse, kp="w2a8"):

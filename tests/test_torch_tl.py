@@ -151,7 +151,7 @@ def test_requant_of_qk256_model_is_bit_identical(tmp_path, variant, tied):
         hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
         quant="qk256", tie_embeddings=tied))
     _c, jp, _m = jload(path, param_dtype=jnp.float32)
-    _c, p, _m = load_model(path, param_dtype=torch.float32)
+    _c, p, _m = load_model(path, param_dtype=torch.float32, device="cpu")
     jp, p = jq(jp, variant), quantize_params_tl(p, variant)
     for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
         _same_linear(getattr(p.blocks, n), getattr(jp.blocks, n))

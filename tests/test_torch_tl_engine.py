@@ -180,7 +180,7 @@ def test_bitnet32_loader_matches_jax(b32_gguf):
     from bitnet_tpu_torch.models.loader import load_model
 
     _c, jp, _m = jload(b32_gguf, param_dtype=jnp.float32)
-    _c, p, _m = load_model(b32_gguf, param_dtype=torch.float32)
+    _c, p, _m = load_model(b32_gguf, param_dtype=torch.float32, device="cpu")
     for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
         t, j = getattr(p.blocks, n), getattr(jp.blocks, n)
         assert (t.kind, t.k, t.n) == (j.kind, j.k, j.n) == ("bitnet32", t.k, t.n)
