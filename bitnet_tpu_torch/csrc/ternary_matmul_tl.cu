@@ -16,8 +16,9 @@
 // {-2,-1,1,2} plus 2) or c in {0..3} (TL levels {-2,-1,0,1} plus 2).
 //
 // What bounds them on the card, and what the design does about it:
-//  - K10 (any M: generic decode M = 1 ... prefill M = 512) and K12 (pools,
-//    M = 3..64) share one GEMM: K6's 64x64 block tile of bf16
+//  - K10 has two forms: the decode form (below) for up to 16 rows, and for
+//    more (prefill; the wrapper's M > MB) the GEMM it shares with K12
+//    (pools, M = 3..64): K6's 64x64 block tile of bf16
 //    mma.sync.m16n8k16 with a two-stage cp.async pipeline, the block scales
 //    of the K tile (8 rows x 64 columns) streamed beside the words.  Each
 //    B fragment register holds two K values of one 32-row block, so a
@@ -26,10 +27,28 @@
 //    bf16((v(c) - 2) * s) (K12: unbiased, as :633), and expands the 2-bit
 //    planes through it.  Decode is bound by the bytes of words and scales
 //    (the scales are half the words' bytes), prefill by bf16 operations.
-//    K10's bias correction 2 * (sum32 @ s) is an f32 matmul outside, as it
-//    is in XLA; padded K rows hold code 0, whose biased value is 0, so a
-//    zero-padded scale never meets a nonzero weight.  K12 runs its row
+//    The GEMM's bias correction 2 * (sum32 @ s) is an f32 matmul outside,
+//    as it is in XLA; padded K rows hold code 0, whose biased value is 0, so
+//    a zero-padded scale never meets a nonzero weight.  K12 runs its row
 //    preamble (SwiGLU, RMSNorm, bf16 rows) as a first launch.
+//  - K10's decode form (M <= 16: the generic path's seven projections and
+//    the stacked loop's four at decode rows): one lane per output column
+//    reads K11's coalesced word rows, so every word and scale is read once
+//    per call whatever M is; K is split over a thread block cluster (up to 8
+//    blocks) where the column blocks alone leave the SMs idle (k / v: 20
+//    column blocks on 132 SMs), and the cluster's partials are added in rank
+//    order through distributed shared memory (one launch, no scratch, no
+//    atomics: two runs give the same bits).  Each warp stages its half
+//    tile's rows of x in its own slice of shared memory, rounded to bf16 (so
+//    x comes in its own dtype, unpadded), and forms their 32-row sums there;
+//    the correction 2 * sum32 * s[b, n] is kept beside the dot and
+//    subtracted at the end, as the JAX epilogue subtracts corr.  The weight
+//    of a code is looked up with two byte permutes from two registers that
+//    hold the low and high bytes of the four bf16 weights bf16(v * s) of the
+//    (column, block), the code-0 entry +0 (byte 0 of both is the zero the
+//    lookup places in the f32's low half); x * w is exact in f32 and summed
+//    there.  The generic seven at M = 1 take 8x their byte bound together
+//    (PERF.md, Findings).
 //  - K11 (decode, M <= 2) is bound by the bytes of words and scales: K1's
 //    one-launch design (every block recomputes the int8 row preamble, the
 //    same code as K1's, so the rows are K1's bit for bit) with the K
@@ -45,7 +64,11 @@
 //    lane-slicing workaround, :766-776) has no counterpart.  Per-warp f32
 //    sums are added in a fixed order (no float atomics: runs repeat).
 
+#include <cooperative_groups.h>
+
 #include "ternary_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -490,6 +513,225 @@ cudaError_t launch_tl_w2a8(const void* x, int x_stride, int M, int K, int glu,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K10 decode form: grid (split, Np / 32), cluster (split, 1, 1); W warps a
+// block.  Block s of a cluster takes half tiles [h0, h1) of its 32 columns
+// (the split of Kp / 128 half tiles); warp w takes half tiles h0 + w,
+// h0 + w + W, ... (8 word rows = 4 scale blocks of 32 K rows, as K11's),
+// the next one's words, scales and rows of x in flight while it computes
+// one.  A warp stages its half tile's rows of x in its own slice of shared
+// memory (bf16-rounded f32; rows past M and K are 0) and forms their 32-row
+// sums there, so warps never wait for each other until the end: the warps'
+// partials are added in warp order, then the cluster's in rank order, each
+// block adding a share of the outputs through distributed shared memory.
+// ---------------------------------------------------------------------------
+constexpr int DEC_MAX_M = 16;
+constexpr int DEC_MAX_WARPS = 8;
+constexpr int DEC_MAX_SPLIT = 8;          // the portable cluster size
+
+__host__ __device__ constexpr size_t decode_smem(int warps, int mr) {
+  return (size_t)warps * mr * (128 + 4 + 32) * sizeof(float) + (size_t)mr * 32 * sizeof(float);
+}
+
+// lo / hi: byte c holds the low / high byte of the bf16 weight of code c,
+// bf16(v(c) * s); code 0 (biased value 0) is +0
+template <bool LUT_BIAS>
+__device__ __forceinline__ void weight_bytes(float s, unsigned& lo, unsigned& hi) {
+  unsigned b[4];
+#pragma unroll
+  for (int c = 1; c < 4; ++c)
+    b[c] = __bfloat16_as_ushort(
+        __float2bfloat16_rn(__fmul_rn((float)(LUT_BIAS ? c + (c >> 1) : c), s)));
+  const unsigned p12 = b[1] | (b[2] << 16);
+  lo = __byte_perm(p12, b[3], 0x4206);    // {0, b1.lo, b2.lo, b3.lo}
+  hi = __byte_perm(p12, b[3], 0x5316);    // {0, b1.hi, b2.hi, b3.hi}
+}
+
+// the lane's 4 * MR values of x for half tile ht: K row (ht/2)*256 + p*64 +
+// 32*(ht%2) + lane of row m in xv[m * 4 + p]
+template <int MR, typename T>
+__device__ __forceinline__ void load_x_half(const T* __restrict__ x, int M, int K, int ht,
+                                            int h1, int lane, float (&xv)[4 * MR]) {
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int k = (ht >> 1) * KT + p * 64 + 32 * (ht & 1) + lane;
+      xv[m * 4 + p] = ht < h1 && m < M && k < K ? load_f32(x, (size_t)m * K + k) : 0.f;
+    }
+}
+
+template <int MR, bool LUT_BIAS, typename T>
+__global__ void __launch_bounds__(DEC_MAX_WARPS * 32)
+blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
+                  const int* __restrict__ words, int Np,
+                  const float* __restrict__ scales, T* __restrict__ out, int N) {
+  extern __shared__ __align__(16) float dsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int W = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* xw = dsm + warp * MR * 128;                // this warp's rows [MR][128]
+  float* sw = dsm + W * MR * 128 + warp * MR * 4;   // their 32-row sums [MR][4]
+  float* red = dsm + W * MR * 132;                  // the warps' partials [W][MR][32]
+  float* part = red + W * MR * 32;                  // the block's [MR][32]
+  const int S = gridDim.x, units = Kp / 128;
+  const int h0 = (int)((long long)blockIdx.x * units / S);
+  const int h1 = (int)((long long)(blockIdx.x + 1) * units / S);
+  const int n = blockIdx.y * 32 + lane;
+  constexpr bool X_AHEAD = MR <= 8;                 // 16 rows ahead would spill
+  float y[MR], corr[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) y[m] = corr[m] = 0.f;
+  int wv[8];
+  float sv[4], xv[4 * MR];
+  tl_load_half(h0 + warp, h1, words, scales, Np, n, wv, sv);    // in flight
+  if constexpr (X_AHEAD) load_x_half<MR>(x, M, K, h0 + warp, h1, lane, xv);
+
+  for (int ht = h0 + warp; ht < h1; ht += W) {
+    int wn[8];
+    float sn[4], xn[4 * MR];
+    tl_load_half(ht + W, h1, words, scales, Np, n, wn, sn);
+    if constexpr (X_AHEAD) load_x_half<MR>(x, M, K, ht + W, h1, lane, xn);
+    else load_x_half<MR>(x, M, K, ht, h1, lane, xv);
+#pragma unroll
+    for (int i = 0; i < 4 * MR; ++i)
+      xw[i * 32 + lane] = __bfloat162float(__float2bfloat16_rn(xv[i]));
+    __syncwarp();
+    for (int l = lane; l < 4 * MR; l += 32) {   // 32-row sums, a fixed order
+      const float* b = xw + l * 32;               // (rotated: no bank conflicts)
+      float a = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) a = __fadd_rn(a, b[(j + l) & 31]);
+      sw[l] = a;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      unsigned lo, hi;
+      weight_bytes<LUT_BIAS>(sv[p], lo, hi);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) corr[m] = fmaf(sw[m * 4 + p], sv[p], corr[m]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        // byte j of u: the selector nibbles (c, c + 4) of code c of K row
+        // 4i + j of the block
+        const unsigned u =
+            ((((unsigned)wv[i] >> (2 * p)) & 0x03030303u) * 0x11u) + 0x40404040u;
+        float wf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wf[j] = __uint_as_float(__byte_perm(lo, hi, __byte_perm(u, 0u, 0x4404u | (j << 4))));
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xw + m * 128 + p * 32 + 4 * i);
+          y[m] = fmaf(x4.x, wf[0], y[m]);
+          y[m] = fmaf(x4.y, wf[1], y[m]);
+          y[m] = fmaf(x4.z, wf[2], y[m]);
+          y[m] = fmaf(x4.w, wf[3], y[m]);
+        }
+      }
+    }
+    __syncwarp();                                   // xw is restaged next
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wv[i] = wn[i];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) sv[p] = sn[p];
+    if constexpr (X_AHEAD) {
+#pragma unroll
+      for (int i = 0; i < 4 * MR; ++i) xv[i] = xn[i];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+    red[(warp * MR + m) * 32 + lane] = __fsub_rn(y[m], 2.f * corr[m]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < MR * 32; i += blockDim.x) {
+    float a = 0.f;
+    for (int w = 0; w < W; ++w) a = __fadd_rn(a, red[(w * MR + i / 32) * 32 + (i & 31)]);
+    part[i] = a;
+  }
+  cluster.sync();                                   // every block's partial is in place
+  // output i = m * 32 + column is added by rank i % S, in rank order
+  const int rank = (int)cluster.block_rank();
+  for (int i = threadIdx.x * S + rank; i < M * 32; i += blockDim.x * S) {
+    float v[DEC_MAX_SPLIT];
+#pragma unroll
+    for (int r = 0; r < DEC_MAX_SPLIT; ++r)
+      v[r] = r < S ? cluster.map_shared_rank(part, r)[i] : 0.f;
+    float a = v[0];
+#pragma unroll
+    for (int r = 1; r < DEC_MAX_SPLIT; ++r)
+      if (r < S) a = __fadd_rn(a, v[r]);
+    const int nc = blockIdx.y * 32 + (i & 31);
+    if (nc < N) store_f32(out, (size_t)(i / 32) * N + nc, a);
+  }
+  cluster.sync();                                   // no block leaves while read
+}
+
+// split (cluster size) and warps a block for Kp x Np: split K only while
+// the column blocks leave fewer than two blocks an SM; rounds of at most
+// DEC_MAX_WARPS half tiles, balanced
+void decode_plan(int Kp, int Np, int sms, int* split, int* warps) {
+  const int units = Kp / 128, cb = Np / 32;
+  int s = 1;
+  while (s < DEC_MAX_SPLIT && cb * s < 2 * sms && units >= 2 * s) s *= 2;
+  const int per = (units + s - 1) / s;
+  const int rounds = (per + DEC_MAX_WARPS - 1) / DEC_MAX_WARPS;
+  *split = s;
+  *warps = (per + rounds - 1) / rounds;
+}
+
+template <int MR, bool LUT_BIAS, typename T>
+cudaError_t launch_decode(const void* x, int M, int K, int Kp, const int* words,
+                          int Np, const float* scales, void* out, int N, int split,
+                          int warps, cudaStream_t stream) {
+  auto kern = blockscale_decode<MR, LUT_BIAS, T>;
+  static bool smem_set = false;           // once, before any graph capture
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)decode_smem(DEC_MAX_WARPS, MR));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, Np / 32, 1);
+  cfg.blockDim = dim3(32 * warps, 1, 1);
+  cfg.dynamicSmemBytes = decode_smem(warps, MR);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), M, K, Kp,
+                                     words, Np, scales, static_cast<T*>(out), N);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool LUT_BIAS, typename T>
+cudaError_t launch_decode_rows(const void* x, int M, int K, int Kp, const int* words,
+                               int Np, const float* scales, void* out, int N,
+                               cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  int split, warps;
+  decode_plan(Kp, Np, sms, &split, &warps);
+#define BN_DEC(MRV) \
+  return launch_decode<MRV, LUT_BIAS, T>(x, M, K, Kp, words, Np, scales, out, N, split, warps, stream)
+  if (M <= 1) BN_DEC(1);
+  if (M <= 2) BN_DEC(2);
+  if (M <= 4) BN_DEC(4);
+  if (M <= 8) BN_DEC(8);
+  BN_DEC(16);
+#undef BN_DEC
+}
+
 template <typename T>
 cudaError_t launch_tl_bf16(const void* x, int x_stride, int M, int K, int glu,
                            const float* gamma, float eps, const int* words, int Np,
@@ -517,8 +759,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x, resid and out share it).  Each entry
 // returns cudaGetLastError() after its launches.
 
-// K10: xb bf16 [M, Kp] (rounded, zero-padded); scales f32 [Kp/32, Np] of
-// the layer; corr f32 [M, Np] = 2 * (sum32 @ scales); out [M, N].
+// K10's GEMM (more rows than the decode form takes): xb bf16 [M, Kp]
+// (rounded, zero-padded); scales f32 [Kp/32, Np] of the layer; corr f32
+// [M, Np] = 2 * (sum32 @ scales); out [M, N].
 int bn_blockscale_bf16(const __nv_bfloat16* xb, int M, int Kp, const int* words,
                        int Np, const float* scales, const float* corr, void* out,
                        int N, int lut_bias, int dtype, cudaStream_t stream) {
@@ -527,6 +770,23 @@ int bn_blockscale_bf16(const __nv_bfloat16* xb, int M, int Kp, const int* words,
         lut_bias, xb, M, Kp, words, Np, scales, corr, nullptr, out, N, stream);
   return (int)launch_gemm_lut<false, float>(lut_bias, xb, M, Kp, words, Np, scales,
                                             corr, nullptr, out, N, stream);
+}
+
+// K10's decode form: x [M, K] in its own dtype (rounded to bf16 here, rows
+// past K read as 0), M <= 16; the correction inside; out [M, N].  One launch.
+int bn_blockscale_decode(const void* x, int M, int K, int Kp, const int* words,
+                         int Np, const float* scales, void* out, int N, int lut_bias,
+                         int dtype, cudaStream_t stream) {
+  if (M < 1 || M > DEC_MAX_M || Kp % KT || K < 1 || K > Kp || Np % 32 || N > Np)
+    return (int)cudaErrorInvalidValue;
+#define BN_D(LB, TT)   return (int)launch_decode_rows<LB, TT>(x, M, K, Kp, words, Np, scales, out, N, stream)
+  if (dtype == 1) {
+    if (lut_bias) BN_D(true, __nv_bfloat16);
+    BN_D(false, __nv_bfloat16);
+  }
+  if (lut_bias) BN_D(true, float);
+  BN_D(false, float);
+#undef BN_D
 }
 
 // K11: M <= 2, K == Kp (a multiple of 256); xq / sx / sumq receive the int8

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from ..config import ModelConfig
+from ..device_probe import resolve_device
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
            "fp8": torch.float8_e4m3fn}
@@ -31,9 +32,13 @@ class KVCache:
 
 
 def allocate_cache(cfg: ModelConfig, batch_size: int, max_seq_len: int,
-                   dtype: str = "bf16", device="cpu") -> KVCache:
+                   dtype: str = "bf16", device="cuda") -> KVCache:
+    """The cache on the card (as the JAX ``allocate_cache`` places it on
+    the accelerator); without CUDA it raises unless the caller passes
+    ``device="cpu"``."""
     if dtype not in _DTYPES:
         raise ValueError(f"bad KV cache dtype {dtype!r}")
+    device = resolve_device(device)
     L, KV = cfg.num_layers, cfg.num_kv_heads
     shape = (L, batch_size, max_seq_len, KV * cfg.head_dim)
     quantized = dtype in ("int8", "fp8")

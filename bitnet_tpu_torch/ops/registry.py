@@ -92,7 +92,7 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
                "bitnet_tpu/ops/ternary_matmul.py:1177 (bitnet32/TL body) "
                "and :555",
-               ternary_matmul_blockscale_bf16),
+               ternary_matmul_blockscale_bf16),   # decode form (M <= MB) and GEMM
     KernelSpec("ternary_matmul_tl_w2a8_normed", "cuda",
                "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
                "bitnet_tpu/ops/ternary_matmul.py:960",

@@ -24,8 +24,10 @@ K10 :func:`ternary_matmul_blockscale_bf16` replaces the ``_bitnet32_kernel``
 body of ``_ternary_matmul_2d`` (``:1152-1177``) and its stacked twin
 ``ternary_matmul_stacked_tl`` (``:555``): bf16 activations times the
 *biased* scaled weights ``bf16(v·s)``, f32 accumulation, minus the
-correction ``2·(sum32 @ s)``, an f32 matmul that runs outside the kernel
-in plain PyTorch as it runs in XLA (``:1163-1166``, ``:535-539``).
+correction ``2·(sum32 @ s)``.  Decode rows (M ≤ ``BLOCKSCALE_DECODE_MAX_M``)
+take its decode form, one launch that rounds x to bf16 and computes the
+correction itself; more rows take its GEMM, with the correction an f32
+matmul in plain PyTorch as it is in XLA (``:1163-1166``, ``:535-539``).
 
 K11 :func:`ternary_matmul_tl_w2a8_normed` replaces
 ``ternary_matmul_stacked_tl_w2a8`` (``:960``): K1's preamble and int8 rows,
@@ -380,31 +382,75 @@ def _check_block_stack(packed, scales, l, k_dim):
     return L, R * 16, Np
 
 
+# The rows up to which K10 takes its decode form: the largest M of {1, 2, 4,
+# 8, 16} at which it was no slower than the GEMM over the generic path's
+# seven shapes on the H100 (PERF.md, Findings), and the most the kernel
+# takes.
+BLOCKSCALE_DECODE_MAX_M = 16
+
+
+def _blockscale_rows(x, scales_l, Kp):
+    """The GEMM's operands: x zero-padded to Kp and rounded to bf16, and the
+    correction ``2·(sum32 @ s)``, which sums the same bf16-rounded values in
+    f32 (``Precision.HIGHEST`` in XLA; the matmul is never TF32, PyTorch's
+    default)."""
+    M, k_dim = x.shape
+    xb = torch.nn.functional.pad(x.to(torch.bfloat16), (0, Kp - k_dim)).contiguous()
+    sum32 = xb.to(torch.float32).view(M, Kp // 32, 32).sum(dim=-1)
+    return xb, 2.0 * torch.matmul(sum32, scales_l)
+
+
 def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor,
                                    scales: torch.Tensor, k_dim: int, n_dim: int,
                                    lut_bias: bool) -> torch.Tensor:
     """K10: ``x @ W[l]`` for bitnet32 / TL weights, any M; x [M, K] (already
     normed / activated), zero-padded to Kp and rounded to bf16 (the JAX
     wrappers pad in f32, then round: the same values).  Returns [M, n_dim]
-    in x's dtype.  The correction ``2·(sum32 @ scales[l])`` sums the same
-    bf16-rounded values in f32 and is an f32 matmul here, as in XLA
-    (``Precision.HIGHEST``; the matmul is never TF32, PyTorch's default)."""
+    in x's dtype.  On the card, M ≤ ``BLOCKSCALE_DECODE_MAX_M`` rows take
+    the decode form (one launch, the correction inside), more rows the
+    GEMM with its correction outside."""
     L, Kp, Np = _check_block_stack(packed, scales, l, k_dim)
     if x.ndim != 2 or x.shape[1] != k_dim:
         raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
     if n_dim > Np:
         raise ValueError(f"n_dim {n_dim} > Np {Np}")
-    M = x.shape[0]
-    xb = torch.nn.functional.pad(x.to(torch.bfloat16), (0, Kp - k_dim)).contiguous()
-    sum32 = xb.to(torch.float32).view(M, Kp // 32, 32).sum(dim=-1)
-    corr = 2.0 * torch.matmul(sum32, scales[l])
     if x.device.type == "cpu":
+        xb, corr = _blockscale_rows(x, scales[l], Kp)
         return ternary_matmul_blockscale_bf16_plain(xb, corr, packed[l], scales[l],
                                                     n_dim, lut_bias, x.dtype)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K10 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
     if packed.get_device() != x.get_device() or scales.get_device() != x.get_device():
         raise ValueError("K10 operands must be on x's device")
+    if x.shape[0] <= BLOCKSCALE_DECODE_MAX_M:
+        out = _blockscale_decode_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias)
+    else:
+        out = _blockscale_gemm_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias)
+    ternary_matmul_blockscale_bf16.launches += 1
+    return out
+
+
+def _blockscale_decode_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias):
+    """K10's decode form on checked operands (1 ≤ M ≤ 16, x contiguous in
+    its own dtype): one launch, nothing else.  Counts no launch."""
+    if not x.is_contiguous():
+        raise ValueError("K10's decode form takes a contiguous x")
+    M, Kp, Np = x.shape[0], packed.shape[1] * 16, packed.shape[2]
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_blockscale_decode(
+        x.data_ptr(), M, k_dim, Kp, packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scales.data_ptr() + 4 * l * scales.stride(0), out.data_ptr(), n_dim,
+        int(lut_bias), _DTYPE_CODE[x.dtype], _cuda.stream_ptr(x.device))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_blockscale_bf16")
+    return out
+
+
+def _blockscale_gemm_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias):
+    """K10's GEMM on checked operands, any M ≥ 1: x padded and rounded,
+    the correction in plain PyTorch, one launch.  Counts no launch."""
+    M, Kp, Np = x.shape[0], packed.shape[1] * 16, packed.shape[2]
+    xb, corr = _blockscale_rows(x, scales[l], Kp)
     out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
     lib = _cuda.library("ternary_matmul_tl")
     rc = lib.bn_blockscale_bf16(
@@ -413,7 +459,6 @@ def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor
         out.data_ptr(), n_dim, int(lut_bias), _DTYPE_CODE[x.dtype],
         _cuda.stream_ptr(x.device))
     _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_blockscale_bf16")
-    ternary_matmul_blockscale_bf16.launches += 1
     return out
 
 

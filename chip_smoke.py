@@ -21,7 +21,8 @@ no result line):
            K11 at K = 14336), the stacked-cache and per-b kernels (K25-K27),
            the f32-cache instances (K2, K3, K5, K8) and the W2A8 probes and
            prototype (K28-K32): error, median ms (CUDA events), bound, plain
-           and library ms
+           and library ms; K10's decode form and GEMM side by side at
+           M <= 16 (kernels.k10_mb: the rows where the wrapper switches)
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
@@ -194,6 +195,11 @@ def phase_kernels(torch, dev):
     check_k8_k9(torch, dev, g, res)
     check_k3_quant(torch, dev, g, res)
     check_k10(torch, dev, g, res)
+    # the MB table: K10's two forms summed over the generic seven, per M
+    res["k10_mb"] = [
+        {"M": M, **{f: sum(r[f] for r in res["k10"] if r["path"] == "unfused"
+                           and r["M"] == M and f in r) for f in ("decode_ms", "gemm_ms")}}
+        for M in (1, 2, 4, 8, 16)]
     check_k11_k12(torch, dev, g, res)
     check_plan_kernels(torch, dev, g, res)
     # slice 6: the 8B down projection (K = 14336) on K1's and K11's two-kernel
@@ -736,52 +742,100 @@ def _block_bytes(M, K, N, x_bytes, out_bytes, extra=0):
     return K * N // 4 + K * N // 8 + M * K * x_bytes + M * N * out_bytes + extra
 
 
+# K10's extra shapes: the 8B down projection (K = 14336) and the tl phase's
+# (d) down projection, K = 6784 < Kp = 6912 (x rows past K read as 0)
+K10_WIDE = (("down_8b", 14336, 4096, "8b"), ("down_6784", 6784, 2560, "unaligned"))
+
+
 def check_k10(torch, dev, g, res):
-    """K10 (bf16 rows x the biased block-scaled weights, f32 sums, minus the
-    f32 correction) against its plain version: the generic path's seven
-    unfused shapes at M in {1, 2} (timed at M=1, the ``:1177`` site's
-    decode), the fused four at M in {1, 512} (M=1: the stacked ``:555``
-    site's decode; M=512: a prefill bucket), lut_bias both ways."""
+    """K10 against its plain version: the generic path's seven unfused
+    shapes at M in {1, 2, 4, 8, 16} (the ``:1177`` site's decode), the fused
+    four at M in {1, 512} (M=1: the stacked ``:555`` site's decode; M=512:
+    a prefill bucket), K = 14336 and K = 6784 (K < Kp) at M in {1, 2, MB};
+    lut_bias both ways, bf16 and f32 x.  At M <= 16 both forms (the decode
+    form and the GEMM) are held against the plain version and timed side by
+    side (the MB table), the wrapper's output equals the form it takes bit
+    for bit, and two decode-form calls give the same bits.  Wrapper times
+    (``ms``, plain and library) on TL weights and bf16 x at M=1 and 512."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
-    for path, shapes, Ms in (("unfused", UNFUSED_SHAPES, (1, 2)),
-                             ("fused", K1_SHAPES, (1, 512))):
-        for name, K, N, _g, _glu, _r in shapes:
-            words, s = _block_stack(torch, g, K, N, dev)
-            L = words.shape[0]
-            for M in Ms:
-                for lut_bias in (False, True):
-                    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    MB = tm.BLOCKSCALE_DECODE_MAX_M
+    cells = ([("unfused", n, K, N, (1, 2, 4, 8, 16)) for n, K, N, *_ in UNFUSED_SHAPES]
+             + [("fused", n, K, N, (1, 512)) for n, K, N, *_ in K1_SHAPES]
+             + [(path, n, K, N, (1, 2, MB)) for n, K, N, path in K10_WIDE])
+    for path, name, K, N, Ms in cells:
+        Kp = -(-K // 256) * 256
+        words, s = _block_stack(torch, g, Kp, N, dev)
+        s[:, K // 32:] = 0                    # as the loader pads them
+        L = words.shape[0]
+        for M in Ms:
+            for lut_bias in (False, True):
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
                     l = 1
                     out = tm.ternary_matmul_blockscale_bf16(l, x, words, s, K, N, lut_bias)
-                    corr = 2.0 * torch.matmul(x.float().view(M, K // 32, 32).sum(-1), s[l])
+                    xb, corr = tm._blockscale_rows(x, s[l], Kp)
                     plain = tm.ternary_matmul_blockscale_bf16_plain(
-                        x, corr, words[l], s[l], N, lut_bias, x.dtype)
-                    err = (out.float() - plain.float()).abs().max().item()
+                        xb, corr, words[l], s[l], N, lut_bias, dtype)
                     ref = plain.float().abs().max().item()
-                    # float tolerance: the f32 sums run in another order
-                    # (tensor-core tiles vs one matmul), which can move a
-                    # bf16 output by one ulp; two ulps of the largest output
-                    tol = 8e-3 * ref
+                    # float tolerance: the exact bf16 x bf16 products are
+                    # summed in f32 in another order (lanes and warps over
+                    # K, a cluster's partials; tensor-core tiles; one
+                    # matmul), so a bf16 output can move by one ulp: two
+                    # ulps of the largest output.  f32 outputs: the decode
+                    # form's IEEE f32 sums of K terms of random sign stay
+                    # within ~sqrt(K) * 2^-24 of their magnitudes, under
+                    # 1e-6 of the largest output here: 1e-5 of it; the
+                    # GEMM's mma.sync accumulates without IEEE rounding
+                    # (its addends are aligned and truncated): up to 2.3e-5
+                    # of the largest output seen on the H100, so 1e-4 of it
+                    if dtype == torch.bfloat16:
+                        tol = tol_gemm = 8e-3 * ref
+                    else:
+                        tol, tol_gemm = 1e-5 * ref, 1e-4 * ref
+                    form = "decode" if M <= MB else "gemm"
                     row = {"path": path, "shape": name, "M": M, "K": K, "N": N,
-                           "lut_bias": lut_bias, "max_abs_err": err, "ref_max": ref,
-                           "tol": tol, "ok": err <= tol}
-                    if not lut_bias:          # timed on TL weights
+                           "lut_bias": lut_bias, "x": str(dtype)[6:], "ref_max": ref,
+                           "tol": tol, "tol_gemm": tol_gemm, "form": form}
+                    errs = [(out.float() - plain.float()).abs().max().item()]
+                    ok = errs[0] <= (tol if form == "decode" else tol_gemm)
+                    if M <= 16:
+                        dec = tm._blockscale_decode_cuda(l, x, words, s, K, N, lut_bias)
+                        gem = tm._blockscale_gemm_cuda(l, x, words, s, K, N, lut_bias)
+                        dec2 = tm._blockscale_decode_cuda(l, x, words, s, K, N, lut_bias)
+                        row["decode_err"] = (dec.float() - plain.float()).abs().max().item()
+                        row["gemm_err"] = (gem.float() - plain.float()).abs().max().item()
+                        row["wrapper_is_form"] = bool(torch.equal(
+                            out, dec if form == "decode" else gem))
+                        row["decode_repeats"] = bool(torch.equal(dec, dec2))
+                        errs += [row["decode_err"], row["gemm_err"]]
+                        ok = (ok and row["decode_err"] <= tol
+                              and row["gemm_err"] <= tol_gemm
+                              and row["wrapper_is_form"] and row["decode_repeats"])
+                    row["max_abs_err"] = max(errs)
+                    row["ok"] = ok
+                    bf16_tl = not lut_bias and dtype == torch.bfloat16
+                    if bf16_tl and M <= 16 and path in ("unfused", "fused"):
+                        row["decode_ms"] = time_ms(torch, lambda i: tm._blockscale_decode_cuda(
+                            i % L, x, words, s, K, N, False), L)
+                        row["gemm_ms"] = time_ms(torch, lambda i: tm._blockscale_gemm_cuda(
+                            i % L, x, words, s, K, N, False), L)
+                    if bf16_tl and M in (1, 512) and path != "unaligned":
                         row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_blockscale_bf16(
                             i % L, x, words, s, K, N, False), L)
                         row["plain_ms"] = time_ms(torch, lambda i: (
                             tm.ternary_matmul_blockscale_bf16_plain(
-                                x, corr, words[i % L], s[i % L], N, False, x.dtype)), 4)
+                                xb, corr, words[i % L], s[i % L], N, False, x.dtype)), 4)
                         dense = _dense_block_stack(torch, words, s, False)
                         row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
                             x, dense[i % len(dense)]), 2 * len(dense))
                         del dense
                         row["bound_ms"], row["bound_by"] = bound(
-                            _block_bytes(M, K, N, 2, 2, M * N * 4), 2.0 * M * K * N, "bf16")
+                            _block_bytes(M, K, N, 2, 2), 2.0 * M * K * N, "bf16")
                     res["k10"].append(row)
-                    if not row["ok"]:
+                    if not ok:
                         raise AssertionError(f"K10 mismatch: {row}")
-            del words, s
+        del words, s
 
 
 def check_k11_k12(torch, dev, g, res, eps=1e-5):

@@ -335,13 +335,21 @@ def _block_words(g, L, K, N, dev, k_live=None):
     return w, s
 
 
+MB = tm.BLOCKSCALE_DECODE_MAX_M
+
+
 @pytest.mark.parametrize("M,k,lut_bias,dtype", [
     (1, 512, True, torch.bfloat16), (2, 512, False, torch.float32),
     (37, 512, True, torch.float32), (200, 768, False, torch.bfloat16),
-    (3, 224, True, torch.bfloat16)])
+    (3, 224, True, torch.bfloat16), (MB, 512, False, torch.bfloat16),
+    (MB + 1, 224, True, torch.float32), (MB, 224, False, torch.float32),
+    (2, 224, True, torch.bfloat16), (1, 14336, True, torch.float32),
+    (2, 14336, False, torch.bfloat16), (MB, 14336, True, torch.bfloat16),
+    (MB + 1, 14336, False, torch.float32)])
 def test_k10_matches_plain(dev, M, k, lut_bias, dtype):
     """bf16 rows × biased scaled weights, f32 sums (another order), minus
-    the same correction: two bf16 ulps of the largest output."""
+    the same correction: two bf16 ulps of the largest output.  M ≤ MB
+    takes the decode form (the correction inside), more rows the GEMM."""
     g = torch.Generator(device=dev).manual_seed(M + k)
     Kp, N = -(-k // 256) * 256, 384
     w, s = _block_words(g, 2, Kp, N, dev, k_live=k)
@@ -406,6 +414,44 @@ def test_k12_matches_plain(dev, M, glu, resid, lut_bias):
                                                    glu, r, N, lut_bias)
     ref = plain.float().abs().max()
     assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
+
+
+def test_k10_decode_form_runs_no_pytorch_op(dev):
+    """At M=1 the wrapper launches K10's decode form and nothing else: the
+    profiler sees one kernel, and no ATen op but the output's allocation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    K, N = 2560, 640
+    w, s = _block_words(g, 2, K, N, dev)
+    x = torch.randn((1, K), generator=g, device=dev).bfloat16()
+    tm.ternary_matmul_blockscale_bf16(1, x, w, s, K, N, True)     # build, warm up
+    torch.cuda.synchronize()
+    before = tm.ternary_matmul_blockscale_bf16.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tm.ternary_matmul_blockscale_bf16(1, x, w, s, K, N, True)
+        torch.cuda.synchronize()
+    assert tm.ternary_matmul_blockscale_bf16.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+    assert len(kernels) == 1 and "blockscale_decode" in kernels[0], kernels
+    assert ops <= {"aten::empty"}, ops
+
+
+@pytest.mark.parametrize("M,k,dtype", [(1, 2560, torch.bfloat16),
+                                       (MB, 6784, torch.float32)])
+def test_k10_decode_form_repeats_bit_for_bit(dev, M, k, dtype):
+    """Two identical calls give the same bits: the split-K partials are
+    added in a fixed order (N = 640 splits K over a cluster of 8)."""
+    g = torch.Generator(device=dev).manual_seed(M + k)
+    Kp, N = -(-k // 256) * 256, 640
+    w, s = _block_words(g, 2, Kp, N, dev, k_live=k)
+    x = torch.randn((M, k), generator=g, device=dev).to(dtype)
+    a = tm.ternary_matmul_blockscale_bf16(1, x, w, s, k, N, False)
+    b = tm.ternary_matmul_blockscale_bf16(1, x, w, s, k, N, False)
+    assert torch.equal(a, b)
+    assert torch.equal(a, tm._blockscale_decode_cuda(1, x, w, s, k, N, False))
 
 
 def test_block_wrappers_never_fall_back(dev, monkeypatch):

@@ -77,6 +77,23 @@ def test_load_model_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     assert params.blocks.wq.packed.device.type == "cpu"
 
 
+def test_allocate_cache_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``allocate_cache`` defaults to the card, as the JAX engine's places
+    its cache on the accelerator; without CUDA it raises unless the caller
+    asks for the CPU (it used to default to the CPU)."""
+    from bitnet_tpu_torch.config import ModelConfig
+    from bitnet_tpu_torch.engine.cache import allocate_cache
+    from bitnet_tpu_torch.errors import ConfigError
+
+    cfg = ModelConfig(num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      hidden_size=256)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        allocate_cache(cfg, 1, 16)
+    c = allocate_cache(cfg, 1, 16, device="cpu")
+    assert c.k.device.type == "cpu" and c.lengths.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"decode_steps_per_dispatch": 8}, "#5"),
     ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),

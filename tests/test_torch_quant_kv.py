@@ -140,17 +140,17 @@ def test_cache_allocates_codes_and_unit_scales():
     cfg = ModelConfig(num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
                       hidden_size=256)
     for kv, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
-        c = allocate_cache(cfg, 3, 16, kv)
+        c = allocate_cache(cfg, 3, 16, kv, device="cpu")
         assert c.k.dtype == dt and tuple(c.k.shape) == (2, 3, 16, 128)
         assert tuple(c.k_scale.shape) == (2, 3, 16, 2)
         assert bool((c.v_scale == 1).all()) and c.v_scale.dtype == torch.float32
-    assert allocate_cache(cfg, 1, 16, "bf16").k_scale is None
+    assert allocate_cache(cfg, 1, 16, "bf16", device="cpu").k_scale is None
     # an f32 cache (it raised naming #18 until slice 7): f32 rows, no scales
-    c = allocate_cache(cfg, 2, 16, "f32")
+    c = allocate_cache(cfg, 2, 16, "f32", device="cpu")
     assert c.k.dtype == torch.float32 and c.k_scale is None
     assert tuple(c.v.shape) == (2, 2, 16, 128)
     with pytest.raises(ValueError, match="bad KV cache dtype"):
-        allocate_cache(cfg, 1, 16, "f16")
+        allocate_cache(cfg, 1, 16, "f16", device="cpu")
 
 
 def _engines(mini, B, kv, fuse, kp="w2a8"):

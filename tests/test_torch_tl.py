@@ -221,9 +221,19 @@ def test_repack_codes_torch_matches_numpy():
 # --------------------------------------------------------------------------
 # K10: the block-scale bf16 body (:1177) and its stacked twin (:555)
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("lut_bias,M,k,dtype", [
-    (True, 1, K, "f32"), (False, 1, K, "f32"), (True, 40, K, "bf16"),
-    (False, 130, K, "f32"), (True, 3, 224, "f32"), (False, 2, K, "bf16")])
+# the card's decode form takes M <= MB rows, its GEMM more: on the CPU both
+# are the plain version, held to the Pallas sites on each side of MB, for
+# bitnet32 and TL, f32 and bf16 x, K == Kp and K < Kp
+MB = tm.BLOCKSCALE_DECODE_MAX_M
+K10_DECODE_ROWS = [(lut_bias, M, k, dtype) for M in (1, 2, MB, MB + 1)
+                   for lut_bias in (True, False) for k in (K, 224)
+                   for dtype in ("f32", "bf16")]
+K10_2D = [(True, 1, K, "f32"), (False, 1, K, "f32"), (True, 40, K, "bf16"),
+          (False, 130, K, "f32"), (True, 3, 224, "f32"), (False, 2, K, "bf16")]
+
+
+@pytest.mark.parametrize("lut_bias,M,k,dtype", K10_2D + [
+    c for c in K10_DECODE_ROWS if c not in K10_2D])
 def test_k10_plain_matches_pallas_2d(lut_bias, M, k, dtype):
     rng, words, s, _g = _stack(10 + M + k + lut_bias, k=k)
     kp = words.shape[1] * 16
@@ -241,19 +251,24 @@ def test_k10_plain_matches_pallas_2d(lut_bias, M, k, dtype):
     _close(got, want, 1e-5 if dtype == "f32" else 8e-3)
 
 
-@pytest.mark.parametrize("lut_bias,M,dtype", [(True, 1, "f32"), (False, 2, "f32"),
-                                              (True, 5, "bf16")])
-def test_k10_plain_matches_pallas_stacked(lut_bias, M, dtype):
-    rng, words, s, _g = _stack(20 + M + lut_bias, k=384)
+K10_STACKED = [(True, 1, 384, "f32"), (False, 2, 384, "f32"), (True, 5, 384, "bf16")]
+
+
+@pytest.mark.parametrize("lut_bias,M,k,dtype", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}-{c[3]}") for c in K10_STACKED] + [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}-{c[2]}-{c[3]}") for c in K10_DECODE_ROWS])
+def test_k10_plain_matches_pallas_stacked(lut_bias, M, k, dtype):
+    rng, words, s, _g = _stack(20 + M + lut_bias + k, k=k)
     kp = words.shape[1] * 16
-    x = rng.standard_normal((M, 384)).astype(np.float32)
+    x = rng.standard_normal((M, k)).astype(np.float32)
     jdt, tdt = _dt(dtype)
     want = ternary_matmul_stacked_tl(
         jnp.int32(1), jnp.asarray(x, jdt), jnp.asarray(words), jnp.asarray(s),
-        k_dim=384, n_dim=N, lut_bias=lut_bias, interpret=True)
+        k_dim=k, n_dim=N, lut_bias=lut_bias, interpret=True)
     got = tm.ternary_matmul_blockscale_bf16(
         1, torch.from_numpy(x).to(tdt), torch.from_numpy(words),
-        torch.from_numpy(_pad_scales(s, kp)), k_dim=384, n_dim=N, lut_bias=lut_bias)
+        torch.from_numpy(_pad_scales(s, kp)), k_dim=k, n_dim=N, lut_bias=lut_bias)
+    assert got.dtype == tdt and got.shape == (M, N)
     _close(got, want, 1e-5 if dtype == "f32" else 8e-3)
 
 
