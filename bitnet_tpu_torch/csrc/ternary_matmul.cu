@@ -34,14 +34,29 @@
 //    kernel first and the GEMV reads its int8 rows (M*Kp bytes) from L2;
 //    nothing in the engine sends M > 2 until decode pools of B > 2 are
 //    ported (ROADMAP queue 1 #9), which will choose between the two designs.
-//  - K4 (M = B*T >= 128) is bound by int8 operations: a 64x64 block tile of
-//    mma.sync.m16n8k32 s8*s8->s32 (tensor cores), the 2-bit planes expanded
-//    to B fragments in registers straight from shared-memory words, the
-//    next K tile streaming in by cp.async while this one computes (two
-//    stages).  No TMA, no wgmma yet: that is later work.
+//  - K4 (prefill, M = B*T rows, 8 to 16384 and more) is bound by int8
+//    operations at M >= 128 and by the weight bytes below.  The product runs
+//    on wgmma (the only way to the card's int8 rate), transposed so that the
+//    ternary weights are its register-fed A operand: a thread reads each of
+//    its words once a K tile and decodes all four planes from it (a few
+//    integer ops a register, next to the asynchronous wgmma), and the tokens
+//    are wgmma's N, so a prefill of 8 rows fills an 8-wide tile rather than
+//    a 64-row one.  The int8 rows and the words arrive by TMA (128-byte
+//    swizzle for the rows, rows past M zero-filled), in a ring of stages
+//    under mbarriers fed by a producer warpgroup.  Where the column blocks
+//    leave SMs idle, K is split over a thread block cluster and the int32
+//    partials are added through distributed shared memory.  The row
+//    quantization (the K1 preamble's kernel, without norm or SwiGLU) is the
+//    first of the call's two launches; the GEMM is its programmatic
+//    dependent.  On the H100 the GEMM runs at 25-46 % of the int8 peak
+//    and the quantization adds 11-59 % to its time (PERF.md,
+//    PR 10): at M = 512 each block has one tile of output, so the first
+//    tile's latency and the epilogue are not hidden, and in the main loop
+//    shared memory carries the int8 rows twice a tile (the TMA writes, then
+//    each column half's wgmmas read them) beside the words.
 //  - K6 (any M; the --kernel-path pallas route) is bound by the weight bytes
 //    at decode (M <= 2: Kp*Np/4 bytes a call) and by bf16 operations at
-//    prefill (M = 512).  One design for both: K4's 64x64 block tile and
+//    prefill (M = 512).  One design for both: a 64x64 block tile and a
 //    two-stage cp.async pipeline with mma.sync.m16n8k16 bf16*bf16->f32, the
 //    B fragments expanded from the 2-bit planes to the biased values
 //    {0,1,3,4} (exact in bf16) in registers.  At M <= 2 most of the 64-row
@@ -53,10 +68,14 @@
 // intrinsics so it is never contracted into an FMA and rounds exactly as
 // the plain PyTorch version does.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+
 #include "ternary_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace bn;
 
 // ---------------------------------------------------------------------------
@@ -258,109 +277,404 @@ w2a8_gemv_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
 }
 
 // ---------------------------------------------------------------------------
-// K4 GEMM: 128 threads = 4 warps (2x2), block tile 64x64, warp tile 32x32
-// (2 m16 x 4 n8 mma tiles), one 256-row K tile per stage.
+// K4 GEMM on wgmma.  The product is taken transposed, out^T[n, m] =
+// W^T[n, k] . xq^T[k, m]: output columns are wgmma's 64-row M, whose A
+// fragment comes from registers, and tokens are its N (BT = 8..128), whose
+// B tile (the int8 rows, K-major) comes from shared memory.  Thread (g, t)
+// of warp w holds A rows 16w+g and 16w+g+8 at K offsets 4t..4t+3 and
+// 16+4t..16+4t+3 of each 32-K step, and word s, plane p of a column holds
+// exactly such 4 K values (K rows p*64 + 4s + j): a thread reads its 8
+// words of a 256-row K tile once and decodes all four planes from them.
+//
+// 384 threads: warpgroup 0 is the producer (one thread issues the copies),
+// warpgroups 1 and 2 each own 64 of the block's 128 output columns.  A ring
+// of stages, each one K tile: the BT int8 rows as two TMA boxes of 128
+// bytes a row with the 128-byte swizzle wgmma's B descriptor reads (rows
+// past M are zero-filled by the TMA unit), and the 16 word rows of the 128
+// columns as one TMA box G4_WLD ints wide: its 8 extra columns pad each
+// row, so the consumers' word reads are free of bank conflicts.  Three
+// copies a stage: one thread issues them.  Full barriers count the bytes,
+// empty barriers the 8 consumer warps.  A consumer decodes the next tile's
+// A fragments while this tile's wgmmas run, into a second register set
+// kept apart from the first until the wait (fence_operand).
+//
+// K may be split over the z blocks of a thread block cluster (up to 8):
+// each block leaves its int32 partial tile in its shared memory, and after
+// the cluster barrier block r adds the partials of its share of the rows
+// from every rank and applies the epilogue.  Integer sums are exact in any
+// order, so the split never changes a bit.
 // ---------------------------------------------------------------------------
-constexpr int GB_M = 64, GB_N = 64;
-constexpr int XS_LD = KT + 16;        // bytes; conflict-free A fragment reads
-constexpr int WS_LD = GB_N + 8;       // ints;  conflict-free B fragment reads
+constexpr int G4_COLS = 128;                  // output columns a block
+constexpr int G4_WLD = G4_COLS + 8;           // ints a word row in shared memory
+constexpr int G4_WTILE = (KT / 16) * G4_WLD * 4;   // bytes of a stage's words
+constexpr int G4_PLD = G4_COLS + 4;           // ints a row of the partial tile
+constexpr int G4_THREADS = 384;
+constexpr int G4_MAX_SPLIT = 8;               // the portable cluster size
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int BT>
+struct G4Tile {
+  static constexpr int STAGES = BT >= 64 ? 4 : 8;
+  static constexpr int XBOX = BT * 128;       // bytes of one TMA box
+  static constexpr int XTILE = 2 * XBOX;      // a K tile of BT int8 rows
+  static constexpr int RING = STAGES * (XTILE + G4_WTILE);
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 8 * BT + 1024;   // + alignment
+  static_assert(BT * G4_PLD * 4 <= STAGES * XTILE, "partial tile fits the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-w2a8_gemm(const int8_t* __restrict__ xq, int M, int Kp,
-          const int* __restrict__ words, int Np,
-          const int* __restrict__ sumq, const float* __restrict__ sx,
-          const float* __restrict__ scale, T* __restrict__ out, int N) {
-  // two stages: the next K tile streams in (cp.async) while this one computes
-  __shared__ __align__(16) int8_t xs[2][GB_M][XS_LD];
-  __shared__ __align__(16) int ws[2][KT / 16][WS_LD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// a wait that never completes (a fault in the pipeline) fails the launch
+// after some 10^7 polls, a fraction of a second, instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int i = 0; !mbar_try_wait(bar, parity); ++i)
+    if (i == (1 << 24)) __trap();
+}
+
+// one 2-D TMA box (c0 the inner coordinate) into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// The GEMM is launched as a programmatic dependent of the row quantization
+// (it may start before that kernel's memory is flushed): what a thread does
+// before this wait (barrier set-up, the first tile's words) overlaps it,
+// and nothing the quantization writes is read before it.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (the group's base 1024-aligned;
+// a start address inside the row picks the K offset)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+       | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// an empty asm that reads and writes r: keeps the registers a wgmma reads
+// asynchronously live, and unshared, until after the wait that ends it
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+// wgmma.mma_async m64nBTk32 s32 += s8 (A, registers) x s8 (B, shared
+// memory); d holds BT/2 accumulators a thread
+__device__ __forceinline__ void wgmma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+
+template <int BT>
+__global__ void __launch_bounds__(G4_THREADS, 1)
+w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
+          const __grid_constant__ CUtensorMap wmap, int M, int Kp, int Np,
+          const int* __restrict__ sumq,
+          const float* __restrict__ sx, const float* __restrict__ scale,
+          void* __restrict__ out, int N, int bf16_out) {
+  using Tile = G4Tile<BT>;
+  constexpr int STAGES = Tile::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* xs = smem;                                     // STAGES x XTILE
+  int* ws = reinterpret_cast<int*>(smem + STAGES * Tile::XTILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile::RING);
+  uint64_t* empty = full + STAGES;
+  int* sumq_s = reinterpret_cast<int*>(empty + STAGES);   // the rows' sums and scales
+  float* sx_s = reinterpret_cast<float*>(sumq_s + BT);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = gridDim.z, rank = blockIdx.z;             // cluster (1, 1, S)
   const int nk = Kp / KT;
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  const int kt0 = rank * nk / S, kt1 = (rank + 1) * nk / S;
+  const int n0 = blockIdx.x * G4_COLS, m0 = blockIdx.y * BT;
+  const int ncols = min(G4_COLS, Np - n0);                // 64 or 128
+  const int wg = threadIdx.x >> 7;
 
-  auto load_tile = [&](int st, int k0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {             // 64 rows x 256 B of activations
-      const int idx = tid + 128 * i, r = idx >> 4, c16 = idx & 15;
-      const bool ok = m0 + r < M;             // rows past M are zero-filled
-      cp_async16(&xs[st][r][c16 * 16],
-                 xq + (size_t)(ok ? m0 + r : 0) * Kp + k0 + c16 * 16, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                            // the consumer warps
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {             // 16 word rows x 64 columns
-      const int idx = tid + 128 * i, r = idx >> 4, c4 = (idx & 15) * 4;
-      cp_async16(&ws[st][r][c4], words + (size_t)(k0 / 16 + r) * Np + n0 + c4, true);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int nl = 2 * (threadIdx.x % (G4_COLS / 2));       // the epilogue's columns
+  const int n = n0 + nl;
+  const float sc0 = n < N ? scale[n] : 0.f, sc1 = n + 1 < N ? scale[n + 1] : 0.f;
+  __syncthreads();
 
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(st ^ 1, (kt + 1) * KT);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
+  int acc[BT / 2];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {            // 32 K = words 8h..8h+7 of plane p
-        const int kb = p * 64 + 32 * h;
-        int a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + g;
-          a[mi][0] = *reinterpret_cast<const int*>(&xs[st][r][kb + t4 * 4]);
-          a[mi][1] = *reinterpret_cast<const int*>(&xs[st][r + 8][kb + t4 * 4]);
-          a[mi][2] = *reinterpret_cast<const int*>(&xs[st][r][kb + 16 + t4 * 4]);
-          a[mi][3] = *reinterpret_cast<const int*>(&xs[st][r + 8][kb + 16 + t4 * 4]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = wn * 32 + ni * 8 + g;
-          const int b0 = biased_plane(ws[st][8 * h + t4][col], p);
-          const int b1 = biased_plane(ws[st][8 * h + 4 + t4][col], p);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-        }
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0;
+  const int ct = threadIdx.x & 127, w = ct >> 5, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c = wg - 1;                                   // consumer's column half
+  const bool active = wg > 0 && 64 * c < ncols;
+
+  if (wg == 0) {                                          // producer
+    if (threadIdx.x == 0) {
+      int st = 0, ph = 0;
+      for (int kt = kt0; kt < kt1; ++kt) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], Tile::XTILE + G4_WTILE);
+        uint8_t* xdst = xs + st * Tile::XTILE;
+        tma_load_2d(ws + st * (G4_WTILE / 4), &wmap, &full[st], n0, kt * (KT / 16));
+        if (kt == kt0) grid_dependency_wait();
+        tma_load_2d(xdst, &xmap, &full[st], kt * KT, m0);
+        tma_load_2d(xdst + Tile::XBOX, &xmap, &full[st], kt * KT + 128, m0);
+        if (++st == STAGES) { st = 0; ph ^= 1; }
       }
     }
-    __syncthreads();                           // stage st is refilled next
+    __syncwarp();                        // warp 0 meets the block barriers whole
+  } else if (!active) {                // a column half past Np: keep the ring turning
+    int st = 0, ph = 0;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      mbar_wait(&full[st], ph);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == STAGES) { st = 0; ph ^= 1; }
+    }
+  } else {                                                // consumers
+    // the epilogue's operands, read now so that their latency hides behind
+    // the main loop
+    grid_dependency_wait();
+    for (int i = ct + 128 * c; i < BT && m0 + i < M; i += 256) {
+      sumq_s[i] = sumq[m0 + i];
+      sx_s[i] = sx[m0 + i];
+    }
+    const int col = 64 * c + 16 * w + g;                  // A row g's column
+    // the A fragments of the tile in stage st: word rows t4 + 4i of
+    // columns col and col + 8.  32-K step (p, h) covers K rows p*64 + 32h
+    // ..: words 8h + t4 (K offsets 4t4..) and 8h + 4 + t4 (16 + 4t4..)
+    auto decode = [&](int st, uint32_t (&a)[8][4]) {
+      const int* wt = ws + st * (G4_WTILE / 4);
+      int wv[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[i][0] = wt[(t4 + 4 * i) * G4_WLD + col];
+        wv[i][1] = wt[(t4 + 4 * i) * G4_WLD + col + 8];
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[2 * p + h][0] = biased_plane(wv[2 * h][0], p);
+          a[2 * p + h][1] = biased_plane(wv[2 * h][1], p);
+          a[2 * p + h][2] = biased_plane(wv[2 * h + 1][0], p);
+          a[2 * p + h][3] = biased_plane(wv[2 * h + 1][1], p);
+        }
+    };
+    // the next tile's words are decoded while this tile's wgmmas run
+    uint32_t a[8][4];
+    int st = 0, ph = 0;
+    if (kt0 < kt1) {
+      mbar_wait(&full[0], 0);
+      decode(0, a);
+    }
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const uint32_t xb = smem_u32(xs + st * Tile::XTILE);
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) fence_operand(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)                       // box p/2, bytes (p%2)*64 + 32h
+          wgmma_s8(acc, a[2 * p + h],
+                   sw128_desc(xb + (p >> 1) * Tile::XBOX + (p & 1) * 64 + 32 * h));
+      wgmma_commit();
+      const int nst = st + 1 == STAGES ? 0 : st + 1, nph = nst == 0 ? ph ^ 1 : ph;
+      uint32_t next[8][4];
+      if (kt + 1 < kt1) {
+        mbar_wait(&full[nst], nph);
+        decode(nst, next);
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) fence_operand(acc[i]);
+      if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(a[i][e]);          // the wgmmas above read a until the wait
+          a[i][e] = next[i][e];
+        }
+      st = nst;
+      ph = nph;
+    }
   }
+  __syncthreads();                       // every wgmma has read its stage
+
+  // the int32 partial tile [BT tokens][128 columns], over the ring
+  int* part = reinterpret_cast<int*>(smem);
+  if (active) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + ni * 8 + t4 * 2 + (e & 1);
-        if (m < M && n < N) {
-          float y = (float)(acc[mi][ni][e] - 2 * sumq[m]);
-          y = __fmul_rn(__fmul_rn(y, sx[m]), scale[n]);
-          store_f32(out, (size_t)m * N + n, y);
-        }
+        const int r = 64 * c + 16 * w + g + (e & 2 ? 8 : 0);
+        const int m = 8 * j + 2 * t4 + (e & 1);
+        part[m * G4_PLD + r] = acc[4 * j + e];
       }
+  }
+  // block r of a split adds the partials of rows [r0, r1) over the ranks
+  const int r0 = rank * BT / S, r1 = (rank + 1) * BT / S;
+  if (S > 1) cluster.sync();             // every block's partial is in place
+  else __syncthreads();
+  // a thread stores two adjacent columns of every sixth row
+  const bool pair = N % 2 == 0 && n + 1 < N;
+  const int rend = min(r1, M - m0);
+#pragma unroll 4
+  for (int ml = r0 + threadIdx.x / (G4_COLS / 2); ml < rend;
+       ml += G4_THREADS / (G4_COLS / 2)) {
+    const int* at = part + ml * G4_PLD + nl;
+    int2 v = *reinterpret_cast<const int2*>(at);
+    for (int q = 1; q < S; ++q) {
+      const int2 t = *reinterpret_cast<const int2*>(
+          cluster.map_shared_rank(at, (rank + q) % S));
+      v.x += t.x;
+      v.y += t.y;
+    }
+    const float y0 = __fmul_rn(__fmul_rn((float)(v.x - 2 * sumq_s[ml]), sx_s[ml]), sc0);
+    const float y1 = __fmul_rn(__fmul_rn((float)(v.y - 2 * sumq_s[ml]), sx_s[ml]), sc1);
+    const size_t o = (size_t)(m0 + ml) * N + n;
+    if (pair) {
+      if (bf16_out)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+            __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
+    } else {
+      for (int e = 0; e < 2 && n + e < N; ++e) {
+        if (bf16_out) store_f32(static_cast<__nv_bfloat16*>(out), o + e, e ? y1 : y0);
+        else store_f32(static_cast<float*>(out), o + e, e ? y1 : y0);
+      }
+    }
+  }
+  if (S > 1) cluster.sync();             // no block leaves while it is read
 }
 
 // ---------------------------------------------------------------------------
@@ -368,6 +682,8 @@ w2a8_gemm(const int8_t* __restrict__ xq, int M, int Kp,
 // 64x64, warp tile 32x32 (2 m16 x 4 n8 mma tiles), one 256-row K tile per
 // stage, two stages in dynamic shared memory.
 // ---------------------------------------------------------------------------
+constexpr int GB_M = 64, GB_N = 64;
+constexpr int WS_LD = GB_N + 8;       // ints;  conflict-free B fragment reads
 constexpr int XB_LD = KT + 8;         // bf16; conflict-free A fragment reads
 constexpr size_t BF16_SMEM =
     2 * (GB_M * XB_LD * sizeof(__nv_bfloat16) + (KT / 16) * WS_LD * sizeof(int));
@@ -496,6 +812,93 @@ cudaError_t launch_bf16(const __nv_bfloat16* x, int M, int Kp, const int* words,
 }
 
 template <typename T>
+cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
+                            const float* gamma, float eps, int8_t* xq, float* sx,
+                            int* sumq, cudaStream_t stream) {
+  const size_t smem = (size_t)K * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        w2a8_quantize_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  w2a8_quantize_rows<T><<<M, 512, smem, stream>>>(x, x_stride, K, glu, gamma, eps,
+                                                  xq, sx, sumq);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (the
+// library does not link libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a 2-D TMA map: inner x outer elements, rows stride_bytes apart, boxes of
+// box_inner x box_outer; what lies past the tensor reads as zeros
+cudaError_t tma_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                       uint64_t inner, uint64_t outer, uint64_t stride_bytes,
+                       uint32_t box_inner, uint32_t box_outer,
+                       CUtensorMapSwizzle swizzle) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                                     12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BT>
+cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
+                        int Kp, int Np, const int* sumq, const float* sx,
+                        const float* scale, void* out, int N, int bf16_out,
+                        int split, cudaStream_t stream) {
+  auto kern = w2a8_gemm<BT>;
+  static bool smem_set = false;           // once, before any graph capture
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         G4Tile<BT>::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Np + G4_COLS - 1) / G4_COLS, (M + BT - 1) / BT, split);
+  cfg.blockDim = dim3(G4_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = G4Tile<BT>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, M, Kp, Np, sumq, sx,
+                                     scale, out, N, bf16_out);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_normed(const void* x, int x_stride, int M, int K, int glu,
                           const float* gamma, float eps, const int* words,
                           int Np, const float* scale, const void* resid,
@@ -514,15 +917,8 @@ cudaError_t launch_normed(const void* x, int x_stride, int M, int K, int glu,
 #undef BN_FUSED
     return cudaGetLastError();
   }
-  const size_t smem = (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        w2a8_quantize_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  w2a8_quantize_rows<T><<<M, 512, smem, stream>>>(
-      static_cast<const T*>(x), x_stride, K, glu, gamma, eps, xq, sx, sumq);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_quantize(static_cast<const T*>(x), x_stride, M, K, glu,
+                                  gamma, eps, xq, sx, sumq, stream);
   if (e != cudaSuccess) return e;
   w2a8_gemv<8, T><<<dim3(Np / 32, (M + 7) / 8), 256, 0, stream>>>(
       xq, M, K, words, Np, sumq, sx, scale, r, o, N);
@@ -549,18 +945,45 @@ int bn_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
                                    stream);
 }
 
-int bn_w2a8_gemm(const int8_t* xq, int M, int Kp, const int* words, int Np,
-                 const int* sumq, const float* sx, const float* scale,
-                 void* out, int N, int dtype, cudaStream_t stream) {
-  dim3 grid(Np / GB_N, (M + GB_M - 1) / GB_M);
-  if (dtype == 1)
-    w2a8_gemm<__nv_bfloat16><<<grid, 128, 0, stream>>>(
-        xq, M, Kp, words, Np, sumq, sx, scale,
-        static_cast<__nv_bfloat16*>(out), N);
-  else
-    w2a8_gemm<float><<<grid, 128, 0, stream>>>(
-        xq, M, Kp, words, Np, sumq, sx, scale, static_cast<float*>(out), N);
-  return (int)cudaGetLastError();
+// K4: the rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride)
+// quantized into xq [M, Kp] / sx [M] / sumq [M], then the GEMM with bt rows
+// a block (8, 16, 32, 64 or 128) and K split over split blocks of a cluster
+// (1, 2, 4 or 8, at most Kp / 256); out [M, N] in x's dtype.  Two launches.
+int bn_w2a8_gemm(const void* x, int x_stride, int M, int Kp, const int* words,
+                 int Np, const float* scale, void* out, int N, int8_t* xq,
+                 float* sx, int* sumq, int dtype, int bt, int split,
+                 cudaStream_t stream) {
+  if (M < 1 || Kp % KT || Np % 64 || N > Np || split < 1 || split > G4_MAX_SPLIT
+      || (split & (split - 1)) || split > Kp / KT)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = dtype == 1
+      ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, 0,
+                        nullptr, 0.f, xq, sx, sumq, stream)
+      : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, 0, nullptr,
+                        0.f, xq, sx, sumq, stream);
+  if (e != cudaSuccess) return (int)e;
+  // the int8 rows: boxes of 128 bytes x bt rows, 128-byte swizzle (rows past
+  // M read as zeros); the words: 16 rows of G4_WLD columns, the 8 past the
+  // block's 128 padding each row in shared memory (zeros past Np)
+  CUtensorMap xmap, wmap;
+  e = tma_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, Kp, M, Kp, 128, bt,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, words, Np, Kp / 16,
+                   (uint64_t)Np * 4, G4_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return (int)e;
+#define BN_GEMM(BTV)                                                          \
+  launch_gemm<BTV>(xmap, wmap, M, Kp, Np, sumq, sx, scale, out, N, dtype == 1, \
+                   split, stream)
+  switch (bt) {
+    case 8: return (int)BN_GEMM(8);
+    case 16: return (int)BN_GEMM(16);
+    case 32: return (int)BN_GEMM(32);
+    case 64: return (int)BN_GEMM(64);
+    case 128: return (int)BN_GEMM(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BN_GEMM
 }
 
 // x: bf16 [M, Kp] (the activations rounded to bf16); sumx: f32 [M], the

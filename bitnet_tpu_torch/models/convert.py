@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device_probe import resolve_device
 from ..engine.cache import KVCache
 from ..ops.linear import BLOCK_KINDS, TernaryLinear
 from .bitnet import BitNetParams, BlockParams
@@ -49,7 +50,11 @@ def _linear(d, device) -> TernaryLinear | None:
                          packed=packed, scales=scales)
 
 
-def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:
+def params_from_arrays(tree: dict, device="cuda") -> BitNetParams:
+    """A JAX ``BitNetParams`` tree (as numpy) → the port's params, on the
+    card unless the caller passes ``device="cpu"`` (without CUDA it
+    raises)."""
+    device = resolve_device(device)
     b = tree["blocks"]
     lin_names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                  "wqkv", "w_gateup")
@@ -68,11 +73,13 @@ def params_from_arrays(tree: dict, device="cpu") -> BitNetParams:
 
 
 def cache_from_arrays(k, v, lengths, k_scale=None, v_scale=None,
-                      device="cpu") -> KVCache:
+                      device="cuda") -> KVCache:
     """A JAX ``KVCache``'s arrays (as numpy) → the port's flat cache: k / v
     [L, B, S, KV, D] or flat [L, B, S, KV*D] (bf16, int8 or fp8), lengths
     [B], and for a quantized cache the f32 scales [L, B, S, KV], which the
-    port keeps in the same layout."""
+    port keeps in the same layout.  On the card unless the caller passes
+    ``device="cpu"``, as ``allocate_cache``."""
+    device = resolve_device(device)
     def flat(a):
         a = np.asarray(a)
         return a.reshape(*a.shape[:3], -1)

@@ -192,7 +192,7 @@ def load_model(path: str, max_seq_len: int | None = None,
         if fn_name is None:
             raise ModelError("no output_norm tensor found")
         sin, cos = build_rope_tables(D, max_seq_len or cfg.max_seq_len,
-                                     cfg.rope_base)
+                                     cfg.rope_base, device="cpu")   # moved below
         lm_head = None
         if not cfg.tie_word_embeddings:       # untied output.weight [V, H]
             lm_head = _load_linear(r, find_global(names, "output"),

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..config import EngineConfig, ModelConfig
+from ..device_probe import resolve_device
 from ..errors import ModelError
 
 _KV_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "fp8": 1}
@@ -87,12 +88,15 @@ def device_memory_bytes(device) -> int | None:
 
 def validate_memory(cfg: ModelConfig, engine_cfg: EngineConfig | None = None,
                     hbm_bytes: int | None = None, strict: bool = False,
-                    device="cpu") -> MemoryEstimate:
-    """Gate a load against the memory of ``device`` (or ``hbm_bytes``, when
-    given).  strict=False warns, strict=True raises."""
+                    device="cuda") -> MemoryEstimate:
+    """Gate a load against the memory of ``device`` (the card by default,
+    as the JAX package checks against the accelerator), or against
+    ``hbm_bytes`` when given, which needs no device.  Without CUDA it
+    raises unless the caller passes ``device="cpu"`` (no limit, no check).
+    strict=False warns, strict=True raises."""
     est = estimate_memory(cfg, engine_cfg)
     if hbm_bytes is None:
-        hbm_bytes = device_memory_bytes(device)
+        hbm_bytes = device_memory_bytes(resolve_device(device))
     if hbm_bytes is None:
         return est
     if est.total_bytes > hbm_bytes:

@@ -37,7 +37,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
         "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, P),
-        "bn_w2a8_gemm": (P, I, I, P, I, P, P, P, P, I, I, P),
+        "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, I, I, I, P),
         "bn_bf16_gemm": (P, I, I, P, I, P, P, P, I, I, P),
     },
     "ternary_matmul_tl": {

@@ -11,10 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device_probe import resolve_device
+
 
 def build_rope_tables(head_dim: int, max_seq_len: int, base: float = 10000.0,
-                      device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """(sin, cos) f32 tables of shape [max_seq_len, head_dim // 2]."""
+                      device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) f32 tables of shape [max_seq_len, head_dim // 2], on the
+    card unless the caller passes ``device="cpu"`` (without CUDA it
+    raises)."""
+    device = resolve_device(device)
     if head_dim % 2 != 0:
         raise ValueError(f"head_dim must be even for RoPE, got {head_dim}")
     half = head_dim // 2

@@ -7,9 +7,9 @@ the optional SwiGLU / RMSNorm / int8-quantize preamble and residual
 epilogue fused around the integer dot.
 
 K4 :func:`ternary_matmul_w2a8` replaces ``ternary_matmul_stacked_prefill``
-(``:417``): the M-blocked prefill GEMM; activations are quantized outside
-the kernel in plain PyTorch with the same math, as the JAX package does
-in XLA (``:441-445``).
+(``:417``): the prefill GEMM on Hopper's wgmma, after a kernel that
+quantizes the rows with the arithmetic the JAX package runs in XLA
+(``:441-445``); its plain version quantizes in plain PyTorch.
 
 K6 :func:`ternary_matmul_bf16` replaces the ``_qk256_kernel`` body of
 ``_ternary_matmul_2d`` (``:112-135``, launched at ``:1177``): bf16
@@ -54,6 +54,8 @@ wrappers read the ``[L, Np]`` column scales that
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -162,7 +164,7 @@ def _check_stack(packed, scale_vec, l, k_dim):
         raise ValueError(f"scale_vec must be f32 [{L}, {Np}]")
     if not (packed.is_contiguous() and scale_vec.is_contiguous()):
         raise ValueError("packed and scale_vec must be contiguous")
-    if Np % 64:                 # the kernels' column blocks are 32 (K1), 64 (K4)
+    if Np % 64:                 # column blocks: 32 (K1), 64 (K6), halves of 128 (K4)
         raise ValueError(f"W2A8 kernels need Np % 64 == 0, got Np={Np}")
     return L, Np
 
@@ -249,38 +251,91 @@ def _w2a8_normed_cuda(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps, glu,
 ternary_matmul_w2a8_normed.launches = 0
 
 
+# K4's tiles, chosen by shape: a block computes ``W2A8_GEMM_COLS`` output
+# columns × BT rows, BT the smallest of ``W2A8_GEMM_ROWS`` that holds M (the
+# largest above it).  K is split over a cluster of 2, 4 or 8 blocks while the
+# blocks, doubled, still fit the card's SMs and every block keeps at least
+# two 256-row K tiles: at M = 512 the generic path's k / v (N = 640) run 20
+# column blocks × 4 splits, a single 8-row prompt's qkv 30 × 4.
+W2A8_GEMM_ROWS = (8, 16, 32, 64, 128)
+W2A8_GEMM_COLS = 128
+W2A8_GEMM_MAX_SPLIT = 8
+
+
+def w2a8_gemm_plan(M: int, Kp: int, Np: int, sms: int) -> tuple[int, int]:
+    """(BT, split) of K4 for M rows × [Kp, Np] words on ``sms`` SMs."""
+    bt = next((b for b in W2A8_GEMM_ROWS if b >= M), W2A8_GEMM_ROWS[-1])
+    blocks = -(-Np // W2A8_GEMM_COLS) * -(-M // bt)
+    split = 1
+    while (split < W2A8_GEMM_MAX_SPLIT and 2 * split * blocks <= sms
+           and 4 * split <= Kp // 256):
+        split *= 2
+    return bt, split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ternary_matmul_w2a8(l: int, x: torch.Tensor, packed: torch.Tensor,
                         scale_vec: torch.Tensor, k_dim: int,
                         n_dim: int) -> torch.Tensor:
     """K4: ``quantize(x) @ W[l]`` for prefill rows (any M).  x [M, K]
     bf16/f32, already normed/activated; returns [M, n_dim] in x's dtype.
-    The per-row int8 quantization runs here in plain PyTorch (the JAX
-    package runs it in XLA); the kernel does the integer GEMM and the
-    epilogue."""
+    On the card a call is two launches and no other PyTorch op than
+    ``torch.empty``: the per-row int8 quantization (K1's row kernel, no
+    norm, no SwiGLU: the arithmetic of :func:`quantize_rows`), then the
+    wgmma GEMM with the epilogue, tiled by :func:`w2a8_gemm_plan`."""
     L, Np = _check_stack(packed, scale_vec, l, k_dim)
     if x.ndim != 2 or x.shape[1] != k_dim:
         raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
     if n_dim > Np:
         raise ValueError(f"n_dim {n_dim} > Np {Np}")
-    xq, sx, sumq = quantize_rows(x.to(torch.float32))
     if x.device.type == "cpu":
+        xq, sx, sumq = quantize_rows(x.to(torch.float32))
         return ternary_matmul_w2a8_plain(xq, sumq, sx, packed[l], scale_vec[l],
                                          n_dim, x.dtype)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K4 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
     if packed.get_device() != x.get_device() or scale_vec.get_device() != x.get_device():
         raise ValueError("K4 operands must be on x's device")
-    M = x.shape[0]
-    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
-    lib = _cuda.library("ternary_matmul")
-    rc = lib.bn_w2a8_gemm(
-        xq.data_ptr(), M, k_dim, packed.data_ptr() + 4 * l * packed.stride(0),
-        Np, sumq.data_ptr(), sx.data_ptr(), scale_vec.data_ptr() + 4 * l * Np,
-        out.data_ptr(), n_dim,
-        _DTYPE_CODE[x.dtype], _cuda.stream_ptr(x.device))
-    _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_w2a8")
+    if x.shape[0] < 1 or x.stride(1) != 1:
+        raise ValueError("K4 takes at least one row, each contiguous")
+    out = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)[0]
     ternary_matmul_w2a8.launches += 1
     return out
+
+
+def _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim):
+    """Launch K4 on checked operands.  Returns (out, scratch): scratch holds
+    the int8 rows, their scales and their sums (``xq | sx | sumq``).  Layer
+    ``l`` is addressed by pointer offset."""
+    M, Np = x.shape[0], packed.shape[2]
+    dev = x.device
+    bt, split = w2a8_gemm_plan(M, k_dim, Np, _sm_count(dev.index))
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
+    scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
+    p = scratch.data_ptr()
+    lib = _cuda.library("ternary_matmul")
+    rc = lib.bn_w2a8_gemm(
+        x.data_ptr(), x.stride(0), M, k_dim,
+        packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scale_vec.data_ptr() + 4 * l * Np, out.data_ptr(), n_dim,
+        p, p + M * k_dim, p + M * k_dim + 4 * M, _DTYPE_CODE[x.dtype], bt, split,
+        _cuda.stream_ptr(dev))
+    _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_w2a8")
+    return out, scratch
+
+
+def _w2a8_gemm_cuda(l, x, packed, scale_vec, k_dim, n_dim):
+    """K4 with its integer parts: (out, xq [M, K], sx [M], sumq [M]), so a
+    check can hold them against :func:`quantize_rows`.  Counts no launch."""
+    out, scratch = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)
+    M, MK = x.shape[0], x.shape[0] * k_dim
+    return (out, scratch[:MK].view(M, k_dim),
+            scratch[MK:MK + 4 * M].view(torch.float32),
+            scratch[MK + 4 * M:].view(torch.int32))
 
 
 ternary_matmul_w2a8.launches = 0

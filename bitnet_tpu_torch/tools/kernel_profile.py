@@ -6,8 +6,8 @@ Run on the card from the repository root:
     python -m bitnet_tpu_torch.tools.kernel_profile
 
 It splits what ``chip_smoke.py`` times per wrapper into the kernels that
-ran (K1's fused GEMV, K4's GEMM apart from the PyTorch quantization of its
-activations, K2's two passes) and prints one JSON line per case with the
+ran (K1's fused GEMV, K4's row quantization and wgmma GEMM at M = 8, 512
+and 2048, K2's two passes) and prints one JSON line per case with the
 card's name and power limit.  Weights and caches cycle over 8 layers.
 """
 
@@ -39,9 +39,10 @@ def _cases(dev, g):
         r = torch.randn((1, N), generator=g, device=dev).bfloat16() if res else None
         yield f"K1 {name} M=1", lambda i, w=w, sv=sv, gam=gam, x=x, r=r, K=K, N=N, glu=glu: (
             tm.ternary_matmul_w2a8_normed(i % LAYERS, x, w, sv, gam, K, N, 1e-5, glu, r))
-        x4 = torch.randn((512, K), generator=g, device=dev).bfloat16()
-        yield f"K4 {name} M=512", lambda i, w=w, sv=sv, x4=x4, K=K, N=N: (
-            tm.ternary_matmul_w2a8(i % LAYERS, x4, w, sv, K, N))
+        for M in (8, 512, 2048):
+            x4 = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            yield f"K4 {name} M={M}", lambda i, w=w, sv=sv, x4=x4, K=K, N=N: (
+                tm.ternary_matmul_w2a8(i % LAYERS, x4, w, sv, K, N))
     for S in (1024, 4096):
         kc = torch.randn((LAYERS, 1, S, 640), generator=g, device=dev).bfloat16()
         vc = torch.randn_like(kc)

@@ -22,7 +22,11 @@ no result line):
            the f32-cache instances (K2, K3, K5, K8) and the W2A8 probes and
            prototype (K28-K32): error, median ms (CUDA events), bound, plain
            and library ms; K10's decode form and GEMM side by side at
-           M <= 16 (kernels.k10_mb: the rows where the wrapper switches)
+           M <= 16 (kernels.k10_mb: the rows where the wrapper switches);
+           K4 bit for bit with its int8 rows at M = 8..2048 on the 2B and
+           8B shapes and in every forced tile / K split, its M table over
+           the fused four beside torch._int_mm (kernels.k4_m), and its two
+           launches under the profiler (kernels.k4_profile)
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
@@ -187,8 +191,16 @@ def phase_kernels(torch, dev):
            **{f"k{n}": [] for n in range(25, 33)}, "f32": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
-    check_k4(torch, dev, g, K1_SHAPES, (512, 2048), "fused", res)
-    check_k4(torch, dev, g, UNFUSED_SHAPES, (512,), "unfused", res)
+    check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
+    check_k4(torch, dev, g, UNFUSED_SHAPES, K4_MS, "unfused", res)
+    check_k4(torch, dev, g, K4_8B_SHAPES, K4_MS, "8b", res)
+    check_k4_forms(torch, dev, g, res)
+    # the M table: K4 over the fused four, per M
+    res["k4_m"] = [
+        {"M": M, **{f: sum(r[f] for r in res["k4"] if r["path"] == "fused"
+                           and r["M"] == M) for f in ("ms", "library_ms", "int_mm_ms",
+                                                      "bound_ms", "plain_ms")}}
+        for M in K4_TIMED]
     check_k6(torch, dev, g, res)
     check_k5(torch, dev, g, res)
     check_k7(torch, dev, g, res)
@@ -355,41 +367,118 @@ def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5):
         del words, sv
 
 
-def check_k4(torch, dev, g, shapes, Ms, path, res):
-    """K4 against its plain version (bit for bit); timed at M=512."""
+# K4's rows: every tile of the wrapper's plan (BT = 8, 32, 128; ragged M)
+# and the prefill buckets; the fused four are timed at K4_TIMED (the M
+# table), the other paths at M=512
+K4_MS = (8, 32, 77, 128, 500, 512, 2048)
+K4_TIMED = (8, 32, 128, 512, 2048)
+
+
+def _codes_stack(torch, words, min_bytes=120 << 20):
+    """int8 biased codes [K, N] of the first layers of a stack, column-major
+    as cuBLASLt wants them, enough of them to exceed the L2 (the
+    ``torch._int_mm`` yardstick)."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
-    for name, K, N, _g, _glu, _r in shapes:
+    K, N = words.shape[1] * 16, words.shape[2]
+    n = min(words.shape[0], max(2, math.ceil(min_bytes / (K * N))))
+    return [tm.biased_codes(words[l]).t().contiguous().t() for l in range(n)]
+
+
+def check_k4(torch, dev, g, shapes, Ms, path, res, timed=(512,)):
+    """K4 against its plain version, bit for bit, with its int8 rows, scales
+    and row sums against ``quantize_rows``; timed at ``timed`` rows beside
+    the plain version, the bf16 matmul and ``torch._int_mm`` on the int8
+    rows and biased codes (M <= 16 padded to 32 rows, as ``_int_mm`` wants
+    more than 16)."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, K, N, *_ in shapes:
         words, sv = _stack(torch, g, K, N, dev)
         L = words.shape[0]
+        dense = codes = None
         for M in Ms:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             l = 1
             out = tm.ternary_matmul_w2a8(l, x, words, sv, K, N)
-            xq, sx, sumq = tm.quantize_rows(x.float())
-            plain = tm.ternary_matmul_w2a8_plain(xq, sumq, sx, words[l], sv[l], N,
-                                                 x.dtype)
+            out2, xq, sx, sumq = tm._w2a8_gemm_cuda(l, x, words, sv, K, N)
+            xq_p, sx_p, sumq_p = tm.quantize_rows(x.float())
+            plain = tm.ternary_matmul_w2a8_plain(xq_p, sumq_p, sx_p, words[l], sv[l],
+                                                 N, x.dtype)
             err = (out.float() - plain.float()).abs().max().item()
-            row = {"path": path, "shape": name, "M": M, "K": K, "N": N,
-                   "max_abs_err": err,
-                   "tol": 0.0, "exact": bool(torch.equal(out, plain))}
-            if M == 512:
+            bt, split = tm.w2a8_gemm_plan(M, K, N, sms)
+            row = {"path": path, "shape": name, "M": M, "K": K, "N": N, "bt": bt,
+                   "split": split, "max_abs_err": err, "tol": 0.0,
+                   "exact": bool(torch.equal(out, plain)),
+                   "rows_exact": bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)
+                                      and torch.equal(sumq, sumq_p)),
+                   "wrapper_equals_launch": bool(torch.equal(out, out2))}
+            if M in timed:
+                if dense is None:
+                    dense, codes = _dense_stack(torch, words, sv), _codes_stack(torch, words)
                 row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8(
                     i % L, x, words, sv, K, N), L)
                 row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_plain(
-                    xq, sumq, sx, words[i % L], sv[i % L], N, x.dtype), 4)
-                dense = _dense_stack(torch, words, sv)
+                    xq_p, sumq_p, sx_p, words[i % L], sv[i % L], N, x.dtype), 4)
                 row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
                     x, dense[i % len(dense)]), 2 * len(dense))
-                del dense
+                xq32 = xq_p if M > 16 else torch.cat([xq_p, xq_p.new_zeros((32 - M, K))])
+                row["int_mm_ms"] = time_ms(torch, lambda i: torch._int_mm(
+                    xq32, codes[i % len(codes)]), 2 * len(codes))
                 nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4
                 row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
-            row["ok"] = row["exact"]
+            row["ok"] = row["exact"] and row["rows_exact"] and row["wrapper_equals_launch"]
             res["k4"].append(row)
             if not row["ok"]:
                 raise AssertionError(f"K4 mismatch: {row}")
-        del words, sv
+        del words, sv, dense, codes
 
+
+def check_k4_forms(torch, dev, g, res):
+    """Every form of K4 (BT rows a block x a K split of 1-8), forced past the
+    wrapper's plan, bit for bit: ragged M, N = 192 (a block whose second
+    column half lies past Np) and 640, f32 and bf16 x; then one call under
+    the profiler: two kernels and no ATen op but ``aten::empty``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    K = 2048
+    for N, dtype in ((192, torch.float32), (640, torch.bfloat16)):
+        words, sv = _stack(torch, g, K, N, dev, min_bytes=0)
+        for bt in tm.W2A8_GEMM_ROWS:
+            for split in (1, 2, 4, 8):
+                M = bt + 1
+                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                with mock.patch.object(tm, "w2a8_gemm_plan", lambda *a: (bt, split)):
+                    out, xq, sx, sumq = tm._w2a8_gemm_cuda(1, x, words, sv, K, N)
+                xq_p, sx_p, sumq_p = tm.quantize_rows(x.float())
+                plain = tm.ternary_matmul_w2a8_plain(xq_p, sumq_p, sx_p, words[1],
+                                                     sv[1], N, x.dtype)
+                row = {"path": "forms", "M": M, "K": K, "N": N, "bt": bt,
+                       "split": split, "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+                       "tol": 0.0,
+                       "ok": bool(torch.equal(out, plain) and torch.equal(xq, xq_p)
+                                  and torch.equal(sx, sx_p)
+                                  and torch.equal(sumq, sumq_p))}
+                res["k4"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K4 form mismatch: {row}")
+    x = torch.randn((512, K), generator=g, device=dev).to(torch.bfloat16)
+    tm.ternary_matmul_w2a8(1, x, words, sv, K, 640)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tm.ternary_matmul_w2a8(1, x, words, sv, K, 640)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
+    res["k4_profile"] = {"kernels": kernels, "aten_ops": ops,
+                         "ok": len(kernels) == 2 and set(ops) <= {"aten::empty"}}
+    if not res["k4_profile"]["ok"]:
+        raise AssertionError(f"K4 launched more than its two kernels: {res['k4_profile']}")
 
 
 def check_k6(torch, dev, g, res):
@@ -921,6 +1010,9 @@ H8B, F8B = 4096, 14336
 # its down projection on K1 (fused path: SwiGLU in the preamble, no
 # sub-norm, the residual): K = 14336 > 8192 takes K1's two-kernel path
 K1_8B_DOWN = (("down_8b", F8B, H8B, False, True, True),)
+# K4 at the 8B fused four: qkv (32 + 2·8 heads of 128), o, gate|up, down
+K4_8B_SHAPES = (("qkv_8b", H8B, 6144), ("o_8b", H8B, H8B),
+                ("gate_up_8b", H8B, 2 * F8B), ("down_8b", F8B, H8B))
 
 
 def check_k11_wide(torch, dev, g, res, eps=1e-5):

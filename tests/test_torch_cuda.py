@@ -71,6 +71,69 @@ def test_k4_matches_plain_exactly(dev, M):
                                                          N, x.dtype))
 
 
+@pytest.mark.parametrize("N", [640, 2560, 13824])
+@pytest.mark.parametrize("K", [2560, 6912])
+@pytest.mark.parametrize("M", [8, 32, 77, 128, 500, 2048])
+def test_k4_main_path_shapes_match_plain(dev, M, K, N):
+    """K4 at the tile and split the wrapper's plan picks for the main path's
+    shapes: the int8 rows, scales and sums equal ``quantize_rows``', and the
+    output is bit for bit the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    w, sv = _words(g, 2, K, N, dev)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    out, xq, sx, sumq = tm._w2a8_gemm_cuda(1, x, w, sv, K, N)
+    xq_p, sx_p, sumq_p = tm.quantize_rows(x.float())
+    assert torch.equal(xq, xq_p) and torch.equal(sx, sx_p) and torch.equal(sumq, sumq_p)
+    assert torch.equal(out, tm.ternary_matmul_w2a8_plain(xq_p, sumq_p, sx_p, w[1],
+                                                         sv[1], N, x.dtype))
+    assert torch.equal(out, tm.ternary_matmul_w2a8(1, x, w, sv, K, N))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("bt", [8, 16, 32, 64, 128])
+def test_k4_every_tile_and_split_matches_plain(dev, monkeypatch, bt, split):
+    """Every form of K4 (rows a block x K split), forced past the plan:
+    ragged M (a row past one tile), N = 192 (a block whose second column
+    half lies past Np), f32 x, and a strided x."""
+    monkeypatch.setattr(tm, "w2a8_gemm_plan", lambda *a: (bt, split))
+    g = torch.Generator(device=dev).manual_seed(bt * 10 + split)
+    K, N, M = 2048, 192, bt + 1
+    w, sv = _words(g, 2, K, N, dev)
+    x = torch.randn((M, K + 64), generator=g, device=dev)[:, :K]
+    out, xq, sx, sumq = tm._w2a8_gemm_cuda(1, x, w, sv, K, N)
+    xq_p, sx_p, sumq_p = tm.quantize_rows(x.float())
+    assert torch.equal(xq, xq_p) and torch.equal(sx, sx_p) and torch.equal(sumq, sumq_p)
+    assert torch.equal(out, tm.ternary_matmul_w2a8_plain(xq_p, sumq_p, sx_p, w[1],
+                                                         sv[1], N, x.dtype))
+
+
+def test_k4_runs_two_kernels_and_no_pytorch_op(dev):
+    """A K4 call is the row quantization and the GEMM: the profiler sees two
+    kernels, and no ATen op but the allocations; two calls give the same
+    bits (K split over a cluster at N = 640)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    K, N = 2560, 640
+    w, sv = _words(g, 2, K, N, dev)
+    x = torch.randn((512, K), generator=g, device=dev).bfloat16()
+    first = tm.ternary_matmul_w2a8(1, x, w, sv, K, N)          # build, warm up
+    torch.cuda.synchronize()
+    before = tm.ternary_matmul_w2a8.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = tm.ternary_matmul_w2a8(1, x, w, sv, K, N)
+        torch.cuda.synchronize()
+    assert tm.ternary_matmul_w2a8.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+    assert len(kernels) == 2, kernels
+    assert sorted("quantize_rows" in k for k in kernels) == [False, True], kernels
+    assert all("quantize_rows" in k or "w2a8_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
+    assert torch.equal(first, again)
+
+
 @pytest.mark.parametrize("pos", [[0], [1], [200], [255, 17]])
 def test_k2_matches_plain(dev, pos):
     g = torch.Generator(device=dev).manual_seed(sum(pos))

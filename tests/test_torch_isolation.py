@@ -94,6 +94,74 @@ def test_allocate_cache_needs_cuda_unless_asked_for_cpu(monkeypatch):
     assert c.k.device.type == "cpu" and c.lengths.device.type == "cpu"
 
 
+def test_validate_memory_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``validate_memory`` checks against the card by default, as the JAX
+    one checks against the accelerator; without CUDA it raises unless the
+    caller asks for the CPU (it used to default to the CPU, where it never
+    checks), and with ``hbm_bytes`` given it needs no device."""
+    from bitnet_tpu_torch.config import ModelConfig
+    from bitnet_tpu_torch.errors import ConfigError, ModelError
+    from bitnet_tpu_torch.models.memory import validate_memory
+
+    cfg = ModelConfig(num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      hidden_size=256)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        validate_memory(cfg)
+    est = validate_memory(cfg, device="cpu")
+    with pytest.raises(ModelError, match="device memory"):
+        validate_memory(cfg, hbm_bytes=est.total_bytes // 2, strict=True)
+
+
+def test_params_from_arrays_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``params_from_arrays`` carries a JAX parameter tree onto the card by
+    default; without CUDA it raises unless the caller asks for the CPU."""
+    import numpy as np
+
+    from bitnet_tpu_torch.errors import ConfigError
+    from bitnet_tpu_torch.models.convert import params_from_arrays
+
+    f = np.ones((4, 8), np.float32)
+    tree = {"blocks": {"attn_norm": np.ones((2, 8), np.float32)}, "embed": f,
+            "final_norm": f[0], "rope_sin": f, "rope_cos": f}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        params_from_arrays(tree)
+    p = params_from_arrays(tree, device="cpu")
+    assert p.embed.device.type == "cpu" and p.blocks.attn_norm.device.type == "cpu"
+
+
+def test_cache_from_arrays_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``cache_from_arrays`` places the carried cache on the card by
+    default, as ``allocate_cache``; without CUDA it raises unless the
+    caller asks for the CPU."""
+    import numpy as np
+
+    from bitnet_tpu_torch.errors import ConfigError
+    from bitnet_tpu_torch.models.convert import cache_from_arrays
+
+    k = np.zeros((2, 1, 16, 2, 64), np.float32)
+    lengths = np.zeros((1,), np.int32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        cache_from_arrays(k, k, lengths)
+    c = cache_from_arrays(k, k, lengths, device="cpu")
+    assert c.k.shape == (2, 1, 16, 128) and c.lengths.device.type == "cpu"
+
+
+def test_build_rope_tables_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``build_rope_tables`` builds its tables on the card by default;
+    without CUDA it raises unless the caller asks for the CPU."""
+    from bitnet_tpu_torch.errors import ConfigError
+    from bitnet_tpu_torch.ops.rope import build_rope_tables
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        build_rope_tables(64, 16)
+    sin, cos = build_rope_tables(64, 16, device="cpu")
+    assert sin.shape == cos.shape == (16, 32) and sin.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"decode_steps_per_dispatch": 8}, "#5"),
     ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),

@@ -89,7 +89,7 @@ def test_converted_params_bf16_logits_cosine(mini_gguf_qk256):
     je = JEngine.from_gguf(mini_gguf_qk256.path, JEngineConfig(
         kernel_path="w2a8", max_seq_len=64, compute_dtype="bf16",
         fuse_projections=True, logits_dtype="int8"))
-    params = params_from_arrays(_np_tree(je.params))
+    params = params_from_arrays(_np_tree(je.params), device="cpu")
     assert params.blocks.wqkv is not None and params.embed_q is not None
     pe = InferenceEngine(_port_cfg(je.cfg), params,
                          EngineConfig(max_seq_len=64, logits_dtype="int8",
@@ -128,7 +128,7 @@ def test_plain_ops_match_xla():
     np.testing.assert_allclose(rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
                                np.asarray(jrms_norm(jnp.asarray(x), jnp.asarray(w))),
                                rtol=1e-5, atol=1e-6)
-    sin, cos = build_rope_tables(D, 64, 500000.0)
+    sin, cos = build_rope_tables(D, 64, 500000.0, device="cpu")
     jsin, jcos = jbuild_rope(D, 64, 500000.0)
     np.testing.assert_array_equal(sin.numpy(), jsin)
     pos = np.stack([np.arange(T) + 3, np.arange(T) + 30]).astype(np.int32)

@@ -189,7 +189,8 @@ def test_decode_step_from_a_carried_cache(mini_gguf_qk256):
     je.prefill(prompt)
     pe.prefill(prompt)
     c = je.cache
-    pe.cache = cache_from_arrays(c.k, c.v, c.lengths, c.k_scale, c.v_scale)
+    pe.cache = cache_from_arrays(c.k, c.v, c.lengths, c.k_scale, c.v_scale,
+                                 device="cpu")
     pos = len(prompt)
     jl, je.cache = je._get_decode()(je.params, jnp.asarray([[42]], jnp.int32),
                                     je.cache, jnp.asarray([[pos]], jnp.int32))

@@ -87,19 +87,32 @@ def test_quantize_and_int_dot_exact(M):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("M,dtype", [(5, "f32"), (130, "f32"), (64, "bf16")])
-def test_k4_plain_matches_pallas(M, dtype):
-    rng, words, sv, _g = _stack(200 + M)
-    x = rng.standard_normal((M, K)).astype(np.float32)
+@pytest.mark.parametrize("M,dtype,k,n", [
+    (5, "f32", K, N), (130, "f32", K, N), (64, "bf16", K, N),
+    # ragged and tiny M (the wgmma kernel's 8-row tile and a row past it)
+    (1, "f32", K, N), (8, "f32", K, N), (33, "f32", K, N), (257, "f32", K, N),
+    (33, "bf16", K, N),
+    # two K tiles, and a narrow N like the generic path's k / v (640)
+    (8, "f32", 512, N), (77, "bf16", 512, N), (8, "f32", K, 640),
+    (33, "bf16", 512, 640)])
+def test_k4_plain_matches_pallas(M, dtype, k, n):
+    if (k, n) == (K, N):
+        rng, words, sv, _g = _stack(200 + M)
+    else:
+        rng = np.random.default_rng(200 + M + k + n)
+        words = rng.integers(-2**31, 2**31 - 1, (L, k // 16, n), dtype=np.int32)
+        sv = rng.uniform(0.5, 1.5, (L, n)).astype(np.float32) * 0.02
+    x = rng.standard_normal((M, k)).astype(np.float32)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
                 else (jnp.bfloat16, torch.bfloat16))
     want = ternary_matmul_stacked_prefill(
         jnp.int32(1), jnp.asarray(x, jdt), jnp.asarray(words), jnp.asarray(sv),
-        k_dim=K, n_dim=N, interpret=True)
+        k_dim=k, n_dim=n, interpret=True)
     got = tm.ternary_matmul_w2a8(1, torch.from_numpy(x).to(tdt),
                                  torch.from_numpy(words), torch.from_numpy(sv),
-                                 k_dim=K, n_dim=N)
+                                 k_dim=k, n_dim=n)
     want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == (M, n) and got.dtype == tdt
     if dtype == "f32":
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     else:

@@ -368,7 +368,7 @@ def test_converted_block_params_match_jax(mini_gguf_qk256, b32_gguf, src):
               fuse_projections=True)
     je = JEngine.from_gguf(path, JEngineConfig(weight_quant=wq, **kw))
     want = je.generate(PROMPT, JGenerationConfig(max_new_tokens=8, greedy=True))
-    params = params_from_arrays(tree(je.params))
+    params = params_from_arrays(tree(je.params), device="cpu")
     assert params.blocks.wqkv.kind == ("tl" if src == "tl2" else "bitnet32")
     assert params.blocks.wqkv.scales.shape[-2] * 32 == params.blocks.wqkv.packed.shape[-2] * 16
     cfg = ModelConfig(**{f.name: getattr(je.cfg, f.name)
