@@ -2,7 +2,7 @@
 // for Hopper (sm_90a).
 //
 // Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
-//   K10 bn_blockscale_bf16  <- the _bitnet32_kernel body (:138) of
+//   K10 bn_blockscale_gemm  <- the _bitnet32_kernel body (:138) of
 //                              _ternary_matmul_2d (pallas_call :1177) and of
 //                              ternary_matmul_stacked_tl (:502, pallas_call :555)
 //   K11 bn_tl_w2a8_normed   <- ternary_matmul_stacked_tl_w2a8 (:890,
@@ -16,22 +16,23 @@
 // {-2,-1,1,2} plus 2) or c in {0..3} (TL levels {-2,-1,0,1} plus 2).
 //
 // What bounds them on the card, and what the design does about it:
-//  - K10 has two forms: the decode form (below) for up to 16 rows, and for
-//    more (prefill; the wrapper's M > MB) the GEMM it shares with K12
-//    (pools, M = 3..64): K6's 64x64 block tile of bf16
-//    mma.sync.m16n8k16 with a two-stage cp.async pipeline, the block scales
-//    of the K tile (8 rows x 64 columns) streamed beside the words.  Each
-//    B fragment register holds two K values of one 32-row block, so a
-//    thread builds, per (column, block), a 4-entry table of the bf16 weight
-//    of each code, bf16(v(c) * s) (K10: biased v, as :156) or
-//    bf16((v(c) - 2) * s) (K12: unbiased, as :633), and expands the 2-bit
-//    planes through it.  Decode is bound by the bytes of words and scales
+//  - K10 has two forms: the decode form (below), which takes up to 16 rows
+//    and runs for M <= MB (the wrapper's BLOCKSCALE_DECODE_MAX_M), and for
+//    more rows (prefill, small pools) the GEMM it shares with K12
+//    (pools, M = 1..64).  Decode is bound by the bytes of words and scales
 //    (the scales are half the words' bytes), prefill by bf16 operations.
-//    The GEMM's bias correction 2 * (sum32 @ s) is an f32 matmul outside,
-//    as it is in XLA; padded K rows hold code 0, whose biased value is 0, so
-//    a zero-padded scale never meets a nonzero weight.  K12 runs its row
-//    preamble (SwiGLU, RMSNorm, bf16 rows) as a first launch.
-//  - K10's decode form (M <= 16: the generic path's seven projections and
+//    The GEMM is K4's design for bf16 (below): the transposed product on
+//    wgmma, the words' planes decoded through a per-(column, 32-row block)
+//    table into its register A operand, the bf16 rows its B by TMA, tokens
+//    its N (BT = 8..128, so K12's pool of 8 fills an 8-wide tile), K split
+//    over a cluster where the column blocks leave SMs idle.  Each call is
+//    two launches: a row kernel (K10: x rounded to bf16, zero-padded to Kp,
+//    and its 32-row sums; K12: the SwiGLU / RMSNorm preamble), then the
+//    GEMM as its programmatic dependent.  K10's bias correction
+//    2 * (sum32 @ s) is subtracted inside the GEMM; padded K rows hold code
+//    0, whose biased value is 0, so a zero-padded scale never meets a
+//    nonzero weight.  K12's unbiased weights need no correction.
+//  - K10's decode form (M <= MB: the generic path's seven projections and
 //    the stacked loop's four at decode rows): one lane per output column
 //    reads K11's coalesced word rows, so every word and scale is read once
 //    per call whatever M is; K is split over a thread block cluster (up to 8
@@ -65,6 +66,9 @@
 //    sums are added in a fixed order (no float atomics: runs repeat).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
+
+#include <type_traits>
 
 #include "ternary_common.cuh"
 
@@ -75,179 +79,591 @@ namespace {
 using namespace bn;
 
 // ---------------------------------------------------------------------------
-// K10 / K12 GEMM
+// K10 / K12 GEMM on wgmma, the block-scale counterpart of K4's GEMM
+// (ternary_matmul.cu).  The product is taken transposed, out^T[n, m] =
+// W^T[n, k] . xb^T[k, m]: output columns are wgmma's 64-row M, whose A
+// fragments come from registers, and tokens are its N (BT = 8..128), whose
+// B tile (the bf16 rows, K-major) comes from shared memory.  For the k16
+// step of plane p, K rows p*64 + 16h .. +15, thread (g, t) of warp w holds
+// A rows (columns) 16w+g and 16w+g+8 at K offsets 2t, 2t+1 and 2t+8, 2t+9:
+// bytes 2(t&1), 2(t&1)+1 of plane p of word rows 4h + t/2 and 4h + 2 + t/2.
+// A thread reads its 16 words of a K tile once (shifted so that its two
+// bytes are the low ones) and decodes every plane from them: the weights
+// of a (column, 32-row block) are four bf16 values, bf16(v(c) * s) (K10:
+// biased, as :156) or bf16((v(c) - 2) * s) (K12: unbiased, as :633), held
+// as their low and high bytes in two registers, and a code pair becomes its
+// bf16x2 fragment register with one byte permute.
+//
+// 384 threads: warpgroup 0 is the producer (one thread issues the copies),
+// warpgroups 1 and 2 each own 64 of the block's 128 columns.  A ring of
+// stages, each one K tile: the bf16 rows as four TMA boxes of 64 values
+// (128 bytes) a row with the 128-byte swizzle wgmma's B descriptor reads
+// (rows past M zero-filled by the TMA unit), the 16 word rows as one box
+// BS_WLD columns wide (the 8 past the block's 128 pad each shared-memory
+// row: conflict-free word reads), the K tile's 8 scale rows of the block's
+// columns and, for K10, the rows' block sums.  Full barriers count the
+// bytes, empty barriers the 8 consumer warps.  A consumer issues one wgmma
+// group a unit (two planes, one at BT = 128, where the accumulators take
+// the registers) and decodes the next unit while it runs, into a second
+// register set kept apart from the first until the wait (fence_operand).
+//
+// K10 (CORR) subtracts its bias correction 2 * sum_b sum32[m, b] * s[b, n]
+// on the tensor cores too: two more k16 steps a K tile, A = -2 s of the
+// tile's 8 scale blocks split into bf16 hi + lo parts, B = the rows' 8
+// block sums split the same way by the row kernel (hi·hi + hi·lo + lo·hi +
+// lo·lo: 16 significant bits of each factor, far inside the f32 output's
+// tolerance), by TMA in four boxes of 8 values a row, the layout of
+// wgmma's unswizzled core matrices.  That adds 1/8 to the tensor work and
+// nothing to the CUDA cores; as f32 FMAs into the accumulators the same
+// correction doubled the GEMM's time.  K12 adds the residual in the
+// epilogue.
+//
+// K may be split over the z blocks of a thread block cluster (up to 8):
+// each block leaves its f32 partial tile in its shared memory, and after
+// the cluster barrier block r adds its share of the rows over the ranks in
+// rank order 0, 1, ..., so two calls give the same bits.  The GEMM is a
+// programmatic dependent of the row kernel before it (K10's rows, K12's
+// preamble): barrier set-up and the first tile's words and scales overlap
+// that kernel's tail.
 // ---------------------------------------------------------------------------
-constexpr int GB_M = 64, GB_N = 64;
-constexpr int XB_LD = KT + 8;         // bf16; conflict-free A fragment reads
-constexpr int WS_LD = GB_N + 8;       // ints;  conflict-free B fragment reads
-constexpr int SB = KT / 32;           // scale rows a K tile
-constexpr size_t GEMM_SMEM =
-    2 * (GB_M * XB_LD * sizeof(__nv_bfloat16) + (KT / 16) * WS_LD * sizeof(int) +
-         SB * GB_N * sizeof(float));
+constexpr int BS_COLS = 128;                  // output columns a block
+constexpr int BS_WLD = BS_COLS + 8;           // ints a word row in shared memory
+constexpr int BS_WTILE = (KT / 16) * BS_WLD * 4;    // bytes of a stage's words
+constexpr int BS_STILE = (KT / 32) * BS_COLS * 4;   // bytes of its scale rows
+constexpr int BS_PLD = BS_COLS + 4;           // floats a row of the partial tile
+constexpr int BS_THREADS = 384;
+constexpr int BS_MAX_SPLIT = 8;               // the portable cluster size
 
-// the bf16 bits of each code's weight under scale s, code c in bits 16c..16c+15
-template <bool LUT_BIAS, bool UNBIASED>
-__device__ __forceinline__ unsigned long long scaled_table(float s) {
-  unsigned long long t = 0;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int v = (LUT_BIAS ? c + (c >> 1) : c) - (UNBIASED ? 2 : 0);
-    const __nv_bfloat16 b = __float2bfloat16_rn(__fmul_rn((float)v, s));
-    t |= (unsigned long long)__bfloat16_as_ushort(b) << (16 * c);
-  }
-  return t;
+template <int BT, bool CORR>
+struct BsTile {
+  static constexpr int XBOX = BT * 128;       // bytes of one TMA box
+  static constexpr int XTILE = 4 * XBOX;      // a K tile of BT bf16 rows
+  static constexpr int QTILE = CORR ? BT * 64 : 0;   // their block sums, split
+  static constexpr int STAGE = XTILE + BS_WTILE + BS_STILE + QTILE;
+  static constexpr int STAGES = 200 * 1024 / STAGE < 8 ? 200 * 1024 / STAGE : 8;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;   // + alignment
+  static constexpr int UP = BT >= 128 ? 1 : 2;               // planes a unit
+  static_assert(STAGES >= 2, "a ring of two stages at least");
+  static_assert(BT * BS_PLD * 4 <= RING, "partial tile fits the ring");
+};
+
+// wgmma.mma_async m64nBTk16 f32 += bf16 (A, registers) x bf16 (B, shared
+// memory, K-major); d holds BT/2 accumulators a thread
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// two consecutive K values (bytes j, j+1 of plane p of word w) through the
-// table, as a bf16x2 fragment register, the lower K index in the low half
-__device__ __forceinline__ unsigned table_pair(int w, int p, int j,
-                                               unsigned long long tbl) {
-  const int c0 = (w >> (8 * j + 2 * p)) & 3;
-  const int c1 = (w >> (8 * (j + 1) + 2 * p)) & 3;
-  return (unsigned)((tbl >> (16 * c0)) & 0xFFFFu) |
-         ((unsigned)((tbl >> (16 * c1)) & 0xFFFFu) << 16);
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// out[m, n] = sum_k x[m, k] * w[k, n] (- corr[m, n]) (+ resid[m, n]) for
-// n < N; x bf16 [M, Kp]; corr f32 [M, Np] or null; resid [M, N] or null.
-template <bool LUT_BIAS, bool UNBIASED, typename T>
-__global__ void __launch_bounds__(128)
-blockscale_gemm(const __nv_bfloat16* __restrict__ x, int M, int Kp,
-                const int* __restrict__ words, int Np,
-                const float* __restrict__ scales, const float* __restrict__ corr,
-                const T* __restrict__ resid, T* __restrict__ out, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typedef __nv_bfloat16 XTile[GB_M][XB_LD];
-  typedef int WTile[KT / 16][WS_LD];
-  typedef float STile[SB][GB_N];
-  XTile* xs = reinterpret_cast<XTile*>(smem_raw);
-  WTile* ws = reinterpret_cast<WTile*>(smem_raw + 2 * sizeof(XTile));
-  STile* ss = reinterpret_cast<STile*>(smem_raw + 2 * sizeof(XTile) + 2 * sizeof(WTile));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// wgmma descriptor of a K-major tile without swizzle: core matrices of 8
+// rows x 16 bytes, each 128 contiguous bytes; lbo bytes between core
+// matrices adjacent in K, sbo between those adjacent in N
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+       | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// v as bf16 hi + lo, hi = bf16(v), lo = bf16(v - hi): 16 significant bits
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
+}
+
+// lo / hi: byte c holds the low / high byte of bf16(vals[c] * s), the
+// weight of code c in a block of scale s
+__device__ __forceinline__ void weight_table(const float (&vals)[4], float s,
+                                             uint32_t& lo, uint32_t& hi) {
+  const __nv_bfloat162 w01 = __floats2bfloat162_rn(__fmul_rn(vals[0], s),
+                                                   __fmul_rn(vals[1], s));
+  const __nv_bfloat162 w23 = __floats2bfloat162_rn(__fmul_rn(vals[2], s),
+                                                   __fmul_rn(vals[3], s));
+  const uint32_t p01 = *reinterpret_cast<const uint32_t*>(&w01);
+  const uint32_t p23 = *reinterpret_cast<const uint32_t*>(&w23);
+  lo = __byte_perm(p01, p23, 0x6420);
+  hi = __byte_perm(p01, p23, 0x7531);
+}
+
+// the weights of the codes in bytes 0 and 1 of plane p of w as a bf16x2
+// register, the lower K index in the low half: the selector's nibbles are
+// (c0, c0 + 4, c1, c1 + 4), byte k of u * 0x11 + 0x4040 being ck | (ck + 4) << 4
+__device__ __forceinline__ uint32_t code_pair(int w, int p, uint32_t lo, uint32_t hi) {
+  const uint32_t u = ((uint32_t)w >> (2 * p)) & 0x0303u;
+  return __byte_perm(lo, hi, u * 0x11u + 0x4040u);
+}
+
+// out[m, n] = sum_k xb[m, k] * w[k, n] (CORR: - 2 sum_b sum32[m, b] s[b, n])
+// (+ resid[m, n]) for n < N, in bf16 (bf16_out) or f32
+template <int BT, bool CORR>
+__global__ void __launch_bounds__(BS_THREADS, 1)
+blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                const __grid_constant__ CUtensorMap smap,
+                const __grid_constant__ CUtensorMap qmap, int M, int Kp, int Np,
+                int lut_bias, const void* __restrict__ resid,
+                void* __restrict__ out, int N, int bf16_out) {
+  using Tile = BsTile<BT, CORR>;
+  constexpr int STAGES = Tile::STAGES, UP = Tile::UP, UNITS = 4 / UP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* xs = smem;                                           // STAGES x XTILE
+  int* ws = reinterpret_cast<int*>(smem + STAGES * Tile::XTILE);
+  float* ss = reinterpret_cast<float*>(smem + STAGES * (Tile::XTILE + BS_WTILE));
+  float* qs = ss + STAGES * (BS_STILE / 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile::RING);
+  uint64_t* empty = full + STAGES;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = gridDim.z, rank = blockIdx.z;                   // cluster (1, 1, S)
   const int nk = Kp / KT;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int kt0 = rank * nk / S, kt1 = (rank + 1) * nk / S;
+  const int n0 = blockIdx.x * BS_COLS, m0 = blockIdx.y * BT;
+  const int ncols = min(BS_COLS, Np - n0);                      // 64 or 128
+  const int wg = threadIdx.x >> 7;
 
-  auto load_tile = [&](int st, int kt) {
-    const int k0 = kt * KT;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {            // 64 rows x 512 B of activations
-      const int idx = tid + 128 * i, r = idx >> 5, c8 = (idx & 31) * 8;
-      const bool ok = m0 + r < M;             // rows past M are zero-filled
-      cp_async16(&xs[st][r][c8], x + (size_t)(ok ? m0 + r : 0) * Kp + k0 + c8, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                                  // the consumer warps
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {             // 16 word rows x 64 columns
-      const int idx = tid + 128 * i, r = idx >> 4, c4 = (idx & 15) * 4;
-      cp_async16(&ws[st][r][c4], words + (size_t)(k0 / 16 + r) * Np + n0 + c4, true);
-    }
-    {                                         // 8 scale rows x 64 columns
-      const int r = tid >> 4, c4 = (tid & 15) * 4;
-      cp_async16(&ss[st][r][c4], scales + (size_t)(kt * SB + r) * Np + n0 + c4, true);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(st ^ 1, kt + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  float acc[BT / 2];
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+  const int ct = threadIdx.x & 127, w = ct >> 5, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c = wg - 1;                                         // consumer's column half
+  const bool active = wg > 0 && 64 * c < ncols;
+
+  if (wg == 0) {                                                // producer
+    if (threadIdx.x == 0) {
+      int st = 0, ph = 0;
+      for (int kt = kt0; kt < kt1; ++kt) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], Tile::STAGE);
+        tma_load_2d(ws + st * (BS_WTILE / 4), &wmap, &full[st], n0, kt * (KT / 16));
+        tma_load_2d(ss + st * (BS_STILE / 4), &smap, &full[st], n0, kt * (KT / 32));
+        if (kt == kt0) grid_dependency_wait();
+        uint8_t* xdst = xs + st * Tile::XTILE;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          tma_load_2d(xdst + b * Tile::XBOX, &xmap, &full[st], kt * KT + 64 * b, m0);
+        if constexpr (CORR) {
+          uint8_t* qdst = reinterpret_cast<uint8_t*>(qs) + st * Tile::QTILE;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            tma_load_2d(qdst + b * BT * 16, &qmap, &full[st], kt * 32 + 8 * b, m0);
+        }
+        if (++st == STAGES) { st = 0; ph ^= 1; }
+      }
     }
-    __syncthreads();
+    __syncwarp();                        // warp 0 meets the block barriers whole
+  } else if (!active) {                // a column half past Np: keep the ring turning
+    int st = 0, ph = 0;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      mbar_wait(&full[st], ph);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == STAGES) { st = 0; ph ^= 1; }
+    }
+  } else {                                                      // consumers
+    const int col = 64 * c + 16 * w + g;                        // A row g's column
+    const int shift = 16 * (t4 & 1);
+    float vals[4];                                              // each code's value
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int cc = 0; cc < 4; ++cc)
+      vals[cc] = (float)((lut_bias ? cc + (cc >> 1) : cc) - (CORR ? 0 : 2));
+    // word rows 2i + t/2 of columns col and col + 8 (i = 0..7: for step h,
+    // rows 4h + t/2 and 4h + 2 + t/2 are i = 2h and 2h + 1)
+    int wv[8][2];
+    auto load_words = [&](int st) {
+      const int* wt = ws + st * (BS_WTILE / 4);
 #pragma unroll
-      for (int hb = 0; hb < 2; ++hb) {         // scale block 2p + hb: K rows p*64 + 32hb ..
-        unsigned long long tbl[4];
+      for (int i = 0; i < 8; ++i) {
+        const int r = 2 * i + (t4 >> 1);
+        wv[i][0] = (int)((uint32_t)wt[r * BS_WLD + col] >> shift);
+        wv[i][1] = (int)((uint32_t)wt[r * BS_WLD + col + 8] >> shift);
+      }
+    };
+    // the A fragments of planes p0 .. p0 + UP - 1 of the tile in stage st:
+    // step (p, h) uses the table of scale block 2p + h/2
+    auto decode = [&](int st, int p0, uint32_t (&a)[4 * UP][4]) {
+      const float* sc = ss + st * (BS_STILE / 4);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          tbl[ni] = scaled_table<LUT_BIAS, UNBIASED>(
-              ss[st][2 * p + hb][wn * 32 + ni * 8 + g]);
+      for (int pp = 0; pp < UP; ++pp)
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {       // K rows p*64 + 16h .. +15
-          const int h = 2 * hb + h2;
-          const int kb = p * 64 + 16 * h;
-          unsigned a[2][4];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = p0 + pp, b = 2 * p + hh;
+          uint32_t lo0, hi0, lo1, hi1;
+          weight_table(vals, sc[b * BS_COLS + col], lo0, hi0);
+          weight_table(vals, sc[b * BS_COLS + col + 8], lo1, hi1);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const int r = wm * 32 + mi * 16 + g;
-            a[mi][0] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + t4 * 2]);
-            a[mi][1] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + t4 * 2]);
-            a[mi][2] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + 8 + t4 * 2]);
-            a[mi][3] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + 8 + t4 * 2]);
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int h = 2 * hh + h2;
+            a[4 * pp + h][0] = code_pair(wv[2 * h][0], p, lo0, hi0);
+            a[4 * pp + h][1] = code_pair(wv[2 * h][1], p, lo1, hi1);
+            a[4 * pp + h][2] = code_pair(wv[2 * h + 1][0], p, lo0, hi0);
+            a[4 * pp + h][3] = code_pair(wv[2 * h + 1][1], p, lo1, hi1);
           }
-          // K row kb + 2*t4 (+1) is byte 2*(t4&1) (+1) of word row 4h + t4/2;
-          // kb + 8 + 2*t4 (+1) the same bytes of word row 4h + 2 + t4/2
-          const int j = (t4 & 1) * 2;
+        }
+    };
+    // K10's correction of the tile in stage st as A fragments of two k16
+    // steps: K offset k of step q is scale block k % 8 of the tile, with
+    // the weight hi(-2 s) (q = 0) or lo(-2 s) (q = 1) against sum32's hi
+    // (k < 8) or lo (k >= 8) part in the B tile; a thread's K offsets 2t,
+    // 2t+1 and 2t+8, 2t+9 are blocks 2t and 2t+1 both times
+    auto corr_frags = [&](int st, uint32_t (&cf)[2][4]) {
+      const float* sc = ss + st * (BS_STILE / 4);
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int col = wn * 32 + ni * 8 + g;
-            const unsigned b0 = table_pair(ws[st][4 * h + (t4 >> 1)][col], p, j, tbl[ni]);
-            const unsigned b1 = table_pair(ws[st][4 * h + 2 + (t4 >> 1)][col], p, j, tbl[ni]);
+      for (int r = 0; r < 2; ++r) {                             // column col + 8r
+        __nv_bfloat16 h0, l0, h1, l1;
+        split_bf16(-2.f * sc[(2 * t4) * BS_COLS + col + 8 * r], h0, l0);
+        split_bf16(-2.f * sc[(2 * t4 + 1) * BS_COLS + col + 8 * r], h1, l1);
+        const __nv_bfloat162 hh = __halves2bfloat162(h0, h1), ll = __halves2bfloat162(l0, l1);
+        cf[0][r] = cf[0][r + 2] = *reinterpret_cast<const uint32_t*>(&hh);
+        cf[1][r] = cf[1][r + 2] = *reinterpret_cast<const uint32_t*>(&ll);
+      }
+    };
+    // One flat loop over the units of the block's K tiles, one wgmma group
+    // each (K10: the tile's last unit adds its correction's two k16 steps),
+    // as K4's loop over tiles: the next unit is decoded while this one's
+    // wgmmas run, into a second register set kept apart until the wait.
+    // Each of these gave wrong, unrepeatable sums on the H100: the
+    // correction as FMAs into the accumulators after a tile's wait; the
+    // units of a tile unrolled, or in an inner loop, inside the loop over
+    // tiles.
+    uint32_t a[4 * UP][4], cf[2][4];
+    int st = 0, ph = 0;
+    const int u0 = kt0 * UNITS, u1 = kt1 * UNITS;
+    if (u0 < u1) {
+      mbar_wait(&full[0], 0);
+      load_words(0);
+      decode(0, 0, a);
+      if constexpr (CORR) corr_frags(0, cf);
+    }
+    for (int u = u0; u < u1; ++u) {
+      const int un = u % UNITS;
+      const bool last = un == UNITS - 1;                        // of its K tile
+      const uint32_t xb = smem_u32(xs + st * Tile::XTILE) + un * UP * Tile::XBOX;
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-          }
+      for (int i = 0; i < BT / 2; ++i) fence_operand(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int pp = 0; pp < UP; ++pp)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)                             // box p, bytes 32h
+          wgmma_bf16(acc, a[4 * pp + h], sw128_desc(xb + pp * Tile::XBOX + 32 * h));
+      if constexpr (CORR) {
+        if (last) {                                             // boxes 2q, 2q + 1
+          const uint32_t qb = smem_u32(qs) + st * Tile::QTILE;
+          wgmma_bf16(acc, cf[0], plain_desc(qb, BT * 16, 128));
+          wgmma_bf16(acc, cf[1], plain_desc(qb + 2 * BT * 16, BT * 16, 128));
+        }
+      }
+      wgmma_commit();
+      const int nst = st + 1 == STAGES ? 0 : st + 1, nph = nst == 0 ? ph ^ 1 : ph;
+      uint32_t next[4 * UP][4], cnext[2][4];
+      if (!last) {
+        decode(st, (un + 1) * UP, next);
+      } else if (u + 1 < u1) {                                  // the next tile's first
+        mbar_wait(&full[nst], nph);
+        load_words(nst);
+        decode(nst, 0, next);
+        if constexpr (CORR) corr_frags(nst, cnext);
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) fence_operand(acc[i]);
+      if (last) {
+        if (lane == 0) mbar_arrive(&empty[st]);
+        st = nst;
+        ph = nph;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * UP; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(a[i][e]);          // the wgmmas above read a until the wait
+          a[i][e] = next[i][e];
+        }
+      if constexpr (CORR) {
+        if (last) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              fence_operand(cf[q][e]);
+              cf[q][e] = cnext[q][e];
+            }
         }
       }
     }
-    __syncthreads();                           // stage st is refilled next
   }
+  __syncthreads();                       // every wgmma has read its stage
+
+  // the f32 partial tile [BT tokens][128 columns], over the ring
+  float* part = reinterpret_cast<float*>(smem);
+  if (active) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + ni * 8 + t4 * 2 + (e & 1);
-        if (m < M && n < N) {
-          float y = acc[mi][ni][e];
-          if (corr != nullptr) y = __fsub_rn(y, corr[(size_t)m * Np + n]);
-          if (resid != nullptr) y = __fadd_rn(y, load_f32(resid, (size_t)m * N + n));
-          store_f32(out, (size_t)m * N + n, y);
-        }
+        const int r = 64 * c + 16 * w + g + (e & 2 ? 8 : 0);
+        const int m = 8 * j + 2 * t4 + (e & 1);
+        part[m * BS_PLD + r] = acc[4 * j + e];
       }
+  }
+  // block r of a split adds the partials of rows [r0, r1) over the ranks
+  const int r0 = rank * BT / S, r1 = (rank + 1) * BT / S;
+  if (S > 1) cluster.sync();             // every block's partial is in place
+  else __syncthreads();
+  // a thread takes two adjacent columns of every sixth row
+  const int nl = 2 * (threadIdx.x % (BS_COLS / 2)), n = n0 + nl;
+  const bool pair = N % 2 == 0 && n + 1 < N;
+  const int rend = min(r1, M - m0);
+  for (int ml = r0 + threadIdx.x / (BS_COLS / 2); ml < rend && n < N;
+       ml += BS_THREADS / (BS_COLS / 2)) {
+    const float* at = part + ml * BS_PLD + nl;
+    float2 v = *reinterpret_cast<const float2*>(S > 1 ? cluster.map_shared_rank(at, 0) : at);
+    for (int q = 1; q < S; ++q) {        // rank order
+      const float2 t = *reinterpret_cast<const float2*>(cluster.map_shared_rank(at, q));
+      v.x = __fadd_rn(v.x, t.x);
+      v.y = __fadd_rn(v.y, t.y);
+    }
+    const size_t o = (size_t)(m0 + ml) * N + n;
+    if (bf16_out) {
+      const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(resid);
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+      if (rb != nullptr) {
+        v.x = __fadd_rn(v.x, load_f32(rb, o));
+        if (n + 1 < N) v.y = __fadd_rn(v.y, load_f32(rb, o + 1));
+      }
+      if (pair) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + o) =
+            __halves2bfloat162(__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y));
+      } else {
+        ob[o] = __float2bfloat16_rn(v.x);
+        if (n + 1 < N) ob[o + 1] = __float2bfloat16_rn(v.y);
+      }
+    } else {
+      const float* rf = static_cast<const float*>(resid);
+      float* of = static_cast<float*>(out);
+      if (rf != nullptr) {
+        v.x = __fadd_rn(v.x, rf[o]);
+        if (n + 1 < N) v.y = __fadd_rn(v.y, rf[o + 1]);
+      }
+      if (pair) {
+        *reinterpret_cast<float2*>(of + o) = v;
+      } else {
+        of[o] = v.x;
+        if (n + 1 < N) of[o + 1] = v.y;
+      }
+    }
+  }
+  if (S > 1) cluster.sync();             // no block leaves while it is read
 }
 
-template <bool LUT_BIAS, bool UNBIASED, typename T>
-cudaError_t launch_gemm(const __nv_bfloat16* x, int M, int Kp, const int* words,
-                        int Np, const float* scales, const float* corr,
-                        const void* resid, void* out, int N, cudaStream_t stream) {
+template <int BT, bool CORR>
+cudaError_t launch_bs_gemm(const CUtensorMap (&maps)[4], int M, int Kp, int Np,
+                           int lut_bias, const void* resid, void* out, int N,
+                           int bf16_out, int split, cudaStream_t stream) {
+  auto kern = blockscale_gemm<BT, CORR>;
   static bool smem_set = false;           // once, before any graph capture
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(blockscale_gemm<LUT_BIAS, UNBIASED, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)GEMM_SMEM);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         BsTile<BT, CORR>::SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  dim3 grid(Np / GB_N, (M + GB_M - 1) / GB_M);
-  blockscale_gemm<LUT_BIAS, UNBIASED, T><<<grid, 128, GEMM_SMEM, stream>>>(
-      x, M, Kp, words, Np, scales, corr, static_cast<const T*>(resid),
-      static_cast<T*>(out), N);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Np + BS_COLS - 1) / BS_COLS, (M + BT - 1) / BT, split);
+  cfg.blockDim = dim3(BS_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = BsTile<BT, CORR>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, maps[0], maps[1], maps[2], maps[3], M,
+                                     Kp, Np, lut_bias, resid, out, N, bf16_out);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <bool UNBIASED, typename T>
-cudaError_t launch_gemm_lut(int lut_bias, const __nv_bfloat16* x, int M, int Kp,
-                            const int* words, int Np, const float* scales,
-                            const float* corr, const void* resid, void* out,
-                            int N, cudaStream_t stream) {
-  return lut_bias
-      ? launch_gemm<true, UNBIASED, T>(x, M, Kp, words, Np, scales, corr, resid, out, N, stream)
-      : launch_gemm<false, UNBIASED, T>(x, M, Kp, words, Np, scales, corr, resid, out, N, stream);
+// the GEMM's tensor maps: the bf16 rows xb [M, Kp] (boxes of 64 values x
+// bt rows, 128-byte swizzle; rows past M read as zeros), the words [Kp/16,
+// Np] (16 rows of BS_WLD columns, zeros past Np), the scales [Kp/32, Np]
+// (8 rows of 128 columns) and, for K10, the split block sums [M, Kp/8]
+// (boxes of 8 values x bt rows; without them the fourth map repeats the
+// third, unread);
+// then the launch with bt rows a block and K split over split blocks
+template <bool CORR>
+cudaError_t launch_bs(const __nv_bfloat16* xb, const __nv_bfloat16* sums, int M, int Kp,
+                      const int* words, int Np, const float* scales, int lut_bias,
+                      const void* resid, void* out, int N, int bf16_out, int bt,
+                      int split, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t e = tma_map_2d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xb, Kp, M,
+                             (uint64_t)Kp * 2, 64, bt, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tma_map_2d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_INT32, words, Np, Kp / 16,
+                   (uint64_t)Np * 4, BS_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = tma_map_2d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, Np, Kp / 32,
+                   (uint64_t)Np * 4, BS_COLS, KT / 32, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess) {
+    if (CORR)
+      e = tma_map_2d(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sums, Kp / 8, M,
+                     (uint64_t)(Kp / 8) * 2, 8, bt, CU_TENSOR_MAP_SWIZZLE_NONE);
+    else
+      maps[3] = maps[2];
+  }
+  if (e != cudaSuccess) return e;
+#define BN_BS(BTV) \
+  launch_bs_gemm<BTV, CORR>(maps, M, Kp, Np, lut_bias, resid, out, N, bf16_out, split, stream)
+  switch (bt) {
+    case 8: return BN_BS(8);
+    case 16: return BN_BS(16);
+    case 32: return BN_BS(32);
+    case 64: return BN_BS(64);
+    case 128: return BN_BS(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BN_BS
+}
+
+// the shape checks of both GEMM entries
+bool bs_shape_ok(int M, int Kp, int Np, int N, int bt, int split) {
+  return M >= 1 && Kp > 0 && Kp % KT == 0 && Np % 64 == 0 && N >= 1 && N <= Np
+      && split >= 1 && split <= BS_MAX_SPLIT && (split & (split - 1)) == 0
+      && split <= Kp / KT && (bt == 8 || bt == 16 || bt == 32 || bt == 64 || bt == 128);
+}
+
+// ---------------------------------------------------------------------------
+// K10's row kernel, the first of its GEMM form's two launches: x [M, K]
+// (row stride x_stride, its own dtype) rounded to bf16 into xb [M, Kp], zero
+// past K, and the f32 sums of each 32 of those bf16 values into sum32
+// [M, Kp/32] (what the JAX wrappers form in XLA, :533-538, :1159-1166),
+// and split as the GEMM's correction reads them: sums [M, Kp/8] bf16, a K
+// tile's 32 values (hi of its 8 blocks, lo, hi, lo).
+// Block (m, i): 256 threads of 8 consecutive values, values 2048 i .. of
+// row m; four lanes hold a 32-row block.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+blockscale_rows(const T* __restrict__ x, int x_stride, int K, int Kp,
+                __nv_bfloat16* __restrict__ xb, float* __restrict__ sum32,
+                __nv_bfloat16* __restrict__ sums) {
+  const int m = blockIdx.x;
+  const int k0 = blockIdx.y * 2048 + threadIdx.x * 8;
+  if (k0 >= Kp) return;                  // whole warps: Kp % 256 == 0
+  const T* xr = x + (size_t)m * x_stride;
+  uint32_t pk[4];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 2 * i;
+    const __nv_bfloat162 b = __floats2bfloat162_rn(k < K ? load_f32(xr, k) : 0.f,
+                                                   k + 1 < K ? load_f32(xr, k + 1) : 0.f);
+    s = __fadd_rn(__fadd_rn(s, __low2float(b)), __high2float(b));
+    pk[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(xb + (size_t)m * Kp + k0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+  if ((threadIdx.x & 3) == 0) {
+    const int kb = k0 >> 5, b = kb & 7;
+    sum32[(size_t)m * (Kp / 32) + kb] = s;
+    __nv_bfloat16 hi, lo;
+    split_bf16(s, hi, lo);
+    __nv_bfloat16* q = sums + (size_t)m * (Kp / 8) + (kb >> 3) * 32;
+    q[b] = q[16 + b] = hi;
+    q[8 + b] = q[24 + b] = lo;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -736,7 +1152,7 @@ template <typename T>
 cudaError_t launch_tl_bf16(const void* x, int x_stride, int M, int K, int glu,
                            const float* gamma, float eps, const int* words, int Np,
                            const float* scales, const void* resid, void* out,
-                           int N, __nv_bfloat16* xb, int lut_bias,
+                           int N, __nv_bfloat16* xb, int lut_bias, int bt, int split,
                            cudaStream_t stream) {
   const size_t smem = (size_t)K * sizeof(float);
   if (smem > 48 * 1024) {
@@ -748,8 +1164,22 @@ cudaError_t launch_tl_bf16(const void* x, int x_stride, int M, int K, int glu,
                                          glu, gamma, eps, xb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_gemm_lut<true, T>(lut_bias, xb, M, K, words, Np, scales, nullptr,
-                                  resid, out, N, stream);
+  return launch_bs<false>(xb, nullptr, M, K, words, Np, scales, lut_bias, resid, out,
+                          N, std::is_same<T, __nv_bfloat16>::value, bt, split, stream);
+}
+
+template <typename T>
+cudaError_t launch_blockscale_gemm(const void* x, int x_stride, int M, int K, int Kp,
+                                   const int* words, int Np, const float* scales,
+                                   void* out, int N, __nv_bfloat16* xb, float* sum32,
+                                   __nv_bfloat16* sums, int lut_bias, int bt, int split,
+                                   cudaStream_t stream) {
+  blockscale_rows<T><<<dim3(M, (Kp + 2047) / 2048), 256, 0, stream>>>(
+      static_cast<const T*>(x), x_stride, K, Kp, xb, sum32, sums);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_bs<true>(xb, sums, M, Kp, words, Np, scales, lut_bias, nullptr, out, N,
+                         std::is_same<T, __nv_bfloat16>::value, bt, split, stream);
 }
 
 }  // namespace
@@ -759,17 +1189,26 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x, resid and out share it).  Each entry
 // returns cudaGetLastError() after its launches.
 
-// K10's GEMM (more rows than the decode form takes): xb bf16 [M, Kp]
-// (rounded, zero-padded); scales f32 [Kp/32, Np] of the layer; corr f32
-// [M, Np] = 2 * (sum32 @ scales); out [M, N].
-int bn_blockscale_bf16(const __nv_bfloat16* xb, int M, int Kp, const int* words,
-                       int Np, const float* scales, const float* corr, void* out,
-                       int N, int lut_bias, int dtype, cudaStream_t stream) {
+// K10's GEMM form (more rows than the decode form takes): x [M, K] in its
+// own dtype (row stride x_stride) rounded to bf16 into xb [M, Kp] (zero past
+// K) with its 32-row sums sum32 [M, Kp/32] and their bf16 split sums
+// [M, Kp/8] (scratch the wrapper allocates), then the GEMM with bt rows a
+// block (8, 16, 32, 64 or 128) and K split over split blocks of a cluster
+// (1, 2, 4 or 8, at most Kp / 256), the correction inside; scales f32
+// [Kp/32, Np] of the layer; out [M, N].  Two launches.
+int bn_blockscale_gemm(const void* x, int x_stride, int M, int K, int Kp,
+                       const int* words, int Np, const float* scales, void* out,
+                       int N, __nv_bfloat16* xb, float* sum32, __nv_bfloat16* sums,
+                       int lut_bias, int dtype, int bt, int split, cudaStream_t stream) {
+  if (!bs_shape_ok(M, Kp, Np, N, bt, split) || K < 1 || K > Kp || x_stride < K)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)launch_gemm_lut<false, __nv_bfloat16>(
-        lut_bias, xb, M, Kp, words, Np, scales, corr, nullptr, out, N, stream);
-  return (int)launch_gemm_lut<false, float>(lut_bias, xb, M, Kp, words, Np, scales,
-                                            corr, nullptr, out, N, stream);
+    return (int)launch_blockscale_gemm<__nv_bfloat16>(x, x_stride, M, K, Kp, words, Np,
+                                                      scales, out, N, xb, sum32, sums,
+                                                      lut_bias, bt, split, stream);
+  return (int)launch_blockscale_gemm<float>(x, x_stride, M, K, Kp, words, Np, scales,
+                                            out, N, xb, sum32, sums, lut_bias, bt, split,
+                                            stream);
 }
 
 // K10's decode form: x [M, K] in its own dtype (rounded to bf16 here, rows
@@ -811,18 +1250,21 @@ int bn_tl_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
 #undef BN_TL
 }
 
-// K12: M <= 64, K == Kp; xb bf16 [M, K] scratch for the preamble's rows.
+// K12: K == Kp; xb bf16 [M, K] scratch for the preamble's rows; the GEMM
+// tiled as K10's (bt, split).  Two launches.
 int bn_tl_bf16_normed(const void* x, int x_stride, int M, int K, int glu,
                       const float* gamma, float eps, const int* words, int Np,
                       const float* scales, const void* resid, void* out, int N,
-                      __nv_bfloat16* xb, int lut_bias, int dtype,
+                      __nv_bfloat16* xb, int lut_bias, int dtype, int bt, int split,
                       cudaStream_t stream) {
+  if (!bs_shape_ok(M, K, Np, N, bt, split)) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return (int)launch_tl_bf16<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
                                               words, Np, scales, resid, out, N,
-                                              xb, lut_bias, stream);
+                                              xb, lut_bias, bt, split, stream);
   return (int)launch_tl_bf16<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
-                                    scales, resid, out, N, xb, lut_bias, stream);
+                                    scales, resid, out, N, xb, lut_bias, bt, split,
+                                    stream);
 }
 
 const char* bn_ternary_matmul_tl_error(int code) {

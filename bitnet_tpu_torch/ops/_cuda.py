@@ -41,11 +41,12 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_bf16_gemm": (P, I, I, P, I, P, P, P, I, I, P),
     },
     "ternary_matmul_tl": {
-        "bn_blockscale_bf16": (P, I, I, P, I, P, P, P, I, I, I, P),
+        "bn_blockscale_gemm": (P, I, I, I, I, P, I, P, P, I, P, P, P, I, I, I, I, P),
         "bn_blockscale_decode": (P, I, I, I, P, I, P, P, I, I, I, P),
         "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, P,
                               I, I, P),
-        "bn_tl_bf16_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, I, I, P),
+        "bn_tl_bf16_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, I, I, I, I,
+                              P),
     },
     "ffn_fused": {
         "bn_ffn_w2a8": (P, I, I, P, I, P, P, I, P, P, I, I, P, P, P, P, P, P, P,

@@ -26,8 +26,10 @@ body of ``_ternary_matmul_2d`` (``:1152-1177``) and its stacked twin
 *biased* scaled weights ``bf16(v·s)``, f32 accumulation, minus the
 correction ``2·(sum32 @ s)``.  Decode rows (M ≤ ``BLOCKSCALE_DECODE_MAX_M``)
 take its decode form, one launch that rounds x to bf16 and computes the
-correction itself; more rows take its GEMM, with the correction an f32
-matmul in plain PyTorch as it is in XLA (``:1163-1166``, ``:535-539``).
+correction itself; more rows take its GEMM form, two launches: a row kernel
+(x rounded to bf16 and zero-padded to Kp, and its 32-row sums: what XLA
+forms at ``:533-538`` and ``:1159-1166``), then the wgmma GEMM, which
+subtracts the correction itself, tiled by :func:`blockscale_gemm_plan`.
 
 K11 :func:`ternary_matmul_tl_w2a8_normed` replaces
 ``ternary_matmul_stacked_tl_w2a8`` (``:960``): K1's preamble and int8 rows,
@@ -37,7 +39,8 @@ block partials, plus the residual; decode rows M ≤ 2.
 K12 :func:`ternary_matmul_tl_bf16_normed` replaces
 ``ternary_matmul_stacked_tl_fused`` (``:733``): the same preamble ending in
 bf16 rows, times the *unbiased* weights ``bf16((v−2)·s)``, f32
-accumulation, plus the residual; pools of M = 3…64.
+accumulation, plus the residual; pools of M = 3…64.  Its GEMM is K10's,
+unbiased, with the residual in its epilogue.
 
 All take the whole ``[L, Kp/16, Np]`` stack and a Python layer
 index, as the JAX stacked wrappers do; on a GPU ``packed[l]`` is a view,
@@ -438,21 +441,64 @@ def _check_block_stack(packed, scales, l, k_dim):
 
 
 # The rows up to which K10 takes its decode form: the largest M of {1, 2, 4,
-# 8, 16} at which it was no slower than the GEMM over the generic path's
-# seven shapes on the H100 (PERF.md, Findings), and the most the kernel
-# takes.
-BLOCKSCALE_DECODE_MAX_M = 16
+# 8, 16} at which it was no slower than the GEMM form over the generic
+# path's seven shapes on the H100 (PERF.md, Findings: the MB table of the
+# wgmma GEMM).  The decode form itself takes up to 16 rows.
+BLOCKSCALE_DECODE_MAX_M = 2
 
 
-def _blockscale_rows(x, scales_l, Kp):
-    """The GEMM's operands: x zero-padded to Kp and rounded to bf16, and the
-    correction ``2·(sum32 @ s)``, which sums the same bf16-rounded values in
-    f32 (``Precision.HIGHEST`` in XLA; the matmul is never TF32, PyTorch's
-    default)."""
+def blockscale_rows_plain(x: torch.Tensor, Kp: int):
+    """The plain version of K10's row kernel: x [M, K] zero-padded to Kp and
+    rounded to bf16 (the JAX wrappers pad in f32, then round: the same
+    values), and the f32 sums of each 32 of those bf16 values; returns
+    (xb bf16 [M, Kp], sum32 f32 [M, Kp/32])."""
     M, k_dim = x.shape
     xb = torch.nn.functional.pad(x.to(torch.bfloat16), (0, Kp - k_dim)).contiguous()
-    sum32 = xb.to(torch.float32).view(M, Kp // 32, 32).sum(dim=-1)
-    return xb, 2.0 * torch.matmul(sum32, scales_l)
+    return xb, xb.to(torch.float32).view(M, Kp // 32, 32).sum(dim=-1)
+
+
+def blockscale_sums_split(sum32: torch.Tensor) -> torch.Tensor:
+    """The 32-row sums as the GEMM form's correction reads them (the row
+    kernel's third output): each f32 sum split into bf16 hi = bf16(v) and
+    lo = bf16(v − hi), and each K tile's 8 blocks laid out as 32 values
+    (hi of the 8, lo, hi, lo); [M, Kp/32] f32 → [M, Kp/8] bf16."""
+    M, nb = sum32.shape
+    hi = sum32.to(torch.bfloat16)
+    lo = (sum32 - hi.to(torch.float32)).to(torch.bfloat16)
+    hi, lo = hi.view(M, nb // 8, 1, 8), lo.view(M, nb // 8, 1, 8)
+    return torch.cat([hi, lo, hi, lo], dim=2).view(M, nb * 4)
+
+
+def blockscale_correction(sum32: torch.Tensor, scales_l: torch.Tensor) -> torch.Tensor:
+    """K10's bias correction ``2·(sum32 @ s)`` [M, Np], an f32 matmul
+    (``Precision.HIGHEST`` in XLA; the matmul is never TF32, PyTorch's
+    default).  The GEMM form subtracts it inside the kernel instead."""
+    return 2.0 * torch.matmul(sum32, scales_l)
+
+
+# K10's GEMM form and K12 share one wgmma GEMM: a block computes
+# ``BLOCKSCALE_GEMM_COLS`` output columns × BT rows, BT the smallest of
+# ``BLOCKSCALE_GEMM_ROWS`` that holds M (the largest above it), so K12's
+# pool of 8 fills an 8-row tile.  K is split over a cluster of 2, 4 or 8
+# blocks while the blocks, doubled, still fit the card's SMs and every block
+# keeps a 256-row K tile at least: at M = 8 the fused four's o and down
+# (N = 2560) run 20 column blocks × 4, the generic seven's k and v (N = 640)
+# 5 × 8.
+BLOCKSCALE_GEMM_ROWS = (8, 16, 32, 64, 128)
+BLOCKSCALE_GEMM_COLS = 128
+BLOCKSCALE_GEMM_MAX_SPLIT = 8
+
+
+def blockscale_gemm_plan(M: int, Kp: int, Np: int, sms: int) -> tuple[int, int]:
+    """(BT, split) of the block-scale GEMM for M rows × [Kp, Np] words on
+    ``sms`` SMs."""
+    bt = next((b for b in BLOCKSCALE_GEMM_ROWS if b >= M), BLOCKSCALE_GEMM_ROWS[-1])
+    blocks = -(-Np // BLOCKSCALE_GEMM_COLS) * -(-M // bt)
+    split = 1
+    while (split < BLOCKSCALE_GEMM_MAX_SPLIT and 2 * split * blocks <= sms
+           and 2 * split <= Kp // 256):
+        split *= 2
+    return bt, split
 
 
 def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor,
@@ -463,16 +509,18 @@ def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor
     wrappers pad in f32, then round: the same values).  Returns [M, n_dim]
     in x's dtype.  On the card, M ≤ ``BLOCKSCALE_DECODE_MAX_M`` rows take
     the decode form (one launch, the correction inside), more rows the
-    GEMM with its correction outside."""
+    GEMM form (two launches, the correction inside); neither runs another
+    PyTorch op than ``torch.empty``."""
     L, Kp, Np = _check_block_stack(packed, scales, l, k_dim)
     if x.ndim != 2 or x.shape[1] != k_dim:
         raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
     if n_dim > Np:
         raise ValueError(f"n_dim {n_dim} > Np {Np}")
     if x.device.type == "cpu":
-        xb, corr = _blockscale_rows(x, scales[l], Kp)
-        return ternary_matmul_blockscale_bf16_plain(xb, corr, packed[l], scales[l],
-                                                    n_dim, lut_bias, x.dtype)
+        xb, sum32 = blockscale_rows_plain(x, Kp)
+        return ternary_matmul_blockscale_bf16_plain(
+            xb, blockscale_correction(sum32, scales[l]), packed[l], scales[l], n_dim,
+            lut_bias, x.dtype)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K10 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
     if packed.get_device() != x.get_device() or scales.get_device() != x.get_device():
@@ -480,7 +528,7 @@ def ternary_matmul_blockscale_bf16(l: int, x: torch.Tensor, packed: torch.Tensor
     if x.shape[0] <= BLOCKSCALE_DECODE_MAX_M:
         out = _blockscale_decode_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias)
     else:
-        out = _blockscale_gemm_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias)
+        out = _blockscale_gemm_launch(l, x, packed, scales, k_dim, n_dim, lut_bias)[0]
     ternary_matmul_blockscale_bf16.launches += 1
     return out
 
@@ -501,20 +549,43 @@ def _blockscale_decode_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias):
     return out
 
 
-def _blockscale_gemm_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias):
-    """K10's GEMM on checked operands, any M ≥ 1: x padded and rounded,
-    the correction in plain PyTorch, one launch.  Counts no launch."""
+def _blockscale_gemm_launch(l, x, packed, scales, k_dim, n_dim, lut_bias):
+    """Launch K10's GEMM form on checked operands, any M ≥ 1 (x's rows each
+    contiguous): the row kernel, then the GEMM, tiled by
+    :func:`blockscale_gemm_plan`.  Returns (out, scratch): scratch holds the
+    bf16 rows, their 32-row sums, then those sums split for the correction.
+    Layer ``l`` is addressed by pointer offset."""
+    if x.stride(1) != 1:
+        raise ValueError("K10's GEMM form takes rows that are each contiguous")
     M, Kp, Np = x.shape[0], packed.shape[1] * 16, packed.shape[2]
-    xb, corr = _blockscale_rows(x, scales[l], Kp)
-    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    dev = x.device
+    bt, split = blockscale_gemm_plan(M, Kp, Np, _sm_count(dev.index))
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
+    scratch = torch.empty(M * Kp * 2 + M * Kp // 8 + M * Kp // 4, dtype=torch.uint8,
+                          device=dev)
+    p = scratch.data_ptr()
     lib = _cuda.library("ternary_matmul_tl")
-    rc = lib.bn_blockscale_bf16(
-        xb.data_ptr(), M, Kp, packed.data_ptr() + 4 * l * packed.stride(0), Np,
-        scales.data_ptr() + 4 * l * scales.stride(0), corr.data_ptr(),
-        out.data_ptr(), n_dim, int(lut_bias), _DTYPE_CODE[x.dtype],
-        _cuda.stream_ptr(x.device))
+    rc = lib.bn_blockscale_gemm(
+        x.data_ptr(), x.stride(0), M, k_dim, Kp,
+        packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scales.data_ptr() + 4 * l * scales.stride(0), out.data_ptr(), n_dim,
+        p, p + M * Kp * 2, p + M * Kp * 2 + M * Kp // 8, int(lut_bias),
+        _DTYPE_CODE[x.dtype], bt, split, _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_blockscale_bf16")
-    return out
+    return out, scratch
+
+
+def _blockscale_gemm_cuda(l, x, packed, scales, k_dim, n_dim, lut_bias):
+    """K10's GEMM form with its row kernel's output: (out, xb [M, Kp] bf16,
+    sum32 [M, Kp/32] f32, split [M, Kp/8] bf16), so a check can hold them
+    against :func:`blockscale_rows_plain` and :func:`blockscale_sums_split`.
+    Counts no launch."""
+    out, scratch = _blockscale_gemm_launch(l, x, packed, scales, k_dim, n_dim, lut_bias)
+    M, Kp = x.shape[0], packed.shape[1] * 16
+    a, b = M * Kp * 2, M * Kp * 2 + M * Kp // 8
+    return (out, scratch[:a].view(torch.bfloat16).view(M, Kp),
+            scratch[a:b].view(torch.float32).view(M, Kp // 32),
+            scratch[b:].view(torch.bfloat16).view(M, Kp // 8))
 
 
 ternary_matmul_blockscale_bf16.launches = 0
@@ -666,15 +737,30 @@ def ternary_matmul_tl_bf16_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                   resid: torch.Tensor | None = None,
                                   lut_bias: bool = False) -> torch.Tensor:
     """K12: ``[resid +] bf16(norm(glu(x))) @ W[l]`` with the unbiased
-    block-scaled weights, M ≤ 64 (one M block).  Operands as K11's."""
+    block-scaled weights, M ≤ 64.  Operands as K11's.  On the card a call
+    is two launches (the preamble, then the GEMM) and no other PyTorch op
+    than ``torch.empty``."""
     if not _check_normed_block("K12", l, x, packed, scales, gamma, k_dim, n_dim,
                                glu, resid, STACKED_DECODE_MAX_M):
         return ternary_matmul_tl_bf16_normed_plain(
             x, packed[l], scales[l], None if gamma is None else gamma[l], eps,
             glu, resid, n_dim, lut_bias)
+    out = _tl_bf16_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu,
+                          resid, lut_bias)
+    ternary_matmul_tl_bf16_normed.launches += 1
+    return out
+
+
+def _tl_bf16_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
+                    lut_bias):
+    """Launch K12 on checked operands, any M ≥ 1: the preamble, then the
+    block-scale GEMM unbiased, tiled by :func:`blockscale_gemm_plan`, with
+    the residual in its epilogue.  Counts no launch."""
     M, Np = x.shape[0], packed.shape[2]
-    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
-    xb = torch.empty((M, k_dim), dtype=torch.bfloat16, device=x.device)
+    dev = x.device
+    bt, split = blockscale_gemm_plan(M, k_dim, Np, _sm_count(dev.index))
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
+    xb = torch.empty((M, k_dim), dtype=torch.bfloat16, device=dev)
     lib = _cuda.library("ternary_matmul_tl")
     rc = lib.bn_tl_bf16_normed(
         x.data_ptr(), x.shape[1], M, k_dim, int(glu),
@@ -682,10 +768,9 @@ def ternary_matmul_tl_bf16_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
         packed.data_ptr() + 4 * l * packed.stride(0), Np,
         scales.data_ptr() + 4 * l * scales.stride(0),
         None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
-        xb.data_ptr(), int(lut_bias), _DTYPE_CODE[x.dtype],
-        _cuda.stream_ptr(x.device))
+        xb.data_ptr(), int(lut_bias), _DTYPE_CODE[x.dtype], bt, split,
+        _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_tl_bf16_normed")
-    ternary_matmul_tl_bf16_normed.launches += 1
     return out
 
 

@@ -7,8 +7,11 @@ Run on the card from the repository root:
 
 It splits what ``chip_smoke.py`` times per wrapper into the kernels that
 ran (K1's fused GEMV, K4's row quantization and wgmma GEMM at M = 8, 512
-and 2048, K2's two passes) and prints one JSON line per case with the
-card's name and power limit.  Weights and caches cycle over 8 layers.
+and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
+its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
+the f32 correction matmul K10's GEMM form no longer runs; K2's two passes)
+and prints one JSON line per case with the card's name and power limit.
+Weights and caches cycle over 8 layers.
 """
 
 from __future__ import annotations
@@ -43,6 +46,25 @@ def _cases(dev, g):
             x4 = torch.randn((M, K), generator=g, device=dev).bfloat16()
             yield f"K4 {name} M={M}", lambda i, w=w, sv=sv, x4=x4, K=K, N=N: (
                 tm.ternary_matmul_w2a8(i % LAYERS, x4, w, sv, K, N))
+    for name, K, N, glu, res in SHAPES:            # bitnet32 / TL weights
+        w = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+        s = (torch.rand((LAYERS, K // 32, N), generator=g, device=dev) * 0.02 + 0.01)
+        gam = torch.rand((LAYERS, K), generator=g, device=dev) + 0.5
+        for M in (8, 512, 2048):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            # K10's GEMM form at any M (the wrapper takes its decode form at 8)
+            yield f"K10 gemm {name} M={M}", lambda i, w=w, s=s, x=x, K=K, N=N: (
+                tm._blockscale_gemm_cuda(i % LAYERS, x, w, s, K, N, False))
+            x12 = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+            r = torch.randn((M, N), generator=g, device=dev).bfloat16() if res else None
+            # K12 past its pools' 64 rows: the same launches, uncounted
+            yield f"K12 {name} M={M}", lambda i, w=w, s=s, x=x12, K=K, N=N, glu=glu, r=r, gam=gam: (
+                tm._tl_bf16_launch(i % LAYERS, x, w, s, gam, K, N, 1e-5, glu, r, False))
+            if M > 8:
+                sum32 = torch.randn((M, K // 32), generator=g, device=dev)
+                yield f"K10 correction matmul {name} M={M}", lambda i, s=s, sum32=sum32: (
+                    tm.blockscale_correction(sum32, s[i % LAYERS]))
     for S in (1024, 4096):
         kc = torch.randn((LAYERS, 1, S, 640), generator=g, device=dev).bfloat16()
         vc = torch.randn_like(kc)

@@ -23,6 +23,11 @@ no result line):
            prototype (K28-K32): error, median ms (CUDA events), bound, plain
            and library ms; K10's decode form and GEMM side by side at
            M <= 16 (kernels.k10_mb: the rows where the wrapper switches);
+           K10's GEMM form at M = 17..2048 with its bf16 rows and 32-row
+           sums, its M table over the fused four beside the library and the
+           correction matmul it replaced (kernels.k10_m), K10's GEMM and K12
+           in every forced tile / K split and their two launches under the
+           profiler (kernels.k10_profile, kernels.k12_profile);
            K4 bit for bit with its int8 rows at M = 8..2048 on the 2B and
            8B shapes and in every forced tile / K split, its M table over
            the fused four beside torch._int_mm (kernels.k4_m), and its two
@@ -212,6 +217,13 @@ def phase_kernels(torch, dev):
         {"M": M, **{f: sum(r[f] for r in res["k10"] if r["path"] == "unfused"
                            and r["M"] == M and f in r) for f in ("decode_ms", "gemm_ms")}}
         for M in (1, 2, 4, 8, 16)]
+    # the M table: K10's GEMM form over the fused four, per M
+    res["k10_m"] = [
+        {"M": M, **{f: sum(r[f] for r in res["k10"] if r["path"] == "fused"
+                           and r["M"] == M and "ms" in r)
+                    for f in ("ms", "library_ms", "corr_ms", "bound_ms", "plain_ms")}}
+        for M in K10_TIMED]
+    check_k10_forms(torch, dev, g, res)
     check_k11_k12(torch, dev, g, res)
     check_plan_kernels(torch, dev, g, res)
     # slice 6: the 8B down projection (K = 14336) on K1's and K11's two-kernel
@@ -440,9 +452,6 @@ def check_k4_forms(torch, dev, g, res):
     wrapper's plan, bit for bit: ragged M, N = 192 (a block whose second
     column half lies past Np) and 640, f32 and bf16 x; then one call under
     the profiler: two kernels and no ATen op but ``aten::empty``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     K = 2048
@@ -467,16 +476,10 @@ def check_k4_forms(torch, dev, g, res):
                 res["k4"].append(row)
                 if not row["ok"]:
                     raise AssertionError(f"K4 form mismatch: {row}")
-    x = torch.randn((512, K), generator=g, device=dev).to(torch.bfloat16)
-    tm.ternary_matmul_w2a8(1, x, words, sv, K, 640)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tm.ternary_matmul_w2a8(1, x, words, sv, K, 640)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
-    res["k4_profile"] = {"kernels": kernels, "aten_ops": ops,
-                         "ok": len(kernels) == 2 and set(ops) <= {"aten::empty"}}
+    res["k4_profile"] = _profile_call(
+        "w, sv = words(2048, 640, False)\n"
+        "x = torch.randn((512, 2048), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_w2a8(1, x, w, sv, 2048, 640)", "ternary_matmul_w2a8")
     if not res["k4_profile"]["ok"]:
         raise AssertionError(f"K4 launched more than its two kernels: {res['k4_profile']}")
 
@@ -834,24 +837,42 @@ def _block_bytes(M, K, N, x_bytes, out_bytes, extra=0):
 # K10's extra shapes: the 8B down projection (K = 14336) and the tl phase's
 # (d) down projection, K = 6784 < Kp = 6912 (x rows past K read as 0)
 K10_WIDE = (("down_8b", 14336, 4096, "8b"), ("down_6784", 6784, 2560, "unaligned"))
+# the GEMM form's rows over the fused four, each timed (the M table)
+K10_TIMED = (17, 64, 128, 512, 2048)
+
+
+def _sum32_ok(torch, got, want, xb):
+    """32-row sums of the same bf16 values in two orders: within the f32
+    bound of either order, 2·31·2^-24·Σ|x| a block."""
+    abs32 = xb.float().abs().view(xb.shape[0], -1, 32).sum(-1)
+    return bool(((got - want).abs() <= 2 * 31 * 2.0**-24 * abs32).all())
 
 
 def check_k10(torch, dev, g, res):
     """K10 against its plain version: the generic path's seven unfused
-    shapes at M in {1, 2, 4, 8, 16} (the ``:1177`` site's decode), the fused
-    four at M in {1, 512} (M=1: the stacked ``:555`` site's decode; M=512:
-    a prefill bucket), K = 14336 and K = 6784 (K < Kp) at M in {1, 2, MB};
+    shapes at M in {1, 2, 4, 8, 16, 512} (the ``:1177`` site's decode, and a
+    prefill bucket), the fused four at M in {1} + K10_TIMED (M=1: the stacked
+    ``:555`` site's decode; more rows: the GEMM form of every bitnet32 / TL
+    prefill), K = 14336 and K = 6784 (K < Kp) at M in {1, 2, MB, MB + 1, 77};
     lut_bias both ways, bf16 and f32 x.  At M <= 16 both forms (the decode
     form and the GEMM) are held against the plain version and timed side by
     side (the MB table), the wrapper's output equals the form it takes bit
-    for bit, and two decode-form calls give the same bits.  Wrapper times
-    (``ms``, plain and library) on TL weights and bf16 x at M=1 and 512."""
+    for bit, and two decode-form calls give the same bits.  Past MB the GEMM
+    form's bf16 rows equal ``blockscale_rows_plain``'s bit for bit, its
+    32-row sums agree to f32 order (their bf16 split is
+    ``blockscale_sums_split`` of them bit for bit), and two calls give the
+    same bits.
+    Wrapper times (``ms``, plain and library) on TL weights and bf16 x at
+    M=1 and 512, and at every K10_TIMED M on the fused four, with the time
+    of the f32 correction matmul the GEMM form no longer runs
+    (``corr_ms``)."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     MB = tm.BLOCKSCALE_DECODE_MAX_M
-    cells = ([("unfused", n, K, N, (1, 2, 4, 8, 16)) for n, K, N, *_ in UNFUSED_SHAPES]
-             + [("fused", n, K, N, (1, 512)) for n, K, N, *_ in K1_SHAPES]
-             + [(path, n, K, N, (1, 2, MB)) for n, K, N, path in K10_WIDE])
+    cells = ([("unfused", n, K, N, (1, 2, 4, 8, 16, 512)) for n, K, N, *_ in UNFUSED_SHAPES]
+             + [("fused", n, K, N, (1,) + K10_TIMED) for n, K, N, *_ in K1_SHAPES]
+             + [(path, n, K, N, sorted({1, 2, MB, MB + 1, 77}))
+                for n, K, N, path in K10_WIDE])
     for path, name, K, N, Ms in cells:
         Kp = -(-K // 256) * 256
         words, s = _block_stack(torch, g, Kp, N, dev)
@@ -863,7 +884,8 @@ def check_k10(torch, dev, g, res):
                     x = torch.randn((M, K), generator=g, device=dev).to(dtype)
                     l = 1
                     out = tm.ternary_matmul_blockscale_bf16(l, x, words, s, K, N, lut_bias)
-                    xb, corr = tm._blockscale_rows(x, s[l], Kp)
+                    xb, sum32 = tm.blockscale_rows_plain(x, Kp)
+                    corr = tm.blockscale_correction(sum32, s[l])
                     plain = tm.ternary_matmul_blockscale_bf16_plain(
                         xb, corr, words[l], s[l], N, lut_bias, dtype)
                     ref = plain.float().abs().max().item()
@@ -875,9 +897,10 @@ def check_k10(torch, dev, g, res):
                     # form's IEEE f32 sums of K terms of random sign stay
                     # within ~sqrt(K) * 2^-24 of their magnitudes, under
                     # 1e-6 of the largest output here: 1e-5 of it; the
-                    # GEMM's mma.sync accumulates without IEEE rounding
-                    # (its addends are aligned and truncated): up to 2.3e-5
-                    # of the largest output seen on the H100, so 1e-4 of it
+                    # GEMM's wgmma accumulates without IEEE rounding (its
+                    # addends are aligned and truncated), as mma.sync did
+                    # (up to 2.3e-5 of the largest output seen on the
+                    # H100): 1e-4 of it
                     if dtype == torch.bfloat16:
                         tol = tol_gemm = 8e-3 * ref
                     else:
@@ -888,9 +911,14 @@ def check_k10(torch, dev, g, res):
                            "tol": tol, "tol_gemm": tol_gemm, "form": form}
                     errs = [(out.float() - plain.float()).abs().max().item()]
                     ok = errs[0] <= (tol if form == "decode" else tol_gemm)
+                    gem, gxb, gsum, gsplit = tm._blockscale_gemm_cuda(l, x, words, s, K, N,
+                                                                      lut_bias)
+                    row["rows_exact"] = bool(torch.equal(gxb, xb) and torch.equal(
+                        gsplit, tm.blockscale_sums_split(gsum)))
+                    row["sum32_ok"] = _sum32_ok(torch, gsum, sum32, xb)
+                    ok = ok and row["rows_exact"] and row["sum32_ok"]
                     if M <= 16:
                         dec = tm._blockscale_decode_cuda(l, x, words, s, K, N, lut_bias)
-                        gem = tm._blockscale_gemm_cuda(l, x, words, s, K, N, lut_bias)
                         dec2 = tm._blockscale_decode_cuda(l, x, words, s, K, N, lut_bias)
                         row["decode_err"] = (dec.float() - plain.float()).abs().max().item()
                         row["gemm_err"] = (gem.float() - plain.float()).abs().max().item()
@@ -901,6 +929,12 @@ def check_k10(torch, dev, g, res):
                         ok = (ok and row["decode_err"] <= tol
                               and row["gemm_err"] <= tol_gemm
                               and row["wrapper_is_form"] and row["decode_repeats"])
+                    else:
+                        again = tm.ternary_matmul_blockscale_bf16(l, x, words, s, K, N,
+                                                                  lut_bias)
+                        row["wrapper_is_form"] = bool(torch.equal(out, gem))
+                        row["gemm_repeats"] = bool(torch.equal(out, again))
+                        ok = ok and row["wrapper_is_form"] and row["gemm_repeats"]
                     row["max_abs_err"] = max(errs)
                     row["ok"] = ok
                     bf16_tl = not lut_bias and dtype == torch.bfloat16
@@ -908,8 +942,9 @@ def check_k10(torch, dev, g, res):
                         row["decode_ms"] = time_ms(torch, lambda i: tm._blockscale_decode_cuda(
                             i % L, x, words, s, K, N, False), L)
                         row["gemm_ms"] = time_ms(torch, lambda i: tm._blockscale_gemm_cuda(
-                            i % L, x, words, s, K, N, False), L)
-                    if bf16_tl and M in (1, 512) and path != "unaligned":
+                            i % L, x, words, s, K, N, False)[0], L)
+                    timed = M in (1, 512) or (path == "fused" and M in K10_TIMED)
+                    if bf16_tl and timed and path in ("unfused", "fused"):
                         row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_blockscale_bf16(
                             i % L, x, words, s, K, N, False), L)
                         row["plain_ms"] = time_ms(torch, lambda i: (
@@ -919,6 +954,9 @@ def check_k10(torch, dev, g, res):
                         row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
                             x, dense[i % len(dense)]), 2 * len(dense))
                         del dense
+                        if M > MB:
+                            row["corr_ms"] = time_ms(torch, lambda i: tm.blockscale_correction(
+                                sum32, s[i % L]), L)
                         row["bound_ms"], row["bound_by"] = bound(
                             _block_bytes(M, K, N, 2, 2), 2.0 * M * K * N, "bf16")
                     res["k10"].append(row)
@@ -927,12 +965,128 @@ def check_k10(torch, dev, g, res):
         del words, s
 
 
+# One profiled call in a fresh process: in a process that had run much else
+# the profiler on the card now and then caught no kernel at all (alone, the
+# same call shows its kernels).  The child builds its operands from a seed,
+# makes one call to build and warm up, profiles one call, and prints the
+# kernels, the ATen ops and the launches the wrapper counted.
+_PROFILE_CHILD = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from bitnet_tpu_torch.ops import ternary_matmul as tm
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+def words(K, N, scale_rows):
+    return (torch.randint(-2**31, 2**31, (2, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev),
+            torch.rand((2, K // 32, N) if scale_rows else (2, N), generator=g,
+                       device=dev) * 0.02 + 0.01)
+{setup}
+call = lambda: {call}
+call()
+torch.cuda.synchronize()
+before = tm.{counter}.launches
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps({{
+    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA],
+    "aten_ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
+    "launches": tm.{counter}.launches - before}}))
+"""
+
+
+def _profile_call(setup, call, counter):
+    """The CUDA kernels and ATen ops of one wrapper call, profiled in a
+    fresh process (``_PROFILE_CHILD``); ok when the wrapper counted one
+    launch, the profiler saw two kernels and no ATen op but
+    ``aten::empty``."""
+    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=REPO)
+    if r.returncode != 0:
+        raise AssertionError(f"profiled call failed: {r.stderr[-3000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["ok"] = (out["launches"] == 1 and len(out["kernels"]) == 2
+                 and set(out["aten_ops"]) <= {"aten::empty"})
+    return out
+
+
+def check_k10_forms(torch, dev, g, res, eps=1e-5):
+    """Every form of the block-scale GEMM (BT rows a block x a K split of
+    1-8), forced past the plan, for K10's GEMM form and K12: ragged M, N =
+    192 (a block whose second column half lies past Np) and 640, f32 and
+    bf16 x, K10 at K < Kp, K12 with SwiGLU, norm and the residual, against
+    the plain versions (the tolerances of check_k10 and check_k11_k12); then
+    one call each under the profiler: two kernels and no ATen op but
+    ``aten::empty``."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    Kp = 2048
+    for N, dtype in ((192, torch.float32), (640, torch.bfloat16)):
+        words, s = _block_stack(torch, g, Kp, N, dev, min_bytes=0)
+        s[:, (Kp - 96) // 32:] = 0            # K10's K < Kp, as the loader pads
+        gamma = torch.rand((words.shape[0], Kp), generator=g, device=dev) + 0.5
+        for bt in tm.BLOCKSCALE_GEMM_ROWS:
+            for split in (1, 2, 4, 8):
+                M, K = bt + 1, Kp - 96
+                with mock.patch.object(tm, "blockscale_gemm_plan", lambda *a: (bt, split)):
+                    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                    out, xb_k, sum_k, split_k = tm._blockscale_gemm_cuda(1, x, words, s, K,
+                                                                        N, True)
+                    x12 = torch.randn((M, 2 * Kp), generator=g, device=dev).to(dtype)
+                    r12 = torch.randn((M, N), generator=g, device=dev).to(dtype)
+                    out12 = tm._tl_bf16_launch(1, x12, words, s, gamma, Kp, N, eps, True,
+                                               r12, False)
+                xb, sum32 = tm.blockscale_rows_plain(x, Kp)
+                plain = tm.ternary_matmul_blockscale_bf16_plain(
+                    xb, tm.blockscale_correction(sum32, s[1]), words[1], s[1], N, True,
+                    dtype)
+                plain12 = tm.ternary_matmul_tl_bf16_normed_plain(
+                    x12, words[1], s[1], gamma[1], eps, True, r12, N, False)
+                ref = plain.float().abs().max().item()
+                ref12 = plain12.float().abs().max().item()
+                err = (out.float() - plain.float()).abs().max().item()
+                err12 = (out12.float() - plain12.float()).abs().max().item()
+                tol = (8e-3 if dtype == torch.bfloat16 else 1e-4) * ref
+                tol12 = 1e-2 * ref12 + 1e-3
+                row = {"path": "forms", "M": M, "K": K, "Kp": Kp, "N": N, "bt": bt,
+                       "split": split, "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": err, "tol": tol, "k12_err": err12, "k12_tol": tol12,
+                       "rows_exact": bool(torch.equal(xb_k, xb) and torch.equal(
+                           split_k, tm.blockscale_sums_split(sum_k))),
+                       "sum32_ok": _sum32_ok(torch, sum_k, sum32, xb)}
+                row["ok"] = (err <= tol and err12 <= tol12 and row["rows_exact"]
+                             and row["sum32_ok"])
+                res["k10"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K10 / K12 form mismatch: {row}")
+    res["k10_profile"] = _profile_call(
+        "w, s = words(2560, 640, True)\n"
+        "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, False)",
+        "ternary_matmul_blockscale_bf16")
+    res["k12_profile"] = _profile_call(
+        "w, s = words(2560, 640, True)\n"
+        "gamma = torch.rand((2, 2560), generator=g, device=dev) + 0.5\n"
+        "x = torch.randn((8, 2560), generator=g, device=dev).bfloat16()\n"
+        "r = torch.randn((8, 640), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gamma, 2560, 640, 1e-5, False, r)",
+        "ternary_matmul_tl_bf16_normed")
+    for key in ("k10_profile", "k12_profile"):
+        if not res[key]["ok"]:
+            raise AssertionError(f"{key[:3].upper()} launched more than its two "
+                                 f"kernels: {res[key]}")
+
+
 def check_k11_k12(torch, dev, g, res, eps=1e-5):
     """K11 (W2A8 with block scales, M in {1, 2}) and K12 (bf16 rows x the
-    unbiased block-scaled weights, M in {8, 64}) at the fused path's four
-    shapes, against their plain versions, lut_bias both ways.  K11's int8
-    rows are K1's on the same input bit for bit, and its output equals the
-    exact block partials of its own rows to f32 rounding."""
+    unbiased block-scaled weights, M in {3, 8, 33, 64}) at the fused path's
+    four shapes, against their plain versions, lut_bias both ways.  K11's
+    int8 rows are K1's on the same input bit for bit, and its output equals
+    the exact block partials of its own rows to f32 rounding; two K12 calls
+    give the same bits.  Timed at M=1 (K11) and M = 8, 64 (K12)."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     for name, K, N, has_g, glu, has_r in K1_SHAPES:
@@ -940,7 +1094,7 @@ def check_k11_k12(torch, dev, g, res, eps=1e-5):
         L = words.shape[0]
         gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
         ones = torch.ones((L, N), device=dev)
-        for key, Ms in (("k11", (1, 2)), ("k12", (8, 64))):
+        for key, Ms in (("k11", (1, 2)), ("k12", (3, 8, 33, 64))):
             fn = (tm.ternary_matmul_tl_w2a8_normed if key == "k11"
                   else tm.ternary_matmul_tl_bf16_normed)
             pfn = (tm.ternary_matmul_tl_w2a8_normed_plain if key == "k11"
@@ -983,7 +1137,12 @@ def check_k11_k12(torch, dev, g, res, eps=1e-5):
                         ok = ok and row["rows_equal_k1"] and row["wrapper_equals_launch"] \
                             and row["partials_epilogue_ok"]
                     row["ok"] = ok
-                    timed = not lut_bias and M in (1, 8)
+                    if key == "k12":             # two calls, the same bits
+                        again = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
+                        row["repeats"] = bool(torch.equal(out, again))
+                        ok = ok and row["repeats"]
+                        row["ok"] = ok
+                    timed = not lut_bias and M in (1, 8, 64)
                     if timed:
                         row["ms"] = time_ms(torch, lambda i: fn(
                             i % L, x, words, s, gamma, K, N, eps, glu, resid, False), L)

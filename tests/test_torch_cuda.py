@@ -134,6 +134,92 @@ def test_k4_runs_two_kernels_and_no_pytorch_op(dev):
     assert torch.equal(first, again)
 
 
+# One profiled call in a fresh process: a process that had run the other
+# card tests of this file caught no kernel in the profiler (alone, and in
+# chip_smoke.py, the same calls show theirs).  The child builds its
+# operands from a seed, makes one call to build and warm up, then profiles
+# one call, and prints the kernels, the ATen ops and the launch count.
+_PROFILE_CHILD = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from bitnet_tpu_torch.ops import ternary_matmul as tm
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+def words(K, N):
+    return (torch.randint(-2**31, 2**31, (2, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev),
+            (torch.rand((2, K // 32, N), generator=g, device=dev) * 0.02 + 0.01))
+{setup}
+call = lambda: {call}
+call()
+torch.cuda.synchronize()
+before = tm.{counter}.launches
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps({{
+    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA],
+    "ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
+    "launches": tm.{counter}.launches - before}}))
+"""
+
+
+def _profiled_call(setup, call, counter):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=600, cwd=Path(__file__).resolve().parent.parent)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["launches"] == 1, out
+    return out["kernels"], set(out["ops"])
+
+
+def test_k10_decode_form_runs_no_pytorch_op(dev):
+    """At M=1 the wrapper launches K10's decode form and nothing else: the
+    profiler sees one kernel, and no ATen op but the output's allocation."""
+    kernels, ops = _profiled_call(
+        "w, s = words(2560, 640)\nx = torch.randn((1, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, True)",
+        "ternary_matmul_blockscale_bf16")
+    assert len(kernels) == 1 and "blockscale_decode" in kernels[0], kernels
+    assert ops <= {"aten::empty"}, ops
+
+
+def test_k10_gemm_form_runs_two_kernels_and_no_pytorch_op(dev):
+    """Past MB rows a K10 call is the row kernel and the GEMM: the profiler
+    sees two kernels, and no ATen op but the allocations."""
+    kernels, ops = _profiled_call(
+        "w, s = words(2560, 640)\nx = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, False)",
+        "ternary_matmul_blockscale_bf16")
+    assert len(kernels) == 2, kernels
+    assert sorted("blockscale_rows" in k for k in kernels) == [False, True], kernels
+    assert all("blockscale_rows" in k or "blockscale_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
+
+
+def test_k12_runs_two_kernels_and_no_pytorch_op(dev):
+    """A K12 call is the preamble and the GEMM: two kernels, no ATen op but
+    the allocations."""
+    kernels, ops = _profiled_call(
+        "w, s = words(2560, 640)\n"
+        "gamma = torch.rand((2, 2560), generator=g, device=dev) + 0.5\n"
+        "x = torch.randn((8, 2560), generator=g, device=dev).bfloat16()\n"
+        "r = torch.randn((8, 640), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gamma, 2560, 640, 1e-5, False, r)",
+        "ternary_matmul_tl_bf16_normed")
+    assert len(kernels) == 2, kernels
+    assert sorted("bf16_rows" in k for k in kernels) == [False, True], kernels
+    assert all("bf16_rows" in k or "blockscale_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
+
+
 @pytest.mark.parametrize("pos", [[0], [1], [200], [255, 17]])
 def test_k2_matches_plain(dev, pos):
     g = torch.Generator(device=dev).manual_seed(sum(pos))
@@ -427,6 +513,114 @@ def test_k10_matches_plain(dev, M, k, lut_bias, dtype):
     assert (out.float() - plain.float()).abs().max() <= 8e-3 * ref + 1e-6
 
 
+# K10's GEMM form at the main path's shapes: the 2B fused four, the generic
+# seven's other two, the 8B four, and K = 6784 < Kp (the tl (d) down)
+K10_GEMM_SHAPES = [(2560, 3840), (2560, 2560), (2560, 13824), (6912, 2560),
+                   (2560, 640), (2560, 6912), (4096, 6144), (4096, 4096),
+                   (4096, 28672), (14336, 4096), (6784, 2560)]
+
+
+def _k10_gemm_check(out, xb_k, sum_k, split_k, x, w, s, k, N, lut_bias):
+    """The GEMM form's bf16 rows equal the plain row kernel's bit for bit,
+    its 32-row sums agree within the f32 bound of two summation orders
+    (2·31·2^-24·Σ|x| a block) and their bf16 split is theirs bit for bit,
+    and its output the plain K10's: two bf16
+    ulps of the largest output with bf16 x; with f32 x 1e-4 of it (wgmma
+    accumulates without IEEE rounding: its addends are aligned and
+    truncated, as mma.sync's were)."""
+    Kp = w.shape[1] * 16
+    xb, sum32 = tm.blockscale_rows_plain(x, Kp)
+    assert torch.equal(xb_k, xb)
+    abs32 = xb.float().abs().view(x.shape[0], -1, 32).sum(-1)
+    assert ((sum_k - sum32).abs() <= 2 * 31 * 2.0**-24 * abs32).all()
+    assert torch.equal(split_k, tm.blockscale_sums_split(sum_k))
+    plain = tm.ternary_matmul_blockscale_bf16_plain(
+        xb, tm.blockscale_correction(sum32, s[1]), w[1], s[1], N, lut_bias, x.dtype)
+    assert out.dtype == x.dtype and out.shape == plain.shape
+    ref = plain.float().abs().max()
+    rel = 8e-3 if x.dtype == torch.bfloat16 else 1e-4
+    assert (out.float() - plain.float()).abs().max() <= rel * ref
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [17, 64, 77, 512, 2048])
+@pytest.mark.parametrize("k,N", K10_GEMM_SHAPES)
+def test_k10_gemm_main_path_shapes_match_plain(dev, k, N, M, dtype):
+    """K10's GEMM form at the tile and split the wrapper's plan picks; lut_bias
+    alternates with M; the wrapper's output is the form's bit for bit."""
+    lut_bias = M in (17, 77, 2048)
+    g = torch.Generator(device=dev).manual_seed(M + k + N)
+    Kp = -(-k // 256) * 256
+    w, s = _block_words(g, 2, Kp, N, dev, k_live=k)
+    x = torch.randn((M, k), generator=g, device=dev).to(dtype)
+    out, xb_k, sum_k, split_k = tm._blockscale_gemm_cuda(1, x, w, s, k, N, lut_bias)
+    _k10_gemm_check(out, xb_k, sum_k, split_k, x, w, s, k, N, lut_bias)
+    assert torch.equal(out, tm.ternary_matmul_blockscale_bf16(1, x, w, s, k, N, lut_bias))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("bt", [8, 16, 32, 64, 128])
+def test_k10_gemm_every_tile_and_split_matches_plain(dev, monkeypatch, bt, split):
+    """Every form of the block-scale GEMM, forced past the plan, for K10:
+    ragged M (a row past one tile), N = 192 (a block whose second column
+    half lies past Np), K < Kp, f32 x with strided rows; and for K12 at the
+    same tile and split, with SwiGLU, norm and the residual."""
+    monkeypatch.setattr(tm, "blockscale_gemm_plan", lambda *a: (bt, split))
+    g = torch.Generator(device=dev).manual_seed(bt * 10 + split)
+    Kp, k, N, M = 2048, 1952, 192, bt + 1
+    w, s = _block_words(g, 2, Kp, N, dev, k_live=k)
+    x = torch.randn((M, k + 64), generator=g, device=dev)[:, :k]
+    out, xb_k, sum_k, split_k = tm._blockscale_gemm_cuda(1, x, w, s, k, N,
+                                                         bool(split & 1))
+    _k10_gemm_check(out, xb_k, sum_k, split_k, x, w, s, k, N, bool(split & 1))
+    w, s = _block_words(g, 2, Kp, N, dev)
+    gamma = torch.rand((2, Kp), generator=g, device=dev) + 0.5
+    x = torch.randn((M, 2 * Kp), generator=g, device=dev).bfloat16()
+    r = torch.randn((M, N), generator=g, device=dev).bfloat16()
+    out = tm._tl_bf16_launch(1, x, w, s, gamma, Kp, N, 1e-5, True, r, False)
+    plain = tm.ternary_matmul_tl_bf16_normed_plain(x, w[1], s[1], gamma[1], 1e-5, True,
+                                                   r, N, False)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
+
+
+@pytest.mark.parametrize("glu,gamma,resid", [(False, False, False), (True, True, True),
+                                             (False, True, False), (True, False, True)])
+@pytest.mark.parametrize("M", [1, 2, 3, 8, 16, 33, 64])
+def test_k12_pool_rows_match_plain(dev, M, glu, gamma, resid):
+    """K12 at every pool size the stacked loop gives it, with and without
+    SwiGLU, the norm and the residual (a bf16 row value one ulp off plus two
+    ulps of output rounding: 1e-2 of the largest output plus 1e-3)."""
+    g = torch.Generator(device=dev).manual_seed(30 + M)
+    K, N = 2560, 640
+    w, s = _block_words(g, 2, K, N, dev)
+    gm = torch.rand((2, K), generator=g, device=dev) + 0.5 if gamma else None
+    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+    r = torch.randn((M, N), generator=g, device=dev).bfloat16() if resid else None
+    lut_bias = M % 2 == 1
+    out = tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gm, K, N, 1e-5, glu, r, lut_bias)
+    plain = tm.ternary_matmul_tl_bf16_normed_plain(x, w[1], s[1], None if gm is None
+                                                   else gm[1], 1e-5, glu, r, N, lut_bias)
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
+
+
+def test_k10_gemm_and_k12_repeat_bit_for_bit(dev):
+    """Two identical calls give the same bits: the split-K partials are added
+    in rank order (K10 at M = 77 on N = 640 splits K over 8 blocks, K12 at
+    M = 8 on N = 2560 over 4)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    w, s = _block_words(g, 2, 2560, 640, dev)
+    x = torch.randn((77, 2560), generator=g, device=dev)
+    assert tm.blockscale_gemm_plan(77, 2560, 640, 132)[1] == 8
+    a = tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, True)
+    assert torch.equal(a, tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, True))
+    w, s = _block_words(g, 2, 2560, 2560, dev)
+    x = torch.randn((8, 2560), generator=g, device=dev).bfloat16()
+    a = tm.ternary_matmul_tl_bf16_normed(1, x, w, s, None, 2560, 2560)
+    assert torch.equal(a, tm.ternary_matmul_tl_bf16_normed(1, x, w, s, None, 2560, 2560))
+
+
 @pytest.mark.parametrize("M,glu,resid,lut_bias", [(1, False, False, False),
                                                   (2, True, True, True),
                                                   (1, True, False, True)])
@@ -477,29 +671,6 @@ def test_k12_matches_plain(dev, M, glu, resid, lut_bias):
                                                    glu, r, N, lut_bias)
     ref = plain.float().abs().max()
     assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
-
-
-def test_k10_decode_form_runs_no_pytorch_op(dev):
-    """At M=1 the wrapper launches K10's decode form and nothing else: the
-    profiler sees one kernel, and no ATen op but the output's allocation."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    g = torch.Generator(device=dev).manual_seed(3)
-    K, N = 2560, 640
-    w, s = _block_words(g, 2, K, N, dev)
-    x = torch.randn((1, K), generator=g, device=dev).bfloat16()
-    tm.ternary_matmul_blockscale_bf16(1, x, w, s, K, N, True)     # build, warm up
-    torch.cuda.synchronize()
-    before = tm.ternary_matmul_blockscale_bf16.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tm.ternary_matmul_blockscale_bf16(1, x, w, s, K, N, True)
-        torch.cuda.synchronize()
-    assert tm.ternary_matmul_blockscale_bf16.launches == before + 1
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
-    assert len(kernels) == 1 and "blockscale_decode" in kernels[0], kernels
-    assert ops <= {"aten::empty"}, ops
 
 
 @pytest.mark.parametrize("M,k,dtype", [(1, 2560, torch.bfloat16),

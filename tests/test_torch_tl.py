@@ -222,10 +222,11 @@ def test_repack_codes_torch_matches_numpy():
 # K10: the block-scale bf16 body (:1177) and its stacked twin (:555)
 # --------------------------------------------------------------------------
 # the card's decode form takes M <= MB rows, its GEMM more: on the CPU both
-# are the plain version, held to the Pallas sites on each side of MB, for
-# bitnet32 and TL, f32 and bf16 x, K == Kp and K < Kp
+# are the plain version, held to the Pallas sites on each side of MB and of
+# 16 (the most rows the decode form takes), for bitnet32 and TL, f32 and
+# bf16 x, K == Kp and K < Kp
 MB = tm.BLOCKSCALE_DECODE_MAX_M
-K10_DECODE_ROWS = [(lut_bias, M, k, dtype) for M in (1, 2, MB, MB + 1)
+K10_DECODE_ROWS = [(lut_bias, M, k, dtype) for M in sorted({1, 2, MB, MB + 1, 16, 17})
                    for lut_bias in (True, False) for k in (K, 224)
                    for dtype in ("f32", "bf16")]
 K10_2D = [(True, 1, K, "f32"), (False, 1, K, "f32"), (True, 40, K, "bf16"),
