@@ -1,5 +1,5 @@
 // Device helpers shared by the ternary matmul kernels (ternary_matmul.cu:
-// K1, K4, K6; ternary_matmul_tl.cu: K10, K11, K12).
+// K1, K4; ternary_matmul_tl.cu: K6, K10, K11, K12).
 //
 // Weights are int32 words [Kp/16, Np].  Within each 256-row K tile, word s,
 // byte j, plane p hold the code of K row p*64 + 4s + j, so
@@ -49,21 +49,6 @@ __device__ __forceinline__ V block_reduce(V v, V* red, bool is_max) {
     v = is_max ? (u > v ? u : v) : v + u;
   }
   return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

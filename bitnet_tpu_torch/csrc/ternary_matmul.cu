@@ -8,8 +8,9 @@
 //   K4 bn_w2a8_gemm    <- ternary_matmul_stacked_prefill (:417, pallas_call
 //                         :464), body _qk256_w2a8_kernel (:173): prefill GEMM;
 //                         also its unstacked site in _ternary_matmul_2d (:1177)
-//   K6 bn_bf16_gemm    <- the _qk256_kernel body (:112) of _ternary_matmul_2d
-//                         (pallas_call :1177): bf16 activations, f32 accumulate
+// K6, the bf16 qk256 body of the same site (bitnet_tpu/ops/ternary_matmul.py:1177,
+// _qk256_kernel), is a column-scale mode of K10's two forms in
+// ternary_matmul_tl.cu.
 //
 // Weights: int32 words [Kp/16, Np] (one layer of the [L, Kp/16, Np] stack;
 // the caller passes the layer's base pointer, so the TPU's scalar-prefetch
@@ -54,15 +55,6 @@
 //    tile's latency and the epilogue are not hidden, and in the main loop
 //    shared memory carries the int8 rows twice a tile (the TMA writes, then
 //    each column half's wgmmas read them) beside the words.
-//  - K6 (any M; the --kernel-path pallas route) is bound by the weight bytes
-//    at decode (M <= 2: Kp*Np/4 bytes a call) and by bf16 operations at
-//    prefill (M = 512).  One design for both: a 64x64 block tile and a
-//    two-stage cp.async pipeline with mma.sync.m16n8k16 bf16*bf16->f32, the
-//    B fragments expanded from the 2-bit planes to the biased values
-//    {0,1,3,4} (exact in bf16) in registers.  At M <= 2 most of the 64-row
-//    tile is zero rows (cp.async zero-fills them without reading memory) and
-//    only Np/64 blocks stream the weights: simple, not yet fast.  Its f32
-//    sums differ from the plain version's only in their order.
 // The integer accumulation is exact (|acc| <= 4*127*Kp < 2^31), so the
 // results do not depend on the tiling; the float epilogue uses _rn
 // intrinsics so it is never contracted into an FMA and rounds exactly as
@@ -597,140 +589,6 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
   if (S > 1) cluster.sync();             // no block leaves while it is read
 }
 
-// ---------------------------------------------------------------------------
-// K6 GEMM: bf16 x biased codes.  128 threads = 4 warps (2x2), block tile
-// 64x64, warp tile 32x32 (2 m16 x 4 n8 mma tiles), one 256-row K tile per
-// stage, two stages in dynamic shared memory.
-// ---------------------------------------------------------------------------
-constexpr int GB_M = 64, GB_N = 64;
-constexpr int WS_LD = GB_N + 8;       // ints;  conflict-free B fragment reads
-constexpr int XB_LD = KT + 8;         // bf16; conflict-free A fragment reads
-constexpr size_t BF16_SMEM =
-    2 * (GB_M * XB_LD * sizeof(__nv_bfloat16) + (KT / 16) * WS_LD * sizeof(int));
-
-// bf16 bits of the biased value of code c: 0 -> 0.0, 1 -> 1.0, 2 -> 3.0, 3 -> 4.0
-__device__ __forceinline__ unsigned biased_bf16(int c) {
-  return (unsigned)((0x408040403F800000ull >> (16 * c)) & 0xFFFFu);
-}
-
-// two consecutive K values (bytes j, j+1 of plane p of word w) as a bf16x2
-// fragment register, the lower K index in the low half
-__device__ __forceinline__ unsigned biased_pair(int w, int p, int j) {
-  const int c0 = (w >> (8 * j + 2 * p)) & 3;
-  const int c1 = (w >> (8 * (j + 1) + 2 * p)) & 3;
-  return biased_bf16(c0) | (biased_bf16(c1) << 16);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-bf16_gemm(const __nv_bfloat16* __restrict__ x, int M, int Kp,
-          const int* __restrict__ words, int Np,
-          const float* __restrict__ sumx, const float* __restrict__ scale,
-          T* __restrict__ out, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typedef __nv_bfloat16 XTile[GB_M][XB_LD];
-  typedef int WTile[KT / 16][WS_LD];
-  XTile* xs = reinterpret_cast<XTile*>(smem_raw);
-  WTile* ws = reinterpret_cast<WTile*>(smem_raw + 2 * sizeof(XTile));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-  const int nk = Kp / KT;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto load_tile = [&](int st, int k0) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {            // 64 rows x 512 B of activations
-      const int idx = tid + 128 * i, r = idx >> 5, c8 = (idx & 31) * 8;
-      const bool ok = m0 + r < M;             // rows past M are zero-filled
-      cp_async16(&xs[st][r][c8], x + (size_t)(ok ? m0 + r : 0) * Kp + k0 + c8, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {             // 16 word rows x 64 columns
-      const int idx = tid + 128 * i, r = idx >> 4, c4 = (idx & 15) * 4;
-      cp_async16(&ws[st][r][c4], words + (size_t)(k0 / 16 + r) * Np + n0 + c4, true);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(st ^ 1, (kt + 1) * KT);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {            // K rows p*64 + 16h .. +15
-        const int kb = p * 64 + 16 * h;
-        unsigned a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + g;
-          a[mi][0] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + t4 * 2]);
-          a[mi][1] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + t4 * 2]);
-          a[mi][2] = *reinterpret_cast<const unsigned*>(&xs[st][r][kb + 8 + t4 * 2]);
-          a[mi][3] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][kb + 8 + t4 * 2]);
-        }
-        // K row kb + 2*t4 (+1) is byte 2*(t4&1) (+1) of word row 4h + t4/2;
-        // kb + 8 + 2*t4 (+1) the same bytes of word row 4h + 2 + t4/2
-        const int j = (t4 & 1) * 2;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = wn * 32 + ni * 8 + g;
-          const unsigned b0 = biased_pair(ws[st][4 * h + (t4 >> 1)][col], p, j);
-          const unsigned b1 = biased_pair(ws[st][4 * h + 2 + (t4 >> 1)][col], p, j);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-        }
-      }
-    }
-    __syncthreads();                           // stage st is refilled next
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + ni * 8 + t4 * 2 + (e & 1);
-        if (m < M && n < N) {
-          const float y = __fsub_rn(acc[mi][ni][e], 2.f * sumx[m]);
-          store_f32(out, (size_t)m * N + n, __fmul_rn(y, scale[n]));
-        }
-      }
-}
-
-template <typename T>
-cudaError_t launch_bf16(const __nv_bfloat16* x, int M, int Kp, const int* words,
-                        int Np, const float* sumx, const float* scale, void* out,
-                        int N, cudaStream_t stream) {
-  static bool smem_set = false;           // once, before any graph capture
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bf16_gemm<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
-  dim3 grid(Np / GB_N, (M + GB_M - 1) / GB_M);
-  bf16_gemm<T><<<grid, 128, BF16_SMEM, stream>>>(x, M, Kp, words, Np, sumx,
-                                                 scale, static_cast<T*>(out), N);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
                             const float* gamma, float eps, int8_t* xq, float* sx,
@@ -864,18 +722,6 @@ int bn_w2a8_gemm(const void* x, int x_stride, int M, int Kp, const int* words,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BN_GEMM
-}
-
-// x: bf16 [M, Kp] (the activations rounded to bf16); sumx: f32 [M], the
-// sums of those bf16 values; out dtype: 0 = float32, 1 = bfloat16.
-int bn_bf16_gemm(const __nv_bfloat16* x, int M, int Kp, const int* words,
-                 int Np, const float* sumx, const float* scale, void* out,
-                 int N, int dtype, cudaStream_t stream) {
-  if (dtype == 1)
-    return (int)launch_bf16<__nv_bfloat16>(x, M, Kp, words, Np, sumx, scale,
-                                           out, N, stream);
-  return (int)launch_bf16<float>(x, M, Kp, words, Np, sumx, scale, out, N,
-                                 stream);
 }
 
 const char* bn_ternary_matmul_error(int code) {

@@ -1,10 +1,15 @@
 // Ternary matmuls with per-32-row block scales (bitnet32 and TL1/TL2 weights)
-// for Hopper (sm_90a).
+// or one scale a column (qk256 weights under --kernel-path pallas) for Hopper
+// (sm_90a).
 //
 // Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
 //   K10 bn_blockscale_gemm  <- the _bitnet32_kernel body (:138) of
 //                              _ternary_matmul_2d (pallas_call :1177) and of
 //                              ternary_matmul_stacked_tl (:502, pallas_call :555)
+//   K6  bn_colscale_decode  <- the bf16 _qk256_kernel body (:112) of
+//       bn_colscale_gemm       _ternary_matmul_2d (pallas_call :1177): the
+//                              column-scale mode of K10's decode form and of
+//                              its GEMM (below)
 //   K11 bn_tl_w2a8_normed   <- ternary_matmul_stacked_tl_w2a8 (:890,
 //                              pallas_call :960), body _tl_w2a8_fused_kernel (:753)
 //   K12 bn_tl_bf16_normed   <- ternary_matmul_stacked_tl_fused (:669,
@@ -50,6 +55,20 @@
 //    lookup places in the f32's low half); x * w is exact in f32 and summed
 //    there.  The generic seven at M = 1 take 8x their byte bound together
 //    (PERF.md, Findings).
+//  - K6 is the column-scale mode (W_COLSCALE) of both K10 forms:
+//    y = (sum_k bf16(x) * v(c) - 2 * sum_k bf16(x)) * s[n], v(c) = c + (c >> 1)
+//    in {0,1,3,4}, the bitnet32 LUT's biased values, in f32 (:1114-1121,
+//    :1126-1149).  Its decode form (M <= MB, the wrapper's
+//    BF16_DECODE_MAX_M) reads no scale rows, so a call moves 2/3 of K10's
+//    bytes; a code's weight comes from two constant registers
+//    (COLS_LO / COLS_HI), and each warp forms the whole-row sums of its
+//    rows beside their 32-row sums, added over the warps and the cluster in
+//    the order of the partials.  Its GEMM form is the GEMM below without the
+//    scale box, the table build and the correction steps; its row kernel
+//    (colscale_rows) writes the whole-row sums and, only where TMA cannot
+//    read x itself (f32 x, or rows 16-byte misaligned), the bf16 rows.  Both
+//    subtract 2 * sum once, after the K reduction, then scale:
+//    (acc - 2 * sum) * s[n], rounded in that order as the JAX epilogue is.
 //  - K11 (decode, M <= 2) is bound by the bytes of words and scales: K1's
 //    one-launch design (every block recomputes the int8 row preamble, the
 //    same code as K1's, so the rows are K1's bit for bit) with the K
@@ -107,7 +126,7 @@ using namespace bn;
 // the registers) and decodes the next unit while it runs, into a second
 // register set kept apart from the first until the wait (fence_operand).
 //
-// K10 (CORR) subtracts its bias correction 2 * sum_b sum32[m, b] * s[b, n]
+// K10 (W_BLOCK) subtracts its bias correction 2 * sum_b sum32[m, b] * s[b, n]
 // on the tensor cores too: two more k16 steps a K tile, A = -2 s of the
 // tile's 8 scale blocks split into bf16 hi + lo parts, B = the rows' 8
 // block sums split the same way by the row kernel (hi·hi + hi·lo + lo·hi +
@@ -115,8 +134,11 @@ using namespace bn;
 // tolerance), by TMA in four boxes of 8 values a row, the layout of
 // wgmma's unswizzled core matrices.  That adds 1/8 to the tensor work and
 // nothing to the CUDA cores; as f32 FMAs into the accumulators the same
-// correction doubled the GEMM's time.  K12 adds the residual in the
-// epilogue.
+// correction doubled the GEMM's time.  K12 (W_UNBIASED) adds the residual
+// in the epilogue.  K6 (W_COLSCALE) reads no scale rows: its A fragments
+// come from the constant table of the biased values, and its epilogue, after
+// the K reduction, computes (acc - 2 * sumx[m]) * s[n] from the row kernel's
+// whole-row sums and the column scales.
 //
 // K may be split over the z blocks of a thread block cluster (up to 8):
 // each block leaves its f32 partial tile in its shared memory, and after
@@ -134,12 +156,23 @@ constexpr int BS_PLD = BS_COLS + 4;           // floats a row of the partial til
 constexpr int BS_THREADS = 384;
 constexpr int BS_MAX_SPLIT = 8;               // the portable cluster size
 
-template <int BT, bool CORR>
+// The weight modes of the decode form and the GEMM: block scales with the
+// bias correction 2 * sum32 * s (K10; lut_bias picks the values), block
+// scales on unbiased values (K12's GEMM), one scale a column with the
+// correction 2 * sum(x) after the K reduction (K6).
+enum WMode { W_BLOCK = 0, W_UNBIASED = 1, W_COLSCALE = 2 };
+
+// K6's weights: byte c of COLS_LO / COLS_HI is the low / high byte of the
+// bf16 biased value of code c, {0, 1, 3, 4} = 0x0000, 0x3F80, 0x4040, 0x4080
+constexpr uint32_t COLS_LO = 0x80408000u, COLS_HI = 0x40403F00u;
+
+template <int BT, int MODE>
 struct BsTile {
   static constexpr int XBOX = BT * 128;       // bytes of one TMA box
   static constexpr int XTILE = 4 * XBOX;      // a K tile of BT bf16 rows
-  static constexpr int QTILE = CORR ? BT * 64 : 0;   // their block sums, split
-  static constexpr int STAGE = XTILE + BS_WTILE + BS_STILE + QTILE;
+  static constexpr int STILE = MODE == W_COLSCALE ? 0 : BS_STILE;   // scale rows
+  static constexpr int QTILE = MODE == W_BLOCK ? BT * 64 : 0;   // block sums, split
+  static constexpr int STAGE = XTILE + BS_WTILE + STILE + QTILE;
   static constexpr int STAGES = 200 * 1024 / STAGE < 8 ? 200 * 1024 / STAGE : 8;
   static constexpr int RING = STAGES * STAGE;
   static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;   // + alignment
@@ -270,24 +303,27 @@ __device__ __forceinline__ uint32_t code_pair(int w, int p, uint32_t lo, uint32_
   return __byte_perm(lo, hi, u * 0x11u + 0x4040u);
 }
 
-// out[m, n] = sum_k xb[m, k] * w[k, n] (CORR: - 2 sum_b sum32[m, b] s[b, n])
-// (+ resid[m, n]) for n < N, in bf16 (bf16_out) or f32
-template <int BT, bool CORR>
+// out[m, n] = sum_k xb[m, k] * w[k, n] (W_BLOCK: - 2 sum_b sum32[m, b] s[b, n])
+// (+ resid[m, n]) for n < N, in bf16 (bf16_out) or f32; W_COLSCALE:
+// (sum_k xb[m, k] * v[k, n] - 2 sumx[m]) * cscale[n]
+template <int BT, int MODE>
 __global__ void __launch_bounds__(BS_THREADS, 1)
 blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap wmap,
                 const __grid_constant__ CUtensorMap smap,
                 const __grid_constant__ CUtensorMap qmap, int M, int Kp, int Np,
                 int lut_bias, const void* __restrict__ resid,
-                void* __restrict__ out, int N, int bf16_out) {
-  using Tile = BsTile<BT, CORR>;
+                void* __restrict__ out, int N, int bf16_out,
+                const float* __restrict__ sumx, const float* __restrict__ cscale) {
+  using Tile = BsTile<BT, MODE>;
+  constexpr bool CORR = MODE == W_BLOCK, COLS = MODE == W_COLSCALE;
   constexpr int STAGES = Tile::STAGES, UP = Tile::UP, UNITS = 4 / UP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* xs = smem;                                           // STAGES x XTILE
   int* ws = reinterpret_cast<int*>(smem + STAGES * Tile::XTILE);
   float* ss = reinterpret_cast<float*>(smem + STAGES * (Tile::XTILE + BS_WTILE));
-  float* qs = ss + STAGES * (BS_STILE / 4);
+  float* qs = ss + STAGES * (Tile::STILE / 4);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile::RING);
   uint64_t* empty = full + STAGES;
 
@@ -323,7 +359,8 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(&empty[st], ph ^ 1);
         mbar_expect_tx(&full[st], Tile::STAGE);
         tma_load_2d(ws + st * (BS_WTILE / 4), &wmap, &full[st], n0, kt * (KT / 16));
-        tma_load_2d(ss + st * (BS_STILE / 4), &smap, &full[st], n0, kt * (KT / 32));
+        if constexpr (!COLS)
+          tma_load_2d(ss + st * (Tile::STILE / 4), &smap, &full[st], n0, kt * (KT / 32));
         if (kt == kt0) grid_dependency_wait();
         uint8_t* xdst = xs + st * Tile::XTILE;
 #pragma unroll
@@ -352,7 +389,7 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
     float vals[4];                                              // each code's value
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc)
-      vals[cc] = (float)((lut_bias ? cc + (cc >> 1) : cc) - (CORR ? 0 : 2));
+      vals[cc] = (float)((lut_bias ? cc + (cc >> 1) : cc) - (MODE == W_UNBIASED ? 2 : 0));
     // word rows 2i + t/2 of columns col and col + 8 (i = 0..7: for step h,
     // rows 4h + t/2 and 4h + 2 + t/2 are i = 2h and 2h + 1)
     int wv[8][2];
@@ -366,17 +403,19 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
       }
     };
     // the A fragments of planes p0 .. p0 + UP - 1 of the tile in stage st:
-    // step (p, h) uses the table of scale block 2p + h/2
+    // step (p, h) uses the table of scale block 2p + h/2 (K6: the constant one)
     auto decode = [&](int st, int p0, uint32_t (&a)[4 * UP][4]) {
-      const float* sc = ss + st * (BS_STILE / 4);
+      const float* sc = ss + st * (Tile::STILE / 4);
 #pragma unroll
       for (int pp = 0; pp < UP; ++pp)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int p = p0 + pp, b = 2 * p + hh;
-          uint32_t lo0, hi0, lo1, hi1;
-          weight_table(vals, sc[b * BS_COLS + col], lo0, hi0);
-          weight_table(vals, sc[b * BS_COLS + col + 8], lo1, hi1);
+          uint32_t lo0 = COLS_LO, hi0 = COLS_HI, lo1 = COLS_LO, hi1 = COLS_HI;
+          if constexpr (!COLS) {
+            weight_table(vals, sc[b * BS_COLS + col], lo0, hi0);
+            weight_table(vals, sc[b * BS_COLS + col + 8], lo1, hi1);
+          }
 #pragma unroll
           for (int h2 = 0; h2 < 2; ++h2) {
             const int h = 2 * hh + h2;
@@ -393,7 +432,7 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
     // (k < 8) or lo (k >= 8) part in the B tile; a thread's K offsets 2t,
     // 2t+1 and 2t+8, 2t+9 are blocks 2t and 2t+1 both times
     auto corr_frags = [&](int st, uint32_t (&cf)[2][4]) {
-      const float* sc = ss + st * (BS_STILE / 4);
+      const float* sc = ss + st * (Tile::STILE / 4);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {                             // column col + 8r
         __nv_bfloat16 h0, l0, h1, l1;
@@ -497,6 +536,7 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
   const int r0 = rank * BT / S, r1 = (rank + 1) * BT / S;
   if (S > 1) cluster.sync();             // every block's partial is in place
   else __syncthreads();
+  if constexpr (COLS) grid_dependency_wait();   // the row kernel's sums
   // a thread takes two adjacent columns of every sixth row
   const int nl = 2 * (threadIdx.x % (BS_COLS / 2)), n = n0 + nl;
   const bool pair = N % 2 == 0 && n + 1 < N;
@@ -509,6 +549,11 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
       const float2 t = *reinterpret_cast<const float2*>(cluster.map_shared_rank(at, q));
       v.x = __fadd_rn(v.x, t.x);
       v.y = __fadd_rn(v.y, t.y);
+    }
+    if constexpr (COLS) {                // once, after the K reduction
+      const float c2 = 2.f * sumx[m0 + ml];
+      v.x = __fmul_rn(__fsub_rn(v.x, c2), cscale[n]);
+      v.y = __fmul_rn(__fsub_rn(v.y, c2), cscale[n + 1]);
     }
     const size_t o = (size_t)(m0 + ml) * N + n;
     if (bf16_out) {
@@ -543,22 +588,23 @@ blockscale_gemm(const __grid_constant__ CUtensorMap xmap,
   if (S > 1) cluster.sync();             // no block leaves while it is read
 }
 
-template <int BT, bool CORR>
+template <int BT, int MODE>
 cudaError_t launch_bs_gemm(const CUtensorMap (&maps)[4], int M, int Kp, int Np,
                            int lut_bias, const void* resid, void* out, int N,
-                           int bf16_out, int split, cudaStream_t stream) {
-  auto kern = blockscale_gemm<BT, CORR>;
+                           int bf16_out, const float* sumx, const float* cscale,
+                           int split, cudaStream_t stream) {
+  auto kern = blockscale_gemm<BT, MODE>;
   static bool smem_set = false;           // once, before any graph capture
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         BsTile<BT, CORR>::SMEM);
+                                         BsTile<BT, MODE>::SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((Np + BS_COLS - 1) / BS_COLS, (M + BT - 1) / BT, split);
   cfg.blockDim = dim3(BS_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = BsTile<BT, CORR>::SMEM;
+  cfg.dynamicSmemBytes = BsTile<BT, MODE>::SMEM;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -570,41 +616,49 @@ cudaError_t launch_bs_gemm(const CUtensorMap (&maps)[4], int M, int Kp, int Np,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, maps[0], maps[1], maps[2], maps[3], M,
-                                     Kp, Np, lut_bias, resid, out, N, bf16_out);
+                                     Kp, Np, lut_bias, resid, out, N, bf16_out, sumx,
+                                     cscale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// the GEMM's tensor maps: the bf16 rows xb [M, Kp] (boxes of 64 values x
-// bt rows, 128-byte swizzle; rows past M read as zeros), the words [Kp/16,
-// Np] (16 rows of BS_WLD columns, zeros past Np), the scales [Kp/32, Np]
-// (8 rows of 128 columns) and, for K10, the split block sums [M, Kp/8]
-// (boxes of 8 values x bt rows; without them the fourth map repeats the
-// third, unread);
+// the GEMM's tensor maps: the bf16 rows xb [M, xw] (row stride xb_ld
+// values; boxes of 64 values x bt rows, 128-byte swizzle; values past xw
+// and rows past M read as zeros), the words [Kp/16, Np] (16 rows of BS_WLD
+// columns, zeros past Np), the scales [Kp/32, Np] (8 rows of 128 columns;
+// K6: none, the map repeats the words') and, for K10, the split block sums
+// [M, Kp/8] (boxes of 8 values x bt rows; without them the fourth map
+// repeats the third, unread);
 // then the launch with bt rows a block and K split over split blocks
-template <bool CORR>
-cudaError_t launch_bs(const __nv_bfloat16* xb, const __nv_bfloat16* sums, int M, int Kp,
-                      const int* words, int Np, const float* scales, int lut_bias,
-                      const void* resid, void* out, int N, int bf16_out, int bt,
-                      int split, cudaStream_t stream) {
+template <int MODE>
+cudaError_t launch_bs(const __nv_bfloat16* xb, int xw, int xb_ld, const __nv_bfloat16* sums,
+                      int M, int Kp, const int* words, int Np, const float* scales,
+                      int lut_bias, const void* resid, void* out, int N, int bf16_out,
+                      const float* sumx, int bt, int split, cudaStream_t stream) {
   CUtensorMap maps[4];
-  cudaError_t e = tma_map_2d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xb, Kp, M,
-                             (uint64_t)Kp * 2, 64, bt, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t e = tma_map_2d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xb, xw, M,
+                             (uint64_t)xb_ld * 2, 64, bt, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = tma_map_2d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_INT32, words, Np, Kp / 16,
                    (uint64_t)Np * 4, BS_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (e == cudaSuccess)
-    e = tma_map_2d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, Np, Kp / 32,
-                   (uint64_t)Np * 4, BS_COLS, KT / 32, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e == cudaSuccess) {
-    if (CORR)
+    if (MODE == W_COLSCALE)
+      maps[2] = maps[1];
+    else
+      e = tma_map_2d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, Np, Kp / 32,
+                     (uint64_t)Np * 4, BS_COLS, KT / 32, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (e == cudaSuccess) {
+    if (MODE == W_BLOCK)
       e = tma_map_2d(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sums, Kp / 8, M,
                      (uint64_t)(Kp / 8) * 2, 8, bt, CU_TENSOR_MAP_SWIZZLE_NONE);
     else
       maps[3] = maps[2];
   }
   if (e != cudaSuccess) return e;
-#define BN_BS(BTV) \
-  launch_bs_gemm<BTV, CORR>(maps, M, Kp, Np, lut_bias, resid, out, N, bf16_out, split, stream)
+  const float* cscale = MODE == W_COLSCALE ? scales : nullptr;
+#define BN_BS(BTV)                                                                  \
+  launch_bs_gemm<BTV, MODE>(maps, M, Kp, Np, lut_bias, resid, out, N, bf16_out, sumx, \
+                            cscale, split, stream)
   switch (bt) {
     case 8: return BN_BS(8);
     case 16: return BN_BS(16);
@@ -667,6 +721,41 @@ blockscale_rows(const T* __restrict__ x, int x_stride, int K, int Kp,
 }
 
 // ---------------------------------------------------------------------------
+// K6's row kernel, the first of its GEMM form's two launches: the f32 sum of
+// row m of x [M, K] (row stride x_stride, its own dtype) rounded to bf16,
+// into sumx[m] (what the JAX wrapper forms in XLA, :1114-1121), and, where
+// xb is not null (the GEMM cannot read x itself), those bf16 values
+// zero-padded to Kp into xb [M, Kp].  One block of 256 threads a row, 8
+// consecutive values a thread at a time; the sum in a fixed order.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+colscale_rows(const T* __restrict__ x, int x_stride, int K, int Kp,
+              __nv_bfloat16* __restrict__ xb, float* __restrict__ sumx) {
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const T* xr = x + (size_t)m * x_stride;
+  const int kend = xb != nullptr ? Kp : K;
+  float s = 0.f;
+  for (int k0 = threadIdx.x * 8; k0 < kend; k0 += 256 * 8) {
+    uint32_t pk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 2 * i;
+      const __nv_bfloat162 b = __floats2bfloat162_rn(k < K ? load_f32(xr, k) : 0.f,
+                                                     k + 1 < K ? load_f32(xr, k + 1) : 0.f);
+      s = __fadd_rn(__fadd_rn(s, __low2float(b)), __high2float(b));
+      pk[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    if (xb != nullptr)
+      *reinterpret_cast<uint4*>(xb + (size_t)m * Kp + k0) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+  }
+  s = block_reduce(s, red, false);
+  if (threadIdx.x == 0) sumx[m] = s;
+}
+
+// ---------------------------------------------------------------------------
 // K12 preamble: one block per row m, 512 threads: silu(gate) * up, RMSNorm,
 // bf16 rows [M, K].  x is [M, K] (or [M, 2K] when glu).
 // ---------------------------------------------------------------------------
@@ -711,13 +800,20 @@ bf16_rows(const T* __restrict__ x, int x_stride, int K, int glu,
 // their 32-row block sums from L2 into shared memory).  Both end in the
 // same block-partial dot and epilogue (tl_dot_epilogue).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void tl_load_half(int ht, int halves, const int* __restrict__ words,
-                                             const float* __restrict__ scales, int Np, int n,
-                                             int (&w)[8], float (&s)[4]) {
+__device__ __forceinline__ void load_words_half(int ht, int halves,
+                                                const int* __restrict__ words, int Np, int n,
+                                                int (&w)[8]) {
   const int t = ht >> 1, h = ht & 1;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     w[i] = ht < halves ? __ldg(words + (size_t)(t * 16 + 8 * h + i) * Np + n) : 0;
+}
+
+__device__ __forceinline__ void tl_load_half(int ht, int halves, const int* __restrict__ words,
+                                             const float* __restrict__ scales, int Np, int n,
+                                             int (&w)[8], float (&s)[4]) {
+  const int t = ht >> 1, h = ht & 1;
+  load_words_half(ht, halves, words, Np, n, w);
 #pragma unroll
   for (int p = 0; p < 4; ++p)
     s[p] = ht < halves ? __ldg(scales + (size_t)(t * 8 + 2 * p + h) * Np + n) : 0.f;
@@ -940,13 +1036,17 @@ cudaError_t launch_tl_w2a8(const void* x, int x_stride, int M, int K, int glu,
 // sums there, so warps never wait for each other until the end: the warps'
 // partials are added in warp order, then the cluster's in rank order, each
 // block adding a share of the outputs through distributed shared memory.
+// K6 (W_COLSCALE) reads no scales in the loop: each warp adds its rows'
+// 32-row sums into whole-row sums, which are added over the warps and the
+// ranks in the same orders, and the output is (acc - 2 sum) * s[n].
 // ---------------------------------------------------------------------------
 constexpr int DEC_MAX_M = 16;
 constexpr int DEC_MAX_WARPS = 8;
 constexpr int DEC_MAX_SPLIT = 8;          // the portable cluster size
 
 __host__ __device__ constexpr size_t decode_smem(int warps, int mr) {
-  return (size_t)warps * mr * (128 + 4 + 32) * sizeof(float) + (size_t)mr * 32 * sizeof(float);
+  return (size_t)warps * mr * (128 + 4 + 32 + 1) * sizeof(float)
+       + (size_t)mr * (32 + 1) * sizeof(float);
 }
 
 // lo / hi: byte c holds the low / high byte of the bf16 weight of code c,
@@ -977,11 +1077,14 @@ __device__ __forceinline__ void load_x_half(const T* __restrict__ x, int M, int 
     }
 }
 
-template <int MR, bool LUT_BIAS, typename T>
+// scales: block scales [Kp/32, Np] (W_BLOCK) or column scales [Np] (W_COLSCALE)
+template <int MR, int MODE, bool LUT_BIAS, typename T>
 __global__ void __launch_bounds__(DEC_MAX_WARPS * 32)
 blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
                   const int* __restrict__ words, int Np,
                   const float* __restrict__ scales, T* __restrict__ out, int N) {
+  constexpr bool COLS = MODE == W_COLSCALE;
+  static_assert(MODE != W_UNBIASED, "the decode form takes biased values");
   extern __shared__ __align__(16) float dsm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int W = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -989,23 +1092,27 @@ blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
   float* sw = dsm + W * MR * 128 + warp * MR * 4;   // their 32-row sums [MR][4]
   float* red = dsm + W * MR * 132;                  // the warps' partials [W][MR][32]
   float* part = red + W * MR * 32;                  // the block's [MR][32]
+  float* redx = part + MR * 32;                     // K6: the warps' row sums [W][MR]
+  float* partx = redx + W * MR;                     // K6: the block's [MR]
   const int S = gridDim.x, units = Kp / 128;
   const int h0 = (int)((long long)blockIdx.x * units / S);
   const int h1 = (int)((long long)(blockIdx.x + 1) * units / S);
   const int n = blockIdx.y * 32 + lane;
   constexpr bool X_AHEAD = MR <= 8;                 // 16 rows ahead would spill
-  float y[MR], corr[MR];
+  float y[MR], corr[MR];                            // K6: corr holds the row sums
 #pragma unroll
   for (int m = 0; m < MR; ++m) y[m] = corr[m] = 0.f;
   int wv[8];
   float sv[4], xv[4 * MR];
-  tl_load_half(h0 + warp, h1, words, scales, Np, n, wv, sv);    // in flight
+  if constexpr (COLS) load_words_half(h0 + warp, h1, words, Np, n, wv);   // in flight
+  else tl_load_half(h0 + warp, h1, words, scales, Np, n, wv, sv);
   if constexpr (X_AHEAD) load_x_half<MR>(x, M, K, h0 + warp, h1, lane, xv);
 
   for (int ht = h0 + warp; ht < h1; ht += W) {
     int wn[8];
     float sn[4], xn[4 * MR];
-    tl_load_half(ht + W, h1, words, scales, Np, n, wn, sn);
+    if constexpr (COLS) load_words_half(ht + W, h1, words, Np, n, wn);
+    else tl_load_half(ht + W, h1, words, scales, Np, n, wn, sn);
     if constexpr (X_AHEAD) load_x_half<MR>(x, M, K, ht + W, h1, lane, xn);
     else load_x_half<MR>(x, M, K, ht, h1, lane, xv);
 #pragma unroll
@@ -1022,10 +1129,15 @@ blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
     __syncwarp();
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      unsigned lo, hi;
-      weight_bytes<LUT_BIAS>(sv[p], lo, hi);
+      unsigned lo = COLS_LO, hi = COLS_HI;
+      if constexpr (COLS) {
 #pragma unroll
-      for (int m = 0; m < MR; ++m) corr[m] = fmaf(sw[m * 4 + p], sv[p], corr[m]);
+        for (int m = 0; m < MR; ++m) corr[m] = __fadd_rn(corr[m], sw[m * 4 + p]);
+      } else {
+        weight_bytes<LUT_BIAS>(sv[p], lo, hi);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) corr[m] = fmaf(sw[m * 4 + p], sv[p], corr[m]);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         // byte j of u: the selector nibbles (c, c + 4) of code c of K row
@@ -1049,21 +1161,30 @@ blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
     __syncwarp();                                   // xw is restaged next
 #pragma unroll
     for (int i = 0; i < 8; ++i) wv[i] = wn[i];
+    if constexpr (!COLS) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) sv[p] = sn[p];
+      for (int p = 0; p < 4; ++p) sv[p] = sn[p];
+    }
     if constexpr (X_AHEAD) {
 #pragma unroll
       for (int i = 0; i < 4 * MR; ++i) xv[i] = xn[i];
     }
   }
 #pragma unroll
-  for (int m = 0; m < MR; ++m)
-    red[(warp * MR + m) * 32 + lane] = __fsub_rn(y[m], 2.f * corr[m]);
+  for (int m = 0; m < MR; ++m) {
+    red[(warp * MR + m) * 32 + lane] = COLS ? y[m] : __fsub_rn(y[m], 2.f * corr[m]);
+    if (COLS && lane == 0) redx[warp * MR + m] = corr[m];
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < MR * 32; i += blockDim.x) {
     float a = 0.f;
     for (int w = 0; w < W; ++w) a = __fadd_rn(a, red[(w * MR + i / 32) * 32 + (i & 31)]);
     part[i] = a;
+  }
+  if (COLS && threadIdx.x < MR) {
+    float a = 0.f;
+    for (int w = 0; w < W; ++w) a = __fadd_rn(a, redx[w * MR + threadIdx.x]);
+    partx[threadIdx.x] = a;
   }
   cluster.sync();                                   // every block's partial is in place
   // output i = m * 32 + column is added by rank i % S, in rank order
@@ -1078,6 +1199,16 @@ blockscale_decode(const T* __restrict__ x, int M, int K, int Kp,
     for (int r = 1; r < DEC_MAX_SPLIT; ++r)
       if (r < S) a = __fadd_rn(a, v[r]);
     const int nc = blockIdx.y * 32 + (i & 31);
+    if constexpr (COLS) {                           // the whole row's sum, once
+#pragma unroll
+      for (int r = 0; r < DEC_MAX_SPLIT; ++r)
+        v[r] = r < S ? cluster.map_shared_rank(partx, r)[i / 32] : 0.f;
+      float sx = v[0];
+#pragma unroll
+      for (int r = 1; r < DEC_MAX_SPLIT; ++r)
+        if (r < S) sx = __fadd_rn(sx, v[r]);
+      if (nc < N) a = __fmul_rn(__fsub_rn(a, 2.f * sx), scales[nc]);
+    }
     if (nc < N) store_f32(out, (size_t)(i / 32) * N + nc, a);
   }
   cluster.sync();                                   // no block leaves while read
@@ -1096,11 +1227,11 @@ void decode_plan(int Kp, int Np, int sms, int* split, int* warps) {
   *warps = (per + rounds - 1) / rounds;
 }
 
-template <int MR, bool LUT_BIAS, typename T>
+template <int MR, int MODE, bool LUT_BIAS, typename T>
 cudaError_t launch_decode(const void* x, int M, int K, int Kp, const int* words,
                           int Np, const float* scales, void* out, int N, int split,
                           int warps, cudaStream_t stream) {
-  auto kern = blockscale_decode<MR, LUT_BIAS, T>;
+  auto kern = blockscale_decode<MR, MODE, LUT_BIAS, T>;
   static bool smem_set = false;           // once, before any graph capture
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1125,7 +1256,7 @@ cudaError_t launch_decode(const void* x, int M, int K, int Kp, const int* words,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <bool LUT_BIAS, typename T>
+template <int MODE, bool LUT_BIAS, typename T>
 cudaError_t launch_decode_rows(const void* x, int M, int K, int Kp, const int* words,
                                int Np, const float* scales, void* out, int N,
                                cudaStream_t stream) {
@@ -1139,7 +1270,8 @@ cudaError_t launch_decode_rows(const void* x, int M, int K, int Kp, const int* w
   int split, warps;
   decode_plan(Kp, Np, sms, &split, &warps);
 #define BN_DEC(MRV) \
-  return launch_decode<MRV, LUT_BIAS, T>(x, M, K, Kp, words, Np, scales, out, N, split, warps, stream)
+  return launch_decode<MRV, MODE, LUT_BIAS, T>(x, M, K, Kp, words, Np, scales, out, N, split, \
+                                               warps, stream)
   if (M <= 1) BN_DEC(1);
   if (M <= 2) BN_DEC(2);
   if (M <= 4) BN_DEC(4);
@@ -1164,8 +1296,9 @@ cudaError_t launch_tl_bf16(const void* x, int x_stride, int M, int K, int glu,
                                          glu, gamma, eps, xb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_bs<false>(xb, nullptr, M, K, words, Np, scales, lut_bias, resid, out,
-                          N, std::is_same<T, __nv_bfloat16>::value, bt, split, stream);
+  return launch_bs<W_UNBIASED>(xb, K, K, nullptr, M, K, words, Np, scales, lut_bias, resid,
+                               out, N, std::is_same<T, __nv_bfloat16>::value, nullptr, bt,
+                               split, stream);
 }
 
 template <typename T>
@@ -1178,8 +1311,28 @@ cudaError_t launch_blockscale_gemm(const void* x, int x_stride, int M, int K, in
       static_cast<const T*>(x), x_stride, K, Kp, xb, sum32, sums);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_bs<true>(xb, sums, M, Kp, words, Np, scales, lut_bias, nullptr, out, N,
-                         std::is_same<T, __nv_bfloat16>::value, bt, split, stream);
+  return launch_bs<W_BLOCK>(xb, Kp, Kp, sums, M, Kp, words, Np, scales, lut_bias, nullptr,
+                            out, N, std::is_same<T, __nv_bfloat16>::value, nullptr, bt,
+                            split, stream);
+}
+
+// K6's GEMM form: the row kernel, then the GEMM in column-scale mode; with
+// xb null the GEMM reads x (bf16) itself, K values a row, x_stride apart
+template <typename T>
+cudaError_t launch_colscale_gemm(const void* x, int x_stride, int M, int K, int Kp,
+                                 const int* words, int Np, const float* scale, void* out,
+                                 int N, __nv_bfloat16* xb, float* sumx, int bt, int split,
+                                 cudaStream_t stream) {
+  colscale_rows<T><<<M, 256, 0, stream>>>(static_cast<const T*>(x), x_stride, K, Kp, xb,
+                                          sumx);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const bool copy = xb != nullptr;
+  return launch_bs<W_COLSCALE>(copy ? xb : static_cast<const __nv_bfloat16*>(x),
+                               copy ? Kp : K, copy ? Kp : x_stride, nullptr, M, Kp, words,
+                               Np, scale, 1, nullptr, out, N,
+                               std::is_same<T, __nv_bfloat16>::value, sumx, bt, split,
+                               stream);
 }
 
 }  // namespace
@@ -1218,7 +1371,8 @@ int bn_blockscale_decode(const void* x, int M, int K, int Kp, const int* words,
                          int dtype, cudaStream_t stream) {
   if (M < 1 || M > DEC_MAX_M || Kp % KT || K < 1 || K > Kp || Np % 32 || N > Np)
     return (int)cudaErrorInvalidValue;
-#define BN_D(LB, TT)   return (int)launch_decode_rows<LB, TT>(x, M, K, Kp, words, Np, scales, out, N, stream)
+#define BN_D(LB, TT) \
+  return (int)launch_decode_rows<W_BLOCK, LB, TT>(x, M, K, Kp, words, Np, scales, out, N, stream)
   if (dtype == 1) {
     if (lut_bias) BN_D(true, __nv_bfloat16);
     BN_D(false, __nv_bfloat16);
@@ -1226,6 +1380,42 @@ int bn_blockscale_decode(const void* x, int M, int K, int Kp, const int* words,
   if (lut_bias) BN_D(true, float);
   BN_D(false, float);
 #undef BN_D
+}
+
+// K6's decode form: x [M, K] in its own dtype (rounded to bf16 here, rows
+// past K read as 0), M <= 16; scale f32 [Np], one a column; out [M, N] in
+// x's dtype.  One launch.
+int bn_colscale_decode(const void* x, int M, int K, int Kp, const int* words, int Np,
+                       const float* scale, void* out, int N, int dtype,
+                       cudaStream_t stream) {
+  if (M < 1 || M > DEC_MAX_M || Kp % KT || K < 1 || K > Kp || Np % 32 || N > Np)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)launch_decode_rows<W_COLSCALE, true, __nv_bfloat16>(x, M, K, Kp, words, Np,
+                                                                    scale, out, N, stream);
+  return (int)launch_decode_rows<W_COLSCALE, true, float>(x, M, K, Kp, words, Np, scale,
+                                                          out, N, stream);
+}
+
+// K6's GEMM form: x [M, K] in its own dtype (row stride x_stride); the row
+// kernel writes the f32 sums of its bf16-rounded rows into sumx [M] and,
+// where xb is not null, those rows zero-padded to Kp into xb [M, Kp]; with
+// xb null the GEMM reads x itself (bf16, 16-byte aligned, x_stride * 2 a
+// multiple of 16; values past K read as zeros).  Then the GEMM in
+// column-scale mode, tiled as K10's (bt, split); scale f32 [Np]; out
+// [M, N] in x's dtype.  Two launches.
+int bn_colscale_gemm(const void* x, int x_stride, int M, int K, int Kp, const int* words,
+                     int Np, const float* scale, void* out, int N, __nv_bfloat16* xb,
+                     float* sumx, int dtype, int bt, int split, cudaStream_t stream) {
+  if (!bs_shape_ok(M, Kp, Np, N, bt, split) || K < 1 || K > Kp || x_stride < K)
+    return (int)cudaErrorInvalidValue;
+  if (xb == nullptr && (dtype != 1 || (x_stride * 2) % 16 || (uintptr_t)x % 16))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)launch_colscale_gemm<__nv_bfloat16>(x, x_stride, M, K, Kp, words, Np, scale,
+                                                    out, N, xb, sumx, bt, split, stream);
+  return (int)launch_colscale_gemm<float>(x, x_stride, M, K, Kp, words, Np, scale, out, N,
+                                          xb, sumx, bt, split, stream);
 }
 
 // K11: M <= 2, K == Kp (a multiple of 256); xq / sx / sumq receive the int8

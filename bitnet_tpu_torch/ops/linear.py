@@ -313,7 +313,7 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
     - otherwise SwiGLU and the norm run in plain torch, then the path picks
       the matmul: ``xla`` a dequantized weight and a plain matmul; for
       qk256 ``w2a8`` per-row int8 quantization in torch (``:1098-1110``)
-      and K4, ``pallas`` K6 (both on x zero-padded to Kp); for bitnet32 /
+      and K4 (on x zero-padded to Kp), ``pallas`` K6 (on x as it is); for bitnet32 /
       tl K10 on ``w2a8`` and ``pallas`` alike (the block-scale bf16 body,
       ``:1098``, ``:1152-1173``); the residual is added in torch
       (``:1324-1325``)."""
@@ -355,11 +355,14 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
         y = tm.ternary_matmul_blockscale_bf16(
             l, x2.contiguous(), packed, lin.scales if stacked else lin.scales[None],
             k_dim=lin.k, n_dim=lin.n, lut_bias=lin.kind == "bitnet32")
-    else:
+    elif path == "w2a8":
         if K != Kp:               # padded K rows hold code 0
             x2 = torch.nn.functional.pad(x2, (0, Kp - K))
-        mm = tm.ternary_matmul_w2a8 if path == "w2a8" else tm.ternary_matmul_bf16
-        y = mm(l, x2.contiguous(), packed, lin.col_scales, k_dim=Kp, n_dim=lin.n)
+        y = tm.ternary_matmul_w2a8(l, x2.contiguous(), packed, lin.col_scales,
+                                   k_dim=Kp, n_dim=lin.n)
+    else:                         # K6 pads and rounds x itself
+        y = tm.ternary_matmul_bf16(l, x2.contiguous(), packed, lin.col_scales,
+                                   k_dim=lin.k, n_dim=lin.n)
     if r2 is not None:
         y = y + r2
     return y.reshape(*lead, lin.n)

@@ -73,9 +73,9 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu/ops/decode_attention.py:960",
                decode_attention),
     KernelSpec("ternary_matmul_bf16", "cuda",
-               "bitnet_tpu_torch/csrc/ternary_matmul.cu",
+               "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
                "bitnet_tpu/ops/ternary_matmul.py:1177 (bf16 qk256 body)",
-               ternary_matmul_bf16),
+               ternary_matmul_bf16),              # decode form (M <= MB) and GEMM
     KernelSpec("decode_attention_qkv_quant", "cuda",
                "bitnet_tpu_torch/csrc/decode_attention.cu",
                "bitnet_tpu/ops/decode_attention_v2.py:1021",

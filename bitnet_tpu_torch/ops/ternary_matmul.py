@@ -13,8 +13,12 @@ quantizes the rows with the arithmetic the JAX package runs in XLA
 
 K6 :func:`ternary_matmul_bf16` replaces the ``_qk256_kernel`` body of
 ``_ternary_matmul_2d`` (``:112-135``, launched at ``:1177``): bf16
-activations times the biased codes with f32 accumulation, the
-``--kernel-path pallas`` route.
+activations times the biased codes with f32 accumulation, minus ``2·Σx``,
+times one scale a column, the ``--kernel-path pallas`` route.  It is the
+column-scale mode of K10's two forms (below): decode rows (M ≤
+``BF16_DECODE_MAX_M``) take the decode form, more rows a row kernel (the
+whole-row sums, and bf16 rows where the GEMM cannot read x itself), then
+the wgmma GEMM.
 
 The per-32-row block-scale kernels of the bitnet32 / TL weights
 (``lut_bias`` picks the bitnet32 LUT {-2,-1,1,2} or the TL levels
@@ -154,20 +158,22 @@ def ternary_matmul_w2a8_plain(xq, sumq, sx, words, scale, n_dim, dtype):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_stack(packed, scale_vec, l, k_dim):
+def _check_stack(packed, scale_vec, l, k_dim, pad_ok=False):
     if packed.dtype != torch.int32 or packed.ndim != 3:
         raise ValueError(f"packed must be int32 [L, Kp/16, Np], got "
                          f"{packed.dtype} {tuple(packed.shape)}")
     L, R, Np = packed.shape
     if not 0 <= l < L:
         raise IndexError(f"layer {l} out of range [0, {L})")
-    if R * 16 != k_dim:
+    if pad_ok and not 0 < k_dim <= R * 16:
+        raise ValueError(f"K6 needs 0 < K <= Kp, got K={k_dim} Kp={R * 16}")
+    if not pad_ok and R * 16 != k_dim:
         raise ValueError(f"W2A8 kernels need K == Kp, got K={k_dim} Kp={R * 16}")
     if tuple(scale_vec.shape) != (L, Np) or scale_vec.dtype != torch.float32:
         raise ValueError(f"scale_vec must be f32 [{L}, {Np}]")
     if not (packed.is_contiguous() and scale_vec.is_contiguous()):
         raise ValueError("packed and scale_vec must be contiguous")
-    if Np % 64:                 # column blocks: 32 (K1), 64 (K6), halves of 128 (K4)
+    if Np % 64:                 # column blocks: 32 (K1, K6 decode), halves of 128 (K4, K6)
         raise ValueError(f"W2A8 kernels need Np % 64 == 0, got Np={Np}")
     return L, Np
 
@@ -345,8 +351,17 @@ ternary_matmul_w2a8.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K6: bf16 activations x biased codes, f32 accumulation
+# K6: bf16 activations x biased codes, f32 accumulation, one scale a column
 # --------------------------------------------------------------------------
+def colscale_rows_plain(x: torch.Tensor, Kp: int):
+    """The plain version of K6's row kernel: x [M, K] zero-padded to Kp and
+    rounded to bf16 (the JAX wrapper pads in f32, then rounds: the same
+    values), and the f32 sum of each row of those bf16 values (``sumx``,
+    ``:1114-1121``); returns (xb bf16 [M, Kp], sumx f32 [M])."""
+    xb = torch.nn.functional.pad(x.to(torch.bfloat16), (0, Kp - x.shape[1])).contiguous()
+    return xb, xb.to(torch.float32).sum(dim=1)
+
+
 def ternary_matmul_bf16_plain(xb, sumx, words, scale, n_dim, dtype):
     """K6 on one layer: bf16 rows [M, Kp] (their f32 row sums ``sumx``)
     × words [Kp/16, Np]: ``(Σ x·(c+(c>>1)) − 2·sumx)·scale`` in f32, cast
@@ -357,38 +372,102 @@ def ternary_matmul_bf16_plain(xb, sumx, words, scale, n_dim, dtype):
     return y.to(dtype)
 
 
+# The rows up to which K6 takes its decode form (one launch) rather than its
+# GEMM form (the row kernel, then the wgmma GEMM): the largest M of {1, 2, 4,
+# 8, 16} at which the decode form was no slower over the generic path's
+# seven shapes on the H100 (PERF.md, Findings: K6's MB table).
+BF16_DECODE_MAX_M = 2
+
+
 def ternary_matmul_bf16(l: int, x: torch.Tensor, packed: torch.Tensor,
                         scale_vec: torch.Tensor, k_dim: int,
                         n_dim: int) -> torch.Tensor:
     """K6: ``x @ W[l]`` with x rounded to bf16 (even when x is f32, as the
-    JAX ``pallas`` variant does, ``:1115-1118``); returns [M, n_dim] in
-    x's dtype.  The bias correction sums the same bf16-rounded values the
-    kernel multiplies, in f32, here in plain PyTorch (XLA in the JAX
-    package)."""
-    _check_stack(packed, scale_vec, l, k_dim)
+    JAX ``pallas`` variant does, ``:1115-1118``) and zero-padded to Kp, the
+    bias correction ``2·Σx`` summing the same bf16 values in f32; returns
+    [M, n_dim] in x's dtype.  x [M, K] in its own dtype, K = ``k_dim`` ≤ Kp.
+    On the card, M ≤ ``BF16_DECODE_MAX_M`` rows take the decode form (one
+    launch), more rows the GEMM form (two launches: the row kernel, then the
+    GEMM tiled by :func:`blockscale_gemm_plan`); neither runs another
+    PyTorch op than ``torch.empty``."""
+    _check_stack(packed, scale_vec, l, k_dim, pad_ok=True)
     if x.ndim != 2 or x.shape[1] != k_dim:
         raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
     if n_dim > packed.shape[2]:
         raise ValueError(f"n_dim {n_dim} > Np {packed.shape[2]}")
-    xb = x.to(torch.bfloat16).contiguous()
-    sumx = xb.to(torch.float32).sum(dim=1)
     if x.device.type == "cpu":
-        return ternary_matmul_bf16_plain(xb, sumx, packed[l], scale_vec[l],
-                                         n_dim, x.dtype)
+        xb, sumx = colscale_rows_plain(x, packed.shape[1] * 16)
+        return ternary_matmul_bf16_plain(xb, sumx, packed[l], scale_vec[l], n_dim,
+                                         x.dtype)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K6 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
     if packed.get_device() != x.get_device() or scale_vec.get_device() != x.get_device():
         raise ValueError("K6 operands must be on x's device")
-    M, Np = x.shape[0], packed.shape[2]
-    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
-    lib = _cuda.library("ternary_matmul")
-    rc = lib.bn_bf16_gemm(
-        xb.data_ptr(), M, k_dim, packed.data_ptr() + 4 * l * packed.stride(0),
-        Np, sumx.data_ptr(), scale_vec.data_ptr() + 4 * l * Np,
-        out.data_ptr(), n_dim, _DTYPE_CODE[x.dtype], _cuda.stream_ptr(x.device))
-    _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_bf16")
+    if x.shape[0] <= BF16_DECODE_MAX_M:
+        out = _bf16_decode_cuda(l, x, packed, scale_vec, k_dim, n_dim)
+    else:
+        out = _bf16_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)[0]
     ternary_matmul_bf16.launches += 1
     return out
+
+
+def _bf16_decode_cuda(l, x, packed, scale_vec, k_dim, n_dim):
+    """K6's decode form on checked operands (1 ≤ M ≤ 16, x contiguous in its
+    own dtype): one launch, nothing else.  Counts no launch."""
+    if not x.is_contiguous():
+        raise ValueError("K6's decode form takes a contiguous x")
+    M, Kp, Np = x.shape[0], packed.shape[1] * 16, packed.shape[2]
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_colscale_decode(
+        x.data_ptr(), M, k_dim, Kp, packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scale_vec.data_ptr() + 4 * l * Np, out.data_ptr(), n_dim, _DTYPE_CODE[x.dtype],
+        _cuda.stream_ptr(x.device))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_bf16")
+    return out
+
+
+def _bf16_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim):
+    """Launch K6's GEMM form on checked operands, any M ≥ 1 (x's rows each
+    contiguous): the row kernel, then the GEMM in column-scale mode, tiled
+    by :func:`blockscale_gemm_plan`.  The GEMM reads bf16 rows that TMA can
+    address (16-byte aligned, a row stride of a multiple of 8 values) from x
+    itself; other rows (f32 x among them) are copied to bf16 rows
+    zero-padded to Kp by the row kernel.  Returns (out, scratch, copied):
+    scratch holds the copy (bf16 [M, Kp], where ``copied``), then the f32
+    row sums [M]."""
+    if x.stride(1) != 1:
+        raise ValueError("K6's GEMM form takes rows that are each contiguous")
+    M, Kp, Np = x.shape[0], packed.shape[1] * 16, packed.shape[2]
+    dev = x.device
+    bt, split = blockscale_gemm_plan(M, Kp, Np, _sm_count(dev.index))
+    copy = not (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+                and x.stride(0) % 8 == 0)
+    out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
+    a = 2 * M * Kp if copy else 0          # the copy first: TMA reads it 16-byte aligned
+    scratch = torch.empty(a + 4 * M, dtype=torch.uint8, device=dev)
+    p = scratch.data_ptr()
+    lib = _cuda.library("ternary_matmul_tl")
+    rc = lib.bn_colscale_gemm(
+        x.data_ptr(), x.stride(0), M, k_dim, Kp,
+        packed.data_ptr() + 4 * l * packed.stride(0), Np,
+        scale_vec.data_ptr() + 4 * l * Np, out.data_ptr(), n_dim,
+        p if copy else None, p + a, _DTYPE_CODE[x.dtype], bt, split,
+        _cuda.stream_ptr(dev))
+    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_bf16")
+    return out, scratch, copy
+
+
+def _bf16_gemm_cuda(l, x, packed, scale_vec, k_dim, n_dim):
+    """K6's GEMM form with its row kernel's output: (out, xb, sumx), xb the
+    bf16 rows [M, Kp] it copied or None, sumx the f32 row sums [M], so a
+    check can hold them against :func:`colscale_rows_plain`.  Counts no
+    launch."""
+    out, scratch, copied = _bf16_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)
+    M, Kp = x.shape[0], packed.shape[1] * 16
+    a = 2 * M * Kp if copied else 0
+    xb = scratch[:a].view(torch.bfloat16).view(M, Kp) if copied else None
+    return out, xb, scratch[a:].view(torch.float32)
 
 
 ternary_matmul_bf16.launches = 0

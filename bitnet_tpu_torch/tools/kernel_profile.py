@@ -3,21 +3,28 @@ path's bitnet-b1.58-2B-4T shapes, from ``torch.profiler`` (CUPTI).
 
 Run on the card from the repository root:
 
-    python -m bitnet_tpu_torch.tools.kernel_profile
+    python -m bitnet_tpu_torch.tools.kernel_profile [--only K6,K10]
 
 It splits what ``chip_smoke.py`` times per wrapper into the kernels that
 ran (K1's fused GEMV, K4's row quantization and wgmma GEMM at M = 8, 512
 and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
 its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
-the f32 correction matmul K10's GEMM form no longer runs; K2's two passes)
-and prints one JSON line per case with the card's name and power limit.
-Weights and caches cycle over 8 layers.
+the f32 correction matmul K10's GEMM form no longer runs; K6 at the generic
+path's seven shapes, its decode form at M = 1 and its row kernel and GEMM
+at M = 512; K2's two passes) and prints one JSON line per case with the
+card's name and power limit.  The ``K6 tiles`` cases time K6's GEMM form at
+M = 128, 512 and 2048 in BT = 32, 64 and 128 rows a block and K splits of 1,
+2 and 4, forced past ``blockscale_gemm_plan`` (the table its choice rests
+on).  ``--only`` keeps the cases whose names start with one of the given
+prefixes.  Weights and caches cycle over 8 layers.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
+from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -29,6 +36,9 @@ from ..ops import ternary_matmul as tm
 
 SHAPES = (("qkv", 2560, 3840, False, False), ("o", 2560, 2560, False, True),
           ("gate_up", 2560, 13824, False, False), ("down", 6912, 2560, True, True))
+# the generic path's seven unfused projections (K6 under --kernel-path pallas)
+SEVEN = (("q", 2560, 2560), ("k", 2560, 640), ("v", 2560, 640), ("o", 2560, 2560),
+         ("gate", 2560, 6912), ("up", 2560, 6912), ("down", 6912, 2560))
 REPS, LAYERS = 40, 8
 
 
@@ -65,6 +75,22 @@ def _cases(dev, g):
                 sum32 = torch.randn((M, K // 32), generator=g, device=dev)
                 yield f"K10 correction matmul {name} M={M}", lambda i, s=s, sum32=sum32: (
                     tm.blockscale_correction(sum32, s[i % LAYERS]))
+    for name, K, N in SEVEN:
+        w = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+        sv = (torch.rand((LAYERS, N), generator=g, device=dev) + 0.5) * 0.02
+        for M in (1, 512):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            yield f"K6 {name} M={M}", lambda i, w=w, sv=sv, x=x, K=K, N=N: (
+                tm.ternary_matmul_bf16(i % LAYERS, x, w, sv, K, N))
+        for M in (128, 512, 2048):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            for bt in (32, 64, 128):
+                for split in (1, 2, 4):
+                    def call(i, w=w, sv=sv, x=x, K=K, N=N, plan=(bt, split)):
+                        with mock.patch.object(tm, "blockscale_gemm_plan", lambda *a: plan):
+                            return tm._bf16_gemm_launch(i % LAYERS, x, w, sv, K, N)
+                    yield f"K6 tiles {name} M={M} BT={bt} split={split}", call
     for S in (1024, 4096):
         kc = torch.randn((LAYERS, 1, S, 640), generator=g, device=dev).bfloat16()
         vc = torch.randn_like(kc)
@@ -76,6 +102,9 @@ def _cases(dev, g):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="", help="comma-separated case-name prefixes")
+    only = tuple(p for p in ap.parse_args().only.split(",") if p)
     require_sm90(0)
     dev = torch.device("cuda", 0)
     _cuda.build()
@@ -84,6 +113,8 @@ def main() -> None:
                          text=True, check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device=dev).manual_seed(0)
     for name, fn in _cases(dev, g):
+        if only and not name.startswith(only):
+            continue
         for i in range(LAYERS):
             fn(i)
         torch.cuda.synchronize()

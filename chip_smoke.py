@@ -28,6 +28,12 @@ no result line):
            correction matmul it replaced (kernels.k10_m), K10's GEMM and K12
            in every forced tile / K split and their two launches under the
            profiler (kernels.k10_profile, kernels.k12_profile);
+           K6's two forms (its decode form at M <= 16, its row kernel and
+           GEMM at every M) at M = 1..512 on the generic seven, bf16 and
+           f32 x, side by side at M <= 16 (kernels.k6_mb: the rows where the
+           wrapper switches), its M table (kernels.k6_m), every forced tile
+           and K split, and each form under the profiler
+           (kernels.k6_decode_profile, kernels.k6_gemm_profile);
            K4 bit for bit with its int8 rows at M = 8..2048 on the 2B and
            8B shapes and in every forced tile / K split, its M table over
            the fused four beside torch._int_mm (kernels.k4_m), and its two
@@ -207,6 +213,16 @@ def phase_kernels(torch, dev):
                                                       "bound_ms", "plain_ms")}}
         for M in K4_TIMED]
     check_k6(torch, dev, g, res)
+    # the MB table: K6's two forms summed over the generic seven, per M; the
+    # M table: the wrapper over the seven at M=1 and 512
+    res["k6_mb"] = [
+        {"M": M, **{f: sum(r[f] for r in res["k6"] if r["M"] == M and f in r)
+                    for f in ("decode_ms", "gemm_ms")}} for M in (1, 2, 4, 8, 16)]
+    res["k6_m"] = [
+        {"M": M, **{f: sum(r[f] for r in res["k6"] if r["M"] == M and "ms" in r)
+                    for f in ("ms", "library_ms", "bound_ms", "plain_ms")}}
+        for M in (1, 512)]
+    check_k6_forms(torch, dev, g, res)
     check_k5(torch, dev, g, res)
     check_k7(torch, dev, g, res)
     check_k8_k9(torch, dev, g, res)
@@ -484,45 +500,139 @@ def check_k4_forms(torch, dev, g, res):
         raise AssertionError(f"K4 launched more than its two kernels: {res['k4_profile']}")
 
 
+# K6's rows at the generic seven: both forms at M <= 16 (the MB table), the
+# GEMM form past them; timed at M=1 and a 512-row prefill bucket
+K6_MS = (1, 2, 4, 8, 16, 17, 64, 512)
+
+
+def _k6_rows_ok(torch, xb_k, sum_k, xb, sumx):
+    """The GEMM form's row-kernel outputs: its bf16 rows (where it copied
+    them) the plain row kernel's bit for bit, its row sums within the f32
+    bound of two summation orders, 2·Kp·2^-24·Σ|x| a row."""
+    bound = 2 * xb.shape[1] * 2.0**-24 * xb.float().abs().sum(1)
+    return bool((xb_k is None or torch.equal(xb_k, xb))
+                and ((sum_k - sumx).abs() <= bound).all())
+
+
 def check_k6(torch, dev, g, res):
-    """K6 (bf16 x biased codes, f32 accumulation) against its plain version
-    at the seven unfused shapes, M in {1, 2, 512}; timed at M=1 and 512."""
+    """K6 (bf16 x biased codes, f32 accumulation, one scale a column)
+    against its plain version at the seven unfused shapes, M in ``K6_MS``,
+    bf16 and f32 x: the wrapper, and each form it can take (the decode form
+    at M <= 16, twice, bit for bit; the GEMM form with its row kernel's bf16
+    rows and row sums); the wrapper's output is the form it takes, bit for
+    bit, and past MB two calls give the same bits.  Tolerance: the
+    correction cancels (acc reaches ~4·K·|x|) and the f32 sums run in
+    another order, so f32 outputs within 1e-4 of the largest output, bf16
+    8e-3 (two ulps).  With bf16 x: both forms timed at M <= 16 (the MB
+    table, ``kernels.k6_mb``), the wrapper at M=1 and 512 beside the plain
+    version, ``torch.matmul`` on the dequantized bf16 weights and the bound
+    (``kernels.k6_m``)."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
+    MB = tm.BF16_DECODE_MAX_M
     for name, K, N, _g, _glu, _r in UNFUSED_SHAPES:
         words, sv = _stack(torch, g, K, N, dev)
         L = words.shape[0]
-        for M in (1, 2, 512):
-            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            l = 1
-            out = tm.ternary_matmul_bf16(l, x, words, sv, K, N)
-            xb = x.to(torch.bfloat16)
-            sumx = xb.float().sum(1)
-            plain = tm.ternary_matmul_bf16_plain(xb, sumx, words[l], sv[l], N,
-                                                 x.dtype)
-            err = (out.float() - plain.float()).abs().max().item()
-            ref = plain.float().abs().max().item()
-            # float tolerance: the f32 sums run in another order (tensor-core
-            # tiles vs one matmul), which can move a bf16 output by one ulp
-            # (2^-8 relative); two ulps of the largest output
-            tol = 8e-3 * ref
-            row = {"shape": name, "M": M, "K": K, "N": N, "max_abs_err": err,
-                   "ref_max": ref, "tol": tol, "ok": err <= tol}
-            if M in (1, 512):
-                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16(
-                    i % L, x, words, sv, K, N), L)
-                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16_plain(
-                    xb, sumx, words[i % L], sv[i % L], N, x.dtype), 4)
-                dense = _dense_stack(torch, words, sv)
-                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
-                    x, dense[i % len(dense)]), 2 * len(dense))
-                del dense
-                nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4 + M * 4
-                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "bf16")
-            res["k6"].append(row)
-            if not row["ok"]:
-                raise AssertionError(f"K6 mismatch: {row}")
-        del words, sv
+        dense = None
+        for M in K6_MS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                l = 1
+                out = tm.ternary_matmul_bf16(l, x, words, sv, K, N)
+                xb, sumx = tm.colscale_rows_plain(x, K)
+                plain = tm.ternary_matmul_bf16_plain(xb, sumx, words[l], sv[l], N, dtype)
+                ref = plain.float().abs().max().item()
+                tol = (8e-3 if dtype == torch.bfloat16 else 1e-4) * ref
+                form = "decode" if M <= MB else "gemm"
+                row = {"shape": name, "M": M, "K": K, "N": N, "x": str(dtype)[6:],
+                       "form": form, "ref_max": ref, "tol": tol}
+                gem, xb_k, sum_k = tm._bf16_gemm_cuda(l, x, words, sv, K, N)
+                errs = [(out.float() - plain.float()).abs().max().item(),
+                        (gem.float() - plain.float()).abs().max().item()]
+                row["rows_ok"] = _k6_rows_ok(torch, xb_k, sum_k, xb, sumx)
+                row["copied_rows"] = xb_k is not None
+                ok = row["rows_ok"]
+                if M <= 16:
+                    dec = tm._bf16_decode_cuda(l, x, words, sv, K, N)
+                    dec2 = tm._bf16_decode_cuda(l, x, words, sv, K, N)
+                    errs.append((dec.float() - plain.float()).abs().max().item())
+                    row["decode_repeats"] = bool(torch.equal(dec, dec2))
+                    row["wrapper_is_form"] = bool(torch.equal(
+                        out, dec if form == "decode" else gem))
+                    ok = ok and row["decode_repeats"]
+                else:
+                    again = tm.ternary_matmul_bf16(l, x, words, sv, K, N)
+                    row["wrapper_is_form"] = bool(torch.equal(out, gem))
+                    row["gemm_repeats"] = bool(torch.equal(out, again))
+                    ok = ok and row["gemm_repeats"]
+                row["max_abs_err"] = max(errs)
+                row["ok"] = ok and row["wrapper_is_form"] and row["max_abs_err"] <= tol
+                if dtype == torch.bfloat16 and M <= 16:
+                    row["decode_ms"] = time_ms(torch, lambda i: tm._bf16_decode_cuda(
+                        i % L, x, words, sv, K, N), L)
+                    row["gemm_ms"] = time_ms(torch, lambda i: tm._bf16_gemm_cuda(
+                        i % L, x, words, sv, K, N)[0], L)
+                if dtype == torch.bfloat16 and M in (1, 512):
+                    if dense is None:
+                        dense = _dense_stack(torch, words, sv)
+                    row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16(
+                        i % L, x, words, sv, K, N), L)
+                    row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_bf16_plain(
+                        xb, sumx, words[i % L], sv[i % L], N, x.dtype), 4)
+                    row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                        x, dense[i % len(dense)]), 2 * len(dense))
+                    nbytes = M * K * 2 + K * N // 4 + M * N * 2 + N * 4
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "bf16")
+                res["k6"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K6 mismatch: {row}")
+        del words, sv, dense
+
+
+def check_k6_forms(torch, dev, g, res):
+    """Every tile and K split of K6's GEMM form (BT rows a block x a split of
+    1-8), forced past the plan: ragged M, K < Kp, N = 192 (a block whose
+    second column half lies past Np) with f32 x in strided rows (copied by
+    the row kernel) and N = 640 with bf16 x (read by TMA as it is), against
+    the plain version (check_k6's tolerances); then one call of each form
+    under the profiler: the decode form one kernel, the GEMM form two, and
+    no ATen op but ``aten::empty``."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    Kp, K = 2048, 1952
+    for N, dtype in ((192, torch.float32), (640, torch.bfloat16)):
+        words, sv = _stack(torch, g, Kp, N, dev, min_bytes=0)
+        for bt in tm.BLOCKSCALE_GEMM_ROWS:
+            for split in (1, 2, 4, 8):
+                M = bt + 1
+                x = torch.randn((M, K + 64), generator=g, device=dev).to(dtype)
+                x = x[:, :K] if dtype == torch.float32 else x[:, :K].contiguous()
+                with mock.patch.object(tm, "blockscale_gemm_plan", lambda *a: (bt, split)):
+                    out, xb_k, sum_k = tm._bf16_gemm_cuda(1, x, words, sv, K, N)
+                xb, sumx = tm.colscale_rows_plain(x, Kp)
+                plain = tm.ternary_matmul_bf16_plain(xb, sumx, words[1], sv[1], N, dtype)
+                ref = plain.float().abs().max().item()
+                tol = (8e-3 if dtype == torch.bfloat16 else 1e-4) * ref
+                row = {"path": "forms", "M": M, "K": K, "Kp": Kp, "N": N, "bt": bt,
+                       "split": split, "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+                       "tol": tol, "copied_rows": xb_k is not None,
+                       "rows_ok": _k6_rows_ok(torch, xb_k, sum_k, xb, sumx)}
+                row["ok"] = row["max_abs_err"] <= tol and row["rows_ok"]
+                res["k6"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K6 form mismatch: {row}")
+    setup = ("w, _s = words(2560, 640, False)\n"
+             "s = torch.rand((2, 640), generator=g, device=dev) * 0.02 + 0.01\n")
+    res["k6_decode_profile"] = _profile_call(
+        setup + "x = torch.randn((1, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 1)
+    res["k6_gemm_profile"] = _profile_call(
+        setup + "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 2)
+    for key in ("k6_decode_profile", "k6_gemm_profile"):
+        if not res[key]["ok"]:
+            raise AssertionError(f"K6 launched other than its kernels: {res[key]}")
 
 
 def check_k5(torch, dev, g, res):
@@ -997,10 +1107,10 @@ print(json.dumps({{
 """
 
 
-def _profile_call(setup, call, counter):
+def _profile_call(setup, call, counter, kernels=2):
     """The CUDA kernels and ATen ops of one wrapper call, profiled in a
     fresh process (``_PROFILE_CHILD``); ok when the wrapper counted one
-    launch, the profiler saw two kernels and no ATen op but
+    launch, the profiler saw ``kernels`` kernels and no ATen op but
     ``aten::empty``."""
     code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -1008,7 +1118,7 @@ def _profile_call(setup, call, counter):
     if r.returncode != 0:
         raise AssertionError(f"profiled call failed: {r.stderr[-3000:]}")
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    out["ok"] = (out["launches"] == 1 and len(out["kernels"]) == 2
+    out["ok"] = (out["launches"] == 1 and len(out["kernels"]) == kernels
                  and set(out["aten_ops"]) <= {"aten::empty"})
     return out
 
@@ -1587,6 +1697,17 @@ def check_exp_w2a8(torch, dev, g, res):
                "max_abs_err": 0.0 if exact else float("inf"), "ok": exact,
                "ms": time_ms(torch, lambda i: fn(wd)),
                "plain_ms": time_ms(torch, lambda i: plain(wd)), "library_ms": None}
+        if key != "k31":      # no single PyTorch call unpacks K31's chain
+            # one copy_: the words' bytes, moved to rows 4s+j (and for K30
+            # converted to bf16), the probe's function exactly
+            R, C = w.shape
+            lib = torch.empty_like(out)
+            src = wd.view(torch.int8).view(R, C, 4).transpose(1, 2)
+            lib.view(R, 4, C).copy_(src)
+            exact = exact and bool(torch.equal(lib, out))
+            row["library_ms"] = time_ms(torch, lambda i: lib.view(R, 4, C).copy_(src))
+            row["library_call"] = "Tensor.copy_ of the int8 view, rows 4s+j"
+            row["ok"] = row["exact"] = exact
         row["bound_ms"], row["bound_by"] = bound(
             w.numel() * 4 + out.numel() * out.element_size(), 0, "int8")
         res[key].append(row)

@@ -321,6 +321,122 @@ def test_k6_matches_plain(dev, M, dtype):
     assert (out.float() - plain.float()).abs().max() <= 8e-3 * plain.float().abs().max()
 
 
+MB6 = tm.BF16_DECODE_MAX_M
+
+
+def _k6_check(out, x, w, sv, k, N, rows=None):
+    """K6's output against its plain version: 1e-4 of the largest output
+    with f32 x (the correction cancels: acc reaches ~4·K·|x|, and the f32
+    sums run in another order), 8e-3 (two bf16 ulps) with bf16 x.  With the
+    GEMM form's row-kernel outputs ``rows`` = (xb or None, sumx): its bf16
+    rows are the plain row kernel's bit for bit, its row sums within the f32
+    bound of two summation orders (2·Kp·2^-24·Σ|x| a row)."""
+    Kp = w.shape[1] * 16
+    xb, sumx = tm.colscale_rows_plain(x, Kp)
+    plain = tm.ternary_matmul_bf16_plain(xb, sumx, w[1], sv[1], N, x.dtype)
+    assert out.dtype == x.dtype and out.shape == plain.shape
+    rel = 8e-3 if x.dtype == torch.bfloat16 else 1e-4
+    ref = plain.float().abs().max()
+    assert (out.float() - plain.float()).abs().max() <= rel * ref
+    if rows is not None:
+        xb_k, sum_k = rows
+        assert xb_k is None or torch.equal(xb_k, xb)
+        bound = 2 * Kp * 2.0**-24 * xb.float().abs().sum(1)
+        assert ((sum_k - sumx).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 2, MB6, MB6 + 1, 17, 64, 65, 130])
+@pytest.mark.parametrize("k,N", [(1952, 192), (2560, 640), (200, 640)])
+def test_k6_forms_match_plain(dev, k, N, M, dtype):
+    """Both of K6's forms past the MB rule: the decode form at every M it
+    takes (≤ 16), the GEMM form at every M (bf16 rows TMA can read taken as
+    they are, other rows copied), K < Kp, a ragged column block (N = 192),
+    layer 1; the wrapper's output is the form it takes, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(M + k + N)
+    Kp = -(-k // 256) * 256
+    w, sv = _words(g, 2, Kp, N, dev)
+    x = torch.randn((M, k), generator=g, device=dev).to(dtype)
+    out = tm.ternary_matmul_bf16(1, x, w, sv, k, N)
+    gem, xb_k, sum_k = tm._bf16_gemm_cuda(1, x, w, sv, k, N)
+    _k6_check(gem, x, w, sv, k, N, (xb_k, sum_k))
+    assert (xb_k is None) == (dtype == torch.bfloat16 and k % 8 == 0)
+    if M <= 16:
+        dec = tm._bf16_decode_cuda(1, x, w, sv, k, N)
+        _k6_check(dec, x, w, sv, k, N)
+    assert torch.equal(out, dec if M <= MB6 else gem)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("bt", [8, 16, 32, 64, 128])
+def test_k6_gemm_every_tile_and_split_matches_plain(dev, monkeypatch, bt, split):
+    """Every tile and K split of K6's GEMM form, forced past the plan: ragged
+    M (a row past one tile), K < Kp, N = 192 (a block whose second column
+    half lies past Np) with f32 x in strided rows (copied), N = 640 with
+    bf16 x (read by TMA as it is)."""
+    monkeypatch.setattr(tm, "blockscale_gemm_plan", lambda *a: (bt, split))
+    g = torch.Generator(device=dev).manual_seed(bt * 10 + split)
+    Kp, k, M = 2048, 1952, bt + 1
+    for N, dtype in ((192, torch.float32), (640, torch.bfloat16)):
+        w, sv = _words(g, 2, Kp, N, dev)
+        x = torch.randn((M, k + 64), generator=g, device=dev).to(dtype)
+        x = x[:, :k] if dtype == torch.float32 else x[:, :k].contiguous()
+        out, xb_k, sum_k = tm._bf16_gemm_cuda(1, x, w, sv, k, N)
+        assert (xb_k is None) == (dtype == torch.bfloat16)
+        _k6_check(out, x, w, sv, k, N, (xb_k, sum_k))
+
+
+def test_k6_repeats_bit_for_bit(dev):
+    """Two identical calls give the same bits: the split-K partials and the
+    row sums are added in a fixed order (N = 640 splits K over a cluster of
+    8 in the decode form, and over 8 blocks at M = 77 in the GEMM form)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    w, sv = _words(g, 2, 2560, 640, dev)
+    assert tm.blockscale_gemm_plan(77, 2560, 640, 132)[1] == 8
+    for M in (1, MB6, 77):
+        x = torch.randn((M, 2560), generator=g, device=dev)
+        a = tm.ternary_matmul_bf16(1, x, w, sv, 2560, 640)
+        assert torch.equal(a, tm.ternary_matmul_bf16(1, x, w, sv, 2560, 640))
+
+
+def test_k6_never_falls_back(dev, monkeypatch):
+    """On a CUDA tensor K6 launches a form (counted) at decode and prefill
+    rows, and never calls its plain versions."""
+    for name in ("ternary_matmul_bf16_plain", "colscale_rows_plain"):
+        monkeypatch.setattr(tm, name, None)
+    g = torch.Generator(device=dev).manual_seed(0)
+    w, sv = _words(g, 1, 512, 128, dev)
+    before = tm.ternary_matmul_bf16.launches
+    for M in (1, 77):
+        tm.ternary_matmul_bf16(0, torch.randn((M, 500), generator=g, device=dev), w, sv,
+                               500, 128)
+    assert tm.ternary_matmul_bf16.launches == before + 2
+
+
+def test_k6_decode_form_runs_one_kernel_and_no_pytorch_op(dev):
+    """At M=1 a K6 call is its decode form alone: one kernel, no ATen op but
+    the output's allocation."""
+    kernels, ops = _profiled_call(
+        "w, _s = words(2560, 640)\ns = torch.rand((2, 640), generator=g, device=dev)\n"
+        "x = torch.randn((1, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16")
+    assert len(kernels) == 1 and "blockscale_decode" in kernels[0], kernels
+    assert ops <= {"aten::empty"}, ops
+
+
+def test_k6_gemm_form_runs_two_kernels_and_no_pytorch_op(dev):
+    """Past MB rows a K6 call is the row kernel and the GEMM: two kernels, no
+    ATen op but the allocations."""
+    kernels, ops = _profiled_call(
+        "w, _s = words(2560, 640)\ns = torch.rand((2, 640), generator=g, device=dev)\n"
+        "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16")
+    assert len(kernels) == 2, kernels
+    assert sorted("colscale_rows" in k for k in kernels) == [False, True], kernels
+    assert all("colscale_rows" in k or "blockscale_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
+
+
 @pytest.mark.parametrize("kp", ["w2a8", "pallas"])
 def test_generic_engine_cuda_matches_cpu(dev, kp):
     """The unfused generic path (K1/K4 or K6, K5) on the card against the

@@ -201,6 +201,93 @@ def test_k6_integer_parts_exact():
                                   codes + (codes >> 1))
 
 
+@pytest.mark.parametrize("M,k,vecscale,dtype", [
+    (3, 200, False, "f32"), (3, 200, True, "bf16"), (2, K, True, "f32"),
+    (1, 200, True, "bf16"), (40, 200, True, "f32"), (130, 136, False, "bf16")])
+def test_k6_unpadded_x_matches_pallas(M, k, vecscale, dtype):
+    """K6 takes x [M, K] unpadded, K ≤ Kp, in its own dtype, and a per-column
+    scale vector: against ``_ternary_matmul_2d(variant='pallas')``, which
+    pads x to Kp itself (and, with a [1, N] scale, takes its ``vecscale``
+    epilogue); the tolerances of ``test_k6_plain_matches_pallas``."""
+    from bitnet_tpu.ops.ternary_matmul import _pick_blocks, _ternary_matmul_2d
+
+    rng, words, sv, _g = _stack(700 + M + k)
+    x = rng.standard_normal((M, k)).astype(np.float32)
+    if not vecscale:
+        sv = np.full_like(sv, 0.03)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    bm, bn, bkt = _pick_blocks(M, K, N, "pallas")
+    want = _ternary_matmul_2d(
+        jnp.asarray(x, jdt), jnp.asarray(words[1]),
+        jnp.asarray(sv[1][None, :]) if vecscale else jnp.float32(0.03),
+        kind="qk256", variant="pallas", k_dim=k, n_dim=N, bm=bm, bn=bn,
+        bkt=bkt, interpret=True, out_dtype=jdt)
+    got = tm.ternary_matmul_bf16(1, torch.from_numpy(x).to(tdt),
+                                 torch.from_numpy(words), torch.from_numpy(sv), k, N)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == tdt and got.shape == (M, N)
+    tol = 2e-6 if dtype == "f32" else 8e-3
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M,k,dtype", [(1, K, "f32"), (3, 200, "f32"),
+                                       (5, 200, "bf16"), (64, 136, "f32")])
+def test_k6_row_kernel_plain_matches_jax(M, k, dtype):
+    """The plain version of K6's row kernel: its bf16 rows are JAX's
+    ``x.astype(bf16)`` of x zero-padded to Kp bit for bit, and its row sums
+    JAX's ``sumx`` (``:1114-1121``) within the f32 bound of two summation
+    orders, 2·Kp·2^-24·Σ|x| a row."""
+    rng = np.random.default_rng(800 + M + k)
+    x = (rng.standard_normal((M, k)) * 3.0).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jx = jnp.pad(jnp.asarray(x, jdt).astype(jnp.float32), ((0, 0), (0, K - k)))
+    jxb = jx.astype(jnp.bfloat16)
+    jsum = np.asarray(jnp.sum(jxb.astype(jnp.float32), axis=1))
+    xb, sumx = tm.colscale_rows_plain(torch.from_numpy(x).to(tdt), K)
+    assert xb.dtype == torch.bfloat16 and xb.shape == (M, K) and sumx.shape == (M,)
+    np.testing.assert_array_equal(xb.float().numpy(),
+                                  np.asarray(jxb.astype(jnp.float32)))
+    bound = 2 * K * 2.0**-24 * np.abs(np.asarray(jxb.astype(jnp.float32))).sum(1)
+    assert (np.abs(sumx.numpy() - jsum) <= bound).all()
+
+
+@pytest.mark.parametrize("M,k", [(1, 200), (3, 200), (80, 136), (2, K)])
+def test_pallas_dispatcher_passes_x_to_k6_unpadded(M, k, monkeypatch):
+    """``linear_apply_normed(path='pallas')`` hands K6 x as it is, [M, K]
+    with K < Kp, and K6 pads it itself: the dispatcher pads nothing."""
+    from bitnet_tpu_torch.ops.linear import linear_apply_normed
+
+    rng, words, _sv, gamma = _stack(900 + M + k)
+    seen, k6 = [], tm.ternary_matmul_bf16
+
+    def spy(l, x, packed, scale_vec, k_dim, n_dim):
+        seen.append((tuple(x.shape), k_dim))
+        return k6(l, x, packed, scale_vec, k_dim, n_dim)
+
+    monkeypatch.setattr(tm, "ternary_matmul_bf16", spy)
+    x = torch.from_numpy(rng.standard_normal((M, k)).astype(np.float32))
+    y = linear_apply_normed(_port_lin(words[0], 0.02, k, N), x,
+                            torch.from_numpy(gamma[0, :k]), path="pallas")
+    assert seen == [((M, k), k)] and y.shape == (M, N)
+
+
+def test_k6_refuses_what_its_forms_do_not_take():
+    """K6 takes K ≤ Kp (not more), x of K values, bf16 / f32 on the CPU or a
+    CUDA device; its decode-form rule is a row count the decode form takes."""
+    _rng, words, sv, _g = _stack(0)
+    w, s = torch.from_numpy(words), torch.from_numpy(sv)
+    with pytest.raises(ValueError):       # K > Kp
+        tm.ternary_matmul_bf16(0, torch.zeros(2, K + 16), w, s, K + 16, N)
+    with pytest.raises(ValueError):       # x narrower than k_dim
+        tm.ternary_matmul_bf16(0, torch.zeros(2, 200), w, s, 208, N)
+    with pytest.raises(ValueError):       # neither a CPU nor a CUDA tensor
+        tm.ternary_matmul_bf16(0, torch.zeros(1, K, device="meta"), w, s, K, N)
+    assert 1 <= tm.BF16_DECODE_MAX_M <= 16
+
+
 @pytest.mark.parametrize("variant,M,k,glu,norm,resid,dtype", [
     ("w2a8", 2, K, True, True, True, "f32"),       # normed: K1
     ("w2a8", 3, K, False, False, False, "bf16"),   # normed, no norm: K1
