@@ -1,5 +1,5 @@
 // Device helpers shared by the ternary matmul kernels (ternary_matmul.cu:
-// K1, K4; ternary_matmul_tl.cu: K6, K10, K11, K12).
+// K1, K4; ternary_matmul_tl.cu: K6, K10, K11, K12; ffn_fused.cu: K24).
 //
 // Weights are int32 words [Kp/16, Np].  Within each 256-row K tile, word s,
 // byte j, plane p hold the code of K row p*64 + 4s + j, so
@@ -30,6 +30,18 @@ template <bool LUT_BIAS = true>
 __device__ __forceinline__ int biased_plane(int w, int p) {
   const int t = (w >> (2 * p)) & 0x03030303;
   return LUT_BIAS ? t + ((t >> 1) & 0x01010101) : t;
+}
+
+// The four planes of word w, biased as biased_plane<true> gives them, in 13
+// integer operations rather than 19: planes 0 and 2 (and 1 and 3) sit in the
+// two nibbles of each byte, c + (c >> 1) = (3c) >> 1 for c in 0..3, and 3c
+// <= 9 never carries out of its nibble (K24).
+__device__ __forceinline__ void biased_planes(uint32_t w, uint32_t (&pl)[4]) {
+  const uint32_t e = (w & 0x33333333u) * 3u, o = ((w >> 2) & 0x33333333u) * 3u;
+  pl[0] = (e >> 1) & 0x07070707u;
+  pl[1] = (o >> 1) & 0x07070707u;
+  pl[2] = (e >> 5) & 0x07070707u;
+  pl[3] = (o >> 5) & 0x07070707u;
 }
 
 template <typename V>
@@ -139,9 +151,10 @@ __device__ __forceinline__ void fused_quantize_rows(
 
 // ---------------------------------------------------------------------------
 // Hopper pipeline helpers of the wgmma GEMMs (K4 in ternary_matmul.cu; the
-// block-scale GEMM of K10 / K12 in ternary_matmul_tl.cu): mbarriers, TMA
-// boxes and their tensor maps, the programmatic-dependent wait, the wgmma
-// shared-memory descriptor and its fence / commit / wait.
+// block-scale GEMM of K6 / K10 / K12 in ternary_matmul_tl.cu; K24's two
+// GEMMs in ffn_fused.cu): mbarriers, TMA boxes and their tensor maps, the
+// programmatic-dependent wait, the wgmma shared-memory descriptor and its
+// fence / commit / wait, the int8 wgmma.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -197,6 +210,13 @@ __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
+// Lets the programmatic dependent of this launch start before this launch
+// ends (K24): its blocks do what needs nothing of this launch (barrier
+// set-up, the first stages' words) and then wait in grid_dependency_wait.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
 // 128 bytes, 8-row groups 1024 bytes apart (the group's base 1024-aligned;
 // a start address inside the row picks the K offset)
@@ -224,6 +244,93 @@ __device__ __forceinline__ void fence_operand(int& r) {
 }
 __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
+}
+
+// wgmma.mma_async m64nNk32 s32 += s8 (A, registers) x s8 (B, shared memory),
+// N = 8, 16, 32, 64 or 128 (the int8 GEMMs: K4, K24); d holds N/2
+// accumulators a thread
+__device__ __forceinline__ void wgmma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query (the

@@ -50,8 +50,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
                               P),
     },
     "ffn_fused": {
-        "bn_ffn_w2a8": (P, I, I, P, I, P, P, I, P, P, I, I, P, P, P, P, P, P, P,
-                        I, P),
+        "bn_ffn_w2a8": (P, I, I, I, I, P, I, P, P, I, P, P, I, I, I, I, I, P, P,
+                        P, P, P, P, P, I, P),
     },
     "exp_w2a8": {
         "bn_probe_bytes": (P, P, I, I, P),

@@ -14,6 +14,15 @@ their ``[L, 2F]`` / ``[L, Hp]`` column scales (``TernaryLinear.col_scales``)
 and a layer index, as the other W2A8 wrappers do.  It launches the kernel
 for CUDA tensors (counting it in ``ffn_w2a8_fused.launches``) and runs the
 plain version for CPU tensors, never the plain version on a CUDA tensor.
+
+On the card a call is four launches (``csrc/ffn_fused.cu``) and no other
+PyTorch op than ``torch.empty``: x's row quantization (x read unpadded, in
+its own dtype), the gate|up GEMM with the SiLU·up epilogue, the per-tile
+requantization, the down GEMM.  Both GEMMs are K4's wgmma design with every
+row in one block (M ≤ 32), so each word is read once a call; the tiles come
+from :func:`ffn_plan`.  What bounds it is the 44 MB of words at the 8B
+shapes (0.0131 ms at 3.35 TB/s), then the latency of four dependent
+launches.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .ternary_matmul import _DTYPE_CODE, biased_codes, int8_matmul, quantize_rows
+from .ternary_matmul import _DTYPE_CODE, _sm_count, biased_codes, int8_matmul, quantize_rows
 
 KT = 256
 # the JAX wrapper's row cap (``ffn_fused_supported``)
@@ -100,6 +109,37 @@ def ffn_w2a8_fused_plain(x: torch.Tensor, gu_words: torch.Tensor,
     return (y, xq, sx, sumq, act, aq, sa, sq2) if parts else y
 
 
+# K24's tiles.  Both GEMMs take every row in one block: BT is the smallest of
+# ``FFN_GEMM_ROWS`` that holds M.  The gate|up GEMM's blocks own 64 gate
+# columns and their up columns; K is split over a cluster of 2, 4 or 8 while
+# the blocks, doubled, still fit the card's SMs and each block keeps at least
+# two 256-row K tiles (K4's rule).  The down GEMM's blocks own 128 output
+# columns; its cluster holds the requantization tiles: n_f ranks (a tile
+# each) up to 8, doubled while the blocks fit the SMs and each rank keeps two
+# K tiles; past 8 tiles, 8 ranks of ceil(n_f / 8) or fewer tiles each; a
+# count of tiles that is no power of two, the largest power of two below it.
+FFN_GEMM_ROWS = (8, 16, 32)
+FFN_MAX_SPLIT = 8
+
+
+def ffn_plan(M: int, Kp: int, F: int, Hp: int, sms: int) -> tuple[int, int, int]:
+    """(BT, gate|up split, down cluster) of K24 for M rows, x's Kp, F and Hp
+    on ``sms`` SMs."""
+    bt = next(b for b in FFN_GEMM_ROWS if b >= M)
+    blocks, split = F // 64, 1
+    while (split < FFN_MAX_SPLIT and 2 * split * blocks <= sms
+           and 4 * split <= Kp // KT):
+        split *= 2
+    nf, nb = F // _pick_bf(F), _pick_bf(F) // KT
+    dsplit = 1 << (min(nf, FFN_MAX_SPLIT).bit_length() - 1)
+    cols = -(-Hp // 128)
+    if dsplit == nf:
+        while (2 * dsplit <= FFN_MAX_SPLIT and 2 * dsplit * cols <= sms
+               and 4 * (dsplit // nf) <= nb):
+            dsplit *= 2
+    return bt, split, dsplit
+
+
 def ffn_w2a8_fused(l: int, x: torch.Tensor, gu_packed: torch.Tensor,
                    gu_scales: torch.Tensor, d_packed: torch.Tensor,
                    d_scales: torch.Tensor, f_dim: int, n_dim: int) -> torch.Tensor:
@@ -133,53 +173,73 @@ def ffn_w2a8_fused(l: int, x: torch.Tensor, gu_packed: torch.Tensor,
                                     d_scales[l], F, n_dim)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K24 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
+    if x.stride(1) != 1:
+        raise ValueError("K24 takes rows of x that are each contiguous")
     tensors = (gu_packed, gu_scales, d_packed, d_scales)
     if any(t.get_device() != x.get_device() or not t.is_contiguous() for t in tensors):
         raise ValueError("K24 operands must be contiguous on x's device")
-    out = _ffn_cuda(l, x, gu_packed, gu_scales, d_packed, d_scales, F, n_dim)[0]
+    out = _ffn_launch(l, x, gu_packed, gu_scales, d_packed, d_scales, F, n_dim)[0]
     ffn_w2a8_fused.launches += 1
     return out
 
 
-def _ffn_cuda(l, x, gu_packed, gu_scales, d_packed, d_scales, F, n_dim):
-    """Launch K24 on checked operands.  Returns (out, parts): the int8 rows
-    of x, their scales and sums, the f32 activation, and the requantized
-    tiles with their scales and sums, as views of the scratch, so a check
-    can hold them against the plain version's.  Counts no launch."""
+def _scratch_layout(M, Kp, F, nf):
+    """K24's scratch, one allocation: (offsets, total bytes) of xq int8
+    [M, Kp] | aq int8 [M, F] | act f32 [M, F] | sx f32 [M] | sumq int32 [M]
+    | sa f32 [M, nf] | sq2 int32 [M, nf], each 128-byte aligned (TMA reads
+    xq and aq)."""
+    offs, total = [], 0
+    for n in (M * Kp, M * F, 4 * M * F, 4 * M, 4 * M, 4 * M * nf, 4 * M * nf):
+        offs.append(total)
+        total += -(-n // 128) * 128
+    return offs, total
+
+
+def _ffn_launch(l, x, gu_packed, gu_scales, d_packed, d_scales, F, n_dim):
+    """Launch K24 on checked operands (x [M, K ≤ Kp] in its own dtype, rows
+    each contiguous), tiled by :func:`ffn_plan`; layer ``l`` by pointer
+    offset, no other PyTorch op than ``torch.empty``.  Returns (out,
+    scratch)."""
     M = x.shape[0]
     Kp, Hp = gu_packed.shape[1] * 16, d_packed.shape[2]
     bf = _pick_bf(F)
-    nf = F // bf
     dev = x.device
-    xp = x.contiguous() if x.shape[1] == Kp else torch.nn.functional.pad(
-        x, (0, Kp - x.shape[1]))
+    bt, split, dsplit = ffn_plan(M, Kp, F, Hp, _sm_count(dev.index))
+    offs, total = _scratch_layout(M, Kp, F, F // bf)
     out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
-    # one scratch: act f32 | xq | aq | sx | sumq | sa | sq2 (16-byte aligned)
-    sizes = (4 * M * F, M * Kp, M * F, 4 * M, 4 * M, 4 * M * nf, 4 * M * nf)
-    offs, total = [], 0
-    for n in sizes:
-        offs.append(total)
-        total += -(-n // 16) * 16
     scratch = torch.empty(total, dtype=torch.int8, device=dev)
     p = [scratch.data_ptr() + o for o in offs]
     lib = _cuda.library("ffn_fused")
     rc = lib.bn_ffn_w2a8(
-        xp.data_ptr(), M, Kp, gu_packed.data_ptr() + 4 * l * gu_packed.stride(0), F,
+        x.data_ptr(), x.stride(0), M, x.shape[1], Kp,
+        gu_packed.data_ptr() + 4 * l * gu_packed.stride(0), F,
         gu_scales.data_ptr() + 4 * l * 2 * F,
         d_packed.data_ptr() + 4 * l * d_packed.stride(0), Hp,
-        d_scales.data_ptr() + 4 * l * Hp, out.data_ptr(), n_dim, bf,
-        p[1], p[3], p[4], p[0], p[2], p[5], p[6], _DTYPE_CODE[x.dtype],
+        d_scales.data_ptr() + 4 * l * Hp, out.data_ptr(), n_dim, bf, bt, split, dsplit,
+        p[0], p[3], p[4], p[2], p[1], p[5], p[6], _DTYPE_CODE[x.dtype],
         _cuda.stream_ptr(dev))
     _cuda.check(lib, "ffn_fused", rc, "ffn_w2a8_fused")
+    return out, scratch
+
+
+def _ffn_cuda(l, x, gu_packed, gu_scales, d_packed, d_scales, F, n_dim):
+    """K24 with its parts: (out, (xq, sx, sumq, act, aq, sa, sq2)), the int8
+    rows of x, their scales and sums, the f32 activation, and the
+    requantized tiles with their scales and sums, as views of the scratch,
+    so a check can hold them against the plain version's.  Counts no
+    launch."""
+    out, scratch = _ffn_launch(l, x, gu_packed, gu_scales, d_packed, d_scales, F,
+                               n_dim)
+    M, Kp, nf = x.shape[0], gu_packed.shape[1] * 16, F // _pick_bf(F)
+    offs, _ = _scratch_layout(M, Kp, F, nf)
 
     def view(i, dtype, shape):
-        n = sizes[i]
+        n = shape[0] * (shape[1] if len(shape) > 1 else 1) * dtype.itemsize
         return scratch[offs[i]:offs[i] + n].view(dtype).view(shape)
-    parts = (view(1, torch.int8, (M, Kp)), view(3, torch.float32, (M,)),
-             view(4, torch.int32, (M,)), view(0, torch.float32, (M, F)),
-             view(2, torch.int8, (M, F)), view(5, torch.float32, (M, nf)),
-             view(6, torch.int32, (M, nf)))
-    return out, parts
+    return out, (view(0, torch.int8, (M, Kp)), view(3, torch.float32, (M,)),
+                 view(4, torch.int32, (M,)), view(2, torch.float32, (M, F)),
+                 view(1, torch.int8, (M, F)), view(5, torch.float32, (M, nf)),
+                 view(6, torch.int32, (M, nf)))
 
 
 ffn_w2a8_fused.launches = 0

@@ -11,12 +11,17 @@ and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
 its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
 the f32 correction matmul K10's GEMM form no longer runs; K6 at the generic
 path's seven shapes, its decode form at M = 1 and its row kernel and GEMM
-at M = 512; K2's two passes) and prints one JSON line per case with the
+at M = 512; K2's two passes; K24's four launches at the 8B FFN, H = 4096,
+F = 14336, at M = 1 and 32) and prints one JSON line per case with the
 card's name and power limit.  The ``K6 tiles`` cases time K6's GEMM form at
 M = 128, 512 and 2048 in BT = 32, 64 and 128 rows a block and K splits of 1,
 2 and 4, forced past ``blockscale_gemm_plan`` (the table its choice rests
 on).  ``--only`` keeps the cases whose names start with one of the given
-prefixes.  Weights and caches cycle over 8 layers.
+prefixes.  Weights and caches cycle over 8 layers.  ``call_us`` is a
+call's device time (CUDA-graph replays between CUDA events); a kernel's
+device µs can overlap the next one's where the next is a programmatic
+dependent (K4's GEMM, K24's launches), so they need not sum to it.  The ``K24 plans`` cases force K24's gate|up split and down
+cluster past ``ffn_plan``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..device_probe import require_sm90
 from ..ops import _cuda
 from ..ops import decode_attention_v2 as da
+from ..ops import ffn_fused as ff
 from ..ops import ternary_matmul as tm
 
 SHAPES = (("qkv", 2560, 3840, False, False), ("o", 2560, 2560, False, True),
@@ -91,6 +97,23 @@ def _cases(dev, g):
                         with mock.patch.object(tm, "blockscale_gemm_plan", lambda *a: plan):
                             return tm._bf16_gemm_launch(i % LAYERS, x, w, sv, K, N)
                     yield f"K6 tiles {name} M={M} BT={bt} split={split}", call
+    H, F = 4096, 14336                             # the 8B FFN (K24)
+    gu = torch.randint(-2**31, 2**31, (LAYERS, H // 16, 2 * F), dtype=torch.int32,
+                       generator=g, device=dev)
+    sg = (torch.rand((LAYERS, 2 * F), generator=g, device=dev) + 0.5) * 0.02
+    dw = torch.randint(-2**31, 2**31, (LAYERS, F // 16, H), dtype=torch.int32,
+                       generator=g, device=dev)
+    sd = torch.full((LAYERS, H), 0.02, device=dev)
+    for M in (1, 32):
+        x = torch.randn((M, H), generator=g, device=dev).bfloat16()
+        yield f"K24 M={M}", lambda i, x=x: ff.ffn_w2a8_fused(i % LAYERS, x, gu, sg, dw, sd,
+                                                             F, H)
+        bt = ff.ffn_plan(M, H, F, H, 132)[0]
+        for split, dsplit in ((1, 2), (1, 4), (1, 8), (2, 4)):
+            def call(i, x=x, plan=(bt, split, dsplit)):
+                with mock.patch.object(ff, "ffn_plan", lambda *a: plan):
+                    return ff._ffn_launch(i % LAYERS, x, gu, sg, dw, sd, F, H)
+            yield f"K24 plans M={M} BT={bt} split={split} dsplit={dsplit}", call
     for S in (1024, 4096):
         kc = torch.randn((LAYERS, 1, S, 640), generator=g, device=dev).bfloat16()
         vc = torch.randn_like(kc)
@@ -99,6 +122,25 @@ def _cases(dev, g):
         pos = torch.tensor([S - 1], dtype=torch.int32, device=dev)
         yield f"K2 S={S} pos={S - 1}", lambda i, kc=kc, vc=vc, qkv=qkv, a=a, pos=pos: (
             da.decode_attention_qkv(i % LAYERS, qkv, a.sin(), a.cos(), kc, vc, pos, 20, 5))
+
+
+def _graph_us(fn) -> float:
+    """Device µs a call: LAYERS calls captured in one CUDA graph, replayed
+    five times between CUDA events, the median."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(LAYERS):
+            fn(i)
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / LAYERS)
+    return sorted(times)[2]
 
 
 def main() -> None:
@@ -131,6 +173,7 @@ def main() -> None:
                 kernels[key[-60:]] = kernels.get(key[-60:], 0.0) + (
                     e.device_time_total / REPS)
         print(json.dumps({"case": name, "card": smi,
+                          "call_us": round(_graph_us(fn), 2),
                           "device_us_per_call": {k: round(v, 2) for k, v in
                                                  sorted(kernels.items(),
                                                         key=lambda kv: -kv[1])}}))

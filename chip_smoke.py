@@ -9,6 +9,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,kernels,tl
     python3 chip_smoke.py --phases probe,build,kernels,llama8b
     python3 chip_smoke.py --phases probe,build,kernels,experiments,parity
+    python3 chip_smoke.py --phases probe,build,k24,llama8b
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -37,7 +38,12 @@ no result line):
            K4 bit for bit with its int8 rows at M = 8..2048 on the 2B and
            8B shapes and in every forced tile / K split, its M table over
            the fused four beside torch._int_mm (kernels.k4_m), and its two
-           launches under the profiler (kernels.k4_profile)
+           launches under the profiler (kernels.k4_profile);
+           K24 at the 8B FFN and at its edges (every BT boundary, nine
+           requantization tiles, Hp = 320, K < Kp), twice a shape, and its
+           MB table: ms at M = 1..32 (kernels.k24_mb)
+  k24      (not in the default run, which holds it in kernels) K24's checks
+           and times alone: a short call that compares two trees
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
@@ -1355,28 +1361,45 @@ def _k24_stacks(torch, g, K, F, H, dev, min_bytes=120 << 20):
     return gu, sg, dw, sd
 
 
+# K24's edges at a depth of two layers, (K, Kp, F, H, Ms, dtypes): every BT
+# boundary at the 8B widths; F = 2304 (bf = 256, n_f = 9: more tiles than a
+# portable cluster, so a rank holds two and the tile-order sum crosses
+# ranks); Hp = 320 (a down block with one column half); x unpadded with
+# K < Kp (rows past K quantize to zeros)
+K24_EDGES = ((H8B, H8B, F8B, H8B, (9, 16, 17), ("bfloat16",)),
+             (512, 512, 2304, 512, (1, 17), ("bfloat16",)),
+             (512, 512, 512, 320, (3, 32), ("bfloat16", "float32")),
+             (416, 512, 1024, 384, (1, 9), ("bfloat16", "float32")))
+K24_MB = (1, 2, 4, 8, 16, 32)
+
+
 def check_k24(torch, dev, g, res):
     """K24 (the fused W2A8 FFN) against its plain version at the 8B FFN
     shapes (K = H = 4096, F = 14336: bf = 3584, four requantization tiles),
-    M in {1, 8, 32}, bf16 and f32 x, and at F = 512 (``_pick_bf``'s
-    fallback: bf = 256, two tiles).  The int8 rows of x equal the plain
-    version's bit for bit; the activation is the plain SiLU·up of the
-    kernel's own rows to f32 rounding; the requantized tiles are the plain
-    requantization of the kernel's own activation and the output the plain
-    down projection of the kernel's own tiles, both bit for bit; the output
-    within 1e-2 of the plain version's largest (an activation on a
+    M in {1, 8, 32}, bf16 and f32 x, at F = 512 (``_pick_bf``'s fallback:
+    bf = 256, two tiles), and at ``K24_EDGES``.  The int8 rows of x equal
+    the plain version's bit for bit; the activation is the plain SiLU·up of
+    the kernel's own rows to f32 rounding; the requantized tiles are the
+    plain requantization of the kernel's own activation and the output the
+    plain down projection of the kernel's own tiles, both bit for bit; the
+    output within 1e-2 of the plain version's largest (an activation on a
     requantization boundary may take the neighbouring code, which moves a
-    row by 2·sa·sd).  Timed at M = 1 and 32 (bf16) beside its bound, the
-    plain version, the library chain (no single PyTorch call computes this
-    function: ``torch.matmul`` on the dequantized bf16 gate|up, SiLU·up,
-    ``torch.matmul`` on the dequantized down) and the unfused pair it
-    replaces, K1(gate|up) + K1(down, glu)."""
+    row by 2·sa·sd); a second call equals the first bit for bit.  Timed at
+    M = 1 and 32 (bf16) beside its bound, the plain version, the library
+    chain (no single PyTorch call computes this function: ``torch.matmul``
+    on the dequantized bf16 gate|up, SiLU·up, ``torch.matmul`` on the
+    dequantized down) and the unfused pair it replaces, K1(gate|up) +
+    K1(down, glu); and at every M of ``K24_MB`` (``k24_mb``)."""
     from bitnet_tpu_torch.ops import ffn_fused as ff
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
-    for K, F, H, Ms, dtypes in ((H8B, F8B, H8B, (1, 8, 32), (torch.bfloat16, torch.float32)),
-                                (512, 512, 512, (1, 32), (torch.bfloat16,))):
-        gu, sg, dw, sd = _k24_stacks(torch, g, K, F, H, dev)
+    cases = [(H8B, H8B, F8B, H8B, (1, 8, 32), (torch.bfloat16, torch.float32), None),
+             (512, 512, 512, 512, (1, 32), (torch.bfloat16,), None),
+             *((K, Kp, F, H, Ms, tuple(getattr(torch, d) for d in dts), 0)
+               for K, Kp, F, H, Ms, dts in K24_EDGES)]
+    for K, Kp, F, H, Ms, dtypes, min_bytes in cases:
+        gu, sg, dw, sd = (_k24_stacks(torch, g, Kp, F, H, dev) if min_bytes is None
+                          else _k24_stacks(torch, g, Kp, F, H, dev, min_bytes))
         L = gu.shape[0]
         bf = ff._pick_bf(F)
         for M in Ms:
@@ -1386,6 +1409,7 @@ def check_k24(torch, dev, g, res):
                 out = ff.ffn_w2a8_fused(l, x, gu, sg, dw, sd, F, H)
                 out2, (xq, sx, sumq, act, aq, sa, sq2) = ff._ffn_cuda(l, x, gu, sg, dw,
                                                                       sd, F, H)
+                again = ff.ffn_w2a8_fused(l, x, gu, sg, dw, sd, F, H)
                 plain, xq_p, sx_p, sumq_p, *_ = ff.ffn_w2a8_fused_plain(
                     x, gu[l], sg[l], dw[l], sd[l], F, H, parts=True)
                 act_p = ff.gateup_act(xq, sx, sumq, gu[l], sg[l], F)
@@ -1394,8 +1418,8 @@ def check_k24(torch, dev, g, res):
                 err = (out.float() - plain.float()).abs().max().item()
                 ref = plain.float().abs().max().item()
                 tol = 1e-2 * ref
-                row = {"K": K, "F": F, "H": H, "bf": bf, "n_f": F // bf, "M": M,
-                       "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                row = {"K": K, "Kp": Kp, "F": F, "H": H, "bf": bf, "n_f": F // bf,
+                       "M": M, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                        "ref_max": ref, "tol": tol,
                        "xq_exact": bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)
                                         and torch.equal(sumq, sumq_p)),
@@ -1405,17 +1429,25 @@ def check_k24(torch, dev, g, res):
                                            and torch.equal(sq2, sq2_p)),
                        "down_exact": bool(torch.equal(down, out)),
                        "wrapper_equals_launch": bool(torch.equal(out, out2)),
+                       "repeat_exact": bool(torch.equal(out, again)),
                        "aq_codes_off": int((aq != ff.requant_tiles(
                            ff.gateup_act(xq_p, sx_p, sumq_p, gu[l], sg[l], F), bf)[0]
                        ).sum().item())}
                 row["ok"] = (err <= tol and row["xq_exact"] and row["tiles_exact"]
                              and row["down_exact"] and row["wrapper_equals_launch"]
-                             and row["act_max_rel_err"] <= 1e-5)
-                if K == H8B and M in (1, 32) and dtype == torch.bfloat16:
+                             and row["repeat_exact"] and row["act_max_rel_err"] <= 1e-5)
+                if min_bytes is None and K == H8B and M in (1, 32) and dtype == torch.bfloat16:
                     _time_k24(torch, ff, tm, row, x, gu, sg, dw, sd, K, F, H, L)
                 res["k24"].append(row)
                 if not row["ok"]:
                     raise AssertionError(f"K24 mismatch: {row}")
+        if min_bytes is None and K == H8B:
+            # the MB table: the wrapper's ms per M at the 8B FFN, bf16
+            res["k24_mb"] = []
+            for M in K24_MB:
+                x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+                res["k24_mb"].append({"M": M, "ms": time_ms(torch, lambda i: (
+                    ff.ffn_w2a8_fused(i % L, x, gu, sg, dw, sd, F, H)), L)})
         del gu, sg, dw, sd
 
 
@@ -3206,7 +3238,7 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if "build" in phases or "kernels" in phases:
+        if "build" in phases or "kernels" in phases or "k24" in phases:
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3217,6 +3249,13 @@ def main(argv=None) -> int:
             report["kernels"] = res
             for k, rows in res.items():
                 emit({"phase": f"kernels.{k}", "rows": rows})
+        if "k24" in phases:
+            res = {"k24": []}
+            timed("k24", check_k24, torch, dev, torch.Generator(device=dev).manual_seed(1234),
+                  res)
+            report["k24"] = res
+            for k, rows in res.items():
+                emit({"phase": f"k24.{k}", "rows": rows})
         if "parity" in phases:
             report["parity"] = timed("parity", phase_parity, torch, dev)
             emit({"phase": "parity", **report["parity"]})

@@ -143,6 +143,7 @@ _PROFILE_CHILD = """
 import json, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from bitnet_tpu_torch.ops import ffn_fused as ff
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
@@ -154,24 +155,24 @@ def words(K, N):
 call = lambda: {call}
 call()
 torch.cuda.synchronize()
-before = tm.{counter}.launches
+before = {module}.{counter}.launches
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     call()
     torch.cuda.synchronize()
 print(json.dumps({{
     "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA],
     "ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
-    "launches": tm.{counter}.launches - before}}))
+    "launches": {module}.{counter}.launches - before}}))
 """
 
 
-def _profiled_call(setup, call, counter):
+def _profiled_call(setup, call, counter, module="tm"):
     import json
     import subprocess
     import sys
     from pathlib import Path
 
-    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
+    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter, module=module)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=600, cwd=Path(__file__).resolve().parent.parent)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -998,20 +999,29 @@ def test_k11_two_kernel_path_matches_plain(dev, M, glu, has_gamma):
     assert (out.float() - plain.float()).abs().max() <= 2e-2 * ref + 1e-3
 
 
-@pytest.mark.parametrize("M,dtype,col,F", [(1, torch.bfloat16, False, 1024),
-                                           (3, torch.float32, True, 1024),
-                                           (8, torch.bfloat16, True, 512),
-                                           (32, torch.float32, False, 1024)])
-def test_k24_matches_plain(dev, M, dtype, col, F):
+@pytest.mark.parametrize("M,dtype,col,F,K,H", [
+    (1, torch.bfloat16, False, 1024, 512, 384), (3, torch.float32, True, 1024, 512, 384),
+    (8, torch.bfloat16, True, 512, 512, 384), (32, torch.float32, False, 1024, 512, 384),
+    # every BT boundary
+    (9, torch.bfloat16, True, 1024, 512, 384), (16, torch.bfloat16, False, 1024, 512, 384),
+    (17, torch.float32, True, 1024, 512, 384),
+    # n_f = 9 tiles of 256 on a cluster of 8: a rank holds two
+    (1, torch.bfloat16, True, 2304, 512, 384), (17, torch.bfloat16, False, 2304, 512, 384),
+    # Hp = 320: the last down block has one column half
+    (3, torch.bfloat16, True, 512, 512, 320), (32, torch.float32, True, 512, 512, 320),
+    # x unpadded, K < Kp = 512
+    (1, torch.bfloat16, True, 1024, 416, 384), (9, torch.float32, False, 1024, 416, 384)])
+def test_k24_matches_plain(dev, M, dtype, col, F, K, H):
     """K24's int8 rows of x are the plain version's bit for bit; its f32
     activation is the plain SiLU·up of its own rows to f32 rounding; its
     requantized tiles are the plain requantization of its own activation
     bit for bit, and its output the plain down projection of its own tiles
     bit for bit; the whole within 1e-2 of the plain version (an activation
-    on a requantization boundary may take the neighbouring code)."""
+    on a requantization boundary may take the neighbouring code); a second
+    call equals the first bit for bit."""
     g = torch.Generator(device=dev).manual_seed(40 + M)
-    K, H, L = 512, 384, 2
-    gu, _ = _words(g, L, K, 2 * F, dev)
+    Kp, L = 512, 2
+    gu, _ = _words(g, L, Kp, 2 * F, dev)
     sg = (torch.rand((L, 2 * F), generator=g, device=dev) + 0.5) * 0.02
     dw, sd = _words(g, L, F, H, dev)
     if not col:
@@ -1022,6 +1032,7 @@ def test_k24_matches_plain(dev, M, dtype, col, F):
     assert ff.ffn_w2a8_fused.launches == before + 1
     out2, (xq, sx, sumq, act, aq, sa, sq2) = ff._ffn_cuda(1, x, gu, sg, dw, sd, F, H)
     assert torch.equal(out, out2) and out.dtype == dtype
+    assert torch.equal(ff.ffn_w2a8_fused(1, x, gu, sg, dw, sd, F, H), out)
     y, xq_p, sx_p, sumq_p, *_ = ff.ffn_w2a8_fused_plain(x, gu[1], sg[1], dw[1], sd[1],
                                                         F, H, parts=True)
     assert torch.equal(xq, xq_p) and torch.equal(sx, sx_p) and torch.equal(sumq, sumq_p)
@@ -1034,6 +1045,46 @@ def test_k24_matches_plain(dev, M, dtype, col, F):
     assert torch.equal(down, out)
     ref = y.float().abs().max()
     assert (out.float() - y.float()).abs().max() <= 1e-2 * ref
+
+
+@pytest.mark.parametrize("plan", [(8, 1, 1), (16, 2, 2), (32, 4, 4), (32, 8, 8),
+                                  (16, 1, 8), (8, 8, 2)])
+def test_k24_every_plan_matches(dev, plan):
+    """K24 in forced tiles (BT rows, the gate|up GEMM's K split, the down
+    GEMM's cluster: one rank holding all four tiles, two each, one each, a
+    tile split over two ranks) at K = 2048, F = 2048 (bf = 512, n_f = 4):
+    its output, activation and tiles equal the planned call's bit for bit
+    (integer dots are exact in any split, and the tiles' f32 terms are
+    added in one order)."""
+    from unittest import mock
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    K, F, H, M = 2048, 2048, 640, 5
+    gu, sg = _words(g, 2, K, 2 * F, dev)
+    dw, sd = _words(g, 2, F, H, dev)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    want, parts = ff._ffn_cuda(1, x, gu, sg, dw, sd, F, H)
+    with mock.patch.object(ff, "ffn_plan", lambda *a: plan):
+        out, forced = ff._ffn_cuda(1, x, gu, sg, dw, sd, F, H)
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(forced, parts))
+
+
+def test_k24_runs_four_kernels_and_no_pytorch_op(dev):
+    """A K24 call is its four launches (x's row quantization, the gate|up
+    GEMM, the requantization, the down GEMM) and no ATen op but the
+    allocations."""
+    kernels, ops = _profiled_call(
+        "gu = torch.randint(-2**31, 2**31, (2, 32, 2048), dtype=torch.int32, generator=g, "
+        "device=dev)\nsg = torch.rand((2, 2048), generator=g, device=dev)\n"
+        "dw = torch.randint(-2**31, 2**31, (2, 64, 384), dtype=torch.int32, generator=g, "
+        "device=dev)\nsd = torch.rand((2, 384), generator=g, device=dev)\n"
+        "x = torch.randn((9, 500), generator=g, device=dev).bfloat16()",
+        "ff.ffn_w2a8_fused(1, x, gu, sg, dw, sd, 1024, 384)", "ffn_w2a8_fused", "ff")
+    assert len(kernels) == 4, kernels
+    assert sum("quantize_groups" in k for k in kernels) == 2, kernels
+    assert sum("ffn_gemm" in k for k in kernels) == 2, kernels
+    assert ops <= {"aten::empty"}, ops
 
 
 # (relative, absolute) tolerance of the decode-attention checks: over a

@@ -96,6 +96,58 @@ def test_plain_matches_pallas_interpret(K, F, H, M, dtype, col):
                                atol=1e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("M", [1, 9])
+def test_plain_matches_pallas_interpret_unpadded_x(M):
+    """x of K = 200 columns against Kp = 256 rows of words: both sides
+    quantize the row zero-padded to Kp (the kernel writes those zeros
+    itself, reading x unpadded)."""
+    K, Kp, F, H = 200, 256, 512, 256
+    x, gu, dw, sg, sd = _inputs(M + 500, M, Kp, F, H, True)
+    x = x[:, :K].copy()
+    want = np.asarray(jffn.ffn_w2a8_fused(
+        jnp.asarray(x), jnp.asarray(gu), jnp.asarray(sg)[None], jnp.asarray(dw),
+        jnp.asarray(sd), k_dim=K, f_dim=F, n_dim=H, interpret=True))
+    got = pf.ffn_w2a8_fused(0, torch.from_numpy(x), torch.from_numpy(gu)[None],
+                            torch.from_numpy(sg)[None], torch.from_numpy(dw)[None],
+                            torch.from_numpy(sd)[None], F, H)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M,Kp,F,Hp,sms,want", [
+    (32, 4096, 14336, 4096, 132, (32, 1, 4)),    # the 8B FFN: 224 and 32x4 blocks
+    (1, 4096, 14336, 4096, 132, (8, 1, 4)),
+    (9, 4096, 14336, 4096, 132, (16, 1, 4)),
+    (17, 2560, 6912, 2560, 132, (32, 1, 8)),     # bf = 768: n_f = 9 on 8 ranks
+    (17, 512, 2304, 512, 132, (32, 1, 8)),       # bf = 256: n_f = 9
+    (3, 512, 512, 320, 132, (8, 1, 2)),          # n_f = 2, one K tile a tile
+    (5, 2048, 2048, 640, 132, (8, 4, 4)),        # 32 gate|up blocks split 4
+    (2, 8192, 512, 512, 132, (8, 8, 2)),
+    (1, 512, 768, 256, 132, (8, 1, 2)),          # n_f = 3: two ranks, 1 + 2 tiles
+    (1, 4096, 4096, 1024, 132, (8, 2, 8))])      # n_f = 4 of 4 K tiles: two ranks a tile
+def test_ffn_plan_table(M, Kp, F, Hp, sms, want):
+    assert pf.ffn_plan(M, Kp, F, Hp, sms) == want
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 32])
+def test_ffn_plan_forms_are_ones_the_kernel_takes(M):
+    """Over every F the fused path takes, the plan's BT holds M, the gate|up
+    split leaves each rank two K tiles, and the down cluster is a power of
+    two of at most 8 ranks that either hold whole tiles or split each tile
+    over the same number of ranks, at least one K tile each."""
+    for F in range(256, 16384 + 1, 256):
+        bf = pf._pick_bf(F)
+        nf, nb = F // bf, bf // 256
+        for Kp, Hp in ((512, 320), (4096, 4096)):
+            bt, split, dsplit = pf.ffn_plan(M, Kp, F, Hp, 132)
+            assert bt in pf.FFN_GEMM_ROWS and bt >= M and (bt == 8 or bt // 2 < M)
+            assert split in (1, 2, 4, 8) and (split == 1 or 2 * split <= Kp // 256)
+            assert dsplit in (1, 2, 4, 8)
+            assert dsplit <= nf or (dsplit % nf == 0 and dsplit // nf <= nb), (F, dsplit)
+            assert dsplit == min(8, 1 << (nf.bit_length() - 1)) or dsplit > nf
+            offs, total = pf._scratch_layout(M, Kp, F, nf)
+            assert all(o % 128 == 0 for o in offs) and total >= offs[-1] + 4 * M * nf
+
+
 @pytest.fixture(scope="module")
 def gqa_gguf(tmp_path_factory):
     """A narrow sub-norm-free QK256 model with the 8B's 4:1 grouped-query
