@@ -8,6 +8,9 @@
 //   K4 bn_w2a8_gemm    <- ternary_matmul_stacked_prefill (:417, pallas_call
 //                         :464), body _qk256_w2a8_kernel (:173): prefill GEMM;
 //                         also its unstacked site in _ternary_matmul_2d (:1177)
+//   K32 bn_w2a8_matmul <- experiments/exp_w2a8.py w2a8_matmul (:181, pallas_call
+//                         :201): K4's two launches with one scale for the
+//                         tensor (below)
 // K6, the bf16 qk256 body of the same site (bitnet_tpu/ops/ternary_matmul.py:1177,
 // _qk256_kernel), is a column-scale mode of K10's two forms in
 // ternary_matmul_tl.cu.
@@ -295,6 +298,14 @@ w2a8_gemv_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
 // the cluster barrier block r adds the partials of its share of the rows
 // from every rank and applies the epilogue.  Integer sums are exact in any
 // order, so the split never changes a bit.
+//
+// The epilogue has two modes.  K4's, with one scale a column:
+// ((acc - 2 sumq) * sx) * scale[n] in x's dtype.  K32's (scale == nullptr),
+// with one scale for the tensor: (acc - 2 sumq) * (sx * tscale), the product
+// sx * tscale rounded once in f32 before it multiplies, as the W2A8
+// prototype rounds it, written as bf16 whatever x's dtype.  Nothing else
+// differs: K32 at M = 1 reads each word once, 128 columns a block, through
+// the TMA ring, and pads no row (rows past M read as zeros, never written).
 // ---------------------------------------------------------------------------
 constexpr int G4_COLS = 128;                  // output columns a block
 constexpr int G4_WLD = G4_COLS + 8;           // ints a word row in shared memory
@@ -319,7 +330,7 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
           const __grid_constant__ CUtensorMap wmap, int M, int Kp, int Np,
           const int* __restrict__ sumq,
           const float* __restrict__ sx, const float* __restrict__ scale,
-          void* __restrict__ out, int N, int bf16_out) {
+          float tscale, void* __restrict__ out, int N, int bf16_out) {
   using Tile = G4Tile<BT>;
   constexpr int STAGES = Tile::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -348,7 +359,9 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
   }
   const int nl = 2 * (threadIdx.x % (G4_COLS / 2));       // the epilogue's columns
   const int n = n0 + nl;
-  const float sc0 = n < N ? scale[n] : 0.f, sc1 = n + 1 < N ? scale[n + 1] : 0.f;
+  const bool tensor_scale = scale == nullptr;             // K32's epilogue
+  const float sc0 = !tensor_scale && n < N ? scale[n] : 0.f;
+  const float sc1 = !tensor_scale && n + 1 < N ? scale[n + 1] : 0.f;
   __syncthreads();
 
   int acc[BT / 2];
@@ -483,8 +496,15 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
       v.x += t.x;
       v.y += t.y;
     }
-    const float y0 = __fmul_rn(__fmul_rn((float)(v.x - 2 * sumq_s[ml]), sx_s[ml]), sc0);
-    const float y1 = __fmul_rn(__fmul_rn((float)(v.y - 2 * sumq_s[ml]), sx_s[ml]), sc1);
+    float y0, y1;
+    if (tensor_scale) {
+      const float s = __fmul_rn(sx_s[ml], tscale);
+      y0 = __fmul_rn((float)(v.x - 2 * sumq_s[ml]), s);
+      y1 = __fmul_rn((float)(v.y - 2 * sumq_s[ml]), s);
+    } else {
+      y0 = __fmul_rn(__fmul_rn((float)(v.x - 2 * sumq_s[ml]), sx_s[ml]), sc0);
+      y1 = __fmul_rn(__fmul_rn((float)(v.y - 2 * sumq_s[ml]), sx_s[ml]), sc1);
+    }
     const size_t o = (size_t)(m0 + ml) * N + n;
     if (pair) {
       if (bf16_out)
@@ -520,8 +540,8 @@ cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
 template <int BT>
 cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
                         int Kp, int Np, const int* sumq, const float* sx,
-                        const float* scale, void* out, int N, int bf16_out,
-                        int split, cudaStream_t stream) {
+                        const float* scale, float tscale, void* out, int N,
+                        int bf16_out, int split, cudaStream_t stream) {
   auto kern = w2a8_gemm<BT>;
   static bool smem_set = false;           // once, before any graph capture
   if (!smem_set) {
@@ -545,7 +565,7 @@ cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, M, Kp, Np, sumq, sx,
-                                     scale, out, N, bf16_out);
+                                     scale, tscale, out, N, bf16_out);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -576,6 +596,48 @@ cudaError_t launch_normed(const void* x, int x_stride, int M, int K, int glu,
   return cudaGetLastError();
 }
 
+// The rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride)
+// quantized into xq [M, Kp] / sx [M] / sumq [M], then the GEMM with bt rows
+// a block and K split over split blocks of a cluster; out [M, N] (bf16 if
+// bf16_out, else f32), one scale a column or, with scale == nullptr, tscale
+// for the tensor.  Two launches.
+cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp,
+                              const int* words, int Np, const float* scale,
+                              float tscale, void* out, int N, int8_t* xq, float* sx,
+                              int* sumq, int dtype, int bf16_out, int bt, int split,
+                              cudaStream_t stream) {
+  if (split < 1 || split > G4_MAX_SPLIT || (split & (split - 1)) || split > Kp / KT)
+    return cudaErrorInvalidValue;
+  cudaError_t e = dtype == 1
+      ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, 0,
+                        nullptr, 0.f, xq, sx, sumq, stream)
+      : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, 0, nullptr,
+                        0.f, xq, sx, sumq, stream);
+  if (e != cudaSuccess) return e;
+  // the int8 rows: boxes of 128 bytes x bt rows, 128-byte swizzle (rows past
+  // M read as zeros); the words: 16 rows of G4_WLD columns, the 8 past the
+  // block's 128 padding each row in shared memory (zeros past Np)
+  CUtensorMap xmap, wmap;
+  e = tma_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, Kp, M, Kp, 128, bt,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, words, Np, Kp / 16,
+                   (uint64_t)Np * 4, G4_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+#define BN_GEMM(BTV)                                                          \
+  launch_gemm<BTV>(xmap, wmap, M, Kp, Np, sumq, sx, scale, tscale, out, N,     \
+                   bf16_out, split, stream)
+  switch (bt) {
+    case 8: return BN_GEMM(8);
+    case 16: return BN_GEMM(16);
+    case 32: return BN_GEMM(32);
+    case 64: return BN_GEMM(64);
+    case 128: return BN_GEMM(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BN_GEMM
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,37 +666,20 @@ int bn_w2a8_gemm(const void* x, int x_stride, int M, int Kp, const int* words,
                  int Np, const float* scale, void* out, int N, int8_t* xq,
                  float* sx, int* sumq, int dtype, int bt, int split,
                  cudaStream_t stream) {
-  if (M < 1 || Kp % KT || Np % 64 || N > Np || split < 1 || split > G4_MAX_SPLIT
-      || (split & (split - 1)) || split > Kp / KT)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = dtype == 1
-      ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, 0,
-                        nullptr, 0.f, xq, sx, sumq, stream)
-      : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, 0, nullptr,
-                        0.f, xq, sx, sumq, stream);
-  if (e != cudaSuccess) return (int)e;
-  // the int8 rows: boxes of 128 bytes x bt rows, 128-byte swizzle (rows past
-  // M read as zeros); the words: 16 rows of G4_WLD columns, the 8 past the
-  // block's 128 padding each row in shared memory (zeros past Np)
-  CUtensorMap xmap, wmap;
-  e = tma_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, Kp, M, Kp, 128, bt,
-                 CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess)
-    e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, words, Np, Kp / 16,
-                   (uint64_t)Np * 4, G4_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (e != cudaSuccess) return (int)e;
-#define BN_GEMM(BTV)                                                          \
-  launch_gemm<BTV>(xmap, wmap, M, Kp, Np, sumq, sx, scale, out, N, dtype == 1, \
-                   split, stream)
-  switch (bt) {
-    case 8: return (int)BN_GEMM(8);
-    case 16: return (int)BN_GEMM(16);
-    case 32: return (int)BN_GEMM(32);
-    case 64: return (int)BN_GEMM(64);
-    case 128: return (int)BN_GEMM(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BN_GEMM
+  if (M < 1 || Kp % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
+  return (int)w2a8_two_launches(x, x_stride, M, Kp, words, Np, scale, 0.f, out, N,
+                                xq, sx, sumq, dtype, dtype == 1, bt, split, stream);
+}
+
+// K32: x [M, K] (dtype as above, rows contiguous) times words [K/16, N]
+// (K % 256 == 0, N % 8 == 0) with one scale for the tensor: the same two
+// launches, out [M, N] bf16 = f32(acc - 2 sumq) * (sx * scale).
+int bn_w2a8_matmul(const void* x, int M, int K, const int* words, int N, float scale,
+                   void* out, int8_t* xq, float* sx, int* sumq, int dtype, int bt,
+                   int split, cudaStream_t stream) {
+  if (M < 1 || K < KT || K % KT || N < 8 || N % 8) return (int)cudaErrorInvalidValue;
+  return (int)w2a8_two_launches(x, K, M, K, words, N, nullptr, scale, out, N, xq, sx,
+                                sumq, dtype, 1, bt, split, stream);
 }
 
 const char* bn_ternary_matmul_error(int code) {

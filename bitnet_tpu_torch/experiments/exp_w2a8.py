@@ -201,7 +201,7 @@ def p5_correctness_and_timing(dev) -> dict:
     t1 = timed(lambda c, i: ternary_matmul_pallas(lstack, c, "w2a8", layer=i % n))
     say(f"P5 timing K1 w2a8 kernel     ({K}x{N}): {t1 * 1e6:.1f} us")
     t32 = timed(lambda c, i: w2a8_matmul(c, wstack[i % n], scale, bn=bn, bkt=bkt))
-    say(f"P5 timing K32 w2a8 MMA kernel ({K}x{N}): {t32 * 1e6:.1f} us "
+    say(f"P5 timing K32 w2a8 wgmma kernel ({K}x{N}): {t32 * 1e6:.1f} us "
         f"({t6 / t32:.2f}x K6, {t1 / t32:.2f}x K1)")
     card = card_line()
     say(f"P5 card: {card}")

@@ -38,6 +38,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
         "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, P),
         "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, I, I, I, P),
+        "bn_w2a8_matmul": (P, I, I, P, I, F, P, P, P, P, I, I, I, P),
     },
     "ternary_matmul_tl": {
         "bn_blockscale_gemm": (P, I, I, I, I, P, I, P, P, I, P, P, P, I, I, I, I, P),
@@ -58,8 +59,6 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_probe_bf16": (P, P, I, I, P),
         "bn_probe_unpack": (P, P, I, I, P),
         "bn_probe_dot": (P, P, P, I, I, I, I, P),
-        "bn_w2a8_quantize": (P, I, I, I, I, P, P, P, P),
-        "bn_w2a8_mma": (P, P, P, P, F, I, I, I, I, P, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,

@@ -134,8 +134,10 @@ REGISTRY: tuple[KernelSpec, ...] = (
     *(KernelSpec(wrapper.__name__, "cuda", "bitnet_tpu_torch/csrc/exp_w2a8.cu",
                  f"experiments/exp_w2a8.py:{site}", wrapper)
       for wrapper, site in ((bitcast_i32_to_i8, "55"), (int8_dot, "75 and :84"),
-                            (bytes_to_bf16, "99"), (unpack_words, "146"),
-                            (w2a8_matmul, "201"))),
+                            (bytes_to_bf16, "99"), (unpack_words, "146"))),
+    # K32 runs K4's two kernels, the GEMM in its per-tensor-scale mode
+    KernelSpec("w2a8_matmul", "cuda", "bitnet_tpu_torch/csrc/ternary_matmul.cu",
+               "experiments/exp_w2a8.py:201", w2a8_matmul),
 )
 
 

@@ -12,20 +12,24 @@ slice of an int8 MMA fragment):
   row s.
 - K29 :func:`int8_dot` ← ``p2_int8_dot`` (``:75``, ``:84``): int8 × int8 →
   int32 through ``__dp4a`` and through the tensor cores' ``mma.sync``
-  m16n8k32 s8.
+  m16n8k32 s8, one launch that stages a block's rows and columns in shared
+  memory (B transposed to K-major) before any step.
 - K30 :func:`bytes_to_bf16` ← ``p3_i8_to_bf16`` (``:99``): the bytes as
   int8, converted to bf16.
 - K31 :func:`unpack_words` ← ``p4_unpack_chain`` (``:146``): the shift /
   mask / bias chain that inverts :func:`pack_w2a8_host`.
 - K32 :func:`w2a8_matmul` ← ``w2a8_matmul`` (``:181``, pallas_call
-  ``:201``): the prototype GEMM with a per-tensor scale on the int8 tensor
-  cores.  ``bn`` and ``bkt`` are TPU tiles that select nothing on the
-  card; the shapes where the TPU kernel computes something else (``N % bn``
-  leaves columns uncomputed, ``K % (256·bkt)`` drops K rows: seen in
-  interpret mode) raise, so it never returns uncomputed columns.
+  ``:201``): the prototype GEMM with a per-tensor scale, as K4's two
+  launches (``csrc/ternary_matmul.cu`` ``bn_w2a8_matmul``: K4's row kernel,
+  then its wgmma GEMM in the per-tensor-scale mode, tiled by
+  :func:`~.ternary_matmul.w2a8_gemm_plan`).  ``bm``, ``bn`` and ``bkt`` are
+  TPU tiles that select nothing on the card; the shapes where the TPU
+  kernel computes something else (``N % bn`` leaves columns uncomputed,
+  ``K % (256·bkt)`` drops K rows: seen in interpret mode) raise, so it
+  never returns uncomputed columns.
 
 Each wrapper runs its plain version on CPU tensors and launches its kernel
-(``csrc/exp_w2a8.cu``) on CUDA tensors, counting the launch.
+(K28–K31 in ``csrc/exp_w2a8.cu``) on CUDA tensors, counting the launch.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .ternary_matmul import biased_codes, int8_matmul, quantize_rows
+from .ternary_matmul import (_DTYPE_CODE, _sm_count, biased_codes, int8_matmul,
+                             quantize_rows, w2a8_gemm_plan)
 
-MMA_ROWS = 16                    # the row tile of K32's mma.sync
 MASK2, MASK1 = 0x03030303, 0x01010101
 
 
@@ -92,16 +96,24 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor, unit: str = "mma") -> torch.Tenso
         raise ValueError(f"unit must be 'dp4a' or 'mma', got {unit!r}")
     if a.device.type == "cpu":
         return int8_dot_plain(a, b)
+    out = _int8_dot_cuda(a, b, unit)
+    int8_dot.launches += 1
+    return out
+
+
+def _int8_dot_cuda(a: torch.Tensor, b: torch.Tensor, unit: str) -> torch.Tensor:
+    """K29's one launch on CUDA tensors (raises on any other); counts
+    nothing."""
     (M, K), N = a.shape, b.shape[1]
-    if (not (a.is_contiguous() and b.is_contiguous())
-            or a.get_device() != b.get_device()
+    if (not (a.is_cuda and b.is_cuda) or a.get_device() != b.get_device()
+            or not (a.is_contiguous() and b.is_contiguous())
             or (unit == "mma" and (M % 16 or N % 8 or K % 32)) or K % 4):
-        raise ValueError(f"K29 ({unit}) shape or layout not taken: "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+        raise ValueError(f"K29 ({unit}) takes contiguous int8 CUDA tensors on one "
+                         f"device; shape or layout not taken: {a.device} "
+                         f"{tuple(a.shape)} x {b.device} {tuple(b.shape)}")
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     _launch("int8_dot", "bn_probe_dot", a.data_ptr(), b.data_ptr(),
             out.data_ptr(), M, K, N, int(unit == "mma"), device=a.device)
-    int8_dot.launches += 1
     return out
 
 
@@ -176,7 +188,8 @@ def pack_w2a8_host(codes_kn: np.ndarray) -> np.ndarray:
 def w2a8_quantize_plain(x: torch.Tensor, rows: int):
     """x [M, K] → (codes [rows, K] int8, sx [rows] f32, sumq [rows] int32):
     sx = max(absmax, 1e-8) / 127 (IEEE division), q = clip(round(x / sx),
-    ±127), the rows past M zero with sx 1 (the prototype's padding)."""
+    ±127), the rows past M zero with sx 1 (the TPU prototype pads to 16
+    rows; the card pads none: ``rows`` = M)."""
     M, K = x.shape
     q, sx, sumq = quantize_rows(x.to(torch.float32))
     pad = rows - M
@@ -195,30 +208,43 @@ def w2a8_matmul_plain(xq, sx, sumq, words, scale, M, out_dtype=torch.bfloat16):
     return y[:M].to(out_dtype)
 
 
-def _padded_rows(M: int) -> int:
-    return max(MMA_ROWS, -(-M // MMA_ROWS) * MMA_ROWS)
+def _w2a8_matmul_launch(x: torch.Tensor, words: torch.Tensor, scale: float):
+    """K32's two launches on CUDA tensors (raises on any other): K4's row
+    kernel, then its GEMM in the per-tensor-scale mode, tiled by
+    :func:`~.ternary_matmul.w2a8_gemm_plan`.  Returns (out [M, N] bf16,
+    scratch): scratch holds the int8 rows, their scales and their sums
+    (``xq | sx | sumq``)."""
+    (M, K), N = x.shape, words.shape[1]
+    if not x.is_cuda or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"K32 takes contiguous f32 / bf16 CUDA x, got {x.device} "
+                         f"{x.dtype}")
+    if (words.get_device() != x.get_device() or words.dtype != torch.int32
+            or not words.is_contiguous() or K % 256 or words.shape[0] != K // 16
+            or N % 8):
+        raise ValueError("K32: contiguous int32 words [K/16, N] on x's device, K a "
+                         "multiple of 256, N a multiple of 8")
+    dev = x.device
+    bt, split = w2a8_gemm_plan(M, K, N, _sm_count(dev.index))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(M * (K + 8), dtype=torch.int8, device=dev)
+    p = scratch.data_ptr()
+    lib = _cuda.library("ternary_matmul")
+    rc = lib.bn_w2a8_matmul(x.data_ptr(), M, K, words.data_ptr(), N, float(scale),
+                            out.data_ptr(), p, p + M * K, p + M * K + 4 * M,
+                            _DTYPE_CODE[x.dtype], bt, split, _cuda.stream_ptr(dev))
+    _cuda.check(lib, "ternary_matmul", rc, "w2a8_matmul")
+    return out, scratch
 
 
 def _w2a8_matmul_cuda(x: torch.Tensor, words: torch.Tensor, scale: float):
-    """K32's two launches (quantize, MMA GEMM).  Returns (out [M, N] bf16,
-    codes [Mp, K], sx [Mp], sumq [Mp])."""
-    (M, K), N = x.shape, words.shape[1]
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError(f"K32 takes contiguous f32 / bf16 x, got {x.dtype}")
-    if words.get_device() != x.get_device() or N % 8:
-        raise ValueError("K32: words on x's device, N a multiple of 8")
-    Mp, dev = _padded_rows(M), x.device
-    xq = torch.empty((Mp, K), dtype=torch.int8, device=dev)
-    sx = torch.empty((Mp,), dtype=torch.float32, device=dev)
-    sumq = torch.empty((Mp,), dtype=torch.int32, device=dev)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    _launch("w2a8_matmul", "bn_w2a8_quantize", x.data_ptr(),
-            int(x.dtype == torch.bfloat16), M, Mp, K, xq.data_ptr(),
-            sx.data_ptr(), sumq.data_ptr(), device=dev)
-    _launch("w2a8_matmul", "bn_w2a8_mma", xq.data_ptr(), sumq.data_ptr(),
-            sx.data_ptr(), words.data_ptr(), float(scale), Mp, M, K, N,
-            out.data_ptr(), device=dev)
-    return out, xq, sx, sumq
+    """K32 with its integer parts: (out [M, N] bf16, codes [M, K], sx [M],
+    sumq [M]), so a check can hold them against the plain versions.
+    Counts no launch."""
+    out, scratch = _w2a8_matmul_launch(x, words, scale)
+    M, MK = x.shape[0], x.numel()
+    return (out, scratch[:MK].view(x.shape),
+            scratch[MK:MK + 4 * M].view(torch.float32),
+            scratch[MK + 4 * M:].view(torch.int32))
 
 
 def w2a8_matmul(x: torch.Tensor, words: torch.Tensor, scale: float,
@@ -241,11 +267,11 @@ def w2a8_matmul(x: torch.Tensor, words: torch.Tensor, scale: float,
             "0: the TPU kernel leaves those columns uncomputed or drops those "
             "K rows, so the port refuses the shape")
     if x.device.type == "cpu":
-        xq, sx, sumq = w2a8_quantize_plain(x, _padded_rows(M))
+        xq, sx, sumq = w2a8_quantize_plain(x, M)
         return w2a8_matmul_plain(xq, sx, sumq, words, scale, M, out_dtype)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"K32 writes bf16, got out_dtype {out_dtype}")
-    out = _w2a8_matmul_cuda(x, words, scale)[0]
+    out = _w2a8_matmul_launch(x, words, scale)[0]
     w2a8_matmul.launches += 1
     return out
 

@@ -12,16 +12,20 @@ its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
 the f32 correction matmul K10's GEMM form no longer runs; K6 at the generic
 path's seven shapes, its decode form at M = 1 and its row kernel and GEMM
 at M = 512; K2's two passes; K24's four launches at the 8B FFN, H = 4096,
-F = 14336, at M = 1 and 32) and prints one JSON line per case with the
-card's name and power limit.  The ``K6 tiles`` cases time K6's GEMM form at
+F = 14336, at M = 1 and 32; K29 through both units at the P2 probe's
+(128×256)·(256×256); K32's row kernel and GEMM at K = 2560, N = 13824, M = 1
+and 16) and prints one JSON line per case with the card's name and power
+limit.  The ``K6 tiles`` cases time K6's GEMM form at
 M = 128, 512 and 2048 in BT = 32, 64 and 128 rows a block and K splits of 1,
 2 and 4, forced past ``blockscale_gemm_plan`` (the table its choice rests
 on).  ``--only`` keeps the cases whose names start with one of the given
 prefixes.  Weights and caches cycle over 8 layers.  ``call_us`` is a
 call's device time (CUDA-graph replays between CUDA events); a kernel's
 device µs can overlap the next one's where the next is a programmatic
-dependent (K4's GEMM, K24's launches), so they need not sum to it.  The ``K24 plans`` cases force K24's gate|up split and down
-cluster past ``ffn_plan``.
+dependent (K4's and K32's GEMM, K24's launches), so they need not sum to
+it.  The ``K24 plans`` cases force K24's gate|up split and down cluster
+past ``ffn_plan``; the ``K32 tiles`` cases force K32's BT (8, 16, 32, at
+least M) and K split (1, 2, 4, 8) past ``w2a8_gemm_plan`` at M = 1 and 16.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops import _cuda
 from ..ops import decode_attention_v2 as da
 from ..ops import ffn_fused as ff
 from ..ops import ternary_matmul as tm
+from ..ops import w2a8_probes as wp
 
 SHAPES = (("qkv", 2560, 3840, False, False), ("o", 2560, 2560, False, True),
           ("gate_up", 2560, 13824, False, False), ("down", 6912, 2560, True, True))
@@ -49,6 +54,23 @@ REPS, LAYERS = 40, 8
 
 
 def _cases(dev, g):
+    a = torch.randint(-127, 128, (128, 256), generator=g, device=dev).to(torch.int8)
+    b = torch.randint(-4, 5, (256, 256), generator=g, device=dev).to(torch.int8)
+    for unit in ("mma", "dp4a"):
+        yield f"K29 {unit} (128x256)x(256x256)", lambda i, unit=unit: wp.int8_dot(a, b, unit)
+    K, N = 2560, 13824                              # the script's P5 shape
+    w32 = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
+                        generator=g, device=dev)
+    for M in (1, 16):
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        yield f"K32 M={M}", lambda i, x=x: wp.w2a8_matmul(x, w32[i % LAYERS], 0.02,
+                                                          bn=2304, bkt=2)
+        for bt in (b_ for b_ in (8, 16, 32) if b_ >= M):
+            for split in (1, 2, 4, 8):
+                def call(i, x=x, plan=(bt, split)):
+                    with mock.patch.object(wp, "w2a8_gemm_plan", lambda *a: plan):
+                        return wp._w2a8_matmul_launch(x, w32[i % LAYERS], 0.02)
+                yield f"K32 tiles M={M} BT={bt} split={split}", call
     for name, K, N, glu, res in SHAPES:
         w = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
                           generator=g, device=dev)

@@ -10,6 +10,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,kernels,llama8b
     python3 chip_smoke.py --phases probe,build,kernels,experiments,parity
     python3 chip_smoke.py --phases probe,build,k24,llama8b
+    python3 chip_smoke.py --phases probe,build,w2a8,experiments
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -44,6 +45,8 @@ no result line):
            MB table: ms at M = 1..32 (kernels.k24_mb)
   k24      (not in the default run, which holds it in kernels) K24's checks
            and times alone: a short call that compares two trees
+  w2a8     (not in the default run, which holds it in kernels) the W2A8
+           probes' and prototype's checks and times (K28-K32) alone
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
            versions), fused (slice 1; int8 B=1, fp8 B=2, bf16 and auto
            pools of 8) and unfused on paths w2a8 and pallas, and with an
@@ -1089,7 +1092,7 @@ def check_k10(torch, dev, g, res):
 _PROFILE_CHILD = """
 import json, torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
@@ -1102,12 +1105,16 @@ def words(K, N, scale_rows):
 call = lambda: {call}
 call()
 torch.cuda.synchronize()
-before = tm.{counter}.launches
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    call()
-    torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+             schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+    for step in range(2):
+        before = tm.{counter}.launches
+        call()
+        torch.cuda.synchronize()
+        prof.step()
 print(json.dumps({{
-    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA],
+    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")],
     "aten_ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
     "launches": tm.{counter}.launches - before}}))
 """
@@ -1115,9 +1122,10 @@ print(json.dumps({{
 
 def _profile_call(setup, call, counter, kernels=2):
     """The CUDA kernels and ATen ops of one wrapper call, profiled in a
-    fresh process (``_PROFILE_CHILD``); ok when the wrapper counted one
-    launch, the profiler saw ``kernels`` kernels and no ATen op but
-    ``aten::empty``."""
+    fresh process (``_PROFILE_CHILD``) after one call in the profiler's
+    warm-up step (without it the card's tracer now and then lost the first
+    kernel of the session); ok when the wrapper counted one launch, the
+    profiler saw ``kernels`` kernels and no ATen op but ``aten::empty``."""
     code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300, cwd=REPO)
@@ -1703,13 +1711,15 @@ def check_f32_instances(torch, dev, g, res):
 
 def check_exp_w2a8(torch, dev, g, res):
     """K28-K31 (the probes) bit for bit against their expected results on
-    the script's inputs; K29 exact through dp4a and the int8 MMA; K32 at the
-    script's shape (K=2560, N=13824) with M in {1, 16, 17}: its int8 codes,
-    row scales and sums bit for bit, its output within one bf16 ulp of the
-    plain version.  Timed: each probe at its shape (launch-bound), K29 at
-    (128x256)·(256x256) beside ``torch._int_mm``, K32 at M=1 and 16 beside
-    K1 on the same words and ``torch.matmul`` on the dequantized bf16
-    weights."""
+    the script's inputs; K29 exact through dp4a and the int8 MMA, on the
+    script's inputs and on shapes past one slab or one block (and dp4a's
+    ragged M, N and K); K32 at the script's shape (K=2560, N=13824) with M
+    in {1, 16, 17, 33} (33 crosses a 32-row tile; bf16 x, and f32 at 33):
+    the int8 codes, row scales and sums of its M rows bit for bit, its
+    output within one bf16 ulp of the plain version.  Timed: each probe at
+    its shape (launch-bound), K29 at (128x256)·(256x256) beside
+    ``torch._int_mm``, K32 at M=1 and 16 beside K1 on the same words and
+    ``torch.matmul`` on the dequantized bf16 weights."""
     import numpy as np
 
     from bitnet_tpu_torch.experiments import exp_w2a8 as ew
@@ -1769,6 +1779,20 @@ def check_exp_w2a8(torch, dev, g, res):
             res["k29"].append(row)
             if not exact:
                 raise AssertionError(f"K29 mismatch: {row}")
+    # past one 256-K slab and one 16 x 64 block; dp4a also at ragged shapes
+    for (M, K, N), units in (((48, 1024, 72), ("dp4a", "mma")),
+                             ((16, 32, 8), ("dp4a", "mma")),
+                             ((33, 260, 20), ("dp4a",)), ((5, 12, 7), ("dp4a",))):
+        lhs = torch.randint(-128, 128, (M, K), generator=g, device=dev).to(torch.int8)
+        rhs = torch.randint(-128, 128, (K, N), generator=g, device=dev).to(torch.int8)
+        ref = wp.int8_dot_plain(lhs.cpu(), rhs.cpu())
+        for unit in units:
+            exact = bool(torch.equal(wp.int8_dot(lhs, rhs, unit).cpu(), ref))
+            row = {"unit": unit, "M": M, "K": K, "N": N, "tol": 0.0, "exact": exact,
+                   "max_abs_err": 0.0 if exact else float("inf"), "ok": exact}
+            res["k29"].append(row)
+            if not exact:
+                raise AssertionError(f"K29 mismatch: {row}")
     # K32 at the script's shape
     K, N, scale = 2560, 13824, 0.02
     codes = np.random.default_rng(2).integers(0, 4, size=(K, N)).astype(np.uint8)
@@ -1779,15 +1803,17 @@ def check_exp_w2a8(torch, dev, g, res):
     nd = 2                                         # 2 x 70.8 MB of bf16 weights
     dense = [(codes_to_values(unpack_packed(words)) * scale).to(torch.bfloat16)
              for _ in range(nd)]
-    for M in (1, 16, 17):
-        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    for M, xdt in ((1, torch.bfloat16), (16, torch.bfloat16), (17, torch.bfloat16),
+                   (33, torch.bfloat16), (33, torch.float32)):
+        x = torch.randn((M, K), generator=g, device=dev).to(xdt)
         out, xq, sx, sumq = wp._w2a8_matmul_cuda(x, words, scale)
-        pq, psx, psum = wp.w2a8_quantize_plain(x, xq.shape[0])
+        pq, psx, psum = wp.w2a8_quantize_plain(x, M)
         pl = wp.w2a8_matmul_plain(pq, psx, psum, words, scale, M)
         ulp = (pl.float().abs() * 2.0 ** -7).clamp_min(2.0 ** -133)   # one bf16 ulp
         err = (out.float() - pl.float()).abs()
-        row = {"M": M, "K": K, "N": N, "codes_exact": bool(
-                   torch.equal(xq, pq) and torch.equal(sumq, psum) and torch.equal(sx, psx)),
+        row = {"M": M, "K": K, "N": N, "x": str(xdt).split(".")[-1], "codes_exact": bool(
+                   torch.equal(xq[:M], pq) and torch.equal(sumq[:M], psum)
+                   and torch.equal(sx[:M], psx)),
                "bit_exact": bool(torch.equal(out, pl)), "max_abs_err": err.max().item(),
                "tol": "one bf16 ulp", "within_ulp": bool((err <= ulp).all())}
         row["ok"] = row["codes_exact"] and row["within_ulp"]
@@ -1795,7 +1821,7 @@ def check_exp_w2a8(torch, dev, g, res):
             row["ms"] = time_ms(torch, lambda i: wp.w2a8_matmul(
                 x, wstack[i % L], scale, bn=2304, bkt=2), L)
             row["plain_ms"] = time_ms(torch, lambda i: wp.w2a8_matmul_plain(
-                *wp.w2a8_quantize_plain(x, xq.shape[0]), wstack[i % L], scale, M), 2)
+                *wp.w2a8_quantize_plain(x, M), wstack[i % L], scale, M), 2)
             row["k1_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
                 i % L, x, wstack, sv, None, K, N), L)
             row["library_ms"] = time_ms(torch, lambda i: torch.matmul(x, dense[i % nd]), nd)
@@ -3238,7 +3264,7 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if "build" in phases or "kernels" in phases or "k24" in phases:
+        if any(p in phases for p in ("build", "kernels", "k24", "w2a8")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3256,6 +3282,13 @@ def main(argv=None) -> int:
             report["k24"] = res
             for k, rows in res.items():
                 emit({"phase": f"k24.{k}", "rows": rows})
+        if "w2a8" in phases:
+            res = {f"k{n}": [] for n in range(28, 33)}
+            timed("w2a8", check_exp_w2a8, torch, dev,
+                  torch.Generator(device=dev).manual_seed(1234), res)
+            report["w2a8"] = res
+            for k, rows in res.items():
+                emit({"phase": f"w2a8.{k}", "nvidia_smi": smi, "rows": rows})
         if "parity" in phases:
             report["parity"] = timed("parity", phase_parity, torch, dev)
             emit({"phase": "parity", **report["parity"]})

@@ -14,6 +14,7 @@ from bitnet_tpu_torch.ops import decode_attention as dk
 from bitnet_tpu_torch.ops import decode_attention_v2 as da
 from bitnet_tpu_torch.ops import ffn_fused as ff
 from bitnet_tpu_torch.ops import ternary_matmul as tm
+from bitnet_tpu_torch.ops import w2a8_probes as wp
 
 pytestmark = pytest.mark.cuda
 
@@ -112,7 +113,7 @@ def test_k4_runs_two_kernels_and_no_pytorch_op(dev):
     kernels, and no ATen op but the allocations; two calls give the same
     bits (K split over a cluster at N = 640)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     g = torch.Generator(device=dev).manual_seed(4)
     K, N = 2560, 640
@@ -120,12 +121,18 @@ def test_k4_runs_two_kernels_and_no_pytorch_op(dev):
     x = torch.randn((512, K), generator=g, device=dev).bfloat16()
     first = tm.ternary_matmul_w2a8(1, x, w, sv, K, N)          # build, warm up
     torch.cuda.synchronize()
-    before = tm.ternary_matmul_w2a8.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        again = tm.ternary_matmul_w2a8(1, x, w, sv, K, N)
-        torch.cuda.synchronize()
+    # one call in the profiler's warm-up step: the tracer now and then lost
+    # the first kernel of a session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            before = tm.ternary_matmul_w2a8.launches
+            again = tm.ternary_matmul_w2a8(1, x, w, sv, K, N)
+            torch.cuda.synchronize()
+            prof.step()
     assert tm.ternary_matmul_w2a8.launches == before + 1
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]          # the step's span
     ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
     assert len(kernels) == 2, kernels
     assert sorted("quantize_rows" in k for k in kernels) == [False, True], kernels
@@ -138,13 +145,16 @@ def test_k4_runs_two_kernels_and_no_pytorch_op(dev):
 # card tests of this file caught no kernel in the profiler (alone, and in
 # chip_smoke.py, the same calls show theirs).  The child builds its
 # operands from a seed, makes one call to build and warm up, then profiles
-# one call, and prints the kernels, the ATen ops and the launch count.
+# one call after one in the profiler's warm-up step (the tracer now and then
+# lost the first kernel of a session), and prints the kernels, the ATen ops
+# and the launch count of the profiled call.
 _PROFILE_CHILD = """
 import json, torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 from bitnet_tpu_torch.ops import ffn_fused as ff
 from bitnet_tpu_torch.ops import ternary_matmul as tm
+from bitnet_tpu_torch.ops import w2a8_probes as wp
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
 def words(K, N):
@@ -155,12 +165,16 @@ def words(K, N):
 call = lambda: {call}
 call()
 torch.cuda.synchronize()
-before = {module}.{counter}.launches
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    call()
-    torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+             schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+    for step in range(2):
+        before = {module}.{counter}.launches
+        call()
+        torch.cuda.synchronize()
+        prof.step()
 print(json.dumps({{
-    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA],
+    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")],
     "ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
     "launches": {module}.{counter}.launches - before}}))
 """
@@ -1174,40 +1188,119 @@ def test_f32_cache_instances_match_plain(dev):
     assert torch.equal(kc, k2) and torch.equal(vc, v2)
 
 
-def test_w2a8_probes_match_plain(dev):
-    """K28-K31 bit for bit on the probes' inputs; K29 exact on both units."""
+# K29's shapes: None = the probe's inputs; (M, K, N); "unaligned" = operands
+# whose pointers are 1 (dp4a) or 4 (mma) bytes past an aligned one.  Each
+# unit meets its 16-byte, 4-byte and single-byte staging, one slab and
+# several (K = 1024, 260), one block and several (M = 48, N = 72 / 136).
+K29_CASES = [(unit, shape) for unit in ("dp4a", "mma")
+             for shape in (None, (48, 1024, 72), (16, 32, 8), (32, 512, 136),
+                           "unaligned")] + [
+    ("dp4a", (33, 260, 20)), ("dp4a", (5, 12, 7)), ("dp4a", (3, 0, 5))]
+
+
+@pytest.mark.parametrize("unit,shape", K29_CASES)
+def test_w2a8_probes_match_plain(dev, unit, shape):
+    """K28-K31 bit for bit on the probes' inputs; K29 exact on both units,
+    on the probe's inputs and past one slab, one block and the aligned
+    loads."""
     from bitnet_tpu_torch.experiments import exp_w2a8 as ew
-    from bitnet_tpu_torch.ops import w2a8_probes as wp
 
-    for fn, plain, words in ((wp.bitcast_i32_to_i8, wp.bitcast_i32_to_i8_plain,
-                              ew.p1_inputs()),
-                             (wp.bytes_to_bf16, wp.bytes_to_bf16_plain, ew.p3_inputs()),
-                             (wp.unpack_words, wp.unpack_words_plain, ew.p4_inputs()[1])):
-        w = torch.from_numpy(words)
-        assert torch.equal(fn(w.to(dev)).cpu(), plain(w))
-    a, b, a2 = (torch.from_numpy(t) for t in ew.p2_inputs())
-    for lhs in (a, a2):
-        for unit in ("dp4a", "mma"):
-            assert torch.equal(wp.int8_dot(lhs.to(dev), b.to(dev), unit).cpu(),
-                               wp.int8_dot_plain(lhs, b))
+    if shape is None:
+        for fn, plain, words in ((wp.bitcast_i32_to_i8, wp.bitcast_i32_to_i8_plain,
+                                  ew.p1_inputs()),
+                                 (wp.bytes_to_bf16, wp.bytes_to_bf16_plain,
+                                  ew.p3_inputs()),
+                                 (wp.unpack_words, wp.unpack_words_plain,
+                                  ew.p4_inputs()[1])):
+            w = torch.from_numpy(words)
+            assert torch.equal(fn(w.to(dev)).cpu(), plain(w))
+        a, b, a2 = (torch.from_numpy(t) for t in ew.p2_inputs())
+        pairs = [(a, b), (a2, b)]
+    else:
+        g = torch.Generator().manual_seed(7)
+        M, K, N = (16, 64, 16) if shape == "unaligned" else shape
+        a, b = (torch.randint(-128, 128, s, generator=g).to(torch.int8)
+                for s in ((M, K), (K, N)))
+        pairs = [(a, b)]
+    for lhs, rhs in pairs:
+        la, lb = lhs.to(dev), rhs.to(dev)
+        if shape == "unaligned":
+            off = 1 if unit == "dp4a" else 4
+            la = torch.empty(la.numel() + off, dtype=torch.int8, device=dev)[off:].view(
+                la.shape).copy_(la)
+            lb = torch.empty(lb.numel() + off, dtype=torch.int8, device=dev)[off:].view(
+                lb.shape).copy_(lb)
+            assert la.data_ptr() % 16 and lb.data_ptr() % 16
+        assert torch.equal(wp.int8_dot(la, lb, unit).cpu(), wp.int8_dot_plain(lhs, rhs))
 
 
-@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (16, torch.float32),
-                                     (17, torch.bfloat16)])
-def test_k32_matches_plain(dev, M, dtype):
-    """K32's int8 codes, row scales and sums bit for bit; its output the
-    plain arithmetic on them bit for bit (exact int32 sums, the same two
-    f32 products, one bf16 rounding)."""
+@pytest.mark.parametrize("M,dtype,N", [(M, dt, 384) for M in (1, 16, 17, 33)
+                                       for dt in (torch.bfloat16, torch.float32)]
+                         + [(1, torch.bfloat16, 8), (33, torch.float32, 200)])
+def test_k32_matches_plain(dev, M, dtype, N):
+    """K32's int8 codes, row scales and sums of its M rows bit for bit; its
+    output the plain arithmetic on them bit for bit (exact int32 sums, the
+    same two f32 products, one bf16 rounding), bf16 for f32 x too; N not a
+    multiple of 128 (and below one 64-column half)."""
     import numpy as np
 
-    from bitnet_tpu_torch.ops import w2a8_probes as wp
-
     g = torch.Generator(device=dev).manual_seed(M)
-    K, N = 512, 384
+    K = 512
     codes = np.random.default_rng(M).integers(0, 4, (K, N)).astype(np.uint8)
     words = torch.from_numpy(wp.pack_w2a8_host(codes)).to(dev)
     x = torch.randn((M, K), generator=g, device=dev).to(dtype)
     out, xq, sx, sumq = wp._w2a8_matmul_cuda(x, words, 0.02)
-    pq, psx, psum = wp.w2a8_quantize_plain(x, xq.shape[0])
+    pq, psx, psum = wp.w2a8_quantize_plain(x, M)
+    assert xq.shape == (M, K) and out.dtype == torch.bfloat16 and out.shape == (M, N)
     assert torch.equal(xq, pq) and torch.equal(sx, psx) and torch.equal(sumq, psum)
     assert torch.equal(out, wp.w2a8_matmul_plain(pq, psx, psum, words, 0.02, M))
+    assert torch.equal(out, wp.w2a8_matmul(x, words, 0.02, bn=8, bkt=2))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("bt", [8, 16, 32, 64, 128])
+def test_k32_every_tile_and_split_matches_plain(dev, monkeypatch, bt, split):
+    """Every form of K32's GEMM (rows a block x K split), forced past the
+    plan, at a row past one tile and N = 200, bit for bit."""
+    monkeypatch.setattr(wp, "w2a8_gemm_plan", lambda *a: (bt, split))
+    g = torch.Generator(device=dev).manual_seed(bt * 10 + split)
+    K, N, M = 2048, 200, bt + 1
+    words = torch.randint(-2**31, 2**31, (K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    out, xq, sx, sumq = wp._w2a8_matmul_cuda(x, words, 0.03)
+    pq, psx, psum = wp.w2a8_quantize_plain(x, M)
+    assert torch.equal(xq, pq) and torch.equal(sx, psx) and torch.equal(sumq, psum)
+    assert torch.equal(out, wp.w2a8_matmul_plain(pq, psx, psum, words, 0.03, M))
+
+
+def test_k4_keeps_its_epilogue_beside_k32s(dev):
+    """K4 and K32 launch the same two kernels on the same words and rows:
+    their int8 rows, scales and sums agree, and each output rounds in its
+    own order (K4 ((acc - 2 sumq) sx) s[n] in x's dtype, K32 (acc - 2 sumq)
+    (sx s) in bf16), so K4's default mode is untouched by K32's."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    K, N, M = 768, 640, 40
+    w, _ = _words(g, 1, K, N, dev)
+    sv = torch.full((1, N), 0.02, device=dev)
+    x = torch.randn((M, K), generator=g, device=dev)
+    out4, xq4, sx4, sumq4 = tm._w2a8_gemm_cuda(0, x, w, sv, K, N)
+    out32, xq32, sx32, sumq32 = wp._w2a8_matmul_cuda(x, w[0], 0.02)
+    assert torch.equal(xq4, xq32) and torch.equal(sx4, sx32) and torch.equal(sumq4, sumq32)
+    assert out4.dtype == torch.float32 and out32.dtype == torch.bfloat16
+    acc = tm.int8_matmul(xq4, tm.biased_codes(w[0]))
+    assert torch.equal(out4, tm.w2a8_epilogue(acc, sumq4, sx4, sv[0], None, x.dtype))
+    assert torch.equal(out32, wp.w2a8_matmul_plain(xq32, sx32, sumq32, w[0], 0.02, M))
+
+
+def test_k32_runs_two_kernels_and_no_pytorch_op(dev):
+    """A K32 call is K4's row kernel and GEMM: the profiler sees those two
+    kernels, and no ATen op but the allocations."""
+    kernels, ops = _profiled_call(
+        "w = words(2560, 13824)[0][0]\nx = torch.randn((1, 2560), generator=g, "
+        "device=dev).bfloat16()",
+        "wp.w2a8_matmul(x, w, 0.02, bn=2304, bkt=2)", "w2a8_matmul", module="wp")
+    assert len(kernels) == 2, kernels
+    assert sorted("quantize_rows" in k for k in kernels) == [False, True], kernels
+    assert all("quantize_rows" in k or "w2a8_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
