@@ -61,15 +61,16 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_probe_dot": (P, P, P, I, I, I, I, P),
     },
     "decode_attention": {
-        "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, F, P, P,
-                                    P, P, P, I, I, P),
+        "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, I, F, P,
+                                    P, P, P, P, P, I, I, P),
         "bn_decode_attention_qkv_quant": (P, P, P, P, P, P, P, P, I, I, I, I,
-                                          I, F, P, P, P, P, P, P, P, I, I, P),
+                                          I, I, F, P, P, P, P, P, P, P, P, I,
+                                          I, P),
         "bn_scatter_kv_rows": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-        "bn_decode_attention": (P, P, P, P, P, P, P, I, I, I, I, I, F, P, P,
-                                P, I, I, P),
-        "bn_decode_attention_quant": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
-                                      P, P, P, I, I, P),
+        "bn_decode_attention": (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P,
+                                P, P, P, I, I, P),
+        "bn_decode_attention_quant": (P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      F, P, P, P, P, I, I, P),
     },
 }
 

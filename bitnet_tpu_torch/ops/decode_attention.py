@@ -6,14 +6,19 @@ Every decode-attention function of the JAX package is one of two: the
 new token's q, k, v arrive apart (RoPE done, rounded to the cache dtype,
 K5's function) or as the raw fused q|k|v row (RoPE, and for a quantized
 cache the new rows' quantization, inside the kernel, K2's function).  On
-the card both run the split-S pair of ``csrc/decode_attention.cu``
-(``attn_split`` / ``attn_combine``): its grid (splits, kv heads, B) makes
-the TPU kernels' per-b grid, whole-batch grid, stacked or per-layer-slice
-forms and v1 or v2 bodies one launch.  Each wrapper launches that pair
-under its own counter; its plain version follows its Pallas kernel,
-down to the chunks of cache rows against whose running maxima it rounds
-its softmax weights to bf16 (the only place where the TPU kernels of one
-function differ numerically).
+the card both run the split-S kernel of ``csrc/decode_attention.cu``
+(``attn_decode``), one launch a call: its grid (splits, kv heads, B)
+makes the TPU kernels' per-b grid, whole-batch grid, stacked or
+per-layer-slice forms and v1 or v2 bodies one kernel.  A block streams
+the R cache rows of its split through TMA (R from :func:`attn_plan`, so
+the blocks give each SM at most one, two over a 1-byte cache), and the last block of a (b, kv
+head) to finish folds the splits' partials and the new token, counting
+the arrivals in a per-device counter buffer that every call leaves zero
+(:func:`attn_counters`).  Each wrapper launches that kernel under its own
+counter; its plain version follows its Pallas kernel, down to the chunks
+of cache rows against whose running maxima it rounds its softmax weights
+to bf16 (the only place where the TPU kernels of one function differ
+numerically).
 
 Wrappers here, each over layer ``l`` of the flat stacks [L, B, S, KV*D]:
 
@@ -50,13 +55,19 @@ nothing to bf16); a quantized cache keeps its f32 scales in the canonical
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
 
 NEG_INF = -1e30
 DEFAULT_CHUNK = 1024  # the JAX kernels' largest sequence chunk (one grid step)
-SPLIT = 64            # cache rows per block of the CUDA kernel (csrc)
+# the CUDA kernel's splits: at least one 64-row stage, at most 256 splits
+# (csrc SR, MAX_SPLITS); the (b, kv head) counters one buffer a device holds
+ATTN_MIN_ROWS = 64
+ATTN_MAX_SPLITS = 256
+ATTN_COUNTERS = 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the quantized caches the kernels stream (csrc `cache` argument), and the
 # unquantized ones
@@ -234,8 +245,64 @@ def qkv_attention_plain(qkv, sin_row, cos_row, k_cache_l, v_cache_l, pos,
 
 
 # --------------------------------------------------------------------------
-# argument checks and the two launchers
+# the plan, the counters, argument checks and the two launchers
 # --------------------------------------------------------------------------
+def attn_plan(B: int, KV: int, S: int, sms: int, itemsize: int = 2) -> int:
+    """R, the cache rows of one split of the CUDA kernel: the least power
+    of two >= 64 whose B·KV·ceil(S/R) blocks give the ``sms`` SMs at most
+    one each (two over a 1-byte cache, ``itemsize`` 1), one split a slot
+    where B·KV alone fills them, and at most 256 splits.  A bf16 block keeps
+    up to three stages of its split in flight, so one block an SM already
+    draws the card's bandwidth, and fewer splits leave less to combine; a
+    1-byte block's stage is bound by its warps' code conversions, which a
+    second block an SM overlaps (the split sweep of
+    ``tools/kernel_profile.py``)."""
+    blocks = sms * (2 if itemsize == 1 else 1)
+    R = ATTN_MIN_ROWS
+    while R < S and (B * KV * -(-S // R) > blocks or -(-S // R) > ATTN_MAX_SPLITS):
+        R *= 2
+    return R
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def attn_counters(device: torch.device) -> torch.Tensor:
+    """The int32 [ATTN_COUNTERS] arrival counters of ``device``, zeroed
+    once: the kernel's last block of each (b, kv head) resets its counter,
+    so every call, and every replay of a CUDA graph, finds them zero.  The
+    first call on a device must run outside a graph capture (a capture
+    does not run the zeroing)."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the first decode-attention call on a device must "
+                               "run before a CUDA graph capture")
+        buf = _COUNTERS[device.index] = torch.zeros(ATTN_COUNTERS, dtype=torch.int32,
+                                                    device=device)
+    return buf
+
+
+def _attn_scratch(what, dev, B, KV, S, G, D, itemsize):
+    """(R, partials, md offset in bytes, counters) of one call over a cache
+    of ``itemsize``-byte elements: the partials' ctx [B, KV, NS, G, D] then
+    their (m, d) [B, KV, NS, G, 2] in one f32 buffer, ctx first so its
+    float4 rows stay aligned."""
+    if B * KV > ATTN_COUNTERS:
+        raise ValueError(f"{what}: B*KV = {B * KV} exceeds the {ATTN_COUNTERS} "
+                         "arrival counters")
+    R = attn_plan(B, KV, S, _sm_count(dev.index), itemsize)
+    NS = -(-S // R)
+    n_ctx = B * KV * NS * G * D
+    part = torch.empty(n_ctx + B * KV * NS * G * 2, dtype=torch.float32, device=dev)
+    return R, part, 4 * n_ctx, attn_counters(dev)
+
+
 def check_layer_args(l, q, k_new, v_new, k_cache, v_cache):
     B, H, D = q.shape
     L, Bc, S, KVD = k_cache.shape
@@ -263,10 +330,10 @@ def check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv):
 def launch_split_attention(what: str, l: int, q, k_new, v_new, k_cache,
                            v_cache, pos, k_scale=None, v_scale=None,
                            write_pos=None):
-    """The split-S pair without RoPE over layer ``l`` of the flat stacks
+    """The split-S kernel without RoPE over layer ``l`` of the flat stacks
     [L, B, S, KV*D]: a bf16 or f32 cache, or an int8 / fp8 cache with its
     f32 scale stacks [L, B, S, KV].  With ``write_pos`` [B] int32 (K26, an
-    unquantized cache) the combine pass also writes the new rows, cast to
+    unquantized cache) the combine also writes the new rows, cast to
     the cache dtype, at those rows of layer ``l`` in place.  Checks what the
     CUDA kernel takes and launches it; counts nothing (each wrapper counts
     its own launches)."""
@@ -300,18 +367,15 @@ def launch_split_attention(what: str, l: int, q, k_new, v_new, k_cache,
                   or tuple(v_scale.shape) != (L, B, S, KV)):
         raise ValueError(f"{what}: scales must be f32 [{L}, {B}, {S}, {KV}]")
     dev = q.device
-    NS = -(-S // SPLIT)
+    R, part, md, counters = _attn_scratch(what, dev, B, KV, S, H // KV, D,
+                                          k_cache.element_size())
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
-    # per-split partials: m/d [B, KV, NS, G, 2] then ctx [B, KV, NS, G, D]
-    G = H // KV
-    n_md = B * KV * NS * G * 2
-    part = torch.empty(n_md + B * KV * NS * G * D, dtype=torch.float32,
-                       device=dev)
     layer = l * k_cache.stride(0) * k_cache.element_size()   # bytes to layer l
     args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr() + layer, v_cache.data_ptr() + layer)
-    tail = (pos.data_ptr(), B, H, KV, D, S, float(D) ** -0.5, out.data_ptr(),
-            part.data_ptr(), part.data_ptr() + 4 * n_md, _DTYPE_CODE[q.dtype])
+    tail = (pos.data_ptr(), B, H, KV, D, S, R, float(D) ** -0.5, out.data_ptr(),
+            part.data_ptr() + md, part.data_ptr(), counters.data_ptr(),
+            _DTYPE_CODE[q.dtype])
     lib = _cuda.library("decode_attention")
     if quant:
         sl = 4 * l * k_scale.stride(0)
@@ -329,7 +393,7 @@ def launch_split_attention(what: str, l: int, q, k_new, v_new, k_cache,
 
 def launch_qkv_attention(what, l, qkv, sin_row, cos_row, k_cache, v_cache,
                          pos, n_heads, n_kv, k_scale=None, v_scale=None):
-    """The split-S pair with RoPE (a bf16 or f32 cache, or an int8 / fp8
+    """The split-S kernel with RoPE (a bf16 or f32 cache, or an int8 / fp8
     cache with its scale stacks, quantizing the new rows) over layer ``l``;
     counts nothing.  Returns what :func:`qkv_attention_plain` returns."""
     B, _, D = qkv.shape
@@ -358,26 +422,27 @@ def launch_qkv_attention(what, l, qkv, sin_row, cos_row, k_cache, v_cache,
                   or tuple(v_scale.shape) != (L, B, S, n_kv)):
         raise ValueError(f"{what}: scales must be f32 [{L}, {B}, {S}, {n_kv}]")
     dev = qkv.device
-    NS = -(-S // SPLIT)
+    R, part, md, counters = _attn_scratch(what, dev, B, n_kv, S, G, D,
+                                          k_cache.element_size())
     out = torch.empty((B, n_heads, D), dtype=qkv.dtype, device=dev)
-    rows = torch.empty((2, B, n_kv, D), dtype=k_cache.dtype, device=dev)
-    # per-split partials: m/d [B, KV, NS, G, 2] then ctx [B, KV, NS, G, D]
-    n_md = B * n_kv * NS * G * 2
-    part = torch.empty(n_md + B * n_kv * NS * G * D, dtype=torch.float32,
-                       device=dev)
+    # the new rows (and scales) apart: a view of one buffer would be an ATen op
+    k_row, v_row = (torch.empty((B, n_kv, D), dtype=k_cache.dtype, device=dev)
+                    for _ in range(2))
     layer = l * k_cache.stride(0) * k_cache.element_size()   # bytes to layer l
     head = (qkv.data_ptr(), sin_row.data_ptr(), cos_row.data_ptr(),
             k_cache.data_ptr() + layer, v_cache.data_ptr() + layer)
-    dims = (pos.data_ptr(), B, n_heads, n_kv, D, S, float(D) ** -0.5,
-            out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr())
-    parts = (part.data_ptr(), part.data_ptr() + 4 * n_md, _DTYPE_CODE[qkv.dtype])
+    dims = (pos.data_ptr(), B, n_heads, n_kv, D, S, R, float(D) ** -0.5,
+            out.data_ptr(), k_row.data_ptr(), v_row.data_ptr())
+    parts = (part.data_ptr() + md, part.data_ptr(), counters.data_ptr(),
+             _DTYPE_CODE[qkv.dtype])
     lib = _cuda.library("decode_attention")
     if quant:
         sl = 4 * l * k_scale.stride(0)
-        scales = torch.empty((2, B, n_kv), dtype=torch.float32, device=dev)
+        k_s, v_s = (torch.empty((B, n_kv), dtype=torch.float32, device=dev)
+                    for _ in range(2))
         rc = lib.bn_decode_attention_qkv_quant(
             *head, k_scale.data_ptr() + sl, v_scale.data_ptr() + sl, *dims,
-            scales[0].data_ptr(), scales[1].data_ptr(), *parts,
+            k_s.data_ptr(), v_s.data_ptr(), *parts,
             QUANT_CODE[k_cache.dtype], _cuda.stream_ptr(dev))
     else:
         rc = lib.bn_decode_attention_qkv(*head, *dims, *parts,
@@ -385,15 +450,15 @@ def launch_qkv_attention(what, l, qkv, sin_row, cos_row, k_cache, v_cache,
                                          _cuda.stream_ptr(dev))
     _cuda.check(lib, "decode_attention", rc, what)
     if quant:
-        return out, rows[0], rows[1], scales[0], scales[1]
-    return out, rows[0], rows[1]
+        return out, k_row, v_row, k_s, v_s
+    return out, k_row, v_row
 
 
 def split_call(wrapper, what, plain, l, q, k_new, v_new, k_cache, v_cache, pos,
                k_scale=None, v_scale=None):
     """A no-RoPE wrapper's body: check; for CPU tensors ``plain`` on layer
     ``l`` (``plain(q, k_new, v_new, k_l, v_l[, ks_l, vs_l], pos)``); for
-    CUDA tensors the split pair, counted on ``wrapper.launches``."""
+    CUDA tensors the split-S kernel, counted on ``wrapper.launches``."""
     check_layer_args(l, q, k_new, v_new, k_cache, v_cache)
     if q.device.type == "cpu":
         scales = () if k_scale is None else (k_scale[l], v_scale[l])
@@ -408,7 +473,7 @@ def qkv_call(wrapper, what, plain, l, qkv, sin_row, cos_row, k_cache, v_cache,
              pos, n_heads, n_kv, k_scale=None, v_scale=None):
     """A rope-fused wrapper's body: check; for CPU tensors ``plain`` on
     layer ``l`` (``plain(qkv, sin, cos, k_l, v_l[, ks_l, vs_l], pos, H,
-    KV)``); for CUDA tensors the split pair with RoPE, counted on
+    KV)``); for CUDA tensors the split-S kernel with RoPE, counted on
     ``wrapper.launches``."""
     check_qkv_args(l, qkv, sin_row, cos_row, k_cache, v_cache, n_heads, n_kv)
     if qkv.device.type == "cpu":

@@ -31,8 +31,8 @@ scatter: the CUDA kernels and their plain versions.
   ``v2p``): K8's function on a per-b grid over a 4-D cache with no layer
   axis.
 
-Every one launches the split-S pair of ``csrc/decode_attention.cu``
-(``ops/decode_attention.py`` says why one pair computes them all) under
+Every one launches the split-S kernel of ``csrc/decode_attention.cu``
+(``ops/decode_attention.py`` says why one kernel computes them all) under
 its own counter.  All take the full flat cache stack ``[L, B, S, KV*D]`` and a layer index,
 as the JAX wrappers do.  A quantized cache keeps its f32 scales in the
 canonical ``[L, B, S, KV]`` layout of ``bitnet_tpu/engine/cache.py``; the

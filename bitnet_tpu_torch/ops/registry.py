@@ -101,7 +101,7 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
                "bitnet_tpu/ops/ternary_matmul.py:733",
                ternary_matmul_tl_bf16_normed),
-    # slice 5: every other decode-attention site, on the split-S pair
+    # slice 5: every other decode-attention site, on the split-S kernel
     *(KernelSpec(wrapper.__name__, "cuda",
                  "bitnet_tpu_torch/csrc/decode_attention.cu",
                  f"bitnet_tpu/ops/{site}", wrapper)
@@ -122,7 +122,7 @@ REGISTRY: tuple[KernelSpec, ...] = (
     KernelSpec("ffn_w2a8_fused", "cuda", "bitnet_tpu_torch/csrc/ffn_fused.cu",
                "bitnet_tpu/ops/ffn_fused.py:148", ffn_w2a8_fused),
     # slice 7: the two stacked-cache kernels and the per-b v2 kernel (K25-K27)
-    # on the split-S pair, and the W2A8 experiment's probes and prototype
+    # on the split-S kernel, and the W2A8 experiment's probes and prototype
     # (K28-K32), reached through the port's two experiment entry points
     *(KernelSpec(wrapper.__name__, "cuda",
                  "bitnet_tpu_torch/csrc/decode_attention.cu",

@@ -11,11 +11,15 @@ and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
 its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
 the f32 correction matmul K10's GEMM form no longer runs; K6 at the generic
 path's seven shapes, its decode form at M = 1 and its row kernel and GEMM
-at M = 512; K2's two passes; K24's four launches at the 8B FFN, H = 4096,
+at M = 512; K24's four launches at the 8B FFN, H = 4096,
 F = 14336, at M = 1 and 32; K29 through both units at the P2 probe's
 (128×256)·(256×256); K32's row kernel and GEMM at K = 2560, N = 13824, M = 1
 and 16) and prints one JSON line per case with the card's name and power
-limit.  The ``K6 tiles`` cases time K6's GEMM form at
+limit.  The split-S decode attention at the 2B heads (K2, K5, K7 int8 at
+B = 1, S = 1024 and 4096; K8, K9 int8 at B = 8, S = 1024) is one kernel a
+call; the ``attn tiles`` cases time K5 (bf16) and K15 (int8) in every split
+size R = 64 .. 1024, forced past ``attn_plan``, at (B, S) = (1, 4096), (2, 4096), (8, 1024) and
+(64, 1024), the plan's R marked.  The ``K6 tiles`` cases time K6's GEMM form at
 M = 128, 512 and 2048 in BT = 32, 64 and 128 rows a block and K splits of 1,
 2 and 4, forced past ``blockscale_gemm_plan`` (the table its choice rests
 on).  ``--only`` keeps the cases whose names start with one of the given
@@ -40,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..device_probe import require_sm90
 from ..ops import _cuda
+from ..ops import decode_attention as dk
 from ..ops import decode_attention_v2 as da
 from ..ops import ffn_fused as ff
 from ..ops import ternary_matmul as tm
@@ -136,14 +141,66 @@ def _cases(dev, g):
                 with mock.patch.object(ff, "ffn_plan", lambda *a: plan):
                     return ff._ffn_launch(i % LAYERS, x, gu, sg, dw, sd, F, H)
             yield f"K24 plans M={M} BT={bt} split={split} dsplit={dsplit}", call
-    for S in (1024, 4096):
-        kc = torch.randn((LAYERS, 1, S, 640), generator=g, device=dev).bfloat16()
+    yield from _attention_cases(dev, g)
+
+
+def _attention_cases(dev, g):
+    """The split-S decode attention of the 2B shapes (20 / 5 heads of 128)
+    with S - 1 rows cached in every slot: K2 and K5 over bf16, K7 over int8
+    at B=1; K8 over bf16 and K9 over int8 at B=8."""
+    H, KV, D = 20, 5, 128
+    for B, S in ((1, 1024), (1, 4096), (8, 1024)):
+        kc = torch.randn((LAYERS, B, S, KV * D), generator=g, device=dev).bfloat16()
         vc = torch.randn_like(kc)
-        qkv = torch.randn((1, 30, 128), generator=g, device=dev).bfloat16()
-        a = torch.rand((1, 64), generator=g, device=dev)
-        pos = torch.tensor([S - 1], dtype=torch.int32, device=dev)
-        yield f"K2 S={S} pos={S - 1}", lambda i, kc=kc, vc=vc, qkv=qkv, a=a, pos=pos: (
-            da.decode_attention_qkv(i % LAYERS, qkv, a.sin(), a.cos(), kc, vc, pos, 20, 5))
+        kq, vq = (torch.randint(-127, 128, kc.shape, generator=g, device=dev
+                                ).to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((LAYERS, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+                  for _ in range(2))
+        qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev).bfloat16()
+        a = torch.rand((B, D // 2), generator=g, device=dev)
+        sin, cos = a.sin(), a.cos()
+        q, kn, vn = (torch.randn(s, generator=g, device=dev).bfloat16()
+                     for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        tag = f"B={B} S={S}"
+        if B == 1:
+            yield f"K2 {tag}", lambda i, kc=kc, vc=vc, qkv=qkv, sin=sin, cos=cos, pos=pos: (
+                da.decode_attention_qkv(i % LAYERS, qkv, sin, cos, kc, vc, pos, H, KV))
+            yield f"K5 {tag}", lambda i, kc=kc, vc=vc, q=q, kn=kn, vn=vn, pos=pos: (
+                dk.decode_attention(i % LAYERS, q, kn, vn, kc, vc, pos))
+            yield f"K7 int8 {tag}", lambda i, a=(qkv, sin, cos, kq, vq, ks, vs, pos): (
+                da.decode_attention_qkv_quant(i % LAYERS, *a, H, KV))
+        else:
+            yield f"K8 {tag}", lambda i, kc=kc, vc=vc, q=q, kn=kn, vn=vn, pos=pos: (
+                da.decode_attention_batched(i % LAYERS, q, kn, vn, kc, vc, pos))
+            yield f"K9 int8 {tag}", lambda i, a=(q, kn, vn, kq, vq, ks, vs, pos): (
+                da.decode_attention_quant_batched(i % LAYERS, *a))
+    # K5 (bf16) and K15 (int8) in every split size R, forced past attn_plan
+    # (the table it rests on)
+    for B, S in ((1, 4096), (2, 4096), (8, 1024), (64, 1024)):
+        kc = torch.randn((LAYERS, B, S, KV * D), generator=g, device=dev).bfloat16()
+        vc = torch.randn_like(kc)
+        kq, vq = (torch.randint(-127, 128, kc.shape, generator=g, device=dev
+                                ).to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((LAYERS, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+                  for _ in range(2))
+        q, kn, vn = (torch.randn(s, generator=g, device=dev).bfloat16()
+                     for s in ((B, H, D), (B, KV, D), (B, KV, D)))
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = (dk.attn_plan(B, KV, S, sms, 2), dk.attn_plan(B, KV, S, sms, 1))
+        for R in (64, 128, 256, 512, 1024):
+            mark, mark_q = (" (plan)" if R == plan else "" for plan in plans)
+
+            def call(i, kc=kc, vc=vc, q=q, kn=kn, vn=vn, pos=pos, R=R):
+                with mock.patch.object(dk, "attn_plan", lambda *a: R):
+                    return dk.decode_attention(i % LAYERS, q, kn, vn, kc, vc, pos)
+
+            def call_q(i, a=(q, kn, vn, kq, vq, ks, vs, pos), R=R):
+                with mock.patch.object(dk, "attn_plan", lambda *a: R):
+                    return dk.decode_attention_quant(i % LAYERS, *a)
+            yield f"attn tiles K5 B={B} S={S} R={R}{mark}", call
+            yield f"attn tiles K15 int8 B={B} S={S} R={R}{mark_q}", call_q
 
 
 def _graph_us(fn) -> float:

@@ -42,7 +42,12 @@ no result line):
            launches under the profiler (kernels.k4_profile);
            K24 at the 8B FFN and at its edges (every BT boundary, nine
            requantization tiles, Hp = 320, K < Kp), twice a shape, and its
-           MB table: ms at M = 1..32 (kernels.k24_mb)
+           MB table: ms at M = 1..32 (kernels.k24_mb); the one-launch
+           split-S decode attention at its splits' edges over every cache
+           dtype with and without RoPE (kernels.attn_edges), three calls and
+           ten graph replays bit for bit with the arrival counters back at
+           zero (kernels.attn_repeats), and a K5 and a K2 call under the
+           profiler (kernels.k5_profile, kernels.k2_profile)
   k24      (not in the default run, which holds it in kernels) K24's checks
            and times alone: a short call that compares two trees
   w2a8     (not in the default run, which holds it in kernels) the W2A8
@@ -208,7 +213,8 @@ def phase_kernels(torch, dev):
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
            "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
            **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
-           **{f"k{n}": [] for n in range(25, 33)}, "f32": []}
+           **{f"k{n}": [] for n in range(25, 33)}, "f32": [], "attn_edges": [],
+           "attn_repeats": []}
     check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
     check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
     check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
@@ -260,6 +266,11 @@ def phase_kernels(torch, dev):
     # the W2A8 probes and prototype
     check_k25_k27(torch, dev, g, res)
     check_f32_instances(torch, dev, g, res)
+    # the one-launch split-S kernel at its splits' edges, repeated
+    # and replayed, and under the profiler
+    check_attn_edges(torch, dev, g, res)
+    check_attn_repeats(torch, dev, g, res)
+    check_attn_profiles(res)
     check_exp_w2a8(torch, dev, g, res)
 
     # K2: rope-fused decode attention, B=1, 20/5 heads of 128
@@ -673,7 +684,7 @@ def check_k5(torch, dev, g, res):
                 err = (out.float() - plain.float()).abs().max().item()
                 ref = plain.float().abs().max().item()
                 # float tolerance: the kernel rounds its bf16 softmax weights
-                # against the maxima of 4-row groups and 64-row splits, the
+                # against the running max of its split's 64-row stages, the
                 # plain version (as the TPU kernel) against running maxima
                 # over chunks of min(1024, S) rows
                 tol = 1e-2 * ref + 2e-3
@@ -1093,6 +1104,8 @@ _PROFILE_CHILD = """
 import json, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
+from bitnet_tpu_torch.ops import decode_attention as dk
+from bitnet_tpu_torch.ops import decode_attention_v2 as da
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
@@ -1108,7 +1121,7 @@ torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
              schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
     for step in range(2):
-        before = tm.{counter}.launches
+        before = {module}.{counter}.launches
         call()
         torch.cuda.synchronize()
         prof.step()
@@ -1116,17 +1129,19 @@ print(json.dumps({{
     "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
                 and not e.name.startswith("ProfilerStep")],
     "aten_ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
-    "launches": tm.{counter}.launches - before}}))
+    "launches": {module}.{counter}.launches - before}}))
 """
 
 
-def _profile_call(setup, call, counter, kernels=2):
+def _profile_call(setup, call, counter, kernels=2, module="tm"):
     """The CUDA kernels and ATen ops of one wrapper call, profiled in a
     fresh process (``_PROFILE_CHILD``) after one call in the profiler's
     warm-up step (without it the card's tracer now and then lost the first
-    kernel of the session); ok when the wrapper counted one launch, the
-    profiler saw ``kernels`` kernels and no ATen op but ``aten::empty``."""
-    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter)
+    kernel it traced); ok when the wrapper (``{module}.{counter}``:
+    ``tm`` the ternary matmuls, ``dk`` / ``da`` the decode attention's two
+    modules) counted one launch, the profiler saw ``kernels`` kernels and
+    no ATen op but ``aten::empty``."""
+    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter, module=module)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300, cwd=REPO)
     if r.returncode != 0:
@@ -1495,7 +1510,7 @@ def _time_k24(torch, ff, tm, row, x, gu, sg, dw, sd, K, F, H, L):
 
 
 # ---------------------------------------------------------------------------
-# slice 7: K25-K27, the f32 instance of the split-S pair and K3, K28-K32
+# slice 7: K25-K27, the f32 instance of the split-S kernel and K3, K28-K32
 # ---------------------------------------------------------------------------
 def _layers(S, B, esz, per_row=2 * KV5 * D128):
     """Layers of a cache stack whose cycling exceeds the 50 MB L2."""
@@ -1510,9 +1525,10 @@ def _attn_row(torch, out, plain, tol_rel, tol_abs, **extra):
 
 
 # float tolerances of the decode-attention checks: over a bf16 cache K5's
-# (the kernel rounds its bf16 softmax weights against other maxima than the
-# chunked plain version); over an f32 cache with f32 activations nothing
-# rounds to bf16, so only the order of f32 sums differs
+# (the kernel rounds its bf16 softmax weights against the running max of its
+# split's 64-row stages, the plain version against its chunks' maxima); over
+# an f32 cache with f32 activations nothing rounds to bf16, so only the order
+# of f32 sums differs
 ATTN_TOL = {"bf16": (1e-2, 2e-3), "f32": (1e-5, 0.0)}
 
 
@@ -1634,7 +1650,7 @@ def check_k25_k27(torch, dev, g, res):
 
 
 def check_f32_instances(torch, dev, g, res):
-    """The split-S pair's f32-cache instance under K2 (B=1, S=4096, 4095
+    """The split-S kernel's f32-cache instance under K2 (B=1, S=4096, 4095
     rows), K5 (B=1 and 2, S=4096) and K8 (B=8, S=1024, full and mixed), with
     f32 activations: within 1e-5 of the plain versions' max (nothing rounds
     to bf16; only the order of f32 sums differs), K2's rows exact; K3 on
@@ -1707,6 +1723,133 @@ def check_f32_instances(torch, dev, g, res):
     for row in res["f32"]:
         if not row["ok"]:
             raise AssertionError(f"f32 instance mismatch: {row}")
+
+
+# ---------------------------------------------------------------------------
+# the one-launch split-S decode attention
+# ---------------------------------------------------------------------------
+ATTN_CACHES = ("bf16", "f32", "int8", "fp8")
+
+
+def _attn_case(torch, dev, g, rope, kv, B, S, L=2):
+    """Operands of one decode-attention call at the 2B-4T heads over a
+    ``kv`` cache (f32 activations over f32, else bf16): returns (run(l,
+    pos), plain(l, pos)), each giving (attn, new rows...) -- K2 / K7 with
+    RoPE, K5 / K15 without."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+    from bitnet_tpu_torch.ops import decode_attention_v2 as da
+
+    H, KV, D = H20, KV5, D128
+    quant = kv in dict(QUANT)
+    cdt = getattr(torch, dict(QUANT).get(kv, "float32" if kv == "f32" else "bfloat16"))
+    act = torch.float32 if kv == "f32" else torch.bfloat16
+    if quant:
+        kc, vc, ks, vs = _quant_stack(torch, g, L, B, S, cdt, dev)
+        sc = (ks, vs)
+    else:
+        kc, vc = (torch.randn((L, B, S, KV * D), generator=g, device=dev).to(cdt)
+                  for _ in range(2))
+        sc = ()
+    if rope:
+        qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev).to(act)
+        ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+        sin, cos = torch.sin(ang), torch.cos(ang)
+        fn, plain = ((da.decode_attention_qkv_quant, da.decode_attention_qkv_quant_plain)
+                     if quant else (da.decode_attention_qkv, da.decode_attention_qkv_plain))
+        return (lambda l, pos: fn(l, qkv, sin, cos, kc, vc, *sc, pos, H, KV),
+                lambda l, pos: plain(qkv, sin, cos, kc[l], vc[l], *(t[l] for t in sc), pos,
+                                     H, KV))
+    q, kn, vn = (torch.randn(s_, generator=g, device=dev)
+                 for s_ in ((B, H, D), (B, KV, D), (B, KV, D)))
+    if quant:       # the new rows arrive round-tripped
+        kn, vn = (_round_trip(torch, x, cdt) for x in (kn, vn))
+    q, kn, vn = q.to(act), kn.to(act), vn.to(act)
+    fn, plain = ((dk.decode_attention_quant, dk.decode_attention_quant_plain) if quant
+                 else (dk.decode_attention, dk.decode_attention_plain))
+    return (lambda l, pos: (fn(l, q, kn, vn, kc, vc, *sc, pos),),
+            lambda l, pos: (plain(q, kn, vn, kc[l], vc[l], *(t[l] for t in sc), pos),))
+
+
+def check_attn_edges(torch, dev, g, res):
+    """The split-S kernel against its plain version with pos at the edges
+    of the plan's splits, over every cache dtype, with RoPE (K2, K7) and
+    without (K5, K15): B=1, S=4096 (R=256 on 132 SMs, 128 over a 1-byte
+    cache) at pos 0, 1, R-1, R, R+1, S-1, S one call each; a pool of 7
+    slots, S=1000 (not a multiple of its R=512, or 256), one slot at each
+    edge.  Tolerances: ATTN_TOL; the new rows (codes and scales) bit for
+    bit."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kv, rope in itertools.product(ATTN_CACHES, (False, True)):
+        tol = ATTN_TOL["f32" if kv == "f32" else "bf16"]
+        for B, S in ((1, 4096), (7, 1000)):
+            R = dk.attn_plan(B, KV5, S, sms, 1 if kv in dict(QUANT) else 4 if kv == "f32" else 2)
+            edges = [0, 1, R - 1, R, R + 1, S - 1, S]
+            run, plain = _attn_case(torch, dev, g, rope, kv, B, S)
+            cases = [[p] for p in edges] if B == 1 else [edges]
+            for ps in cases:
+                pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+                out, pl = run(1, pos), plain(1, pos)
+                row = _attn_row(torch, out[0], pl[0], *tol, kv=kv, rope=rope, B=B, S=S,
+                                R=R, pos=ps)
+                row["rows_exact"] = all(_same(torch, a, b) for a, b in zip(out[1:], pl[1:]))
+                row["ok"] = row["ok"] and row["rows_exact"]
+                res["attn_edges"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"split-S kernel at a split edge: {row}")
+            del run, plain
+
+
+def check_attn_repeats(torch, dev, g, res):
+    """Three calls in a row, and ten calls replayed in one CUDA graph, give
+    the same bits (K5 / K2 / K7 int8 at B=1, S=4096: 32 splits a kv head
+    folded by the last to arrive; K8 at B=8, S=1024), and every arrival
+    counter is zero after them."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+
+    for name, rope, kv, B, S in (("K5", False, "bf16", 1, 4096), ("K2", True, "bf16", 1, 4096),
+                                 ("K7", True, "int8", 1, 4096), ("K8", False, "bf16", 8, 1024)):
+        run, _ = _attn_case(torch, dev, g, rope, kv, B, S)
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        first = run(1, pos)
+        same = [all(_same(torch, a, b) for a, b in zip(first, run(1, pos))) for _ in range(2)]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [run(1, pos) for _ in range(10)]
+        graph.replay()
+        torch.cuda.synchronize()
+        replays = [all(_same(torch, a, b) for a, b in zip(first, o)) for o in outs]
+        zero = int(dk.attn_counters(dev).abs().sum()) == 0
+        row = {"kernel": name, "kv": kv, "B": B, "S": S, "repeats_exact": all(same),
+               "graph_replays_exact": all(replays), "counters_zero": zero,
+               "max_abs_err": 0.0, "tol": 0.0}
+        row["ok"] = all(same) and all(replays) and zero
+        res["attn_repeats"].append(row)
+        if not row["ok"]:
+            raise AssertionError(f"split-S kernel not repeatable: {row}")
+        del graph, outs, run
+
+
+def check_attn_profiles(res):
+    """One K5 and one K2 call at B=1, S=4096 under the profiler: one launch
+    of the split-S kernel and no ATen op but ``aten::empty``."""
+    setup = ("kc = torch.randn((2, 1, 4096, 640), generator=g, device=dev).bfloat16()\n"
+             "vc = torch.randn_like(kc)\n"
+             "pos = torch.tensor([4095], dtype=torch.int32, device=dev)\n"
+             "q = torch.randn((1, 20, 128), generator=g, device=dev).bfloat16()\n"
+             "kn = torch.randn((1, 5, 128), generator=g, device=dev).bfloat16()\n"
+             "qkv = torch.randn((1, 30, 128), generator=g, device=dev).bfloat16()\n"
+             "ang = torch.rand((1, 64), generator=g, device=dev)\n"
+             "sin, cos = ang.sin(), ang.cos()")
+    res["k5_profile"] = _profile_call(setup, "dk.decode_attention(1, q, kn, kn, kc, vc, pos)",
+                                      "decode_attention", 1, "dk")
+    res["k2_profile"] = _profile_call(
+        setup, "da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, 20, 5)",
+        "decode_attention_qkv", 1, "da")
+    for key in ("k5_profile", "k2_profile"):
+        if not (res[key]["ok"] and "attn_decode" in res[key]["kernels"][0]):
+            raise AssertionError(f"{key}: not one split-S launch: {res[key]}")
 
 
 def check_exp_w2a8(torch, dev, g, res):
@@ -1835,7 +1978,7 @@ def check_exp_w2a8(torch, dev, g, res):
 
 
 # Slice 5: the wrappers of every other decode-attention plan, all on the
-# split-S pair: (key, kernel id, rope-fused?, cache dtypes, batch sizes).
+# split-S kernel: (key, kernel id, rope-fused?, cache dtypes, batch sizes).
 # The per-b kernels run at B in {1, 2}, the pool kernels at B in {3, 8}.
 PLAN_KERNELS = (
     ("k13", "decode_attention_qkv_v1", True, ("bf16",), (1, 2)),

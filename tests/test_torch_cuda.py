@@ -152,6 +152,8 @@ _PROFILE_CHILD = """
 import json, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
+from bitnet_tpu_torch.ops import decode_attention as dk
+from bitnet_tpu_torch.ops import decode_attention_v2 as da
 from bitnet_tpu_torch.ops import ffn_fused as ff
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 from bitnet_tpu_torch.ops import w2a8_probes as wp
@@ -302,8 +304,9 @@ def test_engine_two_slots_cuda_matches_cpu(dev):
 
 @pytest.mark.parametrize("pos", [[0], [1], [200], [255, 17]])
 def test_k5_matches_plain(dev, pos):
-    """K5 rounds its bf16 softmax weights against 4-row-group and split
-    maxima, the plain version (as the TPU kernel) against chunk maxima."""
+    """K5 rounds its bf16 softmax weights against the running max of its
+    split's 64-row stages, the plain version (as the TPU kernel) against
+    chunk maxima."""
     g = torch.Generator(device=dev).manual_seed(7 + sum(pos))
     B, H, KV, D, S = len(pos), 20, 5, 128, 256
     q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
@@ -1303,4 +1306,190 @@ def test_k32_runs_two_kernels_and_no_pytorch_op(dev):
     assert len(kernels) == 2, kernels
     assert sorted("quantize_rows" in k for k in kernels) == [False, True], kernels
     assert all("quantize_rows" in k or "w2a8_gemm" in k for k in kernels), kernels
+    assert ops <= {"aten::empty"}, ops
+
+
+# --------------------------------------------------------------------------
+# the one-launch split-S decode attention: split edges, head groups, pools,
+# repeats and graph replays
+# --------------------------------------------------------------------------
+ATTN_CACHES = [torch.bfloat16, torch.float32] + QDT
+
+
+def _attn_call(dev, g, rope, cache, B, S, KV, G, D, pos, L=2, l=1):
+    """One call of K2 / K7 (rope) or K5 / K15 (no rope) at these shapes and
+    its plain version: (output, plain output, new rows, plain new rows)."""
+    H = KV * G
+    act = torch.float32 if cache == torch.float32 else torch.bfloat16
+    quant = cache in QDT
+    kc, vc = ((_codes(g, (L, B, S, KV * D), cache, dev) if quant else
+               torch.randn((L, B, S, KV * D), generator=g, device=dev).to(cache))
+              for _ in range(2))
+    sc = tuple(torch.rand((L, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+               for _ in range(2)) if quant else ()
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if rope:
+        qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev).to(act)
+        ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.283
+        fn, plain = ((da.decode_attention_qkv_quant, da.decode_attention_qkv_quant_plain)
+                     if quant else (da.decode_attention_qkv, da.decode_attention_qkv_plain))
+        out = fn(l, qkv, ang.sin(), ang.cos(), kc, vc, *sc, p, H, KV)
+        pl = plain(qkv, ang.sin(), ang.cos(), kc[l], vc[l], *(t[l] for t in sc), p, H, KV)
+        return out[0], pl[0], out[1:], pl[1:]
+    q, kn, vn = (torch.randn(s_, generator=g, device=dev)
+                 for s_ in ((B, H, D), (B, KV, D), (B, KV, D)))
+    if quant:
+        kn, vn = (dk.dequantize_kv(*dk.quantize_kv(x, cache)) for x in (kn, vn))
+    q, kn, vn = q.to(act), kn.to(act), vn.to(act)
+    fn, plain = ((dk.decode_attention_quant, dk.decode_attention_quant_plain) if quant
+                 else (dk.decode_attention, dk.decode_attention_plain))
+    out = fn(l, q, kn, vn, kc, vc, *sc, p)
+    pl = plain(q, kn, vn, kc[l], vc[l], *(t[l] for t in sc), p)
+    return out, pl, (), ()
+
+
+def _attn_close(out, pl, cache):
+    rel, eps = ATTN_TOL[torch.float32 if cache == torch.float32 else torch.bfloat16]
+    ref = pl.float().abs().max()
+    assert (out.float() - pl.float()).abs().max() <= rel * ref + eps
+
+
+@pytest.mark.parametrize("cache", ATTN_CACHES, ids=str)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rope", [False, True])
+def test_attn_split_edges_match_plain(dev, rope, D, G, cache):
+    """Every instance (D, head group G, cache dtype, RoPE or not) against
+    its plain version with one slot at each edge of the plan's splits
+    (R = 128 on 132 SMs, 64 over a 1-byte cache), S = 1000 not a multiple
+    of R: pos 0, 1, R-1, R,
+    R+1, S-1, S.  The rope-fused kernels' new rows (codes and scales) bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(D + G + len(str(cache)) + rope)
+    B, S, KV = 7, 1000, 2
+    R = dk.attn_plan(B, KV, S, torch.cuda.get_device_properties(dev).multi_processor_count,
+                     cache.itemsize)
+    assert S % R and S // R >= 2
+    out, pl, rows, prow = _attn_call(dev, g, rope, cache, B, S, KV, G, D,
+                                     [0, 1, R - 1, R, R + 1, S - 1, S])
+    _attn_close(out, pl, cache)
+    assert all(_same(a, b) for a, b in zip(rows, prow))
+
+
+@pytest.mark.parametrize("cache", ATTN_CACHES, ids=str)
+@pytest.mark.parametrize("R", [64, 128, 512, 1024])
+def test_attn_every_split_size_matches_plain(dev, monkeypatch, cache, R):
+    """The kernel at split sizes forced past attn_plan, with slots at the
+    forced split's edges (one split a slot at R = 1024)."""
+    monkeypatch.setattr(dk, "attn_plan", lambda *a: R)
+    g = torch.Generator(device=dev).manual_seed(R)
+    S = 1024
+    pos = [0, 1, R - 1, R, min(R + 1, S), S - 1, S]
+    for rope in (False, True):
+        out, pl, rows, prow = _attn_call(dev, g, rope, cache, 7, S, 5, 4, 128, pos)
+        _attn_close(out, pl, cache)
+        assert all(_same(a, b) for a, b in zip(rows, prow))
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_attn_pool_of_64_with_idle_slots(dev, cache):
+    """K8 / K9 over a pool of 64 with idle slots (pos 0): the idle slots'
+    output is exactly the new token's v."""
+    g = torch.Generator(device=dev).manual_seed(64)
+    B, S, H, KV, D = 64, 512, 20, 5, 128
+    quant = cache in QDT
+    kc, vc = ((_codes(g, (2, B, S, KV * D), cache, dev) if quant else
+               torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16())
+              for _ in range(2))
+    sc = tuple(torch.rand((2, B, S, KV), generator=g, device=dev) * 0.01 + 0.005
+               for _ in range(2)) if quant else ()
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    kn, vn = (torch.randn((B, KV, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    p = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    idle = [0, 5, 31, 63]
+    p[idle] = 0
+    fn, plain = ((da.decode_attention_quant_batched, da.decode_attention_quant_batched_plain)
+                 if quant else (da.decode_attention_batched, da.decode_attention_batched_plain))
+    a = fn(1, q, kn, vn, kc, vc, *sc, p)
+    pa = plain(q, kn, vn, kc[1], vc[1], *(t[1] for t in sc), p)
+    _attn_close(a, pa, cache)
+    for b in idle:
+        assert torch.equal(a[b].view(KV, H // KV, D), vn[b][:, None].expand(KV, H // KV, D))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k26_rows_at_split_edges(dev, dtype):
+    """K26 with pos at the splits' edges (R = 64) and write_pos = pos: the
+    new rows land at pos (dropped at S), every other byte unchanged, and
+    attention read the pre-write cache."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    L, B, S, H, KV, D = 2, 7, 1000, 8, 2, 128
+    kc, vc = (torch.randn((L, B, S, KV, D), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(s_, generator=g, device=dev).to(dtype)
+                 for s_ in ((B, H, D), (B, KV, D), (B, KV, D)))
+    pos = torch.tensor([0, 1, 63, 64, 65, S - 1, S], dtype=torch.int32, device=dev)
+    k2, v2, k3, v3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    a, kr, vr = dk.decode_attention_stacked_inplace(1, q, kn, vn, k2, v2, pos)
+    pa = dk.decode_attention_stacked_inplace_plain(
+        q, kn, vn, k3.view(L, B, S, -1)[1], v3.view(L, B, S, -1)[1], pos, pos)
+    assert kr is k2 and vr is v2
+    assert torch.equal(k2, k3) and torch.equal(v2, v3)
+    _attn_close(a, pa, dtype)
+
+
+def test_attn_repeats_and_graph_replays_bit_for_bit(dev):
+    """Three calls in a row, and ten calls replayed in one CUDA graph, give
+    the same bits (K2, K5 at B=1, S=4096: 32 splits a kv head; K8 at B=8,
+    S=1024): the arrival counters are zero again after every call."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    H, KV, D = 20, 5, 128
+    calls = []
+    for B, S in ((1, 4096), (8, 1024)):
+        kc, vc = (torch.randn((2, B, S, KV * D), generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        q, kn, vn = (torch.randn(s_, generator=g, device=dev).bfloat16()
+                     for s_ in ((B, H, D), (B, KV, D), (B, KV, D)))
+        qkv = torch.randn((B, H + 2 * KV, D), generator=g, device=dev).bfloat16()
+        ang = torch.rand((B, D // 2), generator=g, device=dev)
+        sin, cos = ang.sin(), ang.cos()
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        if B == 1:
+            calls.append(lambda kc=kc, vc=vc, q=q, kn=kn, vn=vn, pos=pos:
+                         dk.decode_attention(1, q, kn, vn, kc, vc, pos))
+            calls.append(lambda kc=kc, vc=vc, qkv=qkv, sin=sin, cos=cos, pos=pos:
+                         da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, H, KV)[0])
+        else:
+            calls.append(lambda kc=kc, vc=vc, q=q, kn=kn, vn=vn, pos=pos:
+                         da.decode_attention_batched(1, q, kn, vn, kc, vc, pos))
+    for call in calls:
+        first = call()
+        assert all(torch.equal(first, call()) for _ in range(2))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [call() for _ in range(10)]
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(first, o) for o in outs)
+    assert int(dk.attn_counters(dev).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K2"])
+def test_attn_runs_one_kernel_and_no_pytorch_op(dev, kernel):
+    """A K5 and a K2 call at B=1, S=4096 are one launch of the split-S
+    kernel and no ATen op but the allocations."""
+    setup = ("kc = torch.randn((2, 1, 4096, 640), generator=g, device=dev).bfloat16()\n"
+             "vc = torch.randn_like(kc)\n"
+             "pos = torch.tensor([4095], dtype=torch.int32, device=dev)\n"
+             "q = torch.randn((1, 20, 128), generator=g, device=dev).bfloat16()\n"
+             "kn = torch.randn((1, 5, 128), generator=g, device=dev).bfloat16()\n"
+             "qkv = torch.randn((1, 30, 128), generator=g, device=dev).bfloat16()\n"
+             "a = torch.rand((1, 64), generator=g, device=dev)\n"
+             "sin, cos = a.sin(), a.cos()")
+    call, counter, module = {
+        "K5": ("dk.decode_attention(1, q, kn, kn, kc, vc, pos)", "decode_attention", "dk"),
+        "K2": ("da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, 20, 5)",
+               "decode_attention_qkv", "da")}[kernel]
+    kernels, ops = _profiled_call(setup, call, counter, module)
+    assert len(kernels) == 1 and "attn_decode" in kernels[0], kernels
     assert ops <= {"aten::empty"}, ops
