@@ -64,8 +64,9 @@ __device__ __forceinline__ V block_reduce(V v, V* red, bool is_max) {
 }
 
 // ---------------------------------------------------------------------------
-// The W2A8 row preamble of the one-launch decode kernels (K1 at M <= 2, K11),
-// run by every block: silu(gate) * up, RMSNorm, absmax int8 quantization.
+// The W2A8 row preamble of K11's one-launch decode kernel (K1's w2a8_decode
+// in ternary_matmul.cu keeps its arithmetic and order), run by every block:
+// silu(gate) * up, RMSNorm, absmax int8 quantization.
 // 512 threads; x is [M, K] (or [M, 2K] when glu), K <= FUSED_MAX_K.
 // Leaves the int8 rows in xs, their scales in sx_s and sums in sumq_s and,
 // when sumqb is not null, the sums of each 32-row block in sumqb[m][b]

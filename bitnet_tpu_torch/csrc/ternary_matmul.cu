@@ -1,7 +1,8 @@
 // Ternary matmuls for Hopper (sm_90a): int8 or bf16 activations x 2-bit codes.
 //
 // Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
-//   K1 bn_w2a8_normed  <- ternary_matmul_stacked (:316, pallas_call :375),
+//   K1 bn_w2a8_normed_decode, bn_w2a8_normed_gemm
+//                      <- ternary_matmul_stacked (:316, pallas_call :375),
 //                         body _qk256_w2a8_normed_kernel (:201): decode, M <= 64;
 //                         also the unstacked w2a8_normed site of
 //                         _ternary_matmul_2d (pallas_call :1073)
@@ -25,19 +26,16 @@
 // is removed after the integer dot: y = (acc - 2*sumq) * sx * scale[n].
 //
 // What bounds them on the card, and what the design does about it:
-//  - K1 (M = B <= 64) is bound by the weight bytes (Kp*Np/4 per call): a
-//    GEMV where every word is read once by one thread, 32 columns per block
-//    on coalesced 128-byte rows, 8 word rows in flight per thread, and the
-//    int8 activations broadcast from shared memory.  The preamble (SwiGLU,
-//    RMSNorm, absmax int8 quantization, row sums) needs the whole row before
-//    the dot, and Hopper blocks cannot carry scratch across the grid as the
-//    TPU grid did.  For M <= 2 (decode at B <= 2, the main path) every
-//    block recomputes it from the x row in L2 while its first weight words
-//    are in flight: one launch, and a call at M=1 is bound by launch latency
-//    rather than by two dependent kernels.  Larger M runs a per-row quantize
-//    kernel first and the GEMV reads its int8 rows (M*Kp bytes) from L2;
-//    nothing in the engine sends M > 2 until decode pools of B > 2 are
-//    ported (ROADMAP queue 1 #9), which will choose between the two designs.
+//  - K1 (M = B <= 64) is bound by the weight bytes (Kp*Np/4 per call).  At
+//    M <= 2 (decode at B <= 2, the main path) it is one launch,
+//    w2a8_decode: each word read once, by TMA, into a ring per block; the
+//    row preamble (SwiGLU, RMSNorm, absmax int8 quantization, row sums),
+//    which needs the whole row before the dot, recomputed by every block
+//    while its words are in flight; dp4a from shared memory.  The launch is
+//    a programmatic dependent: its words stream in before the launch before
+//    it has ended.  At M = 3..64 (pools) it is the row kernel, then K4's GEMM
+//    below with the residual in its epilogue: every row in one block, each
+//    word read once a call.
 //  - K4 (prefill, M = B*T rows, 8 to 16384 and more) is bound by int8
 //    operations at M >= 128 and by the weight bytes below.  The product runs
 //    on wgmma (the only way to the card's int8 rate), transposed so that the
@@ -66,6 +64,8 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 
+#include <algorithm>
+
 #include "ternary_common.cuh"
 
 namespace {
@@ -74,7 +74,11 @@ namespace cg = cooperative_groups;
 using namespace bn;
 
 // ---------------------------------------------------------------------------
-// K1 preamble: one block per row m.  x is [M, K] (or [M, 2K] when glu).
+// The row kernel: one block per row m, x is [M, K] (or [M, 2K] when glu).
+// K1's rows in its GEMM form (with glu / gamma), K4's and K32's (without):
+// the W2A8 rows of the GEMM below.  It lets the GEMM, its programmatic
+// dependent, start once its rows are written: the GEMM's first words stream
+// in while the row sums are reduced and the launch ends.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
@@ -114,6 +118,7 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
     xq[(size_t)m * K + k] = (int8_t)q;
     sq += (int)q;
   }
+  launch_dependents();                   // the GEMM may start: only the sums are left
   sq = block_reduce(sq, redi, false);
   if (threadIdx.x == 0) {
     sx_out[m] = sx;
@@ -122,152 +127,346 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
 }
 
 // ---------------------------------------------------------------------------
-// K1 GEMV: 256 threads = 8 warps; block = 32 columns x MB rows of M.
-// Stage = 1024 K values = 64 word rows, 8 per warp.
+// K1's decode form, M <= DEC_MAX_M (decode at B <= 2, every qk256 decode
+// step): ONE launch, w2a8_decode<MB, T, COLS, EPT>, any K up to DEC_MAX_K.
+//
+// A block owns COLS output columns (32, 64 or 128; w2a8_decode_plan in
+// ops/ternary_matmul.py picks them) and every K tile of them.  K is not
+// split: a split over a thread block cluster, its int32 partials added
+// through distributed shared memory, was slower on every main-path shape,
+// since each rank runs the whole row preamble and the cluster's barriers
+// cost more than the words a rank gives up (PERF.md §6, K1's plan sweep).
+// Sixteen consumer warps and one producer warp.  The producer copies gamma
+// into shared memory (one bulk copy) and streams the block's words into a
+// ring of up to DEC_STAGES stages of DEC_STAGE bytes (a stage one TMA box
+// of COLS ints x its K tiles' word rows) under full / empty mbarriers, all
+// started before anything else and before griddepcontrol.wait: they are the
+// layer's, and nothing before K1 writes them.  The launch is a programmatic
+// dependent of the one before it, and every thread calls launch_dependents
+// at once, so the next launch (the next K1, usually) sets up and streams
+// its own words while this one ends; the consumers read x and resid, and
+// the block writes anything at all, only after griddepcontrol.wait, because
+// the caching allocator may hand K1 a buffer the launch before it still
+// reads.  Rows of up to DEC_SHORT_K values hold DEC_EPT_SHORT values a
+// consumer thread in registers (two blocks an SM); longer rows (the down
+// projections) DEC_EPT_LONG (one block an SM).
+//
+// The row preamble (silu(gate) * up, RMSNorm, absmax int8 quantization, the
+// row sums) needs the whole row before the dot, and Hopper blocks share no
+// scratch across the grid: every block computes it from the x row in L2
+// (5-57 KB) while its words are in flight, k = threadIdx.x + 512 i over the
+// 512 consumer threads, the sums reduced in the order of K11's
+// fused_quantize_rows and tl_quantize_rows (ternary_common.cuh,
+// ternary_matmul_tl.cu), so that the int8 rows, scales and sums equal K11's
+// bit for bit.  It is a chain of dependent steps (the x loads, the squares'
+// reduction, the maxima's, the quantization), so it is latency, not
+// operations, that it costs: splitting it over a cluster's ranks, which
+// then exchange the squared values and the maxima through distributed
+// shared memory, was measured slower (each cluster barrier about 0.7 µs,
+// each dependent remote load about 0.2; PERF.md §6, K1's findings).  The int8 rows are
+// kept with the four planes' 4-byte groups of a word row side by side, so
+// one 16-byte shared load gives a word's four dp4a operands.  Column block
+// 0 writes the rows, scales and sums out.
+//
+// The product: dp4a on the CUDA cores, from shared memory.  Each consumer
+// warp takes four word rows of each stage, a lane a column (a warp's word
+// reads are 32 consecutive ints: no bank conflict; its int8 reads one
+// broadcast 16-byte load a word row), decodes a word's four planes in 13
+// integer operations (biased_planes) and runs MB dp4a a plane.  At M <= 2
+// an mma.sync m16n8k32 would leave 6/8 of its N idle and needs the same
+// decode, and the dot is not what paces a call (PERF.md §6, K1's timeline).
+//
+// The warps' int32 partials meet in shared memory (atomics, exact), so the
+// plan never changes a bit; a consumer thread then applies -2 sumq and the
+// f32 epilogue to one output.
 // ---------------------------------------------------------------------------
-constexpr int GEMV_STAGE_K = 1024;
+constexpr int DEC_MAX_M = 2;
+constexpr int DEC_MAX_K = 14336;              // the 8B down projection
+constexpr int DEC_CONSUMERS = 512;            // 16 warps: the preamble's order
+constexpr int DEC_WARPS = DEC_CONSUMERS / 32;
+constexpr int DEC_THREADS = DEC_CONSUMERS + 32;   // + the producer warp
+constexpr int DEC_SHORT_K = 4096;             // rows held 8 values a thread
+constexpr int DEC_EPT_SHORT = DEC_SHORT_K / DEC_CONSUMERS;
+constexpr int DEC_EPT_LONG = DEC_MAX_K / DEC_CONSUMERS;
+constexpr int DEC_STAGE = 8192;               // bytes of words a stage
+constexpr int DEC_STAGES = 8;                 // the ring's depth, at most
+// dynamic shared memory: the ring, the int8 rows, gamma, the barriers
+constexpr int DEC_MAX_SMEM = DEC_STAGES * DEC_STAGE + DEC_MAX_M * DEC_MAX_K + 4 * DEC_MAX_K
+                             + (2 * DEC_STAGES + 1) * 8 + 1024;
+// what two blocks an SM leave a block (228 KB an SM, 1 KB of it reserved a
+// block, the static arrays): the ring is cut to fit where it can
+constexpr int DEC_TWO_SMEM = 108 * 1024;
 
-template <int MB, typename T>
-__global__ void __launch_bounds__(256)
-w2a8_gemv(const int8_t* __restrict__ xq, int M, int Kp,
-          const int* __restrict__ words, int Np,
-          const int* __restrict__ sumq, const float* __restrict__ sx,
-          const float* __restrict__ scale, const T* __restrict__ resid,
-          T* __restrict__ out, int N) {
-  __shared__ int xs[MB][GEMV_STAGE_K / 4];
-  __shared__ int red[MB][32];
+template <typename T>
+struct DecArgs {
+  const T* x;
+  int x_stride, M, Kp, glu;
+  const float* gamma;
+  float eps;
+  int Np;
+  const float* scale;
+  const T* resid;
+  T* out;
+  int N;
+  int8_t* xq;
+  float* sx;
+  int* sumq;
+  int nst;                                    // the ring's stages
+};
+
+// one contiguous copy into shared memory (bytes a multiple of 16, both ends
+// 16-byte aligned), completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// the consumer warps' barrier (named barrier 1): the producer warp runs on
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(DEC_CONSUMERS) : "memory");
+}
+
+// block_reduce's arithmetic and order over the 16 consumer warps, for the
+// MB rows at once (each row's value reduced as block_reduce reduces one)
+template <int MB>
+__device__ __forceinline__ void dec_reduce(float (&v)[MB], float (*red)[32], bool is_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + lane;
-  const int m0 = blockIdx.y * MB;
-  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) red[i / 32][i % 32] = 0;
-  int acc[MB];
 #pragma unroll
-  for (int mm = 0; mm < MB; ++mm) acc[mm] = 0;
-
-  for (int k0 = 0; k0 < Kp; k0 += GEMV_STAGE_K) {
-    const int kc = min(GEMV_STAGE_K, Kp - k0);        // multiple of 256
-    const int rows = kc / 16;
-    int wv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp + 8 * i;
-      wv[i] = r < rows ? __ldg(words + (size_t)(k0 / 16 + r) * Np + n) : 0;
+  for (int mm = 0; mm < MB; ++mm)
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[mm], o);
+      v[mm] = is_max ? (u > v[mm] ? u : v[mm]) : v[mm] + u;
     }
-    __syncthreads();
-    const int kc4 = kc / 4;
-    for (int i = threadIdx.x; i < MB * kc4; i += blockDim.x) {
-      const int mm = i / kc4, kk = i % kc4, m = m0 + mm;
-      xs[mm][kk] = m < M
-          ? reinterpret_cast<const int*>(xq + (size_t)m * Kp + k0)[kk] : 0;
-    }
-    __syncthreads();
+  consumers_sync();                      // red may still be read by a prior call
+  if (lane == 0)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp + 8 * i;
-      if (r < rows) {
-        const int base = (r / 16) * (KT / 4) + (r % 16);   // int index in stage
+    for (int mm = 0; mm < MB; ++mm) red[mm][warp] = v[mm];
+  consumers_sync();
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int c = biased_plane(wv[i], p);
-#pragma unroll
-          for (int mm = 0; mm < MB; ++mm)
-            acc[mm] = __dp4a(c, xs[mm][base + p * 16], acc[mm]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int mm = 0; mm < MB; ++mm) atomicAdd(&red[mm][lane], acc[mm]);
-  __syncthreads();
-  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) {
-    const int mm = i / 32, m = m0 + mm, nc = blockIdx.x * 32 + (i % 32);
-    if (m < M && nc < N) {
-      float y = (float)(red[mm][i % 32] - 2 * sumq[m]);
-      y = __fmul_rn(__fmul_rn(y, sx[m]), scale[nc]);
-      if (resid != nullptr) y = __fadd_rn(y, load_f32(resid, (size_t)m * N + nc));
-      store_f32(out, (size_t)m * N + nc, y);
+  for (int mm = 0; mm < MB; ++mm) {
+    v[mm] = lane < DEC_WARPS ? red[mm][lane] : (is_max ? red[mm][0] : 0.f);
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[mm], o);
+      v[mm] = is_max ? (u > v[mm] ? u : v[mm]) : v[mm] + u;
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// K1 for M <= FUSED_MAX_M (decode at B <= 2): ONE launch.  Every block
-// recomputes the row preamble (the x row comes from L2: 5-27 KB) while its
-// first 16 weight words per thread are already in flight, keeps the int8 rows
-// in shared memory for all of K, and streams the words with the next
-// stage's loads issued before the current stage's dp4a.  Block 0 also
-// writes xq / sx / sumq out, so a test can hold them against the plain
-// version.
-// ---------------------------------------------------------------------------
-constexpr int FUSED_PF = 16;                         // word rows in flight a thread
-constexpr int FUSED_STAGE = FUSED_WARPS * FUSED_PF;  // word rows a stage
+// rint(v / sx) clamped to +-127, v / sx rounded as IEEE division rounds it,
+// from the reciprocal rcp = RN(1 / sx): |v / sx| <= 127 (sx is the row's
+// absmax / 127), so t = RN(v * rcp) is within 127 * 2^-22 < 1e-4 of v / sx,
+// and rint(t) is rint(v / sx) unless v / sx lies within 1e-4 of a
+// half-integer, where the division itself decides (a branch the warp takes
+// only when one of its lanes needs it; the caller's warps are whole)
+__device__ __forceinline__ int dec_quantize(float v, float sx, float rcp) {
+  const float t = __fmul_rn(v, rcp);
+  const bool tie = fabsf(t - floorf(t) - 0.5f) < 1e-4f;
+  float q = rintf(t);
+  if (__any_sync(0xffffffffu, tie) && tie) q = rintf(v / sx);
+  return (int)fminf(fmaxf(q, -127.f), 127.f);
+}
 
-template <int MB, typename T>
-__global__ void __launch_bounds__(FUSED_THREADS)
-w2a8_gemv_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
-                const float* __restrict__ gamma, float eps,
-                const int* __restrict__ words, int Np,
-                const float* __restrict__ scale, const T* __restrict__ resid,
-                T* __restrict__ out, int N, int8_t* __restrict__ xq_out,
-                float* __restrict__ sx_out, int* __restrict__ sumq_out) {
-  __shared__ int xs[MB][FUSED_MAX_K / 4];
-  __shared__ int red[MB][32];
-  __shared__ float sx_s[MB];
-  __shared__ int sumq_s[MB];
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + lane;
-  const int rows = Kp / 16;                         // word rows
-  int wv[FUSED_PF];
-#pragma unroll
-  for (int i = 0; i < FUSED_PF; ++i) {              // stage 0 in flight
-    const int r = warp + FUSED_WARPS * i;
-    wv[i] = r < rows ? __ldg(words + (size_t)r * Np + n) : 0;
-  }
-  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) red[i / 32][i % 32] = 0;
+// the byte of row value k in the int8 rows' layout: word row (tile, s)'s
+// four planes' 4-byte groups side by side, (tile*16 + s)*16 + 4p + j for
+// k = tile*256 + 64p + 4s + j
+__device__ __forceinline__ int dec_xbyte(int k) {
+  return (k & ~255) + ((k >> 2) & 15) * 16 + ((k >> 6) & 3) * 4 + (k & 3);
+}
 
-  fused_quantize_rows(x, x_stride, M, Kp, glu, gamma, eps, xs, sx_s, sumq_s,
-                      nullptr, redf, redi, xq_out, sx_out, sumq_out);
+template <int MB, typename T, int COLS, int EPT>
+__global__ void __launch_bounds__(DEC_THREADS, EPT == DEC_EPT_SHORT ? 2 : 1)
+w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
+  constexpr int TPS = DEC_STAGE / (COLS * 64);    // K tiles a stage
+  constexpr int CG = COLS / 32;                   // a warp's 32 columns: groups
+  constexpr int NRG = DEC_WARPS / CG;             // warps on one column group
+  static_assert(16 * TPS == 4 * NRG, "four word rows a warp a stage");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int part[MB][COLS];
+  __shared__ int sqw[MB][DEC_WARPS];
+  __shared__ float redf[MB][32], sx_s[MB];
+  __shared__ int sq_s[MB];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nst = a.nst, Kp = a.Kp;
+  const bool norm = a.gamma != nullptr;
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + nst * DEC_STAGE);    // [MB][Kp]
+  float* gs = reinterpret_cast<float*>(xs + MB * Kp);                 // [Kp]
+  uint64_t* full = reinterpret_cast<uint64_t*>(gs + (norm ? Kp : 0));
+  uint64_t* empty = full + nst;
+  uint64_t* gbar = empty + nst;
 
-  int acc[MB];
-#pragma unroll
-  for (int mm = 0; mm < MB; ++mm) acc[mm] = 0;
-  for (int r0 = 0; r0 < rows; r0 += FUSED_STAGE) {
-    int nx[FUSED_PF];
-#pragma unroll
-    for (int i = 0; i < FUSED_PF; ++i) {            // next stage in flight
-      const int r = r0 + FUSED_STAGE + warp + FUSED_WARPS * i;
-      nx[i] = r < rows ? __ldg(words + (size_t)r * Np + n) : 0;
+  const int nk = Kp / KT;
+  const int ns = (nk + TPS - 1) / TPS;            // the block's stages
+  const int n0 = blockIdx.x * COLS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // stage s into its slot: one TMA box of COLS ints x TPS K tiles' word
+  // rows (rows past the layer read as zeros)
+  auto load_stage = [&](int s) {
+    const int slot = s % nst;
+    mbar_expect_tx(&full[slot], DEC_STAGE);
+    tma_load_2d(smem + slot * DEC_STAGE, &wmap, &full[slot], n0, s * TPS * (KT / 16));
+  };
+  if (tid == DEC_CONSUMERS) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DEC_WARPS);
     }
+    mbar_init(gbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < MB * COLS; i += DEC_THREADS) part[i / COLS][i % COLS] = 0;
+  __syncthreads();                        // the barriers are set up
+  launch_dependents();
+  // the epilogue's operands: a consumer thread an output (mm, n)
+  const int emm = tid / COLS, ec = tid % COLS, en = n0 + ec;
+  const bool eout = tid < MB * COLS && emm < a.M && en < a.N;
+  const float esc = eout ? a.scale[en] : 0.f;
+  float eres = 0.f;
+
+  if (warp == DEC_WARPS) {                // the producer
+    if (lane == 0) {
+      if (norm) {
+        mbar_expect_tx(gbar, Kp * 4);
+        bulk_load(gs, a.gamma, Kp * 4, gbar);
+      }
+      for (int s = 0; s < min(nst, ns); ++s) load_stage(s);
+    }
+    __syncwarp();
+    for (int s = 0; s + nst < ns; ++s) {  // refill each slot once it is read
+      mbar_wait(&empty[s % nst], (s / nst) & 1);
+      if (lane == 0) load_stage(s + nst);
+      __syncwarp();
+    }
+  } else {
+    grid_dependency_wait();               // x, resid and out: after the launch before
+    if (eout && a.resid != nullptr) eres = load_f32(a.resid, (size_t)emm * a.N + en);
+
+    // the preamble, k = tid + 512 i (fused_quantize_rows' arithmetic); a
+    // row's loads all in flight before the first value is used
+    float v[MB][EPT];
 #pragma unroll
-    for (int i = 0; i < FUSED_PF; ++i) {
-      const int r = r0 + warp + FUSED_WARPS * i;
-      if (r < rows) {
-        const int base = (r / 16) * (KT / 4) + (r % 16);
+    for (int mm = 0; mm < MB; ++mm) {
+      const T* xr = a.x + (size_t)mm * a.x_stride;
+      float up[EPT];
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int c = biased_plane(wv[i], p);
+      for (int i = 0; i < EPT; ++i) {
+        const int k = tid + DEC_CONSUMERS * i;
+        v[mm][i] = k < Kp ? load_f32(xr, k) : 0.f;
+        up[i] = k < Kp && a.glu ? load_f32(xr, (size_t)Kp + k) : 0.f;
+      }
+      if (a.glu)                          // silu(gate) * up
 #pragma unroll
-          for (int mm = 0; mm < MB; ++mm)
-            acc[mm] = __dp4a(c, xs[mm][base + p * 16], acc[mm]);
+        for (int i = 0; i < EPT; ++i) {
+          const float t = v[mm][i];
+          const float sig = 1.f / (1.f + expf(-t));
+          v[mm][i] = __fmul_rn(__fmul_rn(t, sig), up[i]);
+        }
+    }
+    if (norm) {                           // RMSNorm: (x * rsqrt(mean + eps)) * g
+      float ss[MB];
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm) {
+        ss[mm] = 0.f;
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) ss[mm] += v[mm][i] * v[mm][i];
+      }
+      dec_reduce<MB>(ss, redf, false);
+      mbar_wait(gbar, 0);
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm) {
+        const float var = ss[mm] / (float)Kp;
+        const float r = 1.f / sqrtf(var + a.eps);
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) {
+          const int k = tid + DEC_CONSUMERS * i;
+          if (k < Kp) v[mm][i] = __fmul_rn(__fmul_rn(v[mm][i], r), gs[k]);
         }
       }
     }
+    float am[MB];
 #pragma unroll
-    for (int i = 0; i < FUSED_PF; ++i) wv[i] = nx[i];
-  }
+    for (int mm = 0; mm < MB; ++mm) {
+      am[mm] = 0.f;
 #pragma unroll
-  for (int mm = 0; mm < MB; ++mm) atomicAdd(&red[mm][lane], acc[mm]);
-  __syncthreads();
-  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) {
-    const int mm = i / 32, nc = blockIdx.x * 32 + (i % 32);
-    if (mm < M && nc < N) {
-      float y = (float)(red[mm][i % 32] - 2 * sumq_s[mm]);
-      y = __fmul_rn(__fmul_rn(y, sx_s[mm]), scale[nc]);
-      if (resid != nullptr) y = __fadd_rn(y, load_f32(resid, (size_t)mm * N + nc));
-      store_f32(out, (size_t)mm * N + nc, y);
+      for (int i = 0; i < EPT; ++i) am[mm] = fmaxf(am[mm], fabsf(v[mm][i]));
     }
+    dec_reduce<MB>(am, redf, true);
+    const bool writer = blockIdx.x == 0;  // writes the rows out
+    // value tid + 512 i's byte in xs: 512 i + that of value tid (the low 8
+    // bits of k, its place in the tile, are tid's)
+    const int xoff = dec_xbyte(tid);
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) {
+      const float sx = fmaxf(am[mm], 1e-8f) / 127.f, rcp = 1.f / sx;
+      int sq = 0;
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) {
+        const int k = tid + DEC_CONSUMERS * i;
+        if (k < Kp) {
+          const int qi = dec_quantize(v[mm][i], sx, rcp);
+          xs[mm * Kp + DEC_CONSUMERS * i + xoff] = (int8_t)qi;
+          sq += qi;
+          if (writer) a.xq[(size_t)mm * Kp + k] = (int8_t)qi;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      if (lane == 0) sqw[mm][warp] = sq;
+      if (tid == 0) {
+        sx_s[mm] = sx;
+        if (writer) a.sx[mm] = sx;
+      }
+    }
+    consumers_sync();                     // the int8 rows are in place
+    if (tid < MB) {
+      int sq = 0;
+      for (int w = 0; w < DEC_WARPS; ++w) sq += sqw[tid][w];
+      sq_s[tid] = sq;
+      if (writer) a.sumq[tid] = sq;
+    }
+
+    // the dot: each word once, from the ring
+    int acc[MB];
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) acc[mm] = 0;
+    const int rg = warp / CG, col = (warp % CG) * 32 + lane;
+    const int4* xi = reinterpret_cast<const int4*>(xs);
+    const int xrow = Kp / 16;                     // word rows a row of xs
+    for (int s = 0; s < ns; ++s) {
+      const int slot = s % nst;
+      const int* wt = reinterpret_cast<const int*>(smem + slot * DEC_STAGE);
+      const int row0 = s * TPS * (KT / 16);
+      const int rows = min(TPS, nk - s * TPS) * (KT / 16);
+      mbar_wait(&full[slot], (s / nst) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + NRG * i;
+        if (r < rows) {
+          uint32_t pl[4];
+          biased_planes((uint32_t)wt[r * COLS + col], pl);
+#pragma unroll
+          for (int mm = 0; mm < MB; ++mm) {
+            const int4 q = xi[mm * xrow + row0 + r];
+            acc[mm] = __dp4a((int)pl[0], q.x, acc[mm]);
+            acc[mm] = __dp4a((int)pl[1], q.y, acc[mm]);
+            acc[mm] = __dp4a((int)pl[2], q.z, acc[mm]);
+            acc[mm] = __dp4a((int)pl[3], q.w, acc[mm]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) atomicAdd(&part[mm][col], acc[mm]);
+  }
+  __syncthreads();                        // every warp's partials are in place
+  if (eout) {
+    float y = (float)(part[emm][ec] - 2 * sq_s[emm]);
+    y = __fmul_rn(__fmul_rn(y, sx_s[emm]), esc);
+    if (a.resid != nullptr) y = __fadd_rn(y, eres);
+    store_f32(a.out, (size_t)emm * a.N + en, y);
   }
 }
 
@@ -299,8 +498,14 @@ w2a8_gemv_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
 // from every rank and applies the epilogue.  Integer sums are exact in any
 // order, so the split never changes a bit.
 //
-// The epilogue has two modes.  K4's, with one scale a column:
-// ((acc - 2 sumq) * sx) * scale[n] in x's dtype.  K32's (scale == nullptr),
+// The words do not depend on the row kernel before the GEMM: the first
+// G4_PREFETCH stages' words are in flight before griddepcontrol.wait (the
+// row kernel lets the GEMM start at once), the rows after it.
+//
+// The epilogue has three modes.  K4's, with one scale a column:
+// ((acc - 2 sumq) * sx) * scale[n] in x's dtype; K1's GEMM form adds
+// the residual, + resid[m, n], rounded as the plain version rounds (f32,
+// then x's dtype).  K32's (scale == nullptr),
 // with one scale for the tensor: (acc - 2 sumq) * (sx * tscale), the product
 // sx * tscale rounded once in f32 before it multiplies, as the W2A8
 // prototype rounds it, written as bf16 whatever x's dtype.  Nothing else
@@ -313,6 +518,10 @@ constexpr int G4_WTILE = (KT / 16) * G4_WLD * 4;   // bytes of a stage's words
 constexpr int G4_PLD = G4_COLS + 4;           // ints a row of the partial tile
 constexpr int G4_THREADS = 384;
 constexpr int G4_MAX_SPLIT = 8;               // the portable cluster size
+// stages whose words are in flight before the dependency wait (K24's
+// FG_PREFETCH: more slow the row kernel, on the same memory, by more than
+// they save)
+constexpr int G4_PREFETCH = 2;
 
 template <int BT>
 struct G4Tile {
@@ -330,10 +539,12 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
           const __grid_constant__ CUtensorMap wmap, int M, int Kp, int Np,
           const int* __restrict__ sumq,
           const float* __restrict__ sx, const float* __restrict__ scale,
-          float tscale, void* __restrict__ out, int N, int bf16_out) {
+          float tscale, const void* __restrict__ resid, void* __restrict__ out, int N,
+          int bf16_out) {
   using Tile = G4Tile<BT>;
   constexpr int STAGES = Tile::STAGES;
   extern __shared__ uint8_t smem_raw[];
+  launch_dependents();
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* xs = smem;                                     // STAGES x XTILE
   int* ws = reinterpret_cast<int*>(smem + STAGES * Tile::XTILE);
@@ -374,13 +585,20 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
 
   if (wg == 0) {                                          // producer
     if (threadIdx.x == 0) {
+      auto load_words = [&](int st, int kt) {
+        mbar_expect_tx(&full[st], Tile::XTILE + G4_WTILE);
+        tma_load_2d(ws + st * (G4_WTILE / 4), &wmap, &full[st], n0, kt * (KT / 16));
+      };
+      const int npre = min(G4_PREFETCH, kt1 - kt0);
+      for (int i = 0; i < npre; ++i) load_words(i, kt0 + i);
+      grid_dependency_wait();
       int st = 0, ph = 0;
       for (int kt = kt0; kt < kt1; ++kt) {
-        mbar_wait(&empty[st], ph ^ 1);
-        mbar_expect_tx(&full[st], Tile::XTILE + G4_WTILE);
+        if (kt - kt0 >= npre) {
+          mbar_wait(&empty[st], ph ^ 1);
+          load_words(st, kt);
+        }
         uint8_t* xdst = xs + st * Tile::XTILE;
-        tma_load_2d(ws + st * (G4_WTILE / 4), &wmap, &full[st], n0, kt * (KT / 16));
-        if (kt == kt0) grid_dependency_wait();
         tma_load_2d(xdst, &xmap, &full[st], kt * KT, m0);
         tma_load_2d(xdst + Tile::XBOX, &xmap, &full[st], kt * KT + 128, m0);
         if (++st == STAGES) { st = 0; ph ^= 1; }
@@ -506,6 +724,17 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
       y1 = __fmul_rn(__fmul_rn((float)(v.y - 2 * sumq_s[ml]), sx_s[ml]), sc1);
     }
     const size_t o = (size_t)(m0 + ml) * N + n;
+    if (resid != nullptr) {                // K1's residual, in the output's dtype
+      if (bf16_out) {
+        const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(resid);
+        if (n < N) y0 = __fadd_rn(y0, load_f32(r, o));
+        if (n + 1 < N) y1 = __fadd_rn(y1, load_f32(r, o + 1));
+      } else {
+        const float* r = static_cast<const float*>(resid);
+        if (n < N) y0 = __fadd_rn(y0, r[o]);
+        if (n + 1 < N) y1 = __fadd_rn(y1, r[o + 1]);
+      }
+    }
     if (pair) {
       if (bf16_out)
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
@@ -537,23 +766,15 @@ cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
   return cudaGetLastError();
 }
 
-template <int BT>
-cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
-                        int Kp, int Np, const int* sumq, const float* sx,
-                        const float* scale, float tscale, void* out, int N,
-                        int bf16_out, int split, cudaStream_t stream) {
-  auto kern = w2a8_gemm<BT>;
-  static bool smem_set = false;           // once, before any graph capture
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         G4Tile<BT>::SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+// a launch on clusters of (1, 1, split) blocks, as a programmatic dependent of
+// the stream's last launch
+template <typename Kern, typename... Args>
+cudaError_t launch_on_cluster(Kern kern, dim3 grid, int threads, size_t smem, int split,
+                              cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((Np + G4_COLS - 1) / G4_COLS, (M + BT - 1) / BT, split);
-  cfg.blockDim = dim3(G4_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = G4Tile<BT>::SMEM;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -564,55 +785,89 @@ cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, M, Kp, Np, sumq, sx,
-                                     scale, tscale, out, N, bf16_out);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_normed(const void* x, int x_stride, int M, int K, int glu,
-                          const float* gamma, float eps, const int* words,
-                          int Np, const float* scale, const void* resid,
-                          void* out, int N, int8_t* xq, float* sx, int* sumq,
-                          cudaStream_t stream) {
-  const T* r = static_cast<const T*>(resid);
-  T* o = static_cast<T*>(out);
-  if (M <= FUSED_MAX_M && K <= FUSED_MAX_K) {
-    const T* xt = static_cast<const T*>(x);
-#define BN_FUSED(MBV)                                                          \
-  w2a8_gemv_fused<MBV, T><<<Np / 32, FUSED_THREADS, 0, stream>>>(              \
-      xt, x_stride, M, K, glu, gamma, eps, words, Np, scale, r, o, N, xq, sx,  \
-      sumq)
-    if (M == 1) BN_FUSED(1);
-    else BN_FUSED(2);
-#undef BN_FUSED
-    return cudaGetLastError();
+template <int BT>
+cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
+                        int Kp, int Np, const int* sumq, const float* sx,
+                        const float* scale, float tscale, const void* resid, void* out,
+                        int N, int bf16_out, int split, cudaStream_t stream) {
+  auto kern = w2a8_gemm<BT>;
+  static bool smem_set = false;           // once, before any graph capture
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         G4Tile<BT>::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
   }
-  cudaError_t e = launch_quantize(static_cast<const T*>(x), x_stride, M, K, glu,
-                                  gamma, eps, xq, sx, sumq, stream);
-  if (e != cudaSuccess) return e;
-  w2a8_gemv<8, T><<<dim3(Np / 32, (M + 7) / 8), 256, 0, stream>>>(
-      xq, M, K, words, Np, sumq, sx, scale, r, o, N);
-  return cudaGetLastError();
+  return launch_on_cluster(kern, dim3((Np + G4_COLS - 1) / G4_COLS, (M + BT - 1) / BT, split),
+                           G4_THREADS, G4Tile<BT>::SMEM, split, stream, xmap, wmap, M,
+                           Kp, Np, sumq, sx, scale, tscale, resid, out, N, bf16_out);
 }
 
-// The rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride)
-// quantized into xq [M, Kp] / sx [M] / sumq [M], then the GEMM with bt rows
-// a block and K split over split blocks of a cluster; out [M, N] (bf16 if
-// bf16_out, else f32), one scale a column or, with scale == nullptr, tscale
-// for the tensor.  Two launches.
-cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp,
-                              const int* words, int Np, const float* scale,
-                              float tscale, void* out, int N, int8_t* xq, float* sx,
-                              int* sumq, int dtype, int bf16_out, int bt, int split,
+// K1's decode form: w2a8_decode<MB, T, COLS, EPT> on Np / COLS blocks
+template <int MB, typename T, int COLS, int EPT>
+cudaError_t launch_decode(const DecArgs<T>& a, const int* words, cudaStream_t stream) {
+  auto kern = w2a8_decode<MB, T, COLS, EPT>;
+  static bool smem_set = false;           // once, before any graph capture
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DEC_MAX_SMEM);
+    if (e == cudaSuccess)                 // all of L1 as shared memory: two blocks an SM
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  // the words: boxes of COLS ints x a stage's word rows, unswizzled
+  CUtensorMap wmap;
+  cudaError_t e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, words, a.Np, a.Kp / 16,
+                             (uint64_t)a.Np * 4, COLS, DEC_STAGE / (COLS * 4),
+                             CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)a.nst * DEC_STAGE + (size_t)MB * a.Kp
+                      + (a.gamma != nullptr ? 4 * (size_t)a.Kp : 0) + (2 * a.nst + 1) * 8
+                      + 1024;
+  return launch_on_cluster(kern, dim3(a.Np / COLS), DEC_THREADS, smem, 1, stream, wmap, a);
+}
+
+template <int MB, typename T>
+cudaError_t launch_decode_cols(const DecArgs<T>& a, const int* words, int cols,
+                               cudaStream_t stream) {
+  const bool shrt = a.Kp <= DEC_SHORT_K;
+#define BN_DEC(C)                                                                 \
+  (shrt ? launch_decode<MB, T, C, DEC_EPT_SHORT>(a, words, stream)                 \
+        : launch_decode<MB, T, C, DEC_EPT_LONG>(a, words, stream))
+  switch (cols) {
+    case 32: return BN_DEC(32);
+    case 64: return BN_DEC(64);
+    default: return BN_DEC(128);
+  }
+#undef BN_DEC
+}
+
+// The rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride;
+// [gate | up] when glu) through silu(gate) * up and the RMSNorm by gamma
+// where given, quantized into xq [M, Kp] / sx [M] / sumq [M], then the GEMM
+// with bt rows a block and K split over split blocks of a cluster; out [M, N]
+// (bf16 if bf16_out, else f32), one scale a column or, with scale ==
+// nullptr, tscale for the tensor, plus resid [M, N] (out's dtype) where
+// given.  Two launches.
+cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp, int glu,
+                              const float* gamma, float eps, const int* words, int Np,
+                              const float* scale, float tscale, const void* resid,
+                              void* out, int N, int8_t* xq, float* sx, int* sumq,
+                              int dtype, int bf16_out, int bt, int split,
                               cudaStream_t stream) {
   if (split < 1 || split > G4_MAX_SPLIT || (split & (split - 1)) || split > Kp / KT)
     return cudaErrorInvalidValue;
   cudaError_t e = dtype == 1
-      ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, 0,
-                        nullptr, 0.f, xq, sx, sumq, stream)
-      : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, 0, nullptr,
-                        0.f, xq, sx, sumq, stream);
+      ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, glu,
+                        gamma, eps, xq, sx, sumq, stream)
+      : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, glu, gamma, eps,
+                        xq, sx, sumq, stream);
   if (e != cudaSuccess) return e;
   // the int8 rows: boxes of 128 bytes x bt rows, 128-byte swizzle (rows past
   // M read as zeros); the words: 16 rows of G4_WLD columns, the 8 past the
@@ -625,7 +880,7 @@ cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp,
                    (uint64_t)Np * 4, G4_WLD, KT / 16, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
 #define BN_GEMM(BTV)                                                          \
-  launch_gemm<BTV>(xmap, wmap, M, Kp, Np, sumq, sx, scale, tscale, out, N,     \
+  launch_gemm<BTV>(xmap, wmap, M, Kp, Np, sumq, sx, scale, tscale, resid, out, N, \
                    bf16_out, split, stream)
   switch (bt) {
     case 8: return BN_GEMM(8);
@@ -638,24 +893,71 @@ cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp,
 #undef BN_GEMM
 }
 
+// K1's decode form (M <= DEC_MAX_M, K <= DEC_MAX_K, checked here: the
+// caller picks the form) with cols columns a block
+template <typename T>
+cudaError_t launch_normed_decode(const void* x, int x_stride, int M, int K, int glu,
+                                 const float* gamma, float eps, const int* words, int Np,
+                                 const float* scale, const void* resid, void* out, int N,
+                                 int8_t* xq, float* sx, int* sumq, int cols,
+                                 cudaStream_t stream) {
+  if (M > DEC_MAX_M || K > DEC_MAX_K || (cols != 32 && cols != 64 && cols != 128)
+      || Np % cols)
+    return cudaErrorInvalidValue;
+  // the ring: the block's stages, at most DEC_STAGES, cut where it keeps two
+  // blocks an SM (rows of up to DEC_SHORT_K values; longer rows take one
+  // block an SM)
+  const int nk = K / KT, tps = DEC_STAGE / (cols * 64);
+  const int fixed = DEC_MAX_M * K + (gamma != nullptr ? 4 * K : 0) + (2 * DEC_STAGES + 1) * 8
+                    + 1024;
+  const int budget = K <= DEC_SHORT_K ? DEC_TWO_SMEM : DEC_MAX_SMEM;
+  const int nst = std::max(1, std::min({DEC_STAGES, (nk + tps - 1) / tps,
+                                        (budget - fixed) / DEC_STAGE}));
+  const DecArgs<T> a = {static_cast<const T*>(x), x_stride, M, K, glu, gamma, eps, Np,
+                        scale, static_cast<const T*>(resid), static_cast<T*>(out), N,
+                        xq, sx, sumq, nst};
+  return M == 1 ? launch_decode_cols<1, T>(a, words, cols, stream)
+                : launch_decode_cols<2, T>(a, words, cols, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, resid and out share it).
-// Returns cudaGetLastError() after the launches.
-int bn_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
-                   const float* gamma, float eps, const int* words, int Np,
-                   const float* scale, const void* resid, void* out, int N,
-                   int8_t* xq, float* sx, int* sumq, int dtype,
-                   cudaStream_t stream) {
+// K1: x [M, K] (or [M, 2K] when glu, rows x_stride values apart; dtype 0 =
+// float32, 1 = bfloat16: x, resid and out share it), K % 256 == 0; words
+// [K/16, Np]; out [M, N].  xq [M, K] (16-byte aligned), sx [M], sumq [M]
+// receive the int8 rows, scales and sums.  Two forms, which the caller
+// picks: bn_w2a8_normed_decode, one launch of w2a8_decode at M <= 2 and
+// K <= 14336 (refused past them) with cols = 32, 64 or 128 columns a block
+// (dividing Np); bn_w2a8_normed_gemm, any M and K, the row kernel, then the
+// GEMM with bt rows a block (8..128) and K split over split blocks of a
+// cluster (1, 2, 4 or 8, at most K / 256).  Each launch is a programmatic
+// dependent of the stream's last launch.  Both return cudaGetLastError()
+// after the launches.
+int bn_w2a8_normed_decode(const void* x, int x_stride, int M, int K, int glu,
+                          const float* gamma, float eps, const int* words, int Np,
+                          const float* scale, const void* resid, void* out, int N,
+                          int8_t* xq, float* sx, int* sumq, int dtype, int cols,
+                          cudaStream_t stream) {
+  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)launch_normed<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
-                                             words, Np, scale, resid, out, N,
-                                             xq, sx, sumq, stream);
-  return (int)launch_normed<float>(x, x_stride, M, K, glu, gamma, eps, words,
-                                   Np, scale, resid, out, N, xq, sx, sumq,
-                                   stream);
+    return (int)launch_normed_decode<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
+                                                    words, Np, scale, resid, out, N, xq,
+                                                    sx, sumq, cols, stream);
+  return (int)launch_normed_decode<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
+                                          scale, resid, out, N, xq, sx, sumq, cols, stream);
+}
+
+int bn_w2a8_normed_gemm(const void* x, int x_stride, int M, int K, int glu,
+                        const float* gamma, float eps, const int* words, int Np,
+                        const float* scale, const void* resid, void* out, int N,
+                        int8_t* xq, float* sx, int* sumq, int dtype, int bt, int split,
+                        cudaStream_t stream) {
+  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
+  return (int)w2a8_two_launches(x, x_stride, M, K, glu, gamma, eps, words, Np, scale, 0.f,
+                                resid, out, N, xq, sx, sumq, dtype, dtype == 1, bt, split,
+                                stream);
 }
 
 // K4: the rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride)
@@ -667,8 +969,9 @@ int bn_w2a8_gemm(const void* x, int x_stride, int M, int Kp, const int* words,
                  float* sx, int* sumq, int dtype, int bt, int split,
                  cudaStream_t stream) {
   if (M < 1 || Kp % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
-  return (int)w2a8_two_launches(x, x_stride, M, Kp, words, Np, scale, 0.f, out, N,
-                                xq, sx, sumq, dtype, dtype == 1, bt, split, stream);
+  return (int)w2a8_two_launches(x, x_stride, M, Kp, 0, nullptr, 0.f, words, Np, scale,
+                                0.f, nullptr, out, N, xq, sx, sumq, dtype, dtype == 1, bt,
+                                split, stream);
 }
 
 // K32: x [M, K] (dtype as above, rows contiguous) times words [K/16, N]
@@ -678,8 +981,8 @@ int bn_w2a8_matmul(const void* x, int M, int K, const int* words, int N, float s
                    void* out, int8_t* xq, float* sx, int* sumq, int dtype, int bt,
                    int split, cudaStream_t stream) {
   if (M < 1 || K < KT || K % KT || N < 8 || N % 8) return (int)cudaErrorInvalidValue;
-  return (int)w2a8_two_launches(x, K, M, K, words, N, nullptr, scale, out, N, xq, sx,
-                                sumq, dtype, 1, bt, split, stream);
+  return (int)w2a8_two_launches(x, K, M, K, 0, nullptr, 0.f, words, N, nullptr, scale,
+                                nullptr, out, N, xq, sx, sumq, dtype, 1, bt, split, stream);
 }
 
 const char* bn_ternary_matmul_error(int code) {

@@ -36,7 +36,10 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, per source
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
-        "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, P),
+        "bn_w2a8_normed_decode": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I,
+                                  I, P),
+        "bn_w2a8_normed_gemm": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, I,
+                                I, P),
         "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, I, I, I, P),
         "bn_w2a8_matmul": (P, I, I, P, I, F, P, P, P, P, I, I, I, P),
     },

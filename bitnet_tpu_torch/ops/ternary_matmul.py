@@ -4,7 +4,10 @@ and the dispatcher of the generic path.
 K1 :func:`ternary_matmul_w2a8_normed` replaces ``ternary_matmul_stacked``
 (``bitnet_tpu/ops/ternary_matmul.py:316``): decode shapes, M = B ≤ 64, with
 the optional SwiGLU / RMSNorm / int8-quantize preamble and residual
-epilogue fused around the integer dot.
+epilogue fused around the integer dot.  At M ≤ ``W2A8_DECODE_MAX_M`` it is
+one launch, tiled by :func:`w2a8_decode_plan`; more rows take K4's row
+kernel (with SwiGLU and the norm) and K4's GEMM with the residual in its
+epilogue, tiled by :func:`w2a8_gemm_plan`.
 
 K4 :func:`ternary_matmul_w2a8` replaces ``ternary_matmul_stacked_prefill``
 (``:417``): the prefill GEMM on Hopper's wgmma, after a kernel that
@@ -178,6 +181,31 @@ def _check_stack(packed, scale_vec, l, k_dim, pad_ok=False):
     return L, Np
 
 
+# K1's one-launch decode form: up to W2A8_DECODE_MAX_M rows and rows of up
+# to W2A8_DECODE_MAX_K values (the 8B down projection); a block computes one
+# of W2A8_DECODE_COLS output columns.  Two blocks fit an SM for rows of up
+# to W2A8_DECODE_SHORT_K values, one for longer rows.  The wrapper picks the
+# form; the kernel's entry point refuses a call past these limits (its
+# DEC_MAX_M, DEC_MAX_K and DEC_SHORT_K, which a CPU test holds equal).
+W2A8_DECODE_MAX_M = 2
+W2A8_DECODE_MAX_K = 14336
+W2A8_DECODE_SHORT_K = 4096
+W2A8_DECODE_COLS = (32, 64, 128)
+
+
+def w2a8_decode_plan(M: int, K: int, N: int, sms: int) -> int:
+    """Columns a block of K1's decode form for M ≤ 2 rows × [K, N] words on
+    ``sms`` SMs: the narrowest of ``W2A8_DECODE_COLS`` that divides N and
+    whose blocks all fit the card at once (two an SM for rows of up to
+    ``W2A8_DECODE_SHORT_K`` values, else one; the widest where none does).
+    K is not split: over a cluster, every split of every main-path shape was
+    slower than none, the generic path's k and v (20 column blocks)
+    included (PERF.md §6, K1's plan sweep).  M does not enter."""
+    cap = (2 if K <= W2A8_DECODE_SHORT_K else 1) * sms
+    fits = [c for c in W2A8_DECODE_COLS if N % c == 0]
+    return next((c for c in fits if N // c <= cap), fits[-1])
+
+
 def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                scale_vec: torch.Tensor,
                                gamma: torch.Tensor | None, k_dim: int,
@@ -189,7 +217,10 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
 
     x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed [L, Kp/16, Np];
     scale_vec [L, Np] f32; gamma [L, Kp] f32 or None; resid [M, n_dim] in
-    x's dtype or None.  Returns [M, n_dim] in x's dtype."""
+    x's dtype or None.  Returns [M, n_dim] in x's dtype.  On the card a call
+    at M ≤ ``W2A8_DECODE_MAX_M`` (K ≤ ``W2A8_DECODE_MAX_K``) is one launch,
+    more rows two (the row kernel, then the GEMM), and no other PyTorch op
+    than ``torch.empty``."""
     L, Np = _check_stack(packed, scale_vec, l, k_dim)
     M = x.shape[0]
     if x.ndim != 2 or x.shape[1] != (2 * k_dim if glu else k_dim):
@@ -224,23 +255,30 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
 
 def _w2a8_normed_launch(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps, glu,
                         resid):
-    """Launch K1 on checked operands.  Returns (out, scratch): scratch holds
-    the int8 rows, their scales and their sums (``xq | sx | sumq``).  Layer
-    ``l`` is addressed by pointer offset, not by a view per call."""
+    """Launch K1 on checked operands: its decode form tiled by
+    :func:`w2a8_decode_plan`, or the row kernel and the GEMM tiled by
+    :func:`w2a8_gemm_plan`.  Returns (out, scratch): scratch holds the int8
+    rows, their scales and their sums (``xq | sx | sumq``).  Layer ``l`` is
+    addressed by pointer offset, not by a view per call."""
     M, Np = x.shape[0], packed.shape[2]
     dev = x.device
     out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
     scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
     p = scratch.data_ptr()
     lib = _cuda.library("ternary_matmul")
-    rc = lib.bn_w2a8_normed(
-        x.data_ptr(), x.shape[1], M, k_dim, int(glu),
-        None if gamma is None else gamma.data_ptr() + 4 * l * k_dim, eps,
-        packed.data_ptr() + 4 * l * packed.stride(0), Np,
-        scale_vec.data_ptr() + 4 * l * Np,
-        None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
-        p, p + M * k_dim, p + M * k_dim + 4 * M, _DTYPE_CODE[x.dtype],
-        _cuda.stream_ptr(dev))
+    args = (x.data_ptr(), x.shape[1], M, k_dim, int(glu),
+            None if gamma is None else gamma.data_ptr() + 4 * l * k_dim, eps,
+            packed.data_ptr() + 4 * l * packed.stride(0), Np,
+            scale_vec.data_ptr() + 4 * l * Np,
+            None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
+            p, p + M * k_dim, p + M * k_dim + 4 * M, _DTYPE_CODE[x.dtype])
+    sms = _sm_count(dev.index)
+    if M <= W2A8_DECODE_MAX_M and k_dim <= W2A8_DECODE_MAX_K:
+        rc = lib.bn_w2a8_normed_decode(*args, w2a8_decode_plan(M, k_dim, Np, sms),
+                                       _cuda.stream_ptr(dev))
+    else:
+        rc = lib.bn_w2a8_normed_gemm(*args, *w2a8_gemm_plan(M, k_dim, Np, sms),
+                                     _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_w2a8_normed")
     return out, scratch
 

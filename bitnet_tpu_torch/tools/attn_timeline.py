@@ -5,8 +5,8 @@ Run on the card from the repository root:
 
     python -m bitnet_tpu_torch.tools.attn_timeline
 
-It copies ``csrc/`` into ``csrc/build/timeline/`` (git-ignored), inserts a
-stamp at each phase boundary of ``attn_decode`` (block (0, 0, 0): the pos
+It copies ``csrc/`` into ``csrc/build/timeline/`` (git-ignored, through
+``_timeline``), inserts a stamp at each phase boundary of ``attn_decode`` (block (0, 0, 0): the pos
 read, each stage's TMA issue and each stage's k / v arrival as its first
 consumer warp sees them, the split's merge and publish; the block that
 combines (b, kv head) = (0, 0): its count, weights and output), builds that
@@ -21,15 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import json
-import shutil
-import subprocess
 
 import torch
 
 from ..device_probe import require_sm90
-from ..ops import _cuda
 from ..ops import decode_attention as dk
 from ..ops import decode_attention_v2 as da
+from . import _timeline
 
 # (anchor, stamp, before the anchor?): stamps 0..39 are block (0, 0, 0)'s,
 # 64.. those of the block that combines (b, kv head) = (0, 0)
@@ -57,60 +55,26 @@ ANCHORS = (
 )
 STAMPS = """
 __device__ unsigned long long bn_stamps[128];
-__device__ __forceinline__ unsigned long long bn_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-  return t;
-}
 #define BN_T(k) do { if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) \\
   bn_stamps[k] = bn_now(); } while (0)
 #define BN_C(k) do { if (blockIdx.y == 0 && blockIdx.z == 0) bn_stamps[64 + (k)] = bn_now(); } \\
   while (0)
 """
-READER = """
-extern "C" int bn_attn_stamps(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, bn_stamps, sizeof(bn_stamps));
-}
-"""
+READ = "bn_attn_stamps"
 
 
 def instrumented_source(src: str) -> str:
     """``src`` with the stamps in place; raises if an anchor is missing."""
-    for anchor, stamp, before in ANCHORS:
-        if src.count(anchor) != 1:
-            raise ValueError(f"attn_timeline: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, stamp + anchor if before else anchor + stamp)
-    head = "using namespace bn;\n"
-    return src.replace(head, head + STAMPS, 1) + READER
-
-
-def _build() -> ctypes.CDLL:
-    out = _cuda.BUILD_DIR / "timeline"
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(_cuda.CSRC, out, ignore=shutil.ignore_patterns("build"))
-    cu = out / "decode_attention.cu"
-    cu.write_text(instrumented_source(cu.read_text()))
-    so = out / "decode_attention_timeline.so"
-    subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(so), str(cu)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    for fn, argtypes in _cuda.SIGNATURES["decode_attention"].items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.bn_decode_attention_error.argtypes = [ctypes.c_int]
-    lib.bn_decode_attention_error.restype = ctypes.c_char_p
-    lib.bn_attn_stamps.argtypes, lib.bn_attn_stamps.restype = [ctypes.c_void_p], ctypes.c_int
-    return lib
+    return _timeline.instrument(src, ANCHORS, STAMPS, _timeline.reader(READ, ("bn_stamps",)),
+                                "attn_timeline")
 
 
 def main() -> None:
     require_sm90(0)
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    lib = _build()
-    _cuda._libs["decode_attention"] = lib          # the wrappers launch the copy
+    smi = _timeline.card()
+    # the wrappers launch the instrumented copy
+    lib = _timeline.build("decode_attention", "timeline", instrumented_source, READ)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
     H, KV, D, L = 20, 5, 128, 4
@@ -139,8 +103,7 @@ def main() -> None:
         for i in range(3):
             call(i % L)
             torch.cuda.synchronize()
-            _cuda.check(lib, "decode_attention", lib.bn_attn_stamps(ctypes.addressof(stamps)),
-                        "attn_timeline")
+            _timeline.read(lib, "decode_attention", READ, (stamps,), False)
             t0 = stamps[0]
             # a stamp this call did not write is older than its start
             us = {k: round((stamps[k] - t0) / 1e3, 3) for k in range(128)

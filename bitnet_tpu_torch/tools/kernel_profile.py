@@ -6,7 +6,13 @@ Run on the card from the repository root:
     python -m bitnet_tpu_torch.tools.kernel_profile [--only K6,K10]
 
 It splits what ``chip_smoke.py`` times per wrapper into the kernels that
-ran (K1's fused GEMV, K4's row quantization and wgmma GEMM at M = 8, 512
+ran (K1 at the 2B fused four, M = 1, 2, 8 and 64: its one-launch decode
+form at M <= 2, the row kernel and the GEMM above; at the generic seven and
+the 8B fused four, M = 1 and 2; the ``K1 tiles`` cases force every column
+block of its decode form past ``w2a8_decode_plan`` at M=1 on the 2B and 8B
+fused four and the generic k, the plan's marked; K1's stacks hold enough layers
+to stream past the 50 MB L2 (``fn.layers``); K4's row quantization and
+wgmma GEMM at M = 8, 512
 and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
 its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
 the f32 correction matmul K10's GEMM form no longer runs; K6 at the generic
@@ -83,12 +89,11 @@ def _cases(dev, g):
         gam = torch.rand((LAYERS, K), generator=g, device=dev) + 0.5
         x = torch.randn((1, 2 * K if glu else K), generator=g, device=dev).bfloat16()
         r = torch.randn((1, N), generator=g, device=dev).bfloat16() if res else None
-        yield f"K1 {name} M=1", lambda i, w=w, sv=sv, gam=gam, x=x, r=r, K=K, N=N, glu=glu: (
-            tm.ternary_matmul_w2a8_normed(i % LAYERS, x, w, sv, gam, K, N, 1e-5, glu, r))
         for M in (8, 512, 2048):
             x4 = torch.randn((M, K), generator=g, device=dev).bfloat16()
             yield f"K4 {name} M={M}", lambda i, w=w, sv=sv, x4=x4, K=K, N=N: (
                 tm.ternary_matmul_w2a8(i % LAYERS, x4, w, sv, K, N))
+    yield from _k1_cases(dev, g)
     for name, K, N, glu, res in SHAPES:            # bitnet32 / TL weights
         w = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
                           generator=g, device=dev)
@@ -142,6 +147,52 @@ def _cases(dev, g):
                     return ff._ffn_launch(i % LAYERS, x, gu, sg, dw, sd, F, H)
             yield f"K24 plans M={M} BT={bt} split={split} dsplit={dsplit}", call
     yield from _attention_cases(dev, g)
+
+
+# K1's shapes: (name, K, N, gamma, glu, resid, row counts); the 2B fused
+# four, the generic seven, the 8B fused four (no sub-norms)
+K1_CASES = (("qkv", 2560, 3840, True, False, False, (1, 2, 8, 64)),
+            ("o", 2560, 2560, True, False, True, (1, 2, 8, 64)),
+            ("gate_up", 2560, 13824, True, False, False, (1, 2, 8, 64)),
+            ("down", 6912, 2560, True, True, True, (1, 2, 8, 64)),
+            *((f"seven {n}", K, N, n in ("o", "down"), False, n in ("o", "down"), (1,))
+              for n, K, N in SEVEN),
+            ("8b qkv", 4096, 6144, True, False, False, (1, 2)),
+            ("8b o", 4096, 4096, False, False, True, (1, 2)),
+            ("8b gate_up", 4096, 28672, True, False, False, (1, 2)),
+            ("8b down", 14336, 4096, False, True, True, (1, 2)))
+
+
+def _k1_cases(dev, g):
+    """K1 through its wrapper at ``K1_CASES``, over stacks of at least 120 MB
+    of words, and its decode form in every column block at M=1 on the 2B
+    and 8B fused four and the generic k."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, K, N, has_g, glu, res, Ms in K1_CASES:
+        L = max(LAYERS, -(-(120 << 20) // (K * N // 4)))
+        w = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+        sv = (torch.rand((L, N), generator=g, device=dev) + 0.5) * 0.02
+        gam = torch.rand((L, K), generator=g, device=dev) + 0.5 if has_g else None
+        for M in Ms:
+            x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+            r = torch.randn((M, N), generator=g, device=dev).bfloat16() if res else None
+
+            def call(i, w=w, sv=sv, gam=gam, x=x, r=r, K=K, N=N, glu=glu, L=L):
+                return tm.ternary_matmul_w2a8_normed(i % L, x, w, sv, gam, K, N, 1e-5,
+                                                     glu, r)
+            call.layers = L
+            yield f"K1 {name} M={M}", call
+            if M != 1 or (name.startswith("seven") and name != "seven k"):
+                continue
+            planned = tm.w2a8_decode_plan(1, K, N, sms)
+            for cols in (c for c in tm.W2A8_DECODE_COLS if N % c == 0):
+                def forced(i, call=call, p=cols):
+                    with mock.patch.object(tm, "w2a8_decode_plan", lambda *a: p):
+                        return call(i)
+                forced.layers = L
+                mark = " (plan)" if cols == planned else ""
+                yield f"K1 tiles {name} cols={cols}{mark}", forced
 
 
 def _attention_cases(dev, g):
@@ -204,11 +255,13 @@ def _attention_cases(dev, g):
 
 
 def _graph_us(fn) -> float:
-    """Device µs a call: LAYERS calls captured in one CUDA graph, replayed
-    five times between CUDA events, the median."""
+    """Device µs a call: LAYERS calls (``fn.layers``, where the case sets
+    it) captured in one CUDA graph, replayed five times between CUDA
+    events, the median."""
+    n = getattr(fn, "layers", LAYERS)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for i in range(LAYERS):
+        for i in range(n):
             fn(i)
     graph.replay()
     times = []
@@ -218,7 +271,7 @@ def _graph_us(fn) -> float:
         graph.replay()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) * 1e3 / LAYERS)
+        times.append(a.elapsed_time(b) * 1e3 / n)
     return sorted(times)[2]
 
 

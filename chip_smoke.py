@@ -11,13 +11,18 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,kernels,experiments,parity
     python3 chip_smoke.py --phases probe,build,k24,llama8b
     python3 chip_smoke.py --phases probe,build,w2a8,experiments
+    python3 chip_smoke.py --phases probe,build,k1
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
   probe    nvidia-smi name / power limit and the sm version
   build    nvcc of every csrc/*.cu for sm_90a (one process per source)
   kernels  each kernel against its plain PyTorch version at the shapes of
-           the fused and the generic path, of pools and int8 / fp8 caches,
+           the fused and the generic path, of pools and int8 / fp8 caches
+           (K1 at M = 1..64 on both its forms, the 8B four at M <= 2, its M
+           table (kernels.k1_m) and a chain of the fused four, each call's x
+           the last one's output, timed against the four calls apart
+           (kernels.k1_chain)),
            of bitnet32 / TL weights, of every other decode-attention plan
            (K13-K23), and of the 8B-class model (K24, the fused FFN; K1 and
            K11 at K = 14336), the stacked-cache and per-b kernels (K25-K27),
@@ -48,6 +53,9 @@ no result line):
            ten graph replays bit for bit with the arrival counters back at
            zero (kernels.attn_repeats), and a K5 and a K2 call under the
            profiler (kernels.k5_profile, kernels.k2_profile)
+  k1       (not in the default run, which holds it in kernels) K1's checks
+           and times alone (kernels.k1, k1_m, k1_chain): a short call that
+           compares two trees
   k24      (not in the default run, which holds it in kernels) K24's checks
            and times alone: a short call that compares two trees
   w2a8     (not in the default run, which holds it in kernels) the W2A8
@@ -215,8 +223,7 @@ def phase_kernels(torch, dev):
            **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
            **{f"k{n}": [] for n in range(25, 33)}, "f32": [], "attn_edges": [],
            "attn_repeats": []}
-    check_k1(torch, dev, g, K1_SHAPES, (1, 8, 64), "fused", res)
-    check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
+    check_k1_all(torch, dev, g, res)
     check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
     check_k4(torch, dev, g, UNFUSED_SHAPES, K4_MS, "unfused", res)
     check_k4(torch, dev, g, K4_8B_SHAPES, K4_MS, "8b", res)
@@ -257,9 +264,8 @@ def phase_kernels(torch, dev):
     check_k10_forms(torch, dev, g, res)
     check_k11_k12(torch, dev, g, res)
     check_plan_kernels(torch, dev, g, res)
-    # slice 6: the 8B down projection (K = 14336) on K1's and K11's two-kernel
-    # paths, and K24 at the 8B FFN shapes
-    check_k1(torch, dev, g, K1_8B_DOWN, (1, 2), "8b", res)
+    # slice 6: the 8B down projection (K = 14336) on K11's two-kernel path
+    # (K1's 8B four are in check_k1_all), and K24 at the 8B FFN shapes
     check_k11_wide(torch, dev, g, res)
     check_k24(torch, dev, g, res)
     # slice 7: the stacked-cache and per-b kernels, the f32 cache instances,
@@ -347,9 +353,88 @@ def phase_kernels(torch, dev):
     return res
 
 
-def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5):
+# K1's rows: one launch at M <= 2, the row kernel and the GEMM above (every
+# BT of the GEMM's plan); the fused four timed at K1_TIMED (the M table)
+K1_MS = (1, 2, 3, 8, 16, 33, 64)
+K1_TIMED = (1, 8, 64)
+
+
+def check_k1_all(torch, dev, g, res):
+    """K1 at the fused four (M in ``K1_MS``, timed at ``K1_TIMED``), the
+    generic seven (M = 1, 2, 32, 64, timed at 1) and the 8B four (M = 1, 2,
+    timed at 1), the M table (``k1_m``: each path's shapes summed per timed
+    M) and the chain of the fused four (``k1_chain``)."""
+    check_k1(torch, dev, g, K1_SHAPES, K1_MS, "fused", res, timed=K1_TIMED)
+    check_k1(torch, dev, g, UNFUSED_SHAPES, (1, 2, 32, 64), "unfused", res)
+    check_k1(torch, dev, g, K1_8B_SHAPES, (1, 2), "8b", res)
+    res["k1_m"] = [
+        {"path": path, "M": M, **{f: sum(r[f] for r in res["k1"] if r["path"] == path
+                                         and r["M"] == M) for f in
+                                  ("ms", "library_ms", "bound_ms", "plain_ms")}}
+        for path, Ms in (("fused", K1_TIMED), ("unfused", (1,)), ("8b", (1,)))
+        for M in Ms]
+    res["k1_chain"] = [check_k1_chain(torch, dev, g, res)]
+
+
+def check_k1_chain(torch, dev, g, res, L=8, eps=1e-5):
+    """The fused four of one 2B layer at M=1 as the step chains them, over
+    ``L`` layers (139 MB of words): qkv of the residual stream h, o of
+    qkv's first 2560 values (in place of the attention) plus h, gate|up of
+    that, down of its SwiGLU plus the o output; each call's x is the last
+    one's output, so each launch, a programmatic dependent, waits on the one
+    before it.  The chain launched without a sync gives the bits of the same
+    chain synced after every call; timed as one layer of four calls against
+    the sum of the four calls timed apart (``k1`` rows, M=1)."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    w = {}
+    for name, K, N, has_g, glu, has_r in K1_SHAPES:
+        words = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32,
+                              generator=g, device=dev)
+        sv = (torch.rand((L, N), generator=g, device=dev) + 0.5) * 0.02
+        gamma = torch.rand((L, K), generator=g, device=dev) + 0.5
+        w[name] = (words, sv, gamma, K, N)
+    h0 = torch.randn((1, 2560), generator=g, device=dev).to(torch.bfloat16)
+
+    def mm(name, l, x, glu=False, resid=None):
+        words, sv, gamma, K, N = w[name]
+        return tm.ternary_matmul_w2a8_normed(l, x, words, sv, gamma, K, N, eps, glu, resid)
+
+    def layer(l, h):
+        q = mm("qkv", l, h)
+        h = mm("o", l, q[:, :2560], resid=h)
+        return mm("down", l, mm("gate_up", l, h), glu=True, resid=h)
+
+    def chain(sync):
+        h = h0
+        for i in range(2 * L):
+            h = layer(i % L, h)
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return h
+    want = chain(True)
+    got = [chain(False) for _ in range(3)]
+    row = {"path": "chain", "M": 1, "layers": 2 * L, "max_abs_err": 0.0,
+           "finite": bool(torch.isfinite(want.float()).all()),
+           "equal_to_synced": all(torch.equal(h, want) for h in got)}
+    state = {"h": h0}
+
+    def step(i):
+        state["h"] = layer(i % L, state["h"])
+    row["ms"] = time_ms(torch, step, L)
+    four = [r for r in res["k1"] if r["path"] == "fused" and r["M"] == 1 and "ms" in r]
+    row["four_apart_ms"] = sum(r["ms"] for r in four)
+    row["bound_ms"] = sum(r["bound_ms"] for r in four)
+    row["ok"] = row["finite"] and row["equal_to_synced"]
+    if not row["ok"]:
+        raise AssertionError(f"K1 chain mismatch: {row}")
+    return row
+
+
+def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5, timed=(1,)):
     """K1 against its plain version at ``shapes`` and row counts ``Ms``;
-    timed at M=1."""
+    timed at the ``timed`` row counts."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     for name, K, N, has_g, glu, has_r in shapes:
@@ -395,7 +480,7 @@ def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5):
                   and row["xq_max_diff"] <= 1
                   and row["xq_mismatch"] <= max(2, xq.numel() // 1000)
                   and err <= tol)
-            if M == 1:
+            if M in timed:
                 row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed(
                     i % L, x, words, sv, gamma, K, N, eps, glu, resid), L)
                 row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_w2a8_normed_plain(
@@ -1305,9 +1390,12 @@ def check_k11_k12(torch, dev, g, res, eps=1e-5):
 
 # Slice 6: the 8B-class model (Llama-3-8B-1.58 shapes: H=4096, F=14336)
 H8B, F8B = 4096, 14336
-# its down projection on K1 (fused path: SwiGLU in the preamble, no
-# sub-norm, the residual): K = 14336 > 8192 takes K1's two-kernel path
-K1_8B_DOWN = (("down_8b", F8B, H8B, False, True, True),)
+# K1 at its fused four (no sub-norms: o and down take no gamma; down its
+# SwiGLU in the preamble and the residual): (name, K, N, gamma, glu, resid)
+K1_8B_SHAPES = (("qkv_8b", H8B, 6144, True, False, False),
+                ("o_8b", H8B, H8B, False, False, True),
+                ("gate_up_8b", H8B, 2 * F8B, True, False, False),
+                ("down_8b", F8B, H8B, False, True, True))
 # K4 at the 8B fused four: qkv (32 + 2·8 heads of 128), o, gate|up, down
 K4_8B_SHAPES = (("qkv_8b", H8B, 6144), ("o_8b", H8B, H8B),
                 ("gate_up_8b", H8B, 2 * F8B), ("down_8b", F8B, H8B))
@@ -1318,7 +1406,9 @@ def check_k11_wide(torch, dev, g, res, eps=1e-5):
     then the GEMV), M in {1, 2}, lut_bias both ways, with SwiGLU and the
     residual, no gamma: against its plain version (K1's gate), its int8
     rows against K1's (also two kernels at this K) bit for bit, its output
-    against the exact block partials of its own rows.  Timed at M=1."""
+    against the exact block partials of its own rows (K1's one launch at
+    M <= 2 and every K up to 14336, with K11's preamble arithmetic).  Timed
+    at M=1."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     K, N = F8B, H8B
@@ -3407,7 +3497,7 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if any(p in phases for p in ("build", "kernels", "k24", "w2a8")):
+        if any(p in phases for p in ("build", "kernels", "k1", "k24", "w2a8")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3418,6 +3508,13 @@ def main(argv=None) -> int:
             report["kernels"] = res
             for k, rows in res.items():
                 emit({"phase": f"kernels.{k}", "rows": rows})
+        if "k1" in phases:
+            res = {"k1": []}
+            timed("k1", check_k1_all, torch, dev, torch.Generator(device=dev).manual_seed(1234),
+                  res)
+            report["k1"] = res
+            for k, rows in res.items():
+                emit({"phase": f"k1.{k}", "nvidia_smi": smi, "rows": rows})
         if "k24" in phases:
             res = {"k24": []}
             timed("k24", check_k24, torch, dev, torch.Generator(device=dev).manual_seed(1234),
