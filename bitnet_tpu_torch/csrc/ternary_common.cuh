@@ -1,5 +1,5 @@
 // Device helpers shared by the ternary matmul kernels (ternary_matmul.cu:
-// K1, K4; ternary_matmul_tl.cu: K6, K10, K11, K12; ffn_fused.cu: K24).
+// K1, K4, K11, K32; ternary_matmul_tl.cu: K6, K10, K12; ffn_fused.cu: K24).
 //
 // Weights are int32 words [Kp/16, Np].  Within each 256-row K tile, word s,
 // byte j, plane p hold the code of K row p*64 + 4s + j, so
@@ -35,9 +35,11 @@ __device__ __forceinline__ int biased_plane(int w, int p) {
 // The four planes of word w, biased as biased_plane<true> gives them, in 13
 // integer operations rather than 19: planes 0 and 2 (and 1 and 3) sit in the
 // two nibbles of each byte, c + (c >> 1) = (3c) >> 1 for c in 0..3, and 3c
-// <= 9 never carries out of its nibble (K24).
-__device__ __forceinline__ void biased_planes(uint32_t w, uint32_t (&pl)[4]) {
-  const uint32_t e = (w & 0x33333333u) * 3u, o = ((w >> 2) & 0x33333333u) * 3u;
+// <= 9 never carries out of its nibble (K24).  With mult = 2 the same
+// operations give c itself, biased_plane<false> (TL: (2c) >> 1 = c).
+__device__ __forceinline__ void biased_planes(uint32_t w, uint32_t (&pl)[4],
+                                              uint32_t mult = 3u) {
+  const uint32_t e = (w & 0x33333333u) * mult, o = ((w >> 2) & 0x33333333u) * mult;
   pl[0] = (e >> 1) & 0x07070707u;
   pl[1] = (o >> 1) & 0x07070707u;
   pl[2] = (e >> 5) & 0x07070707u;
@@ -61,93 +63,6 @@ __device__ __forceinline__ V block_reduce(V v, V* red, bool is_max) {
     v = is_max ? (u > v ? u : v) : v + u;
   }
   return v;
-}
-
-// ---------------------------------------------------------------------------
-// The W2A8 row preamble of K11's one-launch decode kernel (K1's w2a8_decode
-// in ternary_matmul.cu keeps its arithmetic and order), run by every block:
-// silu(gate) * up, RMSNorm, absmax int8 quantization.
-// 512 threads; x is [M, K] (or [M, 2K] when glu), K <= FUSED_MAX_K.
-// Leaves the int8 rows in xs, their scales in sx_s and sums in sumq_s and,
-// when sumqb is not null, the sums of each 32-row block in sumqb[m][b]
-// (32 consecutive k are the 32 lanes of one warp).  Block 0 also writes
-// the rows, scales and sums out, so a check can hold them against the
-// plain version.
-// ---------------------------------------------------------------------------
-constexpr int FUSED_MAX_M = 2;
-constexpr int FUSED_MAX_K = 8192;
-constexpr int FUSED_THREADS = 512;                   // 16 warps
-constexpr int FUSED_WARPS = FUSED_THREADS / 32;
-constexpr int FUSED_EPT = FUSED_MAX_K / FUSED_THREADS;
-
-template <typename T>
-__device__ __forceinline__ void fused_quantize_rows(
-    const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
-    const float* __restrict__ gamma, float eps, int (*xs)[FUSED_MAX_K / 4],
-    float* sx_s, int* sumq_s, int (*sumqb)[FUSED_MAX_K / 32], float* redf,
-    int* redi, int8_t* __restrict__ xq_out, float* __restrict__ sx_out,
-    int* __restrict__ sumq_out) {
-  for (int mm = 0; mm < M; ++mm) {
-    const T* xr = x + (size_t)mm * x_stride;
-    float v[FUSED_EPT];
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) {
-      const int k = threadIdx.x + FUSED_THREADS * i;
-      float t = 0.f;
-      if (k < Kp) {
-        t = load_f32(xr, k);
-        if (glu) {
-          const float sig = 1.f / (1.f + expf(-t));
-          t = __fmul_rn(__fmul_rn(t, sig), load_f32(xr, (size_t)Kp + k));
-        }
-      }
-      v[i] = t;
-      ss += t * t;
-    }
-    if (gamma != nullptr) {
-      const float var = block_reduce(ss, redf, false) / (float)Kp;
-      const float r = 1.f / sqrtf(var + eps);
-#pragma unroll
-      for (int i = 0; i < FUSED_EPT; ++i) {
-        const int k = threadIdx.x + FUSED_THREADS * i;
-        if (k < Kp) v[i] = __fmul_rn(__fmul_rn(v[i], r), gamma[k]);
-      }
-    }
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) amax = fmaxf(amax, fabsf(v[i]));
-    amax = block_reduce(amax, redf, true);
-    const float sx = fmaxf(amax, 1e-8f) / 127.f;
-    int8_t* xrow = reinterpret_cast<int8_t*>(&xs[mm][0]);
-    int sq = 0;
-#pragma unroll
-    for (int i = 0; i < FUSED_EPT; ++i) {
-      const int k = threadIdx.x + FUSED_THREADS * i;
-      int qi = 0;
-      if (k < Kp) {
-        qi = (int)fminf(fmaxf(rintf(v[i] / sx), -127.f), 127.f);
-        xrow[k] = (int8_t)qi;
-        sq += qi;
-        if (blockIdx.x == 0) xq_out[(size_t)mm * Kp + k] = (int8_t)qi;
-      }
-      if (sumqb != nullptr) {              // k < Kp is uniform over the warp
-        int bs = qi;
-        for (int o = 16; o > 0; o >>= 1) bs += __shfl_xor_sync(0xffffffffu, bs, o);
-        if ((threadIdx.x & 31) == 0 && k < Kp) sumqb[mm][k >> 5] = bs;
-      }
-    }
-    sq = block_reduce(sq, redi, false);
-    if (threadIdx.x == 0) {
-      sx_s[mm] = sx;
-      sumq_s[mm] = sq;
-      if (blockIdx.x == 0) {
-        sx_out[mm] = sx;
-        sumq_out[mm] = sq;
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

@@ -12,6 +12,9 @@
 //   K32 bn_w2a8_matmul <- experiments/exp_w2a8.py w2a8_matmul (:181, pallas_call
 //                         :201): K4's two launches with one scale for the
 //                         tensor (below)
+//   K11 bn_tl_w2a8_normed <- ternary_matmul_stacked_tl_w2a8 (:890, pallas_call
+//                         :960), body _tl_w2a8_fused_kernel (:753): K1's
+//                         decode form with a scale a 32-row block (below)
 // K6, the bf16 qk256 body of the same site (bitnet_tpu/ops/ternary_matmul.py:1177,
 // _qk256_kernel), is a column-scale mode of K10's two forms in
 // ternary_matmul_tl.cu.
@@ -36,6 +39,11 @@
 //    it has ended.  At M = 3..64 (pools) it is the row kernel, then K4's GEMM
 //    below with the residual in its epilogue: every row in one block, each
 //    word read once a call.
+//  - K11 (bitnet32 / TL weights, M = B <= 2) is bound by the bytes of its
+//    words and f32 block scales (half the words' bytes again): one launch
+//    of w2a8_decode in its block-scale mode, the scales streamed by TMA
+//    beside the words, the same preamble (so its int8 rows are K1's bit for
+//    bit), each 32-row block's int32 partial exact before its scale.
 //  - K4 (prefill, M = B*T rows, 8 to 16384 and more) is bound by int8
 //    operations at M >= 128 and by the weight bytes below.  The product runs
 //    on wgmma (the only way to the card's int8 rate), transposed so that the
@@ -128,7 +136,10 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
 
 // ---------------------------------------------------------------------------
 // K1's decode form, M <= DEC_MAX_M (decode at B <= 2, every qk256 decode
-// step): ONE launch, w2a8_decode<MB, T, COLS, EPT>, any K up to DEC_MAX_K.
+// step): ONE launch, w2a8_decode<MB, T, COLS, EPT, BLOCK>, any K up to
+// DEC_MAX_K.  With BLOCK it is K11 (bitnet32 / TL weights with a scale a
+// 32-row block, decode at B <= 2): the same kernel in its block-scale mode,
+// below.
 //
 // A block owns COLS output columns (32, 64 or 128; w2a8_decode_plan in
 // ops/ternary_matmul.py picks them) and every K tile of them.  K is not
@@ -155,10 +166,9 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
 // row sums) needs the whole row before the dot, and Hopper blocks share no
 // scratch across the grid: every block computes it from the x row in L2
 // (5-57 KB) while its words are in flight, k = threadIdx.x + 512 i over the
-// 512 consumer threads, the sums reduced in the order of K11's
-// fused_quantize_rows and tl_quantize_rows (ternary_common.cuh,
-// ternary_matmul_tl.cu), so that the int8 rows, scales and sums equal K11's
-// bit for bit.  It is a chain of dependent steps (the x loads, the squares'
+// 512 consumer threads, the sums reduced in block_reduce's order (the order
+// of the kernels this one replaced, so the rows stayed theirs bit for bit).
+// It is a chain of dependent steps (the x loads, the squares'
 // reduction, the maxima's, the quantization), so it is latency, not
 // operations, that it costs: splitting it over a cluster's ranks, which
 // then exchange the squared values and the maxima through distributed
@@ -179,6 +189,37 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
 // The warps' int32 partials meet in shared memory (atomics, exact), so the
 // plan never changes a bit; a consumer thread then applies -2 sumq and the
 // f32 epilogue to one output.
+//
+// The block-scale mode (BLOCK, K11).  y = sx * sum_b s[b, n] * (sum_{k in b}
+// q v(c) - 2 sum_{k in b} q), v(c) = c + (c >> 1) (bitnet32's LUT) or c
+// (TL), each 32-row block's int32 partial exact before its f32 scale
+// multiplies it.  What changes:
+//  - The producer streams each stage's block scales with its words: a second
+//    TMA box, COLS floats x the stage's 8 TPS scale rows (DEC_SSTAGE, half
+//    the words' bytes), on the same full barrier, also before the wait.
+//  - The preamble is K1's, unchanged, so the int8 rows, scales and sums
+//    are K1's bit for bit.  The 32-row sums of q that the zero point needs
+//    are formed in the dot, beside the products, from the same broadcast
+//    loads: added to the preamble (one warp reduction a block) they made
+//    the chain that paces a call longer (PERF.md §6, K11's findings).
+//  - The dot.  Scale block (tile t, plane p, half h) is plane p of word rows
+//    8h .. 8h+7 of tile t, so one thread holds all eight: a warp owns whole
+//    half tiles of its 32 columns (a unit), not K1's four word rows a
+//    stage.  A stage holds 2 TPS x CG = 8 units whatever COLS is, so warps
+//    0-7 take one unit of each even stage and warps 8-15 one of each odd
+//    stage.  The ring has an even number of slots, so each half reads only
+//    its own slots, every phase in order (a parity wait is sound only for a
+//    reader that saw every earlier phase).  A unit is eight 16-byte loads
+//    of the int8 rows, biased_planes with the codes' bias (mult 3 or 2),
+//    4 MB dp4a a word row for the products and 4 MB for the rows' sums,
+//    then per plane and row one fma of the block's exact partial and its
+//    scale, read from the stage.  Deeper stages (a unit for every warp in
+//    each) would halve the ring's depth in the same shared memory.  The
+//    column block is K1's plan: the K11 tiles sweep found it the fastest
+//    or within 1 % on every main-path shape (PERF.md §6, K11's findings).
+//  - The warps' f32 partials meet in shared memory and are added in warp
+//    order (no float atomics: two runs give the same bits), then y * sx
+//    (+ resid), rounded as K11 always rounded.
 // ---------------------------------------------------------------------------
 constexpr int DEC_MAX_M = 2;
 constexpr int DEC_MAX_K = 14336;              // the 8B down projection
@@ -189,13 +230,27 @@ constexpr int DEC_SHORT_K = 4096;             // rows held 8 values a thread
 constexpr int DEC_EPT_SHORT = DEC_SHORT_K / DEC_CONSUMERS;
 constexpr int DEC_EPT_LONG = DEC_MAX_K / DEC_CONSUMERS;
 constexpr int DEC_STAGE = 8192;               // bytes of words a stage
+constexpr int DEC_SSTAGE = DEC_STAGE / 2;     // bytes of block scales a stage (K11)
 constexpr int DEC_STAGES = 8;                 // the ring's depth, at most
-// dynamic shared memory: the ring, the int8 rows, gamma, the barriers
-constexpr int DEC_MAX_SMEM = DEC_STAGES * DEC_STAGE + DEC_MAX_M * DEC_MAX_K + 4 * DEC_MAX_K
-                             + (2 * DEC_STAGES + 1) * 8 + 1024;
 // what two blocks an SM leave a block (228 KB an SM, 1 KB of it reserved a
 // block, the static arrays): the ring is cut to fit where it can
 constexpr int DEC_TWO_SMEM = 108 * 1024;
+
+// bytes of a stage of the ring
+__host__ __device__ constexpr int dec_stage(bool block) {
+  return block ? DEC_STAGE + DEC_SSTAGE : DEC_STAGE;
+}
+// dynamic shared memory past a ring of nst stages: the int8 rows, K11's
+// warps' f32 partials, gamma, the barriers, alignment
+__host__ __device__ constexpr int dec_rest(int MB, int K, bool gamma, bool block,
+                                           int nst) {
+  return MB * K + (block ? DEC_CONSUMERS * MB * 4 : 0) + (gamma ? 4 * K : 0)
+         + (2 * nst + 1) * 8 + 1024;
+}
+__host__ __device__ constexpr int dec_max_smem(bool block) {
+  return DEC_STAGES * dec_stage(block)
+         + dec_rest(DEC_MAX_M, DEC_MAX_K, true, block, DEC_STAGES);
+}
 
 template <typename T>
 struct DecArgs {
@@ -204,7 +259,7 @@ struct DecArgs {
   const float* gamma;
   float eps;
   int Np;
-  const float* scale;
+  const float* scale;                         // K1: one a column [Np]
   const T* resid;
   T* out;
   int N;
@@ -212,6 +267,7 @@ struct DecArgs {
   float* sx;
   int* sumq;
   int nst;                                    // the ring's stages
+  uint32_t mult;                              // the codes' bias: 3 (LUT) or 2 (TL)
 };
 
 // one contiguous copy into shared memory (bytes a multiple of 16, both ends
@@ -275,13 +331,16 @@ __device__ __forceinline__ int dec_xbyte(int k) {
   return (k & ~255) + ((k >> 2) & 15) * 16 + ((k >> 6) & 3) * 4 + (k & 3);
 }
 
-template <int MB, typename T, int COLS, int EPT>
+template <int MB, typename T, int COLS, int EPT, bool BLOCK>
 __global__ void __launch_bounds__(DEC_THREADS, EPT == DEC_EPT_SHORT ? 2 : 1)
-w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
+w2a8_decode(const __grid_constant__ CUtensorMap wmap,
+            const __grid_constant__ CUtensorMap smap, const DecArgs<T> a) {
   constexpr int TPS = DEC_STAGE / (COLS * 64);    // K tiles a stage
   constexpr int CG = COLS / 32;                   // a warp's 32 columns: groups
   constexpr int NRG = DEC_WARPS / CG;             // warps on one column group
+  constexpr int SB = dec_stage(BLOCK);            // bytes a stage
   static_assert(16 * TPS == 4 * NRG, "four word rows a warp a stage");
+  static_assert(2 * TPS * CG == DEC_WARPS / 2, "K11: a stage is a unit for half the warps");
   extern __shared__ uint8_t smem_raw[];
   __shared__ int part[MB][COLS];
   __shared__ int sqw[MB][DEC_WARPS];
@@ -290,8 +349,9 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int nst = a.nst, Kp = a.Kp;
   const bool norm = a.gamma != nullptr;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem + nst * DEC_STAGE);    // [MB][Kp]
-  float* gs = reinterpret_cast<float*>(xs + MB * Kp);                 // [Kp]
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + nst * SB);          // [MB][Kp]
+  float* red = reinterpret_cast<float*>(xs + MB * Kp);               // K11: [NRG][MB][COLS]
+  float* gs = red + (BLOCK ? DEC_CONSUMERS * MB : 0);                // [Kp]
   uint64_t* full = reinterpret_cast<uint64_t*>(gs + (norm ? Kp : 0));
   uint64_t* empty = full + nst;
   uint64_t* gbar = empty + nst;
@@ -302,16 +362,19 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // stage s into its slot: one TMA box of COLS ints x TPS K tiles' word
-  // rows (rows past the layer read as zeros)
+  // rows and, for K11, one of COLS floats x their scale rows (rows past the
+  // layer read as zeros)
   auto load_stage = [&](int s) {
     const int slot = s % nst;
-    mbar_expect_tx(&full[slot], DEC_STAGE);
-    tma_load_2d(smem + slot * DEC_STAGE, &wmap, &full[slot], n0, s * TPS * (KT / 16));
+    mbar_expect_tx(&full[slot], SB);
+    tma_load_2d(smem + slot * SB, &wmap, &full[slot], n0, s * TPS * (KT / 16));
+    if constexpr (BLOCK)
+      tma_load_2d(smem + slot * SB + DEC_STAGE, &smap, &full[slot], n0, s * TPS * (KT / 32));
   };
   if (tid == DEC_CONSUMERS) {
     for (int s = 0; s < nst; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], DEC_WARPS);
+      mbar_init(&empty[s], BLOCK ? DEC_WARPS / 2 : DEC_WARPS);
     }
     mbar_init(gbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -322,7 +385,7 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
   // the epilogue's operands: a consumer thread an output (mm, n)
   const int emm = tid / COLS, ec = tid % COLS, en = n0 + ec;
   const bool eout = tid < MB * COLS && emm < a.M && en < a.N;
-  const float esc = eout ? a.scale[en] : 0.f;
+  const float esc = eout && !BLOCK ? a.scale[en] : 0.f;
   float eres = 0.f;
 
   if (warp == DEC_WARPS) {                // the producer
@@ -343,8 +406,8 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
     grid_dependency_wait();               // x, resid and out: after the launch before
     if (eout && a.resid != nullptr) eres = load_f32(a.resid, (size_t)emm * a.N + en);
 
-    // the preamble, k = tid + 512 i (fused_quantize_rows' arithmetic); a
-    // row's loads all in flight before the first value is used
+    // the preamble, k = tid + 512 i; a row's loads all in flight before the
+    // first value is used
     float v[MB][EPT];
 #pragma unroll
     for (int mm = 0; mm < MB; ++mm) {
@@ -404,7 +467,7 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
 #pragma unroll
       for (int i = 0; i < EPT; ++i) {
         const int k = tid + DEC_CONSUMERS * i;
-        if (k < Kp) {
+        if (k < Kp) {                     // the same for the whole warp
           const int qi = dec_quantize(v[mm][i], sx, rcp);
           xs[mm * Kp + DEC_CONSUMERS * i + xoff] = (int8_t)qi;
           sq += qi;
@@ -426,32 +489,75 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
       if (writer) a.sumq[tid] = sq;
     }
 
-    // the dot: each word once, from the ring
-    int acc[MB];
-#pragma unroll
-    for (int mm = 0; mm < MB; ++mm) acc[mm] = 0;
-    const int rg = warp / CG, col = (warp % CG) * 32 + lane;
+    // the dot: each word once, from the ring.  K1: every warp four word rows
+    // of each stage; K11: warps 0-7 one unit of each even stage, 8-15 of
+    // each odd one (a unit: half tile hl of the stage, 32 columns)
     const int4* xi = reinterpret_cast<const int4*>(xs);
     const int xrow = Kp / 16;                     // word rows a row of xs
-    for (int s = 0; s < ns; ++s) {
+    const int rg = warp / CG, col = (warp % CG) * 32 + lane;
+    const int hl = (warp & 7) / CG, lt = hl >> 1, h = hl & 1;
+    int acc[MB];                                  // K1: int32 partials
+    float y[MB];                                  // K11: f32 partials
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) {
+      acc[mm] = 0;
+      y[mm] = 0.f;
+    }
+    for (int s = BLOCK ? warp >> 3 : 0; s < ns; s += BLOCK ? 2 : 1) {
       const int slot = s % nst;
-      const int* wt = reinterpret_cast<const int*>(smem + slot * DEC_STAGE);
-      const int row0 = s * TPS * (KT / 16);
-      const int rows = min(TPS, nk - s * TPS) * (KT / 16);
+      const int* wt = reinterpret_cast<const int*>(smem + slot * SB);
       mbar_wait(&full[slot], (s / nst) & 1);
+      if constexpr (BLOCK) {
+        const float* sc = reinterpret_cast<const float*>(smem + slot * SB + DEC_STAGE);
+        const int t = s * TPS + lt;               // the unit's K tile
+        if (t < nk) {
+          int bacc[4][MB], bsum[4][MB];           // the four blocks' q.v and q sums
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg + NRG * i;
-        if (r < rows) {
-          uint32_t pl[4];
-          biased_planes((uint32_t)wt[r * COLS + col], pl);
+          for (int p = 0; p < 4; ++p)
 #pragma unroll
-          for (int mm = 0; mm < MB; ++mm) {
-            const int4 q = xi[mm * xrow + row0 + r];
-            acc[mm] = __dp4a((int)pl[0], q.x, acc[mm]);
-            acc[mm] = __dp4a((int)pl[1], q.y, acc[mm]);
-            acc[mm] = __dp4a((int)pl[2], q.z, acc[mm]);
-            acc[mm] = __dp4a((int)pl[3], q.w, acc[mm]);
+            for (int mm = 0; mm < MB; ++mm) bacc[p][mm] = bsum[p][mm] = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            uint32_t pl[4];
+            biased_planes((uint32_t)wt[(lt * 16 + 8 * h + i) * COLS + col], pl, a.mult);
+#pragma unroll
+            for (int mm = 0; mm < MB; ++mm) {
+              const int4 q = xi[mm * xrow + t * 16 + 8 * h + i];
+              bacc[0][mm] = __dp4a((int)pl[0], q.x, bacc[0][mm]);
+              bacc[1][mm] = __dp4a((int)pl[1], q.y, bacc[1][mm]);
+              bacc[2][mm] = __dp4a((int)pl[2], q.z, bacc[2][mm]);
+              bacc[3][mm] = __dp4a((int)pl[3], q.w, bacc[3][mm]);
+              bsum[0][mm] = __dp4a(0x01010101, q.x, bsum[0][mm]);
+              bsum[1][mm] = __dp4a(0x01010101, q.y, bsum[1][mm]);
+              bsum[2][mm] = __dp4a(0x01010101, q.z, bsum[2][mm]);
+              bsum[3][mm] = __dp4a(0x01010101, q.w, bsum[3][mm]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {           // block 8t + 2p + h of the row
+            const float sv = sc[(lt * 8 + 2 * p + h) * COLS + col];
+#pragma unroll
+            for (int mm = 0; mm < MB; ++mm)
+              y[mm] = fmaf((float)(bacc[p][mm] - 2 * bsum[p][mm]), sv, y[mm]);
+          }
+        }
+      } else {
+        const int row0 = s * TPS * (KT / 16);
+        const int rows = min(TPS, nk - s * TPS) * (KT / 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg + NRG * i;
+          if (r < rows) {
+            uint32_t pl[4];
+            biased_planes((uint32_t)wt[r * COLS + col], pl);
+#pragma unroll
+            for (int mm = 0; mm < MB; ++mm) {
+              const int4 q = xi[mm * xrow + row0 + r];
+              acc[mm] = __dp4a((int)pl[0], q.x, acc[mm]);
+              acc[mm] = __dp4a((int)pl[1], q.y, acc[mm]);
+              acc[mm] = __dp4a((int)pl[2], q.z, acc[mm]);
+              acc[mm] = __dp4a((int)pl[3], q.w, acc[mm]);
+            }
           }
         }
       }
@@ -459,12 +565,22 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap, const DecArgs<T> a) {
       if (lane == 0) mbar_arrive(&empty[slot]);
     }
 #pragma unroll
-    for (int mm = 0; mm < MB; ++mm) atomicAdd(&part[mm][col], acc[mm]);
+    for (int mm = 0; mm < MB; ++mm) {             // the warp's partials out
+      if constexpr (BLOCK) red[(rg * MB + mm) * COLS + col] = y[mm];
+      else atomicAdd(&part[mm][col], acc[mm]);
+    }
   }
   __syncthreads();                        // every warp's partials are in place
   if (eout) {
-    float y = (float)(part[emm][ec] - 2 * sq_s[emm]);
-    y = __fmul_rn(__fmul_rn(y, sx_s[emm]), esc);
+    float y;
+    if constexpr (BLOCK) {                // the column's NRG warps, in order
+      float acc = 0.f;
+      for (int w = 0; w < NRG; ++w) acc = __fadd_rn(acc, red[(w * MB + emm) * COLS + ec]);
+      y = __fmul_rn(acc, sx_s[emm]);
+    } else {
+      y = (float)(part[emm][ec] - 2 * sq_s[emm]);
+      y = __fmul_rn(__fmul_rn(y, sx_s[emm]), esc);
+    }
     if (a.resid != nullptr) y = __fadd_rn(y, eres);
     store_f32(a.out, (size_t)emm * a.N + en, y);
   }
@@ -807,39 +923,47 @@ cudaError_t launch_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap, int M,
                            Kp, Np, sumq, sx, scale, tscale, resid, out, N, bf16_out);
 }
 
-// K1's decode form: w2a8_decode<MB, T, COLS, EPT> on Np / COLS blocks
-template <int MB, typename T, int COLS, int EPT>
-cudaError_t launch_decode(const DecArgs<T>& a, const int* words, cudaStream_t stream) {
-  auto kern = w2a8_decode<MB, T, COLS, EPT>;
+// K1's (BLOCK: K11's) decode form: w2a8_decode<MB, T, COLS, EPT, BLOCK> on
+// Np / COLS blocks; scales: K11's block scales [Kp/32, Np] of the layer
+template <int MB, typename T, int COLS, int EPT, bool BLOCK>
+cudaError_t launch_decode(const DecArgs<T>& a, const int* words, const float* scales,
+                          cudaStream_t stream) {
+  auto kern = w2a8_decode<MB, T, COLS, EPT, BLOCK>;
   static bool smem_set = false;           // once, before any graph capture
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DEC_MAX_SMEM);
+                                         dec_max_smem(BLOCK));
     if (e == cudaSuccess)                 // all of L1 as shared memory: two blocks an SM
       e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  // the words: boxes of COLS ints x a stage's word rows, unswizzled
-  CUtensorMap wmap;
+  // the words: boxes of COLS ints x a stage's word rows; K11's scales:
+  // boxes of COLS floats x their scale rows; both unswizzled
+  CUtensorMap wmap, smap;
   cudaError_t e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, words, a.Np, a.Kp / 16,
                              (uint64_t)a.Np * 4, COLS, DEC_STAGE / (COLS * 4),
                              CU_TENSOR_MAP_SWIZZLE_NONE);
+  smap = wmap;
+  if (e == cudaSuccess && BLOCK)
+    e = tma_map_2d(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, a.Np, a.Kp / 32,
+                   (uint64_t)a.Np * 4, COLS, DEC_SSTAGE / (COLS * 4),
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)a.nst * DEC_STAGE + (size_t)MB * a.Kp
-                      + (a.gamma != nullptr ? 4 * (size_t)a.Kp : 0) + (2 * a.nst + 1) * 8
-                      + 1024;
-  return launch_on_cluster(kern, dim3(a.Np / COLS), DEC_THREADS, smem, 1, stream, wmap, a);
+  const size_t smem = (size_t)a.nst * dec_stage(BLOCK)
+                      + dec_rest(MB, a.Kp, a.gamma != nullptr, BLOCK, a.nst);
+  return launch_on_cluster(kern, dim3(a.Np / COLS), DEC_THREADS, smem, 1, stream, wmap,
+                           smap, a);
 }
 
-template <int MB, typename T>
-cudaError_t launch_decode_cols(const DecArgs<T>& a, const int* words, int cols,
-                               cudaStream_t stream) {
+template <int MB, typename T, bool BLOCK>
+cudaError_t launch_decode_cols(const DecArgs<T>& a, const int* words, const float* scales,
+                               int cols, cudaStream_t stream) {
   const bool shrt = a.Kp <= DEC_SHORT_K;
-#define BN_DEC(C)                                                                 \
-  (shrt ? launch_decode<MB, T, C, DEC_EPT_SHORT>(a, words, stream)                 \
-        : launch_decode<MB, T, C, DEC_EPT_LONG>(a, words, stream))
+#define BN_DEC(C)                                                                        \
+  (shrt ? launch_decode<MB, T, C, DEC_EPT_SHORT, BLOCK>(a, words, scales, stream)        \
+        : launch_decode<MB, T, C, DEC_EPT_LONG, BLOCK>(a, words, scales, stream))
   switch (cols) {
     case 32: return BN_DEC(32);
     case 64: return BN_DEC(64);
@@ -894,30 +1018,35 @@ cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp, int gl
 }
 
 // K1's decode form (M <= DEC_MAX_M, K <= DEC_MAX_K, checked here: the
-// caller picks the form) with cols columns a block
+// caller picks the form) with cols columns a block; with block, K11's
+// block-scale mode: scale is the layer's block scales [K/32, Np], mult the
+// codes' bias (3: c + (c >> 1), 2: c)
 template <typename T>
 cudaError_t launch_normed_decode(const void* x, int x_stride, int M, int K, int glu,
                                  const float* gamma, float eps, const int* words, int Np,
-                                 const float* scale, const void* resid, void* out, int N,
-                                 int8_t* xq, float* sx, int* sumq, int cols,
-                                 cudaStream_t stream) {
+                                 const float* scale, bool block, uint32_t mult,
+                                 const void* resid, void* out, int N, int8_t* xq,
+                                 float* sx, int* sumq, int cols, cudaStream_t stream) {
   if (M > DEC_MAX_M || K > DEC_MAX_K || (cols != 32 && cols != 64 && cols != 128)
       || Np % cols)
     return cudaErrorInvalidValue;
   // the ring: the block's stages, at most DEC_STAGES, cut where it keeps two
   // blocks an SM (rows of up to DEC_SHORT_K values; longer rows take one
-  // block an SM)
-  const int nk = K / KT, tps = DEC_STAGE / (cols * 64);
-  const int fixed = DEC_MAX_M * K + (gamma != nullptr ? 4 * K : 0) + (2 * DEC_STAGES + 1) * 8
-                    + 1024;
-  const int budget = K <= DEC_SHORT_K ? DEC_TWO_SMEM : DEC_MAX_SMEM;
-  const int nst = std::max(1, std::min({DEC_STAGES, (nk + tps - 1) / tps,
-                                        (budget - fixed) / DEC_STAGE}));
+  // block an SM); K11's an even number, at least two (its two halves of
+  // warps read alternate stages, each from its own slots)
+  const int nk = K / KT, tps = DEC_STAGE / (cols * 64), ns = (nk + tps - 1) / tps;
+  const int room = (K <= DEC_SHORT_K ? DEC_TWO_SMEM : dec_max_smem(block))
+                   - dec_rest(DEC_MAX_M, K, gamma != nullptr, block, DEC_STAGES);
+  int nst = std::min({DEC_STAGES, block ? ns + (ns & 1) : ns, room / dec_stage(block)});
+  nst = block ? std::max(2, nst & ~1) : std::max(1, nst);
   const DecArgs<T> a = {static_cast<const T*>(x), x_stride, M, K, glu, gamma, eps, Np,
-                        scale, static_cast<const T*>(resid), static_cast<T*>(out), N,
-                        xq, sx, sumq, nst};
-  return M == 1 ? launch_decode_cols<1, T>(a, words, cols, stream)
-                : launch_decode_cols<2, T>(a, words, cols, stream);
+                        block ? nullptr : scale, static_cast<const T*>(resid),
+                        static_cast<T*>(out), N, xq, sx, sumq, nst, mult};
+  if (block)
+    return M == 1 ? launch_decode_cols<1, T, true>(a, words, scale, cols, stream)
+                  : launch_decode_cols<2, T, true>(a, words, scale, cols, stream);
+  return M == 1 ? launch_decode_cols<1, T, false>(a, words, nullptr, cols, stream)
+                : launch_decode_cols<2, T, false>(a, words, nullptr, cols, stream);
 }
 
 }  // namespace
@@ -943,10 +1072,31 @@ int bn_w2a8_normed_decode(const void* x, int x_stride, int M, int K, int glu,
   if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return (int)launch_normed_decode<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
-                                                    words, Np, scale, resid, out, N, xq,
-                                                    sx, sumq, cols, stream);
+                                                    words, Np, scale, false, 3u, resid, out,
+                                                    N, xq, sx, sumq, cols, stream);
   return (int)launch_normed_decode<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
-                                          scale, resid, out, N, xq, sx, sumq, cols, stream);
+                                          scale, false, 3u, resid, out, N, xq, sx, sumq,
+                                          cols, stream);
+}
+
+// K11: K1's decode form in its block-scale mode, the same operands but the
+// scales: f32 [K/32, Np], a scale a 32-row block and column; lut_bias picks
+// the codes' biased value (1: bitnet32's c + (c >> 1), 0: TL's c).  M <= 2,
+// K <= 14336, cols as K1's.  One launch.
+int bn_tl_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
+                      const float* gamma, float eps, const int* words, int Np,
+                      const float* scales, const void* resid, void* out, int N,
+                      int8_t* xq, float* sx, int* sumq, int lut_bias, int dtype, int cols,
+                      cudaStream_t stream) {
+  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
+  const uint32_t mult = lut_bias ? 3u : 2u;
+  if (dtype == 1)
+    return (int)launch_normed_decode<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
+                                                    words, Np, scales, true, mult, resid,
+                                                    out, N, xq, sx, sumq, cols, stream);
+  return (int)launch_normed_decode<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
+                                          scales, true, mult, resid, out, N, xq, sx, sumq,
+                                          cols, stream);
 }
 
 int bn_w2a8_normed_gemm(const void* x, int x_stride, int M, int K, int glu,

@@ -2,7 +2,9 @@
 // or one scale a column (qk256 weights under --kernel-path pallas) for Hopper
 // (sm_90a).
 //
-// Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
+// Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py (K11, the
+// W2A8 twin of K12 at B <= 2, is K1's decode kernel in its block-scale mode,
+// ternary_matmul.cu):
 //   K10 bn_blockscale_gemm  <- the _bitnet32_kernel body (:138) of
 //                              _ternary_matmul_2d (pallas_call :1177) and of
 //                              ternary_matmul_stacked_tl (:502, pallas_call :555)
@@ -10,8 +12,6 @@
 //       bn_colscale_gemm       _ternary_matmul_2d (pallas_call :1177): the
 //                              column-scale mode of K10's decode form and of
 //                              its GEMM (below)
-//   K11 bn_tl_w2a8_normed   <- ternary_matmul_stacked_tl_w2a8 (:890,
-//                              pallas_call :960), body _tl_w2a8_fused_kernel (:753)
 //   K12 bn_tl_bf16_normed   <- ternary_matmul_stacked_tl_fused (:669,
 //                              pallas_call :733), body _bitnet32_fused_kernel (:573)
 //
@@ -39,8 +39,8 @@
 //    nonzero weight.  K12's unbiased weights need no correction.
 //  - K10's decode form (M <= MB: the generic path's seven projections and
 //    the stacked loop's four at decode rows): one lane per output column
-//    reads K11's coalesced word rows, so every word and scale is read once
-//    per call whatever M is; K is split over a thread block cluster (up to 8
+//    reads coalesced word rows (a half tile of 8 a warp), so every word and
+//    scale is read once per call whatever M is; K is split over a thread block cluster (up to 8
 //    blocks) where the column blocks alone leave the SMs idle (k / v: 20
 //    column blocks on 132 SMs), and the cluster's partials are added in rank
 //    order through distributed shared memory (one launch, no scratch, no
@@ -69,20 +69,6 @@
 //    read x itself (f32 x, or rows 16-byte misaligned), the bf16 rows.  Both
 //    subtract 2 * sum once, after the K reduction, then scale:
 //    (acc - 2 * sum) * s[n], rounded in that order as the JAX epilogue is.
-//  - K11 (decode, M <= 2) is bound by the bytes of words and scales: K1's
-//    one-launch design (every block recomputes the int8 row preamble, the
-//    same code as K1's, so the rows are K1's bit for bit) with the K
-//    reduction factored over the scale blocks; rows longer than 8192 (the
-//    8B down projection) take K1's two-kernel design instead (a row
-//    preamble launch that also writes the 32-row block sums, then the
-//    GEMV).  In the KT=256 word layout, scale block b of a tile is plane
-//    p = b/2, words 8(b%2) .. 8(b%2)+7, so a thread owns a half tile (8
-//    word rows) of one column: per plane, 8 dp4a give the block's exact
-//    int32 partial, minus twice the block's activation sum (from the
-//    preamble), then one f32 fma with s[b, n].
-//    The Pallas kernel's [32, Kp] block-masked activation matrix (a Mosaic
-//    lane-slicing workaround, :766-776) has no counterpart.  Per-warp f32
-//    sums are added in a fixed order (no float atomics: runs repeat).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -791,14 +777,9 @@ bf16_rows(const T* __restrict__ x, int x_stride, int K, int glu,
 }
 
 // ---------------------------------------------------------------------------
-// K11: 512 threads = 16 warps; block = 32 columns (a lane each).  Warp w
-// takes half tiles w, w + 16, ... (8 word rows each); the next half tile's
-// words and scales are in flight while this one computes.  Rows up to
-// FUSED_MAX_K take one launch (tl_w2a8_fused: every block runs the row
-// preamble); longer rows (the 8B down projection, K = 14336) take two, as
-// K1 does (tl_quantize_rows, then tl_w2a8_gemv reading the int8 rows and
-// their 32-row block sums from L2 into shared memory).  Both end in the
-// same block-partial dot and epilogue (tl_dot_epilogue).
+// A lane's words of half tile ht (8 word rows of column n; zeros past the
+// last half tile), and with tl_load_half their four block scales, read from
+// global memory (K10's decode form keeps the next half tile's in flight).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void load_words_half(int ht, int halves,
                                                 const int* __restrict__ words, int Np, int n,
@@ -819,217 +800,11 @@ __device__ __forceinline__ void tl_load_half(int ht, int halves, const int* __re
     s[p] = ht < halves ? __ldg(scales + (size_t)(t * 8 + 2 * p + h) * Np + n) : 0.f;
 }
 
-// xs: MB int8 rows as ints, row stride xs_ld ints; sumqb: their 32-row block
-// sums, row stride sb_ld; wv / sv: the warp's first half tile, in flight.
-template <int MB, bool LUT_BIAS, typename T>
-__device__ __forceinline__ void tl_dot_epilogue(
-    const int* xs, int xs_ld, const int* sumqb, int sb_ld, const float* sx_s,
-    float (*red)[MB][32], const int* __restrict__ words, int Np,
-    const float* __restrict__ scales, int M, int Kp, const T* __restrict__ resid,
-    T* __restrict__ out, int N, int (&wv)[8], float (&sv)[4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + lane;
-  const int halves = Kp / 128;                      // 8 word rows each
-  float y[MB];
-#pragma unroll
-  for (int mm = 0; mm < MB; ++mm) y[mm] = 0.f;
-  for (int ht = warp; ht < halves; ht += FUSED_WARPS) {
-    int wn[8];
-    float sn[4];
-    tl_load_half(ht + FUSED_WARPS, halves, words, scales, Np, n, wn, sn);
-    const int t = ht >> 1, h = ht & 1;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int xi = t * 64 + p * 16 + 8 * h;       // int index of K row t*256 + p*64 + 32h
-      const int b = t * 8 + 2 * p + h;              // the 32-row scale block
-#pragma unroll
-      for (int mm = 0; mm < MB; ++mm) {
-        int acc = 0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          acc = __dp4a(biased_plane<LUT_BIAS>(wv[i], p), xs[mm * xs_ld + xi + i], acc);
-        y[mm] = fmaf((float)(acc - 2 * sumqb[mm * sb_ld + b]), sv[p], y[mm]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) wv[i] = wn[i];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) sv[p] = sn[p];
-  }
-#pragma unroll
-  for (int mm = 0; mm < MB; ++mm) red[warp][mm][lane] = y[mm];
-  __syncthreads();
-  for (int i = threadIdx.x; i < MB * 32; i += blockDim.x) {
-    const int mm = i / 32, nc = blockIdx.x * 32 + (i % 32);
-    if (mm < M && nc < N) {
-      float acc = 0.f;
-      for (int w = 0; w < FUSED_WARPS; ++w) acc = __fadd_rn(acc, red[w][mm][i % 32]);
-      float v = __fmul_rn(acc, sx_s[mm]);
-      if (resid != nullptr) v = __fadd_rn(v, load_f32(resid, (size_t)mm * N + nc));
-      store_f32(out, (size_t)mm * N + nc, v);
-    }
-  }
-}
-
-template <int MB, bool LUT_BIAS, typename T>
-__global__ void __launch_bounds__(FUSED_THREADS)
-tl_w2a8_fused(const T* __restrict__ x, int x_stride, int M, int Kp, int glu,
-              const float* __restrict__ gamma, float eps,
-              const int* __restrict__ words, int Np,
-              const float* __restrict__ scales, const T* __restrict__ resid,
-              T* __restrict__ out, int N, int8_t* __restrict__ xq_out,
-              float* __restrict__ sx_out, int* __restrict__ sumq_out) {
-  __shared__ int xs[MB][FUSED_MAX_K / 4];
-  __shared__ int sumqb[MB][FUSED_MAX_K / 32];
-  __shared__ float red[FUSED_WARPS][MB][32];
-  __shared__ float sx_s[MB];
-  __shared__ int sumq_s[MB];
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int n = blockIdx.x * 32 + (threadIdx.x & 31);
-  int wv[8];
-  float sv[4];
-  tl_load_half(threadIdx.x >> 5, Kp / 128, words, scales, Np, n, wv, sv);  // in flight
-
-  fused_quantize_rows(x, x_stride, M, Kp, glu, gamma, eps, xs, sx_s, sumq_s,
-                      sumqb, redf, redi, xq_out, sx_out, sumq_out);
-  tl_dot_epilogue<MB, LUT_BIAS, T>(&xs[0][0], FUSED_MAX_K / 4, &sumqb[0][0],
-                                   FUSED_MAX_K / 32, sx_s, red, words, Np, scales,
-                                   M, Kp, resid, out, N, wv, sv);
-}
-
-// Launch 1 of K11's two-kernel path: one block of 512 threads per row m,
-// K1's preamble (silu(gate) * up, RMSNorm, absmax int8 quantization, the
-// same arithmetic as fused_quantize_rows, k = threadIdx.x + 512 i) plus the
-// sums of each 32-row block (32 consecutive k are one warp's lanes).
-template <typename T>
-__global__ void __launch_bounds__(FUSED_THREADS)
-tl_quantize_rows(const T* __restrict__ x, int x_stride, int K, int glu,
-                 const float* __restrict__ gamma, float eps, int8_t* __restrict__ xq,
-                 float* __restrict__ sx_out, int* __restrict__ sumq_out,
-                 int* __restrict__ sumqb) {
-  extern __shared__ float row[];         // K floats
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int m = blockIdx.x;
-  const T* xr = x + (size_t)m * x_stride;
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < K; k += FUSED_THREADS) {
-    float v = load_f32(xr, k);
-    if (glu) {                           // silu(gate) * up
-      const float sig = 1.f / (1.f + expf(-v));
-      v = __fmul_rn(__fmul_rn(v, sig), load_f32(xr, (size_t)K + k));
-    }
-    row[k] = v;
-    ss += v * v;
-  }
-  if (gamma != nullptr) {                // RMSNorm: (x * rsqrt(mean + eps)) * g
-    const float var = block_reduce(ss, redf, false) / (float)K;
-    const float r = 1.f / sqrtf(var + eps);
-    __syncthreads();
-    for (int k = threadIdx.x; k < K; k += FUSED_THREADS)
-      row[k] = __fmul_rn(__fmul_rn(row[k], r), gamma[k]);
-  }
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += FUSED_THREADS) amax = fmaxf(amax, fabsf(row[k]));
-  amax = block_reduce(amax, redf, true);
-  const float sx = fmaxf(amax, 1e-8f) / 127.f;
-  int sq = 0;
-  for (int k = threadIdx.x; k < K; k += FUSED_THREADS) {   // K % 32 == 0: whole warps
-    const int qi = (int)fminf(fmaxf(rintf(row[k] / sx), -127.f), 127.f);
-    xq[(size_t)m * K + k] = (int8_t)qi;
-    sq += qi;
-    int bs = qi;
-    for (int o = 16; o > 0; o >>= 1) bs += __shfl_xor_sync(0xffffffffu, bs, o);
-    if ((threadIdx.x & 31) == 0) sumqb[(size_t)m * (K / 32) + (k >> 5)] = bs;
-  }
-  sq = block_reduce(sq, redi, false);
-  if (threadIdx.x == 0) {
-    sx_out[m] = sx;
-    sumq_out[m] = sq;
-  }
-}
-
-// Launch 2: the rows, their scales and block sums from L2 into dynamic
-// shared memory (MB * Kp * 9/8 bytes), then K11's dot and epilogue.
-template <int MB, bool LUT_BIAS, typename T>
-__global__ void __launch_bounds__(FUSED_THREADS)
-tl_w2a8_gemv(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-             const int* __restrict__ sumqb_g, int M, int Kp,
-             const int* __restrict__ words, int Np, const float* __restrict__ scales,
-             const T* __restrict__ resid, T* __restrict__ out, int N) {
-  extern __shared__ int smem[];
-  int* xs = smem;                                   // [MB][Kp / 4]
-  int* sumqb = smem + MB * (Kp / 4);                // [MB][Kp / 32]
-  __shared__ float red[FUSED_WARPS][MB][32];
-  __shared__ float sx_s[MB];
-  const int n = blockIdx.x * 32 + (threadIdx.x & 31);
-  int wv[8];
-  float sv[4];
-  tl_load_half(threadIdx.x >> 5, Kp / 128, words, scales, Np, n, wv, sv);  // in flight
-  for (int i = threadIdx.x; i < MB * (Kp / 4); i += FUSED_THREADS) {
-    const int mm = i / (Kp / 4), kk = i % (Kp / 4);
-    xs[i] = mm < M ? reinterpret_cast<const int*>(xq + (size_t)mm * Kp)[kk] : 0;
-  }
-  for (int i = threadIdx.x; i < MB * (Kp / 32); i += FUSED_THREADS) {
-    const int mm = i / (Kp / 32);
-    sumqb[i] = mm < M ? sumqb_g[(size_t)mm * (Kp / 32) + i % (Kp / 32)] : 0;
-  }
-  if (threadIdx.x < MB) sx_s[threadIdx.x] = (int)threadIdx.x < M ? sx[threadIdx.x] : 0.f;
-  __syncthreads();
-  tl_dot_epilogue<MB, LUT_BIAS, T>(xs, Kp / 4, sumqb, Kp / 32, sx_s, red, words, Np,
-                                   scales, M, Kp, resid, out, N, wv, sv);
-}
-
-template <bool LUT_BIAS, typename T>
-cudaError_t launch_tl_w2a8(const void* x, int x_stride, int M, int K, int glu,
-                           const float* gamma, float eps, const int* words, int Np,
-                           const float* scales, const void* resid, void* out,
-                           int N, int8_t* xq, float* sx, int* sumq, int* sumqb,
-                           cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* r = static_cast<const T*>(resid);
-  T* o = static_cast<T*>(out);
-  if (K <= FUSED_MAX_K) {
-    if (M == 1)
-      tl_w2a8_fused<1, LUT_BIAS, T><<<Np / 32, FUSED_THREADS, 0, stream>>>(
-          xt, x_stride, M, K, glu, gamma, eps, words, Np, scales, r, o, N, xq, sx, sumq);
-    else
-      tl_w2a8_fused<2, LUT_BIAS, T><<<Np / 32, FUSED_THREADS, 0, stream>>>(
-          xt, x_stride, M, K, glu, gamma, eps, words, Np, scales, r, o, N, xq, sx, sumq);
-    return cudaGetLastError();
-  }
-  const size_t rsmem = (size_t)K * sizeof(float);
-  if (rsmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tl_quantize_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsmem);
-    if (e != cudaSuccess) return e;
-  }
-  tl_quantize_rows<T><<<M, FUSED_THREADS, rsmem, stream>>>(xt, x_stride, K, glu, gamma,
-                                                          eps, xq, sx, sumq, sumqb);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-#define BN_GEMV(MBV)                                                                \
-  {                                                                                 \
-    const size_t gsmem = (size_t)MBV * (K / 4 + K / 32) * sizeof(int);              \
-    if (gsmem > 48 * 1024) {                                                        \
-      e = cudaFuncSetAttribute(tl_w2a8_gemv<MBV, LUT_BIAS, T>,                      \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem); \
-      if (e != cudaSuccess) return e;                                               \
-    }                                                                               \
-    tl_w2a8_gemv<MBV, LUT_BIAS, T><<<Np / 32, FUSED_THREADS, gsmem, stream>>>(      \
-        xq, sx, sumqb, M, K, words, Np, scales, r, o, N);                           \
-  }
-  if (M == 1) BN_GEMV(1) else BN_GEMV(2)
-#undef BN_GEMV
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // K10 decode form: grid (split, Np / 32), cluster (split, 1, 1); W warps a
 // block.  Block s of a cluster takes half tiles [h0, h1) of its 32 columns
 // (the split of Kp / 128 half tiles); warp w takes half tiles h0 + w,
-// h0 + w + W, ... (8 word rows = 4 scale blocks of 32 K rows, as K11's),
+// h0 + w + W, ... (8 word rows = 4 scale blocks of 32 K rows),
 // the next one's words, scales and rows of x in flight while it computes
 // one.  A warp stages its half tile's rows of x in its own slice of shared
 // memory (bf16-rounded f32; rows past M and K are 0) and forms their 32-row
@@ -1416,28 +1191,6 @@ int bn_colscale_gemm(const void* x, int x_stride, int M, int K, int Kp, const in
                                                     out, N, xb, sumx, bt, split, stream);
   return (int)launch_colscale_gemm<float>(x, x_stride, M, K, Kp, words, Np, scale, out, N,
                                           xb, sumx, bt, split, stream);
-}
-
-// K11: M <= 2, K == Kp (a multiple of 256); xq / sx / sumq receive the int8
-// rows, their scales and sums (as K1's); sumqb [M, K/32] is the two-kernel
-// path's scratch for the 32-row block sums (K > FUSED_MAX_K).
-int bn_tl_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
-                      const float* gamma, float eps, const int* words, int Np,
-                      const float* scales, const void* resid, void* out, int N,
-                      int8_t* xq, float* sx, int* sumq, int* sumqb, int lut_bias,
-                      int dtype, cudaStream_t stream) {
-  if (M < 1 || M > FUSED_MAX_M || K % KT) return (int)cudaErrorInvalidValue;
-#define BN_TL(LB, TT)                                                            \
-  return (int)launch_tl_w2a8<LB, TT>(x, x_stride, M, K, glu, gamma, eps, words,  \
-                                     Np, scales, resid, out, N, xq, sx, sumq,    \
-                                     sumqb, stream)
-  if (dtype == 1) {
-    if (lut_bias) BN_TL(true, __nv_bfloat16);
-    BN_TL(false, __nv_bfloat16);
-  }
-  if (lut_bias) BN_TL(true, float);
-  BN_TL(false, float);
-#undef BN_TL
 }
 
 // K12: K == Kp; xb bf16 [M, K] scratch for the preamble's rows; the GEMM

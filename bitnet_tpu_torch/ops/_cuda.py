@@ -42,14 +42,14 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
                                 I, P),
         "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, I, I, I, P),
         "bn_w2a8_matmul": (P, I, I, P, I, F, P, P, P, P, I, I, I, P),
+        "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, I,
+                              I, P),
     },
     "ternary_matmul_tl": {
         "bn_blockscale_gemm": (P, I, I, I, I, P, I, P, P, I, P, P, P, I, I, I, I, P),
         "bn_blockscale_decode": (P, I, I, I, P, I, P, P, I, I, I, P),
         "bn_colscale_decode": (P, I, I, I, P, I, P, P, I, I, P),
         "bn_colscale_gemm": (P, I, I, I, I, P, I, P, P, I, P, P, I, I, I, P),
-        "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, P,
-                              I, I, P),
         "bn_tl_bf16_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, I, I, I, I,
                               P),
     },

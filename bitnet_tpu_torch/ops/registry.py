@@ -94,7 +94,7 @@ REGISTRY: tuple[KernelSpec, ...] = (
                "and :555",
                ternary_matmul_blockscale_bf16),   # decode form (M <= MB) and GEMM
     KernelSpec("ternary_matmul_tl_w2a8_normed", "cuda",
-               "bitnet_tpu_torch/csrc/ternary_matmul_tl.cu",
+               "bitnet_tpu_torch/csrc/ternary_matmul.cu",
                "bitnet_tpu/ops/ternary_matmul.py:960",
                ternary_matmul_tl_w2a8_normed),
     KernelSpec("ternary_matmul_tl_bf16_normed", "cuda",

@@ -41,7 +41,10 @@ subtracts the correction itself, tiled by :func:`blockscale_gemm_plan`.
 K11 :func:`ternary_matmul_tl_w2a8_normed` replaces
 ``ternary_matmul_stacked_tl_w2a8`` (``:960``): K1's preamble and int8 rows,
 then ``y = sx·Σ_b s[b,n]·(Σ_{k∈b} q·v − 2·Σ_{k∈b} q)`` with exact int32
-block partials, plus the residual; decode rows M ≤ 2.
+block partials, plus the residual; decode rows M ≤ 2.  It is K1's decode
+kernel in its block-scale mode (``csrc/ternary_matmul.cu``): one launch at
+every K up to ``W2A8_DECODE_MAX_K``, tiled by the same
+:func:`w2a8_decode_plan`.
 
 K12 :func:`ternary_matmul_tl_bf16_normed` replaces
 ``ternary_matmul_stacked_tl_fused`` (``:733``): the same preamble ending in
@@ -184,26 +187,68 @@ def _check_stack(packed, scale_vec, l, k_dim, pad_ok=False):
 # K1's one-launch decode form: up to W2A8_DECODE_MAX_M rows and rows of up
 # to W2A8_DECODE_MAX_K values (the 8B down projection); a block computes one
 # of W2A8_DECODE_COLS output columns.  Two blocks fit an SM for rows of up
-# to W2A8_DECODE_SHORT_K values, one for longer rows.  The wrapper picks the
-# form; the kernel's entry point refuses a call past these limits (its
+# to W2A8_DECODE_SHORT_K values, one for longer rows.  K11 is the same
+# kernel in its block-scale mode, under the same limits.  The wrapper picks
+# the form; the kernel's entry point refuses a call past these limits (its
 # DEC_MAX_M, DEC_MAX_K and DEC_SHORT_K, which a CPU test holds equal).
 W2A8_DECODE_MAX_M = 2
 W2A8_DECODE_MAX_K = 14336
 W2A8_DECODE_SHORT_K = 4096
 W2A8_DECODE_COLS = (32, 64, 128)
+# A block's ring: at most W2A8_DECODE_STAGES stages of W2A8_DECODE_STAGE
+# bytes of words (K11's stage carries the stage's block scales too, half the
+# words' bytes again), cut to what two blocks an SM leave a block where the
+# rows are short (W2A8_DECODE_TWO_SMEM); the kernel's DEC_STAGES, DEC_STAGE
+# and DEC_TWO_SMEM, held equal by a CPU test.
+W2A8_DECODE_STAGE = 8192
+W2A8_DECODE_STAGES = 8
+W2A8_DECODE_TWO_SMEM = 108 * 1024
 
 
-def w2a8_decode_plan(M: int, K: int, N: int, sms: int) -> int:
-    """Columns a block of K1's decode form for M ≤ 2 rows × [K, N] words on
-    ``sms`` SMs: the narrowest of ``W2A8_DECODE_COLS`` that divides N and
-    whose blocks all fit the card at once (two an SM for rows of up to
-    ``W2A8_DECODE_SHORT_K`` values, else one; the widest where none does).
-    K is not split: over a cluster, every split of every main-path shape was
-    slower than none, the generic path's k and v (20 column blocks)
-    included (PERF.md §6, K1's plan sweep).  M does not enter."""
-    cap = (2 if K <= W2A8_DECODE_SHORT_K else 1) * sms
+def w2a8_decode_smem(K: int, cols: int, block_scales: bool,
+                     gamma: bool = True) -> tuple[int, int]:
+    """(stages, bytes of dynamic shared memory) of one block of the decode
+    form at M = 2 rows of K values and ``cols`` columns, as the kernel's
+    entry point sizes them (``launch_normed_decode``): the ring, then the
+    int8 rows, K11's warps' f32 partials, gamma, the barriers and the
+    alignment slack.  K11's ring has an even number of stages, at least
+    two."""
+    m = W2A8_DECODE_MAX_M
+    stage = W2A8_DECODE_STAGE * 3 // 2 if block_scales else W2A8_DECODE_STAGE
+
+    def rest(k, g, nst):
+        return (m * k + (512 * m * 4 if block_scales else 0)
+                + (4 * k if g else 0) + (2 * nst + 1) * 8 + 1024)
+    most = (W2A8_DECODE_STAGES * stage
+            + rest(W2A8_DECODE_MAX_K, True, W2A8_DECODE_STAGES))
+    room = ((W2A8_DECODE_TWO_SMEM if K <= W2A8_DECODE_SHORT_K else most)
+            - rest(K, gamma, W2A8_DECODE_STAGES))
+    ns = -(-(K // 256) // (W2A8_DECODE_STAGE // (cols * 64)))
+    nst = min(W2A8_DECODE_STAGES, ns + ns % 2 if block_scales else ns, room // stage)
+    nst = max(2, nst - nst % 2) if block_scales else max(1, nst)
+    return nst, nst * stage + rest(K, gamma, nst)
+
+
+@functools.lru_cache(maxsize=None)
+def w2a8_decode_plan(M: int, K: int, N: int, sms: int,
+                     block_scales: bool = False) -> int:
+    """Columns a block of K1's decode form (``block_scales``: K11's mode)
+    for M ≤ 2 rows × [K, N] words on ``sms`` SMs: the narrowest of
+    ``W2A8_DECODE_COLS`` that divides N and whose blocks all fit the card at
+    once (two an SM for rows of up to ``W2A8_DECODE_SHORT_K`` values, where
+    two blocks' shared memory, K11's larger stages counted, fits the SM;
+    else one; the widest where none does).  K is not split: over a cluster,
+    every split of every main-path shape was slower than none, the generic
+    path's k and v (20 column blocks) included (PERF.md §6, K1's plan
+    sweep).  M does not enter.  Cached: a decode step asks it once a call,
+    and the host paces the step."""
     fits = [c for c in W2A8_DECODE_COLS if N % c == 0]
-    return next((c for c in fits if N // c <= cap), fits[-1])
+
+    def resident(c):
+        two = (K <= W2A8_DECODE_SHORT_K
+               and w2a8_decode_smem(K, c, block_scales)[1] <= W2A8_DECODE_TWO_SMEM)
+        return (2 if two else 1) * sms
+    return next((c for c in fits if N // c <= resident(c)), fits[-1])
 
 
 def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
@@ -794,14 +839,17 @@ def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                   lut_bias: bool = False) -> torch.Tensor:
     """K11: ``[resid +] W2A8(norm(glu(x))) @ W[l]`` with per-32-row block
     scales, M ≤ 2.  x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed
-    [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None.  Rows
-    of up to 8192 values take one launch, longer ones (the 8B down
-    projection, K = 14336) two: the row preamble, then the GEMV."""
+    [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None.  On
+    the card a call is one launch of K1's decode kernel in its block-scale
+    mode, K ≤ ``W2A8_DECODE_MAX_K`` (the 8B down projection's 14336), and
+    no other PyTorch op than ``torch.empty``."""
     if not _check_normed_block("K11", l, x, packed, scales, gamma, k_dim, n_dim,
                                glu, resid, TL_W2A8_MAX_M):
         return ternary_matmul_tl_w2a8_normed_plain(
             x, packed[l], scales[l], None if gamma is None else gamma[l], eps,
             glu, resid, n_dim, lut_bias)
+    if k_dim > W2A8_DECODE_MAX_K:
+        raise KernelError(f"K11's kernel takes K <= {W2A8_DECODE_MAX_K}, got {k_dim}")
     out = _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu,
                           resid, lut_bias)[0]
     ternary_matmul_tl_w2a8_normed.launches += 1
@@ -810,25 +858,25 @@ def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
 
 def _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
                     lut_bias):
-    """Launch K11 on checked operands.  Returns (out, scratch): the int8
-    rows, their scales and their sums (``xq | sx | sumq``), as K1's, then
-    the two-kernel path's 32-row block sums."""
+    """Launch K11 on checked operands: K1's decode form in its block-scale
+    mode, tiled by :func:`w2a8_decode_plan`.  Returns (out, scratch): the
+    int8 rows, their scales and their sums (``xq | sx | sumq``), as K1's."""
     M, Np = x.shape[0], packed.shape[2]
     dev = x.device
     out = torch.empty((M, n_dim), dtype=x.dtype, device=dev)
-    scratch = torch.empty(M * (k_dim + 8) + 4 * M * (k_dim // 32), dtype=torch.int8,
-                          device=dev)
+    scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
     p = scratch.data_ptr()
-    lib = _cuda.library("ternary_matmul_tl")
+    lib = _cuda.library("ternary_matmul")
     rc = lib.bn_tl_w2a8_normed(
         x.data_ptr(), x.shape[1], M, k_dim, int(glu),
         None if gamma is None else gamma.data_ptr() + 4 * l * k_dim, eps,
         packed.data_ptr() + 4 * l * packed.stride(0), Np,
         scales.data_ptr() + 4 * l * scales.stride(0),
         None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
-        p, p + M * k_dim, p + M * k_dim + 4 * M, p + M * k_dim + 8 * M,
-        int(lut_bias), _DTYPE_CODE[x.dtype], _cuda.stream_ptr(dev))
-    _cuda.check(lib, "ternary_matmul_tl", rc, "ternary_matmul_tl_w2a8_normed")
+        p, p + M * k_dim, p + M * k_dim + 4 * M, int(lut_bias), _DTYPE_CODE[x.dtype],
+        w2a8_decode_plan(M, k_dim, Np, _sm_count(dev.index), block_scales=True),
+        _cuda.stream_ptr(dev))
+    _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_tl_w2a8_normed")
     return out, scratch
 
 
@@ -841,7 +889,7 @@ def _tl_w2a8_cuda(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
     M, MK = x.shape[0], x.shape[0] * k_dim
     return (out, scratch[:MK].view(M, k_dim),
             scratch[MK:MK + 4 * M].view(torch.float32),
-            scratch[MK + 4 * M:MK + 8 * M].view(torch.int32))
+            scratch[MK + 4 * M:].view(torch.int32))
 
 
 ternary_matmul_tl_w2a8_normed.launches = 0

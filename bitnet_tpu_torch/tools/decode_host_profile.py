@@ -5,9 +5,12 @@ Run on the card from the repository root:
 
     python -m bitnet_tpu_torch.tools.decode_host_profile [--path generic]
     python -m bitnet_tpu_torch.tools.decode_host_profile --path pool --batch 8 --kv auto
+    python -m bitnet_tpu_torch.tools.decode_host_profile --path tl
 
 ``--path fused`` (the default) is slice 1's stacked path (S=4096, int8
-head, B=1); ``--path generic`` the unfused path as the CLI builds its
+head, B=1); ``--path tl`` the same with every linear re-quantized to TL1
+at init (its four projections a layer on K11); ``--path generic`` the
+unfused path as the CLI builds its
 engine (S=2048, auto → w2a8, bf16 tied head, B=1); ``--path pool`` the
 fused path over a pool of ``--batch`` slots, each holding a 32-token
 prompt, with a ``--kv`` cache (S=1024, one ``decode_batch_step`` a step).
@@ -44,7 +47,7 @@ STEPS, TOP = 30, 12
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("fused", "generic", "pool"), default="fused")
+    ap.add_argument("--path", choices=("fused", "tl", "generic", "pool"), default="fused")
     ap.add_argument("--batch", type=int, default=8, help="pool slots (--path pool)")
     ap.add_argument("--kv", default="bf16", choices=("bf16", "int8", "fp8", "auto"),
                     help="KV cache dtype (--path pool)")
@@ -56,6 +59,7 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip().splitlines()[0]
     fused = dict(logits_dtype="int8", kernel_path="w2a8", fuse_projections=True)
     ec = {"fused": EngineConfig(max_seq_len=4096, **fused),
+          "tl": EngineConfig(max_seq_len=4096, weight_quant="tl1", **fused),
           "generic": EngineConfig(max_seq_len=2048),
           "pool": EngineConfig(max_seq_len=1024, max_batch_size=args.batch,
                                kv_cache_dtype=args.kv, **fused)}[args.path]

@@ -1,18 +1,20 @@
-"""Where the µs of one K1 call go on the card, from ``%globaltimer`` stamps
-in an instrumented copy of the kernel, and the gap between K1 launches in a
-CUDA-graph chain, from ``torch.profiler``.
+"""Where the µs of one K1 or K11 call go on the card, from ``%globaltimer``
+stamps in an instrumented copy of the kernel, and the gap between launches
+in a CUDA-graph chain, from ``torch.profiler``.
 
 Run on the card from the repository root:
 
-    python -m bitnet_tpu_torch.tools.k1_timeline [--force COLS]
+    python -m bitnet_tpu_torch.tools.k1_timeline [--force COLS] [--kernel K1|K11]
 
 It copies ``csrc/`` into ``csrc/build/k1_timeline/`` (git-ignored, through
-``_timeline``), inserts a stamp at each phase boundary of K1's decode kernel, builds that copy, and
-prints, for K1 at M=1 on the 2B o (2560 x 2560, norm, residual) and gate|up
-(2560 x 13824, norm) projections and on the 8B down projection (14336 x
-4096, SwiGLU, residual), three calls' stamps in µs from the first block's
-start, for the first block and for the block that finished last, with the
-card's name and power limit.  Stamps, per block:
+``_timeline``), inserts a stamp at each phase boundary of K1's decode
+kernel, builds that copy, and prints, for K1 (qk256 words, a scale a
+column) and for K11 (the same kernel in its block-scale mode: TL words and
+a scale a 32-row block) at M=1 on the 2B o (2560 x 2560, norm, residual)
+and gate|up (2560 x 13824, norm) projections and on the 8B down projection
+(14336 x 4096, SwiGLU, residual), three calls' stamps in µs from the first
+block's start, for the first block and for the block that finished last,
+with the card's name and power limit.  Stamps, per block:
 
   start        the block's first instruction
   wait         griddepcontrol.wait returned (the launch before has ended)
@@ -21,11 +23,12 @@ card's name and power limit.  Stamps, per block:
   last words   the dot's last wait on the words returned
   end          the block's outputs are written
 
-(the row kernel of a two-kernel call stamps its own start and end).
-``--force`` sets the decode form's column block past ``w2a8_decode_plan``.
-Then the same calls, eight
-layers captured in one CUDA graph and replayed under the profiler, give each
-launch's device µs and the gap from one K1 kernel's end to the next one's
+(the row kernel of a two-kernel call stamps its own start and end; the
+stamps are thread 0's, so K11's are those of warps 0-7, the even stages).
+``--force`` sets the decode form's column block past ``w2a8_decode_plan``;
+``--kernel`` keeps one of the two.  Then the same calls, eight layers
+captured in one CUDA graph and replayed under the profiler, give each
+launch's device µs and the gap from one kernel's end to the next one's
 start (negative where the next starts early, as a programmatic dependent).
 
 The committed kernel carries no stamp; ``ANCHORS`` are the source lines the
@@ -56,7 +59,7 @@ ANCHORS = (
     ("  __shared__ int part[MB][COLS];\n", "  BN_T(0);\n", True),
     ("    grid_dependency_wait();               // x, resid and out: after the launch before\n",
      "    BN_T(1);\n", False),
-    ("    // the dot: each word once, from the ring\n", "    BN_T(2);\n", True),
+    ("    // the dot: each word once, from the ring.", "    BN_T(2);\n", True),
     ("      mbar_wait(&full[slot], (s / nst) & 1);\n",
      "      if (s == 0) BN_T(3);\n      BN_T(4);\n", False),
     ("    store_f32(a.out, (size_t)emm * a.N + en, y);\n  }\n",
@@ -69,10 +72,9 @@ ANCHORS = (
     ("    dec_reduce<MB>(am, redf, true);\n", "    BN_T(10);\n", False),
     ("    consumers_sync();                     // the int8 rows are in place\n",
      "    BN_T(11);\n", True),
-    ("    for (int mm = 0; mm < MB; ++mm) atomicAdd(&part[mm][col], acc[mm]);\n  }\n",
+    ("      else atomicAdd(&part[mm][col], acc[mm]);\n    }\n  }\n",
      "  BN_T(12);\n", False),
-    ("  if (eout) {\n    float y = (float)(part[emm][ec] - 2 * sq_s[emm]);\n",
-     "  BN_T(13);\n", True),
+    ("  if (eout) {\n    float y;\n", "  BN_T(13);\n", True),
     ("  extern __shared__ float row[];         // K floats\n", "  BN_Q(0);\n", True),
     ("    sx_out[m] = sx;\n    sumq_out[m] = sq;\n  }\n", "  BN_Q(1);\n", False),
 )
@@ -103,17 +105,28 @@ def instrumented_source(src: str) -> str:
                                 "k1_timeline")
 
 
-def _operands(dev, g, K, N, has_g, glu, has_r):
-    """A stack of enough layers that each call finds its words cold (past
-    the 50 MB L2), and one row of x (and of resid)."""
-    L = max(2, math.ceil((120 << 20) / (K * N // 4)))
+def _operands(dev, g, kernel, K, N, has_g, glu, has_r):
+    """A stack of enough layers that each call finds its words (and K11's
+    block scales) cold (past the 50 MB L2), one row of x (and of resid), and
+    the call of layer l."""
+    per_layer = K * N // 4 + (K * N // 8 if kernel == "K11" else 0)
+    L = max(2, math.ceil((120 << 20) / per_layer))
     w = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32, generator=g,
                       device=dev)
-    sv = (torch.rand((L, N), generator=g, device=dev) + 0.5) * 0.02
+    if kernel == "K11":
+        s = (torch.rand((L, K // 32, N), generator=g, device=dev) * 0.02 + 0.01
+             ).half().float()
+    else:
+        s = (torch.rand((L, N), generator=g, device=dev) + 0.5) * 0.02
     gam = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
     x = torch.randn((1, 2 * K if glu else K), generator=g, device=dev).bfloat16()
     r = torch.randn((1, N), generator=g, device=dev).bfloat16() if has_r else None
-    return L, w, sv, gam, x, r
+    fn = (tm.ternary_matmul_tl_w2a8_normed if kernel == "K11"
+          else tm.ternary_matmul_w2a8_normed)
+
+    def call(l):
+        return fn(l, x, w, s, gam, K, N, 1e-5, glu, r)
+    return L, call
 
 
 def summarize(stamps, qstamps) -> dict:
@@ -178,21 +191,23 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--force", type=int, default=0,
-                    help="COLS: K1's decode form's column block, forced")
-    forced = ap.parse_args(argv).force
-    if forced:
-        mock.patch.object(tm, "w2a8_decode_plan", lambda *a: forced).start()
+                    help="COLS: the decode form's column block, forced")
+    ap.add_argument("--kernel", choices=("K1", "K11"), default=None,
+                    help="time one of K1 and K11 (default: both)")
+    args = ap.parse_args(argv)
+    if args.force:
+        mock.patch.object(tm, "w2a8_decode_plan", lambda *a, **k: args.force).start()
     require_sm90(0)
     dev = torch.device("cuda", 0)
     smi = _timeline.card()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
-    cases = [(name, *_operands(dev, g, K, N, hg, glu, hr), K, N, glu,
-              tm.w2a8_decode_plan(1, K, N, sms)) for name, K, N, hg, glu, hr in CASES]
+    cases = [(f"{kernel} {name}", *_operands(dev, g, kernel, K, N, hg, glu, hr),
+              tm.w2a8_decode_plan(1, K, N, sms, block_scales=kernel == "K11"))
+             for kernel in ("K1", "K11") if args.kernel in (None, kernel)
+             for name, K, N, hg, glu, hr in CASES]
     # the uninstrumented kernel first: the chain's gaps
-    for name, L, w, sv, gam, x, r, K, N, glu, pl in cases:
-        def call(l, w=w, sv=sv, gam=gam, x=x, r=r, K=K, N=N, glu=glu):
-            return tm.ternary_matmul_w2a8_normed(l, x, w, sv, gam, K, N, 1e-5, glu, r)
+    for name, L, call, pl in cases:
         for i in range(2):
             call(i % L)
         torch.cuda.synchronize()
@@ -205,13 +220,13 @@ def main(argv=None) -> None:
 
     def read(clear):
         _timeline.read(lib, "ternary_matmul", READ, (stamps, qstamps), clear)
-    for name, L, w, sv, gam, x, r, K, N, glu, pl in cases:
+    for name, L, call, pl in cases:
         for i in range(2):                            # build, warm up
-            tm.ternary_matmul_w2a8_normed(i % L, x, w, sv, gam, K, N, 1e-5, glu, r)
+            call(i % L)
         torch.cuda.synchronize()
         for i in range(3):
             read(True)
-            tm.ternary_matmul_w2a8_normed(i % L, x, w, sv, gam, K, N, 1e-5, glu, r)
+            call(i % L)
             torch.cuda.synchronize()
             read(False)
             print(json.dumps({"case": f"{name} M=1", "card": smi, "plan": pl, "call": i,

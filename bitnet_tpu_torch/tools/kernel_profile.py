@@ -4,6 +4,7 @@ path's bitnet-b1.58-2B-4T shapes, from ``torch.profiler`` (CUPTI).
 Run on the card from the repository root:
 
     python -m bitnet_tpu_torch.tools.kernel_profile [--only K6,K10]
+    python -m bitnet_tpu_torch.tools.kernel_profile --only K11
 
 It splits what ``chip_smoke.py`` times per wrapper into the kernels that
 ran (K1 at the 2B fused four, M = 1, 2, 8 and 64: its one-launch decode
@@ -11,7 +12,10 @@ form at M <= 2, the row kernel and the GEMM above; at the generic seven and
 the 8B fused four, M = 1 and 2; the ``K1 tiles`` cases force every column
 block of its decode form past ``w2a8_decode_plan`` at M=1 on the 2B and 8B
 fused four and the generic k, the plan's marked; K1's stacks hold enough layers
-to stream past the 50 MB L2 (``fn.layers``); K4's row quantization and
+to stream past the 50 MB L2 (``fn.layers``); K11, K1's decode kernel in its
+block-scale mode, at the 2B and 8B fused four, M = 1 and 2, and in every
+column block at M=1 (the ``K11 tiles`` cases, the plan's marked); K4's row
+quantization and
 wgmma GEMM at M = 8, 512
 and 2048; K10's GEMM form, its row kernel and block-scale GEMM, and K12,
 its preamble and the same GEMM unbiased, at M = 8, 512 and 2048, beside
@@ -94,6 +98,7 @@ def _cases(dev, g):
             yield f"K4 {name} M={M}", lambda i, w=w, sv=sv, x4=x4, K=K, N=N: (
                 tm.ternary_matmul_w2a8(i % LAYERS, x4, w, sv, K, N))
     yield from _k1_cases(dev, g)
+    yield from _k11_cases(dev, g)
     for name, K, N, glu, res in SHAPES:            # bitnet32 / TL weights
         w = torch.randint(-2**31, 2**31, (LAYERS, K // 16, N), dtype=torch.int32,
                           generator=g, device=dev)
@@ -193,6 +198,41 @@ def _k1_cases(dev, g):
                 forced.layers = L
                 mark = " (plan)" if cols == planned else ""
                 yield f"K1 tiles {name} cols={cols}{mark}", forced
+
+
+def _k11_cases(dev, g):
+    """K11 (TL codes, block scales) through its wrapper at the 2B and 8B
+    fused four of ``K1_CASES``, M = 1 and 2, over stacks of at least 120 MB
+    of words and scales, and K1's decode kernel in its block-scale mode in
+    every column block at M=1, forced past ``w2a8_decode_plan``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, K, N, has_g, glu, res, _Ms in K1_CASES:
+        if name.startswith("seven"):
+            continue
+        L = max(LAYERS, -(-(120 << 20) // (K * N // 4 + K * N // 8)))
+        w = torch.randint(-2**31, 2**31, (L, K // 16, N), dtype=torch.int32,
+                          generator=g, device=dev)
+        s = (torch.rand((L, K // 32, N), generator=g, device=dev) * 0.02 + 0.01)
+        gam = torch.rand((L, K), generator=g, device=dev) + 0.5 if has_g else None
+        for M in (1, 2):
+            x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev).bfloat16()
+            r = torch.randn((M, N), generator=g, device=dev).bfloat16() if res else None
+
+            def call(i, w=w, s=s, gam=gam, x=x, r=r, K=K, N=N, glu=glu, L=L):
+                return tm.ternary_matmul_tl_w2a8_normed(i % L, x, w, s, gam, K, N, 1e-5,
+                                                        glu, r)
+            call.layers = L
+            yield f"K11 {name} M={M}", call
+            if M != 1:
+                continue
+            planned = tm.w2a8_decode_plan(1, K, N, sms, block_scales=True)
+            for cols in (c for c in tm.W2A8_DECODE_COLS if N % c == 0):
+                def forced(i, call=call, p=cols):
+                    with mock.patch.object(tm, "w2a8_decode_plan", lambda *a, **k: p):
+                        return call(i)
+                forced.layers = L
+                mark = " (plan)" if cols == planned else ""
+                yield f"K11 tiles {name} cols={cols}{mark}", forced
 
 
 def _attention_cases(dev, g):

@@ -12,6 +12,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,k24,llama8b
     python3 chip_smoke.py --phases probe,build,w2a8,experiments
     python3 chip_smoke.py --phases probe,build,k1
+    python3 chip_smoke.py --phases probe,build,k11
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -25,7 +26,10 @@ no result line):
            (kernels.k1_chain)),
            of bitnet32 / TL weights, of every other decode-attention plan
            (K13-K23), and of the 8B-class model (K24, the fused FFN; K1 and
-           K11 at K = 14336), the stacked-cache and per-b kernels (K25-K27),
+           K11 at the 8B four, K = 14336 included; K11's M table
+           (kernels.k11_m) and one call at K = 2560 and 14336 under the
+           profiler (kernels.k11_profile)), the stacked-cache and per-b
+           kernels (K25-K27),
            the f32-cache instances (K2, K3, K5, K8) and the W2A8 probes and
            prototype (K28-K32): error, median ms (CUDA events), bound, plain
            and library ms; K10's decode form and GEMM side by side at
@@ -56,6 +60,9 @@ no result line):
   k1       (not in the default run, which holds it in kernels) K1's checks
            and times alone (kernels.k1, k1_m, k1_chain): a short call that
            compares two trees
+  k11      (not in the default run, which holds it in kernels) K11's and
+           K12's checks and times alone (kernels.k11, k11_8b, k11_m, k12): a
+           short call that compares two trees
   k24      (not in the default run, which holds it in kernels) K24's checks
            and times alone: a short call that compares two trees
   w2a8     (not in the default run, which holds it in kernels) the W2A8
@@ -264,9 +271,11 @@ def phase_kernels(torch, dev):
     check_k10_forms(torch, dev, g, res)
     check_k11_k12(torch, dev, g, res)
     check_plan_kernels(torch, dev, g, res)
-    # slice 6: the 8B down projection (K = 14336) on K11's two-kernel path
-    # (K1's 8B four are in check_k1_all), and K24 at the 8B FFN shapes
+    # slice 6: K11 at the 8B four, the down projection's K = 14336 included
+    # (K1's 8B four are in check_k1_all), one launch a call under the
+    # profiler, and K24 at the 8B FFN shapes
     check_k11_wide(torch, dev, g, res)
+    check_k11_profile(res)
     check_k24(torch, dev, g, res)
     # slice 7: the stacked-cache and per-b kernels, the f32 cache instances,
     # the W2A8 probes and prototype
@@ -1304,87 +1313,133 @@ def check_k10_forms(torch, dev, g, res, eps=1e-5):
                                  f"kernels: {res[key]}")
 
 
+def _k11_row(torch, tm, l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias, atol):
+    """One K11 call against its gates: within K1's gate of its plain
+    version, its int8 rows, scales and sums K1's on the same input bit for
+    bit, the wrapper's output the launch's bit for bit, and its output the
+    exact block partials of its own rows to f32 rounding (``atol``: the f32
+    sums' order where outputs cancel to near zero)."""
+    L = words.shape[0]
+    g_l = None if gamma is None else gamma[l]
+    out = tm.ternary_matmul_tl_w2a8_normed(l, x, words, s, gamma, K, N, eps, glu, resid,
+                                           lut_bias)
+    plain = tm.ternary_matmul_tl_w2a8_normed_plain(x, words[l], s[l], g_l, eps, glu, resid,
+                                                   N, lut_bias)
+    out2, xq, sx, sumq = tm._tl_w2a8_cuda(l, x, words, s, gamma, K, N, eps, glu, resid,
+                                          lut_bias)
+    ones = torch.ones((L, N), device=x.device)
+    _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(l, x, words, ones, gamma, K, N, eps, glu,
+                                               None)
+    part = tm.tl_block_partials(xq, words[l], lut_bias).float()
+    y = (part * s[l][:, None, :]).sum(0) * sx[:, None]
+    if resid is not None:
+        y = y + resid.float()
+    err = (out.float() - plain.float()).abs().max().item()
+    ref = plain.float().abs().max().item()
+    tol = 2e-2 * ref + 1e-3               # K1's: an int8 activation one step off
+    row = {"M": x.shape[0], "K": K, "N": N, "lut_bias": lut_bias, "max_abs_err": err,
+           "ref_max": ref, "tol": tol,
+           "rows_equal_k1": bool(torch.equal(xq, xq1) and torch.equal(sx, sx1)
+                                 and torch.equal(sumq, sumq1)),
+           "wrapper_equals_launch": bool(torch.equal(out, out2)),
+           # the bf16 output is y rounded once (f32 order aside)
+           "partials_epilogue_ok": bool(
+               ((out.float() - y).abs() <= 2**-8 * y.abs() + atol).all())}
+    row["ok"] = (err <= tol and row["rows_equal_k1"] and row["wrapper_equals_launch"]
+                 and row["partials_epilogue_ok"])
+    return row
+
+
+def _k11_time(torch, tm, row, x, words, s, gamma, K, N, eps, glu, resid):
+    """K11's ms, its plain version's, the library's (``torch.matmul`` of the
+    preamble's bf16 rows and the dequantized bf16 weights) and its bound (its
+    words, block scales, x, gamma, resid and out, each moved once)."""
+    L, M = words.shape[0], x.shape[0]
+    g_l = None if gamma is None else gamma[1]
+    row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed(
+        i % L, x, words, s, gamma, K, N, eps, glu, resid, False), L)
+    row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed_plain(
+        x, words[i % L], s[i % L], g_l, eps, glu, resid, N, False), 4)
+    dense = _dense_block_stack(torch, words, s, False)
+    xin = tm.w2a8_preamble_plain(x, g_l, eps, glu).to(torch.bfloat16)
+    row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+        xin, dense[i % len(dense)]), 2 * len(dense))
+    del dense
+    nbytes = _block_bytes(M, K, N, 0, 2, x.numel() * 2
+                          + (M * N * 2 if resid is not None else 0)
+                          + (K * 4 if gamma is not None else 0))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N, "int8")
+
+
+# K11's timed rows (the M table, kernels.k11_m): M = 1 and 2, TL codes
+K11_TIMED = (1, 2)
+
+
 def check_k11_k12(torch, dev, g, res, eps=1e-5):
     """K11 (W2A8 with block scales, M in {1, 2}) and K12 (bf16 rows x the
     unbiased block-scaled weights, M in {3, 8, 33, 64}) at the fused path's
     four shapes, against their plain versions, lut_bias both ways.  K11's
     int8 rows are K1's on the same input bit for bit, and its output equals
     the exact block partials of its own rows to f32 rounding; two K12 calls
-    give the same bits.  Timed at M=1 (K11) and M = 8, 64 (K12)."""
+    give the same bits.  Timed at M = 1, 2 (K11) and M = 8, 64 (K12)."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
     for name, K, N, has_g, glu, has_r in K1_SHAPES:
         words, s = _block_stack(torch, g, K, N, dev)
         L = words.shape[0]
         gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
-        ones = torch.ones((L, N), device=dev)
-        for key, Ms in (("k11", (1, 2)), ("k12", (3, 8, 33, 64))):
-            fn = (tm.ternary_matmul_tl_w2a8_normed if key == "k11"
-                  else tm.ternary_matmul_tl_bf16_normed)
-            pfn = (tm.ternary_matmul_tl_w2a8_normed_plain if key == "k11"
-                   else tm.ternary_matmul_tl_bf16_normed_plain)
-            for M in Ms:
-                for lut_bias in (False, True):
-                    x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
-                                    ).to(torch.bfloat16)
-                    resid = (torch.randn((M, N), generator=g, device=dev)
-                             .to(torch.bfloat16) if has_r else None)
-                    l = 1
-                    g_l = None if gamma is None else gamma[l]
-                    out = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
-                    plain = pfn(x, words[l], s[l], g_l, eps, glu, resid, N, lut_bias)
-                    err = (out.float() - plain.float()).abs().max().item()
-                    ref = plain.float().abs().max().item()
-                    # float tolerance: K1's for K11 (an int8 activation one
-                    # step off at a rounding boundary); for K12 a bf16 row
-                    # value one ulp off plus two ulps of output rounding
-                    tol = 2e-2 * ref + 1e-3 if key == "k11" else 1e-2 * ref + 1e-3
-                    row = {"shape": name, "M": M, "K": K, "N": N, "lut_bias": lut_bias,
-                           "max_abs_err": err, "ref_max": ref, "tol": tol}
-                    ok = err <= tol
-                    if key == "k11":
-                        out2, xq, sx, sumq = tm._tl_w2a8_cuda(l, x, words, s, gamma, K, N,
-                                                              eps, glu, resid, lut_bias)
-                        _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(l, x, words, ones,
-                                                                   gamma, K, N, eps, glu,
-                                                                   None)
-                        part = tm.tl_block_partials(xq, words[l], lut_bias).float()
-                        y = (part * s[l][:, None, :]).sum(0) * sx[:, None]
-                        if resid is not None:
-                            y = y + resid.float()
-                        row["rows_equal_k1"] = bool(torch.equal(xq, xq1) and torch.equal(
-                            sx, sx1) and torch.equal(sumq, sumq1))
-                        row["wrapper_equals_launch"] = bool(torch.equal(out, out2))
-                        # the bf16 output is y rounded once (f32 order aside)
-                        row["partials_epilogue_ok"] = bool(
-                            ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-6).all())
-                        ok = ok and row["rows_equal_k1"] and row["wrapper_equals_launch"] \
-                            and row["partials_epilogue_ok"]
-                    row["ok"] = ok
-                    if key == "k12":             # two calls, the same bits
-                        again = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
-                        row["repeats"] = bool(torch.equal(out, again))
-                        ok = ok and row["repeats"]
-                        row["ok"] = ok
-                    timed = not lut_bias and M in (1, 8, 64)
-                    if timed:
-                        row["ms"] = time_ms(torch, lambda i: fn(
-                            i % L, x, words, s, gamma, K, N, eps, glu, resid, False), L)
-                        row["plain_ms"] = time_ms(torch, lambda i: pfn(
-                            x, words[i % L], s[i % L], g_l, eps, glu, resid, N, False), 4)
-                        dense = _dense_block_stack(torch, words, s, False)
-                        xin = tm.w2a8_preamble_plain(x, g_l, eps, glu).to(torch.bfloat16)
-                        row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
-                            xin, dense[i % len(dense)]), 2 * len(dense))
-                        del dense
-                        nbytes = _block_bytes(M, K, N, 0, 2, x.numel() * 2
-                                              + (M * N * 2 if has_r else 0)
-                                              + (K * 4 if has_g else 0))
-                        row["bound_ms"], row["bound_by"] = bound(
-                            nbytes, 2.0 * M * K * N, "int8" if key == "k11" else "bf16")
-                    res[key].append(row)
-                    if not ok:
-                        raise AssertionError(f"{key.upper()} mismatch: {row}")
+        for M in (1, 2):
+            for lut_bias in (False, True):
+                x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
+                                ).to(torch.bfloat16)
+                resid = (torch.randn((M, N), generator=g, device=dev)
+                         .to(torch.bfloat16) if has_r else None)
+                row = {"shape": name, **_k11_row(torch, tm, 1, x, words, s, gamma, K, N,
+                                                 eps, glu, resid, lut_bias, 1e-6)}
+                if not lut_bias and M in K11_TIMED:
+                    _k11_time(torch, tm, row, x, words, s, gamma, K, N, eps, glu, resid)
+                res["k11"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K11 mismatch: {row}")
+        fn, pfn = tm.ternary_matmul_tl_bf16_normed, tm.ternary_matmul_tl_bf16_normed_plain
+        for M in (3, 8, 33, 64):
+            for lut_bias in (False, True):
+                x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
+                                ).to(torch.bfloat16)
+                resid = (torch.randn((M, N), generator=g, device=dev)
+                         .to(torch.bfloat16) if has_r else None)
+                l = 1
+                g_l = None if gamma is None else gamma[l]
+                out = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
+                plain = pfn(x, words[l], s[l], g_l, eps, glu, resid, N, lut_bias)
+                err = (out.float() - plain.float()).abs().max().item()
+                ref = plain.float().abs().max().item()
+                # float tolerance: a bf16 row value one ulp off plus two ulps
+                # of output rounding
+                tol = 1e-2 * ref + 1e-3
+                row = {"shape": name, "M": M, "K": K, "N": N, "lut_bias": lut_bias,
+                       "max_abs_err": err, "ref_max": ref, "tol": tol}
+                again = fn(l, x, words, s, gamma, K, N, eps, glu, resid, lut_bias)
+                row["repeats"] = bool(torch.equal(out, again))    # the same bits
+                row["ok"] = err <= tol and row["repeats"]
+                if not lut_bias and M in (8, 64):
+                    row["ms"] = time_ms(torch, lambda i: fn(
+                        i % L, x, words, s, gamma, K, N, eps, glu, resid, False), L)
+                    row["plain_ms"] = time_ms(torch, lambda i: pfn(
+                        x, words[i % L], s[i % L], g_l, eps, glu, resid, N, False), 4)
+                    dense = _dense_block_stack(torch, words, s, False)
+                    xin = tm.w2a8_preamble_plain(x, g_l, eps, glu).to(torch.bfloat16)
+                    row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
+                        xin, dense[i % len(dense)]), 2 * len(dense))
+                    del dense
+                    nbytes = _block_bytes(M, K, N, 0, 2, x.numel() * 2
+                                          + (M * N * 2 if has_r else 0)
+                                          + (K * 4 if has_g else 0))
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * K * N,
+                                                             "bf16")
+                res["k12"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K12 mismatch: {row}")
         del words, s
 
 
@@ -1402,63 +1457,63 @@ K4_8B_SHAPES = (("qkv_8b", H8B, 6144), ("o_8b", H8B, H8B),
 
 
 def check_k11_wide(torch, dev, g, res, eps=1e-5):
-    """K11 at the 8B down projection (K = 14336: the row preamble launch,
-    then the GEMV), M in {1, 2}, lut_bias both ways, with SwiGLU and the
-    residual, no gamma: against its plain version (K1's gate), its int8
-    rows against K1's (also two kernels at this K) bit for bit, its output
-    against the exact block partials of its own rows (K1's one launch at
-    M <= 2 and every K up to 14336, with K11's preamble arithmetic).  Timed
-    at M=1."""
+    """K11 at the 8B fused four (``K1_8B_SHAPES`` with block scales: qkv, o,
+    gate|up at K = 4096 and the down projection at K = 14336, with SwiGLU
+    and the residual, no gamma; one launch at every K), M in {1, 2},
+    lut_bias both ways: against its plain version (K1's gate), its int8
+    rows against K1's bit for bit, its output against the exact block
+    partials of its own rows.  Timed at M = 1 and 2; the M table
+    (``k11_m``) sums each path's shapes per M."""
     from bitnet_tpu_torch.ops import ternary_matmul as tm
 
-    K, N = F8B, H8B
-    words, s = _block_stack(torch, g, K, N, dev)
-    L = words.shape[0]
-    ones = torch.ones((L, N), device=dev)
-    for M in (1, 2):
-        for lut_bias in (False, True):
-            x = torch.randn((M, 2 * K), generator=g, device=dev).to(torch.bfloat16)
-            resid = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
-            l = 1
-            out = tm.ternary_matmul_tl_w2a8_normed(l, x, words, s, None, K, N, eps, True,
-                                                   resid, lut_bias)
-            out2, xq, sx, sumq = tm._tl_w2a8_cuda(l, x, words, s, None, K, N, eps, True,
-                                                  resid, lut_bias)
-            _o, xq1, sx1, sumq1 = tm._w2a8_normed_cuda(l, x, words, ones, None, K, N, eps,
-                                                       True, None)
-            plain = tm.ternary_matmul_tl_w2a8_normed_plain(x, words[l], s[l], None, eps,
-                                                           True, resid, N, lut_bias)
-            part = tm.tl_block_partials(xq, words[l], lut_bias).float()
-            y = (part * s[l][:, None, :]).sum(0) * sx[:, None] + resid.float()
-            err = (out.float() - plain.float()).abs().max().item()
-            ref = plain.float().abs().max().item()
-            tol = 2e-2 * ref + 1e-3           # K1's: an int8 activation one step off
-            row = {"shape": "down_8b", "M": M, "K": K, "N": N, "lut_bias": lut_bias,
-                   "max_abs_err": err, "ref_max": ref, "tol": tol,
-                   "rows_equal_k1": bool(torch.equal(xq, xq1) and torch.equal(sx, sx1)
-                                         and torch.equal(sumq, sumq1)),
-                   "wrapper_equals_launch": bool(torch.equal(out, out2)),
-                   "partials_epilogue_ok": bool(
-                       ((out.float() - y).abs() <= 2**-8 * y.abs() + 1e-5).all())}
-            row["ok"] = (err <= tol and row["rows_equal_k1"]
-                         and row["wrapper_equals_launch"] and row["partials_epilogue_ok"])
-            if M == 1 and not lut_bias:
-                row["ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed(
-                    i % L, x, words, s, None, K, N, eps, True, resid, False), L)
-                row["plain_ms"] = time_ms(torch, lambda i: tm.ternary_matmul_tl_w2a8_normed_plain(
-                    x, words[i % L], s[i % L], None, eps, True, resid, N, False), 4)
-                dense = _dense_block_stack(torch, words, s, False)
-                xin = tm.w2a8_preamble_plain(x, None, eps, True).to(torch.bfloat16)
-                row["library_ms"] = time_ms(torch, lambda i: torch.matmul(
-                    xin, dense[i % len(dense)]), 2 * len(dense))
-                del dense
-                row["bound_ms"], row["bound_by"] = bound(
-                    _block_bytes(M, K, N, 0, 2, x.numel() * 2 + M * N * 2),
-                    2.0 * M * K * N, "int8")
-            res["k11_8b"].append(row)
-            if not row["ok"]:
-                raise AssertionError(f"K11 (K = 14336) mismatch: {row}")
-    del words, s
+    for name, K, N, has_g, glu, has_r in K1_8B_SHAPES:
+        words, s = _block_stack(torch, g, K, N, dev)
+        L = words.shape[0]
+        gamma = (torch.rand((L, K), generator=g, device=dev) + 0.5) if has_g else None
+        for M in (1, 2):
+            for lut_bias in (False, True):
+                x = torch.randn((M, 2 * K if glu else K), generator=g, device=dev
+                                ).to(torch.bfloat16)
+                resid = (torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+                         if has_r else None)
+                row = {"shape": name, **_k11_row(torch, tm, 1, x, words, s, gamma, K, N,
+                                                 eps, glu, resid, lut_bias, 1e-5)}
+                if not lut_bias and M in K11_TIMED:
+                    _k11_time(torch, tm, row, x, words, s, gamma, K, N, eps, glu, resid)
+                res["k11_8b"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K11 (8B) mismatch: {row}")
+        del words, s
+    fields = ("ms", "library_ms", "bound_ms", "plain_ms")
+    res["k11_m"] = [
+        {"path": path, "M": M, **{f: sum(r[f] for r in res[key] if r["M"] == M
+                                         and "ms" in r and pick(r)) for f in fields}}
+        for path, key, pick in (("2b four", "k11", lambda r: True),
+                                ("8b four", "k11_8b", lambda r: True),
+                                ("8b down", "k11_8b", lambda r: r["shape"] == "down_8b"))
+        for M in K11_TIMED]
+
+
+def check_k11_profile(res):
+    """One K11 call at M=1 under the profiler at K = 2560 and 14336 (the 8B
+    down projection, SwiGLU and the residual): one kernel, K1's decode
+    kernel in its block-scale mode, and no ATen op but ``aten::empty``."""
+    rows = []
+    for K, N, glu in ((2560, 2560, False), (14336, 4096, True)):
+        row = _profile_call(
+            f"w, s = words({K}, {N}, True)\n"
+            f"gamma = torch.rand((2, {K}), generator=g, device=dev) + 0.5\n"
+            f"x = torch.randn((1, {2 * K if glu else K}), generator=g, device=dev)"
+            f".bfloat16()\n"
+            f"r = torch.randn((1, {N}), generator=g, device=dev).bfloat16()",
+            f"tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, {K}, {N}, 1e-5, {glu}, r)",
+            "ternary_matmul_tl_w2a8_normed", kernels=1)
+        row["K"] = K
+        row["ok"] = row["ok"] and "w2a8_decode" in row["kernels"][0]
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"K11 is not one launch of w2a8_decode: {row}")
+    res["k11_profile"] = rows
 
 
 def _k24_stacks(torch, g, K, F, H, dev, min_bytes=120 << 20):
@@ -3497,7 +3552,7 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if any(p in phases for p in ("build", "kernels", "k1", "k24", "w2a8")):
+        if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3515,6 +3570,14 @@ def main(argv=None) -> int:
             report["k1"] = res
             for k, rows in res.items():
                 emit({"phase": f"k1.{k}", "nvidia_smi": smi, "rows": rows})
+        if "k11" in phases:
+            res = {"k11": [], "k12": [], "k11_8b": []}
+            g11 = torch.Generator(device=dev).manual_seed(1234)
+            timed("k11", lambda: (check_k11_k12(torch, dev, g11, res),
+                                  check_k11_wide(torch, dev, g11, res)))
+            report["k11"] = res
+            for k, rows in res.items():
+                emit({"phase": f"k11.{k}", "nvidia_smi": smi, "rows": rows})
         if "k24" in phases:
             res = {"k24": []}
             timed("k24", check_k24, torch, dev, torch.Generator(device=dev).manual_seed(1234),

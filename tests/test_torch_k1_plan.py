@@ -1,5 +1,6 @@
 """K1's tiles, its choice of form, and its plain version at the rows and
-widths its two forms take.
+widths its two forms take; K11's launch, the block-scale mode of K1's
+decode form under the same plan and limits.
 
 ``w2a8_decode_plan`` picks the column block of K1's one-launch decode form
 (M <= 2, K <= 14336): whole column blocks, and every block resident at once
@@ -43,12 +44,51 @@ def test_decode_plan_tiles_n_whole(M, sms):
 
 @pytest.mark.parametrize("py,c", [("W2A8_DECODE_MAX_M", "DEC_MAX_M"),
                                   ("W2A8_DECODE_MAX_K", "DEC_MAX_K"),
-                                  ("W2A8_DECODE_SHORT_K", "DEC_SHORT_K")])
+                                  ("W2A8_DECODE_SHORT_K", "DEC_SHORT_K"),
+                                  ("W2A8_DECODE_STAGE", "DEC_STAGE"),
+                                  ("W2A8_DECODE_STAGES", "DEC_STAGES"),
+                                  ("W2A8_DECODE_TWO_SMEM", "DEC_TWO_SMEM")])
 def test_decode_limits_are_the_kernels(py, c):
-    """The wrapper's limits of the decode form are the kernel's, which its
-    entry point checks (a call past them is refused, never misread)."""
-    m = re.search(rf"constexpr int {c} = (\d+);", SRC)
-    assert m and int(m.group(1)) == getattr(tm, py), (py, c)
+    """The wrapper's limits of the decode form (K1's and K11's) are the
+    kernel's, which its entry point checks (a call past them is refused,
+    never misread), and so are the ring's sizes its plan counts."""
+    m = re.search(rf"constexpr int {c} = ([\d *]+);", SRC)
+    assert m and eval(m.group(1)) == getattr(tm, py), (py, c)
+
+
+def test_decode_smem_mirrors_the_kernels():
+    """``w2a8_decode_smem`` sizes a block as the entry point does: the same
+    terms (the ring, the int8 rows, K11's f32 partials, gamma, the
+    barriers, the slack) in ``dec_rest`` and ``dec_stage``."""
+    assert "return block ? DEC_STAGE + DEC_SSTAGE : DEC_STAGE;" in SRC
+    assert "constexpr int DEC_SSTAGE = DEC_STAGE / 2;" in SRC
+    assert ("return MB * K + (block ? DEC_CONSUMERS * MB * 4 : 0) + (gamma ? 4 * K : 0)\n"
+            "         + (2 * nst + 1) * 8 + 1024;") in SRC
+    assert "nst = block ? std::max(2, nst & ~1) : std::max(1, nst);" in SRC
+    # K1's ring at the 2B o: three stages of 8 KB hold all ten K tiles
+    assert tm.w2a8_decode_smem(2560, 32, False) == (3, 3 * 8192 + 2 * 2560 + 4 * 2560
+                                                     + 7 * 8 + 1024)
+
+
+@pytest.mark.parametrize("block_scales", [False, True])
+@pytest.mark.parametrize("K,N", MAIN_SHAPES)
+def test_decode_plan_fits_the_modes_shared_memory(K, N, block_scales):
+    """On the 2B and 8B shapes at 132 SMs the plan's column block tiles N
+    whole, and a block of K1's (or K11's, whose stages carry the block
+    scales, half the words' bytes again) decode form fits its SM: within
+    what two blocks an SM leave a block where the rows are short, within
+    the 227 KB a block may use where they are long; K11's ring has an even
+    number of stages."""
+    cols = tm.w2a8_decode_plan(1, K, N, 132, block_scales)
+    assert cols in tm.W2A8_DECODE_COLS and N % cols == 0
+    assert tm.w2a8_decode_plan(2, K, N, 132, block_scales) == cols
+    nst, smem = tm.w2a8_decode_smem(K, cols, block_scales)
+    cap = tm.W2A8_DECODE_TWO_SMEM if K <= tm.W2A8_DECODE_SHORT_K else 227 * 1024
+    assert 1 <= nst <= tm.W2A8_DECODE_STAGES and smem <= cap, (nst, smem)
+    if block_scales:
+        assert nst >= 2 and nst % 2 == 0
+        # every stage K11's 8 KB of words and 4 KB of scales
+        assert smem >= nst * 3 * tm.W2A8_DECODE_STAGE // 2
 
 
 def test_decode_cols_are_the_kernels():
@@ -62,9 +102,13 @@ def test_decode_cols_are_the_kernels():
 
 
 class _Lib:
-    """The ternary_matmul library's two K1 entry points, recording calls."""
+    """The ternary_matmul library's K1 and K11 entry points, recording calls."""
     def __init__(self):
         self.calls = []
+
+    def bn_tl_w2a8_normed(self, *args):
+        self.calls.append(("k11", args[16:-1]))
+        return 0
 
     def bn_w2a8_normed_decode(self, *args):
         self.calls.append(("decode", args[17:-1]))
@@ -93,6 +137,41 @@ def test_k1_launch_takes_one_form(monkeypatch, M, K, N, form):
     want = ((tm.w2a8_decode_plan(M, K, N, 132),) if form == "decode"
             else tm.w2a8_gemm_plan(M, K, N, 132))
     assert lib.calls == [(form, want)]
+
+
+@pytest.mark.parametrize("lut_bias", [False, True])
+@pytest.mark.parametrize("M,K,N", [(1, 2560, 2560), (2, 2560, 13824), (1, 6912, 2560),
+                                   (2, 14336, 4096), (1, 4096, 28672)])
+def test_k11_launch_is_the_block_scale_decode_form(monkeypatch, M, K, N, lut_bias):
+    """K11's wrapper makes one call of K1's library, ``bn_tl_w2a8_normed``
+    (the decode kernel's block-scale mode), at every K up to 14336, with
+    the codes' bias, x's dtype and the plan's column block for block
+    scales; no scratch beyond K1's rows, scales and sums."""
+    lib = _Lib()
+    monkeypatch.setattr(tm._cuda, "library", lambda name: lib if name == "ternary_matmul"
+                        else None)
+    monkeypatch.setattr(tm._cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(tm, "_sm_count", lambda index: 132)
+    x = torch.zeros((M, K), dtype=torch.bfloat16)
+    w = torch.zeros((2, K // 16, N), dtype=torch.int32)
+    s = torch.ones((2, K // 32, N), dtype=torch.float32)
+    out, scratch = tm._tl_w2a8_launch(1, x, w, s, None, K, N, 1e-5, False, None, lut_bias)
+    want = (int(lut_bias), 1, tm.w2a8_decode_plan(M, K, N, 132, block_scales=True))
+    assert lib.calls == [("k11", want)]
+    assert out.shape == (M, N) and scratch.numel() == M * (K + 8)
+
+
+def test_old_k11_kernels_are_gone():
+    """K11's own one-launch and two-kernel paths, and the preamble they
+    shared, are gone; its entry point sits beside K1's."""
+    csrc = Path(tm.__file__).resolve().parent.parent / "csrc"
+    srcs = "".join(p.read_text() for p in sorted(csrc.glob("*.cu*")))
+    for gone in ("tl_w2a8_fused", "tl_quantize_rows", "tl_w2a8_gemv", "tl_dot_epilogue",
+                 "launch_tl_w2a8", "fused_quantize_rows", "FUSED_MAX_K"):
+        assert not re.search(rf"\b{gone}\b", srcs), gone
+    assert "int bn_tl_w2a8_normed(" in (csrc / "ternary_matmul.cu").read_text()
+    assert "bn_tl_w2a8_normed" in tm._cuda.SIGNATURES["ternary_matmul"]
+    assert "bn_tl_w2a8_normed" not in tm._cuda.SIGNATURES["ternary_matmul_tl"]
 
 
 @pytest.mark.parametrize("K,N", MAIN_SHAPES)

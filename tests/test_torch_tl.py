@@ -13,7 +13,8 @@
     another order) and subtract the same f32 correction: f32 outputs
     agree to 1e-5 of their max magnitude (the correction cancels the
     larger biased sum), bf16 outputs to two bf16 ulps (8e-3).
-  - K11 against ``ternary_matmul_stacked_tl_w2a8`` (``:960``): the int8
+  - K11 against ``ternary_matmul_stacked_tl_w2a8`` (``:960``), at M = 1, 2
+    and at the 8B down projection's K = 14336 too: the int8
     rows from the same f32 rows and the per-block int32 partials are
     exact; outputs within 1e-4 of max|ref| (the reference's own gate,
     ``tests/test_tl_inference.py:244-303``: the norm's f32 sums run in
@@ -323,6 +324,28 @@ def test_k11_plain_matches_pallas(M, case, norm, glu, resid, lut_bias):
                             ternary_matmul_stacked_tl_w2a8,
                             40 + M + 2 * norm + 4 * glu + 8 * lut_bias, M,
                             lut_bias, norm, glu, resid, "f32")
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("lut_bias", [False, True])
+@pytest.mark.parametrize("M", [1, 2])
+def test_k11_plain_matches_pallas_at_k14336(M, lut_bias):
+    """The 8B down projection's K = 14336 (SwiGLU, the residual, no
+    sub-norm), which K11's kernel takes in one launch: the plain version
+    against the Pallas kernel within the same 1e-4 of max|ref|."""
+    k, n = 14336, 128
+    rng, words, s, _gamma = _stack(90 + M + 2 * lut_bias, k=k, n=n)
+    x = rng.standard_normal((M, 2 * k)).astype(np.float32)
+    r = rng.standard_normal((M, n)).astype(np.float32)
+    want = ternary_matmul_stacked_tl_w2a8(
+        jnp.int32(1), jnp.asarray(x), jnp.asarray(words), jnp.asarray(s), None,
+        k_dim=k, n_dim=n, eps=1e-5, glu=True, resid=jnp.asarray(r),
+        lut_bias=lut_bias, interpret=True)
+    got = tm.ternary_matmul_tl_w2a8_normed(
+        1, torch.from_numpy(x), torch.from_numpy(words), torch.from_numpy(s), None,
+        k_dim=k, n_dim=n, eps=1e-5, glu=True, resid=torch.from_numpy(r),
+        lut_bias=lut_bias)
+    assert got.dtype == torch.float32 and got.shape == (M, n)
     _close(got, want, 1e-4)
 
 
