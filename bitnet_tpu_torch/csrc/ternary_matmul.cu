@@ -251,6 +251,12 @@ __host__ __device__ constexpr int dec_max_smem(bool block) {
   return DEC_STAGES * dec_stage(block)
          + dec_rest(DEC_MAX_M, DEC_MAX_K, true, block, DEC_STAGES);
 }
+// where rows are short, the ring cut to DEC_TWO_SMEM keeps two stages of
+// K11's mode (K1's stages and rest are smaller), so two blocks of either
+// mode fit an SM there, as w2a8_decode_plan counts
+static_assert(2 * dec_stage(true) + dec_rest(DEC_MAX_M, DEC_SHORT_K, true, true, DEC_STAGES)
+                  <= DEC_TWO_SMEM,
+              "two blocks of K11's mode an SM at DEC_SHORT_K");
 
 template <typename T>
 struct DecArgs {

@@ -96,6 +96,7 @@ from ..ops.rope import apply_rope
 from ..ops.ternary_matmul import (
     STACKED_DECODE_MAX_M,
     TL_W2A8_MAX_M,
+    W2A8_DECODE_MAX_K,
     int8_matmul,
     quantize_rows,
     ternary_matmul_blockscale_bf16,
@@ -394,10 +395,11 @@ def _einsum_decode_attention(q, k_rows, v_rows, ks_rows, vs_rows, k_cache_l,
 def _stacked_mm(b: BlockParams, B: int, eps: float):
     """The four matmuls of a stacked decode layer, ``mm(l, h, name, gamma,
     glu=, resid=)``, by the weights' kind (``:439-499``): qk256 on K1; the
-    TL kinds on K11 when B <= 2 and every K is a multiple of 256, else K12
-    when aligned, else K10 on the stacked weights with SwiGLU, the norm and
-    the residual in torch (``BITNET_TL_W2A8`` / ``BITNET_TL_FUSED`` set to
-    anything but 1 skip K11 / K12, as in the JAX package)."""
+    TL kinds on K11 when B <= 2 and every K is a multiple of 256 and at most
+    ``W2A8_DECODE_MAX_K``, else K12 when aligned, else K10 on the stacked
+    weights with SwiGLU, the norm and the residual in torch
+    (``BITNET_TL_W2A8`` / ``BITNET_TL_FUSED`` set to anything but 1 skip
+    K11 / K12, as in the JAX package)."""
     kind = b.wqkv.kind
     if kind == "qk256":
         def mm(l, h, name, gamma, **kw):
@@ -407,11 +409,15 @@ def _stacked_mm(b: BlockParams, B: int, eps: float):
                                               eps=eps, **kw)
         return mm
     lut_bias = kind == "bitnet32"
-    aligned = all(getattr(b, n).k % 256 == 0
-                  for n in ("wqkv", "wo", "w_gateup", "w_down"))
+    ks = [getattr(b, n).k for n in ("wqkv", "wo", "w_gateup", "w_down")]
+    aligned = all(k % 256 == 0 for k in ks)
     # ``:473-476``: BITNET_TL_W2A8=0 keeps B <= 2 off K11, BITNET_TL_FUSED=0
-    # keeps every B off K12 (K10 then, with the norm etc. in torch)
-    if os.environ.get("BITNET_TL_W2A8", "1") == "1" and aligned and B <= TL_W2A8_MAX_M:
+    # keeps every B off K12 (K10 then, with the norm etc. in torch).  The
+    # JAX kernel takes any aligned K; K11's kernel holds the rows in shared
+    # memory, so a layer with a longer row (Falcon3-7B's F = 23040) decodes
+    # on K12
+    if (os.environ.get("BITNET_TL_W2A8", "1") == "1" and aligned
+            and B <= TL_W2A8_MAX_M and max(ks) <= W2A8_DECODE_MAX_K):
         fused = ternary_matmul_tl_w2a8_normed
     elif os.environ.get("BITNET_TL_FUSED", "1") == "1" and aligned:
         fused = ternary_matmul_tl_bf16_normed

@@ -195,60 +195,24 @@ W2A8_DECODE_MAX_M = 2
 W2A8_DECODE_MAX_K = 14336
 W2A8_DECODE_SHORT_K = 4096
 W2A8_DECODE_COLS = (32, 64, 128)
-# A block's ring: at most W2A8_DECODE_STAGES stages of W2A8_DECODE_STAGE
-# bytes of words (K11's stage carries the stage's block scales too, half the
-# words' bytes again), cut to what two blocks an SM leave a block where the
-# rows are short (W2A8_DECODE_TWO_SMEM); the kernel's DEC_STAGES, DEC_STAGE
-# and DEC_TWO_SMEM, held equal by a CPU test.
-W2A8_DECODE_STAGE = 8192
-W2A8_DECODE_STAGES = 8
-W2A8_DECODE_TWO_SMEM = 108 * 1024
-
-
-def w2a8_decode_smem(K: int, cols: int, block_scales: bool,
-                     gamma: bool = True) -> tuple[int, int]:
-    """(stages, bytes of dynamic shared memory) of one block of the decode
-    form at M = 2 rows of K values and ``cols`` columns, as the kernel's
-    entry point sizes them (``launch_normed_decode``): the ring, then the
-    int8 rows, K11's warps' f32 partials, gamma, the barriers and the
-    alignment slack.  K11's ring has an even number of stages, at least
-    two."""
-    m = W2A8_DECODE_MAX_M
-    stage = W2A8_DECODE_STAGE * 3 // 2 if block_scales else W2A8_DECODE_STAGE
-
-    def rest(k, g, nst):
-        return (m * k + (512 * m * 4 if block_scales else 0)
-                + (4 * k if g else 0) + (2 * nst + 1) * 8 + 1024)
-    most = (W2A8_DECODE_STAGES * stage
-            + rest(W2A8_DECODE_MAX_K, True, W2A8_DECODE_STAGES))
-    room = ((W2A8_DECODE_TWO_SMEM if K <= W2A8_DECODE_SHORT_K else most)
-            - rest(K, gamma, W2A8_DECODE_STAGES))
-    ns = -(-(K // 256) // (W2A8_DECODE_STAGE // (cols * 64)))
-    nst = min(W2A8_DECODE_STAGES, ns + ns % 2 if block_scales else ns, room // stage)
-    nst = max(2, nst - nst % 2) if block_scales else max(1, nst)
-    return nst, nst * stage + rest(K, gamma, nst)
 
 
 @functools.lru_cache(maxsize=None)
-def w2a8_decode_plan(M: int, K: int, N: int, sms: int,
-                     block_scales: bool = False) -> int:
-    """Columns a block of K1's decode form (``block_scales``: K11's mode)
-    for M ≤ 2 rows × [K, N] words on ``sms`` SMs: the narrowest of
+def w2a8_decode_plan(M: int, K: int, N: int, sms: int) -> int:
+    """Columns a block of K1's decode form (and of K11's, its block-scale
+    mode) for M ≤ 2 rows × [K, N] words on ``sms`` SMs: the narrowest of
     ``W2A8_DECODE_COLS`` that divides N and whose blocks all fit the card at
-    once (two an SM for rows of up to ``W2A8_DECODE_SHORT_K`` values, where
-    two blocks' shared memory, K11's larger stages counted, fits the SM;
-    else one; the widest where none does).  K is not split: over a cluster,
-    every split of every main-path shape was slower than none, the generic
-    path's k and v (20 column blocks) included (PERF.md §6, K1's plan
-    sweep).  M does not enter.  Cached: a decode step asks it once a call,
-    and the host paces the step."""
+    once (two an SM for rows of up to ``W2A8_DECODE_SHORT_K`` values, else
+    one; the widest where none does).  Two blocks of either mode fit an SM
+    there: the entry point cuts the ring to fit, and a ``static_assert``
+    beside the kernel's sizes holds that the cut ring keeps two stages.  K
+    is not split: over a cluster, every split of every main-path shape was
+    slower than none, the generic path's k and v (20 column blocks)
+    included (PERF.md §6, K1's plan sweep).  M does not enter.  Cached: a
+    decode step asks it once a call, and the host paces the step."""
     fits = [c for c in W2A8_DECODE_COLS if N % c == 0]
-
-    def resident(c):
-        two = (K <= W2A8_DECODE_SHORT_K
-               and w2a8_decode_smem(K, c, block_scales)[1] <= W2A8_DECODE_TWO_SMEM)
-        return (2 if two else 1) * sms
-    return next((c for c in fits if N // c <= resident(c)), fits[-1])
+    resident = (2 if K <= W2A8_DECODE_SHORT_K else 1) * sms
+    return next((c for c in fits if N // c <= resident), fits[-1])
 
 
 def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
@@ -842,7 +806,8 @@ def ternary_matmul_tl_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
     [L, Kp/16, Np]; scales [L, Kp/32, Np]; gamma [L, Kp] f32 or None.  On
     the card a call is one launch of K1's decode kernel in its block-scale
     mode, K ≤ ``W2A8_DECODE_MAX_K`` (the 8B down projection's 14336), and
-    no other PyTorch op than ``torch.empty``."""
+    no other PyTorch op than ``torch.empty``; a longer row is refused there
+    (the stacked decode sends such a layer to K12)."""
     if not _check_normed_block("K11", l, x, packed, scales, gamma, k_dim, n_dim,
                                glu, resid, TL_W2A8_MAX_M):
         return ternary_matmul_tl_w2a8_normed_plain(
@@ -874,7 +839,7 @@ def _tl_w2a8_launch(l, x, packed, scales, gamma, k_dim, n_dim, eps, glu, resid,
         scales.data_ptr() + 4 * l * scales.stride(0),
         None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
         p, p + M * k_dim, p + M * k_dim + 4 * M, int(lut_bias), _DTYPE_CODE[x.dtype],
-        w2a8_decode_plan(M, k_dim, Np, _sm_count(dev.index), block_scales=True),
+        w2a8_decode_plan(M, k_dim, Np, _sm_count(dev.index)),
         _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_tl_w2a8_normed")
     return out, scratch

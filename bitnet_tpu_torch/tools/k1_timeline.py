@@ -196,14 +196,14 @@ def main(argv=None) -> None:
                     help="time one of K1 and K11 (default: both)")
     args = ap.parse_args(argv)
     if args.force:
-        mock.patch.object(tm, "w2a8_decode_plan", lambda *a, **k: args.force).start()
+        mock.patch.object(tm, "w2a8_decode_plan", lambda *a: args.force).start()
     require_sm90(0)
     dev = torch.device("cuda", 0)
     smi = _timeline.card()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
     cases = [(f"{kernel} {name}", *_operands(dev, g, kernel, K, N, hg, glu, hr),
-              tm.w2a8_decode_plan(1, K, N, sms, block_scales=kernel == "K11"))
+              tm.w2a8_decode_plan(1, K, N, sms))
              for kernel in ("K1", "K11") if args.kernel in (None, kernel)
              for name, K, N, hg, glu, hr in CASES]
     # the uninstrumented kernel first: the chain's gaps

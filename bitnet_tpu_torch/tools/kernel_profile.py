@@ -225,10 +225,10 @@ def _k11_cases(dev, g):
             yield f"K11 {name} M={M}", call
             if M != 1:
                 continue
-            planned = tm.w2a8_decode_plan(1, K, N, sms, block_scales=True)
+            planned = tm.w2a8_decode_plan(1, K, N, sms)
             for cols in (c for c in tm.W2A8_DECODE_COLS if N % c == 0):
                 def forced(i, call=call, p=cols):
-                    with mock.patch.object(tm, "w2a8_decode_plan", lambda *a, **k: p):
+                    with mock.patch.object(tm, "w2a8_decode_plan", lambda *a: p):
                         return call(i)
                 forced.layers = L
                 mark = " (plan)" if cols == planned else ""

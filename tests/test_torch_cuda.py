@@ -327,11 +327,16 @@ def _profiled_call(setup, call, counter, module="tm"):
     from pathlib import Path
 
     code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter, module=module)
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       timeout=600, cwd=Path(__file__).resolve().parent.parent)
-    assert r.returncode == 0, r.stderr[-3000:]
-    out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["launches"] == 1, out
+    # a counted launch with no kernel in the trace: the tracer lost the
+    # device's events (it does now and then); profile again, at most twice
+    for _ in range(3):
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=600, cwd=Path(__file__).resolve().parent.parent)
+        assert r.returncode == 0, r.stderr[-3000:]
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        assert out["launches"] == 1, out
+        if out["kernels"]:
+            break
     return out["kernels"], set(out["ops"])
 
 
@@ -988,7 +993,7 @@ def test_k11_every_decode_plan_matches(dev, monkeypatch, M, cols):
     g = torch.Generator(device=dev).manual_seed(cols + M)
     K, N = 2560, 640
     w, s, gm, x, r = _k11_case(g, M, K, N, True, True, False, torch.bfloat16, dev)
-    monkeypatch.setattr(tm, "w2a8_decode_plan", lambda *a, **k: cols)
+    monkeypatch.setattr(tm, "w2a8_decode_plan", lambda *a: cols)
     out = tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gm, K, N, 1e-5, False, r,
                                            cols != 64)
     _k11_gates(out, x, w, s, gm, r, K, N, False, cols != 64)
@@ -1060,10 +1065,7 @@ def test_k11_runs_one_kernel_at_every_k(dev, M, K, glu):
              f"r = torch.randn(({M}, {N}), generator=g, device=dev).bfloat16()")
     call = (f"tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, {K}, {N}, 1e-5, "
             f"{glu}, r)")
-    for _ in range(3):                    # a trace the tracer lost: profile again
-        kernels, ops = _profiled_call(setup, call, "ternary_matmul_tl_w2a8_normed")
-        if kernels:
-            break
+    kernels, ops = _profiled_call(setup, call, "ternary_matmul_tl_w2a8_normed")
     assert len(kernels) == 1 and "w2a8_decode" in kernels[0], kernels
     assert ops <= {"aten::empty"}, ops
 
@@ -1079,6 +1081,39 @@ def test_k11_refuses_k_past_the_kernels(dev):
     x = torch.randn((1, K), generator=g, device=dev).bfloat16()
     with pytest.raises(KernelError):
         tm.ternary_matmul_tl_w2a8_normed(0, x, w, s, None, K, N)
+
+
+@pytest.mark.parametrize("K", [14592, 23040])
+def test_stacked_decode_past_k11s_rows_matches_plain(dev, monkeypatch, K):
+    """A B = 1 TL layer whose down projection reads more than
+    W2A8_DECODE_MAX_K values (23040: Falcon3-7B's F) decodes on K12, not
+    K11: SwiGLU, the sub-norm and the residual, against K12's plain version
+    within K12's gate, one K12 call and no K11 call."""
+    from bitnet_tpu_torch.models import bitnet as bm
+    from bitnet_tpu_torch.models.bitnet import BlockParams
+    from bitnet_tpu_torch.ops.linear import TernaryLinear
+
+    monkeypatch.delenv("BITNET_TL_W2A8", raising=False)
+    monkeypatch.delenv("BITNET_TL_FUSED", raising=False)
+    g = torch.Generator(device=dev).manual_seed(K)
+    H = 3072
+    short = TernaryLinear("tl", H, H, *_block_words(g, 2, H, H, dev))
+    down = TernaryLinear("tl", K, H, *_block_words(g, 2, K, H, dev))
+    blk = BlockParams(attn_norm=None, wq=None, wk=None, wv=None, wo=short, ffn_norm=None,
+                      w_gate=None, w_up=None, w_down=down, wqkv=short, w_gateup=short)
+    x = torch.randn((1, 2 * K), generator=g, device=dev).bfloat16()
+    r = torch.randn((1, H), generator=g, device=dev).bfloat16()
+    gm = torch.rand((2, K), generator=g, device=dev) + 0.5
+    k11, k12 = (tm.ternary_matmul_tl_w2a8_normed.launches,
+                tm.ternary_matmul_tl_bf16_normed.launches)
+    out = bm._stacked_mm(blk, 1, 1e-5)(1, x, "w_down", gm, glu=True, resid=r)
+    assert tm.ternary_matmul_tl_w2a8_normed.launches == k11
+    assert tm.ternary_matmul_tl_bf16_normed.launches == k12 + 1
+    plain = tm.ternary_matmul_tl_bf16_normed_plain(x, down.packed[1], down.scales[1],
+                                                   gm[1], 1e-5, True, r, H, False)
+    ref = plain.float().abs().max()
+    assert out.shape == (1, H) and torch.isfinite(out.float()).all()
+    assert (out.float() - plain.float()).abs().max() <= 1e-2 * ref + 1e-3
 
 
 @pytest.mark.parametrize("lut_bias", [False, True])

@@ -44,51 +44,25 @@ def test_decode_plan_tiles_n_whole(M, sms):
 
 @pytest.mark.parametrize("py,c", [("W2A8_DECODE_MAX_M", "DEC_MAX_M"),
                                   ("W2A8_DECODE_MAX_K", "DEC_MAX_K"),
-                                  ("W2A8_DECODE_SHORT_K", "DEC_SHORT_K"),
-                                  ("W2A8_DECODE_STAGE", "DEC_STAGE"),
-                                  ("W2A8_DECODE_STAGES", "DEC_STAGES"),
-                                  ("W2A8_DECODE_TWO_SMEM", "DEC_TWO_SMEM")])
+                                  ("W2A8_DECODE_SHORT_K", "DEC_SHORT_K")])
 def test_decode_limits_are_the_kernels(py, c):
     """The wrapper's limits of the decode form (K1's and K11's) are the
     kernel's, which its entry point checks (a call past them is refused,
-    never misread), and so are the ring's sizes its plan counts."""
-    m = re.search(rf"constexpr int {c} = ([\d *]+);", SRC)
-    assert m and eval(m.group(1)) == getattr(tm, py), (py, c)
+    never misread)."""
+    m = re.search(rf"constexpr int {c} = (\d+);", SRC)
+    assert m and int(m.group(1)) == getattr(tm, py), (py, c)
 
 
-def test_decode_smem_mirrors_the_kernels():
-    """``w2a8_decode_smem`` sizes a block as the entry point does: the same
-    terms (the ring, the int8 rows, K11's f32 partials, gamma, the
-    barriers, the slack) in ``dec_rest`` and ``dec_stage``."""
-    assert "return block ? DEC_STAGE + DEC_SSTAGE : DEC_STAGE;" in SRC
-    assert "constexpr int DEC_SSTAGE = DEC_STAGE / 2;" in SRC
-    assert ("return MB * K + (block ? DEC_CONSUMERS * MB * 4 : 0) + (gamma ? 4 * K : 0)\n"
-            "         + (2 * nst + 1) * 8 + 1024;") in SRC
-    assert "nst = block ? std::max(2, nst & ~1) : std::max(1, nst);" in SRC
-    # K1's ring at the 2B o: three stages of 8 KB hold all ten K tiles
-    assert tm.w2a8_decode_smem(2560, 32, False) == (3, 3 * 8192 + 2 * 2560 + 4 * 2560
-                                                     + 7 * 8 + 1024)
-
-
-@pytest.mark.parametrize("block_scales", [False, True])
 @pytest.mark.parametrize("K,N", MAIN_SHAPES)
-def test_decode_plan_fits_the_modes_shared_memory(K, N, block_scales):
-    """On the 2B and 8B shapes at 132 SMs the plan's column block tiles N
-    whole, and a block of K1's (or K11's, whose stages carry the block
-    scales, half the words' bytes again) decode form fits its SM: within
-    what two blocks an SM leave a block where the rows are short, within
-    the 227 KB a block may use where they are long; K11's ring has an even
-    number of stages."""
-    cols = tm.w2a8_decode_plan(1, K, N, 132, block_scales)
+def test_decode_plan_fits_the_modes_shared_memory(K, N):
+    """On the 2B and 8B shapes at 132 SMs the plan's column block, the one
+    K1 and K11 both take, tiles N whole, for M = 1 and 2 alike.  Where it
+    counts two blocks an SM (rows of up to W2A8_DECODE_SHORT_K values), two
+    blocks of either mode fit: a ``static_assert`` beside the kernel's
+    sizes holds it, so a build that broke it would fail."""
+    cols = tm.w2a8_decode_plan(1, K, N, 132)
     assert cols in tm.W2A8_DECODE_COLS and N % cols == 0
-    assert tm.w2a8_decode_plan(2, K, N, 132, block_scales) == cols
-    nst, smem = tm.w2a8_decode_smem(K, cols, block_scales)
-    cap = tm.W2A8_DECODE_TWO_SMEM if K <= tm.W2A8_DECODE_SHORT_K else 227 * 1024
-    assert 1 <= nst <= tm.W2A8_DECODE_STAGES and smem <= cap, (nst, smem)
-    if block_scales:
-        assert nst >= 2 and nst % 2 == 0
-        # every stage K11's 8 KB of words and 4 KB of scales
-        assert smem >= nst * 3 * tm.W2A8_DECODE_STAGE // 2
+    assert tm.w2a8_decode_plan(2, K, N, 132) == cols
 
 
 def test_decode_cols_are_the_kernels():
@@ -145,8 +119,8 @@ def test_k1_launch_takes_one_form(monkeypatch, M, K, N, form):
 def test_k11_launch_is_the_block_scale_decode_form(monkeypatch, M, K, N, lut_bias):
     """K11's wrapper makes one call of K1's library, ``bn_tl_w2a8_normed``
     (the decode kernel's block-scale mode), at every K up to 14336, with
-    the codes' bias, x's dtype and the plan's column block for block
-    scales; no scratch beyond K1's rows, scales and sums."""
+    the codes' bias, x's dtype and the plan's column block (K1's); no
+    scratch beyond K1's rows, scales and sums."""
     lib = _Lib()
     monkeypatch.setattr(tm._cuda, "library", lambda name: lib if name == "ternary_matmul"
                         else None)
@@ -156,7 +130,7 @@ def test_k11_launch_is_the_block_scale_decode_form(monkeypatch, M, K, N, lut_bia
     w = torch.zeros((2, K // 16, N), dtype=torch.int32)
     s = torch.ones((2, K // 32, N), dtype=torch.float32)
     out, scratch = tm._tl_w2a8_launch(1, x, w, s, None, K, N, 1e-5, False, None, lut_bias)
-    want = (int(lut_bias), 1, tm.w2a8_decode_plan(M, K, N, 132, block_scales=True))
+    want = (int(lut_bias), 1, tm.w2a8_decode_plan(M, K, N, 132))
     assert lib.calls == [("k11", want)]
     assert out.shape == (M, N) and scratch.numel() == M * (K + 8)
 

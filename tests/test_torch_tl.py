@@ -419,3 +419,87 @@ def test_fused_tl_wrappers_refuse_what_the_kernels_do_not_take(which):
         fn(0, torch.zeros(1, K), w, sc[:, :-1].contiguous(), None, K, N)
     with pytest.raises(ValueError):                   # neither a CPU nor a CUDA tensor
         fn(0, torch.zeros(1, K, device="meta"), w, sc, None, K, N)
+
+
+# --------------------------------------------------------------------------
+# the stacked decode's choice of K11 or K12 (``models/bitnet._stacked_mm``)
+# --------------------------------------------------------------------------
+def _tl_layer(kind, rng, k_down, n=64):
+    """A stacked TL / bitnet32 layer whose four projections read rows of 256
+    values but the down projection's, of ``k_down``."""
+    from bitnet_tpu_torch.models.bitnet import BlockParams
+    from bitnet_tpu_torch.ops.linear import TernaryLinear
+
+    def lin(k):
+        w = rng.integers(-2**31, 2**31 - 1, (L, k // 16, n), dtype=np.int32)
+        s = rng.uniform(0.01, 0.03, (L, k // 32, n)).astype(np.float32)
+        return TernaryLinear(kind, k, n, torch.from_numpy(w), torch.from_numpy(s))
+    short = lin(256)
+    return BlockParams(attn_norm=None, wq=None, wk=None, wv=None, wo=short,
+                       ffn_norm=None, w_gate=None, w_up=None, w_down=lin(k_down),
+                       wqkv=short, w_gateup=short)
+
+
+@pytest.mark.parametrize("kind", ["tl", "bitnet32"])
+@pytest.mark.parametrize("B,k_down,want", [
+    (1, 14336, "w2a8"), (2, 14336, "w2a8"), (1, 14592, "bf16"), (2, 23040, "bf16"),
+    (3, 14336, "bf16")])
+def test_stacked_decode_takes_k11_only_where_its_kernel_reaches(monkeypatch, kind, B,
+                                                               k_down, want):
+    """B <= 2 decodes a layer on K11 while every row is at most
+    W2A8_DECODE_MAX_K values (the longest K11's kernel takes); a layer with
+    a longer row (the down projection here), like a pool, decodes on K12,
+    all four projections alike.  Each call is that wrapper's, with its
+    result."""
+    from bitnet_tpu_torch.models import bitnet as bm
+
+    for knob in ("BITNET_TL_W2A8", "BITNET_TL_FUSED"):
+        monkeypatch.delenv(knob, raising=False)
+    rng = np.random.default_rng(B + k_down)
+    blk = _tl_layer(kind, rng, k_down)
+    calls = []
+    for name in ("w2a8", "bf16"):
+        real = getattr(bm, f"ternary_matmul_tl_{name}_normed")
+        monkeypatch.setattr(bm, f"ternary_matmul_tl_{name}_normed",
+                            lambda *a, _n=name, _r=real, **k: calls.append(_n) or _r(*a, **k))
+    mm = bm._stacked_mm(blk, B, 1e-5)
+    lut_bias = kind == "bitnet32"
+    plain = (tm.ternary_matmul_tl_w2a8_normed_plain if want == "w2a8"
+             else tm.ternary_matmul_tl_bf16_normed_plain)
+    x = torch.from_numpy(rng.standard_normal((B, 2 * k_down)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((B, 64)).astype(np.float32))
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, (L, k_down)).astype(np.float32))
+    got = mm(1, x, "w_down", gamma, glu=True, resid=r)
+    d = blk.w_down
+    assert torch.equal(got, plain(x, d.packed[1], d.scales[1], gamma[1], 1e-5, True, r,
+                                  64, lut_bias))
+    mm(0, x[:, :256].contiguous(), "wo", None)
+    assert calls == [want, want]
+
+
+@pytest.mark.parametrize("lut_bias", [False, True])
+def test_stacked_decode_past_k11s_rows_matches_pallas(monkeypatch, lut_bias):
+    """A B = 1 layer whose down projection reads 14592 values (past
+    W2A8_DECODE_MAX_K) decodes on K12: against the JAX package's K12 site
+    (``ternary_matmul_stacked_tl_fused``, interpret mode), SwiGLU, the
+    sub-norm and the residual, within the module's 1e-4 of max|ref|."""
+    from bitnet_tpu_torch.models import bitnet as bm
+
+    monkeypatch.delenv("BITNET_TL_W2A8", raising=False)
+    monkeypatch.delenv("BITNET_TL_FUSED", raising=False)
+    k, n = 14592, 64
+    rng = np.random.default_rng(95 + lut_bias)
+    blk = _tl_layer("bitnet32" if lut_bias else "tl", rng, k, n)
+    x = rng.standard_normal((1, 2 * k)).astype(np.float32)
+    r = rng.standard_normal((1, n)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, (L, k)).astype(np.float32)
+    d = blk.w_down
+    want = ternary_matmul_stacked_tl_fused(
+        jnp.int32(1), jnp.asarray(x), jnp.asarray(d.packed.numpy()),
+        jnp.asarray(d.scales.numpy()), jnp.asarray(gamma), k_dim=k, n_dim=n, eps=1e-5,
+        glu=True, resid=jnp.asarray(r), lut_bias=lut_bias, interpret=True)
+    got = bm._stacked_mm(blk, 1, 1e-5)(1, torch.from_numpy(x), "w_down",
+                                       torch.from_numpy(gamma), glu=True,
+                                       resid=torch.from_numpy(r))
+    assert got.dtype == torch.float32 and got.shape == (1, n)
+    _close(got, want, 1e-4)
