@@ -1,18 +1,24 @@
-"""bitnet_tpu_torch command-line interface: ``run`` and
-``benchmark-kernels``.
+"""bitnet_tpu_torch command-line interface: ``run``, ``benchmark-kernels``
+and the verification subcommands.
 
 Counterpart of ``bitnet_tpu/cli.py``'s ``run`` (``:20-118``,
 ``:155-269``): the same generation and engine flags, prompt templates,
 streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
-Flags whose paths are not ported raise ``NotImplementedError`` naming
-their ROADMAP item; none is silently ignored.  ``benchmark-kernels``
-(``:477-497``, ``:999-1010``) prints the JSON of
-``tools/kernel_bench.py``: device time per kernel call on the card, the
-plain versions' host time with ``--device cpu`` (for tests only).
-``serve`` and the other subcommands are ROADMAP queue 1 #12 and #17.
+``run --receipt PATH`` writes an honest-compute receipt whose ``kernels``
+name the hand-written kernels that launched.  Flags whose paths are not
+ported raise ``NotImplementedError`` naming their ROADMAP item; none is
+silently ignored.  ``benchmark-kernels`` (``:477-497``, ``:999-1010``)
+prints the JSON of ``tools/kernel_bench.py``: device time per kernel call
+on the card, the plain versions' host time with ``--device cpu`` (for
+tests only).  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
+``trace-diff`` (``:744-865``) print the JAX CLI's JSON and exit codes;
+``crossval --trace-out`` also dumps the port's per-layer activation trace
+for ``trace-diff``.  ``serve`` and the other subcommands are ROADMAP
+queue 1 #12 and #17.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
+    python -m bitnet_tpu_torch.cli crossval -m model.gguf --tokens 2,7,11,5
     python -m bitnet_tpu_torch.cli benchmark-kernels --attention all --m 8
 """
 
@@ -83,8 +89,7 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
                    help="strict mode: no mock tokenizer")
     p.add_argument("--no-stream", action="store_true")
     p.add_argument("--receipt", default=None,
-                   help="honest-compute receipts: not ported (ROADMAP.md "
-                        "queue 1 #11)")
+                   help="write an honest-compute receipt JSON here")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="speculative decoding: not ported (ROADMAP.md "
                         "queue 1 #12)")
@@ -104,8 +109,6 @@ def _refuse_unported(args) -> None:
     if args.grammar_file or args.json_schema:
         raise not_ported("grammar-constrained decoding "
                          "(--grammar-file/--json-schema)", "#15")
-    if args.receipt:
-        raise not_ported("honest-compute receipts (--receipt)", "#11")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
 
@@ -227,7 +230,132 @@ def cmd_run(args) -> int:
     print(f"[{m['generated_tokens']} tokens, "
           f"ttft {m['ttft_s']*1000:.0f} ms, "
           f"{m['decode_tok_s']:.2f} tok/s decode]", file=sys.stderr)
+    if args.receipt:
+        from .verify.receipts import generate_receipt
+
+        rec = generate_receipt(engine, metrics=m)
+        with open(args.receipt, "w") as f:
+            json.dump(rec.to_dict(), f, indent=2)
+        print(f"receipt written to {args.receipt}", file=sys.stderr)
     return 0
+
+
+def cmd_crossval(args) -> int:
+    """Per-token logits cross-validation (bitnet_tpu/cli.py:744-765):
+    ``eval_ids`` on ``--device`` against the C++ golden (``cppref``), an
+    external C++ build (``cpp``) or the numpy golden (``golden``)."""
+    from .verify import crossval as cv
+    from .verify.trace import TraceSink
+
+    engine = _build_engine(args)
+    ids = [int(t) for t in args.tokens.split(",")] if args.tokens else \
+        engine.tokenizer.encode(args.prompt, add_bos=True)
+    sink = TraceSink() if args.trace_out else None
+    if args.backend == "cpp":
+        res = cv.crossval_cpp(engine, args.model, ids,
+                              threshold=args.threshold, trace=sink)
+    elif args.backend == "cppref":
+        res = cv.crossval_cppref(engine, args.model, ids,
+                                 threshold=args.threshold, trace=sink)
+    else:
+        # golden: numpy reference forward over the dequantized GGUF
+        res = cv.crossval_golden_gguf(engine, args.model, ids,
+                                      threshold=args.threshold, trace=sink)
+    if sink is not None:
+        sink.dump(args.trace_out)
+    if args.baselines:
+        cv.record_baseline(res, args.baselines, {"model": args.model})
+    print(json.dumps(res.as_dict(), indent=2))
+    return 0 if res.passed else 1
+
+
+def cmd_gate(args) -> int:
+    """CI gate (bitnet_tpu/cli.py:767-810): one JSON verdict over the
+    device, a receipt and an optional crossval against the C++ golden.
+    ``--require-cuda`` (the JAX gate's ``--require-tpu``) checks that
+    ``--device`` is an sm_90 card."""
+    from .device_probe import resolve_device
+
+    if args.require_native:
+        raise not_ported("the host C++ codec (--require-native)", "#22")
+    checks: dict[str, bool] = {}
+    try:
+        # a cuda device resolves only when it is an sm_90 card
+        dev = resolve_device(args.device)
+        checks["device_reachable"] = True
+    except Exception:
+        dev = None
+        checks["device_reachable"] = False
+    checks["native_codec"] = True       # never required: see --require-native
+    if args.receipt:
+        from .verify.receipts import InferenceReceipt, validate_receipt
+
+        try:
+            with open(args.receipt) as f:
+                r = InferenceReceipt.from_json(f.read())
+            checks["receipt_valid"] = not validate_receipt(r, strict=True)
+        except Exception:
+            checks["receipt_valid"] = False
+    if args.require_cuda:
+        checks["cuda"] = dev is not None and dev.type == "cuda"
+    extra: dict = {}
+    if args.crossval_model:
+        # engine vs the in-repo independent C++ golden (>0.99 cosine)
+        from .engine.engine import InferenceEngine
+        from .verify import crossval as cv
+
+        try:
+            engine = InferenceEngine.from_gguf(args.crossval_model,
+                                               device=args.device)
+            ids = [int(t) for t in args.crossval_tokens.split(",")]
+            res = cv.crossval_cppref(engine, args.crossval_model, ids)
+            checks["crossval_cppref"] = res.passed
+            extra["crossval"] = {"min_cosine": res.min_cosine,
+                                 "backend": res.backend}
+        except Exception as e:
+            checks["crossval_cppref"] = False
+            extra["crossval"] = {"error": str(e)}
+    verdict = all(checks.values())
+    print(json.dumps({"checks": checks, "passed": verdict, **extra},
+                     indent=2))
+    return 0 if verdict else 1
+
+
+def cmd_verify_receipt(args) -> int:
+    """Validate an honest-compute receipt (bitnet_tpu/cli.py:812-822)."""
+    from .verify.receipts import InferenceReceipt, validate_receipt
+
+    with open(args.receipt) as f:
+        r = InferenceReceipt.from_json(f.read())
+    problems = validate_receipt(r, strict=not args.tolerant)
+    print(json.dumps({"receipt": args.receipt, "problems": problems,
+                      "valid": not problems}, indent=2))
+    return 0 if not problems else 1
+
+
+def cmd_replay(args) -> int:
+    """Replay a receipt's generation on ``--device`` and check the output
+    token for token (bitnet_tpu/cli.py:824-856)."""
+    from .verify.receipts import InferenceReceipt
+    from .verify.replay import replay_receipt
+
+    with open(args.replay_receipt) as f:
+        rec = InferenceReceipt.from_json(f.read())
+    engine = _build_engine(args)
+    report = replay_receipt(engine, rec)
+    print(json.dumps(report.as_dict(), indent=2))
+    return 0 if report.matched else 1
+
+
+def cmd_trace_diff(args) -> int:
+    """Compare two activation trace dumps (bitnet_tpu/cli.py:857-865)."""
+    from .verify.trace import TraceSink, compare_records
+
+    a = TraceSink.load(args.a)
+    b = TraceSink.load(args.b)
+    diffs = compare_records(a.records, b.records, rms_rtol=args.rms_tol)
+    print(json.dumps({"mismatches": diffs}, indent=2))
+    return 0 if not diffs else 1
 
 
 # chain lengths of the plain versions' host timing (--device cpu, tests)
@@ -279,6 +407,62 @@ def main(argv: list[str] | None = None) -> int:
                    help="torch device (default cuda; cpu times the plain "
                         "PyTorch versions on the host, for tests only)")
     p.set_defaults(fn=cmd_benchmark_kernels)
+
+    p = sub.add_parser("crossval",
+                       help="per-token logits cross-validation")
+    _add_gen_flags(p)
+    p.add_argument("--tokens", default=None,
+                   help="comma-separated token ids (else encode --prompt)")
+    p.add_argument("--backend", default="cppref",
+                   choices=["cppref", "cpp", "golden"],
+                   help="cppref = in-repo independent C++ forward pass; "
+                        "cpp = external bitnet.cpp/llama.cpp via "
+                        "BITNET_CPP_DIR; golden = numpy reference over "
+                        "the dequantized GGUF")
+    p.add_argument("--threshold", type=float, default=0.99)
+    p.add_argument("--baselines", default=None,
+                   help="append the result to this baselines.json")
+    p.add_argument("--trace-out", default=None, metavar="JSON",
+                   help="also dump eval_ids' per-layer activation trace "
+                        "here (compare two with trace-diff)")
+    p.set_defaults(fn=cmd_crossval)
+
+    p = sub.add_parser("gate", help="CI gate: JSON pass/fail verdict")
+    p.add_argument("--receipt", default=None)
+    p.add_argument("--require-cuda", action="store_true",
+                   help="fail unless --device is an sm_90 CUDA card")
+    p.add_argument("--require-native", action="store_true",
+                   help="the host C++ codec: not ported (ROADMAP.md "
+                        "queue 1 #22)")
+    p.add_argument("--crossval-model", default=None,
+                   help="GGUF to cross-validate against the independent "
+                        "C++ golden (cosine gate)")
+    p.add_argument("--crossval-tokens", default="1,2,3,4,5",
+                   help="comma-separated token ids for --crossval-model")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain PyTorch versions)")
+    p.set_defaults(fn=cmd_gate)
+
+    p = sub.add_parser("verify-receipt",
+                       help="validate an honest-compute receipt")
+    p.add_argument("receipt")
+    p.add_argument("--tolerant", action="store_true")
+    p.set_defaults(fn=cmd_verify_receipt)
+
+    p = sub.add_parser("replay",
+                       help="deterministically replay a receipt")
+    _add_gen_flags(p)
+    p.add_argument("--receipt-in", dest="replay_receipt", required=True,
+                   help="receipt JSON to replay")
+    p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("trace-diff",
+                       help="compare two activation trace dumps")
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--rms-tol", type=float, default=0.02)
+    p.set_defaults(fn=cmd_trace_diff)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -7,8 +7,10 @@ positions carry S, so their cache writes drop), the full ``SamplerChain``
 with a seeded ``torch.Generator``, stop ids / EOS / stop sequences /
 max tokens, the ``min_new_tokens`` EOS ban, keep-half context shift (or,
 under ``context_overflow='stop'``, a stop with ``CONTEXT_FULL``), logprobs,
-``generate_batch`` over up to ``max_batch_size`` prompts, and a
-``kernel_recorder`` naming the path and the kernels that ran.
+``generate_batch`` over up to ``max_batch_size`` prompts, ``eval_ids``
+(per-position logits of one prefill: the crossval entry point), a
+``kernel_recorder`` naming the path and the kernels that ran, and the last
+``generate`` request kept for replay from a receipt.
 ``kernel_path='auto'`` resolves against the device: ``w2a8`` on the card,
 ``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
 one Python call of the model per token (a CUDA graph around it, and with
@@ -169,6 +171,7 @@ class InferenceEngine:
             self.kernel_recorder.append("fuse_projections_fallback")
         self.last_metrics = PerformanceMetrics()
         self._last_stop_reason = StopReason.MAX_TOKENS
+        self._last_request: dict | None = None    # generate's, for replay
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
@@ -219,9 +222,11 @@ class InferenceEngine:
                                 kv_dtype_name(self.cache.k.dtype))
 
     # -- steps ---------------------------------------------------------------
-    def prefill(self, token_ids: list[int]) -> torch.Tensor:
-        """Reset the cache and run the prompt; returns last-token logits
-        [B, V]."""
+    def _prefill_slot0(self, token_ids: list[int], trace=None
+                       ) -> tuple[torch.Tensor, int]:
+        """Reset the cache and run the prompt in slot 0 as one bucketed
+        prefill; returns (final-normed hidden [B, Tp, H], Tp).  Call under
+        ``torch.inference_mode``."""
         T = len(token_ids)
         if T == 0:
             raise InferenceError("empty prompt")
@@ -238,15 +243,42 @@ class InferenceEngine:
         n_real = np.zeros((B,), np.int32)
         n_real[0] = T
         dev = self.device
+        h, self.cache = forward_cache(
+            self.cfg, self.params, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(pos).to(dev), self.cache,
+            torch.from_numpy(n_real).to(dev), self.kernel_path, trace)
+        return h, Tp
+
+    def prefill(self, token_ids: list[int]) -> torch.Tensor:
+        """Reset the cache and run the prompt; returns last-token logits
+        [B, V]."""
+        T = len(token_ids)
         with torch.inference_mode():
-            h, self.cache = forward_cache(
-                self.cfg, self.params, torch.from_numpy(toks).to(dev),
-                torch.from_numpy(pos).to(dev), self.cache,
-                torch.from_numpy(n_real).to(dev), self.kernel_path)
+            h, Tp = self._prefill_slot0(token_ids)
             lg = model_logits(self.cfg, self.params, h[:, T - 1:T],
                               self.kernel_path)[:, 0]
         self.kernel_recorder.append(f"prefill_{self.kernel_path}_T{Tp}")
         return lg
+
+    # -- cross-validation ----------------------------------------------------
+    def eval_ids(self, token_ids: list[int], trace=None) -> np.ndarray:
+        """Per-position logits of the whole sequence, [T, V] float32 on the
+        host, from one bucketed prefill of slot 0 on the engine's device
+        (``bitnet_tpu/engine/engine.py:1011-1030``; the crossval entry
+        point).  ``trace``, a ``verify.trace.TraceSink``, records the real
+        positions of slot 0 at each layer (``models.bitnet.forward``)."""
+        T = len(token_ids)
+        hook = None if trace is None else (
+            lambda name, t: trace.record(name, t[0, :T]))
+        before = registry.launch_counts()
+        with torch.inference_mode():
+            h, Tp = self._prefill_slot0(token_ids, hook)
+            lg = model_logits(self.cfg, self.params, h[:1, :T],
+                              self.kernel_path)[0]
+            out = lg.to(torch.float32).cpu().numpy()
+        self.kernel_recorder.append(f"eval_{self.kernel_path}_T{Tp}")
+        self._record_kernels(before)
+        return out
 
     def decode_step(self, token_id: int, position: int) -> torch.Tensor:
         """Feed one token at ``position`` in slot 0; returns logits [B, V]."""
@@ -392,6 +424,22 @@ class InferenceEngine:
                 lps.append({"token_id": ev.token_id, "text": ev.text,
                             "logprob": ev.logprob, "top": ev.top_logprobs or []})
         text = self.tokenizer.decode(out_ids) if self.tokenizer is not None else ""
+        # recorded for deterministic replay through receipts
+        # (``bitnet_tpu/engine/engine.py:801-812``)
+        self._last_request = {
+            "prompt_ids": list(token_ids),
+            "output_ids": list(out_ids),
+            "gen": {
+                "max_new_tokens": gen_cfg.max_new_tokens,
+                "temperature": gen_cfg.temperature,
+                "top_k": gen_cfg.top_k,
+                "top_p": gen_cfg.top_p,
+                "min_p": gen_cfg.min_p,
+                "repetition_penalty": gen_cfg.repetition_penalty,
+                "seed": gen_cfg.seed,
+                "greedy": gen_cfg.greedy,
+            },
+        }
         return GenerationResult(text=text, token_ids=out_ids,
                                 stop_reason=self._last_stop_reason,
                                 prompt_tokens=len(token_ids),

@@ -57,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from functools import partial
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -575,7 +575,9 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
                      sin_rows: torch.Tensor,      # [B, T, D/2]
                      cos_rows: torch.Tensor,
                      k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
-                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                     v_scale: torch.Tensor | None = None,
+                     trace: Callable[[str, torch.Tensor], None] | None = None
+                     ) -> torch.Tensor:
     b = params.blocks
     B, T, H = x.shape
     M = B * T
@@ -612,6 +614,8 @@ def _prefill_stacked(cfg: ModelConfig, params: BitNetParams,
         if b.ffn_sub_norm is not None:
             act = rms_norm(act, b.ffn_sub_norm[l], eps)
         h2 = mm(l, act, "w_down") + h2
+        if trace is not None:
+            trace(f"blk.{l}.out", h2.reshape(B, T, H))
     return h2.reshape(B, T, H)
 
 
@@ -799,13 +803,20 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             num_real_tokens: torch.Tensor | int | None = None,  # [B] int32
             kernel_path: str = "xla",
             k_scale: torch.Tensor | None = None,   # [L, B, S, KV] (int8/fp8)
-            v_scale: torch.Tensor | None = None):
+            v_scale: torch.Tensor | None = None,
+            trace: Callable[[str, torch.Tensor], None] | None = None):
     """Returns (final-normed hidden [B, T, H], k_cache, v_cache); the
-    caches (and a quantized cache's scale stacks) are written in place."""
+    caches (and a quantized cache's scale stacks) are written in place.
+    ``trace(name, tensor)``, when given, sees the embedding rows
+    (``token_embd``), each layer's output (``blk.<l>.out``) of the prefill
+    loops, and the final-normed hidden state (``output_norm``), all
+    [B, T, H]; the stacked decode loop records only the ends."""
     if (kv_dtype_name(k_cache.dtype) in ("int8", "fp8")) != (k_scale is not None):
         raise ValueError("an int8 / fp8 cache needs its scale stacks, a bf16 / "
                          "f32 cache none")
     x = embed_tokens(params, tokens)
+    if trace is not None:
+        trace("token_embd", x)
     B, T, _ = x.shape
     if num_real_tokens is None:
         num_real_tokens = T
@@ -820,7 +831,7 @@ def forward(cfg: ModelConfig, params: BitNetParams,
                             pre_len, sin_rows, cos_rows, *scales)
     elif stacked_prefill_ok(cfg, params, T, kernel_path):
         h = _prefill_stacked(cfg, params, x, q_positions, k_cache, v_cache,
-                             pre_len, sin_rows, cos_rows, *scales)
+                             pre_len, sin_rows, cos_rows, *scales, trace=trace)
     else:
         writes = CacheWrites.of(q_positions, k_cache.shape[2])
         pos = pre_len.to(torch.int32).contiguous()
@@ -829,20 +840,26 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows,
                               q_positions, k_cache, v_cache, pos, kernel_path,
                               writes, *scales)
-    return rms_norm(h, params.final_norm, cfg.rms_norm_eps), k_cache, v_cache
+            if trace is not None:
+                trace(f"blk.{l}.out", h)
+    h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
+    if trace is not None:
+        trace("output_norm", h)
+    return h, k_cache, v_cache
 
 
 def forward_cache(cfg: ModelConfig, params: BitNetParams,
                   tokens: torch.Tensor, q_positions: torch.Tensor, cache,
                   num_real_tokens: torch.Tensor | int | None = None,
-                  kernel_path: str = "xla"):
+                  kernel_path: str = "xla",
+                  trace: Callable[[str, torch.Tensor], None] | None = None):
     """:func:`forward` on an ``engine.cache.KVCache``; advances its lengths
     in place and returns (hidden, cache)."""
     if num_real_tokens is None:
         num_real_tokens = tokens.shape[1]
     h, _, _ = forward(cfg, params, tokens, q_positions, cache.k, cache.v,
                       cache.lengths, num_real_tokens, kernel_path,
-                      cache.k_scale, cache.v_scale)
+                      cache.k_scale, cache.v_scale, trace)
     cache.lengths += num_real_tokens
     return h, cache
 

@@ -23,7 +23,7 @@ from ..gguf.reader import GGUFReader, TensorInfo
 from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes,
                           qk256_linear_from_payload)
 from ..ops.rope import build_rope_tables
-from ..quant import i2s
+from ..quant import i2s, qk256
 from ..quant.flavor import I2SFlavor, detect_i2s_flavor
 from .arch_registry import resolve_arch, validate_config_for_arch
 from .bitnet import BitNetParams, BlockParams
@@ -33,8 +33,27 @@ from .weight_map import find_global, find_layer, require_layer, scale_sibling_na
 
 
 def _to_float(reader: GGUFReader, info: TensorInfo) -> np.ndarray:
+    """An F32 / F16 tensor, or an I2_S one dequantized, as float32
+    [logical_shape] (``bitnet_tpu/models/loader.py:87-138``; the numpy
+    golden model of ``verify/crossval.py`` reads every tensor through it)."""
     if info.ggml_type in (GGMLType.F32, GGMLType.F16):
         return np.asarray(reader.tensor_data(info.name), dtype=np.float32)
+    if info.ggml_type == GGMLType.I2_S:
+        flavor = detect_i2s_flavor(info.nelems, info.nbytes, name=info.name,
+                                   cols=int(info.shape[0]) if info.shape else None)
+        raw = reader.tensor_bytes(info.name)
+        shape = info.logical_shape
+        if flavor == I2SFlavor.GGML_QK256_NO_SCALE:
+            rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+            return qk256.dequantize_qk256(raw, rows, shape[-1]).reshape(shape)
+        if flavor == I2SFlavor.BITNET32_F16:
+            return i2s.dequantize_bitnet32(raw, info.nelems).reshape(shape)
+        scales = None
+        for cand in scale_sibling_name(info.name):
+            if cand in reader.tensors:
+                scales = _to_float(reader, reader.tensors[cand]).reshape(-1)
+                break
+        return i2s.dequantize_split32(raw, info.nelems, scales).reshape(shape)
     raise ModelError(
         f"{info.name}: tensor type {info.ggml_type.name} is not ported yet "
         "(the port loads F32/F16 and I2_S; ROADMAP.md queue 1 #7)")

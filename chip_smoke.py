@@ -13,6 +13,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,w2a8,experiments
     python3 chip_smoke.py --phases probe,build,k1
     python3 chip_smoke.py --phases probe,build,k11
+    python3 chip_smoke.py --phases probe,build,gate
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -107,6 +108,14 @@ no result line):
   cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
            --weight-quant tl2) and BitNet32 GGUFs written by the port's own
            fixtures, on the card
+  gate     `python -m bitnet_tpu_torch.tools.gate_2b` on the full-width 2B
+           qk256 GGUF of tools/gen_2b_gguf.py (generate, build the C++
+           golden, `cli run --greedy --receipt`, `cli gate --receipt
+           --require-cuda`, `cli crossval --backend cppref` at tokens
+           2,7,11,5 on the default path w2a8): fails under cosine 0.99 at
+           any position or without a strict-valid cuda receipt naming K1 and
+           K5; then `cli crossval` on --kernel-path pallas and on the
+           bitnet32 2B GGUF, for information (cosines, ppl delta, launches)
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -132,7 +141,8 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
-          "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli")
+          "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
+          "gate")
 
 
 def emit(obj) -> None:
@@ -3514,6 +3524,117 @@ def phase_cli(torch, dev):
     return out
 
 
+# the JAX gate's tokens (tools/gate_2b.py) and the reference's crossval
+# threshold (crossval/src/logits_compare.rs:24)
+GATE_TOKENS = "2,7,11,5"
+GATE_MIN_COSINE = 0.99
+
+
+def _receipt_counts(kernels):
+    """``kernel_<registry id>_x<n>`` entries of a receipt, summed per
+    kernel and named by their site's K number (``SITES``)."""
+    k_of = {kid: key.upper() for _n, kid, _r, _p, key, _f in SITES}
+    counts = {}
+    for k in kernels:
+        if k.startswith("kernel_") and "_x" in k:
+            kid, n = k[len("kernel_"):].rsplit("_x", 1)
+            label = f"{k_of.get(kid, '?')} {kid}"
+            counts[label] = counts.get(label, 0) + int(n)
+    return counts
+
+
+def _gen_2b(kind, path):
+    """``tools/gen_2b_gguf.py`` (run as it is, the checkout on its path)."""
+    from bitnet_tpu_torch.tools.gate_2b import run
+
+    rc, _out, err = run([sys.executable, "tools/gen_2b_gguf.py", kind, path], 600)
+    if rc != 0:
+        raise AssertionError(f"gen_2b_gguf.py {kind} failed: {err[-800:]}")
+
+
+def _crossval_leg(torch, path, extra):
+    """``cli crossval --backend cppref`` in this process, at the gate's
+    tokens and --max-seq-len 256, on the card: the printed result and the
+    kernels its eval_ids launched."""
+    import contextlib
+    import io
+
+    from bitnet_tpu_torch import cli
+    from bitnet_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    so = io.StringIO()
+    registry.reset_launch_counts()
+    with contextlib.redirect_stdout(so):
+        rc = cli.main(["crossval", "-m", path, "--tokens", GATE_TOKENS,
+                       "--backend", "cppref", "--max-seq-len", "256", *extra])
+    n = {k: v for k, v in registry.launch_counts().items() if v}
+    res = json.loads(so.getvalue())
+    return {"rc": rc, **{k: res[k] for k in (
+        "cosines", "min_cosine", "first_divergence", "ppl_ours", "ppl_theirs",
+        "ppl_rel_delta")}, "launches": n, "seconds": time.perf_counter() - t0}
+
+
+def phase_gate(torch, dev):
+    """The port's 2B gate on the card: ``python -m
+    bitnet_tpu_torch.tools.gate_2b`` on the full-width 2B qk256 GGUF of
+    ``tools/gen_2b_gguf.py`` (generate, build the C++ golden, ``cli run
+    --greedy --receipt``, ``cli gate --receipt --require-cuda``, ``cli
+    crossval --backend cppref`` at tokens 2,7,11,5, --max-seq-len 256, the
+    default path w2a8).  Fails unless every check passes, every
+    per-position cosine is >= 0.99, and the receipt is strict-valid with
+    backend cuda and K1 / K5 launch counts.  Then two legs for information
+    (they must run; their cosines are not gated): the same GGUF on
+    --kernel-path pallas (K6, bf16 activations) and the bitnet32 2B GGUF
+    (K10 on the generic path)."""
+    import tempfile
+
+    from bitnet_tpu_torch.verify.receipts import InferenceReceipt, validate_receipt
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="gate_2b_") as d:
+        qk = os.path.join(d, "bitnet2b_qk256.gguf")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bitnet_tpu_torch.tools.gate_2b",
+                            "--gguf", qk, "--kind", "qk256", "--tokens", GATE_TOKENS],
+                           cwd=REPO, capture_output=True, text=True, timeout=900)
+        lines = r.stdout.strip().splitlines()
+        verdict = json.loads(lines[-1]) if lines else {}
+        gate = {"rc": r.returncode, **verdict, "seconds_by_step": verdict.get("seconds"),
+                "seconds": time.perf_counter() - t0}
+        out["qk256_w2a8"] = gate
+        rec = verdict.get("receipt") or {}
+        counts = _receipt_counts(rec.get("kernels") or [])
+        out["receipt_kernels"] = counts
+        cos = (verdict.get("cppref") or {}).get("cosines") or []
+        problems = validate_receipt(InferenceReceipt(
+            kernels=rec.get("kernels") or [], compute_path=rec.get("compute_path")))
+        ids = {label.split()[1] for label in counts}
+        if (r.returncode != 0 or not verdict.get("pass") or len(cos) != 4
+                or min(cos) < GATE_MIN_COSINE or problems
+                or rec.get("backend") != "cuda"
+                or not {"ternary_matmul_w2a8_normed", "decode_attention"} <= ids):
+            raise AssertionError(f"2B gate failed: {gate} {problems} "
+                                 f"{r.stderr[-1500:]}")
+        out["pallas"] = _crossval_leg(torch, qk, ["--kernel-path", "pallas"])
+        b32 = os.path.join(d, "bitnet2b_bitnet32.gguf")
+        t0 = time.perf_counter()
+        _gen_2b("bitnet32", b32)
+        out["bitnet32_generate_s"] = time.perf_counter() - t0
+        out["bitnet32_w2a8"] = _crossval_leg(torch, b32, [])
+    for leg in ("pallas", "bitnet32_w2a8"):
+        if not out[leg]["launches"]:
+            raise AssertionError(f"the {leg} leg launched no kernel: {out[leg]}")
+    keys = ("cosines", "min_cosine", "ppl_rel_delta")
+    out["legs"] = {"qk256_w2a8": {**{k: gate["cppref"][k] for k in keys},
+                                  "seconds": gate["seconds"],
+                                  "steps_s": gate.get("seconds_by_step")}}
+    for leg in ("pallas", "bitnet32_w2a8"):
+        out["legs"][leg] = {k: out[leg][k] for k in (*keys, "seconds", "launches")}
+    out["ok"] = True
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3552,7 +3673,8 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8")):
+        if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8",
+                                     "gate")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3643,6 +3765,11 @@ def main(argv=None) -> int:
             emit({"phase": "cli", **{k: v if not isinstance(v, dict) else
                                      {kk: vv for kk, vv in v.items() if kk != "stderr"}
                                      for k, v in report["cli"].items()}})
+        if "gate" in phases:
+            report["gate"] = timed("gate", phase_gate, torch, dev)
+            g = report["gate"]
+            emit({"phase": "gate", "nvidia_smi": smi, "seconds": seconds["gate"],
+                  "receipt_kernels": g["receipt_kernels"], "legs": g["legs"]})
     except Exception as e:  # any failed phase fails the run
         import traceback
 

@@ -1845,3 +1845,66 @@ def test_attn_runs_one_kernel_and_no_pytorch_op(dev, kernel):
     kernels, ops = _profiled_call(setup, call, counter, module)
     assert len(kernels) == 1 and "attn_decode" in kernels[0], kernels
     assert ops <= {"aten::empty"}, ops
+
+
+def _two_layer_2b():
+    """A 2-layer model at the 2B-4T widths (H=2560, F=6912, 20/5 heads,
+    sub-norms), random weights from a seed, on the CPU."""
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T, build_synthetic
+
+    cfg = BITNET_2B4T.replace(num_layers=2)
+    return cfg, build_synthetic(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("kp", ["w2a8", "pallas"])
+def test_eval_ids_on_the_card_matches_the_plain_versions(dev, kp):
+    """The crossval entry point on the card (one bucketed prefill of 8
+    rows: K1's row kernel and GEMM on w2a8, K6 on pallas) against the plain
+    versions on the CPU, per-position cosine >= 0.99 (ROADMAP §3's gate)."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.verify.reference import cosine_similarity
+
+    cfg, params = _two_layer_2b()
+    ec = EngineConfig(max_seq_len=256, kernel_path=kp)
+    eg = InferenceEngine(cfg, params, ec, device=dev)
+    ecpu = InferenceEngine(cfg, params, ec, device="cpu")
+    ids = [2, 7, 11, 5]
+    registry.reset_launch_counts()
+    a = eg.eval_ids(ids)
+    n = registry.launch_counts()
+    b = ecpu.eval_ids(ids)
+    assert a.shape == b.shape == (4, cfg.vocab_size) and a.dtype == b.dtype
+    cos = [cosine_similarity(a[t], b[t]) for t in range(4)]
+    assert min(cos) >= 0.99, cos
+    mm = "ternary_matmul_w2a8_normed" if kp == "w2a8" else "ternary_matmul_bf16"
+    assert n[mm] == 7 * cfg.num_layers
+    assert f"kernel_{mm}_x{7 * cfg.num_layers}" in eg.kernel_recorder
+    assert not any(k.startswith("kernel_") for k in ecpu.kernel_recorder)
+
+
+def test_receipt_names_k1_and_k5_and_replays(dev):
+    """A greedy request on the card (the CLI's engine: unfused, w2a8):
+    the receipt is strict-valid with backend cuda, names K1
+    (``ternary_matmul_w2a8_normed``) and K5 (``decode_attention``) with
+    their launch counts and the card with its power limit, and replays
+    token for token."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.verify.receipts import generate_receipt, validate_receipt
+    from bitnet_tpu_torch.verify.replay import replay_receipt
+
+    cfg, params = _two_layer_2b()
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=256), device=dev)
+    eng.generate([1, 5, 9], GenerationConfig(max_new_tokens=4, greedy=True))
+    rec = generate_receipt(eng)
+    assert rec.backend == "cuda" and validate_receipt(rec) == []
+    L = cfg.num_layers
+    # prefill 7L K1 launches, 3 decode steps of 7L K1 and L K5 each
+    assert f"kernel_ternary_matmul_w2a8_normed_x{7 * L}" in rec.kernels
+    assert f"kernel_ternary_matmul_w2a8_normed_x{3 * 7 * L}" in rec.kernels
+    assert f"kernel_decode_attention_x{3 * L}" in rec.kernels
+    assert rec.environment["device_name"] == torch.cuda.get_device_name(dev)
+    assert "W" in rec.environment["nvidia_smi"]
+    assert replay_receipt(eng, rec).matched

@@ -37,6 +37,17 @@ def test_no_jax_or_jax_package_import(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
 
 
+def test_the_scan_covers_the_verification_stack():
+    """The seven verification modules, the 2B gate tool and chip_smoke.py
+    are among the scanned sources (the gate tool runs
+    ``tools/gen_2b_gguf.py`` as a process of its own; it imports nothing of
+    it)."""
+    scanned = {str(p.relative_to(REPO)) for p in SOURCES}
+    want = {f"bitnet_tpu_torch/verify/{m}.py" for m in (
+        "__init__", "reference", "crossval", "receipts", "replay", "trace", "compat")}
+    assert want | {"bitnet_tpu_torch/tools/gate_2b.py", "chip_smoke.py"} <= scanned
+
+
 def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
     from bitnet_tpu_torch.config import EngineConfig, ModelConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
