@@ -6,7 +6,9 @@ Counterpart of ``bitnet_tpu/cli.py``'s ``run`` (``:20-118``,
 streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
 ``run --receipt PATH`` writes an honest-compute receipt whose ``kernels``
-name the hand-written kernels that launched.  Flags whose paths are not
+name the hand-written kernels that launched; ``run --grammar-file`` /
+``--json-schema`` constrain the output as the JAX CLI's do
+(``:132-151``).  Flags whose paths are not
 ported raise ``NotImplementedError`` naming their ROADMAP item; none is
 silently ignored.  ``benchmark-kernels`` (``:477-497``, ``:999-1010``)
 prints the JSON of ``tools/kernel_bench.py``: device time per kernel call
@@ -61,9 +63,10 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
                    help="report per-token log-probabilities plus the "
                         "top-N alternatives (stderr table)")
     p.add_argument("--grammar-file", default=None, metavar="GBNF",
-                   help="not ported (ROADMAP.md queue 1 #15)")
+                   help="constrain output to a GBNF grammar file")
     p.add_argument("--json-schema", default=None, metavar="SCHEMA",
-                   help="not ported (ROADMAP.md queue 1 #15)")
+                   help="constrain output to a JSON schema: 'any' (any "
+                        "JSON value), an inline {...} schema, or a file")
     p.add_argument("--prompt-template", default=None,
                    help="template type, or 'embedded' to execute the "
                         "GGUF's own jinja chat template (sandboxed)")
@@ -106,9 +109,6 @@ def _refuse_unported(args) -> None:
     if args.speculative or args.draft_model:
         raise not_ported("speculative decoding (--speculative/--draft-model)",
                          "#12")
-    if args.grammar_file or args.json_schema:
-        raise not_ported("grammar-constrained decoding "
-                         "(--grammar-file/--json-schema)", "#15")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
 
@@ -156,6 +156,29 @@ def _parse_logit_bias(spec: str | None) -> tuple:
     return tuple(sorted(pairs.items()))
 
 
+def _resolve_cli_grammar(args) -> str | None:
+    """--grammar-file / --json-schema → GBNF source, None when neither is
+    given (bitnet_tpu/cli.py:132-151)."""
+    gf, js = args.grammar_file, args.json_schema
+    if gf and js:
+        from .errors import ConfigError
+
+        raise ConfigError("--grammar-file and --json-schema are exclusive")
+    if gf:
+        with open(gf) as f:
+            return f.read()
+    if js:
+        from .grammar import JSON_GRAMMAR, json_schema_grammar
+
+        if js == "any":
+            return JSON_GRAMMAR
+        if js.lstrip().startswith("{"):
+            return json_schema_grammar(js)
+        with open(js) as f:
+            return json_schema_grammar(f.read())
+    return None
+
+
 def _gen_config(args, extra_stops=()):
     """bitnet_tpu/cli.py:155-175."""
     from .config import GenerationConfig
@@ -174,6 +197,7 @@ def _gen_config(args, extra_stops=()):
         seed=args.seed if not args.deterministic else (args.seed or 42),
         greedy=args.greedy or args.deterministic,
         stop_sequences=tuple(extra_stops) + tuple(args.stop or ()),
+        grammar=_resolve_cli_grammar(args),
         logprobs=args.logprobs,
     )
 

@@ -98,7 +98,7 @@ class GenerationConfig:
     frequency_penalty: float = 0.0  # OpenAI-style: -= count * penalty
     presence_penalty: float = 0.0   # OpenAI-style: -= (count > 0) * penalty
     logit_bias: tuple[tuple[int, float], ...] = ()  # (token_id, bias) pairs
-    mirostat: int = 0              # 0 = off (v1/v2: queue 1 #16)
+    mirostat: int = 0              # 0 = off, 1 / 2 = Mirostat v1 / v2
     mirostat_tau: float = 5.0
     mirostat_eta: float = 0.1
     seed: int | None = None
@@ -106,7 +106,7 @@ class GenerationConfig:
     stop_sequences: tuple[str, ...] = ()
     stop_token_ids: tuple[int, ...] = ()
     add_bos: bool = True
-    grammar: str | None = None     # GBNF source (queue 1 #15)
+    grammar: str | None = None     # GBNF source (constrained decoding)
     # None = off; N >= 0 = the sampled token's log-probability plus the
     # top-N alternatives per step, from the raw model distribution
     logprobs: int | None = None
@@ -156,11 +156,6 @@ class GenerationConfig:
         for s in self.stop_sequences:
             if not isinstance(s, str):
                 raise ConfigError("stop_sequences must be strings")
-        # valid in the JAX package, not ported yet
-        if self.mirostat:
-            raise not_ported(f"mirostat v{self.mirostat} sampling", "#16")
-        if self.grammar is not None:
-            raise not_ported("grammar-constrained decoding", "#15")
 
     @property
     def is_greedy(self) -> bool:
@@ -196,7 +191,7 @@ class EngineConfig:
     # place, so neither changes what runs on the card
     prefill_chunk: int = 512
     donate_cache: bool = True
-    prefix_cache_tokens: int = 0     # prompt-prefix KV cache (> 0: #12)
+    prefix_cache_tokens: int = 0     # prompt-prefix KV cache (0 = off)
     fuse_projections: bool = False   # True = the fused stacked path
     weight_quant: str = "none"       # 'tl1' / 'tl2': re-quantize to TL at init
     # decode tokens per host round-trip: 0 (auto) and 1 both mean one
@@ -245,9 +240,6 @@ class EngineConfig:
                 "(a CUDA graph of the step)", "#5")
         if self.sliding_window > 0:
             raise not_ported("the windowed ring cache", "#7")
-        if self.prefix_cache_tokens > 0:
-            raise not_ported("the prompt-prefix KV cache (prefix_cache_tokens)",
-                             "#12")
 
     def replace(self, **kw: Any) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

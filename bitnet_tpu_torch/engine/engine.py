@@ -10,7 +10,13 @@ under ``context_overflow='stop'``, a stop with ``CONTEXT_FULL``), logprobs,
 ``generate_batch`` over up to ``max_batch_size`` prompts, ``eval_ids``
 (per-position logits of one prefill: the crossval entry point), a
 ``kernel_recorder`` naming the path and the kernels that ran, and the last
-``generate`` request kept for replay from a receipt.
+``generate`` request kept for replay from a receipt, and the per-request
+state of ``:188-300``, ``:374-538``, ``:587-690`` and ``:989-1009``: a
+prompt-prefix cache (``prefix_cache_tokens``: the longest stored prefix is
+copied back into slot 0 from its host snapshot and only the suffix runs),
+``generate_stream(resume=True)`` / ``generate_from_state`` after a
+checkpoint restore, grammar-constrained decoding (a host mask a step) and
+Mirostat, and ``embed_ids``.
 ``kernel_path='auto'`` resolves against the device: ``w2a8`` on the card,
 ``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
 one Python call of the model per token (a CUDA graph around it, and with
@@ -27,7 +33,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..config import (EngineConfig, GenerationConfig, ModelConfig, not_ported,
+from ..config import (EngineConfig, GenerationConfig, ModelConfig,
                       resolve_kernel_path)
 from ..device_probe import resolve_device
 from ..errors import ConfigError, InferenceError
@@ -45,7 +51,8 @@ from ..models.bitnet import (
 from ..ops import registry
 from ..quant.tl import quantize_params_tl
 from .cache import allocate_cache, reset_cache
-from .sampling import SamplerChain, logprob_entry
+from .prefix_cache import PrefixCache, as_tensor, snapshot_from_cache
+from .sampling import NEG_INF, MirostatState, SamplerChain, logprob_entry
 from .stop import StopCriteria, StopReason
 
 
@@ -172,6 +179,8 @@ class InferenceEngine:
         self.last_metrics = PerformanceMetrics()
         self._last_stop_reason = StopReason.MAX_TOKENS
         self._last_request: dict | None = None    # generate's, for replay
+        self.prefix_cache = (PrefixCache(ec.prefix_cache_tokens)
+                             if ec.prefix_cache_tokens > 0 else None)
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
@@ -222,26 +231,51 @@ class InferenceEngine:
                                 kv_dtype_name(self.cache.k.dtype))
 
     # -- steps ---------------------------------------------------------------
-    def _prefill_slot0(self, token_ids: list[int], trace=None
-                       ) -> tuple[torch.Tensor, int]:
-        """Reset the cache and run the prompt in slot 0 as one bucketed
-        prefill; returns (final-normed hidden [B, Tp, H], Tp).  Call under
-        ``torch.inference_mode``."""
-        T = len(token_ids)
+    def _check_prompt(self, T: int) -> None:
         if T == 0:
             raise InferenceError("empty prompt")
         S = self.engine_cfg.max_seq_len
         if T > S:
             raise InferenceError(f"prompt {T} tokens > max_seq_len {S}")
+
+    def _restore_prefix(self, snap, m: int) -> None:
+        """Copy ``snap``'s first m rows (canonical ``[L, m, KV, D]``, and a
+        1-byte cache's ``[L, m, KV]`` scales) into slot 0 and set
+        ``lengths[0] = m`` (``bitnet_tpu/engine/engine.py:374-397``): one
+        host-to-device copy a buffer, cast to the cache's dtype."""
+        c = self.cache
+        L = c.k.shape[0]
+        for dst, src in ((c.k, snap.k), (c.v, snap.v)):
+            dst[:, 0, :m] = as_tensor(src)[:, :m].reshape(L, m, -1).to(
+                self.device, dst.dtype)
+        if c.k_scale is not None:
+            for dst, src in ((c.k_scale, snap.k_scale), (c.v_scale, snap.v_scale)):
+                dst[:, 0, :m] = as_tensor(src)[:, :m].to(self.device, dst.dtype)
+        c.lengths[0] = m
+
+    def _prefill_slot0(self, token_ids: list[int], trace=None, snap=None,
+                       m: int = 0) -> tuple[torch.Tensor, int]:
+        """Reset the cache, restore ``snap``'s first m rows when given, and
+        run the rest of the prompt (positions m…T-1) in slot 0 as one
+        bucketed prefill; returns (final-normed hidden [B, Tp, H], Tp),
+        the suffix's last token at row T-m-1.  Call under
+        ``torch.inference_mode``."""
+        T = len(token_ids)
+        self._check_prompt(T)
+        S = self.engine_cfg.max_seq_len
         reset_cache(self.cache)
+        if m > 0:
+            self._restore_prefix(snap, m)
+            self.kernel_recorder.append(f"prefix_restore_m{m}")
         B = self.engine_cfg.max_batch_size
-        Tp = self._bucket(T)
+        Ts = T - m
+        Tp = self._bucket(Ts)
         toks = np.zeros((B, Tp), np.int32)
-        toks[0, :T] = token_ids
+        toks[0, :Ts] = token_ids[m:]
         pos = np.full((B, Tp), S, np.int32)      # padding → dropped writes
-        pos[0, :T] = np.arange(T)
+        pos[0, :Ts] = np.arange(m, T)
         n_real = np.zeros((B,), np.int32)
-        n_real[0] = T
+        n_real[0] = Ts
         dev = self.device
         h, self.cache = forward_cache(
             self.cfg, self.params, torch.from_numpy(toks).to(dev),
@@ -251,14 +285,34 @@ class InferenceEngine:
 
     def prefill(self, token_ids: list[int]) -> torch.Tensor:
         """Reset the cache and run the prompt; returns last-token logits
-        [B, V]."""
+        [B, V].  With a prefix cache the longest stored prefix (at most
+        T-1 tokens: one always runs, for its logits) is restored from its
+        host snapshot, only the suffix runs, and the whole prompt's rows
+        are stored (``bitnet_tpu/engine/engine.py:399-446``)."""
         T = len(token_ids)
+        self._check_prompt(T)
+        m, snap = 0, None
+        if self.prefix_cache is not None:
+            m, snap = self.prefix_cache.lookup(token_ids)
+            m = min(m, T - 1)
         with torch.inference_mode():
-            h, Tp = self._prefill_slot0(token_ids)
-            lg = model_logits(self.cfg, self.params, h[:, T - 1:T],
+            h, Tp = self._prefill_slot0(token_ids, snap=snap, m=m)
+            lg = model_logits(self.cfg, self.params, h[:, T - m - 1:T - m],
                               self.kernel_path)[:, 0]
         self.kernel_recorder.append(f"prefill_{self.kernel_path}_T{Tp}")
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(list(token_ids), snapshot_from_cache(
+                self.cache, T, kv_heads=self.cfg.num_kv_heads))
         return lg
+
+    def embed_ids(self, token_ids: list[int]) -> np.ndarray:
+        """Final-normed hidden states of the sequence, [T, H] float32 on
+        the host, from one cold bucketed prefill of slot 0
+        (``bitnet_tpu/engine/engine.py:989-1009``)."""
+        T = len(token_ids)
+        with torch.inference_mode():
+            h, _Tp = self._prefill_slot0(token_ids)
+            return h[0, :T].to(torch.float32).cpu().numpy()
 
     # -- cross-validation ----------------------------------------------------
     def eval_ids(self, token_ids: list[int], trace=None) -> np.ndarray:
@@ -295,16 +349,75 @@ class InferenceEngine:
             return model_logits(self.cfg, self.params, h,
                                 self.kernel_path)[:, -1]
 
+    # -- resume --------------------------------------------------------------
+    def _relogit_last(self, token_ids: list[int]) -> torch.Tensor:
+        """Last-token logits from a restored cache: rewind slot 0's length
+        by one and run the final token through one decode step (its row is
+        written again in place; ``bitnet_tpu/engine/engine.py:487-504``)."""
+        T = len(token_ids)
+        self.cache.lengths[0] = T - 1
+        lg = self.decode_step(int(token_ids[-1]), T - 1)
+        self.kernel_recorder.append("resume_relogit")
+        return lg
+
+    def generate_from_state(self, token_ids: list[int],
+                            already_generated: int = 0,
+                            gen_cfg: GenerationConfig | None = None
+                            ) -> GenerationResult:
+        """Continue generation after a checkpoint restore
+        (``checkpoint.resume_generation``).  ``token_ids`` is the whole
+        context (prompt + tokens generated so far); only the new tokens
+        are returned.  A grammar's matcher replays the tokens generated
+        so far (``bitnet_tpu/engine/engine.py:507-538``)."""
+        gen_cfg = gen_cfg or GenerationConfig()
+        remaining = gen_cfg.max_new_tokens - already_generated
+        if remaining <= 0:
+            return GenerationResult(
+                text="", token_ids=[], stop_reason=StopReason.MAX_TOKENS,
+                prompt_tokens=len(token_ids), metrics={})
+        gen_cfg = gen_cfg.replace(max_new_tokens=remaining)
+        if gen_cfg.grammar and already_generated:
+            self._grammar_replay = token_ids[-already_generated:]
+        out_ids = [ev.token_id for ev in
+                   self.generate_stream(token_ids, gen_cfg, resume=True)]
+        text = (self.tokenizer.decode(out_ids)
+                if self.tokenizer is not None else "")
+        return GenerationResult(
+            text=text, token_ids=out_ids, stop_reason=self._last_stop_reason,
+            prompt_tokens=len(token_ids), metrics=self.last_metrics.as_dict())
+
+    def _grammar_matcher(self, gen_cfg: GenerationConfig):
+        """The request's constrained-decoding state: the vocab's pieces
+        read once, compiled grammars cached by source (32 at most;
+        ``bitnet_tpu/engine/engine.py:282-300``)."""
+        if not gen_cfg.grammar:
+            return None
+        if self.tokenizer is None:
+            raise InferenceError("grammar decoding requires a tokenizer")
+        from ..grammar import Grammar, TokenVocab, VocabMatcher
+
+        if not hasattr(self, "_grammar_vocab"):
+            self._grammar_vocab = TokenVocab.from_tokenizer(self.tokenizer)
+            self._grammar_cache: dict[str, Grammar] = {}
+        g = self._grammar_cache.get(gen_cfg.grammar)
+        if g is None:
+            g = Grammar.from_gbnf(gen_cfg.grammar)
+            if len(self._grammar_cache) >= 32:
+                self._grammar_cache.pop(next(iter(self._grammar_cache)))
+            self._grammar_cache[gen_cfg.grammar] = g
+        return VocabMatcher(g, self._grammar_vocab)
+
     # -- generation ----------------------------------------------------------
     def generate_stream(self, token_ids: list[int],
                         gen_cfg: GenerationConfig | None = None,
                         resume: bool = False) -> Iterator[TokenEvent]:
         """Stream tokens, in the JAX engine's loop order: context check
-        (keep-half shift, or stop with ``CONTEXT_FULL``) → sample → stop
-        id / EOS (not emitted) → emit → max tokens / stop sequence → decode
-        the emitted token."""
-        if resume:
-            raise not_ported("checkpoint resume (resume=True)", "#12")
+        (keep-half shift, or stop with ``CONTEXT_FULL``) → grammar mask
+        (a dead end stops with ``EOS``) → sample (Mirostat, or the chain)
+        → grammar accept → stop id / EOS (not emitted) → emit → max tokens
+        / stop sequence → decode the emitted token.  ``resume=True`` skips
+        the prefill: slot 0 already holds the context's rows (a checkpoint
+        restore) and the last token is decoded again for its logits."""
         gen_cfg = gen_cfg or GenerationConfig()
         metrics = PerformanceMetrics(prompt_tokens=len(token_ids),
                                      device=str(self.device))
@@ -333,10 +446,18 @@ class InferenceEngine:
             0 if self.engine_cfg.strict.deterministic
             else time.time_ns() % (2**31))
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        mirostat = (MirostatState.from_config(gen_cfg)
+                    if gen_cfg.mirostat else None)
+        grammar = self._grammar_matcher(gen_cfg)
+        replay = self.__dict__.pop("_grammar_replay", None)
+        if grammar is not None and replay:
+            for t in replay:
+                grammar.accept(int(t))
         before = registry.launch_counts()
 
         t0 = time.perf_counter()
-        logits = self.prefill(token_ids)
+        logits = (self._relogit_last(token_ids) if resume
+                  else self.prefill(token_ids))
         self._sync()
         metrics.prefill_s = metrics.ttft_s = time.perf_counter() - t0
         self._record_kernels(before)
@@ -370,9 +491,44 @@ class InferenceEngine:
                 self.kernel_recorder.append(f"context_shift_keep{keep}")
                 continue
             in_min = generated < gen_cfg.min_new_tokens
-            chain = sampler_ban if in_min and sampler_ban is not None else sampler
-            sampled = chain.sample(logits, history_dev, gen)       # [B]
-            tok_id = int(sampled[0])                  # waits for the device
+            step_logits = logits
+            if grammar is not None:
+                mask = grammar.allowed_mask()
+                if mask.shape[0] != logits.shape[-1]:
+                    raise InferenceError(
+                        f"grammar mask over {mask.shape[0]} tokens, logits "
+                        f"over {logits.shape[-1]}: the tokenizer's vocab "
+                        "is not the model's")
+                stoppable = mask
+                if in_min and eos_id is not None and mask.any():
+                    stoppable = mask.copy()       # the min phase bans EOS
+                    stoppable[eos_id] = False
+                if not stoppable.any():
+                    # a dead end with EOS illegal: stop cleanly
+                    self._last_stop_reason = StopReason.EOS
+                    self.kernel_recorder.append("grammar_dead_end")
+                    break
+                step_logits = torch.where(
+                    torch.tensor(mask, device=self.device)[None, :], logits,
+                    NEG_INF)
+            if mirostat is not None:
+                row = step_logits[0]
+                if in_min:       # EOS and the stop ids banned, as the chain does
+                    ban = [int(t) for t in {eos_id, *gen_cfg.stop_token_ids}
+                           if t is not None and t < row.shape[0]]
+                    if ban:
+                        row = row.clone()
+                        row[ban] = NEG_INF
+                tok_id = mirostat.sample(row, gen)     # waits for the device
+                sampled = torch.full((B,), tok_id, dtype=torch.int32,
+                                     device=self.device)
+            else:
+                chain = (sampler_ban if in_min and sampler_ban is not None
+                         else sampler)
+                sampled = chain.sample(step_logits, history_dev, gen)   # [B]
+                tok_id = int(sampled[0])              # waits for the device
+            if grammar is not None:
+                grammar.accept(tok_id)
             generated += 1
             metrics.generated_tokens = generated
             text = (self.tokenizer.token_to_piece(tok_id)
@@ -513,7 +669,8 @@ class InferenceEngine:
         if gen_cfg.grammar:
             raise InferenceError(
                 "grammar decoding is per-sequence host-side state; use "
-                "generate/generate_stream, not the lockstep batch API")
+                "generate/generate_stream or the scheduler, not the "
+                "lockstep batch API")
         if gen_cfg.logprobs is not None:
             raise InferenceError(
                 "logprobs need per-step host logits reads; use "

@@ -7,8 +7,9 @@ gumbel-max over uniforms the caller supplies (:func:`categorical`), as
 ``jax.random.categorical`` computes it (``argmax(logits − log(−log u))``
 with ``u`` in ``[tiny, 1)``), so a test can feed both packages the same
 uniforms; the engine draws them from a ``torch.Generator`` seeded by
-``GenerationConfig.seed``.  Mirostat (``MirostatState``) is not ported
-(ROADMAP.md queue 1 #16).
+``GenerationConfig.seed``.  :class:`MirostatState` (v1 and v2,
+``:241-284``) truncates one row on its device, draws with the same
+gumbel-max and updates ``mu`` on the host, one sync a step.
 """
 
 from __future__ import annotations
@@ -207,3 +208,66 @@ class SamplerChain:
         u = (None if self.config.is_greedy
              else draw_uniforms(logits.shape, generator, logits.device))
         return self.sample_with_uniforms(logits, history, u)
+
+
+# --------------------------------------------------------------------------
+# Mirostat (v1/v2): per-sequence state on the host, the row on its device
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class MirostatState:
+    """Adaptive-entropy sampling state: the truncation ``mu`` moves toward
+    the target surprise ``tau`` after every sampled token.  Each step
+    keeps the JAX package's f32 arithmetic: v2 drops the tokens whose
+    surprise (bits) exceeds ``mu``; v1 fits a Zipf exponent ``s_hat`` to
+    the top 100 log-probs (clipped to [1.01, 10]), derives ``k`` from
+    ``mu`` (clipped to [1, V]) and keeps the k largest."""
+
+    tau: float = 5.0
+    eta: float = 0.1
+    mu: float = 10.0          # 2 * tau by convention
+    version: int = 2
+
+    @classmethod
+    def from_config(cls, cfg: GenerationConfig) -> "MirostatState":
+        return cls(tau=cfg.mirostat_tau, eta=cfg.mirostat_eta,
+                   mu=2.0 * cfg.mirostat_tau, version=cfg.mirostat)
+
+    def truncate(self, logp: torch.Tensor) -> torch.Tensor:
+        """The log-probs [V] (f32) with the truncated tokens at NEG_INF."""
+        f32 = dict(dtype=torch.float32, device=logp.device)
+        ln2 = torch.log(torch.tensor(2.0, **f32))
+        mu = torch.tensor(self.mu, **f32)
+        if self.version == 2:
+            return torch.where(-logp / ln2 > mu, NEG_INF, logp)
+        V = logp.shape[-1]
+        top = torch.topk(logp, min(100, V)).values
+        idx = torch.arange(1, top.shape[-1], **f32)
+        b = (top[:-1] - top[1:]) / torch.log1p(1.0 / idx)
+        s_hat = torch.clamp(torch.mean(b), 1.01, 10.0)
+        eps = s_hat - 1.0
+        n = torch.tensor(float(V), **f32)
+        k = torch.pow(eps * torch.pow(torch.tensor(2.0, **f32), mu)
+                      / (1 - torch.pow(n, -eps)), 1.0 / s_hat)
+        # jnp's float -> int32 cast saturates (NaN -> 0) before the clip
+        k = torch.nan_to_num(k, nan=0.0).clamp(1.0, float(V)).to(torch.int64)
+        kth = torch.sort(logp, descending=True).values[k - 1]
+        return torch.where(logp < kth, NEG_INF, logp)
+
+    def sample_with_uniforms(self, logits_row: torch.Tensor,
+                             uniforms: torch.Tensor) -> int:
+        """One token from one row of logits [V] and uniforms [V] in
+        ``[tiny, 1)``; updates ``mu`` on the host."""
+        logp = torch.log_softmax(logits_row.to(torch.float32), dim=-1)
+        masked = self.truncate(logp)
+        tok = int(categorical(masked[None], uniforms.reshape(1, -1))[0])
+        surprise = float(-logp[tok] / torch.log(torch.tensor(
+            2.0, dtype=torch.float32, device=logp.device)))
+        self.mu -= self.eta * (surprise - self.tau)
+        return tok
+
+    def sample(self, logits_row: torch.Tensor,
+               generator: torch.Generator) -> int:
+        """:meth:`sample_with_uniforms` over uniforms from ``generator``."""
+        return self.sample_with_uniforms(
+            logits_row, draw_uniforms(logits_row.shape, generator,
+                                      logits_row.device))

@@ -83,3 +83,22 @@ def build_synthetic(cfg: ModelConfig = BITNET_2B4T, seed: int = 0,
     embed = (torch.randn((V, H), generator=g, device=dev) * 0.02).to(torch.bfloat16)
     return BitNetParams(embed=embed, blocks=blocks, final_norm=ones(H),
                         rope_sin=sin, rope_cos=cos)
+
+
+def condition_norms(params: BitNetParams, cfg: ModelConfig) -> BitNetParams:
+    """Set a synthetic model's norm gains, in place, as
+    ``tools/gen_2b_gguf.py`` sets its GGUF's: pre-norm gains that make q, k
+    and v unit-variance (1 / (0.02 · sqrt(H · E[w²])), E[w²] = 2.5 for the
+    codes' values {-2, -1, 1, 2} at ``build_synthetic``'s scale 0.02) and
+    sub-norm gains of 0.05 (a residual-dominated stream).  With gains of
+    one, two valid routes through 30 random layers part too far for a
+    cosine gate to tell a fault from rounding
+    (``python -m bitnet_tpu_torch.tools.prefill_routes``)."""
+    b = params.blocks
+    pre = 1.0 / (0.02 * (cfg.hidden_size * 2.5) ** 0.5)
+    b.attn_norm.fill_(pre)
+    b.ffn_norm.fill_(pre)
+    for sub in (b.attn_sub_norm, b.ffn_sub_norm):
+        if sub is not None:
+            sub.fill_(0.05)
+    return params

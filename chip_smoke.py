@@ -14,6 +14,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,k1
     python3 chip_smoke.py --phases probe,build,k11
     python3 chip_smoke.py --phases probe,build,gate
+    python3 chip_smoke.py --phases probe,build,requests
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -108,6 +109,18 @@ no result line):
   cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
            --weight-quant tl2) and BitNet32 GGUFs written by the port's own
            fixtures, on the card
+  requests the per-request state on the full-width 2B fused engine (seed 0,
+           int8 head, bf16 cache, S=1024, the mock tokenizer over 128256
+           ids, a 4096-token prefix cache): (a) a JSON-schema grammar
+           greedy and sampled, 32 tokens each, every token admissible under
+           a fresh matcher, and a yes/no grammar; (b) Mirostat v1 and v2,
+           32 tokens each, mu's update checked a step against the host's
+           surprise; (c) a 480-token prefix stored, then hits restoring 480
+           and 499 rows, logits against a cold prefill (cosine >= 0.99 and
+           the parity rule's argmax); (d) a 32-token greedy run broken
+           after 16, checkpointed to disk, resumed on the reset engine:
+           the same tokens; (e) a two-turn chatml session; K1-K4 launched,
+           no other kernel; TTFTs, copy ms, mask and decode ms a step
   gate     `python -m bitnet_tpu_torch.tools.gate_2b` on the full-width 2B
            qk256 GGUF of tools/gen_2b_gguf.py (generate, build the C++
            golden, `cli run --greedy --receipt`, `cli gate --receipt
@@ -142,7 +155,7 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "gate")
+          "requests", "gate")
 
 
 def emit(obj) -> None:
@@ -2365,7 +2378,19 @@ def summarize(res, launches):
 # ---------------------------------------------------------------------------
 # phase: parity (cuda kernels vs cpu plain versions, full width, 2 layers)
 # ---------------------------------------------------------------------------
-def _teacher_forced(torch, eg, ecpu, prompt, steps=8):
+def _logits_agree(torch, a, b):
+    """The parity phase's rule on one row of logits ``a`` against the
+    reference row ``b``: their cosine, and whether the argmaxes agree or
+    b's top-2 margin is within the largest difference."""
+    a, b = a.float().cpu(), b.float().cpu()
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    top2 = torch.topk(b, 2).values
+    same = int(a.argmax()) == int(b.argmax()) or float(
+        top2[0] - top2[1]) <= float((a - b).abs().max())
+    return cos, same
+
+
+def _teacher_forced(torch, eg, ecpu, prompt, steps=4):
     """Prefill both engines, then feed both the card's greedy tokens.
     Returns per-step cosines, both argmaxes, and whether every step that
     parted was a near-tie (CPU top-2 margin <= largest logit difference)."""
@@ -2375,12 +2400,10 @@ def _teacher_forced(torch, eg, ecpu, prompt, steps=8):
     toks_g, toks_c, cos, tie_ok = [], [], [], []
     pos = len(prompt)
     for _ in range(steps):
-        a, b = lg_g[0].float().cpu(), lg_c[0].float()
-        cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
+        c, ok = _logits_agree(torch, lg_g[0], lg_c[0])
+        cos.append(c)
+        tie_ok.append(ok)
         tg, tc = int(argmax(lg_g)[0]), int(argmax(lg_c)[0])
-        top2 = torch.topk(b, 2).values
-        tie_ok.append(tg == tc or float(top2[0] - top2[1])
-                      <= float((a - b).abs().max()))
         toks_g.append(tg)
         toks_c.append(tc)
         lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
@@ -2390,7 +2413,7 @@ def _teacher_forced(torch, eg, ecpu, prompt, steps=8):
             "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
 
 
-def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=6):
+def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=3):
     """``_teacher_forced`` for a pool, through ``prefill_batch`` and
     ``decode_batch_step``: every slot holds a prompt and is fed the card's
     greedy token; cosines and ties over all slots and steps."""
@@ -2420,11 +2443,14 @@ def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=6):
 def phase_parity(torch, dev):
     """The same 2-layer full-width model through the CUDA kernels and
     through the plain versions on the CPU, teacher-forced with the CUDA
-    run's greedy tokens.  Every step's logits keep cosine >= 0.99, and the
-    two pick the same token wherever the CPU's top-2 logit margin exceeds
-    the largest logit difference: the decode attention kernels round their
-    softmax weights to bf16 against other maxima than the plain versions,
-    and int8 requantization amplifies that (``python -m
+    run's greedy tokens for 4 decode steps (3 for a pool; halved from 8
+    and 6 to keep the script inside its time limit on a slower host; the
+    plans phase's 2-layer parity likewise).  Every step's logits
+    keep cosine >= 0.99, and the two pick the same token wherever the
+    CPU's top-2 logit margin exceeds the largest logit difference: the
+    decode attention kernels round their softmax weights to bf16 against
+    other maxima than the plain versions, and int8 requantization
+    amplifies that (``python -m
     bitnet_tpu_torch.tools.parity_probe``), so a near-tie may go either
     way.  The fused stacked path (slice 1) also requires equal tokens at
     f32.  The unfused generic path runs as the CLI builds it (bf16
@@ -2477,6 +2503,7 @@ def phase_parity(torch, dev):
     for case in cases:
         name, ec = case[:2]
         p = case[2] if len(case) > 2 else params
+        t0 = time.perf_counter()
         eg = InferenceEngine(cfg, p, ec, device=dev)
         ecpu = InferenceEngine(cfg, p, ec, device="cpu")
         B = ec.max_batch_size
@@ -2490,6 +2517,7 @@ def phase_parity(torch, dev):
             r = _teacher_forced(torch, eg, ecpu, prompt)
         r["ok"] = (r["min_cosine"] >= 0.99 and r["ties_only"]
                    and (name != "fused_f32" or r["tokens_cuda"] == r["tokens_cpu"]))
+        r["seconds"] = time.perf_counter() - t0
         out[name] = r
         del eg, ecpu
         if not r["ok"]:
@@ -3360,6 +3388,7 @@ def _knob_parity(torch, dev):
               if generic else
               EngineConfig(max_seq_len=256, max_batch_size=B, kv_cache_dtype=kv,
                            logits_dtype="int8", kernel_path="w2a8", fuse_projections=True))
+        t0 = time.perf_counter()
         with mock.patch.dict(os.environ, settings[name]):
             eg = InferenceEngine(cfg, params, ec, device=dev)
             ecpu = InferenceEngine(cfg, params, ec, device="cpu")
@@ -3367,7 +3396,8 @@ def _knob_parity(torch, dev):
             r = (_teacher_forced(torch, eg, ecpu, prompt) if B == 1
                  else _teacher_forced_batch(torch, eg, ecpu, pool))
         r.update(setting=name, B=B, kv=kv, plan=plan,
-                 ok=r["min_cosine"] >= 0.99 and r["ties_only"])
+                 ok=r["min_cosine"] >= 0.99 and r["ties_only"],
+                 seconds=time.perf_counter() - t0)
         out.append(r)
         del eg, ecpu
         if not r["ok"]:
@@ -3524,6 +3554,330 @@ def phase_cli(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: requests (grammar, Mirostat, prefix cache, checkpoint, session on
+# the full-width 2B fused engine)
+# ---------------------------------------------------------------------------
+REQ_SCHEMA = {"type": "object",
+              "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"},
+                             "tag": {"enum": ["a", "b"]}},
+              "required": ["ok", "n"]}
+REQ_KERNELS = ("ternary_matmul_w2a8_normed", "decode_attention_qkv",
+               "scatter_kv_rows", "ternary_matmul_w2a8")
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _req_grammar(torch, dev, eng, prompt):
+    """(a): a JSON-schema grammar, greedy and sampled (seed 0, T=0.8), 32
+    tokens each; every token admissible under a fresh matcher over a vocab
+    read anew from the tokenizer; ``root ::= "yes" | "no"`` gives one of
+    the two.  The mask's host ms a step: the engine's work of a step (the
+    matcher's mask, its copy to the card, the ``torch.where``) replayed
+    over the greedy run's tokens, beside the run's decode ms a step."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine.sampling import NEG_INF
+    from bitnet_tpu_torch.grammar import (Grammar, TokenVocab, VocabMatcher,
+                                          json_schema_grammar)
+
+    src = json_schema_grammar(REQ_SCHEMA)
+    vocab = TokenVocab.from_tokenizer(eng.tokenizer)
+    out = {"schema": REQ_SCHEMA}
+    for name, gc in (("greedy", GenerationConfig(max_new_tokens=32, greedy=True,
+                                                 grammar=src)),
+                     ("sampled", GenerationConfig(max_new_tokens=32, temperature=0.8,
+                                                  seed=0, grammar=src))):
+        r = eng.generate(prompt, gc)
+        m = VocabMatcher(Grammar.from_gbnf(src), vocab)
+        bad = []
+        for i, t in enumerate(r.token_ids):
+            if not m.allowed_mask()[t]:
+                bad.append((i, t))
+            m.accept(t)
+        if bad or not r.token_ids:
+            raise AssertionError(f"grammar {name}: inadmissible tokens {bad} in "
+                                 f"{r.token_ids}")
+        met = eng.last_metrics
+        out[name] = {"tokens": r.token_ids, "text": r.text,
+                     "stop": r.stop_reason.value, "ttft_ms": met.ttft_s * 1e3,
+                     "decode_ms_per_step": met.decode_s * 1e3 / max(met.decode_steps, 1),
+                     "decode_steps": met.decode_steps}
+    yn = eng.generate(prompt, GenerationConfig(max_new_tokens=8, greedy=True,
+                                               grammar='root ::= "yes" | "no"'))
+    if yn.text not in ("yes", "no"):
+        raise AssertionError(f"yes/no grammar gave {yn.text!r} ({yn.token_ids})")
+    out["yes_no"] = yn.text
+    # the mask step alone, over the greedy run's tokens (warm: the engine's
+    # vocab and compiled grammar, as a repeated request sees them)
+    m = VocabMatcher(Grammar.from_gbnf(src), eng._grammar_vocab)
+    lg = torch.zeros((1, eng.cfg.vocab_size), dtype=torch.bfloat16, device=dev)
+    times = []
+    for t in out["greedy"]["tokens"]:
+        _, ms = _sync_ms(torch, lambda: torch.where(
+            torch.tensor(m.allowed_mask(), device=dev)[None, :], lg, NEG_INF))
+        times.append(ms)
+        m.accept(t)
+    out["mask_host_ms_per_step"] = sum(times) / len(times)
+    return out
+
+
+def _req_mirostat(torch, eng, prompt):
+    """(b): Mirostat v1 and v2, 32 tokens each, seed 0.  tau and eta come
+    from the prompt's first logits row: 2·tau (the first mu) is the
+    surprise at its 5 % quantile, so v2 first keeps ~5 % of the vocab, and
+    eta lets mu drift about half way to the top token's surprise in 32
+    steps.  A second run of each, without the checks' host copies, must
+    give the same tokens and gives the ms a step.  Each step's mu must equal mu − eta·(surprise − tau) within 1e-4,
+    the surprise recomputed on the host (f32) from the same logits row; for
+    v2 the token must have surprise <= the mu before the update whenever
+    some token has; mu finite and moving."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine.sampling import MirostatState
+
+    with torch.inference_mode():
+        row = eng.prefill(prompt)[0].float().cpu()
+    s = -torch.log_softmax(row, -1) / math.log(2.0)
+    s_min, q05 = float(s.min()), float(torch.quantile(s, 0.05))
+    tau = q05 / 2
+    eta = max((q05 - s_min) / (32 * q05), 1e-4)
+    out = {"surprise_bits": {"min": s_min, "q05": q05, "median": float(s.median()),
+                             "max": float(s.max())}, "tau": tau, "eta": eta}
+    real = MirostatState.sample_with_uniforms
+    V = row.shape[0]
+    for version in (1, 2):
+        steps = []
+
+        def spy(self, logits_row, u):
+            mu0 = self.mu
+            logp_dev = torch.log_softmax(logits_row.float(), -1)
+            kept = int((self.truncate(logp_dev) > -1e29).sum())
+            host = logits_row.float().cpu()
+            tok = real(self, logits_row, u)
+            sh = -torch.log_softmax(host, -1) / torch.log(torch.tensor(2.0))
+            steps.append({"mu0": mu0, "mu1": self.mu, "tok": tok, "kept": kept,
+                          "s_tok": float(sh[tok]),
+                          "any_le": bool((sh <= mu0).any()),
+                          "s_min": float(sh.min())})
+            return tok
+
+        gc = GenerationConfig(max_new_tokens=32, mirostat=version, mirostat_tau=tau,
+                              mirostat_eta=eta, seed=0)
+        with mock.patch.object(MirostatState, "sample_with_uniforms", spy):
+            r = eng.generate(prompt, gc)
+        # the same request without the spy's host copies: the step's time,
+        # and the same tokens from the same seed
+        if eng.generate(prompt, gc).token_ids != r.token_ids:
+            raise AssertionError(f"mirostat v{version}: a second run parted")
+        met = eng.last_metrics
+        mus = [st["mu1"] for st in steps]
+        upd = max(abs(st["mu1"] - (st["mu0"] - eta * (st["s_tok"] - tau)))
+                  for st in steps)
+        outside = [i for i, st in enumerate(steps)
+                   if version == 2 and st["any_le"] and st["s_tok"] > st["mu0"] + 1e-4]
+        nontrivial = sum(0 < st["kept"] < V for st in steps)
+        res = {"tokens": r.token_ids, "steps": len(steps),
+               "mu_first": steps[0]["mu0"] if steps else None, "mu_last": mus[-1] if mus else None,
+               "mu_update_max_err": upd, "truncated_steps": nontrivial,
+               "kept_min": min(st["kept"] for st in steps),
+               "kept_max": max(st["kept"] for st in steps),
+               "decode_ms_per_step": met.decode_s * 1e3 / max(met.decode_steps, 1)}
+        out[f"v{version}"] = res
+        if (len(steps) < 2 or not all(math.isfinite(m) for m in mus)
+                or max(mus) == min(mus) == steps[0]["mu0"] or upd > 1e-4 or outside
+                or nontrivial == 0):
+            raise AssertionError(f"mirostat v{version}: {res} outside={outside}")
+    return out
+
+
+def _prefix_hits(torch, eng, cold, full, m):
+    """Store ``full[:m]`` on ``eng``, then prefill ``full`` twice (hits
+    restoring m and len(full)-1 rows) and ``full`` cold on ``cold``: the
+    logits rows, the host ms of each prefill, the restores recorded, and
+    whether the rows each hit restored equal its snapshot bit for bit."""
+    from bitnet_tpu_torch.engine.prefix_cache import as_tensor
+
+    out, seen = {}, []
+    restore = eng._restore_prefix
+
+    def spy(snap, n):
+        seen.append(snap)
+        restore(snap, n)
+
+    with torch.inference_mode(), mock.patch.object(eng, "_restore_prefix", spy):
+        cold.prefill(full)                                   # warm the bucket
+        out["cold"], out["cold_ms"] = _sync_ms(torch, lambda: cold.prefill(full))
+        _, out["store_ms"] = _sync_ms(torch, lambda: eng.prefill(full[:m]))
+        for n in (m, len(full) - 1):
+            lg, ms = _sync_ms(torch, lambda: eng.prefill(full))
+            L = eng.cfg.num_layers
+            rows = eng.cache.k[:, 0, :n].reshape(L, n, -1).cpu()
+            out[f"m{n}"], out[f"m{n}_ms"] = lg, ms
+            out[f"m{n}_rows_exact"] = torch.equal(
+                rows.view(torch.uint8),
+                as_tensor(seen[-1].k)[:, :n].reshape(L, n, -1).view(torch.uint8))
+        out["recorded"] = [r for r in eng.kernel_recorder
+                           if r.startswith("prefix_restore")][-2:]
+    return out
+
+
+def _req_prefix(torch, eng, cold, g):
+    """(c): a 480-token shared prefix P prefilled alone, then P + 20 tokens
+    (a hit at the stored 480: ``prefix_restore_m480``), then the same 500
+    again (``prefix_restore_m499``: one token always runs); the rows each
+    hit restored must equal its snapshot bit for bit, and each hit's
+    last-token logits must keep cosine >= 0.99 against a cold prefill on
+    the engine without the cache, with the same argmax wherever the cold
+    top-2 margin exceeds the largest logit difference (the parity phase's
+    rule).  Printed beside them: the cold engine's own decode route (P
+    prefilled, the 20 tokens decoded one at a time) against its prefill,
+    and the snapshot copies (device to host after a prefill, host to
+    device at a hit) timed apart."""
+    from bitnet_tpu_torch.engine.prefix_cache import snapshot_from_cache
+
+    V = eng.cfg.vocab_size
+    full = [int(t) for t in torch.randint(3, V, (500,), generator=g)]
+    h = _prefix_hits(torch, eng, cold, full, 480)
+    out = {"cold_ttft_ms": h["cold_ms"], "store_prefill_ms": h["store_ms"],
+           "hit_m480_ttft_ms": h["m480_ms"], "hit_m499_ttft_ms": h["m499_ms"],
+           "recorded": h["recorded"], "stats": eng.prefix_cache.stats()}
+    for m in ("m480", "m499"):
+        cos, same = _logits_agree(torch, h[m][0], h["cold"][0])
+        out[f"{m}_cosine"], out[f"{m}_argmax_ok"] = cos, same
+        out[f"{m}_rows_exact"] = h[f"{m}_rows_exact"]
+        if cos < 0.99 or not same or not h[f"{m}_rows_exact"]:
+            raise AssertionError(f"prefix hit {m}: {out}")
+    if h["recorded"] != ["prefix_restore_m480", "prefix_restore_m499"]:
+        raise AssertionError(f"prefix restores recorded {h['recorded']}")
+    with torch.inference_mode():
+        cold.prefill(full[:480])
+        for i, t in enumerate(full[480:]):
+            lg = cold.decode_step(t, 480 + i)
+        out["decode_route_cosine"] = _logits_agree(torch, lg[0], h["cold"][0])[0]
+        snap, out["snapshot_d2h_ms"] = _sync_ms(torch, lambda: snapshot_from_cache(
+            eng.cache, 480, kv_heads=eng.cfg.num_kv_heads))
+        _, out["restore_h2d_ms"] = _sync_ms(torch, lambda: eng._restore_prefix(snap, 480))
+    out["snapshot_mb"] = snap.nbytes / 1e6
+    return out
+
+
+def _req_checkpoint(torch, eng, g):
+    """(d): a greedy run of 32 tokens unbroken; then the same run broken
+    off after 16 tokens, captured, saved, loaded and resumed on the reset
+    engine (``kv_len`` = prompt + 15: the 16th token was yielded, not
+    decoded).  The 16 resumed tokens must equal the unbroken run's tail."""
+    import tempfile
+
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine import checkpoint as ck
+
+    prompt = [int(t) for t in torch.randint(3, eng.cfg.vocab_size, (64,), generator=g)]
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    golden = eng.generate(prompt, gc).token_ids
+    first = []
+    for ev in eng.generate_stream(prompt, gc):
+        first.append(ev.token_id)
+        if len(first) == 16:
+            break
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as d:
+        path = os.path.join(d, "state")
+        state, cap_ms = _sync_ms(torch, lambda: ck.capture(eng, prompt, first))
+        (man, save_ms) = _sync_ms(torch, lambda: ck.save(state, path))
+        loaded, load_ms = _sync_ms(torch, lambda: ck.load(path))
+        eng.prefill([5, 6, 7])                                # the engine moves on
+        res, resume_ms = _sync_ms(torch, lambda: ck.resume_generation(eng, loaded, gc))
+    out = {"golden": golden, "first": first, "resumed": res.token_ids,
+           "kv_len": man["kv_len"], "capture_ms": cap_ms, "save_ms": save_ms,
+           "load_ms": load_ms, "resume_32_ms": resume_ms,
+           "relogit_ms": res.metrics["ttft_s"] * 1e3}
+    if (man["kv_len"] != len(prompt) + 15 or first != golden[:16]
+            or res.token_ids != golden[16:]):
+        raise AssertionError(f"checkpoint resume: {out}")
+    return out
+
+
+def _req_session(eng):
+    """(e): two chatml turns of 8 greedy tokens; the state ends DONE with
+    5 messages (system, then user and assistant twice)."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine.session import Session, SessionConfig, SessionState
+
+    s = Session(eng, SessionConfig(system_prompt="You answer in one word.",
+                                   template="chatml"))
+    replies = [s.send(t, GenerationConfig(max_new_tokens=8, greedy=True))
+               for t in ("Name a colour.", "And another?")]
+    restores = [r for r in eng.kernel_recorder if r.startswith("prefix_restore")]
+    out = {"replies": replies, "state": s.state.value, "messages": len(s.messages),
+           "last_restore": restores[-1] if restores else None}
+    if s.state != SessionState.DONE or len(s.messages) != 5:
+        raise AssertionError(f"session: {out}")
+    return out
+
+
+def phase_requests(torch, dev):
+    """The per-request state on the full-width 2B fused engine (synthetic
+    qk256 words from seed 0, H=2560, F=6912, L=30, 20/5 heads, V=128256;
+    int8 head, bf16 cache, S=1024, B=1; ``MockTokenizer(vocab_size=128256)``;
+    ``prefix_cache_tokens=4096``): (a) grammar, (b) Mirostat, (c) prefix
+    cache, (e) session on that engine, (d) checkpoint on its twin without
+    the cache (a hit's suffix prefill rounds apart from a cold one's, and
+    (d) needs the same bits twice).  The norm gains are set as
+    ``tools/gen_2b_gguf.py`` sets its GGUF's (``condition_norms``): at
+    gains of one no cosine gate at 30 layers tells a fault from rounding
+    (``python -m bitnet_tpu_torch.tools.prefill_routes``).  Every check
+    of each part must hold.  The launch counters are zeroed before the
+    phase and read after: K1, K2, K3 and K4 must each have launched, every
+    other kernel not at all."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import (BITNET_2B4T, build_synthetic,
+                                                   condition_norms)
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.tokenizer import MockTokenizer
+    from bitnet_tpu_torch.verify.receipts import generate_receipt
+
+    cfg = BITNET_2B4T
+    t0 = time.perf_counter()
+    params = condition_norms(build_synthetic(cfg, seed=0, device=dev), cfg)
+    tok = MockTokenizer(vocab_size=cfg.vocab_size)
+    ec = EngineConfig(max_seq_len=1024, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True,
+                      prefix_cache_tokens=4096)
+    eng = InferenceEngine(cfg, params, ec, tokenizer=tok, device=dev)
+    cold = InferenceEngine(cfg, params, ec.replace(prefix_cache_tokens=0),
+                           tokenizer=tok, device=dev)
+    del params
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    g = torch.Generator().manual_seed(19)
+    prompt = [1] + [int(t) for t in torch.randint(3, 259, (40,), generator=g)]
+    secs = out["seconds"] = {}
+    registry.reset_launch_counts()
+    for name, fn in (("grammar", lambda: _req_grammar(torch, dev, eng, prompt)),
+                     ("mirostat", lambda: _req_mirostat(torch, eng, prompt)),
+                     ("prefix", lambda: _req_prefix(torch, eng, cold, g)),
+                     ("checkpoint", lambda: _req_checkpoint(torch, cold, g)),
+                     ("session", lambda: _req_session(eng))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    n = registry.launch_counts()
+    out["launches"] = {k: v for k, v in n.items() if v}
+    missing = [k for k in REQ_KERNELS if not n[k]]
+    extra = [k for k, v in n.items() if v and k not in REQ_KERNELS]
+    if missing or extra:
+        raise AssertionError(f"requests launches {n}: missing {missing}, other {extra}")
+    out["receipt_kernels"] = _receipt_counts(
+        generate_receipt(eng).kernels + generate_receipt(cold).kernels)
+    out["ok"] = True
+    return out
+
+
 # the JAX gate's tokens (tools/gate_2b.py) and the reference's crossval
 # threshold (crossval/src/logits_compare.rs:24)
 GATE_TOKENS = "2,7,11,5"
@@ -3674,7 +4028,7 @@ def main(argv=None) -> int:
                            "cuda": torch.version.cuda}
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8",
-                                     "gate")):
+                                     "requests", "gate")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -3765,6 +4119,19 @@ def main(argv=None) -> int:
             emit({"phase": "cli", **{k: v if not isinstance(v, dict) else
                                      {kk: vv for kk, vv in v.items() if kk != "stderr"}
                                      for k, v in report["cli"].items()}})
+        if "requests" in phases:
+            report["requests"] = r = timed("requests", phase_requests, torch, dev)
+            emit({"phase": "requests", "nvidia_smi": smi, "seconds": seconds["requests"],
+                  "receipt_kernels": r["receipt_kernels"], "launches": r["launches"],
+                  "build_s": r["build_s"], "parts_s": r["seconds"],
+                  "grammar": {k: v for k, v in r["grammar"].items() if k != "schema"},
+                  "mirostat": {k: ({kk: vv for kk, vv in v.items() if kk != "tokens"}
+                                   if isinstance(v, dict) else v)
+                               for k, v in r["mirostat"].items()},
+                  "prefix": r["prefix"],
+                  "checkpoint": {k: v for k, v in r["checkpoint"].items()
+                                 if k not in ("golden", "first")},
+                  "session": r["session"]})
         if "gate" in phases:
             report["gate"] = timed("gate", phase_gate, torch, dev)
             g = report["gate"]

@@ -3,7 +3,8 @@ the mini QK256 fixture: with ``--device cpu --greedy`` (auto → xla on the
 CPU) the port prints the text the JAX package's CLI prints with
 ``--greedy --kernel-path xla``, on every kernel path the port has.
 Without ``--device cpu`` it refuses to run when CUDA is absent, and flags
-of paths not ported yet raise, naming their ROADMAP item.  The
+of paths not ported yet raise, naming their ROADMAP item.  ``--grammar-file``
+and ``--json-schema`` constrain the text as the JAX CLI's do.  The
 verification subcommands (``run --receipt``, ``crossval``, ``gate``,
 ``verify-receipt``, ``replay``, ``trace-diff``) print the JAX CLI's JSON
 keys and exit with its codes on the same inputs."""
@@ -59,12 +60,57 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--speculative", "4"], "#12"), (["--draft-model", "d.gguf"], "#12"),
-    (["--grammar-file", "g.gbnf"], "#15"), (["--json-schema", "any"], "#15"),
     (["--sliding-window", "64"], "#7"), (["--decode-steps", "8"], "#5")])
 def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         cli.main(["run", "--model", mini_gguf_qk256.path, *ARGS,
                   "--device", "cpu", *flags])
+
+
+GBNF = 'root ::= [a-z]{3,6} ("!" | "?")\n'
+SCHEMA = ('{"type": "object", "properties": {"ok": {"type": "boolean"}}, '
+          '"required": ["ok"]}')
+
+
+@pytest.mark.parametrize("kind", ["json_any", "json_inline", "json_file",
+                                  "gbnf_file"])
+def test_cli_grammar_flags_print_the_reference_text(mini_gguf_qk256, capsys,
+                                                    tmp_path, kind):
+    """``run --json-schema`` (``any``, an inline schema, a schema file) and
+    ``run --grammar-file`` with ``--greedy --device cpu``: the text is the
+    JAX CLI's, and every token of it is admissible under the grammar.  Both
+    run at f32 (compute and cache): a grammar leaves few candidates, and at
+    bf16 two of them can tie within the packages' rounding differences."""
+    from bitnet_tpu_torch.grammar import (JSON_GRAMMAR, Grammar, TokenVocab,
+                                          VocabMatcher, json_schema_grammar)
+    from bitnet_tpu_torch.tokenizer import load_tokenizer
+
+    gpath, spath = tmp_path / "g.gbnf", tmp_path / "s.json"
+    gpath.write_text(GBNF)
+    spath.write_text(SCHEMA)
+    flags, src = {
+        "json_any": (["--json-schema", "any"], JSON_GRAMMAR),
+        "json_inline": (["--json-schema", SCHEMA], json_schema_grammar(SCHEMA)),
+        "json_file": (["--json-schema", str(spath)], json_schema_grammar(SCHEMA)),
+        "gbnf_file": (["--grammar-file", str(gpath)], GBNF)}[kind]
+    m = ["--model", mini_gguf_qk256.path, *ARGS, "--greedy", "--compute-dtype",
+         "f32", "--kv-cache-dtype", "f32", *flags]
+    want, _ = _run(jcli.main, m + ["--kernel-path", "xla"], capsys)
+    got, err = _run(cli.main, m + ["--device", "cpu"], capsys)
+    assert got == want and len(got.strip()) > 0 and "tokens" in err
+    tok = load_tokenizer(mini_gguf_qk256.path)
+    matcher = VocabMatcher(Grammar.from_gbnf(src), TokenVocab.from_tokenizer(tok))
+    assert matcher.matcher.feed_text(got[:-1])       # the text less print's newline
+
+
+def test_cli_grammar_flags_exclude_each_other(mini_gguf_qk256, tmp_path):
+    from bitnet_tpu_torch.errors import ConfigError
+
+    g = tmp_path / "g.gbnf"
+    g.write_text(GBNF)
+    with pytest.raises(ConfigError, match="exclusive"):
+        cli.main(["run", "--model", mini_gguf_qk256.path, *ARGS, "--device", "cpu",
+                  "--grammar-file", str(g), "--json-schema", "any"])
 
 
 @pytest.mark.parametrize("kv", ["int8", "fp8", "f32"])

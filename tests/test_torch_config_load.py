@@ -68,10 +68,18 @@ def test_fault1_dropped_fields_are_accepted():
     assert StrictMode(allow_fallback=False).allow_fallback is False
     gc = GenerationConfig(mirostat_tau=3.0, mirostat_eta=0.2)
     assert (gc.mirostat_tau, gc.mirostat_eta) == (3.0, 0.2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #16"):
-        GenerationConfig(mirostat=1, mirostat_tau=3.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #12"):
-        EngineConfig(prefix_cache_tokens=64)
+    # Mirostat, a grammar and the prefix cache are ported (they used to
+    # raise naming #16, #15 and #12)
+    assert GenerationConfig(mirostat=1, mirostat_tau=3.0).mirostat == 1
+    assert GenerationConfig(mirostat=2).mirostat == 2
+    assert GenerationConfig(grammar='root ::= "a"').grammar == 'root ::= "a"'
+    assert EngineConfig(prefix_cache_tokens=64).prefix_cache_tokens == 64
+    with pytest.raises(Exception, match="mirostat"):
+        GenerationConfig(mirostat=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #5"):
+        EngineConfig(decode_steps_per_dispatch=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #7"):
+        EngineConfig(sliding_window=64)
     with pytest.raises(Exception, match="context_overflow"):
         EngineConfig(context_overflow="wrap")
 

@@ -1908,3 +1908,66 @@ def test_receipt_names_k1_and_k5_and_replays(dev):
     assert rec.environment["device_name"] == torch.cuda.get_device_name(dev)
     assert "W" in rec.environment["nvidia_smi"]
     assert replay_receipt(eng, rec).matched
+
+
+def _requests_engines(dev):
+    """The 2B fused engine of chip_smoke's requests phase at 2 layers (int8
+    head, bf16 cache, S=1024, the mock tokenizer) with a prefix cache, and
+    its twin without one."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.tokenizer import MockTokenizer
+
+    cfg, params = _two_layer_2b()
+    tok = MockTokenizer(vocab_size=cfg.vocab_size)
+    ec = EngineConfig(max_seq_len=1024, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True,
+                      prefix_cache_tokens=4096)
+    return (InferenceEngine(cfg, params, ec, tokenizer=tok, device=dev),
+            InferenceEngine(cfg, params, ec.replace(prefix_cache_tokens=0),
+                            tokenizer=tok, device=dev))
+
+
+def test_prefix_cache_hits_match_a_cold_prefill(dev):
+    """A 480-token prefix stored, then the prefix plus 20 tokens (a hit
+    restoring 480 rows) and the same 500 again (499 rows): each hit's
+    last-token logits keep cosine >= 0.99 against a cold prefill, and the
+    suffix prefill runs K4."""
+    from bitnet_tpu_torch.ops import registry
+
+    eng, cold = _requests_engines(dev)
+    g = torch.Generator().manual_seed(19)
+    full = [int(t) for t in torch.randint(3, eng.cfg.vocab_size, (500,), generator=g)]
+    want = cold.prefill(full)[0].float()
+    eng.prefill(full[:480])
+    for m in (480, 499):
+        registry.reset_launch_counts()
+        got = eng.prefill(full)[0].float()
+        assert eng.kernel_recorder[-2] == f"prefix_restore_m{m}"
+        assert registry.launch_counts()["ternary_matmul_w2a8"] == 4 * eng.cfg.num_layers
+        assert torch.nn.functional.cosine_similarity(got, want, dim=0) >= 0.99
+
+
+def test_checkpoint_resume_repeats_the_unbroken_run(dev, tmp_path):
+    """32 greedy tokens unbroken; the same run broken after 16, captured,
+    saved, loaded and resumed on the reset engine: the same tokens (the
+    resume decodes the 16th token again over bit-exact restored rows)."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine import checkpoint as ck
+
+    _eng, cold = _requests_engines(dev)
+    g = torch.Generator().manual_seed(20)
+    prompt = [int(t) for t in torch.randint(3, cold.cfg.vocab_size, (64,), generator=g)]
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    golden = cold.generate(prompt, gc).token_ids
+    first = []
+    for ev in cold.generate_stream(prompt, gc):
+        first.append(ev.token_id)
+        if len(first) == 16:
+            break
+    path = str(tmp_path / "state")
+    man = ck.save(ck.capture(cold, prompt, first), path)
+    assert man["kv_len"] == len(prompt) + 15 and man["packed_dtypes"]["k"] == "bfloat16"
+    cold.prefill([5, 6, 7])
+    res = ck.resume_generation(cold, ck.load(path), gc)
+    assert first == golden[:16] and res.token_ids == golden[16:]

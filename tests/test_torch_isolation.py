@@ -204,15 +204,31 @@ def test_pools_and_quantized_caches_are_ported(kw, kv):
 
 
 def test_non_greedy_sampling_is_not_ported():
-    """Sampling is ported; mirostat and grammar-constrained decoding are
-    not, and say which ROADMAP item ports them."""
-    from bitnet_tpu_torch.config import GenerationConfig
+    """Sampling, Mirostat, grammar-constrained decoding, the prefix cache
+    and checkpoint resume are ported (Mirostat and the grammar used to
+    raise naming #16 and #15); speculative decoding and the paged
+    cache (#12), K-step dispatches (#5) and the windowed cache (#7) still
+    raise, naming their ROADMAP item."""
+    import inspect
+
+    from bitnet_tpu_torch.cli import _refuse_unported
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.experiments import exp_r4_attn
 
     assert not GenerationConfig(greedy=False, temperature=0.8).is_greedy
-    with pytest.raises(NotImplementedError, match="#16"):
-        GenerationConfig(mirostat=2)
-    with pytest.raises(NotImplementedError, match="#15"):
-        GenerationConfig(grammar='root ::= "a"')
+    assert GenerationConfig(mirostat=2).mirostat == 2
+    assert GenerationConfig(mirostat=1).mirostat == 1
+    assert GenerationConfig(grammar='root ::= "a"').grammar is not None
+    assert EngineConfig(prefix_cache_tokens=128).prefix_cache_tokens == 128
+    assert "not_ported" not in inspect.getsource(InferenceEngine.generate_stream)
+    for kw, item in (({"decode_steps_per_dispatch": 2}, "#5"),
+                     ({"sliding_window": 32}, "#7")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+            EngineConfig(**kw)
+    src = inspect.getsource(_refuse_unported)
+    assert '"#12"' in src and '"#15"' not in src
+    assert '"#12"' in inspect.getsource(exp_r4_attn)
 
 
 def test_chip_smoke_fails_without_the_port_and_without_a_card(tmp_path):
