@@ -84,8 +84,9 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
                    help="re-quantize every linear to TL1 (64-row blocks) or "
                         "TL2 (128-row blocks) at load")
     p.add_argument("--decode-steps", type=int, default=0,
-                   help="decode tokens per host round-trip: 0 or 1 (K > 1 "
-                        "needs a CUDA graph, ROADMAP.md queue 1 #5)")
+                   help="decode tokens per host round-trip (K-step "
+                        "segments, one CUDA graph on the card; 0 = auto: 8 "
+                        "on the card, 1 on the CPU). Tokens equal K=1's.")
     p.add_argument("--sliding-window", type=int, default=0, metavar="W",
                    help="windowed ring cache: not ported (ROADMAP.md queue 1 #7)")
     p.add_argument("--strict", action="store_true",

@@ -194,8 +194,9 @@ class EngineConfig:
     prefix_cache_tokens: int = 0     # prompt-prefix KV cache (0 = off)
     fuse_projections: bool = False   # True = the fused stacked path
     weight_quant: str = "none"       # 'tl1' / 'tl2': re-quantize to TL at init
-    # decode tokens per host round-trip: 0 (auto) and 1 both mean one
-    # step a dispatch on the card; K > 1 needs a CUDA graph (#5)
+    # decode tokens per host round trip in generate_stream (engine/loop.py:
+    # one CUDA graph of K steps on the card; tokens equal K=1's).
+    # 0 = auto: 8 on the card, 1 on the CPU
     decode_steps_per_dispatch: int = 0
     # at pos >= max_seq_len: 'shift' keeps the last half of the context and
     # re-prefills, 'stop' ends generation with StopReason.CONTEXT_FULL
@@ -234,10 +235,6 @@ class EngineConfig:
         if self.max_batch_size < 1 or self.max_seq_len < 1:
             raise ConfigError("max_batch_size and max_seq_len must be >= 1")
         # valid in the JAX package, not ported yet
-        if self.decode_steps_per_dispatch > 1:
-            raise not_ported(
-                f"{self.decode_steps_per_dispatch}-step decode dispatches "
-                "(a CUDA graph of the step)", "#5")
         if self.sliding_window > 0:
             raise not_ported("the windowed ring cache", "#7")
 

@@ -18,13 +18,18 @@ copied back into slot 0 from its host snapshot and only the suffix runs),
 checkpoint restore, grammar-constrained decoding (a host mask a step) and
 Mirostat, and ``embed_ids``.
 ``kernel_path='auto'`` resolves against the device: ``w2a8`` on the card,
-``xla`` on the CPU.  PyTorch runs eagerly: the decode step is
-one Python call of the model per token (a CUDA graph around it, and with
-it K-step dispatches, is ROADMAP queue 1 #5).
+``xla`` on the CPU.  ``generate_stream`` decodes in K-step segments
+(``engine/loop.py``, ``:302-322``, ``:621-650``, ``:723-741``): one CUDA
+graph of K sample → forward → logits steps a host round trip on the card
+(``decode_steps_per_dispatch``, auto 8 there and 1 on the CPU), the host
+replaying its stop logic over the K tokens; Mirostat, a grammar, logprobs,
+the ``min_new_tokens`` phase and the last tokens before ``max_new_tokens``
+or the context's end take the eager single step.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -181,6 +186,10 @@ class InferenceEngine:
         self._last_request: dict | None = None    # generate's, for replay
         self.prefix_cache = (PrefixCache(ec.prefix_cache_tokens)
                              if ec.prefix_cache_tokens > 0 else None)
+        # K-step decode segments by sampler, K and kernel knobs (LRU); on
+        # the card their graphs share one memory pool
+        self._segments: collections.OrderedDict = collections.OrderedDict()
+        self._graph_pool = None
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
@@ -229,6 +238,52 @@ class InferenceEngine:
         records (``bitnet_tpu/engine/engine.py:746-774``)."""
         return decode_attn_plan(self.engine_cfg.max_batch_size,
                                 kv_dtype_name(self.cache.k.dtype))
+
+    # -- K-step segments -------------------------------------------------------
+    MAX_SEGMENTS = 16
+
+    def _segment_steps(self) -> int:
+        """Decode steps a host round trip: ``decode_steps_per_dispatch``, or
+        for 0 (auto) 8 on the card and 1 elsewhere (the JAX rule,
+        ``bitnet_tpu/engine/engine.py:302-306``, with the card as the
+        accelerator)."""
+        k = self.engine_cfg.decode_steps_per_dispatch
+        if k == 0:
+            return 8 if self.device.type == "cuda" else 1
+        return k
+
+    def _get_segment(self, gen_cfg: GenerationConfig, n_steps: int):
+        """The K-step segment (``engine/loop.py``) keyed as the JAX engine
+        keys it (K and every sampler field, ``:308-322``), plus the
+        repetition window (its shape) and the kernel-selection knobs (the
+        plan a graph captured).  Segments whose graphs hold buffers the
+        engine no longer holds (a replaced cache or weights) are dropped
+        first."""
+        from .loop import buffer_addresses, build_decode_segment
+
+        key = ("seg", n_steps, gen_cfg.temperature, gen_cfg.top_k,
+               gen_cfg.top_p, gen_cfg.min_p, gen_cfg.typical_p,
+               gen_cfg.repetition_penalty, gen_cfg.frequency_penalty,
+               gen_cfg.presence_penalty, gen_cfg.logit_bias, gen_cfg.is_greedy,
+               gen_cfg.repetition_window,
+               tuple(sorted((k, v) for k, v in os.environ.items()
+                            if k.startswith("BITNET_"))))
+        if (self._segments and next(iter(self._segments.values())).buffers
+                != buffer_addresses(self.params, self.cache)):
+            self._segments.clear()
+        seg = self._segments.get(key)
+        if seg is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            seg = build_decode_segment(
+                self.cfg, self.params, self.cache, self.kernel_path,
+                SamplerChain(gen_cfg), n_steps, self.engine_cfg.max_seq_len,
+                self.device, self._graph_pool)
+            self._segments[key] = seg
+            while len(self._segments) > self.MAX_SEGMENTS:
+                self._segments.popitem(last=False)
+        self._segments.move_to_end(key)
+        return seg
 
     # -- steps ---------------------------------------------------------------
     def _check_prompt(self, T: int) -> None:
@@ -473,12 +528,21 @@ class InferenceEngine:
         history[0, : len(hist_ids)] = hist_ids
         history_dev = torch.from_numpy(history).to(self.device)
         lp_n = gen_cfg.logprobs
+        # K-step segments (engine/loop.py); Mirostat, a grammar and logprobs
+        # keep K = 1 (host state or a host read every step)
+        K = (self._segment_steps()
+             if mirostat is None and grammar is None and lp_n is None else 1)
+        if K > 1:
+            active = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            active[0] = 1
+            pos_host = np.full((B,), S, np.int32)      # idle slots at S
         before = registry.launch_counts()
         t_dec = time.perf_counter()
         pos = len(token_ids)
         generated = 0
         emitted: list[int] = []
-        while True:
+        stopped = False
+        while not stopped:
             if pos >= S:
                 if self.engine_cfg.context_overflow == "stop":
                     self._last_stop_reason = StopReason.CONTEXT_FULL
@@ -491,6 +555,35 @@ class InferenceEngine:
                 self.kernel_recorder.append(f"context_shift_keep{keep}")
                 continue
             in_min = generated < gen_cfg.min_new_tokens
+            if (K > 1 and gen_cfg.max_new_tokens - generated >= K and pos + K <= S
+                    and not in_min):
+                # K tokens decoded on the device in one round trip; the host
+                # replays the stop logic and drops the overshoot (the cache
+                # and pos keep all K steps, as in ``:723-741``)
+                pos_host[0] = pos
+                toks, logits, _pos, history_dev = self._get_segment(gen_cfg, K)(
+                    logits, torch.from_numpy(pos_host).to(self.device),
+                    history_dev, gen, active)
+                step_toks = toks[0].tolist()              # waits for the device
+                pos += K
+                metrics.decode_steps += K
+                for tok_id in step_toks:
+                    generated += 1
+                    metrics.generated_tokens = generated
+                    text = (self.tokenizer.token_to_piece(tok_id)
+                            if self.tokenizer is not None else "")
+                    reason = stop.check(tok_id, text)
+                    if reason in (StopReason.STOP_TOKEN, StopReason.EOS):
+                        self._last_stop_reason = reason
+                        stopped = True
+                        break
+                    emitted.append(tok_id)
+                    yield TokenEvent(token_id=tok_id, text=text, index=generated - 1)
+                    if reason is not None:
+                        self._last_stop_reason = reason
+                        stopped = True
+                        break
+                continue
             step_logits = logits
             if grammar is not None:
                 mask = grammar.allowed_mask()

@@ -1,0 +1,192 @@
+"""Multi-step decode segments: K decode steps a host round trip.
+
+Counterpart of ``bitnet_tpu/engine/loop.py``.  The eager decode loop
+syncs with the host every token; on the card that round trip (the
+Python of ~150 launches and the token's read-back) takes several times
+the step's device time, so :meth:`InferenceEngine.generate_stream` decodes
+in K-token SEGMENTS: sample → forward → logits K times with no host work
+in between, the host then running its stop logic over the K tokens.  The
+JAX package jits a ``lax.scan`` of the K bodies; on the card the same
+function is one CUDA graph of the K bodies, captured once and replayed:
+
+- the carry (logits, positions, history) and the active-slot counts live
+  in static device buffers owned by the segment; a call copies its inputs
+  in (a buffer passed back from the last call is not copied), replays the
+  graph, and finds the K tokens and the new carry in those buffers.  The
+  sampled token feeds the next forward and ``pos`` advances on the
+  device; the cache is written in place (``forward_cache``);
+- the sampler's uniforms come from a generator registered with the graph
+  (``CUDAGraph.register_generator_state``): the request generator's state
+  is copied into it before a replay and back after, so the K draws are
+  those of K eager draws and the request's stream goes on from there;
+- every intermediate comes from the graph's memory pool (fixed addresses
+  across replays): the TMA descriptors the kernels build on the host keep
+  the weights', the cache's and these buffers' addresses, so the engine
+  drops a segment whose captured buffers it no longer holds;
+- the kernel wrappers count their launches in Python, which a replay does
+  not run: the segment records the counts its capture added, takes them
+  back (a capture launches nothing) and adds them on every replay
+  (``ops/registry.add_launch_counts``).
+
+On the CPU (only when the caller asked for it, as the tests do) the same
+body runs K times eagerly.  On the card a capture or a replay that fails
+raises: no path runs the K steps eagerly there.  Sampling threads the
+generator and the repetition history through the steps, so the tokens
+equal K single steps' (``tests/test_torch_segments.py``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..config import ModelConfig
+from ..models.bitnet import BitNetParams, forward_cache, logits as model_logits
+from ..ops import registry
+from ..ops.decode_attention import attn_counters
+from .sampling import SamplerChain, draw_uniforms
+
+
+def buffer_addresses(params: BitNetParams, cache) -> tuple:
+    """What a captured graph holds of an engine: its weights (the
+    parameters object stands for them) and its cache buffers' addresses."""
+    return (id(params), cache.k.data_ptr(), cache.v.data_ptr(),
+            cache.lengths.data_ptr(),
+            *(t.data_ptr() for t in (cache.k_scale, cache.v_scale) if t is not None))
+
+
+class DecodeSegment:
+    """``segment(logits, pos, history, generator, active)`` →
+    ``(tokens [B, K], logits [B, V], pos [B], history [B, W])``.
+
+    ``logits`` [B, V] are the last step's (the first token is sampled from
+    them); ``pos`` [B] int32 each slot's next position (S for an idle
+    slot); ``history`` [B, W] int64 the repetition window (-1 padding);
+    ``generator`` the request's ``torch.Generator`` (unused when greedy);
+    ``active`` [B] int32, 1 for a live slot: an idle slot's positions are
+    S (its writes drop), its length and position do not advance and its
+    history does not roll.  ``tokens[:, j]`` is the j-th sampled token.
+    On the card the outputs are the segment's own buffers, valid until its
+    next call."""
+
+    def __init__(self, cfg: ModelConfig, params: BitNetParams, cache,
+                 kernel_path: str, sampler_chain: SamplerChain, n_steps: int,
+                 max_seq_len: int, device: torch.device, pool=None):
+        if n_steps < 1:
+            raise ValueError(f"a segment takes n_steps >= 1, got {n_steps}")
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.buffers = buffer_addresses(params, cache)
+        self.kernel_path = kernel_path
+        self.chain = sampler_chain
+        self.n_steps = n_steps
+        self.S = max_seq_len
+        self.device = torch.device(device)
+        self.pool = pool                 # a graph pool handle to share, or None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict[str, int] = {}   # each replay's launches, by kernel
+        self.capture_s = 0.0
+        self.calls = 0                   # on the card: graph replays
+
+    # -- the body ------------------------------------------------------------
+    def _step(self, lg, pos, hist, gen, active, live):
+        """One step of ``bitnet_tpu/engine/loop.py:44-58``."""
+        u = (None if self.chain.config.is_greedy
+             else draw_uniforms(lg.shape, gen, lg.device))
+        nxt = self.chain.sample_with_uniforms(lg, hist, u)            # [B] int32
+        positions = torch.where(live, pos, self.S)[:, None]   # idle: writes drop
+        h, _ = forward_cache(self.cfg, self.params, nxt[:, None], positions,
+                             self.cache, active, self.kernel_path)
+        lg = model_logits(self.cfg, self.params, h, self.kernel_path)[:, -1]
+        if hist.shape[1] > 0:
+            rolled = torch.cat([hist[:, 1:], nxt[:, None].to(hist.dtype)], dim=1)
+            hist = torch.where(live[:, None], rolled, hist)
+        return lg, pos + active, hist, nxt
+
+    def _eager(self, logits, pos, history, generator, active):
+        live = active > 0
+        toks = []
+        for _ in range(self.n_steps):
+            logits, pos, history, nxt = self._step(logits, pos, history, generator,
+                                                   active, live)
+            toks.append(nxt)
+        return torch.stack(toks, dim=1), logits, pos, history
+
+    # -- the graph -----------------------------------------------------------
+    def _capture(self, logits: torch.Tensor, history: torch.Tensor) -> None:
+        """Capture the K bodies over fresh static buffers shaped like the
+        first call's inputs."""
+        dev, B = logits.device, logits.shape[0]
+        greedy = self.chain.config.is_greedy
+        t0 = time.perf_counter()
+        # what a capture cannot do: zero the attention's arrival counters
+        # (the first call on a device) and copy the bias lists to the card
+        attn_counters(self.device)
+        self.chain.prepare(logits.shape[-1], dev)
+        self._lg = torch.empty_like(logits)
+        self._pos = torch.empty((B,), dtype=torch.int32, device=dev)
+        self._hist = torch.empty_like(history)
+        self._active = torch.empty((B,), dtype=torch.int32, device=dev)
+        self._tok = torch.empty((B, self.n_steps), dtype=torch.int32, device=dev)
+        self._gen = None if greedy else torch.Generator(device=dev)
+        graph = torch.cuda.CUDAGraph()
+        if self._gen is not None:
+            graph.register_generator_state(self._gen)
+        before = registry.launch_counts()
+        try:
+            # torch.cuda.graph synchronizes the device, then captures on its
+            # own side stream; a replay runs on the caller's stream, after
+            # the input copies and before the read-back, as eager steps do
+            with torch.cuda.graph(graph, pool=self.pool):
+                lg, pos, hist = self._lg, self._pos, self._hist
+                live = self._active > 0
+                for j in range(self.n_steps):
+                    lg, pos, hist, nxt = self._step(lg, pos, hist, self._gen,
+                                                    self._active, live)
+                    self._tok[:, j].copy_(nxt)
+                self._lg.copy_(lg)
+                self._pos.copy_(pos)
+                self._hist.copy_(hist)
+        finally:
+            # the capture launched nothing: take its wrappers' counts back
+            after = registry.launch_counts()
+            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            registry.add_launch_counts(delta, times=-1)
+        self.launches = delta
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def _replay(self, logits, pos, history, generator, active):
+        if self.graph is None:
+            self._capture(logits, history)
+        for dst, src in ((self._lg, logits), (self._pos, pos), (self._hist, history),
+                         (self._active, active)):
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        if self._gen is not None:
+            self._gen.set_state(generator.get_state())
+        self.graph.replay()
+        if self._gen is not None:
+            generator.set_state(self._gen.get_state())
+        registry.add_launch_counts(self.launches)
+        return self._tok, self._lg, self._pos, self._hist
+
+    def __call__(self, logits: torch.Tensor, pos: torch.Tensor,
+                 history: torch.Tensor, generator: torch.Generator | None,
+                 active: torch.Tensor):
+        self.calls += 1
+        with torch.inference_mode():
+            if self.device.type == "cpu":
+                return self._eager(logits, pos.to(torch.int32), history, generator,
+                                   active.to(torch.int32))
+            return self._replay(logits, pos, history, generator, active)
+
+
+def build_decode_segment(cfg: ModelConfig, params: BitNetParams, cache,
+                         kernel_path: str, sampler_chain: SamplerChain,
+                         n_steps: int, max_seq_len: int,
+                         device: torch.device | str, pool=None) -> DecodeSegment:
+    """A K-step decode segment over ``cache`` (written in place); on the
+    card it is captured at its first call."""
+    return DecodeSegment(cfg, params, cache, kernel_path, sampler_chain, n_steps,
+                         max_seq_len, device, pool)

@@ -111,22 +111,36 @@ def apply_presence_frequency(logits: torch.Tensor, history: torch.Tensor,
             - presence_penalty * (counts > 0).to(logits.dtype))
 
 
-def apply_logit_bias(logits: torch.Tensor,
-                     bias: tuple[tuple[int, float], ...]) -> torch.Tensor:
-    """Add per-token biases; a value <= -100 bans the token (OpenAI
-    ``logit_bias``)."""
-    V = logits.shape[-1]
+def logit_bias_vectors(bias: tuple[tuple[int, float], ...], V: int, device
+                       ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """The bias as dense ``[V]`` f32 additions and a ``[V]`` bool ban mask
+    (a value <= -100), on ``device``; None when no id is below V.  Built
+    from host lists, so a CUDA graph capture must find them built
+    (:meth:`SamplerChain.prepare`)."""
     pairs = [(t, v) for t, v in bias if t < V]
     if not pairs:
-        return logits
-    ids = torch.tensor([t for t, _ in pairs], dtype=torch.int64,
-                       device=logits.device)
-    vals = torch.tensor([v for _, v in pairs], dtype=torch.float32,
-                        device=logits.device)
-    vec = torch.zeros((V,), dtype=torch.float32, device=logits.device)
+        return None
+    ids = torch.tensor([t for t, _ in pairs], dtype=torch.int64, device=device)
+    vals = torch.tensor([v for _, v in pairs], dtype=torch.float32, device=device)
+    vec = torch.zeros((V,), dtype=torch.float32, device=device)
     vec.index_add_(0, ids, vals)
-    ban = torch.zeros((V,), dtype=torch.bool, device=logits.device)
+    ban = torch.zeros((V,), dtype=torch.bool, device=device)
     ban[ids] = vals <= -100.0
+    return vec, ban
+
+
+def apply_logit_bias(logits: torch.Tensor,
+                     bias: tuple[tuple[int, float], ...],
+                     vectors: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
+    """Add per-token biases; a value <= -100 bans the token (OpenAI
+    ``logit_bias``).  ``vectors``: :func:`logit_bias_vectors` of ``bias``
+    already on the logits' device (else built here)."""
+    if vectors is None:
+        vectors = logit_bias_vectors(bias, logits.shape[-1], logits.device)
+    if vectors is None:
+        return logits
+    vec, ban = vectors
     return torch.where(ban, NEG_INF, logits + vec)
 
 
@@ -175,12 +189,24 @@ class SamplerChain:
     min-p → typical-p → categorical, or argmax when greedy."""
 
     config: GenerationConfig
+    # logit_bias_vectors by (V, device): built once a chain, so a step
+    # makes no host-to-device copy (none may run inside a CUDA graph)
+    _bias: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
+
+    def prepare(self, V: int, device) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The chain's logit-bias vectors over V logits on ``device``."""
+        key = (V, str(torch.device(device)))
+        if key not in self._bias:
+            self._bias[key] = logit_bias_vectors(self.config.logit_bias, V, device)
+        return self._bias[key]
 
     def transform(self, logits: torch.Tensor, history: torch.Tensor
                   ) -> torch.Tensor:
         c = self.config
         logits = logits.to(torch.float32)
-        logits = apply_logit_bias(logits, c.logit_bias)
+        logits = apply_logit_bias(logits, c.logit_bias,
+                                  self.prepare(logits.shape[-1], logits.device))
         logits = apply_repetition_penalty(logits, history, c.repetition_penalty)
         logits = apply_presence_frequency(
             logits, history, c.frequency_penalty, c.presence_penalty)

@@ -277,14 +277,16 @@ def attn_counters(device: torch.device) -> torch.Tensor:
     once: the kernel's last block of each (b, kv head) resets its counter,
     so every call, and every replay of a CUDA graph, finds them zero.  The
     first call on a device must run outside a graph capture (a capture
-    does not run the zeroing)."""
-    buf = _COUNTERS.get(device.index)
+    does not run the zeroing).  ``cuda`` without an index is the current
+    device, whose counters the kernels' tensors (always indexed) find."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    buf = _COUNTERS.get(index)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the first decode-attention call on a device must "
                                "run before a CUDA graph capture")
-        buf = _COUNTERS[device.index] = torch.zeros(ATTN_COUNTERS, dtype=torch.int32,
-                                                    device=device)
+        buf = _COUNTERS[index] = torch.zeros(ATTN_COUNTERS, dtype=torch.int32,
+                                             device=torch.device("cuda", index))
     return buf
 
 

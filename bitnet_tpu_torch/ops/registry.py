@@ -6,7 +6,10 @@ wrapper carries a plain integer ``launches`` that it bumps where it
 launches its CUDA kernel and nowhere else; a run that zeroes the counters
 before the main path and reads them after shows which kernels the path
 really went through.  The plain PyTorch versions that run for CPU tensors
-are not kernels and count nothing.
+are not kernels and count nothing.  A CUDA graph replay runs no Python: the
+graph's owner records the counts its capture added (:func:`launch_counts`
+before and after), takes them back (the capture launched nothing) and adds
+them on every replay (:func:`add_launch_counts`).
 """
 
 from __future__ import annotations
@@ -148,3 +151,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in REGISTRY:
         k.wrapper.launches = 0
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``delta[kernel_id]`` to each kernel's counter (a
+    negative ``times`` takes counts back)."""
+    wrappers = {k.kernel_id: k.wrapper for k in REGISTRY}
+    for kid, n in delta.items():
+        wrappers[kid].launches += times * n

@@ -15,6 +15,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,k11
     python3 chip_smoke.py --phases probe,build,gate
     python3 chip_smoke.py --phases probe,build,requests
+    python3 chip_smoke.py --phases probe,build,segments
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -109,6 +110,16 @@ no result line):
   cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
            --weight-quant tl2) and BitNet32 GGUFs written by the port's own
            fixtures, on the card
+  segments K-step decode segments (one CUDA graph of 8 steps a round trip)
+           against one step a round trip on the same engine, 32 tokens a
+           request: the 2B fused B=1 engine (bf16 cache greedy and seeded
+           top-k, int8 cache), TL1 fused B=1, the CLI's generic engine
+           (greedy and seeded) and the 8B fused B=1 engine: tokens and stop
+           reasons equal, launch counts by kernel per step equal (the
+           replays' counts), a replay for every 8 steps; host ms a step at
+           K = 1 and 8, the graph's device ms a step and capture ms.  Every
+           earlier phase that calls ``generate`` decodes in segments too
+           (auto: 8 steps a round trip on the card)
   requests the per-request state on the full-width 2B fused engine (seed 0,
            int8 head, bf16 cache, S=1024, the mock tokenizer over 128256
            ids, a 4096-token prefix cache): (a) a JSON-schema grammar
@@ -155,7 +166,7 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "requests", "gate")
+          "segments", "requests", "gate")
 
 
 def emit(obj) -> None:
@@ -3566,6 +3577,180 @@ REQ_KERNELS = ("ternary_matmul_w2a8_normed", "decode_attention_qkv",
                "scatter_kv_rows", "ternary_matmul_w2a8")
 
 
+# ---------------------------------------------------------------------------
+# phase: K-step decode segments (engine/loop.py), one CUDA graph of K steps
+# ---------------------------------------------------------------------------
+SEG_K = 8
+
+
+def _segment_calls(eng) -> int:
+    return sum(seg.calls for seg in eng._segments.values())
+
+
+def _segment_leg(torch, name, eng, prompts, gcs, want):
+    """Each prompt under each (name, GenerationConfig) of ``gcs`` at K = 1,
+    then at K = ``SEG_K``, the counters zeroed before each request and read
+    after: the tokens and the stop reason must be K = 1's; the counts must
+    be ``want(bucket, decode_steps)`` at both K (every other kernel 0), so
+    they are K = 1's kernel by kernel, per step: K = 8 decodes one more
+    step where the last segment ends at ``max_new_tokens`` (the JAX rule
+    runs a segment while ``remaining >= K``); and K = 8 must have replayed
+    a graph for every K of its steps.  A request of K + 1 tokens at each K
+    first (uncounted) captures the segment.  Host ms a step: the decode
+    loop's clock, ending in a sync."""
+    from bitnet_tpu_torch.ops import registry
+
+    rows = []
+    for gname, gc in gcs:
+        for K in (1, SEG_K):
+            eng.engine_cfg = eng.engine_cfg.replace(decode_steps_per_dispatch=K)
+            eng.generate(prompts[0][:8], gc.replace(max_new_tokens=K + 1))
+        for p in prompts:
+            per = {}
+            for K in (1, SEG_K):
+                eng.engine_cfg = eng.engine_cfg.replace(decode_steps_per_dispatch=K)
+                replays = _segment_calls(eng)
+                registry.reset_launch_counts()
+                r = eng.generate(p, gc)
+                n = registry.launch_counts()
+                m = eng.last_metrics
+                steps = m.decode_steps
+                expect = {k.kernel_id: 0 for k in registry.REGISTRY}
+                expect.update(want(eng._bucket(len(p)), steps))
+                if n != expect:
+                    raise AssertionError(f"{name} {gname} K={K}: launch counts "
+                                         f"{n} != {expect}")
+                per[K] = {"tokens": r.token_ids, "stop": r.stop_reason.value,
+                          "decode_steps": steps,
+                          "replays": _segment_calls(eng) - replays,
+                          "prefill_ms": m.prefill_s * 1e3,
+                          "decode_ms_per_step": m.decode_s * 1e3 / max(steps, 1),
+                          "launches": {k: v for k, v in n.items() if v}}
+            one, seg = per[1], per[SEG_K]
+            if (seg["tokens"] != one["tokens"] or seg["stop"] != one["stop"]
+                    or len(one["tokens"]) != gc.max_new_tokens):
+                raise AssertionError(f"{name} {gname}: K={SEG_K} tokens "
+                                     f"{seg['tokens']} != K=1's {one['tokens']}")
+            if one["replays"] or seg["replays"] != gc.max_new_tokens // SEG_K:
+                raise AssertionError(f"{name} {gname}: replays {one['replays']} at "
+                                     f"K=1, {seg['replays']} at K={SEG_K}")
+            rows.append({"leg": name, "gen": gname, "prompt": len(p),
+                         "tokens_equal": True, **{
+                             f"k{K}_{key}": v for K, d in per.items()
+                             for key, v in d.items() if key != "tokens"}})
+    return rows
+
+
+def _graph_ms(torch, eng):
+    """(device ms a step, capture ms) of the engine's greedy segment: its
+    graph replayed 4 times back to back (a 32-token request's segments)
+    between two CUDA events, after one replay, going on from its last
+    call's carry; the median of 3 such runs, over 4K steps."""
+    seg = next(s for s in eng._segments.values()
+               if s.graph is not None and s.chain.config.is_greedy)
+    seg.graph.replay()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(4):
+            seg.graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / (4 * seg.n_steps))
+    return sorted(times)[1], seg.capture_s * 1e3
+
+
+def phase_segments(torch, dev):
+    """K-step decode segments on the card (``engine/loop.py``; ROADMAP #5):
+    ``generate`` at K = 1 and K = 8 on the same engine (its
+    ``decode_steps_per_dispatch`` switched), 32 new tokens a request:
+    (a) the 2B fused B=1 engine (H=2560, F=6912, L=30, 20/5 heads of 128,
+        vocab 128256; int8 head, bf16 cache, S=1024), prompts of 32, 128
+        and 500, greedy and seeded top-k (K1 4L, K2 L, K3 1 a step; K4 4L
+        a prefill);
+    (b) the same words over an int8 cache (K7 for K2), greedy;
+    (c) TL1 fused B=1 (K11 4L, K2 L, K3 1; K10 4L a prefill), greedy;
+    (d) the CLI's generic engine (unfused, auto → w2a8, bf16 cache and tied
+        head, S=2048; K1 7L and K5 L a step), greedy and seeded;
+    (e) the 8B fused B=1 engine (Llama-3-8B-1.58 shapes, L=32), one
+        request of 128 tokens, greedy.
+    Each request: :func:`_segment_leg`'s gates.  Per leg: host ms a step at
+    both K, the greedy graph's device ms a step (its replays between CUDA
+    events) and capture ms, and the host's share of a K = 8 step."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import (BITNET_2B4T, LLAMA3_8B_158,
+                                                   build_synthetic)
+
+    cfg = BITNET_2B4T
+    L = cfg.num_layers
+    prompts = _prompts(torch, cfg)
+    greedy = ("greedy", GenerationConfig(max_new_tokens=32, greedy=True))
+    topk = ("topk40_t0.8_seed7", GenerationConfig(max_new_tokens=32, temperature=0.8,
+                                                  top_k=40, seed=7))
+    seeded = ("seed1234_t1.0", GenerationConfig(max_new_tokens=32, temperature=1.0,
+                                                seed=1234))
+    fused = dict(max_seq_len=1024, kv_cache_dtype="bf16", logits_dtype="int8",
+                 kernel_path="w2a8", fuse_projections=True)
+
+    def want_fused(attn, mm="ternary_matmul_w2a8_normed", pre="ternary_matmul_w2a8",
+                   Lm=L):
+        return lambda _bucket, steps: {mm: 4 * Lm * steps, attn: Lm * steps,
+                                       "scatter_kv_rows": steps, pre: 4 * Lm}
+
+    def want_generic(bucket, steps):
+        pre = ({"ternary_matmul_w2a8_normed": 7 * L} if bucket <= 64
+               else {"ternary_matmul_w2a8": 7 * L})
+        pre["ternary_matmul_w2a8_normed"] = (pre.get("ternary_matmul_w2a8_normed", 0)
+                                             + 7 * L * steps)
+        pre["decode_attention"] = L * steps
+        return pre
+
+    t0 = time.perf_counter()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    legs = (("a_2b_fused_bf16", EngineConfig(**fused), prompts, (greedy, topk),
+             want_fused("decode_attention_qkv")),
+            ("b_2b_fused_int8", EngineConfig(**{**fused, "kv_cache_dtype": "int8"}),
+             prompts, (greedy,), want_fused("decode_attention_qkv_quant")),
+            ("c_2b_tl1_fused", EngineConfig(weight_quant="tl1", **fused), prompts,
+             (greedy,), want_fused("decode_attention_qkv",
+                                   mm="ternary_matmul_tl_w2a8_normed",
+                                   pre="ternary_matmul_blockscale_bf16")),
+            ("d_2b_generic", EngineConfig(max_seq_len=2048), prompts, (greedy, seeded),
+             want_generic))
+    runs, split = [], {}
+    for name, ec, ps, gcs, want in legs:
+        eng = InferenceEngine(cfg, params, ec, device=dev)
+        runs += _segment_leg(torch, name, eng, ps, gcs, want)
+        split[name] = _graph_ms(torch, eng)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    cfg8 = LLAMA3_8B_158
+    params = build_synthetic(cfg8, seed=0, device=dev)
+    eng = InferenceEngine(cfg8, params, EngineConfig(**fused), device=dev)
+    del params
+    runs += _segment_leg(torch, "e_8b_fused", eng, [_prompts(torch, cfg8)[1]], (greedy,),
+                         want_fused("decode_attention_qkv", Lm=cfg8.num_layers))
+    split["e_8b_fused"] = _graph_ms(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    summary = {}
+    for name, (dev_ms, cap_ms) in split.items():
+        rs = [r for r in runs if r["leg"] == name and r["gen"] == "greedy"]
+        k1 = sum(r["k1_decode_ms_per_step"] for r in rs) / len(rs)
+        k8 = sum(r[f"k{SEG_K}_decode_ms_per_step"] for r in rs) / len(rs)
+        summary[name] = {"host_ms_per_step_k1": k1, f"host_ms_per_step_k{SEG_K}": k8,
+                         "graph_device_ms_per_step": dev_ms, "capture_ms": cap_ms,
+                         f"host_share_k{SEG_K}": 1.0 - dev_ms / k8,
+                         "host_share_k1": 1.0 - dev_ms / k1}
+    return {"seconds": time.perf_counter() - t0, "runs": runs, "summary": summary,
+            "ok": True}
+
+
 def _sync_ms(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3769,8 +3954,11 @@ def _req_prefix(torch, eng, cold, g):
 def _req_checkpoint(torch, eng, g):
     """(d): a greedy run of 32 tokens unbroken; then the same run broken
     off after 16 tokens, captured, saved, loaded and resumed on the reset
-    engine (``kv_len`` = prompt + 15: the 16th token was yielded, not
-    decoded).  The 16 resumed tokens must equal the unbroken run's tail."""
+    engine (``kv_len`` = prompt + 15 at one step a round trip: the 16th
+    token was yielded, not decoded; under K-step segments every segment
+    that yielded a token decoded all its K, as in the JAX engine: prompt +
+    16 at K = 8).  The 16 resumed tokens must equal the unbroken run's
+    tail."""
     import tempfile
 
     from bitnet_tpu_torch.config import GenerationConfig
@@ -3795,7 +3983,10 @@ def _req_checkpoint(torch, eng, g):
            "kv_len": man["kv_len"], "capture_ms": cap_ms, "save_ms": save_ms,
            "load_ms": load_ms, "resume_32_ms": resume_ms,
            "relogit_ms": res.metrics["ttft_s"] * 1e3}
-    if (man["kv_len"] != len(prompt) + 15 or first != golden[:16]
+    K = eng._segment_steps()
+    out["decode_steps_per_dispatch"] = K
+    if (man["kv_len"] != len(prompt) + (-(-16 // K) * K if K > 1 else 15)
+            or first != golden[:16]
             or res.token_ids != golden[16:]):
         raise AssertionError(f"checkpoint resume: {out}")
     return out
@@ -4028,7 +4219,7 @@ def main(argv=None) -> int:
                            "cuda": torch.version.cuda}
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8",
-                                     "requests", "gate")):
+                                     "segments", "requests", "gate")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -4119,6 +4310,15 @@ def main(argv=None) -> int:
             emit({"phase": "cli", **{k: v if not isinstance(v, dict) else
                                      {kk: vv for kk, vv in v.items() if kk != "stderr"}
                                      for k, v in report["cli"].items()}})
+        if "segments" in phases:
+            report["segments"] = r = timed("segments", phase_segments, torch, dev)
+            launches["segments"] = {}
+            for row in r["runs"]:
+                _add(launches["segments"], row[f"k{SEG_K}_launches"])
+            emit({"phase": "segments", "nvidia_smi": smi, "seconds": seconds["segments"],
+                  "summary": r["summary"],
+                  "runs": [{k: v for k, v in row.items() if not k.endswith("launches")}
+                           for row in r["runs"]]})
         if "requests" in phases:
             report["requests"] = r = timed("requests", phase_requests, torch, dev)
             emit({"phase": "requests", "nvidia_smi": smi, "seconds": seconds["requests"],

@@ -3,7 +3,8 @@ the mini QK256 fixture: with ``--device cpu --greedy`` (auto → xla on the
 CPU) the port prints the text the JAX package's CLI prints with
 ``--greedy --kernel-path xla``, on every kernel path the port has.
 Without ``--device cpu`` it refuses to run when CUDA is absent, and flags
-of paths not ported yet raise, naming their ROADMAP item.  ``--grammar-file``
+of paths not ported yet raise, naming their ROADMAP item (``--decode-steps
+8``, ported, prints the K=1 text).  ``--grammar-file``
 and ``--json-schema`` constrain the text as the JAX CLI's do.  The
 verification subcommands (``run --receipt``, ``crossval``, ``gate``,
 ``verify-receipt``, ``replay``, ``trace-diff``) print the JAX CLI's JSON
@@ -60,11 +61,18 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--speculative", "4"], "#12"), (["--draft-model", "d.gguf"], "#12"),
-    (["--sliding-window", "64"], "#7"), (["--decode-steps", "8"], "#5")])
-def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item):
+    (["--sliding-window", "64"], "#7"),
+    # ported (it raised naming #5): K-step segments print the K=1 text
+    pytest.param(["--decode-steps", "8"], None, id="flags3-#5")])
+def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item, capsys):
+    argv = ["--model", mini_gguf_qk256.path, *ARGS, "--device", "cpu", "--greedy"]
+    if item is None:
+        one, _ = _run(cli.main, argv + ["--decode-steps", "1"], capsys)
+        got, err = _run(cli.main, argv + flags, capsys)
+        assert got == one and len(got.strip()) > 0 and "[12 tokens" in err
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        cli.main(["run", "--model", mini_gguf_qk256.path, *ARGS,
-                  "--device", "cpu", *flags])
+        cli.main(["run", *argv, *flags])
 
 
 GBNF = 'root ::= [a-z]{3,6} ("!" | "?")\n'

@@ -76,8 +76,10 @@ def test_fault1_dropped_fields_are_accepted():
     assert EngineConfig(prefix_cache_tokens=64).prefix_cache_tokens == 64
     with pytest.raises(Exception, match="mirostat"):
         GenerationConfig(mirostat=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #5"):
-        EngineConfig(decode_steps_per_dispatch=4)
+    # K-step decode segments are ported (they raised naming #5)
+    assert EngineConfig(decode_steps_per_dispatch=4).decode_steps_per_dispatch == 4
+    with pytest.raises(Exception, match="decode_steps_per_dispatch"):
+        EngineConfig(decode_steps_per_dispatch=-1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #7"):
         EngineConfig(sliding_window=64)
     with pytest.raises(Exception, match="context_overflow"):

@@ -1967,7 +1967,106 @@ def test_checkpoint_resume_repeats_the_unbroken_run(dev, tmp_path):
             break
     path = str(tmp_path / "state")
     man = ck.save(ck.capture(cold, prompt, first), path)
-    assert man["kv_len"] == len(prompt) + 15 and man["packed_dtypes"]["k"] == "bfloat16"
+    # one step a round trip: the 16th token was yielded, not decoded; in
+    # K-step segments (auto: 8 on the card) every segment decoded all K
+    K = cold._segment_steps()
+    assert man["kv_len"] == len(prompt) + (-(-16 // K) * K if K > 1 else 15)
+    assert man["packed_dtypes"]["k"] == "bfloat16"
     cold.prefill([5, 6, 7])
     res = ck.resume_generation(cold, ck.load(path), gc)
     assert first == golden[:16] and res.token_ids == golden[16:]
+
+
+# --------------------------------------------------------------------------
+# K-step decode segments: one CUDA graph of K steps (engine/loop.py)
+# --------------------------------------------------------------------------
+def _segment_engine(dev, **kw):
+    """The 2-layer 2B-width fused engine (int8 head, bf16 cache, S=1024)."""
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+
+    cfg, params = _two_layer_2b()
+    ec = EngineConfig(max_seq_len=1024, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True, **kw)
+    return InferenceEngine(cfg, params, ec, device=dev)
+
+
+def _at_k(eng, K, prompt, gc):
+    from bitnet_tpu_torch.ops import registry
+
+    eng.engine_cfg = eng.engine_cfg.replace(decode_steps_per_dispatch=K)
+    registry.reset_launch_counts()
+    r = eng.generate(prompt, gc)
+    return r, registry.launch_counts(), eng.last_metrics.decode_steps
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "topk_seeded"])
+def test_segment_graph_gives_the_eager_tokens_and_counts(dev, sampled):
+    """32 tokens at K=1 (eager steps) and K=8 (four replays of one graph):
+    the same tokens; each kernel's launches a decode step the same (K1 4L,
+    K2 L, K3 1; K4 4L a prefill), the replays' counts added on the host."""
+    from bitnet_tpu_torch.config import GenerationConfig
+
+    eng = _segment_engine(dev)
+    L = eng.cfg.num_layers
+    gc = (GenerationConfig(max_new_tokens=32, temperature=0.8, top_k=40, seed=7)
+          if sampled else GenerationConfig(max_new_tokens=32, greedy=True))
+    prompt = list(range(3, 103))
+    r1, n1, s1 = _at_k(eng, 1, prompt, gc)
+    r8, n8, s8 = _at_k(eng, 8, prompt, gc)
+    assert r8.token_ids == r1.token_ids and len(r8.token_ids) == 32
+    assert (s1, s8) == (31, 32)
+    seg = next(iter(eng._segments.values()))
+    assert seg.graph is not None and seg.calls == 4
+    for n, s in ((n1, s1), (n8, s8)):
+        assert n["ternary_matmul_w2a8_normed"] == 4 * L * s
+        assert n["decode_attention_qkv"] == L * s and n["scatter_kv_rows"] == s
+        assert n["ternary_matmul_w2a8"] == 4 * L
+    # a second request replays the captured graph (no new capture)
+    r8b, n8b, _ = _at_k(eng, 8, prompt, gc)
+    assert r8b.token_ids == r1.token_ids and n8b == n8
+    assert list(eng._segments.values()) == [seg] and seg.calls == 8
+
+
+def test_segment_is_captured_anew_after_the_cache_is_replaced(dev, tmp_path):
+    """A checkpoint restored into a replaced cache: the engine drops the
+    segment that holds the old buffers, captures a new one, and the resumed
+    tokens equal the unbroken run's."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.engine import checkpoint as ck
+    from bitnet_tpu_torch.engine.cache import allocate_cache
+
+    eng = _segment_engine(dev, decode_steps_per_dispatch=8)
+    prompt = list(range(5, 69))
+    gc = GenerationConfig(max_new_tokens=32, greedy=True)
+    golden = eng.generate(prompt, gc).token_ids
+    first = []
+    for ev in eng.generate_stream(prompt, gc):
+        first.append(ev.token_id)
+        if len(first) == 16:
+            break
+    path = str(tmp_path / "state")
+    ck.save(ck.capture(eng, prompt, first), path)
+    old = next(iter(eng._segments.values()))
+    eng.cache = allocate_cache(eng.cfg, 1, 1024, "bf16", device=dev)
+    res = ck.resume_generation(eng, ck.load(path), gc)
+    assert first == golden[:16] and res.token_ids == golden[16:]
+    new = list(eng._segments.values())
+    assert len(new) == 1 and new[0] is not old and new[0].cache is eng.cache
+    assert new[0].graph is not None and new[0].calls == 2
+
+
+def test_segment_warms_the_attention_counters_itself(dev):
+    """The fused prefill runs no attention kernel, so a request whose first
+    decode is a segment makes its capture the device's first attention
+    call: the segment zeroes the arrival counters before it captures, also
+    for an engine built on ``"cuda"`` without an index (the CLI's)."""
+    from bitnet_tpu_torch.config import GenerationConfig
+
+    assert dev.index == torch.cuda.current_device()
+    eng = _segment_engine("cuda", decode_steps_per_dispatch=8)
+    dk._COUNTERS.pop(dev.index, None)
+    r = eng.generate(list(range(7, 40)), GenerationConfig(max_new_tokens=8, greedy=True))
+    assert len(r.token_ids) == 8 and dev.index in dk._COUNTERS
+    assert next(iter(eng._segments.values())).calls == 1
+    assert int(dk._COUNTERS[dev.index].abs().sum()) == 0

@@ -38,14 +38,16 @@ def test_no_jax_or_jax_package_import(path):
 
 
 def test_the_scan_covers_the_verification_stack():
-    """The seven verification modules, the 2B gate tool and chip_smoke.py
-    are among the scanned sources (the gate tool runs
+    """The seven verification modules, the 2B gate tool, the decode
+    segments' module (``engine/loop.py``) and chip_smoke.py are among the
+    scanned sources (the gate tool runs
     ``tools/gen_2b_gguf.py`` as a process of its own; it imports nothing of
     it)."""
     scanned = {str(p.relative_to(REPO)) for p in SOURCES}
     want = {f"bitnet_tpu_torch/verify/{m}.py" for m in (
         "__init__", "reference", "crossval", "receipts", "replay", "trace", "compat")}
-    assert want | {"bitnet_tpu_torch/tools/gate_2b.py", "chip_smoke.py"} <= scanned
+    assert want | {"bitnet_tpu_torch/tools/gate_2b.py", "chip_smoke.py",
+                   "bitnet_tpu_torch/engine/loop.py"} <= scanned
 
 
 def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
@@ -174,12 +176,32 @@ def test_build_rope_tables_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"decode_steps_per_dispatch": 8}, "#5"),
-    ({"decode_steps_per_dispatch": 2}, "#5"), ({"sliding_window": 64}, "#7"),
+    # ported (they raised naming #5): a CPU engine decodes in K-step
+    # segments and gives the K=1 tokens
+    pytest.param({"decode_steps_per_dispatch": 8}, None, id="kw0-#5"),
+    pytest.param({"decode_steps_per_dispatch": 2}, None, id="kw1-#5"),
+    ({"sliding_window": 64}, "#7"),
     ({"sliding_window": 16, "max_batch_size": 8}, "#7")])
 def test_unported_engine_configs_name_their_roadmap_item(kw, item):
-    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig, ModelConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import build_synthetic
 
+    if item is None:
+        cfg = ModelConfig(vocab_size=64, hidden_size=256, intermediate_size=256,
+                          num_layers=1, num_heads=4, num_kv_heads=2, head_dim=64,
+                          max_seq_len=32)
+        params = build_synthetic(cfg, seed=0, device="cpu")
+        gc = GenerationConfig(max_new_tokens=17, temperature=0.9, seed=4)
+        eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=32, **kw),
+                              device="cpu")
+        one = InferenceEngine(cfg, params, EngineConfig(max_seq_len=32,
+                                                        decode_steps_per_dispatch=1),
+                              device="cpu")
+        assert eng.generate([1, 2, 3], gc).token_ids == one.generate([1, 2, 3], gc).token_ids
+        K = kw["decode_steps_per_dispatch"]
+        assert sum(seg.calls for seg in eng._segments.values()) == 17 // K
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         EngineConfig(**kw)
 
@@ -206,9 +228,9 @@ def test_pools_and_quantized_caches_are_ported(kw, kv):
 def test_non_greedy_sampling_is_not_ported():
     """Sampling, Mirostat, grammar-constrained decoding, the prefix cache
     and checkpoint resume are ported (Mirostat and the grammar used to
-    raise naming #16 and #15); speculative decoding and the paged
-    cache (#12), K-step dispatches (#5) and the windowed cache (#7) still
-    raise, naming their ROADMAP item."""
+    raise naming #16 and #15) and so are K-step dispatches (they raised
+    naming #5); speculative decoding and the paged cache (#12) and the
+    windowed cache (#7) still raise, naming their ROADMAP item."""
     import inspect
 
     from bitnet_tpu_torch.cli import _refuse_unported
@@ -222,8 +244,9 @@ def test_non_greedy_sampling_is_not_ported():
     assert GenerationConfig(grammar='root ::= "a"').grammar is not None
     assert EngineConfig(prefix_cache_tokens=128).prefix_cache_tokens == 128
     assert "not_ported" not in inspect.getsource(InferenceEngine.generate_stream)
-    for kw, item in (({"decode_steps_per_dispatch": 2}, "#5"),
-                     ({"sliding_window": 32}, "#7")):
+    # K-step dispatches are ported (they raised naming #5)
+    assert EngineConfig(decode_steps_per_dispatch=2).decode_steps_per_dispatch == 2
+    for kw, item in (({"sliding_window": 32}, "#7"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
             EngineConfig(**kw)
     src = inspect.getsource(_refuse_unported)
