@@ -128,6 +128,33 @@ def prefill_buckets(max_seq_len: int, smallest: int = 8) -> list[int]:
     return out
 
 
+def prepare_params(params: BitNetParams, ec: EngineConfig, device: torch.device,
+                   kernel_path: str) -> tuple[BitNetParams, bool]:
+    """The weights as an engine (or a scheduler) runs them on ``device``:
+    the embedding in the compute dtype (the activations' dtype: its rows
+    feed the residual stream), TL re-quantization, fused projections, the
+    kernels' column scales and, for ``logits_dtype='int8'`` on ``w2a8``, the
+    int8 head.  Returns (params, whether fusing the projections fell
+    back)."""
+    params = params.to(device)
+    act = torch.float32 if ec.compute_dtype == "f32" else torch.bfloat16
+    if params.embed.dtype != act:
+        params = dataclasses.replace(params, embed=params.embed.to(act))
+    if ec.weight_quant in ("tl1", "tl2"):
+        # runtime TL re-quantization on the device, before fusion
+        # (``bitnet_tpu/engine/engine.py:119-128``)
+        params = quantize_params_tl(params, ec.weight_quant)
+    fuse_fell_back = False
+    blocks = params.blocks
+    if ec.fuse_projections and blocks.wqkv is None:
+        blocks = fuse_block_params(blocks)
+        fuse_fell_back = blocks.wqkv is None
+    params = with_col_scales_params(dataclasses.replace(params, blocks=blocks))
+    if ec.logits_dtype == "int8" and kernel_path == "w2a8":
+        params = quantize_head(params)
+    return params, fuse_fell_back
+
+
 class InferenceEngine:
     """Engine over a flat ``[L, B, S, KV*D]`` cache of ``max_batch_size``
     slots (bf16, int8 or fp8-e4m3): one sequence in slot 0
@@ -147,24 +174,8 @@ class InferenceEngine:
                 f"engine max_seq_len {ec.max_seq_len} exceeds model context "
                 f"{cfg.max_seq_len}")
         self.kernel_path = resolve_kernel_path(ec.kernel_path, self.device)
-        params = params.to(self.device)
-        # compute_dtype is the activations' dtype: the embedding rows feed
-        # the residual stream in it
-        act = torch.float32 if ec.compute_dtype == "f32" else torch.bfloat16
-        if params.embed.dtype != act:
-            params = dataclasses.replace(params, embed=params.embed.to(act))
-        if ec.weight_quant in ("tl1", "tl2"):
-            # runtime TL re-quantization on the device, before fusion
-            # (``bitnet_tpu/engine/engine.py:119-128``)
-            params = quantize_params_tl(params, ec.weight_quant)
-        fuse_fell_back = False
-        blocks = params.blocks
-        if ec.fuse_projections and blocks.wqkv is None:
-            blocks = fuse_block_params(blocks)
-            fuse_fell_back = blocks.wqkv is None
-        params = with_col_scales_params(dataclasses.replace(params, blocks=blocks))
-        if ec.logits_dtype == "int8" and self.kernel_path == "w2a8":
-            params = quantize_head(params)
+        params, fuse_fell_back = prepare_params(params, ec, self.device,
+                                                self.kernel_path)
         self.params = params
         self.kv_dtype = ec.resolve_kv_cache_dtype()
         self.cache = allocate_cache(cfg, ec.max_batch_size, ec.max_seq_len,

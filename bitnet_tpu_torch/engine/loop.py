@@ -42,10 +42,12 @@ import time
 import torch
 
 from ..config import ModelConfig
-from ..models.bitnet import BitNetParams, forward_cache, logits as model_logits
+import numpy as np
+
+from ..models.bitnet import BitNetParams, forward, forward_cache, logits as model_logits
 from ..ops import registry
 from ..ops.decode_attention import attn_counters
-from .sampling import SamplerChain, draw_uniforms
+from .sampling import SamplerChain, draw_uniforms, pooled_sample
 
 
 def buffer_addresses(params: BitNetParams, cache) -> tuple:
@@ -118,7 +120,6 @@ class DecodeSegment:
         first call's inputs."""
         dev, B = logits.device, logits.shape[0]
         greedy = self.chain.config.is_greedy
-        t0 = time.perf_counter()
         # what a capture cannot do: zero the attention's arrival counters
         # (the first call on a device) and copy the bias lists to the card
         attn_counters(self.device)
@@ -129,32 +130,19 @@ class DecodeSegment:
         self._active = torch.empty((B,), dtype=torch.int32, device=dev)
         self._tok = torch.empty((B, self.n_steps), dtype=torch.int32, device=dev)
         self._gen = None if greedy else torch.Generator(device=dev)
-        graph = torch.cuda.CUDAGraph()
-        if self._gen is not None:
-            graph.register_generator_state(self._gen)
-        before = registry.launch_counts()
-        try:
-            # torch.cuda.graph synchronizes the device, then captures on its
-            # own side stream; a replay runs on the caller's stream, after
-            # the input copies and before the read-back, as eager steps do
-            with torch.cuda.graph(graph, pool=self.pool):
-                lg, pos, hist = self._lg, self._pos, self._hist
-                live = self._active > 0
-                for j in range(self.n_steps):
-                    lg, pos, hist, nxt = self._step(lg, pos, hist, self._gen,
-                                                    self._active, live)
-                    self._tok[:, j].copy_(nxt)
-                self._lg.copy_(lg)
-                self._pos.copy_(pos)
-                self._hist.copy_(hist)
-        finally:
-            # the capture launched nothing: take its wrappers' counts back
-            after = registry.launch_counts()
-            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-            registry.add_launch_counts(delta, times=-1)
-        self.launches = delta
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+
+        def body():
+            lg, pos, hist = self._lg, self._pos, self._hist
+            live = self._active > 0
+            for j in range(self.n_steps):
+                lg, pos, hist, nxt = self._step(lg, pos, hist, self._gen,
+                                                self._active, live)
+                self._tok[:, j].copy_(nxt)
+            self._lg.copy_(lg)
+            self._pos.copy_(pos)
+            self._hist.copy_(hist)
+        self.graph, self.launches, self.capture_s = capture_graph(
+            body, () if self._gen is None else (self._gen,), self.pool)
 
     def _replay(self, logits, pos, history, generator, active):
         if self.graph is None:
@@ -180,6 +168,159 @@ class DecodeSegment:
                 return self._eager(logits, pos.to(torch.int32), history, generator,
                                    active.to(torch.int32))
             return self._replay(logits, pos, history, generator, active)
+
+
+def capture_graph(body, generators=(), pool=None):
+    """Capture ``body()`` into one ``torch.cuda.CUDAGraph`` (in the memory
+    pool ``pool``, with ``generators`` registered) and return (graph, the
+    launch counts its capture added, capture seconds).  The capture
+    launched nothing, so its wrappers' counts are taken back; a replay's
+    owner adds them (``registry.add_launch_counts``).  A failed capture
+    raises, with the counts taken back."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = registry.launch_counts()
+    try:
+        # torch.cuda.graph synchronizes the device, then captures on its own
+        # side stream; a replay runs on the caller's stream, after the input
+        # copies and before the read-back, as eager steps do
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+    finally:
+        after = registry.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        registry.add_launch_counts(delta, times=-1)
+    return graph, delta, time.perf_counter() - t0
+
+
+# the pooled repetition history's width (``bitnet_tpu/serve/scheduler.py:63``)
+HISTORY_W = 64
+# the per-slot integer columns: token, position, active, top_k, then history
+INT_COLS = 4
+# the per-slot float columns: temperature (0 greedy), top_p, min_p,
+# typical_p, repetition, frequency and presence penalties
+FLOAT_COLS = 7
+
+
+class PoolSegment:
+    """K decode steps of a scheduler's pool in one host round trip: the
+    JAX scheduler's ``decode_step`` (K=1) and ``decode_multi`` (``:465``,
+    ``:499``), dense or paged (``:647``, ``:670``).  Each step is forward →
+    head → :func:`~.sampling.pooled_sample` with every sampling parameter a
+    per-slot column, the repetition history rolled and the next token fed
+    where a slot is live.
+
+    ``segment(ints, floats, generators)``: ``ints`` [B, INT_COLS +
+    HISTORY_W] int64 host array (token, position, active, top_k, history
+    with -1 padding), ``floats`` [B, FLOAT_COLS] f32, ``generators`` B
+    ``torch.Generator`` or None (slot b's uniforms [1, V] a step, as the
+    engine at B=1 draws them; unused without ``use_sampling``).  Returns
+    (tokens [K, B] host int64, the last step's raw logits [B, V] and
+    uniforms [B, V] or None, on the device).  An idle slot rides at
+    position S (dense: the view length when paged), attends over
+    nothing new and neither its position nor its length advances.
+
+    On the card the K bodies are one CUDA graph (:func:`capture_graph`),
+    captured at the first call over static input buffers that a call
+    copies into: slot b's generator state is copied into a generator
+    registered with the graph before a replay and back after; the bias
+    rows, the cache and (paged) the block table are the scheduler's own
+    buffers, written in place between replays.  On the CPU the same body
+    runs eagerly on the slots' own generators."""
+
+    def __init__(self, cfg: ModelConfig, params: BitNetParams, cache, kernel_path: str,
+                 n_steps: int, max_seq_len: int, device, pool=None, paged: bool = False,
+                 use_typical: bool = False, use_sampling: bool = False,
+                 bias_rows: torch.Tensor | None = None):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.kernel_path, self.n_steps = kernel_path, n_steps
+        self.paged = paged
+        self.S = cache.view_len if paged else max_seq_len
+        self.device = torch.device(device)
+        self.pool = pool
+        self.use_typical, self.use_sampling = use_typical, use_sampling
+        self.bias_rows = bias_rows
+        self.graph = None
+        self.launches: dict[str, int] = {}
+        self.capture_s = 0.0
+        self.calls = 0
+
+    def _draw(self, gens, B, V, dev):
+        return torch.cat([draw_uniforms((1, V), g, dev) if g is not None
+                          else torch.ones((1, V), device=dev) for g in gens[:B]])
+
+    def _body(self, ints, fl, gens):
+        """The K steps over device inputs; returns (tokens [K, B], raw, u)."""
+        cfg, params, cache, kp = self.cfg, self.params, self.cache, self.kernel_path
+        tok = ints[:, 0].to(torch.int32)
+        pos = ints[:, 1].to(torch.int32)
+        act = ints[:, 2].to(torch.int32)
+        top_k = ints[:, 3]
+        hist = ints[:, INT_COLS:]
+        live = act > 0
+        toks, raw, u = [], None, None
+        for _ in range(self.n_steps):
+            pos_in = torch.where(live, pos, self.S)[:, None]
+            if self.paged:
+                from .paged_cache import paged_forward
+                h, _ = paged_forward(cfg, params, tok[:, None], pos_in, cache, act, kp)
+            else:
+                h, _, _ = forward(cfg, params, tok[:, None], pos_in, cache.k, cache.v,
+                                  torch.where(live, pos, 0), 1, kp, cache.k_scale,
+                                  cache.v_scale)
+                cache.lengths += act
+            raw = model_logits(cfg, params, h, kp)[:, -1].to(torch.float32)
+            u = (self._draw(gens, raw.shape[0], raw.shape[1], raw.device)
+                 if self.use_sampling else None)
+            nxt = pooled_sample(raw, fl[:, 0], top_k, fl[:, 1], fl[:, 2], fl[:, 3],
+                                fl[:, 4], fl[:, 5], fl[:, 6], self.bias_rows, hist, u,
+                                self.use_typical)
+            hist = torch.where(live[:, None],
+                               torch.cat([hist[:, 1:], nxt[:, None].to(hist.dtype)], 1),
+                               hist)
+            pos = pos + act
+            tok = torch.where(live, nxt, tok)
+            toks.append(nxt)
+        return torch.stack(toks), raw, u
+
+    def _capture(self, B: int, V: int) -> None:
+        dev = self.device
+        attn_counters(dev)
+        self._ints = torch.empty((B, INT_COLS + HISTORY_W), dtype=torch.int64, device=dev)
+        self._fl = torch.empty((B, FLOAT_COLS), dtype=torch.float32, device=dev)
+        self._gens = ([torch.Generator(device=dev) for _ in range(B)]
+                      if self.use_sampling else [])
+        self._out: tuple = ()
+
+        def body():
+            self._out = self._body(self._ints, self._fl, self._gens)
+        self.graph, self.launches, self.capture_s = capture_graph(body, self._gens,
+                                                                  self.pool)
+
+    def __call__(self, ints, floats, generators):
+        self.calls += 1
+        with torch.inference_mode():
+            if self.device.type == "cpu":
+                toks, raw, u = self._body(torch.from_numpy(ints),
+                                          torch.from_numpy(floats), generators)
+                return toks.numpy().astype(np.int64), raw, u
+            B = ints.shape[0]
+            if self.graph is None:
+                self._capture(B, self.cfg.vocab_size)
+            self._ints.copy_(torch.from_numpy(ints))
+            self._fl.copy_(torch.from_numpy(floats))
+            live = [b for b in range(B) if self.use_sampling and ints[b, 2]
+                    and generators[b] is not None]
+            for b in live:
+                self._gens[b].set_state(generators[b].get_state())
+            self.graph.replay()
+            for b in live:
+                generators[b].set_state(self._gens[b].get_state())
+            registry.add_launch_counts(self.launches)
+            toks, raw, u = self._out
+            return toks.cpu().numpy().astype(np.int64), raw, u
 
 
 def build_decode_segment(cfg: ModelConfig, params: BitNetParams, cache,

@@ -297,3 +297,69 @@ class MirostatState:
         return self.sample_with_uniforms(
             logits_row, draw_uniforms(logits_row.shape, generator,
                                       logits_row.device))
+
+
+# --------------------------------------------------------------------------
+# the pooled sampler: one call for a pool of slots, parameters per slot
+# --------------------------------------------------------------------------
+def _div(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``x / d`` as the chain divides by a Python scalar: on the card
+    PyTorch multiplies by the f32 reciprocal, on the CPU it divides."""
+    return x * (1.0 / d) if x.is_cuda else x / d
+
+
+def pooled_sample(raw: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                  top_ps: torch.Tensor, min_ps: torch.Tensor, typ_ps: torch.Tensor,
+                  rep_pens: torch.Tensor, freq_pens: torch.Tensor,
+                  pres_pens: torch.Tensor, bias_rows: torch.Tensor | None,
+                  history: torch.Tensor, uniforms: torch.Tensor | None,
+                  use_typical: bool = False) -> torch.Tensor:
+    """Token ids [B] int32 for a pool: row b is what :class:`SamplerChain`
+    gives row b's config (logit bias → repetition penalty → frequency /
+    presence → temperature → top-k → top-p → min-p → [typical-p] →
+    categorical, or argmax where ``temps[b] <= 0``) with row b's uniforms
+    (the scheduler's ``pooled_sample``, ``bitnet_tpu/serve/scheduler.py:
+    386-462``).  Every parameter is a [B] tensor; ``bias_rows`` [B, V]
+    (None: no bias anywhere; a value <= -100 bans) and ``use_typical`` are
+    static.  A parameter at its neutral value leaves its row as the chain's
+    skipped step leaves it (penalty 1, p >= 1, min-p 0); one descending
+    sort serves top-k and top-p.  ``uniforms`` None: every row greedy."""
+    B, V = raw.shape
+    lg = raw.to(torch.float32)
+    if bias_rows is not None:
+        lg = torch.where(bias_rows <= -100.0, NEG_INF, lg + bias_rows)
+    counts = _history_counts(lg, history)
+    seen = counts > 0
+    rp = rep_pens[:, None]
+    lg = torch.where(seen, torch.where(lg > 0, _div(lg, rp), lg * rp), lg)
+    lg = (lg - freq_pens[:, None] * counts
+          - pres_pens[:, None] * seen.to(lg.dtype))
+    greedy_tok = argmax(lg)
+    if uniforms is None:
+        return greedy_tok
+    lt = _div(lg, torch.clamp(temps, min=1e-6)[:, None])
+    srt = torch.sort(lt, dim=-1, descending=True).values
+    k_eff = torch.where((top_ks <= 0) | (top_ks >= V), V, top_ks.clamp(1, V))
+    kth = torch.gather(srt, 1, (k_eff - 1).to(torch.int64)[:, None])
+    masked_sorted = torch.where(srt < kth, NEG_INF, srt)
+    lt = torch.where(lt < kth, NEG_INF, lt)
+    probs = torch.softmax(masked_sorted, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = ((cum - probs) < top_ps[:, None]) | (top_ps >= 1.0)[:, None]
+    thr = torch.where(keep, masked_sorted, torch.inf).amin(dim=-1, keepdim=True)
+    lt = torch.where(lt < thr, NEG_INF, lt)
+    sp = torch.softmax(lt, dim=-1)
+    lt = torch.where(sp < min_ps[:, None] * sp.amax(dim=-1, keepdim=True),
+                     NEG_INF, lt)
+    if use_typical:
+        logp = torch.log_softmax(lt, dim=-1)
+        p_t = torch.exp(logp)
+        ent = -(p_t * logp).sum(dim=-1, keepdim=True)
+        order = torch.argsort(torch.abs(-logp - ent), dim=-1, stable=True)
+        p_sorted = torch.gather(p_t, -1, order)
+        cum_t = torch.cumsum(p_sorted, dim=-1)
+        keep_s = ((cum_t - p_sorted) < typ_ps[:, None]) | (typ_ps >= 1.0)[:, None]
+        keep_t = torch.zeros_like(keep_s).scatter(-1, order, keep_s)
+        lt = torch.where(keep_t, lt, NEG_INF)
+    sampled = categorical(lt, uniforms)
+    return torch.where(temps <= 0.0, greedy_tok, sampled)

@@ -26,8 +26,10 @@ beside their twins (K5 and the pool kernels):
   stacked_inplace  decode_attention_stacked_inplace  K26 (the new rows
           written in place at pos, every layer)
   none    no attention (the loop's own floor)      plain torch
-  paged   JAX's stock paged_attention: the port has no paged cache yet
-          (ROADMAP.md queue 1 #12), so it raises
+  paged   JAX's stock paged_attention               K33 (128-row pages in
+          the stock layout [KV, B*S/128, 128, D], 4 pages a compute block,
+          each slot's pages contiguous; ``pages_per_compute_block`` sets the
+          TPU kernel's step and selects nothing on the card)
 
 Usage, one variant per process as the script:
 
@@ -50,12 +52,12 @@ import sys
 
 import torch
 
-from ..config import not_ported
 from ..device_probe import resolve_device
 from ..obs.timing import chain_timer
 from ..ops import decode_attention as da
 from ..ops import decode_attention_v2 as da2
 from ..ops.attention import attention
+from ..ops.paged_attention import paged_attention
 
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 KV, G, D = 5, 4, 128       # the 2B shapes
@@ -88,7 +90,7 @@ def make_variant(only: str, L: int = 30, B: int = 8, S: int = 1024,
     (step(carry, i) -> carry, make_carry(salt) -> carry, the kernel's
     wrapper or None, the stream floor in seconds a layer)."""
     if only == "paged":
-        raise not_ported("the paged KV cache (variant paged)", "#12")
+        return _paged_variant(L, B, S, device)
     if only not in VARIANTS and only not in PLAIN:
         raise ValueError(f"unknown variant {only!r}; one of {', '.join(ALL)}")
     dev = resolve_device(device)
@@ -152,6 +154,39 @@ def make_variant(only: str, L: int = 30, B: int = 8, S: int = 1024,
 
     floor = 2 * B * S * KV * D * (1 if quant else 2) / HBM_BPS
     return step, make_carry, fn, floor
+
+
+PAGE, PAGES_PER_COMPUTE_BLOCK = 128, 4     # exp_r4_attn.py:67, :84
+
+
+def _paged_variant(L: int, B: int, S: int, device):
+    """``exp_r4_attn.py:63-88``: the L-layer loop of the stock paged
+    attention (K33) over 128-row pages [L, KV, B*S/128, 128, D] bf16, slot
+    b's pages b*S/128 … (b+1)*S/128 - 1, every slot at length S, v pages
+    half the k pages; each layer's output is the next layer's q."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(0)
+    npages = S // PAGE
+    kp = (torch.randn((L, KV, B * npages, PAGE, D), generator=g, device=dev) * 0.3
+          ).to(torch.bfloat16)
+    vp = kp * 0.5
+    pidx = (torch.arange(B, device=dev)[:, None] * npages
+            + torch.arange(npages, device=dev)[None, :]).to(torch.int32)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def step(q, i):
+        h = q
+        for l in range(L):
+            h = paged_attention(h, kp[l], vp[l], lengths, pidx).to(h.dtype)
+        return h * 0.5 + q
+
+    def make_carry(salt):
+        gc = torch.Generator(device=dev).manual_seed(salt)
+        return (torch.randn((B, H, D), generator=gc, device=dev)
+                * (1 + salt % 3)).to(torch.bfloat16)
+
+    floor = 2 * B * S * KV * D * 2 / HBM_BPS
+    return step, make_carry, paged_attention, floor
 
 
 def bench_variant(only: str, L: int = 30, B: int = 8, S: int = 1024,

@@ -27,7 +27,10 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
   ``BITNET_TL_FUSED``, ``BITNET_STACKED_PREFILL``;
 - slice 6: the fused W2A8 FFN (``BITNET_FUSED_FFN=1``, ``:184-200``, K24)
   in the generic layer loop of a model without ``ffn_sub_norm`` (the
-  Llama-3-8B-1.58 shapes).
+  Llama-3-8B-1.58 shapes);
+- slice 21: the stacked decode over a page pool, plan ``paged``
+  (:func:`forward_paged_decode`, K33), the function of the JAX
+  ``paged_forward``'s decode step without its dense view.
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -88,6 +91,7 @@ from ..ops.decode_attention_v2 import (
     scatter_kv_rows,
 )
 from ..ops.ffn_fused import ffn_fused_supported, ffn_w2a8_fused
+from ..ops.paged_attention import paged_attention
 from ..ops.flash import flash_attention
 from ..ops.linear import (TernaryLinear, concat_linears, linear_apply,
                           linear_apply_normed, with_col_scales)
@@ -472,7 +476,9 @@ def plan_attention(plan: str):
     ``batched_v2`` / ``quant_batched_v2`` to the per-layer-slice kernels
     K22 / K23 and ``qkv_v2s`` / ``qkv_quant_v2s`` to the ``einsum`` tail
     (``:698-717``; the JAX package's flat-cache loop fails there on its 5-D
-    rows, and runs that tail under ``BITNET_CACHE_FLAT=0``)."""
+    rows, and runs that tail under ``BITNET_CACHE_FLAT=0``).  The
+    ``paged`` plan (K33 over a page pool) is :func:`forward_paged_decode`'s,
+    never a dense cache's."""
     stacked = os.environ.get("BITNET_ATTN_STACKED", "1") == "1"
     if plan.endswith("v2s") and not stacked:
         return None, None
@@ -490,20 +496,33 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                     sin_rows: torch.Tensor,      # [B, 1, D/2]
                     cos_rows: torch.Tensor,
                     k_scale: torch.Tensor | None = None,   # [L, B, S, KV]
-                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                    v_scale: torch.Tensor | None = None,
+                    paged: tuple | None = None) -> torch.Tensor:
     """The stacked decode loop (``:401``, rows mode): per layer four
     matmuls (:func:`_stacked_mm`) and the plan's attention over the
     PRE-write cache (:func:`plan_attention`), then ONE K3 write of all L
     new rows (and scales) at min(pos, S-1) — the clamped write of every
-    rows-mode plan (``:932-1038``)."""
+    rows-mode plan (``:932-1038``).
+
+    ``paged`` = (k_pool, v_pool, tables, page, offset, lengths) selects the
+    ``paged`` plan (:func:`forward_paged_decode`): no dense cache; each
+    layer's new rows (RoPE in torch) are written into their pages first,
+    then K33 attends over ``lengths`` positions through the block table,
+    q cast to the pool's dtype and scaled by 1/sqrt(D) in f32 (K33 takes
+    no scale)."""
     b = params.blocks
     B = x.shape[0]
     nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L, S = k_cache.shape[0], k_cache.shape[2]
+    L = b.attn_norm.shape[0]
     eps = cfg.rms_norm_eps
     quantized = k_scale is not None
-    plan = decode_attn_plan(B, kv_dtype_name(k_cache.dtype))
-    rope_attn, split_attn = plan_attention(plan)
+    if paged is not None:
+        plan, rope_attn, split_attn = "paged", None, None
+        k_pool, v_pool, tables, gpage, goff, attn_len = paged
+    else:
+        S = k_cache.shape[2]
+        plan = decode_attn_plan(B, kv_dtype_name(k_cache.dtype))
+        rope_attn, split_attn = plan_attention(plan)
 
     mm = _stacked_mm(b, B, eps)
 
@@ -511,7 +530,7 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
     cos_r = cos_rows[:, 0].contiguous()
     pos = pre_len.to(torch.int32).contiguous()
     scales = (k_scale, v_scale) if quantized else ()
-    einsum = rope_attn is None and split_attn is None
+    einsum = rope_attn is None and split_attn is None and paged is None
     writes = CacheWrites.of(q_positions, S) if einsum else None
     h = x[:, 0, :]
     rows = []                                    # per layer (k, v, k_s, v_s)
@@ -535,9 +554,17 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
                 # the ROUND-TRIPPED rows feed attention (``:632-639``)
                 kn = dequantize_kv(kr, ksr).to(x.dtype)[:, None]
                 vn = dequantize_kv(vr, vsr).to(x.dtype)[:, None]
+            elif paged is not None:
+                kr, vr = kn[:, 0].to(k_pool.dtype), vn[:, 0].to(v_pool.dtype)
             else:
                 kr, vr = kn[:, 0].to(k_cache.dtype), vn[:, 0].to(v_cache.dtype)
-            if split_attn is not None:
+            if paged is not None:
+                k_pool[l][:, gpage, goff] = kr.transpose(0, 1)
+                v_pool[l][:, gpage, goff] = vr.transpose(0, 1)
+                qs = q[:, 0].to(k_pool.dtype).to(torch.float32) * (1.0 / D ** 0.5)
+                attn = paged_attention(qs, k_pool[l], v_pool[l], attn_len,
+                                       tables).to(x.dtype)
+            elif split_attn is not None:
                 attn = split_attn(l, q[:, 0].contiguous(), kn[:, 0].contiguous(),
                                   vn[:, 0].contiguous(), k_cache, v_cache, *scales,
                                   pos)
@@ -551,6 +578,8 @@ def _decode_stacked(cfg: ModelConfig, params: BitNetParams,
         gu = mm(l, h, "w_gateup", b.ffn_norm)
         h = mm(l, gu, "w_down", b.ffn_sub_norm, glu=True, resid=h)
         rows.append((kr, vr, ksr, vsr))
+    if paged is not None:
+        return h[:, None, :]
 
     def stack(i, width):
         return torch.stack([r[i] for r in rows]).view(L, B, 1, width)
@@ -846,6 +875,31 @@ def forward(cfg: ModelConfig, params: BitNetParams,
     if trace is not None:
         trace("output_norm", h)
     return h, k_cache, v_cache
+
+
+def forward_paged_decode(cfg: ModelConfig, params: BitNetParams,
+                         tokens: torch.Tensor,        # [B, 1]
+                         q_positions: torch.Tensor,   # [B, 1]; idle slots: the view length
+                         cache,                       # engine.paged_cache.PagedKVCache
+                         num_real_tokens: torch.Tensor | int = 1) -> torch.Tensor:
+    """One decode step of the stacked loop over the page pool, plan
+    ``paged`` (:func:`_decode_stacked`): no dense view is built; the new
+    rows go to ``tables[b, pos // page]`` at ``pos % page`` (idle slots and
+    unassigned blocks to the scratch page) and K33 attends over
+    ``lengths + num_real_tokens`` positions.  Returns the final-normed
+    hidden [B, 1, H]; the caller advances ``cache.lengths``."""
+    from ..engine.paged_cache import row_slots
+
+    x = embed_tokens(params, tokens)
+    pre_len = cache.lengths + (num_real_tokens - 1)
+    rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
+    sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
+    gpage, goff = row_slots(cache, q_positions)
+    attn_len = (pre_len + 1).to(torch.int32).contiguous()
+    h = _decode_stacked(cfg, params, x, q_positions, None, None, pre_len, sin_rows,
+                        cos_rows, paged=(cache.k, cache.v, cache.tables, gpage[:, 0],
+                                         goff[:, 0], attn_len))
+    return rms_norm(h, params.final_norm, cfg.rms_norm_eps)
 
 
 def forward_cache(cfg: ModelConfig, params: BitNetParams,

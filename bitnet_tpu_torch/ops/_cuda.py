@@ -28,11 +28,11 @@ from ..errors import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("ternary_matmul", "ternary_matmul_tl", "decode_attention", "ffn_fused",
-           "exp_w2a8")
+           "exp_w2a8", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of the entry points, per source
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
@@ -62,6 +62,10 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_probe_bf16": (P, P, I, I, P),
         "bn_probe_unpack": (P, P, I, I, P),
         "bn_probe_dot": (P, P, P, I, I, I, I, P),
+    },
+    "paged_attention": {
+        "bn_paged_attention": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, I, I, I,
+                               I, I, P, P, P, P, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, I, F, P,

@@ -56,6 +56,7 @@ nothing to bf16); a quantized cache keeps its f32 scales in the canonical
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -270,6 +271,29 @@ def _sm_count(index: int) -> int:
 
 
 _COUNTERS: dict[int, torch.Tensor] = {}
+# device index -> (thread id, what) of a scheduler's loop that drives it
+_OWNERS: dict[int, tuple[int, str]] = {}
+
+
+def claim_device(device: torch.device, what: str) -> None:
+    """Reserve ``device``'s decode attention for the calling thread (a
+    scheduler's loop): the arrival counters are one buffer a device and the
+    kernels that reset them must run in order on one stream, so another
+    thread's decode on the device raises (:func:`attn_counters`)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    me = threading.get_ident()
+    owner = _OWNERS.get(index)
+    if owner is not None and owner[0] != me:
+        raise RuntimeError(f"cuda:{index} is already driven by {owner[1]} in another "
+                           "thread")
+    _OWNERS[index] = (me, what)
+
+
+def release_device(device: torch.device, owner: int) -> None:
+    """End thread ``owner``'s reservation of ``device`` (if it holds it)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if _OWNERS.get(index, (None,))[0] == owner:
+        del _OWNERS[index]
 
 
 def attn_counters(device: torch.device) -> torch.Tensor:
@@ -280,6 +304,13 @@ def attn_counters(device: torch.device) -> torch.Tensor:
     does not run the zeroing).  ``cuda`` without an index is the current
     device, whose counters the kernels' tensors (always indexed) find."""
     index = torch.cuda.current_device() if device.index is None else device.index
+    owner = _OWNERS.get(index)
+    if owner is not None and owner[0] != threading.get_ident():
+        raise RuntimeError(
+            f"decode attention on cuda:{index} from another thread while {owner[1]} "
+            "drives the device: the kernels' arrival counters are one buffer a "
+            "device, used in order on one stream; decode through the scheduler "
+            "(submit) or shut it down first")
     buf = _COUNTERS.get(index)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():

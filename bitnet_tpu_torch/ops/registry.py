@@ -36,6 +36,7 @@ from .decode_attention_v2 import (decode_attention_batched,
                                   decode_attention_quant_batched_v2,
                                   scatter_kv_rows)
 from .ffn_fused import ffn_w2a8_fused
+from .paged_attention import paged_attention
 from .ternary_matmul import (ternary_matmul_bf16, ternary_matmul_blockscale_bf16,
                              ternary_matmul_tl_bf16_normed,
                              ternary_matmul_tl_w2a8_normed, ternary_matmul_w2a8,
@@ -141,6 +142,12 @@ REGISTRY: tuple[KernelSpec, ...] = (
     # K32 runs K4's two kernels, the GEMM in its per-tensor-scale mode
     KernelSpec("w2a8_matmul", "cuda", "bitnet_tpu_torch/csrc/ternary_matmul.cu",
                "experiments/exp_w2a8.py:201", w2a8_matmul),
+    # slice 21: K33, JAX's stock Pallas paged attention (its pallas_call is in
+    # the JAX library), called by the paged variant of exp_r4_attn and serving
+    # the paged scheduler's decode step
+    KernelSpec("paged_attention", "cuda", "bitnet_tpu_torch/csrc/paged_attention.cu",
+               "jax.experimental.pallas.ops.tpu.paged_attention, called at "
+               "experiments/exp_r4_attn.py:63-88", paged_attention),
 )
 
 

@@ -16,6 +16,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,gate
     python3 chip_smoke.py --phases probe,build,requests
     python3 chip_smoke.py --phases probe,build,segments
+    python3 chip_smoke.py --phases probe,build,scheduler
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -32,7 +33,8 @@ no result line):
            K11 at the 8B four, K = 14336 included; K11's M table
            (kernels.k11_m) and one call at K = 2560 and 14336 under the
            profiler (kernels.k11_profile)), the stacked-cache and per-b
-           kernels (K25-K27),
+           kernels (K25-K27), K33 (the stock paged attention) at the paged
+           variant's and the paged scheduler's shapes,
            the f32-cache instances (K2, K3, K5, K8) and the W2A8 probes and
            prototype (K28-K32): error, median ms (CUDA events), bound, plain
            and library ms; K10's decode form and GEMM side by side at
@@ -101,8 +103,9 @@ no result line):
            times (the 2B shapes; --attention all at B=1 and at B=8, S=4096)
   experiments  the port's two experiment entry points: `exp_w2a8` (P1-P4 on
            K28-K31, P5 on K32 timed beside K6 and K1) and `exp_r4_attn`
-           (every variant but paged at L=30, B=8, S=1024: µs a layer beside
-           the stream floor; one untimed loop of each kernel variant counted)
+           (every variant, paged on K33, at L=30, B=8, S=1024: µs a layer
+           beside the stream floor; one untimed loop of each kernel variant
+           counted)
   generic  the same shapes unfused, as the CLI builds the engine (auto →
            w2a8, bf16 KV, bf16 tied head): 3 requests greedy, then seeded
            sampling twice, one greedy request over an f32 cache, then one
@@ -132,6 +135,20 @@ no result line):
            after 16, checkpointed to disk, resumed on the reset engine:
            the same tokens; (e) a two-turn chatml session; K1-K4 launched,
            no other kernel; TTFTs, copy ms, mask and decode ms a step
+  scheduler  the continuous-batching scheduler (serve/scheduler.py) on the
+           full-width 2B fused engine (condition_norms gains, mock tokenizer,
+           S=1024): (a) a pool of 8 bf16 slots, (b) kv auto -> int8, (c) paged
+           (half of B*S/16 pages, a shared-prefix fork; K33 L times a step),
+           (d) chunked prefill of 64 while a 900-token prompt joins in-flight
+           streams, (e) a pool of 64 on int8; 24 staggered requests each
+           (greedy, seeded top-k / top-p / typical, penalties with a logit
+           bias, Mirostat, a JSON-schema grammar, logprobs, a min_new_tokens
+           phase, a cancel, a deadline, a preemption), each pool at K=1 and
+           K=8 (pool steps replayed as CUDA graphs): K=8's tokens K=1's,
+           greedy requests against B=1 under the near-tie rule (logits cosine
+           >= 0.99), launches a step against the want table; ms a step, tok/s,
+           TTFT p50 / p90, capture ms, the gap between tokens around the
+           900-token admission with and without chunking
   gate     `python -m bitnet_tpu_torch.tools.gate_2b` on the full-width 2B
            qk256 GGUF of tools/gen_2b_gguf.py (generate, build the C++
            golden, `cli run --greedy --receipt`, `cli gate --receipt
@@ -166,7 +183,7 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "segments", "requests", "gate")
+          "segments", "requests", "scheduler", "gate")
 
 
 def emit(obj) -> None:
@@ -262,7 +279,7 @@ def phase_kernels(torch, dev):
     res = {"k1": [], "k4": [], "k2": [], "k3": [], "k5": [], "k6": [], "k7": [],
            "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
            **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
-           **{f"k{n}": [] for n in range(25, 33)}, "f32": [], "attn_edges": [],
+           **{f"k{n}": [] for n in range(25, 34)}, "f32": [], "attn_edges": [],
            "attn_repeats": []}
     check_k1_all(torch, dev, g, res)
     check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
@@ -314,6 +331,8 @@ def phase_kernels(torch, dev):
     # slice 7: the stacked-cache and per-b kernels, the f32 cache instances,
     # the W2A8 probes and prototype
     check_k25_k27(torch, dev, g, res)
+    # slice 21: K33, the stock paged attention
+    check_k33(torch, dev, g, res)
     check_f32_instances(torch, dev, g, res)
     # the one-launch split-S kernel at its splits' edges, repeated
     # and replayed, and under the profiler
@@ -1828,6 +1847,78 @@ def check_k25_k27(torch, dev, g, res):
             del kc, vc
 
 
+# K33 (paged decode attention): (site, B, S, page, page dtype, q dtype, fill)
+K33_CASES = (("exp", 8, 1024, 128, "bf16", "bf16", "full"),
+             ("exp", 8, 1024, 128, "bf16", "bf16", "ragged"),
+             ("pool", 8, 1024, 16, "bf16", "f32", "ragged"),
+             ("pool", 8, 1024, 16, "f32", "f32", "ragged"),
+             ("pool", 64, 1024, 16, "bf16", "f32", "ragged"),
+             ("pool", 1, 4096, 16, "bf16", "f32", "full"))
+
+
+def check_k33(torch, dev, g, res):
+    """K33 against its plain version (gather, mask, f32 softmax): the paged
+    variant of ``exp_r4_attn`` (B=8, S=1024, 128-row pages in the stock
+    layout, slot b's pages contiguous, bf16 q, every slot full; then
+    shuffled pages and ragged lengths with an empty slot) and the paged
+    scheduler's step (2B heads, 16-row pages, q in f32 as the ``paged`` plan
+    passes it, bf16 and f32 pages, B=8 and 64, and B=1 at S=4096); a second
+    call bit for bit.  Tolerance: bf16 output 1e-2 of the max + 2e-3; f32
+    output (f32 sums in another order) 2e-5 of the max.  Timed: the
+    variant's shape, full, cycling layers past the L2, beside the plain
+    version and the library's gather + ``scaled_dot_product_attention``."""
+    from bitnet_tpu_torch.ops import paged_attention as pa
+
+    H, KV, D = H20, KV5, D128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for site, B, S, page, kv, qd, fill in K33_CASES:
+        esz = 2 if kv == "bf16" else 4
+        npg = S // page
+        P = B * npg + 1
+        timed = site == "exp" and fill == "full"
+        L = _layers(S, B, esz) if timed else 1
+        kp = torch.randn((L, KV, P, page, D), generator=g, device=dev).to(dts[kv])
+        vp = torch.randn((L, KV, P, page, D), generator=g, device=dev).to(dts[kv])
+        q = (torch.randn((B, H, D), generator=g, device=dev) * 0.1).to(dts[qd])
+        if fill == "full":
+            table = torch.arange(B * npg, device=dev, dtype=torch.int32).view(B, npg)
+            lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        else:
+            table = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))[
+                :B * npg].view(B, npg).to(torch.int32).to(dev)
+            lens = torch.randint(1, S + 1, (B,), generator=g, device=dev).to(torch.int32)
+            lens[0] = S
+            if B > 2:
+                lens[1] = 0
+        out = pa.paged_attention(q, kp[0], vp[0], lens, table)
+        pl = pa.paged_attention_plain(q, kp[0], vp[0], lens, table)
+        tol = (1e-2, 2e-3) if qd == "bf16" else (2e-5, 0.0)
+        row = _attn_row(torch, out, pl, *tol, site=site, B=B, S=S, page=page, kv=kv,
+                        q=qd, fill=fill, splits=pa.paged_plan(B, KV, npg * page, 132)[0])
+        row["repeat_exact"] = bool(torch.equal(out, pa.paged_attention(
+            q, kp[0], vp[0], lens, table)))
+        row["ok"] = row["ok"] and row["repeat_exact"]
+        if timed:
+            row["ms"] = time_ms(torch, lambda i: pa.paged_attention(
+                q, kp[i % L], vp[i % L], lens, table), L)
+            row["plain_ms"] = time_ms(torch, lambda i: pa.paged_attention_plain(
+                q, kp[i % L], vp[i % L], lens, table), 4)
+
+            def lib(i):
+                k = kp[i % L][:, table].reshape(KV, B, S, D).transpose(0, 1)
+                v = vp[i % L][:, table].reshape(KV, B, S, D).transpose(0, 1)
+                return sdpa(q.view(B, H, 1, D), k, v, enable_gqa=True, scale=1.0)
+            row["library_ms"] = time_ms(torch, lib, L)
+            n = int(lens.sum())
+            nbytes = 2 * n * KV * D * esz + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * H * D * n, "bf16")
+        res["k33"].append(row)
+        if not row["ok"]:
+            raise AssertionError(f"K33 mismatch: {row}")
+        del kp, vp
+
+
 def check_f32_instances(torch, dev, g, res):
     """The split-S kernel's f32-cache instance under K2 (B=1, S=4096, 4095
     rows), K5 (B=1 and 2, S=4096) and K8 (B=8, S=1024, full and mixed), with
@@ -2348,6 +2439,12 @@ SITES = (
      "k31", lambda r: "ms" in r),
     ("w2a8_matmul", "w2a8_matmul", "experiments/exp_w2a8.py:201", "experiments",
      "k32", lambda r: "ms" in r and r["M"] == 1),
+    # slice 21: the stock paged attention (its pallas_call is in the JAX
+    # library), timed at exp_r4_attn's paged shape, counted over the
+    # scheduler phase (the paged pool's decode steps)
+    ("paged_attention", "paged_attention",
+     "jax.experimental.pallas.ops.tpu.paged_attention (called at "
+     "experiments/exp_r4_attn.py:63-88)", "scheduler", "k33", lambda r: "ms" in r),
 )
 
 
@@ -2359,7 +2456,8 @@ def summarize(res, launches):
     all 30 rows of a B=1 step; K13–K15 at B=1, S=4096, K16–K23 at B=8,
     S=1024; K25 / K26 at B=1, S=4096 and K27 at B=8, S=1024, bf16 caches;
     K28–K31 at the probes' shapes, K29 through the MMA; K32 at M=1, K=2560,
-    N=13824); ``launches[phase]`` holds each serving phase's counts, zeroed
+    N=13824; K33 at B=8, S=1024, 128-row pages, every slot full, its
+    library ms the page gather plus SDPA); ``launches[phase]`` holds each serving phase's counts, zeroed
     before its path and read after.  A library ms is null where no single
     PyTorch call computes the function (the byte probes)."""
     from bitnet_tpu_torch.ops.registry import REGISTRY
@@ -3446,8 +3544,8 @@ def phase_experiments(torch, dev):
     ``exp_w2a8``'s ``main`` (P1–P4 on K28–K31, P5 on K32 at K=2560,
     N=13824, timed beside K6 and K1): P1 must read ``ROW-MAJOR-LE``, P2 and
     P4 ``EXACT``, P5's cosine against K6 >= 0.99.  Then ``exp_r4_attn``'s
-    bench of every variant but ``paged`` (which raises naming #12) at
-    L=30, B=8, S=1024: µs a layer beside the stream floor.  Launch counts:
+    bench of every variant (``paged`` on K33 since slice 21) at L=30, B=8,
+    S=1024: µs a layer beside the stream floor.  Launch counts:
     the counters are zeroed before ``exp_w2a8``'s run and read after; for
     ``exp_r4_attn`` one untimed loop of each kernel variant, outside any
     CUDA graph (graph replays count nothing), must launch its kernel 30
@@ -3486,7 +3584,7 @@ def phase_experiments(torch, dev):
         raise AssertionError(f"exp_w2a8 failed: {w}")
     L, B, S = 30, 8, 1024
     rows = []
-    for variant in (v for v in ex.ALL if v != "paged"):
+    for variant in ex.ALL:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             r = ex.bench_variant(variant, L=L, B=B, S=S, device=dev)
@@ -3506,12 +3604,6 @@ def phase_experiments(torch, dev):
         if not r["us_per_layer"] > 0:
             raise AssertionError(f"exp_r4_attn {variant}: {r}")
         rows.append(r)
-    try:
-        ex.make_variant("paged", device=dev)
-        raise AssertionError("the paged variant ran")
-    except NotImplementedError as e:
-        if "#12" not in str(e):
-            raise
     out["exp_r4_attn"] = rows
     out["launch_totals"] = totals
     out["ok"] = True
@@ -4069,6 +4161,362 @@ def phase_requests(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: the continuous-batching scheduler (serve/scheduler.py) and K33
+# ---------------------------------------------------------------------------
+SCHED_S = 1024
+SCHED_PAGE = 16
+SCHED_LENS = (32, 500, 96, 250, 64, 420, 128, 300, 40, 180, 360, 72, 220, 480, 48,
+              150, 270, 90, 390, 56, 200, 330, 110, 460)
+SCHED_PREEMPT_AT = 20        # from this decode step, when every slot is busy
+
+
+def _sched_script(torch, fork: bool, V: int):
+    """24 staggered requests (prompts of 32–500 tokens): greedy, seeded
+    top-k / top-p / typical, penalties with a logit bias (sampled and
+    greedy), Mirostat v2, a JSON-schema grammar, logprobs, a min_new_tokens
+    phase, one cancelled after 5 tokens, one with a 1 s deadline and one of
+    priority -1 that arrives when every slot is busy (it preempts slot 0's
+    request, greedy, 64 tokens).  Three a decode step from step 0, every
+    other step.  ``fork``: requests 3 and 5 share a 160-token prefix (ten
+    16-row pages)."""
+    from bitnet_tpu_torch.config import GenerationConfig as G
+    from bitnet_tpu_torch.grammar import json_schema_grammar
+
+    g = torch.Generator().manual_seed(21)
+
+    def prompt(n):
+        return [1] + [int(t) for t in torch.randint(3, min(V, 30000), (n - 1,),
+                                                    generator=g)]
+    prompts = [prompt(n) for n in SCHED_LENS]
+    if fork:
+        prompts[5][:160] = prompts[3][:160]
+    greedy = dict(max_new_tokens=32, greedy=True)
+    gens = {
+        0: dict(greedy, max_new_tokens=64), 1: greedy, 4: greedy, 11: greedy, 12: greedy,
+        15: greedy, 17: greedy, 19: greedy, 21: greedy, 23: greedy,
+        2: dict(max_new_tokens=32, temperature=0.8, top_k=40, seed=2),
+        3: dict(max_new_tokens=32, temperature=0.9, top_p=0.9, seed=3),
+        13: dict(max_new_tokens=32, temperature=0.7, top_k=20, seed=13),
+        16: dict(max_new_tokens=32, temperature=1.0, top_p=0.8, seed=16),
+        20: dict(max_new_tokens=32, temperature=0.8, typical_p=0.9, seed=20),
+        22: dict(max_new_tokens=32, temperature=0.8, top_k=40, top_p=0.95, seed=22),
+        5: dict(max_new_tokens=32, temperature=0.8, top_k=50, repetition_penalty=1.2,
+                frequency_penalty=0.3, presence_penalty=0.2, seed=5,
+                logit_bias=((7, 2.0), (11, -100.0))),
+        14: dict(greedy, repetition_penalty=1.3, logit_bias=((13, 1.5),)),
+        6: dict(max_new_tokens=32, mirostat=2, seed=6),
+        7: dict(max_new_tokens=32, temperature=0.8, seed=7,
+                grammar=json_schema_grammar(REQ_SCHEMA)),
+        8: dict(greedy, logprobs=3),
+        18: dict(max_new_tokens=32, min_new_tokens=8, temperature=0.9, seed=18),
+        9: dict(greedy, max_new_tokens=400),
+        10: dict(greedy, max_new_tokens=900),
+    }
+    kinds = {0: "greedy_long", 8: "logprobs", 6: "mirostat", 7: "grammar",
+             9: "cancel", 10: "timeout", 23: "priority", 18: "min_tokens"}
+    script = []
+    for i in range(24):
+        kw = {}
+        if i == 10:
+            kw["timeout_s"] = 1.0
+        if i == 23:
+            kw["priority"] = -1
+        at = SCHED_PREEMPT_AT if i == 23 else 2 * (i // 3)
+        kind = kinds.get(i, "greedy" if gens[i].get("greedy") else "sampled")
+        script.append((at, prompts[i], G(**gens[i]), kw, kind))
+    return script
+
+
+def _sched_run(torch, sched, script, hook_ids=()):
+    """Drive ``sched`` (built with ``start_loop=False``) over ``script``:
+    each entry is submitted once the pool has decoded ``at`` steps; the
+    cancel entry is cancelled at its fifth token.  With ``hook_ids``, the
+    raw logits row of each token of those entries is kept (K=1 only).
+    Returns per-entry tokens / reasons / times, the stats, the segments'
+    counts a replay and capture ms, the launch counts and the wall time."""
+    from bitnet_tpu_torch.ops import registry
+
+    rows: dict[int, list] = {}
+    by_req = {}
+    if hook_ids:
+        def hook(req, row):
+            i = by_req.get(req.id)
+            if i in hook_ids:
+                rows.setdefault(i, []).append(row.float().clone())
+        sched.logits_hook = hook
+    reqs, t_sub = [None] * len(script), [0.0] * len(script)
+    registry.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        busy = all(s.occupied for s in sched.slots) and not sched.pending.empty()
+        for i, (at, prompt, gen, kw, kind) in enumerate(script):
+            due = sched.stats["decode_steps"] >= at
+            if kind == "priority":      # when it must preempt (or 40 steps late)
+                due = due and (busy or sched.stats["decode_steps"] >= at + 40)
+            if reqs[i] is None and due:
+                t_sub[i] = time.perf_counter()
+                reqs[i] = sched.submit(prompt, gen, **kw)
+                by_req[reqs[i].id] = i
+            if kind == "cancel" and reqs[i] is not None and len(reqs[i].token_times) >= 5:
+                reqs[i].cancel()
+        sched._step()
+        if all(r is not None for r in reqs) and sched.pending.empty() and not any(
+                s.occupied for s in sched.slots):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = []
+    for i, r in enumerate(reqs):
+        toks, reason = [], None
+        while not r.out.empty():
+            t, _, done, rs = r.out.get()
+            if t is not None:
+                toks.append(t)
+            if done:
+                reason = rs
+        out.append({"tokens": toks, "reason": None if reason is None else reason.value,
+                    "times": r.token_times, "t_submit": t_sub[i], "logprobs": r.logprobs,
+                    "preempted": r.preemptions})
+    segs = [{"k": seg.n_steps, "calls": seg.calls, "capture_ms": seg.capture_s * 1e3,
+             "launches": dict(seg.launches)} for seg in sched._segments.values()]
+    return {"reqs": out, "stats": dict(sched.stats), "segments": segs, "rows": rows,
+            "launches": {k: v for k, v in registry.launch_counts().items() if v},
+            "wall_s": wall, "plan": sched.plan()}
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def _sched_times(run, script):
+    ttft = [(r["times"][0] - r["t_submit"]) * 1e3 for r in run["reqs"] if r["times"]]
+    st = run["stats"]
+    return {"ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+            "tok_s": st["tokens_generated"] / run["wall_s"], "wall_s": run["wall_s"],
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p90": _pct(ttft, 0.9),
+            "capture_ms": [s["capture_ms"] for s in run["segments"]],
+            "decode_steps": st["decode_steps"], "prefills": st["prefills"],
+            "captures": st["captures"],
+            "tokens": st["tokens_generated"], "preempted": st.get("preempted", 0),
+            "evictions": st.get("evictions", 0),
+            "prefix_forked_pages": st.get("prefix_forked_pages", 0)}
+
+
+def _sched_gap_ms(run, i_long):
+    """The largest gap between two tokens of the other streams whose span
+    covers the long request's admission (its submit to its first token)."""
+    r = run["reqs"][i_long]
+    lo, hi = r["t_submit"], (r["times"][0] if r["times"] else r["t_submit"])
+    gaps = [b - a for j, x in enumerate(run["reqs"]) if j != i_long
+            for a, b in zip(x["times"], x["times"][1:]) if b >= lo and a <= hi]
+    return max(gaps) * 1e3 if gaps else None
+
+
+def _sched_want(plan, L):
+    """Launches a decode step of the pool: K1 four a layer, the plan's
+    attention one a layer, K3 once (dense) — K33 one a layer, no K3, paged."""
+    from bitnet_tpu_torch.models.bitnet import ROPE_FUSED_ATTN, SPLIT_ATTN
+
+    if plan == "paged":
+        return {"ternary_matmul_w2a8_normed": 4 * L, "paged_attention": L}
+    attn = (ROPE_FUSED_ATTN.get(plan) or SPLIT_ATTN[plan]).__name__
+    return {"ternary_matmul_w2a8_normed": 4 * L, attn: L, "scatter_kv_rows": 1}
+
+
+def _sched_gates(torch, name, r1, r8, script, L, b1, vocab, dev_type="cuda"):
+    """The pool's gates (raise on a failure): K=8's tokens are K=1's (the
+    cancelled, deadline, preempted and evicted requests aside); the cancel,
+    deadline and preemption end as they must; grammar tokens admissible,
+    logprobs one a token; each segment's launches a step are the want
+    table's and K1's totals 4L a decode step; the first six greedy requests
+    meet B=1 ``generate`` under the near-tie rule with every token's logits
+    within cosine 0.99 of the B=1 engine's on the same tokens (its prefill,
+    then its decode steps fed the pool's tokens)."""
+    from bitnet_tpu_torch.grammar import Grammar, VocabMatcher
+
+    info = {"plan": r1["plan"]}
+    skip = set()
+    for i, (_, _, _, _, kind) in enumerate(script):
+        a, b = r1["reqs"][i], r8["reqs"][i]
+        if kind in ("cancel", "timeout") or a["preempted"] or b["preempted"] or \
+                "context_full" in (a["reason"], b["reason"]):
+            skip.add(i)
+            continue
+        if a["tokens"] != b["tokens"] or a["reason"] != b["reason"]:
+            raise AssertionError(f"{name}: request {i} ({kind}) K=8 {b['tokens']} "
+                                 f"{b['reason']} != K=1 {a['tokens']} {a['reason']}")
+    for run in (r1, r8):
+        for i, (_, _, gen, _, kind) in enumerate(script):
+            r = run["reqs"][i]
+            want = {"cancel": "cancelled", "timeout": "timeout"}.get(kind)
+            if want and r["reason"] != want:
+                raise AssertionError(f"{name}: {kind} request ended {r['reason']}")
+            if kind == "grammar":
+                m = VocabMatcher(Grammar.from_gbnf(gen.grammar), vocab)
+                for t in r["tokens"]:
+                    if not m.allowed_mask()[t]:
+                        raise AssertionError(f"{name}: inadmissible grammar token {t}")
+                    m.accept(t)
+            if kind == "logprobs" and len(r["logprobs"]) != len(r["tokens"]):
+                raise AssertionError(f"{name}: logprobs {len(r['logprobs'])} entries")
+        if any(k == "priority" for *_, k in script) and run["stats"].get(
+                "preempted", 0) < 1 and len(script) <= 25:
+            raise AssertionError(f"{name}: no preemption ({run['stats']})")
+        if dev_type != "cuda":          # a rehearsal on the CPU: no kernel counts
+            continue
+        want = _sched_want(run["plan"], L)
+        for seg in run["segments"]:
+            per = {k: v / seg["k"] for k, v in seg["launches"].items()}
+            if per != want:
+                raise AssertionError(f"{name}: launches a step {per} != {want}")
+        n = run["launches"]
+        if n.get("ternary_matmul_w2a8_normed") != 4 * L * run["stats"]["decode_steps"]:
+            raise AssertionError(f"{name}: K1 {n} for {run['stats']['decode_steps']} steps")
+        if n.get("ternary_matmul_w2a8") != 4 * L * run["stats"]["prefills"]:
+            raise AssertionError(f"{name}: K4 {n} for {run['stats']['prefills']} prefills")
+    info["launches_per_step"] = _sched_want(r1["plan"], L)
+    info["k_gate_requests"] = len(script) - len(skip)
+    checked = []
+    # a preempted greedy request first (its rows after the re-prefill too)
+    order = sorted(range(len(script)), key=lambda i: not r1["reqs"][i]["preempted"])
+    for i in order:
+        _, prompt, gen, _, kind = script[i]
+        if kind not in ("greedy", "greedy_long") or len(checked) >= 6 \
+                or i not in r1["rows"] or not r1["reqs"][i]["tokens"]:
+            continue
+        toks = r1["reqs"][i]["tokens"]
+        sched_rows = r1["rows"][i][:len(toks)]
+        # B=1 generate's logits on these tokens: its prefill, then its
+        # decode steps fed the pool's tokens
+        with torch.inference_mode():
+            ref = [b1.prefill(prompt)[0]]
+            for j, t in enumerate(toks[:-1]):
+                ref.append(b1.decode_step(t, len(prompt) + j)[0])
+        gen_b1 = b1.generate(prompt, gen.replace(max_new_tokens=len(toks))).token_ids
+        coss = []
+        for j, row in enumerate(sched_rows):
+            cos, same = _logits_agree(torch, row, ref[j])
+            coss.append(cos)
+            if not same:
+                raise AssertionError(f"{name}: request {i} token {j} is not B=1's "
+                                     "argmax and not a near tie")
+        div = next((j for j, (a, b) in enumerate(zip(gen_b1, toks)) if a != b), None)
+        if min(coss) < 0.99:
+            raise AssertionError(f"{name}: request {i} cosine {min(coss)}")
+        checked.append({"request": i, "kind": kind, "tokens": len(toks),
+                        "preempted": r1["reqs"][i]["preempted"],
+                        "min_cosine": min(coss), "b1_equal": gen_b1 == toks,
+                        "b1_parts_at": div})
+    if not checked:
+        raise AssertionError(f"{name}: no greedy request checked against B=1")
+    info["b1"] = checked
+    return info
+
+
+def phase_scheduler(torch, dev):
+    """The continuous-batching scheduler on the full-width 2B fused engine
+    (synthetic qk256 words from seed 0, ``condition_norms`` gains, 30
+    layers, int8 head, S=1024, the mock tokenizer over 128256 ids; kernel
+    path w2a8): (a) a pool of 8 bf16 slots, (b) kv 'auto' → int8, (c) paged
+    with half of B·S/16 pages of 16 rows and a shared-prefix fork (K33 L
+    times a step), (d) chunked prefill of 64 while a 900-token prompt joins
+    the in-flight streams (the gap between tokens read on seven greedy
+    streams of a warm pool, chunked and whole, when the prompt joins), (e)
+    a pool of 64 on int8 (the 24 requests and 40 greedy fillers).  Each
+    pool runs its script at K=1 and at K=8 (``decode_steps_per_dispatch``),
+    each a fresh scheduler stepped by hand; gates in ``_sched_gates``.
+    Times: ms a step (host clock of the dispatches: copies, replay, token
+    read), decoded tok/s over the run's wall, TTFT p50 / p90, capture ms,
+    the largest gap between tokens around the 900-token admission."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine, prepare_params
+    from bitnet_tpu_torch.grammar import TokenVocab
+    from bitnet_tpu_torch.models.synthetic import (BITNET_2B4T, build_synthetic,
+                                                   condition_norms)
+    from bitnet_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    from bitnet_tpu_torch.tokenizer import MockTokenizer
+
+    cfg, L = BITNET_2B4T, BITNET_2B4T.num_layers
+    t0 = time.perf_counter()
+    ec = EngineConfig(max_seq_len=SCHED_S, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True)
+    params, _ = prepare_params(condition_norms(build_synthetic(cfg, seed=0, device=dev),
+                                               cfg), ec, dev, "w2a8")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size)
+    vocab = TokenVocab.from_tokenizer(tok)
+    b1 = {kv: InferenceEngine(cfg, params, ec.replace(kv_cache_dtype=kv), tokenizer=tok,
+                              device=dev) for kv in ("bf16", "int8")}
+    torch.cuda.synchronize()
+    out, totals = {"build_s": time.perf_counter() - t0, "pools": {}}, {}
+    V = min(cfg.vocab_size, 20000)
+    fill = [(0, [1] + [3 + (7 * j + 5 * i) % (V - 3) for j in range(31 + i)],
+             GenerationConfig(max_new_tokens=24, greedy=True), {}, "filler")
+            for i in range(40)]
+    long_req = [(30, [1] + [3 + (11 * j) % (V - 3) for j in range(899)],
+                 GenerationConfig(max_new_tokens=16, greedy=True), {}, "long")]
+    pools = (
+        ("a_bf16_b8", dict(num_slots=8), "bf16", False, []),
+        ("b_auto_int8_b8", dict(num_slots=8, ecfg=dict(kv_cache_dtype="auto")), "int8",
+         False, []),
+        ("c_paged_b8", dict(num_slots=8, paged=True, page_size=SCHED_PAGE,
+                            num_pages=8 * SCHED_S // SCHED_PAGE // 2), "bf16", True, []),
+        ("d_chunked64_b8", dict(num_slots=8, chunked_prefill=64), "bf16", False,
+         long_req),
+        ("e_int8_b64", dict(num_slots=64, max_admissions_per_step=8,
+                            ecfg=dict(kv_cache_dtype="int8")), "int8", False, fill),
+    )
+    for name, kw, kv, fork, extra in pools:
+        t1 = time.perf_counter()
+        script = _sched_script(torch, fork, cfg.vocab_size) + extra
+        kw = dict(kw)
+        e = ec.replace(**kw.pop("ecfg", {}))
+        greedy_ids = {i for i, s in enumerate(script) if s[4] in ("greedy", "greedy_long")}
+
+        def make(k, **more):
+            return ContinuousBatchingScheduler(cfg, params, tok, e, start_loop=False,
+                                               decode_steps_per_dispatch=k, device=dev,
+                                               **{**kw, **more})
+        s1 = make(1)
+        r1 = _sched_run(torch, s1, script, hook_ids=greedy_ids)
+        del s1
+        s8 = make(SEG_K)
+        r8 = _sched_run(torch, s8, script)
+        del s8
+        info = _sched_gates(torch, name, r1, r8, script, L, b1[kv], vocab, dev.type)
+        info["k1"], info["k8"] = _sched_times(r1, script), _sched_times(r8, script)
+        if name.startswith("c_") and info["k1"]["prefix_forked_pages"] < 1:
+            raise AssertionError(f"{name}: no prefix fork ({r1['stats']})")
+        if extra is long_req:
+            # the gap: seven greedy streams in flight when the 900-token
+            # prompt joins, on a chunked and on a whole-prompt pool, each
+            # run twice and read the second time (its graphs captured)
+            gap = [(0, [1] + [5 + (13 * j + i) % (V - 5) for j in range(40 + 8 * i)],
+                    GenerationConfig(max_new_tokens=48, greedy=True), {}, "stream")
+                   for i in range(7)] + [(8, *long_req[0][1:])]
+            for key, chunk in (("chunked", 64), ("whole", None)):
+                sg = make(1, chunked_prefill=chunk)
+                _sched_run(torch, sg, gap)
+                rg = _sched_run(torch, sg, gap)
+                del sg
+                info[f"gap_ms_{key}"] = _sched_gap_ms(rg, len(gap) - 1)
+                info[f"gap_run_{key}"] = _sched_times(rg, gap)
+        info["launches_k1"] = r1["launches"]
+        info["seconds"] = time.perf_counter() - t1
+        out["pools"][name] = info
+        emit({"phase": f"scheduler.{name}", **{k: v for k, v in info.items()
+                                                if k != "launches_k1"}})
+        _add(totals, r1["launches"])
+        _add(totals, r8["launches"])
+        del r1, r8
+        torch.cuda.empty_cache()
+    out["launch_totals"] = totals
+    out["ok"] = True
+    return out
+
+
 # the JAX gate's tokens (tools/gate_2b.py) and the reference's crossval
 # threshold (crossval/src/logits_compare.rs:24)
 GATE_TOKENS = "2,7,11,5"
@@ -4219,7 +4667,7 @@ def main(argv=None) -> int:
                            "cuda": torch.version.cuda}
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8",
-                                     "segments", "requests", "gate")):
+                                     "segments", "requests", "scheduler", "gate")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -4332,6 +4780,12 @@ def main(argv=None) -> int:
                   "checkpoint": {k: v for k, v in r["checkpoint"].items()
                                  if k not in ("golden", "first")},
                   "session": r["session"]})
+        if "scheduler" in phases:
+            report["scheduler"] = r = timed("scheduler", phase_scheduler, torch, dev)
+            launches["scheduler"] = r["launch_totals"]
+            emit({"phase": "scheduler", "nvidia_smi": smi,
+                  "seconds": seconds["scheduler"], "build_s": r["build_s"],
+                  "pools": r["pools"]})
         if "gate" in phases:
             report["gate"] = timed("gate", phase_gate, torch, dev)
             g = report["gate"]

@@ -2070,3 +2070,154 @@ def test_segment_warms_the_attention_counters_itself(dev):
     assert len(r.token_ids) == 8 and dev.index in dk._COUNTERS
     assert next(iter(eng._segments.values())).calls == 1
     assert int(dk._COUNTERS[dev.index].abs().sum()) == 0
+
+
+# --------------------------------------------------------------------------
+# K33 (paged decode attention) and the scheduler's pool graphs
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("qdt,kdt,D,G,page,B,S", [
+    ("bf16", "bf16", 128, 4, 16, 8, 1024), ("bf16", "bf16", 128, 4, 128, 8, 1024),
+    ("f32", "bf16", 128, 4, 16, 3, 200), ("f32", "f32", 64, 1, 8, 2, 64),
+    ("bf16", "f32", 128, 8, 32, 64, 512), ("bf16", "bf16", 64, 2, 16, 1, 4096)])
+def test_k33_matches_plain(dev, qdt, kdt, D, G, page, B, S):
+    from bitnet_tpu_torch.ops import paged_attention as pa
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device=dev).manual_seed(D + G + page + B)
+    KV, npg = 2, -(-S // page)
+    P = B * npg + 3
+    q = (torch.randn((B, KV * G, D), generator=g, device=dev) * 0.1).to(dt[qdt])
+    kp = torch.randn((KV, P, page, D), generator=g, device=dev).to(dt[kdt])
+    vp = torch.randn((KV, P, page, D), generator=g, device=dev).to(dt[kdt])
+    table = torch.randperm(P, generator=torch.Generator().manual_seed(1))[:B * npg]
+    table = table.view(B, npg).to(torch.int32).to(dev)
+    lens = torch.randint(1, S + 1, (B,), generator=g, device=dev).to(torch.int32)
+    lens[0] = S
+    if B > 2:
+        lens[1] = 0
+    pa.paged_attention.launches = 0
+    out = pa.paged_attention(q, kp, vp, lens, table)
+    assert pa.paged_attention.launches == 1
+    plain = pa.paged_attention_plain(q, kp, vp, lens, table)
+    ref = plain.float().abs().max()
+    tol = 1e-5 * ref + 1e-6 if qdt == "f32" else 1e-2 * ref + 2e-3
+    assert (out.float() - plain.float()).abs().max() <= tol
+    if B > 2:
+        assert bool((out[1] == 0).all())
+    assert torch.equal(out, pa.paged_attention(q, kp, vp, lens, table))
+    # a scheduler window past a slot's pages: -1 entries read page 0, and a
+    # length past the table's reach attends what it reaches
+    table[-1, npg // 2:] = -1
+    lens[-1] = S + 40
+    out = pa.paged_attention(q, kp, vp, lens, table)
+    plain = pa.paged_attention_plain(q, kp, vp, lens, table)
+    assert (out.float() - plain.float()).abs().max() <= tol
+
+
+def test_k33_replays_in_a_graph_bit_for_bit(dev):
+    from bitnet_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((8, 20, 128), generator=g, device=dev).bfloat16()
+    kp = torch.randn((30, 5, 70, 16, 128), generator=g, device=dev).bfloat16()
+    table = torch.arange(64, device=dev, dtype=torch.int32).view(8, 8)
+    lens = torch.full((8,), 100, dtype=torch.int32, device=dev)
+    want = pa.paged_attention(q, kp[3], kp[4], lens, table)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, kp[3], kp[4], lens, table)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def _pool_scheduler(dev, paged=False, **kw):
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg, params = _two_layer_2b()
+    ec = EngineConfig(max_seq_len=512, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True)
+    return ContinuousBatchingScheduler(cfg, params, None, ec, num_slots=8,
+                                       start_loop=False, max_admissions_per_step=8,
+                                       paged=paged, page_size=16, device=dev, **kw)
+
+
+def _pool_run(s):
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.ops import registry
+
+    gens = [GenerationConfig(max_new_tokens=20, greedy=True),
+            GenerationConfig(max_new_tokens=20, temperature=0.8, top_k=40, seed=3),
+            GenerationConfig(max_new_tokens=17, temperature=0.9, top_p=0.8, seed=5,
+                             repetition_penalty=1.2, logit_bias=((7, 3.0),))]
+    reqs = [s.submit(list(range(3 + i, 40 + 9 * i)), gens[i % 3]) for i in range(10)]
+    registry.reset_launch_counts()
+    for _ in range(200):
+        s._step()
+        if not any(sl.occupied for sl in s.slots) and s.pending.empty():
+            break
+    out = []
+    for r in reqs:
+        toks = []
+        while not r.out.empty():
+            t, _, done, reason = r.out.get()
+            if t is not None:
+                toks.append(t)
+        out.append(toks)
+    return out, registry.launch_counts()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_pool_graphs_give_the_eager_body_tokens_and_counts(dev, paged, monkeypatch):
+    """A 2-layer 2B-width pool of 8 at K=4 (ten staggered requests, greedy
+    and seeded): the captured graphs' tokens and launch counts equal the
+    same pool body run eagerly on the card."""
+    from bitnet_tpu_torch.engine import loop
+
+    got, n_graph = _pool_run(_pool_scheduler(dev, paged, decode_steps_per_dispatch=4))
+
+    def eager(self, ints, floats, generators):
+        self.calls += 1
+        with torch.inference_mode():
+            toks, raw, u = self._body(torch.from_numpy(ints).to(self.device),
+                                      torch.from_numpy(floats).to(self.device),
+                                      generators)
+        return toks.cpu().numpy().astype("int64"), raw, u
+    monkeypatch.setattr(loop.PoolSegment, "__call__", eager)
+    want, n_eager = _pool_run(_pool_scheduler(dev, paged, decode_steps_per_dispatch=4))
+    assert got == want and all(len(t) >= 17 for t in got)
+    assert n_graph == n_eager
+    assert n_graph["paged_attention" if paged else "decode_attention_batched"] > 0
+
+
+def test_pool_k8_gives_the_k1_tokens(dev):
+    a, _ = _pool_run(_pool_scheduler(dev, decode_steps_per_dispatch=1))
+    b, _ = _pool_run(_pool_scheduler(dev, decode_steps_per_dispatch=8))
+    assert a == b
+
+
+def test_a_decode_from_another_thread_raises_while_a_scheduler_runs(dev):
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+
+    s = _pool_scheduler(dev)
+    s._step()                       # the calling thread now drives the device
+    cfg, params = _two_layer_2b()
+    eng = InferenceEngine(cfg, params, EngineConfig(max_seq_len=256, kernel_path="w2a8",
+                                                    fuse_projections=True), device=dev)
+    err = {}
+
+    def other():
+        try:
+            eng.generate([1, 2, 3], GenerationConfig(max_new_tokens=2, greedy=True))
+        except RuntimeError as e:
+            err["e"] = e
+    import threading
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join()
+    assert "another thread" in str(err["e"])
+    s.shutdown()

@@ -5,7 +5,8 @@ size (the plain versions; host times, never the card's), each kernel
 variant is the port's wrapper for the JAX function the script calls for
 it (read from the script's source, and found by the registry's site line
 inside that function in the JAX package; the port's two variants over the
-5-D stack run K25 and K26), and ``paged`` and unknown names raise."""
+5-D stack run K25 and K26; ``paged`` runs K33, the stock paged attention),
+and unknown names raise."""
 
 import ast
 import math
@@ -87,14 +88,28 @@ def test_one_untimed_loop_is_finite_and_keeps_its_shape():
     assert out.shape == c.shape and bool(torch.isfinite(out.float()).all())
 
 
-def test_paged_and_unknown_variants_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #12"):
-        ex.make_variant("paged", device="cpu")
+def test_paged_and_unknown_variants_raise(monkeypatch, capsys):
+    """Unknown names raise; ``paged`` (which raised naming #12 until K33
+    ported the stock kernel) runs from the script's environment."""
     with pytest.raises(ValueError, match="unknown variant"):
         ex.make_variant("v3", device="cpu")
     monkeypatch.setenv("ONLY", "paged")
-    with pytest.raises(NotImplementedError, match="#12"):
-        ex.main(["--device", "cpu"])
+    monkeypatch.setenv("S", "256")
+    monkeypatch.setattr(ex, "bench_variant", lambda only, B, S, device: ex.make_variant(
+        only, L=2, B=B, S=S, device=device)[0](ex.make_variant(
+            only, L=2, B=B, S=S, device=device)[1](0), 0))
+    assert ex.main(["--device", "cpu"]) == 0
+    assert "ONLY=paged" in capsys.readouterr().out
+
+
+def test_paged_variant_runs_on_the_cpu(capsys):
+    registry.reset_launch_counts()
+    r = ex.bench_variant("paged", L=2, B=2, S=256, device="cpu", n_hi=3, n_lo=1)
+    assert r["kernel"] == "paged_attention" and math.isfinite(r["us_per_layer"])
+    assert r["floor_us_per_layer"] == pytest.approx(2 * 2 * 256 * 5 * 128 * 2
+                                                    / 3.35e12 * 1e6)
+    assert "paged: " in capsys.readouterr().out
+    assert all(n == 0 for n in registry.launch_counts().values())
 
 
 def test_main_reads_the_scripts_environment(monkeypatch, capsys):

@@ -229,8 +229,10 @@ def test_non_greedy_sampling_is_not_ported():
     """Sampling, Mirostat, grammar-constrained decoding, the prefix cache
     and checkpoint resume are ported (Mirostat and the grammar used to
     raise naming #16 and #15) and so are K-step dispatches (they raised
-    naming #5); speculative decoding and the paged cache (#12) and the
-    windowed cache (#7) still raise, naming their ROADMAP item."""
+    naming #5), and so are the paged cache and the paged variant of
+    exp_r4_attn (they raised naming #12; the variant's plain leg runs here);
+    speculative decoding (#12) and the windowed cache (#7) still raise,
+    naming their ROADMAP item."""
     import inspect
 
     from bitnet_tpu_torch.cli import _refuse_unported
@@ -251,7 +253,11 @@ def test_non_greedy_sampling_is_not_ported():
             EngineConfig(**kw)
     src = inspect.getsource(_refuse_unported)
     assert '"#12"' in src and '"#15"' not in src
-    assert '"#12"' in inspect.getsource(exp_r4_attn)
+    assert "not_ported" not in inspect.getsource(exp_r4_attn)
+    step, make_carry, fn, _ = exp_r4_attn.make_variant("paged", L=2, B=2, S=256,
+                                                       device="cpu")
+    out = step(make_carry(0), 0)
+    assert fn.__name__ == "paged_attention" and bool(torch.isfinite(out.float()).all())
 
 
 def test_chip_smoke_fails_without_the_port_and_without_a_card(tmp_path):
