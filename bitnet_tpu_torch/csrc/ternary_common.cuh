@@ -257,12 +257,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// a 2-D TMA map: inner x outer elements, rows stride_bytes apart, boxes of
-// box_inner x box_outer; what lies past the tensor reads as zeros
-inline cudaError_t tma_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
-                       uint64_t inner, uint64_t outer, uint64_t stride_bytes,
-                       uint32_t box_inner, uint32_t box_outer,
-                       CUtensorMapSwizzle swizzle) {
+// the entry point, looked up once (null if the driver has none)
+inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -274,10 +270,20 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const
     cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
                                             cudaEnableDefault, &found);
 #endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  return encode;
+}
+
+// a 2-D TMA map: inner x outer elements, rows stride_bytes apart, boxes of
+// box_inner x box_outer; what lies past the tensor reads as zeros
+inline cudaError_t tma_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                       uint64_t inner, uint64_t outer, uint64_t stride_bytes,
+                       uint32_t box_inner, uint32_t box_outer,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {stride_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};

@@ -64,8 +64,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "bn_probe_dot": (P, P, P, I, I, I, I, P),
     },
     "paged_attention": {
-        "bn_paged_attention": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, I, I, I,
-                               I, I, P, P, P, P, P),
+        "bn_paged_attention": (P, P, P, P, P, I, I, I, I, I, I, I, I, LL, LL, LL, I,
+                               I, I, P, P, P, P),
     },
     "decode_attention": {
         "bn_decode_attention_qkv": (P, P, P, P, P, P, I, I, I, I, I, I, F, P,

@@ -298,7 +298,8 @@ def release_device(device: torch.device, owner: int) -> None:
 
 def attn_counters(device: torch.device) -> torch.Tensor:
     """The int32 [ATTN_COUNTERS] arrival counters of ``device``, zeroed
-    once: the kernel's last block of each (b, kv head) resets its counter,
+    once, shared by the split-S kernel and K33 (``ops/paged_attention``) on
+    one stream: the kernel's last block of each (b, kv head) resets its counter,
     so every call, and every replay of a CUDA graph, finds them zero.  The
     first call on a device must run outside a graph capture (a capture
     does not run the zeroing).  ``cuda`` without an index is the current

@@ -23,10 +23,19 @@ past the pages it will use: a negative (unassigned) table entry reads page
 0, and positions past the table's reach (pages a slot × page) are not
 attended.
 
+On f32 pages K33 (and its plain version) reads k and v at f32, which the
+scheduler's JAX reference wants (it attends over a dense f32 view it
+gathers, ``bitnet_tpu/engine/paged_cache.py``); the stock kernel rounds f32
+pages to bf16 before its dots (``paged_attention_kernel.py:94-109``:
+``wait_and_get_loaded`` → ``_maybe_dequantize`` → ``astype(bfloat16)``), so
+on f32 pages the stock kernel is this function over bf16-rounded pages.
+
 :func:`paged_attention` runs :func:`paged_attention_plain` (gather, mask,
 softmax in PyTorch) for CPU tensors only; for CUDA tensors it launches K33
-(one split kernel, plus a combine kernel when the positions are split) or
-raises.  The launch count is per call.
+(one kernel a call: a TMA page ring, tensor-core products over bf16 pages,
+the splits combined in the same launch through the device's arrival
+counters, ``decode_attention.attn_counters``) or raises.  The launch count
+is per call.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_attention import _sm_count
+from .decode_attention import ATTN_COUNTERS, _sm_count, attn_counters
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 PAGED_MIN_ROWS = 64          # the least positions a split
@@ -74,7 +83,7 @@ def paged_plan(B: int, KV: int, S: int, sms: int) -> tuple[int, int]:
     R = PAGED_MIN_ROWS
     while R < S and (B * KV * -(-S // R) > 2 * sms or -(-S // R) > PAGED_MAX_SPLITS):
         R *= 2
-    return -(-S // R), R
+    return max(1, -(-S // R)), R
 
 
 def _check(q, k_pages, v_pages, lengths, page_indices):
@@ -106,31 +115,35 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if D not in (64, 128) or H // KV > 8:
         raise ValueError(f"K33's kernel takes D 64 / 128 and at most 8 query heads "
                          f"a kv head; got D={D}, G={H // KV}")
-    if k_pages.stride() != v_pages.stride() or k_pages.stride(-1) != 1:
-        raise ValueError("K33: k and v pages of one layout, D contiguous")
+    esz = k_pages.element_size()
+    if (k_pages.stride() != v_pages.stride() or k_pages.stride(-1) != 1
+            or any(st * esz % 16 for st in k_pages.stride()[:3])
+            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
+        raise ValueError(f"K33 maps the pages through TMA: k and v of one layout, D "
+                         f"contiguous, 16-byte aligned, strides multiples of 16 bytes; "
+                         f"got strides {k_pages.stride()} / {v_pages.stride()} of "
+                         f"{esz}-byte elements")
     if (lengths.dtype != torch.int32 or page_indices.dtype != torch.int32
             or page_indices.stride(-1) != 1 or not lengths.is_contiguous()):
         raise ValueError("K33: int32 lengths and an int32 table of contiguous rows")
+    if B * KV > ATTN_COUNTERS:
+        raise ValueError(f"K33: B*KV = {B * KV} exceeds the {ATTN_COUNTERS} arrival "
+                         "counters")
     dev = q.device
     q = q.contiguous()
     npg = page_indices.shape[1]
     splits, R = paged_plan(B, KV, npg * page, _sm_count(dev.index))
     out = torch.empty_like(q)
-    if splits > 1:
-        part = torch.empty((B * H * splits * (D + 2),), dtype=torch.float32, device=dev)
-        pacc = part[: B * H * splits * D]
-        pm = part[B * H * splits * D: B * H * splits * (D + 1)]
-        pl = part[B * H * splits * (D + 1):]
-        ptrs = (pm.data_ptr(), pl.data_ptr(), pacc.data_ptr())
-    else:
-        ptrs = (None, None, None)
+    part = (torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
     sk = k_pages.stride()
     lib = _cuda.library("paged_attention")
     rc = lib.bn_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-        page_indices.data_ptr(), page_indices.stride(0), npg, B, H, KV, D, sk[0], sk[1],
-        sk[2], page, splits, R, int(q.dtype == torch.float32),
-        int(k_pages.dtype == torch.float32), out.data_ptr(), *ptrs,
+        page_indices.data_ptr(), page_indices.stride(0), npg, B, H, KV, D,
+        k_pages.shape[1], page, sk[0], sk[1], sk[2], R, int(q.dtype == torch.float32),
+        int(k_pages.dtype == torch.float32), out.data_ptr(),
+        None if part is None else part.data_ptr(), attn_counters(dev).data_ptr(),
         _cuda.stream_ptr(dev))
     _cuda.check(lib, "paged_attention", rc, "paged_attention")
     paged_attention.launches += 1

@@ -17,6 +17,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,requests
     python3 chip_smoke.py --phases probe,build,segments
     python3 chip_smoke.py --phases probe,build,scheduler
+    python3 chip_smoke.py --phases probe,build,k33
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -70,6 +71,9 @@ no result line):
            short call that compares two trees
   k24      (not in the default run, which holds it in kernels) K24's checks
            and times alone: a short call that compares two trees
+  k33      (not in the default run, which holds it in kernels) K33's checks
+           and times alone (kernels.k33): a short call that compares two
+           trees
   w2a8     (not in the default run, which holds it in kernels) the W2A8
            probes' and prototype's checks and times (K28-K32) alone
   parity   a full-width 2-layer model on cuda (kernels) vs cpu (plain
@@ -1850,7 +1854,9 @@ def check_k25_k27(torch, dev, g, res):
 # K33 (paged decode attention): (site, B, S, page, page dtype, q dtype, fill)
 K33_CASES = (("exp", 8, 1024, 128, "bf16", "bf16", "full"),
              ("exp", 8, 1024, 128, "bf16", "bf16", "ragged"),
+             ("pool", 8, 1024, 16, "bf16", "f32", "full"),
              ("pool", 8, 1024, 16, "bf16", "f32", "ragged"),
+             ("pool", 8, 1024, 24, "bf16", "f32", "ragged"),
              ("pool", 8, 1024, 16, "f32", "f32", "ragged"),
              ("pool", 64, 1024, 16, "bf16", "f32", "ragged"),
              ("pool", 1, 4096, 16, "bf16", "f32", "full"))
@@ -1862,11 +1868,14 @@ def check_k33(torch, dev, g, res):
     layout, slot b's pages contiguous, bf16 q, every slot full; then
     shuffled pages and ragged lengths with an empty slot) and the paged
     scheduler's step (2B heads, 16-row pages, q in f32 as the ``paged`` plan
-    passes it, bf16 and f32 pages, B=8 and 64, and B=1 at S=4096); a second
+    passes it, bf16 and f32 pages, B=8 full and ragged, 24-row pages whose
+    reach (1008) ends before a length, B=64, and B=1 at S=4096); a second
     call bit for bit.  Tolerance: bf16 output 1e-2 of the max + 2e-3; f32
-    output (f32 sums in another order) 2e-5 of the max.  Timed: the
-    variant's shape, full, cycling layers past the L2, beside the plain
-    version and the library's gather + ``scaled_dot_product_attention``."""
+    output (q and the softmax weights split into two bf16 halves on bf16
+    pages, f32 sums in another order) 2e-5 of the max.  Timed: both sites
+    at B=8, S=1024, full, cycling layers past the L2, beside the plain
+    version and the library's gather + ``scaled_dot_product_attention``
+    (q cast to the pages' dtype, which SDPA wants)."""
     from bitnet_tpu_torch.ops import paged_attention as pa
 
     H, KV, D = H20, KV5, D128
@@ -1876,7 +1885,7 @@ def check_k33(torch, dev, g, res):
         esz = 2 if kv == "bf16" else 4
         npg = S // page
         P = B * npg + 1
-        timed = site == "exp" and fill == "full"
+        timed = fill == "full" and B == 8
         L = _layers(S, B, esz) if timed else 1
         kp = torch.randn((L, KV, P, page, D), generator=g, device=dev).to(dts[kv])
         vp = torch.randn((L, KV, P, page, D), generator=g, device=dev).to(dts[kv])
@@ -1908,10 +1917,12 @@ def check_k33(torch, dev, g, res):
             def lib(i):
                 k = kp[i % L][:, table].reshape(KV, B, S, D).transpose(0, 1)
                 v = vp[i % L][:, table].reshape(KV, B, S, D).transpose(0, 1)
-                return sdpa(q.view(B, H, 1, D), k, v, enable_gqa=True, scale=1.0)
+                return sdpa(q.view(B, H, 1, D).to(k.dtype), k, v, enable_gqa=True,
+                            scale=1.0)
             row["library_ms"] = time_ms(torch, lib, L)
             n = int(lens.sum())
-            nbytes = 2 * n * KV * D * esz + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
+            nbytes = (2 * n * KV * D * esz + 2 * q.numel() * q.element_size()
+                      + table.numel() * 4 + B * 4)
             row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * H * D * n, "bf16")
         res["k33"].append(row)
         if not row["ok"]:
@@ -2444,7 +2455,8 @@ SITES = (
     # scheduler phase (the paged pool's decode steps)
     ("paged_attention", "paged_attention",
      "jax.experimental.pallas.ops.tpu.paged_attention (called at "
-     "experiments/exp_r4_attn.py:63-88)", "scheduler", "k33", lambda r: "ms" in r),
+     "experiments/exp_r4_attn.py:63-88)", "scheduler", "k33",
+     lambda r: "ms" in r and r["site"] == "exp"),
 )
 
 
@@ -4666,7 +4678,7 @@ def main(argv=None) -> int:
                            "device": probe.device_kind, "torch": torch.__version__,
                            "cuda": torch.version.cuda}
         emit(report["probe"])
-        if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "w2a8",
+        if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "k33", "w2a8",
                                      "segments", "requests", "scheduler", "gate")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
@@ -4700,6 +4712,12 @@ def main(argv=None) -> int:
             report["k24"] = res
             for k, rows in res.items():
                 emit({"phase": f"k24.{k}", "rows": rows})
+        if "k33" in phases:
+            res = {"k33": []}
+            timed("k33", check_k33, torch, dev, torch.Generator(device=dev).manual_seed(1234),
+                  res)
+            report["k33"] = res
+            emit({"phase": "k33.k33", "nvidia_smi": smi, "rows": res["k33"]})
         if "w2a8" in phases:
             res = {f"k{n}": [] for n in range(28, 33)}
             timed("w2a8", check_exp_w2a8, torch, dev,

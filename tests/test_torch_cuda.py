@@ -2078,8 +2078,30 @@ def test_segment_warms_the_attention_counters_itself(dev):
 @pytest.mark.parametrize("qdt,kdt,D,G,page,B,S", [
     ("bf16", "bf16", 128, 4, 16, 8, 1024), ("bf16", "bf16", 128, 4, 128, 8, 1024),
     ("f32", "bf16", 128, 4, 16, 3, 200), ("f32", "f32", 64, 1, 8, 2, 64),
-    ("bf16", "f32", 128, 8, 32, 64, 512), ("bf16", "bf16", 64, 2, 16, 1, 4096)])
+    ("bf16", "f32", 128, 8, 32, 64, 512), ("bf16", "bf16", 64, 2, 16, 1, 4096),
+    # every page size the pool and the experiment use and those between
+    # (24: stage and split boundaries inside a page), both q and page dtypes
+    ("f32", "bf16", 128, 4, 8, 11, 600), ("f32", "bf16", 128, 4, 24, 11, 600),
+    ("f32", "bf16", 128, 4, 128, 11, 600), ("f32", "bf16", 128, 4, 256, 11, 600),
+    ("bf16", "bf16", 128, 4, 24, 11, 600), ("f32", "f32", 128, 4, 24, 11, 600),
+    ("f32", "f32", 128, 4, 256, 11, 600), ("bf16", "f32", 64, 4, 256, 11, 600),
+    # pages of 12 and 5 rows: TMA boxes of 4 and 1 rows, off the swizzle's
+    # 8-row period
+    ("f32", "bf16", 128, 4, 12, 11, 600), ("bf16", "bf16", 64, 2, 5, 8, 700),
+    # G = 1, 2, 5, 8 at D = 64 and 128
+    ("f32", "bf16", 64, 1, 16, 8, 700), ("f32", "bf16", 128, 2, 24, 8, 700),
+    ("bf16", "bf16", 128, 5, 16, 8, 700), ("f32", "bf16", 64, 5, 128, 8, 700),
+    ("f32", "bf16", 128, 8, 8, 8, 700), ("f32", "f32", 128, 5, 16, 8, 700),
+    ("bf16", "f32", 64, 8, 24, 8, 700), ("f32", "f32", 64, 2, 128, 8, 700),
+    # the scheduler's largest pool and its longest slot
+    ("f32", "bf16", 128, 4, 16, 64, 1024), ("f32", "bf16", 128, 4, 16, 1, 4096)])
 def test_k33_matches_plain(dev, qdt, kdt, D, G, page, B, S):
+    """K33 against its plain version: slot 0 full; then lengths 0, 1,
+    page - 1, page, page + 1 and one past the table's reach in the next
+    slots, random lengths in the rest (splits of 64..512 positions, so a
+    split boundary falls inside a page of 24, 128 or 256 rows); one launch,
+    a second call bit for bit; then -1 entries and a length past the
+    reach."""
     from bitnet_tpu_torch.ops import paged_attention as pa
 
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -2093,8 +2115,8 @@ def test_k33_matches_plain(dev, qdt, kdt, D, G, page, B, S):
     table = table.view(B, npg).to(torch.int32).to(dev)
     lens = torch.randint(1, S + 1, (B,), generator=g, device=dev).to(torch.int32)
     lens[0] = S
-    if B > 2:
-        lens[1] = 0
+    for i, n in enumerate([0, 1, page - 1, page, page + 1, npg * page + 1][:B - 1]):
+        lens[1 + i] = n
     pa.paged_attention.launches = 0
     out = pa.paged_attention(q, kp, vp, lens, table)
     assert pa.paged_attention.launches == 1
@@ -2102,7 +2124,7 @@ def test_k33_matches_plain(dev, qdt, kdt, D, G, page, B, S):
     ref = plain.float().abs().max()
     tol = 1e-5 * ref + 1e-6 if qdt == "f32" else 1e-2 * ref + 2e-3
     assert (out.float() - plain.float()).abs().max() <= tol
-    if B > 2:
+    if B > 1:
         assert bool((out[1] == 0).all())
     assert torch.equal(out, pa.paged_attention(q, kp, vp, lens, table))
     # a scheduler window past a slot's pages: -1 entries read page 0, and a
@@ -2112,6 +2134,30 @@ def test_k33_matches_plain(dev, qdt, kdt, D, G, page, B, S):
     out = pa.paged_attention(q, kp, vp, lens, table)
     plain = pa.paged_attention_plain(q, kp, vp, lens, table)
     assert (out.float() - plain.float()).abs().max() <= tol
+
+
+def test_k33_two_layers_back_to_back_leave_the_counters_zero(dev):
+    """Two layers of a pool called back to back on one stream, as the
+    paged plan calls them (splits combined through the arrival counters):
+    each meets its plain version, and the counters are zero after."""
+    from bitnet_tpu_torch.ops import decode_attention as dk
+    from bitnet_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, KV, H, D, page, npg = 8, 5, 20, 128, 16, 64
+    pool = torch.randn((2, 2, KV, B * npg + 1, page, D), generator=g, device=dev).bfloat16()
+    q = (torch.randn((B, H, D), generator=g, device=dev) * 0.1).float()
+    table = torch.randperm(B * npg, generator=torch.Generator().manual_seed(2))
+    table = table.view(B, npg).to(torch.int32).to(dev)
+    lens = torch.randint(1, npg * page + 1, (B,), generator=g, device=dev).to(torch.int32)
+    lens[0] = npg * page
+    assert pa.paged_plan(B, KV, npg * page, dk._sm_count(dev.index))[0] > 1
+    outs = [pa.paged_attention(q, pool[0, l], pool[1, l], lens, table) for l in (0, 1)]
+    torch.cuda.synchronize()
+    assert int(dk.attn_counters(dev).abs().sum()) == 0
+    for l, out in enumerate(outs):
+        plain = pa.paged_attention_plain(q, pool[0, l], pool[1, l], lens, table)
+        assert (out - plain).abs().max() <= 1e-5 * plain.abs().max() + 1e-6
 
 
 def test_k33_replays_in_a_graph_bit_for_bit(dev):

@@ -3,7 +3,9 @@
 - K33's plain version (``ops/paged_attention.paged_attention_plain``, what
   the wrapper runs for CPU tensors) against JAX's stock Pallas
   ``paged_attention`` under ``pltpu.force_tpu_interpret_mode()``, f32 and
-  bf16, grouped heads, ragged lengths and shuffled page tables.  Tolerance:
+  bf16, grouped heads, ragged lengths and shuffled page tables, and over
+  bf16-rounded f32 pages against the stock kernel over the f32 pages
+  (which it rounds to bf16 itself) within 1e-5 of the max.  Tolerance:
   the interpret-mode kernel's dots run at reduced precision (about 3e-3 of
   the largest output at f32 on unit-scale pages, measured), and its bf16
   form rounds its running output to bf16 after every compute block; so
@@ -91,6 +93,33 @@ def test_k33_plain_is_the_stock_paged_attention(case, dt):
     scale = float(np.abs(want).max())
     tol = 1e-2 + 1e-2 * scale if dt == "f32" else 4e-2 * scale
     assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("case", list(K33_CASES))
+def test_k33_plain_on_bf16_rounded_pages_is_the_stock_kernel_on_f32_pages(case):
+    """The stock kernel rounds f32 pages to bf16 before its dots
+    (``paged_attention_kernel.py:94-109``: ``wait_and_get_loaded`` →
+    ``_maybe_dequantize`` → ``astype(bfloat16)``) and keeps q and the
+    softmax weights in f32; K33 reads f32 pages at f32 (the scheduler's JAX
+    reference attends over an f32 view).  So the stock kernel over f32 pages
+    is the plain version over the pages rounded to bf16, within 1e-5 of the
+    largest output (f32 sums in another order)."""
+    B, H, KV, D, page, npg, P, lengths = K33_CASES[case]
+    rng = np.random.default_rng(len(case) + 7)
+    q = rng.standard_normal((B, H, D)).astype(np.float32) * 0.1
+    kp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
+    vp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    pidx = rng.permutation(P)[:B * npg].reshape(B, npg).astype(np.int32)
+    ppcb = 2 if npg % 2 == 0 else 1
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(stock(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(lens), jnp.asarray(pidx),
+                                pages_per_compute_block=ppcb))
+    rounded = [torch.from_numpy(x).to(torch.bfloat16).to(torch.float32) for x in (kp, vp)]
+    got = paged_attention(torch.from_numpy(q), *rounded, torch.from_numpy(lens),
+                          torch.from_numpy(pidx)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_k33_plain_masks_past_the_length_and_gives_zero_for_none():
