@@ -8,7 +8,10 @@ streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
 ``run --receipt PATH`` writes an honest-compute receipt whose ``kernels``
 name the hand-written kernels that launched; ``run --grammar-file`` /
 ``--json-schema`` constrain the output as the JAX CLI's do
-(``:132-151``).  Flags whose paths are not
+(``:132-151``); ``run --speculative K [--draft-model PATH]`` decodes
+greedily through ``engine/speculative.SpeculativeDecoder`` (``:219-237``:
+n-gram drafts, or a draft GGUF loaded under the same flags; the text on
+stdout, ``[speculative: {...}]`` on stderr).  Flags whose paths are not
 ported raise ``NotImplementedError`` naming their ROADMAP item; none is
 silently ignored.  ``benchmark-kernels`` (``:477-497``, ``:999-1010``)
 prints the JSON of ``tools/kernel_bench.py``: device time per kernel call
@@ -17,7 +20,7 @@ tests only).  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
 ``trace-diff`` (``:744-865``) print the JAX CLI's JSON and exit codes;
 ``crossval --trace-out`` also dumps the port's per-layer activation trace
 for ``trace-diff``.  ``serve`` and the other subcommands are ROADMAP
-queue 1 #12 and #17.
+queue 1 #12 (c) and #17.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
     python -m bitnet_tpu_torch.cli crossval -m model.gguf --tokens 2,7,11,5
@@ -95,11 +98,11 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--receipt", default=None,
                    help="write an honest-compute receipt JSON here")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
-                   help="speculative decoding: not ported (ROADMAP.md "
-                        "queue 1 #12)")
+                   help="speculative decoding with K n-gram draft tokens "
+                        "(greedy only; lossless)")
     p.add_argument("--draft-model", default=None,
-                   help="draft model for --speculative: not ported "
-                        "(ROADMAP.md queue 1 #12)")
+                   help="GGUF path of a smaller draft model for "
+                        "--speculative (default: n-gram self-drafting)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
@@ -107,9 +110,6 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
 
 def _refuse_unported(args) -> None:
     """Flags of paths the port does not run yet raise, never pass."""
-    if args.speculative or args.draft_model:
-        raise not_ported("speculative decoding (--speculative/--draft-model)",
-                         "#12")
     if args.sliding_window:
         raise not_ported("--sliding-window (the windowed ring cache)", "#7")
 
@@ -237,7 +237,22 @@ def cmd_run(args) -> int:
     text, spec = _prepare_prompt(args)
     gcfg = _gen_config(args, extra_stops=spec.stop_sequences)
     gcfg = gcfg.replace(add_bos=spec.add_bos)
-    if args.no_stream:
+    if args.speculative > 0:
+        from .engine.speculative import EngineDraft, SpeculativeConfig, SpeculativeDecoder
+
+        draft = None
+        if args.draft_model:
+            d_args = argparse.Namespace(**vars(args))
+            d_args.model = args.draft_model
+            draft = EngineDraft(_build_engine(d_args))
+        dec = SpeculativeDecoder(
+            engine, draft=draft,
+            spec_cfg=SpeculativeConfig(num_draft_tokens=args.speculative))
+        ids = engine.tokenizer.encode(text, add_bos=gcfg.add_bos)
+        r = dec.generate(ids, gcfg.replace(greedy=True))
+        print(r.text)
+        print(f"[speculative: {r.spec_stats}]", file=sys.stderr)
+    elif args.no_stream:
         print(engine.generate(text, gcfg).text)
     else:
         ids = engine.tokenizer.encode(text, add_bos=gcfg.add_bos)

@@ -4,9 +4,8 @@ context eviction).
 
 The names of ``bitnet_tpu/engine/__init__.py`` that the port has, loaded
 on first use (``models.convert`` imports ``engine.cache`` while the model
-modules load, so this package imports nothing eagerly).  The paged,
-windowed and speculative names are still to be ported (ROADMAP.md queue 1
-#12, #7).
+modules load, so this package imports nothing eagerly).  The windowed
+names are still to be ported (ROADMAP.md queue 1 #7).
 """
 
 from __future__ import annotations
@@ -18,6 +17,10 @@ _EXPORTS = {
     "ContextWindowConfig": "context", "EvictionPolicy": "context",
     "evict": "context", "importance_scores": "context",
     "PrefixCache": "prefix_cache", "PrefixSnapshot": "prefix_cache",
+    "PagedKVCache": "paged_cache", "PagePool": "paged_cache",
+    "allocate_paged_cache": "paged_cache",
+    "EngineDraft": "speculative", "NgramDraft": "speculative",
+    "SpeculativeConfig": "speculative", "SpeculativeDecoder": "speculative",
     "Session": "session", "SessionConfig": "session", "SessionState": "session",
     "StateTracker": "session",
     "KVCache": "cache", "allocate_cache": "cache", "reset_cache": "cache",

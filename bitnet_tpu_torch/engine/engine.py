@@ -79,6 +79,8 @@ class GenerationResult:
     stop_reason: StopReason
     prompt_tokens: int
     metrics: dict
+    # acceptance stats when produced by engine.speculative (else None)
+    spec_stats: dict | None = None
     # per emitted token: {"token_id", "text", "logprob", "top"} when
     # GenerationConfig.logprobs is set
     logprobs: list[dict] | None = None

@@ -37,6 +37,7 @@ equal K single steps' (``tests/test_torch_segments.py``).
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -176,12 +177,18 @@ def capture_graph(body, generators=(), pool=None):
     launch counts its capture added, capture seconds).  The capture
     launched nothing, so its wrappers' counts are taken back; a replay's
     owner adds them (``registry.add_launch_counts``).  A failed capture
-    raises, with the counts taken back."""
+    raises, with the counts taken back.
+
+    The cyclic garbage collector is off during the capture: an object it
+    frees there (pinned host memory that a copy used, say) records events
+    on the caller's stream, which invalidates the capture."""
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
     before = registry.launch_counts()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         # torch.cuda.graph synchronizes the device, then captures on its own
         # side stream; a replay runs on the caller's stream, after the input
@@ -189,6 +196,8 @@ def capture_graph(body, generators=(), pool=None):
         with torch.cuda.graph(graph, pool=pool):
             body()
     finally:
+        if collecting:
+            gc.enable()
         after = registry.launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         registry.add_launch_counts(delta, times=-1)
@@ -283,15 +292,26 @@ class PoolSegment:
             pos = pos + act
             tok = torch.where(live, nxt, tok)
             toks.append(nxt)
+        # the carry back into the inputs: a pipelined window's next window
+        # reads it there (a synchronous call's inputs are copied in anew)
+        ints[:, 0].copy_(tok)
+        ints[:, 1].copy_(pos)
+        ints[:, INT_COLS:].copy_(hist)
         return torch.stack(toks), raw, u
 
-    def _capture(self, B: int, V: int) -> None:
+    def _capture(self, B: int, V: int, state=None) -> None:
+        """Capture the K steps over static inputs: fresh buffers, or the
+        (ints, floats, generators) of a pipeline's device-resident state."""
         dev = self.device
         attn_counters(dev)
-        self._ints = torch.empty((B, INT_COLS + HISTORY_W), dtype=torch.int64, device=dev)
-        self._fl = torch.empty((B, FLOAT_COLS), dtype=torch.float32, device=dev)
-        self._gens = ([torch.Generator(device=dev) for _ in range(B)]
-                      if self.use_sampling else [])
+        if state is None:
+            self._ints = torch.empty((B, INT_COLS + HISTORY_W), dtype=torch.int64,
+                                     device=dev)
+            self._fl = torch.empty((B, FLOAT_COLS), dtype=torch.float32, device=dev)
+            gens = [torch.Generator(device=dev) for _ in range(B)]
+        else:
+            self._ints, self._fl, gens = state
+        self._gens = gens if self.use_sampling else []
         self._out: tuple = ()
 
         def body():
@@ -321,6 +341,114 @@ class PoolSegment:
             registry.add_launch_counts(self.launches)
             toks, raw, u = self._out
             return toks.cpu().numpy().astype(np.int64), raw, u
+
+    def launch(self, ints: torch.Tensor, floats: torch.Tensor, generators: list):
+        """One window over a pipeline's device-resident state (written
+        back in place): on the card a replay of the graph captured over
+        that state (no copy in, nothing read), on the CPU the eager body.
+        Returns the window's tokens [K, B] int32 on the device."""
+        self.calls += 1
+        with torch.inference_mode():
+            if self.device.type == "cpu":
+                return self._body(ints, floats, generators)[0]
+            if self.graph is None:
+                self._capture(ints.shape[0], self.cfg.vocab_size,
+                              (ints, floats, generators))
+            self.graph.replay()
+            registry.add_launch_counts(self.launches)
+            return self._out[0]
+
+
+class PoolPipeline:
+    """Issue-ahead K-step windows of a dense pool: the JAX scheduler's
+    pipelined mode (``pipeline_depth > 1``, ``bitnet_tpu/serve/scheduler.py:
+    556-645``, ``:2265-2528``).
+
+    The decode state lives on the device: ``ints`` [B, INT_COLS +
+    HISTORY_W] (token, position, active, top_k, history), ``floats``
+    [B, FLOAT_COLS] and B generators.  A window (:meth:`issue`) is a
+    :class:`PoolSegment` of k steps whose graph reads that state and writes
+    the next tokens, positions and history back into it, so windows chain
+    with no host work in between; its k tokens go to one of ``depth``
+    pinned host buffers (a ring: at most ``depth`` windows are in flight)
+    by a copy behind a CUDA event, and :meth:`read` waits for that event
+    alone.  The host writes the state only when a slot is admitted
+    (:meth:`admit`: its row from pinned memory, its generator's state into
+    the state's generator) or finishes (:meth:`finish`), and after a
+    synchronous excursion (:meth:`load`).  Everything runs on the caller's
+    one stream: the decode attention's arrival counters are one buffer a
+    device.  On the CPU a window runs at :meth:`issue` and :meth:`read`
+    returns its tokens."""
+
+    def __init__(self, cfg: ModelConfig, params: BitNetParams, cache, kernel_path: str,
+                 max_seq_len: int, device, depth: int, max_steps: int, pool=None):
+        dev = self.device = torch.device(device)
+        B = cache.k.shape[1]
+        self.depth = depth
+        self.ints = torch.zeros((B, INT_COLS + HISTORY_W), dtype=torch.int64, device=dev)
+        self.floats = torch.zeros((B, FLOAT_COLS), dtype=torch.float32, device=dev)
+        self.gens = [torch.Generator(device=dev) for _ in range(B)]
+        self._make = (cfg, params, cache, kernel_path, max_seq_len, pool)
+        self.segments: dict = {}
+        self._ring = ([torch.empty((max_steps, B), dtype=torch.int32, pin_memory=True)
+                       for _ in range(depth)] if dev.type == "cuda" else [])
+        self._issued = 0
+
+    def _to_device(self, dst: torch.Tensor, host: np.ndarray) -> None:
+        """An asynchronous copy from pinned memory (a pageable copy would
+        wait for the windows in flight)."""
+        src = torch.from_numpy(np.ascontiguousarray(host))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def load(self, ints: np.ndarray, floats: np.ndarray, generators: list) -> None:
+        """The whole state from the host (its first use, and the return
+        from a synchronous excursion)."""
+        self._to_device(self.ints, ints)
+        self._to_device(self.floats, floats)
+        for b, g in enumerate(generators):
+            if g is not None:
+                self.gens[b].set_state(g.get_state())
+
+    def admit(self, b: int, ints_row: np.ndarray, floats_row: np.ndarray,
+              generator) -> None:
+        self._to_device(self.ints[b], ints_row)
+        self._to_device(self.floats[b], floats_row)
+        if generator is not None:
+            self.gens[b].set_state(generator.get_state())
+
+    def finish(self, b: int) -> None:
+        self.ints[b, 2] = 0
+
+    def issue(self, k: int, use_typical: bool, use_sampling: bool,
+              bias_rows: torch.Tensor | None):
+        """Launch one k-step window; returns a handle for :meth:`read`."""
+        key = (k, use_typical, use_sampling, bias_rows is not None)
+        seg = self.segments.get(key)
+        if seg is None:
+            cfg, params, cache, kp, S, pool = self._make
+            seg = self.segments[key] = PoolSegment(
+                cfg, params, cache, kp, k, S, self.device, pool,
+                use_typical=use_typical, use_sampling=use_sampling,
+                bias_rows=bias_rows)
+        toks = seg.launch(self.ints, self.floats, self.gens)
+        if self.device.type == "cpu":
+            return toks.numpy().astype(np.int64)
+        host = self._ring[self._issued % self.depth][:k]
+        self._issued += 1
+        host.copy_(toks, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def read(self, handle) -> np.ndarray:
+        """A window's tokens [k, B] int64 on the host."""
+        if isinstance(handle, np.ndarray):
+            return handle
+        host, ev = handle
+        ev.synchronize()
+        return host.numpy().astype(np.int64)
 
 
 def build_decode_segment(cfg: ModelConfig, params: BitNetParams, cache,

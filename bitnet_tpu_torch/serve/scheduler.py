@@ -40,8 +40,27 @@ decode attention's arrival counters are one buffer a device, and a decode
 from another thread while the scheduler runs raises
 (``ops/decode_attention.claim_device``).
 
-Not ported (each raises naming its ROADMAP item): ``pipeline_depth > 1``
-and ``speculative_k`` (#12 (b)), ``checkpoint_requests`` /
+Serving-level speculation (``speculative_k``, ``:259-267``,
+``:1255-1355``): every greedy slot with no penalty, bias or host-side
+sampler and room for k + 1 rows drafts k tokens by n-gram lookup, and all
+of them verify in ONE dispatch (``engine/speculative.VerifyStep``: a forward
+of k + 1 tokens over the dense pool, the other slots masked, each row's
+argmax read back; on the card a CUDA graph per k + 1); each slot's length is
+then set in place, and the other slots ride the step's normal dispatch.
+
+Pipelined issue-ahead serving (``pipeline_depth > 1``, ``:233-253``,
+``:556-645``, ``:2265-2528``): the decode state lives on the device
+(``engine/loop.PoolPipeline``), up to ``pipeline_depth`` K-step windows are
+in flight, each chaining on the last with no host work, the oldest read
+first and the tokens of a slot that stopped or changed hands (its
+occupancy epoch) dropped.  Admissions and finishes are small writes on the
+same stream between windows; host-side samplers and min-token phases fall
+back to the synchronous step until those slots finish; ``pause`` drains the
+windows; ``repetition_window`` is pinned to ``HISTORY_W``.  Both modes need
+a dense pool (a paged pool raises ``InferenceError``, as in the JAX
+package), and they exclude each other.
+
+Not ported (each raises naming its ROADMAP item): ``checkpoint_requests`` /
 ``resume_requests`` (#12 (c), with the HTTP server), ``mesh``, ``channel``
 and ``follow`` (multi-host, #13).
 """
@@ -64,13 +83,17 @@ from ..config import (EngineConfig, GenerationConfig, ModelConfig, not_ported,
 from ..device_probe import resolve_device
 from ..engine.cache import allocate_cache
 from ..engine.engine import prepare_params
-from ..engine.loop import FLOAT_COLS, HISTORY_W, INT_COLS, PoolSegment
+from ..engine.loop import HISTORY_W, INT_COLS, PoolPipeline, PoolSegment
 from ..engine.sampling import NEG_INF, MirostatState, SamplerChain, logprob_entry
 from ..engine.stop import StopCriteria, StopReason
 from ..errors import InferenceError
 from ..models.bitnet import (BitNetParams, decode_attn_plan, forward, kv_dtype_name,
                              logits as model_logits, stacked_decode_ok)
 from ..ops.decode_attention import claim_device, release_device
+
+# an idle slot's float row: neutral top_p, typical_p and repetition penalty
+IDLE_FLOATS = np.array([0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0], np.float32)
+
 
 @dataclasses.dataclass
 class Request:
@@ -121,6 +144,9 @@ class _Slot:
     grammar: Any = None           # VocabMatcher | None
     lp_pending: Any = None
     min_ban: bool = False
+    # occupancy epoch: bumped at every activation, so a pipelined read drops
+    # the tokens of a window that belong to an earlier occupant
+    epoch: int = 0
 
     @property
     def hostside(self) -> bool:
@@ -151,11 +177,18 @@ class ContinuousBatchingScheduler:
         if mesh is not None or channel is not None:
             raise not_ported("multi-host / mesh scheduling (mesh, channel, follow)",
                              "#13")
-        if int(pipeline_depth) > 1:
-            raise not_ported("pipelined serving (pipeline_depth > 1)", "#12 (b)")
-        if int(speculative_k) > 0:
-            raise not_ported("serving-level speculative decoding (speculative_k)",
-                             "#12 (b)")
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        if self.pipeline_depth > 1 and (paged or speculative_k):
+            raise InferenceError(
+                "pipeline_depth > 1 requires a dense single-host pool "
+                "without serving-level speculation")
+        self.speculative_k = max(0, int(speculative_k))
+        if self.speculative_k:
+            from ..engine.speculative import NgramDraft
+
+            self._spec_draft = NgramDraft()
+            if paged:
+                raise InferenceError("speculative_k requires a dense single-host pool")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -208,7 +241,17 @@ class ContinuousBatchingScheduler:
             "prefills": 0, "decode_s": 0.0, "captures": 0,
         }
         self._segments: collections.OrderedDict = collections.OrderedDict()
+        self._verifies: dict = {}            # speculative verify steps by k + 1
         self._graph_pool = None
+        # pipelined mode: the device state (built at first use), whether it
+        # holds the host's slots, its view of each slot (active, epoch), the
+        # windows in flight and the tokens they will emit a slot
+        self._pl: PoolPipeline | None = None
+        self._pl_valid = False
+        self._pl_mirror = [False] * self.B
+        self._pl_mirror_epoch = [-1] * self.B
+        self._pl_inflight: collections.deque = collections.deque()
+        self._pl_issued = np.zeros(self.B, np.int64)
         self._owner: int | None = None      # thread that drives the device
         self.error: BaseException | None = None
         # called as hook(request, raw logits row [V] on the device) for each
@@ -447,6 +490,18 @@ class ContinuousBatchingScheduler:
 
     # ----------------------------------------------------------- admission
     def _admit(self) -> None:
+        """Admit pending requests into free slots.  The pipelined mode
+        defers each admission's first sample until every prefill of the
+        step is queued: the first read then waits once for the windows in
+        flight (``bitnet_tpu/serve/scheduler.py:1401-1431``)."""
+        defer: list | None = [] if self.pipeline_depth > 1 else None
+        try:
+            self._admit_loop(defer)
+        finally:
+            for slot_idx, lg in defer or ():
+                self._activate(slot_idx, lg)
+
+    def _admit_loop(self, defer: list | None) -> None:
         admitted = 0
         for slot_idx, slot in enumerate(self.slots):
             if slot.occupied:
@@ -499,7 +554,10 @@ class ContinuousBatchingScheduler:
                 self.stats["chunked_admissions"] = (
                     self.stats.get("chunked_admissions", 0) + 1)
                 continue
-            self._activate(slot_idx, lg)
+            if defer is not None:
+                defer.append((slot_idx, lg))
+            else:
+                self._activate(slot_idx, lg)
 
     def _install(self, slot_idx: int, slot: _Slot, req: Request, T: int) -> None:
         """The slot's request state: stop criteria, generator, history,
@@ -543,6 +601,7 @@ class ContinuousBatchingScheduler:
         slot = self.slots[slot_idx]
         slot.prefilling = False
         slot.active = True
+        slot.epoch += 1
         first = self._sample_first(slot, lg)
         if first is None:                      # grammar dead end
             self._finish(slot_idx, StopReason.EOS)
@@ -868,15 +927,19 @@ class ContinuousBatchingScheduler:
 
     # --------------------------------------------------------------- loop
     def _loop(self) -> None:
+        pipelined = self.pipeline_depth > 1
         try:
             while not self._stopping:
                 if getattr(self, "_pause_req", False):
+                    if pipelined and self._pl_inflight:
+                        self._pl_drain()
+                        self._pl_sync_host()
                     self._paused_at_barrier = True
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
                 self._paused_at_barrier = False
-                if not self._step():
+                if not (self._step_pipelined() if pipelined else self._step()):
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
         except BaseException as e:   # the loop died: end every request
@@ -901,13 +964,14 @@ class ContinuousBatchingScheduler:
                 return
             req.out.put((None, "", True, None))
 
-    def _step(self) -> bool:
-        """One scheduler iteration: sweep cancellations / deadlines, preempt,
-        admit, advance chunked prefills, run one pool dispatch.  False when
-        there was nothing to do (the loop may sleep)."""
+    def _claim(self) -> None:
+        """The calling thread drives the device from now on."""
         if self.device.type == "cuda" and self._owner is None:
             claim_device(self.device, "a ContinuousBatchingScheduler's loop")
             self._owner = threading.get_ident()
+
+    def _sweep(self) -> None:
+        """Cancellations and deadlines first: free slots before admitting."""
         now = time.time()
         for i, s in enumerate(self.slots):
             if not s.active:
@@ -916,11 +980,39 @@ class ContinuousBatchingScheduler:
                 self._finish(i, StopReason.CANCELLED)
             elif s.deadline is not None and now > s.deadline:
                 self._finish(i, StopReason.TIMEOUT)
+
+    def _slot_row(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """Slot i's rows of a pool step: ints (token, position, active,
+        top_k, history with -1 padding) and floats (temperature, 0 when
+        greedy, top_p, min_p, typical_p and the three penalties)."""
+        s = self.slots[i]
+        g = s.req.gen
+        ints = np.full(INT_COLS + HISTORY_W, -1, np.int64)
+        ints[:INT_COLS] = (self._tokens[i], s.pos, 1, g.top_k)
+        ints[INT_COLS:INT_COLS + s.hist.shape[0]] = s.hist
+        floats = np.array((0.0 if g.is_greedy else g.temperature, g.top_p, g.min_p,
+                           g.typical_p, g.repetition_penalty, g.frequency_penalty,
+                           g.presence_penalty), np.float32)
+        return ints, floats
+
+    def _step(self) -> bool:
+        """One scheduler iteration: sweep cancellations / deadlines, preempt,
+        admit, advance chunked prefills, run the speculative slots' verify
+        and one pool dispatch.  False when there was nothing to do (the
+        loop may sleep)."""
+        self._claim()
+        self._sweep()
         self._maybe_preempt()
         self._admit()
         chunk_worked = (self._advance_prefills()
                         if self.chunked_prefill is not None else False)
         active_idx = [i for i, s in enumerate(self.slots) if s.active]
+        if self.speculative_k and active_idx:
+            active_idx = self._run_spec_slots(active_idx)
+            if not active_idx:
+                self.stats["active_slots"] = sum(1 for s in self.slots if s.active)
+                self.stats["queue_depth"] = self.pending.qsize()
+                return True
         k_eff = (1 if any(self.slots[i].hostside or self.slots[i].min_ban
                           for i in active_idx) else self.decode_steps_per_dispatch)
         if self.paged and active_idx:
@@ -932,18 +1024,13 @@ class ContinuousBatchingScheduler:
 
         ints = np.zeros((self.B, INT_COLS + HISTORY_W), np.int64)
         ints[:, INT_COLS:] = -1
-        floats = np.zeros((self.B, FLOAT_COLS), np.float32)
-        floats[:, 1] = floats[:, 3] = floats[:, 4] = 1.0     # neutral top_p, typ, rep
+        floats = np.tile(IDLE_FLOATS, (self.B, 1))
         gens: list = [None] * self.B
         use_typical = use_bias = use_sampling = False
         for i in active_idx:
             s = self.slots[i]
             g = s.req.gen
-            ints[i, :INT_COLS] = (self._tokens[i], s.pos, 1, g.top_k)
-            ints[i, INT_COLS:INT_COLS + s.hist.shape[0]] = s.hist
-            floats[i] = (0.0 if g.is_greedy else g.temperature, g.top_p, g.min_p,
-                         g.typical_p, g.repetition_penalty, g.frequency_penalty,
-                         g.presence_penalty)
+            ints[i], floats[i] = self._slot_row(i)
             use_typical |= g.typical_p < 1.0 and not g.is_greedy
             use_bias |= bool(self._bias_live[i])
             use_sampling |= not g.is_greedy or s.mirostat is not None
@@ -978,3 +1065,256 @@ class ContinuousBatchingScheduler:
             s.pos += 1
             self._emit(i, tok)
         return True
+
+    # ------------------------------------------------- speculative decode
+    def _get_verify(self, Tk: int):
+        """The verify of Tk tokens a slot over the whole dense pool (the
+        slots not verifying masked: position S, no real token), every row's
+        argmax read back; keyed on Tk, B, the cache dtype, the kernel path
+        and the ``BITNET_*`` environment."""
+        from ..engine.speculative import VerifyStep
+
+        key = (Tk, self.B, str(self.cache.k.dtype), self._kp,
+               tuple(sorted((k, v) for k, v in os.environ.items()
+                            if k.startswith("BITNET_"))))
+        v = self._verifies.get(key)
+        if v is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            v = self._verifies[key] = VerifyStep(
+                self.cfg, self.params, self.cache, self._kp, Tk, self.B, False,
+                self.device, self._graph_pool)
+        return v
+
+    def _spec_eligible(self, slot: _Slot) -> bool:
+        g = slot.req.gen
+        return (g.is_greedy and not slot.hostside and not slot.min_ban
+                and g.repetition_penalty == 1.0
+                and g.frequency_penalty == 0.0
+                and g.presence_penalty == 0.0
+                and not g.logit_bias
+                and slot.pos + self.speculative_k + 1 < self.S)
+
+    def _run_spec_slots(self, active_idx: list[int]) -> list[int]:
+        """Every eligible slot drafts k tokens and all verify in ONE
+        dispatch; each emits its accepted drafts and the correction (or
+        the bonus token when all k pass).  Returns the slots the step's
+        normal dispatch must handle."""
+        from ..engine.speculative import verify_input
+
+        k = self.speculative_k
+        Tk = k + 1
+        spec_idx = [i for i in active_idx if self._spec_eligible(self.slots[i])]
+        rest = [i for i in active_idx if i not in spec_idx]
+        if not spec_idx:
+            return rest
+        inp = verify_input(self.B, Tk, self.S)
+        drafts: dict[int, list[int]] = {}
+        for i in spec_idx:
+            s = self.slots[i]
+            draft = self._spec_draft.propose(s.req.token_ids + s.out_ids, k)
+            drafts[i] = draft
+            inp[i, :Tk] = [int(self._tokens[i])] + list(draft)
+            inp[i, Tk:2 * Tk] = np.arange(s.pos, s.pos + Tk)
+            inp[i, 2 * Tk] = s.pos
+            inp[i, 2 * Tk + 1] = Tk
+        want, _ = self._get_verify(Tk)(inp)                 # [B, Tk]
+        self.stats["decode_steps"] += 1
+        self.stats["spec_drafted"] = self.stats.get("spec_drafted", 0) + k * len(spec_idx)
+        for i in spec_idx:
+            s = self.slots[i]
+            draft = drafts[i]
+            emitted = 0
+            for j in range(k):
+                if int(want[i, j]) != draft[j]:
+                    break
+                s.pos += 1
+                emitted += 1
+                self._emit(i, draft[j])
+                if not s.active:
+                    break
+            else:
+                j = k
+            self.stats["spec_accepted"] = (
+                self.stats.get("spec_accepted", 0) + min(emitted, k))
+            if s.active and emitted == j:
+                # the correction (a mismatch) or the bonus (all k accepted)
+                s.pos += 1
+                self._emit(i, int(want[i, j]))
+            if s.active:
+                self.cache.lengths[i] = s.pos
+        return rest
+
+    # ------------------------------------------------------ pipelined mode
+    def _pl_rebuild_state(self) -> None:
+        """(Re)write the device state from the host's slots: at first use
+        and on the return from a synchronous excursion."""
+        if self._pl is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._pl = PoolPipeline(self.cfg, self.params, self.cache, self._kp, self.S,
+                                    self.device, self.pipeline_depth,
+                                    self.decode_steps_per_dispatch, self._graph_pool)
+        ints = np.zeros((self.B, INT_COLS + HISTORY_W), np.int64)
+        ints[:, INT_COLS:] = -1
+        floats = np.tile(IDLE_FLOATS, (self.B, 1))
+        gens: list = [None] * self.B
+        for i, s in enumerate(self.slots):
+            live = s.active and s.req is not None
+            if live:
+                ints[i], floats[i] = self._slot_row(i)
+                gens[i] = s.gen
+            self._pl_mirror[i] = live
+            self._pl_mirror_epoch[i] = s.epoch if live else -1
+        self._pl.load(ints, floats, gens)
+        self._pl_valid = True
+
+    def _pl_sync_host(self) -> None:
+        """Carry the device's generator states back to the slots whose
+        current occupancy ran on the device (before a synchronous excursion,
+        a preemption or a pause; the windows are drained).  Tokens,
+        positions and histories are the host's already: every window's
+        tokens were emitted."""
+        if not self._pl_valid:
+            return
+        for i, s in enumerate(self.slots):
+            if (s.active and s.req is not None and self._pl_mirror[i]
+                    and self._pl_mirror_epoch[i] == s.epoch):
+                s.gen.set_state(self._pl.gens[i].get_state())
+
+    def _pl_apply_lifecycle(self) -> None:
+        """Diff the slots against the device's view and write the rows that
+        changed; keyed by occupancy epoch, since a slot freed and admitted
+        again within one iteration never shows an idle interval."""
+        for i, s in enumerate(self.slots):
+            if s.active and s.req is not None and (
+                    not self._pl_mirror[i] or self._pl_mirror_epoch[i] != s.epoch):
+                ints, floats = self._slot_row(i)
+                self._pl.admit(i, ints, floats, s.gen)
+                self._pl_mirror[i] = True
+                self._pl_mirror_epoch[i] = s.epoch
+                # the old occupant's windows no longer speak for the slot
+                self._pl_issued[i] = 0
+            elif not s.active and self._pl_mirror[i]:
+                self._pl.finish(i)
+                self._pl_mirror[i] = False
+
+    def _pl_live(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s.active and s.req is not None and self._pl_mirror[i]]
+
+    def _pl_can_issue(self) -> bool:
+        """Another window only if some slot has tokens to emit beyond those
+        already in flight."""
+        for i in self._pl_live():
+            s = self.slots[i]
+            if (s.req.gen.max_new_tokens - s.generated > self._pl_issued[i]
+                    and s.pos + self._pl_issued[i] < self.S):
+                return True
+        return False
+
+    def _pl_window_k(self) -> int:
+        """The window: the pool's largest remaining budget a slot, rounded
+        down to a power of two no larger than ``decode_steps_per_dispatch``
+        (a full window at a cohort's tail decodes mostly finished slots)."""
+        rem_max = 0
+        for i in self._pl_live():
+            s = self.slots[i]
+            rem = s.req.gen.max_new_tokens - s.generated - self._pl_issued[i]
+            rem_max = max(rem_max, min(rem, self.S - s.pos - self._pl_issued[i]))
+        if rem_max <= 0:
+            return 0
+        k = 1
+        while k * 2 <= min(self.decode_steps_per_dispatch, rem_max):
+            k *= 2
+        return k
+
+    def _pl_issue(self) -> bool:
+        k = self._pl_window_k()
+        if k <= 0:
+            return False
+        live = [s.req.gen for s in self.slots if s.active and s.req is not None]
+        use_typical = any(g.typical_p < 1.0 and not g.is_greedy for g in live)
+        use_sampling = any(not g.is_greedy for g in live)
+        use_bias = any(self._bias_live[i] for i in range(self.B) if self.slots[i].active)
+        handle = self._pl.issue(k, use_typical, use_sampling,
+                                self._bias_rows if use_bias else None)
+        snap = [(i, self.slots[i].epoch) for i in self._pl_live()]
+        for i, _ in snap:
+            self._pl_issued[i] += k
+        self._pl_inflight.append((handle, k, snap))
+        return True
+
+    def _pl_read_one(self) -> None:
+        """Read the oldest window and emit its tokens, dropping those of
+        slots that stopped or changed hands since it was issued."""
+        handle, k, snap = self._pl_inflight.popleft()
+        rows = self._pl.read(handle)                     # [k, B]
+        for i, _ in snap:
+            self._pl_issued[i] = max(0, self._pl_issued[i] - k)
+        self.stats["decode_steps"] += k
+        for step in range(k):
+            for i, ep in snap:
+                s = self.slots[i]
+                if not s.active or s.req is None or s.epoch != ep:
+                    continue
+                s.pos += 1
+                self._emit(i, int(rows[step, i]))
+
+    def _pl_drain(self) -> None:
+        while self._pl_inflight:
+            self._pl_read_one()
+
+    def _pl_hostside(self) -> bool:
+        return any(s.occupied and (s.hostside or s.min_ban) for s in self.slots)
+
+    def _step_pipelined(self) -> bool:
+        """One pipelined iteration (``bitnet_tpu/serve/scheduler.py:
+        2463-2528``).  False when there was nothing to do."""
+        self._claim()
+        self._sweep()
+        # preemption snapshots the slots: drain only when it would trigger
+        if not self.pending.empty() and all(s.occupied for s in self.slots):
+            self._pl_drain()
+            self._pl_sync_host()
+            self._maybe_preempt()
+        # each admission's first read waits for the windows in flight: admit
+        # when the pipe is empty or enough slots are free to share the wait
+        want = self.pending.qsize()
+        if want:
+            free = sum(1 for s in self.slots if not s.occupied)
+            if (not self._pl_inflight
+                    or free >= min(self.max_admissions_per_step, want)):
+                self._admit()
+        chunk_worked = (self._advance_prefills()
+                        if self.chunked_prefill is not None else False)
+        if self._pl_hostside():
+            # host-side samplers and min-token phases: drain, carry the
+            # state back, and take the synchronous step until they finish
+            self._pl_drain()
+            self._pl_sync_host()
+            self._pl_valid = False
+            worked = self._step()
+            self.stats["pipeline_fallback_steps"] = (
+                self.stats.get("pipeline_fallback_steps", 0) + 1)
+            return worked or chunk_worked
+        if not self._pl_valid:
+            self._pl_rebuild_state()
+            self._pl_issued[:] = 0
+        self._pl_apply_lifecycle()
+        self.stats["active_slots"] = sum(1 for s in self.slots if s.active)
+        self.stats["queue_depth"] = self.pending.qsize()
+        issued = False
+        while len(self._pl_inflight) < self.pipeline_depth and self._pl_can_issue():
+            if not self._pl_issue():
+                break
+            issued = True
+        if self._pl_inflight and (len(self._pl_inflight) >= self.pipeline_depth
+                                  or not self._pl_can_issue()):
+            # a full pipe reads half its depth; a draining one one window
+            full = len(self._pl_inflight) >= self.pipeline_depth
+            for _ in range(max(1, self.pipeline_depth // 2) if full else 1):
+                if self._pl_inflight:
+                    self._pl_read_one()
+            return True
+        return issued or chunk_worked

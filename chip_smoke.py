@@ -18,6 +18,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,segments
     python3 chip_smoke.py --phases probe,build,scheduler
     python3 chip_smoke.py --phases probe,build,k33
+    python3 chip_smoke.py --phases probe,build,speculative
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -161,6 +162,20 @@ no result line):
            any position or without a strict-valid cuda receipt naming K1 and
            K5; then `cli crossval` on --kernel-path pallas and on the
            bitnet32 2B GGUF, for information (cosines, ppl delta, launches)
+  speculative  speculative decoding and pipelined serving on the
+           scheduler phase's 2B fused engine: (a) n-gram drafts, k=4,
+           greedy, three prompts (one repetitive) against plain greedy
+           under the near-tie rule, K4 4L a verify and nothing else;
+           (b) EngineDraft over a second engine with the same weights (at
+           least one draft accepted); (c) `cli run --speculative 4` on the
+           full-width 2B GGUF (the gate's; the generic engine); (d) the
+           scheduler with speculative_k=4, pools of 8 bf16 and auto ->
+           int8: sampled tokens those without speculation, greedy ones the
+           near-tie rule; (e) pipeline_depth 2 and 3 at K=8: the
+           synchronous scheduler's tokens.  The verify graph's ms a round
+           and capture ms, the draft's ms a round, the acceptance rate, ms
+           per emitted token beside plain greedy's ms a step, the pool's
+           ms a step at depth 1, 2, 3
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -187,7 +202,7 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "segments", "requests", "scheduler", "gate")
+          "segments", "requests", "scheduler", "gate", "speculative")
 
 
 def emit(obj) -> None:
@@ -4580,7 +4595,7 @@ def _crossval_leg(torch, path, extra):
         "ppl_rel_delta")}, "launches": n, "seconds": time.perf_counter() - t0}
 
 
-def phase_gate(torch, dev):
+def phase_gate(torch, dev, workdir):
     """The port's 2B gate on the card: ``python -m
     bitnet_tpu_torch.tools.gate_2b`` on the full-width 2B qk256 GGUF of
     ``tools/gen_2b_gguf.py`` (generate, build the C++ golden, ``cli run
@@ -4598,7 +4613,8 @@ def phase_gate(torch, dev):
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="gate_2b_") as d:
-        qk = os.path.join(d, "bitnet2b_qk256.gguf")
+        # the qk256 GGUF stays for the speculative phase's CLI leg
+        qk = os.path.join(workdir, "bitnet2b_qk256.gguf")
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "bitnet_tpu_torch.tools.gate_2b",
                             "--gguf", qk, "--kind", "qk256", "--tokens", GATE_TOKENS],
@@ -4640,6 +4656,372 @@ def phase_gate(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: speculative decoding and pipelined serving (engine/speculative.py,
+# the scheduler's speculative_k and pipeline_depth)
+# ---------------------------------------------------------------------------
+SPEC_K = 4
+SPEC_TOKENS = 32
+
+
+def _tie_rule(torch, name, ref, prompt, want, got):
+    """Greedy tokens ``got`` held to ``want`` under the near-tie rule: equal
+    up to the first position j where they part, and there the B=1 decode
+    path's logits (``ref``'s prefill, then its decode steps fed ``want``)
+    prefer ``want[j]`` over ``got[j]`` by no more than the largest
+    difference between them and the prefill path's logits of the same
+    context (``ref.eval_ids``: the verify's function), at cosine >= 0.99.
+    Raises on a failure; returns where the lists parted and the margins."""
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        if len(want) != len(got):
+            raise AssertionError(f"{name}: {len(got)} tokens != {len(want)}")
+        return {"equal": True, "tokens": len(got)}
+    with torch.inference_mode():
+        dec = ref.prefill(prompt)[0]
+        for i, t in enumerate(want[:j]):
+            dec = ref.decode_step(t, len(prompt) + i)[0]
+    dec = dec.float().cpu()
+    ver = torch.from_numpy(ref.eval_ids(prompt + want[:j])[-1]).float()
+    diff = float((ver - dec).abs().max())
+    gap = float(dec[want[j]] - dec[got[j]])
+    cos = float(torch.nn.functional.cosine_similarity(ver, dec, dim=0))
+    info = {"equal": False, "tokens": len(got), "parts_at": j, "gap": gap,
+            "max_diff": diff, "cosine": cos}
+    if gap > diff or cos < 0.99:
+        raise AssertionError(f"{name}: token {j} {got[j]} != {want[j]} is not a "
+                             f"near tie: {info}")
+    return info
+
+
+class _TimedDraft:
+    """A draft source timed a round (its propose, synchronized)."""
+
+    def __init__(self, torch, draft):
+        self.torch, self.draft, self.s, self.n = torch, draft, 0.0, 0
+
+    def begin(self, tokens):
+        self.draft.begin(tokens)
+
+    def propose(self, tokens, k):
+        t0 = time.perf_counter()
+        out = self.draft.propose(tokens, k)
+        self.torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        self.n += 1
+        return out
+
+
+def _verify_ms(torch, dec, T):
+    """(device ms a round, capture ms) of the decoder's verify of T tokens:
+    its graph replayed 10 times between two CUDA events after one replay,
+    the median of 3 (the rows it writes are rewritten in place)."""
+    v = next(v for key, v in dec._verifies.items() if key[0] == T)
+    if v.graph is None:               # a rehearsal on the CPU
+        return None, None
+    lengths = dec.engine.cache.lengths.clone()
+    v.graph.replay()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(10):
+            v.graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 10)
+    dec.engine.cache.lengths.copy_(lengths)
+    return sorted(times)[1], v.capture_s * 1e3
+
+
+def _spec_request(torch, name, eng, dec, prompt, gc, plain, L, draft_eng=None):
+    """One speculative request after a warm prefill: tokens against the
+    plain greedy run under the near-tie rule, launch counts (K4 4L a
+    verify and a prefill; a draft engine's K1 4L, attention L and K3 once
+    a drafted token; no K33), ms per emitted token."""
+    from bitnet_tpu_torch.ops import registry
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(prompt)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    base = dict(dec.stats.as_dict())
+    pre_d = 0 if draft_eng is None else sum(
+        r.startswith("prefill") for r in draft_eng.kernel_recorder)
+    calls = sum(v.calls for v in dec._verifies.values())
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = dec.generate(prompt, gc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k: v for k, v in registry.launch_counts().items() if v}
+    st = {k: r.spec_stats[k] - base[k] for k in ("rounds", "proposed", "accepted")}
+    # one verify a round, each a replay of its captured graph
+    if sum(v.calls for v in dec._verifies.values()) - calls != st["rounds"] or (
+            eng.device.type == "cuda"
+            and any(v.graph is None for v in dec._verifies.values())):
+        raise AssertionError(f"{name}: verifies {dec._verifies} for {st}")
+    want = {"ternary_matmul_w2a8": 4 * L * (1 + st["rounds"])}
+    if draft_eng is not None:
+        d_pre = sum(r_.startswith("prefill") for r_ in draft_eng.kernel_recorder) - pre_d
+        want["ternary_matmul_w2a8"] += 4 * L * d_pre
+        want.update({"ternary_matmul_w2a8_normed": 4 * L * st["proposed"],
+                     "decode_attention_qkv": L * st["proposed"],
+                     "scatter_kv_rows": st["proposed"]})
+    if n != want and eng.device.type == "cuda":     # (a CPU rehearsal counts none)
+        raise AssertionError(f"{name}: launches {n} != {want} ({st})")
+    tie = _tie_rule(torch, name, eng, prompt, plain.token_ids, r.token_ids)
+    ntok = max(len(r.token_ids), 1)
+    return {"prompt": len(prompt), **st, "tie": tie, "launches": n,
+            "wall_ms": wall * 1e3, "prefill_ms": pre_s * 1e3,
+            "ms_per_token": (wall - pre_s) * 1e3 / ntok,
+            "plain_ms_per_step": plain.metrics["decode_s"] * 1e3 / max(
+                plain.metrics["decode_steps"], 1)}
+
+
+def _spec_script(torch, V, n_greedy, n_sampled, tokens):
+    """Staggered requests for a pool: greedy ones (every other repetitive)
+    and seeded top-k ones, prompts of 24-150 tokens."""
+    from bitnet_tpu_torch.config import GenerationConfig as G
+
+    g = torch.Generator().manual_seed(23)
+    script = []
+    for i in range(n_greedy + n_sampled):
+        n = 24 + (37 * i) % 127
+        p = [1] + [int(t) for t in torch.randint(3, min(V, 30000), (n,), generator=g)]
+        if i < n_greedy and i % 2:
+            p = [1] + p[1:17] * (n // 16 + 1)
+        gen = (G(max_new_tokens=tokens, greedy=True) if i < n_greedy else
+               G(max_new_tokens=tokens, temperature=0.8, top_k=40, seed=100 + i))
+        script.append((2 * (i // 4), p, gen, {}, "greedy" if i < n_greedy else "sampled"))
+    return script
+
+
+def _pl_sched_run(torch, sched, script):
+    """:func:`_sched_run` for a pipelined scheduler (its own step)."""
+    sched._step = sched._step_pipelined
+    try:
+        out = _sched_run(torch, sched, script)
+    finally:
+        del sched._step             # the class's again, and no cycle
+    sched._pl_drain()          # windows of finished slots only: nothing to emit
+    return out
+
+
+def phase_speculative(torch, dev, workdir):
+    """Speculative decoding and pipelined serving on the card, on the
+    scheduler phase's full-width 2B fused engine (synthetic qk256 words
+    from seed 0, ``condition_norms`` gains, 30 layers, int8 head, bf16
+    cache, S=1024, kernel path w2a8, the mock tokenizer):
+    (a) ``SpeculativeDecoder`` with n-gram drafts, k=4, greedy, on prompts
+        of 32 and 128 random tokens and a repetitive one of 65: tokens
+        against the plain greedy ``generate`` (K=8 segments) under the
+        near-tie rule; K4 4L a verify (one graph replay a round), nothing
+        else;
+    (b) ``EngineDraft`` over a second engine with the same weights (k=4
+        steps as one K=4 segment replay): at least one draft accepted;
+    (c) ``cli run --speculative 4 --greedy`` on the generic engine over
+        the full-width 2B qk256 GGUF (the gate phase's, or generated): its
+        text is the in-process decoder's, whose tokens meet the near-tie
+        rule against plain greedy;
+    (d) the scheduler with ``speculative_k=4`` on pool (a), B=8 bf16, and
+        pool (b), auto → int8, K=8: sampled requests' tokens those of the
+        same script without speculation, greedy ones the near-tie rule;
+    (e) ``pipeline_depth`` 2 and 3 at K=8 on pool (a): every token the
+        synchronous scheduler's.
+    Every verify is one replay of its graph (a call a round).
+    Figures: the verify graph's ms a round and capture ms, the draft's ms
+    a round, the acceptance rate, ms per emitted token beside plain
+    greedy's ms a step, the pool's ms a step (run wall over its steps,
+    graphs captured in a first run) at depth 1, 2 and 3."""
+    import contextlib
+    import io
+    import re
+
+    from bitnet_tpu_torch import cli
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine, prepare_params
+    from bitnet_tpu_torch.engine.speculative import (EngineDraft, NgramDraft,
+                                                     SpeculativeConfig,
+                                                     SpeculativeDecoder)
+    from bitnet_tpu_torch.models.synthetic import (BITNET_2B4T, build_synthetic,
+                                                   condition_norms)
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    from bitnet_tpu_torch.tokenizer import MockTokenizer
+
+    cfg, L = BITNET_2B4T, BITNET_2B4T.num_layers
+    t0 = time.perf_counter()
+    ec = EngineConfig(max_seq_len=SCHED_S, kv_cache_dtype="bf16", logits_dtype="int8",
+                      kernel_path="w2a8", fuse_projections=True)
+    params, _ = prepare_params(condition_norms(build_synthetic(cfg, seed=0, device=dev),
+                                               cfg), ec, dev, "w2a8")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size)
+    eng = InferenceEngine(cfg, params, ec, tokenizer=tok, device=dev)
+    out = {"build_s": time.perf_counter() - t0}
+    gc = GenerationConfig(max_new_tokens=SPEC_TOKENS, greedy=True)
+    g = torch.Generator().manual_seed(31)
+    hi = min(cfg.vocab_size, 30000)
+    rep = [1] + [int(t) for t in torch.randint(3, hi, (16,), generator=g)] * 4
+    prompts = [[1] + [int(t) for t in torch.randint(3, hi, (n - 1,), generator=g)]
+               for n in (32, 128)] + [rep]
+    spec = SpeculativeConfig(num_draft_tokens=SPEC_K)
+
+    # (a) n-gram drafts; a short request first captures the verify graphs
+    ngram = _TimedDraft(torch, NgramDraft(spec.max_ngram))
+    dec = SpeculativeDecoder(eng, ngram, spec)
+    eng.generate(prompts[0][:8], gc.replace(max_new_tokens=9))
+    dec.generate(prompts[0][:8], gc.replace(max_new_tokens=9))
+    legs = {"a_ngram": []}
+    for p in prompts:
+        plain = eng.generate(p, gc)
+        legs["a_ngram"].append(_spec_request(torch, "speculative (a)", eng, dec, p, gc,
+                                             plain, L))
+    verify_ms, capture_ms = _verify_ms(torch, dec, SPEC_K + 1)
+    out["a_ngram"] = {"requests": legs["a_ngram"], "verify_ms": verify_ms,
+                      "verify_capture_ms": capture_ms,
+                      "draft_ms_per_round": ngram.s * 1e3 / max(ngram.n, 1),
+                      "stats": dec.stats.as_dict()}
+
+    # (b) a second engine with the same weights drafts
+    draft_eng = InferenceEngine(cfg, params, ec, tokenizer=tok, device=dev)
+    edraft = _TimedDraft(torch, EngineDraft(draft_eng))
+    dec_b = SpeculativeDecoder(eng, edraft, spec)
+    dec_b.generate(prompts[0][:8], gc.replace(max_new_tokens=9))
+    edraft.s, edraft.n = 0.0, 0
+    rows = []
+    for p in prompts[:2]:
+        plain = eng.generate(p, gc)
+        rows.append(_spec_request(torch, "speculative (b)", eng, dec_b, p, gc, plain, L,
+                                  draft_eng))
+    if sum(r["accepted"] for r in rows) < 1:
+        raise AssertionError(f"speculative (b): no draft accepted {rows}")
+    out["b_engine_draft"] = {"requests": rows,
+                             "draft_ms_per_round": edraft.s * 1e3 / max(edraft.n, 1),
+                             "stats": dec_b.stats.as_dict()}
+    del draft_eng, dec_b, edraft
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on the generic engine over the full-width 2B GGUF
+    gguf = os.path.join(workdir, "bitnet2b_qk256.gguf")
+    if not os.path.exists(gguf):
+        _gen_2b("qk256", gguf)
+    argv = ["run", "-m", gguf, "--prompt", "The", "--prompt-template", "raw",
+            "--greedy", "-n", str(SPEC_TOKENS), "--max-seq-len", "256"]
+    registry.reset_launch_counts()
+    so, se = io.StringIO(), io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = cli.main(argv + ["--speculative", str(SPEC_K)])
+    cli_s = time.perf_counter() - t1
+    n = {k: v for k, v in registry.launch_counts().items() if v}
+    m = re.search(r"\[speculative: (\{.*\})\]", se.getvalue())
+    if rc != 0 or m is None or n.get("paged_attention") or (
+            dev.type == "cuda" and not n.get("ternary_matmul_w2a8_normed")):
+        raise AssertionError(f"cli run --speculative failed: rc {rc} {n} "
+                             f"{se.getvalue()[-800:]}")
+    # the same engine, prompt and config in this process
+    ap = argparse.ArgumentParser()
+    cli._add_gen_flags(ap)
+    ns = ap.parse_args(argv[1:])
+    geng = cli._build_engine(ns)
+    text, tspec = cli._prepare_prompt(ns)
+    ids = geng.tokenizer.encode(text, add_bos=tspec.add_bos)
+    gcc = cli._gen_config(ns, extra_stops=tspec.stop_sequences)
+    plain = geng.generate(ids, gcc)
+    gdec = SpeculativeDecoder(geng, spec_cfg=spec)
+    got = gdec.generate(ids, gcc.replace(greedy=True))
+    if got.text + "\n" != so.getvalue():
+        raise AssertionError(f"cli text {so.getvalue()!r} != the decoder's {got.text!r}")
+    tie = _tie_rule(torch, "speculative (c)", geng, ids, plain.token_ids, got.token_ids)
+    v_ms, v_cap = _verify_ms(torch, gdec, SPEC_K + 1)
+    out["c_cli"] = {"rc": rc, "stats": m.group(1), "launches": n, "seconds": cli_s,
+                    "tie": tie, "verify_ms": v_ms, "verify_capture_ms": v_cap,
+                    "plain_ms_per_step": plain.metrics["decode_s"] * 1e3 / max(
+                        plain.metrics["decode_steps"], 1)}
+    del geng, gdec
+    torch.cuda.empty_cache()
+
+    # (d) the scheduler's speculative_k, (e) its pipelined windows
+    b1 = {"bf16": eng}
+    pools = {"a_bf16_b8": ({}, "bf16"), "b_auto_int8_b8": ({"kv_cache_dtype": "auto"},
+                                                           "int8")}
+    script = _spec_script(torch, cfg.vocab_size, 6, 6, SPEC_TOKENS)
+    totals = {}
+    for pname, (ekw, kv) in pools.items():
+        e = ec.replace(**ekw)
+        if kv not in b1:
+            b1[kv] = InferenceEngine(cfg, params, ec.replace(kv_cache_dtype=kv),
+                                     tokenizer=tok, device=dev)
+
+        def make(**kw):
+            return ContinuousBatchingScheduler(cfg, params, tok, e, num_slots=8,
+                                               start_loop=False, device=dev,
+                                               decode_steps_per_dispatch=SEG_K, **kw)
+        base = _sched_run(torch, make(), script)
+        s = make(speculative_k=SPEC_K)
+        run = _sched_run(torch, s, script)
+        ties = []
+        for i, (_, p, gen, _, kind) in enumerate(script):
+            a, b = base["reqs"][i]["tokens"], run["reqs"][i]["tokens"]
+            if kind == "sampled" and a != b:
+                raise AssertionError(f"speculative (d) {pname}: sampled request {i} "
+                                     f"{b} != {a}")
+            if kind == "greedy":
+                ties.append(_tie_rule(torch, f"speculative (d) {pname} {i}", b1[kv], p,
+                                      a, b))
+        st = run["stats"]
+        verifies = sum(v.calls for v in s._verifies.values())
+        nl = run["launches"]
+        if verifies < 1 or (dev.type == "cuda" and (
+                any(v.graph is None for v in s._verifies.values()) or
+                nl.get("ternary_matmul_w2a8") != 4 * L * (verifies + st["prefills"])
+                or nl.get("paged_attention"))):
+            raise AssertionError(f"speculative (d) {pname}: launches {nl}, "
+                                 f"{verifies} verifies, {st}")
+        _add(totals, nl)
+        out[f"d_{pname}"] = {
+            "spec_drafted": st["spec_drafted"], "spec_accepted": st["spec_accepted"],
+            "acceptance_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
+            "verifies": verifies, "decode_steps": st["decode_steps"],
+            "decode_steps_without": base["stats"]["decode_steps"],
+            "wall_s": run["wall_s"], "wall_s_without": base["wall_s"],
+            "ties": ties, "launches": nl}
+        del s, base, run
+        torch.cuda.empty_cache()
+    e = ec
+    pl_script = _spec_script(torch, cfg.vocab_size, 8, 8, 64)
+    depths = {}
+    for depth in (1, 2, 3):
+        s = ContinuousBatchingScheduler(cfg, params, tok, e, num_slots=8, start_loop=False,
+                                        device=dev, decode_steps_per_dispatch=SEG_K,
+                                        pipeline_depth=depth)
+        runner = _sched_run if depth == 1 else _pl_sched_run
+        runner(torch, s, pl_script)                   # captures every graph
+        run = runner(torch, s, pl_script)
+        toks = [r["tokens"] for r in run["reqs"]]
+        if depth > 1 and toks != depths[1]["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(toks, depths[1]["tokens"])) if a != b]
+            raise AssertionError(f"speculative (e): depth {depth} requests {bad} differ "
+                                 "from the synchronous scheduler's")
+        st = run["stats"]
+        _add(totals, run["launches"])
+        depths[depth] = {"tokens": toks, "decode_steps": st["decode_steps"],
+                         "wall_s": run["wall_s"],
+                         "ms_per_step": run["wall_s"] * 1e3 / max(st["decode_steps"], 1),
+                         "tok_s": st["tokens_generated"] / run["wall_s"]}
+        del s
+    out["e_pipelined"] = {f"depth{d}": {k: v for k, v in r.items() if k != "tokens"}
+                          for d, r in depths.items()}
+    out["launch_totals"] = totals
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = True
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4662,6 +5044,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     OUT_DIR.mkdir(exist_ok=True)
+    import tempfile
+
+    # files that phases share (the gate's 2B GGUF), removed at the end
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     dev = torch.device("cuda", 0)
     report, smi = {}, None
     seconds = report["seconds"] = {}          # wall time of each phase
@@ -4679,7 +5065,8 @@ def main(argv=None) -> int:
                            "cuda": torch.version.cuda}
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "k33", "w2a8",
-                                     "segments", "requests", "scheduler", "gate")):
+                                     "segments", "requests", "scheduler", "gate",
+                                     "speculative")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -4805,10 +5192,17 @@ def main(argv=None) -> int:
                   "seconds": seconds["scheduler"], "build_s": r["build_s"],
                   "pools": r["pools"]})
         if "gate" in phases:
-            report["gate"] = timed("gate", phase_gate, torch, dev)
+            report["gate"] = timed("gate", phase_gate, torch, dev, workdir.name)
             g = report["gate"]
             emit({"phase": "gate", "nvidia_smi": smi, "seconds": seconds["gate"],
                   "receipt_kernels": g["receipt_kernels"], "legs": g["legs"]})
+        if "speculative" in phases:
+            report["speculative"] = r = timed("speculative", phase_speculative, torch,
+                                              dev, workdir.name)
+            launches["speculative"] = r["launch_totals"]
+            emit({"phase": "speculative", "nvidia_smi": smi,
+                  "seconds": seconds["speculative"],
+                  **{k: v for k, v in r.items() if k != "launch_totals"}})
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -4818,6 +5212,8 @@ def main(argv=None) -> int:
                                                             default=str))
         print(f"chip_smoke: FAILED: {e!r}", file=sys.stderr)
         return 1
+    finally:
+        workdir.cleanup()
     emit({"phase": "seconds", **seconds})
     summary = summarize(report["kernels"], launches) if "kernels" in report else []
     report["summary"] = summary

@@ -4,7 +4,8 @@ CPU) the port prints the text the JAX package's CLI prints with
 ``--greedy --kernel-path xla``, on every kernel path the port has.
 Without ``--device cpu`` it refuses to run when CUDA is absent, and flags
 of paths not ported yet raise, naming their ROADMAP item (``--decode-steps
-8``, ported, prints the K=1 text).  ``--grammar-file``
+8`` and ``--speculative K [--draft-model]``, ported, print the plain greedy
+text).  ``--grammar-file``
 and ``--json-schema`` constrain the text as the JAX CLI's do.  The
 verification subcommands (``run --receipt``, ``crossval``, ``gate``,
 ``verify-receipt``, ``replay``, ``trace-diff``) print the JAX CLI's JSON
@@ -60,16 +61,30 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--speculative", "4"], "#12"), (["--draft-model", "d.gguf"], "#12"),
+    # ported (they raised naming #12): speculative decoding, with n-gram
+    # drafts or a draft GGUF, prints the plain greedy text
+    pytest.param(["--speculative", "4"], None, id="flags0-#12"),
+    pytest.param(["--speculative", "3", "--draft-model", "MODEL"], None,
+                 id="flags1-#12"),
     (["--sliding-window", "64"], "#7"),
     # ported (it raised naming #5): K-step segments print the K=1 text
     pytest.param(["--decode-steps", "8"], None, id="flags3-#5")])
 def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item, capsys):
     argv = ["--model", mini_gguf_qk256.path, *ARGS, "--device", "cpu", "--greedy"]
     if item is None:
-        one, _ = _run(cli.main, argv + ["--decode-steps", "1"], capsys)
+        # the speculative text is the decoded ids, as --no-stream prints them
+        plain = ["--no-stream"] if "--speculative" in flags else ["--decode-steps", "1"]
+        one, _ = _run(cli.main, argv + plain, capsys)
+        flags = [mini_gguf_qk256.path if f == "MODEL" else f for f in flags]
         got, err = _run(cli.main, argv + flags, capsys)
-        assert got == one and len(got.strip()) > 0 and "[12 tokens" in err
+        assert got == one and len(got.strip()) > 0
+        if "--speculative" in flags:
+            stats = err[err.index("[speculative: "):].splitlines()[0]
+            assert "'rounds'" in stats and "'proposed'" in stats
+            if "--draft-model" in flags:     # the same model drafts every token
+                assert "'acceptance_rate': 1.0" in stats
+        else:
+            assert "[12 tokens" in err
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         cli.main(["run", *argv, *flags])

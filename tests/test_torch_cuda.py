@@ -2267,3 +2267,218 @@ def test_a_decode_from_another_thread_raises_while_a_scheduler_runs(dev):
     t.join()
     assert "another thread" in str(err["e"])
     s.shutdown()
+
+
+# --------------------------------------------------------------------------
+# speculative decoding and pipelined serving (engine/speculative.py, the
+# scheduler's speculative_k and pipeline_depth)
+# --------------------------------------------------------------------------
+def _verify_inp(B, T, S, slot, toks, base):
+    import numpy as np
+
+    from bitnet_tpu_torch.engine.speculative import verify_input
+
+    inp = verify_input(B, T, S)
+    inp[slot, :T] = toks
+    inp[slot, T:2 * T] = np.arange(base, base + T)
+    inp[slot, 2 * T], inp[slot, 2 * T + 1] = base, T
+    return inp
+
+
+@pytest.mark.parametrize("T", [2, 3, 5])
+def test_verify_graph_argmax_is_the_eager_verifys(dev, T):
+    """The fused 2-layer engine's verify of T tokens: the graph's argmaxes
+    and draft probabilities equal the same body run eagerly on the card,
+    bit for bit; a replay launches K4 four times a layer and no decode
+    attention."""
+    import numpy as np
+
+    from bitnet_tpu_torch.engine.speculative import VerifyStep
+    from bitnet_tpu_torch.ops import registry
+
+    eng = _segment_engine(dev)
+    prompt = list(range(3, 60))
+    n = len(prompt)
+    eng.prefill(prompt)
+    inp = _verify_inp(1, T, 1024, 0, [prompt[-1]] + [7 + i for i in range(T - 1)], n - 1)
+    step = VerifyStep(eng.cfg, eng.params, eng.cache, "w2a8", T, 1, True, dev)
+    eng.cache.lengths[0] = n - 1
+    with torch.inference_mode():
+        eager = step._body(torch.from_numpy(inp).to(dev)).cpu().numpy()
+    eng.cache.lengths[0] = n - 1
+    registry.reset_launch_counts()
+    best, probs = step(inp)
+    n_graph = registry.launch_counts()
+    assert step.graph is not None and int(eng.cache.lengths[0]) == n - 1 + T
+    np.testing.assert_array_equal(best, eager[:, :T])
+    np.testing.assert_array_equal(probs, np.ascontiguousarray(eager[:, T:]).view(np.float32))
+    L = eng.cfg.num_layers
+    assert n_graph["ternary_matmul_w2a8"] == 4 * L
+    assert n_graph["decode_attention_qkv"] == 0 and n_graph["scatter_kv_rows"] == 0
+    eng.cache.lengths[0] = n - 1
+    again, _ = step(inp)
+    np.testing.assert_array_equal(again, best)
+
+
+def test_rejected_rows_stay_out_of_attention(dev):
+    """Two verifies with different rejected drafts at the same positions:
+    once the length is rolled back, the next decode step's logits are bit
+    for bit the same."""
+    from bitnet_tpu_torch.engine.speculative import VerifyStep
+
+    eng = _segment_engine(dev)
+    prompt = list(range(11, 70))
+    n = len(prompt)
+    outs = []
+    for junk in ([5, 6, 7, 8], [900, 31, 4444, 12]):
+        eng.prefill(prompt)
+        eng.cache.lengths[0] = n - 1
+        step = VerifyStep(eng.cfg, eng.params, eng.cache, "w2a8", 5, 1, False, dev)
+        best, _ = step(_verify_inp(1, 5, 1024, 0, [prompt[-1]] + junk, n - 1))
+        eng.cache.lengths[0] = n
+        outs.append(eng.decode_step(int(best[0, 0]), n).float().cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_verify_leaves_masked_slots_rows_untouched(dev, kv):
+    from bitnet_tpu_torch.engine.speculative import VerifyStep
+
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+
+    cfg, params = _two_layer_2b()
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_seq_len=1024, max_batch_size=3, kv_cache_dtype=kv, logits_dtype="int8",
+        kernel_path="w2a8", fuse_projections=True), device=dev)
+    eng.prefill_batch([list(range(3, 40)), list(range(5, 30)), list(range(9, 60))])
+    c = eng.cache
+    before = {n: getattr(c, n).clone() for n in ("k", "v", "k_scale", "v_scale")
+              if getattr(c, n) is not None}
+    step = VerifyStep(eng.cfg, eng.params, c, "w2a8", 5, 3, False, dev)
+    step(_verify_inp(3, 5, 1024, 1, [4, 40, 41, 42, 43], 25))
+    torch.cuda.synchronize()
+    for n, t in before.items():
+        now = getattr(c, n)
+        assert torch.equal(now[:, 0], t[:, 0]) and torch.equal(now[:, 2], t[:, 2]), n
+        assert not torch.equal(now[:, 1], t[:, 1])
+    assert c.lengths.tolist() == [37, 30, 51]
+
+
+def test_engine_draft_segment_gives_k_single_steps(dev):
+    """EngineDraft drafts k tokens in one replay of a K = k greedy segment:
+    the tokens of k eager greedy decode steps on a second engine."""
+    from bitnet_tpu_torch.engine.speculative import EngineDraft
+
+    eng, ref = _segment_engine(dev), _segment_engine(dev)
+    prompt = list(range(21, 90))
+    d = EngineDraft(eng)
+    d.begin(prompt)
+    got = d.propose(prompt, 6)
+    lg = ref.prefill(prompt)
+    want = []
+    for i in range(6):
+        t = int(torch.argmax(lg[0].float()))
+        want.append(t)
+        lg = ref.decode_step(t, len(prompt) + i)
+    assert got == want
+    seg = next(iter(eng._segments.values()))
+    assert seg.graph is not None and seg.n_steps == 6 and seg.calls == 1
+    # the next round goes on from the draft's own context (no re-prefill)
+    assert len(d.propose(prompt + got, 2)) == 2
+    assert sum(r.startswith("prefill") for r in eng.kernel_recorder) == 1
+
+
+def _pl_run(s):
+    """``_pool_run`` stepping the pipelined loop; also the most windows in
+    flight when one was read."""
+    from bitnet_tpu_torch.config import GenerationConfig
+    from bitnet_tpu_torch.ops import registry
+
+    gens = [GenerationConfig(max_new_tokens=20, greedy=True),
+            GenerationConfig(max_new_tokens=20, temperature=0.8, top_k=40, seed=3),
+            GenerationConfig(max_new_tokens=17, temperature=0.9, top_p=0.8, seed=5,
+                             repetition_penalty=1.2, logit_bias=((7, 3.0),))]
+    reqs = [s.submit(list(range(3 + i, 40 + 9 * i)), gens[i % 3]) for i in range(10)]
+    registry.reset_launch_counts()
+    deepest, read = 0, s._pl_read_one
+
+    def spy():                      # the pipe's depth when a window is read
+        nonlocal deepest
+        deepest = max(deepest, len(s._pl_inflight))
+        read()
+    s._pl_read_one = spy
+    try:
+        for _ in range(400):
+            s._step_pipelined()
+            if not any(sl.occupied for sl in s.slots) and s.pending.empty() \
+                    and not s._pl_inflight:
+                break
+    finally:
+        del s._pl_read_one          # no cycle keeps the scheduler alive
+    out = []
+    for r in reqs:
+        toks = []
+        while not r.out.empty():
+            t, _, done, reason = r.out.get()
+            if t is not None:
+                toks.append(t)
+        out.append(toks)
+    return out, registry.launch_counts(), deepest
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_pipelined_tokens_are_the_sync_tokens(dev, depth):
+    """A 2-layer 2B-width pool of 8 at K=8, ten staggered requests (greedy,
+    seeded, penalties with a logit bias): the pipelined windows give the
+    synchronous scheduler's tokens; windows were in flight together; each
+    window's kernels are a sync step's (K1 4L, K8 L and K3 once a step)."""
+    want, _ = _pool_run(_pool_scheduler(dev, decode_steps_per_dispatch=8))
+    s = _pool_scheduler(dev, decode_steps_per_dispatch=8, pipeline_depth=depth)
+    got, n, deepest = _pl_run(s)
+    assert got == want and all(len(t) >= 17 for t in got)
+    assert deepest == depth
+    L = 2
+    steps = s.stats["decode_steps"]
+    assert n["ternary_matmul_w2a8_normed"] == 4 * L * steps
+    assert n["decode_attention_batched"] == L * steps and n["scatter_kv_rows"] == steps
+
+
+def test_pipelined_windows_keep_one_stream_and_the_counters(dev, monkeypatch):
+    """Every window, admission and finish is issued on the caller's stream
+    (the decode attention's arrival counters are one buffer a device), and
+    the counters are back at zero once the windows are read."""
+    from bitnet_tpu_torch.engine import loop
+
+    streams = set()
+    issue = loop.PoolPipeline.issue
+
+    def spy(self, *a, **k):
+        streams.add(torch.cuda.current_stream(dev).cuda_stream)
+        return issue(self, *a, **k)
+    monkeypatch.setattr(loop.PoolPipeline, "issue", spy)
+    s = _pool_scheduler(dev, decode_steps_per_dispatch=4, pipeline_depth=3)
+    _, _, deepest = _pl_run(s)
+    torch.cuda.synchronize()
+    assert deepest >= 2 and streams == {torch.cuda.current_stream(dev).cuda_stream}
+    assert int(dk.attn_counters(dev).abs().sum()) == 0
+
+
+def test_spec_pool_keeps_the_sampled_tokens_and_runs_k4(dev):
+    """The same staggered pool with speculative_k=4: its sampled and
+    penalised slots (not eligible) emit the tokens of the pool without
+    speculation; the verifies launch K4 (4L a verify) and no decode
+    attention of their own."""
+    from bitnet_tpu_torch.ops import registry
+
+    want, _ = _pool_run(_pool_scheduler(dev, decode_steps_per_dispatch=8))
+    s = _pool_scheduler(dev, decode_steps_per_dispatch=8, speculative_k=4)
+    got, n = _pool_run(s)
+    for i in range(10):
+        if i % 3:
+            assert got[i] == want[i], i
+    verifies = sum(v.calls for v in s._verifies.values())
+    assert verifies > 0 and s.stats["spec_drafted"] > 0
+    assert all(len(got[i]) == 20 for i in range(0, 10, 3))
+    assert n["ternary_matmul_w2a8"] == 4 * 2 * (verifies + s.stats["prefills"])
+    assert registry.launch_counts()["paged_attention"] == 0

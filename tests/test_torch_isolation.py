@@ -230,9 +230,9 @@ def test_non_greedy_sampling_is_not_ported():
     and checkpoint resume are ported (Mirostat and the grammar used to
     raise naming #16 and #15) and so are K-step dispatches (they raised
     naming #5), and so are the paged cache and the paged variant of
-    exp_r4_attn (they raised naming #12; the variant's plain leg runs here);
-    speculative decoding (#12) and the windowed cache (#7) still raise,
-    naming their ROADMAP item."""
+    exp_r4_attn (they raised naming #12; the variant's plain leg runs here),
+    and so is speculative decoding (it raised naming #12); the windowed
+    cache (#7) still raises, naming its ROADMAP item."""
     import inspect
 
     from bitnet_tpu_torch.cli import _refuse_unported
@@ -252,7 +252,7 @@ def test_non_greedy_sampling_is_not_ported():
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
             EngineConfig(**kw)
     src = inspect.getsource(_refuse_unported)
-    assert '"#12"' in src and '"#15"' not in src
+    assert '"#7"' in src and '"#12"' not in src and '"#15"' not in src
     assert "not_ported" not in inspect.getsource(exp_r4_attn)
     step, make_carry, fn, _ = exp_r4_attn.make_variant("paged", L=2, B=2, S=256,
                                                        device="cpu")

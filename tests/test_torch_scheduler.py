@@ -16,7 +16,10 @@ fixture).  Mirrors ``tests/test_scheduler_{parity,chunked,stress}.py``:
   uniforms;
 - cancellation, deadlines, queue timeouts and preemption end with the JAX
   ``StopReason``s;
-- the refusals of what this slice leaves out, the card default, the
+- the refusals of what the port leaves out (``pipeline_depth`` and
+  ``speculative_k``, ported, raise the JAX package's error on a paged pool:
+  ``tests/test_torch_speculative.py`` and ``test_torch_pipelined.py`` hold
+  the modes), the card default, the
   one-thread guard on a device's attention counters, and the card's CUDA
   graph mocked (a failed capture raises; replays add the capture's counts).
 
@@ -348,9 +351,22 @@ def test_stop_sequence_and_stop_id_inside_a_window(model, engine):
 # refusals, the card default, the one-thread guard
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    ({"pipeline_depth": 2}, "#12 \\(b\\)"), ({"speculative_k": 2}, "#12 \\(b\\)"),
+    # ported (they raised naming #12 (b)): on a paged pool both raise the
+    # JAX package's InferenceError
+    pytest.param({"pipeline_depth": 2}, None, id="kw0-#12 \\(b\\)"),
+    pytest.param({"speculative_k": 2}, None, id="kw1-#12 \\(b\\)"),
     ({"mesh": object()}, "#13"), ({"channel": object()}, "#13")])
-def test_out_of_slice_options_raise(model, kw, item):
+def test_out_of_slice_options_raise(model, jmodel, kw, item):
+    if item is None:
+        from bitnet_tpu.errors import InferenceError as JInferenceError
+        from bitnet_tpu_torch.errors import InferenceError
+
+        with pytest.raises(JInferenceError) as want:
+            make_jax(jmodel, paged=True, start_loop=False, **kw)
+        with pytest.raises(InferenceError) as got:
+            make(model, paged=True, start_loop=False, **kw)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         make(model, **kw)
 
