@@ -19,10 +19,13 @@ on the card, the plain versions' host time with ``--device cpu`` (for
 tests only).  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
 ``trace-diff`` (``:744-865``) print the JAX CLI's JSON and exit codes;
 ``crossval --trace-out`` also dumps the port's per-layer activation trace
-for ``trace-diff``.  ``serve`` and the other subcommands are ROADMAP
-queue 1 #12 (c) and #17.
+for ``trace-diff``.  ``serve`` (``:878-893``, ``:929-969``) starts the
+HTTP server (``serve/server.py`` on the standard-library ``serve/http.py``)
+with the JAX CLI's flags plus ``--device``; ``--shard`` raises naming
+ROADMAP queue 1 #13.  The other subcommands are #17.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
+    python -m bitnet_tpu_torch.cli serve -m model.gguf --port 8080
     python -m bitnet_tpu_torch.cli crossval -m model.gguf --tokens 2,7,11,5
     python -m bitnet_tpu_torch.cli benchmark-kernels --attention all --m 8
 """
@@ -425,6 +428,72 @@ def cmd_benchmark_kernels(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """bitnet_tpu/cli.py:878-893, on ``args.device``."""
+    from .serve.server import serve
+
+    serve(model_path=args.model, host=args.host, port=args.port,
+          max_seq_len=args.max_seq_len, shard=args.shard,
+          num_slots=args.num_slots,
+          kv_cache_dtype=args.kv_cache_dtype,
+          kernel_path=args.kernel_path,
+          auth_token=args.auth_token, model_dirs=args.model_dir,
+          paged=args.paged, num_pages=args.num_pages,
+          page_size=args.page_size,
+          chunked_prefill=args.chunked_prefill,
+          speculative_k=args.speculative,
+          decode_steps_per_dispatch=args.serve_decode_steps,
+          pipeline_depth=args.pipeline_depth, device=args.device)
+    return 0
+
+
+def _add_serve_parser(sub) -> None:
+    """bitnet_tpu/cli.py:929-969, plus ``--device``."""
+    p = sub.add_parser("serve", help="HTTP inference server")
+    p.add_argument("--shard", default=None, metavar="DP,TP",
+                   help="shard the slot pool over a (data, model) mesh: not "
+                        "ported (ROADMAP.md queue 1 #13)")
+    p.add_argument("--model", "-m", default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--max-seq-len", type=int, default=2048)
+    p.add_argument("--kv-cache-dtype", default="bf16")
+    p.add_argument("--kernel-path", default="auto")
+    p.add_argument("--num-slots", type=int, default=4)
+    p.add_argument("--auth-token", default=None,
+                   help="bearer-token auth (also $BITNET_AUTH_TOKEN)")
+    p.add_argument("--model-dir", action="append", default=None,
+                   help="whitelist dir for /v1/models/load (repeatable)")
+    p.add_argument("--paged", action="store_true",
+                   help="back the slot pool with the shared page pool "
+                        "(device memory sized by live tokens, prefix forking)")
+    p.add_argument("--num-pages", type=int, default=None)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="serving-level speculative decoding: verify K "
+                        "n-gram draft tokens per forward (greedy slots, "
+                        "dense single-host pools)")
+    p.add_argument("--chunked-prefill", type=int, default=None,
+                   metavar="N",
+                   help="prefill long prompts N tokens per scheduler "
+                        "step, interleaved with decode (bounds "
+                        "inter-token latency of in-flight streams)")
+    p.add_argument("--serve-decode-steps", type=int, default=1,
+                   metavar="K",
+                   help="decode steps per device dispatch in the "
+                        "serving pool (tokens identical to K=1; stop/"
+                        "admission latency bounded by K)")
+    p.add_argument("--pipeline-depth", type=int, default=1,
+                   metavar="D",
+                   help="issue up to D decode windows ahead of the "
+                        "reader (device-resident decode state; dense "
+                        "single-host pools)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain PyTorch versions)")
+    p.set_defaults(fn=cmd_serve)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="bitnet-tpu-torch",
                                  description="BitNet inference on an H100")
@@ -503,6 +572,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("b")
     p.add_argument("--rms-tol", type=float, default=0.02)
     p.set_defaults(fn=cmd_trace_diff)
+    _add_serve_parser(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

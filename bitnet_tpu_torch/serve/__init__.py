@@ -1,5 +1,11 @@
-"""Serving: the continuous-batching scheduler (``serve/scheduler.py``).
+"""Serving: continuous-batching scheduler + HTTP server."""
 
-The JAX package's HTTP server, model manager and ``bitnet serve`` stand on
-the scheduler and are not ported yet (ROADMAP.md queue 1 #12 (c)).
-"""
+from .scheduler import ContinuousBatchingScheduler, Request
+from .server import BitNetServer, serve
+
+__all__ = [
+    "ContinuousBatchingScheduler",
+    "Request",
+    "BitNetServer",
+    "serve",
+]

@@ -40,6 +40,16 @@ decode attention's arrival counters are one buffer a device, and a decode
 from another thread while the scheduler runs raises
 (``ops/decode_attention.claim_device``).
 
+The loop thread is a device's, not a scheduler's: every started scheduler
+on one device is stepped in turn by that device's ``DeviceLoop`` (so two
+models serve from one card, as the JAX ``ModelManager`` loads them), and
+work that other threads bring to the device runs there as a job between
+steps (``run_on_device``: embeddings, a model load's copies and
+re-quantization, request checkpoints, the health check's memory read), so
+no thread touches the card while a pool step is being captured.  A
+request's results arrive in a ``TokenQueue``, which can also wake an event
+loop (the HTTP server waits on it without a thread a request).
+
 Serving-level speculation (``speculative_k``, ``:259-267``,
 ``:1255-1355``): every greedy slot with no penalty, bias or host-side
 sampler and room for k + 1 rows drafts k tokens by n-gram lookup, and all
@@ -60,20 +70,30 @@ windows; ``repetition_window`` is pinned to ``HISTORY_W``.  Both modes need
 a dense pool (a paged pool raises ``InferenceError``, as in the JAX
 package), and they exclude each other.
 
-Not ported (each raises naming its ROADMAP item): ``checkpoint_requests`` /
-``resume_requests`` (#12 (c), with the HTTP server), ``mesh``, ``channel``
-and ``follow`` (multi-host, #13).
+``checkpoint_requests`` / ``resume_requests`` (``:983-1247``) write and
+read the JAX package's files: each active slot's canonical ``[L, T, KV, D]``
+rows through ``engine/checkpoint.py`` beside a ``.req.json`` of its
+sampling fields, and a ``.pending.json`` for each request that had no
+token yet; either package resumes the other's.
+
+Not ported (each raises naming its ROADMAP item): ``mesh``, ``channel`` and
+``follow`` (multi-host, #13).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
+import glob
+import json
 import os
 import queue
 import threading
 import time
-from typing import Any, Iterator
+import traceback
+import weakref
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -95,13 +115,30 @@ from ..ops.decode_attention import claim_device, release_device
 IDLE_FLOATS = np.array([0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0], np.float32)
 
 
+class TokenQueue(queue.Queue):
+    """A request's results, ``(token_id, text, done, reason)``; each ``put``
+    also calls the callbacks given to :meth:`notify` (from the putting
+    thread), so an event loop can wait without a thread of its own."""
+
+    def __init__(self):
+        super().__init__()
+        self._notify: list[Callable[[], None]] = []
+
+    def notify(self, fn: Callable[[], None]) -> None:
+        self._notify.append(fn)
+
+    def put(self, item, block: bool = True, timeout: float | None = None) -> None:
+        super().put(item, block, timeout)
+        for fn in list(self._notify):
+            fn()
+
+
 @dataclasses.dataclass
 class Request:
     token_ids: list[int]
     gen: GenerationConfig
     # results are streamed through this queue as (token_id, text, done, reason)
-    out: "queue.Queue[tuple[int | None, str, bool, StopReason | None]]" = \
-        dataclasses.field(default_factory=queue.Queue)
+    out: TokenQueue = dataclasses.field(default_factory=TokenQueue)
     id: int = 0
     submitted_at: float = dataclasses.field(default_factory=time.time)
     priority: int = 0           # lower = sooner
@@ -160,9 +197,136 @@ class _Slot:
         return self.active or self.prefilling
 
 
+def _device_key(device: torch.device) -> tuple[str, int]:
+    if device.type != "cuda":
+        return device.type, 0
+    return "cuda", torch.cuda.current_device() if device.index is None else device.index
+
+
+class DeviceLoop:
+    """The one thread that drives a device: it steps every scheduler
+    attached to it in turn and, between steps, runs the jobs other threads
+    hand it (:meth:`call`).  It starts with the first scheduler of its
+    device and ends when the last one leaves; a scheduler whose step raises
+    fails its own requests and leaves, and the others go on."""
+
+    _lock = threading.Lock()
+    _loops: dict[tuple[str, int], "DeviceLoop"] = {}
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.key = _device_key(device)
+        self.wake = threading.Event()
+        self._scheds: list = []
+        self._jobs: collections.deque = collections.deque()
+        self._closed = False
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name=f"bitnet-device-{self.key[0]}{self.key[1]}")
+        self.ident: int | None = None
+
+    @classmethod
+    def get(cls, device: torch.device) -> "DeviceLoop | None":
+        with cls._lock:
+            return cls._loops.get(_device_key(device))
+
+    @classmethod
+    def attach(cls, sched) -> "DeviceLoop":
+        """Add ``sched`` to its device's loop (started if need be)."""
+        with cls._lock:
+            key = _device_key(sched.device)
+            drv = cls._loops.get(key)
+            if drv is None:
+                drv = cls._loops[key] = DeviceLoop(sched.device)
+                drv._scheds.append(sched)
+                drv.thread.start()
+            else:
+                drv._scheds.append(sched)
+        drv.wake.set()
+        return drv
+
+    def detach(self, sched) -> None:
+        """Remove ``sched``; returns once no step of it is running."""
+        def remove():
+            with DeviceLoop._lock:
+                if sched in self._scheds:
+                    self._scheds.remove(sched)
+        if threading.get_ident() == self.ident or not self.thread.is_alive():
+            remove()
+        else:
+            self.call(remove)
+
+    def on_thread(self) -> bool:
+        return threading.get_ident() == self.ident
+
+    def call(self, fn: Callable[[], Any], timeout: float | None = None) -> Any:
+        """Run ``fn`` on the device loop's thread between steps; its result, or
+        its exception raised here."""
+        if self.on_thread():
+            return fn()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with DeviceLoop._lock:
+            if self._closed:
+                fut = None
+            else:
+                self._jobs.append((fn, fut))
+        if fut is None:                      # the device loop has just ended
+            return fn()
+        self.wake.set()
+        return fut.result(timeout)
+
+    def _run_jobs(self) -> None:
+        while True:
+            with DeviceLoop._lock:
+                if not self._jobs:
+                    return
+                fn, fut = self._jobs.popleft()
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:   # noqa: BLE001 — handed to the caller
+                fut.set_exception(e)
+
+    def _run(self) -> None:
+        self.ident = threading.get_ident()
+        try:
+            while True:
+                self.wake.clear()
+                self._run_jobs()
+                with DeviceLoop._lock:
+                    scheds = list(self._scheds)
+                    if not scheds and not self._jobs:
+                        self._closed = True
+                        del DeviceLoop._loops[self.key]
+                        return
+                worked = False
+                for s in scheds:
+                    try:
+                        worked |= bool(s._tick())
+                    except BaseException as e:   # noqa: BLE001 — its requests fail
+                        traceback.print_exception(e)
+                        s._died(e)
+                        with DeviceLoop._lock:
+                            if s in self._scheds:
+                                self._scheds.remove(s)
+                if not worked:
+                    self.wake.wait(timeout=0.05)
+        finally:
+            if self.device.type == "cuda":
+                release_device(self.device, self.ident)
+
+
+def run_on_device(device: str | torch.device, fn: Callable[[], Any]) -> Any:
+    """``fn()`` on the thread that drives ``device`` when schedulers run
+    there (between their steps, so no pool step is being captured), else
+    on the calling thread."""
+    drv = DeviceLoop.get(torch.device(device))
+    return fn() if drv is None else drv.call(fn)
+
+
 class ContinuousBatchingScheduler:
-    """Owns the model and the pool cache; runs the decode loop in its own
-    thread.  ``device`` defaults to the card and raises without CUDA unless
+    """Owns the model and the pool cache; its decode loop runs on its
+    device's :class:`DeviceLoop` thread.  ``device`` defaults to the card and raises without CUDA unless
     the caller passes ``"cpu"`` (the kernels' plain versions)."""
 
     MAX_SEGMENTS = 16
@@ -204,21 +368,14 @@ class ContinuousBatchingScheduler:
         self.paged = paged
         self.page_size = page_size
         self._kp = resolve_kernel_path(ec.kernel_path, self.device)
-        self.params, _ = prepare_params(params, ec, self.device, self._kp)
         # 'auto' as the engine resolves it for a pool of num_slots
         kv_dtype = ec.replace(max_batch_size=num_slots).resolve_kv_cache_dtype()
-        if paged:
-            from ..engine.paged_cache import allocate_paged_cache
-
-            if kv_dtype not in ("bf16", "f32"):
-                raise InferenceError("paged scheduler: quantized KV pages not supported")
-            nb = -(-self.S // page_size)
-            self.cache, self.pool = allocate_paged_cache(
-                cfg, self.B, num_pages or self.B * nb, page_size, nb, kv_dtype,
-                device=self.device)
-            self.S_view = nb * page_size
-        else:
-            self.cache = allocate_cache(cfg, self.B, self.S, kv_dtype, device=self.device)
+        if paged and kv_dtype not in ("bf16", "f32"):
+            raise InferenceError("paged scheduler: quantized KV pages not supported")
+        # the weights' preparation (TL re-quantization runs kernels) and the
+        # pool's allocation run where the device's other schedulers step
+        run_on_device(self.device, lambda: self._init_device(
+            params, kv_dtype, num_pages))
         self.slots = [_Slot() for _ in range(self.B)]
         self.pending: "queue.PriorityQueue[tuple[int, float, int, Request]]" = \
             queue.PriorityQueue()
@@ -257,10 +414,32 @@ class ContinuousBatchingScheduler:
         # called as hook(request, raw logits row [V] on the device) for each
         # token sampled at K=1 (and each first token): a check's window
         self.logits_hook = None
-        self._thread = None
+        self._devloop: DeviceLoop | None = None
         if start_loop:
-            self._thread = threading.Thread(target=self._loop, daemon=True)
-            self._thread.start()
+            self._devloop = DeviceLoop.attach(self)
+            self._wake = self._devloop.wake
+
+    def _init_device(self, params, kv_dtype: str, num_pages: int | None) -> None:
+        cfg, ec = self.cfg, self.engine_cfg
+        self.params, _ = prepare_params(params, ec, self.device, self._kp)
+        if self.paged:
+            from ..engine.paged_cache import allocate_paged_cache
+
+            nb = -(-self.S // self.page_size)
+            self.cache, self.pool = allocate_paged_cache(
+                cfg, self.B, num_pages or self.B * nb, self.page_size, nb, kv_dtype,
+                device=self.device)
+            self.S_view = nb * self.page_size
+        else:
+            self.cache = allocate_cache(cfg, self.B, self.S, kv_dtype, device=self.device)
+
+    @property
+    def alive(self) -> bool:
+        """The loop runs: started, not shut down, not failed."""
+        d = self._devloop
+        return (d is not None and d.thread.is_alive() and not self._stopping
+                and self.error is None)
+
 
     # ------------------------------------------------------------- public
     def submit(self, token_ids: list[int], gen: GenerationConfig | None = None,
@@ -293,18 +472,18 @@ class ContinuousBatchingScheduler:
     def shutdown(self) -> None:
         self._stopping = True
         self._wake.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
+        if self._devloop is not None:
+            self._devloop.detach(self)
         elif self._owner is not None:
             release_device(self.device, self._owner)
             self._owner = None
 
     def pause(self, timeout: float = 30.0) -> None:
         """Quiesce the decode loop at the next step boundary; :meth:`unpause`
-        resumes it.  No-op without a running loop thread."""
+        resumes it.  No-op without a running loop."""
         self._pause_req = True
         self._wake.set()
-        if self._thread is None or not self._thread.is_alive():
+        if not self.alive:
             return
         deadline = time.time() + timeout
         while not getattr(self, "_paused_at_barrier", False):
@@ -321,17 +500,199 @@ class ContinuousBatchingScheduler:
     def follow(self) -> None:
         raise not_ported("the multi-host follower loop (follow)", "#13")
 
+    # ------------------------------------------------- preemption recovery
     def checkpoint_requests(self, directory: str) -> list[str]:
-        raise not_ported("checkpointing in-flight requests (checkpoint_requests)",
-                         "#12 (c)")
+        """Snapshot every in-flight request's decode state to disk
+        (``bitnet_tpu/serve/scheduler.py:983-1102``): an active slot's rows
+        as ``slot{i}_req{id}`` (``engine/checkpoint.save``) beside
+        ``.req.json``; a request still queued or mid-prefill as
+        ``queued_req{id}.pending.json``.  Runs between the loop's steps
+        (the rows are read on the device's thread); returns the paths
+        written."""
+        return run_on_device(self.device, lambda: self._checkpoint(directory))
 
-    def resume_requests(self, directory: str, **kw) -> list:
-        raise not_ported("resuming checkpointed requests (resume_requests)", "#12 (c)")
+    def _slot_rows(self, i: int, kv_len: int):
+        """Slot i's first kv_len rows as canonical host ``[L, T, KV, D]`` k
+        and v, and a 1-byte cache's ``[L, T, KV]`` scales."""
+        from ..engine.prefix_cache import canonical_rows, to_host
+
+        L, KV, D = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        if not self.paged:
+            return canonical_rows(self.cache, kv_len, i, KV)
+        pages = torch.tensor(self.slots[i].pages[: -(-kv_len // self.page_size)],
+                             dtype=torch.long, device=self.cache.k.device)
+        k, v = (to_host(a[:, :, pages].permute(0, 2, 3, 1, 4).reshape(
+            L, -1, KV, D)[:, :kv_len]) for a in (self.cache.k, self.cache.v))
+        return k, v, None, None
+
+    def _checkpoint(self, directory: str) -> list[str]:
+        from ..engine import checkpoint as ckpt
+
+        os.makedirs(directory, exist_ok=True)
+        written = []
+        for i, slot in enumerate(self.slots):
+            if not slot.active or slot.req is None:
+                continue
+            kv_len = slot.pos
+            k, v, ks, vs = self._slot_rows(i, kv_len)
+            state = ckpt.DecodeState(
+                prompt_ids=list(slot.req.token_ids), generated_ids=list(slot.out_ids),
+                rng_key=None, kv_len=kv_len, k=k, v=v, k_scale=ks, v_scale=vs)
+            path = os.path.join(directory, f"slot{i}_req{slot.req.id}")
+            ckpt.save(state, path)
+            with open(path + ".req.json", "w") as f:
+                json.dump({"request_id": slot.req.id, "generated": slot.generated,
+                           "gen": _gen_fields(slot.req.gen)}, f)
+            written.append(path)
+        # requests with no decoded token yet (mid-chunked-prefill or still
+        # queued) restart from scratch on resume: prompt and sampling only
+        queued = [s.req for s in self.slots if s.prefilling and s.req is not None]
+        drained = []
+        while True:
+            try:
+                drained.append(self.pending.get_nowait())
+            except queue.Empty:
+                break
+        for item in drained:
+            self.pending.put(item)
+            queued.append(item[3])
+        for req in queued:
+            path = os.path.join(directory, f"queued_req{req.id}.pending.json")
+            with open(path, "w") as f:
+                json.dump({"request_id": req.id, "token_ids": list(req.token_ids),
+                           "priority": req.priority, "gen": _gen_fields(req.gen)}, f)
+            written.append(path)
+        return written
+
+    def resume_requests(self, directory: str) -> list[Request]:
+        """Restore checkpointed requests into free slots
+        (``bitnet_tpu/serve/scheduler.py:1104-1247``): generation goes on
+        where it stopped, the token emitted but not yet decoded as the next
+        input; the queued ones are submitted again.  Runs between the
+        loop's steps."""
+        return run_on_device(self.device, lambda: self._resume(directory))
+
+    def _restore_rows(self, slot_idx: int, state) -> None:
+        """Write a snapshot's rows into slot ``slot_idx`` (dense: its rows,
+        the rest zeroed, scales one past kv_len; paged: fresh pages)."""
+        from ..engine.prefix_cache import as_tensor
+
+        L, KV, D = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        T = state.kv_len
+        c = self.cache
+        k, v = (as_tensor(a).to(c.k.device, c.k.dtype) for a in (state.k, state.v))
+        if (k.shape[0], k.shape[2], k.shape[3]) != (L, KV, D):
+            raise InferenceError(f"checkpoint shape {tuple(k.shape)} does not match "
+                                 f"model {(L, KV, D)}")
+        if self.paged:
+            from ..engine.paged_cache import pages_needed
+
+            if c.k.dtype != k.dtype:
+                raise InferenceError("paged resume: the snapshot's dtype is not the pool's")
+            n = pages_needed(T, self.page_size)
+            if n > self.pool.free_pages:
+                raise InferenceError("no free pages to resume a checkpointed request")
+            pages = self.pool.alloc(n)
+            self.slots[slot_idx].pages = pages
+            self._write_table(slot_idx, 0, pages)
+            P = self.page_size
+            pad = n * P - T
+            for dst, rows in ((c.k, k), (c.v, v)):
+                r = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+                dst[:, :, torch.tensor(pages, device=dst.device)] = r.reshape(
+                    L, n, P, KV, D).permute(0, 3, 1, 2, 4)
+        else:
+            for dst, rows in ((c.k, k), (c.v, v)):
+                dst[:, slot_idx].zero_()
+                dst[:, slot_idx, :T] = rows.reshape(L, T, KV * D)
+            if c.k_scale is not None:
+                for dst, sc in ((c.k_scale, state.k_scale), (c.v_scale, state.v_scale)):
+                    dst[:, slot_idx].fill_(1.0)
+                    dst[:, slot_idx, :T] = as_tensor(sc).to(dst.device, dst.dtype)
+        c.lengths[slot_idx] = T
+
+    def _resume(self, directory: str) -> list[Request]:
+        from ..engine import checkpoint as ckpt
+
+        restored = []
+        for meta_path in sorted(glob.glob(f"{directory}/*.req.json")):
+            base = meta_path[: -len(".req.json")]
+            with open(meta_path) as f:
+                meta = json.load(f)
+            state = ckpt.load(base)
+            slot_idx = next((i for i, s in enumerate(self.slots) if not s.occupied), None)
+            if slot_idx is None:
+                raise InferenceError("no free slot to resume a checkpointed request")
+            g = meta["gen"]
+            remaining = int(g["max_new_tokens"]) - int(meta["generated"])
+            if remaining <= 0 or not state.generated_ids:
+                continue
+            # the min phase's rest (the JAX scheduler keeps the whole
+            # min_new_tokens, which GenerationConfig refuses past max)
+            gen = _gen_from_fields(g, remaining, min(remaining, max(
+                0, int(g.get("min_new_tokens", 0)) - len(state.generated_ids))))
+            req = Request(token_ids=state.prompt_ids, gen=gen, id=meta["request_id"],
+                          logprobs=[] if gen.logprobs is not None else None)
+            self._restore_rows(slot_idx, state)
+            slot = self.slots[slot_idx]
+            eos = getattr(self.tokenizer, "eos_token_id", None)
+            slot.req = req
+            slot.stop = StopCriteria(
+                max_new_tokens=remaining, eos_token_id=eos,
+                stop_token_ids=frozenset(gen.stop_token_ids),
+                stop_sequences=tuple(gen.stop_sequences),
+                min_new_tokens=gen.min_new_tokens)
+            slot.generated = 0
+            slot.pos = state.kv_len
+            slot.out_ids = list(state.generated_ids)
+            slot.gen = torch.Generator(device=self.device).manual_seed(self._seed(gen))
+            # the history the unbroken run holds here: the prompt's tail,
+            # rolled once for each token emitted
+            W = min(gen.repetition_window, HISTORY_W)
+            slot.hist = self._history_row(state.prompt_ids, W)
+            for t in state.generated_ids:
+                if W:
+                    slot.hist = np.concatenate([slot.hist[1:], [t]])
+            slot.mirostat = MirostatState.from_config(gen) if gen.mirostat else None
+            slot.grammar = self._grammar_matcher(gen)
+            if slot.grammar is not None:
+                # replay the emitted text so the pushdown state matches
+                for t in state.generated_ids:
+                    slot.grammar.accept(int(t))
+            slot.deadline = None
+            slot.admitted_at = time.time()
+            slot.min_ban = False
+            if gen.logit_bias or self._bias_live[slot_idx]:
+                self._set_slot_bias(slot_idx, gen.logit_bias)
+            if gen.min_new_tokens:                 # the min phase goes on
+                ban = self._min_ban_bias(gen)
+                if dict(ban) != dict(gen.logit_bias):
+                    slot.min_ban = True
+                    self._set_slot_bias(slot_idx, ban)
+            slot.prefilling = False
+            slot.active = True
+            slot.epoch += 1
+            self._tokens[slot_idx] = state.generated_ids[-1]
+            restored.append(req)
+            self.stats["requests"] += 1
+        # prompts that never produced a token re-enter the queue
+        for meta_path in sorted(glob.glob(f"{directory}/*.pending.json")):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            g = meta["gen"]
+            restored.append(self.submit(meta["token_ids"],
+                                        _gen_from_fields(g, int(g["max_new_tokens"])),
+                                        priority=int(meta.get("priority", 0))))
+        self._wake.set()
+        return restored
 
     def embed_ids(self, token_ids: list[int]) -> np.ndarray:
         """Final-hidden-state embeddings [T, H] f32 on the host, from a
         throwaway B=1 cache (the pool is not touched); lengths bucket to
-        powers of two."""
+        powers of two.  Runs between the loop's steps."""
+        return run_on_device(self.device, lambda: self._embed_ids(token_ids))
+
+    def _embed_ids(self, token_ids: list[int]) -> np.ndarray:
         T = len(token_ids)
         if T == 0:
             raise InferenceError("empty input")
@@ -926,30 +1287,24 @@ class ContinuousBatchingScheduler:
         self._release_slot_pages(slot_idx)
 
     # --------------------------------------------------------------- loop
-    def _loop(self) -> None:
-        pipelined = self.pipeline_depth > 1
-        try:
-            while not self._stopping:
-                if getattr(self, "_pause_req", False):
-                    if pipelined and self._pl_inflight:
-                        self._pl_drain()
-                        self._pl_sync_host()
-                    self._paused_at_barrier = True
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-                    continue
-                self._paused_at_barrier = False
-                if not (self._step_pipelined() if pipelined else self._step()):
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-        except BaseException as e:   # the loop died: end every request
-            self.error = e
-            self._fail_all()
-            raise
-        finally:
-            if self._owner is not None:
-                release_device(self.device, self._owner)
-                self._owner = None
+    def _tick(self) -> bool:
+        """One turn of the loop on the device loop's thread: a step, or the pause
+        barrier.  False when there was nothing to do."""
+        if self._stopping:
+            return False
+        if getattr(self, "_pause_req", False):
+            if self.pipeline_depth > 1 and self._pl_inflight:
+                self._pl_drain()
+                self._pl_sync_host()
+            self._paused_at_barrier = True
+            return False
+        self._paused_at_barrier = False
+        return self._step_pipelined() if self.pipeline_depth > 1 else self._step()
+
+    def _died(self, e: BaseException) -> None:
+        """The loop failed: end every request (their reason is None)."""
+        self.error = e
+        self._fail_all()
 
     def _fail_all(self) -> None:
         for s in self.slots:
@@ -965,10 +1320,16 @@ class ContinuousBatchingScheduler:
             req.out.put((None, "", True, None))
 
     def _claim(self) -> None:
-        """The calling thread drives the device from now on."""
-        if self.device.type == "cuda" and self._owner is None:
-            claim_device(self.device, "a ContinuousBatchingScheduler's loop")
+        """The calling thread drives the device from now on (claimed again
+        at every step; a hand-driven scheduler's claim ends with its
+        shutdown, or with the scheduler itself)."""
+        if self.device.type != "cuda":
+            return
+        claim_device(self.device, "a ContinuousBatchingScheduler's loop")
+        if self._owner is None:
             self._owner = threading.get_ident()
+            if self._devloop is None:
+                weakref.finalize(self, release_device, self.device, self._owner)
 
     def _sweep(self) -> None:
         """Cancellations and deadlines first: free slots before admitting."""
@@ -1318,3 +1679,27 @@ class ContinuousBatchingScheduler:
                     self._pl_read_one()
             return True
         return issued or chunk_worked
+
+
+_GEN_FIELDS = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
+               "repetition_penalty", "seed", "greedy", "stop_token_ids", "grammar",
+               "logprobs", "min_new_tokens")
+
+
+def _gen_fields(g: GenerationConfig) -> dict:
+    """The sampling fields a request checkpoint keeps (the JAX file's)."""
+    out = {k: getattr(g, k) for k in _GEN_FIELDS}
+    out["stop_token_ids"] = list(g.stop_token_ids)
+    return out
+
+
+def _gen_from_fields(g: dict, max_new_tokens: int,
+                     min_new_tokens: int | None = None) -> GenerationConfig:
+    if min_new_tokens is None:
+        min_new_tokens = int(g.get("min_new_tokens", 0))
+    return GenerationConfig(
+        max_new_tokens=max_new_tokens, temperature=g["temperature"], top_k=g["top_k"],
+        top_p=g["top_p"], min_p=g["min_p"], repetition_penalty=g["repetition_penalty"],
+        seed=g["seed"], greedy=g["greedy"],
+        stop_token_ids=tuple(g.get("stop_token_ids", ())), grammar=g.get("grammar"),
+        logprobs=g.get("logprobs"), min_new_tokens=min_new_tokens)

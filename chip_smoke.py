@@ -19,6 +19,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,scheduler
     python3 chip_smoke.py --phases probe,build,k33
     python3 chip_smoke.py --phases probe,build,speculative
+    python3 chip_smoke.py --phases probe,build,server
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -176,6 +177,20 @@ no result line):
            and capture ms, the draft's ms a round, the acceptance rate, ms
            per emitted token beside plain greedy's ms a step, the pool's
            ms a step at depth 1, 2, 3
+  server   the HTTP server (serve/server.py on the standard-library
+           serve/http.py): in process, BitNetServer over a scheduler of the
+           gate's 2B qk256 GGUF (4 slots, bf16, S=1024, K=8 graphs, fused
+           w2a8): /v1/inference greedy against generate (near-tie rule), the
+           stream, chat streamed and not, 8 concurrent requests each its solo
+           answer, /v1/embeddings while the pool decodes, /v1/models/load of
+           the gate's bitnet32 GGUF and a request to each model (each
+           against its own generate), checkpoint and resume, /v1/ws,
+           /metrics, /v1/devices; a load window of 256 streamed requests at
+           Poisson arrivals of 6 a second from a client process: TTFT p50 /
+           p90 / p99, latency, tok/s and ms a step over HTTP; K1, K3, K4, K8
+           launched; then `python -m bitnet_tpu_torch.cli serve` as a
+           process: /health, one request (near-tie rule against the generic
+           engine), SIGTERM, exit 0
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -186,6 +201,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -202,7 +218,7 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "segments", "requests", "scheduler", "gate", "speculative")
+          "segments", "requests", "scheduler", "gate", "speculative", "server")
 
 
 def emit(obj) -> None:
@@ -300,6 +316,7 @@ def phase_kernels(torch, dev):
            **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
            **{f"k{n}": [] for n in range(25, 34)}, "f32": [], "attn_edges": [],
            "attn_repeats": []}
+    res.update(_profile_calls())
     check_k1_all(torch, dev, g, res)
     check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
     check_k4(torch, dev, g, UNFUSED_SHAPES, K4_MS, "unfused", res)
@@ -678,10 +695,6 @@ def check_k4_forms(torch, dev, g, res):
                 res["k4"].append(row)
                 if not row["ok"]:
                     raise AssertionError(f"K4 form mismatch: {row}")
-    res["k4_profile"] = _profile_call(
-        "w, sv = words(2048, 640, False)\n"
-        "x = torch.randn((512, 2048), generator=g, device=dev).bfloat16()",
-        "tm.ternary_matmul_w2a8(1, x, w, sv, 2048, 640)", "ternary_matmul_w2a8")
     if not res["k4_profile"]["ok"]:
         raise AssertionError(f"K4 launched more than its two kernels: {res['k4_profile']}")
 
@@ -808,14 +821,6 @@ def check_k6_forms(torch, dev, g, res):
                 res["k6"].append(row)
                 if not row["ok"]:
                     raise AssertionError(f"K6 form mismatch: {row}")
-    setup = ("w, _s = words(2560, 640, False)\n"
-             "s = torch.rand((2, 640), generator=g, device=dev) * 0.02 + 0.01\n")
-    res["k6_decode_profile"] = _profile_call(
-        setup + "x = torch.randn((1, 2560), generator=g, device=dev).bfloat16()",
-        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 1)
-    res["k6_gemm_profile"] = _profile_call(
-        setup + "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
-        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 2)
     for key in ("k6_decode_profile", "k6_gemm_profile"):
         if not res[key]["ok"]:
             raise AssertionError(f"K6 launched other than its kernels: {res[key]}")
@@ -1261,60 +1266,131 @@ def check_k10(torch, dev, g, res):
         del words, s
 
 
-# One profiled call in a fresh process: in a process that had run much else
-# the profiler on the card now and then caught no kernel at all (alone, the
-# same call shows its kernels).  The child builds its operands from a seed,
-# makes one call to build and warm up, profiles one call, and prints the
-# kernels, the ATen ops and the launches the wrapper counted.
+# The kernels phase's profiled calls, in a fresh process that runs nothing
+# else: in a process that had run much else the profiler on the card now and
+# then caught no kernel at all.  For each call (``PROFILES``, passed as JSON)
+# the child builds the operands from a seed, makes one call to build and
+# warm up, profiles one call after another in the profiler's warm-up step
+# (without it the tracer now and then lost the first kernel it traced), and
+# prints one line: the kernels, the ATen ops and the launches the wrapper
+# counted.  Its first session pays the tracer's start; one process a call,
+# one after the other, took most of the phase.
 _PROFILE_CHILD = """
-import json, torch
+import json, sys, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 from bitnet_tpu_torch.ops import decode_attention as dk
 from bitnet_tpu_torch.ops import decode_attention_v2 as da
 from bitnet_tpu_torch.ops import ternary_matmul as tm
 dev = torch.device("cuda", 0)
-g = torch.Generator(device=dev).manual_seed(0)
 def words(K, N, scale_rows):
     return (torch.randint(-2**31, 2**31, (2, K // 16, N), dtype=torch.int32,
                           generator=g, device=dev),
             torch.rand((2, K // 32, N) if scale_rows else (2, N), generator=g,
                        device=dev) * 0.02 + 0.01)
-{setup}
-call = lambda: {call}
-call()
-torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-             schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-    for step in range(2):
-        before = {module}.{counter}.launches
-        call()
-        torch.cuda.synchronize()
-        prof.step()
-print(json.dumps({{
-    "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-                and not e.name.startswith("ProfilerStep")],
-    "aten_ops": sorted({{e.name for e in prof.events() if e.name.startswith("aten::")}}),
-    "launches": {module}.{counter}.launches - before}}))
+for key, (setup, call, counter, _kernels, module) in json.loads(sys.argv[1]).items():
+    g = torch.Generator(device=dev).manual_seed(0)
+    exec(setup)
+    fn = eval("lambda: " + call)
+    fn()
+    torch.cuda.synchronize()
+    ctr = getattr(globals()[module], counter)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in range(2):
+            before = ctr.launches
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    print(json.dumps({"key": key,
+        "kernels": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep")],
+        "aten_ops": sorted({e.name for e in prof.events() if e.name.startswith("aten::")}),
+        "launches": ctr.launches - before}), flush=True)
 """
 
 
-def _profile_call(setup, call, counter, kernels=2, module="tm"):
-    """The CUDA kernels and ATen ops of one wrapper call, profiled in a
-    fresh process (``_PROFILE_CHILD``) after one call in the profiler's
-    warm-up step (without it the card's tracer now and then lost the first
-    kernel it traced); ok when the wrapper (``{module}.{counter}``:
-    ``tm`` the ternary matmuls, ``dk`` / ``da`` the decode attention's two
-    modules) counted one launch, the profiler saw ``kernels`` kernels and
-    no ATen op but ``aten::empty``."""
-    code = _PROFILE_CHILD.format(setup=setup, call=call, counter=counter, module=module)
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       timeout=300, cwd=REPO)
+def _k11_profile(K, N, glu):
+    return (f"w, s = words({K}, {N}, True)\n"
+            f"gamma = torch.rand((2, {K}), generator=g, device=dev) + 0.5\n"
+            f"x = torch.randn((1, {2 * K if glu else K}), generator=g, device=dev)"
+            f".bfloat16()\n"
+            f"r = torch.randn((1, {N}), generator=g, device=dev).bfloat16()",
+            f"tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, {K}, {N}, 1e-5, {glu}, r)",
+            "ternary_matmul_tl_w2a8_normed", 1, "tm")
+
+
+_K6_SETUP = ("w, _s = words(2560, 640, False)\n"
+             "s = torch.rand((2, 640), generator=g, device=dev) * 0.02 + 0.01\n")
+_ATTN_SETUP = ("kc = torch.randn((2, 1, 4096, 640), generator=g, device=dev).bfloat16()\n"
+               "vc = torch.randn_like(kc)\n"
+               "pos = torch.tensor([4095], dtype=torch.int32, device=dev)\n"
+               "q = torch.randn((1, 20, 128), generator=g, device=dev).bfloat16()\n"
+               "kn = torch.randn((1, 5, 128), generator=g, device=dev).bfloat16()\n"
+               "qkv = torch.randn((1, 30, 128), generator=g, device=dev).bfloat16()\n"
+               "ang = torch.rand((1, 64), generator=g, device=dev)\n"
+               "sin, cos = ang.sin(), ang.cos()")
+# the kernels phase's profiled calls, key -> (setup, call, the wrapper's
+# counter, the kernels it must launch, its module); the checks named in
+# each comment read their results
+PROFILES = {
+    # check_k4_forms: K4's two kernels
+    "k4_profile": ("w, sv = words(2048, 640, False)\n"
+                   "x = torch.randn((512, 2048), generator=g, device=dev).bfloat16()",
+                   "tm.ternary_matmul_w2a8(1, x, w, sv, 2048, 640)",
+                   "ternary_matmul_w2a8", 2, "tm"),
+    # check_k6_forms: K6's decode form one kernel, its GEMM form two
+    "k6_decode_profile": (
+        _K6_SETUP + "x = torch.randn((1, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 1, "tm"),
+    "k6_gemm_profile": (
+        _K6_SETUP + "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+        "tm.ternary_matmul_bf16(1, x, w, s, 2560, 640)", "ternary_matmul_bf16", 2, "tm"),
+    # check_k10_forms: K10's GEMM form and K12, two kernels each
+    "k10_profile": ("w, s = words(2560, 640, True)\n"
+                    "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
+                    "tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, False)",
+                    "ternary_matmul_blockscale_bf16", 2, "tm"),
+    "k12_profile": ("w, s = words(2560, 640, True)\n"
+                    "gamma = torch.rand((2, 2560), generator=g, device=dev) + 0.5\n"
+                    "x = torch.randn((8, 2560), generator=g, device=dev).bfloat16()\n"
+                    "r = torch.randn((8, 640), generator=g, device=dev).bfloat16()",
+                    "tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gamma, 2560, 640, 1e-5, "
+                    "False, r)", "ternary_matmul_tl_bf16_normed", 2, "tm"),
+    # check_k11_profile: K11 at K = 2560 and 14336 (the 8B down projection,
+    # SwiGLU and the residual), one kernel
+    "k11_profile_2560": _k11_profile(2560, 2560, False),
+    "k11_profile_14336": _k11_profile(14336, 4096, True),
+    # check_attn_profiles: K5 and K2 at B=1, S=4096, one launch each
+    "k5_profile": (_ATTN_SETUP, "dk.decode_attention(1, q, kn, kn, kc, vc, pos)",
+                   "decode_attention", 1, "dk"),
+    "k2_profile": (_ATTN_SETUP,
+                   "da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, 20, 5)",
+                   "decode_attention_qkv", 1, "da"),
+}
+
+
+def _profile_calls():
+    """Every call of ``PROFILES`` under the profiler, in one fresh process
+    (``_PROFILE_CHILD``).  A result is ok when the wrapper
+    (``{module}.{counter}``: ``tm`` the ternary matmuls, ``dk`` / ``da`` the
+    decode attention's two modules) counted one launch, the profiler saw the
+    row's number of kernels and no ATen op but ``aten::empty``."""
+    r = subprocess.run([sys.executable, "-c", _PROFILE_CHILD, json.dumps(PROFILES)],
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
     if r.returncode != 0:
-        raise AssertionError(f"profiled call failed: {r.stderr[-3000:]}")
-    out = json.loads(r.stdout.strip().splitlines()[-1])
-    out["ok"] = (out["launches"] == 1 and len(out["kernels"]) == kernels
-                 and set(out["aten_ops"]) <= {"aten::empty"})
+        raise AssertionError(f"profiled calls failed: {r.stderr[-3000:]}")
+    out = {}
+    for line in r.stdout.splitlines():
+        if not line.startswith('{"key"'):
+            continue
+        row = json.loads(line)
+        key = row.pop("key")
+        row["ok"] = (row["launches"] == 1 and len(row["kernels"]) == PROFILES[key][3]
+                     and set(row["aten_ops"]) <= {"aten::empty"})
+        out[key] = row
+    if set(out) != set(PROFILES):
+        raise AssertionError(f"profiled calls missing: {set(PROFILES) - set(out)}")
     return out
 
 
@@ -1367,18 +1443,6 @@ def check_k10_forms(torch, dev, g, res, eps=1e-5):
                 res["k10"].append(row)
                 if not row["ok"]:
                     raise AssertionError(f"K10 / K12 form mismatch: {row}")
-    res["k10_profile"] = _profile_call(
-        "w, s = words(2560, 640, True)\n"
-        "x = torch.randn((512, 2560), generator=g, device=dev).bfloat16()",
-        "tm.ternary_matmul_blockscale_bf16(1, x, w, s, 2560, 640, False)",
-        "ternary_matmul_blockscale_bf16")
-    res["k12_profile"] = _profile_call(
-        "w, s = words(2560, 640, True)\n"
-        "gamma = torch.rand((2, 2560), generator=g, device=dev) + 0.5\n"
-        "x = torch.randn((8, 2560), generator=g, device=dev).bfloat16()\n"
-        "r = torch.randn((8, 640), generator=g, device=dev).bfloat16()",
-        "tm.ternary_matmul_tl_bf16_normed(1, x, w, s, gamma, 2560, 640, 1e-5, False, r)",
-        "ternary_matmul_tl_bf16_normed")
     for key in ("k10_profile", "k12_profile"):
         if not res[key]["ok"]:
             raise AssertionError(f"{key[:3].upper()} launched more than its two "
@@ -1571,15 +1635,8 @@ def check_k11_profile(res):
     down projection, SwiGLU and the residual): one kernel, K1's decode
     kernel in its block-scale mode, and no ATen op but ``aten::empty``."""
     rows = []
-    for K, N, glu in ((2560, 2560, False), (14336, 4096, True)):
-        row = _profile_call(
-            f"w, s = words({K}, {N}, True)\n"
-            f"gamma = torch.rand((2, {K}), generator=g, device=dev) + 0.5\n"
-            f"x = torch.randn((1, {2 * K if glu else K}), generator=g, device=dev)"
-            f".bfloat16()\n"
-            f"r = torch.randn((1, {N}), generator=g, device=dev).bfloat16()",
-            f"tm.ternary_matmul_tl_w2a8_normed(1, x, w, s, gamma, {K}, {N}, 1e-5, {glu}, r)",
-            "ternary_matmul_tl_w2a8_normed", kernels=1)
+    for K in (2560, 14336):
+        row = res.pop(f"k11_profile_{K}")
         row["K"] = K
         row["ok"] = row["ok"] and "w2a8_decode" in row["kernels"][0]
         rows.append(row)
@@ -2130,19 +2187,6 @@ def check_attn_repeats(torch, dev, g, res):
 def check_attn_profiles(res):
     """One K5 and one K2 call at B=1, S=4096 under the profiler: one launch
     of the split-S kernel and no ATen op but ``aten::empty``."""
-    setup = ("kc = torch.randn((2, 1, 4096, 640), generator=g, device=dev).bfloat16()\n"
-             "vc = torch.randn_like(kc)\n"
-             "pos = torch.tensor([4095], dtype=torch.int32, device=dev)\n"
-             "q = torch.randn((1, 20, 128), generator=g, device=dev).bfloat16()\n"
-             "kn = torch.randn((1, 5, 128), generator=g, device=dev).bfloat16()\n"
-             "qkv = torch.randn((1, 30, 128), generator=g, device=dev).bfloat16()\n"
-             "ang = torch.rand((1, 64), generator=g, device=dev)\n"
-             "sin, cos = ang.sin(), ang.cos()")
-    res["k5_profile"] = _profile_call(setup, "dk.decode_attention(1, q, kn, kn, kc, vc, pos)",
-                                      "decode_attention", 1, "dk")
-    res["k2_profile"] = _profile_call(
-        setup, "da.decode_attention_qkv(1, qkv, sin, cos, kc, vc, pos, 20, 5)",
-        "decode_attention_qkv", 1, "da")
     for key in ("k5_profile", "k2_profile"):
         if not (res[key]["ok"] and "attn_decode" in res[key]["kernels"][0]):
             raise AssertionError(f"{key}: not one split-S launch: {res[key]}")
@@ -2526,24 +2570,50 @@ def _logits_agree(torch, a, b):
     return cos, same
 
 
-def _teacher_forced(torch, eg, ecpu, prompt, steps=4):
-    """Prefill both engines, then feed both the card's greedy tokens.
-    Returns per-step cosines, both argmaxes, and whether every step that
-    parted was a near-tie (CPU top-2 margin <= largest logit difference)."""
+@contextlib.contextmanager
+def _shared_cpu_preparation():
+    """The CPU reference engines built inside share their prepared weights:
+    ``engine.prepare_params`` on the CPU memoised on the params object and
+    the fields of the EngineConfig it reads (the card's engines prepare
+    their own).  The int8 head and TL re-quantization took most of a
+    reference engine's start; the engines only read their weights."""
+    from bitnet_tpu_torch.engine import engine as engine_mod
+
+    real, memo = engine_mod.prepare_params, {}
+
+    def prepare(params, ec, device, kernel_path):
+        if device.type != "cpu":
+            return real(params, ec, device, kernel_path)
+        key = (id(params), ec.compute_dtype, ec.weight_quant, ec.fuse_projections,
+               ec.logits_dtype, kernel_path)
+        if key not in memo:           # the params kept, so the id stays theirs
+            memo[key] = (params, real(params, ec, device, kernel_path))
+        return memo[key][1]
+    with mock.patch.object(engine_mod, "prepare_params", prepare):
+        yield
+
+
+def _teacher_forced(torch, eg, ecpu, prompt, steps=3):
+    """Prefill both engines, then feed both the card's greedy tokens: the
+    logits of ``steps`` positions compared, the prefill's and those of
+    ``steps - 1`` decode steps.  Returns per-step cosines, both argmaxes,
+    and whether every step that parted was a near-tie (CPU top-2 margin <=
+    largest logit difference)."""
     from bitnet_tpu_torch.engine.sampling import argmax
 
     lg_g, lg_c = eg.prefill(prompt), ecpu.prefill(prompt)
     toks_g, toks_c, cos, tie_ok = [], [], [], []
     pos = len(prompt)
-    for _ in range(steps):
+    for i in range(steps):
         c, ok = _logits_agree(torch, lg_g[0], lg_c[0])
         cos.append(c)
         tie_ok.append(ok)
         tg, tc = int(argmax(lg_g)[0]), int(argmax(lg_c)[0])
         toks_g.append(tg)
         toks_c.append(tc)
-        lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
-        pos += 1
+        if i + 1 < steps:
+            lg_g, lg_c = eg.decode_step(tg, pos), ecpu.decode_step(tg, pos)
+            pos += 1
     return {"tokens_cuda": toks_g, "tokens_cpu": toks_c, "min_cosine": min(cos),
             "cosines": cos, "ties_only": all(tie_ok),
             "tokens_agree": sum(a == b for a, b in zip(toks_g, toks_c))}
@@ -2552,7 +2622,7 @@ def _teacher_forced(torch, eg, ecpu, prompt, steps=4):
 def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=3):
     """``_teacher_forced`` for a pool, through ``prefill_batch`` and
     ``decode_batch_step``: every slot holds a prompt and is fed the card's
-    greedy token; cosines and ties over all slots and steps."""
+    greedy token; cosines and ties over all slots and compared positions."""
     import numpy as np
 
     from bitnet_tpu_torch.engine.sampling import argmax
@@ -2560,7 +2630,7 @@ def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=3):
     lg_g, lg_c = eg.prefill_batch(prompts), ecpu.prefill_batch(prompts)
     pos = np.array([len(p) for p in prompts], np.int32)
     cos, tie_ok, agree, n = [], [], 0, 0
-    for _ in range(steps):
+    for i in range(steps):
         a, b = lg_g.float().cpu(), lg_c.float()
         cos += torch.nn.functional.cosine_similarity(a, b, dim=1).tolist()
         tg, tc = argmax(lg_g).cpu(), argmax(lg_c)
@@ -2569,19 +2639,25 @@ def _teacher_forced_batch(torch, eg, ecpu, prompts, steps=3):
         tie_ok += ((tg == tc) | (top2[:, 0] - top2[:, 1] <= diff)).tolist()
         agree += int((tg == tc).sum())
         n += len(prompts)
-        lg_g = eg.decode_batch_step(tg.to(eg.device), pos)
-        lg_c = ecpu.decode_batch_step(tg, pos)
-        pos = pos + 1
+        if i + 1 < steps:
+            lg_g = eg.decode_batch_step(tg.to(eg.device), pos)
+            lg_c = ecpu.decode_batch_step(tg, pos)
+            pos = pos + 1
     return {"slots": len(prompts), "min_cosine": min(cos), "ties_only": all(tie_ok),
             "tokens_agree": agree, "tokens": n}
 
 
+@_shared_cpu_preparation()
 def phase_parity(torch, dev):
     """The same 2-layer full-width model through the CUDA kernels and
     through the plain versions on the CPU, teacher-forced with the CUDA
-    run's greedy tokens for 4 decode steps (3 for a pool; halved from 8
-    and 6 to keep the script inside its time limit on a slower host; the
-    plans phase's 2-layer parity likewise).  Every step's logits
+    run's greedy tokens: the prefill's logits and those of two decode
+    steps, at B = 1 and in a pool (cut from three decode steps at B = 1,
+    and from a last decode step a call that ran uncompared, to make room
+    for the server phase; halved before from 8 and 6 steps to keep the
+    script inside its time limit on a slower host; the plans phase's
+    2-layer parity likewise).  The CPU references share their prepared
+    weights (``_shared_cpu_preparation``).  Every step's logits
     keep cosine >= 0.99, and the two pick the same token wherever the
     CPU's top-2 logit margin exceeds the largest logit difference: the
     decode attention kernels round their softmax weights to bf16 against
@@ -2677,7 +2753,7 @@ def phase_parity(torch, dev):
             eg = InferenceEngine(cfg8, p8, ec, device=dev)
             ecpu = InferenceEngine(cfg8, p8, ec, device="cpu")
             registry.reset_launch_counts()
-            r = _teacher_forced(torch, eg, ecpu, prompt, steps=4)
+            r = _teacher_forced(torch, eg, ecpu, prompt)
             r["launches"] = {kid: registry.launch_counts()[kid]}
             if env:         # the size of the other functions at 2 layers
                 lg = eg.prefill(prompt).float().cpu()
@@ -3499,10 +3575,12 @@ KNOB_PARITY = tuple(
     for B in Bs for kv in (("bf16",) if name.startswith("generic") else ("bf16", "int8")))
 
 
+@_shared_cpu_preparation()
 def _knob_parity(torch, dev):
     """Each knob plan on a 2-layer full-width model (seed 7), the card's
     kernels against the same engine's plain versions on the CPU, teacher
-    forced as in the parity phase: logits cosine >= 0.99 and equal tokens
+    forced as in the parity phase (its CPU references sharing their
+    prepared weights): logits cosine >= 0.99 and equal tokens
     wherever the CPU's top-2 margin exceeds the logit difference — the
     kernels compute the port's plain functions, which the CPU tests hold
     to the JAX package's under the same knobs."""
@@ -3537,7 +3615,7 @@ def _knob_parity(torch, dev):
         out.append(r)
         del eg, ecpu
         if not r["ok"]:
-            raise AssertionError(f"2-layer parity failed under {name} B={B} {kv}: {r}")
+            raise AssertionError(f"knob parity failed under {name} B={B} {kv}: {r}")
     return out
 
 
@@ -4638,7 +4716,8 @@ def phase_gate(torch, dev, workdir):
             raise AssertionError(f"2B gate failed: {gate} {problems} "
                                  f"{r.stderr[-1500:]}")
         out["pallas"] = _crossval_leg(torch, qk, ["--kernel-path", "pallas"])
-        b32 = os.path.join(d, "bitnet2b_bitnet32.gguf")
+        # the bitnet32 GGUF stays too: the server phase loads it as a second model
+        b32 = os.path.join(workdir, "bitnet2b_bitnet32.gguf")
         t0 = time.perf_counter()
         _gen_2b("bitnet32", b32)
         out["bitnet32_generate_s"] = time.perf_counter() - t0
@@ -5022,6 +5101,445 @@ def phase_speculative(torch, dev, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: the HTTP server (serve/server.py on serve/http.py), in process and
+# as `cli serve`
+# ---------------------------------------------------------------------------
+SERVER_S = 1024
+SERVER_TOKENS = 32
+SERVER_PROMPT = "The capital of France is"
+SERVER_LONG = 200          # the request that decodes while (e) embeds
+SERVER_CK = 96             # the streamed request (g) checkpoints
+SERVER_LOAD = 256          # (i): requests in the load window
+SERVER_RATE = 6.0          # (i): their mean arrival rate a second (Poisson),
+                           # under what the pool serves saturated (PERF.md §6)
+
+
+def _http(url, method="GET", body=None, timeout=300.0):
+    """(status, parsed JSON or text) of one request (urllib)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode()
+
+
+def _sse(port, path, body, timeout=300.0):
+    """The events of one SSE response (http.client decodes the chunks) and
+    the host seconds to the first one."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    c.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    if r.status != 200:
+        raise AssertionError(f"{path}: {r.status} {r.read()[:400]!r}")
+    events, first = [], None
+    for line in iter(r.readline, b""):
+        line = line.decode().rstrip("\n")
+        if not line.startswith("data: "):
+            continue
+        if first is None:
+            first = time.perf_counter() - t0
+        data = line[len("data: "):]
+        events.append(data if data == "[DONE]" else json.loads(data))
+        if data == "[DONE]" or (isinstance(events[-1], dict) and events[-1].get("done")):
+            break
+    c.close()
+    return events, first
+
+
+def _ws(port, body, timeout=300.0):
+    """One /v1/ws exchange by hand (RFC 6455: the handshake, a masked text
+    frame, the server's frames until ``done``, a close)."""
+    import base64
+    import socket
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    key = base64.b64encode(os.urandom(16))
+    s.sendall(b"GET /v1/ws HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+              b"Connection: Upgrade\r\nSec-WebSocket-Key: " + key +
+              b"\r\nSec-WebSocket-Version: 13\r\n\r\n")
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        buf += s.recv(4096)
+    head, buf = buf.split(b"\r\n\r\n", 1)
+    if not head.startswith(b"HTTP/1.1 101"):
+        raise AssertionError(f"/v1/ws handshake: {head[:200]!r}")
+
+    def take(n):
+        nonlocal buf
+        while len(buf) < n:
+            buf += s.recv(65536)
+        out, buf = buf[:n], buf[n:]
+        return out
+    payload, mask = json.dumps(body).encode(), os.urandom(4)
+    n = len(payload)
+    hdr = bytes([0x81, 0x80 | n]) if n < 126 else bytes([0x81, 0xFE]) + n.to_bytes(2, "big")
+    s.sendall(hdr + mask + bytes(c ^ mask[i % 4] for i, c in enumerate(payload)))
+    msgs = []
+    while True:
+        b0, b1 = take(2)
+        ln = b1 & 0x7F
+        if ln == 126:
+            ln = int.from_bytes(take(2), "big")
+        elif ln == 127:
+            ln = int.from_bytes(take(8), "big")
+        data = take(ln)
+        if b0 & 0x0F != 1:
+            raise AssertionError(f"/v1/ws: frame opcode {b0 & 0x0F}")
+        msgs.append(json.loads(data))
+        if msgs[-1].get("done") or "error" in msgs[-1]:
+            break
+    s.sendall(bytes([0x88, 0x82]) + mask + bytes(c ^ mask[i % 4] for i, c in
+                                               enumerate(b"\x03\xe8")))
+    s.close()
+    return msgs
+
+
+def _http_load(port, n, rate, seed, vocab):
+    """The client of the server phase's load window, in a process of its
+    own so that its threads take no interpreter time from the server's:
+    ``n`` requests to /v1/inference/stream (prompts of 8-128 random token
+    ids after BOS, exactly ``SERVER_TOKENS`` greedy tokens each), sent at
+    seeded Poisson arrivals of ``rate`` a second from 64 threads.  One row
+    a request: host seconds of its send and its end, seconds to its first
+    token event, its tokens, whether its last event was ``done``."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = random.Random(seed)
+    at, bodies, t = [], [], 0.0
+    for _ in range(n):
+        t += rng.expovariate(rate)
+        at.append(t)
+        bodies.append({"tokens": [1] + [rng.randrange(3, vocab) for _ in range(
+            rng.randint(8, 128))], "max_new_tokens": SERVER_TOKENS,
+            "min_new_tokens": SERVER_TOKENS, "greedy": True})
+
+    def one(body):
+        sent = time.perf_counter()
+        ev, first = _sse(port, "/v1/inference/stream", body)
+        return {"sent": sent, "end": time.perf_counter(), "ttft": first,
+                "tokens": sum("token" in e for e in ev), "done": bool(ev[-1].get("done"))}
+    start = time.perf_counter()
+    with ThreadPoolExecutor(64) as ex:
+        futs = []
+        for a, body in zip(at, bodies):
+            time.sleep(max(0.0, start + a - time.perf_counter()))
+            futs.append(ex.submit(one, body))
+        return [f.result() for f in futs]
+
+
+def phase_server(torch, dev, workdir):
+    """The HTTP server on the card, through the entry points a user calls.
+
+    In process: ``BitNetServer`` over a ``ContinuousBatchingScheduler`` of
+    the full-width 2B qk256 GGUF (the gate phase's, or generated), 4 slots,
+    a bf16 cache, S=1024, K=8 pool graphs, fused projections on w2a8 (K4
+    prefills, K1 at M = 4, K8, K3), served by ``serve/http.ServerThread``;
+    then: (a) /v1/inference greedy, 32 tokens, against
+    ``InferenceEngine.generate`` under the near-tie rule; (b)
+    /v1/inference/stream: the same tokens; (c) /v1/chat/completions,
+    streamed and not: the same text; (d) 8 concurrent requests, each its
+    solo answer; (e) /v1/embeddings while the pool decodes a 200-token
+    request: the idle vector (max abs diff <= 1e-6); (f) /v1/models/load of
+    the bitnet32 2B GGUF, then one request to each model at once (two loops
+    on the device's one device loop thread), each model's tokens against
+    its own ``InferenceEngine.generate`` (near-tie rule); (g) /v1/admin/checkpoint of a
+    streaming request and /v1/admin/resume: the resumed text is the
+    stream's rest; (h) /v1/ws: the tokens of (a); /metrics; /v1/devices
+    (platform gpu); (i) the load window: 256 streamed requests at seeded
+    Poisson arrivals of 6 a second from a client process (``_http_load``),
+    each 32 tokens.  Launches of K1, K3, K4 and K8 over the leg.
+    As a process: ``python -m bitnet_tpu_torch.cli serve`` (the JAX serve's
+    generic engine) on a free port: /health 200, one /v1/inference whose
+    tokens meet the near-tie rule against the generic engine's
+    ``generate``, SIGTERM then exit code 0.
+    Figures (host clock, over HTTP, from (i) alone): TTFT p50 / p90 / p99,
+    the latency of a request p50 / p90, decoded tok/s over the window, the
+    pool's ms a step in it."""
+    import socket
+
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.loader import load_model
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.serve import http
+    from bitnet_tpu_torch.serve.model_manager import ModelManager
+    from bitnet_tpu_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                                  DeviceLoop, run_on_device)
+    from bitnet_tpu_torch.serve.server import BitNetServer
+    from bitnet_tpu_torch.tokenizer import load_tokenizer
+
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+    qk = os.path.join(workdir, "bitnet2b_qk256.gguf")
+    b32 = os.path.join(workdir, "bitnet2b_bitnet32.gguf")
+    for kind, path in (("qk256", qk), ("bitnet32", b32)):
+        if not os.path.exists(path):
+            _gen_2b(kind, path)
+    t0 = time.perf_counter()
+    cfg, params, _ = load_model(qk, device=dev)
+    tok = load_tokenizer(qk)
+    out["seconds"]["load"] = time.perf_counter() - t0
+    ec = EngineConfig(max_seq_len=SERVER_S, kv_cache_dtype="bf16", kernel_path="w2a8",
+                      fuse_projections=True)
+    gc = GenerationConfig(max_new_tokens=SERVER_TOKENS, greedy=True)
+    ids = tok.encode(SERVER_PROMPT, add_bos=True)
+    # the references, before the scheduler drives the card
+    ref = InferenceEngine(cfg, params, ec, tokenizer=tok, device=dev)
+    plain = ref.generate(ids, gc)
+    # (f)'s second model as the manager loads it (bf16 weights, the same
+    # EngineConfig), and its reference
+    cfg32, params32, _ = load_model(b32, device=dev)
+    tok32 = load_tokenizer(b32)
+    ids32 = tok32.encode(SERVER_PROMPT, add_bos=True)
+    ref32 = InferenceEngine(cfg32, params32, ec, tokenizer=tok32, device=dev)
+    plain32 = ref32.generate(ids32, gc)
+    gec = EngineConfig(max_seq_len=SERVER_S, kv_cache_dtype="bf16")
+    gref = InferenceEngine(cfg, params, gec, tokenizer=tok, device=dev)
+    gplain = gref.generate(ids, gc)
+
+    # earlier phases stepped schedulers by hand from this thread: each one's
+    # claim on the card ends with it, and this loop's thread claims it next
+    import gc as pygc
+
+    pygc.collect()
+    t0 = time.perf_counter()
+    sched = ContinuousBatchingScheduler(cfg, params, tok, ec, num_slots=4, device=dev,
+                                        decode_steps_per_dispatch=SEG_K)
+    manager = ModelManager(ec, num_slots=4, device=dev)
+    manager.adopt("bitnet-2b", sched, path=qk)
+    server = BitNetServer(manager=manager, allowed_model_dirs=[workdir], device=dev)
+    srv = http.ServerThread(server.build_app()).start()
+    url, port = srv.url, srv.port
+    out["seconds"]["start"] = time.perf_counter() - t0
+    registry.reset_launch_counts()
+    t_leg = time.perf_counter()
+    try:
+        # (a) greedy, against the B=1 engine under the near-tie rule
+        st, a = _http(url + "/v1/inference", "POST", {"prompt": SERVER_PROMPT,
+                                                     "max_new_tokens": SERVER_TOKENS,
+                                                     "greedy": True})
+        if st != 200 or a["prompt_tokens"] != len(ids):
+            raise AssertionError(f"server (a): {st} {a}")
+        # (b) the stream
+        ev, _ = _sse(port, "/v1/inference/stream", {
+            "prompt": SERVER_PROMPT, "max_new_tokens": SERVER_TOKENS, "greedy": True})
+        if [e["token"] for e in ev if "token" in e] != a["tokens"] or not ev[-1]["done"]:
+            raise AssertionError(f"server (b): stream {ev[-3:]} != {a['tokens']}")
+        # (c) chat, streamed and not
+        chat = {"messages": [{"role": "user", "content": "Hello"}], "max_tokens": 16,
+                "greedy": True}
+        st, c = _http(url + "/v1/chat/completions", "POST", chat)
+        ev, _ = _sse(port, "/v1/chat/completions", {**chat, "stream": True})
+        streamed = "".join(e["choices"][0]["delta"].get("content", "")
+                           for e in ev if isinstance(e, dict))
+        if st != 200 or ev[-1] != "[DONE]" or streamed != c["choices"][0]["message"][
+                "content"]:
+            raise AssertionError(f"server (c): {st} {c} / {streamed!r}")
+        out["c_chat"] = {"prompt_tokens": c["usage"]["prompt_tokens"],
+                         "completion_tokens": c["usage"]["completion_tokens"]}
+        # (d) 8 concurrent requests, each its solo answer
+        from concurrent.futures import ThreadPoolExecutor
+
+        g = torch.Generator().manual_seed(41)
+        bodies = [{"tokens": [1] + [int(t) for t in torch.randint(
+            3, cfg.vocab_size, (n,), generator=g)], "max_new_tokens": SERVER_TOKENS,
+            "greedy": True} for n in (8, 30, 60, 100, 17, 45, 80, 120)]
+        solo = [_http(url + "/v1/inference", "POST", b)[1]["tokens"] for b in bodies]
+        with ThreadPoolExecutor(8) as ex:
+            together = list(ex.map(lambda b: _http(url + "/v1/inference", "POST", b),
+                                   bodies))
+        if [r[1]["tokens"] for r in together] != solo:
+            raise AssertionError("server (d): a concurrent answer differs from its solo")
+        out["d_concurrent"] = {"requests": 8,
+                               "tokens": sum(len(r[1]["tokens"]) for r in together)}
+        # (i) the load window
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        steps0, dec0 = sched.stats["decode_steps"], sched.stats["decode_s"]
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            rows = ex.submit(_http_load, port, SERVER_LOAD, SERVER_RATE, 43,
+                             cfg.vocab_size).result(timeout=600)
+        if any(r["tokens"] != SERVER_TOKENS or not r["done"] for r in rows):
+            raise AssertionError(f"server (i): {[r for r in rows if not r['done']][:3]}")
+        steps = sched.stats["decode_steps"] - steps0
+        window = max(r["end"] for r in rows) - min(r["sent"] for r in rows)
+        ttft = [r["ttft"] * 1e3 for r in rows]
+        lat = [(r["end"] - r["sent"]) * 1e3 for r in rows]
+        out["i_load"] = {
+            "requests": len(rows), "rate_per_s": SERVER_RATE, "window_s": window,
+            "tokens": len(rows) * SERVER_TOKENS,
+            "tok_s": len(rows) * SERVER_TOKENS / window,
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p90": _pct(ttft, 0.9),
+            "ttft_ms_p99": _pct(ttft, 0.99), "latency_ms_p50": _pct(lat, 0.5),
+            "latency_ms_p90": _pct(lat, 0.9), "decode_steps": steps,
+            "ms_per_step": (sched.stats["decode_s"] - dec0) * 1e3 / max(steps, 1)}
+        # (e) embeddings while the pool decodes
+        emb = {"input": "hello world"}
+        st, idle = _http(url + "/v1/embeddings", "POST", emb)
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(_http, url + "/v1/inference", "POST", {
+                "prompt": SERVER_PROMPT, "max_new_tokens": SERVER_LONG, "greedy": True,
+                "min_new_tokens": SERVER_LONG})
+            while sched.stats["active_slots"] == 0 and not fut.done():
+                time.sleep(0.005)
+            busy_at = sched.stats["decode_steps"]
+            st2, busy = _http(url + "/v1/embeddings", "POST", emb)
+            during = sched.stats["decode_steps"] > busy_at and not fut.done()
+            long_run = fut.result()
+        va = torch.tensor(idle["data"][0]["embedding"])
+        vb = torch.tensor(busy["data"][0]["embedding"])
+        diff = float((va - vb).abs().max())
+        if st != 200 or st2 != 200 or long_run[0] != 200 or not during or diff > 1e-6:
+            raise AssertionError(f"server (e): {st} {st2} {long_run[0]} during={during} "
+                                 f"max diff {diff}")
+        out["e_embeddings"] = {"dim": len(va), "max_abs_diff": diff, "during_decode": during}
+        # (h) the WebSocket, metrics, devices
+        msgs = _ws(port, {"prompt": SERVER_PROMPT, "max_new_tokens": SERVER_TOKENS,
+                          "greedy": True})
+        if [m["token"] for m in msgs if "token" in m] != a["tokens"]:
+            raise AssertionError(f"server (h): ws {msgs[-3:]}")
+        st, metrics = _http(url + "/metrics")
+        st2, devices = _http(url + "/v1/devices")
+        gpu = dev.type == "cuda"          # (a CPU rehearsal has no card)
+        if (st != 200 or "bitnet_tokens_generated" not in metrics or st2 != 200
+                or (gpu and (devices["device"]["platform"] != "gpu"
+                             or not devices["device"]["memory"]["available"]))
+                or not devices["healthy"]):
+            raise AssertionError(f"server (h): {st} {st2} {devices}")
+        out["h_devices"] = devices["device"]
+        launches = {k: v for k, v in registry.launch_counts().items() if v}
+        out["seconds"]["requests"] = time.perf_counter() - t_leg
+        want = ("ternary_matmul_w2a8_normed", "ternary_matmul_w2a8", "scatter_kv_rows",
+                "decode_attention_batched")
+        if gpu and (any(not launches.get(k) for k in want)
+                    or launches.get("paged_attention")):
+            raise AssertionError(f"server: launches {launches}")
+        out["launches"] = launches
+        # (a)'s tokens against the B=1 engine, on the device's thread
+        out["a_tie"] = run_on_device(dev, lambda: _tie_rule(
+            torch, "server (a)", ref, ids, plain.token_ids, a["tokens"]))
+        # (g) checkpoint a streaming request, then resume it
+        ck = os.path.join(workdir, "server_ck")
+        import http.client
+
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        c.request("POST", "/v1/inference/stream", json.dumps({
+            "prompt": SERVER_PROMPT, "max_new_tokens": SERVER_CK, "greedy": True,
+            "min_new_tokens": SERVER_CK}), {"Content-Type": "application/json"})
+        r = c.getresponse()
+        texts = []
+        for line in iter(r.readline, b""):
+            if line.startswith(b"data: "):
+                e = json.loads(line[6:])
+                if "token" in e:
+                    texts.append(e["text"])
+                if len(texts) == 10:
+                    st, ckr = _http(url + "/v1/admin/checkpoint", "POST",
+                                    {"directory": ck})
+                if e.get("done"):
+                    break
+        c.close()
+        meta = json.load(open(next(p for p in ckr["written"]
+                                   if os.path.exists(p + ".req.json")) + ".req.json"))
+        st2, res = _http(url + "/v1/admin/resume", "POST", {"directory": ck})
+        n_done = meta["generated"]
+        if (st != 200 or ckr["count"] != 1 or st2 != 200 or len(res["resumed"]) != 1
+                or res["resumed"][0]["text"] != "".join(texts[n_done:])):
+            raise AssertionError(f"server (g): {st} {ckr} {st2} {res} {n_done} "
+                                 f"{''.join(texts[n_done:])!r}")
+        out["g_checkpoint"] = {"generated_at_checkpoint": n_done,
+                               "resumed_tokens": res["resumed"][0]["num_tokens"]}
+        # (f) a second model while the first serves, then one request each
+        t0 = time.perf_counter()
+        st, info = _http(url + "/v1/models/load", "POST", {"name": "bitnet32",
+                                                          "path": b32}, timeout=600)
+        load_s = time.perf_counter() - t0
+        drv = DeviceLoop.get(dev)
+        if st != 200 or drv is None or len(drv._scheds) != 2:
+            raise AssertionError(f"server (f): load {st} {info}")
+        body = {"prompt": SERVER_PROMPT, "max_new_tokens": SERVER_TOKENS, "greedy": True}
+        with ThreadPoolExecutor(2) as ex:
+            both = list(ex.map(lambda m: _http(url + "/v1/inference", "POST",
+                                               {**body, "model": m}),
+                               ("bitnet-2b", "bitnet32")))
+        again = _http(url + "/v1/inference", "POST", {**body, "model": "bitnet32"})
+        if (any(r[0] != 200 for r in both) or both[0][1]["tokens"] != a["tokens"]
+                or both[1][1]["prompt_tokens"] != len(ids32)
+                or again[1]["tokens"] != both[1][1]["tokens"]):
+            raise AssertionError(f"server (f): {both} {again}")
+        out["f_second_model"] = {"load_s": load_s, "kind": "bitnet32",
+                                 "tie": run_on_device(dev, lambda: _tie_rule(
+                                     torch, "server (f) bitnet32", ref32, ids32,
+                                     plain32.token_ids, both[1][1]["tokens"]))}
+        st, _ = _http(url + "/v1/models/bitnet32", "DELETE")
+        if st != 200:
+            raise AssertionError(f"server (f): unload {st}")
+    finally:
+        srv.stop()
+        manager.shutdown()
+    del ref, ref32, params32, sched, manager, server
+    torch.cuda.empty_cache()
+
+    # the CLI's serve as a process (the generic engine), SIGTERM at the end
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        cport = so.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bitnet_tpu_torch.cli", "serve", "-m", qk, "--port",
+         str(cport), "--max-seq-len", str(SERVER_S), "--kv-cache-dtype", "bf16",
+         "--num-slots", "4", "--device", dev.type], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        curl = f"http://127.0.0.1:{cport}"
+        while True:
+            try:
+                st, h = _http(curl + "/health", timeout=5)
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 400:
+                    raise AssertionError(f"cli serve did not answer: {proc.poll()}")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        st2, r = _http(curl + "/v1/inference", "POST", {
+            "prompt": SERVER_PROMPT, "max_new_tokens": SERVER_TOKENS, "greedy": True})
+    finally:
+        proc.terminate()
+        try:
+            log, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    if st != 200 or h != {"status": "ok"} or st2 != 200 or proc.returncode != 0:
+        raise AssertionError(f"cli serve: {st} {h} {st2} rc {proc.returncode} "
+                             f"{log[-1500:]}")
+    out["cli_serve"] = {"up_s": up_s, "seconds": time.perf_counter() - t0,
+                        "tie": _tie_rule(torch, "cli serve", gref, ids,
+                                         gplain.token_ids, r["tokens"]),
+                        "equal_to_in_process": r["tokens"] == a["tokens"]}
+    del gref
+    torch.cuda.empty_cache()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["ok"] = True
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5066,7 +5584,7 @@ def main(argv=None) -> int:
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "k33", "w2a8",
                                      "segments", "requests", "scheduler", "gate",
-                                     "speculative")):
+                                     "speculative", "server")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -5203,6 +5721,11 @@ def main(argv=None) -> int:
             emit({"phase": "speculative", "nvidia_smi": smi,
                   "seconds": seconds["speculative"],
                   **{k: v for k, v in r.items() if k != "launch_totals"}})
+        if "server" in phases:
+            report["server"] = r = timed("server", phase_server, torch, dev, workdir.name)
+            launches["server"] = r["launches"]
+            emit({"phase": "server", "nvidia_smi": smi, "seconds": seconds["server"],
+                  **r})
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -5216,6 +5739,12 @@ def main(argv=None) -> int:
         workdir.cleanup()
     emit({"phase": "seconds", **seconds})
     summary = summarize(report["kernels"], launches) if "kernels" in report else []
+    for row, (_n, kid, _r, phase, *_rest) in zip(summary, SITES):
+        # the server phase's launches of each kernel, on the site of its
+        # path: it runs the fused engine, so a kernel that the unstacked
+        # path's site shares (K1, K4, K10) counts on the fused site alone
+        row["server_launches"] = (0 if phase in ("generic", "tl_generic") else
+                                  launches.get("server", {}).get(kid, 0))
     report["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))

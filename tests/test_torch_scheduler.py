@@ -19,7 +19,8 @@ fixture).  Mirrors ``tests/test_scheduler_{parity,chunked,stress}.py``:
 - the refusals of what the port leaves out (``pipeline_depth`` and
   ``speculative_k``, ported, raise the JAX package's error on a paged pool:
   ``tests/test_torch_speculative.py`` and ``test_torch_pipelined.py`` hold
-  the modes), the card default, the
+  the modes; ``checkpoint_requests`` / ``resume_requests``, ported, are held
+  in ``tests/test_torch_server_units.py``), the card default, the
   one-thread guard on a device's attention counters, and the card's CUDA
   graph mocked (a failed capture raises; replays add the capture's counts).
 
@@ -372,13 +373,21 @@ def test_out_of_slice_options_raise(model, jmodel, kw, item):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.checkpoint_requests("/nonexistent"), "#12 \\(c\\)"),
-    (lambda s: s.resume_requests("/nonexistent"), "#12 \\(c\\)"),
-    (lambda s: s.follow(), "#13")])
-def test_out_of_slice_methods_raise(model, call, item):
+    # ported (they raised naming #12 (c)): an idle pool checkpoints nothing
+    # and an empty directory resumes nothing, as in the JAX scheduler
+    pytest.param(lambda s, d: s.checkpoint_requests(d), None,
+                 id="<lambda>-#12 \\(c\\)0"),
+    pytest.param(lambda s, d: s.resume_requests(d), None,
+                 id="<lambda>-#12 \\(c\\)1"),
+    (lambda s, d: s.follow(), "#13")])
+def test_out_of_slice_methods_raise(model, jmodel, tmp_path, call, item):
     s = make(model, start_loop=False)
+    if item is None:
+        js = make_jax(jmodel, start_loop=False)
+        assert call(s, str(tmp_path / "p")) == call(js, str(tmp_path / "j")) == []
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        call(s)
+        call(s, str(tmp_path))
 
 
 def test_the_card_is_the_default_device(model):
