@@ -22,12 +22,19 @@ tests only).  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
 for ``trace-diff``.  ``serve`` (``:878-893``, ``:929-969``) starts the
 HTTP server (``serve/server.py`` on the standard-library ``serve/http.py``)
 with the JAX CLI's flags plus ``--device``; ``--shard`` raises naming
-ROADMAP queue 1 #13.  The other subcommands are #17.
+ROADMAP queue 1 #13.  ``convert``, ``st-inspect`` and ``st-merge``
+(``:456-475``, ``:868-875``, ``:971-994``) convert, inspect and merge
+SafeTensors checkpoints with the JAX CLI's flags and output.  ``--model``
+takes a GGUF, a ``.safetensors`` file or an HF checkpoint directory
+(converted once to a cached sibling GGUF), and ``run --sliding-window W``
+decodes over the windowed ring cache.  The other subcommands are #17.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
     python -m bitnet_tpu_torch.cli serve -m model.gguf --port 8080
     python -m bitnet_tpu_torch.cli crossval -m model.gguf --tokens 2,7,11,5
     python -m bitnet_tpu_torch.cli benchmark-kernels --attention all --m 8
+    python -m bitnet_tpu_torch.cli run -m hf_checkpoint_dir/ --sliding-window 256
+    python -m bitnet_tpu_torch.cli convert -i model.safetensors -o model.gguf
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from .config import not_ported
 
 def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     """Generation and engine flags (bitnet_tpu/cli.py:20-88)."""
-    p.add_argument("--model", "-m", required=True, help="GGUF model path")
+    p.add_argument("--model", "-m", required=True,
+                   help="GGUF, .safetensors file or HF checkpoint directory")
     p.add_argument("--tokenizer", help="tokenizer.json path (optional)")
     p.add_argument("--prompt", "-p", default="Hello")
     p.add_argument("--max-new-tokens", "-n", type=int, default=128)
@@ -94,7 +102,10 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
                         "segments, one CUDA graph on the card; 0 = auto: 8 "
                         "on the card, 1 on the CPU). Tokens equal K=1's.")
     p.add_argument("--sliding-window", type=int, default=0, metavar="W",
-                   help="windowed ring cache: not ported (ROADMAP.md queue 1 #7)")
+                   help="sliding-window attention over a ring-buffer KV "
+                        "cache of W tokens: unbounded generation in "
+                        "constant device memory (0 = off; W <= "
+                        "--max-seq-len)")
     p.add_argument("--strict", action="store_true",
                    help="strict mode: no mock tokenizer")
     p.add_argument("--no-stream", action="store_true")
@@ -109,12 +120,6 @@ def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
-
-
-def _refuse_unported(args) -> None:
-    """Flags of paths the port does not run yet raise, never pass."""
-    if args.sliding_window:
-        raise not_ported("--sliding-window (the windowed ring cache)", "#7")
 
 
 def _build_engine(args):
@@ -235,7 +240,6 @@ def _prepare_prompt(args):
 def cmd_run(args) -> int:
     """bitnet_tpu/cli.py:213-269: stream the text to stdout, the metrics
     line (and logprobs, when asked) to stderr."""
-    _refuse_unported(args)
     engine = _build_engine(args)
     text, spec = _prepare_prompt(args)
     gcfg = _gen_config(args, extra_stops=spec.stop_sequences)
@@ -428,6 +432,37 @@ def cmd_benchmark_kernels(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    """SafeTensors → GGUF (bitnet_tpu/cli.py:868-875)."""
+    from .tools.st2gguf import convert_safetensors_to_gguf
+
+    convert_safetensors_to_gguf(args.input, args.output, quant=args.quant)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_st_inspect(args) -> int:
+    """Header-only summary of a SafeTensors file (bitnet_tpu/cli.py:456-465)."""
+    from .tools.st_tools import inspect_safetensors
+
+    report = inspect_safetensors(args.input)
+    if not args.verbose:
+        report["tensors"] = report["tensors"][:10] + (
+            [{"...": f"{report['num_tensors'] - 10} more"}]
+            if report["num_tensors"] > 10 else [])
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_st_merge(args) -> int:
+    """Merge SafeTensors shards into one file (bitnet_tpu/cli.py:468-474)."""
+    from .tools.st_tools import merge_safetensors
+
+    inputs = args.inputs[0] if len(args.inputs) == 1 else args.inputs
+    print(json.dumps(merge_safetensors(inputs, args.output), indent=2))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """bitnet_tpu/cli.py:878-893, on ``args.device``."""
     from .serve.server import serve
@@ -573,6 +608,25 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--rms-tol", type=float, default=0.02)
     p.set_defaults(fn=cmd_trace_diff)
     _add_serve_parser(sub)
+
+    p = sub.add_parser("convert", help="SafeTensors → GGUF")
+    p.add_argument("--input", "-i", required=True)
+    p.add_argument("--output", "-o", required=True)
+    p.add_argument("--quant", default="f16",
+                   choices=["f16", "f32", "bitnet32", "qk256"])
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("st-inspect", help="inspect a SafeTensors file")
+    p.add_argument("input")
+    p.add_argument("--verbose", "-v", action="store_true",
+                   help="list every tensor")
+    p.set_defaults(fn=cmd_st_inspect)
+
+    p = sub.add_parser("st-merge", help="merge SafeTensors shards")
+    p.add_argument("inputs", nargs="+",
+                   help="shard files, an index.json, or a directory")
+    p.add_argument("--output", "-o", required=True)
+    p.set_defaults(fn=cmd_st_merge)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -201,12 +201,13 @@ class EngineConfig:
     # at pos >= max_seq_len: 'shift' keeps the last half of the context and
     # re-prefills, 'stop' ends generation with StopReason.CONTEXT_FULL
     context_overflow: str = "shift"
-    sliding_window: int = 0          # windowed ring cache (#7)
+    # > 0: the windowed ring cache of this many rows (engine/windowed_cache.py)
+    sliding_window: int = 0
     strict: StrictMode = field(default_factory=StrictMode)
 
     def resolve_kv_cache_dtype(self) -> str:
-        """'auto' follows the JAX package's rule (int8 for pools or long
-        contexts, bf16 otherwise)."""
+        """'auto' follows the JAX package's rule (bf16 under a sliding
+        window, int8 for pools or long contexts, bf16 otherwise)."""
         if self.kv_cache_dtype != "auto":
             return self.kv_cache_dtype
         if self.sliding_window > 0:
@@ -232,11 +233,24 @@ class EngineConfig:
             raise ConfigError("decode_steps_per_dispatch must be >= 0")
         if self.sliding_window < 0:
             raise ConfigError("sliding_window must be >= 0")
+        if self.sliding_window > 0:
+            # bitnet_tpu/config.py:307-325
+            if self.sliding_window < 16:
+                raise ConfigError("sliding_window must be >= 16 tokens")
+            if self.sliding_window > self.max_seq_len:
+                raise ConfigError(
+                    "sliding_window exceeds max_seq_len (a window wider "
+                    "than the stream bound is just a dense cache)")
+            if self.prefix_cache_tokens > 0:
+                raise ConfigError(
+                    "prefix_cache_tokens requires the dense cache "
+                    "(prefix snapshots are position-indexed slices)")
+            if self.kv_cache_dtype in ("int8", "fp8"):
+                raise ConfigError(
+                    "sliding_window supports bf16/f32 KV only (the ring "
+                    "rides the generic attention path)")
         if self.max_batch_size < 1 or self.max_seq_len < 1:
             raise ConfigError("max_batch_size and max_seq_len must be >= 1")
-        # valid in the JAX package, not ported yet
-        if self.sliding_window > 0:
-            raise not_ported("the windowed ring cache", "#7")
 
     def replace(self, **kw: Any) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

@@ -4,8 +4,7 @@ context eviction).
 
 The names of ``bitnet_tpu/engine/__init__.py`` that the port has, loaded
 on first use (``models.convert`` imports ``engine.cache`` while the model
-modules load, so this package imports nothing eagerly).  The windowed
-names are still to be ported (ROADMAP.md queue 1 #7).
+modules load, so this package imports nothing eagerly).
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ _EXPORTS = {
     "apply_top_p": "sampling", "apply_typical_p": "sampling",
     "argmax": "sampling",
     "StopCriteria": "stop", "StopReason": "stop",
+    "WindowedKVCache": "windowed_cache", "allocate_windowed_cache": "windowed_cache",
 }
 
 __all__ = list(_EXPORTS)

@@ -56,7 +56,15 @@ class DecodeState:
 
 def capture(engine, prompt_ids: list[int], generated_ids: list[int],
             rng_key=None) -> DecodeState:
-    """Snapshot the engine's slot-0 decode state to host memory."""
+    """Snapshot the engine's slot-0 decode state to host memory.  A
+    windowed engine's ring holds only the trailing window and is refused
+    (``bitnet_tpu/engine/checkpoint.py:55-60``)."""
+    if getattr(engine, "windowed", False):
+        from ..errors import InferenceError
+
+        raise InferenceError(
+            "checkpoint capture requires the dense cache (a ring buffer "
+            "holds only the trailing window of KV rows)")
     kv_len = int(engine.cache.lengths[0])
     k, v, ks, vs = canonical_rows(engine.cache, kv_len,
                                   kv_heads=engine.cfg.num_kv_heads)

@@ -7,7 +7,7 @@ importance scoring, and the engine's keep-half truncation at overflow,
 ``bitnet-inference/src/engine.rs:1222-1227``).
 
 These operate on *token lists* before prefill — the device-side answer to
-long context is the ring-buffer windowed cache (ROADMAP.md queue 1 #7);
+long context is the ring-buffer windowed cache (``windowed_cache.py``);
 this module is for the host decision "which tokens do we even keep"
 when a chat transcript outgrows ``max_seq_len``.
 """

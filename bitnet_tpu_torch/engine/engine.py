@@ -24,7 +24,12 @@ graph of K sample → forward → logits steps a host round trip on the card
 (``decode_steps_per_dispatch``, auto 8 there and 1 on the CPU), the host
 replaying its stop logic over the K tokens; Mirostat, a grammar, logprobs,
 the ``min_new_tokens`` phase and the last tokens before ``max_new_tokens``
-or the context's end take the eager single step.
+or the context's end take the eager single step.  ``sliding_window=W``
+(``:151-168``, ``:448-488``) runs the engine over the windowed ring cache
+(``engine/windowed_cache.py``): prefill buckets stop at W, a longer
+prompt runs in chunks of at most W, every step is the eager single step
+(no segment: its graph would write ring rows the positions array does
+not record), and checkpoint capture and resume are refused.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ from ..models.bitnet import (
 from ..ops import registry
 from ..quant.tl import quantize_params_tl
 from .cache import allocate_cache, reset_cache
+from .windowed_cache import (allocate_windowed_cache, forward_windowed,
+                             reset_windowed_cache)
 from .prefix_cache import PrefixCache, as_tensor, snapshot_from_cache
 from .sampling import NEG_INF, MirostatState, SamplerChain, logprob_entry
 from .stop import StopCriteria, StopReason
@@ -180,9 +187,19 @@ class InferenceEngine:
                                                 self.kernel_path)
         self.params = params
         self.kv_dtype = ec.resolve_kv_cache_dtype()
-        self.cache = allocate_cache(cfg, ec.max_batch_size, ec.max_seq_len,
-                                    self.kv_dtype, device=self.device)
-        self._buckets = prefill_buckets(ec.max_seq_len)
+        self.windowed = ec.sliding_window > 0
+        if self.windowed:
+            self.cache = allocate_windowed_cache(cfg, ec.max_batch_size,
+                                                 ec.sliding_window, self.kv_dtype,
+                                                 device=self.device)
+        else:
+            self.cache = allocate_cache(cfg, ec.max_batch_size, ec.max_seq_len,
+                                        self.kv_dtype, device=self.device)
+        # a windowed engine's prefills stop at the ring's width (two tokens
+        # a window apart may not meet on one ring row in one call)
+        self._buckets = prefill_buckets(min(ec.sliding_window, ec.max_seq_len)
+                                        if self.windowed else ec.max_seq_len)
+        self.load_report = None
         self.kernel_recorder: list[str] = []
         if ec.weight_quant in ("tl1", "tl2"):
             self.kernel_recorder.append(f"weight_quant_{ec.weight_quant}")
@@ -206,21 +223,27 @@ class InferenceEngine:
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
-                  tokenizer=None, device: str | torch.device = "cuda"
-                  ) -> "InferenceEngine":
+                  tokenizer=None, device: str | torch.device = "cuda",
+                  mode: str = "auto") -> "InferenceEngine":
+        """Load a GGUF, a SafeTensors file or an HF checkpoint directory
+        (``models/loader.load_model``, ``mode`` ``auto`` or ``dense``) and
+        build the engine on it; ``eng.load_report`` keeps the load's report
+        (``bitnet_tpu/engine/engine.py:1033-1052``)."""
         from ..models.loader import load_model
         from ..tokenizer import load_tokenizer
 
         engine_cfg = engine_cfg or EngineConfig()
         dev = resolve_device(device)
-        cfg, params, meta = load_model(path, param_dtype=(
+        cfg, params, report = load_model(path, mode=mode, param_dtype=(
             torch.float32 if engine_cfg.compute_dtype == "f32" else torch.bfloat16),
             device=dev)
         if engine_cfg.max_seq_len > cfg.max_seq_len:
             engine_cfg = engine_cfg.replace(max_seq_len=cfg.max_seq_len)
         if tokenizer is None:
             tokenizer = load_tokenizer(path)
-        return cls(cfg, params, engine_cfg, tokenizer, device=dev)
+        eng = cls(cfg, params, engine_cfg, tokenizer, device=dev)
+        eng.load_report = report
+        return eng
 
     # -- helpers -------------------------------------------------------------
     def _bucket(self, T: int) -> int:
@@ -240,10 +263,31 @@ class InferenceEngine:
                 self.kernel_recorder.append(f"kernel_{kid}_x{n - before[kid]}")
 
     def stacked_decode(self) -> bool:
-        """Whether decode steps take the fused stacked loop (slice 1)."""
-        return stacked_decode_ok(self.cfg, self.params, 1,
-                                 self.engine_cfg.max_batch_size,
-                                 self.kernel_path)
+        """Whether decode steps take the fused stacked loop (slice 1); a
+        windowed engine's never do."""
+        return not self.windowed and stacked_decode_ok(
+            self.cfg, self.params, 1, self.engine_cfg.max_batch_size,
+            self.kernel_path)
+
+    def _forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                 n_real, trace=None) -> torch.Tensor:
+        """One forward call over the engine's cache, dense or ring
+        (positions of S are padding: their writes drop); returns the
+        final-normed hidden [B, T, H]."""
+        if self.windowed:
+            h, self.cache = forward_windowed(
+                self.cfg, self.params, tokens, positions, self.cache, n_real,
+                self.kernel_path, pad_marker=self.engine_cfg.max_seq_len)
+            return h
+        h, self.cache = forward_cache(self.cfg, self.params, tokens, positions,
+                                      self.cache, n_real, self.kernel_path, trace)
+        return h
+
+    def _reset(self) -> None:
+        if self.windowed:
+            reset_windowed_cache(self.cache)
+        else:
+            reset_cache(self.cache)
 
     def decode_plan(self) -> str:
         """The decode-attention plan of this engine's pool and cache, under
@@ -331,7 +375,7 @@ class InferenceEngine:
         T = len(token_ids)
         self._check_prompt(T)
         S = self.engine_cfg.max_seq_len
-        reset_cache(self.cache)
+        self._reset()
         if m > 0:
             self._restore_prefix(snap, m)
             self.kernel_recorder.append(f"prefix_restore_m{m}")
@@ -345,11 +389,44 @@ class InferenceEngine:
         n_real = np.zeros((B,), np.int32)
         n_real[0] = Ts
         dev = self.device
-        h, self.cache = forward_cache(
-            self.cfg, self.params, torch.from_numpy(toks).to(dev),
-            torch.from_numpy(pos).to(dev), self.cache,
-            torch.from_numpy(n_real).to(dev), self.kernel_path, trace)
+        h = self._forward(torch.from_numpy(toks).to(dev), torch.from_numpy(pos).to(dev),
+                          torch.from_numpy(n_real).to(dev), trace)
         return h, Tp
+
+    def _prefill_windowed(self, token_ids: list[int]) -> torch.Tensor:
+        """The ring's prefill (``bitnet_tpu/engine/engine.py:448-488``):
+        reset, then the prompt in chunks of at most the largest bucket (W),
+        each a bucketed call in slot 0; the last chunk's last-token logits
+        [B, V].  Only the trailing W positions stay resident."""
+        self._reset()
+        T = len(token_ids)
+        S = self.engine_cfg.max_seq_len
+        B = self.engine_cfg.max_batch_size
+        cap = self._buckets[-1]
+        dev = self.device
+        done = n_chunks = 0
+        with torch.inference_mode():
+            while done < T:
+                piece = token_ids[done:done + cap]
+                Ts = len(piece)
+                Tp = self._bucket(Ts)
+                toks = np.zeros((B, Tp), np.int32)
+                toks[0, :Ts] = piece
+                pos = np.full((B, Tp), S, np.int32)      # padding → dropped
+                pos[0, :Ts] = np.arange(done, done + Ts)
+                n_real = np.zeros((B,), np.int32)
+                n_real[0] = Ts
+                h = self._forward(torch.from_numpy(toks).to(dev),
+                                  torch.from_numpy(pos).to(dev),
+                                  torch.from_numpy(n_real).to(dev))
+                done += Ts
+                n_chunks += 1
+            lg = model_logits(self.cfg, self.params, h[:, Ts - 1:Ts],
+                              self.kernel_path)[:, 0]
+        self.kernel_recorder.append(
+            f"prefill_windowed_{self.kernel_path}_W{self.engine_cfg.sliding_window}"
+            f"_chunks{n_chunks}")
+        return lg
 
     def prefill(self, token_ids: list[int]) -> torch.Tensor:
         """Reset the cache and run the prompt; returns last-token logits
@@ -359,6 +436,8 @@ class InferenceEngine:
         are stored (``bitnet_tpu/engine/engine.py:399-446``)."""
         T = len(token_ids)
         self._check_prompt(T)
+        if self.windowed:
+            return self._prefill_windowed(token_ids)
         m, snap = 0, None
         if self.prefix_cache is not None:
             m, snap = self.prefix_cache.lookup(token_ids)
@@ -412,8 +491,7 @@ class InferenceEngine:
         host[1, 0, 0] = position
         with torch.inference_mode():
             tok, pos = torch.from_numpy(host).to(self.device)
-            h, self.cache = forward_cache(self.cfg, self.params, tok, pos,
-                                          self.cache, 1, self.kernel_path)
+            h = self._forward(tok, pos, 1)
             return model_logits(self.cfg, self.params, h,
                                 self.kernel_path)[:, -1]
 
@@ -523,6 +601,10 @@ class InferenceEngine:
                 grammar.accept(int(t))
         before = registry.launch_counts()
 
+        if resume and self.windowed:
+            raise InferenceError(
+                "checkpoint resume requires the dense cache (DecodeState "
+                "snapshots are position-indexed rows)")
         t0 = time.perf_counter()
         logits = (self._relogit_last(token_ids) if resume
                   else self.prefill(token_ids))
@@ -541,10 +623,12 @@ class InferenceEngine:
         history[0, : len(hist_ids)] = hist_ids
         history_dev = torch.from_numpy(history).to(self.device)
         lp_n = gen_cfg.logprobs
-        # K-step segments (engine/loop.py); Mirostat, a grammar and logprobs
-        # keep K = 1 (host state or a host read every step)
+        # K-step segments (engine/loop.py); Mirostat, a grammar, logprobs and
+        # the ring keep K = 1 (host state or a host read every step; a
+        # segment would write ring rows that no positions array records)
         K = (self._segment_steps()
-             if mirostat is None and grammar is None and lp_n is None else 1)
+             if mirostat is None and grammar is None and lp_n is None
+             and not self.windowed else 1)
         if K > 1:
             active = torch.zeros((B,), dtype=torch.int32, device=self.device)
             active[0] = 1
@@ -661,7 +745,11 @@ class InferenceEngine:
         self._sync()
         metrics.decode_s = time.perf_counter() - t_dec
         n = generated
-        if self.stacked_decode():
+        if self.windowed:
+            self.kernel_recorder.append(
+                f"decode_{self.kernel_path}_attn_windowed"
+                f"_W{self.engine_cfg.sliding_window}_x{n}")
+        elif self.stacked_decode():
             self.kernel_recorder.append(
                 f"decode_{self.kernel_path}_attn_{self.decode_plan()}_x{n}")
         else:
@@ -724,7 +812,7 @@ class InferenceEngine:
         if max(lens) >= S:
             raise InferenceError(f"prompt of {max(lens)} tokens >= "
                                  f"max_seq_len {S}")
-        reset_cache(self.cache)
+        self._reset()
         Tp = self._bucket(max(lens))
         toks = np.zeros((B, Tp), np.int32)
         pos = np.full((B, Tp), S, np.int32)
@@ -737,10 +825,9 @@ class InferenceEngine:
             last_idx[i] = lens[i] - 1
         dev = self.device
         with torch.inference_mode():
-            h, self.cache = forward_cache(
-                self.cfg, self.params, torch.from_numpy(toks).to(dev),
-                torch.from_numpy(pos).to(dev), self.cache,
-                torch.from_numpy(n_real).to(dev), self.kernel_path)
+            h = self._forward(torch.from_numpy(toks).to(dev),
+                              torch.from_numpy(pos).to(dev),
+                              torch.from_numpy(n_real).to(dev))
             h_last = h[torch.arange(B, device=dev),
                        torch.from_numpy(last_idx).to(dev)][:, None]
             lg = model_logits(self.cfg, self.params, h_last,
@@ -755,10 +842,9 @@ class InferenceEngine:
         logits [B, V]."""
         dev = self.device
         with torch.inference_mode():
-            h, self.cache = forward_cache(
-                self.cfg, self.params, tokens.to(dev, torch.int32)[:, None],
-                torch.from_numpy(np.asarray(positions, np.int32)[:, None]).to(dev),
-                self.cache, 1, self.kernel_path)
+            h = self._forward(
+                tokens.to(dev, torch.int32)[:, None],
+                torch.from_numpy(np.asarray(positions, np.int32)[:, None]).to(dev), 1)
             return model_logits(self.cfg, self.params, h, self.kernel_path)[:, -1]
 
     def generate_batch(self, prompts: list[list[int]],

@@ -231,6 +231,11 @@ class SpeculativeDecoder:
 
     def __init__(self, engine, draft: DraftSource | None = None,
                  spec_cfg: SpeculativeConfig | None = None):
+        if getattr(engine, "windowed", False):
+            # the verify writes rows at absolute positions: a ring has no
+            # such rows (the JAX decoder does not check, and writes past it)
+            raise InferenceError("speculative decoding needs the dense cache, "
+                                 "not a sliding-window ring")
         self.engine = engine
         self.spec_cfg = spec_cfg or SpeculativeConfig()
         self.draft = draft or NgramDraft(self.spec_cfg.max_ngram)

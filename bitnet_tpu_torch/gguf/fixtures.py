@@ -5,10 +5,9 @@ TPU-build equivalent of ``cargo xtask gen-mini-gguf``
 loader/engine tests run without a real 2B checkpoint.  Also returns the
 float reference weights so tests can check dequantization parity.
 
-Own copy of ``bitnet_tpu/gguf/fixtures.py`` for the flavors the port
-loads (``f32``, ``qk256`` and ``bitnet32``; ``q8_0`` raises, naming its
-ROADMAP item), so ``chip_smoke.py`` can write a GGUF without the
-JAX package.
+Own copy of ``bitnet_tpu/gguf/fixtures.py`` (``f32``, ``qk256``,
+``bitnet32`` and ``q8_0`` linears), so ``chip_smoke.py`` can write a GGUF
+without the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config import ModelConfig
+from ..quant.ggml_classic import dequantize_q8_0, quantize_q8_0
 from ..quant.i2s import dequantize_bitnet32, quantize_bitnet32
 from ..quant.qk256 import dequantize_qk256, quantize_qk256
 from .constants import GGMLType
@@ -152,9 +152,6 @@ def generate_mini_gguf(path: str, spec: MiniModelSpec | None = None) -> MiniMode
         flip = spec.transposed and out_dim != in_dim
         stored = raw.T.copy() if flip else raw
         shape = (in_dim, out_dim) if flip else (out_dim, in_dim)
-        if spec.quant == "q8_0":
-            raise NotImplementedError(
-                "q8_0 fixtures are not ported yet (ROADMAP.md queue 1 #7)")
         if spec.quant == "bitnet32":
             payload = quantize_bitnet32(stored)
             deq = dequantize_bitnet32(payload, raw.size).reshape(shape)
@@ -166,6 +163,15 @@ def generate_mini_gguf(path: str, spec: MiniModelSpec | None = None) -> MiniMode
             deq = dequantize_qk256(payload, shape[0], shape[1])
             weights[name] = deq.T if flip else deq
             w.add_quantized_tensor(name, shape, GGMLType.I2_S, payload)
+            return
+        if spec.quant == "q8_0":
+            # classic GGML 8-bit blocks: the generic llama-family path,
+            # loaded as dense linears
+            payload = quantize_q8_0(stored)
+            deq = dequantize_q8_0(np.frombuffer(payload, np.uint8),
+                                  raw.size).reshape(shape)
+            weights[name] = deq.T if flip else deq
+            w.add_quantized_tensor(name, shape, GGMLType.Q8_0, payload)
             return
         raise ValueError(f"unknown quant {spec.quant!r}")
 

@@ -31,6 +31,11 @@ Counterpart of ``bitnet_tpu/models/bitnet.py``:
 - slice 21: the stacked decode over a page pool, plan ``paged``
   (:func:`forward_paged_decode`, K33), the function of the JAX
   ``paged_forward``'s decode step without its dense view.
+- slice 25: dense linears (the JAX ``dense`` kind: every stacked gate
+  refuses them, so they take the layer loop, K5 at B ≤ 2 decode), and the
+  windowed ring cache's ``write_slots`` / ``kv_positions`` / ``window``
+  (``:1255-1364``): the layer loop writes each row at its ring slot and
+  attends by stored position within the window.
 
 The JAX package walks the layers with ``lax.scan`` and reaches the stacked
 weights through scalar-prefetch kernels so XLA does not copy per-layer
@@ -772,7 +777,10 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
                   v_cache: torch.Tensor, pre_len: torch.Tensor,
                   kernel_path: str, writes: CacheWrites,
                   k_scale: torch.Tensor | None = None,
-                  v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                  v_scale: torch.Tensor | None = None,
+                  kv_positions: torch.Tensor | None = None,
+                  window: int | None = None,
+                  ring: bool = False) -> torch.Tensor:
     """Layer ``l`` of the generic path (``:1241-1367``) over the flat cache
     stack [L, B, S, KV*D] (bf16, or int8 / fp8 with its scale stacks),
     written in place.
@@ -783,11 +791,18 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
     (``:1286-1307``) K13 takes the raw q|k|v row instead, applies RoPE and
     hands back the rows to write.  Otherwise the rows are written first
     (quantized for an int8 / fp8 cache) and plain ``attention`` (or
-    ``flash_attention`` once T·S ≥ 2^19) reads the cache, dequantized to
-    f32 if it is quantized."""
+    ``flash_attention`` once T·S ≥ 2^19, without ``kv_positions``) reads
+    the cache, dequantized to f32 if it is quantized.
+
+    ``ring`` (``write_slots`` given to :func:`forward`; ``writes`` then
+    holds the slots), ``kv_positions`` [B, S] and ``window`` are the
+    windowed ring cache's (``:1255-1364``): the rows go to their ring
+    slots and attention masks by each slot's true position and the
+    window; they take the write-then-attend branch, never ``fast_decode``."""
     B, T, _ = x.shape
     S = k_cache.shape[2]
-    fast_decode = (T == 1 and B <= 2 and k_scale is None
+    fast_decode = (T == 1 and B <= 2 and k_scale is None and not ring
+                   and kv_positions is None and window is None
                    and kernel_path in ("pallas", "w2a8"))
     if (fast_decode and bp.wqkv is not None
             and os.environ.get("BITNET_ROPE_FUSED", "0") == "1"):
@@ -810,8 +825,12 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
         return block_finish(cfg, bp, x, attn1[:, None], kernel_path, l)
     k_read, v_read = _write_and_read(l, k, v, k_cache, v_cache, k_scale, v_scale,
                                      writes)
-    attend = flash_attention if T > 1 and T * S >= (1 << 19) else attention
-    attn = attend(q, k_read, v_read, q_positions, pre_len + T)
+    if kv_positions is None and T > 1 and T * S >= (1 << 19):
+        attn = flash_attention(q, k_read, v_read, q_positions, pre_len + T,
+                               window=window)
+    else:
+        attn = attention(q, k_read, v_read, q_positions, pre_len + T,
+                         kv_positions=kv_positions, window=window)
     return block_finish(cfg, bp, x, attn, kernel_path, l)
 
 
@@ -833,9 +852,18 @@ def forward(cfg: ModelConfig, params: BitNetParams,
             kernel_path: str = "xla",
             k_scale: torch.Tensor | None = None,   # [L, B, S, KV] (int8/fp8)
             v_scale: torch.Tensor | None = None,
-            trace: Callable[[str, torch.Tensor], None] | None = None):
+            trace: Callable[[str, torch.Tensor], None] | None = None,
+            write_slots: torch.Tensor | None = None,   # [B, T] ring slots
+            kv_positions: torch.Tensor | None = None,  # [B, S] abs pos a slot
+            window: int | None = None):
     """Returns (final-normed hidden [B, T, H], k_cache, v_cache); the
     caches (and a quantized cache's scale stacks) are written in place.
+    ``write_slots`` decouples where a row is stored from its position (a
+    slot of S drops the write), ``kv_positions`` gives each slot's true
+    position (-1 = empty) and ``window`` the sliding window, as the
+    windowed ring cache passes them (``bitnet_tpu/models/bitnet.py:1370``):
+    any of them takes the generic layer loop (the JAX stacked gates refuse
+    them, ``:273-274``, ``:298-299``).
     ``trace(name, tensor)``, when given, sees the embedding rows
     (``token_embd``), each layer's output (``blk.<l>.out``) of the prefill
     loops, and the final-normed hidden state (``output_norm``), all
@@ -855,20 +883,23 @@ def forward(cfg: ModelConfig, params: BitNetParams,
     rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
     sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
     scales = (k_scale, v_scale)
-    if stacked_decode_ok(cfg, params, T, B, kernel_path):
+    ring = write_slots is not None or kv_positions is not None or window is not None
+    if not ring and stacked_decode_ok(cfg, params, T, B, kernel_path):
         h = _decode_stacked(cfg, params, x, q_positions, k_cache, v_cache,
                             pre_len, sin_rows, cos_rows, *scales)
-    elif stacked_prefill_ok(cfg, params, T, kernel_path):
+    elif not ring and stacked_prefill_ok(cfg, params, T, kernel_path):
         h = _prefill_stacked(cfg, params, x, q_positions, k_cache, v_cache,
                              pre_len, sin_rows, cos_rows, *scales, trace=trace)
     else:
-        writes = CacheWrites.of(q_positions, k_cache.shape[2])
+        writes = CacheWrites.of(q_positions if write_slots is None else write_slots,
+                                k_cache.shape[2])
         pos = pre_len.to(torch.int32).contiguous()
         h = x
         for l in range(k_cache.shape[0]):
             h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows,
                               q_positions, k_cache, v_cache, pos, kernel_path,
-                              writes, *scales)
+                              writes, *scales, kv_positions=kv_positions,
+                              window=window, ring=ring)
             if trace is not None:
                 trace(f"blk.{l}.out", h)
     h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)

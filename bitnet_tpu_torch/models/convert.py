@@ -17,7 +17,7 @@ import torch
 
 from ..device_probe import resolve_device
 from ..engine.cache import KVCache
-from ..ops.linear import BLOCK_KINDS, TernaryLinear
+from ..ops.linear import BLOCK_KINDS, TernaryLinear, dense_linear
 from .bitnet import BitNetParams, BlockParams
 
 
@@ -34,13 +34,15 @@ def _tensor(a, device) -> torch.Tensor | None:
 
 
 def _linear(d, device) -> TernaryLinear | None:
-    """A qk256, bitnet32 or tl linear.  The JAX package keeps block scales
-    ``[(L,) K/32, Np]``; the port's are zero-padded to ``Kp/32`` rows."""
+    """A dense, qk256, bitnet32 or tl linear.  The JAX package keeps block
+    scales ``[(L,) K/32, Np]``; the port's are zero-padded to ``Kp/32``
+    rows.  A dense linear carries its weight in its own dtype."""
     if d is None:
         return None
+    if d["kind"] == "dense":
+        return dense_linear(_tensor(d["weight"], device))
     if d["kind"] not in ("qk256", *BLOCK_KINDS):
-        raise NotImplementedError(
-            f"{d['kind']} linears are not ported yet (ROADMAP.md queue 1 #7)")
+        raise ValueError(f"unknown linear kind {d['kind']!r}")
     packed = _tensor(d["packed"], device)
     scales = _tensor(d["scales"], device).to(torch.float32)
     if d["kind"] in BLOCK_KINDS:

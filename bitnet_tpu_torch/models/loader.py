@@ -1,16 +1,37 @@
-"""GGUF → BitNetParams loader (numpy route, tensors on the CPU).
+"""Checkpoint → BitNetParams loader: GGUF, and SafeTensors files or HF
+checkpoint directories through a cached conversion.
 
-Counterpart of ``bitnet_tpu/models/loader.py`` (``load_model`` ``:334``)
-for the flavors the port runs: ternary linears in I2_S QK256 (either
-orientation) and in the per-32-element-block flavors BitNet32-F16 (inline
-f16 scales) and Split32 (sibling scales), everything else (embedding,
-norms) in F32 or F16.  Other tensor types raise a ModelError naming the
-ROADMAP item that ports them.  The QK256 repack is the numpy route; the
-JAX package's native codec (``loader.py:228-234``) is not ported, and on a
-real 2B checkpoint this route takes minutes (``loader.py:229-230``).
+Counterpart of ``bitnet_tpu/models/loader.py`` (``load_model`` ``:334``):
+- ``_resolve_checkpoint`` (``:301-331``): a ``.safetensors`` file or a
+  directory of them converts once to a sibling ``<path>.converted.gguf``
+  (``tools/st2gguf.py``), reused while it is newer than every shard;
+- every tensor type the JAX ``_to_float`` reads (``:87-140``): F32, F16,
+  F64, BF16, IQ2_S, the GGML-classic Q8_0 / Q4_0 / Q4_1 / Q5_0 / Q5_1 /
+  Q4_K / Q6_K (``quant/ggml_classic.py``, numpy on the host) and I2_S in
+  its three flavors;
+- ``mode="auto"`` keeps I2_S linears packed: QK256 (either orientation) as
+  ``qk256``, BitNet32-F16 / Split32 as ``bitnet32`` where their scale
+  blocks run along K; every other linear, and a per-block tensor whose
+  blocks do not run along K, is densified (``:262-282``) to a ``dense``
+  linear in ``param_dtype``.  ``mode="dense"`` densifies every linear;
+- a ``LoadReport`` of what happened (the flavors, each role's kind, the
+  tensors dequantized), with the GGUF's ``eos_token_id``.
+
+The QK256 repack is the numpy route (the JAX package's native codec,
+``:228-234``, is not ported): a whole 2B qk256 GGUF loads in 13–16 s by
+it (12.80 and 16.25 s on the H100 machine's host, ``chip_smoke.py``'s
+checkpoints phase), not the minutes the JAX loader's note implies.  A
+QK256 linear densified under
+``mode="dense"`` is unpacked in torch on the load's device from the
+payload's bytes: the values are the LUT's small integers, exact in bf16,
+so the result equals the numpy route's (``_to_float`` → ``.T`` → the
+param dtype) bit for bit, without an f32 copy of the weights on the host.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -20,10 +41,10 @@ from ..device_probe import resolve_device
 from ..errors import ModelError
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader, TensorInfo
-from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes,
+from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes, dense_linear,
                           qk256_linear_from_payload)
 from ..ops.rope import build_rope_tables
-from ..quant import i2s, qk256
+from ..quant import ggml_classic, i2s, qk256
 from ..quant.flavor import I2SFlavor, detect_i2s_flavor
 from .arch_registry import resolve_arch, validate_config_for_arch
 from .bitnet import BitNetParams, BlockParams
@@ -32,13 +53,53 @@ from .memory import validate_memory
 from .weight_map import find_global, find_layer, require_layer, scale_sibling_name
 
 
+@dataclasses.dataclass
+class LoadReport:
+    """What happened at load (``bitnet_tpu/models/loader.py:47-55``): each
+    I2_S tensor's flavor, each role's kind (``dense`` / ``qk256`` /
+    ``bitnet32``), the tensors dequantized, the config, and the GGUF's
+    ``tokenizer.ggml.eos_token_id``."""
+
+    path: str
+    flavors: dict[str, str]
+    kinds: dict[str, str]
+    dequantized: list[str]
+    config: ModelConfig | None = None
+    eos_token_id: int | None = None
+
+
+_CLASSIC = {GGMLType.Q8_0: ggml_classic.dequantize_q8_0,
+            GGMLType.Q4_0: ggml_classic.dequantize_q4_0,
+            GGMLType.Q4_1: ggml_classic.dequantize_q4_1,
+            GGMLType.Q5_0: ggml_classic.dequantize_q5_0,
+            GGMLType.Q5_1: ggml_classic.dequantize_q5_1,
+            GGMLType.Q4_K: ggml_classic.dequantize_q4_k,
+            GGMLType.Q6_K: ggml_classic.dequantize_q6_k}
+
+
+# float GGUF types: (the numpy view of the payload, the torch dtype of its bits)
+_FLOAT_VIEWS = {GGMLType.F32: (np.float32, torch.float32),
+                GGMLType.F16: (np.float16, torch.float16),
+                GGMLType.BF16: (np.int16, torch.bfloat16)}
+
+
 def _to_float(reader: GGUFReader, info: TensorInfo) -> np.ndarray:
-    """An F32 / F16 tensor, or an I2_S one dequantized, as float32
-    [logical_shape] (``bitnet_tpu/models/loader.py:87-138``; the numpy
-    golden model of ``verify/crossval.py`` reads every tensor through it)."""
-    if info.ggml_type in (GGMLType.F32, GGMLType.F16):
+    """Any supported tensor as float32 [logical_shape]
+    (``bitnet_tpu/models/loader.py:87-140``; the numpy golden model of
+    ``verify/crossval.py`` reads every tensor through it)."""
+    t = info.ggml_type
+    if t in (GGMLType.F32, GGMLType.F16, GGMLType.F64):
         return np.asarray(reader.tensor_data(info.name), dtype=np.float32)
-    if info.ggml_type == GGMLType.I2_S:
+    if t == GGMLType.BF16:
+        raw = reader.tensor_data(info.name)          # uint16 words
+        return (raw.astype(np.uint32) << 16).view(np.float32).astype(np.float32)
+    if t == GGMLType.IQ2_S:
+        return qk256.dequantize_iq2s(reader.tensor_bytes(info.name),
+                                     info.nelems).reshape(info.logical_shape)
+    if t in _CLASSIC:
+        return _CLASSIC[t](reader.tensor_bytes(info.name),
+                           info.nelems).reshape(info.logical_shape)
+    if t == GGMLType.I2_S:
         flavor = detect_i2s_flavor(info.nelems, info.nbytes, name=info.name,
                                    cols=int(info.shape[0]) if info.shape else None)
         raw = reader.tensor_bytes(info.name)
@@ -54,9 +115,7 @@ def _to_float(reader: GGUFReader, info: TensorInfo) -> np.ndarray:
                 scales = _to_float(reader, reader.tensors[cand]).reshape(-1)
                 break
         return i2s.dequantize_split32(raw, info.nelems, scales).reshape(shape)
-    raise ModelError(
-        f"{info.name}: tensor type {info.ggml_type.name} is not ported yet "
-        "(the port loads F32/F16 and I2_S; ROADMAP.md queue 1 #7)")
+    raise ModelError(f"{info.name}: unsupported tensor type {t.name} for dequant")
 
 
 def _i2s_codes_and_scales(reader: GGUFReader, info: TensorInfo,
@@ -88,52 +147,104 @@ def _i2s_codes_and_scales(reader: GGUFReader, info: TensorInfo,
     return codes, scales[: rows * (cols // 32)].reshape(rows, cols // 32)
 
 
-def _load_linear(reader: GGUFReader, name: str, out_dim: int,
-                 in_dim: int) -> TernaryLinear:
-    """One [out, in] I2_S weight → TernaryLinear ([K=in, N=out]): QK256 →
-    ``qk256``; BitNet32-F16 / Split32 → ``bitnet32`` (``:195-261``).  A
-    per-block tensor whose blocks do not run along K (stored transposed
-    with scales that differ, or blocks that straddle rows) is densified by
-    the JAX package; the port has no dense linear and raises."""
+def qk256_dense_kn(payload: np.ndarray, rows: int, cols: int, transposed: bool,
+                   dtype: torch.dtype, device) -> torch.Tensor:
+    """A QK256 payload stored [rows, cols] → its dense [K, N] weight in
+    ``dtype`` on ``device``: the codes unpacked in torch from the bytes
+    (4 a byte, LSB first), LUT values {-2, -1, 1, 2}, transposed unless
+    the tensor is stored [in, out] already.  Equal bit for bit to
+    ``dequantize_qk256`` → ``.T`` → ``dtype`` (the values are exact)."""
+    stride = qk256.row_stride_bytes(cols)
+    raw = np.ascontiguousarray(payload, dtype=np.uint8).reshape(-1)
+    if raw.size < rows * stride:
+        raise ModelError(f"QK256 payload too small: {raw.size} < {rows * stride} "
+                         f"bytes for [{rows}, {cols}]")
+    b = torch.from_numpy(raw[: rows * stride].copy()).to(device).view(rows, stride)
+    codes = torch.stack([(b >> s) & 3 for s in (0, 2, 4, 6)], dim=-1)
+    codes = codes.view(rows, stride * 4)[:, :cols].to(torch.int8)
+    vals = (codes + (codes >= 2).to(torch.int8) - 2).to(dtype)     # [rows, cols]
+    return vals.contiguous() if transposed else vals.t().contiguous()
+
+
+def _load_linear(reader: GGUFReader, name: str, out_dim: int, in_dim: int,
+                 mode: str = "auto", report: LoadReport | None = None,
+                 role: str = "", param_dtype: torch.dtype = torch.bfloat16,
+                 device="cpu") -> TernaryLinear:
+    """One [out, in] weight → a linear in the [K=in, N=out] layout
+    (``bitnet_tpu/models/loader.py:195-282``).  ``mode="auto"``: QK256 →
+    ``qk256``; BitNet32-F16 / Split32 → ``bitnet32`` where the scale blocks
+    run along K (a transposed tensor with one uniform scale carries over);
+    anything else → ``dense`` in ``param_dtype`` (a warning names a
+    per-block tensor that cannot keep its layout).  ``mode="dense"``
+    densifies every linear.  ``report`` records the flavor and kind."""
+    report = report if report is not None else LoadReport("", {}, {}, [])
     info = reader.tensors[name]
-    if info.ggml_type != GGMLType.I2_S:
-        raise ModelError(
-            f"{name}: {info.ggml_type.name} linears run the generic path, "
-            "not ported yet (ROADMAP.md queue 1 #7)")
-    flavor = detect_i2s_flavor(info.nelems, info.nbytes, name=name,
-                               cols=int(info.shape[0]) if info.shape else None)
     shape = info.logical_shape
-    if shape == (out_dim, in_dim):
-        transposed = False
-    elif shape == (in_dim, out_dim):
+    transposed = False
+    if shape == (in_dim, out_dim) and shape != (out_dim, in_dim):
         transposed = True
-    else:
+    elif shape != (out_dim, in_dim) and int(np.prod(shape)) != out_dim * in_dim:
         raise ModelError(f"{name}: shape {shape} incompatible with expected "
                          f"({out_dim}, {in_dim})")
-    if flavor == I2SFlavor.GGML_QK256_NO_SCALE:
-        return qk256_linear_from_payload(reader.tensor_bytes(name), out_dim,
-                                         in_dim, transposed=transposed)
-    codes, scales = _i2s_codes_and_scales(reader, info, flavor)
-    if scales is not None and not transposed:
-        return bitnet32_linear_from_codes(codes.T, scales.T.copy())
-    if scales is not None:
-        # the blocks run along the stored rows, i.e. along N: only a
-        # uniform scale carries over to the K-block layout
-        uniq = np.unique(scales)
-        if uniq.size == 1 and in_dim % 32 == 0:
-            return bitnet32_linear_from_codes(
-                np.ascontiguousarray(codes),
-                np.full((in_dim // 32, out_dim), uniq[0], np.float32))
-    raise ModelError(
-        f"{name}: {flavor.value} tensor whose scale blocks do not run along K "
-        "needs a dense linear, not ported yet (ROADMAP.md queue 1 #7)")
+    flavor = None
+    if info.ggml_type == GGMLType.I2_S:
+        flavor = detect_i2s_flavor(info.nelems, info.nbytes, name=name,
+                                   cols=int(info.shape[0]) if info.shape else None)
+    if mode != "dense" and flavor is not None:
+        report.flavors[name] = flavor.value
+        if flavor == I2SFlavor.GGML_QK256_NO_SCALE:
+            report.kinds[role] = "qk256"
+            return qk256_linear_from_payload(reader.tensor_bytes(name), out_dim,
+                                             in_dim, transposed=transposed)
+        codes, scales = _i2s_codes_and_scales(reader, info, flavor)
+        if scales is not None and not transposed:
+            report.kinds[role] = "bitnet32"
+            return bitnet32_linear_from_codes(codes.T, scales.T.copy())
+        from ..obs.warn_once import warn_once
+
+        if scales is not None:
+            # the blocks run along the stored rows, i.e. along N: only a
+            # uniform scale carries over to the K-block layout
+            uniq = np.unique(scales)
+            if uniq.size == 1 and in_dim % 32 == 0:
+                report.kinds[role] = "bitnet32"
+                return bitnet32_linear_from_codes(
+                    np.ascontiguousarray(codes),
+                    np.full((in_dim // 32, out_dim), uniq[0], np.float32))
+            warn_once(f"{name}: transposed {flavor.value} tensor with per-block "
+                      "scales cannot keep the packed kernel layout — "
+                      "dequantizing to dense")
+        else:
+            warn_once(f"{name}: {flavor.value} block structure did not align "
+                      "(cols % 32 != 0) — dequantizing to dense")
+    report.kinds[role] = "dense"
+    report.dequantized.append(name)
+    if flavor == I2SFlavor.GGML_QK256_NO_SCALE and len(shape) == 2:
+        return dense_linear(qk256_dense_kn(reader.tensor_bytes(name), shape[0],
+                                           shape[1], transposed, param_dtype, device))
+    if info.ggml_type in _FLOAT_VIEWS and len(shape) == 2:
+        # float storage: widened to f32 and cast on the load's device (the
+        # numpy route's values without its f32 host copy and transpose: a 2B
+        # HF directory's load 2.26 s against 23.6 s, PERF.md §6 PR 25)
+        np_dt, t_dt = _FLOAT_VIEWS[info.ggml_type]
+        raw = np.ascontiguousarray(reader.tensor_data(name)).view(np_dt)
+        w = torch.from_numpy(raw.copy()).to(device).view(t_dt).to(torch.float32)
+        return dense_linear((w if transposed else w.t()).to(param_dtype).contiguous())
+    w = _to_float(reader, info)
+    w = w.reshape(shape if len(shape) == 2 else (out_dim, in_dim))
+    w_kn = w if transposed else w.T                 # [K=in, N=out]
+    return dense_linear(torch.from_numpy(np.ascontiguousarray(w_kn)).to(
+        device=device, dtype=param_dtype))
 
 
 def _stack_linears(lins: list[TernaryLinear]) -> TernaryLinear:
     kinds = {l.kind for l in lins}
     if len(kinds) != 1:
         raise ModelError(f"cannot stack heterogeneous linear kinds {kinds}")
-    return TernaryLinear(kind=kinds.pop(), k=lins[0].k, n=lins[0].n,
+    kind = kinds.pop()
+    if kind == "dense":
+        return dense_linear(torch.stack([l.weight for l in lins]))
+    return TernaryLinear(kind=kind, k=lins[0].k, n=lins[0].n,
                          packed=torch.stack([l.packed for l in lins]),
                          scales=torch.stack([l.scales for l in lins]))
 
@@ -142,19 +253,56 @@ def _vec(reader: GGUFReader, name: str, n: int) -> torch.Tensor:
     return torch.from_numpy(_to_float(reader, reader.tensors[name]).reshape(n).copy())
 
 
-def load_model(path: str, max_seq_len: int | None = None,
+def _resolve_checkpoint(path: str) -> str:
+    """Format dispatch (``bitnet_tpu/models/loader.py:301-331``): a GGUF
+    passes through; a SafeTensors file or a checkpoint directory of them is
+    converted once to a sibling GGUF (``<file stem>.converted.gguf``, or
+    ``<dir>.converted.gguf``) through ``tools/st2gguf.py`` (f16 linears,
+    f32 norms, ``config.json`` honored; BF16 tensors widened to f32 first,
+    as the JAX route reads them through ``ml_dtypes``), and reconverted
+    only when a shard is newer than the cache."""
+    is_dir = os.path.isdir(path)
+    if is_dir:
+        shards = [f for f in sorted(os.listdir(path)) if f.endswith(".safetensors")]
+        if not shards:
+            raise ModelError(f"{path}: directory has no .safetensors")
+    elif not path.endswith(".safetensors"):
+        return path
+    from ..tools.st2gguf import convert_safetensors_to_gguf
+
+    if is_dir:
+        src_mtime = max(os.path.getmtime(os.path.join(path, f)) for f in shards)
+        cache = path.rstrip("/") + ".converted.gguf"
+    else:
+        src_mtime = os.path.getmtime(path)
+        cache = path[: -len(".safetensors")] + ".converted.gguf"
+    if not os.path.exists(cache) or os.path.getmtime(cache) < src_mtime:
+        convert_safetensors_to_gguf(path, cache)
+    return cache
+
+
+def load_model(path: str, mode: str = "auto", max_seq_len: int | None = None,
                param_dtype: torch.dtype = torch.bfloat16, device="cuda"
-               ) -> tuple[ModelConfig, BitNetParams, dict]:
-    """Load a BitNet GGUF onto ``device`` (the card unless the caller asks
-    for ``"cpu"``; without CUDA the default raises, as every entry point
-    does).  Returns (cfg, params on that device, metadata with
-    ``eos_token_id``).  Before any tensor is read, the architecture's
-    envelope is checked (a ModelError outside it) and the memory estimate
-    against the device's memory (a warning past it; none on the CPU), as
-    the JAX ``load_model`` checks against the accelerator (``:352-359``)."""
+               ) -> tuple[ModelConfig, BitNetParams, LoadReport]:
+    """Load a BitNet checkpoint onto ``device`` (the card unless the caller
+    asks for ``"cpu"``; without CUDA the default raises, as every entry
+    point does): a GGUF natively, a SafeTensors file or an HF checkpoint
+    directory through :func:`_resolve_checkpoint`.  ``mode``: ``"auto"``
+    keeps I2_S linears packed, ``"dense"`` densifies every linear to
+    ``param_dtype`` (the embedding's dtype too).  Returns (cfg, params on
+    that device, LoadReport).  Before any tensor is read, the
+    architecture's envelope is checked (a ModelError outside it) and the
+    memory estimate against the device's memory (a warning past it; none
+    on the CPU), as the JAX ``load_model`` checks against the accelerator
+    (``:352-359``)."""
+    if mode not in ("auto", "dense"):
+        raise ModelError(f"bad load mode {mode!r} (auto | dense)")
     dev = resolve_device(device)
+    path = _resolve_checkpoint(path)
+    report = LoadReport(path=path, flavors={}, kinds={}, dequantized=[])
     with GGUFReader(path) as r:
         cfg = config_from_gguf(r)
+        report.config = cfg
         validate_config_for_arch(cfg, resolve_arch(cfg.architecture))
         validate_memory(cfg, strict=False, device=dev)
         names = set(r.tensors)
@@ -169,17 +317,20 @@ def load_model(path: str, max_seq_len: int | None = None,
 
         H, F = cfg.hidden_size, cfg.intermediate_size
         nh, nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        shapes = {"attn_q": (nh * D, H), "attn_k": (nkv * D, H),
-                  "attn_v": (nkv * D, H), "attn_output": (H, nh * D),
-                  "ffn_gate": (F, H), "ffn_up": (F, H), "ffn_down": (H, F)}
+        shapes = {"attn_q": ("wq", nh * D, H), "attn_k": ("wk", nkv * D, H),
+                  "attn_v": ("wv", nkv * D, H), "attn_output": ("wo", H, nh * D),
+                  "ffn_gate": ("w_gate", F, H), "ffn_up": ("w_up", F, H),
+                  "ffn_down": ("w_down", H, F)}
         lin: dict[str, list] = {k: [] for k in shapes}
         norms: dict[str, list] = {"attn_norm": [], "ffn_norm": [],
                                   "attn_sub_norm": [], "ffn_sub_norm": []}
         widths = {"attn_norm": H, "ffn_norm": H, "attn_sub_norm": nh * D,
                   "ffn_sub_norm": F}
         for i in range(cfg.num_layers):
-            for role, (o, k) in shapes.items():
-                lin[role].append(_load_linear(r, require_layer(names, role, i), o, k))
+            for name, (role, o, k) in shapes.items():
+                lin[name].append(_load_linear(
+                    r, require_layer(names, name, i), o, k, mode, report, role,
+                    param_dtype, dev))
             for role in norms:
                 nm = find_layer(names, role, i)
                 if nm is None and role in ("attn_norm", "ffn_norm"):
@@ -192,6 +343,7 @@ def load_model(path: str, max_seq_len: int | None = None,
                                  f"of {cfg.num_layers} layers")
         if norms["attn_sub_norm"]:
             cfg = cfg.replace(use_sub_norm=True)
+            report.config = cfg
 
         def stack(role):
             return torch.stack(norms[role]) if norms[role] else None
@@ -213,13 +365,14 @@ def load_model(path: str, max_seq_len: int | None = None,
         sin, cos = build_rope_tables(D, max_seq_len or cfg.max_seq_len,
                                      cfg.rope_base, device="cpu")   # moved below
         lm_head = None
-        if not cfg.tie_word_embeddings:       # untied output.weight [V, H]
-            lm_head = _load_linear(r, find_global(names, "output"),
-                                   cfg.vocab_size, H)
+        out_name = find_global(names, "output")
+        if out_name is not None:             # untied output.weight [V, H]
+            lm_head = _load_linear(r, out_name, cfg.vocab_size, H, mode, report,
+                                   "lm_head", param_dtype, dev)
         params = BitNetParams(
             embed=torch.from_numpy(np.array(embed)).to(param_dtype),
             blocks=blocks, final_norm=_vec(r, fn_name, H),
             rope_sin=sin, rope_cos=cos, lm_head=lm_head)
         eos = r.metadata.get("tokenizer.ggml.eos_token_id")
-        meta = {"eos_token_id": None if eos is None else int(eos)}
-    return cfg, params.to(dev), meta
+        report.eos_token_id = None if eos is None else int(eos)
+    return cfg, params.to(dev), report

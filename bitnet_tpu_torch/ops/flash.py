@@ -17,7 +17,10 @@ def flash_attention(q: torch.Tensor,             # [B, Tq, H, D]
                     v: torch.Tensor,             # [B, S, KV, D]
                     q_positions: torch.Tensor,   # [B, Tq]
                     kv_valid_len: torch.Tensor,  # [B]
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512,
+                    window: int | None = None) -> torch.Tensor:
+    """``window`` adds ``slot > q_position - window`` to the causal mask
+    (``bitnet_tpu/ops/flash.py:26-34``)."""
     B, Tq, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -33,6 +36,8 @@ def flash_attention(q: torch.Tensor,             # [B, Tq, H, D]
         slot = torch.arange(c0, c1, device=q.device, dtype=torch.int32)
         mask = ((slot[None, None, :] <= q_positions[:, :, None])
                 & (slot[None, None, :] < kv_valid_len[:, None, None]))
+        if window is not None:
+            mask = mask & (slot[None, None, :] > q_positions[:, :, None] - window)
         s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)

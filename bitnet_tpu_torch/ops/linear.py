@@ -15,7 +15,9 @@ Columns are padded to a multiple of 128 (``LANE``) and K to a multiple of
 256 with code 0; the kernels never read padded K rows past ``k`` for
 qk256 weights of the main path (K == Kp there).
 
-Kinds (``bitnet_tpu/ops/linear.py:123-140``): ``qk256`` (value = LUT[code]
+Kinds (``bitnet_tpu/ops/linear.py:123-140``): ``dense`` (``weight`` [(L,)
+K, N] floats, one plain matmul: the F32 / F16 / BF16 / GGML-classic
+linears, and every linear of ``mode="dense"``), ``qk256`` (value = LUT[code]
 {-2,-1,1,2} times a per-tensor or fused per-column scale), ``bitnet32``
 (LUT[code] times a per-32-row block scale) and ``tl`` (TL1/TL2 levels
 ``code - 2`` times a per-block scale, the blocks of 64 / 128 rows arriving
@@ -31,7 +33,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import not_ported
 from ..errors import QuantizationError
 from ..quant.qk256 import extract_codes
 from .rmsnorm import rms_norm
@@ -117,19 +118,37 @@ class TernaryLinear:
     (``[]`` / ``[L]``) or, after fusion, a per-column vector ``[(L,) 1,
     Np]``; for bitnet32 / tl the block scales ``[(L,) Kp/32, Np]`` (f32).
     ``col_scales`` is the form the qk256 kernels read, ``[L, Np]`` f32 (L = 1
-    unstacked), attached once by :func:`with_col_scales`."""
+    unstacked), attached once by :func:`with_col_scales`.  A ``dense``
+    linear holds ``weight`` [(L,) K, N] (the load's ``param_dtype``) and no
+    words or scales."""
 
     kind: str
     k: int
     n: int
-    packed: torch.Tensor
-    scales: torch.Tensor
+    packed: Optional[torch.Tensor] = None
+    scales: Optional[torch.Tensor] = None
     col_scales: Optional[torch.Tensor] = None
+    weight: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TernaryLinear":
+        def mv(t):
+            return None if t is None else t.to(device)
+
         return dataclasses.replace(
-            self, packed=self.packed.to(device), scales=self.scales.to(device),
-            col_scales=None if self.col_scales is None else self.col_scales.to(device))
+            self, packed=mv(self.packed), scales=mv(self.scales),
+            col_scales=mv(self.col_scales), weight=mv(self.weight))
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the linear carries a leading [L] axis."""
+        return (self.weight if self.kind == "dense" else self.packed).ndim == 3
+
+
+def dense_linear(weight_kn: torch.Tensor) -> TernaryLinear:
+    """A dense [K, N] (or [L, K, N]) weight → a ``dense`` linear
+    (``bitnet_tpu/ops/linear.py:280-282``)."""
+    return TernaryLinear(kind="dense", k=weight_kn.shape[-2], n=weight_kn.shape[-1],
+                         weight=weight_kn)
 
 
 def with_col_scales(lin: TernaryLinear) -> TernaryLinear:
@@ -203,8 +222,10 @@ def qk256_linear_from_payload(payload: np.ndarray, out_dim: int, in_dim: int,
     """QK256 GGUF payload → TernaryLinear.  GGUF stores ``[out, in]``
     (``transposed`` = stored ``[in, out]``).  This is the numpy route —
     extract, transpose, repack, fold — which the JAX package replaced by a
-    native codec because it takes minutes on a 2B checkpoint
-    (bitnet_tpu/models/loader.py:229-230)."""
+    native codec (it noted ~170 s on a 2B checkpoint,
+    bitnet_tpu/models/loader.py:229-230).  Here a whole 2B qk256 GGUF loads
+    in 13–16 s by this route (``chip_smoke.py``'s checkpoints phase on the
+    H100 machine's host: 12.80 and 16.25 s in two runs)."""
     if transposed:
         codes_kn = extract_codes(payload, in_dim, out_dim)
     else:
@@ -239,7 +260,10 @@ BLOCK_KINDS = ("bitnet32", "tl")
 
 def dequantize_weight(lin: TernaryLinear, dtype=torch.bfloat16) -> torch.Tensor:
     """Dense [K, N] weight of an unstacked linear
-    (``bitnet_tpu/ops/linear.py:173-196``), computed in f32 and cast."""
+    (``bitnet_tpu/ops/linear.py:173-196``), computed in f32 and cast; a
+    dense linear's weight cast."""
+    if lin.kind == "dense":
+        return lin.weight.to(dtype)
     codes = unpack_packed(lin.packed)[: lin.k, : lin.n]
     if lin.kind in BLOCK_KINDS:
         # tl: value = code - 2 (tl1.rs:49-82); bitnet32: the LUT
@@ -259,10 +283,13 @@ def dequantize_weight(lin: TernaryLinear, dtype=torch.bfloat16) -> torch.Tensor:
 def concat_linears(lins: list[TernaryLinear]) -> TernaryLinear:
     """Concatenate linears along N (q|k|v, gate|up).  qk256 scalar
     per-tensor scales become a per-column vector ``[..., 1, Ntot]``; block
-    scales concatenate along N."""
+    scales concatenate along N; dense weights concatenate along N at any
+    width (``bitnet_tpu/ops/linear.py:265-300``)."""
     kinds = {l.kind for l in lins}
-    if len(kinds) != 1 or not kinds <= {"qk256", *BLOCK_KINDS}:
+    if len(kinds) != 1 or not kinds <= {"dense", "qk256", *BLOCK_KINDS}:
         raise QuantizationError(f"cannot fuse kinds {kinds}")
+    if kinds == {"dense"}:
+        return dense_linear(torch.cat([l.weight for l in lins], dim=-1))
     if any(l.n % LANE != 0 for l in lins):
         raise QuantizationError(
             f"fusion needs 128-aligned widths, got {[l.n for l in lins]}")
@@ -303,11 +330,17 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
     with the branch rule of the JAX kernels' dispatcher
     (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
 
-    ``lin``: a qk256, bitnet32 or tl linear, stacked ``[L, Kp/16, Np]``
-    (row ``layer``) or unstacked; ``x`` [..., K] (``[..., 2K]`` with
-    ``glu``); ``gamma`` the RMSNorm weight (``[L, K]`` for a stack, ``[K]``
+    ``lin``: a dense, qk256, bitnet32 or tl linear, stacked (row
+    ``layer``) or unstacked; ``x`` [..., K] (``[..., 2K]`` with ``glu``);
+    ``gamma`` the RMSNorm weight (``[L, K]`` for a stack, ``[K]``
     unstacked) or None; ``resid`` [..., N].  Returns [..., N] in x's dtype.
 
+    - dense, on every path: SwiGLU, the norm and the residual in torch and
+      one plain matmul, f32 accumulation, cast back to x's dtype (JAX
+      ``jnp.matmul(x, w.astype(x.dtype), preferred_element_type=f32)``,
+      ``:215-218``): on the card a bf16 x meets the bf16 weight in one
+      cuBLAS GEMM that writes f32 (``torch.mm(out_dtype=)``), elsewhere
+      both are widened to f32 (exact products of bf16 values, f32 sums);
     - qk256 on ``w2a8`` with M ≤ 64 rows and K == Kp: K1, with the norm,
       SwiGLU and residual fused (the ``w2a8_normed`` site ``:1073``);
     - otherwise SwiGLU and the norm run in plain torch, then the path picks
@@ -322,8 +355,10 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
     if path not in ("xla", "w2a8", "pallas"):
         raise ValueError(f"bad kernel path {path!r}")
     block = lin.kind in BLOCK_KINDS
+    if lin.kind == "dense":
+        return _dense_apply(lin, x, gamma, eps, glu, resid, layer)
     if lin.kind != "qk256" and not block:
-        raise not_ported(f"{lin.kind} linears", "#7")
+        raise QuantizationError(f"unknown TernaryLinear kind {lin.kind!r}")
     if path != "xla" and not block and lin.col_scales is None:
         raise ValueError("the kernels read col_scales: with_col_scales(lin) first")
     stacked = lin.packed.ndim == 3
@@ -365,4 +400,35 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
                                    k_dim=lin.k, n_dim=lin.n)
     if r2 is not None:
         y = y + r2
+    return y.reshape(*lead, lin.n)
+
+
+def dense_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ [K, N] with f32 accumulation, in x's dtype: the weight
+    cast to x's dtype first, as ``jnp.matmul(x, w.astype(x.dtype),
+    preferred_element_type=f32)`` computes it."""
+    w = w.to(x2.dtype)
+    if x2.dtype == torch.float32:
+        return torch.matmul(x2, w)
+    if x2.is_cuda:
+        return torch.mm(x2, w, out_dtype=torch.float32).to(x2.dtype)
+    return torch.matmul(x2.to(torch.float32), w.to(torch.float32)).to(x2.dtype)
+
+
+def _dense_apply(lin: TernaryLinear, x: torch.Tensor, gamma, eps: float,
+                 glu: bool, resid, layer: int) -> torch.Tensor:
+    """The dense branch of :func:`linear_apply_normed`
+    (``bitnet_tpu/ops/linear.py:227-262`` on a dense linear)."""
+    stacked = lin.weight.ndim == 3
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if glu:
+        K = x2.shape[-1] // 2
+        gate = x2[:, :K]
+        x2 = gate * torch.sigmoid(gate) * x2[:, K:]
+    if gamma is not None:
+        x2 = rms_norm(x2, gamma[layer] if stacked else gamma, eps)
+    y = dense_matmul(x2, lin.weight[layer] if stacked else lin.weight)
+    if resid is not None:
+        y = y + resid.reshape(-1, lin.n)
     return y.reshape(*lead, lin.n)

@@ -72,7 +72,7 @@ import functools
 
 import torch
 
-from ..errors import KernelError
+from ..errors import KernelError, QuantizationError
 from . import _cuda
 from .linear import TernaryLinear, linear_apply_normed, unpack_packed
 
@@ -921,8 +921,14 @@ def ternary_matmul_pallas(lin: TernaryLinear, x: torch.Tensor,
     bitnet32 / TL weights on either: the JAX
     dispatcher of this name (``bitnet_tpu/ops/ternary_matmul.py:1266-1326``).
     Its branch rule lives in :func:`~.linear.linear_apply_normed`, which
-    shares the SwiGLU / norm / residual steps with the ``xla`` path."""
+    shares the SwiGLU / norm / residual steps with the ``xla`` path.  A
+    dense linear has no words for a kernel to read and is refused, as the
+    JAX dispatcher fails on it (``lin.packed`` is None there)."""
     if variant not in ("w2a8", "pallas"):
         raise ValueError(f"bad variant {variant!r}")
+    if lin.kind == "dense":
+        raise QuantizationError(
+            "a dense linear has no packed words for the ternary kernels; "
+            "linear_apply runs it as a plain matmul")
     return linear_apply_normed(lin, x, gamma, eps=eps, path=variant, glu=glu,
                                resid=resid, layer=layer)

@@ -3,7 +3,10 @@
 Own copy of what the port needs from ``bitnet_tpu/quant/qk256.py``: 64 B
 of packed 2-bit codes per 256-element block (value = LUT[code], see
 ``quant/ternary.py``), each row of a [rows, cols] weight padded
-independently to whole blocks.
+independently to whole blocks; and IQ2_S (ggml type 24): 82 B a
+256-element block = 2 B f16 ``d`` + 64 B ``qs`` + 8 B ``qh`` + 8 B
+``scales`` (qh / scales unused by the simplified codec), value = ``d *
+LUT[code]`` (``bitnet_tpu/quant/qk256.py:93-140``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from .ternary import (LUT_SYM, pack_codes_lsb_first, ternary_quantize_codes,
 
 QK256_BLOCK = 256
 QK256_PACKED_BYTES = 64
+IQ2S_BLOCK_BYTES = 82
 
 
 def row_stride_bytes(cols: int) -> int:
@@ -54,3 +58,40 @@ def dequantize_qk256(payload: np.ndarray | bytes, rows: int, cols: int) -> np.nd
     raw = (np.frombuffer(payload, dtype=np.uint8) if isinstance(payload, bytes)
            else payload)
     return LUT_SYM[extract_codes(raw, rows, cols)]
+
+
+def quantize_iq2s(x: np.ndarray) -> bytes:
+    """Flat / 2-D floats → IQ2_S blocks (82 B each): d = absmax / 2 per
+    256-block, the qh and scales fields zeroed."""
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    if x.size % QK256_BLOCK != 0:
+        raise QuantizationError(f"IQ2_S requires nelems % 256 == 0, got {x.size}")
+    nblocks = x.size // QK256_BLOCK
+    blocked = x.reshape(nblocks, QK256_BLOCK)
+    absmax = np.abs(blocked).max(axis=1)
+    absmax = np.where(absmax == 0.0, 1e-8, absmax)
+    d = (absmax / 2.0).astype(np.float32)
+    codes = ternary_quantize_codes(blocked, d[:, None])
+    qs = pack_codes_lsb_first(codes.reshape(-1)).reshape(nblocks, QK256_PACKED_BYTES)
+    out = np.zeros((nblocks, IQ2S_BLOCK_BYTES), dtype=np.uint8)
+    out[:, 0:2] = d.astype(np.float16).view(np.uint8).reshape(nblocks, 2)
+    out[:, 2:2 + QK256_PACKED_BYTES] = qs
+    return out.tobytes()
+
+
+def dequantize_iq2s(payload: np.ndarray | bytes, nelems: int) -> np.ndarray:
+    """IQ2_S payload → flat float32 (d * LUT[code])."""
+    raw = (np.frombuffer(payload, dtype=np.uint8) if isinstance(payload, bytes)
+           else np.ascontiguousarray(payload, dtype=np.uint8))
+    if nelems % QK256_BLOCK != 0:
+        raise QuantizationError(f"IQ2_S requires nelems % 256 == 0, got {nelems}")
+    nblocks = nelems // QK256_BLOCK
+    need = nblocks * IQ2S_BLOCK_BYTES
+    if raw.size < need:
+        raise QuantizationError(f"IQ2_S: payload {raw.size} B < required {need} B")
+    blocks = raw[:need].reshape(nblocks, IQ2S_BLOCK_BYTES)
+    d = np.ascontiguousarray(blocks[:, 0:2]).view(np.float16).reshape(nblocks)
+    qs = blocks[:, 2:2 + QK256_PACKED_BYTES]
+    codes = unpack_codes_lsb_first(qs.reshape(-1))
+    vals = LUT_SYM[codes].reshape(nblocks, QK256_BLOCK) * d.astype(np.float32)[:, None]
+    return vals.reshape(-1).astype(np.float32)

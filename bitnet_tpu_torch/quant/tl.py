@@ -108,12 +108,19 @@ def tl_quantize_dense(w: torch.Tensor, block: int) -> TernaryLinear:
 def quantize_linear_tl(lin: TernaryLinear, block: int) -> TernaryLinear:
     """Re-quantize a linear (2-D or [L]-stacked, layer by layer) into the
     TL kernel layout, on its device, from its f32 dense weights (the JAX
-    package's ``_dense_host_kn``, ``quant/tl.py:88-108``)."""
-    if lin.packed.ndim == 2:
+    package's ``_dense_host_kn``, ``quant/tl.py:88-108``; a dense linear's
+    weight as it is)."""
+    if not lin.stacked:
         return tl_quantize_dense(dequantize_weight(lin, torch.float32), block)
-    layers = [tl_quantize_dense(dequantize_weight(dataclasses.replace(
-        lin, packed=lin.packed[li], scales=lin.scales[li]), torch.float32), block)
-        for li in range(lin.packed.shape[0])]
+
+    def layer(li):
+        if lin.kind == "dense":
+            return dataclasses.replace(lin, weight=lin.weight[li])
+        return dataclasses.replace(lin, packed=lin.packed[li], scales=lin.scales[li])
+
+    L = (lin.weight if lin.kind == "dense" else lin.packed).shape[0]
+    layers = [tl_quantize_dense(dequantize_weight(layer(li), torch.float32), block)
+              for li in range(L)]
     return TernaryLinear(kind="tl", k=layers[0].k, n=layers[0].n,
                          packed=torch.stack([l.packed for l in layers]),
                          scales=torch.stack([l.scales for l in layers]))

@@ -20,6 +20,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py --phases probe,build,k33
     python3 chip_smoke.py --phases probe,build,speculative
     python3 chip_smoke.py --phases probe,build,server
+    python3 chip_smoke.py --phases probe,build,checkpoints
 
 Phases (each prints one JSON line; any failure exits non-zero and prints
 no result line):
@@ -185,12 +186,31 @@ no result line):
            answer, /v1/embeddings while the pool decodes, /v1/models/load of
            the gate's bitnet32 GGUF and a request to each model (each
            against its own generate), checkpoint and resume, /v1/ws,
-           /metrics, /v1/devices; a load window of 256 streamed requests at
+           /metrics, /v1/devices; a load window of 128 streamed requests at
            Poisson arrivals of 6 a second from a client process: TTFT p50 /
            p90 / p99, latency, tok/s and ms a step over HTTP; K1, K3, K4, K8
            launched; then `python -m bitnet_tpu_torch.cli serve` as a
            process: /health, one request (near-tie rule against the generic
            engine), SIGTERM, exit 0
+  checkpoints  every checkpoint the JAX package loads, on the gate's 2B
+           qk256 GGUF: (a) loaded with mode="dense" (bf16 dense linears,
+           the CLI's engine: K5 L times a step and no other kernel), B=1
+           greedy requests of 32 and 128 tokens (prefill ms, decode ms a
+           step beside its byte bound, load s) held to the packed GGUF on
+           --kernel-path pallas (K6) under the near-tie rule, and its first
+           two layers card vs CPU (cosine >= 0.99); (b) the same weights
+           written as an HF directory (two f16 SafeTensors shards, the
+           index, config.json), converted once (timed) to a cached GGUF,
+           loaded by InferenceEngine.from_gguf(dir) and by `cli run -m
+           <dir>` in a process of its own, the cache reused (mtime
+           unchanged), tokens against (a)'s (near-tie rule), the files
+           deleted; (c) the packed GGUF on the windowed ring (W=256, bf16
+           KV, K1 at the generic site): a 64-token prompt and 512 greedy
+           eager tokens, those inside the window against the plain engine's
+           (near-tie rule), allocated memory flat after the first window,
+           decode ms and launches a step, then the ring's logits at every
+           position of that run, teacher-forced, against forward(window=W)
+           over a dense cache (cosine >= 0.99 on both sides of W)
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -218,7 +238,8 @@ HBM_BPS = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
-          "segments", "requests", "scheduler", "gate", "speculative", "server")
+          "segments", "requests", "scheduler", "gate", "speculative", "server",
+          "checkpoints")
 
 
 def emit(obj) -> None:
@@ -3623,19 +3644,26 @@ def phase_kernel_bench(torch, dev):
     """``python -m bitnet_tpu_torch.cli benchmark-kernels`` three times, as
     a user runs it: the 2B decode shapes (K6), ``--attention all --m 1``,
     and ``--attention all --m 8 --seq-len 4096``.  Every result must carry
-    the JAX tool's keys and a positive ``us_per_call``."""
+    the JAX tool's keys and a positive ``us_per_call``.  The CLI's ``main``
+    runs in this process, its stdout captured (a process each cost ~7 s
+    of start and card set-up; cut to make room for the checkpoints
+    phase)."""
+    import io
+
+    from bitnet_tpu_torch import cli
+
     keys = ["name", "k", "n", "m", "us_per_call", "packed_mb", "gbps"]
     out = {}
     for name, argv in (("shapes_2b", []), ("attention_m1", ["--attention", "all", "--m", "1"]),
                        ("attention_m8_s4096", ["--attention", "all", "--m", "8",
                                                "--seq-len", "4096"])):
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "bitnet_tpu_torch.cli",
-                            "benchmark-kernels", *argv], cwd=REPO, capture_output=True,
-                           text=True, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"benchmark-kernels {argv} failed: {r.stderr[-2000:]}")
-        rows = json.loads(r.stdout)
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            rc = cli.main(["benchmark-kernels", *argv])
+        if rc != 0:
+            raise AssertionError(f"benchmark-kernels {argv} failed: rc {rc}")
+        rows = json.loads(so.getvalue())
         if not rows or any(list(row) != keys or not row["us_per_call"] > 0
                            for row in rows):
             raise AssertionError(f"benchmark-kernels {argv}: {rows}")
@@ -5110,7 +5138,8 @@ SERVER_TOKENS = 32
 SERVER_PROMPT = "The capital of France is"
 SERVER_LONG = 200          # the request that decodes while (e) embeds
 SERVER_CK = 96             # the streamed request (g) checkpoints
-SERVER_LOAD = 256          # (i): requests in the load window
+SERVER_LOAD = 128          # (i): requests in the load window (256 until the
+                           # checkpoints phase needed the room)
 SERVER_RATE = 6.0          # (i): their mean arrival rate a second (Poisson),
                            # under what the pool serves saturated (PERF.md §6)
 
@@ -5260,7 +5289,7 @@ def phase_server(torch, dev, workdir):
     its own ``InferenceEngine.generate`` (near-tie rule); (g) /v1/admin/checkpoint of a
     streaming request and /v1/admin/resume: the resumed text is the
     stream's rest; (h) /v1/ws: the tokens of (a); /metrics; /v1/devices
-    (platform gpu); (i) the load window: 256 streamed requests at seeded
+    (platform gpu); (i) the load window: 128 streamed requests at seeded
     Poisson arrivals of 6 a second from a client process (``_http_load``),
     each 32 tokens.  Launches of K1, K3, K4 and K8 over the leg.
     As a process: ``python -m bitnet_tpu_torch.cli serve`` (the JAX serve's
@@ -5540,6 +5569,422 @@ def phase_server(torch, dev, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: checkpoints (dense and GGML-classic linears, SafeTensors files and
+# HF directories, the windowed ring cache): every checkpoint the JAX
+# package loads, at the 2B's full width
+# ---------------------------------------------------------------------------
+CKPT_S = 1024
+CKPT_REQUESTS = ((32, 32), (128, 128))   # (prompt tokens, new tokens), greedy
+CKPT_WINDOW = 256
+CKPT_RING = (64, 512)                    # prompt tokens, new tokens
+CKPT_FLAT_MIB = 1.0                      # allowed drift of allocated memory
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ckpt_ids(torch, n, V, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [int(t) for t in torch.randint(3, V, (n,), generator=gen)]
+
+
+def _decode_path_logits(eng, prompt, tokens):
+    """The B=1 decode path's logits after ``prompt`` + ``tokens`` (a
+    prefill, then one decode step a token)."""
+    import torch
+
+    with torch.inference_mode():
+        lg = eng.prefill(prompt)[0]
+        for i, t in enumerate(tokens):
+            lg = eng.decode_step(t, len(prompt) + i)[0]
+    return lg.float().cpu()
+
+
+def _pair_tie(torch, name, ref, eng, prompt, want, got):
+    """``got`` (``eng``'s greedy tokens) held to ``want`` (``ref``'s) under
+    the near-tie rule: equal up to the first position j where they part,
+    and there ``ref``'s logits prefer ``want[j]`` over ``got[j]`` by no more
+    than the largest difference between the two engines' logits of the
+    same context (each its B=1 decode path), at cosine >= 0.99."""
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        if len(want) != len(got):
+            raise AssertionError(f"{name}: {len(got)} tokens != {len(want)}")
+        return {"equal": True, "tokens": len(got)}
+    a = _decode_path_logits(ref, prompt, want[:j])
+    b = _decode_path_logits(eng, prompt, want[:j])
+    diff = float((a - b).abs().max())
+    gap = float(a[want[j]] - a[got[j]])
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    info = {"equal": False, "tokens": len(got), "parts_at": j, "gap": gap,
+            "max_diff": diff, "cosine": cos}
+    if gap > diff or cos < 0.99:
+        raise AssertionError(f"{name}: token {j} {got[j]} != {want[j]} is not a "
+                             f"near tie: {info}")
+    return info
+
+
+def _ckpt_requests(torch, dev, eng, prompts, gc_fn):
+    """Each request greedy on ``eng``, its launches zeroed before and read
+    after: tokens, prefill ms, decode ms a step, launches a step."""
+    from bitnet_tpu_torch.ops import registry
+
+    rows = []
+    for prompt, n in prompts:
+        registry.reset_launch_counts()
+        r = eng.generate(prompt, gc_fn(n))
+        _sync(torch, dev)
+        m = eng.last_metrics
+        counts = {k: v for k, v in registry.launch_counts().items() if v}
+        rows.append({"prompt": len(prompt), "tokens": r.token_ids,
+                     "prefill_ms": m.prefill_s * 1e3,
+                     "decode_ms_per_step": m.decode_s * 1e3 / max(m.decode_steps, 1),
+                     "decode_steps": m.decode_steps, "launches": counts})
+    return rows
+
+
+def _two_layers(params, cfg):
+    """The first two layers of a loaded model (views of its stacks)."""
+    import dataclasses
+
+    from bitnet_tpu_torch.ops.linear import TernaryLinear
+
+    def cut(x):
+        if x is None:
+            return None
+        if isinstance(x, TernaryLinear):
+            return dataclasses.replace(x, **{f: (None if getattr(x, f) is None
+                                                 else getattr(x, f)[:2])
+                                             for f in ("weight", "packed", "scales",
+                                                       "col_scales")})
+        return x[:2]
+    b = params.blocks
+    blocks = dataclasses.replace(b, **{f.name: cut(getattr(b, f.name))
+                                       for f in dataclasses.fields(b)})
+    return dataclasses.replace(params, blocks=blocks), cfg.replace(num_layers=2)
+
+
+def _dense_step_bytes(eng, kv_rows):
+    """Bytes a dense B=1 decode step must move: every dense linear's
+    weight, the tied head's table (or the untied head's weight) and
+    ``kv_rows`` K / V rows of each layer's cache (each read once)."""
+    import dataclasses
+
+    b, p, cfg = eng.params.blocks, eng.params, eng.cfg
+    lin = [getattr(b, f.name) for f in dataclasses.fields(b)
+           if getattr(getattr(b, f.name), "kind", None) == "dense"]
+    w = sum(t.weight.numel() * t.weight.element_size() for t in lin)
+    head = (p.lm_head.weight if p.lm_head is not None else p.embed)
+    kv = 2 * cfg.num_layers * kv_rows * cfg.num_kv_heads * cfg.head_dim * \
+        eng.cache.k.element_size()
+    return {"linears": w, "head": head.numel() * head.element_size(), "kv": int(kv)}
+
+
+def _ring_vs_window_mask(torch, eng, seq, n_prompt):
+    """Teacher-forced over ``seq``: the ring engine's logits at every
+    position from the prompt's last on (its prefill of ``seq[:n_prompt]``,
+    then one decode step a token), against ``models.bitnet.forward(...,
+    window=W)`` over a dense ``CKPT_S``-row cache of the ring's dtype (its
+    calls over ``seq``: the prompt, then chunks of W, each small enough
+    for the plain attention that the ring's steps take; the same kernel
+    path and head): per-position logits cosine, split at W, and the
+    argmaxes, which agree unless the reference's top-2 margin is within
+    the largest logit difference."""
+    from bitnet_tpu_torch.models.bitnet import forward
+    from bitnet_tpu_torch.models.bitnet import logits as model_logits
+
+    W, cfg, params, dev = eng.engine_cfg.sliding_window, eng.cfg, eng.params, eng.device
+    n = len(seq)
+    with torch.inference_mode():
+        ring = [eng.prefill(seq[:n_prompt])[0]]
+        for p in range(n_prompt, n - 1):
+            ring.append(eng.decode_step(seq[p], p)[0])
+        ring = torch.stack(ring).float()
+        kc = torch.zeros((cfg.num_layers, 1, CKPT_S, cfg.num_kv_heads * cfg.head_dim),
+                         dtype=eng.cache.k.dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)   # noqa: E731
+        ref, done = [], 0
+        for end in [n_prompt, *range(n_prompt + W, n - 1, W), n - 1]:
+            h, _k, _v = forward(cfg, params, i32([seq[done:end]]),
+                                i32([list(range(done, end))]), kc, vc, i32([done]),
+                                end - done, eng.kernel_path, window=W)
+            ref.append(model_logits(cfg, params, h, eng.kernel_path)[0].float())
+            done = end
+        ref = torch.cat(ref)[n_prompt - 1:]
+        del kc, vc, h
+    cos = torch.nn.functional.cosine_similarity(ring, ref, dim=1).cpu()
+    top2 = torch.topk(ref, 2, dim=1).values
+    same = ring.argmax(1) == ref.argmax(1)
+    tie = (top2[:, 0] - top2[:, 1]) <= (ring - ref).abs().amax(1)
+    pos = torch.arange(n_prompt - 1, n - 1)
+    inside, past = cos[pos < W], cos[pos >= W]
+    return {"positions": int(pos.numel()), "first": n_prompt - 1, "last": n - 2,
+            "past_window": int(past.numel()),
+            "cosine_first": float(cos[0]),
+            "min_cosine_in_window": float(inside.min()),
+            "min_cosine_past_window": float(past.min()),
+            "mean_cosine_in_window": float(inside.mean()),
+            "mean_cosine_past_window": float(past.mean()),
+            "argmax_agree": int(same.sum()), "ties_only": bool((same | tie).all())}
+
+
+def _hf_tensors(eng):
+    """A loaded dense model's weights in HF names: linears [out, in] and the
+    embedding in f16, norms in f32 (numpy, on the host)."""
+    import numpy as np
+
+    import torch
+
+    b, p, cfg = eng.params.blocks, eng.params, eng.cfg
+    # transposed and cast on the card, so the host copies contiguous rows
+    f16 = lambda t: t.contiguous().to(torch.float16).cpu().numpy()   # noqa: E731
+    f32 = lambda t: t.to(torch.float32).cpu().numpy()        # noqa: E731
+    out = {"model.embed_tokens.weight": f16(p.embed),
+           "model.norm.weight": f32(p.final_norm)}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj", "w_down": "mlp.down_proj"}
+    norms = {"attn_norm": "input_layernorm", "ffn_norm": "post_attention_layernorm",
+             "attn_sub_norm": "self_attn.inner_attn_ln", "ffn_sub_norm": "mlp.ffn_layernorm"}
+    for i in range(cfg.num_layers):
+        for role, hf in names.items():
+            out[f"model.layers.{i}.{hf}.weight"] = f16(getattr(b, role).weight[i].t())
+        for role, hf in norms.items():
+            if getattr(b, role) is not None:
+                out[f"model.layers.{i}.{hf}.weight"] = f32(getattr(b, role)[i])
+    assert all(np.isfinite(a).all() for a in out.values())
+    return out
+
+
+def _write_hf_dir(eng, d):
+    """Two f16 shards (the globals and the first half of the layers; the
+    rest), ``model.safetensors.index.json`` and ``config.json``."""
+    from bitnet_tpu_torch.tools.safetensors_io import save_file
+
+    cfg = eng.cfg
+    t = _hf_tensors(eng)
+    half = cfg.num_layers // 2
+    shard_of = {}
+    for k in t:
+        late = k.startswith("model.layers.") and int(k.split(".")[2]) >= half
+        shard_of[k] = f"model-0000{2 if late else 1}-of-00002.safetensors"
+    os.makedirs(d)
+    for fn in sorted(set(shard_of.values())):
+        save_file({k: v for k, v in t.items() if shard_of[k] == fn}, os.path.join(d, fn))
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": int(sum(a.nbytes for a in t.values()))},
+                   "weight_map": shard_of}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"architectures": ["BitNetForCausalLM"], "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+                   "vocab_size": cfg.vocab_size, "rms_norm_eps": cfg.rms_norm_eps,
+                   "rope_theta": cfg.rope_base,
+                   "max_position_embeddings": cfg.max_seq_len}, f)
+    return int(sum(a.nbytes for a in t.values()))
+
+
+def phase_checkpoints(torch, dev, workdir):
+    """Every checkpoint the JAX package loads, at the 2B's full width (the
+    gate's 2B qk256 GGUF of ``tools/gen_2b_gguf.py``, generated here unless
+    an earlier phase left it):
+
+    (a) dense: the GGUF loaded with ``mode="dense"`` (30 layers of bf16
+        dense linears, the torch unpack on the card), B=1 greedy requests
+        of 32 and 128 tokens on the CLI's engine (the per-layer loop, K5's
+        decode attention, K=8 graphs): prefill ms, decode ms a step beside
+        the byte bound of the request's steps (the KV rows they read), load s, launches a step (K5 L times a step
+        and nothing else); the tokens held to the same GGUF on
+        ``kernel_path="pallas"`` (K6: bf16 x, the same function up to
+        rounding) under the near-tie rule; its first two layers card vs
+        CPU, logits cosine >= 0.99 over a prefill and two decode steps;
+    (b) an HF directory: (a)'s weights written with the port's SafeTensors
+        writer as two f16 shards, ``model.safetensors.index.json`` and
+        ``config.json``; the conversion timed (``_resolve_checkpoint``),
+        ``InferenceEngine.from_gguf(dir)`` reusing its cache (mtime
+        unchanged), (a)'s requests under the near-tie rule against (a)'s
+        tokens; ``python -m bitnet_tpu_torch.cli run -m <dir> -n 16
+        --greedy`` in a process of its own (the mock tokenizer, by the JAX
+        package's rule), the cache still unchanged; the files deleted;
+    (c) the ring: the packed GGUF with ``sliding_window=256`` (bf16 KV), a
+        64-token prompt and 512 greedy tokens, eager (K = 1, K1 at the
+        generic site): while the window holds every position its tokens
+        are the plain engine's (near-tie rule); allocated memory flat
+        after the first window; decode ms a step and launches a step; then
+        teacher-forced over the prompt and those 512 tokens, the ring's
+        logits at each of their positions held to ``forward(window=W)``
+        over a dense 1024-row cache, cosine >= 0.99 on both sides of W."""
+    import shutil
+
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.loader import _resolve_checkpoint
+    from bitnet_tpu_torch.ops import registry
+
+    qk = os.path.join(workdir, "bitnet2b_qk256.gguf")
+    if not os.path.exists(qk):
+        _gen_2b("qk256", qk)
+    greedy = lambda n: GenerationConfig(max_new_tokens=n, greedy=True)   # noqa: E731
+    out = {"a_dense": {}, "b_hf_dir": {}, "c_ring": {}}
+    launches: dict = {}
+
+    # (a) mode="dense", and the packed GGUF on K6 beside it
+    a = out["a_dense"]
+    t0 = time.perf_counter()
+    dense = InferenceEngine.from_gguf(qk, EngineConfig(max_seq_len=CKPT_S), device=dev,
+                                      mode="dense")
+    _sync(torch, dev)
+    a["load_s"] = time.perf_counter() - t0
+    rep, cfg = dense.load_report, dense.cfg
+    if set(rep.kinds.values()) != {"dense"} or len(rep.dequantized) != 7 * cfg.num_layers:
+        raise AssertionError(f"mode='dense' kept packed linears: {rep.kinds}")
+    if dense.params.blocks.wq.weight.dtype != torch.bfloat16 or dense.stacked_decode():
+        raise AssertionError("the dense model is not bf16 on the per-layer loop")
+    V = cfg.vocab_size
+    prompts = [(_ckpt_ids(torch, n, V, 40 + i), m) for i, (n, m) in enumerate(CKPT_REQUESTS)]
+    rows = _ckpt_requests(torch, dev, dense, prompts, greedy)
+    for r in rows:
+        k5 = r["launches"].get("decode_attention", 0)
+        if dev.type == "cuda" and (set(r["launches"]) != {"decode_attention"}
+                                   or k5 != cfg.num_layers * r["decode_steps"]):
+            raise AssertionError(f"dense decode launched {r['launches']} over "
+                                 f"{r['decode_steps']} steps (want K5 L times a step)")
+        r["launches_per_step"] = {k: v / r["decode_steps"] for k, v in r["launches"].items()}
+        _add(launches, r["launches"])
+    for r in rows:
+        # K5 reads the valid rows: p + 1 at the step of position p, so the
+        # request's steps read P + (steps + 1) / 2 rows on average
+        r["step_bytes"] = nbytes = _dense_step_bytes(
+            dense, r["prompt"] + (r["decode_steps"] + 1) / 2)
+        r["bound_ms"] = sum(nbytes.values()) / HBM_BPS * 1e3
+    t0 = time.perf_counter()
+    packed = InferenceEngine.from_gguf(qk, EngineConfig(max_seq_len=CKPT_S,
+                                                        kernel_path="pallas"), device=dev)
+    _sync(torch, dev)
+    a["packed_load_s"] = time.perf_counter() - t0
+    ref_rows = _ckpt_requests(torch, dev, packed, prompts, greedy)
+    for r, rr, (prompt, _n) in zip(rows, ref_rows, prompts):
+        r["vs_k6"] = _pair_tie(torch, f"dense vs K6 ({len(prompt)})", packed, dense,
+                               prompt, rr["tokens"], r["tokens"])
+        r["k6_decode_ms_per_step"] = rr["decode_ms_per_step"]
+        r["k6_launches_per_step"] = {k: v / rr["decode_steps"]
+                                     for k, v in rr["launches"].items()}
+        _add(launches, rr["launches"])
+    a["requests"] = rows
+    p2, cfg2 = _two_layers(dense.params, cfg)
+    ec2 = EngineConfig(max_seq_len=256)
+    eg = InferenceEngine(cfg2, p2, ec2, device=dev)
+    ecpu = InferenceEngine(cfg2, p2, ec2, device="cpu")
+    a["two_layers_card_vs_cpu"] = tf = _teacher_forced(torch, eg, ecpu, prompts[0][0])
+    del eg, ecpu, p2
+    if tf["min_cosine"] < 0.99 or not tf["ties_only"]:
+        raise AssertionError(f"2-layer dense card vs CPU: {tf}")
+
+    # (b) the same weights as an HF checkpoint directory
+    b = out["b_hf_dir"]
+    d = os.path.join(workdir, "bitnet2b_hf")
+    cache = d + ".converted.gguf"
+    try:
+        t0 = time.perf_counter()
+        b["shard_bytes"] = _write_hf_dir(dense, d)
+        b["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if _resolve_checkpoint(d) != cache:
+            raise AssertionError("the directory did not resolve to its cache")
+        b["convert_s"] = time.perf_counter() - t0
+        m0 = os.path.getmtime(cache)
+        b["gguf_bytes"] = os.path.getsize(cache)
+        t0 = time.perf_counter()
+        hf = InferenceEngine.from_gguf(d, EngineConfig(max_seq_len=CKPT_S), device=dev)
+        _sync(torch, dev)
+        b["load_s"] = time.perf_counter() - t0
+        b["second_load_cached"] = os.path.getmtime(cache) == m0
+        if not b["second_load_cached"] or set(hf.load_report.kinds.values()) != {"dense"}:
+            raise AssertionError(f"the HF directory's second load: {b} "
+                                 f"{hf.load_report.kinds}")
+        hrows = _ckpt_requests(torch, dev, hf, prompts, greedy)
+        b["requests"] = [{"prompt": len(prompt),
+                          "vs_dense": _pair_tie(torch, f"HF dir vs dense ({len(prompt)})",
+                                                dense, hf, prompt, r["tokens"], hr["tokens"]),
+                          "decode_ms_per_step": hr["decode_ms_per_step"]}
+                         for r, hr, (prompt, _n) in zip(rows, hrows, prompts)]
+        del hf
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bitnet_tpu_torch.cli", "run", "-m", d,
+                            "-n", "16", "--greedy", "--max-seq-len", str(CKPT_S),
+                            "--device", dev.type],
+                           cwd=REPO, capture_output=True, text=True, timeout=600)
+        b["cli"] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+                    "stdout": r.stdout[-300:], "stderr": r.stderr[-300:],
+                    "cache_unchanged": os.path.getmtime(cache) == m0}
+        if r.returncode != 0 or "[16 tokens" not in r.stderr or not b["cli"]["cache_unchanged"]:
+            raise AssertionError(f"cli run -m <dir> failed: {b['cli']} {r.stderr[-1500:]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        if os.path.exists(cache):
+            os.remove(cache)
+    del dense
+
+    # (c) the ring on the packed weights (K1 at the generic site)
+    c = out["c_ring"]
+    n_prompt, n_new = CKPT_RING
+    prompt = _ckpt_ids(torch, n_prompt, V, 7)
+    plain = InferenceEngine(packed.cfg, packed.params, EngineConfig(max_seq_len=CKPT_S),
+                            device=dev)
+    win = InferenceEngine(packed.cfg, packed.params, EngineConfig(
+        max_seq_len=CKPT_S, sliding_window=CKPT_WINDOW, kv_cache_dtype="bf16"), device=dev)
+    del packed
+    if not win.windowed or win.cache.k.shape[2] != CKPT_WINDOW or win.kernel_path != (
+            "w2a8" if dev.type == "cuda" else "xla"):
+        raise AssertionError("the ring engine is not a w2a8 ring of the window")
+    in_window = CKPT_WINDOW - n_prompt        # tokens while every position is resident
+    want = plain.generate(prompt, greedy(in_window)).token_ids
+    got, mem = [], []
+    for ev in win.generate_stream(prompt, greedy(n_new)):
+        if ev.index == 0:                     # after the prefill: count the decode only
+            _sync(torch, dev)
+            registry.reset_launch_counts()
+        got.append(ev.token_id)
+        if n_prompt + ev.index >= CKPT_WINDOW and dev.type == "cuda":
+            mem.append(torch.cuda.memory_allocated(dev))
+    _sync(torch, dev)
+    m = win.last_metrics
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    _add(launches, counts)
+    c.update({"tokens": len(got), "decode_steps": m.decode_steps,
+              "prefill_ms": m.prefill_s * 1e3,
+              "decode_ms_per_step": m.decode_s * 1e3 / max(m.decode_steps, 1),
+              "launches_per_step": {k: v / max(m.decode_steps, 1)
+                                    for k, v in counts.items()},
+              "in_window": _pair_tie(torch, "ring vs plain", plain, win, prompt, want,
+                                     got[:in_window])})
+    # the ring's function on the card: teacher-forced over the prompt and
+    # the tokens it generated, against the window mask over a dense cache
+    # (both sides of W and two wraps of the ring)
+    c["vs_window_mask"] = vm = _ring_vs_window_mask(torch, win, prompt + got, n_prompt)
+    del plain, win
+    if min(vm["min_cosine_in_window"], vm["min_cosine_past_window"]) < 0.99 \
+            or not vm["ties_only"]:
+        raise AssertionError(f"the ring parts from forward(window=W): {vm}")
+    if mem:
+        c["allocated_mib"] = {"min": min(mem) / 2**20, "max": max(mem) / 2**20,
+                              "samples": len(mem)}
+        if (max(mem) - min(mem)) / 2**20 > CKPT_FLAT_MIB:
+            raise AssertionError(f"the ring's allocated memory grew: {c['allocated_mib']}")
+    if len(got) != n_new or (dev.type == "cuda"
+                             and "ternary_matmul_w2a8_normed" not in counts):
+        raise AssertionError(f"the ring run: {len(got)} tokens, launches {counts}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5584,7 +6029,7 @@ def main(argv=None) -> int:
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "k33", "w2a8",
                                      "segments", "requests", "scheduler", "gate",
-                                     "speculative", "server")):
+                                     "speculative", "server", "checkpoints")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -5726,6 +6171,18 @@ def main(argv=None) -> int:
             launches["server"] = r["launches"]
             emit({"phase": "server", "nvidia_smi": smi, "seconds": seconds["server"],
                   **r})
+        if "checkpoints" in phases:
+            r, launches["checkpoints"] = timed("checkpoints", phase_checkpoints, torch,
+                                               dev, workdir.name)
+            report["checkpoints"] = r
+            a = r["a_dense"]
+            emit({"phase": "checkpoints", "nvidia_smi": smi,
+                  "seconds": seconds["checkpoints"],
+                  "a_dense": {**{k: v for k, v in a.items() if k != "requests"},
+                              "requests": [{k: v for k, v in row.items() if k != "tokens"}
+                                           for row in a["requests"]]},
+                  "b_hf_dir": r["b_hf_dir"], "c_ring": r["c_ring"],
+                  "launches": launches["checkpoints"]})
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -5745,6 +6202,10 @@ def main(argv=None) -> int:
         # path's site shares (K1, K4, K10) counts on the fused site alone
         row["server_launches"] = (0 if phase in ("generic", "tl_generic") else
                                   launches.get("server", {}).get(kid, 0))
+        # the checkpoints phase runs the generic path: its counts go on the
+        # unstacked sites (K1, K4, K5, K6)
+        row["checkpoints_launches"] = (launches.get("checkpoints", {}).get(kid, 0)
+                                       if phase == "generic" else 0)
     report["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))

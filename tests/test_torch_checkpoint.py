@@ -253,3 +253,20 @@ def test_resume_with_a_grammar_replays_the_generated_tokens(engines, tmp_path):
     jres = jck.resume_generation(je, jck.load(path), JGen(max_new_tokens=10,
                                                           greedy=True, grammar=src))
     assert jres.token_ids == res.token_ids
+
+
+def test_resume_on_the_f32_mini_matches_the_unbroken_run(mini_gguf_f32, tmp_path):
+    """The F32 mini GGUF (dense linears): a run broken after BREAK tokens,
+    checkpointed and resumed, gives the unbroken run's tokens, which are
+    the JAX engine's."""
+    p = mini_gguf_f32.path
+    pe = InferenceEngine.from_gguf(p, EngineConfig(**_kw("f32")), device="cpu")
+    je = JEngine.from_gguf(p, JEngineConfig(**_kw("f32")))
+    gen = GenerationConfig(max_new_tokens=N, greedy=True)
+    golden = pe.generate(PROMPT, gen).token_ids
+    assert golden == je.generate(PROMPT, JGen(max_new_tokens=N, greedy=True)).token_ids
+    first = _broken(pe, gen)
+    ck.save(ck.capture(pe, PROMPT, first, rng_key=KEY), str(tmp_path / "gen"))
+    pe.prefill([9, 9, 9])
+    res = ck.resume_generation(pe, ck.load(str(tmp_path / "gen")), gen)
+    assert first + res.token_ids == golden

@@ -5,7 +5,9 @@ CPU) the port prints the text the JAX package's CLI prints with
 Without ``--device cpu`` it refuses to run when CUDA is absent, and flags
 of paths not ported yet raise, naming their ROADMAP item (``--decode-steps
 8`` and ``--speculative K [--draft-model]``, ported, print the plain greedy
-text).  ``--grammar-file``
+text, and so does ``--sliding-window 64``, over the ring cache).
+``convert``, ``st-inspect`` and ``st-merge`` are held to the JAX CLI in
+``test_torch_safetensors.py``.  ``--grammar-file``
 and ``--json-schema`` constrain the text as the JAX CLI's do.  The
 verification subcommands (``run --receipt``, ``crossval``, ``gate``,
 ``verify-receipt``, ``replay``, ``trace-diff``) print the JAX CLI's JSON
@@ -66,7 +68,9 @@ def test_cli_needs_cuda_unless_asked_for_cpu(mini_gguf_qk256, monkeypatch):
     pytest.param(["--speculative", "4"], None, id="flags0-#12"),
     pytest.param(["--speculative", "3", "--draft-model", "MODEL"], None,
                  id="flags1-#12"),
-    (["--sliding-window", "64"], "#7"),
+    # ported (it raised naming #7): a window wider than the request prints
+    # the plain greedy text
+    pytest.param(["--sliding-window", "64"], None, id="flags2-#7"),
     # ported (it raised naming #5): K-step segments print the K=1 text
     pytest.param(["--decode-steps", "8"], None, id="flags3-#5")])
 def test_cli_refuses_unported_flags(mini_gguf_qk256, flags, item, capsys):

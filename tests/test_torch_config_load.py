@@ -80,8 +80,18 @@ def test_fault1_dropped_fields_are_accepted():
     assert EngineConfig(decode_steps_per_dispatch=4).decode_steps_per_dispatch == 4
     with pytest.raises(Exception, match="decode_steps_per_dispatch"):
         EngineConfig(decode_steps_per_dispatch=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #7"):
-        EngineConfig(sliding_window=64)
+    # the windowed ring cache is ported (it raised naming #7): the JAX
+    # validations and 'auto' → bf16 under a window
+    assert EngineConfig(sliding_window=64).sliding_window == 64
+    assert EngineConfig(sliding_window=64, kv_cache_dtype="auto",
+                        max_batch_size=8).resolve_kv_cache_dtype() == "bf16"
+    for kw in ({"sliding_window": 8}, {"sliding_window": 4096},
+               {"sliding_window": 64, "prefix_cache_tokens": 64},
+               {"sliding_window": 64, "kv_cache_dtype": "int8"}):
+        with pytest.raises(Exception, match="sliding_window|prefix_cache"):
+            EngineConfig(**kw)
+        with pytest.raises(Exception, match="sliding_window|prefix_cache"):
+            JEngineConfig(**kw)
     with pytest.raises(Exception, match="context_overflow"):
         EngineConfig(context_overflow="wrap")
 

@@ -7,8 +7,8 @@ to the JAX package exactly: the same accept / reject verdicts, the same
 GBNF text for the same schemas, and masks equal bit for bit after every
 token of a seeded random walk on the mini GGUF's vocab.  The engine runs
 greedy grammar-constrained generation on the mini QK256 model at f32 (the
-``xla`` path on the CPU; the port does not load the F32 fixture's dense
-linears, ROADMAP.md queue 1 #7) and must emit the JAX engine's tokens.
+``xla`` path on the CPU), and on the F32 mini GGUF of the JAX tests (dense
+linears), and must emit the JAX engine's tokens.
 """
 
 import json
@@ -227,3 +227,15 @@ def test_a_mask_over_another_vocab_raises(mini_gguf_qk256):
                                    tokenizer=MockTokenizer(300), device="cpu")
     with pytest.raises(InferenceError, match="grammar mask over 300 tokens"):
         pe.generate(PROMPT, GenerationConfig(greedy=True, grammar='root ::= "a"'))
+
+
+def test_greedy_grammar_on_the_f32_mini_is_jax(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears, the JAX tests' fixture): greedy
+    grammar-constrained tokens equal the JAX engine's."""
+    pe = InferenceEngine.from_gguf(mini_gguf_f32.path, EngineConfig(**KW), device="cpu")
+    je = JEngine.from_gguf(mini_gguf_f32.path, JEngineConfig(**KW))
+    kw = dict(max_new_tokens=24, greedy=True, grammar=GRAMMARS["schema"])
+    got = pe.generate(PROMPT, GenerationConfig(**kw))
+    want = je.generate(PROMPT, JGen(**kw))
+    assert got.token_ids == want.token_ids and got.text == want.text
+    assert pe.load_report.kinds["wq"] == "dense"

@@ -185,13 +185,39 @@ def test_build_rope_tables_needs_cuda_unless_asked_for_cpu(monkeypatch):
     # segments and gives the K=1 tokens
     pytest.param({"decode_steps_per_dispatch": 8}, None, id="kw0-#5"),
     pytest.param({"decode_steps_per_dispatch": 2}, None, id="kw1-#5"),
-    ({"sliding_window": 64}, "#7"),
-    ({"sliding_window": 16, "max_batch_size": 8}, "#7")])
+    # ported (they raised naming #7): the windowed ring cache
+    pytest.param({"sliding_window": 64}, "ring", id="kw2-#7"),
+    pytest.param({"sliding_window": 16, "max_batch_size": 8}, "ring", id="kw3-#7")])
 def test_unported_engine_configs_name_their_roadmap_item(kw, item):
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig, ModelConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
     from bitnet_tpu_torch.models.synthetic import build_synthetic
 
+    if item == "ring":
+        # a window as wide as the stream gives the dense engine's tokens; a
+        # pool decodes each slot as a B=1 engine of the same window does,
+        # past the window, in a ring that keeps its shape
+        cfg = ModelConfig(vocab_size=64, hidden_size=256, intermediate_size=256,
+                          num_layers=1, num_heads=4, num_kv_heads=2, head_dim=64,
+                          max_seq_len=64)
+        params = build_synthetic(cfg, seed=0, device="cpu")
+        gc = GenerationConfig(max_new_tokens=17, greedy=True)
+        ec = dict(max_seq_len=64, kv_cache_dtype="f32", compute_dtype="f32")
+        win = InferenceEngine(cfg, params, EngineConfig(**ec, **kw), device="cpu")
+        W = kw["sliding_window"]
+        assert win.windowed and win.cache.k.shape[2] == W
+        if "max_batch_size" not in kw:
+            dense = InferenceEngine(cfg, params, EngineConfig(**ec), device="cpu")
+            assert (win.generate([1, 2, 3], gc).token_ids
+                    == dense.generate([1, 2, 3], gc).token_ids)
+            return
+        prompts = [[1, 2, 3], [5, 9, 4, 7]]
+        pooled = [r.token_ids for r in win.generate_batch(prompts, gc)]
+        one = InferenceEngine(cfg, params, EngineConfig(**ec, sliding_window=W),
+                              device="cpu")
+        assert pooled == [one.generate(p, gc).token_ids for p in prompts]
+        assert win.cache.k.shape[2] == W and int(win.cache.positions.max()) >= W
+        return
     if item is None:
         cfg = ModelConfig(vocab_size=64, hidden_size=256, intermediate_size=256,
                           num_layers=1, num_heads=4, num_kv_heads=2, head_dim=64,
@@ -238,12 +264,14 @@ def test_non_greedy_sampling_is_not_ported():
     exp_r4_attn (they raised naming #12; the variant's plain leg runs here),
     and so is speculative decoding (it raised naming #12), and so are the
     scheduler's request checkpoints (they raised naming #12 (c), with the
-    server); the windowed cache (#7) still raises, naming its ROADMAP item,
-    and so do ``serve()`` / ``cli serve``'s mesh and multi-host branches
-    (#13)."""
+    server), and so is the windowed cache (it raised naming #7); ``serve()``
+    / ``cli serve``'s mesh and multi-host branches still raise, naming #13.
+    The refusals left in the port name only the live IDs #13, #17, #21 and
+    #22, and no module of the port imports ``safetensors``."""
     import inspect
+    import re
 
-    from bitnet_tpu_torch.cli import _add_serve_parser, _refuse_unported
+    from bitnet_tpu_torch.cli import _add_serve_parser
     from bitnet_tpu_torch.serve import scheduler, server
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
     from bitnet_tpu_torch.engine.engine import InferenceEngine
@@ -257,11 +285,14 @@ def test_non_greedy_sampling_is_not_ported():
     assert "not_ported" not in inspect.getsource(InferenceEngine.generate_stream)
     # K-step dispatches are ported (they raised naming #5)
     assert EngineConfig(decode_steps_per_dispatch=2).decode_steps_per_dispatch == 2
-    for kw, item in (({"sliding_window": 32}, "#7"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            EngineConfig(**kw)
-    src = inspect.getsource(_refuse_unported)
-    assert '"#7"' in src and '"#12"' not in src and '"#15"' not in src
+    assert EngineConfig(sliding_window=32).sliding_window == 32
+    live = set()
+    for path in SOURCES:
+        text = path.read_text()
+        live |= set(re.findall(r'queue 1 (#\d+)', text))
+        live |= set(re.findall(r'not_ported\([^)]*"(#\d+)', text, re.S))
+        assert "safetensors" not in _imported_roots(path), path
+    assert live <= {"#13", "#17", "#21", "#22"} and "#13" in live, live
     assert '"#12 (c)"' not in inspect.getsource(scheduler)
     assert inspect.getsource(server.serve).count('"#13")') == 2
     assert "#13" in inspect.getsource(_add_serve_parser)
@@ -294,3 +325,12 @@ def test_chip_smoke_fails_without_the_port_and_without_a_card(tmp_path):
                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A second top-level ``def`` of a name in chip_smoke.py would replace
+    the first for every phase that calls it."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert len(names) == len(set(names)), sorted(n for n in set(names)
+                                                 if names.count(n) > 1)

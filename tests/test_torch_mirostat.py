@@ -129,3 +129,17 @@ def test_engine_mirostat_bans_eos_in_the_min_phase(engine, monkeypatch):
     assert engine.generate([1, 7, 20, 3], gc).token_ids == []
     r = engine.generate([1, 7, 20, 3], gc.replace(min_new_tokens=3))
     assert len(r.token_ids) == 3 and eos not in r.token_ids
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_engine_mirostat_on_the_f32_mini_repeats(mini_gguf_f32, version):
+    """The F32 mini GGUF (dense linears): a seeded Mirostat request at f32
+    repeats, and its tokens stay inside the vocab."""
+    eng = InferenceEngine.from_gguf(
+        mini_gguf_f32.path, EngineConfig(max_seq_len=128, compute_dtype="f32",
+                                         kv_cache_dtype="f32", kernel_path="xla"),
+        device="cpu")
+    gc = GenerationConfig(max_new_tokens=12, mirostat=version, mirostat_tau=4.0, seed=3)
+    a = eng.generate([1, 7, 20, 3], gc).token_ids
+    assert a == eng.generate([1, 7, 20, 3], gc).token_ids
+    assert 0 < len(a) and max(a) < eng.cfg.vocab_size

@@ -54,7 +54,7 @@ def test_loader_matches_jax_loader(mini_gguf_qk256):
               "num_heads", "num_kv_heads", "head_dim", "max_seq_len",
               "rope_base", "rms_norm_eps", "hidden_act"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
-    assert meta["eos_token_id"] == 2
+    assert meta.eos_token_id == 2
     np.testing.assert_array_equal(p.embed.numpy(), np.asarray(jp.embed))
     np.testing.assert_array_equal(p.final_norm.numpy(), np.asarray(jp.final_norm))
     np.testing.assert_array_equal(p.rope_sin.numpy(), np.asarray(jp.rope_sin))

@@ -3,8 +3,8 @@
 
 Mirrors ``tests/test_scheduler_pipelined.py`` on the mini QK256 GGUF at
 ``compute_dtype="f32"``, an f32 cache and ``kernel_path="xla"`` (the JAX
-package's own tests use the F32 fixture, which the port does not load,
-ROADMAP #7): greedy tokens equal the JAX pipelined scheduler's; every
+package's own tests use the F32 fixture; its dense linears load in the
+port too, ``tests/test_torch_dense.py``): greedy tokens equal the JAX pipelined scheduler's; every
 sampled config of ``PARITY_CONFIGS`` equals the port's own synchronous
 scheduler (JAX and torch random streams differ), and so do staggered
 requests; Mirostat and a min-tokens phase fall back to the synchronous

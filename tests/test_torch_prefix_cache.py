@@ -208,3 +208,21 @@ def test_route_probe_and_conditioned_norms():
     assert set(r) == {"repeat", "hit", "decode20", "plain_attention", "argmax_agree"}
     assert r["repeat"] == pytest.approx(1.0, abs=1e-6)
     assert min(r[k] for k in ("hit", "decode20", "plain_attention")) > 0.99
+
+
+def test_generation_after_a_hit_on_the_f32_mini_is_jax(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears): a prefix stored, then a request
+    that extends it; greedy tokens and the restore length are the JAX
+    engine's."""
+    p = mini_gguf_f32.path
+    pe = InferenceEngine.from_gguf(p, EngineConfig(**KW, prefix_cache_tokens=256),
+                                   device="cpu")
+    je = JEngine.from_gguf(p, JEngineConfig(**KW, prefix_cache_tokens=256))
+    sys_prompt = [1, 40, 41, 42, 43, 44, 45, 46]
+    gc = dict(max_new_tokens=10, greedy=True)
+    for e in (pe, je):
+        e.prefill(sys_prompt)
+    got = pe.generate(sys_prompt + [9, 8], GenerationConfig(**gc))
+    want = je.generate(sys_prompt + [9, 8], JGen(**gc))
+    assert got.token_ids == want.token_ids
+    assert f"prefix_restore_m{len(sys_prompt)}" in pe.kernel_recorder

@@ -2,9 +2,8 @@
 on the CPU, held to the JAX package's scheduler and to the port's engine.
 
 On the mini QK256 GGUF at ``compute_dtype="f32"``, an f32 cache and
-``kernel_path="xla"`` (the port does not load the F32 fixture's dense
-linears, ROADMAP #7; the JAX package's own scheduler tests use that
-fixture).  Mirrors ``tests/test_scheduler_{parity,chunked,stress}.py``:
+``kernel_path="xla"`` (the JAX package's own scheduler tests use the F32
+fixture; one case here runs it, dense linears).  Mirrors ``tests/test_scheduler_{parity,chunked,stress}.py``:
 
 - greedy tokens equal the JAX scheduler's, K=1 and K=4, whole and chunked
   prefill, with staggered submits (both schedulers stepped by hand in
@@ -515,3 +514,21 @@ def test_pool_replays_add_the_captures_counts_and_carry_generators(model, monkey
     assert registry.launch_counts()["paged_attention"] == 6
     assert [float(g.state[0]) for g in mine] == [2.0, 0.0]
     assert seg.calls == 2
+
+
+def test_greedy_tokens_on_the_f32_mini_are_the_jax_schedulers(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears; the JAX scheduler tests' fixture):
+    staggered greedy requests at K=4 give the JAX scheduler's tokens."""
+    p = mini_gguf_f32.path
+    cfg, params, _ = load_model(p, param_dtype=torch.float32, device="cpu")
+    jcfg, jparams, _ = jload_model(p, param_dtype=jnp.float32)
+    g = dict(max_new_tokens=9, greedy=True)
+    script = {0: [(PROMPT, g, {})], 2: [(LONG, g, {})]}
+    kw = dict(start_loop=False, decode_steps_per_dispatch=4)
+    got = run_lockstep(make((cfg, params, load_tokenizer(p)), **kw),
+                       {s: [(q, GenerationConfig(**gg), x) for q, gg, x in v]
+                        for s, v in script.items()})
+    want = run_lockstep(make_jax((jcfg, jparams, jload_tokenizer(p)), **kw),
+                        {s: [(q, JGen(**gg), x) for q, gg, x in v]
+                         for s, v in script.items()})
+    assert got == want and all(t for t, _ in got)

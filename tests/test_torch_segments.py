@@ -2,8 +2,8 @@
 
 The port's engine at ``decode_steps_per_dispatch=4`` against its own K=1
 and against the JAX engine's K=4 segments (``bitnet_tpu/engine/loop.py``),
-on the mini QK256 GGUF at f32 with an f32 cache on the ``xla`` path (the
-port does not load the F32 fixture's dense linears, ROADMAP #7): the same
+on the mini QK256 GGUF at f32 with an f32 cache on the ``xla`` path (and
+one case on the F32 fixture's dense linears): the same
 tokens and stop reasons for the JAX test's three generation configs
 (``tests/test_engine.py:196-212``), a stop token in the middle of a segment,
 the cache lengths a mid-segment stop leaves, the requests that keep single
@@ -339,3 +339,20 @@ def test_capture_takes_back_its_counts_and_replays_add_them(engines, monkeypatch
     n = registry.launch_counts()
     assert n["scatter_kv_rows"] == 8 and n["decode_attention_qkv"] == 16
     assert seg.calls == 2
+
+
+def test_segments_on_the_f32_mini_are_the_jax_segments(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears): K=4 greedy tokens equal the port's
+    K=1 and the JAX engine's K=4."""
+    e4 = InferenceEngine.from_gguf(mini_gguf_f32.path,
+                                   EngineConfig(decode_steps_per_dispatch=4, **KW),
+                                   device="cpu")
+    e1 = InferenceEngine.from_gguf(mini_gguf_f32.path,
+                                   EngineConfig(decode_steps_per_dispatch=1, **KW),
+                                   device="cpu")
+    je = JEngine.from_gguf(mini_gguf_f32.path, JEngineConfig(decode_steps_per_dispatch=4, **KW))
+    got = e4.generate(PROMPT, GenerationConfig(max_new_tokens=11, greedy=True))
+    assert got.token_ids == e1.generate(PROMPT, GenerationConfig(
+        max_new_tokens=11, greedy=True)).token_ids
+    assert got.token_ids == je.generate(PROMPT, JGen(max_new_tokens=11, greedy=True)).token_ids
+    assert _calls(e4) == 11 // 4

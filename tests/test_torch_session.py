@@ -104,3 +104,17 @@ def test_session_error_state(mini_gguf_qk256):
     pe.tokenizer = None
     with pytest.raises(InferenceError, match="tokenizer"):
         sess.Session(pe).send("x")
+
+
+def test_two_turn_session_on_the_f32_mini_is_jax(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears): a two-turn session's replies and
+    history are the JAX session's."""
+    pe = InferenceEngine.from_gguf(mini_gguf_f32.path, EngineConfig(**KW), device="cpu")
+    je = JEngine.from_gguf(mini_gguf_f32.path, JEngineConfig(**KW))
+    kw = dict(system_prompt="Be brief.", template="chatml", max_history_tokens=96)
+    ps = sess.Session(pe, sess.SessionConfig(**kw))
+    js = jsess.Session(je, jsess.SessionConfig(**kw))
+    for turn in ("Hi there", "And again?"):
+        assert (ps.send(turn, GenerationConfig(max_new_tokens=8, greedy=True))
+                == js.send(turn, JGen(max_new_tokens=8, greedy=True)))
+    assert ps.messages == js.messages

@@ -2,9 +2,8 @@
 the scheduler's ``speculative_k``) held to the JAX package on the CPU.
 
 On the mini QK256 GGUF at ``compute_dtype="f32"``, an f32 cache and
-``kernel_path="xla"`` on both sides (the port does not load the F32
-fixture's dense linears, ROADMAP #7; the JAX package's own speculative
-tests use that fixture).  Mirrors ``tests/test_speculative.py`` and
+``kernel_path="xla"`` on both sides (the JAX package's own speculative
+tests use the F32 fixture; one case here runs it, dense linears).  Mirrors ``tests/test_speculative.py`` and
 ``tests/test_serve.py:967-1075``:
 
 - ``NgramDraft``'s proposals over seeded histories, ``SpeculativeConfig``'s
@@ -311,3 +310,20 @@ def test_scheduler_spec_on_a_paged_pool_raises(model, jmodel, kw):
     with pytest.raises(InferenceError) as got:
         scheduler(model, speculative_k=2, start_loop=False, **jkw)
     assert str(got.value) == str(want.value)
+
+
+def test_greedy_tokens_on_the_f32_mini_are_the_jax_decoders(mini_gguf_f32):
+    """The F32 mini GGUF (dense linears; the JAX speculative tests'
+    fixture): n-gram k=4 greedy tokens and acceptance counts are the JAX
+    decoder's, and the plain engine's tokens."""
+    p = mini_gguf_f32.path
+    gen = dict(max_new_tokens=16, greedy=True)
+    prompt = PROMPTS["repetitive"]
+    jdec = jspec.SpeculativeDecoder(JEngine.from_gguf(p, JEngineConfig(**KW)), None,
+                                    jspec.SpeculativeConfig(num_draft_tokens=4))
+    dec = spec.SpeculativeDecoder(engine(p), None, spec.SpeculativeConfig(num_draft_tokens=4))
+    want = jdec.generate(prompt, JGen(**gen))
+    got = dec.generate(prompt, GenerationConfig(**gen))
+    assert got.token_ids == want.token_ids == engine(p).generate(
+        prompt, GenerationConfig(**gen)).token_ids
+    assert _counts(got.spec_stats) == _counts(want.spec_stats)

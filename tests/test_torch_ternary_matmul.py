@@ -329,15 +329,27 @@ def test_dispatcher_matches_ternary_matmul_pallas(variant, M, k, glu, norm,
 
 def test_dispatcher_refuses_unported_kinds():
     """bitnet32 and tl run (K10, ``tests/test_torch_tl.py``); a dense
-    linear, the kind of the JAX package's F32 / densified weights, is not
-    ported and names its ROADMAP item."""
-    from bitnet_tpu_torch.ops.linear import TernaryLinear
+    linear (the kind of the JAX package's F32 / densified weights, ported:
+    it used to raise naming #7) has no words for a kernel, and the
+    dispatcher refuses it as the JAX ``ternary_matmul_pallas`` fails on it;
+    ``linear_apply`` runs it on every path as the JAX one does."""
+    from bitnet_tpu.ops.linear import dense_linear as jdense
+    from bitnet_tpu.ops.linear import linear_apply as japply
+    from bitnet_tpu.ops.ternary_matmul import ternary_matmul_pallas as jpallas
+    from bitnet_tpu_torch.errors import QuantizationError
+    from bitnet_tpu_torch.ops.linear import dense_linear, linear_apply
 
-    lin = TernaryLinear(kind="dense", k=K, n=N,
-                        packed=torch.zeros((K // 16, N), dtype=torch.int32),
-                        scales=torch.ones((K // 32, N)))
-    with pytest.raises(NotImplementedError, match="#7"):
-        tm.ternary_matmul_pallas(lin, torch.zeros(1, K), variant="w2a8")
+    w = np.random.default_rng(3).standard_normal((K, N)).astype(np.float32)
+    x = np.random.default_rng(4).standard_normal((2, K)).astype(np.float32)
+    with pytest.raises(AttributeError):
+        jpallas(jdense(jnp.asarray(w)), jnp.asarray(x), variant="w2a8")
+    lin = dense_linear(torch.from_numpy(w))
+    with pytest.raises(QuantizationError, match="dense"):
+        tm.ternary_matmul_pallas(lin, torch.from_numpy(x), variant="w2a8")
+    want = np.asarray(japply(jdense(jnp.asarray(w)), jnp.asarray(x), path="w2a8"))
+    for path in ("w2a8", "pallas", "xla"):
+        got = linear_apply(lin, torch.from_numpy(x), path=path).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("form", ["scalar", "per_layer", "fused"])

@@ -207,11 +207,10 @@ def test_split32_and_transposed_loads_match_jax(tmp_path, layout):
     """Split32 (K = 96 so QK256 does not claim the bytes) with a sibling
     scale tensor, or none (scales 1.0); a transposed tensor with one
     uniform scale carries over; a transposed tensor with per-block scales
-    is densified by the JAX package and refused by the port (#7)."""
+    is densified by both packages."""
     from bitnet_tpu.gguf.reader import GGUFReader as JReader
     from bitnet_tpu.models.loader import LoadReport
     from bitnet_tpu.models.loader import _load_linear as jload_linear
-    from bitnet_tpu_torch.errors import ModelError
     from bitnet_tpu_torch.gguf.reader import GGUFReader
     from bitnet_tpu_torch.models.loader import _load_linear
     from bitnet_tpu_torch.quant.i2s import quantize_bitnet32, quantize_split32
@@ -237,12 +236,14 @@ def test_split32_and_transposed_loads_match_jax(tmp_path, layout):
         j = jload_linear(jr, name, out_dim, in_dim, "auto",
                          LoadReport(path, {}, {}, []), "wq")
         with GGUFReader(path) as r:
-            if layout == "bitnet32_transposed":
-                assert j.kind == "dense"
-                with pytest.raises(ModelError, match="#7"):
-                    _load_linear(r, name, out_dim, in_dim)
-                return
             t = _load_linear(r, name, out_dim, in_dim)
+    if layout == "bitnet32_transposed":
+        # densified by both packages (the port used to refuse it, naming #7):
+        # the same bf16 weight, bit for bit
+        assert (t.kind, t.k, t.n) == (j.kind, j.k, j.n) == ("dense", in_dim, out_dim)
+        np.testing.assert_array_equal(
+            t.weight.float().numpy(), np.asarray(j.weight.astype(jnp.float32)))
+        return
     assert (t.kind, t.k, t.n) == (j.kind, j.k, j.n) == ("bitnet32", in_dim, out_dim)
     np.testing.assert_array_equal(t.packed.numpy(), np.asarray(j.packed))
     js = np.asarray(j.scales)
