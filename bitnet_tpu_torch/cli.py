@@ -1,33 +1,32 @@
-"""bitnet_tpu_torch command-line interface: ``run``, ``benchmark-kernels``
-and the verification subcommands.
+"""bitnet_tpu_torch command-line interface: the JAX CLI's subcommands on
+the card.
 
-Counterpart of ``bitnet_tpu/cli.py``'s ``run`` (``:20-118``,
-``:155-269``): the same generation and engine flags, prompt templates,
-streamed text and the ``[n tokens, ttft, tok/s]`` line, plus ``--device``
-(default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
-``run --receipt PATH`` writes an honest-compute receipt whose ``kernels``
-name the hand-written kernels that launched; ``run --grammar-file`` /
-``--json-schema`` constrain the output as the JAX CLI's do
+Counterpart of ``bitnet_tpu/cli.py``, subcommand for subcommand (a test
+holds the two parsers' sets equal), with the same flags, JSON keys, text
+and exit codes.  ``run`` (``:20-118``, ``:155-269``): the same generation
+and engine flags, prompt templates, streamed text and the ``[n tokens,
+ttft, tok/s]`` line, plus ``--device`` (default ``cuda``; ``--device cpu``
+runs the kernels' plain versions), as every subcommand that builds an
+engine takes it (``chat``, ``score``, ``benchmark``, ``crossval``,
+``replay``, ``serve``).  ``run --receipt PATH`` writes an honest-compute
+receipt naming the hand-written kernels that launched; ``run
+--grammar-file`` / ``--json-schema`` constrain the output
 (``:132-151``); ``run --speculative K [--draft-model PATH]`` decodes
-greedily through ``engine/speculative.SpeculativeDecoder`` (``:219-237``:
-n-gram drafts, or a draft GGUF loaded under the same flags; the text on
-stdout, ``[speculative: {...}]`` on stderr).  Flags whose paths are not
-ported raise ``NotImplementedError`` naming their ROADMAP item; none is
-silently ignored.  ``benchmark-kernels`` (``:477-497``, ``:999-1010``)
-prints the JSON of ``tools/kernel_bench.py``: device time per kernel call
-on the card, the plain versions' host time with ``--device cpu`` (for
-tests only).  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
-``trace-diff`` (``:744-865``) print the JAX CLI's JSON and exit codes;
-``crossval --trace-out`` also dumps the port's per-layer activation trace
-for ``trace-diff``.  ``serve`` (``:878-893``, ``:929-969``) starts the
-HTTP server (``serve/server.py`` on the standard-library ``serve/http.py``)
-with the JAX CLI's flags plus ``--device``; ``--shard`` raises naming
-ROADMAP queue 1 #13.  ``convert``, ``st-inspect`` and ``st-merge``
-(``:456-475``, ``:868-875``, ``:971-994``) convert, inspect and merge
-SafeTensors checkpoints with the JAX CLI's flags and output.  ``--model``
-takes a GGUF, a ``.safetensors`` file or an HF checkpoint directory
-(converted once to a cached sibling GGUF), and ``run --sliding-window W``
-decodes over the windowed ring cache.  The other subcommands are #17.
+greedily through ``engine/speculative.SpeculativeDecoder`` (``:219-237``).
+``benchmark-kernels`` (``:477-497``) prints ``tools/kernel_bench.py``'s
+JSON.  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
+``trace-diff`` (``:744-865``) verify; ``gate --require-native`` checks
+that the loader packs QK256 on the device (the port's counterpart of the
+JAX native codec).  ``serve`` (``:878-893``) starts the HTTP server;
+``--shard`` raises naming ROADMAP queue 1 #13.  ``convert``,
+``st-inspect`` and ``st-merge`` handle SafeTensors checkpoints.
+``tokenize``, ``inspect``, ``chat``, ``score``, ``benchmark``,
+``list-templates``, ``list-architectures``, ``compat-check``, ``config``,
+``info``, ``bench-compare``, ``preflight``, ``fingerprint``, ``ln-check``
+and ``download-model`` (``:273-455``, ``:500-743``, ``:838-856``) are the
+JAX ones; ``info`` and ``preflight`` report torch and the card in place
+of JAX and the TPU.  ``--model`` takes a GGUF, a ``.safetensors`` file or
+an HF checkpoint directory, and defaults to ``config set model``'s value.
 
     python -m bitnet_tpu_torch.cli run --model model.gguf --prompt "Hello"
     python -m bitnet_tpu_torch.cli serve -m model.gguf --port 8080
@@ -35,6 +34,8 @@ decodes over the windowed ring cache.  The other subcommands are #17.
     python -m bitnet_tpu_torch.cli benchmark-kernels --attention all --m 8
     python -m bitnet_tpu_torch.cli run -m hf_checkpoint_dir/ --sliding-window 256
     python -m bitnet_tpu_torch.cli convert -i model.safetensors -o model.gguf
+    python -m bitnet_tpu_torch.cli score -m model.gguf --file text.txt
+    python -m bitnet_tpu_torch.cli fingerprint -m model.gguf
 """
 
 from __future__ import annotations
@@ -43,13 +44,12 @@ import argparse
 import json
 import sys
 
-from .config import not_ported
-
 
 def _add_gen_flags(p: argparse.ArgumentParser) -> None:
     """Generation and engine flags (bitnet_tpu/cli.py:20-88)."""
-    p.add_argument("--model", "-m", required=True,
-                   help="GGUF, .safetensors file or HF checkpoint directory")
+    p.add_argument("--model", "-m", default=None,
+                   help="GGUF, .safetensors file or HF checkpoint directory "
+                        "(default: the `config set model` value)")
     p.add_argument("--tokenizer", help="tokenizer.json path (optional)")
     p.add_argument("--prompt", "-p", default="Hello")
     p.add_argument("--max-new-tokens", "-n", type=int, default=128)
@@ -287,6 +287,452 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_tokenize(args) -> int:
+    """Token ids and pieces of ``--prompt`` (bitnet_tpu/cli.py:273-284)."""
+    from .tokenizer import load_tokenizer
+
+    tk = load_tokenizer(args.model)
+    ids = tk.encode(args.prompt, add_bos=not args.no_bos)
+    print(json.dumps({
+        "text": args.prompt,
+        "ids": ids,
+        "pieces": [tk.token_to_piece(i) or f"<{i}>" for i in ids],
+        "count": len(ids),
+    }, indent=2))
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """GGUF metadata dump (bitnet_tpu/cli.py:287-319)."""
+    from .gguf.reader import GGUFReader
+
+    with GGUFReader(args.model) as r:
+        quant_hist: dict[str, int] = {}
+        tensors = []
+        for info in r:
+            tname = info.ggml_type.name
+            quant_hist[tname] = quant_hist.get(tname, 0) + 1
+            tensors.append({"name": info.name, "shape": list(info.logical_shape),
+                            "type": tname, "bytes": info.nbytes})
+        out = {
+            "path": args.model,
+            "version": r.version,
+            "n_tensors": len(r.tensors),
+            "n_kv": len(r.metadata),
+            "architecture": r.architecture,
+            "alignment": r.alignment,
+            "quantization_histogram": quant_hist,
+            "metadata": {
+                k: (v if isinstance(v, (int, float, str, bool))
+                    else f"<{type(v).__name__}[{len(v)}]>")
+                for k, v in r.metadata.items()
+            },
+        }
+        if args.tensors:
+            out["tensors"] = tensors
+        print(json.dumps(out, indent=2, default=str))
+    return 0
+
+
+def cmd_chat(args) -> int:
+    """Interactive REPL on ``args.device`` (bitnet_tpu/cli.py:322-363):
+    ``/help``, ``/clear``, ``/metrics`` (the last turn's metrics, ``{}``
+    before the first), ``/exit``."""
+    from . import templates
+
+    engine = _build_engine(args)
+    t = (templates.TemplateType.parse(args.prompt_template)
+         if args.prompt_template else templates.TemplateType.INSTRUCT)
+    spec = templates.spec_for(t)
+    history: list[templates.Message] = []
+    if args.system_prompt:
+        history.append(templates.Message("system", args.system_prompt))
+    print("bitnet-tpu chat — /help for commands", file=sys.stderr)
+    turns = 0
+    while True:
+        try:
+            line = input("> ")
+        except (EOFError, KeyboardInterrupt):
+            break
+        if line.strip() == "/exit":
+            break
+        if line.strip() == "/help":
+            print("/help /clear /metrics /exit", file=sys.stderr)
+            continue
+        if line.strip() == "/clear":
+            history = history[:1] if args.system_prompt else []
+            print("(history cleared)", file=sys.stderr)
+            continue
+        if line.strip() == "/metrics":
+            print(json.dumps(engine.last_metrics.as_dict() if turns else {}),
+                  file=sys.stderr)
+            continue
+        history.append(templates.Message("user", line))
+        prompt = templates.render_chat(t, history)
+        gcfg = _gen_config(args, extra_stops=spec.stop_sequences)
+        ids = engine.tokenizer.encode(prompt, add_bos=spec.add_bos)
+        reply = []
+        for ev in engine.generate_stream(ids, gcfg):
+            sys.stdout.write(ev.text)
+            sys.stdout.flush()
+            reply.append(ev.text)
+        print()
+        turns += 1
+        history.append(templates.Message("assistant", "".join(reply)))
+    return 0
+
+
+def cmd_score(args) -> int:
+    """Perplexity of ``--prompt`` or ``--file`` from one ``eval_ids`` on
+    ``args.device`` (bitnet_tpu/cli.py:366-389)."""
+    import numpy as np
+
+    engine = _build_engine(args)
+    text = args.prompt
+    if args.file:
+        with open(args.file) as f:
+            text = f.read()
+    ids = engine.tokenizer.encode(text, add_bos=True)
+    if len(ids) < 2:
+        print("need at least 2 tokens", file=sys.stderr)
+        return 1
+    ids = ids[: args.max_seq_len]
+    logits = engine.eval_ids(ids)  # [T, V]
+    logp = logits - np.log(np.exp(logits - logits.max(-1, keepdims=True)).sum(
+        -1, keepdims=True)) - logits.max(-1, keepdims=True)
+    nll = -np.mean([logp[t, ids[t + 1]] for t in range(len(ids) - 1)])
+    print(json.dumps({
+        "tokens": len(ids),
+        "nll": float(nll),
+        "perplexity": float(np.exp(nll)),
+    }, indent=2))
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """One warm-up request (``InferenceEngine.warmup``), then one timed
+    greedy request of ``-n`` tokens (seed 42) on ``args.device``
+    (bitnet_tpu/cli.py:392-416)."""
+    import time
+
+    from .config import GenerationConfig
+
+    engine = _build_engine(args)
+    gcfg = GenerationConfig(max_new_tokens=args.max_new_tokens, greedy=True, seed=42)
+    ids = engine.tokenizer.encode(args.prompt, add_bos=True)
+    engine.warmup(ids, gcfg)
+    t0 = time.perf_counter()
+    n = 0
+    for _ in engine.generate_stream(ids, gcfg):
+        n += 1
+    dt = time.perf_counter() - t0
+    m = engine.last_metrics.as_dict()
+    print(json.dumps({
+        "prompt_tokens": len(ids),
+        "generated_tokens": n,
+        "wall_s": round(dt, 3),
+        "decode_tok_s": m["decode_tok_s"],
+        "ttft_s": m["ttft_s"],
+        "kernel_path": engine.kernel_path,
+    }))
+    return 0
+
+
+def cmd_list_templates(args) -> int:
+    """bitnet_tpu/cli.py:419-426."""
+    from . import templates
+
+    for t in templates.TemplateType:
+        spec = templates.spec_for(t)
+        print(f"{t.value:20s} stops={list(spec.stop_sequences)} "
+              f"bos={spec.add_bos}")
+    return 0
+
+
+def cmd_list_architectures(args) -> int:
+    """bitnet_tpu/cli.py:429-436."""
+    from .models.arch_registry import list_architectures
+
+    for spec in list_architectures():
+        tern = "ternary" if spec.supports_ternary else "dense"
+        print(f"{spec.name:<14} [{spec.family}-family, {tern}] "
+              f"{spec.description}")
+    return 0
+
+
+def cmd_compat_check(args) -> int:
+    """GGUF compatibility report, optionally repaired into ``--fix-out``
+    (bitnet_tpu/cli.py:439-453); exit 1 while errors remain."""
+    from .verify.compat import diagnose, export_fixed
+
+    report = diagnose(args.model)
+    if args.fix_out:
+        fixed = export_fixed(args.model, args.fix_out)
+        report["applied"] = fixed["applied"]
+        report["out_path"] = args.fix_out
+        report["remaining_errors"] = diagnose(args.fix_out)["errors"]
+        print(json.dumps(report, indent=2))
+        return 0 if not report["remaining_errors"] else 1
+    print(json.dumps(report, indent=2))
+    return 0 if not report["errors"] else 1
+
+
+# the variable that opens ``download-model`` to the network (the JAX
+# package's ``tokenizer/download.ENV_ALLOW``)
+ENV_ALLOW_DOWNLOADS = "BITNET_ALLOW_DOWNLOADS"
+
+
+def cmd_download_model(args) -> int:
+    """Fetch a GGUF from the HF hub (bitnet_tpu/cli.py:500-522): refused
+    unless ``$BITNET_ALLOW_DOWNLOADS`` opens it, or when no hub client is
+    installed."""
+    import os
+
+    if os.environ.get(ENV_ALLOW_DOWNLOADS, "").strip() not in ("1", "true", "yes"):
+        print(json.dumps({"error": f"downloads disabled; set {ENV_ALLOW_DOWNLOADS}=1 "
+                                   "or place the GGUF manually"}), file=sys.stderr)
+        return 1
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError:
+        print(json.dumps({"error": "huggingface_hub unavailable"}), file=sys.stderr)
+        return 1
+    path = hf_hub_download(repo_id=args.repo, filename=args.file,
+                           local_dir=args.out_dir)
+    print(json.dumps({"path": path}))
+    return 0
+
+
+def _config_path() -> str:
+    """``$BITNET_TPU_CONFIG``, else ``~/.config/bitnet_tpu/config.json``:
+    the JAX CLI's file (bitnet_tpu/cli.py:525-531)."""
+    import os
+
+    return os.environ.get(
+        "BITNET_TPU_CONFIG",
+        os.path.join(os.path.expanduser("~"), ".config", "bitnet_tpu", "config.json"))
+
+
+def _load_cli_config() -> dict:
+    import os
+
+    p = _config_path()
+    if not os.path.exists(p):
+        return {}
+    try:
+        with open(p) as f:
+            d = json.load(f)
+        return d if isinstance(d, dict) else {}
+    except (OSError, json.JSONDecodeError):
+        return {}
+
+
+def cmd_config(args) -> int:
+    """Persistent CLI defaults (bitnet_tpu/cli.py:548-583): ``path``,
+    ``show``, ``set KEY VALUE`` (JSON values stay typed), ``unset KEY``;
+    ``model`` is the default of every ``--model``."""
+    import os
+
+    path = _config_path()
+    cfg = _load_cli_config()
+    if args.action == "path":
+        print(path)
+        return 0
+    if args.action == "show":
+        print(json.dumps(cfg, indent=2))
+        return 0
+    if args.action == "set":
+        if args.key is None or args.value is None:
+            print("usage: config set KEY VALUE", file=sys.stderr)
+            return 2
+        val: object = args.value
+        try:
+            val = json.loads(args.value)
+        except json.JSONDecodeError:
+            pass
+        cfg[args.key] = val
+    elif args.action == "unset":
+        if args.key is None:
+            print("usage: config unset KEY", file=sys.stderr)
+            return 2
+        cfg.pop(args.key, None)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    print(json.dumps(cfg, indent=2))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """Versions and the device (bitnet_tpu/cli.py:586-635): torch and its
+    CUDA build in place of jax / jaxlib, ``device_probe`` in place of the
+    JAX probe, under the same ``--device-timeout`` watchdog (a card that
+    does not answer is reported, never waited on)."""
+    import platform
+    import threading
+
+    import numpy as np
+    import torch
+
+    info = {
+        "python": platform.python_version(),
+        "platform": platform.platform(),
+        "numpy": np.__version__,
+        "config_file": _config_path(),
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+    }
+    probe_out: dict = {}
+
+    def _probe():
+        from .device_probe import probe_device
+
+        p = probe_device()
+        probe_out.update(backend="cuda" if p.platform == "gpu" else "cpu",
+                         device=p.as_dict(),
+                         recommended_kernel_path=p.recommended_kernel_path)
+
+    t = threading.Thread(target=_probe, daemon=True)
+    t.start()
+    t.join(timeout=args.device_timeout)
+    if probe_out:
+        info.update(probe_out)
+    else:
+        info["device"] = ("unavailable (device init exceeded "
+                          f"{args.device_timeout:.0f}s)")
+    print(json.dumps(info, indent=2))
+    return 0
+
+
+def _bench_metrics(path: str) -> dict[str, float]:
+    """Numeric metrics of a bench artifact (bitnet_tpu/cli.py:638-672): a
+    bench's stdout (its JSON line), a ``{"parsed": {...}}`` or ``{"tail":
+    "..."}`` record, or a plain JSON object."""
+    with open(path) as f:
+        raw = f.read()
+    doc = None
+    try:
+        doc = json.loads(raw)
+    except json.JSONDecodeError:
+        pass
+    if doc is None:
+        for line in raw.splitlines():
+            line = line.strip()
+            if line.startswith("{"):
+                try:
+                    doc = json.loads(line)
+                    break
+                except json.JSONDecodeError:
+                    continue
+    if doc is None:
+        raise SystemExit(f"no JSON metrics found in {path}")
+    if isinstance(doc.get("parsed"), dict):
+        doc = doc["parsed"]
+    elif "tail" in doc and "value" not in doc:
+        for line in str(doc["tail"]).splitlines():
+            line = line.strip()
+            if line.startswith("{") and '"metric"' in line:
+                try:
+                    doc = json.loads(line)
+                    break
+                except json.JSONDecodeError:
+                    continue
+    return {k: float(v) for k, v in doc.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+
+def cmd_bench_compare(args) -> int:
+    """Compare two bench artifacts (bitnet_tpu/cli.py:675-717): keys naming
+    ms / latency / seconds / time are lower-is-better, the rest
+    higher-is-better; exit 1 on a regression beyond ``--threshold``."""
+    base = _bench_metrics(args.baseline)
+    cand = _bench_metrics(args.candidate)
+    lower_better = ("ms", "latency", "_s", "seconds", "time")
+    rows = []
+    regressions = 0
+    for key in sorted(set(base) & set(cand)):
+        b, c = base[key], cand[key]
+        if b == 0:
+            continue
+        lb = any(t in key.lower() for t in lower_better)
+        change = (b - c) / abs(b) if lb else (c - b) / abs(b)
+        status = "ok"
+        if change < -args.threshold:
+            status = "REGRESSION"
+            regressions += 1
+        elif change > args.threshold:
+            status = "improved"
+        rows.append({"metric": key, "baseline": b, "candidate": c,
+                     "change_pct": round(100 * change, 2),
+                     "direction": "lower" if lb else "higher",
+                     "status": status})
+    only = {"baseline_only": sorted(set(base) - set(cand)),
+            "candidate_only": sorted(set(cand) - set(base))}
+    report = {"rows": rows, "regressions": regressions,
+              "threshold_pct": 100 * args.threshold, **only}
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        for r in rows:
+            print(f"{r['status']:>10}  {r['metric']}: "
+                  f"{r['baseline']:g} -> {r['candidate']:g} "
+                  f"({r['change_pct']:+.1f}%)")
+        if only["baseline_only"] or only["candidate_only"]:
+            print(f"unmatched: {only}", file=sys.stderr)
+        print(f"{regressions} regression(s) at "
+              f"±{100 * args.threshold:.0f}%")
+    return 1 if regressions else 0
+
+
+def cmd_preflight(args) -> int:
+    """Readiness report (bitnet_tpu/cli.py:720-742): the card
+    (``device_probe``) in place of the TPU probe, ``native_codec`` true
+    when that card is there (the loader packs QK256 on it), ``nvcc`` and
+    ``g++`` as the toolchain, the external C++ reference."""
+    import shutil
+
+    from .device_probe import probe_device
+    from .errors import KernelError
+    from .ops._cuda import nvcc_path
+    from .verify.crossval import cpp_reference_available
+
+    try:
+        nvcc = bool(nvcc_path())
+    except KernelError:
+        nvcc = False
+    probe = probe_device()
+    report = {
+        "device": probe.as_dict(),
+        "recommended_kernel_path": probe.recommended_kernel_path,
+        "native_codec": probe.platform == "gpu",
+        "toolchain": {"nvcc": nvcc, "gxx": shutil.which("g++") is not None},
+        "cpp_reference": cpp_reference_available(),
+    }
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_fingerprint(args) -> int:
+    """bitnet_tpu/cli.py:838-842."""
+    from .models.validation import checkpoint_metadata
+
+    print(json.dumps(checkpoint_metadata(args.model), indent=2))
+    return 0
+
+
+def cmd_ln_check(args) -> int:
+    """LayerNorm RMS envelope (bitnet_tpu/cli.py:845-854); exit 1 when a
+    norm is rejected."""
+    from .gguf.reader import GGUFReader
+    from .models.validation import detect_rules, validate_model_lns
+
+    with GGUFReader(args.model) as r:
+        rules = detect_rules(r.architecture or "")
+        report = validate_model_lns(r, rules)
+    print(json.dumps(report, indent=2))
+    return 0 if not report["rejected"] else 1
+
+
 def cmd_crossval(args) -> int:
     """Per-token logits cross-validation (bitnet_tpu/cli.py:744-765):
     ``eval_ids`` on ``--device`` against the C++ golden (``cppref``), an
@@ -323,8 +769,6 @@ def cmd_gate(args) -> int:
     ``--device`` is an sm_90 card."""
     from .device_probe import resolve_device
 
-    if args.require_native:
-        raise not_ported("the host C++ codec (--require-native)", "#22")
     checks: dict[str, bool] = {}
     try:
         # a cuda device resolves only when it is an sm_90 card
@@ -333,7 +777,10 @@ def cmd_gate(args) -> int:
     except Exception:
         dev = None
         checks["device_reachable"] = False
-    checks["native_codec"] = True       # never required: see --require-native
+    # the JAX key says the native codec is built; here that the loader can
+    # pack QK256 on the device, i.e. that it is reachable (always true when
+    # not required, as there)
+    checks["native_codec"] = not args.require_native or dev is not None
     if args.receipt:
         from .verify.receipts import InferenceReceipt, validate_receipt
 
@@ -529,6 +976,88 @@ def _add_serve_parser(sub) -> None:
     p.set_defaults(fn=cmd_serve)
 
 
+def _add_inspection_parsers(sub) -> None:
+    """The subcommands of bitnet_tpu/cli.py:905-927, :978-982, :996-997,
+    :1012-1017, :1059-1067, :1076-1102: model inspection, the chat REPL,
+    scoring and the throughput bench (those three on ``--device``), the
+    catalogs, the config file, the host report and bench comparison."""
+    p = sub.add_parser("tokenize", help="tokenize a prompt")
+    p.add_argument("--model", "-m", default=None)
+    p.add_argument("--prompt", "-p", required=True)
+    p.add_argument("--no-bos", action="store_true")
+    p.set_defaults(fn=cmd_tokenize)
+
+    p = sub.add_parser("inspect", help="dump GGUF metadata")
+    p.add_argument("--model", "-m", default=None)
+    p.add_argument("--tensors", action="store_true")
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("chat", help="interactive chat REPL")
+    _add_gen_flags(p)
+    p.set_defaults(fn=cmd_chat)
+
+    p = sub.add_parser("score", help="perplexity scoring")
+    _add_gen_flags(p)
+    p.add_argument("--file", help="text file to score")
+    p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("benchmark", help="deterministic throughput bench")
+    _add_gen_flags(p)
+    p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("compat-check", help="diagnose GGUF compatibility")
+    p.add_argument("--model", "-m", default=None)
+    p.add_argument("--fix-out", default=None,
+                   help="write a repaired GGUF here (export_fixed)")
+    p.set_defaults(fn=cmd_compat_check)
+
+    p = sub.add_parser("preflight", help="environment readiness report")
+    p.set_defaults(fn=cmd_preflight)
+
+    p = sub.add_parser("download-model",
+                       help="fetch a GGUF from the HF hub (offline-gated)")
+    p.add_argument("--repo", required=True)
+    p.add_argument("--file", default="ggml-model-i2_s.gguf")
+    p.add_argument("--out-dir", default=".")
+    p.set_defaults(fn=cmd_download_model)
+
+    p = sub.add_parser("fingerprint", help="checkpoint fingerprint + metadata")
+    p.add_argument("--model", "-m", default=None)
+    p.set_defaults(fn=cmd_fingerprint)
+
+    p = sub.add_parser("ln-check", help="LayerNorm RMS envelope validation")
+    p.add_argument("--model", "-m", default=None)
+    p.set_defaults(fn=cmd_ln_check)
+
+    p = sub.add_parser("list-templates")
+    p.set_defaults(fn=cmd_list_templates)
+
+    p = sub.add_parser("list-architectures")
+    p.set_defaults(fn=cmd_list_architectures)
+
+    p = sub.add_parser("info", help="system / runtime report")
+    p.add_argument("--device-timeout", type=float, default=20.0,
+                   help="seconds to wait for the device probe before "
+                        "reporting the device as unavailable")
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("config", help="persistent CLI defaults")
+    p.add_argument("action", choices=["show", "set", "unset", "path"])
+    p.add_argument("key", nargs="?", default=None)
+    p.add_argument("value", nargs="?", default=None)
+    p.set_defaults(fn=cmd_config)
+
+    p = sub.add_parser("bench-compare",
+                       help="compare two bench artifacts, flag regressions "
+                            "(exit 1 on regression)")
+    p.add_argument("baseline", help="a bench's output or a BENCH_r{N}.json")
+    p.add_argument("candidate")
+    p.add_argument("--threshold", type=float, default=0.05,
+                   help="relative regression tolerance (default 5%%)")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_bench_compare)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="bitnet-tpu-torch",
                                  description="BitNet inference on an H100")
@@ -576,8 +1105,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--require-cuda", action="store_true",
                    help="fail unless --device is an sm_90 CUDA card")
     p.add_argument("--require-native", action="store_true",
-                   help="the host C++ codec: not ported (ROADMAP.md "
-                        "queue 1 #22)")
+                   help="fail unless the loader packs QK256 on --device "
+                        "(the JAX CLI's native codec check)")
     p.add_argument("--crossval-model", default=None,
                    help="GGUF to cross-validate against the independent "
                         "C++ golden (cosine gate)")
@@ -627,7 +1156,15 @@ def main(argv: list[str] | None = None) -> int:
                    help="shard files, an index.json, or a directory")
     p.add_argument("--output", "-o", required=True)
     p.set_defaults(fn=cmd_st_merge)
+    _add_inspection_parsers(sub)
     args = ap.parse_args(argv)
+    if getattr(args, "model", "absent") is None:
+        # --model accepted but not given: the config file's default
+        # (bitnet_tpu/cli.py:1104-1110)
+        args.model = _load_cli_config().get("model")
+        if args.model is None:
+            ap.error("--model/-m is required (or set a default once: "
+                     "bitnet-tpu-torch config set model /path/model.gguf)")
     return args.fn(args)
 
 

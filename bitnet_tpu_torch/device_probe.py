@@ -23,6 +23,14 @@ class DeviceProbe:
     sm: tuple[int, int] | None      # compute capability, None on CPU
     supports_kernels: bool          # the sm_90a CUDA kernels can run
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @property
+    def recommended_kernel_path(self) -> str:
+        """``kernel_path="auto"``'s choice on this device."""
+        return "w2a8" if self.supports_kernels else "xla"
+
 
 def probe_device(index: int = 0) -> DeviceProbe:
     if not torch.cuda.is_available():

@@ -309,6 +309,14 @@ class InferenceEngine:
             return 8 if self.device.type == "cuda" else 1
         return k
 
+    def warmup(self, token_ids: list[int], gen_cfg: GenerationConfig) -> None:
+        """One throwaway request of one K-step segment's tokens (at least 2)
+        under ``gen_cfg``, so that the segment's CUDA-graph capture, the
+        port's compile, falls outside the requests timed after it."""
+        n = max(2, self._segment_steps())
+        for _ in self.generate_stream(token_ids, gen_cfg.replace(max_new_tokens=n)):
+            pass
+
     def _get_segment(self, gen_cfg: GenerationConfig, n_steps: int):
         """The K-step segment (``engine/loop.py``) keyed as the JAX engine
         keys it (K and every sampler field, ``:308-322``), plus the

@@ -17,7 +17,7 @@ import mmap
 import os
 import struct
 from dataclasses import dataclass
-from typing import Any, BinaryIO
+from typing import Any, BinaryIO, Iterator
 
 import numpy as np
 
@@ -273,6 +273,10 @@ class GGUFReader:
             return raw[: min(len(raw), max(nominal, len(raw)))]
         view = raw[: info.nelems * dtype.itemsize].view(dtype)
         return view.reshape(info.logical_shape)
+
+    def __iter__(self) -> Iterator[TensorInfo]:
+        """The tensors' infos in file order."""
+        return iter(self.tensors.values())
 
     # -- convenience -------------------------------------------------------
     @property

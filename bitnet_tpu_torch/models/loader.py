@@ -17,15 +17,15 @@ Counterpart of ``bitnet_tpu/models/loader.py`` (``load_model`` ``:334``):
 - a ``LoadReport`` of what happened (the flavors, each role's kind, the
   tensors dequantized), with the GGUF's ``eos_token_id``.
 
-The QK256 repack is the numpy route (the JAX package's native codec,
-``:228-234``, is not ported): a whole 2B qk256 GGUF loads in 13–16 s by
-it (12.80 and 16.25 s on the H100 machine's host, ``chip_smoke.py``'s
-checkpoints phase), not the minutes the JAX loader's note implies.  A
-QK256 linear densified under
-``mode="dense"`` is unpacked in torch on the load's device from the
-payload's bytes: the values are the LUT's small integers, exact in bf16,
-so the result equals the numpy route's (``_to_float`` → ``.T`` → the
-param dtype) bit for bit, without an f32 copy of the weights on the host.
+A QK256 linear is packed on the load's device
+(``ops/linear.qk256_linear_from_payload_torch``, the function of the JAX
+package's native codec, ``:222-233``): the payload's bytes go there once
+and are unpacked, transposed and packed in torch, the words equal to the
+numpy route's (``qk256_linear_from_payload``, which no load calls) bit
+for bit.  Densified under ``mode="dense"`` it is unpacked the same way:
+the values are the LUT's small integers, exact in bf16, so the result
+equals the numpy route's (``_to_float`` → ``.T`` → the param dtype) bit
+for bit, without an f32 copy of the weights on the host.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from ..errors import ModelError
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader, TensorInfo
 from ..ops.linear import (TernaryLinear, bitnet32_linear_from_codes, dense_linear,
-                          qk256_linear_from_payload)
+                          qk256_codes_torch, qk256_linear_from_payload_torch)
 from ..ops.rope import build_rope_tables
 from ..quant import ggml_classic, i2s, qk256
 from ..quant.flavor import I2SFlavor, detect_i2s_flavor
@@ -151,17 +151,10 @@ def qk256_dense_kn(payload: np.ndarray, rows: int, cols: int, transposed: bool,
                    dtype: torch.dtype, device) -> torch.Tensor:
     """A QK256 payload stored [rows, cols] → its dense [K, N] weight in
     ``dtype`` on ``device``: the codes unpacked in torch from the bytes
-    (4 a byte, LSB first), LUT values {-2, -1, 1, 2}, transposed unless
-    the tensor is stored [in, out] already.  Equal bit for bit to
-    ``dequantize_qk256`` → ``.T`` → ``dtype`` (the values are exact)."""
-    stride = qk256.row_stride_bytes(cols)
-    raw = np.ascontiguousarray(payload, dtype=np.uint8).reshape(-1)
-    if raw.size < rows * stride:
-        raise ModelError(f"QK256 payload too small: {raw.size} < {rows * stride} "
-                         f"bytes for [{rows}, {cols}]")
-    b = torch.from_numpy(raw[: rows * stride].copy()).to(device).view(rows, stride)
-    codes = torch.stack([(b >> s) & 3 for s in (0, 2, 4, 6)], dim=-1)
-    codes = codes.view(rows, stride * 4)[:, :cols].to(torch.int8)
+    (``ops/linear.qk256_codes_torch``), LUT values {-2, -1, 1, 2},
+    transposed unless the tensor is stored [in, out] already.  Equal bit for
+    bit to ``dequantize_qk256`` → ``.T`` → ``dtype`` (the values are exact)."""
+    codes = qk256_codes_torch(payload, rows, cols, device).to(torch.int8)
     vals = (codes + (codes >= 2).to(torch.int8) - 2).to(dtype)     # [rows, cols]
     return vals.contiguous() if transposed else vals.t().contiguous()
 
@@ -194,8 +187,9 @@ def _load_linear(reader: GGUFReader, name: str, out_dim: int, in_dim: int,
         report.flavors[name] = flavor.value
         if flavor == I2SFlavor.GGML_QK256_NO_SCALE:
             report.kinds[role] = "qk256"
-            return qk256_linear_from_payload(reader.tensor_bytes(name), out_dim,
-                                             in_dim, transposed=transposed)
+            return qk256_linear_from_payload_torch(
+                reader.tensor_bytes(name), out_dim, in_dim, transposed=transposed,
+                device=device)
         codes, scales = _i2s_codes_and_scales(reader, info, flavor)
         if scales is not None and not transposed:
             report.kinds[role] = "bitnet32"

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..errors import QuantizationError
-from ..quant.qk256 import extract_codes
+from ..quant.qk256 import extract_codes, row_stride_bytes
 from .rmsnorm import rms_norm
 
 KT_PACK = 256
@@ -219,18 +219,55 @@ def tl_linear_from_codes(codes_kn, scales_blocks_kn, block: int) -> TernaryLinea
 
 def qk256_linear_from_payload(payload: np.ndarray, out_dim: int, in_dim: int,
                               transposed: bool = False) -> TernaryLinear:
-    """QK256 GGUF payload → TernaryLinear.  GGUF stores ``[out, in]``
-    (``transposed`` = stored ``[in, out]``).  This is the numpy route —
-    extract, transpose, repack, fold — which the JAX package replaced by a
-    native codec (it noted ~170 s on a 2B checkpoint,
-    bitnet_tpu/models/loader.py:229-230).  Here a whole 2B qk256 GGUF loads
-    in 13–16 s by this route (``chip_smoke.py``'s checkpoints phase on the
-    H100 machine's host: 12.80 and 16.25 s in two runs)."""
+    """QK256 GGUF payload → TernaryLinear by the numpy route on the host
+    (extract, transpose, repack, fold; GGUF stores ``[out, in]``,
+    ``transposed`` = stored ``[in, out]``): the plain version that
+    :func:`qk256_linear_from_payload_torch` is held to bit for bit.  No
+    load calls it: it took a whole 2B qk256 GGUF 12.80 and 16.25 s on the
+    H100 machine's host (``chip_smoke.py``'s checkpoints phase)."""
     if transposed:
         codes_kn = extract_codes(payload, in_dim, out_dim)
     else:
         codes_kn = extract_codes(payload, out_dim, in_dim).T
     return qk256_linear_from_codes(codes_kn)
+
+
+def qk256_codes_torch(payload: np.ndarray, rows: int, cols: int,
+                      device) -> torch.Tensor:
+    """A QK256 payload stored [rows, cols] → its uint8 codes [rows, cols]
+    on ``device``: the payload's bytes copied there once, then unpacked in
+    torch (4 a byte, LSB first, rows ``row_stride_bytes(cols)`` apart)."""
+    stride = row_stride_bytes(cols)
+    raw = np.ascontiguousarray(payload, dtype=np.uint8).reshape(-1)
+    if raw.size < rows * stride:
+        raise QuantizationError(f"QK256 payload too small: {raw.size} < "
+                                f"{rows * stride} bytes for [{rows}, {cols}]")
+    b = torch.from_numpy(raw[: rows * stride].copy()).to(device).view(rows, stride)
+    codes = torch.stack([(b >> s) & 3 for s in (0, 2, 4, 6)], dim=-1)
+    return codes.view(rows, stride * 4)[:, :cols]
+
+
+def qk256_linear_from_payload_torch(payload: np.ndarray, out_dim: int, in_dim: int,
+                                    transposed: bool = False,
+                                    device="cuda") -> TernaryLinear:
+    """QK256 GGUF payload → TernaryLinear on ``device`` (the card unless the
+    caller asks for ``"cpu"``): the function of the JAX package's native
+    codec (``bitnet_tpu/native/__init__.py:231``
+    ``qk256_payload_to_tpu_words``, called by its loader at
+    ``bitnet_tpu/models/loader.py:222-233``) in torch on the load's
+    device.  The bytes go to the device once, the codes are unpacked there
+    (:func:`qk256_codes_torch`), transposed to [K, N] unless the tensor is
+    stored [in, out], and packed by :func:`repack_codes_torch`.  The words
+    and their padding equal :func:`qk256_linear_from_payload`'s bit for
+    bit; the peak is one tensor's temporaries."""
+    from ..device_probe import resolve_device
+
+    dev = resolve_device(device)
+    rows, cols = (in_dim, out_dim) if transposed else (out_dim, in_dim)
+    codes = qk256_codes_torch(payload, rows, cols, dev)
+    packed = repack_codes_torch(codes if transposed else codes.t())
+    return TernaryLinear(kind="qk256", k=in_dim, n=out_dim, packed=packed,
+                         scales=torch.tensor(1.0, dtype=torch.float32, device=dev))
 
 
 # --------------------------------------------------------------------------

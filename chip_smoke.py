@@ -119,7 +119,12 @@ no result line):
            greedy request on kernel_path="pallas"
   cli      `python -m bitnet_tpu_torch.cli run` on mini QK256 (also with
            --weight-quant tl2) and BitNet32 GGUFs written by the port's own
-           fixtures, on the card
+           fixtures, on the card; then, in process on the QK256 mini, `chat`
+           with redirected stdin (K1 and K5), `config` on a file of its own
+           (the default of --model), `list-templates`, `list-architectures`,
+           `info` and `preflight` (the H100, `native_codec`, nvcc),
+           `bench-compare` (a regression, exit 1), `download-model`'s
+           refusal and `gate --require-native`
   segments K-step decode segments (one CUDA graph of 8 steps a round trip)
            against one step a round trip on the same engine, 32 tokens a
            request: the 2B fused B=1 engine (bf16 cache greedy and seeded
@@ -210,7 +215,17 @@ no result line):
            (near-tie rule), allocated memory flat after the first window,
            decode ms and launches a step, then the ring's logits at every
            position of that run, teacher-forced, against forward(window=W)
-           over a dense cache (cosine >= 0.99 on both sides of W)
+           over a dense cache (cosine >= 0.99 on both sides of W); (d)
+           every QK256 tensor of the 2B packed on the card against the
+           numpy route on the host, bit for bit (seconds, the largest
+           memory rise of one pack); (e) the CLI in process at the 2B:
+           `benchmark -n 64` (tok/s, TTFT), `score` over ~300 ids
+           (perplexity, seconds), `tokenize`, `inspect`, `fingerprint`,
+           `ln-check`, `compat-check` (rc, keys), K1 and K5 launched by
+           the engine commands; (f) `compat.llama.Llama(n_ctx=512)`: a
+           greedy 32-token completion equal to `InferenceEngine.generate`,
+           a streamed chat joined to the unstreamed one, an embedding,
+           `eval` + `sample`, `save_state` / `load_state`; K1 and K5
 
 Before the last line it prints the card's name and power limit, then the
 ``{"kernels": [...]}`` summary; the last line is the result object.
@@ -3786,7 +3801,102 @@ def phase_cli(torch, dev):
         out[mode] = r
         if not r["ok"]:
             raise AssertionError(f"cli run failed ({mode}): {r}")
+    out["subcommands"] = _cli_subcommands(torch, paths["qk256"])
     out["ok"] = True
+    return out
+
+
+def _cli_call(argv, stdin=None):
+    """``bitnet_tpu_torch.cli.main(argv)`` in this process: (rc, stdout,
+    stderr), ``stdin`` fed to the REPL when given."""
+    import contextlib
+    import io
+
+    from bitnet_tpu_torch import cli
+
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.ExitStack() as st:
+        st.enter_context(contextlib.redirect_stdout(so))
+        st.enter_context(contextlib.redirect_stderr(se))
+        if stdin is not None:
+            st.enter_context(mock.patch("sys.stdin", io.StringIO(stdin)))
+        rc = cli.main(argv)
+    return rc, so.getvalue(), se.getvalue()
+
+
+def _cli_subcommands(torch, mini):
+    """The JAX CLI's other subcommands on the card, on the mini QK256 GGUF:
+    ``chat`` with redirected stdin (one turn of 8 tokens, /metrics, /clear,
+    /exit; K1 and K5 launched), ``config`` on a file of its own (its model
+    the default of ``tokenize``'s --model), ``list-templates``,
+    ``list-architectures``, ``info`` and ``preflight`` (the H100,
+    ``native_codec``, nvcc), ``bench-compare`` on two small JSON files (a
+    regression: exit 1), ``download-model``'s refusal while downloads are
+    off, and ``gate --require-native``."""
+    import tempfile
+
+    from bitnet_tpu_torch.ops import registry
+
+    out, kind = {}, torch.cuda.get_device_name(0)
+    registry.reset_launch_counts()
+    rc, so, se = _cli_call(["chat", "-m", mini, "--greedy", "-n", "8",
+                            "--min-new-tokens", "8"], "Hello\n/metrics\n/clear\n/exit\n")
+    n = registry.launch_counts()
+    metrics = [json.loads(x) for x in se.splitlines() if x.startswith("{")]
+    out["chat"] = {"rc": rc, "reply": so.strip(), "metrics": metrics,
+                   "cleared": "(history cleared)" in se, "launches": {
+                       k: v for k, v in n.items() if v}}
+    if (rc != 0 or not so.strip() or len(metrics) != 1
+            or metrics[0].get("generated_tokens") != 8 or not out["chat"]["cleared"]
+            or not n["ternary_matmul_w2a8_normed"] or not n["decode_attention"]):
+        raise AssertionError(f"cli chat: {out['chat']} {se[-800:]}")
+    with tempfile.TemporaryDirectory(prefix="cli_cfg_") as d:
+        cfg = os.path.join(d, "config.json")
+        with mock.patch.dict(os.environ, {"BITNET_TPU_CONFIG": cfg}):
+            steps = [_cli_call(["config", "set", "model", mini]),
+                     _cli_call(["config", "show"]), _cli_call(["config", "path"]),
+                     _cli_call(["tokenize", "-p", "Hello world"])]
+        toks = json.loads(steps[3][1])
+        out["config"] = {"rc": [r[0] for r in steps], "show": json.loads(steps[1][1]),
+                         "tokens_without_model": toks["count"]}
+        if (out["config"]["rc"] != [0] * 4 or out["config"]["show"] != {"model": mini}
+                or steps[2][1].strip() != cfg or toks["count"] < 2):
+            raise AssertionError(f"cli config: {out['config']}")
+        for name in ("list-templates", "list-architectures"):
+            rc, so, _se = _cli_call([name])
+            out[name] = {"rc": rc, "lines": len(so.splitlines())}
+            if rc != 0 or not so.strip():
+                raise AssertionError(f"cli {name}: {out[name]}")
+        rc, so, _se = _cli_call(["info"])
+        info = json.loads(so)
+        out["info"] = {"rc": rc, **{k: info.get(k) for k in (
+            "torch", "torch_cuda", "backend", "device", "recommended_kernel_path")}}
+        if rc != 0 or info.get("backend") != "cuda" or \
+                info["device"]["device_kind"] != kind or info["device"]["sm"] != [9, 0]:
+            raise AssertionError(f"cli info: {out['info']}")
+        rc, so, _se = _cli_call(["preflight"])
+        out["preflight"] = pf = {"rc": rc, **json.loads(so)}
+        if (rc != 0 or pf["device"]["device_kind"] != kind or not pf["native_codec"]
+                or not pf["toolchain"]["nvcc"] or pf["recommended_kernel_path"] != "w2a8"):
+            raise AssertionError(f"cli preflight: {pf}")
+        files = []
+        for name, v in (("base", 1.5), ("cand", 2.0)):
+            files.append(os.path.join(d, f"{name}.json"))
+            with open(files[-1], "w") as f:
+                json.dump({"decode_ms_per_token_b1": v, "roofline_pct": 30 / v}, f)
+        rc, so, _se = _cli_call(["bench-compare", *files, "--json"])
+        out["bench_compare"] = {"rc": rc, **json.loads(so)}
+        if rc != 1 or out["bench_compare"]["regressions"] != 2:
+            raise AssertionError(f"cli bench-compare: {out['bench_compare']}")
+    with mock.patch.dict(os.environ, {"BITNET_ALLOW_DOWNLOADS": ""}):
+        rc, so, se = _cli_call(["download-model", "--repo", "org/model"])
+    out["download_model"] = {"rc": rc, "stderr": se.strip()}
+    if rc != 1 or "downloads disabled" not in se or so:
+        raise AssertionError(f"cli download-model: {out['download_model']}")
+    rc, so, _se = _cli_call(["gate", "--require-native"])
+    out["gate_require_native"] = {"rc": rc, **json.loads(so)}
+    if rc != 0 or not out["gate_require_native"]["checks"]["native_codec"]:
+        raise AssertionError(f"cli gate --require-native: {out['gate_require_native']}")
     return out
 
 
@@ -5579,6 +5689,8 @@ CKPT_REQUESTS = ((32, 32), (128, 128))   # (prompt tokens, new tokens), greedy
 CKPT_WINDOW = 256
 CKPT_RING = (64, 512)                    # prompt tokens, new tokens
 CKPT_FLAT_MIB = 1.0                      # allowed drift of allocated memory
+CKPT_SCORE_CHARS = 300                   # (e): score's text (~one <unk> id a character)
+CKPT_LLAMA = (24, 32)                    # (f): prompt ids, greedy completion tokens
 
 
 def _sync(torch, dev):
@@ -5790,6 +5902,205 @@ def _write_hf_dir(eng, d):
     return int(sum(a.nbytes for a in t.values()))
 
 
+def _pack_leg(torch, dev, qk):
+    """(d) Every QK256 tensor of the 2B packed on the card
+    (``qk256_linear_from_payload_torch``) against the numpy route on the
+    host, bit for bit: seconds of each side and the largest rise of
+    allocated device memory over one tensor's pack (its temporaries and
+    words)."""
+    from bitnet_tpu_torch.gguf.constants import GGMLType
+    from bitnet_tpu_torch.gguf.reader import GGUFReader
+    from bitnet_tpu_torch.ops.linear import (qk256_linear_from_payload,
+                                             qk256_linear_from_payload_torch)
+
+    n, card_s, plain_s, peak = 0, 0.0, 0.0, 0
+    with GGUFReader(qk) as r:
+        L = int(r.arch_key("block_count"))
+        for info in r:
+            if info.ggml_type != GGMLType.I2_S:
+                continue
+            rows, cols = info.logical_shape
+            payload = r.tensor_bytes(info.name)
+            _sync(torch, dev)
+            if dev.type == "cuda":
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            got = qk256_linear_from_payload_torch(payload, rows, cols, device=dev)
+            _sync(torch, dev)
+            card_s += time.perf_counter() - t0
+            if dev.type == "cuda":
+                peak = max(peak, torch.cuda.max_memory_allocated(dev) - base)
+            t0 = time.perf_counter()
+            want = qk256_linear_from_payload(payload, rows, cols)
+            plain_s += time.perf_counter() - t0
+            if not torch.equal(got.packed.cpu(), want.packed) or (got.k, got.n) != (
+                    want.k, want.n):
+                raise AssertionError(f"the card's QK256 pack of {info.name} differs "
+                                     "from the numpy route's")
+            n += 1
+            del got, want
+    if n != 7 * L:
+        raise AssertionError(f"{n} QK256 tensors in the 2B GGUF, not 7 a layer")
+    return {"tensors": n, "bit_for_bit": True, "card_s": card_s, "plain_s": plain_s,
+            "peak_pack_mib": peak / 2**20}
+
+
+def _cli_leg(torch, dev, qk, workdir):
+    """(e) The CLI at full width, in this process, on the card: ``benchmark
+    -n 64`` (decode tok/s, TTFT), ``score`` over CKPT_SCORE_CHARS ids
+    (perplexity, seconds), and ``tokenize``, ``inspect``, ``fingerprint``,
+    ``ln-check`` and ``compat-check`` (rc and keys: each exits 1 where it
+    finds a fault); the engine commands' launches."""
+    from bitnet_tpu_torch.ops import registry
+
+    text = os.path.join(workdir, "score.txt")
+    with open(text, "w") as f:
+        f.write("abcdefghij" * (CKPT_SCORE_CHARS // 10))
+    want_keys = {"benchmark": {"prompt_tokens", "generated_tokens", "wall_s",
+                               "decode_tok_s", "ttft_s", "kernel_path"},
+                 "score": {"tokens", "nll", "perplexity"},
+                 "tokenize": {"text", "ids", "pieces", "count"},
+                 "inspect": {"path", "version", "n_tensors", "n_kv", "architecture",
+                             "alignment", "quantization_histogram", "metadata"},
+                 "fingerprint": {"path", "format", "size_bytes", "mtime", "created_unix",
+                                 "fingerprint", "algorithm", "architecture",
+                                 "num_tensors"},
+                 "ln-check": {"checked", "warnings", "rejected", "rms"},
+                 "compat-check": {"path", "errors", "warnings", "fixes"}}
+    on = ["--device", dev.type]
+    argv = {"benchmark": ["-n", "64", "-p", "Hello", "--max-seq-len", str(CKPT_S), *on],
+            "score": ["--file", text, "--max-seq-len", "512", *on],
+            "tokenize": ["-p", "Hello world"], "inspect": [], "fingerprint": [],
+            "ln-check": [], "compat-check": []}
+    out, launches = {}, {}
+    for name, extra in argv.items():
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, so, se = _cli_call([name, "-m", qk, *extra])
+        _sync(torch, dev)
+        secs = time.perf_counter() - t0
+        n = {k: v for k, v in registry.launch_counts().items() if v}
+        res = json.loads(so)
+        row = {"rc": rc, "seconds": secs, "keys_ok": set(res) == want_keys[name]}
+        if name in ("benchmark", "score"):
+            row.update({k: res[k] for k in ("decode_tok_s", "ttft_s", "wall_s",
+                                            "generated_tokens", "kernel_path", "tokens",
+                                            "perplexity", "nll") if k in res})
+            row["launches"] = n
+            _add(launches, n)
+        elif name == "ln-check":
+            row.update(checked=res["checked"], rejected=len(res["rejected"]))
+        elif name == "compat-check":
+            row["errors"] = res["errors"]
+        out[name] = row
+        # ln-check and compat-check exit 1 on what they find (the synthetic
+        # 2B's conditioned norm gains lie under the BitNet envelope)
+        fail = {"ln-check": bool(res.get("rejected")),
+                "compat-check": bool(res.get("errors"))}.get(name, False)
+        ok = rc == int(fail) and row["keys_ok"]
+        if name == "benchmark":
+            ok = ok and res["generated_tokens"] >= 1 and (dev.type != "cuda" or (
+                res["kernel_path"] == "w2a8" and n.get("ternary_matmul_w2a8_normed", 0) > 0
+                and n.get("decode_attention", 0) > 0))
+        if name == "score":
+            ok = ok and res["tokens"] >= CKPT_SCORE_CHARS and math.isfinite(
+                res["perplexity"])
+        if not ok:
+            raise AssertionError(f"cli {name} at the 2B: {row} {se[-800:]}")
+    return out, launches
+
+
+def _llama_leg(torch, dev, qk):
+    """(f) ``Llama(qk, n_ctx=512)`` on the card: a greedy ``create_completion``
+    of CKPT_LLAMA's tokens from a prompt of ids, its text that of
+    ``InferenceEngine.generate`` greedy on the same GGUF and device (the
+    synthetic vocabulary's pieces are one a token, so equal text is equal
+    tokens); a streamed ``create_chat_completion`` whose chunks join to the
+    unstreamed text; ``create_embedding`` (n_embd finite values: 2560); ``eval`` +
+    ``sample(temperature=0)``, the completion's first token or a near tie;
+    ``save_state`` / ``load_state`` round-tripping ``n_past`` and the next
+    greedy token.  Launches of the whole leg."""
+    from bitnet_tpu_torch.compat.llama import Llama
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.ops import registry
+
+    n_prompt, n_new = CKPT_LLAMA
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    llm = Llama(qk, n_ctx=512, seed=0, verbose=False, device=dev)
+    out = {"load_s": time.perf_counter() - t0}
+    ids = _ckpt_ids(torch, n_prompt, llm.n_vocab, 13)
+    t0 = time.perf_counter()
+    res = llm.create_completion(ids, max_tokens=n_new, temperature=0.0, repeat_penalty=1.0)
+    _sync(torch, dev)
+    out["completion_s"] = time.perf_counter() - t0
+    n = {k: v for k, v in registry.launch_counts().items() if v}
+    ref = InferenceEngine.from_gguf(qk, EngineConfig(max_seq_len=512), device=dev)
+    want = ref.generate(ids, GenerationConfig(max_new_tokens=n_new, greedy=True))
+    got_text = res["choices"][0]["text"]
+    out["completion"] = {"tokens": res["usage"]["completion_tokens"],
+                         "equal_to_generate": got_text == want.text,
+                         "finish_reason": res["choices"][0]["finish_reason"]}
+    if got_text != want.text or res["usage"]["completion_tokens"] != len(want.token_ids):
+        raise AssertionError(f"Llama's completion {got_text[:200]!r} is not generate's "
+                             f"{want.text[:200]!r}")
+    msgs = [{"role": "user", "content": "Hello"}]
+    plain = llm.create_chat_completion(msgs, max_tokens=16, temperature=0.0)
+    chunks = list(llm.create_chat_completion(msgs, max_tokens=16, temperature=0.0,
+                                             stream=True))
+    joined = "".join(c["choices"][0]["delta"].get("content") or "" for c in chunks)
+    out["chat_stream"] = {"chunks": len(chunks),
+                          "joined_equal": joined == plain["choices"][0]["message"]["content"],
+                          "finish_reason": chunks[-1]["choices"][0]["finish_reason"]}
+    if not out["chat_stream"]["joined_equal"] or chunks[-1]["choices"][0][
+            "finish_reason"] != plain["choices"][0]["finish_reason"]:
+        raise AssertionError(f"the streamed chat parts from the unstreamed: {out}")
+    emb = llm.create_embedding("Hello world")["data"][0]["embedding"]
+    out["embedding"] = {"width": len(emb), "finite": all(map(math.isfinite, emb))}
+    if len(emb) != llm.n_embd or not out["embedding"]["finite"]:
+        raise AssertionError(f"the embedding: {out['embedding']}")
+    llm.reset()
+    llm.eval(ids)
+    first = llm.sample(temperature=0.0, repeat_penalty=1.0)
+    out["eval_sample"] = {"token": first, "completion_first": want.token_ids[0],
+                          "equal": first == want.token_ids[0]}
+    if first != want.token_ids[0]:
+        a = torch.from_numpy(llm._last_logits.copy())
+        with torch.inference_mode():
+            b = ref.prefill(ids)[0].float().cpu()
+        diff, gap = float((a - b).abs().max()), float(a[first] - a[want.token_ids[0]])
+        out["eval_sample"].update(max_diff=diff, gap=gap)
+        if gap > diff:
+            raise AssertionError(f"eval + sample is not the completion's first token "
+                                 f"nor a near tie: {out['eval_sample']}")
+    st = llm.save_state()
+    nxt = llm.sample(temperature=0.0, repeat_penalty=1.0)
+    llm.eval([nxt])
+    after = llm.sample(temperature=0.0, repeat_penalty=1.0)
+    llm.eval([5, 6, 7])
+    llm.load_state(st)
+    n_past = llm._n_past
+    llm.eval([nxt])
+    again = llm.sample(temperature=0.0, repeat_penalty=1.0)
+    out["state"] = {"kv_len": st.kv_len, "n_past": n_past, "next": after,
+                    "next_after_load": again}
+    if n_past != n_prompt or st.kv_len != n_prompt or again != after:
+        raise AssertionError(f"save_state / load_state: {out['state']}")
+    _sync(torch, dev)
+    launches = {k: v for k, v in registry.launch_counts().items() if v}
+    out["launches"] = launches
+    out["completion_launches"] = n
+    if dev.type == "cuda" and not (n.get("ternary_matmul_w2a8_normed")
+                                   and n.get("decode_attention")):
+        raise AssertionError(f"Llama's completion launched {n}")
+    del llm, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 def phase_checkpoints(torch, dev, workdir):
     """Every checkpoint the JAX package loads, at the 2B's full width (the
     gate's 2B qk256 GGUF of ``tools/gen_2b_gguf.py``, generated here unless
@@ -5819,7 +6130,9 @@ def phase_checkpoints(torch, dev, workdir):
         after the first window; decode ms a step and launches a step; then
         teacher-forced over the prompt and those 512 tokens, the ring's
         logits at each of their positions held to ``forward(window=W)``
-        over a dense 1024-row cache, cosine >= 0.99 on both sides of W."""
+        over a dense 1024-row cache, cosine >= 0.99 on both sides of W;
+    (d) the QK256 pack on the card (``_pack_leg``), (e) the CLI at the 2B
+        (``_cli_leg``), (f) the llama-cpp-python drop-in (``_llama_leg``)."""
     import shutil
 
     from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
@@ -5982,6 +6295,15 @@ def phase_checkpoints(torch, dev, workdir):
     if len(got) != n_new or (dev.type == "cuda"
                              and "ternary_matmul_w2a8_normed" not in counts):
         raise AssertionError(f"the ring run: {len(got)} tokens, launches {counts}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the QK256 pack on the card; (e) the CLI and (f) Llama at the 2B
+    out["d_pack"] = _pack_leg(torch, dev, qk)
+    out["e_cli"], n = _cli_leg(torch, dev, qk, workdir)
+    _add(launches, n)
+    out["f_llama"], n = _llama_leg(torch, dev, qk)
+    _add(launches, n)
     return out, launches
 
 
@@ -6182,7 +6504,8 @@ def main(argv=None) -> int:
                               "requests": [{k: v for k, v in row.items() if k != "tokens"}
                                            for row in a["requests"]]},
                   "b_hf_dir": r["b_hf_dir"], "c_ring": r["c_ring"],
-                  "launches": launches["checkpoints"]})
+                  "d_pack": r["d_pack"], "e_cli": r["e_cli"],
+                  "f_llama": r["f_llama"], "launches": launches["checkpoints"]})
     except Exception as e:  # any failed phase fails the run
         import traceback
 

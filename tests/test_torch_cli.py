@@ -233,18 +233,24 @@ def test_gate_receipt_prints_the_jax_checks(receipts, capsys, which):
 
 def test_gate_needs_the_card_it_is_asked_for(capsys, monkeypatch):
     """``--require-cuda`` (the JAX ``--require-tpu``) fails on the CPU, as
-    does the default device without a card; ``--require-native`` names
-    ROADMAP #22."""
+    does the default device without a card; ``--require-native`` checks
+    that the loader packs QK256 on the device (the JAX native codec's key):
+    the JAX checks' keys, true on the CPU, false without the card asked
+    for."""
     rc, out = _json(cli.main, ["gate", "--device", "cpu", "--require-cuda"], capsys)
     assert rc == 1 and out["checks"] == {"device_reachable": True,
                                          "native_codec": True, "cuda": False}
     wrc, want = _json(jcli.main, ["gate", "--require-tpu"], capsys)
     assert wrc == 1 and not want["checks"]["tpu"]
+    rc, out = _json(cli.main, ["gate", "--device", "cpu", "--require-native"], capsys)
+    _wrc, want = _json(jcli.main, ["gate", "--require-native"], capsys)
+    assert list(out["checks"]) == list(want["checks"]) and list(out) == list(want)
+    assert rc == 0 and out["checks"]["native_codec"] and out["passed"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out = _json(cli.main, ["gate"], capsys)
     assert rc == 1 and not out["checks"]["device_reachable"] and not out["passed"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #22"):
-        cli.main(["gate", "--require-native"])
+    rc, out = _json(cli.main, ["gate", "--require-native"], capsys)
+    assert rc == 1 and not out["checks"]["native_codec"]
 
 
 def test_gate_crossval_model_prints_the_jax_keys(mini_gguf_qk256, capsys):

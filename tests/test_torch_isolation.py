@@ -40,7 +40,8 @@ def test_no_jax_or_jax_package_import(path):
 
 def test_the_scan_covers_the_verification_stack():
     """The seven verification modules, the 2B gate tool, the decode
-    segments' module (``engine/loop.py``) and chip_smoke.py are among the
+    segments' module (``engine/loop.py``), the validation module, the
+    llama-cpp-python drop-in (``compat/``) and chip_smoke.py are among the
     scanned sources (the gate tool runs
     ``tools/gen_2b_gguf.py`` as a process of its own; it imports nothing of
     it)."""
@@ -50,7 +51,9 @@ def test_the_scan_covers_the_verification_stack():
     want |= {f"bitnet_tpu_torch/serve/{m}.py" for m in (
         "http", "server", "model_manager", "health", "recovery")}
     want |= {"bitnet_tpu_torch/server.py", "bitnet_tpu_torch/toolcall.py",
-             "bitnet_tpu_torch/obs/otlp.py", "bitnet_tpu_torch/obs/profiler.py"}
+             "bitnet_tpu_torch/obs/otlp.py", "bitnet_tpu_torch/obs/profiler.py",
+             "bitnet_tpu_torch/models/validation.py",
+             "bitnet_tpu_torch/compat/__init__.py", "bitnet_tpu_torch/compat/llama.py"}
     assert want | {"bitnet_tpu_torch/tools/gate_2b.py", "chip_smoke.py",
                    "bitnet_tpu_torch/engine/loop.py"} <= scanned
 
@@ -93,6 +96,35 @@ def test_load_model_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     _cfg, params, _meta = load_model(path, device="cpu")
     assert params.embed.device.type == "cpu"
     assert params.blocks.wq.packed.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["llama", "qk256_pack"])
+def test_the_new_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path,
+                                                             entry):
+    """The llama-cpp-python drop-in and the QK256 pack on the load device
+    run on the card unless the caller asks for the CPU."""
+    import numpy as np
+
+    from bitnet_tpu_torch.errors import ConfigError
+    from bitnet_tpu_torch.gguf.fixtures import MiniModelSpec, generate_mini_gguf
+
+    path = str(tmp_path / "m.gguf")
+    generate_mini_gguf(path, MiniModelSpec(quant="qk256", hidden_size=256,
+                                           intermediate_size=256))
+    if entry == "llama":
+        from bitnet_tpu_torch.compat.llama import Llama
+
+        call, cpu = (lambda **kw: Llama(path, n_ctx=32, verbose=False, **kw),
+                     lambda llm: llm.n_ctx == 32)
+    else:
+        from bitnet_tpu_torch.ops.linear import qk256_linear_from_payload_torch
+
+        call, cpu = (lambda **kw: qk256_linear_from_payload_torch(
+            np.zeros(64, np.uint8), 1, 256, **kw), lambda lin: lin.packed.is_cpu)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError, match="CUDA is not available"):
+        call()
+    assert cpu(call(device="cpu"))
 
 
 def test_allocate_cache_needs_cuda_unless_asked_for_cpu(monkeypatch):
@@ -266,8 +298,9 @@ def test_non_greedy_sampling_is_not_ported():
     scheduler's request checkpoints (they raised naming #12 (c), with the
     server), and so is the windowed cache (it raised naming #7); ``serve()``
     / ``cli serve``'s mesh and multi-host branches still raise, naming #13.
-    The refusals left in the port name only the live IDs #13, #17, #21 and
-    #22, and no module of the port imports ``safetensors``."""
+    The refusals left in the port name only the live IDs #13 and #21 (the
+    CLI's subcommands, #17, and the loader's rest, #22, are ported), and no
+    module of the port imports ``safetensors``."""
     import inspect
     import re
 
@@ -292,7 +325,7 @@ def test_non_greedy_sampling_is_not_ported():
         live |= set(re.findall(r'queue 1 (#\d+)', text))
         live |= set(re.findall(r'not_ported\([^)]*"(#\d+)', text, re.S))
         assert "safetensors" not in _imported_roots(path), path
-    assert live <= {"#13", "#17", "#21", "#22"} and "#13" in live, live
+    assert live <= {"#13", "#21"} and "#13" in live, live
     assert '"#12 (c)"' not in inspect.getsource(scheduler)
     assert inspect.getsource(server.serve).count('"#13")') == 2
     assert "#13" in inspect.getsource(_add_serve_parser)

@@ -208,6 +208,22 @@ def test_segment_steps_auto_rule(engines):
     assert engines(4)._segment_steps() == 4
 
 
+def test_warmup_builds_the_segment_a_request_replays(engines):
+    """``warmup`` decodes one K-step segment's tokens, so the segment that
+    the next request under the same sampler config replays is built before
+    it (on the card, its CUDA graph captured); the request's tokens are
+    those of K = 1."""
+    gcfg = GenerationConfig(**JAX_GENS[0])
+    e4 = engines(4)
+    e4._segments.clear()
+    e4.warmup(PROMPT, gcfg)
+    assert len(e4._segments) == 1 and e4.last_metrics.generated_tokens == 4
+    key = next(iter(e4._segments))
+    got = e4.generate(PROMPT, gcfg)
+    assert list(e4._segments) == [key]
+    assert got.token_ids == engines(1).generate(PROMPT, gcfg).token_ids
+
+
 def test_segments_are_keyed_and_dropped_with_their_buffers(engines, monkeypatch):
     """One segment per K and sampler config (and kernel knob setting); a
     replaced cache drops the engine's segments, so none replays a graph
