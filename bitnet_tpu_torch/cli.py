@@ -18,7 +18,9 @@ JSON.  ``crossval``, ``gate``, ``verify-receipt``, ``replay`` and
 ``trace-diff`` (``:744-865``) verify; ``gate --require-native`` checks
 that the loader packs QK256 on the device (the port's counterpart of the
 JAX native codec).  ``serve`` (``:878-893``) starts the HTTP server;
-``--shard`` raises naming ROADMAP queue 1 #13.  ``convert``,
+``--shard DP,TP`` serves over a mesh of ranks, one process a rank (on one
+host without ``$BITNET_COORDINATOR`` it starts its followers itself;
+``serve/server.serve``).  ``convert``,
 ``st-inspect`` and ``st-merge`` handle SafeTensors checkpoints.
 ``tokenize``, ``inspect``, ``chat``, ``score``, ``benchmark``,
 ``list-templates``, ``list-architectures``, ``compat-check``, ``config``,
@@ -933,8 +935,8 @@ def _add_serve_parser(sub) -> None:
     """bitnet_tpu/cli.py:929-969, plus ``--device``."""
     p = sub.add_parser("serve", help="HTTP inference server")
     p.add_argument("--shard", default=None, metavar="DP,TP",
-                   help="shard the slot pool over a (data, model) mesh: not "
-                        "ported (ROADMAP.md queue 1 #13)")
+                   help="shard the slot pool over a (data, model) mesh, one "
+                        "process a rank, e.g. --shard 2,4 on an 8-card host")
     p.add_argument("--model", "-m", default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)

@@ -1,7 +1,7 @@
 // Ternary matmuls for Hopper (sm_90a): int8 or bf16 activations x 2-bit codes.
 //
 // Replaces these Pallas kernels of bitnet_tpu/ops/ternary_matmul.py:
-//   K1 bn_w2a8_normed_decode, bn_w2a8_normed_gemm
+//   K1 bn_w2a8_normed
 //                      <- ternary_matmul_stacked (:316, pallas_call :375),
 //                         body _qk256_w2a8_normed_kernel (:201): decode, M <= 64;
 //                         also the unstacked w2a8_normed site of
@@ -87,11 +87,20 @@ using namespace bn;
 // the W2A8 rows of the GEMM below.  It lets the GEMM, its programmatic
 // dependent, start once its rows are written: the GEMM's first words stream
 // in while the row sums are reduced and the launch ends.
+//
+// The row statistics from outside (stats != nullptr, [M][2] f32: the sum of
+// squares of the whole row and the absmax of the whole normed row).  A
+// row-parallel linear of the tensor-parallel modes (parallel/sharding.py)
+// holds K / tp values of each row: the norm and the int8 scale are the
+// whole row's, so the caller reduces both statistics over the model axis
+// first and the kernel takes them instead of its own (the mean over kfull
+// values), quantizing its slice as the unsharded row is quantized.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
                                    int glu, const float* __restrict__ gamma,
-                                   float eps, int8_t* __restrict__ xq,
+                                   float eps, const float* __restrict__ stats,
+                                   int kfull, int8_t* __restrict__ xq,
                                    float* __restrict__ sx_out,
                                    int* __restrict__ sumq_out) {
   extern __shared__ float row[];         // K floats
@@ -110,15 +119,20 @@ __global__ void w2a8_quantize_rows(const T* __restrict__ x, int x_stride, int K,
     ss += v * v;
   }
   if (gamma != nullptr) {                // RMSNorm: (x * rsqrt(mean + eps)) * g
-    const float var = block_reduce(ss, redf, false) / (float)K;
+    const float var = stats != nullptr ? stats[2 * m] / (float)kfull
+                                       : block_reduce(ss, redf, false) / (float)K;
     const float r = 1.f / sqrtf(var + eps);
     __syncthreads();
     for (int k = threadIdx.x; k < K; k += blockDim.x)
       row[k] = __fmul_rn(__fmul_rn(row[k], r), gamma[k]);
   }
   float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(row[k]));
-  amax = block_reduce(amax, redf, true);
+  if (stats != nullptr) {                // the whole row's absmax, from outside
+    amax = stats[2 * m + 1];
+  } else {
+    for (int k = threadIdx.x; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(row[k]));
+    amax = block_reduce(amax, redf, true);
+  }
   const float sx = fmaxf(amax, 1e-8f) / 127.f;
   int sq = 0;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
@@ -274,6 +288,9 @@ struct DecArgs {
   int* sumq;
   int nst;                                    // the ring's stages
   uint32_t mult;                              // the codes' bias: 3 (LUT) or 2 (TL)
+  const float* stats;                         // [M][2] the whole row's sum of
+                                              // squares and absmax, or nullptr
+  int kfull;                                  // values of the whole row (stats)
 };
 
 // one contiguous copy into shared memory (bytes a multiple of 16, both ends
@@ -435,17 +452,23 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap,
     }
     if (norm) {                           // RMSNorm: (x * rsqrt(mean + eps)) * g
       float ss[MB];
+      if (a.stats != nullptr) {           // the whole row's, from outside
 #pragma unroll
-      for (int mm = 0; mm < MB; ++mm) {
-        ss[mm] = 0.f;
+        for (int mm = 0; mm < MB; ++mm) ss[mm] = a.stats[2 * mm];
+      } else {
 #pragma unroll
-        for (int i = 0; i < EPT; ++i) ss[mm] += v[mm][i] * v[mm][i];
+        for (int mm = 0; mm < MB; ++mm) {
+          ss[mm] = 0.f;
+#pragma unroll
+          for (int i = 0; i < EPT; ++i) ss[mm] += v[mm][i] * v[mm][i];
+        }
+        dec_reduce<MB>(ss, redf, false);
       }
-      dec_reduce<MB>(ss, redf, false);
       mbar_wait(gbar, 0);
+      const float kn = (float)(a.stats != nullptr ? a.kfull : Kp);
 #pragma unroll
       for (int mm = 0; mm < MB; ++mm) {
-        const float var = ss[mm] / (float)Kp;
+        const float var = ss[mm] / kn;
         const float r = 1.f / sqrtf(var + a.eps);
 #pragma unroll
         for (int i = 0; i < EPT; ++i) {
@@ -455,13 +478,18 @@ w2a8_decode(const __grid_constant__ CUtensorMap wmap,
       }
     }
     float am[MB];
+    if (a.stats != nullptr) {
 #pragma unroll
-    for (int mm = 0; mm < MB; ++mm) {
-      am[mm] = 0.f;
+      for (int mm = 0; mm < MB; ++mm) am[mm] = a.stats[2 * mm + 1];
+    } else {
 #pragma unroll
-      for (int i = 0; i < EPT; ++i) am[mm] = fmaxf(am[mm], fabsf(v[mm][i]));
+      for (int mm = 0; mm < MB; ++mm) {
+        am[mm] = 0.f;
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) am[mm] = fmaxf(am[mm], fabsf(v[mm][i]));
+      }
+      dec_reduce<MB>(am, redf, true);
     }
-    dec_reduce<MB>(am, redf, true);
     const bool writer = blockIdx.x == 0;  // writes the rows out
     // value tid + 512 i's byte in xs: 512 i + that of value tid (the low 8
     // bits of k, its place in the tile, are tid's)
@@ -875,8 +903,8 @@ w2a8_gemm(const __grid_constant__ CUtensorMap xmap,
 
 template <typename T>
 cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
-                            const float* gamma, float eps, int8_t* xq, float* sx,
-                            int* sumq, cudaStream_t stream) {
+                            const float* gamma, float eps, const float* stats, int kfull,
+                            int8_t* xq, float* sx, int* sumq, cudaStream_t stream) {
   const size_t smem = (size_t)K * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -884,7 +912,7 @@ cudaError_t launch_quantize(const T* x, int x_stride, int M, int K, int glu,
     if (e != cudaSuccess) return e;
   }
   w2a8_quantize_rows<T><<<M, 512, smem, stream>>>(x, x_stride, K, glu, gamma, eps,
-                                                  xq, sx, sumq);
+                                                  stats, kfull, xq, sx, sumq);
   return cudaGetLastError();
 }
 
@@ -986,7 +1014,8 @@ cudaError_t launch_decode_cols(const DecArgs<T>& a, const int* words, const floa
 // nullptr, tscale for the tensor, plus resid [M, N] (out's dtype) where
 // given.  Two launches.
 cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp, int glu,
-                              const float* gamma, float eps, const int* words, int Np,
+                              const float* gamma, float eps, const float* stats,
+                              int kfull, const int* words, int Np,
                               const float* scale, float tscale, const void* resid,
                               void* out, int N, int8_t* xq, float* sx, int* sumq,
                               int dtype, int bf16_out, int bt, int split,
@@ -995,9 +1024,9 @@ cudaError_t w2a8_two_launches(const void* x, int x_stride, int M, int Kp, int gl
     return cudaErrorInvalidValue;
   cudaError_t e = dtype == 1
       ? launch_quantize(static_cast<const __nv_bfloat16*>(x), x_stride, M, Kp, glu,
-                        gamma, eps, xq, sx, sumq, stream)
+                        gamma, eps, stats, kfull, xq, sx, sumq, stream)
       : launch_quantize(static_cast<const float*>(x), x_stride, M, Kp, glu, gamma, eps,
-                        xq, sx, sumq, stream);
+                        stats, kfull, xq, sx, sumq, stream);
   if (e != cudaSuccess) return e;
   // the int8 rows: boxes of 128 bytes x bt rows, 128-byte swizzle (rows past
   // M read as zeros); the words: 16 rows of G4_WLD columns, the 8 past the
@@ -1032,7 +1061,8 @@ cudaError_t launch_normed_decode(const void* x, int x_stride, int M, int K, int 
                                  const float* gamma, float eps, const int* words, int Np,
                                  const float* scale, bool block, uint32_t mult,
                                  const void* resid, void* out, int N, int8_t* xq,
-                                 float* sx, int* sumq, int cols, cudaStream_t stream) {
+                                 float* sx, int* sumq, const float* stats, int kfull,
+                                 int cols, cudaStream_t stream) {
   if (M > DEC_MAX_M || K > DEC_MAX_K || (cols != 32 && cols != 64 && cols != 128)
       || Np % cols)
     return cudaErrorInvalidValue;
@@ -1047,7 +1077,7 @@ cudaError_t launch_normed_decode(const void* x, int x_stride, int M, int K, int 
   nst = block ? std::max(2, nst & ~1) : std::max(1, nst);
   const DecArgs<T> a = {static_cast<const T*>(x), x_stride, M, K, glu, gamma, eps, Np,
                         block ? nullptr : scale, static_cast<const T*>(resid),
-                        static_cast<T*>(out), N, xq, sx, sumq, nst, mult};
+                        static_cast<T*>(out), N, xq, sx, sumq, nst, mult, stats, kfull};
   if (block)
     return M == 1 ? launch_decode_cols<1, T, true>(a, words, scale, cols, stream)
                   : launch_decode_cols<2, T, true>(a, words, scale, cols, stream);
@@ -1063,26 +1093,35 @@ extern "C" {
 // float32, 1 = bfloat16: x, resid and out share it), K % 256 == 0; words
 // [K/16, Np]; out [M, N].  xq [M, K] (16-byte aligned), sx [M], sumq [M]
 // receive the int8 rows, scales and sums.  Two forms, which the caller
-// picks: bn_w2a8_normed_decode, one launch of w2a8_decode at M <= 2 and
-// K <= 14336 (refused past them) with cols = 32, 64 or 128 columns a block
-// (dividing Np); bn_w2a8_normed_gemm, any M and K, the row kernel, then the
-// GEMM with bt rows a block (8..128) and K split over split blocks of a
-// cluster (1, 2, 4 or 8, at most K / 256).  Each launch is a programmatic
-// dependent of the stream's last launch.  Both return cudaGetLastError()
-// after the launches.
-int bn_w2a8_normed_decode(const void* x, int x_stride, int M, int K, int glu,
-                          const float* gamma, float eps, const int* words, int Np,
-                          const float* scale, const void* resid, void* out, int N,
-                          int8_t* xq, float* sx, int* sumq, int dtype, int cols,
-                          cudaStream_t stream) {
-  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
+// picks: cols > 0, one launch of w2a8_decode at M <= 2 and K <= 14336
+// (refused past them) with cols = 32, 64 or 128 columns a block (dividing
+// Np); cols == 0, any M and K, the row kernel, then the GEMM with bt rows a
+// block (8..128) and K split over split blocks of a cluster (1, 2, 4 or 8,
+// at most K / 256).  stats, where not null, is the row-statistics mode:
+// stats [M][2] f32, each row's sum of squares over kfull values (the whole
+// row, of which x holds K) and the absmax of the whole normed row, taken
+// instead of the kernel's own (the row-parallel linears of the mesh modes,
+// parallel/sharding.py).  Each launch is a programmatic dependent of the
+// stream's last launch.  Returns cudaGetLastError() after the launches.
+int bn_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
+                   const float* gamma, float eps, const int* words, int Np,
+                   const float* scale, const void* resid, void* out, int N,
+                   int8_t* xq, float* sx, int* sumq, int dtype, const float* stats,
+                   int kfull, int cols, int bt, int split, cudaStream_t stream) {
+  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np || (stats != nullptr && kfull < K))
+    return (int)cudaErrorInvalidValue;
+  if (cols == 0)
+    return (int)w2a8_two_launches(x, x_stride, M, K, glu, gamma, eps, stats, kfull, words,
+                                  Np, scale, 0.f, resid, out, N, xq, sx, sumq, dtype,
+                                  dtype == 1, bt, split, stream);
   if (dtype == 1)
     return (int)launch_normed_decode<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
                                                     words, Np, scale, false, 3u, resid, out,
-                                                    N, xq, sx, sumq, cols, stream);
+                                                    N, xq, sx, sumq, stats, kfull, cols,
+                                                    stream);
   return (int)launch_normed_decode<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
                                           scale, false, 3u, resid, out, N, xq, sx, sumq,
-                                          cols, stream);
+                                          stats, kfull, cols, stream);
 }
 
 // K11: K1's decode form in its block-scale mode, the same operands but the
@@ -1099,35 +1138,28 @@ int bn_tl_w2a8_normed(const void* x, int x_stride, int M, int K, int glu,
   if (dtype == 1)
     return (int)launch_normed_decode<__nv_bfloat16>(x, x_stride, M, K, glu, gamma, eps,
                                                     words, Np, scales, true, mult, resid,
-                                                    out, N, xq, sx, sumq, cols, stream);
+                                                    out, N, xq, sx, sumq, nullptr, 0, cols,
+                                                    stream);
   return (int)launch_normed_decode<float>(x, x_stride, M, K, glu, gamma, eps, words, Np,
                                           scales, true, mult, resid, out, N, xq, sx, sumq,
-                                          cols, stream);
-}
-
-int bn_w2a8_normed_gemm(const void* x, int x_stride, int M, int K, int glu,
-                        const float* gamma, float eps, const int* words, int Np,
-                        const float* scale, const void* resid, void* out, int N,
-                        int8_t* xq, float* sx, int* sumq, int dtype, int bt, int split,
-                        cudaStream_t stream) {
-  if (M < 1 || K < KT || K % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
-  return (int)w2a8_two_launches(x, x_stride, M, K, glu, gamma, eps, words, Np, scale, 0.f,
-                                resid, out, N, xq, sx, sumq, dtype, dtype == 1, bt, split,
-                                stream);
+                                          nullptr, 0, cols, stream);
 }
 
 // K4: the rows of x (dtype 0 = float32, 1 = bfloat16, row stride x_stride)
 // quantized into xq [M, Kp] / sx [M] / sumq [M], then the GEMM with bt rows
 // a block (8, 16, 32, 64 or 128) and K split over split blocks of a cluster
 // (1, 2, 4 or 8, at most Kp / 256); out [M, N] in x's dtype.  Two launches.
+// stats, where not null, gives each row's absmax from outside: the second
+// of each pair of stats [M][2] f32 (the row-parallel linears of the mesh
+// modes).
 int bn_w2a8_gemm(const void* x, int x_stride, int M, int Kp, const int* words,
                  int Np, const float* scale, void* out, int N, int8_t* xq,
-                 float* sx, int* sumq, int dtype, int bt, int split,
-                 cudaStream_t stream) {
+                 float* sx, int* sumq, const float* stats, int dtype, int bt,
+                 int split, cudaStream_t stream) {
   if (M < 1 || Kp % KT || Np % 64 || N > Np) return (int)cudaErrorInvalidValue;
-  return (int)w2a8_two_launches(x, x_stride, M, Kp, 0, nullptr, 0.f, words, Np, scale,
-                                0.f, nullptr, out, N, xq, sx, sumq, dtype, dtype == 1, bt,
-                                split, stream);
+  return (int)w2a8_two_launches(x, x_stride, M, Kp, 0, nullptr, 0.f, stats, Kp, words, Np,
+                                scale, 0.f, nullptr, out, N, xq, sx, sumq, dtype,
+                                dtype == 1, bt, split, stream);
 }
 
 // K32: x [M, K] (dtype as above, rows contiguous) times words [K/16, N]
@@ -1137,8 +1169,9 @@ int bn_w2a8_matmul(const void* x, int M, int K, const int* words, int N, float s
                    void* out, int8_t* xq, float* sx, int* sumq, int dtype, int bt,
                    int split, cudaStream_t stream) {
   if (M < 1 || K < KT || K % KT || N < 8 || N % 8) return (int)cudaErrorInvalidValue;
-  return (int)w2a8_two_launches(x, K, M, K, 0, nullptr, 0.f, words, N, nullptr, scale,
-                                nullptr, out, N, xq, sx, sumq, dtype, 1, bt, split, stream);
+  return (int)w2a8_two_launches(x, K, M, K, 0, nullptr, 0.f, nullptr, 0, words, N, nullptr,
+                                scale, nullptr, out, N, xq, sx, sumq, dtype, 1, bt, split,
+                                stream);
 }
 
 const char* bn_ternary_matmul_error(int code) {

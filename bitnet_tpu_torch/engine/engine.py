@@ -220,6 +220,7 @@ class InferenceEngine:
         # the card their graphs share one memory pool
         self._segments: collections.OrderedDict = collections.OrderedDict()
         self._graph_pool = None
+        self.mesh = None                  # shard_to_mesh's
 
     @classmethod
     def from_gguf(cls, path: str, engine_cfg: EngineConfig | None = None,
@@ -305,6 +306,8 @@ class InferenceEngine:
         ``bitnet_tpu/engine/engine.py:302-306``, with the card as the
         accelerator)."""
         k = self.engine_cfg.decode_steps_per_dispatch
+        if self.mesh is not None and self.mesh.live:
+            return 1        # a CUDA graph cannot hold a host-staged collective
         if k == 0:
             return 8 if self.device.type == "cuda" else 1
         return k
@@ -509,6 +512,9 @@ class InferenceEngine:
         by one and run the final token through one decode step (its row is
         written again in place; ``bitnet_tpu/engine/engine.py:487-504``)."""
         T = len(token_ids)
+        if self.cache.lengths.shape[0] != self.engine_cfg.max_batch_size:
+            raise ConfigError("resume on a data-sharded engine: slot 0's rows live on "
+                              "data rank 0 only")
         self.cache.lengths[0] = T - 1
         lg = self.decode_step(int(token_ids[-1]), T - 1)
         self.kernel_recorder.append("resume_relogit")
@@ -718,12 +724,13 @@ class InferenceEngine:
                         row = row.clone()
                         row[ban] = NEG_INF
                 tok_id = mirostat.sample(row, gen)     # waits for the device
-                sampled = torch.full((B,), tok_id, dtype=torch.int32,
-                                     device=self.device)
+                sampled = self._agree(torch.full((B,), tok_id, dtype=torch.int32,
+                                                 device=self.device))
+                tok_id = int(sampled[0])
             else:
                 chain = (sampler_ban if in_min and sampler_ban is not None
                          else sampler)
-                sampled = chain.sample(step_logits, history_dev, gen)   # [B]
+                sampled = self._agree(chain.sample(step_logits, history_dev, gen))  # [B]
                 tok_id = int(sampled[0])              # waits for the device
             if grammar is not None:
                 grammar.accept(tok_id)
@@ -920,7 +927,7 @@ class InferenceEngine:
         while not all(done):
             if positions_host[:nb].max() >= S:
                 break
-            sampled = sampler.sample(logits, history_dev, gen)      # [B]
+            sampled = self._agree(sampler.sample(logits, history_dev, gen))   # [B]
             samp_host = sampled.cpu().numpy()
             for i in range(nb):
                 if done[i]:
@@ -957,3 +964,51 @@ class InferenceEngine:
                   if self.tokenizer is not None else ""),
             token_ids=outs[i], stop_reason=reasons[i], prompt_tokens=lens[i],
             metrics={}) for i in range(nb)]
+
+    # -- multi-card ------------------------------------------------------------
+    def _agree(self, sampled: torch.Tensor) -> torch.Tensor:
+        """Rank 0's sampled tokens on every rank of a live mesh (the ranks'
+        logits are the whole model's on each, but one broadcast a step makes
+        the next step's input the same everywhere by construction)."""
+        if self.mesh is None or not self.mesh.live:
+            return sampled
+        return self.mesh.world.broadcast(sampled.contiguous(), src=0)
+
+    def shard_to_mesh(self, mesh=None, dp: int | None = None,
+                      tp: int | None = None) -> "InferenceEngine":
+        """Re-place the parameters and the KV cache on a (data, model) mesh
+        (``bitnet_tpu/engine/engine.py:953-987``), one process a rank: this
+        rank keeps its shard of the weights (``parallel/sharding.py``:
+        column-parallel q / k / v / gate / up, row-parallel o / down with
+        the model axis's all-reduces) and allocates only its rows of the
+        cache (its KV heads; its slots on the data axis).  Every rank calls
+        it, and then every entry point, in the same order.  ``mesh`` or
+        ``dp`` / ``tp`` (``parallel.make_mesh``: a mesh of dp · tp ranks
+        needs ``torch.distributed`` initialized with as many processes; a
+        single process builds only the mesh of one).  Captured segments are
+        dropped; on a live mesh decode steps at K = 1 and the sampled tokens
+        are rank 0's.  Refused: fused projections, dimensions that do not
+        split into whole granules (``validate_mesh_for``), and on a live
+        mesh the windowed ring and the prefix cache.  Returns self."""
+        from ..parallel import make_mesh
+        from ..parallel.sharding import (allocate_sharded_cache, shard_params,
+                                         validate_mesh_for)
+
+        if self.mesh is not None:
+            raise ConfigError("the engine is sharded already")
+        if mesh is None:
+            mesh = make_mesh(dp=dp, tp=tp, device=self.device)
+        validate_mesh_for(self.cfg, self.engine_cfg.max_batch_size, mesh, self.params)
+        if mesh.live and (self.windowed or self.prefix_cache is not None):
+            raise ConfigError("a live mesh takes the dense cache without a prefix "
+                              "cache (EngineConfig(sliding_window=0, "
+                              "prefix_cache_tokens=0))")
+        self.params = shard_params(mesh, self.cfg, self.params)
+        self.cache = allocate_sharded_cache(mesh, self.cfg, self.engine_cfg.max_batch_size,
+                                            self.engine_cfg.max_seq_len, self.kv_dtype,
+                                            device=self.device)
+        self.mesh = mesh
+        # drop graphs captured over the unsharded weights and cache
+        self._segments.clear()
+        self._graph_pool = None
+        return self

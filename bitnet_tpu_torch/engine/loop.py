@@ -236,14 +236,18 @@ class PoolSegment:
     copies into: slot b's generator state is copied into a generator
     registered with the graph before a replay and back after; the bias
     rows, the cache and (paged) the block table are the scheduler's own
-    buffers, written in place between replays.  On the CPU the same body
-    runs eagerly on the slots' own generators."""
+    buffers, written in place between replays.  On the CPU, and with
+    ``eager`` (a live mesh's collectives), the same body runs eagerly on
+    the slots' own generators."""
 
     def __init__(self, cfg: ModelConfig, params: BitNetParams, cache, kernel_path: str,
                  n_steps: int, max_seq_len: int, device, pool=None, paged: bool = False,
                  use_typical: bool = False, use_sampling: bool = False,
-                 bias_rows: torch.Tensor | None = None):
+                 bias_rows: torch.Tensor | None = None, eager: bool = False):
         self.cfg, self.params, self.cache = cfg, params, cache
+        # on the card too the body runs eagerly (a live mesh: a CUDA graph
+        # cannot hold a host-staged collective)
+        self.eager = eager or torch.device(device).type == "cpu"
         self.kernel_path, self.n_steps = kernel_path, n_steps
         self.paged = paged
         self.S = cache.view_len if paged else max_seq_len
@@ -279,7 +283,8 @@ class PoolSegment:
                 h, _, _ = forward(cfg, params, tok[:, None], pos_in, cache.k, cache.v,
                                   torch.where(live, pos, 0), 1, kp, cache.k_scale,
                                   cache.v_scale)
-                cache.lengths += act
+                cache.lengths += (act if params.mesh is None else
+                                  params.mesh.data_rows(act, cache.lengths.shape[0]))
             raw = model_logits(cfg, params, h, kp)[:, -1].to(torch.float32)
             u = (self._draw(gens, raw.shape[0], raw.shape[1], raw.device)
                  if self.use_sampling else None)
@@ -322,10 +327,11 @@ class PoolSegment:
     def __call__(self, ints, floats, generators):
         self.calls += 1
         with torch.inference_mode():
-            if self.device.type == "cpu":
-                toks, raw, u = self._body(torch.from_numpy(ints),
-                                          torch.from_numpy(floats), generators)
-                return toks.numpy().astype(np.int64), raw, u
+            if self.eager:
+                toks, raw, u = self._body(torch.from_numpy(ints).to(self.device),
+                                          torch.from_numpy(floats).to(self.device),
+                                          generators)
+                return toks.cpu().numpy().astype(np.int64), raw, u
             B = ints.shape[0]
             if self.graph is None:
                 self._capture(B, self.cfg.vocab_size)

@@ -131,7 +131,7 @@ def kv_dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to(x, device):
-    return None if x is None else x.to(device)
+    return x if x is None or not hasattr(x, "to") else x.to(device)
 
 
 @dataclasses.dataclass
@@ -167,6 +167,9 @@ class BitNetParams:
     embed_q: Optional[torch.Tensor] = None         # [V, H] int8 head
     embed_q_scale: Optional[torch.Tensor] = None   # [V] f32
     lm_head: Optional[TernaryLinear] = None        # untied output [H, V]
+    # the (data, model) mesh these are one rank's shard of
+    # (``parallel/sharding.shard_params``), or None
+    mesh: Optional[object] = None
 
     def to(self, device) -> "BitNetParams":
         return BitNetParams(**{f.name: _to(getattr(self, f.name), device)
@@ -834,6 +837,41 @@ def block_forward(cfg: ModelConfig, x: torch.Tensor, bp: BlockParams, l: int,
     return block_finish(cfg, bp, x, attn, kernel_path, l)
 
 
+def run_layers(cfg: ModelConfig, params: BitNetParams, x: torch.Tensor,
+               q_positions: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pre_len: torch.Tensor, sin_rows: torch.Tensor, cos_rows: torch.Tensor,
+               kernel_path: str = "xla", k_scale: torch.Tensor | None = None,
+               v_scale: torch.Tensor | None = None,
+               trace: Callable[[str, torch.Tensor], None] | None = None,
+               write_slots: torch.Tensor | None = None,
+               kv_positions: torch.Tensor | None = None,
+               window: int | None = None) -> torch.Tensor:
+    """The generic layer loop of :func:`forward` (``block_forward`` over
+    every layer of ``params.blocks`` and of the cache stack, written in
+    place) from the residual stream ``x`` [B, T, H]; returns the last
+    layer's output, before the final norm.  The pipeline stages run their
+    own layers through it (``parallel/pipeline.py``)."""
+    ring = write_slots is not None or kv_positions is not None or window is not None
+    writes = CacheWrites.of(q_positions if write_slots is None else write_slots,
+                            k_cache.shape[2])
+    pos = pre_len.to(torch.int32).contiguous()
+    h = x
+    for l in range(k_cache.shape[0]):
+        h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows, q_positions,
+                          k_cache, v_cache, pos, kernel_path, writes, k_scale, v_scale,
+                          kv_positions=kv_positions, window=window, ring=ring)
+        if trace is not None:
+            trace(f"blk.{l}.out", h)
+    return h
+
+
+def rope_rows(params: BitNetParams, q_positions: torch.Tensor):
+    """The RoPE rows of ``q_positions`` [B, T], gathered once for all layers
+    at positions clamped to the table."""
+    rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
+    return params.rope_sin[rp], params.rope_cos[rp]
+
+
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
@@ -871,6 +909,20 @@ def forward(cfg: ModelConfig, params: BitNetParams,
     if (kv_dtype_name(k_cache.dtype) in ("int8", "fp8")) != (k_scale is not None):
         raise ValueError("an int8 / fp8 cache needs its scale stacks, a bf16 / "
                          "f32 cache none")
+    mesh, gather = params.mesh, False
+    if mesh is not None:
+        # one rank's shard: its heads and FFN columns, and on the data axis
+        # its rows of the batch (the rows of its cache), the hidden states
+        # gathered back after the final norm
+        cfg = mesh.local_cfg(cfg)
+        Bl = k_cache.shape[1]
+        gather = tokens.shape[0] != Bl
+        tokens, q_positions, kv_valid_len, num_real_tokens = (
+            mesh.data_rows(t, Bl) for t in (tokens, q_positions, kv_valid_len,
+                                              num_real_tokens))
+        if tokens.shape[0] != Bl:
+            raise ValueError(f"{tokens.shape[0]} rows for a cache of {Bl} on a "
+                             f"mesh of {mesh.shape}")
     x = embed_tokens(params, tokens)
     if trace is not None:
         trace("token_embd", x)
@@ -879,9 +931,7 @@ def forward(cfg: ModelConfig, params: BitNetParams,
         num_real_tokens = T
     # attention masks with pre_len + T == kv_valid_len + num_real_tokens
     pre_len = kv_valid_len + (num_real_tokens - T)
-    # rope rows gathered once for all layers, positions clamped to the table
-    rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
-    sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
+    sin_rows, cos_rows = rope_rows(params, q_positions)
     scales = (k_scale, v_scale)
     ring = write_slots is not None or kv_positions is not None or window is not None
     if not ring and stacked_decode_ok(cfg, params, T, B, kernel_path):
@@ -891,18 +941,12 @@ def forward(cfg: ModelConfig, params: BitNetParams,
         h = _prefill_stacked(cfg, params, x, q_positions, k_cache, v_cache,
                              pre_len, sin_rows, cos_rows, *scales, trace=trace)
     else:
-        writes = CacheWrites.of(q_positions if write_slots is None else write_slots,
-                                k_cache.shape[2])
-        pos = pre_len.to(torch.int32).contiguous()
-        h = x
-        for l in range(k_cache.shape[0]):
-            h = block_forward(cfg, h, params.blocks, l, sin_rows, cos_rows,
-                              q_positions, k_cache, v_cache, pos, kernel_path,
-                              writes, *scales, kv_positions=kv_positions,
-                              window=window, ring=ring)
-            if trace is not None:
-                trace(f"blk.{l}.out", h)
+        h = run_layers(cfg, params, x, q_positions, k_cache, v_cache, pre_len, sin_rows,
+                       cos_rows, kernel_path, *scales, trace=trace,
+                       write_slots=write_slots, kv_positions=kv_positions, window=window)
     h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
+    if gather:
+        h = mesh.gather_rows(h)
     if trace is not None:
         trace("output_norm", h)
     return h, k_cache, v_cache
@@ -923,8 +967,7 @@ def forward_paged_decode(cfg: ModelConfig, params: BitNetParams,
 
     x = embed_tokens(params, tokens)
     pre_len = cache.lengths + (num_real_tokens - 1)
-    rp = torch.clamp(q_positions.to(torch.int64), max=params.rope_sin.shape[0] - 1)
-    sin_rows, cos_rows = params.rope_sin[rp], params.rope_cos[rp]
+    sin_rows, cos_rows = rope_rows(params, q_positions)
     gpage, goff = row_slots(cache, q_positions)
     attn_len = (pre_len + 1).to(torch.int32).contiguous()
     h = _decode_stacked(cfg, params, x, q_positions, None, None, pre_len, sin_rows,
@@ -945,6 +988,8 @@ def forward_cache(cfg: ModelConfig, params: BitNetParams,
     h, _, _ = forward(cfg, params, tokens, q_positions, cache.k, cache.v,
                       cache.lengths, num_real_tokens, kernel_path,
                       cache.k_scale, cache.v_scale, trace)
+    if params.mesh is not None:
+        num_real_tokens = params.mesh.data_rows(num_real_tokens, cache.lengths.shape[0])
     cache.lengths += num_real_tokens
     return h, cache
 
@@ -982,7 +1027,10 @@ def logits(cfg: ModelConfig, params: BitNetParams, hidden: torch.Tensor,
     table's dtype with f32 accumulation (f32)."""
     B, T, H = hidden.shape
     if params.lm_head is not None:
-        return linear_apply(params.lm_head, hidden, path=kernel_path)
+        out = linear_apply(params.lm_head, hidden, path=kernel_path)
+        sh = params.lm_head.shard
+        # column-parallel on the vocab: every rank's slice, gathered
+        return out if sh is None else sh.group.all_gather(out, dim=-1)
     if params.embed_q is not None and kernel_path == "w2a8":
         # int8 head: per-token activation scale x per-row table scale
         xq, sx, _ = quantize_rows(hidden.reshape(B * T, H).to(torch.float32))

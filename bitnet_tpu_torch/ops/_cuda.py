@@ -36,11 +36,9 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of the entry points, per source
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "ternary_matmul": {
-        "bn_w2a8_normed_decode": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I,
-                                  I, P),
-        "bn_w2a8_normed_gemm": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, I,
-                                I, P),
-        "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, I, I, I, P),
+        "bn_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I,
+                           P, I, I, I, I, P),
+        "bn_w2a8_gemm": (P, I, I, I, P, I, P, P, I, P, P, P, P, I, I, I, P),
         "bn_w2a8_matmul": (P, I, I, P, I, F, P, P, P, P, I, I, I, P),
         "bn_tl_w2a8_normed": (P, I, I, I, I, P, F, P, I, P, P, P, I, P, P, P, I, I,
                               I, P),
@@ -108,8 +106,18 @@ def _so_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, float]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     per source, all started together.  Returns wall seconds per source
-    (0.0 for one already built)."""
+    (0.0 for one already built).  One process builds at a time: the ranks
+    of a mesh on one host (``parallel/``) share ``csrc/build``, so a rank
+    waits on the build lock and then finds the libraries another built."""
+    import fcntl
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(names)
+
+
+def _build(names) -> dict[str, float]:
     procs, t0, secs = {}, time.perf_counter(), {}
     for name in names:
         so = _so_path(name)

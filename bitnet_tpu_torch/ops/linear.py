@@ -112,6 +112,22 @@ def _pad_cols(a: np.ndarray, mult: int = LANE) -> np.ndarray:
 # Parameters
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
+class LinearShard:
+    """Where a linear's slice sits on the model axis of a mesh
+    (``parallel/sharding.py``): ``kind`` ``"col"`` (this rank holds N/tp
+    output columns) or ``"row"`` (K/tp input rows: each rank's output is a
+    partial sum); ``group`` the model axis (a ``parallel.comm.Group``);
+    ``full`` the whole linear's N (col) or K (row)."""
+
+    kind: str
+    group: object
+    full: int
+    # a row-parallel qk256 slice's unit column scales [L, Np] f32: its
+    # kernels' partial products are taken unscaled (``_row_parallel_apply``)
+    unit_scales: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
 class TernaryLinear:
     """One linear (or an [L]-stacked set): ``packed`` int32 words
     ``[(L,) Kp/16, Np]``.  ``scales``: for qk256 a per-tensor scalar
@@ -120,7 +136,8 @@ class TernaryLinear:
     ``col_scales`` is the form the qk256 kernels read, ``[L, Np]`` f32 (L = 1
     unstacked), attached once by :func:`with_col_scales`.  A ``dense``
     linear holds ``weight`` [(L,) K, N] (the load's ``param_dtype``) and no
-    words or scales."""
+    words or scales.  ``shard``, on a mesh, says which slice of the whole
+    linear this is (:class:`LinearShard`); ``k`` and ``n`` are the slice's."""
 
     kind: str
     k: int
@@ -129,6 +146,7 @@ class TernaryLinear:
     scales: Optional[torch.Tensor] = None
     col_scales: Optional[torch.Tensor] = None
     weight: Optional[torch.Tensor] = None
+    shard: Optional[LinearShard] = None
 
     def to(self, device) -> "TernaryLinear":
         def mv(t):
@@ -391,6 +409,8 @@ def linear_apply_normed(lin: TernaryLinear, x: torch.Tensor,
 
     if path not in ("xla", "w2a8", "pallas"):
         raise ValueError(f"bad kernel path {path!r}")
+    if lin.shard is not None and lin.shard.kind == "row":
+        return _row_parallel_apply(lin, x, gamma, eps, path, glu, resid, layer)
     block = lin.kind in BLOCK_KINDS
     if lin.kind == "dense":
         return _dense_apply(lin, x, gamma, eps, glu, resid, layer)
@@ -469,3 +489,82 @@ def _dense_apply(lin: TernaryLinear, x: torch.Tensor, gamma, eps: float,
     if resid is not None:
         y = y + resid.reshape(-1, lin.n)
     return y.reshape(*lead, lin.n)
+
+
+def _row_parallel_apply(lin: TernaryLinear, x: torch.Tensor, gamma, eps: float,
+                        path: str, glu: bool, resid, layer: int) -> torch.Tensor:
+    """:func:`linear_apply_normed` on a row-parallel slice (K/tp of each
+    row, ``parallel/sharding.py``), computing what the whole linear
+    computes.
+
+    The norm and the int8 scale are the whole row's: each row's sum of
+    squares is all-reduced over the model axis first, then the absmax of
+    its normed values, and K1 / K4 (``w2a8`` qk256, the path that
+    quantizes) take both in their row-statistics mode, so the slice's int8
+    codes are the whole row's.  Their products are summed exactly: the
+    kernels run with unit column scales, so a rank's output is ``fl(d·sx)``
+    for its integer partial ``d = acc − 2·sumq`` (|d| ≤ 254·K < 2^23), from
+    which ``d`` is recovered exactly; the partials are all-reduced, and the
+    kernels' epilogue ``(d·sx)·s[n]`` runs on the sum, the residual added as
+    the unsharded route adds it (K1: in f32 before its one rounding; K4:
+    after the product's rounding to x's dtype).  With a norm the reduced sum
+    of squares is summed in another order than the whole row's, so the
+    codes can differ at a rounding boundary.  Other paths norm the slice in
+    torch as ``rms_norm`` does and sum their f32 partial outputs."""
+    from . import ternary_matmul as tm
+
+    if glu:
+        raise ValueError("a row-parallel linear takes no SwiGLU input "
+                         "(a mesh needs unfused projections)")
+    grp, k_full = lin.shard.group, lin.shard.full
+    stacked = lin.stacked
+    l = layer if stacked else 0
+    gam = None if gamma is None else (gamma[layer] if stacked else gamma)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    r2 = None if resid is None else resid.reshape(-1, lin.n)
+    ss = None
+    if gam is not None:
+        ss = (xf * xf).sum(dim=1)
+        grp.all_reduce(ss, "sum")
+    quant = path == "w2a8" and lin.kind == "qk256"
+    k1 = quant and xf.shape[0] <= tm.STACKED_DECODE_MAX_M
+    if gam is None:
+        xn = xf
+    elif k1:          # as K1 norms: (x · r) · γ, r = 1 / sqrt(mean + eps)
+        xn = (xf * tm.norm_factor(ss, k_full, eps)[:, None]) * gam.to(torch.float32)[None]
+    else:             # as rms_norm does: x · rsqrt(mean + eps) · γ
+        var = ss / ss.new_full((), float(k_full))
+        xn = (xf * torch.rsqrt(var + eps)[:, None]) * gam.to(torch.float32)[None]
+    if not quant:
+        xin = xn.to(x.dtype)
+        if path != "xla" and lin.kind != "dense":
+            xin = xin.to(torch.float32)       # the kernels round x as they read it
+        y = linear_apply_normed(dataclasses.replace(lin, shard=None), xin, None, eps,
+                                path, layer=layer).to(torch.float32)
+        y = grp.all_reduce(y, "sum").to(x.dtype)
+        return (y if r2 is None else y + r2).reshape(*lead, lin.n)
+    packed = lin.packed if stacked else lin.packed[None]
+    # K4 quantizes the normed rows as rms_norm rounds them (x's dtype)
+    xq_in = xn if k1 else xn.to(x.dtype).to(torch.float32)
+    amax = grp.all_reduce(xq_in.abs().amax(dim=1), "max")
+    stats = torch.stack([ss if ss is not None else torch.zeros_like(amax), amax],
+                        dim=1).contiguous()
+    unit = lin.shard.unit_scales
+    if k1:
+        g = gamma if gamma is None or stacked else gamma[None]
+        yr = tm.ternary_matmul_w2a8_normed(l, xf.contiguous(), packed, unit, g, k_dim=lin.k,
+                                           n_dim=lin.n, eps=eps, stats=stats,
+                                           k_full=k_full)
+    else:
+        yr = tm.ternary_matmul_w2a8(l, xq_in.contiguous(), packed, unit, k_dim=lin.k,
+                                    n_dim=lin.n, stats=stats)
+    sx = torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)    # the kernels' scale
+    d = torch.round(yr.to(torch.float64) / sx.to(torch.float64)[:, None])
+    d = grp.all_reduce(d, "sum").to(torch.float32)                   # exact integers
+    y = (d * sx[:, None]) * lin.col_scales[l, :lin.n][None]
+    if k1:
+        y = y if r2 is None else y + r2.to(torch.float32)
+        return y.to(x.dtype).reshape(*lead, lin.n)
+    y = y.to(x.dtype)
+    return (y if r2 is None else y + r2).reshape(*lead, lin.n)

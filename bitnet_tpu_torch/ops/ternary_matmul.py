@@ -87,15 +87,29 @@ STACKED_DECODE_MAX_M = 64
 # --------------------------------------------------------------------------
 # plain PyTorch versions (the tests' reference; CPU tensors only on the path)
 # --------------------------------------------------------------------------
+def norm_factor(ss: torch.Tensor, k_full: int, eps: float) -> torch.Tensor:
+    """Each row's RMSNorm factor ``1 / sqrt(ss / K + eps)`` from its sum of
+    squares over K values, as the kernels compute it (IEEE division and
+    square root; the divisors are tensors, see :func:`quantize_rows`)."""
+    var = ss / ss.new_full((), float(k_full))
+    return ss.new_full((), 1.0) / torch.sqrt(var + eps)
+
+
 def w2a8_preamble_plain(x: torch.Tensor, gamma: torch.Tensor | None,
-                        eps: float, glu: bool) -> torch.Tensor:
+                        eps: float, glu: bool, stats: torch.Tensor | None = None,
+                        k_full: int | None = None) -> torch.Tensor:
     """K1's preamble before quantization: optional silu(gate)·up, optional
-    RMSNorm; f32 [M, K]."""
+    RMSNorm; f32 [M, K].  ``stats`` [M, 2] (the row-statistics mode): the
+    norm takes each row's sum of squares over ``k_full`` values from
+    ``stats[:, 0]`` (the kernels' ``(x·r)·γ``, ``r`` from :func:`norm_factor`)."""
     xf = x.to(torch.float32)
     if glu:
         K = xf.shape[1] // 2
         gate = xf[:, :K]
         xf = gate * torch.sigmoid(gate) * xf[:, K:]
+    if gamma is not None and stats is not None:
+        r = norm_factor(stats[:, 0], k_full, eps)
+        return (xf * r[:, None]) * gamma.to(torch.float32)[None, :]
     if gamma is not None:
         var = torch.mean(xf * xf, dim=1, keepdim=True)
         xf = xf * torch.rsqrt(var + eps)
@@ -103,11 +117,14 @@ def w2a8_preamble_plain(x: torch.Tensor, gamma: torch.Tensor | None,
     return xf
 
 
-def quantize_rows(xf: torch.Tensor):
+def quantize_rows(xf: torch.Tensor, absmax: torch.Tensor | None = None):
     """Per-row absmax int8: ``sx = max(absmax, 1e-8)/127``,
     ``q = clip(round(x/sx), ±127)``; returns (q int8, sx f32 [M], sumq
-    int32 [M])."""
-    absmax = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-8)
+    int32 [M]).  ``absmax`` [M], where given, is each row's (the whole
+    row's, for a row-parallel slice) instead of ``xf``'s own."""
+    if absmax is None:
+        absmax = xf.abs().amax(dim=1)
+    absmax = torch.clamp(absmax[:, None], min=1e-8)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, an f32 ulp away from the kernels' quotient
     sx = absmax / absmax.new_full((), 127.0)
@@ -145,9 +162,12 @@ def w2a8_epilogue(acc: torch.Tensor, sumq: torch.Tensor, sx: torch.Tensor,
 
 
 def ternary_matmul_w2a8_normed_plain(x, words, scale, gamma, eps, glu, resid,
-                                     n_dim):
-    """K1 on one layer: words [Kp/16, Np], scale [Np], gamma [Kp] or None."""
-    xq, sx, sumq = quantize_rows(w2a8_preamble_plain(x, gamma, eps, glu))
+                                     n_dim, stats=None, k_full=None):
+    """K1 on one layer: words [Kp/16, Np], scale [Np], gamma [Kp] or None;
+    ``stats`` [M, 2] (sum of squares, absmax of the normed row) or None."""
+    xq, sx, sumq = quantize_rows(
+        w2a8_preamble_plain(x, gamma, eps, glu, stats, k_full),
+        None if stats is None else stats[:, 1])
     acc = int8_matmul(xq, biased_codes(words)[:, :n_dim])
     return w2a8_epilogue(acc, sumq, sx, scale[:n_dim], resid, x.dtype)
 
@@ -220,9 +240,16 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
                                gamma: torch.Tensor | None, k_dim: int,
                                n_dim: int, eps: float = 1e-5,
                                glu: bool = False,
-                               resid: torch.Tensor | None = None) -> torch.Tensor:
+                               resid: torch.Tensor | None = None,
+                               stats: torch.Tensor | None = None,
+                               k_full: int | None = None) -> torch.Tensor:
     """K1: ``[resid +] quantize(norm(glu(x))) @ W[l]`` for decode rows,
     M = B ≤ ``STACKED_DECODE_MAX_M``.
+
+    ``stats`` [M, 2] f32 (the row-statistics mode of a row-parallel slice,
+    ``parallel/sharding.py``): each row's sum of squares over ``k_full``
+    values and the absmax of its whole normed row, which the norm and the
+    int8 scale take instead of the slice's own.
 
     x [M, K] (or [M, 2K] when ``glu``) bf16/f32; packed [L, Kp/16, Np];
     scale_vec [L, Np] f32; gamma [L, Kp] f32 or None; resid [M, n_dim] in
@@ -244,10 +271,11 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
     if resid is not None and (tuple(resid.shape) != (M, n_dim)
                               or resid.dtype != x.dtype):
         raise ValueError(f"resid must be [{M}, {n_dim}] {x.dtype}")
+    _check_stats(stats, M, x, k_full, k_dim)
     if x.device.type == "cpu":
         return ternary_matmul_w2a8_normed_plain(
             x, packed[l], scale_vec[l], None if gamma is None else gamma[l],
-            eps, glu, resid, n_dim)
+            eps, glu, resid, n_dim, stats, k_full)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K1 takes CUDA bf16/f32 x, got {x.device} {x.dtype}")
     dev_i = x.get_device()
@@ -257,13 +285,25 @@ def ternary_matmul_w2a8_normed(l: int, x: torch.Tensor, packed: torch.Tensor,
     if gamma is not None and gamma.dtype != torch.float32:
         raise ValueError("gamma must be f32")
     out = _w2a8_normed_launch(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps,
-                              glu, resid)[0]
+                              glu, resid, stats, k_full)[0]
     ternary_matmul_w2a8_normed.launches += 1
     return out
 
 
+def _check_stats(stats, M, x, k_full, k_dim):
+    """The row-statistics operand: f32 [M, 2], contiguous, on x's device,
+    with the whole row's length ``k_full`` ≥ the slice's ``k_dim``."""
+    if stats is None:
+        return
+    if (tuple(stats.shape) != (M, 2) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or stats.device != x.device):
+        raise ValueError(f"stats must be contiguous f32 [{M}, 2] on {x.device}")
+    if k_full is None or k_full < k_dim:
+        raise ValueError(f"stats need k_full >= {k_dim}, got {k_full}")
+
+
 def _w2a8_normed_launch(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps, glu,
-                        resid):
+                        resid, stats=None, k_full=None):
     """Launch K1 on checked operands: its decode form tiled by
     :func:`w2a8_decode_plan`, or the row kernel and the GEMM tiled by
     :func:`w2a8_gemm_plan`.  Returns (out, scratch): scratch holds the int8
@@ -282,22 +322,22 @@ def _w2a8_normed_launch(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps, glu,
             None if resid is None else resid.data_ptr(), out.data_ptr(), n_dim,
             p, p + M * k_dim, p + M * k_dim + 4 * M, _DTYPE_CODE[x.dtype])
     sms = _sm_count(dev.index)
-    if M <= W2A8_DECODE_MAX_M and k_dim <= W2A8_DECODE_MAX_K:
-        rc = lib.bn_w2a8_normed_decode(*args, w2a8_decode_plan(M, k_dim, Np, sms),
-                                       _cuda.stream_ptr(dev))
-    else:
-        rc = lib.bn_w2a8_normed_gemm(*args, *w2a8_gemm_plan(M, k_dim, Np, sms),
-                                     _cuda.stream_ptr(dev))
+    decode = M <= W2A8_DECODE_MAX_M and k_dim <= W2A8_DECODE_MAX_K
+    # cols > 0 the decode form, cols == 0 the row kernel and the GEMM
+    tiles = ((w2a8_decode_plan(M, k_dim, Np, sms), 0, 0) if decode
+             else (0, *w2a8_gemm_plan(M, k_dim, Np, sms)))
+    rc = lib.bn_w2a8_normed(*args, None if stats is None else stats.data_ptr(),
+                            0 if k_full is None else k_full, *tiles, _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_w2a8_normed")
     return out, scratch
 
 
 def _w2a8_normed_cuda(l, x, packed, scale_vec, gamma, k_dim, n_dim, eps, glu,
-                      resid):
+                      resid, stats=None, k_full=None):
     """K1 with its integer parts: (out, xq [M, K], sx [M], sumq [M]), so a
     test can hold them against the plain version.  Counts no launch."""
     out, scratch = _w2a8_normed_launch(l, x, packed, scale_vec, gamma, k_dim,
-                                       n_dim, eps, glu, resid)
+                                       n_dim, eps, glu, resid, stats, k_full)
     M, MK = x.shape[0], x.shape[0] * k_dim
     return (out, scratch[:MK].view(M, k_dim),
             scratch[MK:MK + 4 * M].view(torch.float32),
@@ -336,20 +376,24 @@ def _sm_count(index: int) -> int:
 
 def ternary_matmul_w2a8(l: int, x: torch.Tensor, packed: torch.Tensor,
                         scale_vec: torch.Tensor, k_dim: int,
-                        n_dim: int) -> torch.Tensor:
+                        n_dim: int, stats: torch.Tensor | None = None) -> torch.Tensor:
     """K4: ``quantize(x) @ W[l]`` for prefill rows (any M).  x [M, K]
     bf16/f32, already normed/activated; returns [M, n_dim] in x's dtype.
     On the card a call is two launches and no other PyTorch op than
     ``torch.empty``: the per-row int8 quantization (K1's row kernel, no
     norm, no SwiGLU: the arithmetic of :func:`quantize_rows`), then the
-    wgmma GEMM with the epilogue, tiled by :func:`w2a8_gemm_plan`."""
+    wgmma GEMM with the epilogue, tiled by :func:`w2a8_gemm_plan`.
+    ``stats`` [M, 2] f32, where given: each row's absmax is ``stats[:, 1]``
+    (the whole row's, for a row-parallel slice) instead of x's own."""
     L, Np = _check_stack(packed, scale_vec, l, k_dim)
     if x.ndim != 2 or x.shape[1] != k_dim:
         raise ValueError(f"x must be [M, {k_dim}], got {tuple(x.shape)}")
     if n_dim > Np:
         raise ValueError(f"n_dim {n_dim} > Np {Np}")
+    _check_stats(stats, x.shape[0], x, k_dim, k_dim)
     if x.device.type == "cpu":
-        xq, sx, sumq = quantize_rows(x.to(torch.float32))
+        xq, sx, sumq = quantize_rows(x.to(torch.float32),
+                                     None if stats is None else stats[:, 1])
         return ternary_matmul_w2a8_plain(xq, sumq, sx, packed[l], scale_vec[l],
                                          n_dim, x.dtype)
     if not x.is_cuda or x.dtype not in _DTYPE_CODE:
@@ -358,12 +402,12 @@ def ternary_matmul_w2a8(l: int, x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("K4 operands must be on x's device")
     if x.shape[0] < 1 or x.stride(1) != 1:
         raise ValueError("K4 takes at least one row, each contiguous")
-    out = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)[0]
+    out = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim, stats)[0]
     ternary_matmul_w2a8.launches += 1
     return out
 
 
-def _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim):
+def _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim, stats=None):
     """Launch K4 on checked operands.  Returns (out, scratch): scratch holds
     the int8 rows, their scales and their sums (``xq | sx | sumq``).  Layer
     ``l`` is addressed by pointer offset."""
@@ -374,20 +418,20 @@ def _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim):
     scratch = torch.empty(M * (k_dim + 8), dtype=torch.int8, device=dev)
     p = scratch.data_ptr()
     lib = _cuda.library("ternary_matmul")
-    rc = lib.bn_w2a8_gemm(
-        x.data_ptr(), x.stride(0), M, k_dim,
-        packed.data_ptr() + 4 * l * packed.stride(0), Np,
-        scale_vec.data_ptr() + 4 * l * Np, out.data_ptr(), n_dim,
-        p, p + M * k_dim, p + M * k_dim + 4 * M, _DTYPE_CODE[x.dtype], bt, split,
-        _cuda.stream_ptr(dev))
+    args = (x.data_ptr(), x.stride(0), M, k_dim,
+            packed.data_ptr() + 4 * l * packed.stride(0), Np,
+            scale_vec.data_ptr() + 4 * l * Np, out.data_ptr(), n_dim,
+            p, p + M * k_dim, p + M * k_dim + 4 * M)
+    rc = lib.bn_w2a8_gemm(*args, None if stats is None else stats.data_ptr(),
+                          _DTYPE_CODE[x.dtype], bt, split, _cuda.stream_ptr(dev))
     _cuda.check(lib, "ternary_matmul", rc, "ternary_matmul_w2a8")
     return out, scratch
 
 
-def _w2a8_gemm_cuda(l, x, packed, scale_vec, k_dim, n_dim):
+def _w2a8_gemm_cuda(l, x, packed, scale_vec, k_dim, n_dim, stats=None):
     """K4 with its integer parts: (out, xq [M, K], sx [M], sumq [M]), so a
     check can hold them against :func:`quantize_rows`.  Counts no launch."""
-    out, scratch = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim)
+    out, scratch = _w2a8_gemm_launch(l, x, packed, scale_vec, k_dim, n_dim, stats)
     M, MK = x.shape[0], x.shape[0] * k_dim
     return (out, scratch[:MK].view(M, k_dim),
             scratch[MK:MK + 4 * M].view(torch.float32),

@@ -82,14 +82,10 @@ class ModelManager:
     def __init__(self, engine_cfg: EngineConfig | None = None,
                  num_slots: int = 4, max_models: int = 2, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            from ..config import not_ported
-
-            raise not_ported("multi-host / mesh scheduling (mesh)", "#13")
         self.engine_cfg = engine_cfg or EngineConfig()
         self.num_slots = num_slots
         self.max_models = max_models
-        self.mesh = None
+        self.mesh = mesh            # hot-loaded models shard like the first
         self.device = resolve_device(device)
         self._models: dict[str, ModelEntry] = {}
         self._default: str | None = None
@@ -125,7 +121,8 @@ class ModelManager:
             validate_memory(cfg, ecfg, strict=False, device=dev)
             return params.to(dev)
         sched = ContinuousBatchingScheduler(cfg, run_on_device(dev, place), tokenizer,
-                                            ecfg, num_slots=self.num_slots, device=dev)
+                                            ecfg, num_slots=self.num_slots,
+                                            mesh=self.mesh, device=dev)
         entry = ModelEntry(name, path, sched)
         with self._lock:
             self._models[name] = entry

@@ -76,8 +76,21 @@ rows through ``engine/checkpoint.py`` beside a ``.req.json`` of its
 sampling fields, and a ``.pending.json`` for each request that had no
 token yet; either package resumes the other's.
 
-Not ported (each raises naming its ROADMAP item): ``mesh``, ``channel`` and
-``follow`` (multi-host, #13).
+A mesh (``mesh=``, ``parallel/mesh.py``; ``:181-227``, ``:297-326``): the
+weights are the rank's shard and the pool its rows of the KV heads and, on
+the data axis, of the slots (a dense slot's prefill runs on the data rank
+that holds it and its logits are broadcast over the axis; a paged pool is
+whole on every data rank).  Every rank runs the same program (one process a
+rank), so a mesh of more than one rank needs ``channel``, a
+``serve.follower.ControlChannel``: the frontend (rank 0) sends one record
+before each device call (a prefill, a length, a bias row, a pool step) and
+the other ranks replay them in :meth:`follow` (``:882``), each on its own
+shard.  Sampling stays on the frontend: every rank's logits are the whole
+model's (the model axis gathers them), and the followers' tokens are never
+read.  On a live mesh the pool steps run eagerly (K steps a dispatch
+still), since a CUDA graph cannot hold a host-staged collective; as in the
+JAX package a channel refuses the paged pool, ``pipeline_depth > 1``,
+``speculative_k``, checkpoint / resume and embeddings.
 """
 
 from __future__ import annotations
@@ -98,7 +111,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from ..config import (EngineConfig, GenerationConfig, ModelConfig, not_ported,
+from ..config import (EngineConfig, GenerationConfig, ModelConfig,
                       resolve_kernel_path)
 from ..device_probe import resolve_device
 from ..engine.cache import allocate_cache
@@ -106,10 +119,11 @@ from ..engine.engine import prepare_params
 from ..engine.loop import HISTORY_W, INT_COLS, PoolPipeline, PoolSegment
 from ..engine.sampling import NEG_INF, MirostatState, SamplerChain, logprob_entry
 from ..engine.stop import StopCriteria, StopReason
-from ..errors import InferenceError
+from ..errors import ConfigError, InferenceError
 from ..models.bitnet import (BitNetParams, decode_attn_plan, forward, kv_dtype_name,
                              logits as model_logits, stacked_decode_ok)
 from ..ops.decode_attention import claim_device, release_device
+from ..parallel.mesh import DATA_AXIS
 
 # an idle slot's float row: neutral top_p, typical_p and repetition penalty
 IDLE_FLOATS = np.array([0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0], np.float32)
@@ -338,11 +352,26 @@ class ContinuousBatchingScheduler:
                  start_loop: bool = True, decode_steps_per_dispatch: int = 1,
                  chunked_prefill: int | None = None, speculative_k: int = 0,
                  pipeline_depth: int = 1, device: str | torch.device = "cuda"):
-        if mesh is not None or channel is not None:
-            raise not_ported("multi-host / mesh scheduling (mesh, channel, follow)",
-                             "#13")
+        self._channel = channel
+        if channel is not None:
+            if mesh is None:
+                raise InferenceError(
+                    "multi-host scheduling requires a mesh spanning all "
+                    "processes (parallel.multihost.host_mesh)")
+            if paged:
+                raise InferenceError(
+                    "multi-host scheduling does not support the paged "
+                    "pool yet (host-side block-table updates are global "
+                    "ops that would need mirroring)")
+        if mesh is not None and mesh.size > 1 and channel is None:
+            raise ConfigError(
+                f"a mesh of {mesh.size} ranks needs a ControlChannel: every rank "
+                "runs the scheduler's device calls, rank 0 serving and the others "
+                "in follow() (serve.follower)")
+        self.mesh = mesh
+        live_mesh = mesh is not None and mesh.live
         self.pipeline_depth = max(1, int(pipeline_depth))
-        if self.pipeline_depth > 1 and (paged or speculative_k):
+        if self.pipeline_depth > 1 and (paged or speculative_k or live_mesh):
             raise InferenceError(
                 "pipeline_depth > 1 requires a dense single-host pool "
                 "without serving-level speculation")
@@ -351,7 +380,7 @@ class ContinuousBatchingScheduler:
             from ..engine.speculative import NgramDraft
 
             self._spec_draft = NgramDraft()
-            if paged:
+            if paged or live_mesh:
                 raise InferenceError("speculative_k requires a dense single-host pool")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -420,16 +449,28 @@ class ContinuousBatchingScheduler:
             self._wake = self._devloop.wake
 
     def _init_device(self, params, kv_dtype: str, num_pages: int | None) -> None:
-        cfg, ec = self.cfg, self.engine_cfg
+        cfg, ec, mesh = self.cfg, self.engine_cfg, self.mesh
         self.params, _ = prepare_params(params, ec, self.device, self._kp)
+        if mesh is not None:
+            from ..parallel.sharding import shard_params, validate_mesh_for
+
+            validate_mesh_for(cfg, self.B, mesh, self.params)
+            self.params = shard_params(mesh, cfg, self.params)
         if self.paged:
             from ..engine.paged_cache import allocate_paged_cache
 
             nb = -(-self.S // self.page_size)
             self.cache, self.pool = allocate_paged_cache(
-                cfg, self.B, num_pages or self.B * nb, self.page_size, nb, kv_dtype,
+                cfg if mesh is None else mesh.local_cfg(cfg), self.B,
+                num_pages or self.B * nb, self.page_size, nb, kv_dtype,
                 device=self.device)
             self.S_view = nb * self.page_size
+        elif mesh is not None:
+            from ..parallel.sharding import allocate_sharded_cache
+
+            # the rank's rows only: the whole pool is never allocated
+            self.cache = allocate_sharded_cache(mesh, cfg, self.B, self.S, kv_dtype,
+                                                device=self.device)
         else:
             self.cache = allocate_cache(cfg, self.B, self.S, kv_dtype, device=self.device)
 
@@ -472,6 +513,9 @@ class ContinuousBatchingScheduler:
     def shutdown(self) -> None:
         self._stopping = True
         self._wake.set()
+        if self._channel is not None and self._channel.primary:
+            # the followers' stop, after this rank's last step
+            run_on_device(self.device, self._send_stop)
         if self._devloop is not None:
             self._devloop.detach(self)
         elif self._owner is not None:
@@ -497,8 +541,68 @@ class ContinuousBatchingScheduler:
         self._pause_req = False
         self._wake.set()
 
+    # ----------------------------------------------------- multi-host
+    def _send(self, record: tuple) -> None:
+        """The frontend's control record before a device call (none on a
+        follower, which is replaying one, or without a channel)."""
+        ch = self._channel
+        if ch is not None and ch.primary:
+            ch.send(record)
+
+    def _send_stop(self) -> None:
+        if self._channel is not None and self._channel.primary \
+                and not getattr(self, "_stop_sent", False):
+            self._stop_sent = True
+            self._channel.send(("stop",))
+
+    def _owner_slot(self, slot_idx: int) -> tuple[int, int | None]:
+        """(the data rank holding slot ``slot_idx``, its row in this rank's
+        pool or None when another data rank holds it)."""
+        Bl = self.cache.k.shape[1]
+        if self.paged or Bl == self.B:
+            return 0, slot_idx
+        owner = slot_idx // Bl
+        mine = self.mesh.axis(DATA_AXIS).index == owner
+        return owner, (slot_idx - owner * Bl) if mine else None
+
+    def _set_length(self, slot_idx: int, T: int) -> None:
+        """A slot's valid length, written where its rows live."""
+        self._send(("length", slot_idx, T))
+        _, row = self._owner_slot(slot_idx)
+        if row is not None:
+            self.cache.lengths[row] = T
+
     def follow(self) -> None:
-        raise not_ported("the multi-host follower loop (follow)", "#13")
+        """Worker follower loop (``serve/follower.py``): replay the
+        frontend's control records so every rank makes the same device
+        calls, collectives included, in the same order, each on its own
+        shard; the tokens it samples are never read.  Blocks until a
+        ``stop`` record."""
+        ch = self._channel
+        if ch is None or ch.primary:
+            raise InferenceError(
+                "follow() runs on non-primary processes with a channel")
+        self._claim()
+        while True:
+            rec = ch.recv()
+            op = rec[0]
+            if op == "stop":
+                return
+            if op == "noop":
+                continue
+            if op == "prefill":
+                _, slot_idx, ids, start = rec
+                self._prefill_dense(slot_idx, ids, start)
+            elif op == "length":
+                self._set_length(rec[1], rec[2])
+            elif op == "bias":
+                self._set_slot_bias(rec[1], rec[2])
+            elif op == "pool":
+                _, ints, floats, k_eff, use_typical, use_bias, use_sampling = rec
+                self._get_segment(k_eff, use_typical, use_bias, use_sampling)(
+                    ints, floats, [None] * self.B)
+            else:  # pragma: no cover - protocol guard
+                raise InferenceError(f"unknown control record {op!r}")
 
     # ------------------------------------------------- preemption recovery
     def checkpoint_requests(self, directory: str) -> list[str]:
@@ -509,6 +613,11 @@ class ContinuousBatchingScheduler:
         ``queued_req{id}.pending.json``.  Runs between the loop's steps
         (the rows are read on the device's thread); returns the paths
         written."""
+        if self._channel is not None:
+            raise InferenceError(
+                "checkpoint/resume is frontend-local and not mirrored to "
+                "followers; drain requests before stopping a multi-host "
+                "serve instead")
         return run_on_device(self.device, lambda: self._checkpoint(directory))
 
     def _slot_rows(self, i: int, kv_len: int):
@@ -570,6 +679,10 @@ class ContinuousBatchingScheduler:
         where it stopped, the token emitted but not yet decoded as the next
         input; the queued ones are submitted again.  Runs between the
         loop's steps."""
+        if self._channel is not None:
+            raise InferenceError(
+                "checkpoint/resume is frontend-local and not mirrored to "
+                "followers; resume before entering multi-host mode")
         return run_on_device(self.device, lambda: self._resume(directory))
 
     def _restore_rows(self, slot_idx: int, state) -> None:
@@ -690,6 +803,10 @@ class ContinuousBatchingScheduler:
         """Final-hidden-state embeddings [T, H] f32 on the host, from a
         throwaway B=1 cache (the pool is not touched); lengths bucket to
         powers of two.  Runs between the loop's steps."""
+        if self._channel is not None:
+            raise InferenceError(
+                "embeddings are frontend-local; not supported on a "
+                "multi-host scheduler")
         return run_on_device(self.device, lambda: self._embed_ids(token_ids))
 
     def _embed_ids(self, token_ids: list[int]) -> np.ndarray:
@@ -750,7 +867,8 @@ class ContinuousBatchingScheduler:
             seg = PoolSegment(self.cfg, self.params, self.cache, self._kp, n_steps,
                               self.S, self.device, self._graph_pool, paged=self.paged,
                               use_typical=use_typical, use_sampling=use_sampling,
-                              bias_rows=self._bias_rows if use_bias else None)
+                              bias_rows=self._bias_rows if use_bias else None,
+                              eager=self.mesh is not None and self.mesh.live)
             self._segments[key] = seg
             while len(self._segments) > self.MAX_SEGMENTS:
                 self._segments.popitem(last=False)
@@ -774,18 +892,30 @@ class ContinuousBatchingScheduler:
         Tc = len(ids)
         Tp = self._bucket(Tc)
         self.stats["prefills"] += 1
+        self._send(("prefill", slot_idx, list(ids), start))
         toks = np.zeros((1, Tp), np.int64)
         toks[0, :Tc] = ids
         pos = np.full((1, Tp), self.S, np.int64)
         pos[0, :Tc] = np.arange(start, start + Tc)
-        c, sl = self.cache, slice(slot_idx, slot_idx + 1)
-        ks = None if c.k_scale is None else c.k_scale[:, sl]
-        vs = None if c.v_scale is None else c.v_scale[:, sl]
+        owner, row = self._owner_slot(slot_idx)
         with torch.inference_mode():
-            h, _, _ = forward(self.cfg, self.params, self._dev(toks), self._dev(pos),
-                              c.k[:, sl], c.v[:, sl], self._dev(np.array([start])),
-                              self._dev(np.array([Tc])), self._kp, ks, vs)
-            return model_logits(self.cfg, self.params, h[:, Tc - 1:Tc], self._kp)[:, 0]
+            lg = None
+            if row is not None:
+                c, sl = self.cache, slice(row, row + 1)
+                ks = None if c.k_scale is None else c.k_scale[:, sl]
+                vs = None if c.v_scale is None else c.v_scale[:, sl]
+                h, _, _ = forward(self.cfg, self.params, self._dev(toks), self._dev(pos),
+                                  c.k[:, sl], c.v[:, sl], self._dev(np.array([start])),
+                                  self._dev(np.array([Tc])), self._kp, ks, vs)
+                lg = model_logits(self.cfg, self.params, h[:, Tc - 1:Tc], self._kp)[:, 0]
+            if self.mesh is not None and self.mesh.axis(DATA_AXIS).size > 1:
+                # the data rank holding the slot ran it: its logits to all
+                if lg is None:
+                    lg = torch.empty((1, self.cfg.vocab_size), dtype=torch.float32,
+                                     device=self.device)
+                lg = self.mesh.axis(DATA_AXIS).broadcast(
+                    lg.to(torch.float32).contiguous(), src=owner)
+            return lg
 
     def _prefill_paged(self, slot_idx: int, ids: list[int], start: int) -> torch.Tensor:
         """B=1 prefill straight into the slot's pages: a one-row
@@ -901,10 +1031,10 @@ class ContinuousBatchingScheduler:
                 pf_base = m
                 if not staged:
                     lg = self._prefill_paged(slot_idx, req.token_ids[m:], m)
-                    self.cache.lengths[slot_idx] = T
+                    self._set_length(slot_idx, T)
             elif not staged:
                 lg = self._prefill_dense(slot_idx, req.token_ids, 0)
-                self.cache.lengths[slot_idx] = T
+                self._set_length(slot_idx, T)
             admitted += 1
             self._install(slot_idx, slot, req, T)
             if staged:
@@ -1002,7 +1132,7 @@ class ContinuousBatchingScheduler:
             if slot.pf_done < total:
                 continue
             T = len(req.token_ids)
-            self.cache.lengths[slot_idx] = T
+            self._set_length(slot_idx, T)
             slot.pos = T
             self._activate(slot_idx, lg)
         return worked
@@ -1110,6 +1240,7 @@ class ContinuousBatchingScheduler:
     def _set_slot_bias(self, slot_idx: int, bias) -> None:
         """Write one slot's logit-bias row in place (admit time and the end
         of the min phase; never shipped per step)."""
+        self._send(("bias", slot_idx, tuple(bias)))
         V = self.cfg.vocab_size
         if self._bias_rows is None:
             if not bias:
@@ -1299,12 +1430,23 @@ class ContinuousBatchingScheduler:
             self._paused_at_barrier = True
             return False
         self._paused_at_barrier = False
-        return self._step_pipelined() if self.pipeline_depth > 1 else self._step()
+        worked = self._step_pipelined() if self.pipeline_depth > 1 else self._step()
+        ch = self._channel
+        if not worked and ch is not None and ch.primary and time.time() - ch.last_send > 5.0:
+            # idle heartbeat: the followers' blocking receive never waits out
+            # the transport's timeout
+            self._send(("noop",))
+        return worked
 
     def _died(self, e: BaseException) -> None:
-        """The loop failed: end every request (their reason is None)."""
+        """The loop failed: end every request (their reason is None) and
+        release the followers."""
         self.error = e
         self._fail_all()
+        try:
+            self._send_stop()
+        except Exception:          # noqa: BLE001 — the loop is failing anyway
+            pass
 
     def _fail_all(self) -> None:
         for s in self.slots:
@@ -1397,6 +1539,7 @@ class ContinuousBatchingScheduler:
             use_sampling |= not g.is_greedy or s.mirostat is not None
             gens[i] = s.gen
         seg = self._get_segment(k_eff, use_typical, use_bias, use_sampling)
+        self._send(("pool", ints, floats, k_eff, use_typical, use_bias, use_sampling))
         t0, cap0 = time.perf_counter(), seg.capture_s
         toks, raw, u = seg(ints, floats, gens)
         # a first call's capture is not a step's time

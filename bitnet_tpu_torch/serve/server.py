@@ -13,9 +13,12 @@ status codes, SSE frames and WebSocket messages.  Where it differs:
   middleware ran after a stream's head was sent);
 - ``/health`` and ``/v1/devices`` refresh the snapshot in an executor (the
   card's memory is read on the device loop's thread);
-- ``serve()`` runs one host: ``shard`` and ``$BITNET_COORDINATOR`` raise
-  naming ROADMAP queue 1 #13, and ``BitNetServer`` has no multi-host mode
-  (the JAX ``multihost`` flag and its 409s).
+- ``serve(shard="DP,TP")`` runs one process a rank (``parallel/``): with
+  ``$BITNET_COORDINATOR`` each process is one rank of the launch contract
+  (``parallel/multihost.py``), rank 0 the frontend and the others in
+  ``follow()``; without it, on one host, ``serve`` starts the dp·tp − 1
+  followers itself (a ``FileStore`` rendezvous, ``LOCAL_RANK`` each), where
+  the JAX package's one controller drove every chip.
 
 The JAX module's own summary follows.
 
@@ -45,9 +48,9 @@ import os
 import queue
 import time
 
-from ..config import EngineConfig, GenerationConfig, not_ported
+from ..config import EngineConfig, GenerationConfig
 from ..engine.stop import StopReason
-from ..errors import InferenceError
+from ..errors import ConfigError, InferenceError
 from . import http as web
 from .scheduler import ContinuousBatchingScheduler
 
@@ -307,7 +310,8 @@ class BitNetServer:
                  model_name: str = "bitnet-tpu",
                  manager=None, rate_limiter=None,
                  auth_token: str | None = None,
-                 allowed_model_dirs: list[str] | None = None, device="cuda"):
+                 allowed_model_dirs: list[str] | None = None, device="cuda",
+                 multihost: bool = False):
         """``auth_token``: when set (or via $BITNET_AUTH_TOKEN), every API
         route except health/metrics requires ``Authorization: Bearer
         <token>`` (reference JWT-auth parity, src/test_validate_jwt.rs).
@@ -321,6 +325,7 @@ class BitNetServer:
         if scheduler is not None:
             self.manager.adopt(model_name, scheduler)
         self.model_name = model_name
+        self.multihost = multihost
         self.rate_limiter = rate_limiter  # None = unlimited
         self.auth_token = auth_token or os.environ.get("BITNET_AUTH_TOKEN")
         self.allowed_model_dirs = (
@@ -1097,6 +1102,11 @@ class BitNetServer:
         gated = self._gate(request)
         if gated is not None:
             return gated
+        if self.multihost:
+            return web.json_response(
+                {"error": "model hot-load is disabled in multi-host mode "
+                          "(followers replay one model's control stream)"},
+                status=409)
         name, path = body.get("name"), body.get("path")
         if not name or not path:
             return web.json_response(
@@ -1121,6 +1131,10 @@ class BitNetServer:
         gated = self._gate(request)
         if gated is not None:
             return gated
+        if self.multihost:
+            return web.json_response(
+                {"error": "model unload is disabled in multi-host mode"},
+                status=409)
         name = request.match_info["name"]
         try:
             self.manager.unload(name)
@@ -1279,23 +1293,75 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
     """Load model + start the server (blocking; SIGINT / SIGTERM shut it
     down gracefully: stop accepting, drain, then stop the schedulers).
     ``bitnet_tpu/serve/server.py:1297-1394`` on ``device`` (the card unless
-    the caller asks for ``"cpu"``), without the multi-host and mesh
-    branches, which raise naming ROADMAP queue 1 #13."""
+    the caller asks for ``"cpu"``).
+
+    ``shard="DP,TP"`` serves over a (data, model) mesh, one process a rank.
+    With ``$BITNET_COORDINATOR`` this process is the rank the launch
+    contract names (``parallel/multihost.py``): rank 0 serves, the others
+    replay its control stream (``serve/follower.worker_loop``) and return
+    when it stops.  Without it, on one host, this process is rank 0 and
+    starts the dp·tp − 1 others itself, each ``serve`` with the same
+    arguments, a ``FileStore`` under a temporary directory and its
+    ``LOCAL_RANK``; they end with the server.  The backend is the
+    launch contract's (``$BITNET_DIST_BACKEND``; ranks that share a card
+    need gloo)."""
     import torch
 
     from ..device_probe import resolve_device
     from ..models.loader import load_model
+    from ..parallel.multihost import init_distributed, is_primary
     from ..tokenizer import load_tokenizer
     from .model_manager import ModelManager
 
-    if shard:
-        raise not_ported("--shard (a data x model mesh over the slot pool)", "#13")
-    if os.environ.get("BITNET_COORDINATOR"):
-        raise not_ported("multi-host serving ($BITNET_COORDINATOR)", "#13")
+    # the card unless the caller asks for the CPU: refused before any rank
+    # is started or joined
     dev = resolve_device(device)
+    # ONE validated parse of --shard for every branch (single host, frontend,
+    # follower): all ranks fail alike on bad input
+    shard_dp = shard_tp = None
+    if shard:
+        try:
+            dp_s, tp_s = shard.split(",")
+            shard_dp, shard_tp = int(dp_s), int(tp_s)
+        except ValueError:
+            raise ConfigError(
+                f"--shard expects DP,TP (e.g. 2,4), got {shard!r}") from None
+        if shard_dp < 1 or shard_tp < 1:
+            raise ConfigError(f"--shard axes must be >= 1, got {shard!r}")
+    followers = []
+    if shard and shard_dp * shard_tp > 1 and not os.environ.get("BITNET_COORDINATOR"):
+        followers = _start_followers(shard_dp * shard_tp, dict(
+            model_path=model_path, host=host, port=port, max_seq_len=max_seq_len,
+            kv_cache_dtype=kv_cache_dtype, kernel_path=kernel_path,
+            num_slots=num_slots, shard=shard, auth_token=auth_token,
+            model_dirs=model_dirs, paged=paged, num_pages=num_pages,
+            page_size=page_size, chunked_prefill=chunked_prefill,
+            speculative_k=speculative_k,
+            decode_steps_per_dispatch=decode_steps_per_dispatch,
+            pipeline_depth=pipeline_depth, device=str(device)))
+    distributed = init_distributed(device=dev)
     ecfg = EngineConfig(max_seq_len=max_seq_len,
                         kv_cache_dtype=kv_cache_dtype,
                         kernel_path=kernel_path)
+    mesh = channel = None
+    if distributed:
+        from ..parallel.mesh import rank_device
+        from ..parallel.multihost import host_mesh
+        from .follower import ControlChannel, worker_loop
+
+        # this rank's card (LOCAL_RANK), or the CPU where the caller asks
+        dev = rank_device(device=device)
+        if not is_primary():
+            # a follower: replay the frontend's control stream until it stops
+            worker_loop(model_path, ecfg, num_slots=num_slots, tp=shard_tp, device=dev)
+            return
+        mesh = host_mesh(tp=shard_tp, device=dev)
+        channel = ControlChannel()
+    else:
+        if shard:
+            from ..parallel import make_mesh
+
+            mesh = make_mesh(dp=shard_dp, tp=shard_tp, device=dev)
     cfg, params, _ = load_model(
         model_path,
         param_dtype=torch.float32 if ecfg.compute_dtype == "f32" else torch.bfloat16,
@@ -1304,7 +1370,8 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
         ecfg = ecfg.replace(max_seq_len=cfg.max_seq_len)
     tokenizer = load_tokenizer(model_path)
     sched = ContinuousBatchingScheduler(cfg, params, tokenizer, ecfg,
-                                        num_slots=num_slots,
+                                        num_slots=num_slots, mesh=mesh,
+                                        channel=channel,
                                         paged=paged, num_pages=num_pages,
                                         page_size=page_size,
                                         chunked_prefill=chunked_prefill,
@@ -1313,18 +1380,62 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
                                             decode_steps_per_dispatch),
                                         pipeline_depth=pipeline_depth,
                                         device=dev)
-    manager = ModelManager(ecfg, num_slots=num_slots, device=dev)
+    manager = ModelManager(ecfg, num_slots=num_slots, mesh=mesh, device=dev)
     manager.adopt("bitnet-tpu", sched, path=model_path)
     # hot-load is confined to the started model's directory unless the
     # operator widens it (admin routes must not accept arbitrary paths)
     dirs = model_dirs or [os.path.dirname(os.path.abspath(model_path))]
     server = BitNetServer(manager=manager, auth_token=auth_token,
-                          allowed_model_dirs=dirs, device=dev)
+                          allowed_model_dirs=dirs, device=dev,
+                          multihost=distributed)
     app = server.build_app()
 
     async def on_shutdown(app):
         server.otlp.stop()
-        server.manager.shutdown()
+        server.manager.shutdown()        # the followers' stop record
 
     app.on_shutdown.append(on_shutdown)
-    web.run_app(app, host=host, port=port)
+    try:
+        web.run_app(app, host=host, port=port)
+    finally:
+        _stop_followers(followers)
+
+
+def _start_followers(n: int, kwargs: dict) -> list:
+    """Ranks 1 … n − 1 of a one-host ``serve --shard``: each a process
+    running ``serve(**kwargs)`` as that rank (``BITNET_PROCESS_ID``,
+    ``LOCAL_RANK``), over a ``FileStore`` in a new temporary directory; this
+    process becomes rank 0.  Returns the processes."""
+    import subprocess
+    import sys
+    import tempfile
+
+    store = os.path.join(tempfile.mkdtemp(prefix="bitnet_serve_"), "store")
+    env = {"BITNET_COORDINATOR": "file://" + store, "BITNET_NUM_PROCESSES": str(n),
+           "LOCAL_WORLD_SIZE": str(n)}
+    os.environ.update(env, BITNET_PROCESS_ID="0", LOCAL_RANK="0")
+    code = ("import json, sys; from bitnet_tpu_torch.serve.server import serve; "
+            "serve(**json.loads(sys.argv[1]))")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    procs = []
+    for r in range(1, n):
+        penv = {**os.environ, **env, "BITNET_PROCESS_ID": str(r), "LOCAL_RANK": str(r),
+                "PYTHONPATH": os.pathsep.join(
+                    [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                              if p])}
+        procs.append(subprocess.Popen([sys.executable, "-c", code, json.dumps(kwargs)],
+                                      env=penv))
+    return procs
+
+
+def _stop_followers(procs: list, timeout_s: float = 60.0) -> None:
+    """Wait for the followers this process started (the stop record ends
+    them), and kill any that outlive ``timeout_s``."""
+    import subprocess
+
+    for p in procs:
+        try:
+            p.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()

@@ -15,7 +15,8 @@ if __name__ == "__main__":
     ap.add_argument("--kernel-path", default="auto")
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--shard", default=None,
-                    help="DP,TP mesh: not ported (ROADMAP.md queue 1 #13)")
+                    help="DP,TP mesh (one process a rank; on one host the "
+                         "followers are started here)")
     ap.add_argument("--auth-token", default=None,
                     help="require 'Authorization: Bearer <token>' "
                          "(also via $BITNET_AUTH_TOKEN)")

@@ -67,7 +67,8 @@ no result line):
            zero (kernels.attn_repeats), and a K5 and a K2 call under the
            profiler (kernels.k5_profile, kernels.k2_profile)
   k1       (not in the default run, which holds it in kernels) K1's checks
-           and times alone (kernels.k1, k1_m, k1_chain): a short call that
+           and times alone (kernels.k1, k1_m, k1_chain), and K1's and K4's
+           row-statistics mode (kernels.rowstats): a short call that
            compares two trees
   k11      (not in the default run, which holds it in kernels) K11's and
            K12's checks and times alone (kernels.k11, k11_8b, k11_m, k12): a
@@ -210,13 +211,14 @@ no result line):
            <dir>` in a process of its own, the cache reused (mtime
            unchanged), tokens against (a)'s (near-tie rule), the files
            deleted; (c) the packed GGUF on the windowed ring (W=256, bf16
-           KV, K1 at the generic site): a 64-token prompt and 512 greedy
+           KV, K1 at the generic site): a 64-token prompt and 320 greedy
            eager tokens, those inside the window against the plain engine's
            (near-tie rule), allocated memory flat after the first window,
            decode ms and launches a step, then the ring's logits at every
            position of that run, teacher-forced, against forward(window=W)
            over a dense cache (cosine >= 0.99 on both sides of W); (d)
-           every QK256 tensor of the 2B packed on the card against the
+           the QK256 tensors of the 2B's first two layers packed on the
+           card against the
            numpy route on the host, bit for bit (seconds, the largest
            memory rise of one pack); (e) the CLI in process at the 2B:
            `benchmark -n 64` (tok/s, TTFT), `score` over ~300 ids
@@ -254,7 +256,7 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PHASES = ("probe", "build", "kernels", "parity", "serving", "batched", "tl",
           "llama8b", "generic", "plans", "kernel_bench", "experiments", "cli",
           "segments", "requests", "scheduler", "gate", "speculative", "server",
-          "checkpoints")
+          "checkpoints", "parallel")
 
 
 def emit(obj) -> None:
@@ -351,9 +353,10 @@ def phase_kernels(torch, dev):
            "k8": [], "k9": [], "k3q": [], "k10": [], "k11": [], "k12": [],
            **{key: [] for key, *_ in PLAN_KERNELS}, "k24": [], "k11_8b": [],
            **{f"k{n}": [] for n in range(25, 34)}, "f32": [], "attn_edges": [],
-           "attn_repeats": []}
+           "attn_repeats": [], "rowstats": []}
     res.update(_profile_calls())
     check_k1_all(torch, dev, g, res)
+    check_rowstats(torch, dev, g, res)
     check_k4(torch, dev, g, K1_SHAPES, K4_MS, "fused", res, K4_TIMED)
     check_k4(torch, dev, g, UNFUSED_SHAPES, K4_MS, "unfused", res)
     check_k4(torch, dev, g, K4_8B_SHAPES, K4_MS, "8b", res)
@@ -631,6 +634,62 @@ def check_k1(torch, dev, g, shapes, Ms, path, res, eps=1e-5, timed=(1,)):
             res["k1"].append(row)
             if not ok:
                 raise AssertionError(f"K1 mismatch: {row}")
+        del words, sv
+
+
+# the row-statistics mode of K1 and K4 (a row-parallel slice: the 8B's o
+# and down at tp = 2, K = 2048 and 7168 of a row of 4096 and 14336)
+ROWPAR_SHAPES = (("o", 2048, 4096, 4096), ("down", 7168, 4096, 14336))
+
+
+def check_rowstats(torch, dev, g, res, eps=1e-5):
+    """K1 (M = 1, 2: its decode form; M = 8: its row kernel and GEMM) and
+    K4 (M = 128) in their row-statistics mode at the 8B's tp = 2 slices,
+    with and without a norm gain, against their plain versions on the same
+    statistics (the whole row's sum of squares and normed absmax, here
+    made larger than the slice's own): the int8 rows bit for bit, the
+    output within K1's tolerance (K4's: exact)."""
+    from bitnet_tpu_torch.ops import ternary_matmul as tm
+
+    for name, K, N, K_full in ROWPAR_SHAPES:
+        words, sv = _stack(torch, g, K, N, dev, min_bytes=0)
+        l = 1
+        for has_g in (False, True):
+            gamma = (torch.rand((words.shape[0], K), generator=g, device=dev) + 0.5
+                     if has_g else None)
+            for M in (1, 2, 8, 128):
+                x = torch.randn((M, K), generator=g, device=dev)
+                ss = (x * x).sum(1) * (K_full / K)          # the whole row's
+                xn = x if gamma is None else (
+                    x * tm.norm_factor(ss, K_full, eps)[:, None]) * gamma[l]
+                stats = torch.stack([ss, xn.abs().amax(1) * 1.25], 1).contiguous()
+                if M <= tm.STACKED_DECODE_MAX_M:
+                    out, xq, sx, sumq = tm._w2a8_normed_cuda(
+                        l, x, words, sv, gamma, K, N, eps, False, None, stats, K_full)
+                    pre = tm.w2a8_preamble_plain(x, None if gamma is None else gamma[l],
+                                                 eps, False, stats, K_full)
+                    plain = tm.ternary_matmul_w2a8_normed_plain(
+                        x, words[l], sv[l], None if gamma is None else gamma[l], eps,
+                        False, None, N, stats, K_full)
+                else:
+                    if gamma is not None:
+                        continue                      # K4 takes normed rows
+                    out, xq, sx, sumq = tm._w2a8_gemm_cuda(l, x, words, sv, K, N, stats)
+                    pre = x
+                    xq_p, sx_p, sumq_p = tm.quantize_rows(x, stats[:, 1])
+                    plain = tm.ternary_matmul_w2a8_plain(xq_p, sumq_p, sx_p, words[l],
+                                                         sv[l], N, x.dtype)
+                xq_p, sx_p, _ = tm.quantize_rows(pre, stats[:, 1])
+                err = (out.float() - plain.float()).abs().max().item()
+                ref = plain.float().abs().max().item()
+                tol = 0.0 if M > tm.STACKED_DECODE_MAX_M else 2e-2 * ref + 1e-3
+                row = {"shape": name, "K": K, "K_full": K_full, "N": N, "M": M,
+                       "gamma": has_g, "max_abs_err": err, "ref_max": ref, "tol": tol,
+                       "rows_exact": bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p))}
+                row["ok"] = row["rows_exact"] and err <= tol
+                res["rowstats"].append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"K1 / K4 row-statistics mismatch: {row}")
         del words, sv
 
 
@@ -5405,7 +5464,8 @@ def phase_server(torch, dev, workdir):
     As a process: ``python -m bitnet_tpu_torch.cli serve`` (the JAX serve's
     generic engine) on a free port: /health 200, one /v1/inference whose
     tokens meet the near-tie rule against the generic engine's
-    ``generate``, SIGTERM then exit code 0.
+    ``generate``, SIGTERM then exit code 0; then ``cli serve --shard 2,1``
+    the same way (two ranks of one host on this card: ``_cli_serve_shard``).
     Figures (host clock, over HTTP, from (i) alone): TTFT p50 / p90 / p99,
     the latency of a request p50 / p90, decoded tok/s over the window, the
     pool's ms a step in it."""
@@ -5672,11 +5732,58 @@ def phase_server(torch, dev, workdir):
                         "tie": _tie_rule(torch, "cli serve", gref, ids,
                                          gplain.token_ids, r["tokens"]),
                         "equal_to_in_process": r["tokens"] == a["tokens"]}
+    out["cli_serve_shard"] = _cli_serve_shard(torch, dev, qk, gref, ids, gplain)
     del gref
     torch.cuda.empty_cache()
     out["seconds"]["phase"] = time.perf_counter() - t_phase
     out["ok"] = True
     return out
+
+
+def _cli_serve_shard(torch, dev, qk, gref, ids, gplain):
+    """``cli serve --shard 2,1`` as a process on this one card: it starts
+    its follower itself (dp = 2: two ranks, two of the four slots each,
+    gloo over a FileStore, ``BITNET_DIST_BACKEND=gloo`` since NCCL refuses
+    two ranks on one GPU); /health, one greedy /v1/inference held to the
+    generic engine by the near-tie rule, SIGTERM, exit 0."""
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bitnet_tpu_torch.cli", "serve", "-m", qk, "--port",
+         str(port), "--max-seq-len", str(SERVER_S), "--kv-cache-dtype", "bf16",
+         "--num-slots", "4", "--shard", "2,1", "--device", dev.type], cwd=REPO,
+        env={**os.environ, "BITNET_DIST_BACKEND": "gloo"}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                st, h = _http(url + "/health", timeout=5)
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 400:
+                    raise AssertionError(f"cli serve --shard did not answer: {proc.poll()}")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        st2, r = _http(url + "/v1/inference", "POST", {
+            "prompt": SERVER_PROMPT, "max_new_tokens": SERVER_TOKENS, "greedy": True})
+    finally:
+        proc.terminate()
+        try:
+            log, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    if st != 200 or h != {"status": "ok"} or st2 != 200 or proc.returncode != 0:
+        raise AssertionError(f"cli serve --shard 2,1: {st} {h} {st2} rc "
+                             f"{proc.returncode} {log[-1500:]}")
+    return {"up_s": up_s, "seconds": time.perf_counter() - t0,
+            "tie": _tie_rule(torch, "cli serve --shard 2,1", gref, ids, gplain.token_ids,
+                             r["tokens"])}
 
 
 # ---------------------------------------------------------------------------
@@ -5687,10 +5794,11 @@ def phase_server(torch, dev, workdir):
 CKPT_S = 1024
 CKPT_REQUESTS = ((32, 32), (128, 128))   # (prompt tokens, new tokens), greedy
 CKPT_WINDOW = 256
-CKPT_RING = (64, 512)                    # prompt tokens, new tokens
+CKPT_RING = (64, 320)                    # prompt tokens, new tokens
 CKPT_FLAT_MIB = 1.0                      # allowed drift of allocated memory
 CKPT_SCORE_CHARS = 300                   # (e): score's text (~one <unk> id a character)
 CKPT_LLAMA = (24, 32)                    # (f): prompt ids, greedy completion tokens
+CKPT_PACK_LAYERS = 2                     # (d): the layers whose QK256 tensors are compared
 
 
 def _sync(torch, dev):
@@ -5903,7 +6011,9 @@ def _write_hf_dir(eng, d):
 
 
 def _pack_leg(torch, dev, qk):
-    """(d) Every QK256 tensor of the 2B packed on the card
+    """(d) The QK256 tensors of the 2B's first ``CKPT_PACK_LAYERS`` layers
+    (not all 210: the numpy side of every tensor took 11-17 s of the
+    phase) packed on the card
     (``qk256_linear_from_payload_torch``) against the numpy route on the
     host, bit for bit: seconds of each side and the largest rise of
     allocated device memory over one tensor's pack (its temporaries and
@@ -5917,7 +6027,8 @@ def _pack_leg(torch, dev, qk):
     with GGUFReader(qk) as r:
         L = int(r.arch_key("block_count"))
         for info in r:
-            if info.ggml_type != GGMLType.I2_S:
+            if info.ggml_type != GGMLType.I2_S or not any(
+                    info.name.startswith(f"blk.{l}.") for l in range(CKPT_PACK_LAYERS)):
                 continue
             rows, cols = info.logical_shape
             payload = r.tensor_bytes(info.name)
@@ -5940,8 +6051,9 @@ def _pack_leg(torch, dev, qk):
                                      "from the numpy route's")
             n += 1
             del got, want
-    if n != 7 * L:
-        raise AssertionError(f"{n} QK256 tensors in the 2B GGUF, not 7 a layer")
+    if n != 7 * min(L, CKPT_PACK_LAYERS):
+        raise AssertionError(f"{n} QK256 tensors in the 2B GGUF's first layers, not 7 a "
+                             "layer")
     return {"tensors": n, "bit_for_bit": True, "card_s": card_s, "plain_s": plain_s,
             "peak_pack_mib": peak / 2**20}
 
@@ -6124,7 +6236,7 @@ def phase_checkpoints(torch, dev, workdir):
         --greedy`` in a process of its own (the mock tokenizer, by the JAX
         package's rule), the cache still unchanged; the files deleted;
     (c) the ring: the packed GGUF with ``sliding_window=256`` (bf16 KV), a
-        64-token prompt and 512 greedy tokens, eager (K = 1, K1 at the
+        64-token prompt and 320 greedy tokens, eager (K = 1, K1 at the
         generic site): while the window holds every position its tokens
         are the plain engine's (near-tie rule); allocated memory flat
         after the first window; decode ms a step and launches a step; then
@@ -6281,7 +6393,7 @@ def phase_checkpoints(torch, dev, workdir):
                                      got[:in_window])})
     # the ring's function on the card: teacher-forced over the prompt and
     # the tokens it generated, against the window mask over a dense cache
-    # (both sides of W and two wraps of the ring)
+    # (both sides of W: the ring wraps past its first W rows)
     c["vs_window_mask"] = vm = _ring_vs_window_mask(torch, win, prompt + got, n_prompt)
     del plain, win
     if min(vm["min_cosine_in_window"], vm["min_cosine_past_window"]) < 0.99 \
@@ -6307,10 +6419,488 @@ def phase_checkpoints(torch, dev, workdir):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase: parallel (the parallel modes: ranks of torch.distributed, one
+# process a rank; two ranks share the one card)
+# ---------------------------------------------------------------------------
+PAR_PROMPT = 100          # prompt tokens of (a) and (b): a prefill of 128 rows (K4)
+PAR_TOKENS = 32           # new tokens a request of (a) and (b)
+PAR_POOL = (12, 40, 24, 60)   # (c): the pool's prompt lengths
+PAR_POOL_TOKENS = 16
+PAR_SEQ = 1024            # (d): the sequence and ring modes' prompt
+PAR_PIPE = (2, 64, 2)     # (d): the pipeline's batch, tokens, microbatches
+PAR_SERVE_LAYERS = 4      # (e): the follower's model, the 8B widths cut to depth
+PAR_PALLAS_LAYERS = 4     # (b)'s pallas step: K6 at the local shapes
+PAR_PALLAS_TOKENS = 8
+PAR_TIMEOUT = 600
+
+
+def phase_parallel(torch, dev, workdir):
+    """The parallel modes (``bitnet_tpu_torch/parallel``), in one group of
+    two worker processes (``--parallel-rank``: gloo over a FileStore, both
+    on this card, so the collectives are host-staged where gloo needs it
+    and nothing here is a scaling figure; NCCL across cards is not checked
+    here).  Every leg is held to the one-process engine on the same
+    weights, in the same run, at bf16: per-step logits cosine >= 0.99 and
+    the near-tie rule where argmaxes part (``_pair_rows``).
+    (a) NCCL, one rank (a group of rank 0 alone): the 8B (32 layers)
+        through ``shard_to_mesh`` on a (1, 1) mesh of that group, two
+        requests of 32 teacher-forced steps and 32 greedy tokens;
+    (b) gloo, tp = 2: the 8B at full width and depth sharded over both
+        ranks (16 / 4 heads, FFN 7168 a rank): K1, K4 and K5 launched at
+        the local shapes (counted), teacher-forced logits then greedy
+        tokens; ms a step and the host-staged collectives' share of it;
+        then a short ``pallas`` run (4 layers, 8 steps) with K6 counted at
+        the same local shapes;
+    (c) gloo, dp = 2: the 2B, a pool of 4 through ``prefill_batch`` /
+        ``decode_batch_step`` teacher-forced, then ``generate_batch``;
+    (d) two pipeline stages, and sequence-parallel and ring prefill of a
+        1024-token prompt, over the 8B widths at 2 layers, each against
+        the one-process forward;
+    (e) a frontend and one follower (tp = 2, a ControlChannel) serving
+        two greedy requests and one seeded Mirostat request at the 8B
+        widths cut to 4 layers, against the one-process scheduler (logits
+        rows of the hook, the near-tie rule at the first parting; the
+        Mirostat tokens equal)."""
+    out_dir = Path(workdir) / "parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
+         "--parallel-dir", str(out_dir)], cwd=REPO,
+        env={**os.environ, "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(10.0, PAR_TIMEOUT - (
+                time.perf_counter() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError("parallel: the ranks timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    (OUT_DIR / "parallel_ranks.log").write_text("\n".join(
+        f"== rank {r}\n{log}" for r, log in enumerate(logs)))
+    res = out_dir / "rank0.json"
+    if any(p.returncode for p in procs) or not res.exists():
+        raise AssertionError(f"parallel: ranks exited {[p.returncode for p in procs]}: "
+                             f"{logs[0][-2000:]}\n{logs[1][-2000:]}")
+    out = json.loads(res.read_text())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _par_forced(torch, eng, prompt, toks):
+    """Logits rows [len(toks) + 1, V] f32 of ``eng``: the prompt's prefill,
+    then a decode step of each of ``toks`` (teacher-forced)."""
+    with torch.inference_mode():
+        rows = [eng.prefill(prompt)[0].float()]
+        for i, t in enumerate(toks):
+            rows.append(eng.decode_step(int(t), len(prompt) + i)[0].float())
+    return torch.stack(rows)
+
+
+def _pair_rows(torch, name, ref, rows, want, got=None):
+    """The parallel phase's rule: rows of logits [n, V] of a sharded run,
+    teacher-forced on ``want`` (the one-process run's greedy tokens), against
+    the one-process rows ``ref``: each step's cosine >= 0.99, and where the
+    argmaxes part the one-process top-2 margin within the largest
+    difference.  ``got``: the sharded run's own greedy tokens, equal to
+    ``want`` up to the first parting, which must be such a near tie of the
+    two runs' rows at that (common) context.  Raises on a failure."""
+    ref, rows = ref.float(), rows.float()
+    cos = torch.nn.functional.cosine_similarity(ref, rows, dim=-1)
+    diff = (ref - rows).abs().amax(-1)
+    top2 = torch.topk(ref, 2, dim=-1).values
+    same = ref.argmax(-1) == rows.argmax(-1)
+    tie = same | (top2[..., 0] - top2[..., 1] <= diff)
+    info = {"min_cosine": float(cos.min()), "argmax_agree": int(same.sum()),
+            "steps": int(same.numel()), "max_abs_diff": float(diff.max()),
+            "bit_equal": bool(torch.equal(ref, rows))}
+    if info["min_cosine"] < 0.99 or not bool(tie.all()):
+        raise AssertionError(f"parallel {name}: {info}")
+    if got is not None:
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        info["tokens_equal"] = j is None and len(got) == len(want)
+        if j is not None:
+            r, x = ref.reshape(-1, ref.shape[-1])[j], rows.reshape(-1, ref.shape[-1])[j]
+            gap = float(r[want[j]] - r[got[j]])
+            info["parts_at"], info["gap"] = j, gap
+            if gap > float((r - x).abs().max()):
+                raise AssertionError(f"parallel {name}: token {j} is no near tie: {info}")
+    return info
+
+
+def _par_greedy(torch, eng, prompt, n):
+    """The one-process engine's greedy tokens and its rows, teacher-forced
+    on them (its own argmax chain)."""
+    with torch.inference_mode():
+        rows, toks = [eng.prefill(prompt)[0].float()], []
+        for i in range(n):
+            toks.append(int(rows[-1].argmax()))
+            rows.append(eng.decode_step(toks[-1], len(prompt) + i)[0].float())
+    return toks, torch.stack(rows)
+
+
+def _par_prompts(cfg, n, length, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (length,), generator=g).tolist()
+            for _ in range(n)]
+
+
+def _par_model(torch, dev, cfg, seed=7):
+    from bitnet_tpu_torch.models.synthetic import build_synthetic, condition_norms
+
+    return condition_norms(build_synthetic(cfg, seed, device=dev), cfg)
+
+
+def _par_leg_nccl(torch, dev, rank, dist):
+    """(a): rank 0 alone in an NCCL group; rank 1 waits."""
+    pg = dist.new_group([0], backend="nccl" if dev.type == "cuda" else "gloo")
+    if rank != 0:
+        return None
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.parallel.comm import Group
+    from bitnet_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+
+    cfg = LLAMA3_8B_158
+    g = Group([0], 0, pg, dist.get_backend(pg))
+    mesh = Mesh({DATA_AXIS: g, MODEL_AXIS: g}, g, dev)
+    ec = EngineConfig(max_seq_len=256, max_batch_size=1, kv_cache_dtype="bf16")
+    params = _par_model(torch, dev, cfg)
+    ref = InferenceEngine(cfg, params, ec, device=dev)
+    eng = InferenceEngine(cfg, params, ec, device=dev).shard_to_mesh(mesh)
+    out = {"requests": []}
+    for prompt in _par_prompts(cfg, 2, PAR_PROMPT, 1):
+        want, rrows = _par_greedy(torch, ref, prompt, PAR_TOKENS)
+        rows = _par_forced(torch, eng, prompt, want)
+        got = eng.generate(prompt, GenerationConfig(max_new_tokens=PAR_TOKENS,
+                                                    greedy=True)).token_ids
+        out["requests"].append(_pair_rows(torch, "(a)", rrows, rows, want, got))
+    out["segment_steps"] = eng._segment_steps()
+    return out
+
+
+def _par_leg_tp(torch, dev, rank, dist):
+    """(b): the 8B, tp = 2 over the two ranks."""
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.parallel import comm, make_mesh
+
+    cfg = LLAMA3_8B_158
+    ec = EngineConfig(max_seq_len=256, max_batch_size=1, kv_cache_dtype="bf16")
+    prompts = _par_prompts(cfg, 2, PAR_PROMPT, 2)
+    refs = [None, None]
+    if rank == 0:
+        ref = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev)
+        refs = [_par_greedy(torch, ref, p, PAR_TOKENS) for p in prompts]
+        del ref
+        torch.cuda.empty_cache()
+    wants = [None if r is None else r[0] for r in refs]
+    dist.broadcast_object_list(wants, src=0)
+    mesh = make_mesh(dp=1, tp=2, device=dev)
+    eng = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev).shard_to_mesh(mesh)
+    out = {"requests": [], "local": {
+        "wq_n": eng.params.blocks.wq.n, "wk_n": eng.params.blocks.wk.n,
+        "w_gate_n": eng.params.blocks.w_gate.n, "wo_k": eng.params.blocks.wo.k,
+        "w_down_k": eng.params.blocks.w_down.k, "cache": list(eng.cache.k.shape)}}
+    registry.reset_launch_counts()
+    for p, want, ref in zip(prompts, wants, refs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = _par_forced(torch, eng, p, want)
+        torch.cuda.synchronize()
+        forced_s = time.perf_counter() - t0
+        got = eng.generate(p, GenerationConfig(max_new_tokens=PAR_TOKENS,
+                                               greedy=True)).token_ids
+        r = {"forced_s": forced_s, "decode_ms_step": eng.last_metrics.decode_s * 1e3
+             / max(1, eng.last_metrics.decode_steps)}
+        if rank == 0:
+            r.update(_pair_rows(torch, "(b)", ref[1], rows, want, got))
+        out["requests"].append(r)
+    out["launches"] = {k: v for k, v in registry.launch_counts().items() if v}
+    for kid in ("ternary_matmul_w2a8_normed", "ternary_matmul_w2a8", "decode_attention"):
+        if not out["launches"].get(kid):
+            raise AssertionError(f"parallel (b): {kid} not launched: {out['launches']}")
+    # the host-staged collectives' share of a step: the same steps, each
+    # collective timed between device synchronizations
+    comm.reset_stats()
+    comm.timing(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _par_forced(torch, eng, prompts[0], wants[0][:8])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    comm.timing(False)
+    st = comm.stats()
+    out["collectives"] = {**st, "wall_s": wall, "staged_share": st["staged_seconds"] / wall,
+                          "share": st["seconds"] / wall,
+                          "note": "two ranks time-share one card over gloo: not a "
+                                  "scaling figure"}
+    del eng
+    torch.cuda.empty_cache()
+    out["pallas"] = _par_tp_pallas(torch, dev, rank, dist, prompts[0])
+    return out
+
+
+def _par_tp_pallas(torch, dev, rank, dist, prompt):
+    """(b)'s ``pallas`` step: K6 at the 8B's tp = 2 local shapes (the row-
+    parallel branch: the norm in torch, K6 on f32 x, the f32 partial sums
+    all-reduced), the 8B widths at PAR_PALLAS_LAYERS layers, teacher-forced
+    on the one-process pallas engine's greedy tokens."""
+    import dataclasses
+
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.ops import registry
+    from bitnet_tpu_torch.parallel import make_mesh
+
+    cfg = dataclasses.replace(LLAMA3_8B_158, num_layers=PAR_PALLAS_LAYERS)
+    ec = EngineConfig(max_seq_len=256, max_batch_size=1, kv_cache_dtype="bf16",
+                      kernel_path="pallas")
+    ref = [None, None]
+    if rank == 0:
+        one = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev)
+        ref = list(_par_greedy(torch, one, prompt, PAR_PALLAS_TOKENS))
+        del one
+        torch.cuda.empty_cache()
+    want = ref[:1]
+    dist.broadcast_object_list(want, src=0)
+    eng = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev).shard_to_mesh(
+        make_mesh(dp=1, tp=2, device=dev))
+    registry.reset_launch_counts()
+    rows = _par_forced(torch, eng, prompt, want[0])
+    torch.cuda.synchronize()
+    out = {"layers": PAR_PALLAS_LAYERS,
+           "launches": {k: v for k, v in registry.launch_counts().items() if v}}
+    if not out["launches"].get("ternary_matmul_bf16"):
+        raise AssertionError(f"parallel (b) pallas: K6 not launched: {out['launches']}")
+    if rank == 0:
+        out.update(_pair_rows(torch, "(b) pallas", ref[1], rows, want[0]))
+    return out
+
+
+def _par_leg_dp(torch, dev, rank, dist):
+    """(c): the 2B, dp = 2: a pool of 4, two slots a rank."""
+    import numpy as np
+
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.engine.engine import InferenceEngine
+    from bitnet_tpu_torch.models.synthetic import BITNET_2B4T
+    from bitnet_tpu_torch.parallel import make_mesh
+
+    cfg = BITNET_2B4T
+    ec = EngineConfig(max_seq_len=256, max_batch_size=4, kv_cache_dtype="bf16")
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in PAR_POOL]
+    gc = GenerationConfig(max_new_tokens=PAR_POOL_TOKENS, greedy=True)
+    pos0 = np.array(PAR_POOL, np.int32)
+
+    def forced(eng, toks):
+        with torch.inference_mode():
+            rows = [eng.prefill_batch(prompts).float()]
+            for i in range(toks.shape[0]):
+                rows.append(eng.decode_batch_step(toks[i].to(eng.device),
+                                                  pos0 + i).float())
+        return torch.stack(rows)               # [steps + 1, B, V]
+    want = [None]
+    if rank == 0:
+        ref = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev)
+        with torch.inference_mode():
+            rows, toks = [ref.prefill_batch(prompts).float()], []
+            for i in range(PAR_POOL_TOKENS):
+                toks.append(rows[-1].argmax(-1))
+                rows.append(ref.decode_batch_step(toks[-1], pos0 + i).float())
+        rref = torch.stack(rows)
+        want = [torch.stack(toks).cpu()]
+        ref_batch = [r.token_ids for r in ref.generate_batch(prompts, gc)]
+        del ref
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(want, src=0)
+    eng = InferenceEngine(cfg, _par_model(torch, dev, cfg), ec, device=dev).shard_to_mesh(
+        make_mesh(dp=2, tp=1, device=dev))
+    rows = forced(eng, want[0])
+    got = [r.token_ids for r in eng.generate_batch(prompts, gc)]
+    out = {"local_cache": list(eng.cache.k.shape)}
+    if rank == 0:
+        out["slots"] = [_pair_rows(torch, f"(c) slot {b}", rref[:, b], rows[:, b],
+                                   want[0][:, b].tolist(), got[b])
+                        for b in range(len(prompts))]
+        out["equal_to_one_process_generate_batch"] = got == ref_batch
+    return out
+
+
+def _par_leg_modes(torch, dev, rank, dist):
+    """(d): pipeline, sequence and ring at the 8B widths, 2 layers."""
+    import dataclasses
+
+    from bitnet_tpu_torch.config import EngineConfig
+    from bitnet_tpu_torch.engine.engine import prepare_params
+    from bitnet_tpu_torch.models.bitnet import forward, logits
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.parallel.pipeline import (make_pipeline_mesh, pipeline_forward,
+                                                    shard_pipeline_params)
+    from bitnet_tpu_torch.parallel.ring import ring_parallel_prefill
+    from bitnet_tpu_torch.parallel.sequence import make_seq_mesh, sequence_parallel_prefill
+
+    cfg = dataclasses.replace(LLAMA3_8B_158, num_layers=2)
+    params, _ = prepare_params(_par_model(torch, dev, cfg), EngineConfig(), dev, "w2a8")
+    KVD = cfg.num_kv_heads * cfg.head_dim
+
+    def one_process(tokens):
+        B, T = tokens.shape
+        kc = torch.zeros((cfg.num_layers, B, T, KVD), dtype=torch.bfloat16, device=dev)
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+        h, _, _ = forward(cfg, params, tokens, pos, kc, torch.zeros_like(kc),
+                          torch.zeros(B, dtype=torch.int32, device=dev), T, "w2a8")
+        return logits(cfg, params, h, "w2a8")
+    out = {}
+    with torch.inference_mode():
+        B, T, M = PAR_PIPE
+        toks = torch.tensor(_par_prompts(cfg, B, T, 4), device=dev)
+        want = one_process(toks)
+        mesh = make_pipeline_mesh(2, device=dev)
+        pp = shard_pipeline_params(mesh, cfg, params)
+        kc = torch.zeros((1, B, T, KVD), dtype=torch.bfloat16, device=dev)
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+        lg, _, _ = pipeline_forward(cfg, pp, toks, pos, kc, torch.zeros_like(kc),
+                                    torch.zeros(B, dtype=torch.int32, device=dev), mesh, M)
+        out["pipeline"] = _pair_rows(torch, "(d) pipeline", want, lg, [])
+        toks = torch.tensor(_par_prompts(cfg, 1, PAR_SEQ, 5), device=dev)
+        want = one_process(toks)
+        Tl = PAR_SEQ // 2
+        mine = want[:, rank * Tl:(rank + 1) * Tl]
+        smesh = make_seq_mesh(2, device=dev)
+        for name, fn in (("sequence", sequence_parallel_prefill),
+                         ("ring", ring_parallel_prefill)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _, _ = fn(cfg, params, toks, smesh, "w2a8")
+            torch.cuda.synchronize()
+            out[name] = dict(_pair_rows(torch, f"(d) {name}", mine, lg, []),
+                             s=time.perf_counter() - t0)
+    return out
+
+
+def _par_leg_follower(torch, dev, rank, dist):
+    """(e): a frontend (rank 0) and a follower (rank 1), tp = 2."""
+    import dataclasses
+
+    from bitnet_tpu_torch.config import EngineConfig, GenerationConfig
+    from bitnet_tpu_torch.models.synthetic import LLAMA3_8B_158
+    from bitnet_tpu_torch.parallel.multihost import host_mesh
+    from bitnet_tpu_torch.serve.follower import ControlChannel
+    from bitnet_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = dataclasses.replace(LLAMA3_8B_158, num_layers=PAR_SERVE_LAYERS)
+    ec = EngineConfig(max_seq_len=256, kv_cache_dtype="bf16")
+    prompts = _par_prompts(cfg, 3, 24, 6)
+    gens = [GenerationConfig(max_new_tokens=16, greedy=True),
+            GenerationConfig(max_new_tokens=16, greedy=True),
+            GenerationConfig(max_new_tokens=8, mirostat=2, seed=11)]
+
+    def serve(sched):
+        rows = {}
+        sched.logits_hook = lambda req, row: rows.setdefault(req.id, []).append(
+            row.float().clone())
+        toks = []
+        try:
+            for p, gen in zip(prompts, gens):
+                req = sched.submit(p, gen)
+                toks.append([t for t, _ in sched.stream(req, timeout=300)])
+                toks[-1] = (toks[-1], torch.stack(rows[req.id]))
+        finally:
+            sched.shutdown()
+        return toks
+    ref = None
+    if rank == 0:
+        ref = serve(ContinuousBatchingScheduler(cfg, _par_model(torch, dev, cfg), None, ec,
+                                                num_slots=2, device=dev))
+    dist.barrier()
+    mesh = host_mesh(tp=2, device=dev)
+    ch = ControlChannel()
+    params = _par_model(torch, dev, cfg)
+    if rank != 0:
+        ContinuousBatchingScheduler(cfg, params, None, ec, num_slots=2, mesh=mesh,
+                                    channel=ch, start_loop=False, device=dev).follow()
+        return None
+    t0 = time.perf_counter()
+    got = serve(ContinuousBatchingScheduler(cfg, params, None, ec, num_slots=2,
+                                            mesh=mesh, channel=ch, device=dev))
+    out = {"serve_s": time.perf_counter() - t0, "requests": []}
+    for i, ((gt, grows), (wt, wrows)) in enumerate(zip(got, ref)):
+        if i < 2:
+            n = min(len(grows), len(wrows))
+            out["requests"].append(_pair_rows(torch, f"(e) request {i}", wrows[:n],
+                                              grows[:n], wt, gt))
+        else:
+            # the seeded draw meets the one-process scheduler's token for
+            # token: the sharded logits are the unsharded function's
+            if len(gt) != gens[2].max_new_tokens or gt != wt:
+                raise AssertionError(f"parallel (e): Mirostat gave {gt}, one process {wt}")
+            out["requests"].append({"mirostat_tokens": len(gt),
+                                    "equal_to_one_process": True})
+    return out
+
+
+PAR_LEGS = (("a_nccl", _par_leg_nccl), ("b_tp", _par_leg_tp), ("c_dp", _par_leg_dp),
+            ("d_modes", _par_leg_modes), ("e_follower", _par_leg_follower))
+
+
+def parallel_worker(rank: int, out_dir: str, device: str = "cuda") -> int:
+    """One rank of the parallel phase (``--parallel-rank``): joins the
+    two-rank gloo group, runs every leg in order, writes its results;
+    rank 0's are the phase's."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from bitnet_tpu_torch.parallel.multihost import init_distributed
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_distributed("file://" + os.path.join(out_dir, "store"), 2, rank,
+                     backend="gloo", timeout_s=120, device=dev)
+    res = {"rank": rank, "nvidia_smi": nvidia_smi_line()}
+    try:
+        for name, fn in PAR_LEGS:
+            t0 = time.perf_counter()
+            r = fn(torch, dev, rank, dist)
+            torch.cuda.synchronize()
+            res[name] = r
+            res.setdefault("leg_s", {})[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            dist.barrier()
+    except Exception:            # noqa: BLE001 — the parent reads the log
+        traceback.print_exc()
+        return 1
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parallel_rank is not None:           # a rank of the parallel phase
+        return parallel_worker(args.parallel_rank, args.parallel_dir)
     phases = [p for p in args.phases.split(",") if p]
     try:
         import torch
@@ -6351,7 +6941,8 @@ def main(argv=None) -> int:
         emit(report["probe"])
         if any(p in phases for p in ("build", "kernels", "k1", "k11", "k24", "k33", "w2a8",
                                      "segments", "requests", "scheduler", "gate",
-                                     "speculative", "server", "checkpoints")):
+                                     "speculative", "server", "checkpoints",
+                                     "parallel")):
             secs = _cuda.build()
             report["build"] = {"phase": "build", "seconds": secs}
             (OUT_DIR / "ptxas.txt").write_text(
@@ -6364,8 +6955,10 @@ def main(argv=None) -> int:
                 emit({"phase": f"kernels.{k}", "rows": rows})
         if "k1" in phases:
             res = {"k1": []}
-            timed("k1", check_k1_all, torch, dev, torch.Generator(device=dev).manual_seed(1234),
-                  res)
+            g1 = torch.Generator(device=dev).manual_seed(1234)
+            res["rowstats"] = []
+            timed("k1", lambda: (check_k1_all(torch, dev, g1, res),
+                                 check_rowstats(torch, dev, g1, res)))
             report["k1"] = res
             for k, rows in res.items():
                 emit({"phase": f"k1.{k}", "nvidia_smi": smi, "rows": rows})
@@ -6506,6 +7099,13 @@ def main(argv=None) -> int:
                   "b_hf_dir": r["b_hf_dir"], "c_ring": r["c_ring"],
                   "d_pack": r["d_pack"], "e_cli": r["e_cli"],
                   "f_llama": r["f_llama"], "launches": launches["checkpoints"]})
+        if "parallel" in phases:
+            report["parallel"] = r = timed("parallel", phase_parallel, torch, dev,
+                                           workdir.name)
+            launches["parallel"] = dict(r["b_tp"]["launches"])
+            _add(launches["parallel"], r["b_tp"]["pallas"]["launches"])
+            emit({"phase": "parallel", "nvidia_smi": smi, "seconds": seconds["parallel"],
+                  **{k: v for k, v in r.items() if k not in ("seconds",)}})
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -6529,6 +7129,10 @@ def main(argv=None) -> int:
         # unstacked sites (K1, K4, K5, K6)
         row["checkpoints_launches"] = (launches.get("checkpoints", {}).get(kid, 0)
                                        if phase == "generic" else 0)
+        # so does the parallel phase's leg (b): rank 0's launches at the 8B's
+        # tp = 2 local shapes
+        row["parallel_launches"] = (launches.get("parallel", {}).get(kid, 0)
+                                    if phase == "generic" else 0)
     report["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))

@@ -98,33 +98,75 @@ def test_load_model_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     assert params.blocks.wq.packed.device.type == "cpu"
 
 
-@pytest.mark.parametrize("entry", ["llama", "qk256_pack"])
+@pytest.mark.parametrize("entry", ["llama", "qk256_pack", "make_mesh", "host_mesh",
+                                   "single_device_mesh", "init_distributed",
+                                   "worker_loop", "serve_shard"])
 def test_the_new_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path,
                                                              entry):
-    """The llama-cpp-python drop-in and the QK256 pack on the load device
-    run on the card unless the caller asks for the CPU."""
+    """The llama-cpp-python drop-in, the QK256 pack on the load device and
+    the parallel modes' entry points (the meshes, joining a group, a
+    follower, ``serve --shard`` under the launch contract) run on the card
+    unless the caller asks for the CPU; without one they raise before any
+    group is joined.  A follower and a sharded server on the CPU run in
+    ``tests/test_torch_parallel.py`` (they block until the frontend stops)."""
     import numpy as np
+    import torch.distributed as dist
 
+    from bitnet_tpu_torch.config import EngineConfig
     from bitnet_tpu_torch.errors import ConfigError
     from bitnet_tpu_torch.gguf.fixtures import MiniModelSpec, generate_mini_gguf
 
     path = str(tmp_path / "m.gguf")
     generate_mini_gguf(path, MiniModelSpec(quant="qk256", hidden_size=256,
                                            intermediate_size=256))
+    for k in ("BITNET_COORDINATOR", "BITNET_DIST_BACKEND", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    store = "file://" + str(tmp_path / "store")
     if entry == "llama":
         from bitnet_tpu_torch.compat.llama import Llama
 
         call, cpu = (lambda **kw: Llama(path, n_ctx=32, verbose=False, **kw),
                      lambda llm: llm.n_ctx == 32)
-    else:
+    elif entry == "qk256_pack":
         from bitnet_tpu_torch.ops.linear import qk256_linear_from_payload_torch
 
         call, cpu = (lambda **kw: qk256_linear_from_payload_torch(
             np.zeros(64, np.uint8), 1, 256, **kw), lambda lin: lin.packed.is_cpu)
+    elif entry in ("make_mesh", "host_mesh", "single_device_mesh"):
+        from bitnet_tpu_torch import parallel
+
+        call = getattr(parallel, entry)
+        cpu = lambda mesh: mesh.device.type == "cpu" and mesh.size == 1  # noqa: E731
+    elif entry == "init_distributed":
+        from bitnet_tpu_torch.parallel.multihost import init_distributed
+
+        def call(**kw):
+            return init_distributed(store, 1, 0, timeout_s=30, **kw)
+
+        def cpu(joined):
+            try:
+                return joined and dist.get_backend() == "gloo"
+            finally:
+                dist.destroy_process_group()
+    elif entry == "worker_loop":
+        from bitnet_tpu_torch.serve.follower import worker_loop
+
+        call = lambda: worker_loop(path, EngineConfig(max_seq_len=32), 1)  # noqa: E731
+        cpu = None
+    else:
+        from bitnet_tpu_torch.serve.server import serve
+
+        monkeypatch.setenv("BITNET_COORDINATOR", store)
+        monkeypatch.setenv("BITNET_NUM_PROCESSES", "1")
+        monkeypatch.setenv("BITNET_PROCESS_ID", "0")
+        call = lambda: serve(path, shard="1,1")  # noqa: E731
+        cpu = None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ConfigError, match="CUDA is not available"):
         call()
-    assert cpu(call(device="cpu"))
+    assert not dist.is_initialized()
+    if cpu is not None:
+        assert cpu(call(device="cpu"))
 
 
 def test_allocate_cache_needs_cuda_unless_asked_for_cpu(monkeypatch):
@@ -296,10 +338,11 @@ def test_non_greedy_sampling_is_not_ported():
     exp_r4_attn (they raised naming #12; the variant's plain leg runs here),
     and so is speculative decoding (it raised naming #12), and so are the
     scheduler's request checkpoints (they raised naming #12 (c), with the
-    server), and so is the windowed cache (it raised naming #7); ``serve()``
-    / ``cli serve``'s mesh and multi-host branches still raise, naming #13.
-    The refusals left in the port name only the live IDs #13 and #21 (the
-    CLI's subcommands, #17, and the loader's rest, #22, are ported), and no
+    server), and so is the windowed cache (it raised naming #7), and so are
+    ``serve()`` / ``cli serve``'s mesh and multi-host branches and the
+    scheduler's mesh, channel and ``follow`` (they raised naming #13).
+    The refusals left in the port name only the live ID #21 (the CLI's
+    subcommands, #17, and the loader's rest, #22, are ported), and no
     module of the port imports ``safetensors``."""
     import inspect
     import re
@@ -325,21 +368,19 @@ def test_non_greedy_sampling_is_not_ported():
         live |= set(re.findall(r'queue 1 (#\d+)', text))
         live |= set(re.findall(r'not_ported\([^)]*"(#\d+)', text, re.S))
         assert "safetensors" not in _imported_roots(path), path
-    assert live <= {"#13", "#21"} and "#13" in live, live
+    assert live <= {"#21"} and "#21" in live, live
     assert '"#12 (c)"' not in inspect.getsource(scheduler)
-    assert inspect.getsource(server.serve).count('"#13")') == 2
-    assert "#13" in inspect.getsource(_add_serve_parser)
-    for kw in ({"shard": "2,4"}, {}):
-        env = {} if kw else {"BITNET_COORDINATOR": "localhost:1"}
-        old_env = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 #13"):
-                server.serve("/nonexistent.gguf", device="cpu", **kw)
-        finally:
-            for k, v in old_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
+    assert "not_ported" not in inspect.getsource(server.serve)
+    assert "not_ported" not in inspect.getsource(scheduler)
+    assert "#13" not in inspect.getsource(_add_serve_parser)
+    # serve's shard branch parses and refuses as the JAX server does (a
+    # one-rank mesh needs no other process; the file is read after it)
+    from bitnet_tpu_torch.errors import ConfigError, FormatError
+
+    with pytest.raises(ConfigError, match="--shard expects DP,TP"):
+        server.serve("/nonexistent.gguf", device="cpu", shard="2")
+    with pytest.raises((FormatError, FileNotFoundError, OSError)):
+        server.serve("/nonexistent.gguf", device="cpu", shard="1,1")
     assert "not_ported" not in inspect.getsource(exp_r4_attn)
     step, make_carry, fn, _ = exp_r4_attn.make_variant("paged", L=2, B=2, S=256,
                                                        device="cpu")

@@ -84,12 +84,9 @@ class _Lib:
         self.calls.append(("k11", args[16:-1]))
         return 0
 
-    def bn_w2a8_normed_decode(self, *args):
-        self.calls.append(("decode", args[17:-1]))
-        return 0
-
-    def bn_w2a8_normed_gemm(self, *args):
-        self.calls.append(("gemm", args[17:-1]))
+    def bn_w2a8_normed(self, *args):
+        cols, bt, split = args[19:22]
+        self.calls.append(("decode", (cols,)) if cols else ("gemm", (bt, split)))
         return 0
 
 

@@ -355,20 +355,29 @@ def test_stop_sequence_and_stop_id_inside_a_window(model, engine):
     # JAX package's InferenceError
     pytest.param({"pipeline_depth": 2}, None, id="kw0-#12 \\(b\\)"),
     pytest.param({"speculative_k": 2}, None, id="kw1-#12 \\(b\\)"),
-    ({"mesh": object()}, "#13"), ({"channel": object()}, "#13")])
+    # ported (they raised naming #13): a channel without a mesh, and a
+    # channel over the paged pool, raise the JAX package's refusals
+    # (``bitnet_tpu/serve/scheduler.py:217-226``)
+    pytest.param({"channel": object()}, "#13", id="kw2-#13"),
+    pytest.param({"channel": object(), "mesh": "1x1"}, "#13", id="kw3-#13")])
 def test_out_of_slice_options_raise(model, jmodel, kw, item):
-    if item is None:
-        from bitnet_tpu.errors import InferenceError as JInferenceError
-        from bitnet_tpu_torch.errors import InferenceError
+    from bitnet_tpu.errors import InferenceError as JInferenceError
+    from bitnet_tpu_torch.errors import InferenceError
 
-        with pytest.raises(JInferenceError) as want:
-            make_jax(jmodel, paged=True, start_loop=False, **kw)
-        with pytest.raises(InferenceError) as got:
-            make(model, paged=True, start_loop=False, **kw)
-        assert str(got.value) == str(want.value)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        make(model, **kw)
+    jkw, pkw = dict(kw), dict(kw)
+    if kw.get("mesh") == "1x1":
+        import jax
+
+        from bitnet_tpu.parallel import make_mesh as jax_make_mesh
+        from bitnet_tpu_torch.parallel import single_device_mesh
+
+        jkw["mesh"] = jax_make_mesh(dp=1, tp=1, devices=jax.devices()[:1])
+        pkw["mesh"] = single_device_mesh("cpu")
+    with pytest.raises(JInferenceError) as want:
+        make_jax(jmodel, paged=True, start_loop=False, **jkw)
+    with pytest.raises(InferenceError) as got:
+        make(model, paged=True, start_loop=False, **pkw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("call,item", [
@@ -378,15 +387,23 @@ def test_out_of_slice_options_raise(model, jmodel, kw, item):
                  id="<lambda>-#12 \\(c\\)0"),
     pytest.param(lambda s, d: s.resume_requests(d), None,
                  id="<lambda>-#12 \\(c\\)1"),
-    (lambda s, d: s.follow(), "#13")])
+    # ported (it raised naming #13): follow() without a channel raises the
+    # JAX package's refusal (``bitnet_tpu/serve/scheduler.py:886-889``)
+    pytest.param(lambda s, d: s.follow(), "#13", id="<lambda>-#13")])
 def test_out_of_slice_methods_raise(model, jmodel, tmp_path, call, item):
     s = make(model, start_loop=False)
+    js = make_jax(jmodel, start_loop=False)
     if item is None:
-        js = make_jax(jmodel, start_loop=False)
         assert call(s, str(tmp_path / "p")) == call(js, str(tmp_path / "j")) == []
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+    from bitnet_tpu.errors import InferenceError as JInferenceError
+    from bitnet_tpu_torch.errors import InferenceError
+
+    with pytest.raises(JInferenceError) as want:
+        call(js, str(tmp_path))
+    with pytest.raises(InferenceError) as got:
         call(s, str(tmp_path))
+    assert str(got.value) == str(want.value)
 
 
 def test_the_card_is_the_default_device(model):
